@@ -1,0 +1,235 @@
+// Cross-attention of a few query rows over a long projected key/value stream:
+// the forward of K2's flash form (single head) and of K3 (multi-head).
+//
+// Replaces fact_clip_tpu/ops/pallas/x2y_attn.py::_x2y_flash_fwd_impl
+// (_flash_kernel) and fact_clip_tpu/ops/pallas/mha_attn.py::_mha_fwd_impl
+// (_mha_kernel).  Both TPU kernels walk the key axis sequentially per video,
+// carrying an online softmax in VMEM scratch.  Blocks on the H100 run in no
+// order, so the walk is split instead:
+//
+//   partial: one block per (key tile of 64, video).  It projects the tile
+//            K = (x + pos) @ Wk + bk into shared memory, takes per (head,
+//            query) row logits = q.K * scale with keys at or past x_len set
+//            to -1e9, the tile max m, the weights exp(logit - m) and their
+//            sum l; then projects V = x @ Wv + bv into the same buffer and
+//            takes acc = sum exp(logit - m) V.  K and V never reach global
+//            memory.  The single-head form also streams the masked logits out
+//            (the losses and the decode read them).
+//   combine: one block per (head, query row, video) merges the tiles' (m, l,
+//            acc) into the attention output, and for the single-head form
+//            writes probs = exp(logit - m_max) / l_total.
+//
+// Bound on the H100: the two projections, 2 * 2 * B*X*Cx*E FLOPs of f32
+// FMA (25.8 GFLOP for the u-block's f2a at B=8, X=3072, Cx=E=512; 12.9 GFLOP
+// per SCA layer at E=256).  A tile of 64 keys lets every weight value fetched
+// from L2 serve 64 rows; one K/V buffer keeps the block within shared memory
+// at E=512.  The partial results add B * X/64 * H*M * (hd + 2) floats of
+// traffic each way (32 MB for the f2a, 17 MB per SCA layer), small next to
+// the FMA time.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BK = 64;  // keys per block: two per lane in the softmax stage
+
+__global__ void __launch_bounds__(fk::kThreads)
+proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ xpos,
+                         long long pos_bstride, int Px, const float* __restrict__ q,
+                         const float* __restrict__ wk, const float* __restrict__ bk,
+                         const float* __restrict__ wv, const float* __restrict__ bv,
+                         const int* __restrict__ xlen, int X, int Cx, int M, int H, int hd,
+                         float scale, float* __restrict__ logits,
+                         float* __restrict__ part_acc, float* __restrict__ part_ml) {
+  constexpr int RM = BK / 8;
+  const int E = H * hd;
+  const int HM = H * M;
+  const int lde = E + 1;  // odd stride: lane j reading row j is conflict-free
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<BK>& s = *reinterpret_cast<fk::GemmSmem<BK>*>(smem_raw);
+  float* kv_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BK>) / sizeof(float);
+  float* p_s = kv_s + BK * lde;  // [HM][BK]: exp(logit - m) per row and key
+
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int n_t = gridDim.x;
+  const int b = blockIdx.y;
+  const int x0 = tile * BK;
+  const int xl = min(xlen[b], X);
+  const float* xb = x + (size_t)b * X * Cx;
+  const float* pb = xpos ? xpos + (size_t)b * pos_bstride : nullptr;
+  float acc[RM][8];
+
+  // out[r][c] = in(r, :) @ W[:, c] + bias[c] for the tile's rows
+  auto project = [&](auto in, const float* __restrict__ W, const float* __restrict__ bias) {
+    for (int n0 = 0; n0 < E; n0 += fk::kBN) {
+      fk::gemm_pass<BK>(acc, in, W, E, Cx, n0, E, s);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = n0 + fk::pass_col(j);
+          if (c < E) kv_s[fk::pass_row<BK>(i) * lde + c] = acc[i][j] + __ldg(bias + c);
+        }
+    }
+    __syncthreads();
+  };
+  auto xk_in = [&](int r, int k) {  // x + pos: the key projection's input
+    const int key = x0 + r;
+    if (key >= X) return 0.f;
+    float v = __ldg(xb + (size_t)key * Cx + k);
+    if (pb != nullptr && k < Px) v += __ldg(pb + (size_t)key * Px + k);
+    return v;
+  };
+  auto xv_in = [&](int r, int k) {
+    const int key = x0 + r;
+    return key < X ? __ldg(xb + (size_t)key * Cx + k) : 0.f;
+  };
+
+  project(xk_in, wk, bk);
+  for (int hm = ty; hm < HM; hm += fk::kWarps) {
+    const int h = hm / M;
+    const int m = hm - h * M;
+    const float* qr = q + ((size_t)b * M + m) * E + h * hd;
+    float lg[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int key = x0 + u * 32 + tx;
+      const float* kr = kv_s + (u * 32 + tx) * lde + h * hd;
+      float dot = 0.f;
+      for (int dd = 0; dd < hd; ++dd) dot = fmaf(__ldg(qr + dd), kr[dd], dot);
+      lg[u] = key < X ? (key < xl ? dot * scale : fk::kMaskedLogit) : -INFINITY;
+      if (logits != nullptr && key < X) logits[((size_t)b * M + m) * X + key] = lg[u];
+    }
+    const float mt = fk::warp_max(fmaxf(lg[0], lg[1]));
+    float lt = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float p = x0 + u * 32 + tx < X ? expf(lg[u] - mt) : 0.f;
+      p_s[hm * BK + u * 32 + tx] = p;
+      lt += p;
+    }
+    lt = fk::warp_sum(lt);
+    if (tx == 0) {
+      float* ml = part_ml + (((size_t)b * n_t + tile) * HM + hm) * 2;
+      ml[0] = mt;
+      ml[1] = lt;
+    }
+  }
+  __syncthreads();  // every row is done with K before V overwrites it
+
+  project(xv_in, wv, bv);
+  for (int hm = ty; hm < HM; hm += fk::kWarps) {
+    const int h = hm / M;
+    const float* pr = p_s + hm * BK;
+    float* pa = part_acc + (((size_t)b * n_t + tile) * HM + hm) * hd;
+    for (int dd = tx; dd < hd; dd += 32) {
+      const float* vc = kv_s + h * hd + dd;
+      float a = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < BK; ++j) a = fmaf(pr[j], vc[j * lde], a);
+      pa[dd] = a;
+    }
+  }
+}
+
+__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
+  v = is_max ? fk::warp_max(v) : fk::warp_sum(v);
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int i = 1; i < fk::kWarps; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
+  return r;
+}
+
+__global__ void __launch_bounds__(fk::kThreads)
+proj_attn_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                         int n_t, int M, int H, int hd, float* __restrict__ out,
+                         const float* __restrict__ logits, float* __restrict__ probs, int X) {
+  extern __shared__ float4 smem_raw[];
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kThreads]
+  float* w = red + fk::kThreads;                    // [n_t]
+  const int tid = threadIdx.x;
+  const int hm = blockIdx.x;
+  const int b = blockIdx.y;
+  const int HM = H * M;
+  const int h = hm / M;
+  const int m = hm - h * M;
+  const float* ml = part_ml + ((size_t)b * n_t * HM + hm) * 2;
+
+  float mx = -INFINITY;
+  for (int t = tid; t < n_t; t += fk::kThreads) mx = fmaxf(mx, ml[(size_t)t * HM * 2]);
+  mx = block_reduce(mx, red, true);
+  float l = 0.f;
+  for (int t = tid; t < n_t; t += fk::kThreads) {
+    const float wt = expf(ml[(size_t)t * HM * 2] - mx);
+    w[t] = wt;
+    l += wt * ml[(size_t)t * HM * 2 + 1];
+  }
+  l = block_reduce(l, red, false);  // its barriers also publish w[]
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+
+  const float* pa = part_acc + ((size_t)b * n_t * HM + hm) * hd;
+  const size_t tstride = (size_t)HM * hd;
+  float* o = out + ((size_t)b * M + m) * (H * hd) + h * hd;
+  const int DD = hd < fk::kThreads ? hd : fk::kThreads;  // threads per row slice
+  const int TG = fk::kThreads / DD;                       // tile groups
+  const int g = tid / DD;
+  const int dd0 = tid - g * DD;
+  if (TG == 1) {
+    for (int dd = dd0; dd < hd; dd += DD) {
+      float a = 0.f;
+      for (int t = 0; t < n_t; ++t) a = fmaf(w[t], pa[t * tstride + dd], a);
+      o[dd] = a * inv;
+    }
+  } else {
+    // hd < 256: several tile groups per output column, summed through smem
+    __syncthreads();
+    float a = 0.f;
+    if (g < TG)
+      for (int t = g; t < n_t; t += TG) a = fmaf(w[t], pa[t * tstride + dd0], a);
+    red[tid] = a;
+    __syncthreads();
+    if (g == 0) {
+      for (int i = 1; i < TG; ++i) a += red[i * DD + dd0];
+      o[dd0] = a * inv;
+    }
+  }
+
+  if (probs != nullptr) {
+    const float* lr = logits + ((size_t)b * M + m) * X;
+    float* pr = probs + ((size_t)b * M + m) * X;
+    for (int xk = tid; xk < X; xk += fk::kThreads) pr[xk] = expf(lr[xk] - mx) * inv;
+  }
+}
+
+}  // namespace
+
+extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bstride, int Px,
+                            const float* q, const float* wk, const float* bk, const float* wv,
+                            const float* bv, const int* xlen, int B, int X, int Cx, int M,
+                            int H, int hd, float scale, float* logits, float* probs, float* out,
+                            float* part_acc, float* part_ml, void* stream) {
+  const int E = H * hd;
+  const int n_t = (X + BK - 1) / BK;
+  const size_t smem_p = sizeof(fk::GemmSmem<BK>) +
+                        ((size_t)BK * (E + 1) + (size_t)H * M * BK) * sizeof(float);
+  cudaError_t err = fk::set_smem((const void*)proj_attn_partial_kernel, smem_p);
+  if (err != cudaSuccess) return (int)err;
+  proj_attn_partial_kernel<<<dim3(n_t, B), fk::kThreads, smem_p, (cudaStream_t)stream>>>(
+      x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, X, Cx, M, H, hd, scale, logits,
+      part_acc, part_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
+  err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);
+  if (err != cudaSuccess) return (int)err;
+  proj_attn_combine_kernel<<<dim3(H * M, B), fk::kThreads, smem_c, (cudaStream_t)stream>>>(
+      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X);
+  return (int)cudaGetLastError();
+}

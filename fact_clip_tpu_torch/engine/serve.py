@@ -1,0 +1,80 @@
+"""Serving: bucketed, padded batches of variable-length videos.
+
+Counterpart of ``fact_clip_tpu/engine/export.py:189-260``
+(``ServingModel.predict``) with the bucket ladder of
+``fact_clip_tpu/data/batching.py:25-43``.  The port keeps its own copy of
+the ladder so that serving imports nothing of the JAX package; a test holds
+the two equal.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .steps import make_eval_step
+
+
+def bucket_lengths(max_len: int, multiple: int = 128, growth: float = 1.26) -> list:
+    """Geometric ladder of padded lengths, each a multiple of ``multiple``."""
+    buckets = []
+    cur = multiple
+    while cur < max_len:
+        buckets.append(cur)
+        cur = max(int(math.ceil(cur * growth / multiple)) * multiple, cur + multiple)
+    buckets.append(int(math.ceil(max_len / multiple)) * multiple)
+    return buckets
+
+
+class Predictor:
+    """``predict(feats_list)`` buckets the requests by length, pads each
+    group to ``batch_size`` by repeating its last video, runs the eval step
+    and trims every prediction to its video's length."""
+
+    def __init__(self, model, mwt: float, batch_size: int = 8, max_len: int = 3072,
+                 bucket_multiple: int = 128, bucket_growth: float = 1.26, device=None):
+        self.model = model
+        self.step = make_eval_step(model, mwt)
+        self.batch_size = batch_size
+        self.buckets = bucket_lengths(max_len, bucket_multiple, bucket_growth)
+        self.device = torch.device(device) if device is not None else next(
+            model.parameters()).device
+
+    def bucket_for(self, length: int) -> int:
+        for b in self.buckets:
+            if length <= b:
+                return b
+        raise ValueError(f"length {length} exceeds the largest bucket {self.buckets[-1]}")
+
+    def predict(self, feats_list) -> list:
+        """feats_list: (T_i, D) float arrays -> list of (T_i,) int32 predictions."""
+        n = len(feats_list)
+        order = sorted(range(n), key=lambda i: self.bucket_for(len(feats_list[i])))
+        out = [None] * n
+        B, D = self.batch_size, self.model.in_dim
+        i = 0
+        while i < n:
+            bucket = self.bucket_for(len(feats_list[order[i]]))
+            idx = [order[i]]
+            while (len(idx) < B and i + len(idx) < n
+                   and self.bucket_for(len(feats_list[order[i + len(idx)]])) == bucket):
+                idx.append(order[i + len(idx)])
+            i += len(idx)
+            # pad on the device: each request crosses to it once, unpadded,
+            # and the repeats of the last video are copied there
+            feats = torch.zeros((B, bucket, D), dtype=torch.float32, device=self.device)
+            lengths = np.zeros((B,), np.int32)
+            for r, j in enumerate(idx):
+                f = torch.from_numpy(np.asarray(feats_list[j], np.float32))
+                feats[r, : len(f)].copy_(f)
+                lengths[r] = len(f)
+            feats[len(idx):] = feats[len(idx) - 1]
+            lengths[len(idx):] = lengths[len(idx) - 1]
+            mask = np.arange(bucket)[None, :] < lengths[:, None]
+            pred = self.step(feats, torch.from_numpy(mask).to(self.device),
+                             torch.from_numpy(lengths).to(self.device)).cpu().numpy()
+            for r, j in enumerate(idx):
+                out[j] = pred[r, : lengths[r]].astype(np.int32)
+        return out

@@ -10,7 +10,8 @@ setup(
     name="fact_clip_tpu",
     version="0.1.0",
     description="TPU-native temporal action segmentation (FACT / FACT_CLIP capabilities) in JAX",
-    packages=find_packages(include=["fact_clip_tpu", "fact_clip_tpu.*"]),
+    packages=find_packages(include=["fact_clip_tpu", "fact_clip_tpu.*",
+                                    "fact_clip_tpu_torch", "fact_clip_tpu_torch.*"]),
     package_data={"fact_clip_tpu.configs": ["*.yaml"]},
     include_package_data=True,
     python_requires=">=3.10",
