@@ -1,10 +1,12 @@
-"""Model configuration without YAML: the block settings of FACT.
+"""Model and training configuration without YAML.
 
-Counterpart of ``fact_clip_tpu/configs/default.py:64-123`` (the FACT, Bi, Bu,
-BU and TPU sections), ``fact_clip_tpu/models/blocks.py:40-143`` (BlockCfg and
-the Bi -> Bu -> BU inheritance) and ``__graft_entry__._make_cfg``.  A config is
-a plain nested dict; ``flagship_cfg()`` is the repository's flagship
-(HAViD-scale, ``iuUU``) and ``small_cfg()`` its narrow test twin.
+Counterpart of ``fact_clip_tpu/configs/default.py`` (the optimizer keys and
+the FACT, Bi, Bu, BU, Loss, TM and TPU sections),
+``fact_clip_tpu/models/blocks.py:40-143`` (BlockCfg and the Bi -> Bu -> BU
+inheritance) and ``__graft_entry__._make_cfg``.  A config is a plain nested
+dict; ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
+``small_cfg()`` its narrow test twin and ``train_cfg()`` the flagship as the
+port trains it.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -58,27 +60,51 @@ def default_cfg() -> dict:
         "Bu": {**inherit, "a": "sa", "a_layers": 1, "f_layers": 5},
         "BU": {**inherit, "a": "sa", "a_layers": 1, "f_layers": 5, "s_layers": 1},
         "TPU": {"pallas": True, "pallas_attn": True, "pallas_sa": True,
-                "compute_dtype": "float32", "quantize_infer": ""},
+                "compute_dtype": "float32", "quantize_infer": "", "matcher": "auto"},
+        "Loss": {"pc": 1.0, "a2fc": 1.0, "match": "o2o", "bgw": 1.0, "nullw": -1.0,
+                 "sw": 0.0, "ref_weight_order": False},
+        "TM": {"use": False, "t": 30, "p": 0.05, "m": 5, "inplace": True},
+        "optimizer": "SGD", "lr": 0.1, "lr_decay": -1, "momentum": 0.009,
+        "weight_decay": 0.0, "clip_grad_norm": 10.0,
     }
 
 
 def flagship_cfg() -> dict:
     """FACT iuUU at HAViD scale (``__graft_entry__._make_cfg(small=False)``)."""
-    cfg = default_cfg()
+    cfg = _graft_training(default_cfg())
     cfg["FACT"].update(ntoken=40, fpos=False, cmr=0.3)
     cfg["Bi"].update(hid_dim=512, a_dim=256, a_ffdim=512, a_layers=6, a_nhead=8, f="m",
                      f_dim=256, f_layers=10, f_ln=False, f_ngp=1, dropout=0.2)
     return cfg
 
 
+def _graft_training(cfg: dict) -> dict:
+    """The training keys ``__graft_entry__._make_cfg`` sets for both sizes."""
+    cfg["Loss"].update(sw=5.0, pc=0.2, nullw=0.1)
+    cfg.update(optimizer="Adam", lr=1e-4)
+    return cfg
+
+
 def small_cfg() -> dict:
     """The narrow twin (``__graft_entry__._make_cfg(small=True)``)."""
-    cfg = default_cfg()
+    cfg = _graft_training(default_cfg())
     cfg["FACT"].update(ntoken=8, fpos=False, cmr=0.3)
     cfg["Bi"].update(hid_dim=32, a_dim=16, a_ffdim=32, a_layers=2, a_nhead=4, f="m",
                      f_dim=24, f_layers=3, f_ln=False, f_ngp=1, dropout=0.1)
     cfg["Bu"]["f_layers"] = 2
     cfg["BU"]["f_layers"] = 2
+    return cfg
+
+
+def train_cfg() -> dict:
+    """The flagship as the port trains it: ``_make_cfg(small=False)``
+    (dropout 0.2, cmr 0.3, sw 5, pc 0.2, nullw 0.1, Adam at lr 1e-4,
+    clip_grad_norm 10) with the SCA cross-attention and the SA sublayers on
+    their plain autograd paths (``pallas_attn`` and ``pallas_sa`` off: their
+    backward kernels come later) and the host Hungarian matcher (the
+    ``"auction"`` of ``_make_cfg`` is a TPU workaround)."""
+    cfg = flagship_cfg()
+    cfg["TPU"].update(pallas_attn=False, pallas_sa=False, matcher="host")
     return cfg
 
 

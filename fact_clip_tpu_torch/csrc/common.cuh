@@ -15,7 +15,10 @@
 //
 // The caller supplies A as an element function a(r, k) for row r < BM of the
 // block's tile and column k < K (zero outside the valid rows): that is where
-// halo taps, positional adds and length masks live.
+// halo taps, positional adds and length masks live.  Neighbouring threads
+// stage neighbouring k of one row; with kTransA they stage neighbouring rows
+// of one k instead, which keeps the loads coalesced when A is read
+// transposed (a weight gradient's A^T, rows = channels, k = time).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,19 +88,24 @@ __device__ __forceinline__ void fetch_w(float (*w)[kBN], const float* __restrict
   }
 }
 
-template <int BM, class AElem>
+template <int BM, bool kTransA = false, class AElem>
 __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
                                           const float* __restrict__ W, int ldw,
                                           int K, int n0, int N, GemmSmem<BM>& s) {
   constexpr int RM = BM / 8;
   constexpr int kAPer = BM * kBK / kThreads;  // A values each thread stages per chunk
-  constexpr int kRowStep = kThreads / kBK;
+  constexpr int kRowStep = kThreads / kBK;    // rows between them (row-wise staging)
+  constexpr int kKStep = kThreads / BM;       // k between them (kTransA)
   static_assert(RM % 4 == 0, "rows per thread must be a multiple of 4");
+  static_assert(kKStep * kAPer == kBK, "kTransA staging must cover the chunk");
   const int tid = threadIdx.x;
   const int row0 = pass_row<BM>(0);
   const int col0 = pass_col(0);
-  const int ak = tid % kBK;  // the A column (within the chunk) this thread stages
-  const int ar = tid / kBK;  // its first A row; rows ar + kRowStep * i
+  // the first (row, k) of A this thread stages, and where its others lie
+  const int ak = kTransA ? tid / BM : tid % kBK;
+  const int ar = kTransA ? tid % BM : tid / kBK;
+  auto a_row = [&](int i) { return kTransA ? ar : ar + kRowStep * i; };
+  auto a_k = [&](int i) { return kTransA ? ak + kKStep * i : ak; };
   const bool vec = (N % 4 == 0) && (ldw % 4 == 0) && ((uintptr_t)W % 16 == 0);
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -106,13 +114,15 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
 
   float av[kAPer];
   auto fetch_a = [&](int k0) {
-    const int k = k0 + ak;
 #pragma unroll
-    for (int i = 0; i < kAPer; ++i) av[i] = k < K ? a_elem(ar + kRowStep * i, k) : 0.f;
+    for (int i = 0; i < kAPer; ++i) {
+      const int k = k0 + a_k(i);
+      av[i] = k < K ? a_elem(a_row(i), k) : 0.f;
+    }
   };
   auto store_a = [&](int buf) {
 #pragma unroll
-    for (int i = 0; i < kAPer; ++i) s.a[buf][ak][ar + kRowStep * i] = av[i];
+    for (int i = 0; i < kAPer; ++i) s.a[buf][a_k(i)][a_row(i)] = av[i];
   };
 
   const int n_chunks = (K + kBK - 1) / kBK;
@@ -188,6 +198,37 @@ __device__ __forceinline__ void layer_norm_rows(float* base, int rows, int valid
     const float inv = rsqrtf(warp_sum(v) / E + eps);
     for (int c = lane; c < E; c += 32)
       row[c] = (row[c] - mean) * inv * __ldg(gamma + c) + __ldg(beta + c);
+  }
+}
+
+// Counter-based dropout bits: the murmur3 finalizer of (seed, layer, index)
+// with uint32 wraparound.  The forward, the backward and the mask kernel of
+// the tower all call this one function, and ops/dilated_conv.py computes the
+// same bits with int64 torch ops, so the kernel's mask and the plain
+// version's are bit-equal.  Keep where bits < (1 - rate) * 2^32.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t layer, uint32_t idx) {
+  const uint32_t key = fmix32(seed + layer * 0x85ebca77u);
+  return fmix32((idx * 0x9e3779b9u) ^ key);
+}
+
+// Column sums of a (rows x ncols) tile (row stride ld) in global or shared
+// memory, in row order, one thread per column: deterministic.  The caller
+// synchronises first.
+__device__ __forceinline__ void block_colsum(const float* base, int ld, int rows, int ncols,
+                                             float* __restrict__ out) {
+  for (int c = threadIdx.x; c < ncols; c += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += base[(size_t)r * ld + c];
+    out[c] = s;
   }
 }
 

@@ -11,6 +11,15 @@ when kdim == E).  Each module that reaches a kernel keeps the kernel's
 hand-written kernels, which themselves run their plain version on CPU
 tensors; False is the plain PyTorch path everywhere.  Valid frames, keys and
 segments are prefixes, so masks travel as lengths.
+
+Train mode (``module.train()``) turns on dropout where the JAX modules have
+it: every MSTCN layer (K1's in-kernel mask, seeded per layer), the attention
+probabilities, the X2Y out map's two inputs, and the residual branches and
+FFN of the SA / SCA layers.  Every draw comes from the ``generator`` passed
+down (a ``torch.Generator`` on the model's device).  In train mode with
+gradients, the kernel layouts are taken from the live parameters so that
+autograd reaches them; K1 and K2 run through their autograd entries, while
+K3 and K4 stay forward-only and refuse.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dilated_conv import mstcn_stack_fwd, mstcn_stack_reference
+from ..ops.dilated_conv import mstcn_stack, mstcn_stack_reference
+from ..ops.masking import dropout
 from ..ops.mha_attn import mha_cross_fwd
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
@@ -56,7 +66,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 class KernelLayout:
     """Mixin: ``kernel_layout()`` returns the tensors ``_make_kernel_layout``
     derives from the module's parameters, recomputed only after a parameter
-    changed (moved, reloaded or updated in place)."""
+    changed (moved, reloaded or updated in place).  ``layout()`` is that
+    cache, or, when autograd must reach the parameters, the same tensors
+    derived from the live parameters (``_make_kernel_layout(live=True)``)."""
 
     def kernel_layout(self):
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
@@ -67,9 +79,27 @@ class KernelLayout:
             self.__dict__["_kernel_layout"] = cached
         return cached[1]
 
+    def layout(self):
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            return self._make_kernel_layout(live=True)
+        return self.kernel_layout()
 
-def _t(w):
-    return w.detach().t().contiguous()
+
+def _t(w, live: bool = False):
+    return (w if live else w.detach()).t().contiguous()
+
+
+def _d(w, live: bool = False):
+    return w if live else w.detach()
+
+
+def _drop(module, generator, x, rate: float):
+    """Dropout in train mode, identity in eval mode."""
+    if not module.training or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train mode with dropout needs a generator")
+    return dropout(generator, x, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -87,22 +117,23 @@ class DilatedResidualLayer(nn.Module, KernelLayout):
         self.conv_1x1 = nn.Conv1d(channels, channels, 1)
         self.norm = nn.LayerNorm(channels, eps=LN_EPS_TOWER) if ln else None
 
-    def _make_kernel_layout(self):
+    def _make_kernel_layout(self, live: bool = False):
         C = self.conv_1x1.weight.shape[0]
         ones = torch.ones(C, device=self.conv_1x1.weight.device)
-        return (self.conv_dilated.weight.detach().permute(2, 1, 0).contiguous(),  # (k, in, out)
-                self.conv_dilated.bias.detach(), _t(self.conv_1x1.weight[:, :, 0]),
-                self.conv_1x1.bias.detach(),
-                self.norm.weight.detach() if self.norm is not None else ones,
-                self.norm.bias.detach() if self.norm is not None else torch.zeros_like(ones))
+        return (_d(self.conv_dilated.weight, live).permute(2, 1, 0).contiguous(),  # (k, in, out)
+                _d(self.conv_dilated.bias, live), _t(self.conv_1x1.weight[:, :, 0], live),
+                _d(self.conv_1x1.bias, live),
+                _d(self.norm.weight, live) if self.norm is not None else ones,
+                _d(self.norm.bias, live) if self.norm is not None else torch.zeros_like(ones))
 
 
 class MSTCN(nn.Module, KernelLayout):
     """1x1 in map -> dilated residual layers -> 1x1 out map (f32 logits)."""
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ln, ngroup=1, in_map=False,
-                 use_kernel=True):
+                 use_kernel=True, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         if in_map:
             self.conv_1x1 = nn.Conv1d(in_dim, hid_dim, 1)
         elif in_dim != hid_dim:
@@ -116,17 +147,26 @@ class MSTCN(nn.Module, KernelLayout):
         self.kernel_allowed = ngroup == 1  # the fused tower is ungrouped (layers.py:372)
         self.use_kernel = use_kernel and self.kernel_allowed
 
-    def _make_kernel_layout(self):
-        return _t(self.conv_out.weight[:, :, 0]), self.conv_out.bias.detach()
+    def _make_kernel_layout(self, live: bool = False):
+        return _t(self.conv_out.weight[:, :, 0], live), _d(self.conv_out.bias, live)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, generator=None):
         if self.in_map:
             x = F.linear(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
-        ow, ob = self.kernel_layout()
-        fn = mstcn_stack_fwd if self.use_kernel else mstcn_stack_reference
-        return fn(x.contiguous(), lengths, [l.kernel_layout() for l in self.layers],
+        ow, ob = self.layout()
+        L = len(self.layers)
+        rates = seeds = None
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("train mode with dropout needs a generator")
+            # one seed per layer, drawn on the device (layers.py:391-395)
+            rates = (float(self.dropout),) * L
+            seeds = torch.randint(0, 2 ** 31 - 1, (L,), generator=generator, device=x.device,
+                                  dtype=torch.int32)
+        fn = mstcn_stack if self.use_kernel else mstcn_stack_reference
+        return fn(x.contiguous(), lengths, [l.layout() for l in self.layers],
                   [l.dilation for l in self.layers], use_ln=self.ln, eps=LN_EPS_TOWER,
-                  out_w=ow, out_b=ob)
+                  out_w=ow, out_b=ob, rates=rates, seeds=seeds)
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +179,9 @@ class MultiheadAttention(nn.Module, KernelLayout):
     runs K3 under the JAX fuse conditions (layers.py:649-655)."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: int | None = None,
-                 use_kernel: bool = False, kernel_min_keys: int = 1024):
+                 use_kernel: bool = False, kernel_min_keys: int = 1024, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         E = embed_dim
         kdim = kdim or E
         self.embed_dim, self.num_heads, self.kdim = E, num_heads, kdim
@@ -172,13 +213,13 @@ class MultiheadAttention(nn.Module, KernelLayout):
             return self.in_proj_weight.chunk(3)
         return self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
 
-    def _make_kernel_layout(self):
+    def _make_kernel_layout(self, live: bool = False):
         wq, wk, wv = self.proj_weights()
-        bq, bk, bv = self.in_proj_bias.detach().chunk(3)
-        return (_t(wq), bq.contiguous(), _t(wk), bk.contiguous(), _t(wv), bv.contiguous(),
-                _t(self.out_proj.weight), self.out_proj.bias.detach())
+        bq, bk, bv = _d(self.in_proj_bias, live).chunk(3)
+        return (_t(wq, live), bq.contiguous(), _t(wk, live), bk.contiguous(), _t(wv, live),
+                bv.contiguous(), _t(self.out_proj.weight, live), _d(self.out_proj.bias, live))
 
-    def forward(self, query, key, value, key_len=None, key_pos=None):
+    def forward(self, query, key, value, key_len=None, key_pos=None, generator=None):
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         wq, wk, wv = self.proj_weights()
@@ -192,8 +233,9 @@ class MultiheadAttention(nn.Module, KernelLayout):
             _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.kernel_layout()
             if key_len is None:
                 key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
+            rate = self.dropout if self.training else 0.0
             out = mha_cross_fwd(q.contiguous(), key.contiguous(), key_pos, wk_t, bk_c, wv_t,
-                                bv_c, key_len, num_heads=H)
+                                bv_c, key_len, num_heads=H, rate=rate)
             return self.out_proj(out)
         k = F.linear(add_pos(key, key_pos), wk, bk).view(B, Nk, H, hd)
         v = F.linear(value, wv, bv).view(B, Nk, H, hd)
@@ -201,7 +243,8 @@ class MultiheadAttention(nn.Module, KernelLayout):
         if key_len is not None:
             valid = torch.arange(Nk, device=key.device)[None, :] < key_len[:, None]
             logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-        out = torch.einsum("bhmn,bnhd->bmhd", torch.softmax(logits, dim=-1), v)
+        probs = _drop(self, generator, torch.softmax(logits, dim=-1), self.dropout)
+        out = torch.einsum("bhmn,bnhd->bmhd", probs, v)
         return self.out_proj(out.reshape(B, M, E))
 
 
@@ -209,8 +252,10 @@ class X2YMap(nn.Module, KernelLayout):
     """Single-head cross-attention: K/V from X, Q from Y, out map of
     concat(Y, attended); returns (y_out, probs, logits), probs/logits (B, Y, X)."""
 
-    def __init__(self, x_dim, y_dim, y_outdim, head_dim, kq_pos=False, use_kernel=True):
+    def __init__(self, x_dim, y_dim, y_outdim, head_dim, kq_pos=False, use_kernel=True,
+                 dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.X_K = nn.Linear(x_dim, head_dim)
         self.X_V = nn.Linear(x_dim, head_dim)
         self.Y_Q = nn.Linear(y_dim, head_dim)
@@ -219,22 +264,24 @@ class X2YMap(nn.Module, KernelLayout):
         self.kernel_allowed = use_kernel
         self.use_kernel = use_kernel
 
-    def _make_kernel_layout(self):
-        return (_t(self.X_K.weight), self.X_K.bias.detach(), _t(self.X_V.weight),
-                self.X_V.bias.detach(), _t(self.Y_Q.weight), self.Y_Q.bias.detach())
+    def _make_kernel_layout(self, live: bool = False):
+        return (_t(self.X_K.weight, live), _d(self.X_K.bias, live), _t(self.X_V.weight, live),
+                _d(self.X_V.bias, live), _t(self.Y_Q.weight, live), _d(self.Y_Q.bias, live))
 
-    def forward(self, x, y, x_pos=None, y_pos=None, x_len=None):
+    def forward(self, x, y, x_pos=None, y_pos=None, x_len=None, generator=None):
         if not self.kq_pos:
             x_pos = y_pos = None
         if x_len is None:
             x_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
         fn = x2y_attention if self.use_kernel else x2y_attention_reference
-        attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos,
-                                 *self.kernel_layout(), x_len)
-        # out map as a split dense: concat([y, attn]) never materializes
+        attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos, *self.layout(),
+                                 x_len)
+        # out map as a split dense of the dropped-out inputs: concat([y, attn])
+        # never materializes
         W = self.Y_W.weight
         Cy = y.shape[-1]
-        y_out = F.linear(y, W[:, :Cy]) + F.linear(attn, W[:, Cy:], self.Y_W.bias)
+        y_out = (F.linear(_drop(self, generator, y, self.dropout), W[:, :Cy])
+                 + F.linear(_drop(self, generator, attn, self.dropout), W[:, Cy:], self.Y_W.bias))
         return y_out, probs, logits
 
 
@@ -243,29 +290,39 @@ def _shared_pos(pos):
     return pos is None or pos.dim() == 2 or pos.shape[0] == 1
 
 
-def _ffn_layout(layer):
+def _ffn_layout(layer, live: bool = False):
     """(W1, b1, W2, b2) of a post-norm layer in the kernel's (in, out) layout."""
-    return (_t(layer.linear1.weight), layer.linear1.bias.detach(), _t(layer.linear2.weight),
-            layer.linear2.bias.detach())
+    return (_t(layer.linear1.weight, live), _d(layer.linear1.bias, live),
+            _t(layer.linear2.weight, live), _d(layer.linear2.bias, live))
 
 
 def _fused_sublayers(layer, attn, tgt, pos, norm_sa, norm_ffn, between=None):
-    """K4: the self-attention sublayer, then (after ``between``) the FFN one."""
+    """K4: the self-attention sublayer, then (after ``between``) the FFN one.
+    Forward-only: in train mode it refuses (its dropout and backward come
+    with the next slice)."""
     sa, ffn = layer.kernel_layout()
+    rate = layer.dropout if layer.training else 0.0
     y = sa_sublayer(tgt.contiguous(), pos, *sa, norm_sa.weight.detach(), norm_sa.bias.detach(),
-                    num_heads=attn.num_heads, eps=norm_sa.eps)
+                    num_heads=attn.num_heads, eps=norm_sa.eps, rate_attn=rate, rate=rate)
     if between is not None:
         y = between(y)
     return ffn_sublayer(y, *ffn, norm_ffn.weight.detach(), norm_ffn.bias.detach(),
-                        eps=norm_ffn.eps)
+                        eps=norm_ffn.eps, rate=rate)
+
+
+def _ffn(layer, tgt, norm, generator):
+    """norm(tgt + drop(linear2(drop(relu(linear1(tgt))))))."""
+    ff = _drop(layer, generator, torch.relu(layer.linear1(tgt)), layer.dropout)
+    return norm(tgt + _drop(layer, generator, layer.linear2(ff), layer.dropout))
 
 
 class SALayer(nn.Module, KernelLayout):
     """Post-norm self-attention + FFN over action tokens (K4 when fused)."""
 
-    def __init__(self, dim, nhead, ffdim, use_kernel=True):
+    def __init__(self, dim, nhead, ffdim, use_kernel=True, dropout=0.0):
         super().__init__()
-        self.multihead_attn = MultiheadAttention(dim, nhead)
+        self.dropout = dropout
+        self.multihead_attn = MultiheadAttention(dim, nhead, dropout=dropout)
         self.linear1 = nn.Linear(dim, ffdim)
         self.linear2 = nn.Linear(ffdim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS_ATTN)
@@ -274,25 +331,28 @@ class SALayer(nn.Module, KernelLayout):
         self.kernel_allowed = use_kernel and dim % nhead == 0
         self.use_kernel = self.kernel_allowed
 
-    def _make_kernel_layout(self):
-        return self.multihead_attn.kernel_layout(), _ffn_layout(self)
+    def _make_kernel_layout(self, live: bool = False):
+        return self.multihead_attn._make_kernel_layout(live), _ffn_layout(self, live)
 
-    def forward(self, tgt, pos=None):
+    def forward(self, tgt, pos=None, generator=None):
         if self.use_kernel and _shared_pos(pos):
             return _fused_sublayers(self, self.multihead_attn, tgt, pos, self.norm1, self.norm2)
         q = add_pos(tgt, pos)
-        tgt = self.norm1(tgt + self.multihead_attn(q, q, tgt))
-        return self.norm2(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+        t2 = self.multihead_attn(q, q, tgt, generator=generator)
+        tgt = self.norm1(tgt + _drop(self, generator, t2, self.dropout))
+        return _ffn(self, tgt, self.norm2, generator)
 
 
 class SCALayer(nn.Module, KernelLayout):
     """Token self-attention, cross-attention to the frame memory, FFN."""
 
-    def __init__(self, dim, frame_dim, nhead, ffdim, use_kernel_sa=True, use_kernel_attn=True):
+    def __init__(self, dim, frame_dim, nhead, ffdim, use_kernel_sa=True, use_kernel_attn=True,
+                 dropout=0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(dim, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(dim, nhead, dropout=dropout)
         self.multihead_attn = MultiheadAttention(dim, nhead, kdim=frame_dim,
-                                                 use_kernel=use_kernel_attn)
+                                                 use_kernel=use_kernel_attn, dropout=dropout)
         self.linear1 = nn.Linear(dim, ffdim)
         self.linear2 = nn.Linear(ffdim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS_ATTN)
@@ -302,37 +362,39 @@ class SCALayer(nn.Module, KernelLayout):
         self.kernel_allowed = use_kernel_sa and dim % nhead == 0
         self.use_kernel = self.kernel_allowed
 
-    def _make_kernel_layout(self):
-        return self.self_attn.kernel_layout(), _ffn_layout(self)
+    def _make_kernel_layout(self, live: bool = False):
+        return self.self_attn._make_kernel_layout(live), _ffn_layout(self, live)
 
-    def forward(self, tgt, memory, pos=None, query_pos=None, memory_len=None):
+    def forward(self, tgt, memory, pos=None, query_pos=None, memory_len=None, generator=None):
         def cross(t):
             t2 = self.multihead_attn(add_pos(t, query_pos), memory, memory,
-                                     key_len=memory_len, key_pos=pos)
-            return self.norm2(t + t2)
+                                     key_len=memory_len, key_pos=pos, generator=generator)
+            return self.norm2(t + _drop(self, generator, t2, self.dropout))
 
         if self.use_kernel and _shared_pos(query_pos):
             return _fused_sublayers(self, self.self_attn, tgt, query_pos, self.norm1,
                                     self.norm3, between=cross)
         q = add_pos(tgt, query_pos)
-        tgt = cross(self.norm1(tgt + self.self_attn(q, q, tgt)))
-        return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+        t2 = self.self_attn(q, q, tgt, generator=generator)
+        tgt = cross(self.norm1(tgt + _drop(self, generator, t2, self.dropout)))
+        return _ffn(self, tgt, self.norm3, generator)
 
 
 class SADecoder(nn.Module):
     """N self-attention layers + output linear."""
 
-    def __init__(self, in_dim, hid_dim, out_dim, num_layers, nhead, ffdim, use_kernel=True):
+    def __init__(self, in_dim, hid_dim, out_dim, num_layers, nhead, ffdim, use_kernel=True,
+                 dropout=0.0):
         super().__init__()
         if in_dim != hid_dim:
             raise ValueError("SADecoder needs in_dim == hid_dim")
-        self.layers = nn.ModuleList(SALayer(hid_dim, nhead, ffdim, use_kernel)
+        self.layers = nn.ModuleList(SALayer(hid_dim, nhead, ffdim, use_kernel, dropout)
                                     for _ in range(num_layers))
         self.out_linear = nn.Linear(hid_dim, out_dim)
 
-    def forward(self, tgt, pos=None):
+    def forward(self, tgt, pos=None, generator=None):
         for layer in self.layers:
-            tgt = layer(tgt, pos)
+            tgt = layer(tgt, pos, generator=generator)
         return self.out_linear(tgt)
 
 
@@ -340,19 +402,20 @@ class SCADecoder(nn.Module):
     """N SCA layers + final LayerNorm + output linear."""
 
     def __init__(self, in_dim, hid_dim, out_dim, frame_dim, num_layers, nhead, ffdim,
-                 use_kernel_sa=True, use_kernel_attn=True):
+                 use_kernel_sa=True, use_kernel_attn=True, dropout=0.0):
         super().__init__()
         if in_dim != hid_dim:
             raise ValueError("SCADecoder needs in_dim == hid_dim")
         self.layers = nn.ModuleList(
-            SCALayer(hid_dim, frame_dim, nhead, ffdim, use_kernel_sa, use_kernel_attn)
+            SCALayer(hid_dim, frame_dim, nhead, ffdim, use_kernel_sa, use_kernel_attn, dropout)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(hid_dim, eps=LN_EPS_ATTN)
         self.out_linear = nn.Linear(hid_dim, out_dim)
 
-    def forward(self, tgt, memory, pos=None, query_pos=None, memory_len=None):
+    def forward(self, tgt, memory, pos=None, query_pos=None, memory_len=None, generator=None):
         for layer in self.layers:
-            tgt = layer(tgt, memory, pos=pos, query_pos=query_pos, memory_len=memory_len)
+            tgt = layer(tgt, memory, pos=pos, query_pos=query_pos, memory_len=memory_len,
+                        generator=generator)
         return self.out_linear(self.norm(tgt))
 
 
@@ -391,7 +454,8 @@ class BiGRU(nn.Module):
         params = [getattr(self, f"{n}_l{layer}{sfx}")
                   for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
         h0 = x.new_zeros((1, x.shape[0], self.hidden))
-        return torch.gru(x, h0, params, True, 1, 0.0, False, False, True)[0]
+        # train=True when a backward will run (cuDNN's RNN backward needs it)
+        return torch.gru(x, h0, params, True, 1, 0.0, torch.is_grad_enabled(), False, True)[0]
 
     def forward(self, x, lengths):
         B, N, _ = x.shape

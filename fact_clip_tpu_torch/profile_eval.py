@@ -1,13 +1,16 @@
-"""Where the time of the flagship eval step goes on the card.
+"""Where the time of the flagship eval step (or train step) goes on the card.
 
-    python3 -m fact_clip_tpu_torch.profile_eval [--steps N] [--trace DIR]
+    python3 -m fact_clip_tpu_torch.profile_eval [--train] [--steps N] [--trace DIR]
 
 Builds the flagship FACT model (iuUU, D=2048, C=75, M=40) with seeded random
 weights and times one eval step of 8 videos padded to 3072 frames, on the
 kernel path and on the plain PyTorch path: wall time (host clock around a
 synchronised step), device busy time per step (the sum of the CUDA kernels'
 own times under ``torch.profiler``), the idle share 1 - busy / wall, and the
-kernels that take the most time.  Needs a CUDA card; f32 with TF32 off.
+kernels that take the most time.  With ``--train`` the step is the train
+step of ``train_cfg()`` (dropout 0.2, channel masking 0.3, Adam) on seeded
+batches with piecewise-constant labels.  Needs a CUDA card; f32 with TF32
+off.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import flagship_cfg
-from .engine.steps import make_eval_step
+from .configs import flagship_cfg, train_cfg
+from .engine.steps import make_eval_step, make_train_step
+from .engine.train_loop import batch_to_device, synthetic_batch
 from .models.blocks import build_fact
+from .models.losses import build_class_weights
 
 LENGTHS = [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]
 
@@ -49,8 +54,19 @@ def device_kernels(step, args, n):
                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def train_step_args(dev):
+    """(step, args) of the flagship train step on seeded batches."""
+    cfg = train_cfg()
+    D, C, S_CAP, T, S = 2048, 75, 128, 3072, 32
+    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
+    batch = batch_to_device(synthetic_batch(np.random.default_rng(0), D, C, S, T, LENGTHS), dev)
+    return model, step, (batch, torch.Generator(device=dev).manual_seed(0))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true", help="the train step, not the eval step")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="directory for chrome traces")
     ap.add_argument("--top", type=int, default=25)
@@ -60,18 +76,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = flagship_cfg()
-    model = build_fact(cfg, 2048, 75, 128, device=dev,
-                       generator=torch.Generator().manual_seed(0))
     B, T, D = len(LENGTHS), 3072, 2048
-    lens = np.array(LENGTHS, np.int32)
-    rng = np.random.default_rng(0)
-    mask = np.arange(T)[None] < lens[:, None]
-    x = rng.standard_normal((B, T, D)).astype(np.float32) * mask[..., None]
-    args = (torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev),
-            torch.from_numpy(lens).to(dev))
-    step = make_eval_step(model, cfg["FACT"]["mwt"])
-    print(f"device {torch.cuda.get_device_name(0)}; eval step of {B} x {T}, flagship")
+    if a.train:
+        model, step, args = train_step_args(dev)
+    else:
+        cfg = flagship_cfg()
+        model = build_fact(cfg, D, 75, 128, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        lens = np.array(LENGTHS, np.int32)
+        rng = np.random.default_rng(0)
+        mask = np.arange(T)[None] < lens[:, None]
+        x = rng.standard_normal((B, T, D)).astype(np.float32) * mask[..., None]
+        args = (torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev),
+                torch.from_numpy(lens).to(dev))
+        step = make_eval_step(model, cfg["FACT"]["mwt"])
+    kind = "train" if a.train else "eval"
+    print(f"device {torch.cuda.get_device_name(0)}; {kind} step of {B} x {T}, flagship")
     for kernels in (True, False):
         model.set_kernels(kernels)
         wall_ms(step, args, 3)  # warm: build, load, caches
@@ -87,7 +107,7 @@ def main():
         if a.trace:
             os.makedirs(a.trace, exist_ok=True)
             name = "kernels" if kernels else "plain"
-            prof.export_chrome_trace(os.path.join(a.trace, f"eval_{name}.json"))
+            prof.export_chrome_trace(os.path.join(a.trace, f"{kind}_{name}.json"))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 

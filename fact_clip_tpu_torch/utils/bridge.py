@@ -1,10 +1,12 @@
-"""JAX parameters -> the port's state_dict.
+"""JAX parameters (and gradients) -> the port's state_dict layout.
 
 The JAX package's exporter (``fact_clip_tpu/utils/torch_export.py``,
 numpy-only) already writes the reference's torch layout, and the port's
 module paths reproduce those keys, so the bridge is that exporter plus
-``load_state_dict(strict=True)``.  It is imported lazily: the port's serving
-path imports nothing of the JAX package.
+``load_state_dict(strict=True)``.  The exporter only transposes and
+reshapes, which are linear, so it maps a gradient tree as well.  It is
+imported lazily: the port's serving and training paths import nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -25,3 +27,8 @@ def state_dict_from_jax(params, block_cfgs) -> dict:
 def load_jax_params(model, params) -> None:
     """Load JAX FACT parameters into a port FACT model, strictly."""
     model.load_state_dict(state_dict_from_jax(params, model.block_cfgs), strict=True)
+
+
+def grads_from_jax(grads, block_cfgs) -> dict:
+    """A JAX gradient tree of FACT's params -> {port parameter name: gradient}."""
+    return state_dict_from_jax(grads, block_cfgs)
