@@ -10,11 +10,17 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    There is no CPU fallback: without a card the script exits 1.
 2. build: nvcc compiles fact_clip_tpu_torch/csrc/*.cu (timed).
 3. kernels: every hand-written kernel against its plain PyTorch version on
-   the card, at the flagship shapes and at ragged cases, f32 with TF32 off;
-   error against the stated tolerance, and the kernel's time beside the
-   plain version's (CUDA events).  The serving kernels (K1-K4 forwards),
-   then the training kernels (the K1 dropout mask, bit-equal; the K1 and K2
-   backwards; the K5 frame loss).
+   the same inputs on the card, at the flagship shapes and at ragged cases
+   (B=3, M=11 and ragged key lengths for K3 and K4), f32 with TF32 off:
+   the K1-K4 forwards (K1, K3 and K4 also with dropout, the plain versions
+   given the same hash masks), the four dropout-mask kernels (bit-equal,
+   the keep rate pooled over 32 seeds within 0.001 of 0.8), the K1-K4
+   backwards (from the same forward saves and masks) and K5.  For the
+   flagship case, the kernel's time beside the plain version's (CUDA
+   events) and its bound: the larger of its FLOPs at the card's f32 rate
+   (67 TFLOP/s) and its bytes (each input read once, each output written
+   once) at 3.35 TB/s.  No single PyTorch call computes any of these fused
+   functions, so ``library_ms`` is null throughout.
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -22,7 +28,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    launched during that call.  Then the warm time of ``predict`` on 8
    requests that fill one 8 x 3072 batch, the warm time of the eval step
    alone on such a batch, and the kernel path against the plain path.
-5. training: ``train_cfg()`` at full width with seeded weights takes one
+5. training: ``train_cfg()`` (every kernel on: K1-K4 forward with dropout
+   and backward, K5) at full width with seeded weights takes one
    warm-up step and 5 Adam steps through ``run_steps`` on 8 seeded videos
    with piecewise-constant labels in the 8 x 3072 bucket, dropout 0.2 and
    channel masking 0.3.  Every loss must be finite and every training
@@ -59,8 +66,10 @@ GRAD_TOL = 1e-3  # max |kernel - plain| / max |plain| per parameter (floored, be
 SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                    "ffn_sublayer")
 TRAIN_KERNELS = ("mstcn_stack", "mstcn_dropout_mask", "mstcn_stack_bwd", "x2y_small_x",
-                 "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "frame_loss_fwd",
-                 "frame_loss_bwd")
+                 "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "mha_cross",
+                 "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_dropout_masks",
+                 "sa_sublayer_bwd", "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd",
+                 "frame_loss_fwd", "frame_loss_bwd")
 
 
 def log(msg):
@@ -113,6 +122,11 @@ def phase_build(verbose: bool = False):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 
+PEAK_F32 = 67e12  # FLOP/s: float32 outside the tensor cores (H100 SXM data sheet)
+PEAK_BYTES = 3.35e12  # bytes/s of HBM3 (H100 SXM data sheet)
+MASK_SEEDS = 32  # seeds whose flagship-shaped masks pool into one keep rate
+KEEP_TOL = 1e-3  # |pooled keep rate - 0.8|
+
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
@@ -148,16 +162,49 @@ def compare(name, outs, refs):
     return worst_abs, worst_rel
 
 
+def _flat(out):
+    """The tensors of a (nested) result, in order, None entries kept."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _pairs(name, outs, refs):
+    outs, refs = _flat(outs), _flat(refs)
+    if len(outs) != len(refs) or any((o is None) != (r is None) for o, r in zip(outs, refs)):
+        raise AssertionError(f"{name}: kernel and plain results differ in structure")
+    return [o for o in outs if o is not None], [r for r in refs if r is not None]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in _flat(list(tensors)) if t is not None)
+
+
+def bound(flops: float, n_bytes: float):
+    """(ms, "operations" or "bytes"): the least time the card needs for the
+    work, the larger of the operations at the f32 peak and the bytes at the
+    memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _rand(rng, shape, scale=1.0):
     import torch
 
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
 
 
-def _uniform(rng, shape, fan_in):
+def _uniform(rng, shape, fan_in, gain=1.0):
     import torch
 
-    b = 1.0 / math.sqrt(fan_in)
+    b = gain / math.sqrt(fan_in)
+    return torch.from_numpy(rng.uniform(-b, b, shape).astype(np.float32)).cuda()
+
+
+def _xavier(rng, shape):
+    import torch
+
+    b = math.sqrt(6.0 / (shape[0] + shape[1]))
     return torch.from_numpy(rng.uniform(-b, b, shape).astype(np.float32)).cuda()
 
 
@@ -165,6 +212,17 @@ def _lens(vals):
     import torch
 
     return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+
+def _seed(rng):
+    import torch
+
+    return torch.tensor([int(rng.integers(0, 2 ** 31 - 1))], dtype=torch.int32, device="cuda")
+
+
+def _valid(lens, n: int) -> int:
+    """Valid rows (frames or keys) of a batch: what the work depends on."""
+    return int(lens.clamp(max=n).sum())
 
 
 def k1_case(rng, B, T, C, O, dilations, lengths, use_ln):
@@ -180,99 +238,21 @@ def k1_case(rng, B, T, C, O, dilations, lengths, use_ln):
     return args, kw
 
 
-def x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
-    return (_rand(rng, (B, Y, Cy)), y_pos, _rand(rng, (B, X, Cx)), x_pos,
-            _uniform(rng, (Cx, d), Cx), _uniform(rng, (d,), Cx),
-            _uniform(rng, (Cx, d), Cx), _uniform(rng, (d,), Cx),
-            _uniform(rng, (Cy, d), Cy), _uniform(rng, (d,), Cy), _lens(x_len)), {}
-
-
-def mha_case(rng, B, M, X, E, Cx, H, x_len, pos):
-    def xavier(shape):
-        import torch
-
-        b = math.sqrt(6.0 / (shape[0] + shape[1]))
-        return torch.from_numpy(rng.uniform(-b, b, shape).astype(np.float32)).cuda()
-    return (_rand(rng, (B, M, E)), _rand(rng, (B, X, Cx)), pos, xavier((Cx, E)),
-            _rand(rng, (E,), 0.02), xavier((Cx, E)), _rand(rng, (E,), 0.02),
-            _lens(x_len)), dict(num_heads=H)
-
-
-def sa_case(rng, B, M, E, H):
+def k1_fwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.0):
     import torch
 
-    def xavier():
-        b = math.sqrt(6.0 / (2 * E))
-        return torch.from_numpy(rng.uniform(-b, b, (E, E)).astype(np.float32)).cuda()
-    return (_rand(rng, (B, M, E)), _rand(rng, (1, M, E)), xavier(), _rand(rng, (E,), 0.02),
-            xavier(), _rand(rng, (E,), 0.02), xavier(), _rand(rng, (E,), 0.02),
-            _uniform(rng, (E, E), E), _rand(rng, (E,), 0.02), 1.0 + _rand(rng, (E,), 0.1),
-            _rand(rng, (E,), 0.1)), dict(num_heads=H)
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
 
-
-def ffn_case(rng, B, M, E, Fd):
-    return (_rand(rng, (B, M, E)), _uniform(rng, (E, Fd), E), _uniform(rng, (Fd,), E),
-            _uniform(rng, (Fd, E), Fd), _uniform(rng, (E,), Fd), 1.0 + _rand(rng, (E,), 0.1),
-            _rand(rng, (E,), 0.1)), {}
-
-
-def kernel_table():
-    """(name, source, replaces, kernel fn, plain fn, flagship case, ragged case)."""
-    import torch
-
-    from fact_clip_tpu_torch.ops import dilated_conv, mha_attn, sa_layer, x2y_attn
-
-    zeros = lambda *s: torch.zeros(s, device="cuda")  # noqa: E731
-    B, T, D = 8, 3072, 512
-    return [
-        ("mstcn_stack", "fact_clip_tpu_torch/csrc/mstcn.cu",
-         "fact_clip_tpu/ops/pallas/dilated_conv.py:311",
-         dilated_conv.mstcn_stack_fwd, dilated_conv.mstcn_stack_reference,
-         lambda r: k1_case(r, B, T, 256, D, [2 ** i for i in range(10)], FLAGSHIP_LENGTHS,
-                           False),
-         lambda r: k1_case(r, 2, 1000, 256, D, [1, 64, 512], [1000, 777], True)),
-        ("x2y_small_x", "fact_clip_tpu_torch/csrc/x2y_attn.cu",
-         "fact_clip_tpu/ops/pallas/x2y_attn.py:76",
-         x2y_attn.x2y_small_x_fwd, x2y_attn.x2y_attention_reference,
-         lambda r: x2y_case(r, B, T, 40, D, D, D, [40] * B, zeros(1, T, D),
-                            _rand(r, (1, 40, 256))),
-         lambda r: x2y_case(r, 2, 1000, 37, D, D, D, [37, 20], _rand(r, (2, 1000, D)),
-                            _rand(r, (1, 37, D)))),
-        ("x2y_flash", "fact_clip_tpu_torch/csrc/flash_attn.cu",
-         "fact_clip_tpu/ops/pallas/x2y_attn.py:159",
-         x2y_attn.x2y_flash_fwd, x2y_attn.x2y_attention_reference,
-         lambda r: x2y_case(r, B, 40, T, D, D, D, FLAGSHIP_LENGTHS, _rand(r, (1, 40, 256)),
-                            zeros(1, T, D)),
-         lambda r: x2y_case(r, 2, 37, 2000, D, D, D, [2000, 1500], _rand(r, (1, 37, D)),
-                            _rand(r, (1, 2000, D)))),
-        ("mha_cross", "fact_clip_tpu_torch/csrc/flash_attn.cu",
-         "fact_clip_tpu/ops/pallas/mha_attn.py:235",
-         mha_attn.mha_cross_fwd, mha_attn.mha_cross_attention_reference,
-         lambda r: mha_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS, zeros(1, T, D)),
-         lambda r: mha_case(r, 2, 37, 1100, 256, D, 8, [1100, 900], _rand(r, (1, 1100, D)))),
-        ("sa_sublayer", "fact_clip_tpu_torch/csrc/sa_layer.cu",
-         "fact_clip_tpu/ops/pallas/sa_layer.py:336",
-         sa_layer.sa_sublayer, sa_layer.sa_sublayer_reference,
-         lambda r: sa_case(r, B, 40, 256, 8), lambda r: sa_case(r, 3, 37, 256, 8)),
-        ("ffn_sublayer", "fact_clip_tpu_torch/csrc/sa_layer.cu",
-         "fact_clip_tpu/ops/pallas/sa_layer.py:422",
-         sa_layer.ffn_sublayer, sa_layer.ffn_sublayer_reference,
-         lambda r: ffn_case(r, B, 40, 256, 512), lambda r: ffn_case(r, 3, 37, 256, 512)),
-    ]
-
-
-def _flat(out):
-    """The tensors of a kernel's result, in order, None entries kept."""
-    if isinstance(out, (tuple, list)):
-        return [t for o in out for t in _flat(o)]
-    return [out]
-
-
-def _pairs(name, outs, refs):
-    outs, refs = _flat(outs), _flat(refs)
-    if len(outs) != len(refs) or any((o is None) != (r is None) for o, r in zip(outs, refs)):
-        raise AssertionError(f"{name}: kernel and plain results differ in structure")
-    return [o for o in outs if o is not None], [r for r in refs if r is not None]
+    args, kw = k1_case(rng, B, T, C, O, dilations, lengths, use_ln)
+    if rate > 0.0:
+        kw.update(rates=[rate] * len(dilations),
+                  seeds=torch.tensor(rng.integers(0, 2 ** 31 - 1, len(dilations)),
+                                     dtype=torch.int32, device="cuda"))
+    N = _valid(args[1], T)
+    work = (len(dilations) * 8 * N * C * C + 2 * N * C * O,
+            nbytes(args[:3], kw["out_w"], kw["out_b"]) + B * T * O * 4)
+    return (lambda: dc.mstcn_stack_fwd(*args, **kw),
+            lambda: dc.mstcn_stack_reference(*args, **kw), work)
 
 
 def k1_bwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.2):
@@ -289,22 +269,176 @@ def k1_bwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.2):
                                  device="cuda"))
     g = _rand(rng, (B, T, O), 0.01)
     _, streams, acts = dc.mstcn_stack_fwd(x, lens, layers, dil, save=True, **kw)
+    N = _valid(lens, T)
+    params = (layers, kw["out_w"], kw["out_b"])
+    work = (len(dil) * 18 * N * C * C + 4 * N * C * O,
+            nbytes(g, streams, acts, lens, params, kw["seeds"]) + nbytes(x, params))
     return (lambda: dc.mstcn_stack_bwd(g, streams, acts, lens, layers, dil, **kw),
-            lambda: dc.mstcn_stack_bwd_reference(g, streams, acts, lens, layers, dil, **kw))
+            lambda: dc.mstcn_stack_bwd_reference(g, streams, acts, lens, layers, dil, **kw),
+            work)
 
 
-def x2y_bwd_case(rng, flash, *shape):
+def x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
+    return (_rand(rng, (B, Y, Cy)), y_pos, _rand(rng, (B, X, Cx)), x_pos,
+            _uniform(rng, (Cx, d), Cx), _uniform(rng, (d,), Cx),
+            _uniform(rng, (Cx, d), Cx), _uniform(rng, (d,), Cx),
+            _uniform(rng, (Cy, d), Cy), _uniform(rng, (d,), Cy), _lens(x_len))
+
+
+def x2y_fwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     from fact_clip_tpu_torch.ops import x2y_attn as xa
 
-    args, _ = x2y_case(rng, *shape)
+    args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
+    Xv = _valid(args[10], X)
+    kv = 4 * Cx * d * Xv if flash else 4 * B * X * Cx * d  # the projections of the keys
+    work = (2 * B * Y * Cy * d + kv + 4 * Y * d * Xv,
+            nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4)
+    fn = xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd
+    return lambda: fn(*args), lambda: xa.x2y_attention_reference(*args), work
+
+
+def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
     attn, probs, logits = (xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd)(*args)
     g_attn = _rand(rng, attn.shape)
     g_probs, g_logits = _rand(rng, probs.shape, 0.1), _rand(rng, logits.shape, 0.1)
+    Xv = _valid(args[10], X)
     if flash:
         kern = lambda: xa.x2y_flash_bwd(*args, probs, attn, g_attn, g_probs, g_logits)  # noqa: E731
+        flops = 12 * Cx * d * Xv + 8 * Y * d * Xv + 6 * B * Y * Cy * d
     else:
         kern = lambda: xa.x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)  # noqa: E731
-    return kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits)
+        flops = 6 * B * Y * Cy * d + 8 * Y * d * Xv + 12 * B * X * Cx * d
+    work = (flops, nbytes(args, probs, attn if flash else None, g_attn, g_probs, g_logits)
+            + nbytes(args[:10]))
+    return kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work
+
+
+def mha_case(rng, B, M, X, E, Cx, x_len, pos):
+    return (_rand(rng, (B, M, E)), _rand(rng, (B, X, Cx)), pos, _xavier(rng, (Cx, E)),
+            _rand(rng, (E,), 0.02), _xavier(rng, (Cx, E)), _rand(rng, (E,), 0.02), _lens(x_len))
+
+
+def mha_fwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.0):
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+    from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
+
+    args = mha_case(rng, B, M, X, E, Cx, x_len, pos)
+    seed = _seed(rng)
+    keep = dropout_mask_reference(seed, 0, (B, H * M, X), rate) if rate > 0.0 else None
+    Xv = _valid(args[7], X)
+    work = (4 * Cx * E * Xv + 4 * M * E * Xv, nbytes(args) + B * M * E * 4)
+    return (lambda: ma.mha_cross_fwd(*args, num_heads=H, rate=rate, seed=seed),
+            lambda: ma.mha_cross_attention_reference(*args, num_heads=H, keep=keep), work)
+
+
+def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2):
+    """The backward from the kernel forward's saves (output and softmax
+    stats), with the layer's mask; the plain backward takes the same."""
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+    from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
+
+    args = mha_case(rng, B, M, X, E, Cx, x_len, pos)
+    seed = _seed(rng)
+    out, stats = ma.mha_cross_fwd(*args, num_heads=H, rate=rate, seed=seed, with_stats=True)
+    keep = dropout_mask_reference(seed, 0, (B, H * M, X), rate)
+    g = _rand(rng, (B, M, E))
+    Xv = _valid(args[7], X)
+    work = (12 * Cx * E * Xv + 10 * M * E * Xv,
+            nbytes(args, stats, out, g, keep) + nbytes(args[0], args[1], args[3:7]))
+    return (lambda: ma.mha_cross_bwd(*args, stats, out, g, num_heads=H, keep=keep),
+            lambda: ma.mha_cross_bwd_reference(*args, stats, out, g, num_heads=H, keep=keep),
+            work)
+
+
+def sa_case(rng, B, M, E):
+    return (_rand(rng, (B, M, E)), _rand(rng, (1, M, E)), _xavier(rng, (E, E)),
+            _rand(rng, (E,), 0.02), _xavier(rng, (E, E)), _rand(rng, (E,), 0.02),
+            _xavier(rng, (E, E)), _rand(rng, (E,), 0.02), _uniform(rng, (E, E), E),
+            _rand(rng, (E,), 0.02), 1.0 + _rand(rng, (E,), 0.1), _rand(rng, (E,), 0.1))
+
+
+def _sa_masks(rng, B, M, E, H, rate):
+    from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
+
+    seed = _seed(rng)
+    if rate <= 0.0:
+        return seed, None, None
+    return (seed, dropout_mask_reference(seed, 0, (B, H * M, M), rate),
+            dropout_mask_reference(seed, 1, (B, M, E), rate))
+
+
+def sa_fwd_case(rng, B, M, E, H, rate=0.0):
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = sa_case(rng, B, M, E)
+    seed, ka, ko = _sa_masks(rng, B, M, E, H, rate)
+    work = (B * (8 * M * E * E + 4 * M * M * E), nbytes(args) + B * M * E * 4)
+    return (lambda: sl.sa_sublayer_fwd(*args, num_heads=H, rate_attn=rate, rate=rate, seed=seed),
+            lambda: sl.sa_sublayer_reference(*args, num_heads=H, keep_attn=ka, keep_out=ko),
+            work)
+
+
+def sa_bwd_case(rng, B, M, E, H, rate=0.2):
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = sa_case(rng, B, M, E)
+    _, ka, ko = _sa_masks(rng, B, M, E, H, rate)
+    g = _rand(rng, (B, M, E))
+    kw = dict(num_heads=H, keep_attn=ka, keep_out=ko)
+    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g, ka, ko) + nbytes(args))
+    return (lambda: sl.sa_sublayer_bwd(*args, g, **kw),
+            lambda: sl.sa_sublayer_bwd_reference(*args, g, **kw), work)
+
+
+def ffn_case(rng, B, M, E, Fd, away_from_zero=False):
+    """With ``away_from_zero`` the hidden pre-activations stay at |z1| >= ~0.2
+    (biases of magnitude 1 to 1.5, small weights): a kernel and a plain
+    backward that recompute z1 in other orders then agree on every ReLU."""
+    import torch
+
+    if away_from_zero:
+        w1 = _uniform(rng, (E, Fd), E, 0.3)
+        b1 = np.sign(rng.standard_normal(Fd)) * rng.uniform(1.0, 1.5, Fd)
+        b1 = torch.from_numpy(b1.astype(np.float32)).cuda()
+    else:
+        w1, b1 = _uniform(rng, (E, Fd), E), _uniform(rng, (Fd,), E)
+    return (_rand(rng, (B, M, E)), w1, b1, _uniform(rng, (Fd, E), Fd), _uniform(rng, (E,), Fd),
+            1.0 + _rand(rng, (E,), 0.1), _rand(rng, (E,), 0.1))
+
+
+def _ffn_masks(rng, B, M, E, Fd, rate):
+    from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
+
+    seed = _seed(rng)
+    if rate <= 0.0:
+        return seed, None, None
+    return (seed, dropout_mask_reference(seed, 0, (B, M, Fd), rate),
+            dropout_mask_reference(seed, 1, (B, M, E), rate))
+
+
+def ffn_fwd_case(rng, B, M, E, Fd, rate=0.0):
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = ffn_case(rng, B, M, E, Fd)
+    seed, k1, k2 = _ffn_masks(rng, B, M, E, Fd, rate)
+    work = (B * 4 * M * E * Fd, nbytes(args) + B * M * E * 4)
+    return (lambda: sl.ffn_sublayer_fwd(*args, rate=rate, seed=seed),
+            lambda: sl.ffn_sublayer_reference(*args, keep_hidden=k1, keep_out=k2), work)
+
+
+def ffn_bwd_case(rng, B, M, E, Fd, rate=0.2):
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = ffn_case(rng, B, M, E, Fd, away_from_zero=True)
+    _, k1, k2 = _ffn_masks(rng, B, M, E, Fd, rate)
+    g = _rand(rng, (B, M, E))
+    kw = dict(keep_hidden=k1, keep_out=k2)
+    work = (B * 12 * M * E * Fd, nbytes(args, g, k1, k2) + nbytes(args))
+    return (lambda: sl.ffn_sublayer_bwd(*args, g, **kw),
+            lambda: sl.ffn_sublayer_bwd_reference(*args, g, **kw), work)
 
 
 def frame_loss_case(rng, backward, B, T, C, lengths, with_ce=True):
@@ -321,149 +455,215 @@ def frame_loss_case(rng, backward, B, T, C, lengths, with_ce=True):
     maskf = (torch.arange(T, device="cuda")[None] < _lens(lengths)[:, None]).float()
     cw = torch.from_numpy(rng.uniform(0.1, 1.0, C).astype(np.float32)).cuda()
     args = (x, labels if with_ce else None, maskf, cw if with_ce else None)
+    N = _valid(_lens(lengths), T)
     if backward:
         g = (_rand(rng, (B,)), _rand(rng, (B,)))
         return (lambda: fl.frame_loss_bwd(*args, *g),
-                lambda: fl.frame_loss_bwd_reference(*args, *g))
-    return lambda: fl.frame_loss_fwd(*args), lambda: fl.frame_loss_reference(*args)
+                lambda: fl.frame_loss_bwd_reference(*args, *g),
+                (12 * N * C, nbytes(args, g) + nbytes(x)))
+    return (lambda: fl.frame_loss_fwd(*args), lambda: fl.frame_loss_reference(*args),
+            (12 * N * C, nbytes(args) + 2 * B * 4))
 
 
-def mask_case(rng, shape, rate=0.2):
-    import torch
-
+def mask_case(rng, kind, shape, rate=0.2):
+    """A mask kernel's wrapper and the plain hash at the same (seed, stream,
+    index): K1 (B, T, C) per layer, K3 (B, H*M, X), SA (B, M, E, H) and FFN
+    (B, M, E, F) shapes."""
     from fact_clip_tpu_torch.ops import dilated_conv as dc
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+    from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference as ref
 
-    seed = torch.tensor([int(rng.integers(0, 2 ** 31 - 1))], dtype=torch.int32, device="cuda")
-    layer = int(rng.integers(0, 25))
-    return (lambda: dc.mstcn_dropout_mask(seed, layer, shape, rate),
-            lambda: dc.dropout_mask_reference(seed, layer, shape, rate))
+    seed = _seed(rng)
+    if kind == "k1":
+        layer = int(rng.integers(0, 25))
+        kern = lambda: dc.mstcn_dropout_mask(seed, layer, shape, rate)  # noqa: E731
+        plain = lambda: ref(seed, layer, shape, rate)  # noqa: E731
+        shapes = [shape]
+    elif kind == "k3":
+        kern = lambda: ma.mha_dropout_mask(seed, shape, rate)  # noqa: E731
+        plain = lambda: ref(seed, 0, shape, rate)  # noqa: E731
+        shapes = [shape]
+    elif kind == "sa":
+        B, M, E, H = shape
+        shapes = [(B, H * M, M), (B, M, E)]
+        kern = lambda: sl.sa_dropout_masks(seed, B, M, E, H, rate, rate)  # noqa: E731
+        plain = lambda: tuple(ref(seed, i, s, rate) for i, s in enumerate(shapes))  # noqa: E731
+    else:
+        B, M, E, Fd = shape
+        shapes = [(B, M, Fd), (B, M, E)]
+        kern = lambda: sl.ffn_dropout_masks(seed, B, M, E, Fd, rate)  # noqa: E731
+        plain = lambda: tuple(ref(seed, i, s, rate) for i, s in enumerate(shapes))  # noqa: E731
+    return kern, plain, (0, 4 + 4 * sum(int(np.prod(s)) for s in shapes))
 
 
-def train_kernel_table():
-    """(name, source, replaces, [(case, make(rng) -> (kernel fn, plain fn))]);
-    the first case is the flagship's and is timed."""
+def kernel_table():
+    """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
+    fn, (flops, bytes)))]).  The first case is the flagship's and is timed.
+    check: "rel" (relative error), "probs" (also the probabilities' absolute
+    error) or "mask" (bit-equal; the keep rate pooled over MASK_SEEDS seeds
+    at the flagship shape)."""
     import torch
 
     B, T, D = 8, 3072, 512
     zeros = lambda *s: torch.zeros(s, device="cuda")  # noqa: E731
-    ragged_k1 = lambda r: k1_bwd_case(r, 2, 1000, 256, D, [1, 64, 512], [1000, 777], True)  # noqa: E731
+    tower = [2 ** i for i in range(10)]
+    ragged_k1 = ([1, 64, 512], [1000, 777])
+    csrc = "fact_clip_tpu_torch/csrc/"
+    pallas = "fact_clip_tpu/ops/pallas/"
     return [
-        ("mstcn_dropout_mask", "fact_clip_tpu_torch/csrc/mstcn.cu",
-         "fact_clip_tpu/ops/pallas/dilated_conv.py:97",
-         [("flagship", lambda r: mask_case(r, (B, T, 256))),
-          ("ragged", lambda r: mask_case(r, (2, 1000, 37)))]),
-        ("mstcn_stack_bwd", "fact_clip_tpu_torch/csrc/mstcn.cu",
-         "fact_clip_tpu/ops/pallas/dilated_conv.py:689",
-         [("flagship", lambda r: k1_bwd_case(r, B, T, 256, D, [2 ** i for i in range(10)],
-                                             FLAGSHIP_LENGTHS, False)),
-          ("ragged", ragged_k1)]),
-        ("x2y_small_x_bwd", "fact_clip_tpu_torch/csrc/x2y_bwd.cu",
-         "fact_clip_tpu/ops/pallas/x2y_attn.py:430",
+        # the serving path's forwards, with dropout where training uses it
+        ("mstcn_stack", csrc + "mstcn.cu", pallas + "dilated_conv.py:311", "rel",
+         [("flagship", lambda r: k1_fwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False)),
+          ("ragged", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True)),
+          ("dropout", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True, 0.2))]),
+        ("x2y_small_x", csrc + "x2y_attn.cu", pallas + "x2y_attn.py:76", "probs",
+         [("flagship", lambda r: x2y_fwd_case(r, False, B, T, 40, D, D, D, [40] * B,
+                                              zeros(1, T, D), _rand(r, (1, 40, 256)))),
+          ("ragged", lambda r: x2y_fwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
+                                            _rand(r, (2, 1000, D)), _rand(r, (1, 37, D))))]),
+        ("x2y_flash", csrc + "flash_attn.cu", pallas + "x2y_attn.py:159", "probs",
+         [("flagship", lambda r: x2y_fwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
+                                              _rand(r, (1, 40, 256)), zeros(1, T, D))),
+          ("ragged", lambda r: x2y_fwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
+                                            _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
+        ("mha_cross", csrc + "flash_attn.cu", pallas + "mha_attn.py:235", "rel",
+         [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                              zeros(1, T, D))),
+          ("ragged", lambda r: mha_fwd_case(r, 2, 37, 1100, 256, D, 8, [1100, 900],
+                                            _rand(r, (1, 1100, D)))),
+          ("flag_drop", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                               zeros(1, T, D), 0.2)),
+          ("rag_drop", lambda r: mha_fwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
+                                              _rand(r, (1, 1100, D)), 0.2))]),
+        ("sa_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "rel",
+         [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
+          ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
+          ("flag_drop", lambda r: sa_fwd_case(r, B, 40, 256, 8, 0.2)),
+          ("rag_drop", lambda r: sa_fwd_case(r, 3, 11, 256, 8, 0.2))]),
+        ("ffn_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "rel",
+         [("flagship", lambda r: ffn_fwd_case(r, B, 40, 256, 512)),
+          ("ragged", lambda r: ffn_fwd_case(r, 3, 37, 256, 512)),
+          ("flag_drop", lambda r: ffn_fwd_case(r, B, 40, 256, 512, 0.2)),
+          ("rag_drop", lambda r: ffn_fwd_case(r, 3, 11, 256, 512, 0.2))]),
+        # the training path's masks and backwards, and K5
+        ("mstcn_dropout_mask", csrc + "dropout.cu", pallas + "dilated_conv.py:97", "mask",
+         [("flagship", lambda r: mask_case(r, "k1", (B, T, 256))),
+          ("ragged", lambda r: mask_case(r, "k1", (2, 1000, 37)))]),
+        ("mha_dropout_mask", csrc + "dropout.cu", pallas + "mha_attn.py:163", "mask",
+         [("flagship", lambda r: mask_case(r, "k3", (B, 8 * 40, T))),
+          ("ragged", lambda r: mask_case(r, "k3", (3, 8 * 11, 1100)))]),
+        ("sa_dropout_masks", csrc + "dropout.cu", pallas + "sa_layer.py:523", "mask",
+         [("flagship", lambda r: mask_case(r, "sa", (B, 40, 256, 8))),
+          ("ragged", lambda r: mask_case(r, "sa", (3, 11, 256, 8)))]),
+        ("ffn_dropout_masks", csrc + "dropout.cu", pallas + "sa_layer.py:537", "mask",
+         [("flagship", lambda r: mask_case(r, "ffn", (B, 40, 256, 512))),
+          ("ragged", lambda r: mask_case(r, "ffn", (3, 11, 256, 512)))]),
+        ("mstcn_stack_bwd", csrc + "mstcn.cu", pallas + "dilated_conv.py:689", "rel",
+         [("flagship", lambda r: k1_bwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False)),
+          ("ragged", lambda r: k1_bwd_case(r, 2, 1000, 256, D, *ragged_k1, True))]),
+        ("x2y_small_x_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:430", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               zeros(1, T, D), _rand(r, (1, 40, 256)))),
           ("tdu", lambda r: x2y_bwd_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
                                          _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
           ("ragged", lambda r: x2y_bwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
                                             _rand(r, (1, 1000, D)), _rand(r, (2, 37, D))))]),
-        ("x2y_flash_bwd", "fact_clip_tpu_torch/csrc/x2y_bwd.cu",
-         "fact_clip_tpu/ops/pallas/x2y_attn.py:282",
+        ("x2y_flash_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_bwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
                                             _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
-        ("frame_loss_fwd", "fact_clip_tpu_torch/csrc/frame_loss.cu",
-         "fact_clip_tpu/ops/pallas/frame_loss.py:185",
+        ("mha_cross_bwd", csrc + "mha_bwd.cu", pallas + "mha_attn.py:444", "rel",
+         [("flagship", lambda r: mha_bwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                              zeros(1, T, D))),
+          ("ragged", lambda r: mha_bwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
+                                            _rand(r, (1, 1100, D))))]),
+        ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
+         [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
+          ("ragged", lambda r: sa_bwd_case(r, 3, 11, 256, 8))]),
+        ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
+         [("flagship", lambda r: ffn_bwd_case(r, B, 40, 256, 512)),
+          ("ragged", lambda r: ffn_bwd_case(r, 3, 11, 256, 512))]),
+        ("frame_loss_fwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:185", "rel",
          [("flagship", lambda r: frame_loss_case(r, False, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, False, B, T, 40, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: frame_loss_case(r, False, 2, 1000, 37, [1000, 777]))]),
-        ("frame_loss_bwd", "fact_clip_tpu_torch/csrc/frame_loss.cu",
-         "fact_clip_tpu/ops/pallas/frame_loss.py:212",
+        ("frame_loss_bwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:212", "rel",
          [("flagship", lambda r: frame_loss_case(r, True, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, True, B, T, 40, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: frame_loss_case(r, True, 2, 1000, 37, [1000, 777]))]),
     ]
 
 
-def phase_train_kernels(seed: int = 1):
-    """The training path's kernels against their plain versions (phase 3, cont.)."""
+def check_mask(name, make, rng, pooled: bool):
+    """Bit-equality of a mask kernel with the plain hash, and (``pooled``)
+    the keep rate over the masks of MASK_SEEDS seeds.  Returns (line, ok)."""
     import torch
 
-    results = {}
-    failed = []
-    rng = np.random.default_rng(seed)
-    for name, source, replaces, cases in train_kernel_table():
-        for case_name, make in cases:
-            kern, plain = make(rng)
-            outs, refs = _pairs(name, kern(), plain())
-            torch.cuda.synchronize()
-            if name == "mstcn_dropout_mask":
-                keep = float((outs[0] > 0).double().mean())
-                err_abs = float((outs[0] - refs[0]).abs().max())
-                ok = torch.equal(outs[0], refs[0]) and abs(keep - 0.8) <= 0.005
-                line = (f"[kernel] {name:<18} {case_name:<8} bit-equal "
-                        f"{torch.equal(outs[0], refs[0])} keep rate {keep:.5f} (0.8 +- 0.005)")
-            else:
-                err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
-                ok = err_rel <= REL_TOL
-                line = (f"[kernel] {name:<18} {case_name:<8} max_abs_err {err_abs:.3e} "
-                        f"max_rel_err {err_rel:.3e} (tol {REL_TOL:g})")
-            if case_name == "flagship":
-                iters = 3 if name == "mstcn_stack_bwd" else 10
-                ms = cuda_ms(kern, iters, warmup=1)
-                plain_ms = cuda_ms(plain, iters, warmup=1)
-                line += f" ms {ms:.4f} plain_ms {plain_ms:.4f}"
-                results[name] = dict(name=name, route="cuda", source=source,
-                                     replaces=replaces, max_abs_err=err_abs,
-                                     ms=ms, plain_ms=plain_ms)
-            else:
-                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_abs)
-            log(line + ("" if ok else "  FAIL"))
-            if not ok:
-                failed.append(f"{name}/{case_name}")
-            del kern, plain, outs, refs
-            torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"training kernels disagree with their plain versions: {failed}")
-    return results
+    kept = total = 0
+    equal = True
+    for _ in range(MASK_SEEDS if pooled else 1):
+        kern, plain, _ = make(rng)
+        outs, refs = _pairs(name, kern(), plain())
+        equal = equal and all(torch.equal(o, r) for o, r in zip(outs, refs))
+        kept += sum(int((o > 0).sum()) for o in outs)
+        total += sum(o.numel() for o in outs)
+    keep = kept / total
+    ok = equal and (not pooled or abs(keep - 0.8) <= KEEP_TOL)
+    line = f"bit-equal {equal} keep rate {keep:.5f}"
+    if pooled:
+        line += f" over {MASK_SEEDS} seeds ({total} values; 0.8 +- {KEEP_TOL:g})"
+    return line, ok
 
 
 def phase_kernels(seed: int = 0):
+    """Every kernel against its plain version on the same inputs; the
+    flagship case timed beside the plain version and the bound."""
     import torch
 
     results = {}
     failed = []
     rng = np.random.default_rng(seed)
-    with torch.inference_mode():
-        for name, source, replaces, kern, plain, flagship, ragged in kernel_table():
-            for case_name, make in (("flagship", flagship), ("ragged", ragged)):
-                args, kw = make(rng)
-                out = kern(*args, **kw)
-                ref = plain(*args, **kw)
-                torch.cuda.synchronize()
-                outs = out if isinstance(out, tuple) else (out,)
-                refs = ref if isinstance(ref, tuple) else (ref,)
-                err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
-                ok = err_rel <= REL_TOL
-                if name.startswith("x2y"):  # probabilities: absolute bound
-                    p_err = float((outs[1] - refs[1]).abs().max())
-                    ok = ok and p_err <= PROB_TOL
-                    extra = f" probs_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
+    for name, source, replaces, check, cases in kernel_table():
+        for i, (case_name, make) in enumerate(cases):
+            with torch.no_grad():
+                if check == "mask":
+                    text, ok = check_mask(name, make, rng, pooled=i == 0)
+                    err_abs = 0.0 if ok else float("nan")
+                    kern, plain, work = make(rng)
                 else:
-                    extra = ""
-                line = (f"[kernel] {name:<12} {case_name:<8} max_abs_err {err_abs:.3e} "
-                        f"max_rel_err {err_rel:.3e} (tol {REL_TOL:g}){extra}")
-                if case_name == "flagship":
-                    iters = 5 if name == "mstcn_stack" else 20
-                    ms = cuda_ms(lambda: kern(*args, **kw), iters)
-                    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters)
-                    line += f" ms {ms:.4f} plain_ms {plain_ms:.4f}"
+                    kern, plain, work = make(rng)
+                    outs, refs = _pairs(name, kern(), plain())
+                    torch.cuda.synchronize()
+                    err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
+                    ok = err_rel <= REL_TOL
+                    text = f"max_abs_err {err_abs:.3e} max_rel_err {err_rel:.3e} (tol {REL_TOL:g})"
+                    if check == "probs":
+                        p_err = float((outs[1] - refs[1]).abs().max())
+                        ok = ok and p_err <= PROB_TOL
+                        text += f" probs_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
+                    del outs, refs
+                if i == 0 or case_name.endswith("drop"):
+                    iters = 3 if name.startswith("mstcn_stack") else 10
+                    ms = cuda_ms(kern, iters, warmup=1)
+                    plain_ms = cuda_ms(plain, iters, warmup=1)
+                    bound_ms, bound_by = bound(*work)
+                    text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                             f"({bound_by}; {work[0]:.4g} FLOP, {work[1]:.4g} bytes) "
+                             f"library_ms none")
+                if i == 0:
                     results[name] = dict(name=name, route="cuda", source=source,
-                                         replaces=replaces, max_abs_err=err_abs,
-                                         ms=ms, plain_ms=plain_ms)
-                log(line + ("" if ok else "  FAIL"))
-                if not ok:
-                    failed.append(f"{name}/{case_name}")
-                del args, kw, out, ref, outs, refs
+                                         replaces=replaces, max_abs_err=err_abs, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, library_ms=None)
+                else:
+                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_abs)
+            log(f"[kernel] {name:<18} {case_name:<9} {text}" + ("" if ok else "  FAIL"))
+            if not ok:
+                failed.append(f"{name}/{case_name}")
+            del kern, plain
+            torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return results
@@ -718,7 +918,6 @@ def main():
     smi = phase_environment(torch)
     phase_build(verbose="--ptxas" in sys.argv)
     results = phase_kernels()
-    results.update(phase_train_kernels())
     counts = phase_serving()
     train_counts = phase_training()
     for name, r in results.items():

@@ -5,12 +5,14 @@ layout where that helps find a module's counterpart:
 
 configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg (no YAML)
 models/           layers, blocks (FACT), two-branch decode, matching, losses
-ops/              the hand-written CUDA kernels (K1-K5, forwards and the
-                  K1/K2 backwards) beside their plain PyTorch versions; TDU
-                  segment operations; training masks; positional terms
+ops/              the hand-written CUDA kernels (K1-K5, forwards with dropout
+                  and backwards; the shared dropout mask) beside their plain
+                  PyTorch versions; TDU segment operations; training masks;
+                  positional terms
 engine/           the eval and train steps, the serving Predictor, the
                   optimizer and a minimal training loop
-utils/bridge.py   JAX parameters (numpy) -> this package's state_dict
+utils/           the FACT exporter (its own copy) and the bridge: JAX
+                  parameters (numpy) -> this package's state_dict
 csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 
 Everything runs in float32.  Importing this package imports neither JAX nor
@@ -25,9 +27,15 @@ _KERNELS = {
     "x2y_small_x": x2y_attn.x2y_small_x_fwd,
     "x2y_flash": x2y_attn.x2y_flash_fwd,
     "mha_cross": mha_attn.mha_cross_fwd,
-    "sa_sublayer": sa_layer.sa_sublayer,
-    "ffn_sublayer": sa_layer.ffn_sublayer,
+    "sa_sublayer": sa_layer.sa_sublayer_fwd,
+    "ffn_sublayer": sa_layer.ffn_sublayer_fwd,
     "mstcn_dropout_mask": dilated_conv.mstcn_dropout_mask,
+    "mha_dropout_mask": mha_attn.mha_dropout_mask,
+    "sa_dropout_masks": sa_layer.sa_dropout_masks,
+    "ffn_dropout_masks": sa_layer.ffn_dropout_masks,
+    "mha_cross_bwd": mha_attn.mha_cross_bwd,
+    "sa_sublayer_bwd": sa_layer.sa_sublayer_bwd,
+    "ffn_sublayer_bwd": sa_layer.ffn_sublayer_bwd,
     "mstcn_stack_bwd": dilated_conv.mstcn_stack_bwd,
     "x2y_small_x_bwd": x2y_attn.x2y_small_x_bwd,
     "x2y_flash_bwd": x2y_attn.x2y_flash_bwd,

@@ -45,7 +45,7 @@ GEMM_SMEM = 4 * (2 * 16 * 68 + 2 * 16 * 256)
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     "fk_mstcn_layer": [P] * 14 + [I, U, F, I, I, I, I, I, I, F, P],
-    "fk_mstcn_dropout_mask": [P, I, U, F, P, I, I, I, P],
+    "fk_dropout_mask": [P, I, U, F, P, L, P],
     "fk_mstcn_bwd_dc": [P] * 18 + [I, I, I, I, I, F, P],
     "fk_mstcn_bwd_dx": [P] * 5 + [I, I, I, I, P],
     "fk_atb": [P, P, L, I, P, I, I, P, P, I, I, I, I, I, I, P],
@@ -55,9 +55,13 @@ SIGNATURES = {
     "fk_frame_loss_fwd": [P] * 6 + [I, I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
     "fk_x2y_small_x": [P, P, L, I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-    "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P, P],
-    "fk_sa_sublayer": [P, P, L, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
-    "fk_ffn_sublayer": [P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
+                     P, I, U, F, P, P],
+    "fk_mha_bwd": [P, P, L, I] + [P] * 16 + [I, I, I, I, I, I, F, P],
+    "fk_sa_sublayer": [P, P, L, I] + [P] * 12 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
+    "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
+    "fk_sa_bwd": [P, P, I] + [P] * 23 + [I, I, I, I, F, P],
+    "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
 }
 
 
@@ -152,8 +156,8 @@ def no_grad_inputs(name: str, tensors) -> None:
 
 
 def forward_only(name: str, rates, tensors) -> None:
-    """Forward-only launches (K3, K4, and K2's raw forward wrappers, whose
-    autograd entry is ``x2y_attention``) take no dropout and no gradient."""
+    """K2's raw forward wrappers (whose autograd entry is ``x2y_attention``)
+    take no dropout and no gradient."""
     if any(float(r) != 0.0 for r in rates):
         raise NotImplementedError(f"{name}: dropout is not supported (forward-only kernel)")
     no_grad_inputs(name, tensors)

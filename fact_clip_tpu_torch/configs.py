@@ -99,12 +99,11 @@ def small_cfg() -> dict:
 def train_cfg() -> dict:
     """The flagship as the port trains it: ``_make_cfg(small=False)``
     (dropout 0.2, cmr 0.3, sw 5, pc 0.2, nullw 0.1, Adam at lr 1e-4,
-    clip_grad_norm 10) with the SCA cross-attention and the SA sublayers on
-    their plain autograd paths (``pallas_attn`` and ``pallas_sa`` off: their
-    backward kernels come later) and the host Hungarian matcher (the
-    ``"auction"`` of ``_make_cfg`` is a TPU workaround)."""
+    clip_grad_norm 10, every kernel on) with the host Hungarian matcher in
+    place of the ``"auction"`` of ``_make_cfg`` (a TPU workaround).
+    ``model.set_kernels(False)`` gives its plain PyTorch path."""
     cfg = flagship_cfg()
-    cfg["TPU"].update(pallas_attn=False, pallas_sa=False, matcher="host")
+    cfg["TPU"]["matcher"] = "host"
     return cfg
 
 

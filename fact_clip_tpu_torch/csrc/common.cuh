@@ -201,11 +201,13 @@ __device__ __forceinline__ void layer_norm_rows(float* base, int rows, int valid
   }
 }
 
-// Counter-based dropout bits: the murmur3 finalizer of (seed, layer, index)
-// with uint32 wraparound.  The forward, the backward and the mask kernel of
-// the tower all call this one function, and ops/dilated_conv.py computes the
-// same bits with int64 torch ops, so the kernel's mask and the plain
-// version's are bit-equal.  Keep where bits < (1 - rate) * 2^32.
+// Counter-based dropout bits: the murmur3 finalizer of (seed, stream, index)
+// with uint32 wraparound, where index is the element's row-major position in
+// the mask's logical shape.  Every kernel that drops out (K1's layers, K3's
+// probabilities, K4's sublayers) and the mask kernel (dropout.cu) call this
+// one function, and ops/dropout.py computes the same bits with int64 torch
+// ops, so a kernel's mask and the plain version's are bit-equal.  Keep where
+// bits < (1 - rate) * 2^32.
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85ebca6bu;
@@ -215,10 +217,24 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t layer, uint32_t idx) {
-  const uint32_t key = fmix32(seed + layer * 0x85ebca77u);
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t stream, uint32_t idx) {
+  const uint32_t key = fmix32(seed + stream * 0x85ebca77u);
   return fmix32((idx * 0x9e3779b9u) ^ key);
 }
+
+// A kernel's dropout: the seed (device, read once per block), the stream,
+// the keep threshold and the scale 1 / (1 - rate).  A null seed: no dropout.
+struct Dropout {
+  const int* seed;
+  int stream;
+  unsigned thresh;
+  float scale;
+  __device__ __forceinline__ uint32_t load_seed() const { return seed ? (uint32_t)seed[0] : 0u; }
+  // the scaled keep value of the element at row-major index idx
+  __device__ __forceinline__ float keep(uint32_t idx, uint32_t s) const {
+    return dropout_bits(s, (uint32_t)stream, idx) < thresh ? scale : 0.f;
+  }
+};
 
 // Column sums of a (rows x ncols) tile (row stride ld) in global or shared
 // memory, in row order, one thread per column: deterministic.  The caller

@@ -17,7 +17,20 @@
 //            (the losses and the decode read them).
 //   combine: one block per (head, query row, video) merges the tiles' (m, l,
 //            acc) into the attention output, and for the single-head form
-//            writes probs = exp(logit - m_max) / l_total.
+//            writes probs = exp(logit - m_max) / l_total.  For K3's backward
+//            it also writes the row's softmax stats (m_max, l_total): 2 floats
+//            per (video, head, query), the only extra write of a training
+//            forward (csrc/mha_bwd.cu recovers p = exp(logit - m) / l).
+//
+// K3's attention dropout (torch semantics: softmax, then dropout on the
+// probabilities) runs in the partial kernel: the keep value of (b, h, m, key)
+// is fk::dropout_bits(seed, 0, (b*H*M + h*M + m)*X + key), the mask of shape
+// (B, H*M, X) of ops/dropout.py; it multiplies the weights of the attend sum
+// only, while l sums the undropped weights, so the output is
+// dropout(softmax(logits)) @ V, as mha_attn.py:98-106 computes it.  The TPU
+// seeds its PRNG per grid cell (mha_attn.py:104), which ties its forward and
+// backward to one key tile (_pick_tile); this mask is keyed by the logical
+// index, so no tiling couples the two passes.
 //
 // Bound on the H100: the two projections, 2 * 2 * B*X*Cx*E FLOPs of f32
 // FMA (25.8 GFLOP for the u-block's f2a at B=8, X=3072, Cx=E=512; 12.9 GFLOP
@@ -41,7 +54,8 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
                          const float* __restrict__ wv, const float* __restrict__ bv,
                          const int* __restrict__ xlen, int X, int Cx, int M, int H, int hd,
                          float scale, float* __restrict__ logits,
-                         float* __restrict__ part_acc, float* __restrict__ part_ml) {
+                         float* __restrict__ part_acc, float* __restrict__ part_ml,
+                         fk::Dropout drop) {
   constexpr int RM = BK / 8;
   const int E = H * hd;
   const int HM = H * M;
@@ -60,6 +74,7 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int xl = min(xlen[b], X);
   const float* xb = x + (size_t)b * X * Cx;
   const float* pb = xpos ? xpos + (size_t)b * pos_bstride : nullptr;
+  const uint32_t seed = drop.load_seed();
   float acc[RM][8];
 
   // out[r][c] = in(r, :) @ W[:, c] + bias[c] for the tile's rows
@@ -107,9 +122,14 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
     float lt = 0.f;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const float p = x0 + u * 32 + tx < X ? expf(lg[u] - mt) : 0.f;
-      p_s[hm * BK + u * 32 + tx] = p;
-      lt += p;
+      const int key = x0 + u * 32 + tx;
+      const float p = key < X ? expf(lg[u] - mt) : 0.f;
+      lt += p;  // the normaliser sums the undropped weights
+      float pk = p;
+      if (drop.seed != nullptr && key < X)
+        pk *= drop.keep(((uint32_t)b * (uint32_t)HM + (uint32_t)hm) * (uint32_t)X + (uint32_t)key,
+                        seed);
+      p_s[hm * BK + u * 32 + tx] = pk;
     }
     lt = fk::warp_sum(lt);
     if (tx == 0) {
@@ -150,7 +170,8 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
 __global__ void __launch_bounds__(fk::kThreads)
 proj_attn_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                          int n_t, int M, int H, int hd, float* __restrict__ out,
-                         const float* __restrict__ logits, float* __restrict__ probs, int X) {
+                         const float* __restrict__ logits, float* __restrict__ probs, int X,
+                         float* __restrict__ stats) {
   extern __shared__ float4 smem_raw[];
   float* red = reinterpret_cast<float*>(smem_raw);  // [kThreads]
   float* w = red + fk::kThreads;                    // [n_t]
@@ -173,6 +194,10 @@ proj_attn_combine_kernel(const float* __restrict__ part_acc, const float* __rest
   }
   l = block_reduce(l, red, false);  // its barriers also publish w[]
   const float inv = 1.f / fmaxf(l, 1e-30f);
+  if (stats != nullptr && tid == 0) {
+    stats[((size_t)b * HM + hm) * 2] = mx;
+    stats[((size_t)b * HM + hm) * 2 + 1] = l;
+  }
 
   const float* pa = part_acc + ((size_t)b * n_t * HM + hm) * hd;
   const size_t tstride = (size_t)HM * hd;
@@ -214,7 +239,8 @@ extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bst
                             const float* q, const float* wk, const float* bk, const float* wv,
                             const float* bv, const int* xlen, int B, int X, int Cx, int M,
                             int H, int hd, float scale, float* logits, float* probs, float* out,
-                            float* part_acc, float* part_ml, void* stream) {
+                            float* part_acc, float* part_ml, const int* seed, int drop_stream,
+                            unsigned thresh, float drop_scale, float* stats, void* stream) {
   const int E = H * hd;
   const int n_t = (X + BK - 1) / BK;
   const size_t smem_p = sizeof(fk::GemmSmem<BK>) +
@@ -223,13 +249,13 @@ extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bst
   if (err != cudaSuccess) return (int)err;
   proj_attn_partial_kernel<<<dim3(n_t, B), fk::kThreads, smem_p, (cudaStream_t)stream>>>(
       x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, X, Cx, M, H, hd, scale, logits,
-      part_acc, part_ml);
+      part_acc, part_ml, fk::Dropout{seed, drop_stream, thresh, drop_scale});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
   err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);
   if (err != cudaSuccess) return (int)err;
   proj_attn_combine_kernel<<<dim3(H * M, B), fk::kThreads, smem_c, (cudaStream_t)stream>>>(
-      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X);
+      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X, stats);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,9 @@
 // Dropout: the TPU kernel draws bits from the on-core PRNG seeded per grid
 // cell (_keep_mask, _seed_cell); this card has no such PRNG, so the keep
 // mask is fk::dropout_bits(seed, layer, (b*T + t)*C + c) < thresh, scaled by
-// 1/(1-rate).  The forward, the backward and the mask kernel (the
-// counterpart of dilated_conv.py::dropout_mask) compute it; it is never
-// kept past the layer's backward.
+// 1/(1-rate).  The forward and the mask kernel (dropout.cu, the counterpart
+// of dilated_conv.py::dropout_mask) compute it; it is never kept past the
+// layer's backward.
 //
 // Backward: replaces _stack_bwd_layer (_stack_bwd_dc_kernel,
 // _stack_bwd_dx_kernel), from the saved input stream x and activation h and
@@ -49,17 +49,6 @@ namespace {
 
 constexpr int BM = 64;  // frames per block
 
-struct Dropout {
-  const int* seed;  // this layer's seed (device), nullptr: no dropout
-  int layer;
-  unsigned thresh;
-  float scale;
-  __device__ __forceinline__ float keep(int b, int T, int C, int t, int c, uint32_t s) const {
-    const uint32_t idx = ((uint32_t)b * (uint32_t)T + (uint32_t)t) * (uint32_t)C + (uint32_t)c;
-    return fk::dropout_bits(s, (uint32_t)layer, idx) < thresh ? scale : 0.f;
-  }
-};
-
 __global__ void __launch_bounds__(fk::kThreads)
 mstcn_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const int* __restrict__ lengths,
@@ -67,7 +56,7 @@ mstcn_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const float* __restrict__ w1, const float* __restrict__ b1,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    const float* __restrict__ ow, const float* __restrict__ ob,
-                   float* __restrict__ logits, float* __restrict__ a_out, Dropout drop,
+                   float* __restrict__ logits, float* __restrict__ a_out, fk::Dropout drop,
                    int T, int C, int O, int dil, int use_ln, float eps) {
   constexpr int RM = BM / 8;
   extern __shared__ float4 smem_raw[];
@@ -80,7 +69,7 @@ mstcn_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int L = min(lengths[b], T);
   const float* xb = x + (size_t)b * T * C;
   float* yb = y + (size_t)b * T * C;
-  const uint32_t seed = drop.seed ? (uint32_t)drop.seed[0] : 0u;
+  const uint32_t seed = drop.load_seed();
   float acc[RM][8];
 
   // stage 1: dilated conv as one GEMM over K = 3C (tap-major rows of Wd)
@@ -121,7 +110,9 @@ mstcn_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
         float v = 0.f;
         if (t < L) {
           float o = acc[i][j] + __ldg(b1 + c);
-          if (drop.seed != nullptr) o *= drop.keep(b, T, C, t, c, seed);
+          if (drop.seed != nullptr)
+            o *= drop.keep(((uint32_t)b * (uint32_t)T + (uint32_t)t) * (uint32_t)C + (uint32_t)c,
+                           seed);
           v = o + __ldg(xb + (size_t)t * C + c);
         }
         yb[(size_t)t * C + c] = v;
@@ -154,20 +145,6 @@ mstcn_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
         if (o < O) lb[(size_t)(t0 + r) * O + o] = acc[i][j] + __ldg(ob + o);
       }
     }
-  }
-}
-
-// The scaled keep mask of one layer, (B, T, C): replayed for the layer's backward.
-__global__ void dropout_mask_kernel(Dropout drop, float* __restrict__ out, int B, int T, int C) {
-  const uint32_t seed = (uint32_t)drop.seed[0];
-  const long long n = (long long)B * T * C;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(e % C);
-    const long long bt = e / C;
-    const int t = (int)(bt % T);
-    const int b = (int)(bt / T);
-    out[e] = drop.keep(b, T, C, t, c, seed);
   }
 }
 
@@ -395,20 +372,10 @@ extern "C" int fk_mstcn_layer(const float* x, float* y, const int* lengths, cons
   cudaError_t err = fk::set_smem((const void*)mstcn_layer_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BM - 1) / BM, B);
-  Dropout drop{seed, layer, thresh, scale};
+  fk::Dropout drop{seed, layer, thresh, scale};
   mstcn_layer_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
       x, y, lengths, wd, bd, w1, b1, gamma, beta, ow, ob, logits, a_out, drop, T, C, O, dil,
       use_ln, eps);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fk_mstcn_dropout_mask(const int* seed, int layer, unsigned thresh, float scale,
-                                     float* out, int B, int T, int C, void* stream) {
-  const long long n = (long long)B * T * C;
-  const int blocks = (int)min((n + 255) / 256, 8192LL);
-  Dropout drop{seed, layer, thresh, scale};
-  dropout_mask_kernel<<<blocks > 0 ? blocks : 1, 256, 0, (cudaStream_t)stream>>>(drop, out, B,
-                                                                                 T, C);
   return (int)cudaGetLastError();
 }
 

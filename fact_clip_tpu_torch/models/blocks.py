@@ -240,14 +240,21 @@ class FACT(nn.Module):
 
 def build_fact(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int, *, device=None,
                generator: torch.Generator | None = None) -> FACT:
-    """Construct FACT from a config; parameters are allocated on ``device`` and
-    initialised from ``generator`` (a CPU torch.Generator; seed 0 if None)."""
+    """Construct FACT from a config; parameters are allocated on ``device``
+    (the CUDA card when None: the port is written for it; pass
+    ``device="cpu"`` for its plain PyTorch path on the CPU) and initialised
+    from ``generator`` (a CPU torch.Generator; seed 0 if None)."""
     if cfg["FACT"].get("trans"):
         raise ValueError("transcript mode is not ported")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_fact: no CUDA card is available; pass device='cpu' to "
+                               "build the model on the CPU")
+        device = "cuda"
     with torch.device("meta"):
         model = FACT(resolve_block_cfgs(cfg), in_dim, n_classes, cfg["FACT"]["ntoken"],
                      cfg["FACT"]["fpos"], s_pred_cap, cmr=cfg["FACT"].get("cmr", 0.0),
                      tm=cfg.get("TM"))
-    model = model.to_empty(device=device or "cpu")
+    model = model.to_empty(device=device)
     L.init_parameters(model, generator or torch.Generator().manual_seed(0))
     return model.eval()

@@ -14,12 +14,14 @@ segments are prefixes, so masks travel as lengths.
 
 Train mode (``module.train()``) turns on dropout where the JAX modules have
 it: every MSTCN layer (K1's in-kernel mask, seeded per layer), the attention
-probabilities, the X2Y out map's two inputs, and the residual branches and
-FFN of the SA / SCA layers.  Every draw comes from the ``generator`` passed
-down (a ``torch.Generator`` on the model's device).  In train mode with
-gradients, the kernel layouts are taken from the live parameters so that
-autograd reaches them; K1 and K2 run through their autograd entries, while
-K3 and K4 stay forward-only and refuse.
+probabilities (K3's and K4's in-kernel masks on the fused paths), the X2Y
+out map's two inputs, and the residual branches and FFN of the SA / SCA
+layers.  Every draw comes from the ``generator`` passed down (a
+``torch.Generator`` on the model's device); a kernel that drops out gets one
+int32 seed per call, drawn on the device (as the JAX modules draw one per
+fused call).  With gradients, the kernel layouts (and the LayerNorm
+parameters of the fused sublayers) are the live parameters, so that autograd
+reaches every one of them through the kernels' autograd entries (K1-K4).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch import nn
 
 from ..ops.dilated_conv import mstcn_stack, mstcn_stack_reference
 from ..ops.masking import dropout
-from ..ops.mha_attn import mha_cross_fwd
+from ..ops.mha_attn import mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
 from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
@@ -102,6 +104,14 @@ def _drop(module, generator, x, rate: float):
     return dropout(generator, x, rate)
 
 
+def _seeds(generator, n: int, device):
+    """(n,) int32 seeds of in-kernel dropout, drawn on the device."""
+    if generator is None:
+        raise ValueError("train mode with dropout needs a generator")
+    return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator, device=device,
+                         dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # dilated temporal convolution tower
 
@@ -157,12 +167,9 @@ class MSTCN(nn.Module, KernelLayout):
         L = len(self.layers)
         rates = seeds = None
         if self.training and self.dropout > 0.0:
-            if generator is None:
-                raise ValueError("train mode with dropout needs a generator")
             # one seed per layer, drawn on the device (layers.py:391-395)
             rates = (float(self.dropout),) * L
-            seeds = torch.randint(0, 2 ** 31 - 1, (L,), generator=generator, device=x.device,
-                                  dtype=torch.int32)
+            seeds = _seeds(generator, L, x.device)
         fn = mstcn_stack if self.use_kernel else mstcn_stack_reference
         return fn(x.contiguous(), lengths, [l.layout() for l in self.layers],
                   [l.dilation for l in self.layers], use_ln=self.ln, eps=LN_EPS_TOWER,
@@ -230,12 +237,14 @@ class MultiheadAttention(nn.Module, KernelLayout):
         fuse = (self.use_kernel and Nk >= self.kernel_min_keys and key is value
                 and E % 128 == 0 and key.shape[-1] % 128 == 0)
         if fuse:
-            _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.kernel_layout()
+            _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.layout()
             if key_len is None:
                 key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
             rate = self.dropout if self.training else 0.0
-            out = mha_cross_fwd(q.contiguous(), key.contiguous(), key_pos, wk_t, bk_c, wv_t,
-                                bv_c, key_len, num_heads=H, rate=rate)
+            # one seed per call (layers.py:662-665)
+            seed = _seeds(generator, 1, key.device) if rate > 0.0 else None
+            out = mha_cross_attention(q, key, key_pos, wk_t, bk_c, wv_t, bv_c, key_len,
+                                      num_heads=H, rate=rate, seed=seed)
             return self.out_proj(out)
         k = F.linear(add_pos(key, key_pos), wk, bk).view(B, Nk, H, hd)
         v = F.linear(value, wv, bv).view(B, Nk, H, hd)
@@ -296,18 +305,21 @@ def _ffn_layout(layer, live: bool = False):
             _t(layer.linear2.weight, live), _d(layer.linear2.bias, live))
 
 
-def _fused_sublayers(layer, attn, tgt, pos, norm_sa, norm_ffn, between=None):
-    """K4: the self-attention sublayer, then (after ``between``) the FFN one.
-    Forward-only: in train mode it refuses (its dropout and backward come
-    with the next slice)."""
-    sa, ffn = layer.kernel_layout()
+def _fused_sublayers(layer, attn, tgt, pos, norm_sa, norm_ffn, generator, between=None):
+    """K4: the self-attention sublayer, then (after ``between``) the FFN one,
+    on the live parameters (differentiable); in train mode each sublayer
+    drops out in-kernel from its own seed (layers.py:899, :904)."""
+    sa, ffn = layer.layout()
     rate = layer.dropout if layer.training else 0.0
-    y = sa_sublayer(tgt.contiguous(), pos, *sa, norm_sa.weight.detach(), norm_sa.bias.detach(),
-                    num_heads=attn.num_heads, eps=norm_sa.eps, rate_attn=rate, rate=rate)
+    rate_attn = attn.dropout if layer.training else 0.0
+    seeds = _seeds(generator, 2, tgt.device) if rate > 0.0 or rate_attn > 0.0 else None
+    y = sa_sublayer(tgt, pos, *sa, norm_sa.weight, norm_sa.bias, num_heads=attn.num_heads,
+                    eps=norm_sa.eps, rate_attn=rate_attn, rate=rate,
+                    seed=seeds[:1] if seeds is not None else None)
     if between is not None:
         y = between(y)
-    return ffn_sublayer(y, *ffn, norm_ffn.weight.detach(), norm_ffn.bias.detach(),
-                        eps=norm_ffn.eps, rate=rate)
+    return ffn_sublayer(y, *ffn, norm_ffn.weight, norm_ffn.bias, eps=norm_ffn.eps, rate=rate,
+                        seed=seeds[1:] if seeds is not None else None)
 
 
 def _ffn(layer, tgt, norm, generator):
@@ -336,7 +348,8 @@ class SALayer(nn.Module, KernelLayout):
 
     def forward(self, tgt, pos=None, generator=None):
         if self.use_kernel and _shared_pos(pos):
-            return _fused_sublayers(self, self.multihead_attn, tgt, pos, self.norm1, self.norm2)
+            return _fused_sublayers(self, self.multihead_attn, tgt, pos, self.norm1, self.norm2,
+                                    generator)
         q = add_pos(tgt, pos)
         t2 = self.multihead_attn(q, q, tgt, generator=generator)
         tgt = self.norm1(tgt + _drop(self, generator, t2, self.dropout))
@@ -373,7 +386,7 @@ class SCALayer(nn.Module, KernelLayout):
 
         if self.use_kernel and _shared_pos(query_pos):
             return _fused_sublayers(self, self.self_attn, tgt, query_pos, self.norm1,
-                                    self.norm3, between=cross)
+                                    self.norm3, generator, between=cross)
         q = add_pos(tgt, query_pos)
         t2 = self.self_attn(q, q, tgt, generator=generator)
         tgt = cross(self.norm1(tgt + _drop(self, generator, t2, self.dropout)))

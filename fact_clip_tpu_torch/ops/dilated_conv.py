@@ -7,14 +7,16 @@ with ``out_params``: the forward per layer (``_stack_layer``, Pallas kernel
 ``_stack_bwd_dc_kernel`` and ``_stack_bwd_dx_kernel``) and the dropout mask
 replay (``dropout_mask``).  Kernels: ``csrc/mstcn.cu`` (one forward launch
 per layer, the out projection fused into the last one; two backward
-launches per layer) and ``csrc/grad.cu`` (the weight-gradient sums).  What
+launches per layer), ``csrc/dropout.cu`` (the mask) and ``csrc/grad.cu``
+(the weight-gradient sums).  What
 bounds them on the H100 and what the design does about it is written at the
 top of the CUDA sources.
 
 Dropout (rate > 0, on the 1x1 conv's output, every layer): the keep mask is
-a counter hash of (seed, layer, b, t, c) (``dropout_mask_reference``); the
-kernels and the plain version compute the same bits.  ``seeds`` is an (L,)
-int32 tensor on the tower's device, one seed per layer.
+the counter hash of ``ops/dropout.py`` with stream = layer over (B, T, C)
+(``dropout_mask_reference``); the kernels and the plain version compute the
+same bits.  ``seeds`` is an (L,) int32 tensor on the tower's device, one
+seed per layer.
 
 Layouts follow the JAX function: ``wd`` (3, C, C) as (tap, in, out), ``w1``
 (C, C) and ``ow`` (C, O) as (in, out).  Frames at or past ``lengths[b]`` read
@@ -29,52 +31,15 @@ import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a, b: int):
-    """(a * b) mod 2^32 for int64 tensors a in [0, 2^32) without overflow."""
-    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(h):
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def keep_threshold(rate: float) -> int:
-    """Keep where bits < (1 - rate) * 2^32, as the TPU kernel's _keep_mask."""
-    return min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
-
-
-def dropout_mask_reference(seed, layer: int, shape, rate: float):
-    """Plain version of the keep mask: (B, T, C) float32, 1/(1-rate) where
-    kept, 0 where dropped; bit-equal to ``csrc/mstcn.cu``'s."""
-    B, T, C = shape
-    s = seed.reshape(-1)[:1].to(torch.int64) & _M32
-    key = _fmix32((s + ((layer * 0x85EBCA77) & _M32)) & _M32)
-    idx = torch.arange(B * T * C, device=seed.device, dtype=torch.int64) & _M32
-    bits = _fmix32(_mul32(idx, 0x9E3779B9) ^ key)
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=seed.device)
-    return torch.where(bits < keep_threshold(rate), scale, 0.0).view(B, T, C)
+from .dropout import dropout_args, dropout_mask_reference, launch_mask
 
 
 def mstcn_dropout_mask(seed, layer: int, shape, rate: float):
-    """The keep mask from the kernel (CUDA) or its plain version (CPU)."""
+    """One layer's (B, T, C) keep mask (replaces ``dilated_conv.py::dropout_mask``):
+    the mask kernel (CUDA) or its plain version (CPU)."""
     if seed.device.type == "cpu":
         return dropout_mask_reference(seed, layer, shape, rate)
-    B, T, C = shape
-    if seed.dtype != torch.int32:
-        raise ValueError("mstcn_dropout_mask: seed must be int32")
-    out = torch.empty((B, T, C), device=seed.device, dtype=torch.float32)
-    err = _build.lib().fk_mstcn_dropout_mask(seed.data_ptr(), int(layer), keep_threshold(rate),
-                                             1.0 / (1.0 - rate), out.data_ptr(), B, T, C,
-                                             _build.stream_ptr(seed.device))
-    _build.check("fk_mstcn_dropout_mask", err)
+    out = launch_mask(seed, layer, shape, rate)
     mstcn_dropout_mask.launches += 1
     return out
 
@@ -209,14 +174,6 @@ def _check_layers(name, x, lengths, layers, out_w, out_b, seeds, rates):
             raise ValueError(f"{name}: dropout needs (L,) int32 seeds")
 
 
-def _dropout_args(rates, seeds, i):
-    """(seed pointer, layer, threshold, scale) of the forward kernel's dropout."""
-    r = _rate(rates, i)
-    if r <= 0.0:
-        return None, 0, 0, 1.0
-    return seeds[i:i + 1].data_ptr(), i, keep_threshold(r), 1.0 / (1.0 - r)
-
-
 def mstcn_stack_fwd(x, lengths, layers, dilations, *, use_ln: bool, eps: float = 1e-5,
                     out_w, out_b, rates=None, seeds=None, save: bool = False):
     """The tower on the card (CUDA tensors) or its plain version (CPU tensors).
@@ -243,7 +200,8 @@ def mstcn_stack_fwd(x, lengths, layers, dilations, *, use_ln: bool, eps: float =
         last = i == len(layers) - 1
         dst = torch.empty_like(x) if save else bufs[i % 2]
         a_out = torch.empty_like(x) if save else None
-        seed, li, thresh, scale = _dropout_args(rates, seeds, i)
+        r = _rate(rates, i)
+        seed, li, thresh, scale = dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r)
         err = fn(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(), wd.data_ptr(),
                  bd.data_ptr(), w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), out_w.data_ptr() if last else None,

@@ -48,3 +48,16 @@ def kernel_pos(pos, B: int, N: int, C: int):
         raise ValueError(f"positional term {tuple(pos.shape)} does not fit ({B}, {N}, {C})")
     pos = pos.contiguous()
     return pos, (0 if Bp == 1 else N * P), P
+
+
+def pos_grad(d_in, pos):
+    """The cotangent of a positional term from that of the stream it shifts:
+    its leading channels, summed over the batch where ``pos`` is shared."""
+    if pos is None:
+        return None
+    g = d_in[..., :pos.shape[-1]]
+    if pos.dim() == 2:
+        return g.sum(dim=0)
+    if pos.shape[0] == 1 and g.shape[0] != 1:
+        return g.sum(dim=0, keepdim=True)
+    return g

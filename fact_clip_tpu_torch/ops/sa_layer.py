@@ -1,15 +1,27 @@
-"""K4: the post-norm self-attention and FFN sublayers of the token decoders.
+"""K4: the post-norm self-attention and FFN sublayers of the token decoders,
+forward with dropout and backward.
 
-Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py::sa_sublayer`` (``_sa_fwd_impl``,
-Pallas kernel ``_sa_fwd_kernel``) and ``ffn_sublayer`` (``_ffn_fwd_impl``,
-``_ffn_fwd_kernel``) with ``csrc/sa_layer.cu``, one block per video:
+Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py``: ``sa_sublayer``
+(``_sa_fwd_impl`` / ``_sa_fwd_kernel``, backward ``_sa_bwd`` /
+``_sa_bwd_kernel``), ``ffn_sublayer`` (``_ffn_fwd_impl`` / ``_ffn_fwd_kernel``,
+``_ffn_bwd`` / ``_ffn_bwd_kernel``) and the mask replays ``sa_dropout_masks``
+and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (one block per video),
+``csrc/dropout.cu`` and ``csrc/grad.cu``:
 
-* ``sa_sublayer``:  y = LN(x + MHA(x + pos, x + pos, x) @ Wo + bo)
-* ``ffn_sublayer``: y = LN(x + relu(x @ W1 + b1) @ W2 + b2)
+* ``sa_sublayer``:  y = LN(x + drop(MHA(x + pos, x + pos, x) @ Wo + bo)), the
+  attention probabilities dropped at ``rate_attn``;
+* ``ffn_sublayer``: y = LN(x + drop(drop(relu(x @ W1 + b1)) @ W2 + b2)).
 
 LayerNorm eps is 1e-6 (flax's default, ``sa_layer.py:47``).  Weights are
 (in, out); ``pos`` is ONE table shared by the batch, (M, P) or (1, M, P)
-with P <= E, added to the leading channels of the query/key input.
+with P <= E, added to the leading channels of the query/key input; its
+gradient is summed over the videos and shaped like ``pos``.  Dropout masks
+are the counter hash of ``ops/dropout.py`` from a (1,) int32 seed per call:
+SA stream 0 over (B, H*M, M) for the probabilities and stream 1 over
+(B, M, E) for the output; FFN (its own seed) stream 0 over (B, M, F) for the
+hidden rows and stream 1 over (B, M, E) for the output.  ``sa_sublayer`` and
+``ffn_sublayer`` are the differentiable entries; ``*_fwd`` and ``*_bwd`` are
+the kernels' wrappers beside their plain versions.
 """
 
 from __future__ import annotations
@@ -20,13 +32,15 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .pos import add_pos, kernel_pos
+from . import _grad
+from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
+from .pos import add_pos, kernel_pos, pos_grad
 
 LN_EPS = 1e-6
 
 
 def sa_sublayer_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
-                          num_heads: int, eps: float = LN_EPS):
+                          num_heads: int, eps: float = LN_EPS, keep_attn=None, keep_out=None):
     B, M, E = x.shape
     H = num_heads
     hd = E // H
@@ -35,64 +49,367 @@ def sa_sublayer_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_b
     k = (a @ wk + bk).view(B, M, H, hd)
     v = (x @ wv + bv).view(B, M, H, hd)
     p = torch.softmax(torch.einsum("bmhd,bnhd->bhmn", q, k) * (1.0 / math.sqrt(hd)), dim=-1)
-    o = torch.einsum("bhmn,bnhd->bmhd", p, v).reshape(B, M, E)
-    return F.layer_norm(x + o @ wo + bo, (E,), ln_scale, ln_bias, eps)
+    if keep_attn is not None:
+        p = p * keep_attn.view(B, H, M, M)
+    o = torch.einsum("bhmn,bnhd->bmhd", p, v).reshape(B, M, E) @ wo + bo
+    if keep_out is not None:
+        o = o * keep_out
+    return F.layer_norm(x + o, (E,), ln_scale, ln_bias, eps)
 
 
-def ffn_sublayer_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS):
+def ffn_sublayer_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
+                           keep_hidden=None, keep_out=None):
     E = x.shape[-1]
-    return F.layer_norm(x + torch.relu(x @ w1 + b1) @ w2 + b2, (E,), ln_scale, ln_bias, eps)
+    h = torch.relu(x @ w1 + b1)
+    if keep_hidden is not None:
+        h = h * keep_hidden
+    o = h @ w2 + b2
+    if keep_out is not None:
+        o = o * keep_out
+    return F.layer_norm(x + o, (E,), ln_scale, ln_bias, eps)
 
 
-def sa_sublayer(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
-                num_heads: int, eps: float = LN_EPS, rate_attn: float = 0.0, rate: float = 0.0):
-    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
-    _build.forward_only("sa_sublayer", [rate_attn, rate], [x, pos, *weights])
-    if x.device.type == "cpu":
-        return sa_sublayer_reference(x, pos, *weights, num_heads=num_heads, eps=eps)
+def _masks(fn, seed, shapes_rates):
+    """The keep masks of one sublayer call, stream i for entry i (None where
+    its rate is 0): the mask kernel (CUDA) or its plain version (CPU)."""
+    out = []
+    for stream, (shape, rate) in enumerate(shapes_rates):
+        if rate <= 0.0:
+            out.append(None)
+        elif seed.device.type == "cpu":
+            out.append(dropout_mask_reference(seed, stream, shape, rate))
+        else:
+            out.append(launch_mask(seed, stream, shape, rate))
+            fn.launches += 1
+    return tuple(out)
+
+
+def sa_dropout_masks(seed, B: int, M: int, E: int, H: int, rate_attn: float, rate: float):
+    """(keep_attn (B, H*M, M), keep_out (B, M, E)) of an SA call, as its
+    forward kernel draws them (replaces ``sa_layer.py::sa_dropout_masks``)."""
+    return _masks(sa_dropout_masks, seed, [((B, H * M, M), rate_attn), ((B, M, E), rate)])
+
+
+sa_dropout_masks.launches = 0
+
+
+def ffn_dropout_masks(seed, B: int, M: int, E: int, Fd: int, rate: float):
+    """(keep_hidden (B, M, Fd), keep_out (B, M, E)) of an FFN call (replaces
+    ``sa_layer.py::ffn_dropout_masks``)."""
+    return _masks(ffn_dropout_masks, seed, [((B, M, Fd), rate), ((B, M, E), rate)])
+
+
+ffn_dropout_masks.launches = 0
+
+
+def _check_sa(name, x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_heads):
     B, M, E = x.shape
     if E % num_heads or any(w.shape != (E, E) for w in (wq, wk, wv, wo)) \
             or any(b.shape != (E,) for b in (bq, bk, bv, bo, ln_scale, ln_bias)):
-        raise ValueError("sa_sublayer: inconsistent shapes")
+        raise ValueError(f"{name}: inconsistent shapes")
     pos_t, pos_stride, Pp = kernel_pos(pos, B, M, E)
     if pos_stride:
-        raise ValueError("sa_sublayer: pos must be one table shared by the batch")
-    _build.check_tensors("sa_sublayer", [x, pos_t, *weights], x.device)
+        raise ValueError(f"{name}: pos must be one table shared by the batch")
+    _build.check_tensors(name, [x, pos_t, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias],
+                         x.device)
+    return pos_t, Pp
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def sa_sublayer_fwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
+                    num_heads: int, eps: float = LN_EPS, rate_attn: float = 0.0,
+                    rate: float = 0.0, seed=None):
+    """The forward kernel on CUDA tensors, the plain version on CPU tensors."""
+    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    _build.no_grad_inputs("sa_sublayer_fwd", [x, pos, *weights])
+    if rate_attn > 0.0 or rate > 0.0:
+        check_seed("sa_sublayer_fwd", seed, x.device)
+    B, M, E = x.shape
+    if x.device.type == "cpu":
+        keep_attn, keep_out = sa_dropout_masks(seed, B, M, E, num_heads, rate_attn, rate)
+        return sa_sublayer_reference(x, pos, *weights, num_heads=num_heads, eps=eps,
+                                     keep_attn=keep_attn, keep_out=keep_out)
+    pos_t, Pp = _check_sa("sa_sublayer_fwd", x, pos, *weights, num_heads)
     scratch = torch.empty((B, 4, M, E), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
-    ptrs = [w.data_ptr() for w in weights]
     err = _build.lib().fk_sa_sublayer(
-        x.data_ptr(), pos_t.data_ptr() if pos_t is not None else None, 0, Pp, *ptrs,
+        x.data_ptr(), _ptr(pos_t), 0, Pp, *[w.data_ptr() for w in weights],
         scratch.data_ptr(), y.data_ptr(), B, M, E, num_heads, float(eps),
+        *dropout_args(seed, 0, rate_attn), *dropout_args(seed, 1, rate),
         _build.stream_ptr(x.device))
     _build.check("fk_sa_sublayer", err)
-    sa_sublayer.launches += 1
+    sa_sublayer_fwd.launches += 1
     return y
 
 
-sa_sublayer.launches = 0
+sa_sublayer_fwd.launches = 0
 
 
-def ffn_sublayer(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
-                 rate: float = 0.0):
-    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
-    _build.forward_only("ffn_sublayer", [rate], [x, *weights])
-    if x.device.type == "cpu":
-        return ffn_sublayer_reference(x, *weights, eps=eps)
+def _ln_backward(res, g, ln_scale, eps):
+    """(dres, dgamma, dbeta) of y = LN(res) * ln_scale + ln_bias."""
+    mean = res.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(((res - mean) ** 2).mean(dim=-1, keepdim=True) + eps)
+    xhat = (res - mean) * rstd
+    gg = g * ln_scale
+    dres = (gg - gg.mean(dim=-1, keepdim=True)
+            - xhat * (gg * xhat).mean(dim=-1, keepdim=True)) * rstd
+    return dres, (g * xhat).sum(dim=(0, 1)), g.sum(dim=(0, 1))
+
+
+def sa_sublayer_bwd_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
+                              num_heads: int, eps: float = LN_EPS, keep_attn=None, keep_out=None):
+    """Explicit plain backward, recomputing the forward from x and pos with the
+    call's masks, step for step as the kernel: the cotangents of (x, pos, wq,
+    bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias)."""
     B, M, E = x.shape
+    H = num_heads
+    hd = E // H
+    scale = 1.0 / math.sqrt(hd)
+    a = add_pos(x, pos)
+    q = (a @ wq + bq).view(B, M, H, hd)
+    k = (a @ wk + bk).view(B, M, H, hd)
+    v = (x @ wv + bv).view(B, M, H, hd)
+    p = torch.softmax(torch.einsum("bmhd,bnhd->bhmn", q, k) * scale, dim=-1)
+    ka = keep_attn.view(B, H, M, M) if keep_attn is not None else None
+    pd = p * ka if ka is not None else p
+    c = torch.einsum("bhmn,bnhd->bmhd", pd, v).reshape(B, M, E)
+    o = c @ wo + bo
+    res = x + (o * keep_out if keep_out is not None else o)
+    dres, dgamma, dbeta = _ln_backward(res, g, ln_scale, eps)
+    dout = dres * keep_out if keep_out is not None else dres
+    dc = (dout @ wo.t()).view(B, M, H, hd)
+    dpd = torch.einsum("bmhd,bnhd->bhmn", dc, v)
+    dv = torch.einsum("bhmn,bmhd->bnhd", pd, dc).reshape(B, M, E)
+    dp = dpd * ka if ka is not None else dpd
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.einsum("bhmn,bnhd->bmhd", ds, k).reshape(B, M, E)
+    dk = torch.einsum("bhmn,bmhd->bnhd", ds, q).reshape(B, M, E)
+    dxa = dq @ wq.t() + dk @ wk.t()
+    wgrad = lambda A, Bm: torch.einsum("bmc,bme->ce", A, Bm)  # noqa: E731
+    return (dres + dxa + dv @ wv.t(), pos_grad(dxa, pos), wgrad(a, dq), dq.sum(dim=(0, 1)),
+            wgrad(a, dk), dk.sum(dim=(0, 1)), wgrad(x, dv), dv.sum(dim=(0, 1)), wgrad(c, dout),
+            dout.sum(dim=(0, 1)), dgamma, dbeta)
+
+
+def has_backward(M: int, E: int, num_heads: int) -> bool:
+    """The SA backward's block (GEMM staging, one head's q, k, v and dc rows,
+    two (M, M) panels and the LN row statistics) fits in shared memory."""
+    hd = E // num_heads
+    return _build.GEMM_SMEM + 4 * (4 * M * (hd + 1) + 2 * M * M + 2 * M) <= _build.MAX_SMEM
+
+
+def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
+                    num_heads: int, eps: float = LN_EPS, keep_attn=None, keep_out=None):
+    """The SA backward on the card (CUDA tensors) or its plain version (CPU)."""
+    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    if x.device.type == "cpu":
+        return sa_sublayer_bwd_reference(x, pos, *weights, g, num_heads=num_heads, eps=eps,
+                                         keep_attn=keep_attn, keep_out=keep_out)
+    B, M, E = x.shape
+    pos_t, Pp = _check_sa("sa_sublayer_bwd", x, pos, *weights, num_heads)
+    if not has_backward(M, E, num_heads):
+        raise NotImplementedError(f"sa_sublayer_bwd: no backward kernel for M={M}, E={E}")
+    g = g.contiguous()
+    _build.check_tensors("sa_sublayer_bwd", [g, keep_attn, keep_out], x.device)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    wot = wo.t().contiguous()
+    wqkt = torch.cat([wq.t(), wk.t()], dim=0).contiguous()
+    wvt = wv.t().contiguous()
+    scratch = torch.empty((B, 5, M, E), **f32)
+    c, dout, dv, dxa, dx = (torch.empty_like(x) for _ in range(5))
+    dqk = torch.empty((B, M, 2 * E), **f32)
+    part = torch.empty((B, 6, E), **f32)
+    err = _build.lib().fk_sa_bwd(
+        x.data_ptr(), _ptr(pos_t), Pp, wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
+        wot.data_ptr(), wqkt.data_ptr(), wvt.data_ptr(), _ptr(keep_attn), _ptr(keep_out),
+        g.data_ptr(), scratch.data_ptr(), c.data_ptr(), dout.data_ptr(), dqk.data_ptr(),
+        dv.data_ptr(), dxa.data_ptr(), dx.data_ptr(), part.data_ptr(), B, M, E, num_heads,
+        float(eps), _build.stream_ptr(x.device))
+    _build.check("fk_sa_bwd", err)
+    # per-video partial products and column sums, summed in a fixed order
+    dwqk = _grad.atb(x, dqk, pos=pos_t)[0]
+    dwv = _grad.atb(x, dv)[0]
+    dwo = _grad.atb(c, dout)[0]
+    dbq, dbk, dbv, dbo, dgamma, dbeta = _grad.block_sums(part, 6, E)
+    dpos = _grad.batch_sum(dxa, Pp).view(pos.shape) if pos is not None else None
+    sa_sublayer_bwd.launches += 1
+    return (dx, dpos, dwqk[:, :E], dbq, dwqk[:, E:], dbk, dwv, dbv, dwo, dbo, dgamma, dbeta)
+
+
+sa_sublayer_bwd.launches = 0
+
+
+class _SA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pos, seed, cfg, *weights):
+        num_heads, eps, rate_attn, rate = cfg
+        y = sa_sublayer_fwd(x, pos, *weights, num_heads=num_heads, eps=eps, rate_attn=rate_attn,
+                            rate=rate, seed=seed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, pos, seed, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps, rate_attn, rate = ctx.cfg
+        x, pos, seed, *weights = ctx.saved_tensors
+        B, M, E = x.shape
+        # the call's keep masks, regenerated by the mask kernel (never stored)
+        keep_attn, keep_out = (sa_dropout_masks(seed, B, M, E, num_heads, rate_attn, rate)
+                               if seed is not None else (None, None))
+        dx, dpos, *dw = sa_sublayer_bwd(x, pos, *weights, g.contiguous(), num_heads=num_heads,
+                                        eps=eps, keep_attn=keep_attn, keep_out=keep_out)
+        return (dx, dpos, None, None, *dw)
+
+
+def sa_sublayer(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
+                num_heads: int, eps: float = LN_EPS, rate_attn: float = 0.0, rate: float = 0.0,
+                seed=None):
+    """The SA entry: the kernels on CUDA tensors, the plain versions on CPU
+    ones; differentiable.  ``seed``: a (1,) int32 tensor on the device when a
+    rate is above 0."""
+    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    x = x.contiguous()
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in [x, pos, *weights])):
+        return sa_sublayer_fwd(x, pos, *weights, num_heads=num_heads, eps=eps,
+                               rate_attn=rate_attn, rate=rate, seed=seed)
+    if x.device.type != "cpu":
+        _build.require_backward("sa_sublayer", has_backward(x.shape[1], x.shape[2], num_heads))
+    if rate_attn <= 0.0 and rate <= 0.0:
+        seed = None
+    cfg = (int(num_heads), float(eps), float(rate_attn), float(rate))
+    return _SA.apply(x, pos, seed, cfg, *weights)
+
+
+def _check_ffn(name, x, w1, b1, w2, b2, ln_scale, ln_bias):
+    E = x.shape[2]
     Fd = w1.shape[1]
     if w1.shape != (E, Fd) or b1.shape != (Fd,) or w2.shape != (Fd, E) \
             or any(b.shape != (E,) for b in (b2, ln_scale, ln_bias)):
-        raise ValueError("ffn_sublayer: inconsistent shapes")
-    _build.check_tensors("ffn_sublayer", [x, *weights], x.device)
+        raise ValueError(f"{name}: inconsistent shapes")
+    _build.check_tensors(name, [x, w1, b1, w2, b2, ln_scale, ln_bias], x.device)
+
+
+def ffn_sublayer_fwd(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
+                     rate: float = 0.0, seed=None):
+    """The forward kernel on CUDA tensors, the plain version on CPU tensors."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    _build.no_grad_inputs("ffn_sublayer_fwd", [x, *weights])
+    if rate > 0.0:
+        check_seed("ffn_sublayer_fwd", seed, x.device)
+    B, M, E = x.shape
+    Fd = w1.shape[1]
+    if x.device.type == "cpu":
+        keep_hidden, keep_out = ffn_dropout_masks(seed, B, M, E, Fd, rate)
+        return ffn_sublayer_reference(x, *weights, eps=eps, keep_hidden=keep_hidden,
+                                      keep_out=keep_out)
+    _check_ffn("ffn_sublayer_fwd", x, *weights)
     scratch = torch.empty((B, M, Fd), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
     err = _build.lib().fk_ffn_sublayer(
         x.data_ptr(), *[w.data_ptr() for w in weights], scratch.data_ptr(), y.data_ptr(),
-        B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+        B, M, E, Fd, float(eps), *dropout_args(seed, 0, rate), *dropout_args(seed, 1, rate),
+        _build.stream_ptr(x.device))
     _build.check("fk_ffn_sublayer", err)
-    ffn_sublayer.launches += 1
+    ffn_sublayer_fwd.launches += 1
     return y
 
 
-ffn_sublayer.launches = 0
+ffn_sublayer_fwd.launches = 0
+
+
+def ffn_sublayer_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *,
+                               eps: float = LN_EPS, keep_hidden=None, keep_out=None):
+    """Explicit plain backward, recomputing the forward from x with the
+    call's masks, step for step as the kernel: the cotangents of (x, w1, b1,
+    w2, b2, ln_scale, ln_bias)."""
+    E = x.shape[-1]
+    Fd = w1.shape[1]
+    z1 = x @ w1 + b1
+    h = torch.relu(z1)
+    hk = h * keep_hidden if keep_hidden is not None else h
+    o = hk @ w2 + b2
+    res = x + (o * keep_out if keep_out is not None else o)
+    dres, dgamma, dbeta = _ln_backward(res, g, ln_scale, eps)
+    dt2 = dres * keep_out if keep_out is not None else dres
+    dh = dt2 @ w2.t()
+    if keep_hidden is not None:
+        dh = dh * keep_hidden
+    dz1 = torch.where(z1 > 0, dh, 0.0)
+    return _ffn_grads(x, dres + dz1 @ w1.t(), dz1, hk, dt2, dgamma, dbeta, E, Fd)
+
+
+def _ffn_grads(x, dx, dz1, hk, dt2, dgamma, dbeta, E, Fd):
+    """The weight gradients as two products over the B*M rows, outside the
+    kernel as in the JAX wrapper (sa_layer.py:478-495)."""
+    dz1, dt2 = dz1.reshape(-1, Fd), dt2.reshape(-1, E)
+    return (dx, x.reshape(-1, E).t() @ dz1, dz1.sum(dim=0), hk.reshape(-1, Fd).t() @ dt2,
+            dt2.sum(dim=0), dgamma, dbeta)
+
+
+def ffn_sublayer_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN_EPS,
+                     keep_hidden=None, keep_out=None):
+    """The FFN backward on the card (CUDA tensors) or its plain version (CPU)."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    if x.device.type == "cpu":
+        return ffn_sublayer_bwd_reference(x, *weights, g, eps=eps, keep_hidden=keep_hidden,
+                                          keep_out=keep_out)
+    B, M, E = x.shape
+    Fd = w1.shape[1]
+    _check_ffn("ffn_sublayer_bwd", x, *weights)
+    g = g.contiguous()
+    _build.check_tensors("ffn_sublayer_bwd", [g, keep_hidden, keep_out], x.device)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    scratch, dt2, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    dz1, hk = torch.empty((B, M, Fd), **f32), torch.empty((B, M, Fd), **f32)
+    part = torch.empty((B, 2, E), **f32)
+    err = _build.lib().fk_ffn_bwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        ln_scale.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), _ptr(keep_hidden), _ptr(keep_out),
+        g.data_ptr(), scratch.data_ptr(), dz1.data_ptr(), hk.data_ptr(), dt2.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+    _build.check("fk_ffn_bwd", err)
+    dgamma, dbeta = _grad.block_sums(part, 2, E)
+    ffn_sublayer_bwd.launches += 1
+    return _ffn_grads(x, dx, dz1, hk, dt2, dgamma, dbeta, E, Fd)
+
+
+ffn_sublayer_bwd.launches = 0
+
+
+class _FFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, cfg, *weights):
+        eps, rate = cfg
+        y = ffn_sublayer_fwd(x, *weights, eps=eps, rate=rate, seed=seed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, seed, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, rate = ctx.cfg
+        x, seed, *weights = ctx.saved_tensors
+        B, M, E = x.shape
+        keep_hidden, keep_out = (ffn_dropout_masks(seed, B, M, E, weights[0].shape[1], rate)
+                                 if seed is not None else (None, None))
+        grads = ffn_sublayer_bwd(x, *weights, g.contiguous(), eps=eps, keep_hidden=keep_hidden,
+                                 keep_out=keep_out)
+        return (grads[0], None, None, *grads[1:])
+
+
+def ffn_sublayer(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
+                 rate: float = 0.0, seed=None):
+    """The FFN entry: the kernels on CUDA tensors, the plain versions on CPU
+    ones; differentiable.  ``seed``: a (1,) int32 tensor when rate > 0."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    x = x.contiguous()
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x, *weights])):
+        return ffn_sublayer_fwd(x, *weights, eps=eps, rate=rate, seed=seed)
+    return _FFN.apply(x, seed if rate > 0.0 else None, (float(eps), float(rate)), *weights)

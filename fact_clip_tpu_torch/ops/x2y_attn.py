@@ -36,7 +36,7 @@ import torch
 
 from .. import _build
 from . import _grad
-from .pos import add_pos, kernel_pos
+from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
 KEY_TILE = 64  # keys per block of csrc/flash_attn.cu (its BK)
@@ -133,15 +133,17 @@ x2y_flash_fwd.launches = 0
 
 
 def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
-              logits=None, probs=None):
+              logits=None, probs=None, stats=None, drop=(None, 0, 0, 1.0)):
     """Launch csrc/flash_attn.cu (shared by K2's flash form and K3): q (B, M, E)
-    attends over K = (x + pos) @ wk + bk, V = x @ wv + bv with E = num_heads * hd."""
+    attends over K = (x + pos) @ wk + bk, V = x @ wv + bv with E = num_heads * hd.
+    ``stats`` (B, H*M, 2) receives each row's softmax (max, sum); ``drop`` is
+    ``dropout.dropout_args`` of K3's probability dropout."""
     B, X, Cx = x_in.shape
     M, E = q.shape[1], q.shape[2]
     H = num_heads
     hd = E // H
     pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
-    _build.check_tensors("fk_proj_attn", [q, pos, out, logits, probs], x_in.device)
+    _build.check_tensors("fk_proj_attn", [q, pos, out, logits, probs, stats], x_in.device)
     n_t = -(-X // KEY_TILE)
     part_acc = torch.empty((B, n_t, H * M, hd), device=x_in.device, dtype=torch.float32)
     part_ml = torch.empty((B, n_t, H * M, 2), device=x_in.device, dtype=torch.float32)
@@ -150,7 +152,7 @@ def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
         x_in.data_ptr(), ptr(pos), pos_stride, Px, q.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), x_len.data_ptr(), B, X, Cx, M, H, hd,
         1.0 / math.sqrt(hd), ptr(logits), ptr(probs), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), _build.stream_ptr(x_in.device))
+        part_ml.data_ptr(), *drop, ptr(stats), _build.stream_ptr(x_in.device))
     _build.check("fk_proj_attn", err)
 
 
@@ -170,18 +172,6 @@ def has_backward(M: int, X: int, d: int) -> bool:
 
 def _shared(pos) -> bool:
     return pos is None or pos.dim() == 2 or pos.shape[0] == 1
-
-
-def _pos_grad(d_in, pos):
-    """The cotangent of a positional term from that of the stream it shifts."""
-    if pos is None:
-        return None
-    g = d_in[..., :pos.shape[-1]]
-    if pos.dim() == 2:
-        return g.sum(dim=0)
-    if pos.shape[0] == 1 and g.shape[0] != 1:
-        return g.sum(dim=0, keepdim=True)
-    return g
 
 
 def x2y_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
@@ -211,7 +201,7 @@ def x2y_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, p
     d_xk_in = d_xk @ wk.t()
     if x_in.device.type != "cpu":
         x2y_bwd_reference.launches += 1
-    return (d_yq_in, _pos_grad(d_yq_in, y_pos), d_xk_in + d_xv @ wv.t(), _pos_grad(d_xk_in, x_pos),
+    return (d_yq_in, pos_grad(d_yq_in, y_pos), d_xk_in + d_xv @ wv.t(), pos_grad(d_xk_in, x_pos),
             torch.einsum("bxc,bxd->cd", xk_in, d_xk), d_xk.sum(dim=(0, 1)),
             torch.einsum("bxc,bxd->cd", x_in, d_xv), d_xv.sum(dim=(0, 1)),
             torch.einsum("byc,byd->cd", yq_in, d_yq), d_yq.sum(dim=(0, 1)))
@@ -266,7 +256,7 @@ def x2y_small_x_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, pro
     # the X side stays plain matmuls, as in the JAX caller (X is tokens or segments)
     d_xk_in = d_xk @ wk.t()
     x2y_small_x_bwd.launches += 1
-    return (dy, d_ypos, d_xk_in + d_xv @ wv.t(), _pos_grad(d_xk_in, x_pos),
+    return (dy, d_ypos, d_xk_in + d_xv @ wv.t(), pos_grad(d_xk_in, x_pos),
             torch.einsum("bxc,bxd->cd", xk_in, d_xk), d_xk.sum(dim=(0, 1)),
             torch.einsum("bxc,bxd->cd", x_in, d_xv), d_xv.sum(dim=(0, 1)), d_wq, d_bq)
 
@@ -327,7 +317,7 @@ def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs
     # the q side stays plain matmuls, as in the JAX caller (M is the token axis)
     d_yq_in = d_yq @ wq.t()
     x2y_flash_bwd.launches += 1
-    return (d_yq_in, _pos_grad(d_yq_in, y_pos), dx, d_xpos, d_wk, d_bk, d_wv, d_bv,
+    return (d_yq_in, pos_grad(d_yq_in, y_pos), dx, d_xpos, d_wk, d_bk, d_wv, d_bv,
             torch.einsum("bmc,bmd->cd", yq_in, d_yq), d_yq.sum(dim=(0, 1)))
 
 

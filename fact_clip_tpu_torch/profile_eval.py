@@ -6,11 +6,11 @@ Builds the flagship FACT model (iuUU, D=2048, C=75, M=40) with seeded random
 weights and times one eval step of 8 videos padded to 3072 frames, on the
 kernel path and on the plain PyTorch path: wall time (host clock around a
 synchronised step), device busy time per step (the sum of the CUDA kernels'
-own times under ``torch.profiler``), the idle share 1 - busy / wall, and the
-kernels that take the most time.  With ``--train`` the step is the train
-step of ``train_cfg()`` (dropout 0.2, channel masking 0.3, Adam) on seeded
-batches with piecewise-constant labels.  Needs a CUDA card; f32 with TF32
-off.
+own times under ``torch.profiler``), the idle share 1 - busy / wall, the
+device launches per step, and the kernels that take the most time.  With
+``--train`` the step is the train step of ``train_cfg()`` (every kernel on,
+dropout 0.2, channel masking 0.3, Adam) on seeded batches with
+piecewise-constant labels.  Needs a CUDA card; f32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -99,9 +99,11 @@ def main():
         med = wall[len(wall) // 2]
         prof, ks = device_kernels(step, args, 3)
         busy = sum(ms for ms, _ in ks.values())
+        launches = sum(cnt for _, cnt in ks.values())
         path = "kernel path" if kernels else "plain path"
         print(f"[{path}] wall ms median {med:.3f} (all {', '.join(f'{t:.3f}' for t in wall)}); "
-              f"device busy ms per step {busy:.3f}; idle share {1 - busy / med:.3f}")
+              f"device busy ms per step {busy:.3f}; idle share {1 - busy / med:.3f}; "
+              f"device launches per step {launches:.0f}")
         for name, (ms, cnt) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:a.top]:
             print(f"  {ms:8.3f} ms x {cnt:5.1f}  {name[:100]}")
         if a.trace:

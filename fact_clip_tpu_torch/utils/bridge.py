@@ -1,12 +1,11 @@
 """JAX parameters (and gradients) -> the port's state_dict layout.
 
-The JAX package's exporter (``fact_clip_tpu/utils/torch_export.py``,
-numpy-only) already writes the reference's torch layout, and the port's
-module paths reproduce those keys, so the bridge is that exporter plus
-``load_state_dict(strict=True)``.  The exporter only transposes and
-reshapes, which are linear, so it maps a gradient tree as well.  It is
-imported lazily: the port's serving and training paths import nothing of
-the JAX package.
+The port's module paths reproduce the reference's torch keys, so the bridge
+is the exporter (``utils/torch_export.py``, the port's own numpy-only copy of
+the JAX package's) plus ``load_state_dict(strict=True)``.  The exporter only
+transposes and reshapes, which are linear, so it maps a gradient tree as
+well.  Nothing here imports JAX or the JAX package: the parameters arrive as
+numpy (or any array) leaves.
 """
 
 from __future__ import annotations
@@ -14,12 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .torch_export import export_fact_state_dict
+
 
 def state_dict_from_jax(params, block_cfgs) -> dict:
     """params: the flax ``variables["params"]`` tree of FACT (numpy or jax
     arrays); block_cfgs: the port's (or the JAX package's) BlockCfg tuple."""
-    from fact_clip_tpu.utils.torch_export import export_fact_state_dict
-
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in export_fact_state_dict(params, block_cfgs).items()}
 

@@ -1,0 +1,97 @@
+"""The port's own FACT exporter and its entry defaults, on the CPU.
+
+``fact_clip_tpu_torch/utils/torch_export.py`` is the port's copy of the JAX
+package's numpy-only exporter, so that the port imports nothing of the JAX
+package: it must give the same state_dict, key for key and value for value,
+for the small config and the flagship's block config.  A fresh interpreter
+that imports the port, builds a model and loads numpy parameters through the
+bridge must end with no ``jax`` and no ``fact_clip_tpu`` module loaded.
+``build_fact`` without a device builds on the card, and without a card it
+raises instead of landing on the CPU.
+"""
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _make_cfg
+from fact_clip_tpu.models import blocks as jblocks
+from fact_clip_tpu.utils.torch_export import export_fact_state_dict as jax_export
+from fact_clip_tpu.utils.torch_import import convert_fact_state_dict
+from fact_clip_tpu_torch.configs import flagship_cfg, small_cfg
+from fact_clip_tpu_torch.models.blocks import build_fact
+from fact_clip_tpu_torch.utils.torch_export import export_fact_state_dict
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _flax_params(cfg, small: bool, D: int, C: int, seed: int = 0):
+    """Seeded parameters in the flax layout (the port's init through the JAX
+    package's importer) and the JAX block configs."""
+    port = build_fact(cfg, D, C, 24, device="cpu", generator=torch.Generator().manual_seed(seed))
+    bcfgs = jblocks.resolve_block_cfgs(_make_cfg(small))
+    return convert_fact_state_dict({k: v.numpy() for k, v in port.state_dict().items()},
+                                   bcfgs), bcfgs
+
+
+@pytest.mark.parametrize("small", [True, False])
+def test_exporter_equals_the_jax_packages(small):
+    cfg = small_cfg() if small else flagship_cfg()
+    params, bcfgs = _flax_params(cfg, small, 12 if small else 64, 5 if small else 10)
+    ref = jax_export(params, bcfgs)
+    got = export_fact_state_dict(params, bcfgs)
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        assert got[k].dtype == np.float32, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_exporter_refuses_what_the_port_does_not_build():
+    params, bcfgs = _flax_params(small_cfg(), True, 12, 5)
+    with pytest.raises(ValueError):
+        export_fact_state_dict({"fact": params, "frame_projection": {}}, bcfgs)
+    other = [dataclasses.replace(c, f="m2") for c in bcfgs]
+    with pytest.raises(ValueError):
+        export_fact_state_dict(params, other)
+
+
+_GUARD = """
+import pickle, sys
+import torch
+from fact_clip_tpu_torch.configs import small_cfg
+from fact_clip_tpu_torch.models.blocks import build_fact
+from fact_clip_tpu_torch.utils.bridge import load_jax_params
+torch.set_num_threads(1)
+params = pickle.load(open(sys.argv[1], "rb"))
+model = build_fact(small_cfg(), 12, 5, 24, device="cpu")
+load_jax_params(model, params)
+assert float(model.state_dict()["action_query"].abs().sum()) > 0
+bad = [m for m in sys.modules if m in ("jax", "flax") or m.split(".")[0] == "fact_clip_tpu"]
+assert not bad, bad
+print("GUARD_OK")
+"""
+
+
+def test_bridge_loads_numpy_params_without_the_jax_package(tmp_path):
+    params, _ = _flax_params(small_cfg(), True, 12, 5, seed=4)
+    path = tmp_path / "params.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(params, f)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _GUARD, str(path)], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=120)
+    assert proc.returncode == 0 and "GUARD_OK" in proc.stdout, proc.stderr[-2000:]
+
+
+def test_build_fact_without_a_device_needs_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_fact(small_cfg(), 12, 5, 24)
+    assert build_fact(small_cfg(), 12, 5, 24, device="cpu").action_query.device.type == "cpu"

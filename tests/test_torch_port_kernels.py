@@ -210,13 +210,47 @@ def test_wrappers_count_no_launch_on_cpu_tensors():
 
 
 def test_wrappers_refuse_dropout_and_gradients():
-    x = torch.zeros(1, 3, 8)
-    w = torch.zeros(8, 8)
-    b = torch.zeros(8)
+    """K3 and K4 take dropout and gradients through their entries; their raw
+    kernel wrappers and K2's raw forward wrappers refuse gradients (K2's also
+    dropout); the K3 entry refuses a key positional term that wants a
+    gradient, and dropout without a seed is refused."""
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32))  # noqa: E731
+    x, w, b, w2 = t(2, 3, 8), t(8, 8), t(8), t(16, 8)
+    w1, b1 = t(8, 16), t(16)
     ln = (torch.ones(8), torch.zeros(8))
+    seed = torch.tensor([3], dtype=torch.int32)
+    sa_w = [w, b, w, b, w, b, w, b, *ln]
+    # K4: dropout and gradients through the entries
+    xg = x.clone().requires_grad_(True)
+    y = sa_layer.sa_sublayer(xg, None, *sa_w, num_heads=2, rate_attn=0.1, rate=0.1, seed=seed)
+    y = sa_layer.ffn_sublayer(y, w1, b1, w2, b, *ln, rate=0.1, seed=seed)
+    (gx,) = torch.autograd.grad(y.sum(), [xg])
+    assert gx.shape == x.shape and torch.isfinite(gx).all()
+    # K3: dropout and gradients through the entry
+    q, mem = t(2, 3, 8).requires_grad_(True), t(2, 20, 8)
+    x_len = torch.tensor([20, 7], dtype=torch.int32)
+    out = mha_attn.mha_cross_attention(q, mem, None, w, b, w, b, x_len, num_heads=2, rate=0.2,
+                                       seed=seed)
+    (gq,) = torch.autograd.grad(out.sum(), [q])
+    assert torch.isfinite(gq).all()
     with pytest.raises(NotImplementedError):
-        sa_layer.ffn_sublayer(x, w, b, w, b, *ln, rate=0.1)
+        mha_attn.mha_cross_attention(q, mem, t(1, 20, 8).requires_grad_(True), w, b, w, b,
+                                     x_len, num_heads=2)
+    # the raw kernel wrappers record nothing for autograd
     with pytest.raises(NotImplementedError):
-        sa_layer.sa_sublayer(x, None, w, b, w, b, w, b, w, b, *ln, num_heads=2, rate_attn=0.1)
+        sa_layer.ffn_sublayer_fwd(xg, w1, b1, w2, b, *ln)
     with pytest.raises(NotImplementedError):
-        sa_layer.ffn_sublayer(x.requires_grad_(), w, b, w, b, *ln)
+        sa_layer.sa_sublayer_fwd(xg, None, *sa_w, num_heads=2)
+    with pytest.raises(NotImplementedError):
+        mha_attn.mha_cross_fwd(q, mem, None, w, b, w, b, x_len, num_heads=2)
+    # K2's raw forwards still refuse dropout and gradients
+    x2y_args = (t(2, 5, 8), None, t(2, 9, 8), None, w, b, w, b, w, b,
+                torch.tensor([9, 4], dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        x2y_attn.x2y_small_x_fwd(*x2y_args, rate=0.1)
+    with pytest.raises(NotImplementedError):
+        x2y_attn.x2y_flash_fwd(x2y_args[0].requires_grad_(True), *x2y_args[1:])
+    # dropout needs a seed
+    with pytest.raises(ValueError):
+        sa_layer.ffn_sublayer(x, w1, b1, w2, b, *ln, rate=0.1)

@@ -53,7 +53,7 @@ def jax_run():
 
 
 def _port(jax_run):
-    model = build_fact(small_cfg(), D, C, S_CAP)
+    model = build_fact(small_cfg(), D, C, S_CAP, device="cpu")
     load_jax_params(model, jax_run["params"])
     return model
 
@@ -83,7 +83,7 @@ def test_slice_matches_jax_block_by_block(jax_run, kernels):
 
 
 def test_state_dict_keys_are_the_exporters(jax_run):
-    model = build_fact(small_cfg(), D, C, S_CAP)
+    model = build_fact(small_cfg(), D, C, S_CAP, device="cpu")
     exported = export_fact_state_dict(jax_run["params"], model.block_cfgs)
     assert set(model.state_dict()) == set(exported)
     for k, v in model.state_dict().items():

@@ -36,7 +36,8 @@ def _requests(seed=0, lengths=(50, 100, 30, 128, 77, 12, 64)):
 
 @pytest.mark.parametrize("batch_size", [1, 3])
 def test_predict_equals_unbatched_eval(batch_size):
-    model = build_fact(small_cfg(), D, C, 24, generator=torch.Generator().manual_seed(3))
+    model = build_fact(small_cfg(), D, C, 24, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
     feats = _requests()
     got = Predictor(model, 0.1, batch_size=batch_size, max_len=128).predict(feats)
     step = make_eval_step(model, 0.1)
@@ -56,7 +57,7 @@ def test_bucket_ladder_is_the_jax_packages(max_len):
 
 
 def test_predict_rejects_too_long_requests():
-    model = build_fact(small_cfg(), D, C, 24)
+    model = build_fact(small_cfg(), D, C, 24, device="cpu")
     with pytest.raises(ValueError):
         Predictor(model, 0.1, batch_size=2, max_len=64).predict(_requests(lengths=(129,)))
 
@@ -70,7 +71,7 @@ from fact_clip_tpu_torch.configs import small_cfg
 from fact_clip_tpu_torch.engine.serve import Predictor
 from fact_clip_tpu_torch.models.blocks import build_fact
 torch.set_num_threads(1)
-model = build_fact(small_cfg(), 12, 5, 24)
+model = build_fact(small_cfg(), 12, 5, 24, device="cpu")
 out = Predictor(model, 0.1, batch_size=2, max_len=64).predict(
     [np.ones((40, 12), np.float32), np.zeros((9, 12), np.float32)])
 assert [o.shape for o in out] == [(40,), (9,)]
@@ -87,20 +88,20 @@ def test_import_guard_no_jax_flax_yaml():
 
 
 def test_no_module_of_the_port_imports_jax_flax_or_yaml():
-    banned = {"jax", "flax", "yaml"}
+    """Nor the JAX package, not even lazily; chip_smoke.py neither."""
+    banned = {"jax", "flax", "yaml", "fact_clip_tpu"}
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            tree = ast.parse(open(os.path.join(root, f)).read())
-            for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                for n in names:
-                    assert n.split(".")[0] not in banned, (f, n)
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for f in paths:
+        for node in ast.walk(ast.parse(open(f).read())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in banned, (f, n)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -66,7 +66,8 @@ def _cfgs(sa_input: bool = False):
 def _flax_params(jcfg, cfg, seed: int):
     """Seeded parameters in the flax layout: the port's initializer through
     ``torch_import`` (cheaper on the CPU than tracing flax's init)."""
-    port = build_fact(cfg, D, C, S_CAP, generator=torch.Generator().manual_seed(seed))
+    port = build_fact(cfg, D, C, S_CAP, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
     return convert_fact_state_dict({k: v.numpy() for k, v in port.state_dict().items()},
                                    jblocks.resolve_block_cfgs(jcfg))
 
@@ -105,7 +106,7 @@ def run():
 
 
 def _port(run, kernels: bool):
-    model = build_fact(run["cfg"], D, C, S_CAP)
+    model = build_fact(run["cfg"], D, C, S_CAP, device="cpu")
     load_jax_params(model, run["params"])
     model.set_kernels(kernels)
     return model
@@ -223,7 +224,7 @@ def test_weight_round_trip_through_the_port(run, sa_input):
     jcfg, cfg = _cfgs(sa_input)
     params = _flax_params(jcfg, cfg, 5) if sa_input else run["params"]
     bcfgs = jblocks.resolve_block_cfgs(jcfg)
-    port = build_fact(cfg, D, C, S_CAP)
+    port = build_fact(cfg, D, C, S_CAP, device="cpu")
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                           export_fact_state_dict(params, bcfgs).items()}, strict=True)
     back = convert_fact_state_dict({k: v.numpy() for k, v in port.state_dict().items()}, bcfgs)
