@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
-serving, training.
+serving, training, for the flagship and for Breakfast.
 
     python3 chip_smoke.py
 
@@ -15,12 +15,20 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    the K1-K4 forwards (K1, K3 and K4 also with dropout, the plain versions
    given the same hash masks), the four dropout-mask kernels (bit-equal,
    the keep rate pooled over 32 seeds within 0.001 of 0.8), the K1-K4
-   backwards (from the same forward saves and masks) and K5.  For the
-   flagship case, the kernel's time beside the plain version's (CUDA
-   events) and its bound: the larger of its FLOPs at the card's f32 rate
-   (67 TFLOP/s) and its bytes (each input read once, each output written
-   once) at 3.35 TB/s.  No single PyTorch call computes any of these fused
-   functions, so ``library_ms`` is null throughout.
+   backwards (from the same forward saves and masks) and K5.  For every
+   case, the kernel's time beside the plain version's (CUDA events) and
+   its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
+   and its bytes (each input read once, each output written once) at
+   3.35 TB/s.  No single PyTorch call computes any of these fused
+   functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
+   and the out projection), so ``library_ms`` is null throughout.  The
+   Breakfast rows: K6, the MS-TCN++ tower (the serving form on folded
+   weights; the training form with dropout 0.2, its logits and every save,
+   [c1 | c2] and the ReLU outputs on valid frames; the backward with
+   dropout 0.2) at
+   B=4, T=4096, C=O=512, 10 layers and at a ragged B=3, T=600 case whose
+   d=512 taps fall outside the short videos, the K1 mask at K6's shape,
+   and K3 at E=512, H=8, M=60 (X=4096 and X=1100).
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -36,9 +44,25 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    kernel must have launched during the 5 steps.  Then the warm step time
    of the kernel path and of the plain path, each split into forward, host
    match, losses, backward and optimizer, with peak memory; and, with
-   dropout and masking off, one kernel-path step against the plain-path
-   step on the same batch (loss, matching, every gradient).
-6. the JSON line of kernel results, the nvidia-smi line, and last the
+   dropout and masking off, for the weights of each of three seeds, the
+   kernel-path step against the plain-path step on the same batch (loss,
+   matching, every gradient, beside each path's own floor: see
+   ``train_compare``).
+6. Breakfast serving: ``breakfast_cfg()`` (iuUU, MS-TCN++ towers, every
+   width 512, D=2048, 48 classes, M=60, ``s_pred_cap=64``) at full width
+   with seeded weights serves 10 requests of 600 to 6000 frames through
+   ``Predictor(batch_size=8, max_len=10240)``: K6 must launch 4 times per
+   batch and K3 6 times per batch whose bucket reaches 1024 keys.  Then
+   the warm eval step on 8 x 4096, and the kernel path against the plain
+   path.
+7. Breakfast training: ``breakfast_train_cfg()`` (every kernel on, nullw
+   resolved from the synthetic set) at B=4 (lengths 4096, 3600, 2500, 1400)
+   takes 1 + 5 Adam steps through ``run_steps``: K6 forward and backward 4
+   times a step, K3 forward and backward 6 times, no mask kernel (dropout
+   0).  Then the warm step of each path split per phase with peak memory,
+   and, with channel and time masking off, the kernel path against the
+   plain path as in phase 5.
+8. the JSON line of kernel results, the nvidia-smi line, and last the
    contract line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -57,12 +81,17 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_LENGTHS = [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]
+BF_SERVE_LENGTHS = [6000, 4096, 3900, 3500, 3000, 2500, 2000, 1500, 900, 600]
+BF_EVAL_LENGTHS = [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100]
+BF_TRAIN_LENGTHS = [4096, 3600, 2500, 1400]
 REL_TOL = 2e-4  # max |kernel - plain| / max(1, max |plain|): f32, other summation order
 PROB_TOL = 1e-5  # absolute, on probabilities
 LOGIT_TOL = 1e-3  # block-0 frame logits, whole model, kernel vs plain path
 MIN_AGREE = 0.95  # share of valid frames whose final prediction agrees
 TRAIN_LOSS_TOL = 1e-4  # relative, kernel-path vs plain-path train loss
-GRAD_TOL = 1e-3  # max |kernel - plain| / max |plain| per parameter (floored, below)
+GRAD_TOL = 1e-3  # per parameter, max |kernel - plain| / max |plain| and the same in norm
+FLOOR_K = 2.0  # the element-wise limit is max(GRAD_TOL, FLOOR_K x the paths' own floor)
+COMPARE_SEEDS = (1, 2, 3)  # the weight seeds of each kernel-vs-plain training comparison
 SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                    "ffn_sublayer")
 TRAIN_KERNELS = ("mstcn_stack", "mstcn_dropout_mask", "mstcn_stack_bwd", "x2y_small_x",
@@ -70,6 +99,18 @@ TRAIN_KERNELS = ("mstcn_stack", "mstcn_dropout_mask", "mstcn_stack_bwd", "x2y_sm
                  "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_dropout_masks",
                  "sa_sublayer_bwd", "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd",
                  "frame_loss_fwd", "frame_loss_bwd")
+BF_SERVING_KERNELS = ("mstcn2_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
+                      "ffn_sublayer")
+BF_TRAIN_KERNELS = ("mstcn2_stack", "mstcn2_stack_bwd", "x2y_small_x", "x2y_small_x_bwd",
+                    "x2y_flash", "x2y_flash_bwd", "mha_cross", "mha_cross_bwd", "sa_sublayer",
+                    "sa_sublayer_bwd", "ffn_sublayer", "ffn_sublayer_bwd", "frame_loss_fwd",
+                    "frame_loss_bwd")
+MASK_KERNELS = ("mstcn_dropout_mask", "mha_dropout_mask", "sa_dropout_masks",
+                "ffn_dropout_masks")
+# the JSON rows that Breakfast's paths run: (the path, the counter it reads)
+BF_ROWS = {"mstcn2_stack": ("serve", "mstcn2_stack"), "mha_cross_e512": ("serve", "mha_cross"),
+           "mstcn2_stack_bwd": ("train", "mstcn2_stack_bwd"),
+           "mha_cross_bwd_e512": ("train", "mha_cross_bwd")}
 
 
 def log(msg):
@@ -275,6 +316,75 @@ def k1_bwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.2):
             nbytes(g, streams, acts, lens, params, kw["seeds"]) + nbytes(x, params))
     return (lambda: dc.mstcn_stack_bwd(g, streams, acts, lens, layers, dil, **kw),
             lambda: dc.mstcn_stack_bwd_reference(g, streams, acts, lens, layers, dil, **kw),
+            work)
+
+
+def k6_case(rng, B, T, C, O, L, lengths, rate):
+    import torch
+
+    layers = []
+    for _ in range(L):
+        layers.append((_uniform(rng, (3, C, C), 3 * C), _uniform(rng, (C,), 3 * C),
+                       _uniform(rng, (3, C, C), 3 * C), _uniform(rng, (C,), 3 * C),
+                       _uniform(rng, (C, C), 2 * C), _uniform(rng, (C, C), 2 * C),
+                       _uniform(rng, (C,), 2 * C)))
+    dil = [(2 ** (L - 1 - i), 2 ** i) for i in range(L)]
+    kw = dict(out_w=_uniform(rng, (C, O), C), out_b=_uniform(rng, (O,), C))
+    if rate > 0.0:  # the module's rates: every layer but the last
+        kw.update(rates=[rate] * (L - 1) + [0.0],
+                  seeds=torch.tensor(rng.integers(0, 2 ** 31 - 1, L), dtype=torch.int32,
+                                     device="cuda"))
+    return _rand(rng, (B, T, C)), _lens(lengths), layers, dil, kw
+
+
+def k6_fwd_case(rng, B, T, C, O, L, lengths, rate=0.0, save=False):
+    """K6's serving form on weights folded beforehand, as a serving model
+    caches them (6 C^2 FMAs a frame and layer in the taps, against the
+    training form's 8 C^2), or with ``save`` its training form: the logits
+    and every save (input streams, [c1 | c2], ReLU outputs), the last two
+    held on valid frames only (past a video the kernel writes zeros, the
+    plain version its biases)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    x, lens, layers, dil, kw = k6_case(rng, B, T, C, O, L, lengths, rate)
+    N = _valid(lens, T)
+    if save:
+        work = (L * 16 * N * C * C + 2 * N * C * O,
+                nbytes(x, lens, layers, kw["out_w"], kw["out_b"]) + B * T * O * 4
+                + L * B * T * 4 * C * 4)
+        valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None].float()
+
+        def on_valid(res):
+            logits, streams, cs, hs = res
+            return logits, streams, [c * valid for c in cs], [h * valid for h in hs]
+
+        return (lambda: dc.mstcn2_stack_fwd(x, lens, layers, dil, save=True, **kw),
+                lambda: dc.mstcn2_stack_reference(x, lens, layers, dil, save=True, **kw),
+                work, on_valid)
+    assert rate == 0.0, "the serving form has no dropout"
+    folded = dc.mstcn2_fold(layers)
+    work = (L * 12 * N * C * C + 2 * N * C * O,
+            nbytes(x, lens, folded, kw["out_w"], kw["out_b"]) + B * T * O * 4)
+    return (lambda: dc.mstcn2_stack_fwd(x, lens, layers, dil, folded=folded, **kw),
+            lambda: dc.mstcn2_stack_reference(x, lens, layers, dil, **kw), work)
+
+
+def k6_bwd_case(rng, B, T, C, O, L, lengths, rate=0.2):
+    """K6's backward from the kernel forward's saves (input streams, [c1 | c2],
+    ReLU outputs), dropout on; the plain backward takes the same saves."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    x, lens, layers, dil, kw = k6_case(rng, B, T, C, O, L, lengths, rate)
+    g = _rand(rng, (B, T, O), 0.01)
+    _, streams, cs, hs = dc.mstcn2_stack_fwd(x, lens, layers, dil, save=True, **kw)
+    N = _valid(lens, T)
+    params = (layers, kw["out_w"], kw["out_b"])
+    work = (L * 32 * N * C * C + 4 * N * C * O,
+            nbytes(g, streams, cs, hs, lens, params, kw["seeds"]) + nbytes(x, params))
+    return (lambda: dc.mstcn2_stack_bwd(g, streams, cs, hs, lens, layers, dil, **kw),
+            lambda: dc.mstcn2_stack_bwd_reference(g, streams, cs, hs, lens, layers, dil, **kw),
             work)
 
 
@@ -499,7 +609,8 @@ def mask_case(rng, kind, shape, rate=0.2):
 
 def kernel_table():
     """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
-    fn, (flops, bytes)))]).  The first case is the flagship's and is timed.
+    fn, (flops, bytes)))]).  Every case is timed; the first is the flagship's
+    (or Breakfast's) and gives the JSON row.
     check: "rel" (relative error), "probs" (also the probabilities' absolute
     error) or "mask" (bit-equal; the keep rate pooled over MASK_SEEDS seeds
     at the flagship shape)."""
@@ -509,6 +620,7 @@ def kernel_table():
     zeros = lambda *s: torch.zeros(s, device="cuda")  # noqa: E731
     tower = [2 ** i for i in range(10)]
     ragged_k1 = ([1, 64, 512], [1000, 777])
+    bf_len, bf_rag = BF_TRAIN_LENGTHS, [600, 517, 90]  # Breakfast: 4 x 4096; d = 512 > 90
     csrc = "fact_clip_tpu_torch/csrc/"
     pallas = "fact_clip_tpu/ops/pallas/"
     return [
@@ -549,7 +661,8 @@ def kernel_table():
         # the training path's masks and backwards, and K5
         ("mstcn_dropout_mask", csrc + "dropout.cu", pallas + "dilated_conv.py:97", "mask",
          [("flagship", lambda r: mask_case(r, "k1", (B, T, 256))),
-          ("ragged", lambda r: mask_case(r, "k1", (2, 1000, 37)))]),
+          ("ragged", lambda r: mask_case(r, "k1", (2, 1000, 37))),
+          ("k6", lambda r: mask_case(r, "k1", (4, 4096, 512)))]),
         ("mha_dropout_mask", csrc + "dropout.cu", pallas + "mha_attn.py:163", "mask",
          [("flagship", lambda r: mask_case(r, "k3", (B, 8 * 40, T))),
           ("ragged", lambda r: mask_case(r, "k3", (3, 8 * 11, 1100)))]),
@@ -593,6 +706,27 @@ def kernel_table():
          [("flagship", lambda r: frame_loss_case(r, True, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, True, B, T, 40, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: frame_loss_case(r, True, 2, 1000, 37, [1000, 777]))]),
+        # Breakfast (f: m2, E = 512): K6 and K3 at its widths
+        ("mstcn2_stack", csrc + "mstcn2.cu", pallas + "dilated_conv.py:976", "rel",
+         [("breakfast", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len)),
+          ("ragged", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag)),
+          ("train", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len, 0.2, True)),
+          ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True))]),
+        ("mstcn2_stack_bwd", csrc + "mstcn2.cu", pallas + "dilated_conv.py:1268", "rel",
+         [("breakfast", lambda r: k6_bwd_case(r, 4, 4096, D, D, 10, bf_len)),
+          ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag))]),
+        ("mha_cross_e512", csrc + "flash_attn.cu", pallas + "mha_attn.py:235", "rel",
+         [("breakfast", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
+                                               zeros(1, 4096, D))),
+          ("bf_drop", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
+                                             zeros(1, 4096, D), 0.2)),
+          ("ragged", lambda r: mha_fwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
+                                            _rand(r, (1, 1100, D)), 0.2))]),
+        ("mha_cross_bwd_e512", csrc + "mha_bwd.cu", pallas + "mha_attn.py:444", "rel",
+         [("breakfast", lambda r: mha_bwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
+                                               zeros(1, 4096, D))),
+          ("ragged", lambda r: mha_bwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
+                                            _rand(r, (1, 1100, D))))]),
     ]
 
 
@@ -618,8 +752,10 @@ def check_mask(name, make, rng, pooled: bool):
 
 
 def phase_kernels(seed: int = 0):
-    """Every kernel against its plain version on the same inputs; the
-    flagship case timed beside the plain version and the bound."""
+    """Every kernel against its plain version on the same inputs, each case
+    timed beside the plain version and the bound.  A case is (kernel, plain,
+    work) or (kernel, plain, work, view), where ``view`` picks from both
+    results what is compared."""
     import torch
 
     results = {}
@@ -633,8 +769,11 @@ def phase_kernels(seed: int = 0):
                     err_abs = 0.0 if ok else float("nan")
                     kern, plain, work = make(rng)
                 else:
-                    kern, plain, work = make(rng)
-                    outs, refs = _pairs(name, kern(), plain())
+                    kern, plain, work, *view = make(rng)
+                    outs, refs = kern(), plain()
+                    if view:
+                        outs, refs = view[0](outs), view[0](refs)
+                    outs, refs = _pairs(name, outs, refs)
                     torch.cuda.synchronize()
                     err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
                     ok = err_rel <= REL_TOL
@@ -644,14 +783,13 @@ def phase_kernels(seed: int = 0):
                         ok = ok and p_err <= PROB_TOL
                         text += f" probs_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
                     del outs, refs
-                if i == 0 or case_name.endswith("drop"):
-                    iters = 3 if name.startswith("mstcn_stack") else 10
-                    ms = cuda_ms(kern, iters, warmup=1)
-                    plain_ms = cuda_ms(plain, iters, warmup=1)
-                    bound_ms, bound_by = bound(*work)
-                    text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-                             f"({bound_by}; {work[0]:.4g} FLOP, {work[1]:.4g} bytes) "
-                             f"library_ms none")
+                iters = 3 if name.startswith("mstcn") else 10
+                ms = cuda_ms(kern, iters, warmup=1)
+                plain_ms = cuda_ms(plain, iters, warmup=1)
+                bound_ms, bound_by = bound(*work)
+                text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                         f"({bound_by}; {work[0]:.4g} FLOP, {work[1]:.4g} bytes) "
+                         f"library_ms none")
                 if i == 0:
                     results[name] = dict(name=name, route="cuda", source=source,
                                          replaces=replaces, max_abs_err=err_abs, ms=ms,
@@ -679,7 +817,6 @@ def phase_serving(seed: int = 0):
     from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
     from fact_clip_tpu_torch.configs import flagship_cfg
     from fact_clip_tpu_torch.engine.serve import Predictor
-    from fact_clip_tpu_torch.engine.steps import make_eval_step
     from fact_clip_tpu_torch.models.blocks import build_fact
 
     D, C, S_CAP = 2048, 75, 128
@@ -737,9 +874,20 @@ def phase_serving(seed: int = 0):
     log(f"[serve] predict 8 requests, one batch of 8 x {T}, warm ms: median "
         f"{sorted(times[1:])[1]:.3f} (all {', '.join(f'{t:.3f}' for t in times)})")
     del full
+    eval_paths("serve", model, cfg, rng, FLAGSHIP_LENGTHS, T, D)
+    return counts
 
-    # warm time of the eval step alone on one full batch of the largest bucket
-    blen = np.array(FLAGSHIP_LENGTHS, np.int32)
+
+def eval_paths(tag, model, cfg, rng, lengths, T, D):
+    """The warm eval step alone on one full batch, on the kernel and on the
+    plain path, and the two paths against each other."""
+    import torch
+
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+
+    dev = torch.device("cuda")
+    B = len(lengths)
+    blen = np.array(lengths, np.int32)
     bfeats = np.zeros((B, T, D), np.float32)
     for i, n in enumerate(blen):
         bfeats[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
@@ -764,7 +912,7 @@ def phase_serving(seed: int = 0):
                 f"(all {', '.join(f'{t:.3f}' for t in times)})")
 
     p_kernel, times = warm_ms()
-    log(f"[serve] eval step 8 x 3072 warm ms, kernels: {summary(times)}")
+    log(f"[{tag}] eval step {B} x {T} warm ms, kernels: {summary(times)}")
 
     # kernel path against the plain path (TPU.pallas=False counterpart) on one batch
     with torch.inference_mode():
@@ -773,16 +921,15 @@ def phase_serving(seed: int = 0):
         saves_p, _ = model(x, mask, lens)
     p_plain, times = warm_ms()
     model.set_kernels(True)
-    log(f"[serve] eval step 8 x 3072 warm ms, plain path: {summary(times)}")
+    log(f"[{tag}] eval step {B} x {T} warm ms, plain path: {summary(times)}")
     valid = mask
     fl_err = float((saves_k[0]["frame_clogit"] - saves_p[0]["frame_clogit"]).abs()[valid].max())
     agree = float((p_kernel == p_plain)[valid].float().mean())
-    log(f"[serve] kernel vs plain path: block-0 frame logits max_abs_err {fl_err:.3e} "
+    log(f"[{tag}] kernel vs plain path: block-0 frame logits max_abs_err {fl_err:.3e} "
         f"(tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid frames "
         f"(min {MIN_AGREE})")
     if not (fl_err <= LOGIT_TOL and agree >= MIN_AGREE):
-        raise AssertionError("kernel path disagrees with the plain path")
-    return counts
+        raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
 
 
 # ---------------------------------------------------------------------------
@@ -826,7 +973,7 @@ def phase_training(seed: int = 0):
     from fact_clip_tpu_torch import kernel_counters, plain_counters, reset_kernel_counters
     from fact_clip_tpu_torch.configs import train_cfg
     from fact_clip_tpu_torch.engine.steps import make_train_step
-    from fact_clip_tpu_torch.engine.train_loop import batch_to_device, run_steps, synthetic_batch
+    from fact_clip_tpu_torch.engine.train_loop import run_steps, synthetic_batch
     from fact_clip_tpu_torch.models.blocks import build_fact
     from fact_clip_tpu_torch.models.losses import build_class_weights
 
@@ -862,53 +1009,266 @@ def phase_training(seed: int = 0):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"training kernels not launched in the 5 steps: {missing}")
+    train_paths("train", model, step, batches, gen, f"{B} x {T}")
 
+    # kernel path against the plain path, dropout and channel masking off, on
+    # freshly seeded weights
+    del model, step
+    cfg0 = train_cfg()
+    cfg0["Bi"]["dropout"], cfg0["FACT"]["cmr"] = 0.0, 0.0
+    train_compare("train", cfg0, (D, C, S_CAP), cweight, batches[0], gen, COMPARE_SEEDS)
+    return counts
+
+
+def train_paths(tag, model, step, batches, gen, shape, n=5):
+    """The warm train step of the kernel and of the plain path, whole and
+    split per phase, with peak memory."""
     for path in ("kernels", "plain"):
         model.set_kernels(path == "kernels")
-        med, split, peak, totals = _time_steps(step, batches, gen, 5)
-        log(f"[train] warm train step 8 x {T}, {path} path: median {med:.3f} ms "
+        med, split, peak, totals = _time_steps(step, batches, gen, n)
+        log(f"[{tag}] warm train step {shape}, {path} path: median {med:.3f} ms "
             f"(all {', '.join(f'{t:.3f}' for t in totals)}); split (ms, synchronised): "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f"; peak memory {peak:.2f} GiB")
     model.set_kernels(True)
 
-    # kernel path against the plain path, dropout and channel masking off, on
-    # freshly seeded weights (a ReLU input within rounding of 0 can fall on
-    # either side in the two forwards; seeded weights keep that draw fixed)
+
+def _grad_errors(names, ga, gb, top):
+    """Per parameter, the worst of max |a - b| / max |b| and of
+    ||a - b|| / ||b||, each floored where b is all but zero (at 1e-3 of the
+    largest gradient anywhere, ``top``, per element): ((ratio, name), (ratio,
+    name))."""
+    elem, norm = (0.0, ""), (0.0, "")
+    for n, a, b in zip(names, ga, gb):
+        d = a - b
+        elem = max(elem, (float(d.abs().max()) / max(float(b.abs().max()), 1e-3 * top), n))
+        norm = max(norm, (float(d.norm()) / max(float(b.norm()), 1e-3 * top * b.numel() ** 0.5),
+                          n))
+    return elem, norm
+
+
+def _own_matching(cfg0, saves, batch):
+    """A path's own matching from its forward's saves, as the train step
+    makes it, with the cost matrix it was made from."""
+    import torch
+
+    from fact_clip_tpu_torch.models import matching
+
+    last = saves[-1]
+    cost = matching.match_cost(torch.softmax(last["action_clogit"], dim=-1), last["a2f_attn"],
+                               batch["transcript"], batch["seg_label"], batch["seg_mask"],
+                               batch["mask"], float(cfg0["Loss"]["pc"]),
+                               float(cfg0["Loss"]["a2fc"]))
+    nsegs = batch["seg_mask"].sum(dim=1)
+    s2t = matching.hungarian_host(cost.float().cpu().numpy(), nsegs.cpu().numpy())
+    return torch.from_numpy(s2t).to(device=cost.device, dtype=torch.int64), cost, nsegs
+
+
+def _matching_gaps(sk, sp, ck, cp, nsegs):
+    """[(video, gap, limit)] for each video whose two matchings differ.  gap =
+    the kernel path's cost of the plain matching less that of its own.  If
+    both are optimal for cost matrices that differ by at most delta, then
+    gap <= 2 S delta (S segments): a tie that rounding can flip."""
+    import torch
+
+    out = []
+    for b in range(sk.shape[0]):
+        S = int(nsegs[b])
+        if torch.equal(sk[b, :S], sp[b, :S]):
+            continue
+        cols = range(S)
+        delta = float((ck[b, :, :S] - cp[b, :, :S]).abs().max())
+        gap = (sum(float(ck[b, int(sp[b, s]), s]) for s in cols)
+               - sum(float(ck[b, int(sk[b, s]), s]) for s in cols))
+        out.append((b, gap, 2 * S * delta))
+    return out
+
+
+def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
+    """One train loss and every gradient of the kernel path against the plain
+    path on the same batch, for freshly built weights of each of ``seeds``
+    (``cfg0`` has dropout and masking off).
+
+    Every path trains on the plain path's matching.  The kernel path's own
+    matching must equal it, or differ only in videos where the two are a
+    tie within the two paths' cost difference (``_matching_gaps``).
+
+    A ReLU input within rounding of 0 can fall on either side in the two
+    paths; its flip moves one row of a weight gradient by ~1e-6 of the
+    largest gradient, which is 1e-3 of a gradient that is itself small.  So
+    each path is also run against itself on features moved by about one ulp
+    (its own floor), and the element-wise check is held to the larger of
+    GRAD_TOL and FLOOR_K times the larger floor; the norm check, which one
+    flipped row barely moves, is held to GRAD_TOL."""
+    import torch
+
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import batch_to_device
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    D, C, S_CAP = dims
+    dev = torch.device("cuda")
+    batch = batch_to_device(arrays, dev)
+    failed = []
+    for seed in seeds:
+        ref = build_fact(cfg0, D, C, S_CAP, device=dev,
+                         generator=torch.Generator(device="cpu").manual_seed(seed))
+        step0 = make_train_step(ref, cfg0, C, cweight)
+        nudge = torch.randn(batch["feats"].shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        nudged = dict(batch, feats=batch["feats"] * (1.0 + 2.0 ** -23 * nudge))
+        res, sp = {}, None
+        for path, b in (("plain", batch), ("kernels", batch), ("plain_nudged", nudged),
+                        ("kernels_nudged", nudged)):
+            ref.set_kernels(path.startswith("kernels"))
+            per_video, s2t, saves = step0.loss(b, gen, seg2tok=sp)
+            loss = per_video.mean()
+            names, params = zip(*ref.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            if path in ("plain", "kernels"):
+                res[path + "_match"] = _own_matching(cfg0, saves, b)
+            sp = s2t
+            del saves
+            res[path] = (float(loss.detach()), grads)
+        del ref, step0
+        (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+        (sk, ck, nsegs), (sp, cp, _) = res["kernels_match"], res["plain_match"]
+        gaps = _matching_gaps(sk, sp, ck, cp, nsegs)
+        top = max(float(g.abs().max()) for g in gp)
+        (elem, elem_n), (norm, norm_n) = _grad_errors(names, gk, gp, top)
+        (fp, fp_n), (fpn, _) = _grad_errors(names, res["plain_nudged"][1], gp, top)
+        (fk, fk_n), (fkn, _) = _grad_errors(names, res["kernels_nudged"][1], gk, top)
+        del res
+        torch.cuda.empty_cache()
+        elem_tol = max(GRAD_TOL, FLOOR_K * max(fp, fk))
+        loss_err = abs(lk - lp) / abs(lp)
+        ties = all(gap <= limit for _, gap, limit in gaps)
+        ok = loss_err <= TRAIN_LOSS_TOL and ties and norm <= GRAD_TOL and elem <= elem_tol
+        matched = ("equal" if not gaps else "differs in videos " + ", ".join(
+            f"{b} (cost gap {gap:.3e}, tie limit {limit:.3e})" for b, gap, limit in gaps))
+        log(f"[{tag}] weights seed {seed}, kernel vs plain path (dropout and masking off): "
+            f"loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL:g}); own "
+            f"matching {matched}; over {len(names)} parameters, largest gradient {top:.3e}: "
+            f"worst norm ratio {norm:.3e} ({norm_n}; tol {GRAD_TOL:g}), worst element ratio "
+            f"{elem:.3e} ({elem_n}; tol {elem_tol:.3e}); each path against itself on features "
+            f"nudged by ~1 ulp: plain {fp:.3e} ({fp_n}; norm {fpn:.3e}), kernels {fk:.3e} "
+            f"({fk_n}; norm {fkn:.3e})" + ("" if ok else "  FAIL"))
+        if not ok:
+            failed.append(seed)
+    if failed:
+        raise AssertionError(f"{tag}: training kernel path disagrees with the plain path "
+                             f"for weight seeds {failed}")
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: Breakfast (f: m2, every width 512)
+
+BF_DIMS = (2048, 48, 64)  # D (I3D features), classes, s_pred_cap
+
+
+def phase_bf_serving(seed: int = 0):
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import breakfast_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    D, C, S_CAP = BF_DIMS
+    cfg = breakfast_cfg()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed))
+    log(f"[bf-serve] breakfast_cfg(): {sum(p.numel() for p in model.parameters())} parameters, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in BF_SERVE_LENGTHS]
+    pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=8, max_len=10240, device=dev)
+    pred.predict(feats[-1:])  # warm: the shortest request
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for n, o in zip(BF_SERVE_LENGTHS, outs):
+        if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad prediction: shape {o.shape} dtype {o.dtype}")
+    # the batches predict() forms: requests grouped by bucket, 8 at most each
+    per_bucket = {}
+    for n in BF_SERVE_LENGTHS:
+        per_bucket[pred.bucket_for(n)] = per_bucket.get(pred.bucket_for(n), 0) + 1
+    batches = {bk: -(-k // 8) for bk, k in per_bucket.items()}
+    n_batches = sum(batches.values())
+    k3_batches = sum(v for bk, v in batches.items() if bk >= 1024)
+    log(f"[bf-serve] predict: {len(feats)} requests, lengths {BF_SERVE_LENGTHS}, {dt:.3f} s; "
+        f"batches per bucket {dict(sorted(batches.items()))}; launch counts {counts}")
+    want = {"mstcn2_stack": 4 * n_batches, "mha_cross": 6 * k3_batches, "mstcn_stack": 0}
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    missing = [k for k in BF_SERVING_KERNELS if counts[k] <= 0]
+    if wrong or missing or any(counts[k] for k in MASK_KERNELS):
+        raise AssertionError(f"Breakfast serving launches: (got, want) {wrong}; "
+                             f"not launched {missing}")
+    eval_paths("bf-serve", model, cfg, rng, BF_EVAL_LENGTHS, 4096, D)
+    return counts
+
+
+def phase_bf_training(seed: int = 0):
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import breakfast_train_cfg
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import (run_steps, synthetic_batch,
+                                                       synthetic_set_stats)
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights, compute_null_weight
+
+    D, C, S_CAP = BF_DIMS
+    T, S = 4096, 32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    lengths = [BF_TRAIN_LENGTHS] + [sorted(rng.integers(1000, T + 1, 4).tolist(), reverse=True)
+                                    for _ in range(2)]
+    batches = [synthetic_batch(rng, D, C, S, T, ln) for ln in lengths]
+    # nullw = -1: resolved from the set, as the JAX package resolves it from a dataset
+    cfg = compute_null_weight(breakfast_train_cfg(), synthetic_set_stats(batches, C))
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed))
+    cweight = build_class_weights(cfg, C, [])
+    step = make_train_step(model, cfg, C, cweight)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"[bf-train] breakfast_train_cfg(): {sum(p.numel() for p in model.parameters())} "
+        f"parameters, nullw {cfg['Loss']['nullw']:.6f}, dropout {cfg['Bi']['dropout']}, "
+        f"cmr {cfg['FACT']['cmr']}, TM {cfg['TM']['use']}, {cfg['optimizer']} lr {cfg['lr']}; "
+        f"3 batches of 4 x {T} built in {time.perf_counter() - t0:.1f} s")
+
+    warm = run_steps(step, batches[:1], generator=gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = run_steps(step, [batches[i % 3] for i in range(1, 6)], generator=gen)
+    torch.cuda.synchronize()
+    counts = kernel_counters()
+    losses = [warm[0]["loss"]] + [o["loss"] for o in outs]
+    log(f"[bf-train] 1 warm-up + 5 Adam steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"launch counts {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = {"mstcn2_stack": 20, "mstcn2_stack_bwd": 20, "mha_cross": 30, "mha_cross_bwd": 30,
+            "mstcn_stack": 0}
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    missing = [k for k in BF_TRAIN_KERNELS if counts[k] <= 0]
+    if wrong or missing or any(counts[k] for k in MASK_KERNELS):
+        raise AssertionError(f"Breakfast training launches: (got, want) {wrong}; "
+                             f"not launched {missing}")
+    train_paths("bf-train", model, step, batches, gen, f"4 x {T}")
     del model, step
-    cfg0 = train_cfg()
-    cfg0["Bi"]["dropout"], cfg0["FACT"]["cmr"] = 0.0, 0.0
-    ref = build_fact(cfg0, D, C, S_CAP, device=dev,
-                     generator=torch.Generator(device="cpu").manual_seed(seed + 1))
-    step0 = make_train_step(ref, cfg0, C, cweight)
-    batch = batch_to_device(batches[0], dev)
-    res = {}
-    for path in ("kernels", "plain"):
-        ref.set_kernels(path == "kernels")
-        per_video, seg2tok, _ = step0.loss(batch, gen)
-        loss = per_video.mean()
-        names, params = zip(*ref.named_parameters())
-        grads = torch.autograd.grad(loss, params)
-        res[path] = (float(loss.detach()), seg2tok, grads)
-    ref.set_kernels(True)
-    (lk, sk, gk), (lp, sp, gp) = res["kernels"], res["plain"]
-    top = max(float(g.abs().max()) for g in gp)
-    worst, worst_name, worst_scale = 0.0, "", 0.0
-    for n, a, b in zip(names, gk, gp):
-        # per parameter, normalised by its own largest gradient, floored at
-        # 1e-3 of the largest anywhere (gradients that are all but zero)
-        scale = max(float(b.abs().max()), 1e-3 * top)
-        e = float((a - b).abs().max()) / scale
-        if e > worst:
-            worst, worst_name, worst_scale = e, n, scale
-    loss_err = abs(lk - lp) / abs(lp)
-    same = bool(torch.equal(sk, sp))
-    log(f"[train] kernel vs plain path (dropout 0, cmr 0): loss {lk:.6f} vs {lp:.6f} "
-        f"(rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL:g}); seg2tok equal {same}; worst gradient "
-        f"{worst:.3e} ({worst_name}, its scale {worst_scale:.3e}, largest gradient {top:.3e}; "
-        f"tol {GRAD_TOL:g}) over {len(names)} parameters")
-    if not (loss_err <= TRAIN_LOSS_TOL and same and worst <= GRAD_TOL):
-        raise AssertionError("training kernel path disagrees with the plain path")
+    cfg0 = compute_null_weight(breakfast_train_cfg(), synthetic_set_stats(batches, C))
+    cfg0["FACT"]["cmr"], cfg0["TM"]["use"] = 0.0, False
+    train_compare("bf-train", cfg0, BF_DIMS, cweight, batches[0], gen, COMPARE_SEEDS)
     return counts
 
 
@@ -920,9 +1280,14 @@ def main():
     results = phase_kernels()
     counts = phase_serving()
     train_counts = phase_training()
+    bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}
     for name, r in results.items():
-        # the serving kernels' launches in the serving path, the others' in training
-        r["launches"] = counts[name] if name in SERVING_KERNELS else train_counts[name]
+        # each row's launches on the path that runs it
+        if name in BF_ROWS:
+            path, counter = BF_ROWS[name]
+            r["launches"] = bf_counts[path][counter]
+        else:
+            r["launches"] = counts[name] if name in SERVING_KERNELS else train_counts[name]
     kernels = [results[n] for n in results]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

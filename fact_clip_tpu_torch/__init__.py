@@ -3,9 +3,10 @@
 The JAX package ``fact_clip_tpu`` is the reference; this package mirrors its
 layout where that helps find a module's counterpart:
 
-configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg (no YAML)
+configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
+                  breakfast_cfg, breakfast_train_cfg (no YAML)
 models/           layers, blocks (FACT), two-branch decode, matching, losses
-ops/              the hand-written CUDA kernels (K1-K5, forwards with dropout
+ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   and backwards; the shared dropout mask) beside their plain
                   PyTorch versions; TDU segment operations; training masks;
                   positional terms
@@ -41,6 +42,8 @@ _KERNELS = {
     "x2y_flash_bwd": x2y_attn.x2y_flash_bwd,
     "frame_loss_fwd": frame_loss.frame_loss_fwd,
     "frame_loss_bwd": frame_loss.frame_loss_bwd,
+    "mstcn2_stack": dilated_conv.mstcn2_stack_fwd,
+    "mstcn2_stack_bwd": dilated_conv.mstcn2_stack_bwd,
 }
 # the plain backward that the K2 dispatch runs on the card (per-batch pos), as JAX does
 _PLAIN = {"x2y_bwd_reference": x2y_attn.x2y_bwd_reference}

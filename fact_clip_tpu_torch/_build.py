@@ -37,10 +37,17 @@ L = ctypes.c_longlong
 F = ctypes.c_float
 U = ctypes.c_uint
 
-# shared memory: a block's dynamic limit on sm_90, and csrc/common.cuh's
-# GemmSmem<64> staging, which every backward kernel's block holds
+# shared memory: a block's dynamic limit on sm_90
 MAX_SMEM = 232448
-GEMM_SMEM = 4 * (2 * 16 * 68 + 2 * 16 * 256)
+
+
+def gemm_smem(bm: int) -> int:
+    """Bytes of csrc/common.cuh's GemmSmem<bm> staging (A chunks of bm rows,
+    W chunks of 256 columns), which every GEMM kernel's block holds."""
+    return 4 * (2 * 16 * (bm + 4) + 2 * 16 * 256)
+
+
+GEMM_SMEM = gemm_smem(64)
 
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
@@ -56,12 +63,16 @@ SIGNATURES = {
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
     "fk_x2y_small_x": [P, P, L, I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
-                     P, I, U, F, P, P],
-    "fk_mha_bwd": [P, P, L, I] + [P] * 16 + [I, I, I, I, I, I, F, P],
+                     P, I, U, F, P, I, P],
+    "fk_mha_bwd": [P, P, L, I] + [P] * 16 + [I, I, I, I, I, I, F, I, P],
     "fk_sa_sublayer": [P, P, L, I] + [P] * 12 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 23 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
+    "fk_mstcn2_layer": [P] * 15 + [I, U, F] + [I] * 6 + [P],
+    "fk_mstcn2_folded": [P] * 8 + [I] * 6 + [P],
+    "fk_mstcn2_bwd_dc": [P] * 15 + [I, I, I, I, P],
+    "fk_mstcn2_bwd_dx": [P] * 6 + [I] * 5 + [P],
 }
 
 

@@ -6,7 +6,9 @@ the FACT, Bi, Bu, BU, Loss, TM and TPU sections),
 inheritance) and ``__graft_entry__._make_cfg``.  A config is a plain nested
 dict; ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
 ``small_cfg()`` its narrow test twin and ``train_cfg()`` the flagship as the
-port trains it.
+port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
+breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
+is it as the port trains it.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -103,6 +105,33 @@ def train_cfg() -> dict:
     place of the ``"auction"`` of ``_make_cfg`` (a TPU workaround).
     ``model.set_kernels(False)`` gives its plain PyTorch path."""
     cfg = flagship_cfg()
+    cfg["TPU"]["matcher"] = "host"
+    return cfg
+
+
+def breakfast_cfg() -> dict:
+    """``fact_clip_tpu/configs/breakfast.yaml`` over the defaults: vanilla
+    FACT ``iuUU`` with MS-TCN++ frame towers (``f: m2``, 10 layers), every
+    width 512, 60 action tokens, SCA input decoder, TDU blocks, o2o matching,
+    time masking on; ``nullw = -1`` is resolved from the data by
+    ``models/losses.py::compute_null_weight``.  Every kernel is on."""
+    cfg = default_cfg()
+    cfg.update(dataset="breakfast", optimizer="Adam", lr=1e-4, lr_decay=80, momentum=0.0,
+               weight_decay=0.0, clip_grad_norm=10.0)
+    cfg["FACT"].update(block="iuUU", ntoken=60, trans=False, fpos=False, cmr=0.3, mwt=0.1)
+    cfg["Bi"].update(hid_dim=512, dropout=0.0, a="sca", a_nhead=8, a_ffdim=512, a_layers=6,
+                     a_dim=512, f="m2", f_layers=10, f_ln=False, f_dim=512, f_ngp=1)
+    cfg["Bu"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10)
+    cfg["BU"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10, s_layers=1)
+    cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2o", bgw=1.0, nullw=-1.0, sw=5.0)
+    cfg["TM"].update(use=True, t=30, p=0.05, m=5)
+    return cfg
+
+
+def breakfast_train_cfg() -> dict:
+    """``breakfast_cfg()`` with the host Hungarian matcher, as the port
+    trains it.  ``model.set_kernels(False)`` gives its plain PyTorch path."""
+    cfg = breakfast_cfg()
     cfg["TPU"]["matcher"] = "host"
     return cfg
 

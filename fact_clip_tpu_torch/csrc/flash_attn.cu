@@ -7,7 +7,7 @@
 // carrying an online softmax in VMEM scratch.  Blocks on the H100 run in no
 // order, so the walk is split instead:
 //
-//   partial: one block per (key tile of 64, video).  It projects the tile
+//   partial: one block per (key tile of BK keys, video).  It projects the tile
 //            K = (x + pos) @ Wk + bk into shared memory, takes per (head,
 //            query) row logits = q.K * scale with keys at or past x_len set
 //            to -1e9, the tile max m, the weights exp(logit - m) and their
@@ -34,19 +34,24 @@
 //
 // Bound on the H100: the two projections, 2 * 2 * B*X*Cx*E FLOPs of f32
 // FMA (25.8 GFLOP for the u-block's f2a at B=8, X=3072, Cx=E=512; 12.9 GFLOP
-// per SCA layer at E=256).  A tile of 64 keys lets every weight value fetched
-// from L2 serve 64 rows; one K/V buffer keeps the block within shared memory
-// at E=512.  The partial results add B * X/64 * H*M * (hd + 2) floats of
-// traffic each way (32 MB for the f2a, 17 MB per SCA layer), small next to
-// the FMA time.
+// per SCA layer at E=256).  A tile of BK = 64 keys lets every weight value
+// fetched from L2 serve 64 rows; one K/V buffer keeps the block within shared
+// memory at E=512.  The partial results add B * X/BK * H*M * (hd + 2) floats
+// of traffic each way (32 MB for the f2a, 17 MB per SCA layer), small next to
+// the FMA time.  The block holds the GEMM staging, the (BK, E+1) K/V buffer
+// and the (H*M, BK) weights: at E=512, H=8, M=60 (Breakfast's SCA) that is
+// 296 KB at BK = 64, above the 227 KB a block may hold, so the caller
+// (ops/x2y_attn.py::key_tile) takes the largest tile of 64 or 32 that fits:
+// 164 KB at BK = 32 there, while the flagship's K3 and every K2 flash call
+// keep BK = 64.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BK = 64;  // keys per block: two per lane in the softmax stage
-
+// BK keys per block (64 or 32): BK / 32 per lane in the softmax stage
+template <int BK>
 __global__ void __launch_bounds__(fk::kThreads)
 proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ xpos,
                          long long pos_bstride, int Px, const float* __restrict__ q,
@@ -57,6 +62,7 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
                          float* __restrict__ part_acc, float* __restrict__ part_ml,
                          fk::Dropout drop) {
   constexpr int RM = BK / 8;
+  constexpr int KPL = BK / 32;  // keys per lane
   const int E = H * hd;
   const int HM = H * M;
   const int lde = E + 1;  // odd stride: lane j reading row j is conflict-free
@@ -108,9 +114,9 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int h = hm / M;
     const int m = hm - h * M;
     const float* qr = q + ((size_t)b * M + m) * E + h * hd;
-    float lg[2];
+    float lg[KPL];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < KPL; ++u) {
       const int key = x0 + u * 32 + tx;
       const float* kr = kv_s + (u * 32 + tx) * lde + h * hd;
       float dot = 0.f;
@@ -118,10 +124,13 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
       lg[u] = key < X ? (key < xl ? dot * scale : fk::kMaskedLogit) : -INFINITY;
       if (logits != nullptr && key < X) logits[((size_t)b * M + m) * X + key] = lg[u];
     }
-    const float mt = fk::warp_max(fmaxf(lg[0], lg[1]));
+    float lm = lg[0];
+#pragma unroll
+    for (int u = 1; u < KPL; ++u) lm = fmaxf(lm, lg[u]);
+    const float mt = fk::warp_max(lm);
     float lt = 0.f;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < KPL; ++u) {
       const int key = x0 + u * 32 + tx;
       const float p = key < X ? expf(lg[u] - mt) : 0.f;
       lt += p;  // the normaliser sums the undropped weights
@@ -233,24 +242,45 @@ proj_attn_combine_kernel(const float* __restrict__ part_acc, const float* __rest
   }
 }
 
+template <int BK>
+cudaError_t launch_partial(const float* x, const float* xpos, long long pos_bstride, int Px,
+                           const float* q, const float* wk, const float* bk, const float* wv,
+                           const float* bv, const int* xlen, int B, int X, int Cx, int M, int H,
+                           int hd, float scale, float* logits, float* part_acc, float* part_ml,
+                           fk::Dropout drop, cudaStream_t stream) {
+  const int E = H * hd;
+  const int n_t = (X + BK - 1) / BK;
+  const size_t smem = sizeof(fk::GemmSmem<BK>) +
+                      ((size_t)BK * (E + 1) + (size_t)H * M * BK) * sizeof(float);
+  cudaError_t err = fk::set_smem((const void*)proj_attn_partial_kernel<BK>, smem);
+  if (err != cudaSuccess) return err;
+  proj_attn_partial_kernel<BK><<<dim3(n_t, B), fk::kThreads, smem, stream>>>(
+      x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, X, Cx, M, H, hd, scale, logits,
+      part_acc, part_ml, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// key_tile: 64 or 32 keys per partial block (the caller's shared-memory choice)
 extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bstride, int Px,
                             const float* q, const float* wk, const float* bk, const float* wv,
                             const float* bv, const int* xlen, int B, int X, int Cx, int M,
                             int H, int hd, float scale, float* logits, float* probs, float* out,
                             float* part_acc, float* part_ml, const int* seed, int drop_stream,
-                            unsigned thresh, float drop_scale, float* stats, void* stream) {
-  const int E = H * hd;
-  const int n_t = (X + BK - 1) / BK;
-  const size_t smem_p = sizeof(fk::GemmSmem<BK>) +
-                        ((size_t)BK * (E + 1) + (size_t)H * M * BK) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)proj_attn_partial_kernel, smem_p);
-  if (err != cudaSuccess) return (int)err;
-  proj_attn_partial_kernel<<<dim3(n_t, B), fk::kThreads, smem_p, (cudaStream_t)stream>>>(
-      x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, X, Cx, M, H, hd, scale, logits,
-      part_acc, part_ml, fk::Dropout{seed, drop_stream, thresh, drop_scale});
-  err = cudaGetLastError();
+                            unsigned thresh, float drop_scale, float* stats, int key_tile,
+                            void* stream) {
+  if (key_tile != 64 && key_tile != 32) return (int)cudaErrorInvalidValue;
+  const int n_t = (X + key_tile - 1) / key_tile;
+  const fk::Dropout drop{seed, drop_stream, thresh, drop_scale};
+  cudaError_t err =
+      key_tile == 64
+          ? launch_partial<64>(x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, B, X, Cx, M,
+                               H, hd, scale, logits, part_acc, part_ml, drop,
+                               (cudaStream_t)stream)
+          : launch_partial<32>(x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, B, X, Cx, M,
+                               H, hd, scale, logits, part_acc, part_ml, drop,
+                               (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
   err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);

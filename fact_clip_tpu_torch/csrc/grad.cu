@@ -11,7 +11,8 @@
 //              tap).  Each block writes its partial product; the A operand may
 //              be shifted in time (the taps of a dilated conv) and masked by
 //              video length, and may carry a positional term on its leading
-//              channels (the key projection's input x + pos).
+//              channels (the key projection's input x + pos).  A block whose
+//              shifted chunk lies wholly outside [0, length) writes zeros.
 //   fk_reduce: out[g][r][c] = sum_p src[g*gstride + p*pstride + r*rstride + c],
 //              p in order: the partials' sum, a batch sum of a positional
 //              gradient, or the column sums the row kernels write per block.
@@ -47,6 +48,11 @@ atb_kernel(const float* __restrict__ A, const float* __restrict__ pos, long long
   const float* Ab = A + (size_t)b * T * Ca;
   const float* pb = pos ? pos + (size_t)b * pos_bstride : nullptr;
   float* out = part + ((size_t)tap * n_chunks + chunk) * Ca * Cb;
+  if (t0 + shift >= Lb || t0 + K + shift <= 0) {  // every A row of the chunk reads as zero
+    const size_t n = (size_t)min(BM, Ca - i0) * Cb;
+    for (size_t e = threadIdx.x; e < n; e += fk::kThreads) out[(size_t)i0 * Cb + e] = 0.f;
+    return;
+  }
   float acc[RM][8];
 
   auto a_elem = [&](int r, int k) {  // A^T: row r = channel i0 + r, column k = time t0 + k

@@ -6,7 +6,7 @@
 // weight gradients in VMEM, and works on a lane-masked row expansion of the
 // heads (_expand_rows), a workaround for its 128-lane vector unit.  Blocks on
 // the H100 run in no order, so this kernel follows csrc/x2y_bwd.cu's flash
-// form instead, per head with hd = E / H: one block per (tile of 64 keys,
+// form instead, per head with hd = E / H: one block per (tile of BK keys,
 // video), each on its own:
 //   K = (x + pos) Wk + bk, V = x Wv + bv         (the tile, recomputed in shared memory)
 //   p = exp(q_h.K_h * scale - m) / l             (m, l: the forward's softmax stats;
@@ -29,14 +29,19 @@
 // (2.5 GFLOP at M=40).  The design keeps K and V of the tile in shared memory
 // (never in global memory), takes the projections and dx on the GEMM core of
 // common.cuh, and stages one head's q and g rows at a time beside the tile.
+// The block holds the GEMM staging, K and V of the tile (2 x (BK, E+1)), one
+// head's q and g rows and two (M, BK) panels: 204 KB at the flagship's E=256,
+// M=40 with BK = 64, but 366 KB at Breakfast's E=512, M=60, so the caller
+// (ops/mha_attn.py::bwd_key_tile) takes the largest tile of 64 or 32 keys
+// that fits: 215 KB at BK = 32 there.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BK = 64;  // keys per block: two per lane in the row stage
-
+// BK keys per block (64 or 32): BK / 32 per lane in the row stage
+template <int BK>
 __global__ void __launch_bounds__(fk::kThreads)
 mha_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xpos, long long pos_bstride,
                int Px, const float* __restrict__ q, const float* __restrict__ g,
@@ -48,6 +53,7 @@ mha_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xpos, long
                float* __restrict__ dx, float* __restrict__ part_dq, float* __restrict__ part_b,
                int X, int Cx, int M, int H, int hd, float scale) {
   constexpr int RM = BK / 8;
+  constexpr int KPL = BK / 32;  // keys per lane
   const int E = H * hd;
   const int HM = H * M;
   const int lde = E + 1;   // odd stride: lane j reading key row j is conflict-free
@@ -110,7 +116,7 @@ mha_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xpos, long
     }
     __syncthreads();
 
-    // 2. one warp per query row, two keys per lane: p, dp, dl
+    // 2. one warp per query row, BK / 32 keys per lane: p, dp, dl
     for (int m = ty; m < M; m += fk::kWarps) {
       const int hm = h * M + m;
       const size_t row = (size_t)b * HM + hm;
@@ -118,7 +124,7 @@ mha_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xpos, long
       const float linv = 1.f / fmaxf(__ldg(stats + row * 2 + 1), 1e-30f);
       const float Dv = __ldg(Dr + row);
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < KPL; ++u) {
         const int j = u * 32 + tx;
         const int key = x0 + j;
         float dl = 0.f, pk = 0.f;
@@ -193,23 +199,37 @@ mha_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xpos, long
   }
 }
 
+template <int BK>
+cudaError_t launch(const float* x, const float* xpos, long long pos_bstride, int Px,
+                   const float* q, const float* g, const float* stats, const float* Dr,
+                   const float* keep, const float* wk, const float* bk, const float* wv,
+                   const float* bv, const float* wkvt, const int* xlen, float* dk, float* dv,
+                   float* dx, float* part_dq, float* part_b, int B, int X, int Cx, int M, int H,
+                   int hd, float scale, cudaStream_t stream) {
+  const int E = H * hd;
+  const size_t smem = sizeof(fk::GemmSmem<BK>) +
+                      ((size_t)2 * BK * (E + 1) + (size_t)2 * M * (hd + 1) + (size_t)2 * M * BK) *
+                          sizeof(float);
+  cudaError_t err = fk::set_smem((const void*)mha_bwd_kernel<BK>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((X + BK - 1) / BK, B);
+  mha_bwd_kernel<BK><<<grid, fk::kThreads, smem, stream>>>(
+      x, xpos, pos_bstride, Px, q, g, stats, Dr, keep, wk, bk, wv, bv, wkvt, xlen, dk, dv, dx,
+      part_dq, part_b, X, Cx, M, H, hd, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// key_tile: 64 or 32 keys per block (the caller's shared-memory choice)
 extern "C" int fk_mha_bwd(const float* x, const float* xpos, long long pos_bstride, int Px,
                           const float* q, const float* g, const float* stats, const float* Dr,
                           const float* keep, const float* wk, const float* bk, const float* wv,
                           const float* bv, const float* wkvt, const int* xlen, float* dk,
                           float* dv, float* dx, float* part_dq, float* part_b, int B, int X,
-                          int Cx, int M, int H, int hd, float scale, void* stream) {
-  const int E = H * hd;
-  const size_t smem = sizeof(fk::GemmSmem<BK>) +
-                      ((size_t)2 * BK * (E + 1) + (size_t)2 * M * (hd + 1) + (size_t)2 * M * BK) *
-                          sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)mha_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((X + BK - 1) / BK, B);
-  mha_bwd_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, xpos, pos_bstride, Px, q, g, stats, Dr, keep, wk, bk, wv, bv, wkvt, xlen, dk, dv, dx,
-      part_dq, part_b, X, Cx, M, H, hd, scale);
-  return (int)cudaGetLastError();
+                          int Cx, int M, int H, int hd, float scale, int key_tile, void* stream) {
+  if (key_tile != 64 && key_tile != 32) return (int)cudaErrorInvalidValue;
+  auto fn = key_tile == 64 ? launch<64> : launch<32>;
+  return (int)fn(x, xpos, pos_bstride, Px, q, g, stats, Dr, keep, wk, bk, wv, bv, wkvt, xlen, dk,
+                 dv, dx, part_dq, part_b, B, X, Cx, M, H, hd, scale, (cudaStream_t)stream);
 }

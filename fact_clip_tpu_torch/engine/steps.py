@@ -73,16 +73,20 @@ class TrainStep:
         times[name] = times.get(name, 0.0) + (t - t0) * 1e3
         return t
 
-    def loss(self, batch: dict, generator=None, times=None):
-        """Forward in train mode, match and losses: (per-video loss (B,), seg2tok, saves)."""
+    def loss(self, batch: dict, generator=None, times=None, seg2tok=None):
+        """Forward in train mode, match and losses: (per-video loss (B,), seg2tok, saves).
+        Given ``seg2tok``, the losses take that matching instead of a new one
+        (two paths of one model held to one discrete choice)."""
         t0 = self._now(times)
         saves, _ = self.model(batch["feats"], batch["mask"], batch["lengths"], train=True,
                               generator=generator)
         t0 = self._mark(times, "forward", t0)
-        last = saves[-1]
-        seg2tok = matching.match(self.cfg["Loss"], torch.softmax(last["action_clogit"], dim=-1),
-                                 last["a2f_attn"], batch["transcript"], batch["seg_label"],
-                                 batch["seg_mask"], batch["mask"])
+        if seg2tok is None:
+            last = saves[-1]
+            seg2tok = matching.match(self.cfg["Loss"],
+                                     torch.softmax(last["action_clogit"], dim=-1),
+                                     last["a2f_attn"], batch["transcript"], batch["seg_label"],
+                                     batch["seg_mask"], batch["mask"])
         t0 = self._mark(times, "match", t0)
         per_video = losses.fact_loss(
             saves, batch, seg2tok, self.cweight, self.sw,

@@ -4,11 +4,15 @@ The start of a counterpart of ``fact_clip_tpu/engine/train_loop.py``
 (``run_train``): batches arrive in the numpy layout of
 ``fact_clip_tpu/data/batching.py::Batch.device_arrays`` (a loader that
 imports no JAX), are copied to the train step's device and stepped.
-``synthetic_batch`` makes a seeded batch in that layout.  Checkpoints,
+``synthetic_batch`` makes a seeded batch in that layout and
+``synthetic_set_stats`` the dataset statistics a config's ``nullw = -1``
+is resolved from (``models/losses.py::compute_null_weight``).  Checkpoints,
 evaluation, logging and the command line are not ported yet.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -71,3 +75,11 @@ def synthetic_batch(rng: np.random.Generator, D: int, C: int, S: int, T: int, le
         out["feats"][b, :t] = (proto[out["labels"][b, :t]]
                                + rng.standard_normal((t, D)).astype(np.float32))
     return out
+
+
+def synthetic_set_stats(batches, nclasses: int):
+    """What ``compute_null_weight`` reads of a dataset, for a set of
+    synthetic batches: the mean transcript length (segments per video) and
+    the class count."""
+    counts = [int(n) for b in batches for n in np.asarray(b["seg_mask"]).sum(axis=1)]
+    return types.SimpleNamespace(average_transcript_len=float(np.mean(counts)), nclasses=nclasses)

@@ -30,11 +30,15 @@ def process_feature(feature, nclass: int):
 
 
 def make_fbranch(c: BlockCfg, in_dim: int | None):
-    if c.f != "m":
-        raise ValueError(f"frame branch {c.f!r} is not ported (only 'm')")
-    return L.MSTCN(in_dim if in_dim is not None else c.f_dim, c.f_dim, c.hid_dim, c.f_layers,
-                   ln=c.f_ln, ngroup=c.f_ngp, in_map=in_dim is not None, use_kernel=c.pallas,
-                   dropout=c.dropout)
+    """The frame tower (blocks.py:182-197): the in map only in the input block."""
+    f_in = in_dim if in_dim is not None else c.f_dim
+    if c.f == "m":
+        return L.MSTCN(f_in, c.f_dim, c.hid_dim, c.f_layers, ln=c.f_ln, ngroup=c.f_ngp,
+                       in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout)
+    if c.f == "m2":
+        return L.MSTCN2(f_in, c.f_dim, c.hid_dim, c.f_layers, ngroup=c.f_ngp,
+                        in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout)
+    raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
 
 
 def make_abranch(c: BlockCfg):

@@ -13,7 +13,8 @@ tensors; False is the plain PyTorch path everywhere.  Valid frames, keys and
 segments are prefixes, so masks travel as lengths.
 
 Train mode (``module.train()``) turns on dropout where the JAX modules have
-it: every MSTCN layer (K1's in-kernel mask, seeded per layer), the attention
+it: every MSTCN layer (K1's in-kernel mask, seeded per layer) and every
+MS-TCN++ layer but the last (K6's, the same mask), the attention
 probabilities (K3's and K4's in-kernel masks on the fused paths), the X2Y
 out map's two inputs, and the residual branches and FFN of the SA / SCA
 layers.  Every draw comes from the ``generator`` passed down (a
@@ -21,7 +22,7 @@ layers.  Every draw comes from the ``generator`` passed down (a
 int32 seed per call, drawn on the device (as the JAX modules draw one per
 fused call).  With gradients, the kernel layouts (and the LayerNorm
 parameters of the fused sublayers) are the live parameters, so that autograd
-reaches every one of them through the kernels' autograd entries (K1-K4).
+reaches every one of them through the kernels' autograd entries (K1-K4, K6).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dilated_conv import mstcn_stack, mstcn_stack_reference
+from ..ops.dilated_conv import (mstcn2_fold, mstcn2_stack, mstcn2_stack_reference,
+                                mstcn_stack, mstcn_stack_reference)
 from ..ops.masking import dropout
 from ..ops.mha_attn import mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
@@ -174,6 +176,73 @@ class MSTCN(nn.Module, KernelLayout):
         return fn(x.contiguous(), lengths, [l.layout() for l in self.layers],
                   [l.dilation for l in self.layers], use_ln=self.ln, eps=LN_EPS_TOWER,
                   out_w=ow, out_b=ob, rates=rates, seeds=seeds)
+
+
+class MSTCN2(nn.Module, KernelLayout):
+    """MS-TCN++ dual-dilation tower (``layers.py:424-514``): 1x1 in map (the
+    input block's), then per layer two dilated conv3s of the masked stream
+    (d1 = 2^(L-1-i), d2 = 2^i), a 1x1 fuse of their concatenation, ReLU,
+    dropout (all but the last layer) and the residual, then the 1x1 out map
+    (f32 logits).  The in map is a plain ``F.linear``: JAX computes it
+    outside any kernel.  Module paths are the reference's torch keys
+    (``conv_1x1_in``, ``conv_dilated_1.{i}``, ``conv_dilated_2.{i}``,
+    ``conv_fusion.{i}``, ``conv_out``)."""
+
+    def __init__(self, in_dim, hid_dim, out_dim, num_layers, ngroup=1, in_map=True,
+                 use_kernel=True, dropout=0.0):
+        super().__init__()
+        self.dropout = dropout
+        if in_map:
+            self.conv_1x1_in = nn.Conv1d(in_dim, hid_dim, 1)
+        elif in_dim != hid_dim:
+            raise ValueError("MSTCN2 without in_map needs in_dim == hid_dim")
+        self.in_map = in_map
+        L = num_layers
+        self.dil_pairs = [(2 ** (L - 1 - i), 2 ** i) for i in range(L)]
+
+        def dilated(d):
+            return nn.Conv1d(hid_dim, hid_dim, 3, padding=d, dilation=d, groups=ngroup)
+
+        self.conv_dilated_1 = nn.ModuleList(dilated(d1) for d1, _ in self.dil_pairs)
+        self.conv_dilated_2 = nn.ModuleList(dilated(d2) for _, d2 in self.dil_pairs)
+        self.conv_fusion = nn.ModuleList(nn.Conv1d(2 * hid_dim, hid_dim, 1) for _ in range(L))
+        self.conv_out = nn.Conv1d(hid_dim, out_dim, 1)
+        self.kernel_allowed = ngroup == 1  # the fused tower is ungrouped (layers.py:465)
+        self.use_kernel = use_kernel and self.kernel_allowed
+
+    def _make_kernel_layout(self, live: bool = False):
+        """([(k1, b1, k2, b2, wt, wb, bf)], ow, ob) in the JAX layout, and the
+        folded weights of K6's serving form when the tower serves on the card
+        (None otherwise: the forward then folds them per call if it needs
+        them)."""
+        layers = []
+        for c1, c2, fu in zip(self.conv_dilated_1, self.conv_dilated_2, self.conv_fusion):
+            C = fu.weight.shape[0]
+            layers.append((_d(c1.weight, live).permute(2, 1, 0).contiguous(), _d(c1.bias, live),
+                           _d(c2.weight, live).permute(2, 1, 0).contiguous(), _d(c2.bias, live),
+                           _t(fu.weight[:, :C, 0], live), _t(fu.weight[:, C:, 0], live),
+                           _d(fu.bias, live)))
+        folded = (mstcn2_fold(layers) if not live and self.use_kernel
+                  and self.conv_out.weight.is_cuda else None)
+        return (layers, _t(self.conv_out.weight[:, :, 0], live), _d(self.conv_out.bias, live),
+                folded)
+
+    def forward(self, x, lengths, generator=None):
+        if self.in_map:
+            x = F.linear(x, self.conv_1x1_in.weight[:, :, 0], self.conv_1x1_in.bias)
+        layers, ow, ob, folded = self.layout()
+        L = len(layers)
+        rates = seeds = None
+        if self.training and self.dropout > 0.0:
+            # one seed per layer, drawn on the device; the last layer keeps
+            # every value (layers.py:480-489)
+            rates = (float(self.dropout),) * (L - 1) + (0.0,)
+            seeds = _seeds(generator, L, x.device)
+        if not self.use_kernel:
+            return mstcn2_stack_reference(x.contiguous(), lengths, layers, self.dil_pairs,
+                                          out_w=ow, out_b=ob, rates=rates, seeds=seeds)
+        return mstcn2_stack(x.contiguous(), lengths, layers, self.dil_pairs, out_w=ow, out_b=ob,
+                            rates=rates, seeds=seeds, folded=folded)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""K1: the fused MSTCN tower (dilated residual layers + out projection),
-forward with in-kernel dropout, and its backward.
+"""K1 and K6: the fused MSTCN and MS-TCN++ towers (dilated residual layers +
+out projection), forwards with in-kernel dropout, and their backwards.
 
 Replaces ``fact_clip_tpu/ops/pallas/dilated_conv.py::dilated_residual_stack``
 with ``out_params``: the forward per layer (``_stack_layer``, Pallas kernel
@@ -22,6 +22,22 @@ Layouts follow the JAX function: ``wd`` (3, C, C) as (tap, in, out), ``w1``
 (C, C) and ``ow`` (C, O) as (in, out).  Frames at or past ``lengths[b]`` read
 as zeros and are written as zeros between layers; the logits of padded frames
 are the bias row.  ``mstcn_stack`` is the differentiable entry.
+
+K6, the MS-TCN++ tower of ``f: m2`` (two dilations a layer, d1 = 2^(L-1-i)
+and d2 = 2^i), replaces ``dilated_residual2_stack`` with ``out_params``: the
+forward per layer (``_stack2_layer``, kernel ``_stack2_kernel``) and the
+backward per layer (``_stack2_bwd_layer``, kernels ``_stack2_bwd_dc_kernel``
+and ``_stack2_bwd_dx_kernel``), in ``csrc/mstcn2.cu`` (one forward launch
+per layer, the out projection fused into the last; two backward launches per
+layer) with ``csrc/grad.cu``'s weight-gradient sums and K1's mask kernel.
+Without saves or dropout (serving) the forward runs on weights folded by
+``mstcn2_fold``: the fuse multiplied into the six taps, one GEMM a layer.
+Layers are (k1, b1, k2, b2, wt, wb, bf) in the JAX layout: k (3, C, C) as
+(tap, in, out), the fuse weight split into its top and bottom (C, C) halves.
+Per layer y = (drop(relu(c1 @ wt + c2 @ wb + bf)) + x) * mask with c1, c2
+the two dilated conv3s of the masked input; its dropout is K1's mask (stream
+= layer) and the caller runs the last layer at rate 0.  ``mstcn2_stack`` is
+the differentiable entry.
 """
 
 from __future__ import annotations
@@ -327,3 +343,302 @@ def mstcn_stack(x, lengths, layers, dilations, *, use_ln: bool, eps: float = 1e-
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCNStack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,
                              *[p.contiguous() for p in flat])
+
+
+# ---------------------------------------------------------------------------
+# K6: the MS-TCN++ tower
+
+
+def _conv3(x, k, b, d: int):
+    """SAME dilated conv3 of (B, T, C) with k (3, C/g, C) as (tap, in, out)."""
+    return F.conv1d(x.transpose(1, 2), k.permute(2, 1, 0), b, padding=d, dilation=d,
+                    groups=x.shape[2] // k.shape[1]).transpose(1, 2)
+
+
+def mstcn2_stack_reference(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None,
+                           seeds=None, save: bool = False):
+    """Plain PyTorch version: x (B, T, C) -> f32 logits (B, T, O); with
+    ``save`` also each layer's input stream, [c1 | c2] (B, T, 2C) and ReLU
+    output before dropout, as the kernel forward saves them.  A grouped
+    tower passes k of shape (3, C/g, C)."""
+    B, T, C = x.shape
+    mask = _frame_mask(x, lengths)
+    y = x
+    streams, cs, hs = [x], [], []
+    for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(zip(layers, dil_pairs)):
+        xm = y * mask
+        c1, c2 = _conv3(xm, k1, b1, d1), _conv3(xm, k2, b2, d2)
+        h = torch.relu(c1 @ wt + c2 @ wb + bf)
+        o = h * dropout_mask_reference(seeds[i], i, (B, T, C), _rate(rates, i)) \
+            if _rate(rates, i) > 0.0 else h
+        y = (o + xm) * mask
+        cs.append(torch.cat([c1, c2], dim=-1))
+        hs.append(h)
+        streams.append(y)
+    logits = y @ out_w + out_b
+    if save:
+        return logits, streams[:-1], cs, hs
+    return logits
+
+
+def mstcn2_stack_bwd_reference(g, streams, cs, hs, lengths, layers, dil_pairs, *, out_w,
+                               out_b, rates=None, seeds=None):
+    """Plain version of the tower's backward, step for step as the kernels,
+    from the same saves: g (B, T, O) logits cotangent ->
+    (dx, [(dk1, db1, dk2, db2, dwt, dwb, dbf)], dow, dob)."""
+    B, T, C = streams[0].shape
+    valid = _frame_mask(streams[0], lengths)
+    n = len(layers)
+
+    def keep(i):
+        r = _rate(rates, i)
+        return dropout_mask_reference(seeds[i], i, (B, T, C), r) if r > 0.0 else None
+
+    km = keep(n - 1)
+    y = ((hs[-1] * km if km is not None else hs[-1]) + streams[-1] * valid) * valid
+    dow = torch.einsum("btc,bto->co", y, g)
+    dob = g.sum(dim=(0, 1))
+    gy = g @ out_w.t()
+    dlayers = [None] * n
+    for i in reversed(range(n)):
+        k1, b1, k2, b2, wt, wb, bf = layers[i]
+        d1, d2 = dil_pairs[i]
+        x_i = streams[i] * valid
+        gz = gy * valid
+        km = keep(i)
+        ds = (gz * km if km is not None else gz) * (hs[i] > 0)
+        dc1, dc2 = ds @ wt.t(), ds @ wb.t()
+        dx = gz + sum(_shift(dc, (1 - k) * d) @ kw[k].t()
+                      for dc, kw, d in ((dc1, k1, d1), (dc2, k2, d2)) for k in range(3))
+        dk1, dk2 = (torch.stack([torch.einsum("btc,bto->co", _shift(x_i, (k - 1) * d), dc)
+                                 for k in range(3)]) for dc, d in ((dc1, d1), (dc2, d2)))
+        c1, c2 = cs[i][..., :C], cs[i][..., C:]
+        dlayers[i] = (dk1, dc1.sum(dim=(0, 1)), dk2, dc2.sum(dim=(0, 1)),
+                      torch.einsum("btc,bto->co", c1, ds), torch.einsum("btc,bto->co", c2, ds),
+                      ds.sum(dim=(0, 1)))
+        gy = dx * valid
+    return gy, dlayers, dow, dob
+
+
+def has_forward2(C: int) -> bool:
+    """K6's training-form forward block (GEMM staging of 32 rows + a
+    (32, 2C + 4) tile) fits; the serving form's (GEMM staging alone) always
+    does."""
+    return _build.gemm_smem(32) + 4 * 32 * (2 * C + 4) <= _build.MAX_SMEM
+
+
+def has_backward2(C: int) -> bool:
+    """K6's largest backward block (bwd_dc: GEMM staging of 64 rows + a
+    (64, C + 4) tile) fits; wider towers have no backward here."""
+    return _build.gemm_smem(64) + 4 * 64 * (C + 4) <= _build.MAX_SMEM
+
+
+def _check_layers2(name, x, lengths, layers, out_w, out_b, seeds, rates):
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    flat = [p for layer in layers for p in layer]
+    _build.check_tensors(name, [x, lengths, out_w, out_b, seeds, *flat], x.device)
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError(f"{name}: lengths must be (B,) int32")
+    for k1, b1, k2, b2, wt, wb, bf in layers:
+        if (k1.shape != (3, C, C) or k2.shape != (3, C, C) or wt.shape != (C, C)
+                or wb.shape != (C, C) or any(p.shape != (C,) for p in (b1, b2, bf))):
+            raise ValueError(f"{name}: bad layer shapes for C={C} (ungrouped only)")
+    if out_w.shape != (C, O) or out_b.shape != (O,):
+        raise ValueError(f"{name}: bad out projection shapes")
+    if any(_rate(rates, i) > 0.0 for i in range(len(layers))):
+        if seeds is None or seeds.dtype != torch.int32 or seeds.shape != (len(layers),):
+            raise ValueError(f"{name}: dropout needs (L,) int32 seeds")
+
+
+def mstcn2_fold(layers):
+    """The weights of K6's serving form, per layer: (W6, bias) with W6 =
+    [k1[0] wt; k1[1] wt; k1[2] wt; k2[0] wb; k2[1] wb; k2[2] wb] (6C, C) and
+    bias = b1 wt + b2 wb + bf, so that relu(c1 wt + c2 wb + bf) is one GEMM
+    of the six taps.  Computed on the card by ``csrc/grad.cu``'s products."""
+    out = []
+    for k1, b1, k2, b2, wt, wb, bf in layers:
+        C = wt.shape[0]
+        taps = torch.cat([k1, k2]).transpose(1, 2).contiguous()  # (6, mid, in)
+        fuse = torch.stack([wt, wt, wt, wb, wb, wb])  # (6, mid, out)
+        w6 = _grad.atb(taps, fuse, per_video=True).view(6 * C, C)
+        bias = _grad.atb(torch.cat([b1, b2]).view(1, 2 * C, 1), torch.cat([wt, wb])[None])
+        out.append((w6, bias.view(C) + bf))
+    return out
+
+
+def mstcn2_stack_fwd(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, seeds=None,
+                     save: bool = False, folded=None):
+    """The MS-TCN++ tower on the card (CUDA tensors) or its plain version (CPU
+    tensors).  With ``save`` (for the backward) it also returns each layer's
+    input stream, [c1 | c2] and ReLU output before dropout.  Without saves
+    or dropout the card runs the serving form on ``folded``
+    (``mstcn2_fold(layers)``, computed here when not given); a forward with
+    dropout runs the training form."""
+    flat = [p for layer in layers for p in layer]
+    _build.no_grad_inputs("mstcn2_stack_fwd", [x, out_w, out_b, *flat])
+    if x.device.type == "cpu":
+        return mstcn2_stack_reference(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                      rates=rates, seeds=seeds, save=save)
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    _check_layers2("mstcn2_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
+    if not has_forward2(C):
+        raise NotImplementedError(f"mstcn2_stack_fwd: no forward kernel for C={C}")
+
+    lib = _build.lib()
+    stream = _build.stream_ptr(x.device)
+    serving = not save and all(_rate(rates, i) == 0.0 for i in range(len(layers)))
+    if serving:
+        folded = mstcn2_fold(layers) if folded is None else folded
+        _build.check_tensors("mstcn2_stack_fwd", [t for f in folded for t in f], x.device)
+    if not save:
+        bufs = (torch.empty_like(x), torch.empty_like(x))
+    logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    streams, cs, hs = [x], [], []
+    src = x
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(zip(layers, dil_pairs)):
+        last = i == len(layers) - 1
+        proj = (ptr(out_w), ptr(out_b), ptr(logits)) if last else (None, None, None)
+        dst = torch.empty_like(x) if save else bufs[i % 2]
+        if serving:  # the folded form
+            w6, bias = folded[i]
+            err = lib.fk_mstcn2_folded(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(),
+                                       w6.data_ptr(), bias.data_ptr(), *proj, B, T, C, O,
+                                       int(d1), int(d2), stream)
+            _build.check("fk_mstcn2_folded", err)
+            src = dst
+            continue
+        r = _rate(rates, i)
+        seed, li, thresh, scale = dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r)
+        c_out = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.float32) if save else None
+        h_out = torch.empty_like(x) if save else None
+        wf = torch.cat([wt, wb])  # (2C, C): the fuse as one GEMM over [c1 | c2]
+        err = lib.fk_mstcn2_layer(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(),
+                                  k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
+                                  wf.data_ptr(), bf.data_ptr(), *proj, ptr(c_out), ptr(h_out),
+                                  seed, li, thresh, scale, B, T, C, O, int(d1), int(d2), stream)
+        _build.check("fk_mstcn2_layer", err)
+        if save:
+            cs.append(c_out)
+            hs.append(h_out)
+            if not last:
+                streams.append(dst)
+        src = dst
+    mstcn2_stack_fwd.launches += 1
+    if save:
+        return logits, streams, cs, hs
+    return logits
+
+
+mstcn2_stack_fwd.launches = 0
+
+
+def mstcn2_stack_bwd(g, streams, cs, hs, lengths, layers, dil_pairs, *, out_w, out_b,
+                     rates=None, seeds=None):
+    """The MS-TCN++ tower's backward on the card, from the forward's saves:
+    (dx, [(dk1, db1, dk2, db2, dwt, dwb, dbf)], dow, dob)."""
+    x = streams[0]
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    _check_layers2("mstcn2_stack_bwd", x, lengths, layers, out_w, out_b, seeds, rates)
+    if not has_backward2(C):
+        raise NotImplementedError(f"mstcn2_stack_bwd: no backward kernel for C={C}")
+    g = g.contiguous()
+    _build.check_tensors("mstcn2_stack_bwd", [g, *streams, *cs, *hs], x.device)
+    lib = _build.lib()
+    stream = _build.stream_ptr(x.device)
+    nblk = B * (-(-T // 64))
+    owt = out_w.t().contiguous()
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    dlayers = [None] * len(layers)
+    g_stream, dow, dob = None, None, None
+    for i in reversed(range(len(layers))):
+        k1, b1, k2, b2, wt, wb, bf = layers[i]
+        d1, d2 = (int(d) for d in dil_pairs[i])
+        last = i == len(layers) - 1
+        ds, dc1, dc2, dx = (torch.empty_like(x) for _ in range(4))
+        dz = torch.empty_like(x) if last else None
+        y_out = torch.empty_like(x) if last else None
+        part = torch.empty((nblk, 3, C), device=x.device, dtype=torch.float32)
+        part_o = torch.empty((nblk, 1, O), device=x.device, dtype=torch.float32) if last else None
+        # the layer's keep mask, regenerated by the mask kernel (never stored)
+        keep = (mstcn_dropout_mask(seeds[i:i + 1], i, (B, T, C), _rate(rates, i))
+                if _rate(rates, i) > 0.0 else None)
+        wft = torch.cat([wt, wb]).t().contiguous()  # (C, 2C)
+        wdt = torch.cat([k1, k2]).transpose(1, 2).contiguous()  # the six taps, transposed
+        err = lib.fk_mstcn2_bwd_dc(
+            streams[i].data_ptr(), hs[i].data_ptr(), ptr(g_stream), g.data_ptr() if last else None,
+            lengths.data_ptr(), wft.data_ptr(), owt.data_ptr(), ptr(keep), ds.data_ptr(),
+            dc1.data_ptr(), dc2.data_ptr(), ptr(dz), ptr(y_out), part.data_ptr(), ptr(part_o),
+            B, T, C, O, stream)
+        _build.check("fk_mstcn2_bwd_dc", err)
+        gsrc = dz if last else g_stream
+        err = lib.fk_mstcn2_bwd_dx(dc1.data_ptr(), dc2.data_ptr(), gsrc.data_ptr(),
+                                   lengths.data_ptr(), wdt.data_ptr(), dx.data_ptr(), B, T, C,
+                                   d1, d2, stream)
+        _build.check("fk_mstcn2_bwd_dx", err)
+        dk1 = _grad.atb(streams[i], dc1, lengths=lengths, shifts=(-d1, 0, d1))
+        dk2 = _grad.atb(streams[i], dc2, lengths=lengths, shifts=(-d2, 0, d2))
+        # ds and y_out are zero past each video: the lengths let those chunks skip
+        dwf = _grad.atb(cs[i], ds, lengths=lengths)[0]
+        dbf, db1, db2 = _grad.block_sums(part, 3, C)
+        if last:
+            dow = _grad.atb(y_out, g, lengths=lengths)[0]
+            dob = _grad.block_sums(part_o, 1, O)[0]
+        dlayers[i] = (dk1, db1, dk2, db2, dwf[:C], dwf[C:], dbf)
+        g_stream = dx
+    mstcn2_stack_bwd.launches += 1
+    return g_stream, dlayers, dow, dob
+
+
+mstcn2_stack_bwd.launches = 0
+
+
+class _MSTCN2Stack(torch.autograd.Function):
+    """The MS-TCN++ tower with the kernels' forward and backward on the card,
+    the plain ones on the CPU; both save each layer's input stream, [c1 | c2]
+    and ReLU output."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, out_w, out_b, seeds, cfg, *flat):
+        dil_pairs, rates = cfg
+        layers = [tuple(flat[7 * i:7 * i + 7]) for i in range(len(dil_pairs))]
+        fwd = mstcn2_stack_reference if x.device.type == "cpu" else mstcn2_stack_fwd
+        logits, streams, cs, hs = fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                      rates=rates, seeds=seeds, save=True)
+        ctx.cfg = cfg
+        ctx.save_for_backward(lengths, out_w, out_b, seeds, *flat, *streams, *cs, *hs)
+        return logits
+
+    @staticmethod
+    def backward(ctx, g):
+        dil_pairs, rates = ctx.cfg
+        L = len(dil_pairs)
+        lengths, out_w, out_b, seeds, *rest = ctx.saved_tensors
+        flat, saves = rest[:7 * L], rest[7 * L:]
+        layers = [tuple(flat[7 * i:7 * i + 7]) for i in range(L)]
+        streams, cs, hs = saves[:L], saves[L:2 * L], saves[2 * L:]
+        bwd = mstcn2_stack_bwd_reference if g.device.type == "cpu" else mstcn2_stack_bwd
+        dx, dlayers, dow, dob = bwd(g.contiguous(), list(streams), list(cs), list(hs), lengths,
+                                    layers, dil_pairs, out_w=out_w, out_b=out_b, rates=rates,
+                                    seeds=seeds)
+        return (dx, None, dow, dob, None, None, *[t for layer in dlayers for t in layer])
+
+
+def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, seeds=None,
+                 folded=None):
+    """The differentiable MS-TCN++ tower: kernels on CUDA tensors, plain on CPU
+    ones; without gradients, the card's serving form on ``folded``."""
+    flat = [p for layer in layers for p in layer]
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in [x, out_w, out_b, *flat])):
+        return mstcn2_stack_fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                rates=rates, seeds=seeds, folded=folded)
+    if x.device.type != "cpu":
+        _build.require_backward("mstcn2_stack", has_backward2(x.shape[2]))
+    cfg = (tuple((int(a), int(b)) for a, b in dil_pairs),
+           tuple(_rate(rates, i) for i in range(len(layers))))
+    return _MSTCN2Stack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,
+                              *[p.contiguous() for p in flat])

@@ -41,10 +41,10 @@ from .. import _build
 from . import _grad
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos
-from .x2y_attn import proj_attn
+from .x2y_attn import key_tile, proj_attn
 
 _NEG = -1e9
-KEY_TILE = 64  # keys per block of csrc/mha_bwd.cu
+BWD_KEY_TILES = (64, 32)  # keys per block of csrc/mha_bwd.cu, the largest that fits
 
 
 def mha_cross_attention_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
@@ -97,10 +97,17 @@ def _check(name, q, x_in, wk, bk, wv, bv, x_len, num_heads):
     _build.check_tensors(name, [q, x_in, wk, bk, wv, bv, x_len], x_in.device)
 
 
+def has_forward(M: int, E: int, num_heads: int) -> bool:
+    """The forward kernel's block (GEMM staging, one tile's K/V buffer and
+    its H*M rows of weights) fits in shared memory at some key tile."""
+    return key_tile(M, E, num_heads) is not None
+
+
 def mha_cross_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, rate: float = 0.0,
                   seed=None, with_stats: bool = False):
     """The forward kernel on CUDA tensors, the plain version on CPU tensors;
-    with ``with_stats`` it returns (out, stats) for the backward."""
+    with ``with_stats`` it returns (out, stats) for the backward.  A shape
+    whose block does not fit is refused before any launch."""
     _build.no_grad_inputs("mha_cross_fwd", [q, x_in, x_pos, wk, bk, wv, bv])
     B, X, _ = x_in.shape
     M, E = q.shape[1], wk.shape[1]
@@ -112,6 +119,9 @@ def mha_cross_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, rate
                                              num_heads=num_heads, keep=keep,
                                              with_stats=with_stats)
     _check("mha_cross_fwd", q, x_in, wk, bk, wv, bv, x_len, num_heads)
+    if not has_forward(M, E, num_heads):
+        raise NotImplementedError(f"mha_cross_fwd: no forward kernel for M={M}, E={E}, "
+                                  f"H={num_heads} (shared memory)")
     out = torch.empty((B, M, E), device=x_in.device, dtype=torch.float32)
     stats = (torch.empty((B, num_heads * M, 2), device=x_in.device, dtype=torch.float32)
              if with_stats else None)
@@ -162,12 +172,20 @@ def mha_cross_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g
             dk.sum(dim=(0, 1)), torch.einsum("bxc,bxe->ce", x_in, dv), dv.sum(dim=(0, 1)))
 
 
-def has_backward(M: int, E: int, num_heads: int) -> bool:
-    """The backward kernel's block (GEMM staging, the tile's K and V, one
-    head's q and g rows and two (M, 64) panels) fits in shared memory."""
+def bwd_key_tile(M: int, E: int, num_heads: int):
+    """The key tile of the backward kernel: the largest of ``BWD_KEY_TILES``
+    whose block (GEMM staging, the tile's K and V, one head's q and g rows and
+    two (M, BK) panels) fits in shared memory, or None."""
     hd = E // num_heads
-    floats = 2 * KEY_TILE * (E + 1) + 2 * M * (hd + 1) + 2 * M * KEY_TILE
-    return _build.GEMM_SMEM + 4 * floats <= _build.MAX_SMEM
+    for bk in BWD_KEY_TILES:
+        floats = 2 * bk * (E + 1) + 2 * M * (hd + 1) + 2 * M * bk
+        if _build.gemm_smem(bk) + 4 * floats <= _build.MAX_SMEM:
+            return bk
+    return None
+
+
+def has_backward(M: int, E: int, num_heads: int) -> bool:
+    return bwd_key_tile(M, E, num_heads) is not None
 
 
 def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_heads: int,
@@ -181,14 +199,15 @@ def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_h
     M, E = q.shape[1], wk.shape[1]
     H = num_heads
     _check("mha_cross_bwd", q, x_in, wk, bk, wv, bv, x_len, H)
-    if not has_backward(M, E, H):
+    tile = bwd_key_tile(M, E, H)
+    if tile is None:
         raise NotImplementedError(f"mha_cross_bwd: no backward kernel for M={M}, E={E}")
     g = g.contiguous()
     xpos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
     _build.check_tensors("mha_cross_bwd", [xpos, stats, out, g, keep], x_in.device)
     D = _row_term(g, out, H).contiguous()
     wkvt = torch.cat([wk.t(), wv.t()], dim=0).contiguous()
-    n_t = -(-X // KEY_TILE)
+    n_t = -(-X // tile)
     f32 = dict(device=x_in.device, dtype=torch.float32)
     dk, dv = torch.empty((B, X, E), **f32), torch.empty((B, X, E), **f32)
     dx = torch.empty_like(x_in)
@@ -200,7 +219,7 @@ def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_h
         D.data_ptr(), ptr(keep), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
         wkvt.data_ptr(), x_len.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
         part_dq.data_ptr(), part_b.data_ptr(), B, X, Cx, M, H, E // H, 1.0 / math.sqrt(E // H),
-        _build.stream_ptr(x_in.device))
+        tile, _build.stream_ptr(x_in.device))
     _build.check("fk_mha_bwd", err)
     ME = M * E
     dq = _grad.reduce(part_dq, G=B, P=n_t, pstride=ME, gstride=n_t * ME, rows=1, rstride=0,

@@ -39,7 +39,7 @@ from . import _grad
 from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
-KEY_TILE = 64  # keys per block of csrc/flash_attn.cu (its BK)
+KEY_TILES = (64, 32)  # keys per block of csrc/flash_attn.cu (its BK), the largest that fits
 _NEG = -1e9
 
 
@@ -132,6 +132,16 @@ def x2y_flash_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
 x2y_flash_fwd.launches = 0
 
 
+def key_tile(M: int, E: int, num_heads: int):
+    """The key tile of csrc/flash_attn.cu's partial kernel: the largest of
+    ``KEY_TILES`` whose block (GEMM staging, the (BK, E+1) K/V buffer, the
+    (H*M, BK) weights) fits in shared memory, or None."""
+    for bk in KEY_TILES:
+        if _build.gemm_smem(bk) + 4 * (bk * (E + 1) + num_heads * M * bk) <= _build.MAX_SMEM:
+            return bk
+    return None
+
+
 def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
               logits=None, probs=None, stats=None, drop=(None, 0, 0, 1.0)):
     """Launch csrc/flash_attn.cu (shared by K2's flash form and K3): q (B, M, E)
@@ -142,9 +152,13 @@ def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
     M, E = q.shape[1], q.shape[2]
     H = num_heads
     hd = E // H
+    tile = key_tile(M, E, H)
+    if tile is None:
+        raise NotImplementedError(f"fk_proj_attn: no key tile fits in shared memory at M={M}, "
+                                  f"E={E}, H={H}")
     pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
     _build.check_tensors("fk_proj_attn", [q, pos, out, logits, probs, stats], x_in.device)
-    n_t = -(-X // KEY_TILE)
+    n_t = -(-X // tile)
     part_acc = torch.empty((B, n_t, H * M, hd), device=x_in.device, dtype=torch.float32)
     part_ml = torch.empty((B, n_t, H * M, 2), device=x_in.device, dtype=torch.float32)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
@@ -152,7 +166,7 @@ def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
         x_in.data_ptr(), ptr(pos), pos_stride, Px, q.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), x_len.data_ptr(), B, X, Cx, M, H, hd,
         1.0 / math.sqrt(hd), ptr(logits), ptr(probs), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), *drop, ptr(stats), _build.stream_ptr(x_in.device))
+        part_ml.data_ptr(), *drop, ptr(stats), tile, _build.stream_ptr(x_in.device))
     _build.check("fk_proj_attn", err)
 
 

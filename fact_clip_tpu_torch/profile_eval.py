@@ -1,16 +1,22 @@
-"""Where the time of the flagship eval step (or train step) goes on the card.
+"""Where the time of an eval step (or train step) goes on the card.
 
-    python3 -m fact_clip_tpu_torch.profile_eval [--train] [--steps N] [--trace DIR]
+    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|breakfast] [--train]
+                                                [--steps N] [--trace DIR]
 
-Builds the flagship FACT model (iuUU, D=2048, C=75, M=40) with seeded random
-weights and times one eval step of 8 videos padded to 3072 frames, on the
-kernel path and on the plain PyTorch path: wall time (host clock around a
-synchronised step), device busy time per step (the sum of the CUDA kernels'
-own times under ``torch.profiler``), the idle share 1 - busy / wall, the
-device launches per step, and the kernels that take the most time.  With
+Builds the flagship FACT model (iuUU, D=2048, C=75, M=40), or with
+``--cfg breakfast`` the Breakfast model (``breakfast_cfg()``: MS-TCN++
+towers, every width 512, D=2048, 48 classes, M=60), with seeded random
+weights and times one eval step of 8 videos padded to 3072 frames
+(Breakfast: 4096), on the kernel path and on the plain PyTorch path: wall
+time (host clock around a synchronised step), device busy time per step
+(the sum of the CUDA kernels' own times under ``torch.profiler``), the idle
+share 1 - busy / wall, the device launches per step, and the kernels that
+take the most time.  With
 ``--train`` the step is the train step of ``train_cfg()`` (every kernel on,
-dropout 0.2, channel masking 0.3, Adam) on seeded batches with
-piecewise-constant labels.  Needs a CUDA card; f32 with TF32 off.
+dropout 0.2, channel masking 0.3, Adam) on a seeded batch of 8 x 3072 with
+piecewise-constant labels, or of ``breakfast_train_cfg()`` (dropout 0,
+channel masking 0.3, time masking, nullw resolved from the batch) on 4 x
+4096.  Needs a CUDA card; f32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -24,13 +30,20 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import flagship_cfg, train_cfg
+from .configs import breakfast_cfg, breakfast_train_cfg, flagship_cfg, train_cfg
 from .engine.steps import make_eval_step, make_train_step
-from .engine.train_loop import batch_to_device, synthetic_batch
+from .engine.train_loop import batch_to_device, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
-from .models.losses import build_class_weights
+from .models.losses import build_class_weights, compute_null_weight
 
-LENGTHS = [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]
+# (eval config, train config, D, classes, s_pred_cap, padded T, the eval videos' lengths)
+SETUPS = {
+    "flagship": (flagship_cfg, train_cfg, 2048, 75, 128, 3072,
+                 [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]),
+    "breakfast": (breakfast_cfg, breakfast_train_cfg, 2048, 48, 64, 4096,
+                  [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100]),
+}
+TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "breakfast": [4096, 3600, 2500, 1400]}
 
 
 def wall_ms(step, args, n):
@@ -54,18 +67,35 @@ def device_kernels(step, args, n):
                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def train_step_args(dev):
-    """(step, args) of the flagship train step on seeded batches."""
-    cfg = train_cfg()
-    D, C, S_CAP, T, S = 2048, 75, 128, 3072, 32
+def train_step_args(name, dev):
+    """(model, step, args) of the train step of ``name`` on a seeded batch;
+    a config's ``nullw = -1`` is resolved from that batch."""
+    _, make_train_cfg, D, C, S_CAP, T, _ = SETUPS[name]
+    batch = synthetic_batch(np.random.default_rng(0), D, C, 32, T, TRAIN_LENGTHS[name])
+    cfg = make_train_cfg()
+    if cfg["Loss"]["nullw"] < 0:
+        cfg = compute_null_weight(cfg, synthetic_set_stats([batch], C))
     model = build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
     step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
-    batch = batch_to_device(synthetic_batch(np.random.default_rng(0), D, C, S, T, LENGTHS), dev)
-    return model, step, (batch, torch.Generator(device=dev).manual_seed(0))
+    return model, step, (batch_to_device(batch, dev), torch.Generator(device=dev).manual_seed(0))
+
+
+def eval_step_args(name, dev):
+    """(model, step, args) of the eval step of ``name`` on seeded features."""
+    make_cfg, _, D, C, S_CAP, T, lengths = SETUPS[name]
+    cfg = make_cfg()
+    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
+    lens = np.array(lengths, np.int32)
+    mask = np.arange(T)[None] < lens[:, None]
+    x = np.random.default_rng(0).standard_normal((len(lens), T, D)).astype(np.float32)
+    args = (torch.from_numpy(x * mask[..., None]).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(lens).to(dev))
+    return model, make_eval_step(model, cfg["FACT"]["mwt"]), args
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cfg", choices=sorted(SETUPS), default="flagship")
     ap.add_argument("--train", action="store_true", help="the train step, not the eval step")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="directory for chrome traces")
@@ -76,22 +106,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    B, T, D = len(LENGTHS), 3072, 2048
-    if a.train:
-        model, step, args = train_step_args(dev)
-    else:
-        cfg = flagship_cfg()
-        model = build_fact(cfg, D, 75, 128, device=dev,
-                           generator=torch.Generator().manual_seed(0))
-        lens = np.array(LENGTHS, np.int32)
-        rng = np.random.default_rng(0)
-        mask = np.arange(T)[None] < lens[:, None]
-        x = rng.standard_normal((B, T, D)).astype(np.float32) * mask[..., None]
-        args = (torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev),
-                torch.from_numpy(lens).to(dev))
-        step = make_eval_step(model, cfg["FACT"]["mwt"])
+    model, step, args = (train_step_args if a.train else eval_step_args)(a.cfg, dev)
+    B, T = args[0]["feats"].shape[:2] if a.train else args[0].shape[:2]
     kind = "train" if a.train else "eval"
-    print(f"device {torch.cuda.get_device_name(0)}; {kind} step of {B} x {T}, flagship")
+    print(f"device {torch.cuda.get_device_name(0)}; {kind} step of {B} x {T}, {a.cfg}")
     for kernels in (True, False):
         model.set_kernels(kernels)
         wall_ms(step, args, 3)  # warm: build, load, caches
@@ -109,7 +127,7 @@ def main():
         if a.trace:
             os.makedirs(a.trace, exist_ok=True)
             name = "kernels" if kernels else "plain"
-            prof.export_chrome_trace(os.path.join(a.trace, f"{kind}_{name}.json"))
+            prof.export_chrome_trace(os.path.join(a.trace, f"{a.cfg}_{kind}_{name}.json"))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 

@@ -3,8 +3,8 @@
 The port's own copy of the FACT part of
 ``fact_clip_tpu/utils/torch_export.py::export_fact_state_dict`` (numpy only),
 so that the port imports nothing of the JAX package.  It covers what the
-port builds: MSTCN frame towers (``f: m``), SA and SCA action decoders, the
-X2Y maps and the TDU block's BiGRU and dense layers; the MS-TCN++ tower,
+port builds: MSTCN and MS-TCN++ frame towers (``f: m``, ``f: m2``), SA and
+SCA action decoders, the X2Y maps and the TDU block's BiGRU and dense layers;
 transcript mode, FACT_CLIP's projection and the verb/noun model are not
 ported yet and raise.  A test holds it equal to the JAX package's exporter
 key for key and value for value.
@@ -96,6 +96,29 @@ def _mstcn(out, prefix, node, in_map):
     out[prefix + ".conv_out.bias"] = _f32(d["bias"])
 
 
+def _mstcn2(out, prefix, node, in_map):
+    idx = 0
+    if in_map:
+        d = node[f"TorchDense_{idx}"]["Dense_0"]
+        out[prefix + ".conv_1x1_in.weight"] = _conv1x1(d["kernel"])
+        out[prefix + ".conv_1x1_in.bias"] = _f32(d["bias"])
+        idx += 1
+    i = 0
+    while f"conv_dilated_1_{i}_kernel" in node:
+        for j in (1, 2):
+            out[f"{prefix}.conv_dilated_{j}.{i}.weight"] = _conv(node[f"conv_dilated_{j}_{i}_kernel"])
+            out[f"{prefix}.conv_dilated_{j}.{i}.bias"] = _f32(node[f"conv_dilated_{j}_{i}_bias"])
+        out[f"{prefix}.conv_fusion.{i}.weight"] = _conv1x1(node[f"fuse_{i}_kernel"])
+        out[f"{prefix}.conv_fusion.{i}.bias"] = _f32(node[f"fuse_{i}_bias"])
+        i += 1
+    d = node[f"TorchDense_{idx}"]["Dense_0"]
+    out[prefix + ".conv_out.weight"] = _conv1x1(d["kernel"])
+    out[prefix + ".conv_out.bias"] = _f32(d["bias"])
+
+
+_FBRANCH = {"m": _mstcn, "m2": _mstcn2}
+
+
 def _abranch(out, prefix, node, c):
     if c.a == "sa":
         for i in range(c.a_layers):
@@ -148,10 +171,10 @@ def export_fact_state_dict(params, block_cfgs) -> dict:
         raise ValueError("transcript mode is not ported")
     out = {"action_query": _f32(params["action_query"])[:, None, :]}  # (M, E) -> (M, 1, E)
     for idx, c in enumerate(block_cfgs):
-        if c.f != "m":
-            raise ValueError(f"frame branch {c.f!r} is not ported (only 'm')")
+        if c.f not in _FBRANCH:
+            raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
         p, blk = f"block_list.{idx}", params[f"block{idx}"]
-        _mstcn(out, p + ".frame_branch", blk["frame_branch"], in_map=c.kind == "i")
+        _FBRANCH[c.f](out, p + ".frame_branch", blk["frame_branch"], in_map=c.kind == "i")
         _abranch(out, p + ".action_branch", blk["action_branch"], c)
         if c.kind in ("u", "U"):
             _x2y(out, p + ".f2a_layer", blk["f2a_layer"])

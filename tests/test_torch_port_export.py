@@ -3,9 +3,11 @@
 ``fact_clip_tpu_torch/utils/torch_export.py`` is the port's copy of the JAX
 package's numpy-only exporter, so that the port imports nothing of the JAX
 package: it must give the same state_dict, key for key and value for value,
-for the small config and the flagship's block config.  A fresh interpreter
-that imports the port, builds a model and loads numpy parameters through the
-bridge must end with no ``jax`` and no ``fact_clip_tpu`` module loaded.
+for the small config, the flagship's block config and the small config
+with MS-TCN++ towers (``f: m2``).  A fresh interpreter that imports the
+port, builds a model and loads numpy parameters through the bridge, and
+builds and runs a narrowed Breakfast model, must end with no ``jax`` and no
+``fact_clip_tpu`` module loaded.
 ``build_fact`` without a device builds on the card, and without a card it
 raises instead of landing on the CPU.
 """
@@ -32,19 +34,23 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _flax_params(cfg, small: bool, D: int, C: int, seed: int = 0):
+def _flax_params(cfg, small: bool, D: int, C: int, seed: int = 0, f: str = "m"):
     """Seeded parameters in the flax layout (the port's init through the JAX
     package's importer) and the JAX block configs."""
     port = build_fact(cfg, D, C, 24, device="cpu", generator=torch.Generator().manual_seed(seed))
-    bcfgs = jblocks.resolve_block_cfgs(_make_cfg(small))
+    jcfg = _make_cfg(small)
+    jcfg.Bi.f = f
+    bcfgs = jblocks.resolve_block_cfgs(jcfg)
     return convert_fact_state_dict({k: v.numpy() for k, v in port.state_dict().items()},
                                    bcfgs), bcfgs
 
 
-@pytest.mark.parametrize("small", [True, False])
-def test_exporter_equals_the_jax_packages(small):
+@pytest.mark.parametrize("small,f", [(True, "m"), (False, "m"), (True, "m2")],
+                         ids=["True", "False", "m2"])
+def test_exporter_equals_the_jax_packages(small, f):
     cfg = small_cfg() if small else flagship_cfg()
-    params, bcfgs = _flax_params(cfg, small, 12 if small else 64, 5 if small else 10)
+    cfg["Bi"]["f"] = f
+    params, bcfgs = _flax_params(cfg, small, 12 if small else 64, 5 if small else 10, f=f)
     ref = jax_export(params, bcfgs)
     got = export_fact_state_dict(params, bcfgs)
     assert set(got) == set(ref)
@@ -57,15 +63,15 @@ def test_exporter_refuses_what_the_port_does_not_build():
     params, bcfgs = _flax_params(small_cfg(), True, 12, 5)
     with pytest.raises(ValueError):
         export_fact_state_dict({"fact": params, "frame_projection": {}}, bcfgs)
-    other = [dataclasses.replace(c, f="m2") for c in bcfgs]
-    with pytest.raises(ValueError):
+    other = [dataclasses.replace(c, f="cnn") for c in bcfgs]
+    with pytest.raises(ValueError, match="'cnn' is not ported"):
         export_fact_state_dict(params, other)
 
 
 _GUARD = """
 import pickle, sys
 import torch
-from fact_clip_tpu_torch.configs import small_cfg
+from fact_clip_tpu_torch.configs import breakfast_cfg, small_cfg
 from fact_clip_tpu_torch.models.blocks import build_fact
 from fact_clip_tpu_torch.utils.bridge import load_jax_params
 torch.set_num_threads(1)
@@ -73,6 +79,16 @@ params = pickle.load(open(sys.argv[1], "rb"))
 model = build_fact(small_cfg(), 12, 5, 24, device="cpu")
 load_jax_params(model, params)
 assert float(model.state_dict()["action_query"].abs().sum()) > 0
+cfg = breakfast_cfg()  # narrowed: MS-TCN++ towers, SCA and SA decoders, TDU
+cfg["FACT"]["ntoken"] = 6
+cfg["Bi"].update(hid_dim=16, a_dim=16, a_ffdim=16, a_nhead=2, a_layers=1, f_dim=16, f_layers=3)
+cfg["Bu"].update(a_nhead=2, f_layers=2)
+cfg["BU"].update(a_nhead=2, f_layers=2)
+bf = build_fact(cfg, 12, 5, 24, device="cpu")
+lens = torch.tensor([40, 29], dtype=torch.int32)
+with torch.no_grad():
+    saves, _ = bf(torch.randn(2, 40, 12), torch.arange(40)[None] < lens[:, None], lens)
+assert len(saves) == 4 and bool(torch.isfinite(saves[-1]["frame_clogit"]).all())
 bad = [m for m in sys.modules if m in ("jax", "flax") or m.split(".")[0] == "fact_clip_tpu"]
 assert not bad, bad
 print("GUARD_OK")
