@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
-serving, training, for the flagship and for Breakfast.
+serving, training, for the flagship and for Breakfast; serving for the
+Epic-Kitchens verb/noun model.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,21 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    dropout 0.2) at
    B=4, T=4096, C=O=512, 10 layers and at a ragged B=3, T=600 case whose
    d=512 taps fall outside the short videos, the K1 mask at K6's shape,
-   and K3 at E=512, H=8, M=60 (X=4096 and X=1100).
+   and K3 at E=512, H=8, M=60 (X=4096 and X=1100).  The epic rows: K7, the
+   composed argmax, the blend decode and the factored argmax, at epic's
+   shape (1 x 24,576 frames, 98 verbs x 301 nouns, 3,806 actions, M=300)
+   and at a ragged B=3 case (1000 / 777 / 129 frames, 13 / 29 / 97, M=7,
+   one video whose tokens all predict null), log-Dirichlet rows; their
+   outputs are integers, so each must equal its plain version on every
+   valid frame or differ only at a proven tie (the two picks' plain scores
+   within 2 ulp of the larger), and the factored argmax agrees with the
+   composed one on >= 0.999 of the frames (its ties break verb first).
+   Their "ties" cases round every log-prob to quarters (a tied maximum on
+   ~30 % of the frames): there every pick must equal the plain one, so
+   ties break to the first index as ``torch.argmax`` breaks them.
+   And the epic shapes of the kernels it shares: K6 at C=256, T=24,576
+   (serving form), K4 SA / FFN at M=300, K2 small-X over 256 segment keys
+   (f2a) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -62,8 +77,18 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    0).  Then the warm step of each path split per phase with peak memory,
    and, with channel and time masking off, the kernel path against the
    plain path as in phase 5.
-8. the JSON line of kernel results, the nvidia-smi line, and last the
-   contract line {"ok": true, "device": {...}}.
+8. epic serving: ``epic_cfg()`` (IUUU, D=1024, 3,806 composed actions,
+   M=300, ``s_pred_cap=256``) at full width with seeded weights, loaded
+   through a state_dict round trip, serves 6 requests of 1,500 to 24,576
+   frames through ``Predictor(batch_size=1, max_len=24576)``: action ids in
+   [0, 3806), and per batch exactly 4 composed argmaxes, 1 blend, 4 K6, 6
+   K2 small-X, 9 SA and 9 FFN launches and no other kernel.  Then the warm
+   eval step on 1 x 24,576 on both paths with peak memory, and the kernel
+   path against the plain path (block-0 frame log-probs, final
+   predictions, and the first TDU's composed argmax on the same inputs).
+9. the JSON line of kernel results (K7's launches from phase 8; the
+   factored argmax, a verification oracle, launches 0 there), the
+   nvidia-smi line, and last the contract line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -111,6 +136,15 @@ MASK_KERNELS = ("mstcn_dropout_mask", "mha_dropout_mask", "sa_dropout_masks",
 BF_ROWS = {"mstcn2_stack": ("serve", "mstcn2_stack"), "mha_cross_e512": ("serve", "mha_cross"),
            "mstcn2_stack_bwd": ("train", "mstcn2_stack_bwd"),
            "mha_cross_bwd_e512": ("train", "mha_cross_bwd")}
+EPIC_SERVE_LENGTHS = [24576, 20000, 15000, 9000, 4000, 1500]
+EPIC_T = 24576
+EPIC_DIMS = (1024, 256)  # D, s_pred_cap
+# every kernel an epic batch launches, and how often; every other counter stays 0
+EPIC_PER_BATCH = {"compose_argmax": 4, "compose_blend": 1, "mstcn2_stack": 4, "x2y_small_x": 6,
+                  "sa_sublayer": 9, "ffn_sublayer": 9}
+EPIC_ROWS = ("compose_argmax", "compose_blend", "factored_argmax")
+TIE_ULP = 2  # an argmax pick that differs from the plain one must score within 2 ulp of it
+MIN_FACTORED_AGREE = 0.999  # factored vs composed argmax (ties break verb first)
 
 
 def log(msg):
@@ -607,13 +641,178 @@ def mask_case(rng, kind, shape, rate=0.2):
     return kern, plain, (0, 4 + 4 * sum(int(np.prod(s)) for s in shapes))
 
 
+def argmax_check(items, valid, exact=False):
+    """K7's check: [(label, kernel ids, plain ids, score)] on the (B, T) valid
+    frames, where score(ids) is the plain version's value of those picks.
+    A pick that differs must be a proven tie: its score within TIE_ULP ulp
+    of the plain maximum's; with ``exact`` (inputs full of exact ties) no
+    pick may differ, so that ties break to the first index as in the plain
+    version.  Returns (text, ok, the worst score gap)."""
+    import torch
+
+    texts, ok, worst = [], True, 0.0
+    for label, k, p, score in items:
+        if k.shape != p.shape or k.dtype != torch.int32:
+            raise AssertionError(f"{label}: kernel ids {k.shape} {k.dtype}, plain {p.shape}")
+        diff = (k != p) & valid
+        n, nd = int(valid.sum()), int(diff.sum())
+        text = f"{label} agrees on {1 - nd / n:.6f} of {n} valid frames"
+        if nd:
+            sk, sp = score(k)[diff], score(p)[diff]
+            big = torch.maximum(sk.abs(), sp.abs())
+            ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+            gap = (sp - sk).abs()
+            ties = bool((gap <= TIE_ULP * ulp).all())
+            ok = ok and ties
+            worst = max(worst, float(gap.max()))
+            text += (f" ({nd} differ, worst gap {float(gap.max()):.3e} = "
+                     f"{float((gap / ulp).max()):.2f} ulp: {'ties' if ties else 'NOT ties'})")
+            ok = ok and not exact
+        texts.append(text + (" (exact)" if exact else ""))
+    return "; ".join(texts), ok, worst
+
+
+def _coarse(x):
+    """Rounded to quarters: rows full of exact ties."""
+    return np.round(x * 4.0) / 4.0
+
+
+def _vn_inputs(rng, B, T, vocab, coarse=False):
+    """Log-Dirichlet verb and noun rows (as the JAX package's ``_vn_fixture``),
+    with ``coarse`` rounded to quarters, and the (vids, nids) tables of
+    ``vocab`` = (n1, n2, n_act)."""
+    import torch
+
+    from fact_clip_tpu_torch.configs import epic_vocab
+
+    n1, n2, n_act = vocab
+    vids, nids = (torch.from_numpy(t).cuda() for t in epic_vocab(n1, n2, n_act))
+
+    def logp(n):
+        x = np.log(rng.dirichlet(np.ones(n), size=(B, T)))
+        return torch.from_numpy((_coarse(x) if coarse else x).astype(np.float32)).cuda()
+
+    return logp(n1), logp(n2), vids, nids
+
+
+def _valid_frames(lengths, T):
+    import torch
+
+    lens = _lens(lengths)
+    return torch.arange(T, device=lens.device)[None, :] < lens[:, None]
+
+
+def k7a_case(rng, B, T, vocab, lengths, coarse=False):
+    from fact_clip_tpu_torch.ops import compose_decode as k7
+    from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
+
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse)
+    valid = _valid_frames(lengths, T)
+    work = (2 * B * T * vocab[2], nbytes(lv, ln, vids, nids) + B * T * 4)
+
+    def judge(out, ref):
+        return argmax_check([("argmax", out, ref,
+                              lambda ids: composed_gather(lv, ln, vids, nids, ids))], valid,
+                            exact=coarse)
+
+    return (lambda: k7.compose_argmax(lv, ln, vids, nids),
+            lambda: k7.compose_argmax_reference(lv, ln, vids, nids), work, judge)
+
+
+def blend_items(lv, ln, vids, nids, q, act, weight, out, ref):
+    """``argmax_check`` items of K7b's (pred, fallback) against its plain
+    version's, scored by the plain blend and the plain composed log-prob."""
+    import torch
+
+    from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
+
+    bidx = torch.arange(act.shape[0], device=act.device)[:, None]
+
+    def fscore(ids):
+        return composed_gather(lv, ln, vids, nids, ids)
+
+    def bscore(ids):
+        qsel = q[bidx, act.long(), ids.long()]
+        return (1.0 - weight) * qsel + weight * torch.exp(fscore(ids))
+
+    return [("blend", out[0], ref[0], bscore), ("fallback", out[1], ref[1], fscore)]
+
+
+def k7b_case(rng, B, T, vocab, lengths, M, weight, all_null=None, coarse=False):
+    """The blend's inputs as ``composed_decode`` makes them from token
+    log-probs and a2f attention (``all_null``: a video whose tokens all
+    predict null, so that its decode takes the fallback; ``coarse``: every
+    log-prob rounded to quarters, and the picks must equal the plain ones)."""
+    import torch
+
+    from fact_clip_tpu_torch.models.decode import token_probs, votes
+    from fact_clip_tpu_torch.ops import compose_decode as k7
+
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse)
+    n_act = vocab[2]
+    alogp = np.log(rng.dirichlet(np.ones(n_act + 1), size=(B, M)))
+    alogp = (_coarse(alogp) if coarse else alogp).astype(np.float32)
+    if all_null is not None:
+        alogp[all_null, :, :-1] -= 50.0
+    alogp = torch.from_numpy(alogp).cuda()
+    attn = _rand(rng, (B, T, M))
+    _, act = votes(alogp, attn, torch.ones((B, M), dtype=torch.bool, device=alogp.device))
+    q, act = token_probs(alogp).contiguous(), act.to(torch.int32)
+    valid = _valid_frames(lengths, T)
+    work = (7 * B * T * n_act, nbytes(lv, ln, vids, nids, q, act) + 2 * B * T * 4)
+
+    def judge(out, ref):
+        return argmax_check(blend_items(lv, ln, vids, nids, q, act, weight, out, ref), valid,
+                            exact=coarse)
+
+    return (lambda: k7.compose_blend(lv, ln, vids, nids, q, act, weight),
+            lambda: k7.compose_blend_reference(lv, ln, vids, nids, q, act, weight), work, judge)
+
+
+def k7c_case(rng, B, T, vocab, lengths, coarse=False):
+    """The factored argmax against its plain version, and against the
+    composed argmax kernel (at least MIN_FACTORED_AGREE of the frames; with
+    ``coarse`` inputs the two break their many ties differently by design,
+    so each difference must be a proven tie, and the factored picks must
+    equal the plain factored ones)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import compose_decode as k7
+    from fact_clip_tpu_torch.ops.verbnoun_compose import build_factored_tables, composed_gather
+
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse)
+    n1, n2, n_act = vocab
+    mvn, at = (torch.from_numpy(t).cuda() for t in
+               build_factored_tables(vids.cpu().numpy(), nids.cpu().numpy(), n1, n2))
+    valid = _valid_frames(lengths, T)
+    work = (2 * B * T * n1 * (n2 + 1), nbytes(lv, ln, mvn, at) + B * T * 4)
+
+    def judge(out, ref):
+        def score(ids):
+            return composed_gather(lv, ln, vids, nids, ids)
+
+        composed = k7.compose_argmax(lv, ln, vids, nids)
+        text, ok, worst = argmax_check([("factored", out, ref, score)], valid, exact=coarse)
+        if coarse:
+            tie_text, tie_ok, _ = argmax_check([("vs composed", out, composed, score)], valid)
+            return f"{text}; {tie_text}", ok and tie_ok, worst
+        agree = float((out == composed)[valid].float().mean())
+        ok = ok and agree >= MIN_FACTORED_AGREE
+        return (f"{text}; agrees with the composed argmax kernel on {agree:.6f} "
+                f"(min {MIN_FACTORED_AGREE})"), ok, worst
+
+    return (lambda: k7.factored_argmax(lv, ln, mvn, at),
+            lambda: k7.factored_argmax_reference(lv, ln, mvn, at), work, judge)
+
+
 def kernel_table():
     """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
     fn, (flops, bytes)))]).  Every case is timed; the first is the flagship's
     (or Breakfast's) and gives the JSON row.
     check: "rel" (relative error), "probs" (also the probabilities' absolute
-    error) or "mask" (bit-equal; the keep rate pooled over MASK_SEEDS seeds
-    at the flagship shape)."""
+    error), "mask" (bit-equal; the keep rate pooled over MASK_SEEDS seeds
+    at the flagship shape) or "argmax" (integer picks: equal or proven ties,
+    the case's own ``judge``)."""
     import torch
 
     B, T, D = 8, 3072, 512
@@ -621,6 +820,8 @@ def kernel_table():
     tower = [2 ** i for i in range(10)]
     ragged_k1 = ([1, 64, 512], [1000, 777])
     bf_len, bf_rag = BF_TRAIN_LENGTHS, [600, 517, 90]  # Breakfast: 4 x 4096; d = 512 > 90
+    ET, epic_voc, rag_voc, vn_rag = EPIC_T, (98, 301, 3806), (13, 29, 97), [1000, 777, 129]
+    E = 256  # epic's a_dim: the token decoders' width (the stream is 512 wide)
     csrc = "fact_clip_tpu_torch/csrc/"
     pallas = "fact_clip_tpu/ops/pallas/"
     return [
@@ -633,7 +834,13 @@ def kernel_table():
          [("flagship", lambda r: x2y_fwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               zeros(1, T, D), _rand(r, (1, 40, 256)))),
           ("ragged", lambda r: x2y_fwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
-                                            _rand(r, (2, 1000, D)), _rand(r, (1, 37, D))))]),
+                                            _rand(r, (2, 1000, D)), _rand(r, (1, 37, D)))),
+          # epic: f2a, 300 tokens over <= 256 segments; a2f, 256 segments
+          # (per-video y_pos) over 300 tokens
+          ("epic_f2a", lambda r: x2y_fwd_case(r, False, 2, 300, 256, D, D, D, [256, 190],
+                                              _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
+          ("epic_a2f", lambda r: x2y_fwd_case(r, False, 2, 256, 300, D, D, D, [300, 300],
+                                              _rand(r, (2, 256, D)), _rand(r, (1, 300, E))))]),
         ("x2y_flash", csrc + "flash_attn.cu", pallas + "x2y_attn.py:159", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -652,12 +859,16 @@ def kernel_table():
          [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
           ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
           ("flag_drop", lambda r: sa_fwd_case(r, B, 40, 256, 8, 0.2)),
-          ("rag_drop", lambda r: sa_fwd_case(r, 3, 11, 256, 8, 0.2))]),
+          ("rag_drop", lambda r: sa_fwd_case(r, 3, 11, 256, 8, 0.2)),
+          ("epic", lambda r: sa_fwd_case(r, 1, 300, E, 8)),
+          ("epic_b3", lambda r: sa_fwd_case(r, 3, 300, E, 8))]),
         ("ffn_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "rel",
          [("flagship", lambda r: ffn_fwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_fwd_case(r, 3, 37, 256, 512)),
           ("flag_drop", lambda r: ffn_fwd_case(r, B, 40, 256, 512, 0.2)),
-          ("rag_drop", lambda r: ffn_fwd_case(r, 3, 11, 256, 512, 0.2))]),
+          ("rag_drop", lambda r: ffn_fwd_case(r, 3, 11, 256, 512, 0.2)),
+          ("epic", lambda r: ffn_fwd_case(r, 1, 300, E, 512)),
+          ("epic_b3", lambda r: ffn_fwd_case(r, 3, 300, E, 512))]),
         # the training path's masks and backwards, and K5
         ("mstcn_dropout_mask", csrc + "dropout.cu", pallas + "dilated_conv.py:97", "mask",
          [("flagship", lambda r: mask_case(r, "k1", (B, T, 256))),
@@ -711,7 +922,8 @@ def kernel_table():
          [("breakfast", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len)),
           ("ragged", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag)),
           ("train", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len, 0.2, True)),
-          ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True))]),
+          ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True)),
+          ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET]))]),
         ("mstcn2_stack_bwd", csrc + "mstcn2.cu", pallas + "dilated_conv.py:1268", "rel",
          [("breakfast", lambda r: k6_bwd_case(r, 4, 4096, D, D, 10, bf_len)),
           ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag))]),
@@ -727,6 +939,23 @@ def kernel_table():
                                                zeros(1, 4096, D))),
           ("ragged", lambda r: mha_bwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
                                             _rand(r, (1, 1100, D))))]),
+        # epic (the verb/noun model): K7
+        ("compose_argmax", csrc + "compose_decode.cu", pallas + "compose_decode.py:150", "argmax",
+         [("epic", lambda r: k7a_case(r, 1, ET, epic_voc, [ET])),
+          ("ragged", lambda r: k7a_case(r, 3, 1000, rag_voc, vn_rag)),
+          ("ties", lambda r: k7a_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
+        ("compose_blend", csrc + "compose_decode.cu", pallas + "compose_decode.py:247", "argmax",
+         [("epic", lambda r: k7b_case(r, 1, ET, epic_voc, [ET], 300, 0.1)),
+          ("ragged", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.5, all_null=1)),
+          ("w0", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.0, all_null=2)),
+          ("w1", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 1.0)),
+          ("ties", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.5, all_null=0,
+                                      coarse=True)),
+          ("ties_w0", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.0, coarse=True))]),
+        ("factored_argmax", csrc + "compose_decode.cu", pallas + "compose_decode.py:77", "argmax",
+         [("epic", lambda r: k7c_case(r, 1, ET, epic_voc, [ET])),
+          ("ragged", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag)),
+          ("ties", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
     ]
 
 
@@ -768,6 +997,9 @@ def phase_kernels(seed: int = 0):
                     text, ok = check_mask(name, make, rng, pooled=i == 0)
                     err_abs = 0.0 if ok else float("nan")
                     kern, plain, work = make(rng)
+                elif check == "argmax":
+                    kern, plain, work, judge = make(rng)
+                    text, ok, err_abs = judge(kern(), plain())
                 else:
                     kern, plain, work, *view = make(rng)
                     outs, refs = kern(), plain()
@@ -1272,6 +1504,164 @@ def phase_bf_training(seed: int = 0):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Epic-Kitchens serving (the verb/noun model)
+
+
+def phase_epic_serving(seed: int = 0):
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import epic_cfg, epic_vocab
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.models.verbnoun import build_verbnoun_fact
+
+    D, S_CAP = EPIC_DIMS
+    cfg = epic_cfg()
+    vids, nids = epic_vocab()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+
+    def build(s):
+        return build_verbnoun_fact(cfg, D, vids, nids, S_CAP, device=dev,
+                                   generator=torch.Generator(device="cpu").manual_seed(s))
+
+    src, model = build(seed), build(seed + 1)
+    model.load_state_dict(src.state_dict(), strict=True)  # the reference-key layout
+    for (k, a), b in zip(src.state_dict().items(), model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"state_dict round trip changed {k}")
+    del src
+    n_act = len(vids)
+    log(f"[epic] epic_cfg(): {sum(p.numel() for p in model.parameters())} parameters, "
+        f"{model.n_classes1} verbs x {model.n_classes2} nouns -> {n_act} actions, "
+        f"{model.ntoken} tokens, built and reloaded in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in EPIC_SERVE_LENGTHS]
+    pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=cfg["batch_size"],
+                     max_len=EPIC_T, device=dev)
+    pred.predict(feats[-1:])  # warm: the shortest request
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for n, o in zip(EPIC_SERVE_LENGTHS, outs):
+        if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= n_act:
+            raise AssertionError(f"bad prediction: shape {o.shape} dtype {o.dtype} "
+                                 f"range [{o.min()}, {o.max()}]")
+    n_batches = len(EPIC_SERVE_LENGTHS)  # batch size 1
+    log(f"[epic] predict: {len(feats)} requests, lengths {EPIC_SERVE_LENGTHS}, {dt:.3f} s, "
+        f"{n_batches} batches; distinct actions per request "
+        f"{[len(np.unique(o)) for o in outs]}; launch counts {counts}")
+    want = {k: EPIC_PER_BATCH.get(k, 0) * n_batches for k in counts}
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"epic serving launches: (got, want) {wrong}")
+    epic_eval_paths(model, cfg, rng, D)
+    return counts
+
+
+def epic_eval_paths(model, cfg, rng, D):
+    """The warm eval step on 1 x EPIC_T on the kernel and on the plain path,
+    with peak memory; then the two paths against each other: block-0 frame
+    log-probs, final predictions, and, kernel and plain on the same inputs
+    recorded from the kernel path, the first TDU's composed argmax and the
+    decode's blend (on every update block's saves, voted as
+    ``composed_decode`` votes; the eval step decodes the last one's) at the
+    model's weight and at 1.  At random weights all tokens predict one
+    action and the last block's frames nearly so: the final predictions take
+    one action per video, and their agreement says little.  The blend check
+    must see more than one action."""
+    import torch
+
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+    from fact_clip_tpu_torch.models import verbnoun
+    from fact_clip_tpu_torch.models.decode import token_probs, votes
+    from fact_clip_tpu_torch.ops import compose_decode as k7
+    from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
+
+    dev = torch.device("cuda")
+    T = EPIC_T
+    x = torch.from_numpy(rng.standard_normal((1, T, D)).astype(np.float32)).to(dev)
+    mask = torch.ones((1, T), dtype=torch.bool, device=dev)
+    lens = torch.full((1,), T, dtype=torch.int32, device=dev)
+    step = make_eval_step(model, cfg["FACT"]["mwt"])
+    preds = {}
+    for path in ("kernels", "plain"):
+        model.set_kernels(path == "kernels")
+        step(x, mask, lens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            preds[path] = step(x, mask, lens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[epic] eval step 1 x {T} warm ms, {path} path: median {_median(times):.3f} "
+            f"(all {', '.join(f'{t:.3f}' for t in times)}); peak device memory {peak:.3f} GiB")
+
+    first = {}
+    composed_argmax = verbnoun.composed_argmax
+
+    def record(lv, ln, *args, **kw):  # the first TDU's inputs
+        if not first:
+            first.update(lv=lv.clone(), ln=ln.clone())
+        return composed_argmax(lv, ln, *args, **kw)
+
+    with torch.inference_mode():
+        model.set_kernels(True)
+        verbnoun.composed_argmax = record
+        try:
+            saves_k, _ = model(x, mask, lens)
+        finally:
+            verbnoun.composed_argmax = composed_argmax
+        model.set_kernels(False)
+        saves_p, _ = model(x, mask, lens)
+        model.set_kernels(True)
+        lv, ln, vids, nids = first["lv"], first["ln"], model.vids, model.nids
+        picks = k7.compose_argmax(lv, ln, vids, nids)
+        tdu_text, tdu_ok, _ = argmax_check(
+            [("first TDU argmax", picks, k7.compose_argmax_reference(lv, ln, vids, nids),
+              lambda ids: composed_gather(lv, ln, vids, nids, ids))], mask)
+        tdu_text += (f" ({len(torch.unique(picks))} distinct actions; segments per block "
+                     f"{[int(s['tdu_seg_valid'].sum()) for s in saves_k]})")
+        lp_err = max(float((saves_k[0][k] - saves_p[0][k]).abs()[mask].max())
+                     for k in ("frame_vlogp", "frame_nlogp"))
+        blend_texts, blend_ok, distinct = [], True, {}
+        for i, s in enumerate(saves_k):
+            if s["kind"] != "U":  # the input block has no a2f attention
+                continue
+            ones = torch.ones(s["action_logp"].shape[:2], dtype=torch.bool, device=dev)
+            has_action, act = votes(s["action_logp"], s["a2f_attn"], ones)
+            q, act = token_probs(s["action_logp"]).contiguous(), act.to(torch.int32)
+            lv, ln = s["frame_vlogp"].contiguous(), s["frame_nlogp"].contiguous()
+            for w in (cfg["FACT"]["mwt"], 1.0):
+                out = k7.compose_blend(lv, ln, vids, nids, q, act, w)
+                text, ok, _ = argmax_check(
+                    blend_items(lv, ln, vids, nids, q, act, w, out,
+                                k7.compose_blend_reference(lv, ln, vids, nids, q, act, w)), mask)
+                distinct[f"block {i} w={w:g}"] = len(torch.unique(out[0][mask]))
+                blend_texts.append(f"block {i} (has_action {has_action.tolist()}, "
+                                   f"{len(torch.unique(act[mask]))} voting tokens) w={w:g}: {text}")
+                blend_ok = blend_ok and ok
+    agree = float((preds["kernels"] == preds["plain"])[mask].float().mean())
+    n_pred = len(torch.unique(preds["kernels"][mask]))
+    log(f"[epic] kernel vs plain path: block-0 frame verb / noun log-probs max_abs_err "
+        f"{lp_err:.3e} (tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid "
+        f"frames (min {MIN_AGREE}; {n_pred} distinct actions); {tdu_text}")
+    log(f"[epic] decode blend on each update block's saves: {'; '.join(blend_texts)}; "
+        f"distinct blend actions {distinct}")
+    if max(distinct.values()) <= 1:
+        raise AssertionError("epic: the decode blend check saw one action only")
+    if not (lp_err <= LOGIT_TOL and agree >= MIN_AGREE and tdu_ok and blend_ok):
+        raise AssertionError("epic: kernel path disagrees with the plain path")
+
+
 def main():
     import torch
 
@@ -1281,11 +1671,16 @@ def main():
     counts = phase_serving()
     train_counts = phase_training()
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}
+    epic_counts = phase_epic_serving()
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name in BF_ROWS:
             path, counter = BF_ROWS[name]
             r["launches"] = bf_counts[path][counter]
+        elif name in EPIC_ROWS:
+            r["launches"] = epic_counts[name]
+            if name == "factored_argmax":
+                r["oracle"] = True  # a verification oracle: no path launches it
         else:
             r["launches"] = counts[name] if name in SERVING_KERNELS else train_counts[name]
     kernels = [results[n] for n in results]

@@ -4,23 +4,26 @@ The JAX package ``fact_clip_tpu`` is the reference; this package mirrors its
 layout where that helps find a module's counterpart:
 
 configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
-                  breakfast_cfg, breakfast_train_cfg (no YAML)
-models/           layers, blocks (FACT), two-branch decode, matching, losses
+                  breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_vocab
+                  (no YAML)
+models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT,
+                  serving), the two-branch decodes, matching, losses
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
-                  and backwards; the shared dropout mask) beside their plain
-                  PyTorch versions; TDU segment operations; training masks;
-                  positional terms
-engine/           the eval and train steps, the serving Predictor, the
-                  optimizer and a minimal training loop
-utils/           the FACT exporter (its own copy) and the bridge: JAX
-                  parameters (numpy) -> this package's state_dict
+                  and backwards; the shared dropout mask; K7, the composed
+                  verb/noun argmaxes) beside their plain PyTorch versions;
+                  the lazy verb/noun composition; TDU segment operations;
+                  training masks; positional terms
+engine/           the eval and train steps, the serving Predictor (FACT and
+                  VerbNounFACT), the optimizer and a minimal training loop
+utils/           the FACT and verb/noun exporter (its own copy) and the
+                  bridge: JAX parameters (numpy) -> this package's state_dict
 csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 
 Everything runs in float32.  Importing this package imports neither JAX nor
 the JAX package and builds nothing.
 """
 
-from .ops import dilated_conv, frame_loss, mha_attn, sa_layer, x2y_attn
+from .ops import compose_decode, dilated_conv, frame_loss, mha_attn, sa_layer, x2y_attn
 
 # launch counters of the kernel wrappers, by kernel name
 _KERNELS = {
@@ -44,6 +47,9 @@ _KERNELS = {
     "frame_loss_bwd": frame_loss.frame_loss_bwd,
     "mstcn2_stack": dilated_conv.mstcn2_stack_fwd,
     "mstcn2_stack_bwd": dilated_conv.mstcn2_stack_bwd,
+    "compose_argmax": compose_decode.compose_argmax,
+    "compose_blend": compose_decode.compose_blend,
+    "factored_argmax": compose_decode.factored_argmax,
 }
 # the plain backward that the K2 dispatch runs on the card (per-batch pos), as JAX does
 _PLAIN = {"x2y_bwd_reference": x2y_attn.x2y_bwd_reference}

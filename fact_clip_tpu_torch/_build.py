@@ -73,6 +73,9 @@ SIGNATURES = {
     "fk_mstcn2_folded": [P] * 8 + [I] * 6 + [P],
     "fk_mstcn2_bwd_dc": [P] * 15 + [I, I, I, I, P],
     "fk_mstcn2_bwd_dx": [P] * 6 + [I] * 5 + [P],
+    "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],
+    "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
+    "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
 }
 
 

@@ -8,7 +8,9 @@ dict; ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
 ``small_cfg()`` its narrow test twin and ``train_cfg()`` the flagship as the
 port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
 breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
-is it as the port trains it.
+is it as the port trains it; ``epic_cfg()`` mirrors ``epic-kitchens.yaml``
+(the verb/noun model, ``IUUU``) and ``epic_vocab()`` draws its 3,806-action
+vocabulary.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -25,7 +27,7 @@ import dataclasses
 class BlockCfg:
     """Static per-block hyperparameters (one of Bi/Bu/BU after inheritance)."""
 
-    kind: str  # 'i' input block, 'u' update block, 'U' update block with TDU
+    kind: str  # 'i' input block, 'u' update block, 'U' update block with TDU, 'I' verb/noun input
     hid_dim: int
     dropout: float
     a: str
@@ -136,6 +138,42 @@ def breakfast_train_cfg() -> dict:
     return cfg
 
 
+def epic_cfg() -> dict:
+    """``fact_clip_tpu/configs/epic-kitchens.yaml`` over the defaults: the
+    verb/noun model ``IUUU`` (every block at predicted-segment granularity),
+    300 action tokens, sinusoid frame positions, a 6-layer SCA input decoder,
+    ``f: m2`` 10-layer towers 256 wide in a 512-wide stream, o2m matching,
+    batch size 1.  Every kernel is on; ``model.set_kernels(False)`` gives
+    its plain PyTorch path.  Build it with ``models.verbnoun.
+    build_verbnoun_fact(epic_cfg(), 1024, *epic_vocab(), 256)``."""
+    cfg = default_cfg()
+    cfg.update(dataset="epic", split="split1", sr=4, batch_size=1, optimizer="Adam", lr=1e-4,
+               lr_decay=600, momentum=0.0, weight_decay=0.0, clip_grad_norm=10.0)
+    cfg["FACT"].update(block="IUUU", ntoken=300, trans=False, fpos=True, cmr=0.3, mwt=0.1)
+    cfg["Bi"].update(hid_dim=512, dropout=0.0, a="sca", a_nhead=8, a_ffdim=512, a_layers=6,
+                     a_dim=256, f="m2", f_layers=10, f_ln=False, f_dim=256, f_ngp=1)
+    cfg["Bu"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10)
+    cfg["BU"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10, s_layers=1)
+    cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2m", bgw=0.5, nullw=0.05, sw=5.0)
+    cfg["TM"]["use"] = False
+    return cfg
+
+
+def epic_vocab(n1: int = 98, n2: int = 301, n_act: int = 3806, seed: int = 0) -> tuple:
+    """(vids, nids): the repository's epic-scale action vocabulary, ``n_act``
+    distinct (verb, noun) pairs drawn from ``default_rng(seed)`` and sorted
+    (the draw of ``scripts/bench_epic.py::epic_recipe``; the repo holds no
+    epic mapping files), as int32 action -> verb / noun ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    while len(pairs) < n_act:
+        pairs.add((int(rng.integers(0, n1)), int(rng.integers(0, n2))))
+    pairs = sorted(pairs)
+    return np.array([p[0] for p in pairs], np.int32), np.array([p[1] for p in pairs], np.int32)
+
+
 def _block(node: dict, kind: str, tpu: dict) -> BlockCfg:
     return BlockCfg(
         kind=kind, hid_dim=node["hid_dim"], dropout=float(node["dropout"]), a=node["a"],
@@ -158,7 +196,7 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
     base = cfg["Bi"]
     out = []
     for kind in cfg["FACT"]["block"]:
-        if kind == "i":
+        if kind in ("i", "I"):  # 'I': the verb/noun model's input block (blocks.py:131)
             node = cfg["Bi"]
         elif kind in ("u", "U"):
             node = cfg["Bu" if kind == "u" else "BU"]

@@ -31,7 +31,8 @@ def bucket_lengths(max_len: int, multiple: int = 128, growth: float = 1.26) -> l
 class Predictor:
     """``predict(feats_list)`` buckets the requests by length, pads each
     group to ``batch_size`` by repeating its last video, runs the eval step
-    and trims every prediction to its video's length."""
+    and trims every prediction to its video's length.  ``model`` is a FACT
+    (class ids) or a VerbNounFACT (composed action ids in [0, n_act))."""
 
     def __init__(self, model, mwt: float, batch_size: int = 8, max_len: int = 3072,
                  bucket_multiple: int = 128, bucket_growth: float = 1.26, device=None):

@@ -2,7 +2,8 @@
 
 Counterpart of the vanilla branch of ``fact_clip_tpu/engine/steps.py``:
 ``eval_step`` (:149-152) is the forward through every block and the
-two-branch decode; ``train_step_fn`` (:128-142) is the forward in train mode,
+two-branch decode (the composed one of the verb/noun model, :47-62);
+``train_step_fn`` (:128-142) is the forward in train mode,
 the host Hungarian match, all FACT losses, the backward, the optimizer update
 and the train-time decode of the pre-update forward.
 """
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from ..models import decode, losses, matching
+from ..models.verbnoun import VerbNounFACT
+from ..ops.verbnoun_compose import composed_decode
 from .state import build_optimizer
 
 
@@ -26,13 +29,27 @@ def _decode(saves, mwt: float):
                                     last["frame_clogit"], mwt, token_mask)
 
 
+def _decode_verbnoun(model, saves, mwt: float):
+    """The composed two-branch decode (JAX ``engine/steps.py:47-62``), every
+    token valid; K7's blend when the model's kernels are on."""
+    last = saves[-1]
+    token_mask = torch.ones(last["action_logp"].shape[:2], dtype=torch.bool,
+                            device=last["action_logp"].device)
+    return composed_decode(last["action_logp"], last["a2f_attn"], last["frame_vlogp"],
+                           last["frame_nlogp"], model.vids, model.nids, mwt, token_mask,
+                           kernel=model.kernels_enabled)
+
+
 def make_eval_step(model, mwt: float):
-    """eval_step(feats (B, T, D), mask (B, T) bool, lengths (B,)) -> (B, T) int64."""
+    """eval_step(feats (B, T, D), mask (B, T) bool, lengths (B,)) -> (B, T)
+    class ids (int64), or action ids in [0, n_act) (int32) for a
+    ``VerbNounFACT``."""
+    verbnoun = isinstance(model, VerbNounFACT)
 
     def eval_step(feats, mask, lengths):
         with torch.inference_mode():
             saves, _ = model(feats, mask, lengths)
-            return _decode(saves, mwt)
+            return _decode_verbnoun(model, saves, mwt) if verbnoun else _decode(saves, mwt)
 
     return eval_step
 
@@ -51,6 +68,9 @@ class TrainStep:
             raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
         if cfg["FACT"].get("trans"):
             raise ValueError("transcript mode is not ported")
+        if isinstance(model, VerbNounFACT):
+            raise NotImplementedError("the verb/noun model serves only: o2m matching and its "
+                                      "losses are not ported")
         cweight = np.asarray(cweight, np.float32)
         if cweight.shape != (nclasses + 1,):
             raise ValueError(f"cweight must be (nclasses + 1,) = ({nclasses + 1},)")

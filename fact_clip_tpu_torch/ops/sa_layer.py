@@ -119,6 +119,13 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def has_forward(M: int, E: int, num_heads: int) -> bool:
+    """The SA forward's block (GEMM staging, each warp's probability row and
+    one head's q, k and v rows) fits in shared memory."""
+    hd = E // num_heads
+    return _build.GEMM_SMEM + 4 * (8 * M + 3 * M * (hd + 1)) <= _build.MAX_SMEM
+
+
 def sa_sublayer_fwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
                     num_heads: int, eps: float = LN_EPS, rate_attn: float = 0.0,
                     rate: float = 0.0, seed=None):
@@ -133,6 +140,8 @@ def sa_sublayer_fwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *
         return sa_sublayer_reference(x, pos, *weights, num_heads=num_heads, eps=eps,
                                      keep_attn=keep_attn, keep_out=keep_out)
     pos_t, Pp = _check_sa("sa_sublayer_fwd", x, pos, *weights, num_heads)
+    if not has_forward(M, E, num_heads):
+        raise NotImplementedError(f"sa_sublayer_fwd: no forward kernel for M={M}, E={E}")
     scratch = torch.empty((B, 4, M, E), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
     err = _build.lib().fk_sa_sublayer(

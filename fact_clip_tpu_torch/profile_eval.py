@@ -1,22 +1,25 @@
 """Where the time of an eval step (or train step) goes on the card.
 
-    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|breakfast] [--train]
+    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|breakfast|epic] [--train]
                                                 [--steps N] [--trace DIR]
 
 Builds the flagship FACT model (iuUU, D=2048, C=75, M=40), or with
 ``--cfg breakfast`` the Breakfast model (``breakfast_cfg()``: MS-TCN++
-towers, every width 512, D=2048, 48 classes, M=60), with seeded random
-weights and times one eval step of 8 videos padded to 3072 frames
-(Breakfast: 4096), on the kernel path and on the plain PyTorch path: wall
-time (host clock around a synchronised step), device busy time per step
-(the sum of the CUDA kernels' own times under ``torch.profiler``), the idle
-share 1 - busy / wall, the device launches per step, and the kernels that
-take the most time.  With
-``--train`` the step is the train step of ``train_cfg()`` (every kernel on,
+towers, every width 512, D=2048, 48 classes, M=60), or with ``--cfg epic``
+the verb/noun model (``epic_cfg()``: IUUU, D=1024, 98 verbs x 301 nouns,
+3,806 actions, M=300, ``s_pred_cap`` 256), with seeded random weights and
+times one eval step of 8 videos padded to 3072 frames (Breakfast: 4096;
+epic: one video of 24,576), on the kernel path and on the plain PyTorch
+path: wall time (host clock around a synchronised step), device busy time
+per step (the sum of the CUDA kernels' own times under ``torch.profiler``),
+the idle share 1 - busy / wall, the device launches per step, the peak
+device memory, and the kernels that take the most time.  With ``--train``
+the step is the train step of ``train_cfg()`` (every kernel on,
 dropout 0.2, channel masking 0.3, Adam) on a seeded batch of 8 x 3072 with
 piecewise-constant labels, or of ``breakfast_train_cfg()`` (dropout 0,
 channel masking 0.3, time masking, nullw resolved from the batch) on 4 x
-4096.  Needs a CUDA card; f32 with TF32 off.
+4096 (the verb/noun model serves only).  Needs a CUDA card; f32 with TF32
+off.
 """
 
 from __future__ import annotations
@@ -30,18 +33,28 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import breakfast_cfg, breakfast_train_cfg, flagship_cfg, train_cfg
+from .configs import breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_vocab, flagship_cfg
+from .configs import train_cfg
 from .engine.steps import make_eval_step, make_train_step
 from .engine.train_loop import batch_to_device, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
 from .models.losses import build_class_weights, compute_null_weight
+from .models.verbnoun import build_verbnoun_fact
 
-# (eval config, train config, D, classes, s_pred_cap, padded T, the eval videos' lengths)
+
+def _build_epic(cfg, D, C, s_pred_cap, **kw):
+    """``build_fact``'s signature; the vocabulary is ``epic_vocab()``'s."""
+    return build_verbnoun_fact(cfg, D, *epic_vocab(), s_pred_cap, **kw)
+
+
+# (eval config, train config, D, classes, s_pred_cap, padded T, the eval videos' lengths,
+#  the model builder)
 SETUPS = {
     "flagship": (flagship_cfg, train_cfg, 2048, 75, 128, 3072,
-                 [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]),
+                 [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400], build_fact),
     "breakfast": (breakfast_cfg, breakfast_train_cfg, 2048, 48, 64, 4096,
-                  [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100]),
+                  [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100], build_fact),
+    "epic": (epic_cfg, None, 1024, 3806, 256, 24576, [24576], _build_epic),
 }
 TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "breakfast": [4096, 3600, 2500, 1400]}
 
@@ -70,21 +83,21 @@ def device_kernels(step, args, n):
 def train_step_args(name, dev):
     """(model, step, args) of the train step of ``name`` on a seeded batch;
     a config's ``nullw = -1`` is resolved from that batch."""
-    _, make_train_cfg, D, C, S_CAP, T, _ = SETUPS[name]
+    _, make_train_cfg, D, C, S_CAP, T, _, build = SETUPS[name]
     batch = synthetic_batch(np.random.default_rng(0), D, C, 32, T, TRAIN_LENGTHS[name])
     cfg = make_train_cfg()
     if cfg["Loss"]["nullw"] < 0:
         cfg = compute_null_weight(cfg, synthetic_set_stats([batch], C))
-    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
+    model = build(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
     step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
     return model, step, (batch_to_device(batch, dev), torch.Generator(device=dev).manual_seed(0))
 
 
 def eval_step_args(name, dev):
     """(model, step, args) of the eval step of ``name`` on seeded features."""
-    make_cfg, _, D, C, S_CAP, T, lengths = SETUPS[name]
+    make_cfg, _, D, C, S_CAP, T, lengths, build = SETUPS[name]
     cfg = make_cfg()
-    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
+    model = build(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
     lens = np.array(lengths, np.int32)
     mask = np.arange(T)[None] < lens[:, None]
     x = np.random.default_rng(0).standard_normal((len(lens), T, D)).astype(np.float32)
@@ -103,6 +116,8 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA card")
+    if a.train and SETUPS[a.cfg][1] is None:
+        raise SystemExit(f"--cfg {a.cfg} serves only: no train step")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -113,6 +128,7 @@ def main():
     for kernels in (True, False):
         model.set_kernels(kernels)
         wall_ms(step, args, 3)  # warm: build, load, caches
+        torch.cuda.reset_peak_memory_stats()
         wall = wall_ms(step, args, a.steps)
         med = wall[len(wall) // 2]
         prof, ks = device_kernels(step, args, 3)
@@ -121,14 +137,14 @@ def main():
         path = "kernel path" if kernels else "plain path"
         print(f"[{path}] wall ms median {med:.3f} (all {', '.join(f'{t:.3f}' for t in wall)}); "
               f"device busy ms per step {busy:.3f}; idle share {1 - busy / med:.3f}; "
-              f"device launches per step {launches:.0f}")
+              f"device launches per step {launches:.0f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         for name, (ms, cnt) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:a.top]:
             print(f"  {ms:8.3f} ms x {cnt:5.1f}  {name[:100]}")
         if a.trace:
             os.makedirs(a.trace, exist_ok=True)
             name = "kernels" if kernels else "plain"
             prof.export_chrome_trace(os.path.join(a.trace, f"{a.cfg}_{kind}_{name}.json"))
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
 if __name__ == "__main__":

@@ -13,19 +13,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .torch_export import export_fact_state_dict
+from ..models.verbnoun import VerbNounFACT
+from .torch_export import export_fact_state_dict, export_verbnoun_state_dict
 
 
-def state_dict_from_jax(params, block_cfgs) -> dict:
-    """params: the flax ``variables["params"]`` tree of FACT (numpy or jax
-    arrays); block_cfgs: the port's (or the JAX package's) BlockCfg tuple."""
+def state_dict_from_jax(params, block_cfgs, verbnoun: bool = False) -> dict:
+    """params: the flax ``variables["params"]`` tree of FACT, or of
+    VerbNounFACT with ``verbnoun`` (numpy or jax arrays); block_cfgs: the
+    port's (or the JAX package's) BlockCfg tuple."""
+    export = export_verbnoun_state_dict if verbnoun else export_fact_state_dict
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in export_fact_state_dict(params, block_cfgs).items()}
+            for k, v in export(params, block_cfgs).items()}
 
 
 def load_jax_params(model, params) -> None:
-    """Load JAX FACT parameters into a port FACT model, strictly."""
-    model.load_state_dict(state_dict_from_jax(params, model.block_cfgs), strict=True)
+    """Load JAX FACT (or VerbNounFACT) parameters into the port's model of
+    the same kind, strictly."""
+    verbnoun = isinstance(model, VerbNounFACT)
+    model.load_state_dict(state_dict_from_jax(params, model.block_cfgs, verbnoun), strict=True)
 
 
 def grads_from_jax(grads, block_cfgs) -> dict:

@@ -1,12 +1,13 @@
-"""A flax FACT parameter tree -> the reference torch ``state_dict`` (numpy).
+"""A flax FACT or VerbNounFACT parameter tree -> the reference torch
+``state_dict`` (numpy).
 
-The port's own copy of the FACT part of
-``fact_clip_tpu/utils/torch_export.py::export_fact_state_dict`` (numpy only),
-so that the port imports nothing of the JAX package.  It covers what the
-port builds: MSTCN and MS-TCN++ frame towers (``f: m``, ``f: m2``), SA and
-SCA action decoders, the X2Y maps and the TDU block's BiGRU and dense layers;
-transcript mode, FACT_CLIP's projection and the verb/noun model are not
-ported yet and raise.  A test holds it equal to the JAX package's exporter
+The port's own copy of ``fact_clip_tpu/utils/torch_export.py::
+export_fact_state_dict`` (the FACT part) and ``::export_verbnoun_state_dict``
+(numpy only), so that the port imports nothing of the JAX package.  It
+covers what the port builds: MSTCN and MS-TCN++ frame towers (``f: m``,
+``f: m2``), SA and SCA action decoders, the X2Y maps and the TDU blocks'
+BiGRU and dense layers; transcript mode and FACT_CLIP's projection are not
+ported yet and raise.  Tests hold it equal to the JAX package's exporter
 key for key and value for value.
 
 Layouts (flax -> torch):
@@ -185,6 +186,31 @@ def export_fact_state_dict(params, block_cfgs) -> dict:
             _dense(out, p + ".sf_merge.0", blk["sf_merge"])
         elif c.kind not in ("i", "u"):
             raise ValueError(f"unexpected block kind {c.kind!r} in FACT export")
+    return out
+
+
+def export_verbnoun_state_dict(params, block_cfgs) -> dict:
+    """The flax VerbNounFACT tree (``models/verbnoun.py``) -> {reference
+    ``blocks_SepVerbNoun.py`` state_dict key: float32 numpy array}."""
+    params = _as_plain_dict(params)
+    if "action_query" not in params:
+        raise ValueError("transcript mode is not ported")
+    out = {"action_query": _f32(params["action_query"])[:, None, :]}
+    for idx, c in enumerate(block_cfgs):
+        if c.kind not in ("I", "U"):
+            raise ValueError(f"unexpected block kind {c.kind!r} in verbnoun export")
+        if c.f not in _FBRANCH:
+            raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
+        p, blk = f"block_list.{idx}", params[f"block{idx}"]
+        _FBRANCH[c.f](out, p + ".frame_branch", blk["frame_branch"], in_map=c.kind == "I")
+        _abranch(out, p + ".action_branch", blk["action_branch"], c)
+        if c.kind == "U":
+            _x2y(out, p + ".f2a_layer", blk["f2a_layer"])
+            _x2y(out, p + ".a2f_layer", blk["a2f_layer"])
+        _gru(out, p + ".seg_update", blk["tdu"]["seg_update"])
+        _dense(out, p + ".seg_combine", blk["tdu"]["seg_combine"])
+        if c.kind == "U":
+            _dense(out, p + ".sf_merge.0", blk["sf_merge"])
     return out
 
 

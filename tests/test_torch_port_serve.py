@@ -75,6 +75,17 @@ model = build_fact(small_cfg(), 12, 5, 24, device="cpu")
 out = Predictor(model, 0.1, batch_size=2, max_len=64).predict(
     [np.ones((40, 12), np.float32), np.zeros((9, 12), np.float32)])
 assert [o.shape for o in out] == [(40,), (9,)]
+# the verb/noun model, narrowed, with its K7 entries
+from fact_clip_tpu_torch.configs import epic_cfg, epic_vocab
+from fact_clip_tpu_torch.models.verbnoun import build_verbnoun_fact
+cfg = epic_cfg()
+cfg["FACT"]["ntoken"] = 6
+cfg["Bi"].update(hid_dim=64, a_dim=16, a_ffdim=16, a_nhead=2, a_layers=1, f_dim=16, f_layers=3)
+cfg["Bu"].update(a_nhead=2, f_layers=2)
+cfg["BU"].update(a_nhead=2, f_layers=2)
+vn = build_verbnoun_fact(cfg, 12, *epic_vocab(13, 29, 97), 16, 13, 29, device="cpu")
+out = Predictor(vn, 0.1, batch_size=1, max_len=64).predict([np.ones((40, 12), np.float32)])
+assert out[0].shape == (40,) and 0 <= out[0].min() and out[0].max() < 97
 assert not [m for m in sys.modules if m.startswith("fact_clip_tpu.") or m == "fact_clip_tpu"]
 print("GUARD_OK")
 """
