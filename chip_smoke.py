@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
-serving, training, for the flagship and for Breakfast; serving for the
+serving, training, for the flagship, for Breakfast and for the
 Epic-Kitchens verb/noun model.
 
     python3 chip_smoke.py
@@ -42,8 +42,11 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    ~30 % of the frames): there every pick must equal the plain one, so
    ties break to the first index as ``torch.argmax`` breaks them.
    And the epic shapes of the kernels it shares: K6 at C=256, T=24,576
-   (serving form), K4 SA / FFN at M=300, K2 small-X over 256 segment keys
-   (f2a) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
+   (serving form, training form and backward, dropout 0), K4 SA / FFN
+   forwards and backwards at M=300 (the SA backward's tiled blocks also at
+   M=200, the ragged B=3, M=11 and the flagship shape, each with and
+   without dropout), K2 small-X over 256 segment keys (f2a, forward and
+   backward) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -86,7 +89,17 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    eval step on 1 x 24,576 on both paths with peak memory, and the kernel
    path against the plain path (block-0 frame log-probs, final
    predictions, and the first TDU's composed argmax on the same inputs).
-9. the JSON line of kernel results (K7's launches from phase 8; the
+9. epic training: ``epic_train_cfg()`` (every kernel on, o2m matching, the
+   verb/noun losses, dropout 0, channel masking 0.3) at full width takes
+   1 + 5 Adam steps through ``run_steps`` on three single-video batches of
+   24,576, 20,000 and 9,000 frames padded to 24,576 (``epic_batch``:
+   40 segments over a pool of 12 actions); every loss finite and, in each
+   step, exactly EPIC_PER_STEP launches and every other counter 0.  Then
+   the warm step of each path split per phase with peak memory, and, with
+   channel masking off, ``train_compare`` on one shared o2m matching and
+   one shared TDU segmentation (the plain path's four composed argmaxes,
+   replayed in every other run).
+10. the JSON line of kernel results (K7's launches from phase 8; the
    factored argmax, a verification oracle, launches 0 there), the
    nvidia-smi line, and last the contract line {"ok": true, "device": {...}}.
 
@@ -143,6 +156,15 @@ EPIC_DIMS = (1024, 256)  # D, s_pred_cap
 EPIC_PER_BATCH = {"compose_argmax": 4, "compose_blend": 1, "mstcn2_stack": 4, "x2y_small_x": 6,
                   "sa_sublayer": 9, "ffn_sublayer": 9}
 EPIC_ROWS = ("compose_argmax", "compose_blend", "factored_argmax")
+EPIC_TRAIN_LENGTHS = [24576, 20000, 9000]
+# every kernel an epic train step launches, and how often; every other counter stays 0.
+# Both K2 backwards of each U block take the kernel: at batch 1 the a2f's
+# per-video y_pos (the segment centres, (1, S, P)) is one shared table, and the
+# dispatch (JAX's too, x2y_attn.py:521) tests y_pos.shape[0] == 1
+EPIC_PER_STEP = {"compose_argmax": 4, "compose_blend": 1, "mstcn2_stack": 4,
+                 "mstcn2_stack_bwd": 4, "x2y_small_x": 6, "x2y_small_x_bwd": 6,
+                 "sa_sublayer": 9, "sa_sublayer_bwd": 9, "ffn_sublayer": 9,
+                 "ffn_sublayer_bwd": 9}
 TIE_ULP = 2  # an argmax pick that differs from the plain one must score within 2 ulp of it
 MIN_FACTORED_AGREE = 0.999  # factored vs composed argmax (ties break verb first)
 
@@ -416,7 +438,7 @@ def k6_bwd_case(rng, B, T, C, O, L, lengths, rate=0.2):
     N = _valid(lens, T)
     params = (layers, kw["out_w"], kw["out_b"])
     work = (L * 32 * N * C * C + 4 * N * C * O,
-            nbytes(g, streams, cs, hs, lens, params, kw["seeds"]) + nbytes(x, params))
+            nbytes(g, streams, cs, hs, lens, params, kw.get("seeds")) + nbytes(x, params))
     return (lambda: dc.mstcn2_stack_bwd(g, streams, cs, hs, lens, layers, dil, **kw),
             lambda: dc.mstcn2_stack_bwd_reference(g, streams, cs, hs, lens, layers, dil, **kw),
             work)
@@ -891,6 +913,12 @@ def kernel_table():
                                               zeros(1, T, D), _rand(r, (1, 40, 256)))),
           ("tdu", lambda r: x2y_bwd_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
                                          _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
+          # epic at batch 1: f2a, 300 tokens over 256 segments; a2f, 256
+          # segments (y_pos the one video's segment centres) over 300 tokens
+          ("epic_f2a", lambda r: x2y_bwd_case(r, False, 1, 300, 256, D, D, D, [256],
+                                              _rand(r, (1, 300, E)), _rand(r, (1, 256, D)))),
+          ("epic_a2f", lambda r: x2y_bwd_case(r, False, 1, 256, 300, D, D, D, [300],
+                                              _rand(r, (1, 256, D)), _rand(r, (1, 300, E)))),
           ("ragged", lambda r: x2y_bwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
                                             _rand(r, (1, 1000, D)), _rand(r, (2, 37, D))))]),
         ("x2y_flash_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "rel",
@@ -905,10 +933,17 @@ def kernel_table():
                                             _rand(r, (1, 1100, D))))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
          [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
-          ("ragged", lambda r: sa_bwd_case(r, 3, 11, 256, 8))]),
+          ("flag_nodrop", lambda r: sa_bwd_case(r, B, 40, 256, 8, 0.0)),
+          ("ragged", lambda r: sa_bwd_case(r, 3, 11, 256, 8)),
+          ("rag_nodrop", lambda r: sa_bwd_case(r, 3, 11, 256, 8, 0.0)),
+          ("epic", lambda r: sa_bwd_case(r, 1, 300, E, 8, 0.0)),
+          ("epic_drop", lambda r: sa_bwd_case(r, 1, 300, E, 8)),
+          ("m200", lambda r: sa_bwd_case(r, 2, 200, E, 8, 0.0)),
+          ("m200_drop", lambda r: sa_bwd_case(r, 2, 200, E, 8))]),
         ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
          [("flagship", lambda r: ffn_bwd_case(r, B, 40, 256, 512)),
-          ("ragged", lambda r: ffn_bwd_case(r, 3, 11, 256, 512))]),
+          ("ragged", lambda r: ffn_bwd_case(r, 3, 11, 256, 512)),
+          ("epic", lambda r: ffn_bwd_case(r, 1, 300, E, 512, 0.0))]),
         ("frame_loss_fwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:185", "rel",
          [("flagship", lambda r: frame_loss_case(r, False, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, False, B, T, 40, FLAGSHIP_LENGTHS, False)),
@@ -923,10 +958,12 @@ def kernel_table():
           ("ragged", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag)),
           ("train", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len, 0.2, True)),
           ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True)),
-          ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET]))]),
+          ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET])),
+          ("epic_train", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET], 0.0, True))]),
         ("mstcn2_stack_bwd", csrc + "mstcn2.cu", pallas + "dilated_conv.py:1268", "rel",
          [("breakfast", lambda r: k6_bwd_case(r, 4, 4096, D, D, 10, bf_len)),
-          ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag))]),
+          ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag)),
+          ("epic", lambda r: k6_bwd_case(r, 1, ET, 256, D, 10, [ET], 0.0))]),
         ("mha_cross_e512", csrc + "flash_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("breakfast", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                                zeros(1, 4096, D))),
@@ -1248,7 +1285,9 @@ def phase_training(seed: int = 0):
     del model, step
     cfg0 = train_cfg()
     cfg0["Bi"]["dropout"], cfg0["FACT"]["cmr"] = 0.0, 0.0
-    train_compare("train", cfg0, (D, C, S_CAP), cweight, batches[0], gen, COMPARE_SEEDS)
+    train_compare("train", cfg0, lambda s: build_fact(cfg0, D, C, S_CAP, device=dev,
+                                                   generator=torch.Generator().manual_seed(s)),
+                  C, cweight, batches[0], gen, COMPARE_SEEDS)
     return counts
 
 
@@ -1281,26 +1320,108 @@ def _grad_errors(names, ga, gb, top):
 
 def _own_matching(cfg0, saves, batch):
     """A path's own matching from its forward's saves, as the train step
-    makes it, with the cost matrix it was made from."""
+    makes it (o2o, or o2m on the verb/noun model's exp(action_logp)), with
+    the cost matrix it was made from."""
     import torch
 
     from fact_clip_tpu_torch.models import matching
 
     last = saves[-1]
-    cost = matching.match_cost(torch.softmax(last["action_clogit"], dim=-1), last["a2f_attn"],
-                               batch["transcript"], batch["seg_label"], batch["seg_mask"],
-                               batch["mask"], float(cfg0["Loss"]["pc"]),
+    cprob = (torch.exp(last["action_logp"]) if "action_logp" in last
+             else torch.softmax(last["action_clogit"], dim=-1))
+    cost = matching.match_cost(cprob, last["a2f_attn"], batch["transcript"], batch["seg_label"],
+                               batch["seg_mask"], batch["mask"], float(cfg0["Loss"]["pc"]),
                                float(cfg0["Loss"]["a2fc"]))
     nsegs = batch["seg_mask"].sum(dim=1)
-    s2t = matching.hungarian_host(cost.float().cpu().numpy(), nsegs.cpu().numpy())
+    host, ns = cost.float().cpu().numpy(), nsegs.cpu().numpy()
+    s2t = (matching.o2m_host(host, batch["transcript"].to(torch.int32).cpu().numpy(), ns)
+           if cfg0["Loss"]["match"] == "o2m" else matching.hungarian_host(host, ns))
     return torch.from_numpy(s2t).to(device=cost.device, dtype=torch.int64), cost, nsegs
+
+
+def _pick_ties(own, shared, lv, ln, slv, sln, vids, nids, valid):
+    """(frames, frames that differ, of those the ones not proven ties) of a
+    run's own composed argmax ``own`` of (lv, ln) against ``shared``, the
+    recorded run's argmax of (slv, sln).  If both are argmaxes of their own
+    inputs, own's score under (lv, ln) is at least shared's and exceeds it
+    by at most the two picks' score moves between the runs: a tie that the
+    paths' rounding can flip.  Both sides get TIE_ULP ulp, as in
+    ``argmax_check``."""
+    import torch
+
+    from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
+
+    diff = (own != shared) & valid
+    if not bool(diff.any()):
+        return int(valid.sum()), 0, 0
+    score = lambda a, b, ids: composed_gather(a, b, vids, nids, ids)[diff]  # noqa: E731
+    ko, ks = score(lv, ln, own), score(lv, ln, shared)
+    move = (ko - score(slv, sln, own)).abs() + (ks - score(slv, sln, shared)).abs()
+    big = torch.maximum(ko.abs(), ks.abs())
+    slack = TIE_ULP * (torch.nextafter(big, torch.full_like(big, math.inf)) - big)
+    bad = (ks - ko > slack) | (ko - ks > move + slack)
+    return int(valid.sum()), int(diff.sum()), int(bad.sum())
+
+
+class SharedSegmentation:
+    """One TDU segmentation for every run of a verb/noun model: the first
+    run's composed argmaxes (the plain path's) are recorded with their
+    inputs, and every later run takes them in place of its own, by patching
+    ``models.verbnoun.composed_argmax`` (the model gets no knob for this).
+    A flipped pick at a near-tie moves a segment boundary, which would
+    swamp a 1e-3 gradient check.  Each later run's own picks still run (the
+    kernel path's launch K7a) and are held against the recorded ones on the
+    ``valid`` frames: each that differs must be a proven tie
+    (``_pick_ties``)."""
+
+    def __init__(self, valid):
+        self.valid, self.recorded, self.differ = valid, [], {}
+
+    def run(self, path):
+        import contextlib
+
+        from fact_clip_tpu_torch.models import verbnoun
+
+        @contextlib.contextmanager
+        def patched():
+            orig = verbnoun.composed_argmax
+            replay = iter(list(self.recorded)) if self.recorded else None
+
+            def argmax(lv, ln, vids, nids, **kw):
+                own = orig(lv, ln, vids, nids, **kw)
+                if replay is None:
+                    self.recorded.append((own, lv.detach().clone(), ln.detach().clone()))
+                    return own
+                shared, slv, sln = next(replay)
+                counts = _pick_ties(own, shared, lv.detach(), ln.detach(), slv, sln, vids, nids,
+                                    self.valid)
+                self.differ[path] = [a + b for a, b in zip(self.differ.get(path, (0, 0, 0)),
+                                                           counts)]
+                return shared
+
+            verbnoun.composed_argmax = argmax
+            try:
+                yield
+            finally:
+                verbnoun.composed_argmax = orig
+
+        return patched()
+
+    def ok(self):
+        return all(bad == 0 for _, _, bad in self.differ.values())
+
+    def text(self):
+        return ", ".join(f"{p} {n / f:.6f} of {f} ({bad} not proven ties)"
+                         for p, (f, n, bad) in self.differ.items())
 
 
 def _matching_gaps(sk, sp, ck, cp, nsegs):
     """[(video, gap, limit)] for each video whose two matchings differ.  gap =
     the kernel path's cost of the plain matching less that of its own.  If
     both are optimal for cost matrices that differ by at most delta, then
-    gap <= 2 S delta (S segments): a tie that rounding can flip."""
+    0 <= gap <= 2 S delta (S segments): a tie that rounding can flip.  A
+    video is a tie when |gap| is within that limit (a negative gap past it:
+    the own matching is not optimal for its own cost)."""
     import torch
 
     out = []
@@ -1316,14 +1437,20 @@ def _matching_gaps(sk, sp, ck, cp, nsegs):
     return out
 
 
-def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
+def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
     """One train loss and every gradient of the kernel path against the plain
-    path on the same batch, for freshly built weights of each of ``seeds``
-    (``cfg0`` has dropout and masking off).
+    path on the same batch, for the weights ``build(seed)`` makes for each
+    of ``seeds`` (``cfg0`` has dropout and masking off).
 
     Every path trains on the plain path's matching.  The kernel path's own
     matching must equal it, or differ only in videos where the two are a
-    tie within the two paths' cost difference (``_matching_gaps``).
+    tie within the two paths' cost difference (``_matching_gaps``).  Under
+    o2o that holds of any two optimal matchings; under o2m it holds when
+    the two first stages (the tokens' classes) agree, since each segment
+    then takes the cheapest token of the same set under either cost, and a
+    first stage flipped at a near-tie fails the check.  A verb/noun model
+    also shares the plain path's TDU segmentation (``SharedSegmentation``),
+    and each other run's own picks that differ must be proven ties.
 
     A ReLU input within rounding of 0 can fall on either side in the two
     paths; its flip moves one row of a weight gradient by ~1e-6 of the
@@ -1332,20 +1459,21 @@ def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
     (its own floor), and the element-wise check is held to the larger of
     GRAD_TOL and FLOOR_K times the larger floor; the norm check, which one
     flipped row barely moves, is held to GRAD_TOL."""
+    import contextlib
+
     import torch
 
     from fact_clip_tpu_torch.engine.steps import make_train_step
     from fact_clip_tpu_torch.engine.train_loop import batch_to_device
-    from fact_clip_tpu_torch.models.blocks import build_fact
 
-    D, C, S_CAP = dims
     dev = torch.device("cuda")
     batch = batch_to_device(arrays, dev)
+    o2m = cfg0["Loss"]["match"] == "o2m"
     failed = []
     for seed in seeds:
-        ref = build_fact(cfg0, D, C, S_CAP, device=dev,
-                         generator=torch.Generator(device="cpu").manual_seed(seed))
-        step0 = make_train_step(ref, cfg0, C, cweight)
+        ref = build(seed)
+        step0 = make_train_step(ref, cfg0, nclasses, cweight)
+        seg = SharedSegmentation(batch["mask"]) if step0.verbnoun else None
         nudge = torch.randn(batch["feats"].shape, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed))
         nudged = dict(batch, feats=batch["feats"] * (1.0 + 2.0 ** -23 * nudge))
@@ -1353,7 +1481,8 @@ def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
         for path, b in (("plain", batch), ("kernels", batch), ("plain_nudged", nudged),
                         ("kernels_nudged", nudged)):
             ref.set_kernels(path.startswith("kernels"))
-            per_video, s2t, saves = step0.loss(b, gen, seg2tok=sp)
+            with seg.run(path) if seg is not None else contextlib.nullcontext():
+                per_video, s2t, saves = step0.loss(b, gen, seg2tok=sp)
             loss = per_video.mean()
             names, params = zip(*ref.named_parameters())
             grads = torch.autograd.grad(loss, params)
@@ -1366,6 +1495,14 @@ def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
         (lk, gk), (lp, gp) = res["kernels"], res["plain"]
         (sk, ck, nsegs), (sp, cp, _) = res["kernels_match"], res["plain_match"]
         gaps = _matching_gaps(sk, sp, ck, cp, nsegs)
+        matched = ("equal" if not gaps else "differs in videos " + ", ".join(
+            f"{b} (cost gap {gap:.3e}, tie limit {limit:.3e})" for b, gap, limit in gaps))
+        if o2m:
+            differ = sum(int((sk[b, :int(n)] != sp[b, :int(n)]).sum())
+                         for b, n in enumerate(nsegs))
+            matched = f"o2m {matched}, {differ} of {int(nsegs.sum())} segments differ"
+        if seg is not None:
+            matched += f"; own TDU picks differ from the shared ones on {seg.text()}"
         top = max(float(g.abs().max()) for g in gp)
         (elem, elem_n), (norm, norm_n) = _grad_errors(names, gk, gp, top)
         (fp, fp_n), (fpn, _) = _grad_errors(names, res["plain_nudged"][1], gp, top)
@@ -1374,10 +1511,8 @@ def train_compare(tag, cfg0, dims, cweight, arrays, gen, seeds):
         torch.cuda.empty_cache()
         elem_tol = max(GRAD_TOL, FLOOR_K * max(fp, fk))
         loss_err = abs(lk - lp) / abs(lp)
-        ties = all(gap <= limit for _, gap, limit in gaps)
+        ties = all(abs(gap) <= limit for _, gap, limit in gaps) and (seg is None or seg.ok())
         ok = loss_err <= TRAIN_LOSS_TOL and ties and norm <= GRAD_TOL and elem <= elem_tol
-        matched = ("equal" if not gaps else "differs in videos " + ", ".join(
-            f"{b} (cost gap {gap:.3e}, tie limit {limit:.3e})" for b, gap, limit in gaps))
         log(f"[{tag}] weights seed {seed}, kernel vs plain path (dropout and masking off): "
             f"loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL:g}); own "
             f"matching {matched}; over {len(names)} parameters, largest gradient {top:.3e}: "
@@ -1500,7 +1635,9 @@ def phase_bf_training(seed: int = 0):
     del model, step
     cfg0 = compute_null_weight(breakfast_train_cfg(), synthetic_set_stats(batches, C))
     cfg0["FACT"]["cmr"], cfg0["TM"]["use"] = 0.0, False
-    train_compare("bf-train", cfg0, BF_DIMS, cweight, batches[0], gen, COMPARE_SEEDS)
+    train_compare("bf-train", cfg0, lambda s: build_fact(cfg0, D, C, S_CAP, device=dev,
+                                                      generator=torch.Generator().manual_seed(s)),
+                  C, cweight, batches[0], gen, COMPARE_SEEDS)
     return counts
 
 
@@ -1662,6 +1799,72 @@ def epic_eval_paths(model, cfg, rng, D):
         raise AssertionError("epic: kernel path disagrees with the plain path")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: Epic-Kitchens training (the verb/noun model)
+
+
+def phase_epic_training(seed: int = 0):
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, plain_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import epic_train_cfg, epic_vocab
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import epic_batch, run_steps
+    from fact_clip_tpu_torch.models.losses import build_class_weights
+    from fact_clip_tpu_torch.models.verbnoun import build_verbnoun_fact
+
+    D, S_CAP = EPIC_DIMS
+    vids, nids = epic_vocab()
+    n_act = len(vids)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    batches = [epic_batch(rng, D, n_act, EPIC_T, [n]) for n in EPIC_TRAIN_LENGTHS]
+
+    def build(cfg, s):
+        return build_verbnoun_fact(cfg, D, vids, nids, S_CAP, device=dev,
+                                   generator=torch.Generator().manual_seed(s))
+
+    cfg = epic_train_cfg()
+    model = build(cfg, seed)
+    cweight = build_class_weights(cfg, n_act, [])
+    step = make_train_step(model, cfg, n_act, cweight)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"[epic-train] epic_train_cfg(): {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {n_act} actions, match {cfg['Loss']['match']}, nullw "
+        f"{cfg['Loss']['nullw']}, dropout {cfg['Bi']['dropout']}, cmr {cfg['FACT']['cmr']}, "
+        f"{cfg['optimizer']} lr {cfg['lr']}; batches of 1 x {EPIC_T} (lengths "
+        f"{EPIC_TRAIN_LENGTHS}, {[int(b['seg_mask'].sum()) for b in batches]} segments, "
+        f"{[len(np.unique(b['transcript'][0, :40])) for b in batches]} distinct actions) built "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    warm = run_steps(step, batches[:1], generator=gen)
+    losses, wrong = [warm[0]["loss"]], {}
+    for i in range(1, 6):  # each step's launches, counted from 0
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        (out,) = run_steps(step, [batches[i % 3]], generator=gen)
+        torch.cuda.synchronize()
+        counts = kernel_counters()
+        losses.append(out["loss"])
+        wrong.update({(i, k): (counts[k], EPIC_PER_STEP.get(k, 0)) for k in counts
+                      if counts[k] != EPIC_PER_STEP.get(k, 0)})
+    log(f"[epic-train] 1 warm-up + 5 Adam steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"launch counts of the last step {counts}; plain K2 backwards (per-video y_pos) "
+        f"{plain_counters()}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite epic training loss: {losses}")
+    if wrong:
+        raise AssertionError(f"epic training launches: ((step, kernel): (got, want)) {wrong}")
+    train_paths("epic-train", model, step, batches, gen, f"1 x {EPIC_T}")
+    del model, step
+    torch.cuda.empty_cache()
+    cfg0 = epic_train_cfg()
+    cfg0["FACT"]["cmr"] = 0.0
+    train_compare("epic-train", cfg0, lambda s: build(cfg0, s), n_act, cweight, batches[0], gen,
+                  COMPARE_SEEDS)
+
+
 def main():
     import torch
 
@@ -1672,6 +1875,7 @@ def main():
     train_counts = phase_training()
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}
     epic_counts = phase_epic_serving()
+    phase_epic_training()
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name in BF_ROWS:

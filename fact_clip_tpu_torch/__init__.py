@@ -4,10 +4,11 @@ The JAX package ``fact_clip_tpu`` is the reference; this package mirrors its
 layout where that helps find a module's counterpart:
 
 configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
-                  breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_vocab
-                  (no YAML)
-models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT,
-                  serving), the two-branch decodes, matching, losses
+                  breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
+                  epic_vocab (no YAML)
+models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
+                  the two-branch decodes, matching (o2o, o2m), losses (FACT's
+                  and the verb/noun model's)
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   and backwards; the shared dropout mask; K7, the composed
                   verb/noun argmaxes) beside their plain PyTorch versions;

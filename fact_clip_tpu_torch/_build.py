@@ -67,7 +67,7 @@ SIGNATURES = {
     "fk_mha_bwd": [P, P, L, I] + [P] * 16 + [I, I, I, I, I, I, F, I, P],
     "fk_sa_sublayer": [P, P, L, I] + [P] * 12 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
-    "fk_sa_bwd": [P, P, I] + [P] * 23 + [I, I, I, I, F, P],
+    "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
     "fk_mstcn2_layer": [P] * 15 + [I, U, F] + [I] * 6 + [P],
     "fk_mstcn2_folded": [P] * 8 + [I] * 6 + [P],

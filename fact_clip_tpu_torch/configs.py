@@ -9,8 +9,8 @@ dict; ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
 port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
 breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
 is it as the port trains it; ``epic_cfg()`` mirrors ``epic-kitchens.yaml``
-(the verb/noun model, ``IUUU``) and ``epic_vocab()`` draws its 3,806-action
-vocabulary.
+(the verb/noun model, ``IUUU``), ``epic_train_cfg()`` is it as the port
+trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -156,6 +156,17 @@ def epic_cfg() -> dict:
     cfg["BU"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10, s_layers=1)
     cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2m", bgw=0.5, nullw=0.05, sw=5.0)
     cfg["TM"]["use"] = False
+    return cfg
+
+
+def epic_train_cfg() -> dict:
+    """``epic_cfg()`` with the host matcher (scipy: o2m's Hungarian stage and
+    its per-class picks), as the port trains it.  ``model.set_kernels(False)``
+    gives its plain PyTorch path.  Train it with ``engine.steps.
+    make_train_step(model, epic_train_cfg(), 3806, cweight)``, cweight
+    (3,807,)."""
+    cfg = epic_cfg()
+    cfg["TPU"]["matcher"] = "host"
     return cfg
 
 

@@ -1,8 +1,8 @@
 // K4: the post-norm sublayers of the action-token decoders, forward with
-// dropout and backward, one block per video.
+// dropout and backward.
 //
 // Forward: replaces fact_clip_tpu/ops/pallas/sa_layer.py::_sa_fwd_impl
-// (_sa_fwd_kernel) and ::_ffn_fwd_impl (_ffn_fwd_kernel):
+// (_sa_fwd_kernel) and ::_ffn_fwd_impl (_ffn_fwd_kernel), one block per video:
 //   SA:  y = LN(x + drop_o(MHA(x + pos, x + pos, x; drop_a on the probs) @ Wo + bo))
 //   FFN: y = LN(x + drop_2(drop_1(relu(x @ W1 + b1)) @ W2 + b2))   (LN eps 1e-6)
 // Every projection, the softmax, the dropout, the residual and the LayerNorm
@@ -23,26 +23,38 @@
 // masks that dropout.cu regenerated for the call, takes the LayerNorm
 // backward (eps 1e-6) and writes dx:
 //   SA:  dout = dres * keep_o; dc = dout Wo^T; per head dPd = dc_h v_h^T,
-//        dv_h = Pd^T dc_h, dS = P * (dPd * keep_a - rowsum(P * dPd * keep_a)) * scale,
-//        dq_h = dS k_h, dk_h = dS^T q_h; dxa = dq Wq^T + dk Wk^T;
-//        dx = dres + dxa + dv Wv^T.  It writes the panels c (the context),
-//        dout, [dq | dk], dv and dxa, and per-video column sums (dbq, dbk,
-//        dbv, dbo, dgamma, dbeta).  JAX sums the weight and positional
-//        gradients across its sequential grid; here blocks run in no order,
-//        so the wrapper takes dWq|dWk = (x + pos)^T [dq | dk], dWv = x^T dv,
-//        dWo = c^T dout with grad.cu's fk_atb (one partial per video) and
-//        sums those partials, the column sums and d(pos) = sum_b dxa[b] with
-//        fk_reduce, in a fixed order.
-//   FFN: dt2 = dres * keep_2; dh = (dt2 W2^T) * keep_1; dz1 = dh * (z1 > 0);
-//        dx = dres + dz1 W1^T.  It writes dx, the panels dz1, h * keep_1 and
-//        dt2, and the LN column sums; dW1 = x^T dz1 and dW2 = (h * keep_1)^T
-//        dt2 stay matrix products outside, as in the JAX wrapper.
+//        dv_h = Pd^T dc_h, dS = P * (dPd * keep_a - D) * scale with the row
+//        term D = dc_h . c_h (= rowsum(P * dPd * keep_a)), dq_h = dS k_h,
+//        dk_h = dS^T q_h; dxa = dq Wq^T + dk Wk^T; dx = dres + dxa + dv Wv^T.
+//        The TPU kernel holds a video's whole sublayer in VMEM (100 MB,
+//        _COMPILER_PARAMS); one H100 block cannot hold the two (M, M) panels
+//        past M ~ 124 (922 KB at epic's M=300).  So the backward is six
+//        kernels in the FlashAttention-2 split, none with atomics: the
+//        projections (q, k, v), the per-row softmax with its statistics and
+//        the context c, the LayerNorm backward with dout and dc, and dx, over
+//        (64-row tile, video) on the GEMM core; dq over (32-query tile, head,
+//        video), a warp per query row with p recomputed from the saved
+//        statistics; dk and dv over (32-key tile, head, video), each warp
+//        walking every query row in order for its 4 keys.  A block holds one
+//        head's rows of every key (or query) and of its tile: 97 KB at
+//        M=300, hd=32, so any token count of the zoo fits (ops/sa_layer.py::
+//        has_backward).  The wrapper takes dWq|dWk = (x + pos)^T [dq | dk],
+//        dWv = x^T dv, dWo = c^T dout with grad.cu's fk_atb and sums those
+//        partials, the bias columns, the per-tile LN sums and d(pos) =
+//        sum_b dxa[b] with fk_reduce, in a fixed order.
+//   FFN: one block per video.  dt2 = dres * keep_2; dh = (dt2 W2^T) *
+//        keep_1; dz1 = dh * (z1 > 0); dx = dres + dz1 W1^T.  It writes dx,
+//        the panels dz1, h * keep_1 and dt2, and the LN column sums; dW1 =
+//        x^T dz1 and dW2 = (h * keep_1)^T dt2 stay matrix products outside,
+//        as in the JAX wrapper.
 //
 // Bound on the H100: latency.  A forward is 2*M*E*(4E) FLOPs per video (21
-// MFLOP at M=40, E=256; the backward about three times that) spread over one
-// SM per video, and at B=8 only 8 of the 132 SMs have work.  The design keeps
-// each pass in one launch, in place of the ~15 (forward) or ~40 (autograd
-// backward) small launches of the plain PyTorch version.
+// MFLOP at M=40, E=256; the backward about three times that): one SM per
+// video in the forwards, and at B=8 only 8 of the 132 SMs have work.  The SA
+// backward at epic's B=1, M=300, H=8 gives each attention kernel 80 blocks
+// and each row kernel 5 (0.75 GFLOP in all: 0.011 ms at 67 TFLOP/s); it
+// recomputes p twice more and its key-tile kernel reduces each score over
+// the lanes with shuffles.
 #include <math.h>
 
 #include "common.cuh"
@@ -165,12 +177,6 @@ __device__ __forceinline__ void ln_backward(float* res, const float* __restrict_
   }
 }
 
-// Shared memory of the attention stages: one head's q, k, v (and dc), two
-// M x M row panels and the LN row statistics.
-__host__ __device__ inline size_t sa_smem_floats(int M, int hd) {
-  return (size_t)4 * M * (hd + 1) + (size_t)2 * M * M + (size_t)2 * M;
-}
-
 __global__ void __launch_bounds__(fk::kThreads)
 sa_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ pos,
                    long long pos_bstride, int Pp, const float* __restrict__ wq,
@@ -268,187 +274,6 @@ sa_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ pos,
               }, s);
   __syncthreads();
   fk::layer_norm_rows(yb, M, M, E, gamma, beta, eps);
-}
-
-__global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
-              const float* __restrict__ wq, const float* __restrict__ bq,
-              const float* __restrict__ wk, const float* __restrict__ bk,
-              const float* __restrict__ wv, const float* __restrict__ bv,
-              const float* __restrict__ wo, const float* __restrict__ bo,
-              const float* __restrict__ gamma, const float* __restrict__ wot,
-              const float* __restrict__ wqkt, const float* __restrict__ wvt,
-              const float* __restrict__ keep_a, const float* __restrict__ keep_o,
-              const float* __restrict__ g, float* __restrict__ scratch, float* __restrict__ c_out,
-              float* __restrict__ dout, float* __restrict__ dqk, float* __restrict__ dv,
-              float* __restrict__ dxa, float* __restrict__ dx, float* __restrict__ part, int M,
-              int E, int H, float eps) {
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* sm = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
-
-  const int b = blockIdx.x;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int hd = E / H;
-  const int ldh = hd + 1;
-  const float scale = 1.f / sqrtf((float)hd);
-  const size_t ME = (size_t)M * E;
-  const float* xb = x + b * ME;
-  const float* gb = g + b * ME;
-  float* qb = scratch + b * 5 * ME;  // q, k, v, res -> dres, dc
-  float* kb = qb + ME;
-  float* vb = kb + ME;
-  float* rb = vb + ME;
-  float* dcb = rb + ME;
-  float* cb = c_out + b * ME;
-  float* doutb = dout + b * ME;
-  float* dqkb = dqk + b * 2 * ME;
-  float* dvb = dv + b * ME;
-  float* dxab = dxa + b * ME;
-  float* partb = part + (size_t)b * 6 * E;
-  const float* ka = keep_a ? keep_a + (size_t)b * H * M * M : nullptr;
-  const float* ko = keep_o ? keep_o + b * ME : nullptr;
-  float* qs = sm;  // [M][ldh] each: q_h, k_h, v_h, dc_h
-  float* ks = qs + (size_t)M * ldh;
-  float* vs = ks + (size_t)M * ldh;
-  float* dcs = vs + (size_t)M * ldh;
-  float* S = dcs + (size_t)M * ldh;  // [M][M]: scores, then P, then dS
-  float* PD = S + (size_t)M * M;     // [M][M]: dPd, then P * keep_a
-  float* mean = PD + (size_t)M * M;
-  float* rstd = mean + M;
-
-  // 1. the forward again: q, k, v; per head P and the context c = (P * keep_a) v
-  project(xb, pos, Pp, M, E, wq, bq, E, qb, s);
-  project(xb, pos, Pp, M, E, wk, bk, E, kb, s);
-  project(xb, nullptr, 0, M, E, wv, bv, E, vb, s);
-  __syncthreads();
-  auto stage = [&](int h, bool with_dc) {
-    for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
-      const int m = i / hd;
-      const int dd = i - m * hd;
-      const size_t e = (size_t)m * E + h * hd + dd;
-      qs[m * ldh + dd] = qb[e];
-      ks[m * ldh + dd] = kb[e];
-      vs[m * ldh + dd] = vb[e];
-      if (with_dc) dcs[m * ldh + dd] = dcb[e];
-    }
-    __syncthreads();
-  };
-  // row m of the staged head, by one warp: S[m] <- softmax(q_h[m] . k_h^T * scale)
-  auto softmax_row = [&](int m) {
-    float* sr = S + (size_t)m * M;
-    for (int j = tx; j < M; j += 32) {
-      float dot = 0.f;
-      for (int dd = 0; dd < hd; ++dd) dot = fmaf(qs[m * ldh + dd], ks[j * ldh + dd], dot);
-      sr[j] = dot * scale;
-    }
-    __syncwarp();
-    float mx = -INFINITY;
-    for (int j = tx; j < M; j += 32) mx = fmaxf(mx, sr[j]);
-    mx = fk::warp_max(mx);
-    float sum = 0.f;
-    for (int j = tx; j < M; j += 32) sum += expf(sr[j] - mx);
-    const float inv = 1.f / fk::warp_sum(sum);
-    __syncwarp();
-    for (int j = tx; j < M; j += 32) sr[j] = expf(sr[j] - mx) * inv;
-    __syncwarp();
-  };
-  for (int h = 0; h < H; ++h) {
-    stage(h, false);
-    for (int m = ty; m < M; m += fk::kWarps) {
-      softmax_row(m);
-      float* sr = S + (size_t)m * M;
-      if (ka != nullptr)
-        for (int j = tx; j < M; j += 32) sr[j] *= __ldg(ka + ((size_t)h * M + m) * M + j);
-      __syncwarp();
-      for (int dd = tx; dd < hd; dd += 32) {
-        float o = 0.f;
-        for (int j = 0; j < M; ++j) o = fmaf(sr[j], vs[j * ldh + dd], o);
-        cb[(size_t)m * E + h * hd + dd] = o;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  // 2. res = x + drop_o(c Wo + bo), its LN statistics, the LN backward
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{cb, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
-              [&](int r, int c, float v) {
-                v += __ldg(bo + c);
-                if (ko != nullptr) v *= __ldg(ko + (size_t)r * E + c);
-                rb[(size_t)r * E + c] = v + __ldg(xb + (size_t)r * E + c);
-              }, s);
-  __syncthreads();
-  ln_stats(rb, M, E, eps, mean, rstd);
-  __syncthreads();
-  ln_backward(rb, gb, gamma, mean, rstd, M, E, partb + 4 * E, ko, doutb);
-  __syncthreads();
-
-  // 3. dbo; dc = dout Wo^T
-  fk::block_colsum(doutb, E, M, E, partb + 3 * E);
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{doutb, nullptr, 0, r0, M, E}, wot, E, E, r0, M,
-              [&](int r, int c, float v) { dcb[(size_t)r * E + c] = v; }, s);
-  __syncthreads();
-
-  // 4. per head: dS, then dq_h = dS k_h, dk_h = dS^T q_h, dv_h = (P * keep_a)^T dc_h
-  for (int h = 0; h < H; ++h) {
-    stage(h, true);
-    for (int m = ty; m < M; m += fk::kWarps) {
-      softmax_row(m);
-      float* sr = S + (size_t)m * M;
-      float* pr = PD + (size_t)m * M;
-      const float* kr = ka ? ka + ((size_t)h * M + m) * M : nullptr;
-      float rs = 0.f;
-      for (int j = tx; j < M; j += 32) {
-        float dot = 0.f;
-        for (int dd = 0; dd < hd; ++dd) dot = fmaf(dcs[m * ldh + dd], vs[j * ldh + dd], dot);
-        const float dp = kr ? dot * __ldg(kr + j) : dot;
-        pr[j] = dp;
-        rs = fmaf(sr[j], dp, rs);
-      }
-      rs = fk::warp_sum(rs);
-      for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
-        const float p = sr[j];
-        sr[j] = p * (pr[j] - rs) * scale;
-        pr[j] = kr ? p * __ldg(kr + j) : p;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
-      const int r = i / hd;  // a query row for dq, a key row for dk and dv
-      const int dd = i - r * hd;
-      float aq = 0.f, ak = 0.f, av = 0.f;
-      for (int j = 0; j < M; ++j) {
-        aq = fmaf(S[(size_t)r * M + j], ks[j * ldh + dd], aq);
-        ak = fmaf(S[(size_t)j * M + r], qs[j * ldh + dd], ak);
-        av = fmaf(PD[(size_t)j * M + r], dcs[j * ldh + dd], av);
-      }
-      dqkb[(size_t)r * 2 * E + h * hd + dd] = aq;
-      dqkb[(size_t)r * 2 * E + E + h * hd + dd] = ak;
-      dvb[(size_t)r * E + h * hd + dd] = av;
-    }
-    __syncthreads();
-  }
-
-  // 5. dbq, dbk, dbv; dxa = [dq | dk] @ [Wq^T ; Wk^T]
-  fk::block_colsum(dqkb, 2 * E, M, 2 * E, partb);
-  fk::block_colsum(dvb, E, M, E, partb + 2 * E);
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{dqkb, nullptr, 0, r0, M, 2 * E}, wqkt, 2 * E, E, r0, M,
-              [&](int r, int c, float v) { dxab[(size_t)r * E + c] = v; }, s);
-  __syncthreads();
-
-  // 6. dx = dres + dxa + dv Wv^T; plain loads: written above
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{dvb, nullptr, 0, r0, M, E}, wvt, E, E, r0, M,
-              [&](int r, int c, float v) {
-                const size_t e = (size_t)r * E + c;
-                dx[b * ME + e] = v + rb[e] + dxab[e];
-              }, s);
 }
 
 __global__ void __launch_bounds__(fk::kThreads)
@@ -560,6 +385,339 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
               }, s);
 }
 
+// ---------------------------------------------------------------------------
+// SA backward: six kernels, each over (row tile, video) or (tile of QT query
+// rows or keys, head, video), so that a video's attention spreads over
+// H * ceil(M / QT) blocks and no (M, M) panel is ever held.
+
+constexpr int QT = 32;  // query rows or keys of an attention block
+
+// Shared memory (floats) of the attention kernels over query tiles: one
+// head's k and v rows of every key, the tile's q and dc rows, and one
+// M-long row per warp.
+__host__ __device__ inline size_t sa_rows_smem_floats(int M, int hd) {
+  return (size_t)2 * M * (hd + 1) + (size_t)2 * QT * (hd + 1) + (size_t)fk::kWarps * M;
+}
+
+// ... and of the kernel over key tiles: one head's q and dc rows of every
+// query, the tile's k and v rows and the row statistics (max, 1 / sum, D).
+__host__ __device__ inline size_t sa_keys_smem_floats(int M, int hd) {
+  return (size_t)2 * M * (hd + 1) + (size_t)2 * QT * (hd + 1) + (size_t)3 * M;
+}
+
+// rows [r0, r0 + n) of head h of an (M, E) panel into dst[n][hd + 1] (odd
+// row stride: lane j reading row j is conflict-free), zero past M
+__device__ __forceinline__ void stage_head(float* dst, const float* src, int r0, int n, int M,
+                                           int E, int h, int hd) {
+  const int ldh = hd + 1;
+  for (int i = threadIdx.x; i < n * hd; i += fk::kThreads) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    dst[r * ldh + d] = r0 + r < M ? src[(size_t)(r0 + r) * E + h * hd + d] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot_h(const float* a, const float* b, int hd) {
+  float s = 0.f;
+  for (int d = 0; d < hd; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+// 1. q = (x + pos) Wq + bq, k = (x + pos) Wk + bk, v = x Wv + bv into
+//    qkv[b][0..2]: one block per (64-row tile, video, projection)
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
+                  const float* __restrict__ wq, const float* __restrict__ bq,
+                  const float* __restrict__ wk, const float* __restrict__ bk,
+                  const float* __restrict__ wv, const float* __restrict__ bv,
+                  float* __restrict__ qkv, int M, int E) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
+  const int r0 = blockIdx.x * BM;
+  const int b = blockIdx.y;
+  const int which = blockIdx.z;
+  const size_t ME = (size_t)M * E;
+  const float* W = which == 0 ? wq : which == 1 ? wk : wv;
+  const float* bias = which == 0 ? bq : which == 1 ? bk : bv;
+  float* out = qkv + ((size_t)b * 3 + which) * ME;
+  rows_gemm(Rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E}, W, E, E, r0, M,
+            [&](int r, int c, float v) { out[(size_t)r * E + c] = v + __ldg(bias + c); }, s);
+}
+
+// 2. per (query tile, head, video): each query row's softmax over the M keys
+//    by one warp, its row statistics (max, 1 / sum) into stats[b][h][m][0..1]
+//    and its context c_h = (P * keep_a) v_h
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_context_kernel(const float* __restrict__ qkv, const float* __restrict__ keep_a,
+                      float* __restrict__ c, float* __restrict__ stats, int M, int E, int H) {
+  extern __shared__ float4 smem_raw[];
+  const int hd = E / H;
+  const int ldh = hd + 1;
+  const int m0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const float scale = 1.f / sqrtf((float)hd);
+  const size_t ME = (size_t)M * E;
+  const float* qb = qkv + (size_t)b * 3 * ME;
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + (size_t)M * ldh;
+  float* qs = vs + (size_t)M * ldh;
+  float* pw = qs + (size_t)2 * QT * ldh + (size_t)ty * M;
+  stage_head(ks, qb + ME, 0, M, M, E, h, hd);
+  stage_head(vs, qb + 2 * ME, 0, M, M, E, h, hd);
+  stage_head(qs, qb, m0, QT, M, E, h, hd);
+  __syncthreads();
+  for (int r = ty; r < min(QT, M - m0); r += fk::kWarps) {
+    const int m = m0 + r;
+    const size_t row = ((size_t)b * H + h) * M + m;
+    const float* qr = qs + r * ldh;
+    for (int j = tx; j < M; j += 32) pw[j] = dot_h(qr, ks + j * ldh, hd) * scale;
+    float mx = -INFINITY;
+    for (int j = tx; j < M; j += 32) mx = fmaxf(mx, pw[j]);
+    mx = fk::warp_max(mx);
+    float sum = 0.f;
+    for (int j = tx; j < M; j += 32) sum += expf(pw[j] - mx);
+    const float inv = 1.f / fk::warp_sum(sum);
+    for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
+      const float p = expf(pw[j] - mx) * inv;
+      pw[j] = keep_a != nullptr ? p * __ldg(keep_a + row * M + j) : p;
+    }
+    __syncwarp();
+    for (int d = tx; d < hd; d += 32) {
+      float o = 0.f;
+      for (int j = 0; j < M; ++j) o = fmaf(pw[j], vs[j * ldh + d], o);
+      c[(size_t)b * ME + (size_t)m * E + h * hd + d] = o;
+    }
+    if (tx == 0) {
+      stats[row * 3] = mx;
+      stats[row * 3 + 1] = inv;
+    }
+    __syncwarp();
+  }
+}
+
+// 3. per (64-row tile, video): res = x + drop_o(c Wo + bo), its LayerNorm
+//    statistics and backward (res is overwritten with dres; dgamma and dbeta
+//    of the tile into part[b * tiles + tile]), dout = dres * keep_o, and
+//    dc = dout Wo^T
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                 const float* __restrict__ wo, const float* __restrict__ bo,
+                 const float* __restrict__ wot, const float* __restrict__ gamma,
+                 const float* __restrict__ keep_o, const float* __restrict__ g,
+                 float* __restrict__ res, float* __restrict__ dout, float* __restrict__ dc,
+                 float* __restrict__ part, int M, int E, float eps) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
+  float* mean = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
+  float* rstd = mean + BM;
+  const int tile = blockIdx.x;
+  const int r0 = tile * BM;
+  const int b = blockIdx.y;
+  const int rows = min(BM, M - r0);
+  const size_t off = (size_t)b * M * E;
+  const size_t t0 = (size_t)r0 * E;
+  const float* xb = x + off;
+  const float* ko = keep_o != nullptr ? keep_o + off : nullptr;
+  float* rb = res + off;
+  float* db = dout + off;
+  rows_gemm(Rows{c + off, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
+            [&](int r, int col, float v) {
+              const size_t e = (size_t)r * E + col;
+              v += __ldg(bo + col);
+              if (ko != nullptr) v *= __ldg(ko + e);
+              rb[e] = v + __ldg(xb + e);
+            }, s);
+  __syncthreads();
+  ln_stats(rb + t0, rows, E, eps, mean, rstd);
+  __syncthreads();
+  ln_backward(rb + t0, g + off + t0, gamma, mean, rstd, rows, E,
+              part + ((size_t)b * gridDim.x + tile) * 2 * E, ko != nullptr ? ko + t0 : nullptr,
+              db + t0);
+  __syncthreads();
+  rows_gemm(Rows{db, nullptr, 0, r0, M, E}, wot, E, E, r0, M,
+            [&](int r, int col, float v) { dc[off + (size_t)r * E + col] = v; }, s);
+}
+
+// 4. per (query tile, head, video), one warp per query row m: the row term
+//    D = dc_h[m] . c_h[m] (= sum_j p_mj dp_mj, also under the attention
+//    dropout) into stats[b][h][m][2]; dS_mj = p_mj (dPd_mj keep_mj - D)
+//    scale with p recomputed from the saved statistics and dPd = dc_h v_h^T;
+//    dq_h[m] = dS_m k_h into the first E columns of dqk
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
+                 const float* __restrict__ dc, const float* __restrict__ keep_a,
+                 float* __restrict__ stats, float* __restrict__ dqk, int M, int E, int H) {
+  extern __shared__ float4 smem_raw[];
+  const int hd = E / H;
+  const int ldh = hd + 1;
+  const int m0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const float scale = 1.f / sqrtf((float)hd);
+  const size_t ME = (size_t)M * E;
+  const float* qb = qkv + (size_t)b * 3 * ME;
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + (size_t)M * ldh;
+  float* qs = vs + (size_t)M * ldh;
+  float* dcs = qs + (size_t)QT * ldh;
+  float* pw = dcs + (size_t)QT * ldh + (size_t)ty * M;
+  stage_head(ks, qb + ME, 0, M, M, E, h, hd);
+  stage_head(vs, qb + 2 * ME, 0, M, M, E, h, hd);
+  stage_head(qs, qb, m0, QT, M, E, h, hd);
+  stage_head(dcs, dc + (size_t)b * ME, m0, QT, M, E, h, hd);
+  __syncthreads();
+  for (int r = ty; r < min(QT, M - m0); r += fk::kWarps) {
+    const int m = m0 + r;
+    const size_t row = ((size_t)b * H + h) * M + m;
+    const float* qr = qs + r * ldh;
+    const float* dr = dcs + r * ldh;
+    const float* cr = c + (size_t)b * ME + (size_t)m * E + h * hd;
+    float dsum = 0.f;
+    for (int d = tx; d < hd; d += 32) dsum = fmaf(dr[d], cr[d], dsum);
+    const float D = fk::warp_sum(dsum);
+    const float mx = stats[row * 3];
+    const float inv = stats[row * 3 + 1];
+    for (int j = tx; j < M; j += 32) {
+      const float p = expf(dot_h(qr, ks + j * ldh, hd) * scale - mx) * inv;
+      float dp = dot_h(dr, vs + j * ldh, hd);
+      if (keep_a != nullptr) dp *= __ldg(keep_a + row * M + j);
+      pw[j] = p * (dp - D) * scale;
+    }
+    __syncwarp();
+    for (int d = tx; d < hd; d += 32) {
+      float a = 0.f;
+      for (int j = 0; j < M; ++j) a = fmaf(pw[j], ks[j * ldh + d], a);
+      dqk[((size_t)b * M + m) * 2 * E + h * hd + d] = a;
+    }
+    if (tx == 0) stats[row * 3 + 2] = D;
+    __syncwarp();
+  }
+}
+
+// 5. per (key tile, head, video): each warp owns 4 keys of the tile and
+//    walks every query row i, lanes over the head's dimensions (NT per
+//    lane): p_ij and dS_ij recomputed from the saved statistics and D, then
+//    dv_h[j] += (p_ij keep_ij) dc_h[i] and dk_h[j] += dS_ij q_h[i] in
+//    registers, in row order; dk_h into the last E columns of dqk, dv_h into dv
+template <int NT>
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
+                  const float* __restrict__ keep_a, const float* __restrict__ stats,
+                  float* __restrict__ dqk, float* __restrict__ dv, int M, int E, int H) {
+  constexpr int KW = QT / fk::kWarps;  // keys per warp
+  extern __shared__ float4 smem_raw[];
+  const int hd = E / H;
+  const int ldh = hd + 1;
+  const int j0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const float scale = 1.f / sqrtf((float)hd);
+  const size_t ME = (size_t)M * E;
+  const float* qb = qkv + (size_t)b * 3 * ME;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dcs = qs + (size_t)M * ldh;
+  float* kt = dcs + (size_t)M * ldh;
+  float* vt = kt + (size_t)QT * ldh;
+  float* st = vt + (size_t)QT * ldh;
+  const size_t row0 = ((size_t)b * H + h) * M;
+  stage_head(qs, qb, 0, M, M, E, h, hd);
+  stage_head(dcs, dc + (size_t)b * ME, 0, M, M, E, h, hd);
+  stage_head(kt, qb + ME, j0, QT, M, E, h, hd);
+  stage_head(vt, qb + 2 * ME, j0, QT, M, E, h, hd);
+  for (int i = threadIdx.x; i < 3 * M; i += fk::kThreads) st[i] = stats[row0 * 3 + i];
+  __syncthreads();
+
+  float kr[KW][NT], vr[KW][NT], ak[KW][NT], av[KW][NT];
+#pragma unroll
+  for (int u = 0; u < KW; ++u)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int d = tx + 32 * t;
+      const int jl = ty * KW + u;
+      kr[u][t] = d < hd ? kt[jl * ldh + d] : 0.f;
+      vr[u][t] = d < hd ? vt[jl * ldh + d] : 0.f;
+      ak[u][t] = av[u][t] = 0.f;
+    }
+  const int jw = j0 + ty * KW;  // the warp's first key
+  for (int i = 0; i < M; ++i) {
+    float qd[NT], dd[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int d = tx + 32 * t;
+      qd[t] = d < hd ? qs[i * ldh + d] : 0.f;
+      dd[t] = d < hd ? dcs[i * ldh + d] : 0.f;
+    }
+    float sp[KW], dp[KW];
+#pragma unroll
+    for (int u = 0; u < KW; ++u) {
+      float a = 0.f, e = 0.f;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        a = fmaf(qd[t], kr[u][t], a);
+        e = fmaf(dd[t], vr[u][t], e);
+      }
+      sp[u] = fk::warp_sum(a);
+      dp[u] = fk::warp_sum(e);
+    }
+    const float mx = st[3 * i], inv = st[3 * i + 1], D = st[3 * i + 2];
+    const float* kp = keep_a != nullptr ? keep_a + (row0 + i) * M + jw : nullptr;
+#pragma unroll
+    for (int u = 0; u < KW; ++u) {
+      const float p = expf(sp[u] * scale - mx) * inv;
+      const float keep = kp != nullptr && jw + u < M ? __ldg(kp + u) : 1.f;
+      const float pd = p * keep;
+      const float ds = p * (dp[u] * keep - D) * scale;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        av[u][t] = fmaf(pd, dd[t], av[u][t]);
+        ak[u][t] = fmaf(ds, qd[t], ak[u][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < KW; ++u) {
+    const int j = jw + u;
+    if (j >= M) continue;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int d = tx + 32 * t;
+      if (d >= hd) continue;
+      dqk[((size_t)b * M + j) * 2 * E + E + h * hd + d] = ak[u][t];
+      dv[(size_t)b * ME + (size_t)j * E + h * hd + d] = av[u][t];
+    }
+  }
+}
+
+// 6. per (64-row tile, video): dxa = [dq | dk] @ [Wq^T ; Wk^T] and
+//    dx = dres + dxa + dv Wv^T
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_dx_kernel(const float* __restrict__ dqk, const float* __restrict__ dv,
+                 const float* __restrict__ dres, const float* __restrict__ wqkt,
+                 const float* __restrict__ wvt, float* __restrict__ dxa, float* __restrict__ dx,
+                 int M, int E) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
+  const int r0 = blockIdx.x * BM;
+  const int b = blockIdx.y;
+  const size_t off = (size_t)b * M * E;
+  rows_gemm(Rows{dqk + 2 * off, nullptr, 0, r0, M, 2 * E}, wqkt, 2 * E, E, r0, M,
+            [&](int r, int col, float v) { dxa[off + (size_t)r * E + col] = v; }, s);
+  __syncthreads();
+  // plain loads of dxa: written above, by this thread (same pass mapping)
+  rows_gemm(Rows{dv + off, nullptr, 0, r0, M, E}, wvt, E, E, r0, M,
+            [&](int r, int col, float v) {
+              const size_t e = off + (size_t)r * E + col;
+              dx[e] = v + dres[e] + dxa[e];
+            }, s);
+}
+
 }  // namespace
 
 extern "C" int fk_sa_sublayer(const float* x, const float* pos, long long pos_bstride, int Pp,
@@ -601,16 +759,44 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, const float* wo, const float* bo, const float* gamma,
                          const float* wot, const float* wqkt, const float* wvt,
-                         const float* keep_a, const float* keep_o, const float* g,
-                         float* scratch, float* c_out, float* dout, float* dqk, float* dv,
-                         float* dxa, float* dx, float* part, int B, int M, int E, int H,
-                         float eps, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BM>) + sa_smem_floats(M, E / H) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)sa_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  sa_bwd_kernel<<<B, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, pos, Pp, wq, bq, wk, bk, wv, bv, wo, bo, gamma, wot, wqkt, wvt, keep_a, keep_o, g,
-      scratch, c_out, dout, dqk, dv, dxa, dx, part, M, E, H, eps);
+                         const float* keep_a, const float* keep_o, const float* g, float* qkv,
+                         float* c, float* res, float* dout, float* dc, float* stats, float* dqk,
+                         float* dv, float* dxa, float* dx, float* part, int B, int M, int E,
+                         int H, float eps, void* stream) {
+  const int hd = E / H;
+  if (hd > 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 rows((M + BM - 1) / BM, B);
+  const dim3 attn((M + QT - 1) / QT, H, B);
+  const size_t gsm = sizeof(fk::GemmSmem<BM>);
+  const size_t rsm = sa_rows_smem_floats(M, hd) * sizeof(float);
+  const size_t ksm = sa_keys_smem_floats(M, hd) * sizeof(float);
+  const void* dkv = hd <= 32 ? (const void*)sa_bwd_dkv_kernel<1> : (const void*)sa_bwd_dkv_kernel<2>;
+  cudaError_t err;
+  if ((err = fk::set_smem((const void*)sa_bwd_qkv_kernel, gsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_bwd_context_kernel, rsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_bwd_ln_kernel, gsm + 2 * BM * sizeof(float))) !=
+          cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_bwd_dq_kernel, rsm)) != cudaSuccess ||
+      (err = fk::set_smem(dkv, ksm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_bwd_dx_kernel, gsm)) != cudaSuccess)
+    return (int)err;
+  sa_bwd_qkv_kernel<<<dim3(rows.x, B, 3), fk::kThreads, gsm, st>>>(x, pos, Pp, wq, bq, wk, bk, wv,
+                                                                   bv, qkv, M, E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_bwd_context_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, keep_a, c, stats, M, E, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_bwd_ln_kernel<<<rows, fk::kThreads, gsm + 2 * BM * sizeof(float), st>>>(
+      x, c, wo, bo, wot, gamma, keep_o, g, res, dout, dc, part, M, E, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_bwd_dq_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, c, dc, keep_a, stats, dqk, M, E, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (hd <= 32)
+    sa_bwd_dkv_kernel<1><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, stats, dqk, dv, M, E, H);
+  else
+    sa_bwd_dkv_kernel<2><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, stats, dqk, dv, M, E, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_bwd_dx_kernel<<<rows, fk::kThreads, gsm, st>>>(dqk, dv, res, wqkt, wvt, dxa, dx, M, E);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,10 @@ Counterpart of the vanilla branch of ``fact_clip_tpu/engine/steps.py``:
 ``eval_step`` (:149-152) is the forward through every block and the
 two-branch decode (the composed one of the verb/noun model, :47-62);
 ``train_step_fn`` (:128-142) is the forward in train mode,
-the host Hungarian match, all FACT losses, the backward, the optimizer update
-and the train-time decode of the pre-update forward.
+the host match, all FACT losses, the backward, the optimizer update
+and the train-time decode of the pre-update forward; for a ``VerbNounFACT``
+(``verbnoun=True`` there) the match runs on exp(action_logp), the losses
+are the verb/noun ones and the decode is the composed one.
 """
 
 from __future__ import annotations
@@ -68,9 +70,7 @@ class TrainStep:
             raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
         if cfg["FACT"].get("trans"):
             raise ValueError("transcript mode is not ported")
-        if isinstance(model, VerbNounFACT):
-            raise NotImplementedError("the verb/noun model serves only: o2m matching and its "
-                                      "losses are not ported")
+        self.verbnoun = isinstance(model, VerbNounFACT)
         cweight = np.asarray(cweight, np.float32)
         if cweight.shape != (nclasses + 1,):
             raise ValueError(f"cweight must be (nclasses + 1,) = ({nclasses + 1},)")
@@ -103,15 +103,20 @@ class TrainStep:
         t0 = self._mark(times, "forward", t0)
         if seg2tok is None:
             last = saves[-1]
-            seg2tok = matching.match(self.cfg["Loss"],
-                                     torch.softmax(last["action_clogit"], dim=-1),
-                                     last["a2f_attn"], batch["transcript"], batch["seg_label"],
-                                     batch["seg_mask"], batch["mask"])
+            cprob = (torch.exp(last["action_logp"]) if self.verbnoun
+                     else torch.softmax(last["action_clogit"], dim=-1))
+            seg2tok = matching.match(self.cfg["Loss"], cprob, last["a2f_attn"],
+                                     batch["transcript"], batch["seg_label"], batch["seg_mask"],
+                                     batch["mask"])
         t0 = self._mark(times, "match", t0)
-        per_video = losses.fact_loss(
-            saves, batch, seg2tok, self.cweight, self.sw,
-            ref_weight_order=bool(self.cfg["Loss"].get("ref_weight_order", False)),
-            use_kernel=self.model.kernels_enabled)
+        if self.verbnoun:
+            per_video = losses.verbnoun_fact_loss(saves, batch, seg2tok, self.cweight, self.sw,
+                                                  self.model.vids, self.model.nids)
+        else:
+            per_video = losses.fact_loss(
+                saves, batch, seg2tok, self.cweight, self.sw,
+                ref_weight_order=bool(self.cfg["Loss"].get("ref_weight_order", False)),
+                use_kernel=self.model.kernels_enabled)
         self._mark(times, "losses", t0)
         return per_video, seg2tok, saves
 
@@ -125,12 +130,15 @@ class TrainStep:
         self.optimizer.step()
         t0 = self._mark(times, "optimizer", t0)
         with torch.no_grad():
-            pred = _decode(saves, self.mwt)
+            pred = (_decode_verbnoun(self.model, saves, self.mwt) if self.verbnoun
+                    else _decode(saves, self.mwt))
         self._mark(times, "decode", t0)
         return {"loss": loss.detach(), "per_video_loss": per_video.detach(), "pred": pred,
                 "seg2tok": seg2tok}
 
 
 def make_train_step(model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1):
-    """The train step with its optimizer (``cfg``'s optimizer keys)."""
+    """The train step with its optimizer (``cfg``'s optimizer keys).  For a
+    ``VerbNounFACT`` ``nclasses`` is the action count (3,806 at epic scale)
+    and ``cweight`` is (nclasses + 1,)."""
     return TrainStep(model, cfg, nclasses, cweight, steps_per_epoch)

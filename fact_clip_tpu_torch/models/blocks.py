@@ -171,6 +171,19 @@ class UpdateBlockTDU(nn.Module):
         return frame_feature, action_feature, saves
 
 
+def augment(feats, lengths, cmr: float, tm: dict, generator):
+    """The train-time masks of the input features (blocks.py:460-465): whole
+    channels at rate ``cmr``, then time spans when ``tm["use"]``, every draw
+    from ``generator``."""
+    if (cmr > 0 or tm.get("use")) and generator is None:
+        raise ValueError("train mode needs a generator")
+    if cmr > 0:
+        feats = masking.channel_mask(generator, feats, cmr)
+    if tm.get("use"):
+        feats = masking.time_mask(generator, feats, lengths, tm["t"], tm["m"], tm["p"])
+    return feats
+
+
 class FACT(nn.Module):
     """The dual-branch model; forward returns (per-block saves, final frame feature)."""
 
@@ -219,13 +232,8 @@ class FACT(nn.Module):
         B, T, _ = feats.shape
         bi = self.block_cfgs[0]
         lengths = lengths.to(device=feats.device, dtype=torch.int32)
-        if train and (self.cmr > 0 or self.tm.get("use")) and generator is None:
-            raise ValueError("train mode needs a generator")
-        if train and self.cmr > 0:
-            feats = masking.channel_mask(generator, feats, self.cmr)
-        if train and self.tm.get("use"):
-            feats = masking.time_mask(generator, feats, lengths, self.tm["t"], self.tm["m"],
-                                      self.tm["p"])
+        if train:
+            feats = augment(feats, lengths, self.cmr, self.tm, generator)
         frame_pos = L.positional_encoding_table(T, bi.hid_dim, empty=not self.fpos,
                                                 device=feats.device)
         # one (1, M, E) table shared by the batch: the fused sublayers' layout

@@ -1,6 +1,6 @@
-"""Batched, masked training losses of FACT.
+"""Batched, masked training losses of FACT and of the verb/noun model.
 
-Counterpart of ``fact_clip_tpu/models/losses.py:27-317``, term for term:
+Counterpart of ``fact_clip_tpu/models/losses.py:27-369``, term for term:
 every normalizer is computed per video from validity masks, every function
 returns a per-video (B,) vector, and the batch loss is the mean of the
 per-video losses.  ``frame_ce_smooth`` and ``smooth_loss_opt`` reach the
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.frame_loss import fused_ce_smooth_sums, fused_smooth_sum
+from ..ops.verbnoun_compose import composed_gather, composed_smooth_loss
 
 
 def build_class_weights(cfg: dict, nclasses: int, bg_ids, class_weight=None) -> np.ndarray:
@@ -108,15 +109,32 @@ def frame_loss(frame_clogit, labels, frame_mask, cweight):
     return (ce * w * m).sum(dim=1) / _clamp_norm(m.sum(dim=1))
 
 
-def frame_loss_tdu(seg_clogit, P, labels, cweight):
-    """Weighted CE on length-normalized pooled labels."""
+def frame_loss_tdu(seg_clogit, P, labels, cweight, is_logit: bool = True):
+    """Weighted CE on length-normalized pooled labels; ``is_logit=False``
+    takes log-probs as they are (the verb/noun model's composed ones)."""
     C = seg_clogit.shape[-1]
     onehot = F.one_hot(labels.long(), C).float()
     pooled = torch.einsum("bts,btc->bsc", P, onehot)
     zoomed = pooled / P.sum(dim=1).clamp(min=1.0)[..., None]
-    logp = torch.log_softmax(seg_clogit, dim=-1)
+    logp = torch.log_softmax(seg_clogit, dim=-1) if is_logit else seg_clogit
     loss = -(logp * zoomed * cweight[:C]).sum(dim=(1, 2))
     return loss / _clamp_norm(zoomed.sum(dim=(1, 2)))
+
+
+def verbnoun_action_token_loss(action_logp, seg2tok, transcript, seg_mask, cweight):
+    """The verb/noun model's token loss: each token targets the null class,
+    a matched token its segment's action instead; the class-weighted CE of
+    the composed log-probs, mean over tokens."""
+    B, M, C1 = action_logp.shape
+    null_id = C1 - 1
+    bidx = torch.arange(B, device=action_logp.device)[:, None].expand_as(seg2tok)
+    idx = torch.where(seg_mask, seg2tok.long(), M)  # invalid segments land in the spare row
+    clabel = torch.zeros((B, M + 1, C1), dtype=action_logp.dtype, device=action_logp.device)
+    clabel[..., null_id] = 1.0
+    clabel[bidx, idx, null_id] = 0.0
+    clabel[bidx, idx, torch.where(seg_mask, transcript.long(), 0)] = seg_mask.to(clabel.dtype)
+    loss = (-action_logp * clabel[:, :M] * cweight).sum(dim=-1)
+    return loss.mean(dim=1)
 
 
 def smooth_loss(logits, pair_mask):
@@ -195,19 +213,25 @@ def block_loss(saves: dict, batch: dict, seg2tok, cweight, sw: float,
         return atk + f2a + a2f + fl + sw * (al + fsl + sl)
 
     if kind == "U":
-        P = saves["tdu_P"]
-        seg_loss = frame_loss_tdu(saves["seg_clogit"], P, labels, cweight)
-        # soft targets: GT-segment membership pooled over predicted segments
-        onehot_gt = (F.one_hot(seg_label.long(), seg_mask.shape[1]).float()
-                     * frame_mask.float()[..., None])
-        pooled = torch.einsum("btp,bts->bps", P, onehot_gt)
-        Y = pooled / P.sum(dim=1).clamp(min=1.0)[..., None] * seg_mask.float()[:, None, :]
-        f2a = f2a_attn_loss(saves["f2a_attn_logit"], seg2tok, seg_mask, saves["tdu_seg_valid"],
-                            Y, sweight)
-        a2f = a2f_attn_loss(saves["a2f_attn_logit"], seg2tok, seg_mask, Y, sweight)
-        return (fl + seg_loss) / 2.0 + atk + f2a + a2f + sw * sl
+        seg_loss = frame_loss_tdu(saves["seg_clogit"], saves["tdu_P"], labels, cweight)
+        return (fl + seg_loss) / 2.0 + atk + _tdu_attn_losses(saves, batch, seg2tok, sweight) \
+            + sw * sl
 
     raise ValueError(kind)
+
+
+def _tdu_attn_losses(saves: dict, batch: dict, seg2tok, sweight):
+    """f2a + a2f of a TDU block: the cross-attention losses at predicted-
+    segment granularity, on soft targets (the ground-truth segment membership
+    pooled over the predicted segments)."""
+    P, seg_mask = saves["tdu_P"], batch["seg_mask"]
+    onehot_gt = (F.one_hot(batch["seg_label"].long(), seg_mask.shape[1]).float()
+                 * batch["mask"].float()[..., None])
+    pooled = torch.einsum("btp,bts->bps", P, onehot_gt)
+    Y = pooled / P.sum(dim=1).clamp(min=1.0)[..., None] * seg_mask.float()[:, None, :]
+    return (f2a_attn_loss(saves["f2a_attn_logit"], seg2tok, seg_mask, saves["tdu_seg_valid"], Y,
+                          sweight)
+            + a2f_attn_loss(saves["a2f_attn_logit"], seg2tok, seg_mask, Y, sweight))
 
 
 def fact_loss(saves_list, batch, seg2tok, cweight, sw: float,
@@ -215,5 +239,36 @@ def fact_loss(saves_list, batch, seg2tok, cweight, sw: float,
     """Mean over blocks of the per-video block losses -> (B,)."""
     per_block = [block_loss(s, batch, seg2tok, cweight, sw,
                             ref_weight_order=ref_weight_order, use_kernel=use_kernel)
+                 for s in saves_list]
+    return sum(per_block) / len(per_block)
+
+
+def verbnoun_block_loss(saves: dict, batch: dict, seg2tok, cweight, sw: float, vids, nids):
+    """Per-video loss (B,) of one verb/noun block (``I`` or ``U``).  The frame
+    log-probs arrive factored (``frame_vlogp``, ``frame_nlogp``): the frame
+    loss gathers the composed value at the labels, the smoothing loss
+    composes it densely.  K5 is not used: JAX's verb/noun losses never call
+    the fused frame loss."""
+    labels, frame_mask = batch["labels"], batch["mask"]
+    transcript, seg_mask = batch["transcript"], batch["seg_mask"]
+    sweight = torch.where(seg_mask, cweight[transcript.long()], 0.0)
+    lv, ln = saves["frame_vlogp"], saves["frame_nlogp"]
+    logp_at_label = composed_gather(lv, ln, vids, nids, labels)
+    w = cweight[:vids.shape[0]][labels.long()]
+    m = frame_mask.to(logp_at_label.dtype)
+    fl = (-logp_at_label * w * m).sum(dim=1) / _clamp_norm(m.sum(dim=1)) / 2.0
+    seg_l = frame_loss_tdu(saves["seg_logp"], saves["tdu_P"], labels, cweight,
+                           is_logit=False) / 2.0
+    atk = verbnoun_action_token_loss(saves["action_logp"], seg2tok, transcript, seg_mask,
+                                     cweight) / 2.0
+    sl = composed_smooth_loss(lv, ln, vids, nids, frame_mask[:, 1:] & frame_mask[:, :-1])
+    if saves["kind"] == "I":
+        return (fl + seg_l) / 2.0 + atk + sw * sl
+    return (fl + seg_l) / 2.0 + atk + _tdu_attn_losses(saves, batch, seg2tok, sweight) + sw * sl
+
+
+def verbnoun_fact_loss(saves_list, batch, seg2tok, cweight, sw: float, vids, nids):
+    """Mean over blocks of the per-video verb/noun block losses -> (B,)."""
+    per_block = [verbnoun_block_loss(s, batch, seg2tok, cweight, sw, vids, nids)
                  for s in saves_list]
     return sum(per_block) / len(per_block)

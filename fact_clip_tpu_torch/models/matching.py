@@ -1,11 +1,17 @@
-"""Token <-> ground-truth-segment matching (o2o).
+"""Token <-> ground-truth-segment matching (o2o and o2m).
 
 Counterpart of ``fact_clip_tpu/models/matching.py``: the cost
 -pc * P(segment class) - a2fc * softIoU(a2f attention, segment) is computed
-on the device without gradient, crosses to the host, and scipy's Hungarian
-solver assigns one token to every valid segment of each video.  The result is
-``seg2tok (B, S)``, the token index of each ground-truth segment.  o2m and the
-on-device auction (a TPU workaround) are not ported.
+on the device without gradient and crosses to the host, where
+
+* ``o2o``: scipy's Hungarian solver assigns one token to every valid segment;
+* ``o2m``: the reference's greedy two-stage matching: a Hungarian match of
+  tokens to the video's classes, then each segment takes its cheapest token
+  of its class (a token may serve several segments of one class).
+
+The result is ``seg2tok (B, S)``, the token index of each ground-truth
+segment.  ``seq`` (transcript mode) and the on-device auction (a TPU
+workaround) are not ported.
 """
 
 from __future__ import annotations
@@ -56,14 +62,53 @@ def hungarian_host(cost: np.ndarray, nsegs: np.ndarray) -> np.ndarray:
     return out
 
 
+def o2m_host(cost: np.ndarray, transcript: np.ndarray, nsegs: np.ndarray) -> np.ndarray:
+    """o2m: the reference's greedy two-stage matching per video, in JAX's
+    loop order and numpy types (``_o2m_host``, matching.py:75-107)."""
+    B, M, S = cost.shape
+    out = np.zeros((B, S), np.int32)
+    for b in range(B):
+        s = int(nsegs[b])
+        if s == 0:
+            continue
+        c = cost[b, :, :s]
+        trans = transcript[b, :s]
+        actions = np.unique(trans)
+
+        # stage 1: Hungarian between tokens and classes (summed column costs);
+        # a token left over takes its cheapest class
+        token2action_cost = np.stack([c[:, trans == a].sum(1) for a in actions], axis=1)
+        aid, cid = linear_sum_assignment(token2action_cost)
+        unassigned = [a for a in range(M) if a not in aid]
+        unassigned_cid = token2action_cost[unassigned].argmin(1)
+        all_aid = np.array(list(aid) + unassigned)
+        all_cid = np.array([actions[i] for i in list(cid) + list(unassigned_cid)])
+        token_cid = np.zeros(M)
+        token_cid[all_aid] = all_cid
+
+        # stage 2: per class, each segment takes its cheapest token of that class
+        for a in actions:
+            seg_where = np.where(trans == a)[0]
+            token_where = np.where(token_cid == a)[0]
+            assign = c[token_where][:, seg_where].argmin(0)
+            for sidx, tpos in zip(seg_where, assign):
+                out[b, sidx] = token_where[tpos]
+    return out
+
+
 def match(loss_cfg: dict, action_cprob, a2f_attn, transcript, seg_label, seg_mask,
           frame_mask):
-    """Cost on the device, Hungarian on the host: seg2tok (B, S) int64 on
-    the inputs' device.  Only o2o matching is ported."""
-    if loss_cfg["match"] != "o2o":
-        raise ValueError(f"match mode {loss_cfg['match']!r} is not ported (o2o only)")
+    """Cost on the device, ``loss_cfg["match"]`` (o2o or o2m) on the host:
+    seg2tok (B, S) int64 on the inputs' device."""
+    mode = loss_cfg["match"]
+    if mode not in ("o2o", "o2m"):
+        raise ValueError(f"match mode {mode!r} is not ported (o2o and o2m only)")
     cost = match_cost(action_cprob, a2f_attn, transcript, seg_label, seg_mask, frame_mask,
                       float(loss_cfg["pc"]), float(loss_cfg["a2fc"]))
-    nsegs = seg_mask.sum(dim=1)
-    host = hungarian_host(cost.float().cpu().numpy(), nsegs.cpu().numpy())
+    cost = cost.float().cpu().numpy()
+    nsegs = seg_mask.sum(dim=1).cpu().numpy()
+    if mode == "o2o":
+        host = hungarian_host(cost, nsegs)
+    else:
+        host = o2m_host(cost, transcript.to(torch.int32).cpu().numpy(), nsegs)
     return torch.from_numpy(host).to(device=transcript.device, dtype=torch.int64)

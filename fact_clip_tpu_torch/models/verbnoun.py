@@ -10,7 +10,10 @@ noun heads).  Every TDU segments the video by the composed argmax (K7,
 ``ops/verbnoun_compose.py``), so the (T, n_act) composition is never kept.
 Module paths are the reference's torch keys (``blocks_SepVerbNoun.py``),
 which ``utils/torch_export.py::export_verbnoun_state_dict`` emits.  The
-model serves (eval mode); training it is not ported yet.
+model serves and trains: ``forward(..., train=True, generator=...)`` masks
+the input channels at ``cmr`` (and time spans when ``TM.use``) and runs the
+layers' dropout, every draw from the generator, as ``FACT.forward`` does;
+the TDU's composed argmax takes detached inputs (JAX's ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ..configs import BlockCfg, resolve_block_cfgs
 from ..ops import segments
 from ..ops.verbnoun_compose import composed_argmax
 from . import layers as L
-from .blocks import FACT, _apply_abranch, make_abranch, make_fbranch, make_x2y
+from .blocks import FACT, _apply_abranch, augment, make_abranch, make_fbranch, make_x2y
 
 
 def load_action_mapping(map_fname: str, sep: str = " "):
@@ -130,13 +133,13 @@ class InputBlockTDUVN(_TDUBlock):
         self.action_branch = make_abranch(c)
 
     def forward(self, frame_feature, action_feature, frame_pos, action_pos, lengths, token_len,
-                mask, vids, nids):
+                mask, vids, nids, generator=None):
         n1, n2 = self.n1, self.n2
-        frame_feature, frame_clogit = process_feature_vn(self.frame_branch(frame_feature, lengths),
-                                                         n1, n2)
+        frame_feature, frame_clogit = process_feature_vn(
+            self.frame_branch(frame_feature, lengths, generator), n1, n2)
         t = self.tdu(frame_feature, mask, vids, nids)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        None, memory=t["seg_feature"],
+                                        generator, memory=t["seg_feature"],
                                         memory_pos=frame_pos[t["centers"]],
                                         memory_len=t["seg_len"])
         action_feature, action_clogit = process_feature_vn(action_feature, n1 + 1, n2 + 1)
@@ -158,22 +161,24 @@ class UpdateBlockTDUVN(_TDUBlock):
         self.frame_branch = make_fbranch(c, None)
 
     def forward(self, frame_feature, action_feature, frame_pos, action_pos, lengths, token_len,
-                mask, vids, nids):
+                mask, vids, nids, generator=None):
         n1, n2 = self.n1, self.n2
         t = self.tdu(frame_feature, mask, vids, nids)
         seg_feature, seg_pos = t["seg_feature"], frame_pos[t["centers"]]
         action_feature, f2a_attn_seg, f2a_logit = self.f2a_layer(
-            seg_feature, action_feature, x_pos=seg_pos, y_pos=action_pos, x_len=t["seg_len"])
+            seg_feature, action_feature, x_pos=seg_pos, y_pos=action_pos, x_len=t["seg_len"],
+            generator=generator)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        None)
+                                        generator)
         action_feature, action_clogit = process_feature_vn(action_feature, n1 + 1, n2 + 1)
         seg_out, a2f_attn_seg, a2f_logit = self.a2f_layer(
-            action_feature, seg_feature, x_pos=action_pos, y_pos=seg_pos, x_len=token_len)
+            action_feature, seg_feature, x_pos=action_pos, y_pos=seg_pos, x_len=token_len,
+            generator=generator)
         # segment -> frame: the one-hot P rows make the product the gather
         P = t["P"]
         frame_feature = self.sf_merge(torch.cat([P @ seg_out, frame_feature], dim=-1))
-        frame_feature, frame_clogit = process_feature_vn(self.frame_branch(frame_feature, lengths),
-                                                         n1, n2)
+        frame_feature, frame_clogit = process_feature_vn(
+            self.frame_branch(frame_feature, lengths, generator), n1, n2)
         saves = self._saves(frame_clogit, t["seg_clogit"], action_clogit, vids, nids, t, "U")
         saves.update({"f2a_attn": f2a_attn_seg @ P.transpose(1, 2),  # (B, M, T)
                       "f2a_attn_logit": f2a_logit,  # (B, M, S)
@@ -188,11 +193,14 @@ class VerbNounFACT(nn.Module):
     buffers, not parameters (the reference's state_dict has no such key)."""
 
     def __init__(self, block_cfgs, in_dim: int, n_classes1: int, n_classes2: int, vids, nids,
-                 ntoken: int, fpos: bool, s_pred_cap: int):
+                 ntoken: int, fpos: bool, s_pred_cap: int, cmr: float = 0.0,
+                 tm: dict | None = None):
         super().__init__()
         self.block_cfgs = tuple(block_cfgs)
         self.in_dim, self.n_classes1, self.n_classes2 = in_dim, n_classes1, n_classes2
         self.ntoken, self.fpos, self.s_pred_cap = ntoken, fpos, s_pred_cap
+        self.cmr = float(cmr)
+        self.tm = dict(tm or {"use": False})
         self.kernels_enabled = any(c.pallas for c in self.block_cfgs)
         self.register_buffer("vids", torch.as_tensor(np.asarray(vids, np.int32)), persistent=False)
         self.register_buffer("nids", torch.as_tensor(np.asarray(nids, np.int32)), persistent=False)
@@ -213,13 +221,19 @@ class VerbNounFACT(nn.Module):
 
     set_kernels = FACT.set_kernels
 
-    def forward(self, feats, mask, lengths):
-        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,)."""
-        self.train(False)
+    def forward(self, feats, mask, lengths, train: bool = False, generator=None):
+        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,).
+
+        ``train`` puts the model in train mode for the call, as
+        ``FACT.forward`` does: the masks and dropout draw from ``generator``,
+        a ``torch.Generator`` on the model's device."""
+        self.train(train)
         B, T, _ = feats.shape
         bi = self.block_cfgs[0]
         lengths = lengths.to(device=feats.device, dtype=torch.int32)
         mask = torch.arange(T, device=feats.device)[None, :] < lengths[:, None]
+        if train:
+            feats = augment(feats, lengths, self.cmr, self.tm, generator)
         frame_pos = L.positional_encoding_table(T, bi.hid_dim, empty=not self.fpos,
                                                 device=feats.device)
         action_pos = self.action_query.transpose(0, 1)  # (1, M, a_dim), shared by the batch
@@ -230,7 +244,7 @@ class VerbNounFACT(nn.Module):
         for block in self.block_list:
             frame_feature, action_feature, saves = block(
                 frame_feature, action_feature, frame_pos, action_pos, lengths, token_len, mask,
-                self.vids, self.nids)
+                self.vids, self.nids, generator)
             saves_list.append(saves)
         return saves_list, frame_feature
 
@@ -251,7 +265,8 @@ def build_verbnoun_fact(cfg: dict, in_dim: int, vids, nids, s_pred_cap: int,
         device = "cuda"
     with torch.device("meta"):
         model = VerbNounFACT(resolve_block_cfgs(cfg), in_dim, n_classes1, n_classes2, vids, nids,
-                             cfg["FACT"]["ntoken"], cfg["FACT"]["fpos"], s_pred_cap)
+                             cfg["FACT"]["ntoken"], cfg["FACT"]["fpos"], s_pred_cap,
+                             cmr=cfg["FACT"].get("cmr", 0.0), tm=cfg.get("TM"))
     model = model.to_empty(device=device)
     model.vids = torch.as_tensor(np.asarray(vids, np.int32), device=device)
     model.nids = torch.as_tensor(np.asarray(nids, np.int32), device=device)

@@ -68,3 +68,10 @@ def block_sums(part, n_vec: int, C: int):
     """(n_blocks, n_vec, C) per-block column sums -> (n_vec, C)."""
     return reduce(part, G=1, P=part.shape[0], pstride=n_vec * C, gstride=0, rows=n_vec,
                   rstride=C, cols=C)[0]
+
+
+def col_sums(x):
+    """(..., C) -> (C,): the sum of every row, in row order."""
+    C = x.shape[-1]
+    return reduce(x, G=1, P=x.numel() // C, pstride=C, gstride=0, rows=1, rstride=0,
+                  cols=C).view(C)

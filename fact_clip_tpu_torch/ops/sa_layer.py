@@ -5,8 +5,9 @@ Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py``: ``sa_sublayer``
 (``_sa_fwd_impl`` / ``_sa_fwd_kernel``, backward ``_sa_bwd`` /
 ``_sa_bwd_kernel``), ``ffn_sublayer`` (``_ffn_fwd_impl`` / ``_ffn_fwd_kernel``,
 ``_ffn_bwd`` / ``_ffn_bwd_kernel``) and the mask replays ``sa_dropout_masks``
-and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (one block per video),
-``csrc/dropout.cu`` and ``csrc/grad.cu``:
+and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (one block per video,
+but the SA backward over (tile, head, video) blocks at any token count of
+the zoo), ``csrc/dropout.cu`` and ``csrc/grad.cu``:
 
 * ``sa_sublayer``:  y = LN(x + drop(MHA(x + pos, x + pos, x) @ Wo + bo)), the
   attention probabilities dropped at ``rate_attn``;
@@ -203,11 +204,26 @@ def sa_sublayer_bwd_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, 
             dout.sum(dim=(0, 1)), dgamma, dbeta)
 
 
+# csrc/sa_layer.cu's SA backward tiling; change them together with the kernel
+SA_TILE = 32  # query rows or keys of an attention block (QT)
+SA_ROWS = 64  # token rows of a row-tile block (BM)
+SA_WARPS = 8  # warps of a block (fk::kWarps)
+
+
+def sa_bwd_smem(M: int, E: int, num_heads: int) -> int:
+    """Bytes of the SA backward's largest attention block: one head's rows of
+    every key (k, v) or query (q, dc), the tile's two (``SA_TILE``, hd + 1)
+    panels, and per warp one M-long row (the query-tile kernels; the key-tile
+    kernel's 3 M floats of row statistics are fewer)."""
+    ldh = E // num_heads + 1
+    return 4 * (2 * M * ldh + 2 * SA_TILE * ldh + SA_WARPS * M)
+
+
 def has_backward(M: int, E: int, num_heads: int) -> bool:
-    """The SA backward's block (GEMM staging, one head's q, k, v and dc rows,
-    two (M, M) panels and the LN row statistics) fits in shared memory."""
-    hd = E // num_heads
-    return _build.GEMM_SMEM + 4 * (4 * M * (hd + 1) + 2 * M * M + 2 * M) <= _build.MAX_SMEM
+    """The SA backward's blocks fit in shared memory (97,248 bytes at epic's
+    M=300, E=256, H=8) and a head is at most 64 wide (two dimensions a lane
+    in the key-tile kernel)."""
+    return E // num_heads <= 64 and sa_bwd_smem(M, E, num_heads) <= _build.MAX_SMEM
 
 
 def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
@@ -227,26 +243,30 @@ def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g
     wot = wo.t().contiguous()
     wqkt = torch.cat([wq.t(), wk.t()], dim=0).contiguous()
     wvt = wv.t().contiguous()
-    scratch = torch.empty((B, 5, M, E), **f32)
-    c, dout, dv, dxa, dx = (torch.empty_like(x) for _ in range(5))
+    qkv = torch.empty((B, 3, M, E), **f32)
+    c, dres, dout, dc, dv, dxa, dx = (torch.empty_like(x) for _ in range(7))
+    stats = torch.empty((B, num_heads, M, 3), **f32)  # softmax max, 1 / sum, D per query row
     dqk = torch.empty((B, M, 2 * E), **f32)
-    part = torch.empty((B, 6, E), **f32)
+    part = torch.empty((B * -(-M // SA_ROWS), 2, E), **f32)  # dgamma, dbeta per row tile
     err = _build.lib().fk_sa_bwd(
         x.data_ptr(), _ptr(pos_t), Pp, wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
         wot.data_ptr(), wqkt.data_ptr(), wvt.data_ptr(), _ptr(keep_attn), _ptr(keep_out),
-        g.data_ptr(), scratch.data_ptr(), c.data_ptr(), dout.data_ptr(), dqk.data_ptr(),
-        dv.data_ptr(), dxa.data_ptr(), dx.data_ptr(), part.data_ptr(), B, M, E, num_heads,
-        float(eps), _build.stream_ptr(x.device))
+        g.data_ptr(), qkv.data_ptr(), c.data_ptr(), dres.data_ptr(), dout.data_ptr(),
+        dc.data_ptr(), stats.data_ptr(), dqk.data_ptr(), dv.data_ptr(), dxa.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), B, M, E, num_heads, float(eps),
+        _build.stream_ptr(x.device))
     _build.check("fk_sa_bwd", err)
-    # per-video partial products and column sums, summed in a fixed order
+    # partial products, column sums and the per-tile LN sums, summed in a fixed order
     dwqk = _grad.atb(x, dqk, pos=pos_t)[0]
     dwv = _grad.atb(x, dv)[0]
     dwo = _grad.atb(c, dout)[0]
-    dbq, dbk, dbv, dbo, dgamma, dbeta = _grad.block_sums(part, 6, E)
+    dbq, dbk = _grad.col_sums(dqk).split(E)
+    dgamma, dbeta = _grad.block_sums(part, 2, E)
     dpos = _grad.batch_sum(dxa, Pp).view(pos.shape) if pos is not None else None
     sa_sublayer_bwd.launches += 1
-    return (dx, dpos, dwqk[:, :E], dbq, dwqk[:, E:], dbk, dwv, dbv, dwo, dbo, dgamma, dbeta)
+    return (dx, dpos, dwqk[:, :E], dbq, dwqk[:, E:], dbk, dwv, _grad.col_sums(dv), dwo,
+            _grad.col_sums(dout), dgamma, dbeta)
 
 
 sa_sublayer_bwd.launches = 0

@@ -9,8 +9,9 @@ the argmax and the decode's blend go to the K7 wrappers
 (``ops/compose_decode.py``), which launch their CUDA kernels on CUDA tensors
 and run their plain versions on CPU ones; without it they are JAX's dense
 path (one transient (B, T, n_act) pass).  The factored argmax, which no
-model path runs, is the K7c wrapper itself.  JAX's ``chunk`` streaming
-variants are not ported.
+model path runs, is the K7c wrapper itself.  ``composed_smooth_loss`` (the
+training loss; JAX has no kernel for it) is JAX's dense path.  JAX's
+``chunk`` streaming variants are not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +54,19 @@ def composed_argmax(lv, ln, vids, nids, kernel: bool = False):
     if kernel:
         return k7.compose_argmax(lv.detach().contiguous(), ln.detach().contiguous(), vids, nids)
     return k7.compose_argmax_reference(lv, ln, vids, nids)
+
+
+def composed_smooth_loss(lv, ln, vids, nids, pair_mask):
+    """The smoothing loss over the composed log-probs (JAX's dense form,
+    ``chunk >= n_act``): the mean over valid adjacent frame pairs and all
+    n_act actions of clip(diff^2, 0, 16), diff the composed log-prob's step
+    in time; (B,), differentiable.  It makes dense (B, T-1, n_act)
+    transients (374 MB each at 1 x 24,576 x 3,806), as JAX's does."""
+    n_act = vids.shape[0]
+    d = (lv[:, 1:] - lv[:, :-1])[..., vids.long()] + (ln[:, 1:] - ln[:, :-1])[..., nids.long()]
+    d = (d * d).clamp(0.0, 16.0)
+    total = (d * pair_mask.to(d.dtype)[..., None]).sum(dim=(1, 2))
+    return total / (pair_mask.sum(dim=1) * n_act).to(d.dtype).clamp(min=1e-12)
 
 
 def composed_decode(action_logp, a2f_attn, lv, ln, vids, nids, weight: float, token_mask,

@@ -18,13 +18,15 @@ the step is the train step of ``train_cfg()`` (every kernel on,
 dropout 0.2, channel masking 0.3, Adam) on a seeded batch of 8 x 3072 with
 piecewise-constant labels, or of ``breakfast_train_cfg()`` (dropout 0,
 channel masking 0.3, time masking, nullw resolved from the batch) on 4 x
-4096 (the verb/noun model serves only).  Needs a CUDA card; f32 with TF32
-off.
+4096, or of ``epic_train_cfg()`` (channel masking 0.3, o2m matching, the
+verb/noun losses) on one 24,576-frame video of ``engine.train_loop.
+epic_batch``.  Needs a CUDA card; f32 with TF32 off.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -33,10 +35,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_vocab, flagship_cfg
-from .configs import train_cfg
+from .configs import breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg, epic_vocab
+from .configs import flagship_cfg, train_cfg
 from .engine.steps import make_eval_step, make_train_step
-from .engine.train_loop import batch_to_device, synthetic_batch, synthetic_set_stats
+from .engine.train_loop import batch_to_device, epic_batch, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
 from .models.losses import build_class_weights, compute_null_weight
 from .models.verbnoun import build_verbnoun_fact
@@ -47,16 +49,20 @@ def _build_epic(cfg, D, C, s_pred_cap, **kw):
     return build_verbnoun_fact(cfg, D, *epic_vocab(), s_pred_cap, **kw)
 
 
+_synthetic = functools.partial(synthetic_batch, S=32)  # up to 32 segments a video
+
 # (eval config, train config, D, classes, s_pred_cap, padded T, the eval videos' lengths,
-#  the model builder)
+#  the model builder, the train batch maker (rng, D, classes, T=, lengths=))
 SETUPS = {
     "flagship": (flagship_cfg, train_cfg, 2048, 75, 128, 3072,
-                 [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400], build_fact),
+                 [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400], build_fact, _synthetic),
     "breakfast": (breakfast_cfg, breakfast_train_cfg, 2048, 48, 64, 4096,
-                  [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100], build_fact),
-    "epic": (epic_cfg, None, 1024, 3806, 256, 24576, [24576], _build_epic),
+                  [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100], build_fact, _synthetic),
+    "epic": (epic_cfg, epic_train_cfg, 1024, 3806, 256, 24576, [24576], _build_epic,
+             epic_batch),
 }
-TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "breakfast": [4096, 3600, 2500, 1400]}
+TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "breakfast": [4096, 3600, 2500, 1400],
+                 "epic": [24576]}
 
 
 def wall_ms(step, args, n):
@@ -83,8 +89,8 @@ def device_kernels(step, args, n):
 def train_step_args(name, dev):
     """(model, step, args) of the train step of ``name`` on a seeded batch;
     a config's ``nullw = -1`` is resolved from that batch."""
-    _, make_train_cfg, D, C, S_CAP, T, _, build = SETUPS[name]
-    batch = synthetic_batch(np.random.default_rng(0), D, C, 32, T, TRAIN_LENGTHS[name])
+    _, make_train_cfg, D, C, S_CAP, T, _, build, make_batch = SETUPS[name]
+    batch = make_batch(np.random.default_rng(0), D, C, T=T, lengths=TRAIN_LENGTHS[name])
     cfg = make_train_cfg()
     if cfg["Loss"]["nullw"] < 0:
         cfg = compute_null_weight(cfg, synthetic_set_stats([batch], C))
@@ -95,7 +101,7 @@ def train_step_args(name, dev):
 
 def eval_step_args(name, dev):
     """(model, step, args) of the eval step of ``name`` on seeded features."""
-    make_cfg, _, D, C, S_CAP, T, lengths, build = SETUPS[name]
+    make_cfg, _, D, C, S_CAP, T, lengths, build, _ = SETUPS[name]
     cfg = make_cfg()
     model = build(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(0))
     lens = np.array(lengths, np.int32)
@@ -116,8 +122,6 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA card")
-    if a.train and SETUPS[a.cfg][1] is None:
-        raise SystemExit(f"--cfg {a.cfg} serves only: no train step")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

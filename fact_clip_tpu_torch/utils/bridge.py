@@ -33,6 +33,7 @@ def load_jax_params(model, params) -> None:
     model.load_state_dict(state_dict_from_jax(params, model.block_cfgs, verbnoun), strict=True)
 
 
-def grads_from_jax(grads, block_cfgs) -> dict:
-    """A JAX gradient tree of FACT's params -> {port parameter name: gradient}."""
-    return state_dict_from_jax(grads, block_cfgs)
+def grads_from_jax(grads, block_cfgs, verbnoun: bool = False) -> dict:
+    """A JAX gradient tree of FACT's (or with ``verbnoun`` VerbNounFACT's)
+    params -> {port parameter name: gradient}."""
+    return state_dict_from_jax(grads, block_cfgs, verbnoun)

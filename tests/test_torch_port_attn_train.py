@@ -138,7 +138,8 @@ def test_k3_masked_keys_get_no_gradient():
 # K4
 
 def _sa_inputs(rng, B, M, E, F):
-    w = lambda *s: _pair(rng, s, 0.15)  # noqa: E731
+    # weights at 0.15 for E = 32, and at the same fan-in scale for wider E
+    w = lambda *s: _pair(rng, s, 0.15 * (32 / E) ** 0.5)  # noqa: E731
     x, pos = _pair(rng, (B, M, E)), _pair(rng, (1, M, E), 0.5)
     sa = [w(E, E), w(E), w(E, E), w(E), w(E, E), w(E), w(E, E), w(E)]
     ln = [_pair(rng, (E,), 0.2, 1.0), _pair(rng, (E,), 0.2)]
@@ -148,7 +149,12 @@ def _sa_inputs(rng, B, M, E, F):
     return x, pos, sa, ln, ffn, _pair(rng, (B, M, E))
 
 
-@pytest.mark.parametrize("M", [11, 40])
+# (B, E, H) per token count: narrow ones, epic's (M=300, E=256, H=8) and
+# egoprocel's M=200
+SA_SHAPES = {11: (3, 32, 4), 40: (3, 32, 4), 300: (1, 256, 8), 200: (2, 256, 8)}
+
+
+@pytest.mark.parametrize("M", [11, 40, 300, 200])
 def test_k4_sa_backward_matches_jax_grad_through_the_pallas_kernel(M):
     """Rate 0: the SA plain backward and autograd entry against jax.vjp of
     sa_sublayer (interpret mode): dx, d(pos) (summed over the videos) and
@@ -156,7 +162,7 @@ def test_k4_sa_backward_matches_jax_grad_through_the_pallas_kernel(M):
     from fact_clip_tpu.ops.pallas.sa_layer import sa_sublayer
 
     rng = np.random.default_rng(10 + M)
-    B, E, H, F = 3, 32, 4, 48
+    (B, E, H), F = SA_SHAPES[M], 48
     x, pos, sa, ln, _, g = _sa_inputs(rng, B, M, E, F)
     params = [x, pos, *sa, *ln]
 

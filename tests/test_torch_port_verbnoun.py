@@ -15,8 +15,9 @@
   kernel entries and on its plain path.  ``Predictor`` equals the eval step
   per video.
 * The port's copy of ``load_vids_nids`` equals JAX's on an epic fixture.
-* Shared memory at epic's widths: K4's SA forward fits at M = 300 tokens
-  and its backward does not (training epic needs a redesigned backward).
+* Shared memory at epic's widths: K4's SA forward fits at M = 300 tokens,
+  and so do the SA backward's tiled blocks (at M = 300 and at egoprocel's
+  M = 200); the train step builds for the verb/noun model.
 """
 
 import dataclasses
@@ -87,18 +88,24 @@ def test_epic_shapes_at_full_width():
     assert len(b0.action_branch.layers) == 6 and len(b1.action_branch.layers) == 1
     assert b1.sf_merge[0].weight.shape == (256, 768)
     assert model.action_query.shape == (300, 1, 256)
-    with pytest.raises(NotImplementedError, match="serves only"):
-        make_train_step(model, epic_cfg(), 3806, np.ones(3807, np.float32))
+    step = make_train_step(model, epic_cfg(), 3806, np.ones(3807, np.float32))
+    assert step.verbnoun and step.cweight.shape == (3807,)
+    with pytest.raises(ValueError, match="3807"):
+        make_train_step(model, epic_cfg(), 3806, np.ones(3806, np.float32))
 
 
 def test_shared_memory_at_epic_widths(monkeypatch):
     """K4 at M = 300, E = 256, H = 8: the forward's block is 169,872 bytes,
-    the SA backward's 922,272 (it fits up to M ~ 124); K6 at C = 256; K7 at
-    98 / 301 / 3,806."""
-    assert sa_layer.has_forward(300, 256, 8) and not sa_layer.has_backward(300, 256, 8)
+    the SA backward's largest block (one head's k and v rows of every key,
+    a 32-row tile's q and dc rows, an M-long row per warp) 97,248; at
+    egoprocel's M = 200 67,648; it fits up to M = 756 at hd = 32 and refuses
+    heads wider than 64; K6 at C = 256; K7 at 98 / 301 / 3,806."""
+    assert sa_layer.has_forward(300, 256, 8) and sa_layer.has_backward(300, 256, 8)
     assert _build.GEMM_SMEM + 4 * (8 * 300 + 3 * 300 * 33) == 169872
-    assert _build.GEMM_SMEM + 4 * (4 * 300 * 33 + 2 * 300 ** 2 + 2 * 300) == 922272
-    assert sa_layer.has_backward(120, 256, 8) and not sa_layer.has_backward(128, 256, 8)
+    assert sa_layer.sa_bwd_smem(300, 256, 8) == 4 * (2 * 300 * 33 + 2 * 32 * 33 + 8 * 300) == 97248
+    assert sa_layer.has_backward(200, 256, 8) and sa_layer.sa_bwd_smem(200, 256, 8) == 67648
+    assert sa_layer.has_backward(756, 256, 8) and not sa_layer.has_backward(757, 256, 8)
+    assert sa_layer.has_backward(60, 512, 8) and not sa_layer.has_backward(40, 512, 4)
     assert dilated_conv.has_forward2(256) and dilated_conv.has_backward2(256)
     assert compose_decode.compose_smem(98, 301, 3806) == 66296
     assert compose_decode.factored_smem(98, 301) == 130760
@@ -115,8 +122,12 @@ def test_shared_memory_at_epic_widths(monkeypatch):
     w = [meta(E, E), meta(E)] * 4 + [meta(E), meta(E)]
     with pytest.raises(Launched):  # the serving forward reaches its launch
         sa_layer.sa_sublayer_fwd(meta(1, 300, E), meta(1, 300, E), *w, num_heads=8)
-    with pytest.raises(NotImplementedError, match="M=300"):  # the backward is refused first
-        sa_layer.sa_sublayer_bwd(meta(1, 300, E), meta(1, 300, E), *w, meta(1, 300, E),
+    for M in (300, 200):  # the backward reaches its launch too
+        with pytest.raises(Launched):
+            sa_layer.sa_sublayer_bwd(meta(1, M, E), meta(1, M, E), *w, meta(1, M, E),
+                                     num_heads=8)
+    with pytest.raises(NotImplementedError, match="M=800"):  # past the bound: refused first
+        sa_layer.sa_sublayer_bwd(meta(1, 800, E), meta(1, 800, E), *w, meta(1, 800, E),
                                  num_heads=8)
 
 
