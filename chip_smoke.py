@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
 serving, training, for the flagship, for Breakfast and for the
-Epic-Kitchens verb/noun model.
+Epic-Kitchens verb/noun model, and the flagship served with int8
+evaluation.
 
     python3 chip_smoke.py
 
@@ -47,6 +48,17 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    M=200, the ragged B=3, M=11 and the flagship shape, each with and
    without dropout), K2 small-X over 256 segment keys (f2a, forward and
    backward) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
+   The int8 rows (K8, ``TPU.quantize_infer: "int8"``): the int8 MSTCN tower
+   at 8 x 3072 x 256, 10 layers, no LN, at a ragged B=3, T=600 (600 / 517 /
+   90 frames: the d=512 taps fall outside the videos) without and with LN;
+   X2Y small-X at Y=3072, X=40, d=512 and a ragged (2, 1000, 37); X2Y flash
+   at X=3072, M=40 and X=1100 with ragged keys; the SCA cross-attention at
+   M=40, E=256, H=8, X=3072 and a ragged B=3, M=11, X=1100.  Their integer
+   parts (the tower's 8-frame group and tile maxima, which make its
+   activation scales; the frames as the row quantizer makes them) must
+   equal the plain versions', their f32 results lie within REL_TOL, and the
+   no-LN tower prints its share of bit-equal elements.  Their bound adds
+   the int8 products at the dense int8 rate (1,979 TOP/s) to the f32 work.
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -99,9 +111,18 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    channel masking off, ``train_compare`` on one shared o2m matching and
    one shared TDU segmentation (the plain path's four composed argmaxes,
    replayed in every other run).
-10. the JSON line of kernel results (K7's launches from phase 8; the
-   factored argmax, a verification oracle, launches 0 there), the
-   nvidia-smi line, and last the contract line {"ok": true, "device": {...}}.
+10. int8 serving: ``flagship_int8_cfg()`` at full width with phase 4's
+   weights (a state_dict round trip) serves phase 4's 10 requests through
+   ``Predictor(batch_size=8)``: each K8 kernel launches as often as its f32
+   twin did in phase 4 (per 8 x 3072 batch: tower 4, small-X 5, flash 1,
+   SCA 6), the f32 twins 0 times, SA and FFN as there.  Then on one
+   8 x 3072 batch the warm predict and eval step (median of 5) with peak
+   memory of the int8 kernel path, the int8 plain path and the f32 kernel
+   path; the int8 kernel path against the int8 plain path (block-0 logits,
+   predictions), and against the f32 path (printed, not gated).
+11. the JSON line of kernel results (K7's launches from phase 8, K8's from
+   phase 10; the factored argmax, a verification oracle, launches 0 there),
+   the nvidia-smi line, and last the contract line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -119,6 +140,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_LENGTHS = [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400]
+FLAGSHIP_DIMS = (2048, 75, 128)  # D, classes, s_pred_cap
 BF_SERVE_LENGTHS = [6000, 4096, 3900, 3500, 3000, 2500, 2000, 1500, 900, 600]
 BF_EVAL_LENGTHS = [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100]
 BF_TRAIN_LENGTHS = [4096, 3600, 2500, 1400]
@@ -221,6 +243,7 @@ def phase_build(verbose: bool = False):
 
 PEAK_F32 = 67e12  # FLOP/s: float32 outside the tensor cores (H100 SXM data sheet)
 PEAK_BYTES = 3.35e12  # bytes/s of HBM3 (H100 SXM data sheet)
+PEAK_INT8 = 1979e12  # int8 tensor-core operations/s, dense (H100 SXM data sheet)
 MASK_SEEDS = 32  # seeds whose flagship-shaped masks pool into one keep rate
 KEEP_TOL = 1e-3  # |pooled keep rate - 0.8|
 
@@ -277,11 +300,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in _flat(list(tensors)) if t is not None)
 
 
-def bound(flops: float, n_bytes: float):
+def bound(flops: float, n_bytes: float, int8_ops: float = 0.0):
     """(ms, "operations" or "bytes"): the least time the card needs for the
-    work, the larger of the operations at the f32 peak and the bytes at the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    work, the larger of the operations (f32 at the f32 peak plus int8 at the
+    int8 tensor-core peak) and the bytes at the memory rate."""
+    t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -827,14 +851,131 @@ def k7c_case(rng, B, T, vocab, lengths, coarse=False):
             lambda: k7.factored_argmax_reference(lv, ln, mvn, at), work, judge)
 
 
+def q8_judge(name, floats, ints, probs=None, bit_share=False):
+    """K8's check: the integer parts (``ints(out)`` of the kernel result and
+    of the plain one: quantized operands, row and tile scales) equal, the f32
+    results (``floats(out)``) within REL_TOL, probabilities within PROB_TOL;
+    with ``bit_share`` the share of bit-equal f32 elements is printed (the
+    no-LN tower: bit equality expected)."""
+    import torch
+
+    def judge(out, ref):
+        ki, pi = _flat(ints(out)), _flat(ints(ref))
+        same = len(ki) == len(pi) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                          for a, b in zip(ki, pi))
+        fo, fr = _flat(floats(out)), _flat(floats(ref))
+        torch.cuda.synchronize()
+        err_abs, err_rel = compare(name, fo, fr)
+        ok = same and err_rel <= REL_TOL
+        text = (f"integer parts equal {same} ({len(ki)} tensors); max_abs_err {err_abs:.3e} "
+                f"max_rel_err {err_rel:.3e} (tol {REL_TOL:g})")
+        if probs is not None:
+            p_err = float((probs(out) - probs(ref)).abs().max())
+            ok = ok and p_err <= PROB_TOL
+            text += f" probs_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
+        if bit_share:
+            eq = sum(int((a == b).sum()) for a, b in zip(fo, fr))
+            text += f"; bit-equal share {eq / sum(a.numel() for a in fo):.7f}"
+        return text, ok, err_abs
+
+    return judge
+
+
+def k8a_case(rng, B, T, C, L, lengths, use_ln):
+    """K8a, the int8 tower, with its group and tile maxima (the integer
+    parts: they make the activation scales) beside the output."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    (x, lens, layers, dil), _ = k1_case(rng, B, T, C, C, [2 ** i for i in range(L)], lengths,
+                                        use_ln)
+    ql = qc.quantize_tower(layers)
+    tile, _, T_pad, _ = qc._stack_layout(T, dil, 512)
+    kw = dict(use_ln=use_ln, eps=1e-5, scales=True)
+    N = _valid(lens, T)
+    # The 3-tap product is needed on the rows whose ReLU output feeds a tile's
+    # s_a: the valid rows and, past a video's end, the rows within d of it in
+    # its last tile (further on the taps read zeros and a = relu(bd)).  The
+    # 1x1 product and the f32 work a frame and channel (two quantizations, two
+    # dequantizations with bias, ReLU, the residual, LN) only on valid rows.
+    tap_rows = sum(min(n + d, -(-n // tile) * tile, T_pad)
+                   for d in dil for n in lens.clamp(max=T).tolist())
+    work = (L * (12 + (8 if use_ln else 0)) * N * C, nbytes(x, lens, ql) + B * T * C * 4,
+            (6 * tap_rows + 2 * L * N) * C * C)
+    judge = q8_judge("mstcn_stack_q8", lambda o: o[0], lambda o: o[1:],
+                     bit_share=not use_ln)
+    return (lambda: qc.mstcn_stack_q8(x, lens, ql, dil, **kw),
+            lambda: qc.mstcn_stack_q8_reference(x, lens, ql, dil, **kw), work, judge)
+
+
+def _frames_judge(judge, frames):
+    """``judge`` on (the function's outputs, each side's row-quantized frames):
+    ``frames()`` gives [(kernel (q, s), plain (q, s))] of the row quantizer
+    (csrc/quant.cu) against ``_quantize_rows`` on the same inputs."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+    from fact_clip_tpu_torch.ops.pos import add_pos
+
+    def pair(x, pos):
+        q, sc = qc._quantize_rows(add_pos(x, pos))
+        return qc._rows_q8(x, pos), (q, sc[..., 0])
+
+    def run(out, ref):
+        pairs = [pair(*f) for f in frames]
+        return judge((_flat(out), [k for k, _ in pairs]), (_flat(ref), [p for _, p in pairs]))
+
+    return run
+
+
+def k8bc_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
+    """K8b (frames are the queries) or K8c (frames are the keys): attn,
+    probs and logits, and the frames as the row quantizer makes them (the
+    integer parts) against the plain ones."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
+    qw = tuple(qc.quantize_proj(w) for w in args[4:10:2])
+    Xv = _valid(args[10], X)
+    if flash:  # int8 K / V over the valid keys, f32 q projection, logits and attend
+        flops, int8_ops = 2 * B * Y * Cy * d + 4 * Y * d * Xv, 4 * Xv * Cx * d
+        frames = [(args[2], args[3]), (args[2], None)]
+    else:  # int8 q projection of the frames; f32 K / V of the tokens, logits and attend
+        flops, int8_ops = 4 * B * X * Cx * d + 4 * Y * d * Xv, 2 * B * Y * Cy * d
+        frames = [(args[0], args[1])]
+    work = (flops, nbytes(args[:4], args[5:10:2], args[10], qw) + (B * Y * d + 2 * B * Y * X) * 4,
+            int8_ops)
+    name = "x2y_flash_q8" if flash else "x2y_small_x_q8"
+    judge = q8_judge(name, lambda o: o[0], lambda o: o[1], probs=lambda o: o[0][1])
+    fn = qc.x2y_flash_q8 if flash else qc.x2y_small_x_q8
+    return (lambda: fn(*args, qweights=qw),
+            lambda: qc.x2y_attention_q8_reference(*args, qweights=qw), work,
+            _frames_judge(judge, frames))
+
+
+def k8d_case(rng, B, M, X, E, Cx, H, x_len, pos):
+    """K8d: SCA cross-attention with int8 K / V projections, and the frames
+    as the row quantizer makes them (x + pos for K, x for V)."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    args = mha_case(rng, B, M, X, E, Cx, x_len, pos)
+    qw = (qc.quantize_proj(args[3]), qc.quantize_proj(args[5]))
+    Xv = _valid(args[7], X)
+    work = (4 * M * E * Xv, nbytes(args[:3], args[4], args[6], args[7], qw) + B * M * E * 4,
+            4 * Xv * Cx * E)
+    judge = q8_judge("mha_cross_q8", lambda o: o[0], lambda o: o[1])
+    return (lambda: qc.mha_cross_q8(*args, num_heads=H, qweights=qw),
+            lambda: qc.mha_cross_q8_reference(*args, num_heads=H, qweights=qw), work,
+            _frames_judge(judge, [(args[1], args[2]), (args[1], None)]))
+
+
 def kernel_table():
     """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
     fn, (flops, bytes)))]).  Every case is timed; the first is the flagship's
     (or Breakfast's) and gives the JSON row.
     check: "rel" (relative error), "probs" (also the probabilities' absolute
     error), "mask" (bit-equal; the keep rate pooled over MASK_SEEDS seeds
-    at the flagship shape) or "argmax" (integer picks: equal or proven ties,
-    the case's own ``judge``)."""
+    at the flagship shape) or "argmax" (the case's own ``judge``: K7's
+    integer picks equal or proven ties, K8's integer parts equal and its
+    f32 results within REL_TOL).  A case's work is (f32 FLOP, bytes) or
+    (f32 FLOP, bytes, int8 operations)."""
     import torch
 
     B, T, D = 8, 3072, 512
@@ -993,6 +1134,26 @@ def kernel_table():
          [("epic", lambda r: k7c_case(r, 1, ET, epic_voc, [ET])),
           ("ragged", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag)),
           ("ties", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
+        # int8 evaluation (flagship_int8_cfg): K8a-K8d at the flagship's shapes
+        ("mstcn_stack_q8", csrc + "quant.cu", pallas + "quant_conv.py:217", "argmax",
+         [("flagship", lambda r: k8a_case(r, B, T, 256, 10, FLAGSHIP_LENGTHS, False)),
+          ("ragged", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, False)),
+          ("ln", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, True))]),
+        ("x2y_small_x_q8", csrc + "x2y_attn.cu", pallas + "quant_conv.py:594", "argmax",
+         [("flagship", lambda r: k8bc_case(r, False, B, T, 40, D, D, D, [40] * B,
+                                           zeros(1, T, D), _rand(r, (1, 40, 256)))),
+          ("ragged", lambda r: k8bc_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
+                                         _rand(r, (2, 1000, D)), _rand(r, (1, 37, D))))]),
+        ("x2y_flash_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:519", "argmax",
+         [("flagship", lambda r: k8bc_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
+                                           _rand(r, (1, 40, 256)), zeros(1, T, D))),
+          ("ragged", lambda r: k8bc_case(r, True, 2, 37, 1100, D, D, D, [1100, 901],
+                                         _rand(r, (1, 37, D)), _rand(r, (1, 1100, D))))]),
+        ("mha_cross_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:715", "argmax",
+         [("flagship", lambda r: k8d_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                          zeros(1, T, D))),
+          ("ragged", lambda r: k8d_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
+                                        _rand(r, (1, 1100, D))))]),
     ]
 
 
@@ -1019,9 +1180,9 @@ def check_mask(name, make, rng, pooled: bool):
 
 def phase_kernels(seed: int = 0):
     """Every kernel against its plain version on the same inputs, each case
-    timed beside the plain version and the bound.  A case is (kernel, plain,
-    work) or (kernel, plain, work, view), where ``view`` picks from both
-    results what is compared."""
+    timed beside the plain version and the bound.
+    A case is (kernel, plain, work) or (kernel, plain, work, view), where
+    ``view`` picks from both results what is compared."""
     import torch
 
     results = {}
@@ -1056,8 +1217,9 @@ def phase_kernels(seed: int = 0):
                 ms = cuda_ms(kern, iters, warmup=1)
                 plain_ms = cuda_ms(plain, iters, warmup=1)
                 bound_ms, bound_by = bound(*work)
+                int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 else ""
                 text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-                         f"({bound_by}; {work[0]:.4g} FLOP, {work[1]:.4g} bytes) "
+                         f"({bound_by}; {work[0]:.4g} FLOP{int8}, {work[1]:.4g} bytes) "
                          f"library_ms none")
                 if i == 0:
                     results[name] = dict(name=name, route="cuda", source=source,
@@ -1080,35 +1242,51 @@ def phase_kernels(seed: int = 0):
 # phase 4: the flagship serving path
 
 
+def flagship_requests(rng, D):
+    """The ~10 serving requests of phases 4 and 10: six of 2400-3000 frames
+    and four of 600-1000."""
+    lengths = [int(rng.integers(2400, 3001)) for _ in range(6)]
+    lengths += [int(rng.integers(600, 1001)) for _ in range(4)]
+    return lengths, [rng.standard_normal((n, D)).astype(np.float32) for n in lengths]
+
+
+def flagship_model(cfg, seed, dev):
+    """The flagship-shaped FACT of ``cfg`` with seeded weights, loaded through
+    a state_dict round trip (the reference-key layout)."""
+    import torch
+
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    D, C, S_CAP = FLAGSHIP_DIMS
+    src = build_fact(cfg, D, C, S_CAP, device=dev,
+                     generator=torch.Generator(device="cpu").manual_seed(seed))
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed + 1))
+    model.load_state_dict(src.state_dict(), strict=True)
+    for (k, a), b in zip(src.state_dict().items(), model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"state_dict round trip changed {k}")
+    return model
+
+
 def phase_serving(seed: int = 0):
     import torch
 
     from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
     from fact_clip_tpu_torch.configs import flagship_cfg
     from fact_clip_tpu_torch.engine.serve import Predictor
-    from fact_clip_tpu_torch.models.blocks import build_fact
 
-    D, C, S_CAP = 2048, 75, 128
+    D, C, _ = FLAGSHIP_DIMS
     cfg = flagship_cfg()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    src = build_fact(cfg, D, C, S_CAP, device=dev,
-                     generator=torch.Generator(device="cpu").manual_seed(seed))
-    model = build_fact(cfg, D, C, S_CAP, device=dev,
-                       generator=torch.Generator(device="cpu").manual_seed(seed + 1))
-    model.load_state_dict(src.state_dict(), strict=True)  # the reference-key layout
-    for (k, a), b in zip(src.state_dict().items(), model.state_dict().values()):
-        if not torch.equal(a, b):
-            raise AssertionError(f"state_dict round trip changed {k}")
-    del src
+    model = flagship_model(cfg, seed, dev)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[serve] flagship model: {n_params} parameters, built and reloaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(seed)
-    lengths = [int(rng.integers(2400, 3001)) for _ in range(6)]
-    lengths += [int(rng.integers(600, 1001)) for _ in range(4)]
-    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in lengths]
+    lengths, feats = flagship_requests(rng, D)
     pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=8, max_len=3072, device=dev)
 
     pred.predict(feats[:1])  # first call: builds/loads the kernels
@@ -1865,6 +2043,137 @@ def phase_epic_training(seed: int = 0):
                   COMPARE_SEEDS)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the flagship served with int8 evaluation
+
+INT8_OF = {"mstcn_stack_q8": "mstcn_stack", "x2y_small_x_q8": "x2y_small_x",
+           "x2y_flash_q8": "x2y_flash", "mha_cross_q8": "mha_cross"}  # K8 -> the f32 twin
+INT8_PER_BATCH = {"mstcn_stack_q8": 4, "x2y_small_x_q8": 5, "x2y_flash_q8": 1, "mha_cross_q8": 6}
+
+
+def phase_int8_serving(f32_counts, seed: int = 0):
+    """``flagship_int8_cfg()`` at full width with the weights of phase 4's
+    model serves phase 4's requests: each K8 kernel launches as often as its
+    f32 twin did there, the twins not at all, SA and FFN as there.  Then on
+    one 8 x 3072 batch: the launches of one eval step, the warm predict and
+    eval step of the int8 kernel path, the int8 plain path and the f32 kernel
+    path with peak memory, the int8 kernel path against the int8 plain path
+    (gated) and against the f32 path (printed: the weights are random)."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import flagship_cfg, flagship_int8_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    D, C, S_CAP = FLAGSHIP_DIMS
+    cfg = flagship_int8_cfg()
+    mwt = cfg["FACT"]["mwt"]
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)
+    f32 = build_fact(flagship_cfg(), D, C, S_CAP, device=dev)
+    f32.load_state_dict(model.state_dict(), strict=True)
+    log(f"[int8] flagship_int8_cfg(): quantize {sorted({c.quantize for c in model.block_cfgs})}, "
+        f"built and reloaded in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    lengths, feats = flagship_requests(rng, D)
+    pred = Predictor(model, mwt=mwt, batch_size=8, max_len=3072, device=dev)
+    pred.predict(feats[:1])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for n, o in zip(lengths, outs):
+        if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad int8 prediction: shape {o.shape} dtype {o.dtype}")
+    log(f"[int8] predict: {len(feats)} requests, lengths {lengths}, {dt:.3f} s; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    want = {k8: f32_counts[f32k] for k8, f32k in INT8_OF.items()}
+    want.update({f32k: 0 for f32k in INT8_OF.values()})
+    want.update({k: f32_counts[k] for k in ("sa_sublayer", "ffn_sublayer")})
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong or any(counts[k] <= 0 for k in INT8_OF):
+        raise AssertionError(f"int8 serving launches: (got, want) {wrong}")
+
+    B, T = 8, 3072
+    blen = np.array(FLAGSHIP_LENGTHS, np.int32)
+    bfeats = np.zeros((B, T, D), np.float32)
+    for i, n in enumerate(blen):
+        bfeats[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
+    x = torch.from_numpy(bfeats).to(dev)
+    mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
+    lens = torch.from_numpy(blen).to(dev)
+    full = [bfeats[i, :n] for i, n in enumerate(blen)]
+    per_batch = {}
+    for tag, m in (("int8", model), ("f32", f32)):
+        make_eval_step(m, mwt)(x, mask, lens)
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        make_eval_step(m, mwt)(x, mask, lens)
+        torch.cuda.synchronize()
+        per_batch[tag] = kernel_counters()
+    k8, kf = per_batch["int8"], per_batch["f32"]
+    bad = {k: (k8[k], n, kf[INT8_OF[k]]) for k, n in INT8_PER_BATCH.items()
+           if not k8[k] == n == kf[INT8_OF[k]]}
+    bad.update({k: (k8[k], 0) for k in INT8_OF.values() if k8[k]})
+    bad.update({k: (k8[k], kf[k]) for k in ("sa_sublayer", "ffn_sublayer") if k8[k] != kf[k]})
+    log(f"[int8] one eval step on {B} x {T}: K8 launches {({k: k8[k] for k in INT8_OF})} "
+        f"(their f32 twins on the f32 path {({v: kf[v] for v in INT8_OF.values()})}); "
+        f"sa {k8['sa_sublayer']} ffn {k8['ffn_sublayer']}")
+    if bad:
+        raise AssertionError(f"int8 launches per batch (got, want[, f32 twin]): {bad}")
+
+    preds = {}
+    for tag, m, kernels in (("int8 kernels", model, True), ("int8 plain", model, False),
+                            ("f32 kernels", f32, True)):
+        m.set_kernels(kernels)
+        step = make_eval_step(m, mwt)
+        p = Predictor(m, mwt=mwt, batch_size=8, max_len=3072, device=dev)
+        p.predict(full)
+        ptimes = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            p.predict(full)
+            ptimes.append((time.perf_counter() - t0) * 1e3)
+        step(x, mask, lens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            preds[tag] = step(x, mask, lens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[int8] {tag}: predict 8 requests ({B} x {T}) warm ms median {_median(ptimes):.3f} "
+            f"(all {', '.join(f'{t:.3f}' for t in ptimes)}); eval step warm ms median "
+            f"{_median(times):.3f} (all {', '.join(f'{t:.3f}' for t in times)}); peak device "
+            f"memory {peak:.3f} GiB")
+    with torch.inference_mode():
+        model.set_kernels(True)
+        saves_k, _ = model(x, mask, lens)
+        model.set_kernels(False)
+        saves_p, _ = model(x, mask, lens)
+        model.set_kernels(True)
+        saves_f, _ = f32(x, mask, lens)
+    fl_err = float((saves_k[0]["frame_clogit"] - saves_p[0]["frame_clogit"]).abs()[mask].max())
+    agree = float((preds["int8 kernels"] == preds["int8 plain"])[mask].float().mean())
+    vs_f32 = float((preds["int8 kernels"] == preds["f32 kernels"])[mask].float().mean())
+    fl_f32 = float((saves_k[0]["frame_clogit"] - saves_f[0]["frame_clogit"]).abs()[mask].max())
+    log(f"[int8] int8 kernel vs int8 plain path: block-0 frame logits max_abs_err {fl_err:.3e} "
+        f"(tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid frames (min "
+        f"{MIN_AGREE}); int8 vs f32 (not gated, random weights): block-0 frame logits "
+        f"max_abs_err {fl_f32:.3e}, predictions agree on {vs_f32:.5f}")
+    if not (fl_err <= LOGIT_TOL and agree >= MIN_AGREE):
+        raise AssertionError("int8: the kernel path disagrees with the plain path")
+    return counts
+
+
 def main():
     import torch
 
@@ -1876,9 +2185,12 @@ def main():
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}
     epic_counts = phase_epic_serving()
     phase_epic_training()
+    int8_counts = phase_int8_serving(counts)
     for name, r in results.items():
         # each row's launches on the path that runs it
-        if name in BF_ROWS:
+        if name in INT8_OF:
+            r["launches"] = int8_counts[name]
+        elif name in BF_ROWS:
             path, counter = BF_ROWS[name]
             r["launches"] = bf_counts[path][counter]
         elif name in EPIC_ROWS:

@@ -11,7 +11,8 @@ models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
                   and the verb/noun model's)
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   and backwards; the shared dropout mask; K7, the composed
-                  verb/noun argmaxes) beside their plain PyTorch versions;
+                  verb/noun argmaxes; K8, int8 evaluation) beside their plain
+                  PyTorch versions;
                   the lazy verb/noun composition; TDU segment operations;
                   training masks; positional terms
 engine/           the eval and train steps, the serving Predictor (FACT and
@@ -24,7 +25,7 @@ Everything runs in float32.  Importing this package imports neither JAX nor
 the JAX package and builds nothing.
 """
 
-from .ops import compose_decode, dilated_conv, frame_loss, mha_attn, sa_layer, x2y_attn
+from .ops import compose_decode, dilated_conv, frame_loss, mha_attn, quant_conv, sa_layer, x2y_attn
 
 # launch counters of the kernel wrappers, by kernel name
 _KERNELS = {
@@ -51,6 +52,10 @@ _KERNELS = {
     "compose_argmax": compose_decode.compose_argmax,
     "compose_blend": compose_decode.compose_blend,
     "factored_argmax": compose_decode.factored_argmax,
+    "mstcn_stack_q8": quant_conv.mstcn_stack_q8,
+    "x2y_small_x_q8": quant_conv.x2y_small_x_q8,
+    "x2y_flash_q8": quant_conv.x2y_flash_q8,
+    "mha_cross_q8": quant_conv.mha_cross_q8,
 }
 # the plain backward that the K2 dispatch runs on the card (per-batch pos), as JAX does
 _PLAIN = {"x2y_bwd_reference": x2y_attn.x2y_bwd_reference}

@@ -76,6 +76,11 @@ SIGNATURES = {
     "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],
     "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
+    "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
+    "fk_q8_tower_layer": [P] * 15 + [I] * 9 + [F, P],
+    "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
+    "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
+    "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
 }
 
 
@@ -192,8 +197,9 @@ def check_tensors(name: str, tensors, device) -> None:
             continue
         if t.device != device:
             raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
-        if t.dtype not in (torch.float32, torch.int32):
-            raise ValueError(f"{name}: unsupported dtype {t.dtype} (float32 kernels)")
+        if t.dtype not in (torch.float32, torch.int32, torch.int8):
+            raise ValueError(f"{name}: unsupported dtype {t.dtype} (float32, int32 and int8 "
+                             "kernels)")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel inputs must be contiguous")
 

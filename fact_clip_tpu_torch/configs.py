@@ -10,11 +10,16 @@ port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
 breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
 is it as the port trains it; ``epic_cfg()`` mirrors ``epic-kitchens.yaml``
 (the verb/noun model, ``IUUU``), ``epic_train_cfg()`` is it as the port
-trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary.
+trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary; ``flagship_int8_cfg()``
+is the flagship evaluated with int8 towers and projections
+(``TPU.quantize_infer: "int8"``).
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
-Pallas kernels there; False is the plain PyTorch path.
+Pallas kernels there; False is the plain PyTorch path.  ``quantize`` is
+``"int8"`` when ``TPU.quantize_infer`` asks for it and ``TPU.pallas`` is on
+(JAX drops quantization without its Pallas kernels,
+``fact_clip_tpu/models/blocks.py:124-127``).
 """
 
 from __future__ import annotations
@@ -79,6 +84,16 @@ def flagship_cfg() -> dict:
     cfg["FACT"].update(ntoken=40, fpos=False, cmr=0.3)
     cfg["Bi"].update(hid_dim=512, a_dim=256, a_ffdim=512, a_layers=6, a_nhead=8, f="m",
                      f_dim=256, f_layers=10, f_ln=False, f_ngp=1, dropout=0.2)
+    return cfg
+
+
+def flagship_int8_cfg() -> dict:
+    """The flagship with int8 evaluation (``TPU.quantize_infer: "int8"``):
+    in eval mode its MSTCN towers and their in map, the X2Y projections over
+    the frame axis and the SCA key / value projections run on int8 operands
+    (ops/quant_conv.py); training is unchanged."""
+    cfg = flagship_cfg()
+    cfg["TPU"]["quantize_infer"] = "int8"
     return cfg
 
 
@@ -185,14 +200,14 @@ def epic_vocab(n1: int = 98, n2: int = 301, n_act: int = 3806, seed: int = 0) ->
     return np.array([p[0] for p in pairs], np.int32), np.array([p[1] for p in pairs], np.int32)
 
 
-def _block(node: dict, kind: str, tpu: dict) -> BlockCfg:
+def _block(node: dict, kind: str, tpu: dict, quant: str) -> BlockCfg:
     return BlockCfg(
         kind=kind, hid_dim=node["hid_dim"], dropout=float(node["dropout"]), a=node["a"],
         a_nhead=node["a_nhead"], a_ffdim=node["a_ffdim"], a_layers=node["a_layers"],
         a_dim=node["a_dim"], f=node["f"], f_layers=node["f_layers"], f_ln=bool(node["f_ln"]),
         f_dim=node["f_dim"], f_ngp=node["f_ngp"], s_layers=node.get("s_layers", 1) or 1,
         pallas=bool(tpu["pallas"]), pallas_attn=bool(tpu["pallas_attn"]),
-        pallas_sa=bool(tpu["pallas_sa"]),
+        pallas_sa=bool(tpu["pallas_sa"]), quantize=quant,
     )
 
 
@@ -201,8 +216,10 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
     tpu = cfg["TPU"]
     if tpu.get("compute_dtype", "float32") not in ("", "float32", None):
         raise ValueError("the port runs float32 only")
-    if tpu.get("quantize_infer"):
-        raise ValueError("int8 towers are not ported")
+    quant = str(tpu.get("quantize_infer") or "")
+    if quant not in ("", "int8"):
+        raise ValueError(f"unsupported TPU.quantize_infer {quant!r}")
+    quant = quant if tpu["pallas"] else ""  # int8 runs in the kernels only (blocks.py:126)
     cfg = copy.deepcopy(cfg)
     base = cfg["Bi"]
     out = []
@@ -217,5 +234,10 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
             base = node
         else:
             raise ValueError(f"unsupported block type {kind!r}")
-        out.append(_block(node, kind, tpu))
+        c = _block(node, kind, tpu, quant)
+        if c.quantize == "int8" and c.f == "m2":
+            raise NotImplementedError(
+                "int8 MS-TCN++ towers (f: m2) are not ported: "
+                "fact_clip_tpu/ops/pallas/quant_conv.py::_stack2_layer_q8 has no kernel here yet")
+        out.append(c)
     return tuple(out)

@@ -44,72 +44,44 @@
 // (ops/x2y_attn.py::key_tile) takes the largest tile of 64 or 32 that fits:
 // 164 KB at BK = 32 there, while the flagship's K3 and every K2 flash call
 // keep BK = 64.
+//
+// K8c and K8d, the int8 twins (proj_attn_q8_partial_kernel + the same
+// combine), replace fact_clip_tpu/ops/pallas/quant_conv.py::
+// _x2y_flash_q8_impl (_x2y_flash_kernel_q8) and ::mha_cross_attention_q8
+// (_mha_kernel_q8): the frame rows arrive quantized per row (quant.cu's
+// q8_rows_kernel: x + pos for K, x for V, int8 values and each row's absmax),
+// the two projections run on quant.cuh's int8 mma.sync core and dequantize in
+// JAX's order fma(idot * s_row, sw, b) (ops/quant_conv.py); the softmax and attend stages are
+// this file's (partial_attend).  K8d's caller folds 1 / sqrt(hd) into the
+// queries (scale 1 here), as _arrange_queries does.
 #include <math.h>
 
 #include "common.cuh"
+#include "quant.cuh"
 
 namespace {
 
-// BK keys per block (64 or 32): BK / 32 per lane in the softmax stage
-template <int BK>
-__global__ void __launch_bounds__(fk::kThreads)
-proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ xpos,
-                         long long pos_bstride, int Px, const float* __restrict__ q,
-                         const float* __restrict__ wk, const float* __restrict__ bk,
-                         const float* __restrict__ wv, const float* __restrict__ bv,
-                         const int* __restrict__ xlen, int X, int Cx, int M, int H, int hd,
-                         float scale, float* __restrict__ logits,
-                         float* __restrict__ part_acc, float* __restrict__ part_ml,
-                         fk::Dropout drop) {
-  constexpr int RM = BK / 8;
+// The tile's attention once proj_k / proj_v have written K / V (BK x E) into
+// kv_s (row stride E + 1): per (head, query) row the logits (keys at or past
+// x_len -1e9, past X -inf), the tile max m, exp(logit - m) and their sum l
+// (part_ml), then acc = sum exp(logit - m) V (part_acc).  BK / 32 keys a lane.
+template <int BK, class ProjK, class ProjV>
+__device__ __forceinline__ void partial_attend(ProjK proj_k, ProjV proj_v, float* kv_s,
+                                               float* p_s, const float* __restrict__ q, int b,
+                                               int tile, int n_t, int xl, int X, int M, int H,
+                                               int hd, float scale, float* __restrict__ logits,
+                                               float* __restrict__ part_acc,
+                                               float* __restrict__ part_ml, fk::Dropout drop) {
   constexpr int KPL = BK / 32;  // keys per lane
   const int E = H * hd;
   const int HM = H * M;
   const int lde = E + 1;  // odd stride: lane j reading row j is conflict-free
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BK>& s = *reinterpret_cast<fk::GemmSmem<BK>*>(smem_raw);
-  float* kv_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BK>) / sizeof(float);
-  float* p_s = kv_s + BK * lde;  // [HM][BK]: exp(logit - m) per row and key
-
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
-  const int tile = blockIdx.x;
-  const int n_t = gridDim.x;
-  const int b = blockIdx.y;
   const int x0 = tile * BK;
-  const int xl = min(xlen[b], X);
-  const float* xb = x + (size_t)b * X * Cx;
-  const float* pb = xpos ? xpos + (size_t)b * pos_bstride : nullptr;
   const uint32_t seed = drop.load_seed();
-  float acc[RM][8];
 
-  // out[r][c] = in(r, :) @ W[:, c] + bias[c] for the tile's rows
-  auto project = [&](auto in, const float* __restrict__ W, const float* __restrict__ bias) {
-    for (int n0 = 0; n0 < E; n0 += fk::kBN) {
-      fk::gemm_pass<BK>(acc, in, W, E, Cx, n0, E, s);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = n0 + fk::pass_col(j);
-          if (c < E) kv_s[fk::pass_row<BK>(i) * lde + c] = acc[i][j] + __ldg(bias + c);
-        }
-    }
-    __syncthreads();
-  };
-  auto xk_in = [&](int r, int k) {  // x + pos: the key projection's input
-    const int key = x0 + r;
-    if (key >= X) return 0.f;
-    float v = __ldg(xb + (size_t)key * Cx + k);
-    if (pb != nullptr && k < Px) v += __ldg(pb + (size_t)key * Px + k);
-    return v;
-  };
-  auto xv_in = [&](int r, int k) {
-    const int key = x0 + r;
-    return key < X ? __ldg(xb + (size_t)key * Cx + k) : 0.f;
-  };
-
-  project(xk_in, wk, bk);
+  proj_k();
   for (int hm = ty; hm < HM; hm += fk::kWarps) {
     const int h = hm / M;
     const int m = hm - h * M;
@@ -149,7 +121,7 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
   __syncthreads();  // every row is done with K before V overwrites it
 
-  project(xv_in, wv, bv);
+  proj_v();
   for (int hm = ty; hm < HM; hm += fk::kWarps) {
     const int h = hm / M;
     const float* pr = p_s + hm * BK;
@@ -162,6 +134,122 @@ proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
       pa[dd] = a;
     }
   }
+}
+
+// BK keys per block (64 or 32)
+template <int BK>
+__global__ void __launch_bounds__(fk::kThreads)
+proj_attn_partial_kernel(const float* __restrict__ x, const float* __restrict__ xpos,
+                         long long pos_bstride, int Px, const float* __restrict__ q,
+                         const float* __restrict__ wk, const float* __restrict__ bk,
+                         const float* __restrict__ wv, const float* __restrict__ bv,
+                         const int* __restrict__ xlen, int X, int Cx, int M, int H, int hd,
+                         float scale, float* __restrict__ logits,
+                         float* __restrict__ part_acc, float* __restrict__ part_ml,
+                         fk::Dropout drop) {
+  constexpr int RM = BK / 8;
+  const int E = H * hd;
+  const int lde = E + 1;
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<BK>& s = *reinterpret_cast<fk::GemmSmem<BK>*>(smem_raw);
+  float* kv_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BK>) / sizeof(float);
+  float* p_s = kv_s + BK * lde;  // [HM][BK]: exp(logit - m) per row and key
+
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int x0 = tile * BK;
+  const float* xb = x + (size_t)b * X * Cx;
+  const float* pb = xpos ? xpos + (size_t)b * pos_bstride : nullptr;
+  float acc[RM][8];
+
+  // out[r][c] = in(r, :) @ W[:, c] + bias[c] for the tile's rows
+  auto project = [&](auto in, const float* __restrict__ W, const float* __restrict__ bias) {
+    for (int n0 = 0; n0 < E; n0 += fk::kBN) {
+      fk::gemm_pass<BK>(acc, in, W, E, Cx, n0, E, s);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = n0 + fk::pass_col(j);
+          if (c < E) kv_s[fk::pass_row<BK>(i) * lde + c] = acc[i][j] + __ldg(bias + c);
+        }
+    }
+    __syncthreads();
+  };
+  auto xk_in = [&](int r, int k) {  // x + pos: the key projection's input
+    const int key = x0 + r;
+    if (key >= X) return 0.f;
+    float v = __ldg(xb + (size_t)key * Cx + k);
+    if (pb != nullptr && k < Px) v += __ldg(pb + (size_t)key * Px + k);
+    return v;
+  };
+  auto xv_in = [&](int r, int k) {
+    const int key = x0 + r;
+    return key < X ? __ldg(xb + (size_t)key * Cx + k) : 0.f;
+  };
+  partial_attend<BK>([&] { project(xk_in, wk, bk); }, [&] { project(xv_in, wv, bv); }, kv_s,
+                     p_s, q, b, tile, gridDim.x, min(xlen[b], X), X, M, H, hd, scale, logits,
+                     part_acc, part_ml, drop);
+}
+
+// The int8 twin: qxk / qxv (B, X, Cx) int8 with row absmaxes sxk / sxv (B, X),
+// qwkt / qwvt (E, Cx) int8 with the folded weight scales swk / swv (E,).
+template <int BK>
+__global__ void __launch_bounds__(fk::kThreads)
+proj_attn_q8_partial_kernel(const int8_t* __restrict__ qxk, const float* __restrict__ sxk,
+                            const int8_t* __restrict__ qxv, const float* __restrict__ sxv,
+                            const float* __restrict__ q, const int8_t* __restrict__ qwkt,
+                            const float* __restrict__ swk, const float* __restrict__ bk,
+                            const int8_t* __restrict__ qwvt, const float* __restrict__ swv,
+                            const float* __restrict__ bv, const int* __restrict__ xlen, int X,
+                            int Cx, int M, int H, int hd, float scale,
+                            float* __restrict__ logits, float* __restrict__ part_acc,
+                            float* __restrict__ part_ml) {
+  const int E = H * hd;
+  const int lde = E + 1;
+  extern __shared__ float4 smem_raw[];
+  // the int8 staging sits where the f32 twin keeps its GEMM staging
+  fk::QSmem<BK>& s = *reinterpret_cast<fk::QSmem<BK>*>(smem_raw);
+  float* kv_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BK>) / sizeof(float);
+  float* p_s = kv_s + BK * lde;
+
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int x0 = tile * BK;
+  const int rows = min(BK, X - x0);
+  int acc[BK / 16][4][4];
+
+  // kv_s[r][c] = fma((qx[r] . qwt[c]) * sx[r], sw[c], bias[c])
+  auto project = [&](const int8_t* __restrict__ qx, const float* __restrict__ sx,
+                     const int8_t* __restrict__ qwt, const float* __restrict__ sw,
+                     const float* __restrict__ bias) {
+    const int8_t* qb = qx + ((size_t)b * X + x0) * Cx;
+    const float* sb = sx + (size_t)b * X + x0;
+    auto stage = [&](int8_t (*as)[fk::kQLD], int k0) {
+      fk::q_stage_a_rows<BK>(as, qb, Cx, rows, k0);
+    };
+    for (int n0 = 0; n0 < E; n0 += fk::kBN) {
+      fk::q_gemm_pass<BK>(acc, stage, qwt, Cx, n0, E, s);
+#pragma unroll
+      for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = fk::q_row(mt, i);
+            const int c = n0 + fk::q_col(nt, i);
+            if (c >= E) continue;
+            const float sr = r < rows ? sb[r] : 0.f;
+            kv_s[r * lde + c] = __fmaf_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), sr),
+                                          __ldg(sw + c), __ldg(bias + c));
+          }
+    }
+    __syncthreads();
+  };
+  partial_attend<BK>([&] { project(qxk, sxk, qwkt, swk, bk); },
+                     [&] { project(qxv, sxv, qwvt, swv, bv); }, kv_s, p_s, q, b, tile,
+                     gridDim.x, min(xlen[b], X), X, M, H, hd, scale, logits, part_acc, part_ml,
+                     fk::Dropout{nullptr, 0, 0u, 1.f});
 }
 
 __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
@@ -260,6 +348,36 @@ cudaError_t launch_partial(const float* x, const float* xpos, long long pos_bstr
   return cudaGetLastError();
 }
 
+cudaError_t launch_combine(const float* part_acc, const float* part_ml, int B, int n_t, int M,
+                           int H, int hd, float* out, const float* logits, float* probs, int X,
+                           float* stats, cudaStream_t stream) {
+  const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
+  cudaError_t err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);
+  if (err != cudaSuccess) return err;
+  proj_attn_combine_kernel<<<dim3(H * M, B), fk::kThreads, smem_c, stream>>>(
+      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X, stats);
+  return cudaGetLastError();
+}
+
+template <int BK>
+cudaError_t launch_q8_partial(const int8_t* qxk, const float* sxk, const int8_t* qxv,
+                              const float* sxv, const float* q, const int8_t* qwkt,
+                              const float* swk, const float* bk, const int8_t* qwvt,
+                              const float* swv, const float* bv, const int* xlen, int B, int X,
+                              int Cx, int M, int H, int hd, float scale, float* logits,
+                              float* part_acc, float* part_ml, cudaStream_t stream) {
+  const int E = H * hd;
+  const int n_t = (X + BK - 1) / BK;
+  const size_t smem = sizeof(fk::GemmSmem<BK>) +
+                      ((size_t)BK * (E + 1) + (size_t)H * M * BK) * sizeof(float);
+  cudaError_t err = fk::set_smem((const void*)proj_attn_q8_partial_kernel<BK>, smem);
+  if (err != cudaSuccess) return err;
+  proj_attn_q8_partial_kernel<BK><<<dim3(n_t, B), fk::kThreads, smem, stream>>>(
+      qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, X, Cx, M, H, hd, scale, logits,
+      part_acc, part_ml);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // key_tile: 64 or 32 keys per partial block (the caller's shared-memory choice)
@@ -282,10 +400,30 @@ extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bst
                                H, hd, scale, logits, part_acc, part_ml, drop,
                                (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
-  err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, logits, probs, X, stats,
+                             (cudaStream_t)stream);
+}
+
+// K8c (H = 1, logits and probs written) and K8d (H heads, queries pre-scaled,
+// scale 1, no logits): the int8 partial kernel, then the combine
+extern "C" int fk_proj_attn_q8(const int8_t* qxk, const float* sxk, const int8_t* qxv,
+                               const float* sxv, const float* q, const int8_t* qwkt,
+                               const float* swk, const float* bk, const int8_t* qwvt,
+                               const float* swv, const float* bv, const int* xlen, int B, int X,
+                               int Cx, int M, int H, int hd, float scale, float* logits,
+                               float* probs, float* out, float* part_acc, float* part_ml,
+                               int key_tile, void* stream) {
+  if ((key_tile != 64 && key_tile != 32) || Cx % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int n_t = (X + key_tile - 1) / key_tile;
+  cudaError_t err =
+      key_tile == 64
+          ? launch_q8_partial<64>(qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, B, X,
+                                  Cx, M, H, hd, scale, logits, part_acc, part_ml,
+                                  (cudaStream_t)stream)
+          : launch_q8_partial<32>(qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, B, X,
+                                  Cx, M, H, hd, scale, logits, part_acc, part_ml,
+                                  (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  proj_attn_combine_kernel<<<dim3(H * M, B), fk::kThreads, smem_c, (cudaStream_t)stream>>>(
-      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X, stats);
-  return (int)cudaGetLastError();
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, logits, probs, X, nullptr,
+                             (cudaStream_t)stream);
 }

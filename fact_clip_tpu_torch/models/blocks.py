@@ -30,11 +30,15 @@ def process_feature(feature, nclass: int):
 
 
 def make_fbranch(c: BlockCfg, in_dim: int | None):
-    """The frame tower (blocks.py:182-197): the in map only in the input block."""
+    """The frame tower (blocks.py:182-197): the in map only in the input block;
+    ``c.quantize`` reaches the MSTCN, the X2Y maps and the SCA decoder, as in
+    JAX (blocks.py:189, 195, 212, 230; resolve_block_cfgs refuses it with
+    ``f: m2``)."""
     f_in = in_dim if in_dim is not None else c.f_dim
     if c.f == "m":
         return L.MSTCN(f_in, c.f_dim, c.hid_dim, c.f_layers, ln=c.f_ln, ngroup=c.f_ngp,
-                       in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout)
+                       in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout,
+                       quantize=c.quantize)
     if c.f == "m2":
         return L.MSTCN2(f_in, c.f_dim, c.hid_dim, c.f_layers, ngroup=c.f_ngp,
                         in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout)
@@ -48,13 +52,14 @@ def make_abranch(c: BlockCfg):
     if c.a == "sca":
         return L.SCADecoder(c.a_dim, c.a_dim, c.hid_dim, c.hid_dim, c.a_layers, c.a_nhead,
                             c.a_ffdim, use_kernel_sa=c.pallas and c.pallas_sa,
-                            use_kernel_attn=c.pallas and c.pallas_attn, dropout=c.dropout)
+                            use_kernel_attn=c.pallas and c.pallas_attn, dropout=c.dropout,
+                            quantize=c.quantize)
     raise ValueError(f"action branch {c.a!r} is not ported")
 
 
 def make_x2y(c: BlockCfg, outdim: int):
     return L.X2YMap(c.hid_dim, c.hid_dim, outdim, c.hid_dim, kq_pos=True, use_kernel=c.pallas,
-                    dropout=c.dropout)
+                    dropout=c.dropout, quantize=c.quantize)
 
 
 def _apply_abranch(branch, c, action_feature, action_pos, generator, memory=None,

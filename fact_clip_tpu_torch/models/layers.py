@@ -23,6 +23,14 @@ int32 seed per call, drawn on the device (as the JAX modules draw one per
 fused call).  With gradients, the kernel layouts (and the LayerNorm
 parameters of the fused sublayers) are the live parameters, so that autograd
 reaches every one of them through the kernels' autograd entries (K1-K4, K6).
+
+``quantize="int8"`` (``BlockCfg.quantize``) takes, in eval mode only, the
+int8 paths of JAX's modules (ops/quant_conv.py): the MSTCN in map and tower
+(K8a; the out projection a plain f32 dense), the X2Y projection over the
+frame axis (K8b / K8c) and the fused SCA cross-attention's K / V projections
+(K8d).  Their quantized weights sit in the modules' caches.  Under
+``set_kernels(False)`` those paths run the int8 plain versions (never f32),
+and the fused SCA branch is still chosen by the configured kernel flag.
 """
 
 from __future__ import annotations
@@ -38,6 +46,9 @@ from ..ops.dilated_conv import (mstcn2_fold, mstcn2_stack, mstcn2_stack_referenc
 from ..ops.masking import dropout
 from ..ops.mha_attn import mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
+from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn_stack_q8,
+                              mstcn_stack_q8_reference, quantize_proj, quantize_tower,
+                              x2y_attention_q8, x2y_attention_q8_reference)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
 from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
 
@@ -75,12 +86,16 @@ class KernelLayout:
     derived from the live parameters (``_make_kernel_layout(live=True)``)."""
 
     def kernel_layout(self):
+        return self.cached("layout", self._make_kernel_layout)
+
+    def cached(self, name: str, make):
+        """``make()`` (under no_grad), recomputed only after a parameter changed."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        cached = self.__dict__.get("_kernel_layout")
+        cached = self.__dict__.get("_cached_" + name)
         if cached is None or cached[0] != key:
             with torch.no_grad():
-                cached = (key, self._make_kernel_layout())
-            self.__dict__["_kernel_layout"] = cached
+                cached = (key, make())
+            self.__dict__["_cached_" + name] = cached
         return cached[1]
 
     def layout(self):
@@ -143,9 +158,10 @@ class MSTCN(nn.Module, KernelLayout):
     """1x1 in map -> dilated residual layers -> 1x1 out map (f32 logits)."""
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ln, ngroup=1, in_map=False,
-                 use_kernel=True, dropout=0.0):
+                 use_kernel=True, dropout=0.0, quantize=""):
         super().__init__()
         self.dropout = dropout
+        self.quantize = quantize
         if in_map:
             self.conv_1x1 = nn.Conv1d(in_dim, hid_dim, 1)
         elif in_dim != hid_dim:
@@ -163,6 +179,8 @@ class MSTCN(nn.Module, KernelLayout):
         return _t(self.conv_out.weight[:, :, 0], live), _d(self.conv_out.bias, live)
 
     def forward(self, x, lengths, generator=None):
+        if self.quantize == "int8" and not self.training and self.kernel_allowed:
+            return self._forward_q8(x, lengths)
         if self.in_map:
             x = F.linear(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
         ow, ob = self.layout()
@@ -176,6 +194,20 @@ class MSTCN(nn.Module, KernelLayout):
         return fn(x.contiguous(), lengths, [l.layout() for l in self.layers],
                   [l.dilation for l in self.layers], use_ln=self.ln, eps=LN_EPS_TOWER,
                   out_w=ow, out_b=ob, rates=rates, seeds=seeds)
+
+    def _forward_q8(self, x, lengths):
+        """JAX's int8 eval path (layers.py:353-385): the in map through
+        ``dense_q8``, the tower through K8a, then the out projection as a
+        plain f32 dense (JAX does not fuse it on this path)."""
+        if self.in_map:
+            x = dense_q8(x, self.conv_1x1.weight[:, :, 0].t(), self.conv_1x1.bias,
+                         library=self.use_kernel)
+        qlayers = self.cached("q8", lambda: quantize_tower([l.kernel_layout()
+                                                            for l in self.layers]))
+        fn = mstcn_stack_q8 if self.use_kernel else mstcn_stack_q8_reference
+        y = fn(x.contiguous(), lengths, qlayers, [l.dilation for l in self.layers], use_ln=self.ln,
+               eps=LN_EPS_TOWER)
+        return F.linear(y, self.conv_out.weight[:, :, 0], self.conv_out.bias)
 
 
 class MSTCN2(nn.Module, KernelLayout):
@@ -255,9 +287,11 @@ class MultiheadAttention(nn.Module, KernelLayout):
     runs K3 under the JAX fuse conditions (layers.py:649-655)."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: int | None = None,
-                 use_kernel: bool = False, kernel_min_keys: int = 1024, dropout: float = 0.0):
+                 use_kernel: bool = False, kernel_min_keys: int = 1024, dropout: float = 0.0,
+                 quantize: str = ""):
         super().__init__()
         self.dropout = dropout
+        self.quantize = quantize
         E = embed_dim
         kdim = kdim or E
         self.embed_dim, self.num_heads, self.kdim = E, num_heads, kdim
@@ -303,12 +337,18 @@ class MultiheadAttention(nn.Module, KernelLayout):
         q = F.linear(query, wq, bq)
         B, M, _ = q.shape
         Nk = key.shape[1]
-        fuse = (self.use_kernel and Nk >= self.kernel_min_keys and key is value
-                and E % 128 == 0 and key.shape[-1] % 128 == 0)
+        q8 = self.quantize == "int8" and not self.training
+        fuse = ((self.kernel_allowed if q8 else self.use_kernel) and Nk >= self.kernel_min_keys
+                and key is value and E % 128 == 0 and key.shape[-1] % 128 == 0)
         if fuse:
             _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.layout()
             if key_len is None:
                 key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
+            if q8:  # K8d: int8 K / V projections (layers.py:673-681)
+                qw = self.cached("q8", lambda: (quantize_proj(wk_t), quantize_proj(wv_t)))
+                fn = mha_cross_q8 if self.use_kernel else mha_cross_q8_reference
+                return self.out_proj(fn(q, key, key_pos, wk_t, bk_c, wv_t, bv_c, key_len,
+                                        num_heads=H, qweights=qw))
             rate = self.dropout if self.training else 0.0
             # one seed per call (layers.py:662-665)
             seed = _seeds(generator, 1, key.device) if rate > 0.0 else None
@@ -331,9 +371,10 @@ class X2YMap(nn.Module, KernelLayout):
     concat(Y, attended); returns (y_out, probs, logits), probs/logits (B, Y, X)."""
 
     def __init__(self, x_dim, y_dim, y_outdim, head_dim, kq_pos=False, use_kernel=True,
-                 dropout=0.0):
+                 dropout=0.0, quantize=""):
         super().__init__()
         self.dropout = dropout
+        self.quantize = quantize
         self.X_K = nn.Linear(x_dim, head_dim)
         self.X_V = nn.Linear(x_dim, head_dim)
         self.Y_Q = nn.Linear(y_dim, head_dim)
@@ -351,9 +392,17 @@ class X2YMap(nn.Module, KernelLayout):
             x_pos = y_pos = None
         if x_len is None:
             x_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
-        fn = x2y_attention if self.use_kernel else x2y_attention_reference
-        attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos, *self.layout(),
-                                 x_len)
+        if self.quantize == "int8" and not self.training:
+            # K8b / K8c: int8 projection over the frame axis (layers.py:762-765)
+            layout = self.layout()
+            qw = self.cached("q8", lambda: tuple(quantize_proj(w) for w in layout[0:6:2]))
+            fn = x2y_attention_q8 if self.use_kernel else x2y_attention_q8_reference
+            attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos, *layout, x_len,
+                                     qw)
+        else:
+            fn = x2y_attention if self.use_kernel else x2y_attention_reference
+            attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos, *self.layout(),
+                                     x_len)
         # out map as a split dense of the dropped-out inputs: concat([y, attn])
         # never materializes
         W = self.Y_W.weight
@@ -429,12 +478,13 @@ class SCALayer(nn.Module, KernelLayout):
     """Token self-attention, cross-attention to the frame memory, FFN."""
 
     def __init__(self, dim, frame_dim, nhead, ffdim, use_kernel_sa=True, use_kernel_attn=True,
-                 dropout=0.0):
+                 dropout=0.0, quantize=""):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiheadAttention(dim, nhead, dropout=dropout)
         self.multihead_attn = MultiheadAttention(dim, nhead, kdim=frame_dim,
-                                                 use_kernel=use_kernel_attn, dropout=dropout)
+                                                 use_kernel=use_kernel_attn, dropout=dropout,
+                                                 quantize=quantize)
         self.linear1 = nn.Linear(dim, ffdim)
         self.linear2 = nn.Linear(ffdim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS_ATTN)
@@ -484,12 +534,13 @@ class SCADecoder(nn.Module):
     """N SCA layers + final LayerNorm + output linear."""
 
     def __init__(self, in_dim, hid_dim, out_dim, frame_dim, num_layers, nhead, ffdim,
-                 use_kernel_sa=True, use_kernel_attn=True, dropout=0.0):
+                 use_kernel_sa=True, use_kernel_attn=True, dropout=0.0, quantize=""):
         super().__init__()
         if in_dim != hid_dim:
             raise ValueError("SCADecoder needs in_dim == hid_dim")
         self.layers = nn.ModuleList(
-            SCALayer(hid_dim, frame_dim, nhead, ffdim, use_kernel_sa, use_kernel_attn, dropout)
+            SCALayer(hid_dim, frame_dim, nhead, ffdim, use_kernel_sa, use_kernel_attn, dropout,
+                     quantize)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(hid_dim, eps=LN_EPS_ATTN)
         self.out_linear = nn.Linear(hid_dim, out_dim)

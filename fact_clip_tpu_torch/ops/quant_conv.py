@@ -1,0 +1,513 @@
+"""K8: int8 evaluation (``TPU.quantize_infer: "int8"``), eval-only.
+
+Counterpart of ``fact_clip_tpu/ops/pallas/quant_conv.py`` on the path of the
+``f: m`` models: the port's own copies of its quantizers
+(``quantize_weight`` :42, ``quantize_weight_joint`` :57, ``_quantize_rows``
+:93), of ``dense_q8`` (:72, the towers' in map) and of JAX's tower layout
+(``dilated_conv.py::_tiling`` :89 and ``_stack_layout`` :454), and the four
+kernels' entries beside their plain versions:
+
+* K8a ``mstcn_stack_q8``: ``dilated_residual_stack_q8`` with
+  ``act_scale="tile"`` (``_stack_layer_q8`` :217) -> ``csrc/quant.cu``;
+* K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) ->
+  ``csrc/x2y_attn.cu``'s int8 twin;
+* K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> ``csrc/flash_attn.cu``'s
+  int8 twin; ``x2y_attention_q8`` picks K8b or K8c at JAX's threshold
+  (X > 1024, :639);
+* K8d ``mha_cross_q8``: ``mha_cross_attention_q8`` (:715) -> the same int8
+  twin, multi-head.
+
+The int8 MS-TCN++ tower (``_stack2_layer_q8`` :390) is not ported:
+``configs.resolve_block_cfgs`` refuses ``f: m2`` with int8.
+
+Quantization is JAX's: weights symmetric per output channel with the two
+1/127 factors folded into the scale (``s / 16129``); activations
+``round(x * (127 / s))`` (half to even) with ``s = max(absmax, 1e-12)`` per
+row, or for the tower one scalar per video and JAX tile of frames (see
+``csrc/quant.cu``).  Every integer product of a plain version is exact (an
+f64 product of int8 values: every partial sum is an integer below 2^53), so
+a kernel's integer parts equal its plain version's bit for bit and only the
+f32 epilogue can differ.  The epilogues follow JAX's order of operations as
+its kernels compute on the CPU, where XLA contracts each product-plus-bias
+of a dequantization (``acc * scale + b``, and the LayerNorm's ``* g + beta``)
+into one fused multiply-add: the plain versions take that FMA (``_fma``) and
+the kernels write it (``__fmaf_rn``), every other step rounded on its own.  The entries take their
+weights quantized (``quantize_tower`` / ``quantize_proj``, which a module
+caches), launch the kernel on CUDA tensors and run the plain version on CPU
+tensors, count their launches, and refuse inputs that want a gradient: JAX's
+int8 path is never differentiated.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from .pos import add_pos, kernel_pos
+from .x2y_attn import FLASH_MIN_KEYS, key_tile
+
+_NEG = -1e9
+
+
+# ---------------------------------------------------------------------------
+# quantizers (JAX's, quant_conv.py:42-102)
+
+
+def _div(a: float, b):
+    """a / b, correctly rounded (``scalar / tensor`` is a reciprocal times the
+    scalar in PyTorch, and on the card ``tensor / scalar`` multiplies by the
+    reciprocal: both can differ from JAX's division by one rounding)."""
+    return torch.full_like(b, a) / b
+
+
+def _over(b, a: float):
+    """b / a, correctly rounded."""
+    return b / torch.full_like(b, a)
+
+
+def quantize_weight(w, axis: int = -2):
+    """Symmetric per-output-channel int8 weights: (q, s / 127^2), the scale the
+    absmax over ``axis`` (C_in) floored at 1e-12."""
+    w = w.float()
+    s = w.abs().amax(dim=axis, keepdim=True).clamp_min(1e-12)
+    q = torch.round(w * _div(127.0, s)).to(torch.int8)
+    return q, _over(s.squeeze(axis), 127.0 * 127.0)
+
+
+def quantize_weight_joint(w):
+    """Conv weights (K, C_in, C_out): one scale per output channel over all
+    taps and inputs, so the taps' int32 products share one dequantization."""
+    w = w.float()
+    s = w.abs().amax(dim=(0, 1), keepdim=True).clamp_min(1e-12)
+    q = torch.round(w * _div(127.0, s)).to(torch.int8)
+    return q, _over(s.squeeze(1).squeeze(0), 127.0 * 127.0)
+
+
+def _quantize_rows(x):
+    """Dynamic symmetric per-row int8: (q, raw row absmax (..., 1))."""
+    s = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12)
+    return torch.round(x * _div(127.0, s)).to(torch.int8), s
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add (the f64 product of two
+    f32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _idot(a, b):
+    """The exact integer product of two int8 tensors, as f32 (the f32 nearest
+    to the exact sum, as an int32 accumulator converts)."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def dense_q8(x, w, b, *, library: bool = True):
+    """JAX's ``dense_q8``: (x, w (in, out), b) -> f32, with per-row activation
+    and per-output-channel weight scales (not folded: ``(y * (s / 127)) *
+    (sw / 127) + b``).  The int8 product is a library call on the card
+    (``torch._int_mm``, s8 x s8 -> s32; it raises where its shape rules fail)
+    and the exact plain product on the CPU or with ``library=False``."""
+    _build.no_grad_inputs("dense_q8", [x, w, b])
+    qx, s = _quantize_rows(x.float())
+    wf = w.float()
+    sw = wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-12)
+    qw = torch.round(wf * _div(127.0, sw)).to(torch.int8)
+    if library and x.device.type == "cuda":
+        y = torch._int_mm(qx.reshape(-1, qx.shape[-1]), qw).float().view(*qx.shape[:-1], -1)
+    else:
+        y = _idot(qx, qw)
+    return y * _over(s, 127.0) * _over(sw, 127.0) + b
+
+
+class QWeight(NamedTuple):
+    """An int8 projection weight in the kernels' layout: qt (out, in) int8,
+    s (out,) folded scale."""
+
+    qt: torch.Tensor
+    s: torch.Tensor
+
+
+def quantize_proj(w) -> QWeight:
+    q, s = quantize_weight(w)
+    return QWeight(q.t().contiguous(), s)
+
+
+def _proj_q8(x, qw: QWeight, b):
+    """x @ W + b with per-row int8 activations: ((idot * s_row) * sw) + b, the
+    last product and sum one FMA."""
+    q, s = _quantize_rows(x)
+    return _fma(_idot(q, qw.qt.t()) * s, qw.s, b)
+
+
+# ---------------------------------------------------------------------------
+# K8a: the int8 MSTCN tower
+
+
+def _tiling(T: int, tile: int, dilation: int):
+    """``dilated_conv.py::_tiling``: (8-aligned halo, tile, n_tiles)."""
+    halo = -(-dilation // 8) * 8
+    tile = min(tile, max(-(-T // 8) * 8, 8))
+    return halo, tile, -(-T // tile)
+
+
+def _stack_layout(T: int, dilations, tile: int):
+    """``dilated_conv.py::_stack_layout``: (tile, n_tiles, T_pad, buffer halo)."""
+    _, tile, n_tiles = _tiling(T, tile, 1)
+    halo_req = -(-max(dilations) // 8) * 8
+    return tile, n_tiles, n_tiles * tile, -(-halo_req // tile) * tile
+
+
+class Q8Layer(NamedTuple):
+    """One quantized tower layer in the kernel's layout: qwdt (C_out, 3 C_in)
+    int8 (tap k's inputs at k C_in) with the joint scale swd (C,), qw1t
+    (C_out, C_in) int8 with sw1 (C,), and the f32 vectors."""
+
+    qwdt: torch.Tensor
+    swd: torch.Tensor
+    bd: torch.Tensor
+    qw1t: torch.Tensor
+    sw1: torch.Tensor
+    b1: torch.Tensor
+    gamma: torch.Tensor
+    beta: torch.Tensor
+
+
+def quantize_tower(layers) -> list:
+    """(wd (3, C, C), bd, w1 (C, C), b1, gamma, beta) per layer -> Q8Layer
+    (``dilated_residual_stack_q8``'s per-step weight pass, tile mode)."""
+    out = []
+    for wd, bd, w1, b1, gamma, beta in layers:
+        C = w1.shape[0]
+        qwd, swd = quantize_weight_joint(wd)
+        qw1, sw1 = quantize_weight(w1)
+        ones = torch.ones(C, device=w1.device)
+        out.append(Q8Layer(qwd.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), swd,
+                           bd.float(), qw1.t().contiguous(), sw1, b1.float(),
+                           gamma if gamma is not None else ones,
+                           beta if beta is not None else torch.zeros_like(ones)))
+    return out
+
+
+def _lane_sum(v):
+    """Sum over the last dim (a multiple of 32) in the order of the kernel's
+    warp reduction (csrc/quant.cu's LayerNorm): lane l sums channels
+    l, l + 32, ... in turn, then five xor-shuffle steps add the lanes."""
+    lanes = v[..., :32]
+    for j in range(1, v.shape[-1] // 32):
+        lanes = lanes + v[..., 32 * j: 32 * j + 32]
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., :1]
+
+
+def _layer_norm(out, gamma, beta, eps: float):
+    """JAX's two-pass LayerNorm (quant_conv.py::_ln_normalize), its sums in
+    the kernel's order and 1 / sqrt correctly rounded, so that the kernel and
+    this version round alike (C a multiple of 32)."""
+    C = out.shape[-1]
+    mean = _over(_lane_sum(out), float(C))
+    d = out - mean
+    inv = _div(1.0, torch.sqrt(_over(_lane_sum(d * d), float(C)) + eps))
+    return _fma(d * inv, gamma, beta)
+
+
+def _shift(x, s: int):
+    """y[:, t] = x[:, t + s] inside [0, T), zero outside."""
+    if s == 0:
+        return x
+    y = torch.zeros_like(x)
+    T = x.shape[1]
+    if abs(s) < T:
+        if s > 0:
+            y[:, : T - s] = x[:, s:]
+        else:
+            y[:, -s:] = x[:, : T + s]
+    return y
+
+
+def mstcn_stack_q8_reference(x, lengths, qlayers, dilations, *, use_ln: bool,
+                             eps: float = 1e-5, tile: int = 512, scales: bool = False):
+    """Plain PyTorch version of ``dilated_residual_stack_q8`` (tile mode):
+    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  With
+    ``scales`` also what the activation scales are made of, per layer: the
+    8-frame group maxima of |input| (L, B, T_pad / 8), from which each
+    tile's window takes s_x, and each tile's max of the ReLU output (L, B,
+    n_tiles), before the 1e-12 floor."""
+    B, T, C = x.shape
+    tile, n_tiles, T_pad, _ = _stack_layout(T, dilations, tile)
+    dev = x.device
+    valid = (torch.arange(T_pad, device=dev)[None, :] < lengths[:, None]).float()[..., None]
+    cur = torch.zeros((B, T_pad, C), device=dev)
+    cur[:, :T] = x
+    cur = cur * valid
+    tile_of = torch.arange(T_pad, device=dev) // tile
+    groups, tile_max = [], []
+    for ql, d in zip(qlayers, dilations):
+        halo = -(-d // 8) * 8
+        rows = cur.abs().amax(dim=-1)  # (B, T_pad)
+        groups.append(rows.view(B, T_pad // 8, 8).amax(dim=-1))
+        s_x = torch.stack([rows[:, max(0, t * tile - halo): min(T_pad, t * tile + tile + halo)]
+                           .amax(dim=-1) for t in range(n_tiles)], dim=1).clamp_min(1e-12)
+        sx = s_x[:, tile_of][..., None]  # (B, T_pad, 1): each row's tile scale
+        taps = [torch.round(_shift(cur, (k - 1) * d) * _div(127.0, sx)) for k in range(3)]
+        acc = _idot(torch.cat(taps, dim=-1), ql.qwdt.t())
+        a = torch.relu(_fma(acc, sx * ql.swd, ql.bd))
+        tile_max.append(a.abs().view(B, n_tiles, tile * C).amax(dim=-1))
+        sa = tile_max[-1].clamp_min(1e-12)[:, tile_of][..., None]
+        qa = torch.round(a * _div(127.0, sa))
+        out = _fma(_idot(qa, ql.qw1t.t()), sa * ql.sw1, ql.b1) + cur
+        if use_ln:
+            out = _layer_norm(out, ql.gamma, ql.beta, eps)
+        cur = out * valid
+    if scales:
+        return cur[:, :T], torch.stack(groups), torch.stack(tile_max)
+    return cur[:, :T]
+
+
+def mstcn_stack_q8(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float = 1e-5,
+                   tile: int = 512, scales: bool = False):
+    """K8a: the int8 tower (``csrc/quant.cu``, two launches a layer and one
+    for the input's group maxima) on CUDA tensors, the plain version on CPU
+    tensors.  ``qlayers`` from ``quantize_tower``; ``scales`` as in the
+    plain version (the kernels' own group and tile maxima)."""
+    _build.no_grad_inputs("mstcn_stack_q8", [x] + [t for ql in qlayers
+                                                   for t in (ql.bd, ql.b1, ql.gamma, ql.beta)])
+    if x.device.type == "cpu":
+        return mstcn_stack_q8_reference(x, lengths, qlayers, dilations, use_ln=use_ln, eps=eps,
+                                        tile=tile, scales=scales)
+    B, T, C = x.shape
+    tile, n_tiles, T_pad, _ = _stack_layout(T, dilations, tile)
+    if C % 32:
+        raise NotImplementedError(f"mstcn_stack_q8: C={C} is not a multiple of 32")
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError("mstcn_stack_q8: lengths must be (B,) int32")
+    x = x.contiguous()
+    vecs = [t for ql in qlayers for t in (ql.swd, ql.bd, ql.sw1, ql.b1, ql.gamma, ql.beta)]
+    _build.check_tensors("mstcn_stack_q8", [x, lengths, *vecs]
+                         + [t for ql in qlayers for t in (ql.qwdt, ql.qw1t)], x.device)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    a = torch.empty((B, T_pad, C), **f32)
+    ys = [torch.empty((B, T, C), **f32) for _ in range(min(2, len(qlayers)))]
+    L = len(qlayers)
+    gmax = torch.empty((L + 1, B, T_pad // 8), **f32)  # each layer input's group maxima
+    smax = torch.zeros((L, B, n_tiles), device=x.device, dtype=torch.int32)
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    _build.check("fk_q8_group_max", lib.fk_q8_group_max(
+        x.data_ptr(), lengths.data_ptr(), gmax[0].data_ptr(), B, T, T_pad, C, stream))
+    cur = x
+    for i, (ql, d) in enumerate(zip(qlayers, dilations)):
+        y = ys[i % 2]
+        _build.check("fk_q8_tower_layer", lib.fk_q8_tower_layer(
+            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), ql.qwdt.data_ptr(),
+            ql.swd.data_ptr(), ql.bd.data_ptr(), a.data_ptr(), smax[i].data_ptr(),
+            ql.qw1t.data_ptr(), ql.sw1.data_ptr(), ql.b1.data_ptr(), ql.gamma.data_ptr(),
+            ql.beta.data_ptr(), y.data_ptr(), gmax[i + 1].data_ptr(), B, T, C, d,
+            -(-d // 8) * 8, tile, n_tiles, T_pad, int(use_ln), float(eps), stream))
+        cur = y
+    mstcn_stack_q8.launches += 1
+    if scales:  # the tile maxima are the int bits of non-negative floats
+        return cur, gmax[:L], smax.view(torch.float32)
+    return cur
+
+
+mstcn_stack_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8b / K8c: X2Y with int8 projections over the large axis
+
+
+def x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
+                               qweights=None):
+    """Plain PyTorch version of ``x2y_attention_q8`` (both forms): returns
+    (attn, probs, logits) as ``x2y_attention`` does.  ``qweights`` are the
+    ``quantize_proj`` of (wk, wv, wq), quantized here when None."""
+    qk, qv, qq = qweights or (quantize_proj(wk), quantize_proj(wv), quantize_proj(wq))
+    X, d = x_in.shape[1], wq.shape[1]
+    if X >= FLASH_MIN_KEYS:  # the frames are the keys: int8 K/V projections
+        yq = add_pos(y_in, y_pos) @ wq + bq
+        xk = _proj_q8(add_pos(x_in, x_pos), qk, bk)
+        xv = _proj_q8(x_in, qv, bv)
+    else:  # the frames are the queries: int8 q projection
+        xk = add_pos(x_in, x_pos) @ wk + bk
+        xv = x_in @ wv + bv
+        yq = _proj_q8(add_pos(y_in, y_pos), qq, bq)
+    logits = (yq @ xk.transpose(1, 2)) * (1.0 / math.sqrt(d))
+    valid = torch.arange(X, device=x_in.device)[None, None, :] < x_len[:, None, None]
+    logits = logits.masked_fill(~valid, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    return probs @ xv, probs, logits
+
+
+def _rows_q8(x, pos):
+    """csrc/quant.cu's row quantizer on (x + pos): (int8 (B, N, C), (B, N) scales)."""
+    B, N, C = x.shape
+    p, p_stride, P = kernel_pos(pos, B, N, C)
+    _build.check_tensors("fk_q8_rows", [x, p], x.device)
+    q = torch.empty((B, N, C), device=x.device, dtype=torch.int8)
+    s = torch.empty((B, N), device=x.device, dtype=torch.float32)
+    _build.check("fk_q8_rows", _build.lib().fk_q8_rows(
+        x.data_ptr(), p.data_ptr() if p is not None else None, p_stride, P, B, N, C,
+        q.data_ptr(), s.data_ptr(), _build.stream_ptr(x.device)))
+    return q, s
+
+
+def _x2y_prologue(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, qweights):
+    _build.no_grad_inputs(name, [y_in, x_in, wk, bk, wv, bv, wq, bq])
+    B, Y, Cy = y_in.shape
+    _, X, Cx = x_in.shape
+    d = wq.shape[1]
+    if (x_in.shape[0] != B or wk.shape != (Cx, d) or wv.shape != (Cx, d) or wq.shape != (Cy, d)
+            or bk.shape != (d,) or bv.shape != (d,) or bq.shape != (d,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if x_len.dtype != torch.int32 or x_len.shape != (B,):
+        raise ValueError(f"{name}: x_len must be (B,) int32")
+    qw = qweights or (quantize_proj(wk), quantize_proj(wv), quantize_proj(wq))
+    _build.check_tensors(name, [y_in, x_in, bk, bv, bq, x_len, *[t for w in qw for t in w]],
+                         x_in.device)
+    return qw
+
+
+def x2y_small_x_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
+    """K8b: the frames are the queries (X <= 1024 keys).  The key / value
+    projections over the short axis stay f32 and outside, as in JAX."""
+    if x_in.device.type == "cpu":
+        _build.no_grad_inputs("x2y_small_x_q8", [y_in, x_in, wk, bk, wv, bv, wq, bq])
+        return x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
+                                          x_len, qweights)
+    y_in, x_in = y_in.contiguous(), x_in.contiguous()
+    _, _, qq = _x2y_prologue("x2y_small_x_q8", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
+                             qweights)
+    B, Y, Cy = y_in.shape
+    X, d = x_in.shape[1], wq.shape[1]
+    if Cy % 16:
+        raise NotImplementedError(f"x2y_small_x_q8: Cy={Cy} is not a multiple of 16")
+    xkt = (add_pos(x_in, x_pos) @ wk + bk).transpose(1, 2).contiguous()
+    xv = (x_in @ wv + bv).contiguous()
+    qy, sy = _rows_q8(y_in, y_pos)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    attn, probs, logits = (torch.empty((B, Y, d), **f32), torch.empty((B, Y, X), **f32),
+                           torch.empty((B, Y, X), **f32))
+    _build.check("fk_x2y_small_x_q8", _build.lib().fk_x2y_small_x_q8(
+        qy.data_ptr(), sy.data_ptr(), xkt.data_ptr(), xv.data_ptr(), qq.qt.data_ptr(),
+        qq.s.data_ptr(), bq.data_ptr(), x_len.data_ptr(), attn.data_ptr(), probs.data_ptr(),
+        logits.data_ptr(), B, Y, X, Cy, d, 1.0 / math.sqrt(d), _build.stream_ptr(x_in.device)))
+    x2y_small_x_q8.launches += 1
+    return attn, probs, logits
+
+
+x2y_small_x_q8.launches = 0
+
+
+def _proj_attn_q8(x_in, x_pos, q, qk: QWeight, bk, qv: QWeight, bv, x_len, *, num_heads: int,
+                  scale: float, out, logits=None, probs=None):
+    """csrc/flash_attn.cu's int8 twin: the frame rows quantized (x + pos for
+    K, x for V), then the int8 partial kernel and the combine."""
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], q.shape[2]
+    H = num_heads
+    if Cx % 16:
+        raise NotImplementedError(f"fk_proj_attn_q8: Cx={Cx} is not a multiple of 16")
+    tile = key_tile(M, E, H)
+    if tile is None:
+        raise NotImplementedError(f"fk_proj_attn_q8: no key tile fits in shared memory at M={M}, "
+                                  f"E={E}, H={H}")
+    qxk, sxk = _rows_q8(x_in, x_pos)
+    qxv, sxv = _rows_q8(x_in, None)
+    _build.check_tensors("fk_proj_attn_q8", [q, out, logits, probs], x_in.device)
+    n_t = -(-X // tile)
+    part_acc = torch.empty((B, n_t, H * M, E // H), device=x_in.device, dtype=torch.float32)
+    part_ml = torch.empty((B, n_t, H * M, 2), device=x_in.device, dtype=torch.float32)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _build.check("fk_proj_attn_q8", _build.lib().fk_proj_attn_q8(
+        qxk.data_ptr(), sxk.data_ptr(), qxv.data_ptr(), sxv.data_ptr(), q.data_ptr(),
+        qk.qt.data_ptr(), qk.s.data_ptr(), bk.data_ptr(), qv.qt.data_ptr(), qv.s.data_ptr(),
+        bv.data_ptr(), x_len.data_ptr(), B, X, Cx, M, H, E // H, scale, ptr(logits), ptr(probs),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tile,
+        _build.stream_ptr(x_in.device)))
+
+
+def x2y_flash_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
+    """K8c: the frames are the keys (X > 1024).  The q projection over the
+    token axis stays f32 and outside, as in JAX."""
+    if x_in.device.type == "cpu":
+        _build.no_grad_inputs("x2y_flash_q8", [y_in, x_in, wk, bk, wv, bv, wq, bq])
+        return x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
+                                          x_len, qweights)
+    y_in, x_in = y_in.contiguous(), x_in.contiguous()
+    qk, qv, _ = _x2y_prologue("x2y_flash_q8", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
+                              qweights)
+    B, M, _ = y_in.shape
+    X, d = x_in.shape[1], wq.shape[1]
+    yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    logits = torch.empty((B, M, X), **f32)
+    probs = torch.empty_like(logits)
+    attn = torch.empty((B, M, d), **f32)
+    _proj_attn_q8(x_in, x_pos, yq, qk, bk, qv, bv, x_len, num_heads=1,
+                  scale=1.0 / math.sqrt(d), out=attn, logits=logits, probs=probs)
+    x2y_flash_q8.launches += 1
+    return attn, probs, logits
+
+
+x2y_flash_q8.launches = 0
+
+
+def x2y_attention_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
+    """The int8 X2Y entry: K8c when X > 1024 (the frames are the keys), else
+    K8b (the frames are the queries), as JAX dispatches."""
+    fn = x2y_flash_q8 if x_in.shape[1] >= FLASH_MIN_KEYS else x2y_small_x_q8
+    return fn(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights)
+
+
+# ---------------------------------------------------------------------------
+# K8d: SCA cross-attention with int8 K/V projections
+
+
+def mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
+                           qweights=None):
+    """Plain PyTorch version of ``mha_cross_attention_q8``: q (B, M, E)
+    projected queries -> (B, M, E), the heads side by side."""
+    qk, qv = qweights or (quantize_proj(wk), quantize_proj(wv))
+    B, X, _ = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    k = _proj_q8(add_pos(x_in, x_pos), qk, bk).view(B, X, H, hd)
+    v = _proj_q8(x_in, qv, bv).view(B, X, H, hd)
+    qh = (q * (1.0 / math.sqrt(hd))).view(B, M, H, hd)  # _arrange_queries
+    logits = torch.einsum("bmhd,bxhd->bhmx", qh, k)
+    valid = torch.arange(X, device=x_in.device)[None, None, None, :] < x_len[:, None, None, None]
+    p = torch.softmax(logits.masked_fill(~valid, _NEG), dim=-1)
+    return torch.einsum("bhmx,bxhd->bmhd", p, v).reshape(B, M, E)
+
+
+def mha_cross_q8(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, qweights=None):
+    """K8d on CUDA tensors, the plain version on CPU tensors."""
+    _build.no_grad_inputs("mha_cross_q8", [q, x_in, x_pos, wk, bk, wv, bv])
+    if x_in.device.type == "cpu":
+        return mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len,
+                                      num_heads=num_heads, qweights=qweights)
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    if (q.shape != (B, M, E) or E % num_heads or wk.shape != (Cx, E) or wv.shape != (Cx, E)
+            or bk.shape != (E,) or bv.shape != (E,)):
+        raise ValueError("mha_cross_q8: inconsistent shapes")
+    if x_len.dtype != torch.int32 or x_len.shape != (B,):
+        raise ValueError("mha_cross_q8: x_len must be (B,) int32")
+    qk, qv = qweights or (quantize_proj(wk), quantize_proj(wv))
+    x_in = x_in.contiguous()
+    _build.check_tensors("mha_cross_q8", [x_in, bk, bv, x_len, *qk, *qv], x_in.device)
+    qs = (q * (1.0 / math.sqrt(E // num_heads))).contiguous()  # _arrange_queries folds the scale
+    out = torch.empty((B, M, E), device=x_in.device, dtype=torch.float32)
+    _proj_attn_q8(x_in, x_pos, qs, qk, bk, qv, bv, x_len, num_heads=num_heads, scale=1.0,
+                  out=out)
+    mha_cross_q8.launches += 1
+    return out
+
+
+mha_cross_q8.launches = 0

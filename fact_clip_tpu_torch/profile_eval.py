@@ -1,9 +1,13 @@
 """Where the time of an eval step (or train step) goes on the card.
 
-    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|breakfast|epic] [--train]
-                                                [--steps N] [--trace DIR]
+    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|int8|breakfast|epic]
+                                                [--train] [--steps N] [--trace DIR]
 
 Builds the flagship FACT model (iuUU, D=2048, C=75, M=40), or with
+``--cfg int8`` the same model evaluated with int8 (``flagship_int8_cfg()``:
+its towers, their in map, the X2Y projections over the frames and the SCA
+key / value projections on int8 operands; the plain path is its int8 plain
+versions; ``--train`` trains it as the flagship trains), or with
 ``--cfg breakfast`` the Breakfast model (``breakfast_cfg()``: MS-TCN++
 towers, every width 512, D=2048, 48 classes, M=60), or with ``--cfg epic``
 the verb/noun model (``epic_cfg()``: IUUU, D=1024, 98 verbs x 301 nouns,
@@ -36,7 +40,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .configs import breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg, epic_vocab
-from .configs import flagship_cfg, train_cfg
+from .configs import flagship_cfg, flagship_int8_cfg, train_cfg
 from .engine.steps import make_eval_step, make_train_step
 from .engine.train_loop import batch_to_device, epic_batch, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
@@ -56,13 +60,15 @@ _synthetic = functools.partial(synthetic_batch, S=32)  # up to 32 segments a vid
 SETUPS = {
     "flagship": (flagship_cfg, train_cfg, 2048, 75, 128, 3072,
                  [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400], build_fact, _synthetic),
+    "int8": (flagship_int8_cfg, train_cfg, 2048, 75, 128, 3072,
+             [3072, 3000, 2950, 2800, 2700, 2600, 2500, 2400], build_fact, _synthetic),
     "breakfast": (breakfast_cfg, breakfast_train_cfg, 2048, 48, 64, 4096,
                   [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100], build_fact, _synthetic),
     "epic": (epic_cfg, epic_train_cfg, 1024, 3806, 256, 24576, [24576], _build_epic,
              epic_batch),
 }
-TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "breakfast": [4096, 3600, 2500, 1400],
-                 "epic": [24576]}
+TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "int8": SETUPS["flagship"][6],
+                 "breakfast": [4096, 3600, 2500, 1400], "epic": [24576]}
 
 
 def wall_ms(step, args, n):

@@ -86,6 +86,13 @@ cfg["BU"].update(a_nhead=2, f_layers=2)
 vn = build_verbnoun_fact(cfg, 12, *epic_vocab(13, 29, 97), 16, 13, 29, device="cpu")
 out = Predictor(vn, 0.1, batch_size=1, max_len=64).predict([np.ones((40, 12), np.float32)])
 assert out[0].shape == (40,) and 0 <= out[0].min() and out[0].max() < 97
+# int8 evaluation (ops/quant_conv.py), narrowed
+cfg8 = small_cfg()
+cfg8["TPU"]["quantize_infer"] = "int8"
+m8 = build_fact(cfg8, 12, 5, 24, device="cpu")
+assert "fact_clip_tpu_torch.ops.quant_conv" in sys.modules
+out = Predictor(m8, 0.1, batch_size=2, max_len=64).predict([np.ones((40, 12), np.float32)])
+assert out[0].shape == (40,)
 assert not [m for m in sys.modules if m.startswith("fact_clip_tpu.") or m == "fact_clip_tpu"]
 print("GUARD_OK")
 """
