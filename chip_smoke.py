@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
 serving, training, for the flagship, for Breakfast and for the
-Epic-Kitchens verb/noun model, and the flagship served with int8
-evaluation.
+Epic-Kitchens verb/noun model, the three served with int8 evaluation, and
+the single-layer K1.
 
     python3 chip_smoke.py
 
@@ -53,12 +53,19 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    90 frames: the d=512 taps fall outside the videos) without and with LN;
    X2Y small-X at Y=3072, X=40, d=512 and a ragged (2, 1000, 37); X2Y flash
    at X=3072, M=40 and X=1100 with ragged keys; the SCA cross-attention at
-   M=40, E=256, H=8, X=3072 and a ragged B=3, M=11, X=1100.  Their integer
-   parts (the tower's 8-frame group and tile maxima, which make its
-   activation scales; the frames as the row quantizer makes them) must
-   equal the plain versions', their f32 results lie within REL_TOL, and the
-   no-LN tower prints its share of bit-equal elements.  Their bound adds
-   the int8 products at the dense int8 rate (1,979 TOP/s) to the f32 work.
+   M=40, E=256, H=8, X=3072 and a ragged B=3, M=11, X=1100; at Breakfast's
+   shapes X2Y flash at X=4096, M=60, d=512 and the SCA cross-attention at
+   E=512, H=8, M=60, X=4096 and a ragged X=1100 (32-key tiles); X2Y small-X
+   at epic's f2a and a2f shapes; the int8 MS-TCN++ tower (K8e) at 4 x 4096
+   x 512, 10 layers, every frame valid, at a ragged B=3, T=600 (600 / 517 /
+   90) and at epic's 1 x 24,576 x 256.  Their integer parts (the towers'
+   8-frame group and tile maxima, which make their activation scales; the
+   frames as the row quantizer makes them) must equal the plain versions',
+   their f32 results lie within REL_TOL, and the no-LN towers print their
+   share of bit-equal elements.  Their bound adds the int8 products at the
+   dense int8 rate (1,979 TOP/s) to the f32 work.  The single-layer K1's
+   forward at 8 x 3072 x 256, d in {1, 512}, LN on and off, with and
+   without dropout 0.2.
 4. serving: the flagship FACT model (iuUU, D=2048, C=75, M=40,
    s_pred_cap=128) at full width with seeded random weights, loaded through
    a state_dict round trip, serves ~10 requests through
@@ -120,9 +127,25 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    memory of the int8 kernel path, the int8 plain path and the f32 kernel
    path; the int8 kernel path against the int8 plain path (block-0 logits,
    predictions), and against the f32 path (printed, not gated).
-11. the JSON line of kernel results (K7's launches from phase 8, K8's from
-   phase 10; the factored argmax, a verification oracle, launches 0 there),
-   the nvidia-smi line, and last the contract line {"ok": true, "device": {...}}.
+11. int8 serving of the f: m2 models: ``breakfast_int8_cfg()`` at full width
+   with phase 6's weights (a state_dict round trip) serves phase 6's 10
+   requests through ``Predictor(batch_size=8, max_len=10240)``: K8e launches
+   4 times per batch and K6 0 times, K8b-K8d as often as their f32 twins did
+   in phase 6 and the twins 0 times, SA and FFN as there; then on one 8 x
+   4096 batch the same three-path A/B as phase 10.  Then ``epic_int8_cfg()``
+   with phase 8's weights on one 1 x 24,576 batch: per eval step
+   EPIC_PER_BATCH with K6 -> K8e and K2 small-X -> K8b, every other counter
+   0, and the A/B (3 repeats).
+12. the single-layer K1 through its module: ``DilatedResidualLayer`` (C=256,
+   d=512, LN, dropout 0.2, kernels on) in train mode on 8 x 3072 ragged
+   videos, one forward and backward: its forward kernel launches once, K1's
+   mask kernel once (the backward's replay), nothing else; the output and
+   every gradient against the plain version on the same seed.
+13. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+   from phase 10, K8e's from phase 11's Breakfast requests, the single-layer
+   K1's from phase 12; the factored argmax, a verification oracle, launches
+   0), the nvidia-smi line, and last the contract line {"ok": true,
+   "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -907,6 +930,44 @@ def k8a_case(rng, B, T, C, L, lengths, use_ln):
             lambda: qc.mstcn_stack_q8_reference(x, lens, ql, dil, **kw), work, judge)
 
 
+def k8e_case(rng, B, T, C, L, lengths):
+    """K8e, the int8 MS-TCN++ tower, with its group maxima and its tiles'
+    |c1| and |c2| maxima (the integer parts: they make the activation scales)
+    beside the output."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    x, lens, layers, dil, _ = k6_case(rng, B, T, C, C, L, lengths, 0.0)
+    ql = qc.quantize_tower2(layers)
+    _, tile, n_tiles = qc._tiling(T, 512, 1)
+    T_pad = n_tiles * tile
+    N = _valid(lens, T)
+    # Each conv's three taps are needed on the rows whose c feeds a tile's
+    # scale: the valid rows and, past a video's end, the rows within d of it
+    # in its last tile (further on c is exactly the bias).  The two fuse
+    # products and the f32 work a frame and channel (the input's and c's
+    # quantizations, the dequantizations, ReLU, bias, residual) on valid rows.
+    tap_rows = sum(min(n + d, -(-n // tile) * tile, T_pad)
+                   for pair in dil for d in pair for n in lens.clamp(max=T).tolist())
+    work = (L * 18 * N * C, nbytes(x, lens, ql) + B * T * C * 4,
+            (6 * tap_rows + 4 * L * N) * C * C)
+    judge = q8_judge("mstcn2_stack_q8", lambda o: o[0], lambda o: o[1:], bit_share=True)
+    return (lambda: qc.mstcn2_stack_q8(x, lens, ql, dil, scales=True),
+            lambda: qc.mstcn2_stack_q8_reference(x, lens, ql, dil, scales=True), work, judge)
+
+
+def dr_layer_case(rng, B, T, C, d, use_ln, rate=0.0):
+    """The single-layer K1's forward, every frame valid, against its plain
+    version (the same hash mask with dropout)."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    (x, _, layers, _), _ = k1_case(rng, B, T, C, C, [d], [T] * B, use_ln)
+    kw = dict(dilation=d, use_ln=use_ln, rate=rate, seed=_seed(rng) if rate > 0.0 else None)
+    work = (8 * B * T * C * C + (12 if use_ln else 4) * B * T * C,
+            nbytes(x, layers) + B * T * C * 4)
+    return (lambda: dc.dilated_residual_layer_fwd(x, *layers[0], **kw),
+            lambda: dc.dilated_residual_layer_reference(x, *layers[0], **kw), work)
+
+
 def _frames_judge(judge, frames):
     """``judge`` on (the function's outputs, each side's row-quantized frames):
     ``frames()`` gives [(kernel (q, s), plain (q, s))] of the row quantizer
@@ -1143,17 +1204,40 @@ def kernel_table():
          [("flagship", lambda r: k8bc_case(r, False, B, T, 40, D, D, D, [40] * B,
                                            zeros(1, T, D), _rand(r, (1, 40, 256)))),
           ("ragged", lambda r: k8bc_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
-                                         _rand(r, (2, 1000, D)), _rand(r, (1, 37, D))))]),
+                                         _rand(r, (2, 1000, D)), _rand(r, (1, 37, D)))),
+          # epic int8: f2a, 300 tokens over <= 256 segments; a2f, 256 segments
+          # (per-video y_pos) over 300 tokens
+          ("epic_f2a", lambda r: k8bc_case(r, False, 2, 300, 256, D, D, D, [256, 190],
+                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
+          ("epic_a2f", lambda r: k8bc_case(r, False, 2, 256, 300, D, D, D, [300, 300],
+                                           _rand(r, (2, 256, D)), _rand(r, (1, 300, E))))]),
         ("x2y_flash_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:519", "argmax",
          [("flagship", lambda r: k8bc_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                            _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: k8bc_case(r, True, 2, 37, 1100, D, D, D, [1100, 901],
-                                         _rand(r, (1, 37, D)), _rand(r, (1, 1100, D))))]),
+                                         _rand(r, (1, 37, D)), _rand(r, (1, 1100, D)))),
+          # Breakfast int8: 60 tokens over 4 x 4096 frames, d = 512
+          ("breakfast", lambda r: k8bc_case(r, True, 4, 60, 4096, D, D, D, bf_len,
+                                            _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
         ("mha_cross_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:715", "argmax",
          [("flagship", lambda r: k8d_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                           zeros(1, T, D))),
           ("ragged", lambda r: k8d_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
-                                        _rand(r, (1, 1100, D))))]),
+                                        _rand(r, (1, 1100, D)))),
+          # Breakfast int8: E = 512, hd = 64, M = 60 (32-key tiles)
+          ("bf_e512", lambda r: k8d_case(r, 4, 60, 4096, D, D, 8, bf_len, zeros(1, 4096, D))),
+          ("bf_ragged", lambda r: k8d_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
+                                           _rand(r, (1, 1100, D))))]),
+        # int8 evaluation of the f: m2 models (breakfast_int8_cfg, epic_int8_cfg): K8e
+        ("mstcn2_stack_q8", csrc + "quant2.cu", pallas + "quant_conv.py:390", "argmax",
+         [("breakfast", lambda r: k8e_case(r, 4, 4096, D, 10, [4096] * 4)),
+          ("ragged", lambda r: k8e_case(r, 3, 600, D, 10, bf_rag)),
+          ("epic", lambda r: k8e_case(r, 1, ET, 256, 10, [ET]))]),
+        # the single-layer K1 (no model reaches it; phase 12 drives its module)
+        ("dilated_residual_layer", csrc + "mstcn.cu", pallas + "dilated_conv.py:872", "rel",
+         [(f"d{d}{'_ln' if ln else ''}{'_drop' if rate else ''}",
+           lambda r, d=d, ln=ln, rate=rate: dr_layer_case(r, B, T, 256, d, ln, rate))
+          for rate in (0.0, 0.2) for ln in (True, False) for d in (1, 512)]),
     ]
 
 
@@ -2101,14 +2185,7 @@ def phase_int8_serving(f32_counts, seed: int = 0):
         raise AssertionError(f"int8 serving launches: (got, want) {wrong}")
 
     B, T = 8, 3072
-    blen = np.array(FLAGSHIP_LENGTHS, np.int32)
-    bfeats = np.zeros((B, T, D), np.float32)
-    for i, n in enumerate(blen):
-        bfeats[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
-    x = torch.from_numpy(bfeats).to(dev)
-    mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
-    lens = torch.from_numpy(blen).to(dev)
-    full = [bfeats[i, :n] for i, n in enumerate(blen)]
+    x, mask, lens, full = _batch(rng, FLAGSHIP_LENGTHS, T, D)
     per_batch = {}
     for tag, m in (("int8", model), ("f32", f32)):
         make_eval_step(m, mwt)(x, mask, lens)
@@ -2128,15 +2205,33 @@ def phase_int8_serving(f32_counts, seed: int = 0):
     if bad:
         raise AssertionError(f"int8 launches per batch (got, want[, f32 twin]): {bad}")
 
+    int8_paths("int8", model, f32, mwt, x, mask, lens, full, 8, 3072, ("frame_clogit",))
+    return counts
+
+
+def int8_paths(tag, model, f32, mwt, x, mask, lens, full, batch_size, max_len, logit_keys,
+               reps=5):
+    """On one batch: the warm predict of its videos and the warm eval step
+    (medians of ``reps``) with peak memory on the int8 kernel path, the int8
+    plain path and the f32 kernel path; then the int8 kernel path against
+    the int8 plain path (block 0's ``logit_keys`` within LOGIT_TOL, final
+    predictions >= MIN_AGREE: gated) and against the f32 path (printed: the
+    weights are random)."""
+    import torch
+
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+
+    B, T = x.shape[:2]
     preds = {}
-    for tag, m, kernels in (("int8 kernels", model, True), ("int8 plain", model, False),
-                            ("f32 kernels", f32, True)):
+    for name, m, kernels in (("int8 kernels", model, True), ("int8 plain", model, False),
+                             ("f32 kernels", f32, True)):
         m.set_kernels(kernels)
         step = make_eval_step(m, mwt)
-        p = Predictor(m, mwt=mwt, batch_size=8, max_len=3072, device=dev)
+        p = Predictor(m, mwt=mwt, batch_size=batch_size, max_len=max_len, device=x.device)
         p.predict(full)
         ptimes = []
-        for _ in range(5):
+        for _ in range(reps):
             t0 = time.perf_counter()
             p.predict(full)
             ptimes.append((time.perf_counter() - t0) * 1e3)
@@ -2144,16 +2239,16 @@ def phase_int8_serving(f32_counts, seed: int = 0):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(5):
+        for _ in range(reps):
             t0 = time.perf_counter()
-            preds[tag] = step(x, mask, lens)
+            preds[name] = step(x, mask, lens)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"[int8] {tag}: predict 8 requests ({B} x {T}) warm ms median {_median(ptimes):.3f} "
-            f"(all {', '.join(f'{t:.3f}' for t in ptimes)}); eval step warm ms median "
-            f"{_median(times):.3f} (all {', '.join(f'{t:.3f}' for t in times)}); peak device "
-            f"memory {peak:.3f} GiB")
+        log(f"[{tag}] {name}: predict {len(full)} requests ({B} x {T}) warm ms median "
+            f"{_median(ptimes):.3f} (all {', '.join(f'{t:.3f}' for t in ptimes)}); eval step "
+            f"warm ms median {_median(times):.3f} (all {', '.join(f'{t:.3f}' for t in times)}); "
+            f"peak device memory {peak:.3f} GiB")
     with torch.inference_mode():
         model.set_kernels(True)
         saves_k, _ = model(x, mask, lens)
@@ -2161,16 +2256,193 @@ def phase_int8_serving(f32_counts, seed: int = 0):
         saves_p, _ = model(x, mask, lens)
         model.set_kernels(True)
         saves_f, _ = f32(x, mask, lens)
-    fl_err = float((saves_k[0]["frame_clogit"] - saves_p[0]["frame_clogit"]).abs()[mask].max())
+
+    def block0_err(a, b):
+        return max(float((a[0][k] - b[0][k]).abs()[mask].max()) for k in logit_keys)
+
+    fl_err, fl_f32 = block0_err(saves_k, saves_p), block0_err(saves_k, saves_f)
     agree = float((preds["int8 kernels"] == preds["int8 plain"])[mask].float().mean())
     vs_f32 = float((preds["int8 kernels"] == preds["f32 kernels"])[mask].float().mean())
-    fl_f32 = float((saves_k[0]["frame_clogit"] - saves_f[0]["frame_clogit"]).abs()[mask].max())
-    log(f"[int8] int8 kernel vs int8 plain path: block-0 frame logits max_abs_err {fl_err:.3e} "
+    what = "frame logits" if logit_keys == ("frame_clogit",) else "frame verb / noun log-probs"
+    log(f"[{tag}] int8 kernel vs int8 plain path: block-0 {what} max_abs_err {fl_err:.3e} "
         f"(tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid frames (min "
-        f"{MIN_AGREE}); int8 vs f32 (not gated, random weights): block-0 frame logits "
+        f"{MIN_AGREE}); int8 vs f32 (not gated, random weights): block-0 {what} "
         f"max_abs_err {fl_f32:.3e}, predictions agree on {vs_f32:.5f}")
     if not (fl_err <= LOGIT_TOL and agree >= MIN_AGREE):
-        raise AssertionError("int8: the kernel path disagrees with the plain path")
+        raise AssertionError(f"{tag}: the int8 kernel path disagrees with the int8 plain path")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: Breakfast and Epic-Kitchens served with int8 evaluation (K8e)
+
+M2_INT8_OF = {"mstcn2_stack_q8": "mstcn2_stack", "x2y_small_x_q8": "x2y_small_x",
+              "x2y_flash_q8": "x2y_flash", "mha_cross_q8": "mha_cross"}  # K8 -> the f32 twin
+
+
+def _launch_check(tag, counts, want):
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"{tag} launches: (got, want) {wrong}")
+
+
+def _batch(rng, lengths, T, D):
+    """One padded batch on the card and its videos' features."""
+    import torch
+
+    blen = np.array(lengths, np.int32)
+    feats = np.zeros((len(blen), T, D), np.float32)
+    for i, n in enumerate(blen):
+        feats[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(feats).to(dev),
+            torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev),
+            torch.from_numpy(blen).to(dev), [feats[i, :n] for i, n in enumerate(blen)])
+
+
+def phase_m2_int8_serving(bf_f32_counts, seed: int = 0):
+    """``breakfast_int8_cfg()`` at full width with phase 6's weights (a
+    state_dict round trip) serves phase 6's 10 requests: K8e launches 4 times
+    per batch and K6 not at all, K8b-K8d as often as their f32 twins did in
+    phase 6 and the twins 0 times, SA and FFN as there; then the int8 A/B on
+    one 8 x 4096 batch.  Then ``epic_int8_cfg()`` with phase 8's weights on
+    one 1 x 24,576 batch: EPIC_PER_BATCH with K6 -> K8e and K2 small-X ->
+    K8b, every other counter 0, and the same A/B."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import (breakfast_cfg, breakfast_int8_cfg, epic_cfg,
+                                             epic_int8_cfg, epic_vocab)
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.verbnoun import build_verbnoun_fact
+
+    dev = torch.device("cuda")
+    gen = lambda s: torch.Generator(device="cpu").manual_seed(s)  # noqa: E731
+    D, C, S_CAP = BF_DIMS
+    cfg = breakfast_int8_cfg()
+    mwt = cfg["FACT"]["mwt"]
+    t0 = time.perf_counter()
+    f32 = build_fact(breakfast_cfg(), D, C, S_CAP, device=dev, generator=gen(seed))  # phase 6's
+    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=gen(seed + 1))
+    model.load_state_dict(f32.state_dict(), strict=True)
+    log(f"[bf-int8] breakfast_int8_cfg(): quantize "
+        f"{sorted({c.quantize for c in model.block_cfgs})}, built and reloaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in BF_SERVE_LENGTHS]
+    pred = Predictor(model, mwt=mwt, batch_size=8, max_len=10240, device=dev)
+    pred.predict(feats[-1:])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for n, o in zip(BF_SERVE_LENGTHS, outs):
+        if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad int8 prediction: shape {o.shape} dtype {o.dtype}")
+    buckets = [pred.bucket_for(n) for n in BF_SERVE_LENGTHS]  # predict() batches by bucket
+    n_batches = sum(-(-buckets.count(bk) // 8) for bk in set(buckets))
+    log(f"[bf-int8] predict: {len(feats)} requests, lengths {BF_SERVE_LENGTHS}, {dt:.3f} s, "
+        f"{n_batches} batches; launch counts {({k: v for k, v in counts.items() if v})}")
+    want = {k8: bf_f32_counts[f32k] for k8, f32k in M2_INT8_OF.items()}
+    want.update({f32k: 0 for f32k in M2_INT8_OF.values()})
+    want.update({k: bf_f32_counts[k] for k in ("sa_sublayer", "ffn_sublayer")})
+    want["mstcn2_stack_q8"] = 4 * n_batches
+    _launch_check("bf-int8 serving", counts, want)
+    x, mask, lens, full = _batch(rng, BF_EVAL_LENGTHS, 4096, D)
+    int8_paths("bf-int8", model, f32, mwt, x, mask, lens, full, 8, 10240, ("frame_clogit",))
+    del model, f32, pred, x
+    torch.cuda.empty_cache()
+
+    D, S_CAP = EPIC_DIMS
+    vids, nids = epic_vocab()
+    cfg = epic_int8_cfg()
+    mwt = cfg["FACT"]["mwt"]
+    t0 = time.perf_counter()
+    f32 = build_verbnoun_fact(epic_cfg(), D, vids, nids, S_CAP, device=dev, generator=gen(seed))
+    model = build_verbnoun_fact(cfg, D, vids, nids, S_CAP, device=dev, generator=gen(seed + 1))
+    model.load_state_dict(f32.state_dict(), strict=True)  # phase 8's weights
+    log(f"[epic-int8] epic_int8_cfg(): quantize "
+        f"{sorted({c.quantize for c in model.block_cfgs})}, built and reloaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    x, mask, lens, full = _batch(rng, [EPIC_T], EPIC_T, D)
+    step = make_eval_step(model, mwt)
+    step(x, mask, lens)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    step(x, mask, lens)
+    torch.cuda.synchronize()
+    epic_counts = kernel_counters()
+    rename = {"mstcn2_stack": "mstcn2_stack_q8", "x2y_small_x": "x2y_small_x_q8"}
+    want = {k: 0 for k in epic_counts}
+    want.update({rename.get(k, k): v for k, v in EPIC_PER_BATCH.items()})
+    log(f"[epic-int8] one eval step on 1 x {EPIC_T}: launch counts "
+        f"{({k: v for k, v in epic_counts.items() if v})}")
+    _launch_check("epic-int8 eval step", epic_counts, want)
+    int8_paths("epic-int8", model, f32, mwt, x, mask, lens, full, 1, EPIC_T,
+               ("frame_vlogp", "frame_nlogp"), reps=3)
+    return {"bf": counts, "epic": epic_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the single-layer K1 through its module
+
+
+def phase_dr_layer(seed: int = 0):
+    """``models.layers.DilatedResidualLayer`` (C=256, d=512, LN, dropout 0.2,
+    kernels on) in train mode on 8 x 3072 ragged videos: one forward and
+    backward through the single-layer K1's entry must launch its forward
+    kernel once and K1's mask kernel once (the backward's mask replay), and
+    nothing else; the output and every gradient against the plain layer on
+    the same seed (the plain version with the same hash mask, autograd)."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.models.layers import LN_EPS_TOWER, DilatedResidualLayer
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    B, T, C, d = 8, 3072, 256, 512
+    torch.manual_seed(seed)
+    layer = DilatedResidualLayer(d, C, True, use_kernel=True, dropout=0.2).cuda().train()
+    rng = np.random.default_rng(seed)
+    x = _rand(rng, (B, T, C))
+    mask = torch.arange(T, device="cuda")[None, :] < _lens(FLAGSHIP_LENGTHS)[:, None]
+    g = _rand(rng, (B, T, C), 0.1)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    y = layer(x, mask, generator=torch.Generator(device="cuda").manual_seed(seed))
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    counts = kernel_counters()
+    want = {k: 0 for k in counts}
+    want.update(dilated_residual_layer=1, mstcn_dropout_mask=1)
+    _launch_check("dr-layer", counts, want)
+    # the plain version on the seed the layer drew (the generator's first draw)
+    seed_t = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+    params = [p.detach().clone().requires_grad_(True) for p in layer.layout()]
+    xm = x * mask[..., None].float()
+    ref = dc.dilated_residual_layer_reference(xm, *params, dilation=d, use_ln=True,
+                                              eps=LN_EPS_TOWER, rate=0.2, seed=seed_t)
+    (ref * g).sum().backward()
+    torch.cuda.synchronize()
+    err_abs, err_rel = compare("dr-layer", [y.detach()], [ref.detach()])
+    wd, bd, w1, b1, gamma, beta = (p.grad for p in params)
+    mine = [layer.conv_dilated.weight.grad.permute(2, 1, 0), layer.conv_dilated.bias.grad,
+            layer.conv_1x1.weight.grad[:, :, 0].t(), layer.conv_1x1.bias.grad,
+            layer.norm.weight.grad, layer.norm.bias.grad]
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(mine, (wd, bd, w1, b1, gamma, beta)))
+    ok = err_rel <= REL_TOL and g_rel <= GRAD_TOL and all(torch.isfinite(t).all() for t in mine)
+    log(f"[dr-layer] DilatedResidualLayer(d={d}, C={C}, LN, dropout 0.2) on {B} x {T}: forward + "
+        f"backward launches {({k: v for k, v in counts.items() if v})}; output vs plain "
+        f"max_rel_err {err_rel:.3e} (tol {REL_TOL:g}); gradients vs autograd of the plain "
+        f"version max_rel_err {g_rel:.3e} (tol {GRAD_TOL:g})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise AssertionError("dr-layer: the single-layer K1 disagrees with its plain version")
     return counts
 
 
@@ -2186,9 +2458,15 @@ def main():
     epic_counts = phase_epic_serving()
     phase_epic_training()
     int8_counts = phase_int8_serving(counts)
+    m2_int8_counts = phase_m2_int8_serving(bf_counts["serve"])
+    dr_counts = phase_dr_layer()
     for name, r in results.items():
         # each row's launches on the path that runs it
-        if name in INT8_OF:
+        if name == "mstcn2_stack_q8":
+            r["launches"] = m2_int8_counts["bf"][name]
+        elif name == "dilated_residual_layer":
+            r["launches"] = dr_counts[name]
+        elif name in INT8_OF:
             r["launches"] = int8_counts[name]
         elif name in BF_ROWS:
             path, counter = BF_ROWS[name]

@@ -5,14 +5,15 @@ layout where that helps find a module's counterpart:
 
 configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
                   breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
-                  epic_vocab (no YAML)
+                  epic_vocab, flagship_int8_cfg, breakfast_int8_cfg,
+                  epic_int8_cfg (no YAML)
 models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
                   the two-branch decodes, matching (o2o, o2m), losses (FACT's
                   and the verb/noun model's)
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
-                  and backwards; the shared dropout mask; K7, the composed
-                  verb/noun argmaxes; K8, int8 evaluation) beside their plain
-                  PyTorch versions;
+                  and backwards, and the single-layer K1; the shared dropout
+                  mask; K7, the composed verb/noun argmaxes; K8, int8
+                  evaluation) beside their plain PyTorch versions;
                   the lazy verb/noun composition; TDU segment operations;
                   training masks; positional terms
 engine/           the eval and train steps, the serving Predictor (FACT and
@@ -30,6 +31,7 @@ from .ops import compose_decode, dilated_conv, frame_loss, mha_attn, quant_conv,
 # launch counters of the kernel wrappers, by kernel name
 _KERNELS = {
     "mstcn_stack": dilated_conv.mstcn_stack_fwd,
+    "dilated_residual_layer": dilated_conv.dilated_residual_layer_fwd,
     "x2y_small_x": x2y_attn.x2y_small_x_fwd,
     "x2y_flash": x2y_attn.x2y_flash_fwd,
     "mha_cross": mha_attn.mha_cross_fwd,
@@ -53,6 +55,7 @@ _KERNELS = {
     "compose_blend": compose_decode.compose_blend,
     "factored_argmax": compose_decode.factored_argmax,
     "mstcn_stack_q8": quant_conv.mstcn_stack_q8,
+    "mstcn2_stack_q8": quant_conv.mstcn2_stack_q8,
     "x2y_small_x_q8": quant_conv.x2y_small_x_q8,
     "x2y_flash_q8": quant_conv.x2y_flash_q8,
     "mha_cross_q8": quant_conv.mha_cross_q8,

@@ -78,6 +78,7 @@ SIGNATURES = {
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
     "fk_q8_tower_layer": [P] * 15 + [I] * 9 + [F, P],
+    "fk_q8_tower2_layer": [P] * 18 + [I] * 9 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
     "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
     "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],

@@ -10,8 +10,9 @@ port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
 breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
 is it as the port trains it; ``epic_cfg()`` mirrors ``epic-kitchens.yaml``
 (the verb/noun model, ``IUUU``), ``epic_train_cfg()`` is it as the port
-trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary; ``flagship_int8_cfg()``
-is the flagship evaluated with int8 towers and projections
+trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary;
+``flagship_int8_cfg()``, ``breakfast_int8_cfg()`` and ``epic_int8_cfg()``
+are those three evaluated with int8 towers and projections
 (``TPU.quantize_infer: "int8"``).
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
@@ -19,7 +20,8 @@ is the flagship evaluated with int8 towers and projections
 Pallas kernels there; False is the plain PyTorch path.  ``quantize`` is
 ``"int8"`` when ``TPU.quantize_infer`` asks for it and ``TPU.pallas`` is on
 (JAX drops quantization without its Pallas kernels,
-``fact_clip_tpu/models/blocks.py:124-127``).
+``fact_clip_tpu/models/blocks.py:124-127``); a grouped tower (``f_ngp > 1``)
+keeps the field but quantizes nothing, as in JAX (``layers.py:443``).
 """
 
 from __future__ import annotations
@@ -92,7 +94,10 @@ def flagship_int8_cfg() -> dict:
     in eval mode its MSTCN towers and their in map, the X2Y projections over
     the frame axis and the SCA key / value projections run on int8 operands
     (ops/quant_conv.py); training is unchanged."""
-    cfg = flagship_cfg()
+    return _int8(flagship_cfg())
+
+
+def _int8(cfg: dict) -> dict:
     cfg["TPU"]["quantize_infer"] = "int8"
     return cfg
 
@@ -145,6 +150,14 @@ def breakfast_cfg() -> dict:
     return cfg
 
 
+def breakfast_int8_cfg() -> dict:
+    """``breakfast_cfg()`` with int8 evaluation (``TPU.quantize_infer:
+    "int8"``): in eval mode its MS-TCN++ towers (K8e) and the input block's
+    in map (``dense_q8``), the X2Y projections over the frame axis (K8b /
+    K8c) and the SCA key / value projections (K8d) run on int8 operands."""
+    return _int8(breakfast_cfg())
+
+
 def breakfast_train_cfg() -> dict:
     """``breakfast_cfg()`` with the host Hungarian matcher, as the port
     trains it.  ``model.set_kernels(False)`` gives its plain PyTorch path."""
@@ -172,6 +185,14 @@ def epic_cfg() -> dict:
     cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2m", bgw=0.5, nullw=0.05, sw=5.0)
     cfg["TM"]["use"] = False
     return cfg
+
+
+def epic_int8_cfg() -> dict:
+    """``epic_cfg()`` with int8 evaluation: in eval mode its MS-TCN++ towers
+    (K8e), the input block's in map and the X2Y projections (K8b) run on int8
+    operands; its SCA stays f32 (256 segment keys are below
+    ``kernel_min_keys``, as in JAX)."""
+    return _int8(epic_cfg())
 
 
 def epic_train_cfg() -> dict:
@@ -234,10 +255,5 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
             base = node
         else:
             raise ValueError(f"unsupported block type {kind!r}")
-        c = _block(node, kind, tpu, quant)
-        if c.quantize == "int8" and c.f == "m2":
-            raise NotImplementedError(
-                "int8 MS-TCN++ towers (f: m2) are not ported: "
-                "fact_clip_tpu/ops/pallas/quant_conv.py::_stack2_layer_q8 has no kernel here yet")
-        out.append(c)
+        out.append(_block(node, kind, tpu, quant))
     return tuple(out)

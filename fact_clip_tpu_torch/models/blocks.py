@@ -31,9 +31,8 @@ def process_feature(feature, nclass: int):
 
 def make_fbranch(c: BlockCfg, in_dim: int | None):
     """The frame tower (blocks.py:182-197): the in map only in the input block;
-    ``c.quantize`` reaches the MSTCN, the X2Y maps and the SCA decoder, as in
-    JAX (blocks.py:189, 195, 212, 230; resolve_block_cfgs refuses it with
-    ``f: m2``)."""
+    ``c.quantize`` reaches the MSTCN and MS-TCN++ towers, the X2Y maps and
+    the SCA decoder, as in JAX (blocks.py:189, 195, 212, 230)."""
     f_in = in_dim if in_dim is not None else c.f_dim
     if c.f == "m":
         return L.MSTCN(f_in, c.f_dim, c.hid_dim, c.f_layers, ln=c.f_ln, ngroup=c.f_ngp,
@@ -41,7 +40,8 @@ def make_fbranch(c: BlockCfg, in_dim: int | None):
                        quantize=c.quantize)
     if c.f == "m2":
         return L.MSTCN2(f_in, c.f_dim, c.hid_dim, c.f_layers, ngroup=c.f_ngp,
-                        in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout)
+                        in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout,
+                        quantize=c.quantize)
     raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
 
 

@@ -25,12 +25,13 @@ parameters of the fused sublayers) are the live parameters, so that autograd
 reaches every one of them through the kernels' autograd entries (K1-K4, K6).
 
 ``quantize="int8"`` (``BlockCfg.quantize``) takes, in eval mode only, the
-int8 paths of JAX's modules (ops/quant_conv.py): the MSTCN in map and tower
-(K8a; the out projection a plain f32 dense), the X2Y projection over the
-frame axis (K8b / K8c) and the fused SCA cross-attention's K / V projections
-(K8d).  Their quantized weights sit in the modules' caches.  Under
-``set_kernels(False)`` those paths run the int8 plain versions (never f32),
-and the fused SCA branch is still chosen by the configured kernel flag.
+int8 paths of JAX's modules (ops/quant_conv.py): the MSTCN and MS-TCN++ in
+maps and towers (K8a, K8e; the out projection a plain f32 dense), the X2Y
+projection over the frame axis (K8b / K8c) and the fused SCA
+cross-attention's K / V projections (K8d).  Their quantized weights sit in
+the modules' caches.  Under ``set_kernels(False)`` those paths run the int8
+plain versions (never f32), and the fused SCA branch is still chosen by the
+configured kernel flag.
 """
 
 from __future__ import annotations
@@ -41,14 +42,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dilated_conv import (mstcn2_fold, mstcn2_stack, mstcn2_stack_reference,
-                                mstcn_stack, mstcn_stack_reference)
+from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_fold, mstcn2_stack,
+                                mstcn2_stack_reference, mstcn_stack, mstcn_stack_reference)
 from ..ops.masking import dropout
 from ..ops.mha_attn import mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
-from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn_stack_q8,
+from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
+                              mstcn2_stack_q8_reference, mstcn_stack_q8,
                               mstcn_stack_q8_reference, quantize_proj, quantize_tower,
-                              x2y_attention_q8, x2y_attention_q8_reference)
+                              quantize_tower2, x2y_attention_q8, x2y_attention_q8_reference)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
 from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
 
@@ -134,15 +136,43 @@ def _seeds(generator, n: int, device):
 
 
 class DilatedResidualLayer(nn.Module, KernelLayout):
-    """Dilated conv3 -> ReLU -> 1x1 -> residual (-> LayerNorm)."""
+    """Dilated conv3 -> ReLU -> 1x1 -> dropout -> residual (-> LayerNorm).
 
-    def __init__(self, dilation: int, channels: int, ln: bool, ngroup: int = 1):
+    ``forward`` runs one layer alone, as JAX's ``DilatedResidualLayer.__call__``
+    (layers.py:289-330): the single-layer K1 (``ops/dilated_conv.py::
+    dilated_residual_layer``) when ungrouped with kernels on, else the plain
+    layer.  The MSTCN tower does not call it: it runs its layers through the
+    stack, as JAX's does."""
+
+    def __init__(self, dilation: int, channels: int, ln: bool, ngroup: int = 1,
+                 use_kernel: bool = False, dropout: float = 0.0):
         super().__init__()
         self.dilation = dilation
+        self.dropout = dropout
         self.conv_dilated = nn.Conv1d(channels, channels, 3, padding=dilation,
                                       dilation=dilation, groups=ngroup)
         self.conv_1x1 = nn.Conv1d(channels, channels, 1)
         self.norm = nn.LayerNorm(channels, eps=LN_EPS_TOWER) if ln else None
+        # the fused layer is ungrouped (layers.py:301)
+        self.kernel_allowed = use_kernel and ngroup == 1
+        self.use_kernel = self.kernel_allowed
+
+    def forward(self, x, mask, generator=None):
+        """x (B, T, C), mask (B, T) bool: the layer on the masked input, every
+        frame written (no write mask); dropout in train mode from
+        ``generator`` (the kernel path draws one int32 seed on the device)."""
+        xm = x * mask[:, :, None].to(x.dtype)
+        rate = self.dropout if self.training else 0.0
+        if self.use_kernel:
+            seed = _seeds(generator, 1, x.device) if rate > 0.0 else None
+            return dilated_residual_layer(xm, *self.layout(), dilation=self.dilation,
+                                          use_ln=self.norm is not None, eps=LN_EPS_TOWER,
+                                          rate=rate, seed=seed)
+        out = torch.relu(self.conv_dilated(xm.transpose(1, 2))).transpose(1, 2)
+        out = _drop(self, generator, F.linear(out, self.conv_1x1.weight[:, :, 0],
+                                              self.conv_1x1.bias), self.dropout)
+        z = xm + out
+        return self.norm(z) if self.norm is not None else z
 
     def _make_kernel_layout(self, live: bool = False):
         C = self.conv_1x1.weight.shape[0]
@@ -170,7 +200,8 @@ class MSTCN(nn.Module, KernelLayout):
         self.ln = ln
         self.ngroup = ngroup
         self.layers = nn.ModuleList(
-            DilatedResidualLayer(2 ** i, hid_dim, ln, ngroup) for i in range(num_layers))
+            DilatedResidualLayer(2 ** i, hid_dim, ln, ngroup, use_kernel, dropout)
+            for i in range(num_layers))
         self.conv_out = nn.Conv1d(hid_dim, out_dim, 1)
         self.kernel_allowed = ngroup == 1  # the fused tower is ungrouped (layers.py:372)
         self.use_kernel = use_kernel and self.kernel_allowed
@@ -221,9 +252,10 @@ class MSTCN2(nn.Module, KernelLayout):
     ``conv_fusion.{i}``, ``conv_out``)."""
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ngroup=1, in_map=True,
-                 use_kernel=True, dropout=0.0):
+                 use_kernel=True, dropout=0.0, quantize=""):
         super().__init__()
         self.dropout = dropout
+        self.quantize = quantize
         if in_map:
             self.conv_1x1_in = nn.Conv1d(in_dim, hid_dim, 1)
         elif in_dim != hid_dim:
@@ -242,11 +274,8 @@ class MSTCN2(nn.Module, KernelLayout):
         self.kernel_allowed = ngroup == 1  # the fused tower is ungrouped (layers.py:465)
         self.use_kernel = use_kernel and self.kernel_allowed
 
-    def _make_kernel_layout(self, live: bool = False):
-        """([(k1, b1, k2, b2, wt, wb, bf)], ow, ob) in the JAX layout, and the
-        folded weights of K6's serving form when the tower serves on the card
-        (None otherwise: the forward then folds them per call if it needs
-        them)."""
+    def _layers(self, live: bool = False):
+        """[(k1, b1, k2, b2, wt, wb, bf)] per layer in the JAX layout."""
         layers = []
         for c1, c2, fu in zip(self.conv_dilated_1, self.conv_dilated_2, self.conv_fusion):
             C = fu.weight.shape[0]
@@ -254,12 +283,21 @@ class MSTCN2(nn.Module, KernelLayout):
                            _d(c2.weight, live).permute(2, 1, 0).contiguous(), _d(c2.bias, live),
                            _t(fu.weight[:, :C, 0], live), _t(fu.weight[:, C:, 0], live),
                            _d(fu.bias, live)))
+        return layers
+
+    def _make_kernel_layout(self, live: bool = False):
+        """(layers, ow, ob) in the JAX layout, and the folded weights of K6's
+        serving form when the tower serves on the card (None otherwise: the
+        forward then folds them per call if it needs them)."""
+        layers = self._layers(live)
         folded = (mstcn2_fold(layers) if not live and self.use_kernel
                   and self.conv_out.weight.is_cuda else None)
         return (layers, _t(self.conv_out.weight[:, :, 0], live), _d(self.conv_out.bias, live),
                 folded)
 
     def forward(self, x, lengths, generator=None):
+        if self.quantize == "int8" and not self.training and self.kernel_allowed:
+            return self._forward_q8(x, lengths)
         if self.in_map:
             x = F.linear(x, self.conv_1x1_in.weight[:, :, 0], self.conv_1x1_in.bias)
         layers, ow, ob, folded = self.layout()
@@ -275,6 +313,19 @@ class MSTCN2(nn.Module, KernelLayout):
                                           out_w=ow, out_b=ob, rates=rates, seeds=seeds)
         return mstcn2_stack(x.contiguous(), lengths, layers, self.dil_pairs, out_w=ow, out_b=ob,
                             rates=rates, seeds=seeds, folded=folded)
+
+    def _forward_q8(self, x, lengths):
+        """JAX's int8 eval path (layers.py:441-476): the in map through
+        ``dense_q8``, the tower through K8e, then the out projection as a
+        plain f32 dense (JAX does not fuse it on this path; its parameters
+        keep the f32 path's names)."""
+        if self.in_map:
+            x = dense_q8(x, self.conv_1x1_in.weight[:, :, 0].t(), self.conv_1x1_in.bias,
+                         library=self.use_kernel)
+        qlayers = self.cached("q8", lambda: quantize_tower2(self._layers()))
+        fn = mstcn2_stack_q8 if self.use_kernel else mstcn2_stack_q8_reference
+        y = fn(x.contiguous(), lengths, qlayers, self.dil_pairs)
+        return F.linear(y, self.conv_out.weight[:, :, 0], self.conv_out.bias)
 
 
 # ---------------------------------------------------------------------------

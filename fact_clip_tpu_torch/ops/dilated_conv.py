@@ -23,6 +23,14 @@ Layouts follow the JAX function: ``wd`` (3, C, C) as (tap, in, out), ``w1``
 as zeros and are written as zeros between layers; the logits of padded frames
 are the bias row.  ``mstcn_stack`` is the differentiable entry.
 
+The single-layer K1, ``dilated_residual_layer``, replaces the JAX package's
+function of that name (forward ``_forward``, Pallas kernel ``_kernel``;
+custom VJP ``_dr_vjp``): one layer on every frame of [0, T), no length mask,
+no out projection.  Its forward is ``csrc/mstcn.cu``'s layer kernel with
+every length T and dropout stream 0; its backward is JAX's ``_bwd``, plain
+recompute plus the regenerated mask (K1's mask kernel on the card).  No
+model reaches it: the MSTCN towers run the stack, as in JAX.
+
 K6, the MS-TCN++ tower of ``f: m2`` (two dilations a layer, d1 = 2^(L-1-i)
 and d2 = 2^i), replaces ``dilated_residual2_stack`` with ``out_params``: the
 forward per layer (``_stack2_layer``, kernel ``_stack2_kernel``) and the
@@ -47,7 +55,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
-from .dropout import dropout_args, dropout_mask_reference, launch_mask
+from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 
 
 def mstcn_dropout_mask(seed, layer: int, shape, rate: float):
@@ -343,6 +351,138 @@ def mstcn_stack(x, lengths, layers, dilations, *, use_ln: bool, eps: float = 1e-
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCNStack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,
                              *[p.contiguous() for p in flat])
+
+
+# ---------------------------------------------------------------------------
+# the single-layer K1
+
+
+def _ln_two_pass(z, gamma, beta, eps: float):
+    """JAX's LayerNorm: mean, then the mean of squared deviations."""
+    mean = z.mean(dim=-1, keepdim=True)
+    var = ((z - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (z - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def _layer_pieces(x, wd, bd, w1, b1, dilation: int):
+    """(a, z_pre): the ReLU activations and the 1x1 output before dropout and
+    the residual (``_reference_forward_pieces``)."""
+    a = torch.relu(_conv3(x, wd, bd, dilation))
+    return a, a @ w1 + b1
+
+
+def dilated_residual_layer_reference(x, wd, bd, w1, b1, gamma, beta, *, dilation: int,
+                                     use_ln: bool = True, eps: float = 1e-5, rate: float = 0.0,
+                                     seed=None):
+    """Plain PyTorch version of one layer: LN(x + drop(W1 relu(conv3_d(x)) +
+    b1)) on every frame of [0, T), the taps zero outside; x masked by the
+    caller; the keep mask K1's of stream 0 over (B, T, C)."""
+    _, z = _layer_pieces(x, wd, bd, w1, b1, dilation)
+    if rate > 0.0:
+        z = z * dropout_mask_reference(seed, 0, x.shape, rate)
+    z = z + x
+    return _ln_two_pass(z, gamma, beta, eps) if use_ln else z
+
+
+def dilated_residual_layer_fwd(x, wd, bd, w1, b1, gamma, beta, *, dilation: int,
+                               use_ln: bool = True, eps: float = 1e-5, rate: float = 0.0,
+                               seed=None):
+    """The layer's forward: ``csrc/mstcn.cu``'s layer kernel on CUDA tensors
+    (every frame valid, no out projection, dropout stream 0), the plain
+    version on CPU tensors."""
+    _build.no_grad_inputs("dilated_residual_layer_fwd", [x, wd, bd, w1, b1, gamma, beta])
+    if x.device.type == "cpu":
+        return dilated_residual_layer_reference(x, wd, bd, w1, b1, gamma, beta,
+                                                dilation=dilation, use_ln=use_ln, eps=eps,
+                                                rate=rate, seed=seed)
+    B, T, C = x.shape
+    lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    if rate > 0.0:
+        check_seed("dilated_residual_layer_fwd", seed, x.device)
+    _build.check_tensors("dilated_residual_layer_fwd", [x, wd, bd, w1, b1, gamma, beta],
+                         x.device)
+    if (wd.shape != (3, C, C) or w1.shape != (C, C)
+            or any(p.shape != (C,) for p in (bd, b1, gamma, beta))):
+        raise ValueError(f"dilated_residual_layer_fwd: bad layer shapes for C={C}")
+    y = torch.empty_like(x)
+    seed_p, li, thresh, scale = dropout_args(seed, 0, rate)
+    err = _build.lib().fk_mstcn_layer(
+        x.data_ptr(), y.data_ptr(), lengths.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), None, None, None, None,
+        seed_p, li, thresh, scale, B, T, C, 1, int(dilation), int(use_ln), float(eps),
+        _build.stream_ptr(x.device))
+    _build.check("fk_mstcn_layer", err)
+    dilated_residual_layer_fwd.launches += 1
+    return y
+
+
+dilated_residual_layer_fwd.launches = 0
+
+
+def dilated_residual_layer_bwd(g, x, wd, bd, w1, b1, gamma, beta, *, dilation: int,
+                               use_ln: bool, eps: float, rate: float, seed):
+    """JAX's ``_bwd``: a and z_pre recomputed in plain PyTorch from x, the
+    forward's keep mask regenerated (the mask kernel on the card), then the
+    LayerNorm, 1x1 and conv backwards: (dx, dwd, dbd, dw1, db1, dgamma,
+    dbeta)."""
+    a, z_pre = _layer_pieces(x, wd, bd, w1, b1, dilation)
+    m = mstcn_dropout_mask(seed, 0, x.shape, rate) if rate > 0.0 else None
+    z = (z_pre * m if m is not None else z_pre) + x
+    if use_ln:
+        mean = z.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(((z - mean) ** 2).mean(dim=-1, keepdim=True) + eps)
+        xhat = (z - mean) * rstd
+        dgamma, dbeta = (g * xhat).sum(dim=(0, 1)), g.sum(dim=(0, 1))
+        gg = g * gamma
+        dz = (gg - gg.mean(dim=-1, keepdim=True)
+              - xhat * (gg * xhat).mean(dim=-1, keepdim=True)) * rstd
+    else:
+        dgamma, dbeta, dz = torch.zeros_like(gamma), torch.zeros_like(beta), g
+    dz_pre = dz * m if m is not None else dz
+    dc = (dz_pre @ w1.t()) * (a > 0)
+    d = int(dilation)
+    dx = dz + sum(_shift(dc, (1 - k) * d) @ wd[k].t() for k in range(3))
+    dwd = torch.stack([torch.einsum("btc,bto->co", _shift(x, (k - 1) * d), dc) for k in range(3)])
+    return (dx, dwd, dc.sum(dim=(0, 1)), torch.einsum("btc,bto->co", a, dz_pre),
+            dz_pre.sum(dim=(0, 1)), dgamma, dbeta)
+
+
+class _DilatedResidualLayer(torch.autograd.Function):
+    """The layer with its kernel forward on the card (the plain one on the
+    CPU) and JAX's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, wd, bd, w1, b1, gamma, beta, seed, cfg):
+        dilation, use_ln, eps, rate = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, wd, bd, w1, b1, gamma, beta, seed)
+        return dilated_residual_layer_fwd(x, wd, bd, w1, b1, gamma, beta, dilation=dilation,
+                                          use_ln=use_ln, eps=eps, rate=rate,
+                                          seed=seed if rate > 0.0 else None)
+
+    @staticmethod
+    def backward(ctx, g):
+        dilation, use_ln, eps, rate = ctx.cfg
+        x, wd, bd, w1, b1, gamma, beta, seed = ctx.saved_tensors
+        grads = dilated_residual_layer_bwd(g.contiguous(), x, wd, bd, w1, b1, gamma, beta,
+                                           dilation=dilation, use_ln=use_ln, eps=eps, rate=rate,
+                                           seed=seed)
+        return (*grads, None, None)
+
+
+def dilated_residual_layer(x, wd, bd, w1, b1, gamma, beta, *, dilation: int, use_ln: bool = True,
+                           eps: float = 1e-5, rate: float = 0.0, seed=None):
+    """One differentiable dilated residual layer (replaces
+    ``dilated_conv.py::dilated_residual_layer``, forward ``_forward``, VJP
+    ``_dr_vjp``): x (B, T, C) already masked by the caller, wd (3, C, C) as
+    (tap, in, out), w1 (C, C) as (in, out), gamma / beta (C,), seed a (1,)
+    int32 tensor when rate > 0.  Returns LN(x + drop(W1 relu(conv3_d(x)) +
+    b1)) (B, T, C) on every frame."""
+    if seed is None:
+        seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    params = [p.contiguous() for p in (wd, bd, w1, b1, gamma, beta)]
+    return _DilatedResidualLayer.apply(x.contiguous(), *params, seed,
+                                       (int(dilation), bool(use_ln), float(eps), float(rate)))
 
 
 # ---------------------------------------------------------------------------

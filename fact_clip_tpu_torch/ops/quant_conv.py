@@ -1,14 +1,17 @@
 """K8: int8 evaluation (``TPU.quantize_infer: "int8"``), eval-only.
 
-Counterpart of ``fact_clip_tpu/ops/pallas/quant_conv.py`` on the path of the
-``f: m`` models: the port's own copies of its quantizers
-(``quantize_weight`` :42, ``quantize_weight_joint`` :57, ``_quantize_rows``
-:93), of ``dense_q8`` (:72, the towers' in map) and of JAX's tower layout
-(``dilated_conv.py::_tiling`` :89 and ``_stack_layout`` :454), and the four
-kernels' entries beside their plain versions:
+Counterpart of ``fact_clip_tpu/ops/pallas/quant_conv.py``: the port's own
+copies of its quantizers (``quantize_weight`` :42, ``quantize_weight_joint``
+:57, ``_quantize_rows`` :93), of ``dense_q8`` (:72, the towers' in map) and
+of JAX's tower layout (``dilated_conv.py::_tiling`` :89 and
+``_stack_layout`` :454), and the five kernels' entries beside their plain
+versions:
 
-* K8a ``mstcn_stack_q8``: ``dilated_residual_stack_q8`` with
+* K8a ``mstcn_stack_q8`` (``f: m``): ``dilated_residual_stack_q8`` with
   ``act_scale="tile"`` (``_stack_layer_q8`` :217) -> ``csrc/quant.cu``;
+* K8e ``mstcn2_stack_q8`` (``f: m2``, Breakfast and Epic-Kitchens):
+  ``dilated_residual2_stack_q8`` with ``act_scale="tile"``
+  (``_stack2_layer_q8`` :390) -> ``csrc/quant2.cu``;
 * K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) ->
   ``csrc/x2y_attn.cu``'s int8 twin;
 * K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> ``csrc/flash_attn.cu``'s
@@ -17,25 +20,27 @@ kernels' entries beside their plain versions:
 * K8d ``mha_cross_q8``: ``mha_cross_attention_q8`` (:715) -> the same int8
   twin, multi-head.
 
-The int8 MS-TCN++ tower (``_stack2_layer_q8`` :390) is not ported:
-``configs.resolve_block_cfgs`` refuses ``f: m2`` with int8.
+JAX's ``act_scale="row"`` forms of the two towers are reached by no
+configuration and are not ported.
 
 Quantization is JAX's: weights symmetric per output channel with the two
 1/127 factors folded into the scale (``s / 16129``); activations
 ``round(x * (127 / s))`` (half to even) with ``s = max(absmax, 1e-12)`` per
-row, or for the tower one scalar per video and JAX tile of frames (see
-``csrc/quant.cu``).  Every integer product of a plain version is exact (an
-f64 product of int8 values: every partial sum is an integer below 2^53), so
-a kernel's integer parts equal its plain version's bit for bit and only the
-f32 epilogue can differ.  The epilogues follow JAX's order of operations as
-its kernels compute on the CPU, where XLA contracts each product-plus-bias
-of a dequantization (``acc * scale + b``, and the LayerNorm's ``* g + beta``)
-into one fused multiply-add: the plain versions take that FMA (``_fma``) and
-the kernels write it (``__fmaf_rn``), every other step rounded on its own.  The entries take their
-weights quantized (``quantize_tower`` / ``quantize_proj``, which a module
-caches), launch the kernel on CUDA tensors and run the plain version on CPU
-tensors, count their launches, and refuse inputs that want a gradient: JAX's
-int8 path is never differentiated.
+row, or for the towers one scalar per video and JAX tile of frames (see
+``csrc/quant.cu`` and ``csrc/quant2.cu``).  Every integer product of a plain
+version is exact (an f64 product of int8 values: every partial sum is an
+integer below 2^53), so a kernel's integer parts equal its plain version's
+bit for bit and only the f32 epilogue can differ.  The epilogues follow
+JAX's order of operations as its kernels compute on the CPU, where XLA
+contracts each product-plus-bias of a dequantization (``acc * scale + b``,
+and the LayerNorm's ``* g + beta``) into one fused multiply-add: the plain
+versions take that FMA (``_fma``) and the kernels write it (``__fmaf_rn``),
+every other step rounded on its own (K8e's fuse: fma(h1, s1 * swt, h2 * (s2
+* swb)), the bias added after).  The entries take their weights quantized
+(``quantize_tower`` / ``quantize_tower2`` / ``quantize_proj``, which a
+module caches), launch the kernel on CUDA tensors and run the plain version
+on CPU tensors, count their launches, and refuse inputs that want a
+gradient: JAX's int8 path is never differentiated.
 """
 
 from __future__ import annotations
@@ -315,6 +320,147 @@ def mstcn_stack_q8(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float =
 
 
 mstcn_stack_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8e: the int8 MS-TCN++ tower
+
+
+class Q8Layer2(NamedTuple):
+    """One quantized MS-TCN++ layer in the kernel's layout: the two convs'
+    qk1t, qk2t (C_out, 3 C_in) int8 (tap k's inputs at k C_in) with their
+    joint scales sk1, sk2 (C,), the fuse halves qwtt, qwbt (C_out, C_in) int8
+    with swt, swb (C,), and the f32 biases."""
+
+    qk1t: torch.Tensor
+    sk1: torch.Tensor
+    b1: torch.Tensor
+    qk2t: torch.Tensor
+    sk2: torch.Tensor
+    b2: torch.Tensor
+    qwtt: torch.Tensor
+    swt: torch.Tensor
+    qwbt: torch.Tensor
+    swb: torch.Tensor
+    bf: torch.Tensor
+
+
+def quantize_tower2(layers) -> list:
+    """(k1 (3, C, C), b1, k2, b2, wt (C, C), wb, bf) per layer -> Q8Layer2
+    (``dilated_residual2_stack_q8``'s per-step weight pass, tile mode:
+    joint-tap scales for the convs, per-column scales for the fuse halves)."""
+    out = []
+    for k1, b1, k2, b2, wt, wb, bf in layers:
+        C = wt.shape[0]
+        (qk1, sk1), (qk2, sk2) = quantize_weight_joint(k1), quantize_weight_joint(k2)
+        (qwt, swt), (qwb, swb) = quantize_weight(wt), quantize_weight(wb)
+        out.append(Q8Layer2(qk1.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), sk1, b1.float(),
+                            qk2.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), sk2, b2.float(),
+                            qwt.t().contiguous(), swt, qwb.t().contiguous(), swb, bf.float()))
+    return out
+
+
+def _tile_max(v, B: int, n_tiles: int):
+    """Each (video, JAX tile)'s max of |v| over every row of the tile."""
+    return v.abs().view(B, n_tiles, -1).amax(dim=-1)
+
+
+def mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, *, tile: int = 512,
+                              scales: bool = False):
+    """Plain PyTorch version of ``dilated_residual2_stack_q8`` (tile mode):
+    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  Per layer
+    (d1, d2) and JAX tile of frames: s_x the absmax of the layer input over
+    the tile's window [t tile - h, (t + 1) tile + h) within [0, T_pad), h =
+    ceil8(max(d1, d2)); each conv's three taps of round(x * (127 / s_x)) in
+    one integer sum, dequantized as fma(acc, s_x * sk, b); s1 and s2 the max
+    of |c1| and |c2| over every row of the tile, padded rows included; then
+    h = fma(h1, s1 * swt, h2 * (s2 * swb)) of the two int8 fuse products,
+    out = (relu(h + bf) + x) * mask, as XLA's CPU backend computes JAX's
+    kernel.  With ``scales`` also the integer parts of the scales, per
+    layer: the 8-frame group maxima of |input| (L, B, T_pad / 8) and each
+    tile's max of |c1| and |c2| (L, 2, B, n_tiles), before the 1e-12 floor."""
+    B, T, C = x.shape
+    _, tile, n_tiles = _tiling(T, tile, 1)
+    T_pad = n_tiles * tile
+    dev = x.device
+    valid = (torch.arange(T_pad, device=dev)[None, :] < lengths[:, None]).float()[..., None]
+    cur = torch.zeros((B, T_pad, C), device=dev)
+    cur[:, :T] = x
+    cur = cur * valid
+    tile_of = torch.arange(T_pad, device=dev) // tile
+    groups, tile_max = [], []
+    for ql, (d1, d2) in zip(qlayers, dil_pairs):
+        halo = -(-max(d1, d2) // 8) * 8
+        rows = cur.abs().amax(dim=-1)  # (B, T_pad)
+        groups.append(rows.view(B, T_pad // 8, 8).amax(dim=-1))
+        s_x = torch.stack([rows[:, max(0, t * tile - halo): min(T_pad, t * tile + tile + halo)]
+                           .amax(dim=-1) for t in range(n_tiles)], dim=1).clamp_min(1e-12)
+        sx = s_x[:, tile_of][..., None]  # (B, T_pad, 1): each row's tile scale
+        inv = _div(127.0, sx)
+
+        def conv(qkt, sk, b, d):
+            taps = [torch.round(_shift(cur, (k - 1) * d) * inv) for k in range(3)]
+            return _fma(_idot(torch.cat(taps, dim=-1), qkt.t()), sx * sk, b)
+
+        c1, c2 = conv(ql.qk1t, ql.sk1, ql.b1, d1), conv(ql.qk2t, ql.sk2, ql.b2, d2)
+        tile_max.append(torch.stack([_tile_max(c1, B, n_tiles), _tile_max(c2, B, n_tiles)]))
+        s1, s2 = (m.clamp_min(1e-12)[:, tile_of][..., None] for m in tile_max[-1])
+        h1 = _idot(torch.round(c1 * _div(127.0, s1)), ql.qwtt.t())
+        h2 = _idot(torch.round(c2 * _div(127.0, s2)), ql.qwbt.t())
+        h = _fma(h1, s1 * ql.swt, h2 * (s2 * ql.swb))
+        cur = (torch.relu(h + ql.bf) + cur) * valid
+    if scales:
+        return cur[:, :T], torch.stack(groups), torch.stack(tile_max)
+    return cur[:, :T]
+
+
+def mstcn2_stack_q8(x, lengths, qlayers, dil_pairs, *, tile: int = 512, scales: bool = False):
+    """K8e: the int8 MS-TCN++ tower (``csrc/quant2.cu``, two launches a layer
+    and one for the input's group maxima) on CUDA tensors, the plain version
+    on CPU tensors.  ``qlayers`` from ``quantize_tower2``; ``scales`` as in the
+    plain version (the kernels' own group and tile maxima).  Every width that
+    is a multiple of 32 has a block (the blocks' shared memory does not grow
+    with C); another raises before any launch."""
+    _build.no_grad_inputs("mstcn2_stack_q8", [x] + [t for ql in qlayers
+                                                    for t in (ql.b1, ql.b2, ql.bf)])
+    if x.device.type == "cpu":
+        return mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, tile=tile,
+                                         scales=scales)
+    B, T, C = x.shape
+    _, tile, n_tiles = _tiling(T, tile, 1)
+    T_pad = n_tiles * tile
+    if C % 32:
+        raise NotImplementedError(f"mstcn2_stack_q8: C={C} is not a multiple of 32")
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError("mstcn2_stack_q8: lengths must be (B,) int32")
+    x = x.contiguous()
+    _build.check_tensors("mstcn2_stack_q8", [x, lengths, *[t for ql in qlayers for t in ql]],
+                         x.device)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    L = len(qlayers)
+    c = torch.empty((2, B, T_pad, C), **f32)  # c1 and c2 between the two passes
+    ys = [torch.empty((B, T, C), **f32) for _ in range(min(2, L))]
+    gmax = torch.empty((L + 1, B, T_pad // 8), **f32)  # each layer input's group maxima
+    smax = torch.zeros((L, 2, B, n_tiles), device=x.device, dtype=torch.int32)
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    _build.check("fk_q8_group_max", lib.fk_q8_group_max(
+        x.data_ptr(), lengths.data_ptr(), gmax[0].data_ptr(), B, T, T_pad, C, stream))
+    cur = x
+    for i, (ql, (d1, d2)) in enumerate(zip(qlayers, dil_pairs)):
+        y = ys[i % 2]
+        _build.check("fk_q8_tower2_layer", lib.fk_q8_tower2_layer(
+            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), *[t.data_ptr() for t in ql[:6]],
+            c.data_ptr(), smax[i].data_ptr(), *[t.data_ptr() for t in ql[6:]], y.data_ptr(),
+            gmax[i + 1].data_ptr(), B, T, C, int(d1), int(d2), -(-max(d1, d2) // 8) * 8, tile,
+            n_tiles, T_pad, stream))
+        cur = y
+    mstcn2_stack_q8.launches += 1
+    if scales:  # the tile maxima are the int bits of non-negative floats
+        return cur, gmax[:L], smax.view(torch.float32)
+    return cur
+
+
+mstcn2_stack_q8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Where the time of an eval step (or train step) goes on the card.
 
-    python3 -m fact_clip_tpu_torch.profile_eval [--cfg flagship|int8|breakfast|epic]
-                                                [--train] [--steps N] [--trace DIR]
+    python3 -m fact_clip_tpu_torch.profile_eval
+        [--cfg flagship|int8|breakfast|breakfast_int8|epic|epic_int8]
+        [--train] [--steps N] [--trace DIR]
 
 Builds the flagship FACT model (iuUU, D=2048, C=75, M=40), or with
 ``--cfg int8`` the same model evaluated with int8 (``flagship_int8_cfg()``:
@@ -11,7 +12,10 @@ versions; ``--train`` trains it as the flagship trains), or with
 ``--cfg breakfast`` the Breakfast model (``breakfast_cfg()``: MS-TCN++
 towers, every width 512, D=2048, 48 classes, M=60), or with ``--cfg epic``
 the verb/noun model (``epic_cfg()``: IUUU, D=1024, 98 verbs x 301 nouns,
-3,806 actions, M=300, ``s_pred_cap`` 256), with seeded random weights and
+3,806 actions, M=300, ``s_pred_cap`` 256), or with ``--cfg breakfast_int8``
+/ ``epic_int8`` those two evaluated with int8 (``breakfast_int8_cfg()`` /
+``epic_int8_cfg()``: the MS-TCN++ towers through K8e; ``--train`` trains
+them as their f32 twins train), with seeded random weights and
 times one eval step of 8 videos padded to 3072 frames (Breakfast: 4096;
 epic: one video of 24,576), on the kernel path and on the plain PyTorch
 path: wall time (host clock around a synchronised step), device busy time
@@ -39,8 +43,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg, epic_vocab
-from .configs import flagship_cfg, flagship_int8_cfg, train_cfg
+from .configs import (breakfast_cfg, breakfast_int8_cfg, breakfast_train_cfg, epic_cfg,
+                      epic_int8_cfg, epic_train_cfg, epic_vocab, flagship_cfg,
+                      flagship_int8_cfg, train_cfg)
 from .engine.steps import make_eval_step, make_train_step
 from .engine.train_loop import batch_to_device, epic_batch, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
@@ -67,8 +72,11 @@ SETUPS = {
     "epic": (epic_cfg, epic_train_cfg, 1024, 3806, 256, 24576, [24576], _build_epic,
              epic_batch),
 }
+SETUPS["breakfast_int8"] = (breakfast_int8_cfg, *SETUPS["breakfast"][1:])
+SETUPS["epic_int8"] = (epic_int8_cfg, *SETUPS["epic"][1:])
 TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "int8": SETUPS["flagship"][6],
-                 "breakfast": [4096, 3600, 2500, 1400], "epic": [24576]}
+                 "breakfast": [4096, 3600, 2500, 1400], "breakfast_int8": [4096, 3600, 2500, 1400],
+                 "epic": [24576], "epic_int8": [24576]}
 
 
 def wall_ms(step, args, n):

@@ -14,7 +14,8 @@ requantization amplifies that with depth) JAX's own cross-backend error
 model holds, rel(port, f32) <= max(2 rel(jax_q8, f32), 1e-4)
 (scripts/verify_quant.py); the attention forms keep the f32 K2 / K3 tests'
 1e-4 absolute.  Then a narrow int8 ``iuUU`` whose SCA fuses and whose f2a
-takes the flash form, loaded through the exporter, block by block.
+takes the flash form, with MSTCN towers (K8a) and with MS-TCN++ towers
+(K8e), loaded through the exporter, against JAX's.
 """
 
 import dataclasses
@@ -227,10 +228,10 @@ def test_int8_refusals(case):
         cfg["TPU"]["quantize_infer"] = "int4"
         with pytest.raises(ValueError):
             resolve_block_cfgs(cfg)
-    elif case == "m2":
+    elif case == "m2":  # the int8 MS-TCN++ tower (K8e) is ported: no refusal
         cfg["Bi"]["f"] = "m2"
-        with pytest.raises(NotImplementedError, match="_stack2_layer_q8"):
-            resolve_block_cfgs(cfg)
+        got = resolve_block_cfgs(cfg)
+        assert {c.f for c in got} == {"m2"} and {c.quantize for c in got} == {"int8"}
     elif case == "no_pallas":
         cfg["TPU"]["pallas"] = False
         assert {c.quantize for c in resolve_block_cfgs(cfg)} == {""}
@@ -254,9 +255,9 @@ def test_int8_refusals(case):
 D, C, S_CAP, B, T = 12, 5, 24, 2, 1152
 
 
-def _narrow(cfg):
+def _narrow(cfg, f="m"):
     """small_cfg() widened until the SCA fuses (E, Cx multiples of 128)."""
-    cfg["Bi"].update(hid_dim=128, a_dim=128, a_ffdim=32, a_layers=1, a_nhead=4, f_dim=32,
+    cfg["Bi"].update(hid_dim=128, a_dim=128, a_ffdim=32, a_layers=1, a_nhead=4, f=f, f_dim=32,
                      f_layers=3)
     cfg["Bu"]["f_layers"] = 2
     cfg["BU"]["f_layers"] = 2
@@ -270,10 +271,13 @@ def _interp(fn):
     return f
 
 
-@pytest.fixture(scope="module")
-def int8_run():
+@pytest.fixture(scope="module", params=["m", "m2"])
+def int8_run(request):
+    """The JAX model in interpret mode, its towers MSTCN (K8a) or MS-TCN++
+    (K8e)."""
+    f = request.param
     jcfg = _make_cfg(small=True)
-    for k, v in _narrow(small_cfg())["Bi"].items():
+    for k, v in _narrow(small_cfg(), f)["Bi"].items():
         setattr(jcfg.Bi, k, v)
     jcfg.TPU.quantize_infer = "int8"
     jcfg.TPU.pallas_sa = False
@@ -286,6 +290,8 @@ def int8_run():
     with mock.patch.object(jblocks, "_PALLAS_PLATFORM_OVERRIDE", "tpu"), \
             mock.patch.object(jqc, "dilated_residual_stack_q8",
                               _interp(jqc.dilated_residual_stack_q8)), \
+            mock.patch.object(jqc, "dilated_residual2_stack_q8",
+                              _interp(jqc.dilated_residual2_stack_q8)), \
             mock.patch.object(jqc, "x2y_attention_q8", _interp(jqc.x2y_attention_q8)), \
             mock.patch.object(jqc, "mha_cross_attention_q8",
                               _interp(jqc.mha_cross_attention_q8)):
@@ -297,16 +303,19 @@ def int8_run():
     pred = jdecode.decode_two_branch(last["action_clogit"], last["a2f_attn"],
                                      last["frame_clogit"], float(jcfg.FACT.mwt),
                                      jnp.ones(last["action_clogit"].shape[:2], bool))
-    return dict(params=jax.tree_util.tree_map(np.asarray, params["params"]), feats=feats,
+    return dict(f=f, params=jax.tree_util.tree_map(np.asarray, params["params"]), feats=feats,
                 mask=mask, lengths=lengths, frame_clogit=np.asarray(saves[0]["frame_clogit"]),
                 pred=np.asarray(pred))
 
 
 def test_int8_slice_matches_jax(int8_run):
-    cfg = _narrow(small_cfg())
+    cfg = _narrow(small_cfg(), int8_run["f"])
     model = build_fact(cfg, D, C, S_CAP, device="cpu")
-    load_jax_params(model, int8_run["params"])  # the f32 exporter: _Q8Dense keeps its names
+    # the f32 exporter: _Q8Dense keeps its names, and the int8 towers' out
+    # projection keeps the f32 path's (TorchDense_1 with the in map)
+    load_jax_params(model, int8_run["params"])
     assert model.block_list[0].action_branch.layers[0].multihead_attn.quantize == "int8"
+    assert {b.frame_branch.quantize for b in model.block_list} == {"int8"}
     x = [torch.from_numpy(int8_run[k]) for k in ("feats", "mask", "lengths")]
     mask = int8_run["mask"]
     before = kernel_counters()

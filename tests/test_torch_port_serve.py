@@ -93,6 +93,15 @@ m8 = build_fact(cfg8, 12, 5, 24, device="cpu")
 assert "fact_clip_tpu_torch.ops.quant_conv" in sys.modules
 out = Predictor(m8, 0.1, batch_size=2, max_len=64).predict([np.ones((40, 12), np.float32)])
 assert out[0].shape == (40,)
+# int8 MS-TCN++ towers (K8e) and the single-layer K1, narrowed
+cfg8["Bi"]["f"] = "m2"
+m82 = build_fact(cfg8, 12, 5, 24, device="cpu")
+out = Predictor(m82, 0.1, batch_size=2, max_len=64).predict([np.ones((40, 12), np.float32)])
+assert out[0].shape == (40,)
+from fact_clip_tpu_torch.models.layers import DilatedResidualLayer
+y = DilatedResidualLayer(2, 16, True, use_kernel=True)(torch.ones(1, 9, 16),
+                                                       torch.ones(1, 9, dtype=torch.bool))
+assert y.shape == (1, 9, 16)
 assert not [m for m in sys.modules if m.startswith("fact_clip_tpu.") or m == "fact_clip_tpu"]
 print("GUARD_OK")
 """

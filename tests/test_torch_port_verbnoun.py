@@ -14,6 +14,11 @@
   equal JAX's ``make_step_fns(..., verbnoun=True)`` eval step, on the port's
   kernel entries and on its plain path.  ``Predictor`` equals the eval step
   per video.
+* The same narrow ``IUUU`` (``f: m2``) with int8 evaluation
+  (``TPU.quantize_infer: "int8"``: K8e towers and in map, K8b X2Y; the SCA
+  over <= 64 segments stays f32) against JAX's, its Pallas kernels in
+  interpret mode: block-0 frame log-probs within 1e-3 relative, >= 0.99 of
+  the predictions equal.
 * The port's copy of ``load_vids_nids`` equals JAX's on an epic fixture.
 * Shared memory at epic's widths: K4's SA forward fits at M = 300 tokens,
   and so do the SA backward's tiled blocks (at M = 300 and at egoprocel's
@@ -22,6 +27,7 @@
 
 import dataclasses
 import os
+import unittest.mock as mock
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +41,8 @@ from fact_clip_tpu.engine.steps import make_step_fns
 from fact_clip_tpu.models import blocks as jblocks
 from fact_clip_tpu.models import verbnoun as jvn
 from fact_clip_tpu.ops import verbnoun_compose as jvc
+from fact_clip_tpu.ops.pallas import compose_decode as jcd
+from fact_clip_tpu.ops.pallas import quant_conv as jqc
 from fact_clip_tpu.utils.torch_export import export_verbnoun_state_dict as jax_export
 from fact_clip_tpu_torch import _build
 from fact_clip_tpu_torch.configs import epic_cfg, epic_vocab, resolve_block_cfgs
@@ -258,3 +266,51 @@ def test_predictor_equals_the_eval_step_per_video(run):
         assert g.dtype == np.int32 and g.shape == (n,) and 0 <= g.min() and g.max() < N_ACT
         np.testing.assert_array_equal(g, ref)
     np.testing.assert_array_equal(got[0], run["pred"][0])
+
+
+# ---------------------------------------------------------------------------
+# the narrow IUUU with int8 evaluation
+
+
+def _interp(fn):
+    def f(*a, **kw):
+        return fn(*a, **dict(kw, interpret=True))
+    return f
+
+
+def test_int8_iuuu_matches_jax():
+    jcfg, cfg = _cfgs("m2")
+    jcfg.TPU.quantize_infer, jcfg.TPU.pallas_sa = "int8", False
+    cfg["TPU"].update(quantize_infer="int8", pallas_sa=False)
+    vids, nids = epic_vocab(N1, N2, N_ACT, seed=1)
+    rng = np.random.default_rng(3)
+    lens = np.array(LENGTHS, np.int32)
+    mask = np.arange(T)[None] < lens[:, None]
+    feats = (rng.standard_normal((len(lens), T, D)) * mask[..., None]).astype(np.float32)
+    args = (jnp.asarray(feats), jnp.asarray(mask), jnp.asarray(lens))
+    with mock.patch.object(jblocks, "_PALLAS_PLATFORM_OVERRIDE", "tpu"), \
+            mock.patch.object(jqc, "dilated_residual2_stack_q8",
+                              _interp(jqc.dilated_residual2_stack_q8)), \
+            mock.patch.object(jqc, "x2y_attention_q8", _interp(jqc.x2y_attention_q8)), \
+            mock.patch.object(jcd, "mxu_argmax", _interp(jcd.mxu_argmax)), \
+            mock.patch.object(jcd, "blend_argmax", _interp(jcd.blend_argmax)):
+        model = jvn.build_verbnoun_fact(jcfg, D, vids, nids, S_CAP, n_classes1=N1, n_classes2=N2)
+        assert {c.quantize for c in model.block_cfgs} == {"int8"}
+        params = model.init({"params": jax.random.PRNGKey(0)}, *args, train=False)["params"]
+        saves, _ = model.apply({"params": params}, *args, train=False)
+        _, eval_step = make_step_fns(model, jcfg, N_ACT, np.ones(N_ACT + 1, np.float32),
+                                     verbnoun=True)
+        ref_pred = np.asarray(eval_step(params, {"feats": args[0], "mask": args[1],
+                                                 "lengths": args[2]}))
+    port = pvn.build_verbnoun_fact(cfg, D, vids, nids, S_CAP, N1, N2, device="cpu")
+    load_jax_params(port, jax.tree_util.tree_map(np.asarray, params))
+    assert {b.frame_branch.quantize for b in port.block_list} == {"int8"}
+    x = [torch.from_numpy(a) for a in (feats, mask, lens)]
+    with torch.no_grad():
+        got, _ = port(*x)
+    for key in ("frame_vlogp", "frame_nlogp"):
+        g, r = got[0][key].numpy()[mask], np.asarray(saves[0][key])[mask]
+        assert np.linalg.norm(g - r) / np.linalg.norm(r) <= 1e-3, key
+    pred = make_eval_step(port, float(cfg["FACT"]["mwt"]))(*x).numpy()
+    agree = float(np.mean(pred[mask] == ref_pred[mask]))
+    assert agree >= 0.99, agree
