@@ -21,7 +21,12 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
-   3.35 TB/s.  No single PyTorch call computes any of these fused
+   3.35 TB/s.  K6 multiplies on the TF32 tensor cores at f32 accuracy
+   (3xTF32), so its rows count their products as three TF32 passes at
+   495 TFLOP/s, and print the f32-FMA bound of the same work beside it
+   (``f32_fma_bound_ms`` in the JSON line); K6 and its f32 plain version
+   are also printed against a float64 plain version (``k6_f64_check``:
+   the error's coherent part shows a truncating accumulation; not gated).  No single PyTorch call computes any of these fused
    functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
    and the out projection), so ``library_ms`` is null throughout.  The
    Breakfast rows: K6, the MS-TCN++ tower (the serving form on folded
@@ -267,6 +272,7 @@ def phase_build(verbose: bool = False):
 PEAK_F32 = 67e12  # FLOP/s: float32 outside the tensor cores (H100 SXM data sheet)
 PEAK_BYTES = 3.35e12  # bytes/s of HBM3 (H100 SXM data sheet)
 PEAK_INT8 = 1979e12  # int8 tensor-core operations/s, dense (H100 SXM data sheet)
+PEAK_TF32 = 495e12  # TF32 tensor-core FLOP/s, dense (H100 SXM data sheet)
 MASK_SEEDS = 32  # seeds whose flagship-shaped masks pool into one keep rate
 KEEP_TOL = 1e-3  # |pooled keep rate - 0.8|
 
@@ -323,11 +329,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in _flat(list(tensors)) if t is not None)
 
 
-def bound(flops: float, n_bytes: float, int8_ops: float = 0.0):
+def bound(flops: float, n_bytes: float, int8_ops: float = 0.0, tf32x3_flops: float = 0.0):
     """(ms, "operations" or "bytes"): the least time the card needs for the
-    work, the larger of the operations (f32 at the f32 peak plus int8 at the
-    int8 tensor-core peak) and the bytes at the memory rate."""
-    t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8) * 1e3
+    work, the larger of the operations (f32 at the f32 peak, int8 at the
+    int8 tensor-core peak, and f32-accurate products by the 3xTF32 split:
+    three TF32 passes at the TF32 tensor-core peak) and the bytes at the
+    memory rate."""
+    t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8 + 3 * tf32x3_flops / PEAK_TF32) * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -454,9 +462,8 @@ def k6_fwd_case(rng, B, T, C, O, L, lengths, rate=0.0, save=False):
     x, lens, layers, dil, kw = k6_case(rng, B, T, C, O, L, lengths, rate)
     N = _valid(lens, T)
     if save:
-        work = (L * 16 * N * C * C + 2 * N * C * O,
-                nbytes(x, lens, layers, kw["out_w"], kw["out_b"]) + B * T * O * 4
-                + L * B * T * 4 * C * 4)
+        work = (0, nbytes(x, lens, layers, kw["out_w"], kw["out_b"]) + B * T * O * 4
+                + L * B * T * 4 * C * 4, 0, L * 16 * N * C * C + 2 * N * C * O)
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None].float()
 
         def on_valid(res):
@@ -468,8 +475,8 @@ def k6_fwd_case(rng, B, T, C, O, L, lengths, rate=0.0, save=False):
                 work, on_valid)
     assert rate == 0.0, "the serving form has no dropout"
     folded = dc.mstcn2_fold(layers)
-    work = (L * 12 * N * C * C + 2 * N * C * O,
-            nbytes(x, lens, folded, kw["out_w"], kw["out_b"]) + B * T * O * 4)
+    work = (0, nbytes(x, lens, folded, kw["out_w"], kw["out_b"]) + B * T * O * 4, 0,
+            L * 12 * N * C * C + 2 * N * C * O)
     return (lambda: dc.mstcn2_stack_fwd(x, lens, layers, dil, folded=folded, **kw),
             lambda: dc.mstcn2_stack_reference(x, lens, layers, dil, **kw), work)
 
@@ -484,8 +491,8 @@ def k6_bwd_case(rng, B, T, C, O, L, lengths, rate=0.2):
     _, streams, cs, hs = dc.mstcn2_stack_fwd(x, lens, layers, dil, save=True, **kw)
     N = _valid(lens, T)
     params = (layers, kw["out_w"], kw["out_b"])
-    work = (L * 32 * N * C * C + 4 * N * C * O,
-            nbytes(g, streams, cs, hs, lens, params, kw.get("seeds")) + nbytes(x, params))
+    work = (0, nbytes(g, streams, cs, hs, lens, params, kw.get("seeds")) + nbytes(x, params), 0,
+            L * 32 * N * C * C + 4 * N * C * O)
     return (lambda: dc.mstcn2_stack_bwd(g, streams, cs, hs, lens, layers, dil, **kw),
             lambda: dc.mstcn2_stack_bwd_reference(g, streams, cs, hs, lens, layers, dil, **kw),
             work)
@@ -1301,15 +1308,22 @@ def phase_kernels(seed: int = 0):
                 ms = cuda_ms(kern, iters, warmup=1)
                 plain_ms = cuda_ms(plain, iters, warmup=1)
                 bound_ms, bound_by = bound(*work)
-                int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 else ""
+                int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 and work[2] else ""
+                tf32 = ""
+                if len(work) > 3:  # beside it, the f32-FMA bound of the same products
+                    f32_ms = bound(work[3], work[1])[0]
+                    tf32 = (f", {work[3]:.4g} FLOP as 3xTF32; f32-FMA bound {f32_ms:.4f} ms, "
+                            f"{bound_ms / ms:.3f} of the 3xTF32 bound reached")
                 text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-                         f"({bound_by}; {work[0]:.4g} FLOP{int8}, {work[1]:.4g} bytes) "
+                         f"({bound_by}; {work[0]:.4g} FLOP{int8}{tf32}, {work[1]:.4g} bytes) "
                          f"library_ms none")
                 if i == 0:
                     results[name] = dict(name=name, route="cuda", source=source,
                                          replaces=replaces, max_abs_err=err_abs, ms=ms,
                                          plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=None)
+                    if len(work) > 3:
+                        results[name]["f32_fma_bound_ms"] = f32_ms
                 else:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_abs)
             log(f"[kernel] {name:<18} {case_name:<9} {text}" + ("" if ok else "  FAIL"))
@@ -1320,6 +1334,48 @@ def phase_kernels(seed: int = 0):
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return results
+
+
+def k6_f64_check(seed: int = 0):
+    """K6 (training form and backward, B=2, T=2048, C=512, 10 layers) and its
+    f32 plain version, each against the plain version in float64: the
+    error's max and rms over the reference's, and its coherent part,
+    mean(err * sign(ref)) / mean |ref| (a shrink or growth of every value,
+    which the tensor cores' truncating accumulation leaves and a max-error
+    gate does not see).  Printed, not gated."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    def d(t):
+        return t.double()
+
+    def stats(a, ref, valid):
+        e, r = (a.double() - ref) * valid, ref * valid
+        return (f"max {float(e.abs().max() / r.abs().max()):.2e} rms "
+                f"{float(e.pow(2).mean().sqrt() / r.pow(2).mean().sqrt()):.2e} coherent "
+                f"{float((e * r.sign()).mean() / r.abs().mean()):+.2e}")
+
+    rng = np.random.default_rng(seed)
+    B, T, C = 2, 2048, 512
+    x, lens, layers, dil, kw = k6_case(rng, B, T, C, C, 10, [2048, 1500], 0.0)
+    valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None].double()
+    layers64 = [tuple(d(p) for p in layer) for layer in layers]
+    kw64 = dict(out_w=d(kw["out_w"]), out_b=d(kw["out_b"]))
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    with torch.no_grad():
+        ref = dc.mstcn2_stack_reference(d(x), lens, layers64, dil, save=True, **kw64)
+        fwd = {"kernel": dc.mstcn2_stack_fwd(x, lens, layers, dil, save=True, **kw),
+               "plain": dc.mstcn2_stack_reference(x, lens, layers, dil, save=True, **kw)}
+        _, streams, cs, hs = fwd["kernel"]
+        g = _rand(rng, (B, T, C), 0.01)
+        ref_b = dc.mstcn2_stack_bwd_reference(d(g), [d(t) for t in streams], [d(t) for t in cs],
+                                              [d(t) for t in hs], lens, layers64, dil, **kw64)
+        for name, bwd in (("kernel", dc.mstcn2_stack_bwd), ("plain", dc.mstcn2_stack_bwd_reference)):
+            dx, dl, _, _ = bwd(g, streams, cs, hs, lens, layers, dil, **kw)
+            log(f"[k6-f64] {name:<6} vs float64: logits {stats(fwd[name][0], ref[0], valid)}; "
+                f"h (last layer) {stats(fwd[name][3][-1], ref[3][-1], valid)}; dx "
+                f"{stats(dx, ref_b[0], valid)}; dK1 (layer 0) {stats(dl[0][0], ref_b[1][0][0], one)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2452,6 +2508,7 @@ def main():
     smi = phase_environment(torch)
     phase_build(verbose="--ptxas" in sys.argv)
     results = phase_kernels()
+    k6_f64_check()
     counts = phase_serving()
     train_counts = phase_training()
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}

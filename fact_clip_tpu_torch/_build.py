@@ -69,10 +69,10 @@ SIGNATURES = {
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
-    "fk_mstcn2_layer": [P] * 15 + [I, U, F] + [I] * 6 + [P],
-    "fk_mstcn2_folded": [P] * 8 + [I] * 6 + [P],
-    "fk_mstcn2_bwd_dc": [P] * 15 + [I, I, I, I, P],
-    "fk_mstcn2_bwd_dx": [P] * 6 + [I] * 5 + [P],
+    "fk_k6_pack": [P, P, I, I, I, P],
+    "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 6 + [I, U, F, P],
+    "fk_k6_wgrad": [P, I, I, I, P, I, I, I, P, I, I, I, P, I, I, I, P],
+    "fk_k6_ds": [P] * 6 + [I, U, F] + [P] * 4 + [I] * 5 + [P],
     "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],
     "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],

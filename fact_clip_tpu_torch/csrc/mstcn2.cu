@@ -1,478 +1,592 @@
-// K6: one layer of the fused MS-TCN++ tower (two dilations per layer),
-// forward (a training form and a serving form) and backward.
+// K6: the fused MS-TCN++ tower (two dilations per layer), forward (a
+// training form and a serving form) and backward, on Hopper's TF32 tensor
+// cores at f32 accuracy (3xTF32, csrc/tc_gemm.cuh).
 //
 // Forward: replaces fact_clip_tpu/ops/pallas/dilated_conv.py::_stack2_layer
-// (_stack2_kernel).  The training form, for a tile of 32 frames of one video
+// (_stack2_kernel).  Per layer, for the frames of one video,
 //   c1 = sum_k x[t + (k-1)d1] @ K1[k] + b1,  c2 = sum_k x[t + (k-1)d2] @ K2[k] + b2
-//   h  = relu(c1 @ Wt + c2 @ Wb + bf)           (Wf = [Wt; Wb], (2C, C): one GEMM
-//                                                over K = 2C of the tile [c1 | c2])
+//   h  = relu([c1 | c2] @ Wf + bf)           (Wf = [Wt; Wb], (2C, C))
 //   y[t] = (drop(h) + x[t]) for t < len[b], 0 for t >= len[b]
 // and, on the tower's last layer, logits[t] = y[t] @ Wo + bo (padded frames
-// carry the bias row).  Taps at or past len[b], or before frame 0, read as
-// zeros (the TPU kernel's `where` on its halo), so the layer needs no
-// pre-masked input.  It also writes [c1 | c2] (B, T, 2C) and h = relu(.)
-// before dropout (B, T, C) for the backward.  The serving form, which saves
-// nothing, folds the fuse into the taps: with W6 = [K1[k] Wt; K2[k] Wb]
-// (6C, C, ops/dilated_conv.py::mstcn2_fold, cached by the module) and
-// bias = b1 Wt + b2 Wb + bf, h = relu(taps(x) @ W6 + bias) is one GEMM over
-// K = 6C on 64-frame tiles: 12 C^2 FMAs a frame instead of 16 C^2, in
-// another summation order; it has no dropout (a forward with dropout runs
-// the training form, its saves left out).  A block whose tile lies wholly
-// past len[b] runs no GEMM: it writes zeros (its saves too, which the
-// backward multiplies by a zero cotangent) and the bias row of the logits;
-// the backward's blocks past the video write zeros.
-//
-// Dropout: fk::dropout_bits(seed, layer, (b*T + t)*C + c) < thresh, scaled by
-// 1/(1-rate), on h (every layer but the tower's last, which its caller runs at
-// rate 0, as layers.py:480-482 does).  The backward has the mask kernel
-// (dropout.cu) regenerate it; it is never stored past the layer's backward.
-//
+// carry the bias row).  Taps before frame 0 or at or past len[b] read as
+// zeros: the tower's input may hold non-zero frames past a video, and the
+// A operand's split pass zeroes those rows as it converts the tile.
+//   training form: two GEMM launches a layer, (a) [c1 | c2] (both dilations,
+//     K = 3C each; written to global, the backward's save) and (b) the fuse
+//     over K = 2C with an epilogue for the bias, ReLU, the dropout hash
+//     (fk::dropout_bits, stream = layer, index (b*T + t)*C + c: the mask of
+//     ops/dropout.py bit for bit), the residual, the write mask and the h save;
+//   serving form: one GEMM over K = 6C on the fold W6 = [K1[k] Wt; K2[k] Wb]
+//     (ops/dilated_conv.py::mstcn2_fold), bias = b1 Wt + b2 Wb + bf, the same
+//     epilogue without dropout or saves;
+//   the out projection of the last layer: one more GEMM of the same core
+//     (JAX computes it inside _stack2_kernel).
 // Backward: replaces _stack2_bwd_layer (_stack2_bwd_dc_kernel,
 // _stack2_bwd_dx_kernel), from the saved input stream x, [c1 | c2], h and the
 // cotangent g of the layer's output (on the last layer: of the logits):
-//   bwd_dc: per 64-frame tile, on the last layer y = (h*keep + x)*valid (for
-//           dWo) and g = (g_logits @ Wo^T)*valid; ds = g * keep * (h > 0);
-//           [dc1 | dc2] = ds @ Wf^T.  It writes ds, dc1, dc2 (and dz = g and
-//           y on the last layer) and per-block column sums for dbf, db1, db2
-//           (and dob).
-//   bwd_dx: dx[s] = sum_k dc1[s + (1-k)d1] K1[k]^T + dc2[s + (1-k)d2] K2[k]^T
-//           + g[s], zero at s >= len[b]: one GEMM over K = 6C whose taps read
-//           dc1 and dc2 straight from global memory, since d reaches 512.
-// The weight gradients dK1, dK2 (x^T dc, three shifts each), dWf = [c1|c2]^T ds
-// and dWo = y^T g_logits are sums over B*T rows: grad.cu's fk_atb writes
-// per-block partial products and fk_reduce sums them (and the column sums) in
-// a fixed order: no float atomics, the same result on every run.
+//   last layer only: g = g_logits @ Wo^T (GEMM, K = O), zero past len[b];
+//   k6_ds: ds = g * keep * (h > 0) (the keep mask re-hashed in place), y =
+//     (h*keep + x)*valid on the last layer (for dWo), and per-block column
+//     sums for dbf (and dob): an elementwise pass, since ds is needed in
+//     global memory by the dWf product anyway;
+//   [dc1 | dc2] = ds @ Wf^T (GEMM, N = 2C) with per-block column sums for db1, db2;
+//   dx[s] = sum_k dc1[s + (1-k)d1] K1[k]^T + dc2[s + (1-k)d2] K2[k]^T + g[s],
+//     zero at s >= len[b] (GEMM, K = 6C);
+//   the weight gradients dK1, dK2 (x^T dc over three shifted taps each),
+//     dWf = [c1|c2]^T ds and dWo = y^T g_logits: k6_wgrad, products over
+//     time (K = time): per (128 x 128 tile, 512-frame chunk of one video,
+//     tap) partials that grad.cu's fk_reduce sums in a fixed order (no
+//     float atomics: the same result on every run).
+// Tiles wholly past a video skip their GEMMs and write zeros (and the
+// logits' bias row).
 //
-// Bound on the H100: f32 FMA on the CUDA cores.  A training layer forward is
-// 2 * B*T * 8*C*C FLOPs (two conv3 at 6C^2 a frame, the fuse at 4C^2):
-// 68.7 GFLOP at B=4, T=4096, C=512, ~1.0 ms at 67 TFLOP/s, against 2*B*T*C*4
-// bytes of stream traffic (~500 FLOP per byte); the serving form does 3/4 of
-// that, the backward about twice.  Design: K1's layout (csrc/mstcn.cu)
-// cannot be copied, because the fuse GEMM needs both convolutions' outputs
-// of a tile at once: at C=512 two (64, C+4) tiles are 264 KB, above the
-// 227 KB a block may hold.  The training forward therefore takes 32 frames
-// a block: [c1 | c2] as one (32, 2C+4) tile (132 KB) beside the GEMM staging
-// (37 KB), 169 KB in all, one block per SM.  The serving form needs no such
-// tile.  The backward needs one (64, C+4) tile (ds) and runs 64 frames a
-// block (174 KB); c1 and c2 come from the training forward's saves.
+// The GEMM core: 128-row x 128-column output tiles, two consumer
+// warpgroups of 64 rows, K in 32-float steps through a ring of three
+// stages filled by TMA (3-D maps (C, T, B) for the activations, so a tap
+// past either end of a video's frames reads zeros and never the next
+// video's rows; (K, N, 2 x problems) for the weights' TF32 hi and lo parts,
+// which k6_pack splits and lays out K-major, transposed where needed, once a
+// call in global memory).  A producer warpgroup keeps the ring full; each of
+// two consumer warpgroups splits its 64 rows of the activation tile in
+// shared memory after it lands (hi in place, lo beside it, the rows outside
+// [0, len) zeroed), multiplies, and releases the stage, so that one
+// consumer's split and sums overlap the other's wgmma.  The SS form keeps
+// all three passes reading descriptors.  Tried on the card (H100 80GB HBM3,
+// 700 W, Breakfast serving form, one call each): the weights split in
+// shared memory by every block instead (less L2 traffic, more shared-memory
+// traffic) took 5.19 ms against 4.75; A from registers (the RS form, its
+// fragments split there) 6.48 ms, its loads in the way of the wgmma issue;
+// one 256-thread loop (split the next step while the tensor cores run this
+// one, then a block-wide barrier) 4.87 ms against this design's 4.18.  Every 32-deep step's product lands in a fresh
+// accumulator that rounded f32 adds sum (tc::promote), the cross terms in an
+// accumulator of their own.  The weight-gradient products take both operands
+// time-major from TMA and transpose and split them in one shared-memory
+// pass into the K-major swizzled layout, into two sets of tiles that
+// alternate so that the next step's pass overlaps this step's wgmma (a
+// producer warpgroup that transposed B for two consumer warpgroups, each
+// transposing its own half of A, took 18.1 ms against 16.8 for the
+// Breakfast backward on the H100).
+//
+// Bound on the H100: the products, 3 TF32 passes at 495 TFLOP/s.  At
+// B=4, T=4096, C=512, 10 layers: serving 12 C^2 FMAs a frame and layer,
+// 371 GFLOP -> 2.25 ms; training 16 C^2 -> 2.98 ms; backward 32 C^2 ->
+// 5.97 ms; bytes (B*T*C*4 per stream pass, ~34 MB) are an order below.
+// The design's limits: C a multiple of 32 (whole K steps per tap), O a
+// multiple of 4 (TMA row strides); shared memory does not depend on C.
+#include <cuda.h>
+#include <string.h>
+
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int BMF = 32;  // frames per forward block
-constexpr int BMB = 64;  // frames per backward block
+constexpr int BM = 128;                 // output rows per block (two warpgroups)
+constexpr int BN = 128;                 // output columns per block
+constexpr int STAGES = 3;
+constexpr int TILE = BM * tc::kBK;      // floats of one 128 x 32 tile (16 KB)
+constexpr int GEMM_STAGE = 4 * TILE;    // A (hi), A lo, W (hi), W lo
+constexpr size_t GEMM_SMEM = (size_t)STAGES * GEMM_STAGE * 4 + 64 + 1024;
+constexpr int WG_STAGE = 2 * TILE;      // raw A, raw B (time-major)
+// three raw stages and two sets of split tiles (A hi, A lo, B hi, B lo)
+constexpr size_t WGRAD_SMEM = ((size_t)STAGES * WG_STAGE + 8 * TILE) * 4 + 64 + 1024;
+constexpr int MAX_SEG = 6;
 
-// One block per SM (its shared memory leaves no room for a second): said
-// here, it frees ptxas from a 128-register budget under which this kernel
-// spills.
-__global__ void __launch_bounds__(fk::kThreads, 1)
-mstcn2_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    const int* __restrict__ lengths,
-                    const float* __restrict__ k1, const float* __restrict__ b1,
-                    const float* __restrict__ k2, const float* __restrict__ b2,
-                    const float* __restrict__ wf, const float* __restrict__ bf,
-                    const float* __restrict__ ow, const float* __restrict__ ob,
-                    float* __restrict__ logits, float* __restrict__ c_out,
-                    float* __restrict__ h_out, fk::Dropout drop, int T, int C, int O, int d1,
-                    int d2) {
-  constexpr int RM = BMF / 8;
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BMF>& s = *reinterpret_cast<fk::GemmSmem<BMF>*>(smem_raw);
-  float* cs = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BMF>) / sizeof(float);
-  const int ldc = 2 * C + 4;  // [c1 | c2] of the tile; +4 keeps rows 16-byte aligned
+enum Mode { kMasked = 0, kFuse = 1, kFolded = 2, kLogits = 3, kDx = 4 };
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BMF;
-  const int L = min(lengths[b], T);
-  const float* xb = x + (size_t)b * T * C;
-  float* yb = y + (size_t)b * T * C;
-  if (t0 >= L) {  // a tile past the video: zeros, and the bias row on the last layer
-    const int rows = min(BMF, T - t0);
-    const size_t row0 = (size_t)b * T + t0;
-    for (int e = threadIdx.x; e < rows * C; e += fk::kThreads) {
-      y[row0 * C + e] = 0.f;
-      if (h_out != nullptr) h_out[row0 * C + e] = 0.f;
-    }
-    if (c_out != nullptr)
-      for (int e = threadIdx.x; e < rows * 2 * C; e += fk::kThreads) c_out[row0 * 2 * C + e] = 0.f;
-    if (ow != nullptr)
-      for (int e = threadIdx.x; e < rows * O; e += fk::kThreads)
-        logits[row0 * O + e] = __ldg(ob + e % O);
-    return;
-  }
-  const uint32_t seed = drop.load_seed();
-  float acc[RM][8];
+struct GemmArgs {
+  CUtensorMap amap;  // the activations (C_a, T, B), 32 x 128 boxes, 128-byte swizzle
+  CUtensorMap bmap;  // the weights' K-major hi and lo parts (K, N, 2 nprob), 32 x 128 boxes
+  int seg_shift[2][MAX_SEG];  // per problem and K segment: the time shift of the tap
+  int seg_c0[2][MAX_SEG];     // and its first channel in A
+  int nseg, kseg, N, T, nprob;
+  const int* lengths;
+  float* out;
+  int ldo, col_step;  // out row stride; problem z writes columns z * col_step + n
+  const float* bias0;
+  const float* bias1;
+  const float* res;  // the residual x (kFuse, kFolded) or the cotangent g (kDx), row stride N
+  float* out2;       // kFuse: h
+  float* part;       // kMasked: per-block column sums, row stride ldo
+  fk::Dropout drop;
+};
 
-  // stage 1: the two dilated convs, each one GEMM over K = 3C (tap-major rows)
-  for (int half = 0; half < 2; ++half) {
-    const int dil = half ? d2 : d1;
-    const float* wk = half ? k2 : k1;
-    const float* bk = half ? b2 : b1;
-    auto taps = [&](int r, int k) {
-      const int tap = k / C;
-      const int t = t0 + r + (tap - 1) * dil;
-      return (t >= 0 && t < L) ? __ldg(xb + (size_t)t * C + (k - tap * C)) : 0.f;
-    };
-    for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-      fk::gemm_pass<BMF>(acc, taps, wk, C, 3 * C, n0, C, s);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = fk::pass_row<BMF>(i);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = n0 + fk::pass_col(j);
-          if (c >= C) continue;
-          const float v = acc[i][j] + __ldg(bk + c);
-          cs[r * ldc + half * C + c] = v;
-          if (c_out != nullptr && t0 + r < T)
-            c_out[((size_t)b * T + t0 + r) * 2 * C + half * C + c] = v;
-        }
-      }
-    }
-  }
-  __syncthreads();
+struct WgradArgs {
+  CUtensorMap amap;  // (C_a total, T, B), 128 x 32 boxes, plain rows
+  CUtensorMap bmap;
+  int a_c0, b_c0, Ca, Cb, T, Kc, per, n_chunks, shift0, shift_step;
+  const int* lengths;
+  float* part;
+};
 
-  // stage 2: the fuse over [c1 | c2], ReLU (+ dropout), residual, write mask
-  auto c_elem = [&](int r, int k) { return cs[r * ldc + k]; };
-  for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-    fk::gemm_pass<BMF>(acc, c_elem, wf, C, 2 * C, n0, C, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int t = t0 + fk::pass_row<BMF>(i);
-      if (t >= T) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c >= C) continue;
-        const float hv = fmaxf(acc[i][j] + __ldg(bf + c), 0.f);
-        if (h_out != nullptr) h_out[((size_t)b * T + t) * C + c] = hv;
-        float v = 0.f;
-        if (t < L) {
-          float o = hv;
-          if (drop.seed != nullptr)
-            o *= drop.keep(((uint32_t)b * (uint32_t)T + (uint32_t)t) * (uint32_t)C + (uint32_t)c,
-                           seed);
-          v = o + __ldg(xb + (size_t)t * C + c);
-        }
-        yb[(size_t)t * C + c] = v;
-      }
-    }
-  }
-  if (ow == nullptr) return;
-
-  // stage 3 (last layer): out projection of the finished stream tile.  The
-  // tile was written by this block, so it is read with coherent loads.
-  __syncthreads();
-  const int rows = min(BMF, T - t0);
-  auto stream = [&](int r, int k) { return r < rows ? yb[(size_t)(t0 + r) * C + k] : 0.f; };
-  float* lb = logits + (size_t)b * T * O;
-  for (int n0 = 0; n0 < O; n0 += fk::kBN) {
-    fk::gemm_pass<BMF>(acc, stream, ow, O, C, n0, O, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BMF>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o = n0 + fk::pass_col(j);
-        if (o < O) lb[(size_t)(t0 + r) * O + o] = acc[i][j] + __ldg(ob + o);
-      }
-    }
-  }
+__device__ __forceinline__ float* align1024(void* p) {
+  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
-// The serving form of the layer (no saves): the fuse folded into the taps,
-// W6 = [K1[0] Wt; K1[1] Wt; K1[2] Wt; K2[0] Wb; K2[1] Wb; K2[2] Wb] (6C, C)
-// and bias = b1 Wt + b2 Wb + bf, so that h = relu(taps(x) @ W6 + bias) is one
-// GEMM over K = 6C: 12 C^2 FMAs a frame instead of 16 C^2, and no [c1 | c2]
-// tile, so 64 frames a block.  No dropout; the epilogue is otherwise the
-// training form's, and so is the out projection.
-__global__ void __launch_bounds__(fk::kThreads, 1)
-mstcn2_folded_kernel(const float* __restrict__ x, float* __restrict__ y,
-                     const int* __restrict__ lengths, const float* __restrict__ w6,
-                     const float* __restrict__ bias, const float* __restrict__ ow,
-                     const float* __restrict__ ob, float* __restrict__ logits, int T, int C,
-                     int O, int d1, int d2) {
-  constexpr int RM = BMB / 8;
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BMB>& s = *reinterpret_cast<fk::GemmSmem<BMB>*>(smem_raw);
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BMB;
-  const int L = min(lengths[b], T);
-  const int rows = min(BMB, T - t0);
-  const float* xb = x + (size_t)b * T * C;
-  float* yb = y + (size_t)b * T * C;
-  float* lb = logits + (size_t)b * T * O;
-  if (t0 >= L) {  // a tile past the video: zeros, and the bias row on the last layer
-    for (int e = threadIdx.x; e < rows * C; e += fk::kThreads) yb[(size_t)t0 * C + e] = 0.f;
-    if (ow != nullptr)
-      for (int e = threadIdx.x; e < rows * O; e += fk::kThreads)
-        lb[(size_t)t0 * O + e] = __ldg(ob + e % O);
-    return;
-  }
-  float acc[RM][8];
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
-  // taps 0-2 of dilation d1, 3-5 of d2: tap k reads x[t + (k-1)d]
-  auto taps = [&](int r, int k) {
-    const int tap = k / C;
-    const bool second = tap >= 3;
-    const int t = t0 + r + ((second ? tap - 3 : tap) - 1) * (second ? d2 : d1);
-    return (t >= 0 && t < L) ? __ldg(xb + (size_t)t * C + (k - tap * C)) : 0.f;
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+constexpr int GEMM_THREADS = 384;  // a producer warpgroup, two consumer warpgroups
+
+template <int MODE>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    k6_gemm_kernel(const __grid_constant__ GemmArgs p) {
+  extern __shared__ float4 smem_raw[];
+  float* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * GEMM_STAGE);  // then empty
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Bsz = gridDim.z / p.nprob;
+  const int z = blockIdx.z / Bsz, b = blockIdx.z - z * Bsz;
+  const int n0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int T = p.T;
+  const int L = min(p.lengths[b], T);
+  const int cps = (p.kseg + tc::kBK - 1) / tc::kBK;  // K steps per segment
+  const int nk = t0 < L ? p.nseg * cps : 0;          // a tile past the video: no GEMM
+
+  auto issue = [&](int kc) {
+    const int s = kc % STAGES;
+    const int seg = kc / cps;
+    const int c = (kc - seg * cps) * tc::kBK;
+    float* st = sm + s * GEMM_STAGE;
+    tc::mbar_expect_tx(&full[s], 3 * TILE * 4);
+    tc::tma_load_3d(st, &p.amap, &full[s], p.seg_c0[z][seg] + c, t0 + p.seg_shift[z][seg], b);
+    tc::tma_load_3d(st + 2 * TILE, &p.bmap, &full[s], seg * p.kseg + c, n0, 2 * z);
+    tc::tma_load_3d(st + 3 * TILE, &p.bmap, &full[s], seg * p.kseg + c, n0, 2 * z + 1);
   };
-  for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-    fk::gemm_pass<BMB>(acc, taps, w6, C, 6 * C, n0, C, s);
+  float acc[64], big[64], small[64];  // the f32 sum, one K step's two products
+  // warpgroup 0 keeps the ring full; warpgroups 1 and 2 each split and
+  // multiply their own 64 rows and release a stage when done with it, so
+  // that one's split and sums overlap the other's wgmma
+  uint64_t* empty = full + STAGES;
+  const int wg = (warp >> 2) - 1;  // the consumer warpgroup, -1 for the producer
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg < 0) {
+    tc::setmaxnreg_dec<40>();  // 128 x 40 + 256 x 232 = 384 x 168, the launch's registers
+    if (tid == 0)
+      for (int kc = 0; kc < nk; ++kc) {
+        if (kc >= STAGES) tc::mbar_wait(&empty[kc % STAGES], (kc / STAGES - 1) & 1);
+        issue(kc);
+      }
+    return;
+  }
+  tc::setmaxnreg_inc<232>();
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int t = t0 + fk::pass_row<BMB>(i);
-      if (t >= T) continue;
+  for (int i = 0; i < 64; ++i) acc[i] = big[i] = small[i] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % STAGES;
+    float* st = sm + s * GEMM_STAGE;
+    tc::mbar_wait(&full[s], (kc / STAGES) & 1);
+    // split this warpgroup's 64 rows of A: hi in place, lo beside it, the
+    // rows outside [0, len) zero
+    const int shift = p.seg_shift[z][kc / cps];
+    float4* a4 = reinterpret_cast<float4*>(st + wg * (TILE / 2));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c >= C) continue;
-        yb[(size_t)t * C + c] =
-            t < L ? fmaxf(acc[i][j] + __ldg(bias + c), 0.f) + __ldg(xb + (size_t)t * C + c) : 0.f;
+    for (int i = 0; i < TILE / 8 / 128; ++i) {
+      const int q = (tid & 127) + i * 128;
+      const int t = t0 + wg * 64 + (q >> 3) + shift;  // 8 float4 per 128-byte row
+      float4 v = a4[q];
+      if (t < 0 || t >= L) v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 hi, lo;
+      tc::split4(v, hi, lo);
+      a4[q] = hi;
+      a4[q + TILE / 4] = lo;
+    }
+    tc::fence_proxy_async();
+    tc::bar_sync(1 + wg, 128);
+    tc::wgmma_fence();
+    tc::mma3_k32(big, small, st + wg * (TILE / 2), st + TILE + wg * (TILE / 2), st + 2 * TILE,
+                 st + 3 * TILE);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::promote(acc, big, small);
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: register 4j + 2h + e holds row rw + 8h, column n0 + 8j + cq + e
+  const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int N = p.N;
+  const float* bias = z ? p.bias1 : p.bias0;
+  const int col_off = z * p.col_step;
+  const uint32_t seed = MODE == kFuse ? p.drop.load_seed() : 0u;
+  float csum[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + cq;
+    const bool ncol = n < N;  // N is a multiple of 4: n + 1 < N too
+    float2 bv = make_float2(0.f, 0.f);
+    if (bias != nullptr && ncol) bv = load2(bias + n);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + rw + 8 * h;
+      const bool valid = t < L;
+      const bool write = t < T && ncol;
+      const size_t row = (size_t)b * T + t;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (MODE == kMasked) {
+        v0 = valid ? v0 + bv.x : 0.f;
+        v1 = valid ? v1 + bv.y : 0.f;
+        if (write) store2(p.out + row * p.ldo + col_off + n, v0, v1);
+        s0 += v0;
+        s1 += v1;
+      } else if (MODE == kFuse) {
+        const float h0 = fmaxf(v0 + bv.x, 0.f), h1 = fmaxf(v1 + bv.y, 0.f);
+        if (write) {
+          float y0 = 0.f, y1 = 0.f;
+          if (valid) {
+            float o0 = h0, o1 = h1;
+            if (p.drop.seed != nullptr) {
+              const uint32_t idx = ((uint32_t)b * (uint32_t)T + (uint32_t)t) * (uint32_t)N + n;
+              o0 *= p.drop.keep(idx, seed);
+              o1 *= p.drop.keep(idx + 1, seed);
+            }
+            const float2 x = load2(p.res + row * N + n);
+            y0 = o0 + x.x;
+            y1 = o1 + x.y;
+          }
+          if (p.out2 != nullptr) store2(p.out2 + row * N + n, valid ? h0 : 0.f, valid ? h1 : 0.f);
+          store2(p.out + row * N + n, y0, y1);
+        }
+      } else if (MODE == kFolded || MODE == kDx) {
+        if (write) {
+          float y0 = 0.f, y1 = 0.f;
+          if (valid) {
+            const float2 r = load2(p.res + row * N + n);
+            y0 = (MODE == kFolded ? fmaxf(v0 + bv.x, 0.f) : v0) + r.x;
+            y1 = (MODE == kFolded ? fmaxf(v1 + bv.y, 0.f) : v1) + r.y;
+          }
+          store2(p.out + row * N + n, y0, y1);
+        }
+      } else {  // kLogits: every frame of [0, T), the padded ones the bias row
+        if (write) store2(p.out + row * p.ldo + n, v0 + bv.x, v1 + bv.y);
       }
     }
+    csum[2 * j] = s0;
+    csum[2 * j + 1] = s1;
   }
-  if (ow == nullptr) return;
+  if (MODE != kMasked || p.part == nullptr) return;
 
-  // the last layer: out projection of the finished stream tile, written by
-  // this block and read back with coherent loads
+  // per-block column sums in a fixed order: the warp's 16 rows by shuffles,
+  // then the 8 warps in order (stage memory is free: every load has landed)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float v = csum[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    csum[i] = v;
+  }
+  float* red = sm;
+  const int cwarp = wg * 4 + (warp & 3), ct = tid - 128;
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      red[cwarp * BN + 8 * j + cq] = csum[2 * j];
+      red[cwarp * BN + 8 * j + cq + 1] = csum[2 * j + 1];
+    }
+  }
+  tc::bar_sync(3, 256);  // the consumer warps
+  if (ct >= 0 && ct < BN && n0 + ct < N) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * BN + ct];
+    p.part[((size_t)b * gridDim.y + blockIdx.y) * p.ldo + col_off + n0 + ct] = s;
+  }
+}
+
+// dW[tap][m][n] partial = sum over the chunk's frames t of
+// A[b, t + shift, a_c0 + m] * Bm[b, t, b_c0 + n], A's rows outside [0, len)
+// and Bm's at or past len zero.
+__global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant__ WgradArgs p) {
+  extern __shared__ float4 smem_raw[];
+  float* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * WG_STAGE + 8 * TILE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int tap = blockIdx.z / p.n_chunks;
+  const int chunk = blockIdx.z - tap * p.n_chunks;
+  const int b = chunk / p.per;
+  const int tc0 = (chunk - b * p.per) * p.Kc;
+  const int T = p.T;
+  const int L = min(p.lengths[b], T);
+  const int shift = p.shift0 + tap * p.shift_step;
+  // frames t whose product counts: t in [tc0, tc0 + Kc), t < len, 0 <= t + shift < len
+  const int lo_t = max(tc0, -shift);
+  const int hi_t = min(min(tc0 + p.Kc, L), L - shift);
+  const int kstart = hi_t > lo_t ? tc0 + (lo_t - tc0) / tc::kBK * tc::kBK : tc0;
+  const int nk = hi_t > lo_t ? (hi_t - kstart + tc::kBK - 1) / tc::kBK : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) tc::mbar_init(&full[s], 1);
+    tc::fence_barrier_init();
+  }
   __syncthreads();
-  auto stream = [&](int r, int k) { return r < rows ? yb[(size_t)(t0 + r) * C + k] : 0.f; };
-  for (int n0 = 0; n0 < O; n0 += fk::kBN) {
-    fk::gemm_pass<BMB>(acc, stream, ow, O, C, n0, O, s);
+  auto issue = [&](int kc) {
+    const int s = kc % STAGES;
+    float* st = sm + s * WG_STAGE;
+    const int t = kstart + kc * tc::kBK;
+    tc::mbar_expect_tx(&full[s], 2 * TILE * 4);
+    tc::tma_load_3d(st, &p.amap, &full[s], p.a_c0 + m0, t + shift, b);
+    tc::tma_load_3d(st + TILE, &p.bmap, &full[s], p.b_c0 + n0, t, b);
+  };
+  // transpose (32 frames x 128 channels -> 128 rows of 32 frames, K-major in
+  // the 128-byte swizzle) and split both operands of step kc into split set
+  // kc % 2; thread item (r, q) takes frames 4q..4q+3 of channel r, so each
+  // 16-byte store of 8 neighbouring threads covers the 32 banks once
+  auto split_step = [&](int kc) {
+    const float* st = sm + (kc % STAGES) * WG_STAGE;
+    float* ahi = sm + STAGES * WG_STAGE + (kc & 1) * 4 * TILE;
+    tc::mbar_wait(&full[kc % STAGES], (kc / STAGES) & 1);
+    const int tb = kstart + kc * tc::kBK;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BMB>(i);
-      if (r >= rows) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int item = tid + i * 256;
+      const int r = item & (BM - 1);
+      const int q = item >> 7;
+      float av[4], bv[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o = n0 + fk::pass_col(j);
-        if (o < O) lb[(size_t)(t0 + r) * O + o] = acc[i][j] + __ldg(ob + o);
+      for (int u = 0; u < 4; ++u) {
+        const int k = 4 * q + u;
+        const int t = tb + k;
+        const bool ok = t >= lo_t && t < hi_t;
+        av[u] = ok ? st[k * BM + r] : 0.f;
+        bv[u] = ok ? st[TILE + k * BM + r] : 0.f;
       }
+      float4 hi, lo;
+      const int o = tc::sw128(r, 4 * q);
+      tc::split4(make_float4(av[0], av[1], av[2], av[3]), hi, lo);
+      *reinterpret_cast<float4*>(ahi + o) = hi;
+      *reinterpret_cast<float4*>(ahi + TILE + o) = lo;
+      tc::split4(make_float4(bv[0], bv[1], bv[2], bv[3]), hi, lo);
+      *reinterpret_cast<float4*>(ahi + 2 * TILE + o) = hi;
+      *reinterpret_cast<float4*>(ahi + 3 * TILE + o) = lo;
+    }
+    tc::fence_proxy_async();
+  };
+
+  float acc[64], big[64], small[64];  // the f32 sum, one K step's two products
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = big[i] = small[i] = 0.f;
+  if (tid == 0)
+    for (int kc = 0; kc < min(STAGES, nk); ++kc) issue(kc);
+  if (nk > 0) split_step(0);
+  __syncthreads();
+  if (tid == 0 && STAGES < nk) issue(STAGES);  // raw stage 0 is free
+  for (int kc = 0; kc < nk; ++kc) {
+    const float* set = sm + STAGES * WG_STAGE + (kc & 1) * 4 * TILE;
+    tc::wgmma_fence();
+    tc::mma3_k32(big, small, set + wg * (TILE / 2), set + TILE + wg * (TILE / 2),
+                 set + 2 * TILE, set + 3 * TILE);
+    tc::wgmma_commit();
+    if (kc + 1 < nk) split_step(kc + 1);
+    tc::wgmma_wait_all();
+    tc::promote(acc, big, small);
+    __syncthreads();  // split set kc % 2 and raw stage (kc + 1) % STAGES are free
+    if (tid == 0 && kc + 1 + STAGES < nk) issue(kc + 1 + STAGES);
+  }
+
+  float* out = p.part + ((size_t)tap * p.n_chunks + chunk) * p.Ca * p.Cb;
+  const int rw = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + cq;
+    if (n >= p.Cb) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = rw + 8 * h;
+      if (m < p.Ca) store2(out + (size_t)m * p.Cb + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// Per-block column sums, written by bwd_dc: part[blk][3][C] = (dbf, db1, db2)
-// and part_o[blk][O] = dob.
-__global__ void __launch_bounds__(fk::kThreads)
-mstcn2_bwd_dc_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                     const float* __restrict__ g, const float* __restrict__ glg,
-                     const int* __restrict__ lengths, const float* __restrict__ wft,
-                     const float* __restrict__ owt, const float* __restrict__ keepm,
-                     float* __restrict__ ds_out, float* __restrict__ dc1,
-                     float* __restrict__ dc2, float* __restrict__ dz_out,
-                     float* __restrict__ y_out, float* __restrict__ part,
-                     float* __restrict__ part_o, int T, int C, int O) {
-  constexpr int RM = BMB / 8;
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BMB>& s = *reinterpret_cast<fk::GemmSmem<BMB>*>(smem_raw);
-  const int ld = C + 4;
-  float* G = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BMB>) / sizeof(float);
+// dst (2, N, K): the hi and lo TF32 parts of src (R, S) (N = R, K = S) or
+// of its transpose (N = S, K = R), through a 32 x 32 shared-memory tile
+__global__ void k6_pack_kernel(const float* __restrict__ src, float* __restrict__ dst, int R,
+                               int S, int transpose) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int r0 = blockIdx.y * 32, s0 = blockIdx.x * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 8 * i, s = s0 + tx;
+    tile[ty + 8 * i][tx] = (r < R && s < S) ? __ldg(src + (size_t)r * S + s) : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)R * S;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = (transpose ? s0 : r0) + ty + 8 * i;
+    const int k = (transpose ? r0 : s0) + tx;
+    if (n >= (transpose ? S : R) || k >= (transpose ? R : S)) continue;
+    float hi, lo;
+    tc::split(transpose ? tile[tx][ty + 8 * i] : tile[ty + 8 * i][tx], hi, lo);
+    const size_t e = (size_t)n * (transpose ? R : S) + k;
+    dst[e] = hi;
+    dst[plane + e] = lo;
+  }
+}
 
+// ds = g * keep * (h > 0) on valid frames; on the last layer y = (h * keep +
+// x) * valid for dWo; per-block column sums of ds (dbf) and of g_logits (dob).
+// A block takes R frames of one video, a thread a column at a time: short
+// blocks keep enough loads in flight (64-frame blocks ran at ~1/4 of the
+// memory rate on the H100).
+__global__ void __launch_bounds__(256) k6_ds_kernel(
+    const float* __restrict__ g, const float* __restrict__ h, const float* __restrict__ x,
+    const float* __restrict__ glg, const int* __restrict__ lengths, fk::Dropout drop,
+    float* __restrict__ ds, float* __restrict__ y_out, float* __restrict__ part,
+    float* __restrict__ part_o, int T, int C, int O, int R) {
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BMB;
+  const int t0 = blockIdx.x * R;
   const int L = min(lengths[b], T);
-  const int rows = min(BMB, T - t0);
+  const int rows = min(R, T - t0);
   const int blk = b * gridDim.x + blockIdx.x;
-  const size_t base = ((size_t)b * T + t0) * C;
-  const bool last = glg != nullptr;
-  float acc[RM][8];
-
-  if (t0 >= L) {  // past the video every cotangent is zero; dob still sums g_logits
-    for (int e = threadIdx.x; e < rows * C; e += fk::kThreads) {
-      ds_out[base + e] = 0.f;
-      dc1[base + e] = 0.f;
-      dc2[base + e] = 0.f;
-      if (last) dz_out[base + e] = y_out[base + e] = 0.f;
+  const uint32_t seed = drop.load_seed();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const int t = t0 + r;
+      const size_t e = ((size_t)b * T + t) * C + c;
+      const bool valid = t < L;
+      float keep = 1.f;
+      if (drop.seed != nullptr)
+        keep = drop.keep(((uint32_t)b * (uint32_t)T + (uint32_t)t) * (uint32_t)C + (uint32_t)c,
+                         seed);
+      const float hv = __ldg(h + e);
+      const float dsv = (valid && hv > 0.f) ? __ldg(g + e) * keep : 0.f;
+      ds[e] = dsv;
+      s += dsv;
+      if (y_out != nullptr) y_out[e] = valid ? hv * keep + __ldg(x + e) : 0.f;
     }
-    for (int c = threadIdx.x; c < 3 * C; c += fk::kThreads) part[(size_t)blk * 3 * C + c] = 0.f;
-    if (last)
-      fk::block_colsum(glg + ((size_t)b * T + t0) * O, O, rows, O, part_o + (size_t)blk * O);
-    return;
+    part[(size_t)blk * C + c] = s;
   }
-  auto keep = [&](int r, int c) {
-    return keepm != nullptr && r < rows ? __ldg(keepm + base + (size_t)r * C + c) : 1.f;
-  };
-
-  // 1. g, the cotangent of the layer's write-masked output, into G
-  if (last) {
-    // y as the forward's out projection read it, for dWo
-    for (int e = threadIdx.x; e < rows * C; e += fk::kThreads) {
-      const int r = e / C;
-      const int c = e - r * C;
-      float v = 0.f;
-      if (t0 + r < L) v = __ldg(h + base + e) * keep(r, c) + __ldg(x + base + e);
-      y_out[base + e] = v;
-    }
-    const float* glb = glg + ((size_t)b * T + t0) * O;
-    auto glg_elem = [&](int r, int k) { return r < rows ? __ldg(glb + (size_t)r * O + k) : 0.f; };
-    for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-      fk::gemm_pass<BMB>(acc, glg_elem, owt, C, O, n0, C, s);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = fk::pass_row<BMB>(i);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = n0 + fk::pass_col(j);
-          if (c < C) G[r * ld + c] = t0 + r < L ? acc[i][j] : 0.f;
-        }
-      }
-    }
-    fk::block_colsum(glb, O, rows, O, part_o + (size_t)blk * O);
-  } else {
-    for (int e = threadIdx.x; e < BMB * C; e += fk::kThreads) {
-      const int r = e / C;
-      const int c = e - r * C;
-      G[r * ld + c] = t0 + r < L ? __ldg(g + base + e) : 0.f;
-    }
+  if (part_o == nullptr) return;
+  for (int o = threadIdx.x; o < O; o += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += __ldg(glg + ((size_t)b * T + t0 + r) * O + o);
+    part_o[(size_t)blk * O + o] = s;
   }
-  __syncthreads();
-
-  // 2. dz out (the residual's cotangent, last layer), ds = g * keep * (h > 0)
-  //    in place, dbf
-  for (int e = threadIdx.x; e < BMB * C; e += fk::kThreads) {
-    const int r = e / C;
-    const int c = e - r * C;
-    const float gv = G[r * ld + c];
-    if (r < rows && dz_out != nullptr) dz_out[base + e] = gv;
-    float dsv = 0.f;
-    if (r < rows && __ldg(h + base + e) > 0.f) dsv = gv * keep(r, c);
-    G[r * ld + c] = dsv;
-    if (r < rows) ds_out[base + e] = dsv;
-  }
-  __syncthreads();
-  float* pc = part + (size_t)blk * 3 * C;
-  fk::block_colsum(G, ld, rows, C, pc);
-
-  // 3. [dc1 | dc2] = ds @ Wf^T, N = 2C
-  auto ds_elem = [&](int r, int k) { return G[r * ld + k]; };
-  for (int n0 = 0; n0 < 2 * C; n0 += fk::kBN) {
-    fk::gemm_pass<BMB>(acc, ds_elem, wft, 2 * C, C, n0, 2 * C, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BMB>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c >= 2 * C) continue;
-        if (c < C)
-          dc1[base + (size_t)r * C + c] = acc[i][j];
-        else
-          dc2[base + (size_t)r * C + (c - C)] = acc[i][j];
-      }
-    }
-  }
-  __syncthreads();  // dc1, dc2 rows were written by this block: plain loads below
-  fk::block_colsum(dc1 + base, C, rows, C, pc + C);
-  fk::block_colsum(dc2 + base, C, rows, C, pc + 2 * C);
 }
 
-__global__ void __launch_bounds__(fk::kThreads)
-mstcn2_bwd_dx_kernel(const float* __restrict__ dc1, const float* __restrict__ dc2,
-                     const float* __restrict__ gsrc, const int* __restrict__ lengths,
-                     const float* __restrict__ wdt, float* __restrict__ dx, int T, int C,
-                     int d1, int d2) {
-  constexpr int RM = BMB / 8;
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BMB>& s = *reinterpret_cast<fk::GemmSmem<BMB>*>(smem_raw);
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BMB;
-  const int L = min(lengths[b], T);
-  const float* dc1b = dc1 + (size_t)b * T * C;
-  const float* dc2b = dc2 + (size_t)b * T * C;
-  if (t0 >= L) {  // a tile past the video
-    const int rows = min(BMB, T - t0);
-    float* dxt = dx + ((size_t)b * T + t0) * C;
-    for (int e = threadIdx.x; e < rows * C; e += fk::kThreads) dxt[e] = 0.f;
-    return;
-  }
-  float acc[RM][8];
-
-  // taps 0-2 transpose conv 1's, taps 3-5 conv 2's: tap k of the forward read
-  // x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
-  auto taps = [&](int r, int k) {
-    const int tap = k / C;
-    const bool second = tap >= 3;
-    const int kk = second ? tap - 3 : tap;
-    const int t = t0 + r + (1 - kk) * (second ? d2 : d1);
-    const float* src = second ? dc2b : dc1b;
-    return (t >= 0 && t < L) ? __ldg(src + (size_t)t * C + (k - tap * C)) : 0.f;
-  };
-  for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-    fk::gemm_pass<BMB>(acc, taps, wdt, C, 6 * C, n0, C, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int t = t0 + fk::pass_row<BMB>(i);
-      if (t >= T) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c >= C) continue;
-        const size_t e = ((size_t)b * T + t) * C + c;
-        dx[e] = t < L ? acc[i][j] + __ldg(gsrc + e) : 0.f;
-      }
-    }
-  }
+template <int MODE>
+cudaError_t launch_gemm(const GemmArgs& a, dim3 grid, cudaStream_t stream) {
+  cudaError_t err = fk::set_smem((const void*)k6_gemm_kernel<MODE>, GEMM_SMEM);
+  if (err != cudaSuccess) return err;
+  k6_gemm_kernel<MODE><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fk_mstcn2_layer(const float* x, float* y, const int* lengths, const float* k1,
-                               const float* b1, const float* k2, const float* b2,
-                               const float* wf, const float* bf, const float* ow,
-                               const float* ob, float* logits, float* c_out, float* h_out,
-                               const int* seed, int layer, unsigned thresh, float scale, int B,
-                               int T, int C, int O, int d1, int d2, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BMF>) + (size_t)BMF * (2 * C + 4) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)mstcn2_layer_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BMF - 1) / BMF, B);
-  fk::Dropout drop{seed, layer, thresh, scale};
-  mstcn2_layer_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, y, lengths, k1, b1, k2, b2, wf, bf, ow, ob, logits, c_out, h_out, drop, T, C, O, d1,
-      d2);
+extern "C" int fk_k6_pack(const float* src, float* dst, int R, int S, int transpose,
+                          void* stream) {
+  dim3 grid((S + 31) / 32, (R + 31) / 32);
+  k6_pack_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(src, dst, R, S, transpose);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fk_mstcn2_folded(const float* x, float* y, const int* lengths, const float* w6,
-                                const float* bias, const float* ow, const float* ob,
-                                float* logits, int B, int T, int C, int O, int d1, int d2,
-                                void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BMB>);
-  cudaError_t err = fk::set_smem((const void*)mstcn2_folded_kernel, smem);
+// One K6 GEMM: out[b, t, z*col_step + n] (epilogue `mode`) of
+// sum over segments s, channels c < kseg of A[b, t + shift[z][s], c0[z][s] + c]
+// * W_z[s*kseg + c][n], A (B, T, a_ch), W_z's hi and lo parts K-major in
+// wpack (nprob, 2, N, K) (fk_k6_pack).
+// segs: host ints, per problem and segment (shift, c0).
+extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nseg,
+                          const int* segs, int kseg, const float* wpack, int N, int K, int B,
+                          int T, const int* lengths, float* out, int ldo, int col_step,
+                          const float* bias0, const float* bias1, const float* res, float* out2,
+                          float* part, const int* seed, int layer, unsigned thresh, float scale,
+                          void* stream) {
+  if (nprob < 1 || nprob > 2 || nseg < 1 || nseg > MAX_SEG || a_ch % 4 || K % 4 || N % 4 ||
+      (nseg > 1 && kseg % tc::kBK))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs g;
+  memset(&g, 0, sizeof(g));
+  if (!tc::encode_3d(&g.amap, a, a_ch, T, B, tc::kBK, BM, true) ||
+      !tc::encode_3d(&g.bmap, wpack, K, N, 2 * nprob, tc::kBK, BN, true))
+    return (int)cudaErrorInvalidValue;
+  for (int z = 0; z < nprob; ++z)
+    for (int s = 0; s < nseg; ++s) {
+      g.seg_shift[z][s] = segs[(z * nseg + s) * 2];
+      g.seg_c0[z][s] = segs[(z * nseg + s) * 2 + 1];
+    }
+  g.nseg = nseg;
+  g.kseg = kseg;
+  g.N = N;
+  g.T = T;
+  g.nprob = nprob;
+  g.lengths = lengths;
+  g.out = out;
+  g.ldo = ldo;
+  g.col_step = col_step;
+  g.bias0 = bias0;
+  g.bias1 = bias1;
+  g.res = res;
+  g.out2 = out2;
+  g.part = part;
+  g.drop = fk::Dropout{seed, layer, thresh, scale};
+  dim3 grid((N + BN - 1) / BN, (T + BM - 1) / BM, B * nprob);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case kMasked: return (int)launch_gemm<kMasked>(g, grid, st);
+    case kFuse: return (int)launch_gemm<kFuse>(g, grid, st);
+    case kFolded: return (int)launch_gemm<kFolded>(g, grid, st);
+    case kLogits: return (int)launch_gemm<kLogits>(g, grid, st);
+    case kDx: return (int)launch_gemm<kDx>(g, grid, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// part (n_taps, B * ceil(T / Kc), Ca, Cb): per tap and chunk, sum over the
+// chunk's frames t of A[b, t + shift0 + tap*shift_step, a_c0 + m] *
+// Bm[b, t, b_c0 + n]; A (B, T, a_ch), Bm (B, T, b_ch)
+extern "C" int fk_k6_wgrad(const float* A, int a_ch, int a_c0, int Ca, const float* Bm, int b_ch,
+                           int b_c0, int Cb, const int* lengths, int shift0, int shift_step,
+                           int n_taps, float* part, int B, int T, int Kc, void* stream) {
+  if (a_ch % 4 || b_ch % 4 || Cb % 2 || Kc % tc::kBK) return (int)cudaErrorInvalidValue;
+  WgradArgs w;
+  memset(&w, 0, sizeof(w));
+  if (!tc::encode_3d(&w.amap, A, a_ch, T, B, BM, tc::kBK, false) ||
+      !tc::encode_3d(&w.bmap, Bm, b_ch, T, B, BN, tc::kBK, false))
+    return (int)cudaErrorInvalidValue;
+  w.a_c0 = a_c0;
+  w.b_c0 = b_c0;
+  w.Ca = Ca;
+  w.Cb = Cb;
+  w.T = T;
+  w.Kc = Kc;
+  w.per = (T + Kc - 1) / Kc;
+  w.n_chunks = B * w.per;
+  w.shift0 = shift0;
+  w.shift_step = shift_step;
+  w.lengths = lengths;
+  w.part = part;
+  cudaError_t err = fk::set_smem((const void*)k6_wgrad_kernel, WGRAD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BMB - 1) / BMB, B);
-  mstcn2_folded_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, y, lengths, w6, bias, ow, ob, logits, T, C, O, d1, d2);
+  dim3 grid((Cb + BN - 1) / BN, (Ca + BM - 1) / BM, w.n_chunks * n_taps);
+  k6_wgrad_kernel<<<grid, 256, WGRAD_SMEM, (cudaStream_t)stream>>>(w);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fk_mstcn2_bwd_dc(const float* x, const float* h, const float* g, const float* glg,
-                                const int* lengths, const float* wft, const float* owt,
-                                const float* keep, float* ds, float* dc1, float* dc2, float* dz,
-                                float* y_out, float* part, float* part_o, int B, int T, int C,
-                                int O, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BMB>) + (size_t)BMB * (C + 4) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)mstcn2_bwd_dc_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BMB - 1) / BMB, B);
-  mstcn2_bwd_dc_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, h, g, glg, lengths, wft, owt, keep, ds, dc1, dc2, dz, y_out, part, part_o, T, C, O);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fk_mstcn2_bwd_dx(const float* dc1, const float* dc2, const float* gsrc,
-                                const int* lengths, const float* wdt, float* dx, int B, int T,
-                                int C, int d1, int d2, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BMB>);
-  cudaError_t err = fk::set_smem((const void*)mstcn2_bwd_dx_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BMB - 1) / BMB, B);
-  mstcn2_bwd_dx_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      dc1, dc2, gsrc, lengths, wdt, dx, T, C, d1, d2);
+extern "C" int fk_k6_ds(const float* g, const float* h, const float* x, const float* glg,
+                        const int* lengths, const int* seed, int layer, unsigned thresh,
+                        float scale, float* ds, float* y_out, float* part, float* part_o, int B,
+                        int T, int C, int O, int R, void* stream) {
+  dim3 grid((T + R - 1) / R, B);
+  k6_ds_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(g, h, x, glg, lengths,
+                                                       fk::Dropout{seed, layer, thresh, scale},
+                                                       ds, y_out, part, part_o, T, C, O, R);
   return (int)cudaGetLastError();
 }

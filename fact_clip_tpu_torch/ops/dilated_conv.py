@@ -35,11 +35,15 @@ K6, the MS-TCN++ tower of ``f: m2`` (two dilations a layer, d1 = 2^(L-1-i)
 and d2 = 2^i), replaces ``dilated_residual2_stack`` with ``out_params``: the
 forward per layer (``_stack2_layer``, kernel ``_stack2_kernel``) and the
 backward per layer (``_stack2_bwd_layer``, kernels ``_stack2_bwd_dc_kernel``
-and ``_stack2_bwd_dx_kernel``), in ``csrc/mstcn2.cu`` (one forward launch
-per layer, the out projection fused into the last; two backward launches per
-layer) with ``csrc/grad.cu``'s weight-gradient sums and K1's mask kernel.
-Without saves or dropout (serving) the forward runs on weights folded by
-``mstcn2_fold``: the fuse multiplied into the six taps, one GEMM a layer.
+and ``_stack2_bwd_dx_kernel``), in ``csrc/mstcn2.cu``: GEMMs on the TF32
+tensor cores at f32 accuracy (3xTF32, ``csrc/tc_gemm.cuh``) whose weight
+operand ``k6_pack`` splits and lays out K-major once a call; two forward
+launches per layer (the convs, the fuse with its epilogue) and one for the
+out projection; per backward layer the dc and dx GEMMs, the elementwise
+``k6_ds`` and the weight-gradient products over time, whose chunk partials
+``csrc/grad.cu`` sums in a fixed order.  Without saves or dropout (serving)
+the forward runs on weights folded by ``mstcn2_fold``: the fuse multiplied
+into the six taps, one GEMM a layer.
 Layers are (k1, b1, k2, b2, wt, wb, bf) in the JAX layout: k (3, C, C) as
 (tap, in, out), the fuse weight split into its top and bottom (C, C) halves.
 Per layer y = (drop(relu(c1 @ wt + c2 @ wb + bf)) + x) * mask with c1, c2
@@ -49,6 +53,8 @@ the differentiable entry.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -560,17 +566,120 @@ def mstcn2_stack_bwd_reference(g, streams, cs, hs, lengths, layers, dil_pairs, *
     return gy, dlayers, dow, dob
 
 
-def has_forward2(C: int) -> bool:
-    """K6's training-form forward block (GEMM staging of 32 rows + a
-    (32, 2C + 4) tile) fits; the serving form's (GEMM staging alone) always
-    does."""
-    return _build.gemm_smem(32) + 4 * 32 * (2 * C + 4) <= _build.MAX_SMEM
+# The tensor-core design (csrc/mstcn2.cu on csrc/tc_gemm.cuh): 128 x 128
+# output tiles, K in steps of 32 floats through three TMA stages; the
+# weight-gradient products sum 512-frame chunks of one video per partial.
+K6_STEP = 32
+K6_CHUNK = 512
+K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds
+K6_GEMM_SMEM = 4 * 3 * 4 * 128 * K6_STEP + 64 + 1024  # 3 stages of A, A lo, W hi, W lo
+K6_WGRAD_SMEM = 4 * (3 * 2 + 8) * 128 * K6_STEP + 64 + 1024  # 3 raw stages, 2 split sets
+_MASKED, _FUSE, _FOLDED, _LOGITS, _DX = range(5)  # the GEMM's epilogues
 
 
-def has_backward2(C: int) -> bool:
-    """K6's largest backward block (bwd_dc: GEMM staging of 64 rows + a
-    (64, C + 4) tile) fits; wider towers have no backward here."""
-    return _build.gemm_smem(64) + 4 * 64 * (C + 4) <= _build.MAX_SMEM
+def has_forward2(C: int, O=None) -> bool:
+    """K6's kernels take this width (and out width): whole 32-float K steps
+    per tap (C % 32) and TMA row strides of 16 bytes (O % 4); their shared
+    memory does not grow with C.  The backward's take the same widths."""
+    return (C % K6_STEP == 0 and (O is None or O % 4 == 0)
+            and max(K6_GEMM_SMEM, K6_WGRAD_SMEM) <= _build.MAX_SMEM)
+
+
+has_backward2 = has_forward2
+
+
+def tf32_rna(x):
+    """Plain version of ``cvt.rna.tf32.f32``: x rounded to TF32's 10-bit
+    mantissa, to nearest with ties away from zero, the low 13 bits zero."""
+    i = x.contiguous().view(torch.int32).to(torch.int64)
+    r = (((i & 0x7FFFFFFF) + 0x1000) & ~0x1FFF) | (i & 0x80000000)
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.to(torch.int32).view(torch.float32).view(x.shape)
+
+
+def tf32_split(w):
+    """The 3xTF32 split (hi, lo): hi = tf32(w), lo = tf32(w - hi)."""
+    hi = tf32_rna(w)
+    return hi, tf32_rna(w - hi)
+
+
+def k6_pack(w, transpose: bool = False, out=None):
+    """(2, N, K): the TF32 hi and lo parts of w (N, K), or of w^T (N = w's
+    columns), K-major, as the K6 GEMMs read their weight operand.  The pack
+    kernel on CUDA tensors, its plain version on CPU ones."""
+    R, S = w.shape
+    N, K = (S, R) if transpose else (R, S)
+    if out is None:
+        out = torch.empty((2, N, K), device=w.device, dtype=torch.float32)
+    if w.device.type == "cpu":
+        hi, lo = tf32_split(w.t() if transpose else w)
+        out[0].copy_(hi)
+        out[1].copy_(lo)
+        return out
+    w = w.contiguous()
+    _build.check_tensors("k6_pack", [w, out], w.device)
+    err = _build.lib().fk_k6_pack(w.data_ptr(), out.data_ptr(), R, S, int(transpose),
+                                  _build.stream_ptr(w.device))
+    _build.check("fk_k6_pack", err)
+    return out
+
+
+def k6_fwd_weights(layer):
+    """The training form's packed weights: the convs (2, 2, C, 3C) (conv,
+    hi / lo, out, tap * C + in) and the fuse (2, C, 2C) (hi / lo, out,
+    [c1 | c2] channel)."""
+    k1, b1, k2, b2, wt, wb, bf = layer
+    C = wt.shape[0]
+    conv = torch.empty((2, 2, C, 3 * C), device=wt.device, dtype=torch.float32)
+    k6_pack(k1.reshape(3 * C, C), True, out=conv[0])
+    k6_pack(k2.reshape(3 * C, C), True, out=conv[1])
+    return conv, k6_pack(torch.cat([wt, wb]), True)
+
+
+def k6_bwd_weights(layer):
+    """The backward's packed weights: Wf for [dc1 | dc2] = ds Wf^T (2, 2C, C)
+    and the six taps for dx (2, C, 6C) (hi / lo, in, tap-major out)."""
+    k1, b1, k2, b2, wt, wb, bf = layer
+    taps = torch.cat([k1[0], k1[1], k1[2], k2[0], k2[1], k2[2]], dim=1)
+    return k6_pack(torch.cat([wt, wb])), k6_pack(taps)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _k6_gemm(mode, a, segs, kseg, wpack, N, lengths, out, *, ldo=None, col_step=0,
+             bias=(None, None), res=None, out2=None, part=None, drop=(None, 0, 0, 1.0)):
+    """One K6 GEMM launch (``csrc/mstcn2.cu::fk_k6_gemm``): per problem z,
+    out[:, :, z * col_step + n] = epilogue(sum over the segments (shift, c0)
+    of A[b, t + shift, c0 : c0 + kseg] @ W_z's rows of the segment)."""
+    B, T, a_ch = a.shape
+    flat = [v for prob in segs for seg in prob for v in seg]
+    arr = (ctypes.c_int * len(flat))(*flat)
+    err = _build.lib().fk_k6_gemm(
+        mode, a.data_ptr(), a_ch, len(segs), len(segs[0]), ctypes.addressof(arr), kseg,
+        wpack.data_ptr(), N, wpack.shape[-1], B, T, lengths.data_ptr(), out.data_ptr(),
+        ldo or N, col_step, _ptr(bias[0]), _ptr(bias[1]), _ptr(res), _ptr(out2), _ptr(part),
+        *drop, _build.stream_ptr(a.device))
+    _build.check("fk_k6_gemm", err)
+
+
+def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
+    """sum_t A[b, t + s, a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per
+    shift s (rows outside [0, lengths[b]) zero): (len(shifts), Ca, Cb), the
+    chunk partials of ``fk_k6_wgrad`` summed in a fixed order."""
+    B, T, a_ch = A.shape
+    n_taps = len(shifts)
+    step = shifts[1] - shifts[0] if n_taps > 1 else 0
+    n_chunks = B * (-(-T // K6_CHUNK))
+    part = torch.empty((n_taps, n_chunks, Ca, Cb), device=A.device, dtype=torch.float32)
+    err = _build.lib().fk_k6_wgrad(A.data_ptr(), a_ch, a_c0, Ca, Bm.data_ptr(), Bm.shape[2],
+                                   b_c0, Cb, lengths.data_ptr(), shifts[0], step, n_taps,
+                                   part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
+    _build.check("fk_k6_wgrad", err)
+    n = Ca * Cb
+    return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
+                        rstride=0, cols=n).view(n_taps, Ca, Cb)
 
 
 def _check_layers2(name, x, lengths, layers, out_w, out_b, seeds, rates):
@@ -591,11 +700,25 @@ def _check_layers2(name, x, lengths, layers, out_w, out_b, seeds, rates):
             raise ValueError(f"{name}: dropout needs (L,) int32 seeds")
 
 
+def mstcn2_fold_reference(layers):
+    """Plain version of the fold: per layer (W6 (6C, C), bias) with W6 =
+    [k1[0] wt; k1[1] wt; k1[2] wt; k2[0] wb; k2[1] wb; k2[2] wb] and bias =
+    b1 wt + b2 wb + bf."""
+    out = []
+    for k1, b1, k2, b2, wt, wb, bf in layers:
+        w6 = torch.cat([k1 @ wt, k2 @ wb]).reshape(-1, wt.shape[1])
+        out.append((w6, b1 @ wt + b2 @ wb + bf))
+    return out
+
+
 def mstcn2_fold(layers):
-    """The weights of K6's serving form, per layer: (W6, bias) with W6 =
-    [k1[0] wt; k1[1] wt; k1[2] wt; k2[0] wb; k2[1] wb; k2[2] wb] (6C, C) and
-    bias = b1 wt + b2 wb + bf, so that relu(c1 wt + c2 wb + bf) is one GEMM
-    of the six taps.  Computed on the card by ``csrc/grad.cu``'s products."""
+    """The weights of K6's serving form, per layer: (W6 packed, bias), W6 =
+    ``mstcn2_fold_reference``'s (6C, C) fold packed by ``k6_pack`` as the
+    serving GEMM reads it (2, C, 6C), so that relu(c1 wt + c2 wb + bf) is one
+    GEMM of the six taps.  The fold's products run on ``csrc/grad.cu`` on
+    the card, the plain version on the CPU."""
+    if layers[0][0].device.type == "cpu":
+        return [(k6_pack(w6, True), bias) for w6, bias in mstcn2_fold_reference(layers)]
     out = []
     for k1, b1, k2, b2, wt, wb, bf in layers:
         C = wt.shape[0]
@@ -603,7 +726,7 @@ def mstcn2_fold(layers):
         fuse = torch.stack([wt, wt, wt, wb, wb, wb])  # (6, mid, out)
         w6 = _grad.atb(taps, fuse, per_video=True).view(6 * C, C)
         bias = _grad.atb(torch.cat([b1, b2]).view(1, 2 * C, 1), torch.cat([wt, wb])[None])
-        out.append((w6, bias.view(C) + bf))
+        out.append((k6_pack(w6, True), bias.view(C) + bf))
     return out
 
 
@@ -620,120 +743,138 @@ def mstcn2_stack_fwd(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None,
     if x.device.type == "cpu":
         return mstcn2_stack_reference(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
                                       rates=rates, seeds=seeds, save=save)
+    out = _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, save,
+                           folded)
+    mstcn2_stack_fwd.launches += 1
+    return out
+
+
+mstcn2_stack_fwd.launches = 0
+
+
+def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, save, folded):
+    """``mstcn2_stack_fwd``'s launches (CPU tensors reach it only in the
+    tests, which stand a model of the kernels' C interface in for the
+    library)."""
     B, T, C = x.shape
     O = out_w.shape[1]
+    if not has_forward2(C, O):
+        raise NotImplementedError(f"mstcn2_stack_fwd: no forward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
-    if not has_forward2(C):
-        raise NotImplementedError(f"mstcn2_stack_fwd: no forward kernel for C={C}")
 
-    lib = _build.lib()
-    stream = _build.stream_ptr(x.device)
     serving = not save and all(_rate(rates, i) == 0.0 for i in range(len(layers)))
     if serving:
         folded = mstcn2_fold(layers) if folded is None else folded
         _build.check_tensors("mstcn2_stack_fwd", [t for f in folded for t in f], x.device)
     if not save:
         bufs = (torch.empty_like(x), torch.empty_like(x))
+    proj = k6_pack(out_w, True)  # (2, O, C)
     logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     streams, cs, hs = [x], [], []
     src = x
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    one = [[(0, 0)]]  # one segment, no shift
     for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(zip(layers, dil_pairs)):
-        last = i == len(layers) - 1
-        proj = (ptr(out_w), ptr(out_b), ptr(logits)) if last else (None, None, None)
+        d1, d2 = int(d1), int(d2)
         dst = torch.empty_like(x) if save else bufs[i % 2]
-        if serving:  # the folded form
-            w6, bias = folded[i]
-            err = lib.fk_mstcn2_folded(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(),
-                                       w6.data_ptr(), bias.data_ptr(), *proj, B, T, C, O,
-                                       int(d1), int(d2), stream)
-            _build.check("fk_mstcn2_folded", err)
-            src = dst
-            continue
-        r = _rate(rates, i)
-        seed, li, thresh, scale = dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r)
-        c_out = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.float32) if save else None
-        h_out = torch.empty_like(x) if save else None
-        wf = torch.cat([wt, wb])  # (2C, C): the fuse as one GEMM over [c1 | c2]
-        err = lib.fk_mstcn2_layer(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(),
-                                  k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
-                                  wf.data_ptr(), bf.data_ptr(), *proj, ptr(c_out), ptr(h_out),
-                                  seed, li, thresh, scale, B, T, C, O, int(d1), int(d2), stream)
-        _build.check("fk_mstcn2_layer", err)
-        if save:
-            cs.append(c_out)
-            hs.append(h_out)
-            if not last:
-                streams.append(dst)
+        if serving:  # the folded form: the six taps of x, one GEMM
+            w6p, bias = folded[i]
+            segs = [[((k - 1) * d, 0) for d in (d1, d2) for k in range(3)]]
+            _k6_gemm(_FOLDED, src, segs, C, w6p, C, lengths, dst, bias=(bias, None), res=src)
+        else:
+            conv, fuse = k6_fwd_weights(layers[i])
+            r = _rate(rates, i)
+            c_out = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.float32)
+            h_out = torch.empty_like(x) if save else None
+            segs = [[((k - 1) * d, 0) for k in range(3)] for d in (d1, d2)]
+            _k6_gemm(_MASKED, src, segs, C, conv, C, lengths, c_out, ldo=2 * C, col_step=C,
+                     bias=(b1, b2))
+            _k6_gemm(_FUSE, c_out, one, 2 * C, fuse, C, lengths, dst, bias=(bf, None), res=src,
+                     out2=h_out, drop=dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r))
+            if save:
+                cs.append(c_out)
+                hs.append(h_out)
+                if i < len(layers) - 1:
+                    streams.append(dst)
+        if i == len(layers) - 1:
+            _k6_gemm(_LOGITS, dst, one, C, proj, O, lengths, logits, bias=(out_b, None))
         src = dst
-    mstcn2_stack_fwd.launches += 1
     if save:
         return logits, streams, cs, hs
     return logits
-
-
-mstcn2_stack_fwd.launches = 0
 
 
 def mstcn2_stack_bwd(g, streams, cs, hs, lengths, layers, dil_pairs, *, out_w, out_b,
                      rates=None, seeds=None):
     """The MS-TCN++ tower's backward on the card, from the forward's saves:
     (dx, [(dk1, db1, dk2, db2, dwt, dwb, dbf)], dow, dob)."""
+    out = _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_b, rates,
+                           seeds)
+    mstcn2_stack_bwd.launches += 1
+    return out
+
+
+mstcn2_stack_bwd.launches = 0
+
+
+def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_b, rates, seeds):
+    """``mstcn2_stack_bwd``'s launches (CPU tensors reach it only in the
+    tests, as ``_mstcn2_fwd_card``)."""
     x = streams[0]
     B, T, C = x.shape
     O = out_w.shape[1]
+    if not has_backward2(C, O):
+        raise NotImplementedError(f"mstcn2_stack_bwd: no backward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_bwd", x, lengths, layers, out_w, out_b, seeds, rates)
-    if not has_backward2(C):
-        raise NotImplementedError(f"mstcn2_stack_bwd: no backward kernel for C={C}")
     g = g.contiguous()
     _build.check_tensors("mstcn2_stack_bwd", [g, *streams, *cs, *hs], x.device)
     lib = _build.lib()
     stream = _build.stream_ptr(x.device)
-    nblk = B * (-(-T // 64))
-    owt = out_w.t().contiguous()
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    n_ds = B * (-(-T // K6_DS_ROWS))  # k6_ds blocks
+    n128 = B * (-(-T // 128))  # GEMM row tiles
+    gw = k6_pack(out_w)  # (2, C, O): g = g_logits Wo^T
+    one = [[(0, 0)]]
+    f32 = dict(device=x.device, dtype=torch.float32)
     dlayers = [None] * len(layers)
     g_stream, dow, dob = None, None, None
     for i in reversed(range(len(layers))):
-        k1, b1, k2, b2, wt, wb, bf = layers[i]
         d1, d2 = (int(d) for d in dil_pairs[i])
         last = i == len(layers) - 1
-        ds, dc1, dc2, dx = (torch.empty_like(x) for _ in range(4))
-        dz = torch.empty_like(x) if last else None
-        y_out = torch.empty_like(x) if last else None
-        part = torch.empty((nblk, 3, C), device=x.device, dtype=torch.float32)
-        part_o = torch.empty((nblk, 1, O), device=x.device, dtype=torch.float32) if last else None
-        # the layer's keep mask, regenerated by the mask kernel (never stored)
-        keep = (mstcn_dropout_mask(seeds[i:i + 1], i, (B, T, C), _rate(rates, i))
-                if _rate(rates, i) > 0.0 else None)
-        wft = torch.cat([wt, wb]).t().contiguous()  # (C, 2C)
-        wdt = torch.cat([k1, k2]).transpose(1, 2).contiguous()  # the six taps, transposed
-        err = lib.fk_mstcn2_bwd_dc(
-            streams[i].data_ptr(), hs[i].data_ptr(), ptr(g_stream), g.data_ptr() if last else None,
-            lengths.data_ptr(), wft.data_ptr(), owt.data_ptr(), ptr(keep), ds.data_ptr(),
-            dc1.data_ptr(), dc2.data_ptr(), ptr(dz), ptr(y_out), part.data_ptr(), ptr(part_o),
-            B, T, C, O, stream)
-        _build.check("fk_mstcn2_bwd_dc", err)
-        gsrc = dz if last else g_stream
-        err = lib.fk_mstcn2_bwd_dx(dc1.data_ptr(), dc2.data_ptr(), gsrc.data_ptr(),
-                                   lengths.data_ptr(), wdt.data_ptr(), dx.data_ptr(), B, T, C,
-                                   d1, d2, stream)
-        _build.check("fk_mstcn2_bwd_dx", err)
-        dk1 = _grad.atb(streams[i], dc1, lengths=lengths, shifts=(-d1, 0, d1))
-        dk2 = _grad.atb(streams[i], dc2, lengths=lengths, shifts=(-d2, 0, d2))
-        # ds and y_out are zero past each video: the lengths let those chunks skip
-        dwf = _grad.atb(cs[i], ds, lengths=lengths)[0]
-        dbf, db1, db2 = _grad.block_sums(part, 3, C)
+        x_i = streams[i]
         if last:
-            dow = _grad.atb(y_out, g, lengths=lengths)[0]
+            g_in = torch.empty_like(x)
+            _k6_gemm(_MASKED, g, one, O, gw, C, lengths, g_in)
+        else:
+            g_in = g_stream
+        ds = torch.empty_like(x)
+        y_out = torch.empty_like(x) if last else None
+        part_f = torch.empty((n_ds, 1, C), **f32)
+        part_o = torch.empty((n_ds, 1, O), **f32) if last else None
+        seed, li, thresh, scale = dropout_args(seeds[i:i + 1] if _rate(rates, i) > 0.0 else None,
+                                               i, _rate(rates, i))
+        err = lib.fk_k6_ds(g_in.data_ptr(), hs[i].data_ptr(), x_i.data_ptr(),
+                           g.data_ptr() if last else None, lengths.data_ptr(), seed, li, thresh,
+                           scale, ds.data_ptr(), _ptr(y_out), part_f.data_ptr(), _ptr(part_o),
+                           B, T, C, O, K6_DS_ROWS, stream)
+        _build.check("fk_k6_ds", err)
+        dcw, dxw = k6_bwd_weights(layers[i])
+        dc = torch.empty((B, T, 2 * C), **f32)  # [dc1 | dc2]
+        part_c = torch.empty((n128, 1, 2 * C), **f32)
+        _k6_gemm(_MASKED, ds, one, C, dcw, 2 * C, lengths, dc, part=part_c)
+        dx = torch.empty_like(x)
+        # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
+        segs = [[((1 - k) * d, c0) for d, c0 in ((d1, 0), (d2, C)) for k in range(3)]]
+        _k6_gemm(_DX, dc, segs, C, dxw, C, lengths, dx, res=g_in)
+        dk1 = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d1, 0, d1))
+        dk2 = _k6_wgrad(x_i, 0, C, dc, C, C, lengths, shifts=(-d2, 0, d2))
+        dwf = _k6_wgrad(cs[i], 0, 2 * C, ds, 0, C, lengths)[0]
+        dbf = _grad.block_sums(part_f, 1, C)[0]
+        db = _grad.block_sums(part_c, 1, 2 * C)[0]
+        if last:
+            dow = _k6_wgrad(y_out, 0, C, g, 0, O, lengths)[0]
             dob = _grad.block_sums(part_o, 1, O)[0]
-        dlayers[i] = (dk1, db1, dk2, db2, dwf[:C], dwf[C:], dbf)
+        dlayers[i] = (dk1, db[:C], dk2, db[C:], dwf[:C], dwf[C:], dbf)
         g_stream = dx
-    mstcn2_stack_bwd.launches += 1
     return g_stream, dlayers, dow, dob
-
-
-mstcn2_stack_bwd.launches = 0
 
 
 class _MSTCN2Stack(torch.autograd.Function):
@@ -777,7 +918,7 @@ def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, see
         return mstcn2_stack_fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
                                 rates=rates, seeds=seeds, folded=folded)
     if x.device.type != "cpu":
-        _build.require_backward("mstcn2_stack", has_backward2(x.shape[2]))
+        _build.require_backward("mstcn2_stack", has_backward2(x.shape[2], out_w.shape[1]))
     cfg = (tuple((int(a), int(b)) for a, b in dil_pairs),
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCN2Stack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,

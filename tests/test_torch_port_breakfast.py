@@ -101,10 +101,16 @@ def test_shared_memory_fits_at_breakfast_widths():
     assert x2y_attn.key_tile(40, 256, 8) == 64 and mha_attn.bwd_key_tile(40, 256, 8) == 64
     assert x2y_attn.key_tile(60, 512, 1) == 64
     assert x2y_attn.has_backward(60, 4096, 512) and x2y_attn.has_backward(4096, 60, 512)
-    # K6 at C=512 (K1's layout has no backward there)
+    # K6 at C=512 (K1's layout has no backward there).  Its tensor-core
+    # kernels hold 128 x 128 tiles whatever C is (3 stages of A, A lo, W hi, W lo;
+    # the weight gradients 3 raw stages and two sets of split tiles) and
+    # take whole 32-float K steps per tap and 16-byte TMA row strides
     assert dilated_conv.has_forward2(512) and dilated_conv.has_backward2(512)
     assert not dilated_conv.has_backward(512)
-    assert not dilated_conv.has_backward2(1024) and not dilated_conv.has_forward2(1024)
+    assert dilated_conv.K6_GEMM_SMEM == 197696 and dilated_conv.K6_WGRAD_SMEM == 230464
+    assert dilated_conv.has_forward2(1024, 1024) and dilated_conv.has_backward2(1024, 48)
+    assert not dilated_conv.has_backward2(1000) and not dilated_conv.has_forward2(1000)
+    assert not dilated_conv.has_forward2(512, 50) and not dilated_conv.has_backward2(528)
     assert _build.gemm_smem(64) == _build.GEMM_SMEM == 41472
 
 
@@ -122,10 +128,10 @@ def test_wrappers_refuse_a_block_that_does_not_fit_before_any_launch(monkeypatch
     with pytest.raises(NotImplementedError, match="M=200, E=1024"):
         mha_attn.mha_cross_fwd(meta(2, M, E), meta(2, 300, Cx), None, meta(Cx, E), meta(E),
                                meta(Cx, E), meta(E), x_len, num_heads=H)
-    Cw = 1024
+    Cw = 1000  # K6 takes whole 32-float K steps per tap
     layer = (meta(3, Cw, Cw), meta(Cw), meta(3, Cw, Cw), meta(Cw), meta(Cw, Cw), meta(Cw, Cw),
              meta(Cw))
-    with pytest.raises(NotImplementedError, match="C=1024"):
+    with pytest.raises(NotImplementedError, match="C=1000"):
         dilated_conv.mstcn2_stack_fwd(meta(2, 50, Cw), x_len, [layer], [(1, 1)],
                                       out_w=meta(Cw, 8), out_b=meta(8))
 
