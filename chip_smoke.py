@@ -24,9 +24,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    3.35 TB/s.  K6 multiplies on the TF32 tensor cores at f32 accuracy
    (3xTF32), so its rows count their products as three TF32 passes at
    495 TFLOP/s, and print the f32-FMA bound of the same work beside it
-   (``f32_fma_bound_ms`` in the JSON line); K6 and its f32 plain version
-   are also printed against a float64 plain version (``k6_f64_check``:
-   the error's coherent part shows a truncating accumulation; not gated).  No single PyTorch call computes any of these fused
+   (``f32_fma_bound_ms`` in the JSON line); K6's training form and
+   backward are also run 20 times each on the same inputs and must give
+   the same bits every time (``k6_repeat_check``).  No single PyTorch
+   call computes any of these fused
    functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
    and the out projection), so ``library_ms`` is null throughout.  The
    Breakfast rows: K6, the MS-TCN++ tower (the serving form on folded
@@ -1336,46 +1337,42 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-def k6_f64_check(seed: int = 0):
-    """K6 (training form and backward, B=2, T=2048, C=512, 10 layers) and its
-    f32 plain version, each against the plain version in float64: the
-    error's max and rms over the reference's, and its coherent part,
-    mean(err * sign(ref)) / mean |ref| (a shrink or growth of every value,
-    which the tensor cores' truncating accumulation leaves and a max-error
-    gate does not see).  Printed, not gated."""
+K6_REPEATS = 20  # runs of each K6 case that must give the same bits
+
+
+def k6_repeat_check(seed: int = 0):
+    """K6's training form and backward, run K6_REPEATS times on the same
+    inputs, must give the same bits every time: nothing in them sums in an
+    order that depends on timing (fixed-order partials, no float atomics),
+    so a difference is a race between the kernels' warps, as one on the
+    shared memory that a GEMM's column sums reuse would be.  Breakfast's
+    backward (the dc GEMM's sums at C=512) and epic's (C=256)."""
     import torch
 
-    from fact_clip_tpu_torch.ops import dilated_conv as dc
-
-    def d(t):
-        return t.double()
-
-    def stats(a, ref, valid):
-        e, r = (a.double() - ref) * valid, ref * valid
-        return (f"max {float(e.abs().max() / r.abs().max()):.2e} rms "
-                f"{float(e.pow(2).mean().sqrt() / r.pow(2).mean().sqrt()):.2e} coherent "
-                f"{float((e * r.sign()).mean() / r.abs().mean()):+.2e}")
+    def tensors(out):
+        return [t for t in _flat([out]) if t is not None]
 
     rng = np.random.default_rng(seed)
-    B, T, C = 2, 2048, 512
-    x, lens, layers, dil, kw = k6_case(rng, B, T, C, C, 10, [2048, 1500], 0.0)
-    valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None].double()
-    layers64 = [tuple(d(p) for p in layer) for layer in layers]
-    kw64 = dict(out_w=d(kw["out_w"]), out_b=d(kw["out_b"]))
-    one = torch.ones((), device="cuda", dtype=torch.float64)
-    with torch.no_grad():
-        ref = dc.mstcn2_stack_reference(d(x), lens, layers64, dil, save=True, **kw64)
-        fwd = {"kernel": dc.mstcn2_stack_fwd(x, lens, layers, dil, save=True, **kw),
-               "plain": dc.mstcn2_stack_reference(x, lens, layers, dil, save=True, **kw)}
-        _, streams, cs, hs = fwd["kernel"]
-        g = _rand(rng, (B, T, C), 0.01)
-        ref_b = dc.mstcn2_stack_bwd_reference(d(g), [d(t) for t in streams], [d(t) for t in cs],
-                                              [d(t) for t in hs], lens, layers64, dil, **kw64)
-        for name, bwd in (("kernel", dc.mstcn2_stack_bwd), ("plain", dc.mstcn2_stack_bwd_reference)):
-            dx, dl, _, _ = bwd(g, streams, cs, hs, lens, layers, dil, **kw)
-            log(f"[k6-f64] {name:<6} vs float64: logits {stats(fwd[name][0], ref[0], valid)}; "
-                f"h (last layer) {stats(fwd[name][3][-1], ref[3][-1], valid)}; dx "
-                f"{stats(dx, ref_b[0], valid)}; dK1 (layer 0) {stats(dl[0][0], ref_b[1][0][0], one)}")
+    cases = (("train", lambda: k6_fwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS, 0.2,
+                                           True)),
+             ("bwd", lambda: k6_bwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS)),
+             ("epic_bwd", lambda: k6_bwd_case(rng, 1, EPIC_T, 256, 512, 10, [EPIC_T], 0.0)))
+    failed = []
+    for name, make in cases:
+        with torch.no_grad():
+            kern = make()[0]
+            first = [t.clone() for t in tensors(kern())]
+            differ = 0
+            for _ in range(K6_REPEATS - 1):
+                differ += not all(torch.equal(a, b) for a, b in zip(first, tensors(kern())))
+        log(f"[k6-repeat] {name:<8} {K6_REPEATS} runs, {len(first)} tensors each: {differ} runs "
+            "differ from the first" + ("  FAIL" if differ else ""))
+        if differ:
+            failed.append(name)
+        del kern, first
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K6 gives different bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -2508,7 +2505,7 @@ def main():
     smi = phase_environment(torch)
     phase_build(verbose="--ptxas" in sys.argv)
     results = phase_kernels()
-    k6_f64_check()
+    k6_repeat_check()
     counts = phase_serving()
     train_counts = phase_training()
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}

@@ -280,7 +280,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   if (MODE != kMasked || p.part == nullptr) return;
 
   // per-block column sums in a fixed order: the warp's 16 rows by shuffles,
-  // then the 8 warps in order (stage memory is free: every load has landed)
+  // then the 8 warps in order, through stage 0's memory
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     float v = csum[i];
@@ -289,6 +289,10 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     v += __shfl_xor_sync(0xffffffffu, v, 16);
     csum[i] = v;
   }
+  // stage 0 is free only once both consumer warpgroups are past their main
+  // loops: warpgroup 1's sums land on warpgroup 0's rows of A, which it may
+  // still be splitting or multiplying
+  tc::bar_sync(3, 256);
   float* red = sm;
   const int cwarp = wg * 4 + (warp & 3), ct = tid - 128;
   if (lane < 4) {

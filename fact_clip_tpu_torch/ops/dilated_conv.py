@@ -572,20 +572,14 @@ def mstcn2_stack_bwd_reference(g, streams, cs, hs, lengths, layers, dil_pairs, *
 K6_STEP = 32
 K6_CHUNK = 512
 K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds
-K6_GEMM_SMEM = 4 * 3 * 4 * 128 * K6_STEP + 64 + 1024  # 3 stages of A, A lo, W hi, W lo
-K6_WGRAD_SMEM = 4 * (3 * 2 + 8) * 128 * K6_STEP + 64 + 1024  # 3 raw stages, 2 split sets
 _MASKED, _FUSE, _FOLDED, _LOGITS, _DX = range(5)  # the GEMM's epilogues
 
 
-def has_forward2(C: int, O=None) -> bool:
-    """K6's kernels take this width (and out width): whole 32-float K steps
-    per tap (C % 32) and TMA row strides of 16 bytes (O % 4); their shared
-    memory does not grow with C.  The backward's take the same widths."""
-    return (C % K6_STEP == 0 and (O is None or O % 4 == 0)
-            and max(K6_GEMM_SMEM, K6_WGRAD_SMEM) <= _build.MAX_SMEM)
-
-
-has_backward2 = has_forward2
+def has_kernels2(C: int, O=None) -> bool:
+    """K6's forward and backward kernels take this width (and out width):
+    whole 32-float K steps per tap (C % 32) and TMA row strides of 16 bytes
+    (O % 4).  Their shared memory is fixed by the tiles, not by C."""
+    return C % K6_STEP == 0 and (O is None or O % 4 == 0)
 
 
 def tf32_rna(x):
@@ -758,7 +752,7 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
     library)."""
     B, T, C = x.shape
     O = out_w.shape[1]
-    if not has_forward2(C, O):
+    if not has_kernels2(C, O):
         raise NotImplementedError(f"mstcn2_stack_fwd: no forward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
 
@@ -822,7 +816,7 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
     x = streams[0]
     B, T, C = x.shape
     O = out_w.shape[1]
-    if not has_backward2(C, O):
+    if not has_kernels2(C, O):
         raise NotImplementedError(f"mstcn2_stack_bwd: no backward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_bwd", x, lengths, layers, out_w, out_b, seeds, rates)
     g = g.contiguous()
@@ -918,7 +912,7 @@ def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, see
         return mstcn2_stack_fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
                                 rates=rates, seeds=seeds, folded=folded)
     if x.device.type != "cpu":
-        _build.require_backward("mstcn2_stack", has_backward2(x.shape[2], out_w.shape[1]))
+        _build.require_backward("mstcn2_stack", has_kernels2(x.shape[2], out_w.shape[1]))
     cfg = (tuple((int(a), int(b)) for a, b in dil_pairs),
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCN2Stack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,

@@ -102,15 +102,13 @@ def test_shared_memory_fits_at_breakfast_widths():
     assert x2y_attn.key_tile(60, 512, 1) == 64
     assert x2y_attn.has_backward(60, 4096, 512) and x2y_attn.has_backward(4096, 60, 512)
     # K6 at C=512 (K1's layout has no backward there).  Its tensor-core
-    # kernels hold 128 x 128 tiles whatever C is (3 stages of A, A lo, W hi, W lo;
-    # the weight gradients 3 raw stages and two sets of split tiles) and
-    # take whole 32-float K steps per tap and 16-byte TMA row strides
-    assert dilated_conv.has_forward2(512) and dilated_conv.has_backward2(512)
+    # kernels hold 128 x 128 tiles whatever C is and take whole 32-float K
+    # steps per tap and 16-byte TMA row strides
+    assert dilated_conv.has_kernels2(512) and dilated_conv.has_kernels2(512, 48)
     assert not dilated_conv.has_backward(512)
-    assert dilated_conv.K6_GEMM_SMEM == 197696 and dilated_conv.K6_WGRAD_SMEM == 230464
-    assert dilated_conv.has_forward2(1024, 1024) and dilated_conv.has_backward2(1024, 48)
-    assert not dilated_conv.has_backward2(1000) and not dilated_conv.has_forward2(1000)
-    assert not dilated_conv.has_forward2(512, 50) and not dilated_conv.has_backward2(528)
+    assert dilated_conv.has_kernels2(1024, 1024) and dilated_conv.has_kernels2(1024, 48)
+    assert not dilated_conv.has_kernels2(1000) and not dilated_conv.has_kernels2(528)
+    assert not dilated_conv.has_kernels2(512, 50)
     assert _build.gemm_smem(64) == _build.GEMM_SMEM == 41472
 
 
