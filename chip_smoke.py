@@ -15,18 +15,21 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    the same inputs on the card, at the flagship shapes and at ragged cases
    (B=3, M=11 and ragged key lengths for K3 and K4), f32 with TF32 off:
    the K1-K4 forwards (K1, K3 and K4 also with dropout, the plain versions
-   given the same hash masks), the four dropout-mask kernels (bit-equal,
+   given the same hash masks; K1 also in its training form at the
+   flagship's shape, dropout 0.2, its logits and every save, the ReLU
+   outputs on valid frames), the four dropout-mask kernels (bit-equal,
    the keep rate pooled over 32 seeds within 0.001 of 0.8), the K1-K4
    backwards (from the same forward saves and masks) and K5.  For every
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
-   3.35 TB/s.  K6 multiplies on the TF32 tensor cores at f32 accuracy
-   (3xTF32), so its rows count their products as three TF32 passes at
-   495 TFLOP/s, and print the f32-FMA bound of the same work beside it
-   (``f32_fma_bound_ms`` in the JSON line); K6's training form and
-   backward are also run 20 times each on the same inputs and must give
-   the same bits every time (``k6_repeat_check``).  No single PyTorch
+   3.35 TB/s.  K1 and K6 multiply on the TF32 tensor cores at f32
+   accuracy (3xTF32, one GEMM kernel), so their rows count their products
+   as three TF32 passes at 495 TFLOP/s, and print the f32-FMA bound of the
+   same work beside it (``f32_fma_bound_ms`` in the JSON line); their
+   training forms and backwards are also run 20 times each on the same
+   inputs and must give the same bits every time (``k6_repeat_check``:
+   K6 at Breakfast's and epic's shapes, K1 at the flagship's).  No single PyTorch
    call computes any of these fused
    functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
    and the out projection), so ``library_ms`` is null throughout.  The
@@ -149,7 +152,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    every gradient against the plain version on the same seed.
 13. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the single-layer
-   K1's from phase 12; the factored argmax, a verification oracle, launches
+   K1's and K1's mask kernel's from phase 12 (the tower re-hashes its masks
+   inside its kernels); the factored argmax, a verification oracle, launches
    0), the nvidia-smi line, and last the contract line {"ok": true,
    "device": {...}}.
 
@@ -183,7 +187,7 @@ FLOOR_K = 2.0  # the element-wise limit is max(GRAD_TOL, FLOOR_K x the paths' ow
 COMPARE_SEEDS = (1, 2, 3)  # the weight seeds of each kernel-vs-plain training comparison
 SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                    "ffn_sublayer")
-TRAIN_KERNELS = ("mstcn_stack", "mstcn_dropout_mask", "mstcn_stack_bwd", "x2y_small_x",
+TRAIN_KERNELS = ("mstcn_stack", "mstcn_stack_bwd", "x2y_small_x",
                  "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "mha_cross",
                  "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_dropout_masks",
                  "sa_sublayer_bwd", "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd",
@@ -391,7 +395,12 @@ def k1_case(rng, B, T, C, O, dilations, lengths, use_ln):
     return args, kw
 
 
-def k1_fwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.0):
+def k1_fwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.0, save=False):
+    """K1's forward on the TF32 tensor cores at f32 accuracy: the serving
+    form, or with ``save`` the training form: the logits and every save
+    (input streams, ReLU outputs), the ReLU outputs held on valid frames
+    only (past a video the kernel writes zeros, the plain version relu of
+    its biases).  Its products count as three TF32 passes."""
     import torch
 
     from fact_clip_tpu_torch.ops import dilated_conv as dc
@@ -401,9 +410,19 @@ def k1_fwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.0):
         kw.update(rates=[rate] * len(dilations),
                   seeds=torch.tensor(rng.integers(0, 2 ** 31 - 1, len(dilations)),
                                      dtype=torch.int32, device="cuda"))
-    N = _valid(args[1], T)
-    work = (len(dilations) * 8 * N * C * C + 2 * N * C * O,
-            nbytes(args[:3], kw["out_w"], kw["out_b"]) + B * T * O * 4)
+    N, L = _valid(args[1], T), len(dilations)
+    saves = (2 * L - 1) * B * T * C * 4 if save else 0  # the streams after x, the ReLU outputs
+    work = (0, nbytes(args[:3], kw["out_w"], kw["out_b"]) + B * T * O * 4 + saves, 0,
+            L * 8 * N * C * C + 2 * N * C * O)
+    if save:
+        valid = (torch.arange(T, device="cuda")[None, :] < args[1][:, None])[..., None].float()
+
+        def on_valid(res):
+            logits, streams, acts = res
+            return logits, streams, [a * valid for a in acts]
+
+        return (lambda: dc.mstcn_stack_fwd(*args, save=True, **kw),
+                lambda: dc.mstcn_stack_reference(*args, save=True, **kw), work, on_valid)
     return (lambda: dc.mstcn_stack_fwd(*args, **kw),
             lambda: dc.mstcn_stack_reference(*args, **kw), work)
 
@@ -422,10 +441,13 @@ def k1_bwd_case(rng, B, T, C, O, dilations, lengths, use_ln, rate=0.2):
                                  device="cuda"))
     g = _rand(rng, (B, T, O), 0.01)
     _, streams, acts = dc.mstcn_stack_fwd(x, lens, layers, dil, save=True, **kw)
-    N = _valid(lens, T)
+    N, L = _valid(lens, T), len(dil)
     params = (layers, kw["out_w"], kw["out_b"])
-    work = (len(dil) * 18 * N * C * C + 4 * N * C * O,
-            nbytes(g, streams, acts, lens, params, kw["seeds"]) + nbytes(x, params))
+    # per layer dc, dx, dWd and dW1; the recompute of z on the last layer (on
+    # every layer with LN); g = g_logits Wo^T and dWo
+    recompute = L if use_ln else 1
+    work = (0, nbytes(g, streams, acts, lens, params, kw["seeds"]) + nbytes(x, params), 0,
+            (16 * L + 2 * recompute) * N * C * C + 4 * N * C * O)
     return (lambda: dc.mstcn_stack_bwd(g, streams, acts, lens, layers, dil, **kw),
             lambda: dc.mstcn_stack_bwd_reference(g, streams, acts, lens, layers, dil, **kw),
             work)
@@ -970,8 +992,8 @@ def dr_layer_case(rng, B, T, C, d, use_ln, rate=0.0):
 
     (x, _, layers, _), _ = k1_case(rng, B, T, C, C, [d], [T] * B, use_ln)
     kw = dict(dilation=d, use_ln=use_ln, rate=rate, seed=_seed(rng) if rate > 0.0 else None)
-    work = (8 * B * T * C * C + (12 if use_ln else 4) * B * T * C,
-            nbytes(x, layers) + B * T * C * 4)
+    work = ((12 if use_ln else 4) * B * T * C, nbytes(x, layers) + B * T * C * 4, 0,
+            8 * B * T * C * C)
     return (lambda: dc.dilated_residual_layer_fwd(x, *layers[0], **kw),
             lambda: dc.dilated_residual_layer_reference(x, *layers[0], **kw), work)
 
@@ -1060,6 +1082,8 @@ def kernel_table():
         # the serving path's forwards, with dropout where training uses it
         ("mstcn_stack", csrc + "mstcn.cu", pallas + "dilated_conv.py:311", "rel",
          [("flagship", lambda r: k1_fwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False)),
+          ("train", lambda r: k1_fwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False, 0.2,
+                                          True)),
           ("ragged", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True)),
           ("dropout", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True, 0.2))]),
         ("x2y_small_x", csrc + "x2y_attn.cu", pallas + "x2y_attn.py:76", "probs",
@@ -1337,26 +1361,32 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6 case that must give the same bits
+K6_REPEATS = 20  # runs of each K6 and K1 case that must give the same bits
 
 
 def k6_repeat_check(seed: int = 0):
-    """K6's training form and backward, run K6_REPEATS times on the same
-    inputs, must give the same bits every time: nothing in them sums in an
-    order that depends on timing (fixed-order partials, no float atomics),
-    so a difference is a race between the kernels' warps, as one on the
-    shared memory that a GEMM's column sums reuse would be.  Breakfast's
-    backward (the dc GEMM's sums at C=512) and epic's (C=256)."""
+    """The towers' training forms and backwards, each run K6_REPEATS times
+    on the same inputs, must give the same bits every time: nothing in them
+    sums in an order that depends on timing (fixed-order partials, no float
+    atomics), so a difference is a race between the kernels' warps, as one
+    on the shared memory that a GEMM's column sums reuse would be.  K6:
+    Breakfast's backward (the dc GEMM's sums at C=512) and epic's (C=256);
+    K1 at the flagship's shape (its dc GEMM's sums, its k1_dz)."""
     import torch
 
     def tensors(out):
         return [t for t in _flat([out]) if t is not None]
 
     rng = np.random.default_rng(seed)
+    tower = [2 ** i for i in range(10)]
     cases = (("train", lambda: k6_fwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS, 0.2,
                                            True)),
              ("bwd", lambda: k6_bwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS)),
-             ("epic_bwd", lambda: k6_bwd_case(rng, 1, EPIC_T, 256, 512, 10, [EPIC_T], 0.0)))
+             ("epic_bwd", lambda: k6_bwd_case(rng, 1, EPIC_T, 256, 512, 10, [EPIC_T], 0.0)),
+             ("k1_train", lambda: k1_fwd_case(rng, 8, 3072, 256, 512, tower, FLAGSHIP_LENGTHS,
+                                              False, 0.2, True)),
+             ("k1_bwd", lambda: k1_bwd_case(rng, 8, 3072, 256, 512, tower, FLAGSHIP_LENGTHS,
+                                            False)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1372,7 +1402,7 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"K6 gives different bits on the same inputs: {failed}")
+        raise AssertionError(f"a tower gives different bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -2518,8 +2548,8 @@ def main():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":
             r["launches"] = m2_int8_counts["bf"][name]
-        elif name == "dilated_residual_layer":
-            r["launches"] = dr_counts[name]
+        elif name in ("dilated_residual_layer", "mstcn_dropout_mask"):
+            r["launches"] = dr_counts[name]  # K1's tower re-hashes its masks in its kernels
         elif name in INT8_OF:
             r["launches"] = int8_counts[name]
         elif name in BF_ROWS:

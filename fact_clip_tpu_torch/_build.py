@@ -51,10 +51,7 @@ GEMM_SMEM = gemm_smem(64)
 
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
-    "fk_mstcn_layer": [P] * 14 + [I, U, F, I, I, I, I, I, I, F, P],
     "fk_dropout_mask": [P, I, U, F, P, L, P],
-    "fk_mstcn_bwd_dc": [P] * 18 + [I, I, I, I, I, F, P],
-    "fk_mstcn_bwd_dx": [P] * 5 + [I, I, I, I, P],
     "fk_atb": [P, P, L, I, P, I, I, P, P, I, I, I, I, I, I, P],
     "fk_reduce": [P, I, I, L, L, I, L, I, P, P],
     "fk_x2y_sx_bwd": [P, P, L, I] + [P] * 15 + [I, I, I, I, I, F, P],
@@ -71,6 +68,8 @@ SIGNATURES = {
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
     "fk_k6_pack": [P, P, I, I, I, P],
     "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 6 + [I, U, F, P],
+    "fk_k1_ln": [P] * 4 + [I] * 4 + [F, P],
+    "fk_k1_dz": [P] * 7 + [I, U, F] + [P] * 5 + [I] * 6 + [F, P],
     "fk_k6_wgrad": [P, I, I, I, P, I, I, I, P, I, I, I, P, I, I, I, P],
     "fk_k6_ds": [P] * 6 + [I, U, F] + [P] * 4 + [I] * 5 + [P],
     "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],

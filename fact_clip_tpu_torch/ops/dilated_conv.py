@@ -3,14 +3,21 @@ out projection), forwards with in-kernel dropout, and their backwards.
 
 Replaces ``fact_clip_tpu/ops/pallas/dilated_conv.py::dilated_residual_stack``
 with ``out_params``: the forward per layer (``_stack_layer``, Pallas kernel
-``_stack_kernel``), the backward per layer (``_stack_bwd_layer``, kernels
-``_stack_bwd_dc_kernel`` and ``_stack_bwd_dx_kernel``) and the dropout mask
-replay (``dropout_mask``).  Kernels: ``csrc/mstcn.cu`` (one forward launch
-per layer, the out projection fused into the last one; two backward
-launches per layer), ``csrc/dropout.cu`` (the mask) and ``csrc/grad.cu``
-(the weight-gradient sums).  What
-bounds them on the H100 and what the design does about it is written at the
-top of the CUDA sources.
+``_stack_kernel``) and the backward per layer (``_stack_bwd_layer``, kernels
+``_stack_bwd_dc_kernel`` and ``_stack_bwd_dx_kernel``).  Kernels:
+``csrc/mstcn.cu`` on the towers' GEMM (``csrc/tc_tower.cuh``: TF32 tensor
+cores at f32 accuracy, 3xTF32, the weight operand packed by ``k6_pack`` once
+a call): per forward layer two GEMMs (the conv3, the 1x1 with its dropout,
+residual and write mask) and, with ``use_ln``, a LayerNorm row pass, then
+one GEMM for the out projection; per backward layer the elementwise
+``k1_dz`` (the LayerNorm backward and the keep mask re-hashed in place),
+the dc and dx GEMMs and the weight-gradient products over time, whose
+partials ``csrc/grad.cu`` sums in a fixed order (on the last layer also
+g = g_logits Wo^T and the recomputed pre-LN output).  What bounds them on
+the H100 and what the design does about it is written at the top of the
+CUDA sources.  ``mstcn_dropout_mask`` (``csrc/dropout.cu``) writes one
+layer's mask whole, as ``dilated_conv.py::dropout_mask`` does; the
+single-layer K1's backward replays its mask with it.
 
 Dropout (rate > 0, on the 1x1 conv's output, every layer): the keep mask is
 the counter hash of ``ops/dropout.py`` with stream = layer over (B, T, C)
@@ -26,8 +33,8 @@ are the bias row.  ``mstcn_stack`` is the differentiable entry.
 The single-layer K1, ``dilated_residual_layer``, replaces the JAX package's
 function of that name (forward ``_forward``, Pallas kernel ``_kernel``;
 custom VJP ``_dr_vjp``): one layer on every frame of [0, T), no length mask,
-no out projection.  Its forward is ``csrc/mstcn.cu``'s layer kernel with
-every length T and dropout stream 0; its backward is JAX's ``_bwd``, plain
+no out projection.  Its forward is K1's layer (``_k1_layer``) with every
+length T and dropout stream 0; its backward is JAX's ``_bwd``, plain
 recompute plus the regenerated mask (K1's mask kernel on the card).  No
 model reaches it: the MSTCN towers run the stack, as in JAX.
 
@@ -36,7 +43,7 @@ and d2 = 2^i), replaces ``dilated_residual2_stack`` with ``out_params``: the
 forward per layer (``_stack2_layer``, kernel ``_stack2_kernel``) and the
 backward per layer (``_stack2_bwd_layer``, kernels ``_stack2_bwd_dc_kernel``
 and ``_stack2_bwd_dx_kernel``), in ``csrc/mstcn2.cu``: GEMMs on the TF32
-tensor cores at f32 accuracy (3xTF32, ``csrc/tc_gemm.cuh``) whose weight
+tensor cores at f32 accuracy (3xTF32, the GEMM of ``csrc/tc_tower.cuh``) whose weight
 operand ``k6_pack`` splits and lays out K-major once a call; two forward
 launches per layer (the convs, the fuse with its epilogue) and one for the
 out projection; per backward layer the dc and dx GEMMs, the elementwise
@@ -179,16 +186,11 @@ def mstcn_stack_bwd_reference(g, streams, acts, lengths, layers, dilations, *, u
     return gy, dlayers, dow, dob
 
 
-def has_backward(C: int) -> bool:
-    """The largest shared-memory block of the K1 kernels (bwd_dc: GEMM
-    staging + two (64, C + 4) tiles + 64 floats) fits; wider towers have no
-    backward here."""
-    return _build.GEMM_SMEM + 4 * (2 * 64 * (C + 4) + 64) <= _build.MAX_SMEM
-
-
 def _check_layers(name, x, lengths, layers, out_w, out_b, seeds, rates):
     B, T, C = x.shape
     O = out_w.shape[1]
+    if not has_tower_kernels(C, O):
+        raise NotImplementedError(f"{name}: no kernel for C={C}, O={O} (C % 32, O % 4)")
     flat = [p for layer in layers for p in layer]
     _build.check_tensors(name, [x, lengths, out_w, out_b, seeds, *flat], x.device)
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
@@ -204,112 +206,194 @@ def _check_layers(name, x, lengths, layers, out_w, out_b, seeds, rates):
             raise ValueError(f"{name}: dropout needs (L,) int32 seeds")
 
 
+def _drop(seeds, i: int, rates):
+    """Layer i's in-kernel dropout arguments (stream = layer)."""
+    r = _rate(rates, i)
+    return dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r)
+
+
+def k1_fwd_weights(layer):
+    """The forward's packed weights: the conv taps (2, C, 3C) (hi / lo, out,
+    tap * C + in) and the 1x1 (2, C, C) (hi / lo, out, in)."""
+    wd, bd, w1, b1, gamma, beta = layer
+    C = w1.shape[0]
+    return k6_pack(wd.reshape(3 * C, C), True), k6_pack(w1, True)
+
+
+def k1_bwd_weights(layer):
+    """The backward's packed weights: W1 for dc = dh W1^T (2, C, C) (hi / lo,
+    in, out) and the taps for dx (2, C, 3C) (hi / lo, in, tap * C + out)."""
+    wd, bd, w1, b1, gamma, beta = layer
+    return k6_pack(w1), k6_pack(torch.cat([wd[0], wd[1], wd[2]], dim=1))
+
+
+def _part(n_blocks: int, n_vec: int, C: int, device):
+    """A (n, n_vec, C) buffer for per-block column sums, n = n_blocks rounded
+    up to whole groups of K1_SUM_GROUP, the rows past n_blocks zero."""
+    n = -(-n_blocks // K1_SUM_GROUP) * K1_SUM_GROUP
+    part = torch.empty((n, n_vec, C), device=device, dtype=torch.float32)
+    part[n_blocks:].zero_()
+    return part
+
+
+def _sums(part):
+    """(n, n_vec, C) per-block column sums (``_part``) -> (n_vec, C) in two
+    fixed-order stages: each group of K1_SUM_GROUP blocks, then the groups.
+    One stage over k1_dz's 1,536 blocks at the flagship's shape is a chain of
+    1,536 dependent adds a column: the backward's fk_reduce launches took
+    1.23-1.31 ms of the card so, 0.33 with two stages (H100 80GB HBM3, 700 W)."""
+    n, n_vec, C = part.shape
+    per = n_vec * C
+    groups = _grad.reduce(part, G=n // K1_SUM_GROUP, P=K1_SUM_GROUP, pstride=per,
+                          gstride=K1_SUM_GROUP * per, rows=n_vec, rstride=C, cols=C)
+    return _grad.block_sums(groups, n_vec, C)
+
+
+def _k1_layer(src, lengths, layer, d: int, drop, use_ln: bool, eps: float, dst, h):
+    """One layer on the tensor-core GEMM: h = relu(conv3_d(src) + bd) (zero
+    past each video), dst = (h W1 + b1) * keep + src (zero past each video),
+    then LayerNorm in place when ``use_ln``."""
+    wd, bd, w1, b1, gamma, beta = layer
+    B, T, C = src.shape
+    conv, w1p = k1_fwd_weights(layer)
+    _k6_gemm(_RELU, src, [[((k - 1) * d, 0) for k in range(3)]], C, conv, C, lengths, h,
+             bias=(bd, None))
+    _k6_gemm(_RESID, h, _ONE, C, w1p, C, lengths, dst, bias=(b1, None), res=src, drop=drop)
+    if use_ln:
+        err = _build.lib().fk_k1_ln(dst.data_ptr(), lengths.data_ptr(), gamma.data_ptr(),
+                                    beta.data_ptr(), B, T, C, K1_LN_ROWS, float(eps),
+                                    _build.stream_ptr(src.device))
+        _build.check("fk_k1_ln", err)
+
+
 def mstcn_stack_fwd(x, lengths, layers, dilations, *, use_ln: bool, eps: float = 1e-5,
                     out_w, out_b, rates=None, seeds=None, save: bool = False):
     """The tower on the card (CUDA tensors) or its plain version (CPU tensors).
 
     lengths: (B,) int32 valid-frame counts.  With ``save`` (for the backward)
-    it also returns each layer's input stream and ReLU activations."""
+    it also returns each layer's input stream and ReLU activations (zero
+    past each video)."""
     flat = [p for layer in layers for p in layer]
     _build.no_grad_inputs("mstcn_stack_fwd", [x, out_w, out_b, *flat])
     if x.device.type == "cpu":
         return mstcn_stack_reference(x, lengths, layers, dilations, use_ln=use_ln, eps=eps,
                                      out_w=out_w, out_b=out_b, rates=rates, seeds=seeds,
                                      save=save)
-    B, T, C = x.shape
-    O = out_w.shape[1]
-    _check_layers("mstcn_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
-
-    fn = _build.lib().fk_mstcn_layer
-    stream = _build.stream_ptr(x.device)
-    bufs = (torch.empty_like(x), torch.empty_like(x))
-    logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
-    streams, acts = [x], []
-    src = x
-    for i, ((wd, bd, w1, b1, gamma, beta), d) in enumerate(zip(layers, dilations)):
-        last = i == len(layers) - 1
-        dst = torch.empty_like(x) if save else bufs[i % 2]
-        a_out = torch.empty_like(x) if save else None
-        r = _rate(rates, i)
-        seed, li, thresh, scale = dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r)
-        err = fn(src.data_ptr(), dst.data_ptr(), lengths.data_ptr(), wd.data_ptr(),
-                 bd.data_ptr(), w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), out_w.data_ptr() if last else None,
-                 out_b.data_ptr() if last else None, logits.data_ptr() if last else None,
-                 a_out.data_ptr() if save else None, seed, li, thresh, scale,
-                 B, T, C, O, int(d), int(use_ln), float(eps), stream)
-        _build.check("fk_mstcn_layer", err)
-        if save:
-            acts.append(a_out)
-            if not last:
-                streams.append(dst)
-        src = dst
+    out = _mstcn_fwd_card(x, lengths, layers, dilations, use_ln, eps, out_w, out_b, rates, seeds,
+                          save)
     mstcn_stack_fwd.launches += 1
-    if save:
-        return logits, streams, acts
-    return logits
+    return out
 
 
 mstcn_stack_fwd.launches = 0
+
+
+def _mstcn_fwd_card(x, lengths, layers, dilations, use_ln, eps, out_w, out_b, rates, seeds,
+                    save):
+    """``mstcn_stack_fwd``'s launches: two GEMMs a layer (and the LN pass),
+    then the out projection (CPU tensors reach it only in the tests, which
+    stand a model of the kernels' C interface in for the library)."""
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    _check_layers("mstcn_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
+    if not save:  # the stream ping-pongs; h is scratch
+        bufs, h = (torch.empty_like(x), torch.empty_like(x)), torch.empty_like(x)
+    logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    streams, acts = [x], []
+    src = x
+    for i, (layer, d) in enumerate(zip(layers, dilations)):
+        if save:
+            dst, h = torch.empty_like(x), torch.empty_like(x)
+        else:
+            dst = bufs[i % 2]
+        _k1_layer(src, lengths, layer, int(d), _drop(seeds, i, rates), use_ln, eps, dst, h)
+        if save:
+            acts.append(h)
+            if i < len(layers) - 1:
+                streams.append(dst)
+        src = dst
+    _k6_gemm(_LOGITS, src, _ONE, C, k6_pack(out_w, True), O, lengths, logits,
+             bias=(out_b, None))
+    if save:
+        return logits, streams, acts
+    return logits
 
 
 def mstcn_stack_bwd(g, streams, acts, lengths, layers, dilations, *, use_ln: bool,
                     eps: float = 1e-5, out_w, out_b, rates=None, seeds=None):
     """The tower's backward on the card, from the forward's saved streams and
     activations: (dx, [(dwd, dbd, dw1, db1, dgamma, dbeta)], dow, dob)."""
+    out = _mstcn_bwd_card(g, streams, acts, lengths, layers, dilations, use_ln, eps, out_w, out_b,
+                          rates, seeds)
+    mstcn_stack_bwd.launches += 1
+    return out
+
+
+mstcn_stack_bwd.launches = 0
+
+
+def _mstcn_bwd_card(g, streams, acts, lengths, layers, dilations, use_ln, eps, out_w, out_b,
+                    rates, seeds):
+    """``mstcn_stack_bwd``'s launches (CPU tensors reach it only in the
+    tests, as ``_mstcn_fwd_card``)."""
     x = streams[0]
     B, T, C = x.shape
     O = out_w.shape[1]
     _check_layers("mstcn_stack_bwd", x, lengths, layers, out_w, out_b, seeds, rates)
-    if not has_backward(C):
-        raise NotImplementedError(f"mstcn_stack_bwd: no backward kernel for C={C}")
     g = g.contiguous()
     _build.check_tensors("mstcn_stack_bwd", [g, *streams, *acts], x.device)
     lib = _build.lib()
     stream = _build.stream_ptr(x.device)
-    nblk = B * (-(-T // 64))
-    owt = out_w.t().contiguous()
+    n_dz = B * (-(-T // K6_DS_ROWS))  # k1_dz blocks
+    n128 = B * (-(-T // 128))  # GEMM row tiles
     dlayers = [None] * len(layers)
     g_stream, dow, dob = None, None, None
     for i in reversed(range(len(layers))):
         wd, bd, w1, b1, gamma, beta = layers[i]
         d = int(dilations[i])
         last = i == len(layers) - 1
-        dc, dh, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-        dz = torch.empty_like(x) if (use_ln or last) else None
-        y_out = torch.empty_like(x) if last else None
-        part_c = torch.empty((nblk, 4, C), device=x.device, dtype=torch.float32)
-        part_o = torch.empty((nblk, 1, O), device=x.device, dtype=torch.float32) if last else None
-        # the layer's keep mask, regenerated by the mask kernel (never stored)
-        keep = (mstcn_dropout_mask(seeds[i:i + 1], i, (B, T, C), _rate(rates, i))
-                if _rate(rates, i) > 0.0 else None)
-        w1t = w1.t().contiguous()
-        wdt = wd.transpose(1, 2).contiguous()  # (tap, out, in): the taps' transposes
-        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-        err = lib.fk_mstcn_bwd_dc(
-            streams[i].data_ptr(), acts[i].data_ptr(), ptr(g_stream),
-            g.data_ptr() if last else None, lengths.data_ptr(), w1.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), owt.data_ptr(), ptr(keep), dc.data_ptr(),
-            ptr(dz), dh.data_ptr(), ptr(y_out), part_c.data_ptr(), ptr(part_o),
-            B, T, C, O, int(use_ln), float(eps), stream)
-        _build.check("fk_mstcn_bwd_dc", err)
-        gsrc = dz if dz is not None else g_stream
-        err = lib.fk_mstcn_bwd_dx(dc.data_ptr(), gsrc.data_ptr(), lengths.data_ptr(),
-                                  wdt.data_ptr(), dx.data_ptr(), B, T, C, d, stream)
-        _build.check("fk_mstcn_bwd_dx", err)
-        dwd = _grad.atb(streams[i], dc, lengths=lengths, shifts=(-d, 0, d))
-        dw1 = _grad.atb(acts[i], dh)[0]
-        db1, dbd, dgamma, dbeta = _grad.block_sums(part_c, 4, C)
+        x_i, h_i = streams[i], acts[i]
+        drop = _drop(seeds, i, rates)
         if last:
-            dow = _grad.atb(y_out, g)[0]
-            dob = _grad.block_sums(part_o, 1, O)[0]
-        dlayers[i] = (dwd, dbd, dw1, db1, dgamma, dbeta)
+            g_in = torch.empty_like(x)
+            _k6_gemm(_MASKED, g, _ONE, O, k6_pack(out_w), C, lengths, g_in)
+        else:
+            g_in = g_stream
+        z = None
+        if use_ln or last:  # the layer's output before LN, as the forward formed it
+            z = torch.empty_like(x)
+            _k6_gemm(_RESID, h_i, _ONE, C, k6_pack(w1, True), C, lengths, z, bias=(b1, None),
+                     res=x_i, drop=drop)
+        dh = torch.empty_like(x)
+        dz = torch.empty_like(x) if use_ln else None
+        y_ln = torch.empty_like(x) if last and use_ln else None  # the LN'd output, for dWo
+        part = _part(n_dz, 3 if use_ln else 1, C, x.device)
+        part_o = _part(n_dz, 1, O, x.device) if last else None
+        err = lib.fk_k1_dz(g_in.data_ptr(), _ptr(z), gamma.data_ptr(), beta.data_ptr(),
+                           g.data_ptr() if last else None, lengths.data_ptr(), *drop, _ptr(dz),
+                           dh.data_ptr(), _ptr(y_ln), part.data_ptr(), _ptr(part_o), B, T, C, O,
+                           K6_DS_ROWS, int(use_ln), float(eps), stream)
+        _build.check("fk_k1_dz", err)
+        w1n, taps = k1_bwd_weights(layers[i])
+        dc = torch.empty_like(x)
+        part_c = torch.empty((n128, 1, C), device=x.device, dtype=torch.float32)
+        _k6_gemm(_GATE, dh, _ONE, C, w1n, C, lengths, dc, res=h_i, part=part_c)
+        dx = torch.empty_like(x)
+        # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
+        _k6_gemm(_DX, dc, [[((1 - k) * d, 0) for k in range(3)]], C, taps, C, lengths, dx,
+                 res=dz if use_ln else g_in)
+        dwd = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d, 0, d))
+        dw1 = _k6_wgrad(h_i, 0, C, dh, 0, C, lengths)[0]
+        sums = _sums(part)
+        dgamma, dbeta = (sums[1], sums[2]) if use_ln else (torch.zeros_like(gamma),
+                                                           torch.zeros_like(beta))
+        if last:
+            y = y_ln if use_ln else z  # the out projection's input
+            dow = _k6_wgrad(y, 0, C, g, 0, O, lengths)[0]
+            dob = _sums(part_o)[0]
+        dlayers[i] = (dwd, _grad.block_sums(part_c, 1, C)[0], dw1, sums[0], dgamma, dbeta)
         g_stream = dx
-    mstcn_stack_bwd.launches += 1
     return g_stream, dlayers, dow, dob
-
-
-mstcn_stack_bwd.launches = 0
 
 
 class _MSTCNStack(torch.autograd.Function):
@@ -351,8 +435,6 @@ def mstcn_stack(x, lengths, layers, dilations, *, use_ln: bool, eps: float = 1e-
             and any(t.requires_grad for t in [x, out_w, out_b, *flat])):
         return mstcn_stack_fwd(x, lengths, layers, dilations, use_ln=use_ln, eps=eps,
                                out_w=out_w, out_b=out_b, rates=rates, seeds=seeds)
-    if x.device.type != "cpu":
-        _build.require_backward("mstcn_stack", has_backward(x.shape[2]))
     cfg = (tuple(int(d) for d in dilations), bool(use_ln), float(eps),
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCNStack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,
@@ -393,16 +475,25 @@ def dilated_residual_layer_reference(x, wd, bd, w1, b1, gamma, beta, *, dilation
 def dilated_residual_layer_fwd(x, wd, bd, w1, b1, gamma, beta, *, dilation: int,
                                use_ln: bool = True, eps: float = 1e-5, rate: float = 0.0,
                                seed=None):
-    """The layer's forward: ``csrc/mstcn.cu``'s layer kernel on CUDA tensors
-    (every frame valid, no out projection, dropout stream 0), the plain
-    version on CPU tensors."""
+    """The layer's forward: K1's layer on the tensor-core GEMM on CUDA
+    tensors (every frame valid, no out projection, dropout stream 0), the
+    plain version on CPU tensors."""
     _build.no_grad_inputs("dilated_residual_layer_fwd", [x, wd, bd, w1, b1, gamma, beta])
     if x.device.type == "cpu":
         return dilated_residual_layer_reference(x, wd, bd, w1, b1, gamma, beta,
                                                 dilation=dilation, use_ln=use_ln, eps=eps,
                                                 rate=rate, seed=seed)
+    y = _dr_layer_fwd_card(x, wd, bd, w1, b1, gamma, beta, dilation, use_ln, eps, rate, seed)
+    dilated_residual_layer_fwd.launches += 1
+    return y
+
+
+def _dr_layer_fwd_card(x, wd, bd, w1, b1, gamma, beta, dilation, use_ln, eps, rate, seed):
+    """``dilated_residual_layer_fwd``'s launches (CPU tensors reach it only
+    in the tests)."""
     B, T, C = x.shape
-    lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    if not has_tower_kernels(C):
+        raise NotImplementedError(f"dilated_residual_layer_fwd: no kernel for C={C} (C % 32)")
     if rate > 0.0:
         check_seed("dilated_residual_layer_fwd", seed, x.device)
     _build.check_tensors("dilated_residual_layer_fwd", [x, wd, bd, w1, b1, gamma, beta],
@@ -410,15 +501,10 @@ def dilated_residual_layer_fwd(x, wd, bd, w1, b1, gamma, beta, *, dilation: int,
     if (wd.shape != (3, C, C) or w1.shape != (C, C)
             or any(p.shape != (C,) for p in (bd, b1, gamma, beta))):
         raise ValueError(f"dilated_residual_layer_fwd: bad layer shapes for C={C}")
-    y = torch.empty_like(x)
-    seed_p, li, thresh, scale = dropout_args(seed, 0, rate)
-    err = _build.lib().fk_mstcn_layer(
-        x.data_ptr(), y.data_ptr(), lengths.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), None, None, None, None,
-        seed_p, li, thresh, scale, B, T, C, 1, int(dilation), int(use_ln), float(eps),
-        _build.stream_ptr(x.device))
-    _build.check("fk_mstcn_layer", err)
-    dilated_residual_layer_fwd.launches += 1
+    lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    y, h = torch.empty_like(x), torch.empty_like(x)
+    _k1_layer(x, lengths, (wd, bd, w1, b1, gamma, beta), int(dilation),
+              dropout_args(seed, 0, rate), use_ln, eps, y, h)
     return y
 
 
@@ -568,17 +654,27 @@ def mstcn2_stack_bwd_reference(g, streams, cs, hs, lengths, layers, dil_pairs, *
 
 # The tensor-core design (csrc/mstcn2.cu on csrc/tc_gemm.cuh): 128 x 128
 # output tiles, K in steps of 32 floats through three TMA stages; the
-# weight-gradient products sum 512-frame chunks of one video per partial.
+# weight-gradient products (both towers') sum chunks of K6_CHUNK frames of one
+# video per partial.  768 against 512, four runs each in one call (H100 80GB
+# HBM3, 700 W): K1's flagship backward 5.066-5.110 ms (a fourth run 6.459)
+# against 5.323-5.889, Breakfast's K6 backward 16.495-16.560 against
+# 16.771-16.911, epic's 9.588-9.685 against 10.264-10.310.
 K6_STEP = 32
-K6_CHUNK = 512
-K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds
-_MASKED, _FUSE, _FOLDED, _LOGITS, _DX = range(5)  # the GEMM's epilogues
+K6_CHUNK = 768
+K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds and k1_dz
+K1_LN_ROWS = 32  # frames per block of K1's LayerNorm pass
+K1_SUM_GROUP = 64  # per-block column sums added a group at a time (_sums)
+# the GEMM's epilogues (csrc/tc_tower.cuh::Mode): K6's, then K1's own
+_MASKED, _FUSE, _FOLDED, _LOGITS, _DX, _RELU, _RESID, _GATE = range(8)
+_ONE = [[(0, 0)]]  # one problem, one segment, no shift
 
 
-def has_kernels2(C: int, O=None) -> bool:
-    """K6's forward and backward kernels take this width (and out width):
-    whole 32-float K steps per tap (C % 32) and TMA row strides of 16 bytes
-    (O % 4).  Their shared memory is fixed by the tiles, not by C."""
+def has_tower_kernels(C: int, O=None) -> bool:
+    """K1's and K6's forward and backward kernels (the GEMM of
+    ``csrc/tc_tower.cuh``) take this width (and out width): whole 32-float K
+    steps per tap (C % 32) and TMA row strides of 16 bytes (O % 4).  Their
+    shared memory is fixed by the tiles, not by C.  A width outside raises
+    before any launch."""
     return C % K6_STEP == 0 and (O is None or O % 4 == 0)
 
 
@@ -644,7 +740,8 @@ def _ptr(t):
 
 def _k6_gemm(mode, a, segs, kseg, wpack, N, lengths, out, *, ldo=None, col_step=0,
              bias=(None, None), res=None, out2=None, part=None, drop=(None, 0, 0, 1.0)):
-    """One K6 GEMM launch (``csrc/mstcn2.cu::fk_k6_gemm``): per problem z,
+    """One launch of the towers' GEMM (``csrc/tc_tower.cuh``, K6's and K1's)
+    through its entry ``fk_k6_gemm``: per problem z,
     out[:, :, z * col_step + n] = epilogue(sum over the segments (shift, c0)
     of A[b, t + shift, c0 : c0 + kseg] @ W_z's rows of the segment)."""
     B, T, a_ch = a.shape
@@ -661,7 +758,8 @@ def _k6_gemm(mode, a, segs, kseg, wpack, N, lengths, out, *, ldo=None, col_step=
 def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
     """sum_t A[b, t + s, a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per
     shift s (rows outside [0, lengths[b]) zero): (len(shifts), Ca, Cb), the
-    chunk partials of ``fk_k6_wgrad`` summed in a fixed order."""
+    partials of ``fk_k6_wgrad`` over K6_CHUNK frames of one video each,
+    summed in a fixed order."""
     B, T, a_ch = A.shape
     n_taps = len(shifts)
     step = shifts[1] - shifts[0] if n_taps > 1 else 0
@@ -752,7 +850,7 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
     library)."""
     B, T, C = x.shape
     O = out_w.shape[1]
-    if not has_kernels2(C, O):
+    if not has_tower_kernels(C, O):
         raise NotImplementedError(f"mstcn2_stack_fwd: no forward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_fwd", x, lengths, layers, out_w, out_b, seeds, rates)
 
@@ -766,7 +864,6 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
     logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     streams, cs, hs = [x], [], []
     src = x
-    one = [[(0, 0)]]  # one segment, no shift
     for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(zip(layers, dil_pairs)):
         d1, d2 = int(d1), int(d2)
         dst = torch.empty_like(x) if save else bufs[i % 2]
@@ -782,7 +879,7 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
             segs = [[((k - 1) * d, 0) for k in range(3)] for d in (d1, d2)]
             _k6_gemm(_MASKED, src, segs, C, conv, C, lengths, c_out, ldo=2 * C, col_step=C,
                      bias=(b1, b2))
-            _k6_gemm(_FUSE, c_out, one, 2 * C, fuse, C, lengths, dst, bias=(bf, None), res=src,
+            _k6_gemm(_FUSE, c_out, _ONE, 2 * C, fuse, C, lengths, dst, bias=(bf, None), res=src,
                      out2=h_out, drop=dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r))
             if save:
                 cs.append(c_out)
@@ -790,7 +887,7 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
                 if i < len(layers) - 1:
                     streams.append(dst)
         if i == len(layers) - 1:
-            _k6_gemm(_LOGITS, dst, one, C, proj, O, lengths, logits, bias=(out_b, None))
+            _k6_gemm(_LOGITS, dst, _ONE, C, proj, O, lengths, logits, bias=(out_b, None))
         src = dst
     if save:
         return logits, streams, cs, hs
@@ -816,7 +913,7 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
     x = streams[0]
     B, T, C = x.shape
     O = out_w.shape[1]
-    if not has_kernels2(C, O):
+    if not has_tower_kernels(C, O):
         raise NotImplementedError(f"mstcn2_stack_bwd: no backward kernel for C={C}, O={O}")
     _check_layers2("mstcn2_stack_bwd", x, lengths, layers, out_w, out_b, seeds, rates)
     g = g.contiguous()
@@ -826,7 +923,6 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
     n_ds = B * (-(-T // K6_DS_ROWS))  # k6_ds blocks
     n128 = B * (-(-T // 128))  # GEMM row tiles
     gw = k6_pack(out_w)  # (2, C, O): g = g_logits Wo^T
-    one = [[(0, 0)]]
     f32 = dict(device=x.device, dtype=torch.float32)
     dlayers = [None] * len(layers)
     g_stream, dow, dob = None, None, None
@@ -836,7 +932,7 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
         x_i = streams[i]
         if last:
             g_in = torch.empty_like(x)
-            _k6_gemm(_MASKED, g, one, O, gw, C, lengths, g_in)
+            _k6_gemm(_MASKED, g, _ONE, O, gw, C, lengths, g_in)
         else:
             g_in = g_stream
         ds = torch.empty_like(x)
@@ -853,7 +949,7 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
         dcw, dxw = k6_bwd_weights(layers[i])
         dc = torch.empty((B, T, 2 * C), **f32)  # [dc1 | dc2]
         part_c = torch.empty((n128, 1, 2 * C), **f32)
-        _k6_gemm(_MASKED, ds, one, C, dcw, 2 * C, lengths, dc, part=part_c)
+        _k6_gemm(_MASKED, ds, _ONE, C, dcw, 2 * C, lengths, dc, part=part_c)
         dx = torch.empty_like(x)
         # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
         segs = [[((1 - k) * d, c0) for d, c0 in ((d1, 0), (d2, C)) for k in range(3)]]
@@ -912,7 +1008,7 @@ def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, see
         return mstcn2_stack_fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
                                 rates=rates, seeds=seeds, folded=folded)
     if x.device.type != "cpu":
-        _build.require_backward("mstcn2_stack", has_kernels2(x.shape[2], out_w.shape[1]))
+        _build.require_backward("mstcn2_stack", has_tower_kernels(x.shape[2], out_w.shape[1]))
     cfg = (tuple((int(a), int(b)) for a, b in dil_pairs),
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCN2Stack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,

@@ -101,14 +101,14 @@ def test_shared_memory_fits_at_breakfast_widths():
     assert x2y_attn.key_tile(40, 256, 8) == 64 and mha_attn.bwd_key_tile(40, 256, 8) == 64
     assert x2y_attn.key_tile(60, 512, 1) == 64
     assert x2y_attn.has_backward(60, 4096, 512) and x2y_attn.has_backward(4096, 60, 512)
-    # K6 at C=512 (K1's layout has no backward there).  Its tensor-core
-    # kernels hold 128 x 128 tiles whatever C is and take whole 32-float K
-    # steps per tap and 16-byte TMA row strides
-    assert dilated_conv.has_kernels2(512) and dilated_conv.has_kernels2(512, 48)
-    assert not dilated_conv.has_backward(512)
-    assert dilated_conv.has_kernels2(1024, 1024) and dilated_conv.has_kernels2(1024, 48)
-    assert not dilated_conv.has_kernels2(1000) and not dilated_conv.has_kernels2(528)
-    assert not dilated_conv.has_kernels2(512, 50)
+    # K6 at C=512, and K1 (on the same GEMM) at the flagship's 256 / O=512
+    # and gtea's 128.  The tensor-core kernels hold 128 x 128 tiles whatever
+    # C is and take whole 32-float K steps per tap and 16-byte TMA row strides
+    assert dilated_conv.has_tower_kernels(512) and dilated_conv.has_tower_kernels(512, 48)
+    assert dilated_conv.has_tower_kernels(256, 512) and dilated_conv.has_tower_kernels(128)
+    assert dilated_conv.has_tower_kernels(1024, 1024) and dilated_conv.has_tower_kernels(1024, 48)
+    assert not dilated_conv.has_tower_kernels(1000) and not dilated_conv.has_tower_kernels(528)
+    assert not dilated_conv.has_tower_kernels(512, 50)
     assert _build.gemm_smem(64) == _build.GEMM_SMEM == 41472
 
 

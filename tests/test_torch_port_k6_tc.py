@@ -9,7 +9,9 @@ a.b ~ hi.hi + hi.lo + lo.hi.  Here, without a card:
 * every packed weight operand (``k6_pack``: TF32 hi / lo, K-major) unpacks
   back to the JAX layout of the weights it came from;
 * ``FakeK6Lib`` models the C interface of the K6 kernels (``fk_k6_gemm``,
-  ``fk_k6_wgrad``, ``fk_k6_ds``) and of ``grad.cu``'s ``fk_reduce`` on the
+  the towers' one GEMM entry with K1's epilogues too, ``fk_k6_wgrad``,
+  ``fk_k6_ds``), of K1's row passes (``fk_k1_ln``, ``fk_k1_dz``; K1's tests
+  are in ``test_torch_port_k1_tc.py``) and of ``grad.cu``'s ``fk_reduce`` on the
   raw memory the wrappers hand them, with the kernels' 3xTF32 arithmetic,
   their tile skips and their epilogues; the port's own launch sequence
   (``_mstcn2_fwd_card``, ``_mstcn2_bwd_card``) runs on it and is held
@@ -192,7 +194,7 @@ class FakeK6Lib:
         W = _view(wpack, nprob * 2 * N * K).view(nprob, 2, N, K)
         lens = _ints(lengths, B)
         sg = _ints(segs, nprob * nseg * 2).view(nprob, nseg, 2)
-        cols = ldo if mode in (dc._MASKED, dc._LOGITS) else N
+        cols = ldo if mode in (dc._MASKED, dc._LOGITS, dc._GATE) else N
         Y = _view(out, B * T * cols).view(B, T, cols)
         t = torch.arange(T)
         ntile = -(-T // 128)
@@ -215,8 +217,12 @@ class FakeK6Lib:
                     acc += al @ wh.t() + ah @ wl.t() + ah @ wh.t()
                 acc[(t // 128) * 128 >= L] = 0.0  # a tile past the video runs no GEMM
                 valid = (t < L)[:, None]
-                if mode == dc._MASKED:
-                    v = torch.where(valid, acc + bv, 0.0)
+                if mode in (dc._MASKED, dc._GATE):
+                    if mode == dc._GATE:  # acc where the ReLU output h > 0
+                        H = _view(res, B * T * N).view(B, T, N)[b]
+                        v = torch.where(valid & (H > 0), acc, 0.0)
+                    else:
+                        v = torch.where(valid, acc + bv, 0.0)
                     Y[b, :, c_off:c_off + N] = v
                     if part is not None:
                         P = _view(part, B * ntile * ldo).view(B, ntile, ldo)
@@ -224,6 +230,8 @@ class FakeK6Lib:
                             P[b, i, c_off:c_off + N] = v[i * 128:(i + 1) * 128].sum(0)
                 elif mode == dc._LOGITS:
                     Y[b] = acc + bv
+                elif mode == dc._RELU:
+                    Y[b] = torch.where(valid, torch.relu(acc + bv), 0.0)
                 else:
                     X = _view(res, B * T * N).view(B, T, N)[b]
                     if mode == dc._FUSE:
@@ -232,6 +240,9 @@ class FakeK6Lib:
                         Y[b] = torch.where(valid, h * keep + X, 0.0)
                         if out2 is not None:
                             _view(out2, B * T * N).view(B, T, N)[b] = torch.where(valid, h, 0.0)
+                    elif mode == dc._RESID:
+                        keep = self._keep(seed, layer, thresh, scale, (B, T, N))[b]
+                        Y[b] = torch.where(valid, (acc + bv) * keep + X, 0.0)
                     elif mode == dc._FOLDED:
                         Y[b] = torch.where(valid, torch.relu(acc + bv) + X, 0.0)
                     else:
@@ -276,6 +287,55 @@ class FakeK6Lib:
         Pf = _view(part, B * nb * C_).view(B, nb, C_)
         for i in range(nb):
             Pf[:, i] = D[:, i * R:(i + 1) * R].sum(1)
+        if part_o is not None:
+            GL = _view(glg, B * T * O_).view(B, T, O_)
+            Po = _view(part_o, B * nb * O_).view(B, nb, O_)
+            for i in range(nb):
+                Po[:, i] = GL[:, i * R:(i + 1) * R].sum(1)
+        return 0
+
+    def fk_k1_ln(self, y, lengths, gamma, beta, B, T, C_, R, eps, stream):
+        self.calls.append(("ln",))
+        Y = _view(y, B * T * C_).view(B, T, C_)
+        valid = (torch.arange(T)[None, :] < _ints(lengths, B)[:, None].clamp(max=T))[..., None]
+        mean = Y.mean(-1, keepdim=True)
+        var = ((Y - mean) ** 2).mean(-1, keepdim=True)
+        out = (Y - mean) * torch.rsqrt(var + eps) * _view(gamma, C_) + _view(beta, C_)
+        Y[:] = torch.where(valid, out, 0.0)
+        return 0
+
+    def fk_k1_dz(self, g, z, gamma, beta, glg, lengths, seed, layer, thresh, scale, dz, dh,
+                 y_out, part, part_o, B, T, C_, O_, R, use_ln, eps, stream):
+        self.calls.append(("dz", y_out is not None))
+        n = B * T * C_
+        G = _view(g, n).view(B, T, C_)
+        valid = (torch.arange(T)[None, :] < _ints(lengths, B)[:, None].clamp(max=T))[..., None]
+        keep = self._keep(seed, layer, thresh, scale, (B, T, C_))
+        gz = torch.where(valid, G, 0.0)
+        nb = -(-T // R)
+        P = _view(part, B * nb * (3 if use_ln else 1) * C_).view(B, nb, -1, C_)
+        if use_ln:
+            Z = _view(z, n).view(B, T, C_)
+            ga, be = _view(gamma, C_), _view(beta, C_)
+            mean = Z.mean(-1, keepdim=True)
+            rstd = torch.rsqrt(((Z - mean) ** 2).mean(-1, keepdim=True) + eps)
+            xh = (Z - mean) * rstd
+            gg = gz * ga
+            D = (gg - gg.mean(-1, keepdim=True) - xh * (gg * xh).mean(-1, keepdim=True)) * rstd
+            D = torch.where(valid, D, 0.0)
+            _view(dz, n).view(B, T, C_)[:] = D
+            if y_out is not None:
+                _view(y_out, n).view(B, T, C_)[:] = torch.where(valid, xh * ga + be, 0.0)
+        else:
+            D = gz
+        H = D * keep
+        _view(dh, n).view(B, T, C_)[:] = H
+        for i in range(nb):
+            rows = slice(i * R, (i + 1) * R)
+            P[:, i, 0] = H[:, rows].sum(1)
+            if use_ln:
+                P[:, i, 1] = torch.where(valid, gz * xh, 0.0)[:, rows].sum(1)
+                P[:, i, 2] = gz[:, rows].sum(1)
         if part_o is not None:
             GL = _view(glg, B * T * O_).view(B, T, O_)
             Po = _view(part_o, B * nb * O_).view(B, nb, O_)

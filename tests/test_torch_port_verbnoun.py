@@ -114,7 +114,7 @@ def test_shared_memory_at_epic_widths(monkeypatch):
     assert sa_layer.has_backward(200, 256, 8) and sa_layer.sa_bwd_smem(200, 256, 8) == 67648
     assert sa_layer.has_backward(756, 256, 8) and not sa_layer.has_backward(757, 256, 8)
     assert sa_layer.has_backward(60, 512, 8) and not sa_layer.has_backward(40, 512, 4)
-    assert dilated_conv.has_kernels2(256) and dilated_conv.has_kernels2(256, 512)
+    assert dilated_conv.has_tower_kernels(256) and dilated_conv.has_tower_kernels(256, 512)
     assert compose_decode.compose_smem(98, 301, 3806) == 66296
     assert compose_decode.factored_smem(98, 301) == 130760
 
