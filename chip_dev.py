@@ -1,8 +1,12 @@
 """Measurements on the card beside ``chip_smoke.py``, none of them a gate.
 
-    python3 chip_dev.py ab PARENT_DIR KERNEL [KERNEL ...]
+    python3 chip_dev.py ab PARENT_DIR ROW[:CASE,...] [ROW[:CASE,...] ...]
         An old-against-new A/B of phase 3's rows (``chip_smoke.py``) for the
-        named kernels, e.g. ``mstcn_stack mstcn_stack_bwd``: PARENT_DIR is
+        named kernels, e.g. ``mstcn_stack mstcn_stack_bwd``, or only the
+        named cases of a row (``mha_cross:flagship,ragged``; a case the
+        parent's package refuses, such as one this tree made possible, is
+        left out so); ``k3`` stands for K3's rows at the cases both trees
+        run: PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
         its own kernel library and runs the rows of this tree's
@@ -23,6 +27,12 @@
         The same for K1 (training form with dropout 0.2 and backward, the
         flagship's 8 x 3072 x 256, O=512, 10 layers, no LN).
 
+    python3 chip_dev.py k3-f64 [TREE]
+        The same for K3 (forward and backward, no dropout, at Breakfast's and
+        the flagship's shapes: the output, dq, dx and the weight and bias
+        gradients), of the package in TREE (default: this checkout; an
+        unpacked parent to compare).
+
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -42,13 +52,18 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 cs.REPO = os.getcwd()
-names = set(sys.argv[2:])
+want = dict((a.split(":") + [""])[:2] for a in sys.argv[2:])  # row -> cases ("": all)
 cs.phase_environment(torch)
 cs.phase_build()
 table = cs.kernel_table
-cs.kernel_table = lambda: [r for r in table() if r[0] in names]
+cs.kernel_table = lambda: [
+    (*r[:4], [c for c in r[4] if not want[r[0]] or c[0] in want[r[0]].split(",")])
+    for r in table() if r[0] in want]
 cs.phase_kernels()
 """
+# K3's rows at the cases the parent of the K3 redesign runs too (it refused M=200)
+ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd:flagship,ragged",
+                  "mha_cross_e512", "mha_cross_bwd_e512"]}
 
 
 def ab(parent: str, names):
@@ -149,13 +164,60 @@ def k1_f64(seed: int = 0):
     return 0
 
 
+def k3_f64(tree: str = REPO, seed: int = 0):
+    """K3 (forward and backward, no dropout, Breakfast's 4 x 4096, M=60,
+    E=512, H=8, and the flagship's 8 x 3072, M=40, E=256) of the package in
+    ``tree`` and its f32 plain version, each against the plain version in
+    float64: max, rms and coherent error of the output, dq, dx, dWk, dbk,
+    dWv and dbv."""
+    import importlib.util
+
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.REPO = tree
+    cs.phase_environment(torch)
+    cs.phase_build()
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    for tag, (B, M, X, E, lens) in {"breakfast": (4, 60, 4096, 512, cs.BF_TRAIN_LENGTHS),
+                                    "flagship": (8, 40, 3072, 256, cs.FLAGSHIP_LENGTHS)}.items():
+        pos = torch.zeros((1, X, 512), device="cuda")
+        args = cs.mha_case(rng, B, M, X, E, 512, lens, pos)
+        a64 = [t.double() if t is not None and t.is_floating_point() else t for t in args]
+        g = cs._rand(rng, (B, M, E))
+        with torch.no_grad():
+            out64, st64 = ma.mha_cross_attention_reference(*a64, num_heads=8, with_stats=True)
+            ref = ma.mha_cross_bwd_reference(*a64, st64, out64, g.double(), num_heads=8)
+            out, st = ma.mha_cross_fwd(*args, num_heads=8, with_stats=True)
+            runs = {"kernel": (out, ma.mha_cross_bwd(*args, st, out, g, num_heads=8)),
+                    "plain": (ma.mha_cross_attention_reference(*args, num_heads=8),
+                              ma.mha_cross_bwd_reference(*args, st, out, g, num_heads=8))}
+        for name, (o, grads) in runs.items():
+            parts = [f"out {_stats(o, out64, one)}"]
+            for gname, a, r in zip(("dq", "dx", "dWk", "dbk", "dWv", "dbv"),
+                                   [grads[0], grads[1], *grads[3:]], [ref[0], ref[1], *ref[3:]]):
+                parts.append(f"{gname} {_stats(a, r, one)}")
+            print(f"[k3-f64] {os.path.relpath(tree, REPO)} {tag} {name:<6} vs float64: "
+                  + "; ".join(parts), flush=True)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
-        return ab(argv[1], argv[2:])
+        return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
     if argv == ["k6-f64"]:
         return k6_f64()
     if argv == ["k1-f64"]:
         return k1_f64()
+    if argv[:1] == ["k3-f64"] and len(argv) <= 2:
+        return k3_f64(*argv[1:])
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
-serving, training, for the flagship, for Breakfast and for the
-Epic-Kitchens verb/noun model, the three served with int8 evaluation, and
-the single-layer K1.
+serving, training, for the flagship, for Breakfast, for the Epic-Kitchens
+verb/noun model and for EgoProceL, the first three served with int8
+evaluation, the single-layer K1 and the narrow twin.
 
     python3 chip_smoke.py
 
@@ -23,16 +23,23 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
-   3.35 TB/s.  K1 and K6 multiply on the TF32 tensor cores at f32
-   accuracy (3xTF32, one GEMM kernel), so their rows count their products
-   as three TF32 passes at 495 TFLOP/s, and print the f32-FMA bound of the
-   same work beside it (``f32_fma_bound_ms`` in the JSON line); their
-   training forms and backwards are also run 20 times each on the same
+   3.35 TB/s.  K1, K6 and K3's projections multiply on the TF32 tensor
+   cores at f32 accuracy (3xTF32, one GEMM kernel), so their rows count
+   those products as three TF32 passes at 495 TFLOP/s, and print the
+   f32-FMA bound of the same work beside it (``f32_fma_bound_ms`` in the
+   JSON line); the towers' training forms and backwards and K3's forward
+   (dropout 0.2) and backward are also run 20 times each on the same
    inputs and must give the same bits every time (``k6_repeat_check``:
-   K6 at Breakfast's and epic's shapes, K1 at the flagship's).  No single PyTorch
-   call computes any of these fused
+   K6 at Breakfast's and epic's shapes, K1 and K3 at the flagship's).
+   K3's rows and K2's flash rows time a library pair beside them
+   (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
+   ``F.scaled_dot_product_attention``; for a backward, the autograd
+   backward of that pair); no PyTorch call computes the other fused
    functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
-   and the out projection), so ``library_ms`` is null throughout.  The
+   and the out projection), so their ``library_ms`` is null.  K3 also at
+   egoprocel's 200 queries (1 x 4096, E=256, H=8, forward with dropout 0.2
+   and backward); K1 and K6 also at the narrow twin's 24 channels (forward,
+   training form and backward).  The
    Breakfast rows: K6, the MS-TCN++ tower (the serving form on folded
    weights; the training form with dropout 0.2, its logits and every save,
    [c1 | c2] and the ReLU outputs on valid frames; the backward with
@@ -150,7 +157,18 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    videos, one forward and backward: its forward kernel launches once, K1's
    mask kernel once (the backward's replay), nothing else; the output and
    every gradient against the plain version on the same seed.
-13. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+13. EgoProceL: ``egoprocel_cfg()`` (iUUU, 200 action tokens, D=2048) at full
+   width with seeded weights serves 6 requests of 1,100-6,000 frames
+   through ``Predictor(batch_size=2, max_len=6144)``: K3 6 and K6 4 launches
+   per batch; then the eval step on 2 x 4096 on both paths with peak
+   memory; then ``egoprocel_train_cfg()`` takes 1 + 3 Adam steps on single
+   videos of 4096 frames (K3 forward and backward 6 a step at M=200, K6 4),
+   and the warm step of each path with peak memory.  Prints the launches
+   of K3, K6 and K4 at M=200.
+14. the narrow twin: ``small_cfg()`` (towers 24 wide) serves 4 requests and
+   takes 1 + 2 Adam steps on the card, K1 launched; its eval step against
+   the plain path.
+15. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the single-layer
    K1's and K1's mask kernel's from phase 12 (the tower re-hashes its masks
    inside its kernels); the factored argmax, a verification oracle, launches
@@ -537,7 +555,9 @@ def x2y_fwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     work = (2 * B * Y * Cy * d + kv + 4 * Y * d * Xv,
             nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4)
     fn = xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd
-    return lambda: fn(*args), lambda: xa.x2y_attention_reference(*args), work
+    library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1) if flash \
+        else None
+    return lambda: fn(*args), lambda: xa.x2y_attention_reference(*args), work, None, library
 
 
 def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
@@ -556,7 +576,48 @@ def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
         flops = 6 * B * Y * Cy * d + 8 * Y * d * Xv + 12 * B * X * Cx * d
     work = (flops, nbytes(args, probs, attn if flash else None, g_attn, g_probs, g_logits)
             + nbytes(args[:10]))
-    return kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work
+    library = (sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1, g=g_attn)
+               if flash else None)
+    return (kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work,
+            None, library)
+
+
+def sdpa_library(q_in, x_in, wq, wk, wv, x_len, H, rate=0.0, g=None):
+    """The library yardstick of a cross-attention over a long key/value
+    stream, a pair of calls: ``torch.matmul`` of the frames on [Wk | Wv] (and
+    of the queries on Wq where the kernel projects them, K2's flash form),
+    then ``F.scaled_dot_product_attention`` with the key mask (TF32 off, no
+    biases, no positional term); with ``g``, the backward of that pair
+    (``torch.autograd.grad`` on its graph).  Timed here, used nowhere in the
+    port."""
+    import torch
+    import torch.nn.functional as F
+
+    B, X, _ = x_in.shape
+    M, E = q_in.shape[1], wk.shape[1]
+    hd = E // H
+    mask = (torch.arange(X, device=x_in.device)[None, :] < x_len[:, None])[:, None, None, :]
+
+    def run(q_in, x_in, wkv):
+        q = torch.matmul(q_in, wq) if wq is not None else q_in
+        kv = torch.matmul(x_in, wkv).view(B, X, 2, H, hd)
+        return F.scaled_dot_product_attention(
+            q.view(B, M, H, hd).transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), attn_mask=mask, dropout_p=rate)
+
+    wkv = torch.cat([wk, wv], dim=1)
+    if g is None:
+        return lambda: run(q_in, x_in, wkv)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q_in, x_in, wkv)]
+    with torch.enable_grad():
+        out = run(*leaves)
+    gh = g.view(B, M, H, hd).transpose(1, 2)
+
+    def backward():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    return backward
 
 
 def mha_case(rng, B, M, X, E, Cx, x_len, pos):
@@ -565,6 +626,8 @@ def mha_case(rng, B, M, X, E, Cx, x_len, pos):
 
 
 def mha_fwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.0):
+    """K3's forward: its projection counts as three TF32 passes, the
+    attention (QK^T, PV) as f32."""
     from fact_clip_tpu_torch.ops import mha_attn as ma
     from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
 
@@ -572,14 +635,17 @@ def mha_fwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.0):
     seed = _seed(rng)
     keep = dropout_mask_reference(seed, 0, (B, H * M, X), rate) if rate > 0.0 else None
     Xv = _valid(args[7], X)
-    work = (4 * Cx * E * Xv + 4 * M * E * Xv, nbytes(args) + B * M * E * 4)
+    work = (4 * M * E * Xv, nbytes(args) + B * M * E * 4, 0, 4 * Cx * E * Xv)
     return (lambda: ma.mha_cross_fwd(*args, num_heads=H, rate=rate, seed=seed),
-            lambda: ma.mha_cross_attention_reference(*args, num_heads=H, keep=keep), work)
+            lambda: ma.mha_cross_attention_reference(*args, num_heads=H, keep=keep), work, None,
+            sdpa_library(args[0], args[1], None, args[3], args[5], args[7], H, rate))
 
 
 def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2):
     """The backward from the kernel forward's saves (output and softmax
-    stats), with the layer's mask; the plain backward takes the same."""
+    stats), with the layer's mask; the plain backward takes the same.  The
+    projection's recompute, dx and the weight products count as three TF32
+    passes, the attention terms as f32."""
     from fact_clip_tpu_torch.ops import mha_attn as ma
     from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
 
@@ -589,11 +655,13 @@ def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2):
     keep = dropout_mask_reference(seed, 0, (B, H * M, X), rate)
     g = _rand(rng, (B, M, E))
     Xv = _valid(args[7], X)
-    work = (12 * Cx * E * Xv + 10 * M * E * Xv,
-            nbytes(args, stats, out, g, keep) + nbytes(args[0], args[1], args[3:7]))
+    work = (10 * M * E * Xv,
+            nbytes(args, stats, out, g, keep) + nbytes(args[0], args[1], args[3:7]), 0,
+            12 * Cx * E * Xv)
     return (lambda: ma.mha_cross_bwd(*args, stats, out, g, num_heads=H, keep=keep),
             lambda: ma.mha_cross_bwd_reference(*args, stats, out, g, num_heads=H, keep=keep),
-            work)
+            work, None,
+            sdpa_library(args[0], args[1], None, args[3], args[5], args[7], H, rate, g))
 
 
 def sa_case(rng, B, M, E):
@@ -1085,7 +1153,11 @@ def kernel_table():
           ("train", lambda r: k1_fwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False, 0.2,
                                           True)),
           ("ragged", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True)),
-          ("dropout", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True, 0.2))]),
+          ("dropout", lambda r: k1_fwd_case(r, 2, 1000, 256, D, *ragged_k1, True, 0.2)),
+          # small_cfg()'s towers: 24 channels, each tap padded to a 32-float K step
+          ("c24", lambda r: k1_fwd_case(r, 2, 1000, 24, 32, *ragged_k1, False)),
+          ("c24_train", lambda r: k1_fwd_case(r, 2, 1000, 24, 32, *ragged_k1, False, 0.2,
+                                              True))]),
         ("x2y_small_x", csrc + "x2y_attn.cu", pallas + "x2y_attn.py:76", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               zeros(1, T, D), _rand(r, (1, 40, 256)))),
@@ -1102,7 +1174,7 @@ def kernel_table():
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_fwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
                                             _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
-        ("mha_cross", csrc + "flash_attn.cu", pallas + "mha_attn.py:235", "rel",
+        ("mha_cross", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
           ("ragged", lambda r: mha_fwd_case(r, 2, 37, 1100, 256, D, 8, [1100, 900],
@@ -1110,7 +1182,12 @@ def kernel_table():
           ("flag_drop", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                                zeros(1, T, D), 0.2)),
           ("rag_drop", lambda r: mha_fwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
-                                              _rand(r, (1, 1100, D)), 0.2))]),
+                                              _rand(r, (1, 1100, D)), 0.2)),
+          # egoprocel's SCA: 200 queries
+          ("m200", lambda r: mha_fwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
+                                          zeros(1, 4096, D))),
+          ("m200_drop", lambda r: mha_fwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
+                                               zeros(1, 4096, D), 0.2))]),
         ("sa_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "rel",
          [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
           ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
@@ -1141,7 +1218,8 @@ def kernel_table():
           ("ragged", lambda r: mask_case(r, "ffn", (3, 11, 256, 512)))]),
         ("mstcn_stack_bwd", csrc + "mstcn.cu", pallas + "dilated_conv.py:689", "rel",
          [("flagship", lambda r: k1_bwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False)),
-          ("ragged", lambda r: k1_bwd_case(r, 2, 1000, 256, D, *ragged_k1, True))]),
+          ("ragged", lambda r: k1_bwd_case(r, 2, 1000, 256, D, *ragged_k1, True)),
+          ("c24", lambda r: k1_bwd_case(r, 2, 1000, 24, 32, *ragged_k1, False))]),
         ("x2y_small_x_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:430", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               zeros(1, T, D), _rand(r, (1, 40, 256)))),
@@ -1160,11 +1238,13 @@ def kernel_table():
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_bwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
                                             _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
-        ("mha_cross_bwd", csrc + "mha_bwd.cu", pallas + "mha_attn.py:444", "rel",
+        ("mha_cross_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("flagship", lambda r: mha_bwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
           ("ragged", lambda r: mha_bwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
-                                            _rand(r, (1, 1100, D))))]),
+                                            _rand(r, (1, 1100, D)))),
+          ("m200", lambda r: mha_bwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
+                                          zeros(1, 4096, D)))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
          [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
           ("flag_nodrop", lambda r: sa_bwd_case(r, B, 40, 256, 8, 0.0)),
@@ -1193,19 +1273,22 @@ def kernel_table():
           ("train", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len, 0.2, True)),
           ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True)),
           ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET])),
-          ("epic_train", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET], 0.0, True))]),
+          ("epic_train", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET], 0.0, True)),
+          ("c24", lambda r: k6_fwd_case(r, 3, 600, 24, 32, 10, bf_rag)),
+          ("c24_train", lambda r: k6_fwd_case(r, 3, 600, 24, 32, 10, bf_rag, 0.2, True))]),
         ("mstcn2_stack_bwd", csrc + "mstcn2.cu", pallas + "dilated_conv.py:1268", "rel",
          [("breakfast", lambda r: k6_bwd_case(r, 4, 4096, D, D, 10, bf_len)),
           ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag)),
-          ("epic", lambda r: k6_bwd_case(r, 1, ET, 256, D, 10, [ET], 0.0))]),
-        ("mha_cross_e512", csrc + "flash_attn.cu", pallas + "mha_attn.py:235", "rel",
+          ("epic", lambda r: k6_bwd_case(r, 1, ET, 256, D, 10, [ET], 0.0)),
+          ("c24", lambda r: k6_bwd_case(r, 3, 600, 24, 32, 10, bf_rag))]),
+        ("mha_cross_e512", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("breakfast", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                                zeros(1, 4096, D))),
           ("bf_drop", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                              zeros(1, 4096, D), 0.2)),
           ("ragged", lambda r: mha_fwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
                                             _rand(r, (1, 1100, D)), 0.2))]),
-        ("mha_cross_bwd_e512", csrc + "mha_bwd.cu", pallas + "mha_attn.py:444", "rel",
+        ("mha_cross_bwd_e512", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("breakfast", lambda r: mha_bwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                                zeros(1, 4096, D))),
           ("ragged", lambda r: mha_bwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
@@ -1296,9 +1379,10 @@ def check_mask(name, make, rng, pooled: bool):
 
 def phase_kernels(seed: int = 0):
     """Every kernel against its plain version on the same inputs, each case
-    timed beside the plain version and the bound.
-    A case is (kernel, plain, work) or (kernel, plain, work, view), where
-    ``view`` picks from both results what is compared."""
+    timed beside the plain version, the bound and, where one PyTorch call
+    (or pair) computes the same function, that library call.
+    A case is (kernel, plain, work[, view[, library]]): ``view`` (or None)
+    picks from both results what is compared, ``library`` is timed."""
     import torch
 
     results = {}
@@ -1306,6 +1390,7 @@ def phase_kernels(seed: int = 0):
     rng = np.random.default_rng(seed)
     for name, source, replaces, check, cases in kernel_table():
         for i, (case_name, make) in enumerate(cases):
+            library = None
             with torch.no_grad():
                 if check == "mask":
                     text, ok = check_mask(name, make, rng, pooled=i == 0)
@@ -1315,10 +1400,11 @@ def phase_kernels(seed: int = 0):
                     kern, plain, work, judge = make(rng)
                     text, ok, err_abs = judge(kern(), plain())
                 else:
-                    kern, plain, work, *view = make(rng)
+                    kern, plain, work, *extra = make(rng)
+                    view, library = (extra + [None, None])[:2]
                     outs, refs = kern(), plain()
-                    if view:
-                        outs, refs = view[0](outs), view[0](refs)
+                    if view is not None:
+                        outs, refs = view(outs), view(refs)
                     outs, refs = _pairs(name, outs, refs)
                     torch.cuda.synchronize()
                     err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
@@ -1332,21 +1418,23 @@ def phase_kernels(seed: int = 0):
                 iters = 3 if name.startswith("mstcn") else 10
                 ms = cuda_ms(kern, iters, warmup=1)
                 plain_ms = cuda_ms(plain, iters, warmup=1)
+                library_ms = cuda_ms(library, iters, warmup=1) if library is not None else None
                 bound_ms, bound_by = bound(*work)
                 int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 and work[2] else ""
                 tf32 = ""
-                if len(work) > 3:  # beside it, the f32-FMA bound of the same products
-                    f32_ms = bound(work[3], work[1])[0]
+                if len(work) > 3:  # beside it, the f32-FMA bound of the same work
+                    f32_ms = bound(work[0] + work[3], work[1])[0]
                     tf32 = (f", {work[3]:.4g} FLOP as 3xTF32; f32-FMA bound {f32_ms:.4f} ms, "
                             f"{bound_ms / ms:.3f} of the 3xTF32 bound reached")
+                lib_text = "none" if library_ms is None else f"{library_ms:.4f}"
                 text += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
                          f"({bound_by}; {work[0]:.4g} FLOP{int8}{tf32}, {work[1]:.4g} bytes) "
-                         f"library_ms none")
+                         f"library_ms {lib_text}")
                 if i == 0:
                     results[name] = dict(name=name, route="cuda", source=source,
                                          replaces=replaces, max_abs_err=err_abs, ms=ms,
                                          plain_ms=plain_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by, library_ms=None)
+                                         bound_by=bound_by, library_ms=library_ms)
                     if len(work) > 3:
                         results[name]["f32_fma_bound_ms"] = f32_ms
                 else:
@@ -1354,14 +1442,14 @@ def phase_kernels(seed: int = 0):
             log(f"[kernel] {name:<18} {case_name:<9} {text}" + ("" if ok else "  FAIL"))
             if not ok:
                 failed.append(f"{name}/{case_name}")
-            del kern, plain
+            del kern, plain, library
             torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return results
 
 
-K6_REPEATS = 20  # runs of each K6 and K1 case that must give the same bits
+K6_REPEATS = 20  # runs of each K6, K1 and K3 case that must give the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1371,7 +1459,10 @@ def k6_repeat_check(seed: int = 0):
     atomics), so a difference is a race between the kernels' warps, as one
     on the shared memory that a GEMM's column sums reuse would be.  K6:
     Breakfast's backward (the dc GEMM's sums at C=512) and epic's (C=256);
-    K1 at the flagship's shape (its dc GEMM's sums, its k1_dz)."""
+    K1 at the flagship's shape (its dc GEMM's sums, its k1_dz); K3 at the
+    flagship's shape, the forward with dropout 0.2 (the projection GEMM, the
+    per-head partials, the combine) and the backward (its tile shares and
+    bias sums in two stages)."""
     import torch
 
     def tensors(out):
@@ -1379,6 +1470,7 @@ def k6_repeat_check(seed: int = 0):
 
     rng = np.random.default_rng(seed)
     tower = [2 ** i for i in range(10)]
+    zeros = torch.zeros((1, 3072, 512), device="cuda")
     cases = (("train", lambda: k6_fwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS, 0.2,
                                            True)),
              ("bwd", lambda: k6_bwd_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS)),
@@ -1386,7 +1478,11 @@ def k6_repeat_check(seed: int = 0):
              ("k1_train", lambda: k1_fwd_case(rng, 8, 3072, 256, 512, tower, FLAGSHIP_LENGTHS,
                                               False, 0.2, True)),
              ("k1_bwd", lambda: k1_bwd_case(rng, 8, 3072, 256, 512, tower, FLAGSHIP_LENGTHS,
-                                            False)))
+                                            False)),
+             ("k3_drop", lambda: mha_fwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
+                                              zeros, 0.2)),
+             ("k3_bwd", lambda: mha_bwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
+                                             zeros)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1402,7 +1498,7 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower gives different bits on the same inputs: {failed}")
+        raise AssertionError(f"a tower or K3 gives different bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -2529,6 +2625,177 @@ def phase_dr_layer(seed: int = 0):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: EgoProceL, serving and training (K3 at 200 queries)
+
+EGO_DIMS = (2048, 64, 64)  # D (I3D, as the other configs; no EgoProceL features in the repo),
+# classes (the repo holds no EgoProceL mapping either), s_pred_cap
+EGO_SERVE_LENGTHS = [6000, 4500, 3000, 2048, 1500, 1100]  # each >= kernel_min_keys (1024)
+EGO_T = 4096
+EGO_K4 = ("sa_sublayer", "ffn_sublayer", "sa_sublayer_bwd", "ffn_sublayer_bwd")
+
+
+def phase_egoprocel(seed: int = 0):
+    """``egoprocel_cfg()`` (iUUU, 200 action tokens, a 6-layer SCA input
+    decoder over the 512-wide stream, ``f: m2`` towers 256 wide) at full
+    width with seeded weights: serves EGO_SERVE_LENGTHS through
+    ``Predictor(batch_size=2, max_len=6144)``, K3's forward 6 times and K6 4
+    times a batch, then the warm eval step on 2 x 4096 on both paths with
+    peak memory, the kernel path against the plain path; then
+    ``egoprocel_train_cfg()`` (nullw resolved from the synthetic set, batch
+    size 1) takes 1 + 3 Adam steps on single 4,096-frame videos, K3's forward
+    and backward 6 times a step at M=200, K6's 4, and the warm step of each
+    path split per phase with peak memory.  Prints the launches of K3, K6
+    and K4 (at M=200)."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import egoprocel_cfg, egoprocel_train_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import (run_steps, synthetic_batch,
+                                                       synthetic_set_stats)
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights, compute_null_weight
+
+    D, C, S_CAP = EGO_DIMS
+    dev = torch.device("cuda")
+    cfg = egoprocel_cfg()
+    M = cfg["FACT"]["ntoken"]
+    t0 = time.perf_counter()
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed))
+    log(f"[ego-serve] egoprocel_cfg(): {sum(p.numel() for p in model.parameters())} parameters, "
+        f"M={M}, built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in EGO_SERVE_LENGTHS]
+    pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=2, max_len=6144, device=dev)
+    pred.predict(feats[-1:])  # warm
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for n, o in zip(EGO_SERVE_LENGTHS, outs):
+        if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad prediction: shape {o.shape} dtype {o.dtype}")
+    per_bucket = {}
+    for n in EGO_SERVE_LENGTHS:
+        per_bucket[pred.bucket_for(n)] = per_bucket.get(pred.bucket_for(n), 0) + 1
+    n_batches = sum(-(-k // 2) for k in per_bucket.values())
+    log(f"[ego-serve] predict: {len(feats)} requests, lengths {EGO_SERVE_LENGTHS}, {dt:.3f} s, "
+        f"{n_batches} batches; launches at M={M}: K3 mha_cross {counts['mha_cross']}, K6 "
+        f"mstcn2_stack {counts['mstcn2_stack']}, K4 " + ", ".join(
+            f"{k} {counts[k]}" for k in EGO_K4[:2]) + f"; all {counts}")
+    _launch_check("ego-serve", counts, {"mha_cross": 6 * n_batches,
+                                        "mstcn2_stack": 4 * n_batches, "mstcn_stack": 0,
+                                        "mha_cross_bwd": 0})
+    if any(counts[k] for k in MASK_KERNELS) or counts["sa_sublayer"] <= 0:
+        raise AssertionError(f"ego-serve launches: {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    eval_paths("ego-serve", model, cfg, rng, [EGO_T, EGO_T * 3 // 4], EGO_T, D)
+    log(f"[ego-serve] peak memory over the eval steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        " GiB")
+    del model, pred
+
+    T, S = EGO_T, 32
+    lengths = [[T], [int(rng.integers(T // 2, T + 1))], [int(rng.integers(T // 4, T // 2))]]
+    batches = [synthetic_batch(rng, D, C, S, T, ln) for ln in lengths]
+    cfg = compute_null_weight(egoprocel_train_cfg(), synthetic_set_stats(batches, C))
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed))
+    step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = run_steps(step, batches[:1], generator=gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = run_steps(step, batches, generator=gen)
+    torch.cuda.synchronize()
+    counts_t = kernel_counters()
+    losses = [warm[0]["loss"]] + [o["loss"] for o in outs]
+    log(f"[ego-train] egoprocel_train_cfg(): nullw {cfg['Loss']['nullw']:.6f}, cmr "
+        f"{cfg['FACT']['cmr']}, 1 warm-up + 3 Adam steps on 1 x {T} (lengths {lengths}), losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; launches in 3 steps at M={M}: K3 mha_cross "
+        f"{counts_t['mha_cross']} mha_cross_bwd {counts_t['mha_cross_bwd']}, K6 mstcn2_stack "
+        f"{counts_t['mstcn2_stack']} mstcn2_stack_bwd {counts_t['mstcn2_stack_bwd']}, K4 "
+        + ", ".join(f"{k} {counts_t[k]}" for k in EGO_K4) + f"; all {counts_t}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    _launch_check("ego-train", counts_t, {"mha_cross": 18, "mha_cross_bwd": 18,
+                                          "mstcn2_stack": 12, "mstcn2_stack_bwd": 12,
+                                          "mstcn_stack": 0})
+    if any(counts_t[k] for k in MASK_KERNELS) or min(counts_t[k] for k in EGO_K4) <= 0:
+        raise AssertionError(f"ego-train launches: {counts_t}")
+    train_paths("ego-train", model, step, batches, gen, f"1 x {T}")
+    return counts, counts_t
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the narrow twin (small_cfg(), towers 24 wide) on the card
+
+
+def phase_small(seed: int = 0):
+    """``small_cfg()`` (the narrow twin of ``_make_cfg(small=True)``: ``f:
+    m`` towers 24 wide in a 32-wide stream) on the card, its towers' K steps
+    padded from 24 to 32 channels: 4 requests through ``Predictor(batch_size=2,
+    max_len=1024)``, K1 launched; the eval step on 2 x 1024 on both paths
+    (block-0 logits, predictions); then 1 + 2 Adam steps on 2 x 1024
+    (dropout 0.1, channel masking 0.3), K1's forward and backward launched
+    and every loss finite."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import small_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import run_steps, synthetic_batch
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights
+
+    D, C, S_CAP, T = 64, 10, 16, 1024
+    dev = torch.device("cuda")
+    cfg = small_cfg()
+    cfg["TPU"]["matcher"] = "host"
+    model = build_fact(cfg, D, C, S_CAP, device=dev,
+                       generator=torch.Generator(device="cpu").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    lengths = [1000, 777, 500, 129]
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in lengths]
+    pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=2, max_len=T, device=dev)
+    pred.predict(feats[-1:])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    counts = kernel_counters()
+    for n, o in zip(lengths, outs):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad prediction: shape {o.shape}")
+    log(f"[small] small_cfg() (f_dim {cfg['Bi']['f_dim']}, hid {cfg['Bi']['hid_dim']}): "
+        f"predict {lengths}, K1 mstcn_stack launches {counts['mstcn_stack']}")
+    if counts["mstcn_stack"] <= 0:
+        raise AssertionError("small: K1 did not launch while serving")
+    eval_paths("small", model, cfg, rng, [T, 700], T, D)
+    batches = [synthetic_batch(rng, D, C, 16, T, ln) for ln in ([T, 700], [900, 512])]
+    step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = run_steps(step, batches[:1], generator=gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = run_steps(step, batches, generator=gen)
+    torch.cuda.synchronize()
+    counts_t = kernel_counters()
+    losses = [warm[0]["loss"]] + [o["loss"] for o in outs]
+    log(f"[small] 1 warm-up + 2 Adam steps on 2 x {T}, losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; K1 mstcn_stack {counts_t['mstcn_stack']} "
+        f"mstcn_stack_bwd {counts_t['mstcn_stack_bwd']}")
+    if not all(math.isfinite(v) for v in losses) or min(
+            counts_t["mstcn_stack"], counts_t["mstcn_stack_bwd"]) <= 0:
+        raise AssertionError(f"small: training failed: losses {losses}, launches {counts_t}")
+
+
 def main():
     import torch
 
@@ -2544,6 +2811,8 @@ def main():
     int8_counts = phase_int8_serving(counts)
     m2_int8_counts = phase_m2_int8_serving(bf_counts["serve"])
     dr_counts = phase_dr_layer()
+    phase_egoprocel()
+    phase_small()
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":

@@ -6,7 +6,7 @@ layout where that helps find a module's counterpart:
 configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
                   breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
                   epic_vocab, flagship_int8_cfg, breakfast_int8_cfg,
-                  epic_int8_cfg (no YAML)
+                  epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg (no YAML)
 models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
                   the two-branch decodes, matching (o2o, o2m), losses (FACT's
                   and the verb/noun model's)

@@ -61,13 +61,15 @@ SIGNATURES = {
     "fk_x2y_small_x": [P, P, L, I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
                      P, I, U, F, P, I, P],
-    "fk_mha_bwd": [P, P, L, I] + [P] * 16 + [I, I, I, I, I, I, F, I, P],
+    "fk_k3_attn": [P, P, P, I, I, I, I, I, F, P, P, P, P, P, I, U, F, P],
+    "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P],
     "fk_sa_sublayer": [P, P, L, I] + [P] * 12 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
-    "fk_k6_pack": [P, P, I, I, I, P],
-    "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 6 + [I, U, F, P],
+    "fk_k6_pack": [P, P, I, I, I, I, I, P],
+    "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 3 + [I, L]
+                  + [P] * 3 + [I, U, F, P],
     "fk_k1_ln": [P] * 4 + [I] * 4 + [F, P],
     "fk_k1_dz": [P] * 7 + [I, U, F] + [P] * 5 + [I] * 6 + [F, P],
     "fk_k6_wgrad": [P, I, I, I, P, I, I, I, P, I, I, I, P, I, I, I, P],

@@ -11,6 +11,8 @@ breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
 is it as the port trains it; ``epic_cfg()`` mirrors ``epic-kitchens.yaml``
 (the verb/noun model, ``IUUU``), ``epic_train_cfg()`` is it as the port
 trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary;
+``egoprocel_cfg()`` mirrors ``egoprocel.yaml`` (``iUUU``, 200 action tokens)
+and ``egoprocel_train_cfg()`` is it as the port trains it;
 ``flagship_int8_cfg()``, ``breakfast_int8_cfg()`` and ``epic_int8_cfg()``
 are those three evaluated with int8 towers and projections
 (``TPU.quantize_infer: "int8"``).
@@ -202,6 +204,39 @@ def epic_train_cfg() -> dict:
     make_train_step(model, epic_train_cfg(), 3806, cweight)``, cweight
     (3,807,)."""
     cfg = epic_cfg()
+    cfg["TPU"]["matcher"] = "host"
+    return cfg
+
+
+def egoprocel_cfg() -> dict:
+    """``fact_clip_tpu/configs/egoprocel.yaml`` over the defaults, uncut:
+    ``iUUU`` (the input block, then three TDU update blocks), 200 action
+    tokens, no frame positions, a 6-layer SCA input decoder (8 heads, a_dim
+    256) over the 512-wide stream, ``f: m2`` 10-layer towers 256 wide, o2o
+    matching with bgw 0.5 and the reference's weight order, ``nullw = -1``
+    resolved from the data (``models/losses.py::compute_null_weight``), sw 5,
+    Adam at 1e-4, clip 10, batch size 1.  Every kernel is on: the SCA's 200
+    queries over 1,024 frames or more run K3.  The repository holds no
+    EgoProceL features (JAX reads D from them, ``data/dataset.py:289``); the
+    port's runs take D = 2048, as for the other I3D-fed configurations."""
+    cfg = default_cfg()
+    cfg.update(dataset="ego", split="split1", sr=3, batch_size=1, optimizer="Adam", lr=1e-4,
+               lr_decay=250, momentum=0.0, weight_decay=0.0, clip_grad_norm=10.0)
+    cfg["FACT"].update(block="iUUU", ntoken=200, trans=False, fpos=False, cmr=0.3, mwt=0.9)
+    cfg["Bi"].update(hid_dim=512, dropout=0.0, a="sca", a_nhead=8, a_ffdim=512, a_layers=6,
+                     a_dim=256, f="m2", f_layers=10, f_ln=False, f_dim=256, f_ngp=1)
+    cfg["Bu"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10)
+    cfg["BU"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10, s_layers=1)
+    cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2o", bgw=0.5, nullw=-1.0, sw=5.0,
+                       ref_weight_order=True)
+    cfg["TM"]["use"] = False
+    return cfg
+
+
+def egoprocel_train_cfg() -> dict:
+    """``egoprocel_cfg()`` with the host Hungarian matcher, as the port
+    trains it.  ``model.set_kernels(False)`` gives its plain PyTorch path."""
+    cfg = egoprocel_cfg()
     cfg["TPU"]["matcher"] = "host"
     return cfg
 

@@ -1,9 +1,10 @@
-// Cross-attention of a few query rows over a long projected key/value stream:
-// the forward of K2's flash form (single head) and of K3 (multi-head).
+// Cross-attention of a few query rows over a long projected key/value stream
+// on the f32 FMA core of common.cuh: the forward of K2's flash form (single
+// head) and its int8 twins K8c / K8d (multi-head).  fk_proj_attn takes heads,
+// dropout and softmax stats too, which K2's single-head call leaves unused.
 //
 // Replaces fact_clip_tpu/ops/pallas/x2y_attn.py::_x2y_flash_fwd_impl
-// (_flash_kernel) and fact_clip_tpu/ops/pallas/mha_attn.py::_mha_fwd_impl
-// (_mha_kernel).  Both TPU kernels walk the key axis sequentially per video,
+// (_flash_kernel).  The TPU kernel walks the key axis sequentially per video,
 // carrying an online softmax in VMEM scratch.  Blocks on the H100 run in no
 // order, so the walk is split instead:
 //
@@ -15,35 +16,27 @@
 //            takes acc = sum exp(logit - m) V.  K and V never reach global
 //            memory.  The single-head form also streams the masked logits out
 //            (the losses and the decode read them).
-//   combine: one block per (head, query row, video) merges the tiles' (m, l,
-//            acc) into the attention output, and for the single-head form
-//            writes probs = exp(logit - m_max) / l_total.  For K3's backward
-//            it also writes the row's softmax stats (m_max, l_total): 2 floats
-//            per (video, head, query), the only extra write of a training
-//            forward (csrc/mha_bwd.cu recovers p = exp(logit - m) / l).
+//   combine: attn_combine.cuh, one block per (head, query row, video); for
+//            the single-head form it also writes probs = exp(logit - m_max) /
+//            l_total.
 //
-// K3's attention dropout (torch semantics: softmax, then dropout on the
-// probabilities) runs in the partial kernel: the keep value of (b, h, m, key)
-// is fk::dropout_bits(seed, 0, (b*H*M + h*M + m)*X + key), the mask of shape
-// (B, H*M, X) of ops/dropout.py; it multiplies the weights of the attend sum
-// only, while l sums the undropped weights, so the output is
-// dropout(softmax(logits)) @ V, as mha_attn.py:98-106 computes it.  The TPU
-// seeds its PRNG per grid cell (mha_attn.py:104), which ties its forward and
-// backward to one key tile (_pick_tile); this mask is keyed by the logical
-// index, so no tiling couples the two passes.
+// Dropout (torch semantics: softmax, then dropout on the probabilities)
+// runs in the partial kernel when a seed is given: the keep value of (b, h,
+// m, key) is fk::dropout_bits(seed, 0, (b*H*M + h*M + m)*X + key), the mask
+// of shape (B, H*M, X) of ops/dropout.py; it multiplies the weights of the
+// attend sum only, while l sums the undropped weights.
 //
 // Bound on the H100: the two projections, 2 * 2 * B*X*Cx*E FLOPs of f32
-// FMA (25.8 GFLOP for the u-block's f2a at B=8, X=3072, Cx=E=512; 12.9 GFLOP
-// per SCA layer at E=256).  A tile of BK = 64 keys lets every weight value
-// fetched from L2 serve 64 rows; one K/V buffer keeps the block within shared
-// memory at E=512.  The partial results add B * X/BK * H*M * (hd + 2) floats
-// of traffic each way (32 MB for the f2a, 17 MB per SCA layer), small next to
-// the FMA time.  The block holds the GEMM staging, the (BK, E+1) K/V buffer
-// and the (H*M, BK) weights: at E=512, H=8, M=60 (Breakfast's SCA) that is
-// 296 KB at BK = 64, above the 227 KB a block may hold, so the caller
-// (ops/x2y_attn.py::key_tile) takes the largest tile of 64 or 32 that fits:
-// 164 KB at BK = 32 there, while the flagship's K3 and every K2 flash call
-// keep BK = 64.
+// FMA (25.8 GFLOP for the u-block's f2a at B=8, X=3072, Cx=E=512).  A tile
+// of BK = 64 keys lets every weight value fetched from L2 serve 64 rows; one
+// K/V buffer keeps the block within shared memory at E=512.  The partial
+// results add B * X/BK * H*M * (hd + 2) floats of traffic each way (32 MB
+// for the f2a), small next to the FMA time.  The block holds the GEMM
+// staging, the (BK, E+1) K/V buffer and the (H*M, BK) weights: at E=512,
+// H=8, M=60 (Breakfast's int8 SCA, K8d) that is 296 KB at BK = 64, above the
+// 227 KB a block may hold, so the caller (ops/x2y_attn.py::key_tile) takes
+// the largest tile of 64 or 32 that fits: 164 KB at BK = 32 there, while
+// every K2 flash call keeps BK = 64.
 //
 // K8c and K8d, the int8 twins (proj_attn_q8_partial_kernel + the same
 // combine), replace fact_clip_tpu/ops/pallas/quant_conv.py::
@@ -56,6 +49,7 @@
 // queries (scale 1 here), as _arrange_queries does.
 #include <math.h>
 
+#include "attn_combine.cuh"
 #include "common.cuh"
 #include "quant.cuh"
 
@@ -252,84 +246,6 @@ proj_attn_q8_partial_kernel(const int8_t* __restrict__ qxk, const float* __restr
                      fk::Dropout{nullptr, 0, 0u, 1.f});
 }
 
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  v = is_max ? fk::warp_max(v) : fk::warp_sum(v);
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < fk::kWarps; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
-  return r;
-}
-
-__global__ void __launch_bounds__(fk::kThreads)
-proj_attn_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                         int n_t, int M, int H, int hd, float* __restrict__ out,
-                         const float* __restrict__ logits, float* __restrict__ probs, int X,
-                         float* __restrict__ stats) {
-  extern __shared__ float4 smem_raw[];
-  float* red = reinterpret_cast<float*>(smem_raw);  // [kThreads]
-  float* w = red + fk::kThreads;                    // [n_t]
-  const int tid = threadIdx.x;
-  const int hm = blockIdx.x;
-  const int b = blockIdx.y;
-  const int HM = H * M;
-  const int h = hm / M;
-  const int m = hm - h * M;
-  const float* ml = part_ml + ((size_t)b * n_t * HM + hm) * 2;
-
-  float mx = -INFINITY;
-  for (int t = tid; t < n_t; t += fk::kThreads) mx = fmaxf(mx, ml[(size_t)t * HM * 2]);
-  mx = block_reduce(mx, red, true);
-  float l = 0.f;
-  for (int t = tid; t < n_t; t += fk::kThreads) {
-    const float wt = expf(ml[(size_t)t * HM * 2] - mx);
-    w[t] = wt;
-    l += wt * ml[(size_t)t * HM * 2 + 1];
-  }
-  l = block_reduce(l, red, false);  // its barriers also publish w[]
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  if (stats != nullptr && tid == 0) {
-    stats[((size_t)b * HM + hm) * 2] = mx;
-    stats[((size_t)b * HM + hm) * 2 + 1] = l;
-  }
-
-  const float* pa = part_acc + ((size_t)b * n_t * HM + hm) * hd;
-  const size_t tstride = (size_t)HM * hd;
-  float* o = out + ((size_t)b * M + m) * (H * hd) + h * hd;
-  const int DD = hd < fk::kThreads ? hd : fk::kThreads;  // threads per row slice
-  const int TG = fk::kThreads / DD;                       // tile groups
-  const int g = tid / DD;
-  const int dd0 = tid - g * DD;
-  if (TG == 1) {
-    for (int dd = dd0; dd < hd; dd += DD) {
-      float a = 0.f;
-      for (int t = 0; t < n_t; ++t) a = fmaf(w[t], pa[t * tstride + dd], a);
-      o[dd] = a * inv;
-    }
-  } else {
-    // hd < 256: several tile groups per output column, summed through smem
-    __syncthreads();
-    float a = 0.f;
-    if (g < TG)
-      for (int t = g; t < n_t; t += TG) a = fmaf(w[t], pa[t * tstride + dd0], a);
-    red[tid] = a;
-    __syncthreads();
-    if (g == 0) {
-      for (int i = 1; i < TG; ++i) a += red[i * DD + dd0];
-      o[dd0] = a * inv;
-    }
-  }
-
-  if (probs != nullptr) {
-    const float* lr = logits + ((size_t)b * M + m) * X;
-    float* pr = probs + ((size_t)b * M + m) * X;
-    for (int xk = tid; xk < X; xk += fk::kThreads) pr[xk] = expf(lr[xk] - mx) * inv;
-  }
-}
-
 template <int BK>
 cudaError_t launch_partial(const float* x, const float* xpos, long long pos_bstride, int Px,
                            const float* q, const float* wk, const float* bk, const float* wv,
@@ -345,17 +261,6 @@ cudaError_t launch_partial(const float* x, const float* xpos, long long pos_bstr
   proj_attn_partial_kernel<BK><<<dim3(n_t, B), fk::kThreads, smem, stream>>>(
       x, xpos, pos_bstride, Px, q, wk, bk, wv, bv, xlen, X, Cx, M, H, hd, scale, logits,
       part_acc, part_ml, drop);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_combine(const float* part_acc, const float* part_ml, int B, int n_t, int M,
-                           int H, int hd, float* out, const float* logits, float* probs, int X,
-                           float* stats, cudaStream_t stream) {
-  const size_t smem_c = ((size_t)fk::kThreads + n_t) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)proj_attn_combine_kernel, smem_c);
-  if (err != cudaSuccess) return err;
-  proj_attn_combine_kernel<<<dim3(H * M, B), fk::kThreads, smem_c, stream>>>(
-      part_acc, part_ml, n_t, M, H, hd, out, logits, probs, X, stats);
   return cudaGetLastError();
 }
 

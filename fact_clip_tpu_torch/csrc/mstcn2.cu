@@ -52,8 +52,9 @@
 // B=4, T=4096, C=512, 10 layers: serving 12 C^2 FMAs a frame and layer,
 // 371 GFLOP -> 2.25 ms; training 16 C^2 -> 2.98 ms; backward 32 C^2 ->
 // 5.97 ms; bytes (B*T*C*4 per stream pass, ~34 MB) are an order below.
-// The design's limits: C a multiple of 32 (whole K steps per tap), O a
-// multiple of 4 (TMA row strides); shared memory does not depend on C.
+// The design's limits: C and O multiples of 4 (TMA row strides; a tap's K
+// segment is padded to whole 32-float steps in the pack); shared memory does
+// not depend on C.
 #include "tc_tower.cuh"
 
 namespace {
@@ -175,30 +176,44 @@ __global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant_
   }
 }
 
-// dst (2, N, K): the hi and lo TF32 parts of src (R, S) (N = R, K = S) or
-// of its transpose (N = S, K = R), through a 32 x 32 shared-memory tile
+// dst (2, N, Kd): the hi and lo TF32 parts of src (R, S) (N = R, K = S) or
+// of its transpose (N = S, K = R), K-major, through a 32 x 32 shared-memory
+// tile.  K is a whole number of segments of kseg values; each segment lands
+// on kpad >= kseg values of dst's rows (Kd = K / kseg * kpad), the ones past
+// kseg zero, so that a GEMM over taps of C channels takes whole 32-float K
+// steps at any C.  A block covers 32 x 32 of dst.
 __global__ void k6_pack_kernel(const float* __restrict__ src, float* __restrict__ dst, int R,
-                               int S, int transpose) {
+                               int S, int transpose, int kseg, int kpad) {
   __shared__ float tile[32][33];
+  const int N = transpose ? S : R, K = transpose ? R : S;
+  const int Kd = K / kseg * kpad;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int r0 = blockIdx.y * 32, s0 = blockIdx.x * 32;
+  const int n0 = blockIdx.y * 32, kd0 = blockIdx.x * 32;
+  auto src_k = [&](int kd) {  // the K index that lands on kd, or -1 for padding
+    const int seg = kd / kpad, c = kd - seg * kpad;
+    return kd < Kd && c < kseg ? seg * kseg + c : -1;
+  };
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 8 * i, s = s0 + tx;
-    tile[ty + 8 * i][tx] = (r < R && s < S) ? __ldg(src + (size_t)r * S + s) : 0.f;
+    const int r = ty + 8 * i;
+    if (transpose) {  // tile[k][n]: src rows are K
+      const int k = src_k(kd0 + r), n = n0 + tx;
+      tile[r][tx] = (k >= 0 && n < N) ? __ldg(src + (size_t)k * S + n) : 0.f;
+    } else {  // tile[n][k]
+      const int k = src_k(kd0 + tx), n = n0 + r;
+      tile[r][tx] = (k >= 0 && n < N) ? __ldg(src + (size_t)n * S + k) : 0.f;
+    }
   }
   __syncthreads();
-  const size_t plane = (size_t)R * S;
+  const size_t plane = (size_t)N * Kd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int n = (transpose ? s0 : r0) + ty + 8 * i;
-    const int k = (transpose ? r0 : s0) + tx;
-    if (n >= (transpose ? S : R) || k >= (transpose ? R : S)) continue;
+    const int n = n0 + ty + 8 * i, kd = kd0 + tx;
+    if (n >= N || kd >= Kd) continue;
     float hi, lo;
     tc::split(transpose ? tile[tx][ty + 8 * i] : tile[ty + 8 * i][tx], hi, lo);
-    const size_t e = (size_t)n * (transpose ? R : S) + k;
-    dst[e] = hi;
-    dst[plane + e] = lo;
+    dst[(size_t)n * Kd + kd] = hi;
+    dst[plane + (size_t)n * Kd + kd] = lo;
   }
 }
 
@@ -246,25 +261,31 @@ __global__ void __launch_bounds__(256) k6_ds_kernel(
 
 }  // namespace
 
-extern "C" int fk_k6_pack(const float* src, float* dst, int R, int S, int transpose,
-                          void* stream) {
-  dim3 grid((S + 31) / 32, (R + 31) / 32);
-  k6_pack_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(src, dst, R, S, transpose);
+// kseg: the values of one K segment (K when the weights are one segment),
+// kpad: what each takes in dst (k6_pack_kernel)
+extern "C" int fk_k6_pack(const float* src, float* dst, int R, int S, int transpose, int kseg,
+                          int kpad, void* stream) {
+  const int N = transpose ? S : R, K = transpose ? R : S;
+  if (kseg < 1 || K % kseg || kpad < kseg) return (int)cudaErrorInvalidValue;
+  dim3 grid((K / kseg * kpad + 31) / 32, (N + 31) / 32);
+  k6_pack_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(src, dst, R, S, transpose, kseg,
+                                                                  kpad);
   return (int)cudaGetLastError();
 }
 
-// One GEMM of either tower: K6's epilogues kMasked ... kDx and K1's kRelu,
-// kResid, kGate (tc_tower.cuh).  A: (B, T, a_ch); W_z's hi and lo parts
-// K-major in wpack (nprob, 2, N, K) (fk_k6_pack); segs: host ints, per
-// problem and segment (shift, c0).
+// One GEMM of the towers' kernel: K6's epilogues kMasked ... kDx, K1's kRelu,
+// kResid, kGate and K3's kProj (tc_tower.cuh).  A: (B, T, a_ch); W_z's hi
+// and lo parts K-major in wpack (nprob, 2, N, K) (fk_k6_pack, each of the
+// nseg segments kseg values); segs: host ints, per problem and segment
+// (shift, c0); res at res + b * res_bstride + t * res_ld + n.
 extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nseg,
                           const int* segs, int kseg, const float* wpack, int N, int K, int B,
                           int T, const int* lengths, float* out, int ldo, int col_step,
-                          const float* bias0, const float* bias1, const float* res, float* out2,
-                          float* part, const int* seed, int layer, unsigned thresh, float scale,
-                          void* stream) {
+                          const float* bias0, const float* bias1, const float* res, int res_ld,
+                          long long res_bstride, float* out2, float* part, const int* seed,
+                          int layer, unsigned thresh, float scale, void* stream) {
   if (nprob < 1 || nprob > 2 || nseg < 1 || nseg > MAX_SEG || a_ch % 4 || K % 4 || N % 4 ||
-      (nseg > 1 && kseg % tc::kBK))
+      (nseg > 1 && kseg % tc::kBK) || (res != nullptr && res_ld % 4))
     return (int)cudaErrorInvalidValue;
   GemmArgs g;
   memset(&g, 0, sizeof(g));
@@ -288,6 +309,8 @@ extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nse
   g.bias0 = bias0;
   g.bias1 = bias1;
   g.res = res;
+  g.res_ld = res_ld;
+  g.res_bstride = res_bstride;
   g.out2 = out2;
   g.part = part;
   g.drop = fk::Dropout{seed, layer, thresh, scale};
@@ -302,6 +325,7 @@ extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nse
     case kRelu: return (int)launch_gemm<kRelu>(g, grid, st);
     case kResid: return (int)launch_gemm<kResid>(g, grid, st);
     case kGate: return (int)launch_gemm<kGate>(g, grid, st);
+    case kProj: return (int)launch_gemm<kProj>(g, grid, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -220,6 +220,18 @@ __device__ __forceinline__ void mma3_k32(float (&big)[64], float (&small)[64], c
   }
 }
 
+// The 8-deep quarter k of such a step into fresh accumulators (K3's
+// projection promotes after each: tc_tower.cuh, kProj).
+__device__ __forceinline__ void mma3_k8(float (&big)[64], float (&small)[64], const float* a_hi,
+                                        const float* a_lo, const float* b_hi, const float* b_lo,
+                                        int k) {
+  const uint64_t ah = desc_sw128(a_hi) + 2 * k, al = desc_sw128(a_lo) + 2 * k;
+  const uint64_t bh = desc_sw128(b_hi) + 2 * k, bl = desc_sw128(b_lo) + 2 * k;
+  wgmma_tf32_n128(small, al, bh, 0);
+  wgmma_tf32_n128(small, ah, bl, 1);
+  wgmma_tf32_n128(big, ah, bh, 0);
+}
+
 // sum += big + small, rounded f32 adds (after the step's wgmma have completed)
 __device__ __forceinline__ void promote(float (&sum)[64], float (&big)[64], float (&small)[64]) {
   fence_acc(big);

@@ -1,7 +1,8 @@
 // The towers' GEMM on the TF32 tensor cores at f32 accuracy (3xTF32,
 // tc_gemm.cuh): one kernel, templated on its epilogue, that K6 (the MS-TCN++
-// tower) and K1 (the MSTCN tower, ops/dilated_conv.py) both launch through
-// one entry, mstcn2.cu's fk_k6_gemm.
+// tower), K1 (the MSTCN tower, ops/dilated_conv.py) and K3 (the SCA
+// cross-attention's K / V projection and its dx, ops/mha_attn.py) all launch
+// through one entry, mstcn2.cu's fk_k6_gemm.
 //
 //   out[b, t, z*col_step + n] = epilogue(sum over segments s, channels c < kseg
 //       of A[b, t + shift[z][s], c0[z][s] + c] * W_z[s*kseg + c][n])
@@ -43,12 +44,18 @@
 //   K1  kRelu    relu(acc + bias) (the conv's h)
 //       kResid   (acc + bias) * keep + res (the 1x1, dropout, residual)
 //       kGate    acc where res > 0 (dc gated by the ReLU), column sums
-// and zero past the video where the mode masks.  The dropout keep is
+//   K3  kProj    acc + bias + res on the columns n < res_ld (the key's
+//                positional term pos @ Wk, res_bstride 0 when the batch shares it)
+// and zero past the video where the mode masks.  The residual-like operand
+// res sits at res + b * res_bstride + t * res_ld + n.  The dropout keep is
 // fk::dropout_bits (stream = layer, index (b*T + t)*N + n): the mask of
 // ops/dropout.py bit for bit.
 //
-// The design's limits: C a multiple of 32 (whole K steps per tap), O a
-// multiple of 4 (TMA row strides); shared memory does not depend on C.
+// The design's limits: C and O multiples of 4 (TMA row strides).  A tap's
+// K segment is whole 32-float steps: fk_k6_pack pads each segment of the
+// weights with zero rows up to a multiple of 32, and a step that reads past a
+// segment's C channels multiplies the next segment's channels (or TMA's zero
+// fill past the tensor) by those zeros.  Shared memory does not depend on C.
 #pragma once
 
 #include <cuda.h>
@@ -69,7 +76,8 @@ constexpr int MAX_SEG = 6;
 
 enum Mode {
   kMasked = 0, kFuse = 1, kFolded = 2, kLogits = 3, kDx = 4,  // K6's
-  kRelu = 5, kResid = 6, kGate = 7                            // K1's
+  kRelu = 5, kResid = 6, kGate = 7,                           // K1's
+  kProj = 8                                                   // K3's
 };
 
 struct GemmArgs {
@@ -83,9 +91,12 @@ struct GemmArgs {
   int ldo, col_step;  // out row stride; problem z writes columns z * col_step + n
   const float* bias0;
   const float* bias1;
-  // the residual x (kFuse, kFolded, kResid), the cotangent g (kDx) or the
-  // ReLU output h (kGate), row stride N
+  // the residual x (kFuse, kFolded, kResid), the cotangent g (kDx), the
+  // ReLU output h (kGate) or the key's positional term (kProj), at
+  // res + b * res_bstride + t * res_ld + n
   const float* res;
+  int res_ld;
+  long long res_bstride;
   float* out2;       // kFuse: h
   float* part;       // kMasked, kGate: per-block column sums, row stride ldo
   fk::Dropout drop;
@@ -180,12 +191,28 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     }
     tc::fence_proxy_async();
     tc::bar_sync(1 + wg, 128);
-    tc::wgmma_fence();
-    tc::mma3_k32(big, small, st + wg * (TILE / 2), st + TILE + wg * (TILE / 2), st + 2 * TILE,
-                 st + 3 * TILE);
-    tc::wgmma_commit();
-    tc::wgmma_wait_all();
-    tc::promote(acc, big, small);
+    const float* a_hi = st + wg * (TILE / 2);
+    const float* a_lo = st + TILE + wg * (TILE / 2);
+    if (MODE == kProj) {
+      // K3's K and V feed the softmax and the attend sum of every SCA layer:
+      // a promotion after each 8-deep quarter (fresh accumulators) leaves the
+      // big product one truncating add of an 8-deep sum each, where the
+      // 32-deep chain leaves four of a growing one
+#pragma unroll
+      for (int k = 0; k < tc::kBK / 8; ++k) {
+        tc::wgmma_fence();
+        tc::mma3_k8(big, small, a_hi, a_lo, st + 2 * TILE, st + 3 * TILE, k);
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::promote(acc, big, small);
+      }
+    } else {
+      tc::wgmma_fence();
+      tc::mma3_k32(big, small, a_hi, a_lo, st + 2 * TILE, st + 3 * TILE);
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::promote(acc, big, small);
+    }
     if (lane == 0) tc::mbar_arrive(&empty[s]);
   }
 
@@ -217,8 +244,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         const int t = t0 + rw + 8 * h;
         rvs[jj][h] = make_float2(0.f, 0.f);
-        if (JB > 1 && kRes && t < L && ncol)
-          rvs[jj][h] = load2(p.res + ((size_t)b * T + t) * N + n);
+        if (JB > 1 && kRes && t < L && ncol && p.res != nullptr && n < p.res_ld)
+          rvs[jj][h] = load2(p.res + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
       }
     }
 #pragma unroll
@@ -234,8 +261,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         const bool valid = t < L;
         const bool write = t < T && ncol;
         const size_t row = (size_t)b * T + t;
-        // the row's residual, cotangent or gate (valid && ncol only)
-        auto res = [&]() { return JB > 1 ? rvs[jj][h] : load2(p.res + row * N + n); };
+        // the row's residual, cotangent, gate or positional term (valid && ncol only)
+        auto res = [&]() {
+          return JB > 1 ? rvs[jj][h]
+                        : load2(p.res + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
+        };
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         if (MODE == kMasked) {
           v0 = valid ? v0 + bv.x : 0.f;
@@ -284,6 +314,20 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
               y1 = (MODE == kFolded ? fmaxf(v1 + bv.y, 0.f) : v1) + r.y;
             }
             store2(p.out + row * N + n, y0, y1);
+          }
+        } else if (MODE == kProj) {  // res: pos @ Wk on its res_ld columns, or none
+          if (write) {
+            float y0 = 0.f, y1 = 0.f;
+            if (valid) {
+              y0 = v0 + bv.x;
+              y1 = v1 + bv.y;
+              if (p.res != nullptr && n < p.res_ld) {  // res_ld % 4 == 0: n + 1 too
+                const float2 r = res();
+                y0 += r.x;
+                y1 += r.y;
+              }
+            }
+            store2(p.out + row * p.ldo + n, y0, y1);
           }
         } else {  // kLogits: every frame of [0, T), the padded ones the bias row
           if (write) store2(p.out + row * p.ldo + n, v0 + bv.x, v1 + bv.y);

@@ -45,7 +45,7 @@ from torch import nn
 from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_fold, mstcn2_stack,
                                 mstcn2_stack_reference, mstcn_stack, mstcn_stack_reference)
 from ..ops.masking import dropout
-from ..ops.mha_attn import mha_cross_attention
+from ..ops.mha_attn import k3_pack, mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
                               mstcn2_stack_q8_reference, mstcn_stack_q8,
@@ -403,8 +403,12 @@ class MultiheadAttention(nn.Module, KernelLayout):
             rate = self.dropout if self.training else 0.0
             # one seed per call (layers.py:662-665)
             seed = _seeds(generator, 1, key.device) if rate > 0.0 else None
+            # serving keeps the projection's packed weights while the weights do
+            # not change; a training step packs them in the kernels (nothing kept)
+            packed = (self.cached("k3", lambda: k3_pack(wk_t, bk_c, wv_t, bv_c))
+                      if key.device.type == "cuda" and not torch.is_grad_enabled() else None)
             out = mha_cross_attention(q, key, key_pos, wk_t, bk_c, wv_t, bv_c, key_len,
-                                      num_heads=H, rate=rate, seed=seed)
+                                      num_heads=H, rate=rate, seed=seed, packed=packed)
             return self.out_proj(out)
         k = F.linear(add_pos(key, key_pos), wk, bk).view(B, Nk, H, hd)
         v = F.linear(value, wv, bv).view(B, Nk, H, hd)

@@ -190,7 +190,7 @@ def _check_layers(name, x, lengths, layers, out_w, out_b, seeds, rates):
     B, T, C = x.shape
     O = out_w.shape[1]
     if not has_tower_kernels(C, O):
-        raise NotImplementedError(f"{name}: no kernel for C={C}, O={O} (C % 32, O % 4)")
+        raise NotImplementedError(f"{name}: no kernel for C={C}, O={O} (C % 4, O % 4)")
     flat = [p for layer in layers for p in layer]
     _build.check_tensors(name, [x, lengths, out_w, out_b, seeds, *flat], x.device)
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
@@ -213,18 +213,18 @@ def _drop(seeds, i: int, rates):
 
 
 def k1_fwd_weights(layer):
-    """The forward's packed weights: the conv taps (2, C, 3C) (hi / lo, out,
-    tap * C + in) and the 1x1 (2, C, C) (hi / lo, out, in)."""
+    """The forward's packed weights: the conv taps (2, C, 3 Cp) (hi / lo, out,
+    tap * Cp + in, Cp = k6_pad(C)) and the 1x1 (2, C, C) (hi / lo, out, in)."""
     wd, bd, w1, b1, gamma, beta = layer
     C = w1.shape[0]
-    return k6_pack(wd.reshape(3 * C, C), True), k6_pack(w1, True)
+    return k6_pack(wd.reshape(3 * C, C), True, segs=3), k6_pack(w1, True)
 
 
 def k1_bwd_weights(layer):
     """The backward's packed weights: W1 for dc = dh W1^T (2, C, C) (hi / lo,
-    in, out) and the taps for dx (2, C, 3C) (hi / lo, in, tap * C + out)."""
+    in, out) and the taps for dx (2, C, 3 Cp) (hi / lo, in, tap * Cp + out)."""
     wd, bd, w1, b1, gamma, beta = layer
-    return k6_pack(w1), k6_pack(torch.cat([wd[0], wd[1], wd[2]], dim=1))
+    return k6_pack(w1), k6_pack(torch.cat([wd[0], wd[1], wd[2]], dim=1), segs=3)
 
 
 def _part(n_blocks: int, n_vec: int, C: int, device):
@@ -238,15 +238,10 @@ def _part(n_blocks: int, n_vec: int, C: int, device):
 
 def _sums(part):
     """(n, n_vec, C) per-block column sums (``_part``) -> (n_vec, C) in two
-    fixed-order stages: each group of K1_SUM_GROUP blocks, then the groups.
-    One stage over k1_dz's 1,536 blocks at the flagship's shape is a chain of
-    1,536 dependent adds a column: the backward's fk_reduce launches took
-    1.23-1.31 ms of the card so, 0.33 with two stages (H100 80GB HBM3, 700 W)."""
+    fixed-order stages (``_grad.sum_groups``): each group of K1_SUM_GROUP
+    blocks, then the groups."""
     n, n_vec, C = part.shape
-    per = n_vec * C
-    groups = _grad.reduce(part, G=n // K1_SUM_GROUP, P=K1_SUM_GROUP, pstride=per,
-                          gstride=K1_SUM_GROUP * per, rows=n_vec, rstride=C, cols=C)
-    return _grad.block_sums(groups, n_vec, C)
+    return _grad.sum_groups(part.view(1, n, n_vec * C), K1_SUM_GROUP).view(n_vec, C)
 
 
 def _k1_layer(src, lengths, layer, d: int, drop, use_ln: bool, eps: float, dst, h):
@@ -256,9 +251,9 @@ def _k1_layer(src, lengths, layer, d: int, drop, use_ln: bool, eps: float, dst, 
     wd, bd, w1, b1, gamma, beta = layer
     B, T, C = src.shape
     conv, w1p = k1_fwd_weights(layer)
-    _k6_gemm(_RELU, src, [[((k - 1) * d, 0) for k in range(3)]], C, conv, C, lengths, h,
+    _k6_gemm(_RELU, src, [[((k - 1) * d, 0) for k in range(3)]], conv, C, lengths, h,
              bias=(bd, None))
-    _k6_gemm(_RESID, h, _ONE, C, w1p, C, lengths, dst, bias=(b1, None), res=src, drop=drop)
+    _k6_gemm(_RESID, h, _ONE, w1p, C, lengths, dst, bias=(b1, None), res=src, drop=drop)
     if use_ln:
         err = _build.lib().fk_k1_ln(dst.data_ptr(), lengths.data_ptr(), gamma.data_ptr(),
                                     beta.data_ptr(), B, T, C, K1_LN_ROWS, float(eps),
@@ -312,8 +307,7 @@ def _mstcn_fwd_card(x, lengths, layers, dilations, use_ln, eps, out_w, out_b, ra
             if i < len(layers) - 1:
                 streams.append(dst)
         src = dst
-    _k6_gemm(_LOGITS, src, _ONE, C, k6_pack(out_w, True), O, lengths, logits,
-             bias=(out_b, None))
+    _k6_gemm(_LOGITS, src, _ONE, k6_pack(out_w, True), O, lengths, logits, bias=(out_b, None))
     if save:
         return logits, streams, acts
     return logits
@@ -356,13 +350,13 @@ def _mstcn_bwd_card(g, streams, acts, lengths, layers, dilations, use_ln, eps, o
         drop = _drop(seeds, i, rates)
         if last:
             g_in = torch.empty_like(x)
-            _k6_gemm(_MASKED, g, _ONE, O, k6_pack(out_w), C, lengths, g_in)
+            _k6_gemm(_MASKED, g, _ONE, k6_pack(out_w), C, lengths, g_in)
         else:
             g_in = g_stream
         z = None
         if use_ln or last:  # the layer's output before LN, as the forward formed it
             z = torch.empty_like(x)
-            _k6_gemm(_RESID, h_i, _ONE, C, k6_pack(w1, True), C, lengths, z, bias=(b1, None),
+            _k6_gemm(_RESID, h_i, _ONE, k6_pack(w1, True), C, lengths, z, bias=(b1, None),
                      res=x_i, drop=drop)
         dh = torch.empty_like(x)
         dz = torch.empty_like(x) if use_ln else None
@@ -377,10 +371,10 @@ def _mstcn_bwd_card(g, streams, acts, lengths, layers, dilations, use_ln, eps, o
         w1n, taps = k1_bwd_weights(layers[i])
         dc = torch.empty_like(x)
         part_c = torch.empty((n128, 1, C), device=x.device, dtype=torch.float32)
-        _k6_gemm(_GATE, dh, _ONE, C, w1n, C, lengths, dc, res=h_i, part=part_c)
+        _k6_gemm(_GATE, dh, _ONE, w1n, C, lengths, dc, res=h_i, part=part_c)
         dx = torch.empty_like(x)
         # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
-        _k6_gemm(_DX, dc, [[((1 - k) * d, 0) for k in range(3)]], C, taps, C, lengths, dx,
+        _k6_gemm(_DX, dc, [[((1 - k) * d, 0) for k in range(3)]], taps, C, lengths, dx,
                  res=dz if use_ln else g_in)
         dwd = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d, 0, d))
         dw1 = _k6_wgrad(h_i, 0, C, dh, 0, C, lengths)[0]
@@ -493,7 +487,7 @@ def _dr_layer_fwd_card(x, wd, bd, w1, b1, gamma, beta, dilation, use_ln, eps, ra
     in the tests)."""
     B, T, C = x.shape
     if not has_tower_kernels(C):
-        raise NotImplementedError(f"dilated_residual_layer_fwd: no kernel for C={C} (C % 32)")
+        raise NotImplementedError(f"dilated_residual_layer_fwd: no kernel for C={C} (C % 4)")
     if rate > 0.0:
         check_seed("dilated_residual_layer_fwd", seed, x.device)
     _build.check_tensors("dilated_residual_layer_fwd", [x, wd, bd, w1, b1, gamma, beta],
@@ -664,18 +658,19 @@ K6_CHUNK = 768
 K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds and k1_dz
 K1_LN_ROWS = 32  # frames per block of K1's LayerNorm pass
 K1_SUM_GROUP = 64  # per-block column sums added a group at a time (_sums)
-# the GEMM's epilogues (csrc/tc_tower.cuh::Mode): K6's, then K1's own
-_MASKED, _FUSE, _FOLDED, _LOGITS, _DX, _RELU, _RESID, _GATE = range(8)
+# the GEMM's epilogues (csrc/tc_tower.cuh::Mode): K6's, then K1's and K3's own
+_MASKED, _FUSE, _FOLDED, _LOGITS, _DX, _RELU, _RESID, _GATE, _PROJ = range(9)
 _ONE = [[(0, 0)]]  # one problem, one segment, no shift
 
 
 def has_tower_kernels(C: int, O=None) -> bool:
     """K1's and K6's forward and backward kernels (the GEMM of
-    ``csrc/tc_tower.cuh``) take this width (and out width): whole 32-float K
-    steps per tap (C % 32) and TMA row strides of 16 bytes (O % 4).  Their
-    shared memory is fixed by the tiles, not by C.  A width outside raises
-    before any launch."""
-    return C % K6_STEP == 0 and (O is None or O % 4 == 0)
+    ``csrc/tc_tower.cuh``) take this width (and out width): TMA row strides
+    of 16 bytes (C % 4, O % 4).  A tap's K segment is padded to whole
+    32-float steps in the pack (``k6_pack``'s ``segs``), so any such C runs;
+    their shared memory is fixed by the tiles, not by C.  A width outside
+    raises before any launch."""
+    return C % 4 == 0 and (O is None or O % 4 == 0)
 
 
 def tf32_rna(x):
@@ -693,65 +688,82 @@ def tf32_split(w):
     return hi, tf32_rna(w - hi)
 
 
-def k6_pack(w, transpose: bool = False, out=None):
-    """(2, N, K): the TF32 hi and lo parts of w (N, K), or of w^T (N = w's
-    columns), K-major, as the K6 GEMMs read their weight operand.  The pack
-    kernel on CUDA tensors, its plain version on CPU ones."""
+def k6_pad(C: int) -> int:
+    """The K values a segment of C channels takes in a packed weight of
+    several segments: C rounded up to whole 32-float K steps."""
+    return -(-C // K6_STEP) * K6_STEP
+
+
+def k6_pack(w, transpose: bool = False, out=None, segs: int = 1):
+    """(2, N, Kd): the TF32 hi and lo parts of w (N, K), or of w^T (N = w's
+    columns), K-major, as the towers' GEMM reads its weight operand.  With
+    ``segs`` > 1, K is that many segments (a conv's taps) and each is padded
+    with zeros to ``k6_pad`` of its width, Kd = segs * k6_pad(K / segs).  The
+    pack kernel on CUDA tensors, its plain version on CPU ones."""
     R, S = w.shape
     N, K = (S, R) if transpose else (R, S)
+    kseg = K // segs
+    kpad = k6_pad(kseg) if segs > 1 else kseg
     if out is None:
-        out = torch.empty((2, N, K), device=w.device, dtype=torch.float32)
+        out = torch.empty((2, N, segs * kpad), device=w.device, dtype=torch.float32)
     if w.device.type == "cpu":
-        hi, lo = tf32_split(w.t() if transpose else w)
-        out[0].copy_(hi)
-        out[1].copy_(lo)
+        parts = tf32_split(w.t() if transpose else w)
+        for o, part in zip(out, parts):
+            o.view(N, segs, kpad)[:, :, kseg:].zero_()
+            o.view(N, segs, kpad)[:, :, :kseg].copy_(part.reshape(N, segs, kseg))
         return out
     w = w.contiguous()
     _build.check_tensors("k6_pack", [w, out], w.device)
-    err = _build.lib().fk_k6_pack(w.data_ptr(), out.data_ptr(), R, S, int(transpose),
+    err = _build.lib().fk_k6_pack(w.data_ptr(), out.data_ptr(), R, S, int(transpose), kseg, kpad,
                                   _build.stream_ptr(w.device))
     _build.check("fk_k6_pack", err)
     return out
 
 
 def k6_fwd_weights(layer):
-    """The training form's packed weights: the convs (2, 2, C, 3C) (conv,
-    hi / lo, out, tap * C + in) and the fuse (2, C, 2C) (hi / lo, out,
-    [c1 | c2] channel)."""
+    """The training form's packed weights: the convs (2, 2, C, 3 Cp) (conv,
+    hi / lo, out, tap * Cp + in, Cp = k6_pad(C)) and the fuse (2, C, 2C)
+    (hi / lo, out, [c1 | c2] channel)."""
     k1, b1, k2, b2, wt, wb, bf = layer
     C = wt.shape[0]
-    conv = torch.empty((2, 2, C, 3 * C), device=wt.device, dtype=torch.float32)
-    k6_pack(k1.reshape(3 * C, C), True, out=conv[0])
-    k6_pack(k2.reshape(3 * C, C), True, out=conv[1])
+    conv = torch.empty((2, 2, C, 3 * k6_pad(C)), device=wt.device, dtype=torch.float32)
+    k6_pack(k1.reshape(3 * C, C), True, out=conv[0], segs=3)
+    k6_pack(k2.reshape(3 * C, C), True, out=conv[1], segs=3)
     return conv, k6_pack(torch.cat([wt, wb]), True)
 
 
 def k6_bwd_weights(layer):
     """The backward's packed weights: Wf for [dc1 | dc2] = ds Wf^T (2, 2C, C)
-    and the six taps for dx (2, C, 6C) (hi / lo, in, tap-major out)."""
+    and the six taps for dx (2, C, 6 Cp) (hi / lo, in, tap-major out)."""
     k1, b1, k2, b2, wt, wb, bf = layer
     taps = torch.cat([k1[0], k1[1], k1[2], k2[0], k2[1], k2[2]], dim=1)
-    return k6_pack(torch.cat([wt, wb])), k6_pack(taps)
+    return k6_pack(torch.cat([wt, wb])), k6_pack(taps, segs=6)
 
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _k6_gemm(mode, a, segs, kseg, wpack, N, lengths, out, *, ldo=None, col_step=0,
-             bias=(None, None), res=None, out2=None, part=None, drop=(None, 0, 0, 1.0)):
-    """One launch of the towers' GEMM (``csrc/tc_tower.cuh``, K6's and K1's)
-    through its entry ``fk_k6_gemm``: per problem z,
+def _k6_gemm(mode, a, segs, wpack, N, lengths, out, *, ldo=None, col_step=0,
+             bias=(None, None), res=None, res_ld=None, res_bstride=None, out2=None, part=None,
+             drop=(None, 0, 0, 1.0)):
+    """One launch of the towers' GEMM (``csrc/tc_tower.cuh``, K6's, K1's and
+    K3's) through its entry ``fk_k6_gemm``: per problem z,
     out[:, :, z * col_step + n] = epilogue(sum over the segments (shift, c0)
-    of A[b, t + shift, c0 : c0 + kseg] @ W_z's rows of the segment)."""
+    of A[b, t + shift, c0 : c0 + kseg] @ W_z's rows of the segment), kseg the
+    packed segment's width (``k6_pack``).  ``res`` sits at
+    res[b * res_bstride + t * res_ld + n] (default: (B, T, N))."""
     B, T, a_ch = a.shape
     flat = [v for prob in segs for seg in prob for v in seg]
     arr = (ctypes.c_int * len(flat))(*flat)
+    res_ld = N if res_ld is None else res_ld
+    res_bstride = T * res_ld if res_bstride is None else res_bstride
     err = _build.lib().fk_k6_gemm(
-        mode, a.data_ptr(), a_ch, len(segs), len(segs[0]), ctypes.addressof(arr), kseg,
-        wpack.data_ptr(), N, wpack.shape[-1], B, T, lengths.data_ptr(), out.data_ptr(),
-        ldo or N, col_step, _ptr(bias[0]), _ptr(bias[1]), _ptr(res), _ptr(out2), _ptr(part),
-        *drop, _build.stream_ptr(a.device))
+        mode, a.data_ptr(), a_ch, len(segs), len(segs[0]), ctypes.addressof(arr),
+        wpack.shape[-1] // len(segs[0]), wpack.data_ptr(), N, wpack.shape[-1], B, T,
+        lengths.data_ptr(), out.data_ptr(), ldo or N, col_step, _ptr(bias[0]), _ptr(bias[1]),
+        _ptr(res), res_ld, res_bstride, _ptr(out2), _ptr(part), *drop,
+        _build.stream_ptr(a.device))
     _build.check("fk_k6_gemm", err)
 
 
@@ -806,11 +818,11 @@ def mstcn2_fold_reference(layers):
 def mstcn2_fold(layers):
     """The weights of K6's serving form, per layer: (W6 packed, bias), W6 =
     ``mstcn2_fold_reference``'s (6C, C) fold packed by ``k6_pack`` as the
-    serving GEMM reads it (2, C, 6C), so that relu(c1 wt + c2 wb + bf) is one
-    GEMM of the six taps.  The fold's products run on ``csrc/grad.cu`` on
+    serving GEMM reads it (2, C, 6 k6_pad(C)), so that relu(c1 wt + c2 wb +
+    bf) is one GEMM of the six taps.  The fold's products run on ``csrc/grad.cu`` on
     the card, the plain version on the CPU."""
     if layers[0][0].device.type == "cpu":
-        return [(k6_pack(w6, True), bias) for w6, bias in mstcn2_fold_reference(layers)]
+        return [(k6_pack(w6, True, segs=6), bias) for w6, bias in mstcn2_fold_reference(layers)]
     out = []
     for k1, b1, k2, b2, wt, wb, bf in layers:
         C = wt.shape[0]
@@ -818,7 +830,7 @@ def mstcn2_fold(layers):
         fuse = torch.stack([wt, wt, wt, wb, wb, wb])  # (6, mid, out)
         w6 = _grad.atb(taps, fuse, per_video=True).view(6 * C, C)
         bias = _grad.atb(torch.cat([b1, b2]).view(1, 2 * C, 1), torch.cat([wt, wb])[None])
-        out.append((k6_pack(w6, True), bias.view(C) + bf))
+        out.append((k6_pack(w6, True, segs=6), bias.view(C) + bf))
     return out
 
 
@@ -870,16 +882,16 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
         if serving:  # the folded form: the six taps of x, one GEMM
             w6p, bias = folded[i]
             segs = [[((k - 1) * d, 0) for d in (d1, d2) for k in range(3)]]
-            _k6_gemm(_FOLDED, src, segs, C, w6p, C, lengths, dst, bias=(bias, None), res=src)
+            _k6_gemm(_FOLDED, src, segs, w6p, C, lengths, dst, bias=(bias, None), res=src)
         else:
             conv, fuse = k6_fwd_weights(layers[i])
             r = _rate(rates, i)
             c_out = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.float32)
             h_out = torch.empty_like(x) if save else None
             segs = [[((k - 1) * d, 0) for k in range(3)] for d in (d1, d2)]
-            _k6_gemm(_MASKED, src, segs, C, conv, C, lengths, c_out, ldo=2 * C, col_step=C,
+            _k6_gemm(_MASKED, src, segs, conv, C, lengths, c_out, ldo=2 * C, col_step=C,
                      bias=(b1, b2))
-            _k6_gemm(_FUSE, c_out, _ONE, 2 * C, fuse, C, lengths, dst, bias=(bf, None), res=src,
+            _k6_gemm(_FUSE, c_out, _ONE, fuse, C, lengths, dst, bias=(bf, None), res=src,
                      out2=h_out, drop=dropout_args(seeds[i:i + 1] if r > 0.0 else None, i, r))
             if save:
                 cs.append(c_out)
@@ -887,7 +899,7 @@ def _mstcn2_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, rates, seeds, 
                 if i < len(layers) - 1:
                     streams.append(dst)
         if i == len(layers) - 1:
-            _k6_gemm(_LOGITS, dst, _ONE, C, proj, O, lengths, logits, bias=(out_b, None))
+            _k6_gemm(_LOGITS, dst, _ONE, proj, O, lengths, logits, bias=(out_b, None))
         src = dst
     if save:
         return logits, streams, cs, hs
@@ -932,7 +944,7 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
         x_i = streams[i]
         if last:
             g_in = torch.empty_like(x)
-            _k6_gemm(_MASKED, g, _ONE, O, gw, C, lengths, g_in)
+            _k6_gemm(_MASKED, g, _ONE, gw, C, lengths, g_in)
         else:
             g_in = g_stream
         ds = torch.empty_like(x)
@@ -949,11 +961,11 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
         dcw, dxw = k6_bwd_weights(layers[i])
         dc = torch.empty((B, T, 2 * C), **f32)  # [dc1 | dc2]
         part_c = torch.empty((n128, 1, 2 * C), **f32)
-        _k6_gemm(_MASKED, ds, _ONE, C, dcw, 2 * C, lengths, dc, part=part_c)
+        _k6_gemm(_MASKED, ds, _ONE, dcw, 2 * C, lengths, dc, part=part_c)
         dx = torch.empty_like(x)
         # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
         segs = [[((1 - k) * d, c0) for d, c0 in ((d1, 0), (d2, C)) for k in range(3)]]
-        _k6_gemm(_DX, dc, segs, C, dxw, C, lengths, dx, res=g_in)
+        _k6_gemm(_DX, dc, segs, dxw, C, lengths, dx, res=g_in)
         dk1 = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d1, 0, d1))
         dk2 = _k6_wgrad(x_i, 0, C, dc, C, C, lengths, shifts=(-d2, 0, d2))
         dwf = _k6_wgrad(cs[i], 0, 2 * C, ds, 0, C, lengths)[0]

@@ -4,31 +4,38 @@ forward with probability dropout, and its backward.
 Replaces ``fact_clip_tpu/ops/pallas/mha_attn.py::mha_cross_attention``: the
 forward ``_mha_fwd_impl`` (Pallas kernel ``_mha_kernel``), the backward
 ``_mha_bwd`` (``_mha_bwd_kernel``) and the mask replay ``mha_dropout_mask``.
-Per key tile the K and V projections of the raw memory, then masked
-per-head softmax attention.  The TPU kernels' lane-masked row expansion
-(``_expand_rows``) is a workaround for the 128-lane vector unit; the H100
-kernels work per head with hd = E / H directly: the forward is
-``csrc/flash_attn.cu`` (shared with K2's flash form), the backward
-``csrc/mha_bwd.cu`` + ``csrc/grad.cu``, the mask ``csrc/dropout.cu``.  What
-bounds them and what the design does about it is written at the top of the
-CUDA sources.
+On the card the forward is the K / V projection, one 3xTF32 GEMM on the
+towers' tensor-core core (``csrc/tc_tower.cuh`` through ``fk_k6_gemm``,
+epilogue kProj: the bias and the key's positional term), then per (key tile,
+head, video) the masked softmax attention and a fixed-order combine
+(``csrc/mha_attn.cu``).  The backward recomputes the projection, runs the
+attention backward per (key tile, head, video), dx as one more GEMM of the
+same core and the weight products on ``fk_k6_wgrad``.  The TPU kernels'
+lane-masked row expansion (``_expand_rows``) is a workaround for the
+128-lane vector unit; the H100 kernels work per head with hd = E / H.  The
+mask is ``csrc/dropout.cu``.  What bounds them and what the design does
+about it is written at the top of ``csrc/mha_attn.cu``.
 
 q (B, M, E) arrives projected (the q projection and the out projection stay
 outside, as in the JAX caller); the result (B, M, E) holds the heads'
 outputs side by side, before the out projection.  Keys at or past
-``x_len[b]`` get the logit -1e9.  Dropout (torch semantics) multiplies the
-probabilities in the attend sum only, the softmax normaliser sums the
-undropped ones: out = dropout(softmax(logits)) @ V.  Its keep mask is the
-counter hash of ``ops/dropout.py``, stream 0 over (B, H*M, X) with rows
-h*M + m, from a (1,) int32 seed per call.  The TPU seeds per grid cell and so
-ties its forward and backward to one key tile; this mask is keyed by the
-logical index (b, h, m, x), so no tiling couples the two passes.
+``x_len[b]`` get the logit -1e9; the kernels never read the frames there
+(the projection writes zeros), which gives the plain version's result for
+every video with at least one valid key.  Dropout (torch semantics)
+multiplies the probabilities in the attend sum only, the softmax normaliser
+sums the undropped ones: out = dropout(softmax(logits)) @ V.  Its keep mask
+is the counter hash of ``ops/dropout.py``, stream 0 over (B, H*M, X) with
+rows h*M + m, from a (1,) int32 seed per call.  The TPU seeds per grid cell
+and so ties its forward and backward to one key tile; this mask is keyed by
+the logical index (b, h, m, x), so no tiling couples the two passes.
 
 ``mha_cross_attention`` is the differentiable entry.  The forward saves each
 (video, head, query) row's softmax stats (max, sum), the backward recovers the
 probabilities from them, as JAX's does; the key positional term is a
 constant (JAX's ``pos_grad=False``), and the entry refuses one that wants a
-gradient.
+gradient.  ``packed`` (``k3_pack``) hands the projection's packed weights
+to a forward without gradients; the SCA module caches them while serving,
+as long as its weights do not change.
 """
 
 from __future__ import annotations
@@ -39,12 +46,14 @@ import torch
 
 from .. import _build
 from . import _grad
+from .dilated_conv import _MASKED, _ONE, _PROJ, _k6_gemm, _k6_wgrad, k6_pack
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos
-from .x2y_attn import key_tile, proj_attn
 
 _NEG = -1e9
-BWD_KEY_TILES = (64, 32)  # keys per block of csrc/mha_bwd.cu, the largest that fits
+FWD_KEY_TILE = 64  # keys per block of the forward attention (csrc/mha_attn.cu kFwdTile)
+BWD_KEY_TILES = (64, 32)  # keys per block of the backward attention, the largest that fits
+K3_SUM_GROUP = 16  # dq's tile shares and the bias sums, added a run at a time
 
 
 def mha_cross_attention_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
@@ -97,20 +106,63 @@ def _check(name, q, x_in, wk, bk, wv, bv, x_len, num_heads):
     _build.check_tensors(name, [q, x_in, wk, bk, wv, bv, x_len], x_in.device)
 
 
+def _check_strides(name, Cx: int, E: int, P: int):
+    """The projection GEMM's TMA row strides: 16 bytes (Cx, E and the
+    positional term's P channels multiples of 4)."""
+    if Cx % 4 or E % 4 or P % 4:
+        raise NotImplementedError(f"{name}: no kernel for Cx={Cx}, E={E}, P={P} "
+                                  "(each a multiple of 4)")
+
+
+def attn_smem(M: int, hd: int) -> int:
+    """Bytes of the forward attention's block: one head's q rows, the tile's
+    K_h (odd row stride) and V_h, two rows of weights per warp."""
+    bk = FWD_KEY_TILE
+    return 4 * (M * hd + bk * (hd + 1) + bk * hd + 16 * bk)
+
+
 def has_forward(M: int, E: int, num_heads: int) -> bool:
-    """The forward kernel's block (GEMM staging, one tile's K/V buffer and
-    its H*M rows of weights) fits in shared memory at some key tile."""
-    return key_tile(M, E, num_heads) is not None
+    """The forward attention's block fits in shared memory: up to M = 763
+    at hd = 64, 1,654 at hd = 32."""
+    return attn_smem(M, E // num_heads) <= _build.MAX_SMEM
+
+
+def k3_pack(wk, bk, wv, bv):
+    """The projection's weights as the GEMM reads them: [Wk | Wv]^T's TF32
+    hi / lo parts (2, 2E, Cx), [bk | bv] (2E,) and Wk^T's (2, E, Cx) for the
+    positional term pos @ Wk (``dilated_conv.k6_pack``)."""
+    return k6_pack(torch.cat([wk, wv], dim=1), True), torch.cat([bk, bv]), k6_pack(wk, True)
+
+
+def _project(x_in, x_pos, x_len, packed):
+    """KV = x @ [Wk | Wv] + [bk | bv] + [pos @ Wk | 0], (B, X, 2E), zero at
+    frames at or past x_len: the table pos @ Wk (1 or B, X, E) by one GEMM
+    (kMasked), then the projection (kProj) adding it on the K columns."""
+    B, X, Cx = x_in.shape
+    wkv, bkv, wkp = packed
+    E = wkp.shape[1]
+    pos = kernel_pos(x_pos, B, X, Cx)[0]
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    tab = None
+    if pos is not None:
+        Bp = pos.shape[0]
+        tab = torch.empty((Bp, X, E), **f32)
+        lens = x_len if Bp == B else torch.full((Bp,), X, dtype=torch.int32, device=x_in.device)
+        _k6_gemm(_MASKED, pos, _ONE, wkp, E, lens, tab)
+    kv = torch.empty((B, X, 2 * E), **f32)
+    _k6_gemm(_PROJ, x_in, _ONE, wkv, 2 * E, x_len, kv, bias=(bkv, None), res=tab, res_ld=E,
+             res_bstride=X * E if tab is not None and tab.shape[0] == B > 1 else 0)
+    return kv
 
 
 def mha_cross_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, rate: float = 0.0,
-                  seed=None, with_stats: bool = False):
-    """The forward kernel on CUDA tensors, the plain version on CPU tensors;
+                  seed=None, with_stats: bool = False, packed=None):
+    """The forward kernels on CUDA tensors, the plain version on CPU tensors;
     with ``with_stats`` it returns (out, stats) for the backward.  A shape
     whose block does not fit is refused before any launch."""
     _build.no_grad_inputs("mha_cross_fwd", [q, x_in, x_pos, wk, bk, wv, bv])
     B, X, _ = x_in.shape
-    M, E = q.shape[1], wk.shape[1]
+    M = q.shape[1]
     if rate > 0.0:
         check_seed("mha_cross_fwd", seed, x_in.device)
     if x_in.device.type == "cpu":
@@ -118,20 +170,47 @@ def mha_cross_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, rate
         return mha_cross_attention_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len,
                                              num_heads=num_heads, keep=keep,
                                              with_stats=with_stats)
-    _check("mha_cross_fwd", q, x_in, wk, bk, wv, bv, x_len, num_heads)
-    if not has_forward(M, E, num_heads):
-        raise NotImplementedError(f"mha_cross_fwd: no forward kernel for M={M}, E={E}, "
-                                  f"H={num_heads} (shared memory)")
-    out = torch.empty((B, M, E), device=x_in.device, dtype=torch.float32)
-    stats = (torch.empty((B, num_heads * M, 2), device=x_in.device, dtype=torch.float32)
-             if with_stats else None)
-    proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, num_heads=num_heads, out=out, stats=stats,
-              drop=dropout_args(seed, 0, rate))
+    out = _mha_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, rate, seed,
+                        with_stats, packed)
     mha_cross_fwd.launches += 1
-    return (out, stats) if with_stats else out
+    return out
 
 
 mha_cross_fwd.launches = 0
+
+
+def _mha_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, rate, seed, with_stats,
+                  packed):
+    """``mha_cross_fwd``'s launches: the packs (unless ``packed``), the
+    positional table and projection GEMMs, the attention and its combine
+    (CPU tensors reach it only in the tests, which stand a model of the
+    kernels' C interface in for the library)."""
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    _check("mha_cross_fwd", q, x_in, wk, bk, wv, bv, x_len, H)
+    _check_strides("mha_cross_fwd", Cx, E, 0 if x_pos is None else x_pos.shape[-1])
+    if not has_forward(M, E, H):
+        raise NotImplementedError(f"mha_cross_fwd: no forward kernel for M={M}, E={E}, H={H} "
+                                  f"(its block needs {attn_smem(M, hd)} bytes of shared memory, "
+                                  f"{_build.MAX_SMEM} at most)")
+    packed = k3_pack(wk, bk, wv, bv) if packed is None else packed
+    _build.check_tensors("mha_cross_fwd", [*packed], x_in.device)
+    kv = _project(x_in, x_pos, x_len, packed)
+    n_t = -(-X // FWD_KEY_TILE)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    part_acc = torch.empty((B, n_t, H * M, hd), **f32)
+    part_ml = torch.empty((B, n_t, H * M, 2), **f32)
+    out = torch.empty((B, M, E), **f32)
+    stats = torch.empty((B, H * M, 2), **f32) if with_stats else None
+    err = _build.lib().fk_k3_attn(
+        kv.data_ptr(), q.data_ptr(), x_len.data_ptr(), B, X, M, H, hd, 1.0 / math.sqrt(hd),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        stats.data_ptr() if stats is not None else None, *dropout_args(seed, 0, rate),
+        _build.stream_ptr(x_in.device))
+    _build.check("fk_k3_attn", err)
+    return (out, stats) if with_stats else out
 
 
 def _row_term(g, out, num_heads: int):
@@ -172,14 +251,19 @@ def mha_cross_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g
             dk.sum(dim=(0, 1)), torch.einsum("bxc,bxe->ce", x_in, dv), dv.sum(dim=(0, 1)))
 
 
+def bwd_smem(M: int, hd: int, bk: int) -> int:
+    """Bytes of the backward attention's block: one head's q and g rows, the
+    tile's K_h and V_h (odd row stride) and two (M, BK) panels."""
+    return 4 * (2 * M * hd + 2 * bk * (hd + 1) + 2 * M * bk)
+
+
 def bwd_key_tile(M: int, E: int, num_heads: int):
-    """The key tile of the backward kernel: the largest of ``BWD_KEY_TILES``
-    whose block (GEMM staging, the tile's K and V, one head's q and g rows and
-    two (M, BK) panels) fits in shared memory, or None."""
+    """The key tile of the backward attention: the largest of
+    ``BWD_KEY_TILES`` whose block fits in shared memory, or None (past
+    M = 437 at hd = 32, 281 at hd = 64)."""
     hd = E // num_heads
     for bk in BWD_KEY_TILES:
-        floats = 2 * bk * (E + 1) + 2 * M * (hd + 1) + 2 * M * bk
-        if _build.gemm_smem(bk) + 4 * floats <= _build.MAX_SMEM:
+        if bwd_smem(M, hd, bk) <= _build.MAX_SMEM:
             return bk
     return None
 
@@ -195,43 +279,63 @@ def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_h
     if x_in.device.type == "cpu":
         return mha_cross_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g,
                                        num_heads=num_heads, keep=keep)
-    B, X, Cx = x_in.shape
-    M, E = q.shape[1], wk.shape[1]
-    H = num_heads
-    _check("mha_cross_bwd", q, x_in, wk, bk, wv, bv, x_len, H)
-    tile = bwd_key_tile(M, E, H)
-    if tile is None:
-        raise NotImplementedError(f"mha_cross_bwd: no backward kernel for M={M}, E={E}")
-    g = g.contiguous()
-    xpos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
-    _build.check_tensors("mha_cross_bwd", [xpos, stats, out, g, keep], x_in.device)
-    D = _row_term(g, out, H).contiguous()
-    wkvt = torch.cat([wk.t(), wv.t()], dim=0).contiguous()
-    n_t = -(-X // tile)
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    dk, dv = torch.empty((B, X, E), **f32), torch.empty((B, X, E), **f32)
-    dx = torch.empty_like(x_in)
-    part_dq = torch.empty((B, n_t, M, E), **f32)
-    part_b = torch.empty((B * n_t, 2, E), **f32)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = _build.lib().fk_mha_bwd(
-        x_in.data_ptr(), ptr(xpos), pos_stride, Px, q.data_ptr(), g.data_ptr(), stats.data_ptr(),
-        D.data_ptr(), ptr(keep), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
-        wkvt.data_ptr(), x_len.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
-        part_dq.data_ptr(), part_b.data_ptr(), B, X, Cx, M, H, E // H, 1.0 / math.sqrt(E // H),
-        tile, _build.stream_ptr(x_in.device))
-    _build.check("fk_mha_bwd", err)
-    ME = M * E
-    dq = _grad.reduce(part_dq, G=B, P=n_t, pstride=ME, gstride=n_t * ME, rows=1, rstride=0,
-                      cols=ME).view(B, M, E)
-    d_wk = _grad.atb(x_in, dk, pos=xpos)[0]
-    d_wv = _grad.atb(x_in, dv)[0]
-    d_bk, d_bv = _grad.block_sums(part_b, 2, E)
+    grads = _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep)
     mha_cross_bwd.launches += 1
-    return dq, dx, None, d_wk, d_bk, d_wv, d_bv
+    return grads
 
 
 mha_cross_bwd.launches = 0
+
+
+def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep):
+    """``mha_cross_bwd``'s launches (CPU tensors reach it only in the tests,
+    as ``_mha_fwd_card``): the packs, the projection recomputed, the
+    attention backward, dx, the weight products and the fixed-order sums.
+    Nothing of the forward's packs is kept for it: a training step holds no
+    more than the activations it saves."""
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    _check("mha_cross_bwd", q, x_in, wk, bk, wv, bv, x_len, H)
+    pos, _, P = kernel_pos(x_pos, B, X, Cx)
+    _check_strides("mha_cross_bwd", Cx, E, P)
+    tile = bwd_key_tile(M, E, H)
+    if tile is None:
+        raise NotImplementedError(f"mha_cross_bwd: no backward kernel for M={M}, E={E}, H={H} "
+                                  f"(its block needs {bwd_smem(M, hd, BWD_KEY_TILES[-1])} bytes "
+                                  f"of shared memory, {_build.MAX_SMEM} at most)")
+    g = g.contiguous()
+    _build.check_tensors("mha_cross_bwd", [pos, stats, out, g, keep], x_in.device)
+    D = _row_term(g, out, H).contiguous()
+    kv = _project(x_in, x_pos, x_len, k3_pack(wk, bk, wv, bv))  # recomputed, as JAX's does
+    n_slots = -(-(-(-X // tile)) // K3_SUM_GROUP) * K3_SUM_GROUP
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    dkv = torch.empty((B, X, 2 * E), **f32)
+    part_dq = torch.zeros((B, n_slots, M * E), **f32)
+    part_b = torch.zeros((B, n_slots, 2 * E), **f32)
+    err = _build.lib().fk_k3_attn_bwd(
+        kv.data_ptr(), q.data_ptr(), g.data_ptr(), stats.data_ptr(), D.data_ptr(),
+        keep.data_ptr() if keep is not None else None, x_len.data_ptr(), B, X, M, H, hd,
+        1.0 / math.sqrt(hd), dkv.data_ptr(), part_dq.data_ptr(), part_b.data_ptr(), n_slots,
+        tile, _build.stream_ptr(x_in.device))
+    _build.check("fk_k3_attn_bwd", err)
+    del kv
+    dx = torch.empty_like(x_in)
+    _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, x_len, dx)
+    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * E, x_len)[0]  # [x^T dK | x^T dV]
+    d_wk, d_wv = dw[:, :E], dw[:, E:]
+    if pos is not None:  # dWk += pos^T dK, the batch's dK summed first where pos is shared
+        if pos.shape[0] == 1:
+            dk_p = _grad.batch_sum(dkv, E)
+            lens = torch.full((1,), X, dtype=torch.int32, device=x_in.device)
+        else:
+            dk_p, lens = dkv, x_len
+        d_wk = d_wk.clone()
+        d_wk[:P] += _k6_wgrad(pos, 0, P, dk_p, 0, E, lens)[0]
+    dq = _grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
+    d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]
+    return dq, dx, None, d_wk, d_b[:E], d_wv, d_b[E:]
 
 
 class _MHA(torch.autograd.Function):
@@ -261,17 +365,20 @@ class _MHA(torch.autograd.Function):
 
 
 def mha_cross_attention(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
-                        rate: float = 0.0, seed=None):
+                        rate: float = 0.0, seed=None, packed=None):
     """The K3 entry: the kernels on CUDA tensors, the plain versions on CPU
     ones; differentiable in every input but ``x_pos`` (a constant) and
-    ``x_len``.  ``seed``: a (1,) int32 tensor on the device when rate > 0."""
+    ``x_len``.  ``seed``: a (1,) int32 tensor on the device when rate > 0;
+    ``packed``: ``k3_pack(wk, bk, wv, bv)`` for a forward without gradients
+    when the caller keeps it (the kernels pack the weights themselves
+    otherwise, and a training forward and its backward always do)."""
     grad = torch.is_grad_enabled()
     if grad and x_pos is not None and x_pos.requires_grad:
         raise NotImplementedError("mha_cross_attention: the key positional term is a constant "
                                   "(no gradient), as JAX's pos_grad=False")
     args = (q.contiguous(), x_in.contiguous(), x_pos, wk, bk, wv, bv, x_len)
     if not (grad and any(t.requires_grad for t in (q, x_in, wk, bk, wv, bv))):
-        return mha_cross_fwd(*args, num_heads=num_heads, rate=rate, seed=seed)
+        return mha_cross_fwd(*args, num_heads=num_heads, rate=rate, seed=seed, packed=packed)
     if x_in.device.type != "cpu":
         _build.require_backward("mha_cross_attention", has_backward(q.shape[1], wk.shape[1],
                                                                     num_heads))

@@ -120,11 +120,27 @@ def x2y_flash_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
     d = wq.shape[1]
     # the q projection runs outside the kernel, as in the JAX caller
     yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()
-    logits = torch.empty((B, M, X), device=x_in.device, dtype=torch.float32)
+    tile = key_tile(M, d, 1)
+    if tile is None:
+        raise NotImplementedError(f"x2y_flash_fwd: no key tile fits in shared memory at M={M}, "
+                                  f"d={d}")
+    pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
+    _build.check_tensors("x2y_flash_fwd", [pos], x_in.device)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    logits = torch.empty((B, M, X), **f32)
     probs = torch.empty_like(logits)
-    attn = torch.empty((B, M, d), device=x_in.device, dtype=torch.float32)
-    proj_attn(x_in, x_pos, yq, wk, bk, wv, bv, x_len, num_heads=1, out=attn, logits=logits,
-              probs=probs)
+    attn = torch.empty((B, M, d), **f32)
+    n_t = -(-X // tile)
+    part_acc = torch.empty((B, n_t, M, d), **f32)
+    part_ml = torch.empty((B, n_t, M, 2), **f32)
+    # csrc/flash_attn.cu, one head; no dropout and no softmax stats
+    err = _build.lib().fk_proj_attn(
+        x_in.data_ptr(), pos.data_ptr() if pos is not None else None, pos_stride, Px,
+        yq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        x_len.data_ptr(), B, X, Cx, M, 1, d, 1.0 / math.sqrt(d), logits.data_ptr(),
+        probs.data_ptr(), attn.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), None, 0, 0,
+        1.0, None, tile, _build.stream_ptr(x_in.device))
+    _build.check("fk_proj_attn", err)
     x2y_flash_fwd.launches += 1
     return attn, probs, logits
 
@@ -133,41 +149,14 @@ x2y_flash_fwd.launches = 0
 
 
 def key_tile(M: int, E: int, num_heads: int):
-    """The key tile of csrc/flash_attn.cu's partial kernel: the largest of
-    ``KEY_TILES`` whose block (GEMM staging, the (BK, E+1) K/V buffer, the
-    (H*M, BK) weights) fits in shared memory, or None."""
+    """The key tile of csrc/flash_attn.cu's partial kernels (K2's flash form,
+    K8c and K8d): the largest of ``KEY_TILES`` whose block (GEMM staging, the
+    (BK, E+1) K/V buffer, the (H*M, BK) weights) fits in shared memory, or
+    None."""
     for bk in KEY_TILES:
         if _build.gemm_smem(bk) + 4 * (bk * (E + 1) + num_heads * M * bk) <= _build.MAX_SMEM:
             return bk
     return None
-
-
-def proj_attn(x_in, x_pos, q, wk, bk, wv, bv, x_len, *, num_heads: int, out,
-              logits=None, probs=None, stats=None, drop=(None, 0, 0, 1.0)):
-    """Launch csrc/flash_attn.cu (shared by K2's flash form and K3): q (B, M, E)
-    attends over K = (x + pos) @ wk + bk, V = x @ wv + bv with E = num_heads * hd.
-    ``stats`` (B, H*M, 2) receives each row's softmax (max, sum); ``drop`` is
-    ``dropout.dropout_args`` of K3's probability dropout."""
-    B, X, Cx = x_in.shape
-    M, E = q.shape[1], q.shape[2]
-    H = num_heads
-    hd = E // H
-    tile = key_tile(M, E, H)
-    if tile is None:
-        raise NotImplementedError(f"fk_proj_attn: no key tile fits in shared memory at M={M}, "
-                                  f"E={E}, H={H}")
-    pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
-    _build.check_tensors("fk_proj_attn", [q, pos, out, logits, probs, stats], x_in.device)
-    n_t = -(-X // tile)
-    part_acc = torch.empty((B, n_t, H * M, hd), device=x_in.device, dtype=torch.float32)
-    part_ml = torch.empty((B, n_t, H * M, 2), device=x_in.device, dtype=torch.float32)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = _build.lib().fk_proj_attn(
-        x_in.data_ptr(), ptr(pos), pos_stride, Px, q.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-        wv.data_ptr(), bv.data_ptr(), x_len.data_ptr(), B, X, Cx, M, H, hd,
-        1.0 / math.sqrt(hd), ptr(logits), ptr(probs), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), *drop, ptr(stats), tile, _build.stream_ptr(x_in.device))
-    _build.check("fk_proj_attn", err)
 
 
 # ---------------------------------------------------------------------------

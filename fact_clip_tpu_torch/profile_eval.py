@@ -1,7 +1,7 @@
 """Where the time of an eval step (or train step) goes on the card.
 
     python3 -m fact_clip_tpu_torch.profile_eval
-        [--cfg flagship|int8|breakfast|breakfast_int8|epic|epic_int8]
+        [--cfg flagship|int8|breakfast|breakfast_int8|epic|epic_int8|egoprocel]
         [--train] [--steps N] [--trace DIR]
 
 Builds the flagship FACT model (iuUU, D=2048, C=75, M=40), or with
@@ -15,9 +15,12 @@ the verb/noun model (``epic_cfg()``: IUUU, D=1024, 98 verbs x 301 nouns,
 3,806 actions, M=300, ``s_pred_cap`` 256), or with ``--cfg breakfast_int8``
 / ``epic_int8`` those two evaluated with int8 (``breakfast_int8_cfg()`` /
 ``epic_int8_cfg()``: the MS-TCN++ towers through K8e; ``--train`` trains
-them as their f32 twins train), with seeded random weights and
+them as their f32 twins train), or with ``--cfg egoprocel`` the EgoProceL
+model (``egoprocel_cfg()``: iUUU, 200 action tokens, D=2048, 64 classes),
+with seeded random weights and
 times one eval step of 8 videos padded to 3072 frames (Breakfast: 4096;
-epic: one video of 24,576), on the kernel path and on the plain PyTorch
+epic: one video of 24,576; egoprocel: 4096 and 3072 frames padded to
+4096), on the kernel path and on the plain PyTorch
 path: wall time (host clock around a synchronised step), device busy time
 per step (the sum of the CUDA kernels' own times under ``torch.profiler``),
 the idle share 1 - busy / wall, the device launches per step, the peak
@@ -28,7 +31,9 @@ piecewise-constant labels, or of ``breakfast_train_cfg()`` (dropout 0,
 channel masking 0.3, time masking, nullw resolved from the batch) on 4 x
 4096, or of ``epic_train_cfg()`` (channel masking 0.3, o2m matching, the
 verb/noun losses) on one 24,576-frame video of ``engine.train_loop.
-epic_batch``.  Needs a CUDA card; f32 with TF32 off.
+epic_batch``, or of ``egoprocel_train_cfg()`` (channel masking 0.3, nullw
+resolved from the batch) on one 4,096-frame video.  Needs a CUDA card; f32
+with TF32 off.
 """
 
 from __future__ import annotations
@@ -43,9 +48,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .configs import (breakfast_cfg, breakfast_int8_cfg, breakfast_train_cfg, epic_cfg,
-                      epic_int8_cfg, epic_train_cfg, epic_vocab, flagship_cfg,
-                      flagship_int8_cfg, train_cfg)
+from .configs import (breakfast_cfg, breakfast_int8_cfg, breakfast_train_cfg, egoprocel_cfg,
+                      egoprocel_train_cfg, epic_cfg, epic_int8_cfg, epic_train_cfg, epic_vocab,
+                      flagship_cfg, flagship_int8_cfg, train_cfg)
 from .engine.steps import make_eval_step, make_train_step
 from .engine.train_loop import batch_to_device, epic_batch, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
@@ -71,12 +76,14 @@ SETUPS = {
                   [4096, 4050, 3980, 3900, 3700, 3500, 3300, 3100], build_fact, _synthetic),
     "epic": (epic_cfg, epic_train_cfg, 1024, 3806, 256, 24576, [24576], _build_epic,
              epic_batch),
+    "egoprocel": (egoprocel_cfg, egoprocel_train_cfg, 2048, 64, 64, 4096, [4096, 3072],
+                  build_fact, _synthetic),
 }
 SETUPS["breakfast_int8"] = (breakfast_int8_cfg, *SETUPS["breakfast"][1:])
 SETUPS["epic_int8"] = (epic_int8_cfg, *SETUPS["epic"][1:])
 TRAIN_LENGTHS = {"flagship": SETUPS["flagship"][6], "int8": SETUPS["flagship"][6],
                  "breakfast": [4096, 3600, 2500, 1400], "breakfast_int8": [4096, 3600, 2500, 1400],
-                 "epic": [24576], "epic_int8": [24576]}
+                 "epic": [24576], "epic_int8": [24576], "egoprocel": [4096]}
 
 
 def wall_ms(step, args, n):

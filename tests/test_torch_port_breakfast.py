@@ -94,20 +94,23 @@ def test_breakfast_shapes_and_null_weight():
 
 
 def test_shared_memory_fits_at_breakfast_widths():
-    # K3 at E=512, H=8, M=60: the forward and backward take 32-key tiles
+    # K3 at E=512, H=8, M=60: per-head blocks, 64-key tiles forward and
+    # backward (K8d, the int8 twin on flash_attn.cu, takes 32-key tiles)
     assert mha_attn.has_forward(60, 512, 8) and mha_attn.has_backward(60, 512, 8)
-    assert x2y_attn.key_tile(60, 512, 8) == 32 and mha_attn.bwd_key_tile(60, 512, 8) == 32
+    assert x2y_attn.key_tile(60, 512, 8) == 32 and mha_attn.bwd_key_tile(60, 512, 8) == 64
     # the flagship's K3 and K2's flash form keep their 64-key tiles
     assert x2y_attn.key_tile(40, 256, 8) == 64 and mha_attn.bwd_key_tile(40, 256, 8) == 64
     assert x2y_attn.key_tile(60, 512, 1) == 64
     assert x2y_attn.has_backward(60, 4096, 512) and x2y_attn.has_backward(4096, 60, 512)
     # K6 at C=512, and K1 (on the same GEMM) at the flagship's 256 / O=512
     # and gtea's 128.  The tensor-core kernels hold 128 x 128 tiles whatever
-    # C is and take whole 32-float K steps per tap and 16-byte TMA row strides
+    # C is, pad each tap to whole 32-float K steps in the pack and need
+    # 16-byte TMA row strides
     assert dilated_conv.has_tower_kernels(512) and dilated_conv.has_tower_kernels(512, 48)
     assert dilated_conv.has_tower_kernels(256, 512) and dilated_conv.has_tower_kernels(128)
     assert dilated_conv.has_tower_kernels(1024, 1024) and dilated_conv.has_tower_kernels(1024, 48)
-    assert not dilated_conv.has_tower_kernels(1000) and not dilated_conv.has_tower_kernels(528)
+    assert dilated_conv.has_tower_kernels(1000) and dilated_conv.has_tower_kernels(528)
+    assert not dilated_conv.has_tower_kernels(1002) and not dilated_conv.has_tower_kernels(530)
     assert not dilated_conv.has_tower_kernels(512, 50)
     assert _build.gemm_smem(64) == _build.GEMM_SMEM == 41472
 
@@ -122,14 +125,14 @@ def test_wrappers_refuse_a_block_that_does_not_fit_before_any_launch(monkeypatch
     monkeypatch.setattr(_build, "lib", no_lib)
     meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
     x_len = torch.empty((2,), dtype=torch.int32, device="meta")
-    E, M, H, Cx = 1024, 200, 8, 64
-    with pytest.raises(NotImplementedError, match="M=200, E=1024"):
+    E, M, H, Cx = 1024, 1000, 8, 64  # K3's block holds M x hd = 1000 x 128 query values
+    with pytest.raises(NotImplementedError, match="M=1000, E=1024"):
         mha_attn.mha_cross_fwd(meta(2, M, E), meta(2, 300, Cx), None, meta(Cx, E), meta(E),
                                meta(Cx, E), meta(E), x_len, num_heads=H)
-    Cw = 1000  # K6 takes whole 32-float K steps per tap
+    Cw = 1002  # K6 takes 16-byte TMA row strides
     layer = (meta(3, Cw, Cw), meta(Cw), meta(3, Cw, Cw), meta(Cw), meta(Cw, Cw), meta(Cw, Cw),
              meta(Cw))
-    with pytest.raises(NotImplementedError, match="C=1000"):
+    with pytest.raises(NotImplementedError, match="C=1002"):
         dilated_conv.mstcn2_stack_fwd(meta(2, 50, Cw), x_len, [layer], [(1, 1)],
                                       out_w=meta(Cw, 8), out_b=meta(8))
 

@@ -260,13 +260,14 @@ def test_emulated_single_layer_matches_jax_interpret(fake, use_ln, rate):
 
 @pytest.mark.parametrize("entry", ["forward", "backward", "single_layer", "autograd"])
 def test_k1_refuses_a_width_before_any_launch(monkeypatch, entry):
-    """Off the CPU, a width outside ``has_tower_kernels`` (C % 32, O % 4) raises
-    NotImplementedError naming it before the kernel library is built or
-    loaded (meta tensors stand in for the card's); the zoo's MSTCN widths
-    (f_dim 256 and 128, O = 512 on the flagship) pass."""
+    """Off the CPU, a width outside ``has_tower_kernels`` (C % 4, O % 4: TMA
+    row strides of 16 bytes) raises NotImplementedError naming it before the
+    kernel library is built or loaded (meta tensors stand in for the card's);
+    the zoo's MSTCN widths (f_dim 256 and 128, O = 512 on the flagship) and
+    the narrow twin's 24 pass."""
     assert dc.has_tower_kernels(256, 512) and dc.has_tower_kernels(128)
-    assert dc.has_tower_kernels(512, 48)
-    assert not dc.has_tower_kernels(1000) and not dc.has_tower_kernels(256, 50)
+    assert dc.has_tower_kernels(512, 48) and dc.has_tower_kernels(24, 32)
+    assert not dc.has_tower_kernels(1002) and not dc.has_tower_kernels(256, 50)
 
     def no_lib():
         raise AssertionError("the kernel library was asked for")
@@ -274,7 +275,7 @@ def test_k1_refuses_a_width_before_any_launch(monkeypatch, entry):
     monkeypatch.setattr(_build, "lib", no_lib)
     meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
     lens = torch.empty((2,), dtype=torch.int32, device="meta")
-    Cw, Ow = (1000, 8) if entry != "autograd" else (256, 50)
+    Cw, Ow = (1002, 8) if entry != "autograd" else (256, 50)
     layer = (meta(3, Cw, Cw), meta(Cw), meta(Cw, Cw), meta(Cw), meta(Cw), meta(Cw))
     x = meta(2, 50, Cw)
     kw = dict(use_ln=False, out_w=meta(Cw, Ow), out_b=meta(Ow))
@@ -290,27 +291,75 @@ def test_k1_refuses_a_width_before_any_launch(monkeypatch, entry):
             dc.mstcn_stack(x, lens, [tuple(p.requires_grad_() for p in layer)], [1], **kw)
 
 
-@pytest.mark.parametrize("mode", ["eval", "train"])
-def test_narrow_twin_tower_is_refused_on_the_card(monkeypatch, mode):
-    """``configs.small_cfg()`` (the narrow twin of ``_make_cfg(small=True)``:
-    ``f: m`` towers with f_dim 24 and hid_dim 32) runs its towers on the CPU
-    only: 24 is not a whole number of 32-float K steps, so off the CPU the
-    module's tower raises NotImplementedError naming C=24 before the kernel
-    library is asked for, serving and training alike."""
+def _narrow_tower(seed, tower, T, lengths):
+    """A tower at ``configs.small_cfg()``'s widths (f_dim 24, hid_dim 32):
+    K1 (f: m, no LN) or K6 (f: m2) layers, dilations past the short videos."""
     from fact_clip_tpu_torch import configs
-    from fact_clip_tpu_torch.models import layers as L
 
     cfg = configs.small_cfg()["Bi"]
-    C, O = cfg["f_dim"], cfg["hid_dim"]
-    assert (C, O) == (24, 32) and not dc.has_tower_kernels(C, O)
+    Cn, On = cfg["f_dim"], cfg["hid_dim"]
+    rng = np.random.default_rng(seed)
 
-    def no_lib():
-        raise AssertionError("the kernel library was asked for")
+    def r(*s, scale=0.15):
+        return torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32))
 
-    monkeypatch.setattr(_build, "lib", no_lib)
-    tower = L.MSTCN(16, C, O, cfg["f_layers"], ln=cfg["f_ln"], in_map=True,
-                    dropout=cfg["dropout"]).to("meta").train(mode == "train")
-    x = torch.empty((2, 50, 16), device="meta")
-    lens = torch.empty((2,), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="C=24, O=32"):
-        tower(x, lens, generator=torch.Generator())  # the dropout seeds' draw (training)
+    x = r(len(lengths), T, Cn, scale=1.0)
+    if tower == "m":
+        layers = [(r(3, Cn, Cn), r(Cn, scale=0.1), r(Cn, Cn), r(Cn, scale=0.1), torch.ones(Cn),
+                   torch.zeros(Cn)) for _ in DILATIONS]
+        dil = DILATIONS
+    else:
+        dil = [(16, 1), (1, 16)]
+        layers = [(r(3, Cn, Cn, scale=0.12), r(Cn, scale=0.1), r(3, Cn, Cn, scale=0.12),
+                   r(Cn, scale=0.1), r(Cn, Cn), r(Cn, Cn), r(Cn, scale=0.1)) for _ in dil]
+    return x, layers, dil, r(Cn, On, scale=0.2), r(On, scale=0.1)
+
+
+@pytest.mark.parametrize("tower", ["m", "m2"])
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_narrow_twin_tower_is_refused_on_the_card(fake, mode, tower):
+    """``configs.small_cfg()`` (the narrow twin of ``_make_cfg(small=True)``:
+    towers with f_dim 24 and hid_dim 32) is no longer refused on the card:
+    24 channels are not a whole number of 32-float K steps, and the pack pads
+    each tap's K segment to 32 with zeros.  The port's launch sequences of K1
+    (``f: m``) and K6 (``f: m2``) at C=24, O=32 on the kernels' model against
+    JAX's towers in interpret mode: the serving form (eval), and the training
+    form with its backward against ``jax.vjp`` (train)."""
+    from fact_clip_tpu.ops.pallas.dilated_conv import dilated_residual2_stack
+
+    T, lengths = 70, RAGGED[70]
+    x, layers, dil, ow, ob = _narrow_tower(10, tower, T, lengths)
+    assert (x.shape[2], ow.shape[1]) == (24, 32) and dc.has_tower_kernels(24, 32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    mask = np.arange(T)[None] < np.array(lengths)[:, None]
+    layers_j = [tuple(_jax(p) for p in layer) for layer in layers]
+
+    def f(x_, layers_, ow_, ob_):
+        if tower == "m":
+            return dilated_residual_stack(x_, jnp.asarray(mask), layers_, dil, use_ln=False,
+                                          tile=32, interpret=True, out_params=(ow_, ob_))
+        return dilated_residual2_stack(x_, jnp.asarray(mask), layers_, dil, tile=32,
+                                       interpret=True, out_params=(ow_, ob_))
+
+    fwd = (lambda save: dc._mstcn_fwd_card(x, lens, layers, dil, False, 1e-5, ow, ob, None,
+                                           None, save)) if tower == "m" else (
+        lambda save: dc._mstcn2_fwd_card(x, lens, layers, dil, ow, ob, None, None, save, None))
+    if mode == "eval":
+        got = fwd(False)
+        _close(got.numpy()[mask], np.asarray(f(_jax(x), layers_j, _jax(ow), _jax(ob)))[mask])
+        assert ("gemm", dc._FOLDED if tower == "m2" else dc._RELU) in fake.calls
+        return
+    g = np.random.default_rng(11).standard_normal((3, T, 32)).astype(np.float32)
+    g[~mask] = 0.0  # the JAX vjp sees the padded logits; the losses never read them
+    out_j, vjp = jax.vjp(f, _jax(x), layers_j, _jax(ow), _jax(ob))
+    dx_j, dl_j, dow_j, dob_j = vjp(jnp.asarray(g))
+    logits, *saves = fwd(True)
+    _close(logits.numpy()[mask], np.asarray(out_j)[mask])
+    bwd = dc._mstcn_bwd_card if tower == "m" else dc._mstcn2_bwd_card
+    extra = (False, 1e-5) if tower == "m" else ()
+    got = bwd(torch.from_numpy(g), *saves, lens, layers, dil, *extra, ow, ob, None, None)
+    valid = dc._frame_mask(x, lens)
+    ref = (torch.from_numpy(np.asarray(dx_j)) * valid,
+           [tuple(torch.from_numpy(np.asarray(p)) for p in d) for d in dl_j],
+           torch.from_numpy(np.asarray(dow_j)), torch.from_numpy(np.asarray(dob_j)))
+    _close_grads((got[0] * valid, *got[1:]), ref)

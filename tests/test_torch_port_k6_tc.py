@@ -187,15 +187,21 @@ class FakeK6Lib:
         return dropout_mask_reference(_ints(seed, 1).clone(), layer, shape, rate)
 
     def fk_k6_gemm(self, mode, a, a_ch, nprob, nseg, segs, kseg, wpack, N, K, B, T, lengths, out,
-                   ldo, col_step, bias0, bias1, res, out2, part, seed, layer, thresh, scale,
-                   stream):
+                   ldo, col_step, bias0, bias1, res, res_ld, res_bstride, out2, part, seed, layer,
+                   thresh, scale, stream):
         self.calls.append(("gemm", mode))
-        A = _view(a, B * T * a_ch).view(B, T, a_ch)
+        assert K == nseg * kseg and (nseg == 1 or kseg % 32 == 0)
+        # TMA reads zeros past the activations' channels
+        A = torch.nn.functional.pad(_view(a, B * T * a_ch).view(B, T, a_ch), (0, kseg))
         W = _view(wpack, nprob * 2 * N * K).view(nprob, 2, N, K)
         lens = _ints(lengths, B)
         sg = _ints(segs, nprob * nseg * 2).view(nprob, nseg, 2)
-        cols = ldo if mode in (dc._MASKED, dc._LOGITS, dc._GATE) else N
+        cols = ldo if mode in (dc._MASKED, dc._LOGITS, dc._GATE, dc._PROJ) else N
         Y = _view(out, B * T * cols).view(B, T, cols)
+
+        def res_rows(b):  # res + b * res_bstride + t * res_ld
+            return _view(res + 4 * b * res_bstride, T * res_ld).view(T, res_ld)
+
         t = torch.arange(T)
         ntile = -(-T // 128)
         for z in range(nprob):
@@ -219,8 +225,7 @@ class FakeK6Lib:
                 valid = (t < L)[:, None]
                 if mode in (dc._MASKED, dc._GATE):
                     if mode == dc._GATE:  # acc where the ReLU output h > 0
-                        H = _view(res, B * T * N).view(B, T, N)[b]
-                        v = torch.where(valid & (H > 0), acc, 0.0)
+                        v = torch.where(valid & (res_rows(b) > 0), acc, 0.0)
                     else:
                         v = torch.where(valid, acc + bv, 0.0)
                     Y[b, :, c_off:c_off + N] = v
@@ -230,10 +235,15 @@ class FakeK6Lib:
                             P[b, i, c_off:c_off + N] = v[i * 128:(i + 1) * 128].sum(0)
                 elif mode == dc._LOGITS:
                     Y[b] = acc + bv
+                elif mode == dc._PROJ:  # + the positional term on its res_ld columns
+                    tab = torch.zeros(T, N)
+                    if res is not None:
+                        tab[:, :res_ld] = res_rows(b)
+                    Y[b, :, :N] = torch.where(valid, acc + bv + tab, 0.0)
                 elif mode == dc._RELU:
                     Y[b] = torch.where(valid, torch.relu(acc + bv), 0.0)
                 else:
-                    X = _view(res, B * T * N).view(B, T, N)[b]
+                    X = res_rows(b)
                     if mode == dc._FUSE:
                         h = torch.relu(acc + bv)
                         keep = self._keep(seed, layer, thresh, scale, (B, T, N))[b]
