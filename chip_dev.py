@@ -6,7 +6,8 @@
         named cases of a row (``mha_cross:flagship,ragged``; a case the
         parent's package refuses, such as one this tree made possible, is
         left out so); ``k3`` stands for K3's rows at the cases both trees
-        run: PARENT_DIR is
+        run, ``k2k4`` for K2's flash backward and K4's SA forward at theirs:
+        PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
         its own kernel library and runs the rows of this tree's
@@ -32,6 +33,18 @@
         the flagship's shapes: the output, dq, dx and the weight and bias
         gradients), of the package in TREE (default: this checkout; an
         unpacked parent to compare).
+
+    python3 chip_dev.py k2-f64 [TREE]
+        The same for K2's flash backward (the flagship's 8 x 3072, M=40 and
+        Breakfast's 4 x 4096, M=60, d = Cx = 512, shared x_pos): every
+        cotangent from the same saves (probabilities, output) against the
+        plain backward in float64.
+
+    python3 chip_dev.py sa-qkv
+        K4's SA forward rows of phase 3 with q, k and v projected by each
+        form of ``ops/sa_layer.py`` (``SA_QKV_FORMS``: the f32 row-tile
+        kernel, "fma", or one 3xTF32 GEMM of the towers' core, "tc"), in
+        turns (fma, tc, tc, fma) in one process.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -63,7 +76,10 @@ cs.phase_kernels()
 """
 # K3's rows at the cases the parent of the K3 redesign runs too (it refused M=200)
 ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd:flagship,ragged",
-                  "mha_cross_e512", "mha_cross_bwd_e512"]}
+                  "mha_cross_e512", "mha_cross_bwd_e512"],
+           # K2's flash backward and K4's SA forward at the cases their parent runs too
+           "k2k4": ["x2y_flash_bwd:flagship,ragged,breakfast",
+                    "sa_sublayer:flagship,ragged,flag_drop,rag_drop,epic,epic_b3,epic_drop,ego"]}
 
 
 def ab(parent: str, names):
@@ -209,6 +225,69 @@ def k3_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
+def _chip_smoke(tree: str):
+    """This checkout's chip_smoke.py on the package in ``tree``, built."""
+    import importlib.util
+
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.REPO = tree
+    cs.phase_environment(torch)
+    cs.phase_build()
+    return cs
+
+
+def k2_f64(tree: str = REPO, seed: int = 0):
+    """K2's flash backward (shared x_pos, g_probs and g_logits non-zero) of
+    the package in ``tree`` and its f32 plain version, each against the
+    plain version in float64 on the same saves: max, rms and coherent error
+    of every cotangent."""
+    import torch
+
+    cs = _chip_smoke(tree)
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    names = ("dy", "dy_pos", "dx", "dx_pos", "dWk", "dbk", "dWv", "dbv", "dWq", "dbq")
+    for tag, (B, M, X, lens, P) in {"flagship": (8, 40, 3072, cs.FLAGSHIP_LENGTHS, 256),
+                                    "breakfast": (4, 60, 4096, cs.BF_TRAIN_LENGTHS, 512)}.items():
+        args = cs.x2y_case(rng, B, M, X, 512, 512, 512, lens, cs._rand(rng, (1, M, P)),
+                           cs._rand(rng, (1, X, 512)))
+        a64 = [t.double() if t is not None and t.is_floating_point() else t for t in args]
+        with torch.no_grad():
+            attn, probs, _ = (t.float() for t in xa.x2y_attention_reference(*a64))
+            g = [cs._rand(rng, attn.shape), cs._rand(rng, probs.shape, 0.1),
+                 cs._rand(rng, probs.shape, 0.1)]
+            ref = xa.x2y_bwd_reference(*a64, probs.double(), *[t.double() for t in g])
+            runs = {"kernel": xa.x2y_flash_bwd(*args, probs, attn, *g),
+                    "plain": xa.x2y_bwd_reference(*args, probs, *g)}
+        for name, grads in runs.items():
+            parts = [f"{n} {_stats(a, r, one)}" for n, a, r in zip(names, grads, ref)]
+            print(f"[k2-f64] {os.path.relpath(os.path.abspath(tree), REPO)} {tag} {name:<6} vs "
+                  "float64: " + "; ".join(parts), flush=True)
+    return 0
+
+
+def sa_qkv(seed: int = 0):
+    """Phase 3's SA forward rows under each projection form, in turns."""
+    cs = _chip_smoke(REPO)
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    rows = [r for r in cs.kernel_table() if r[0] == "sa_sublayer"]
+    cs.kernel_table = lambda: rows
+    for form in ("fma", "tc", "tc", "fma"):
+        sl.SA_QKV = form
+        print(f"== qkv form {form}", flush=True)
+        cs.phase_kernels(seed)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -218,6 +297,10 @@ def main(argv):
         return k1_f64()
     if argv[:1] == ["k3-f64"] and len(argv) <= 2:
         return k3_f64(*argv[1:])
+    if argv[:1] == ["k2-f64"] and len(argv) <= 2:
+        return k2_f64(*argv[1:])
+    if argv == ["sa-qkv"]:
+        return sa_qkv()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -30,13 +30,24 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    JSON line); the towers' training forms and backwards and K3's forward
    (dropout 0.2) and backward are also run 20 times each on the same
    inputs and must give the same bits every time (``k6_repeat_check``:
-   K6 at Breakfast's and epic's shapes, K1 and K3 at the flagship's).
+   K6 at Breakfast's and epic's shapes, K1, K3 and K2's flash backward at
+   the flagship's, K4's SA forward with dropout 0.2 at epic's and the
+   flagship's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
-   backward of that pair); no PyTorch call computes the other fused
-   functions (K6: two dilated conv3s, the split fuse, the ReLU, the mask
-   and the out projection), so their ``library_ms`` is null.  K3 also at
+   backward of that pair), and so do K2's small-X rows (the same X2Y
+   function) and K4's SA forward rows (``torch.matmul`` on [Wq | Wk] and
+   Wv, SDPA, ``torch.matmul`` on Wo, ``F.layer_norm``); no PyTorch call
+   computes the other fused functions (K6: two dilated conv3s, the split
+   fuse, the ReLU, the mask and the out projection), so their
+   ``library_ms`` is null.  K2's flash backward runs the projection's
+   recompute, dx and the weight products on the tensor cores too (three
+   TF32 passes in its bound).  K2's flash forms and K3 also at a video with
+   no valid key (``xlen0``: x_len = 0 attends to every frame, as JAX's);
+   K2's flash backward also at Breakfast's 4 x 4096, M=60, d=512; K4's SA
+   forward also at egoprocel's B=2, M=200 and with dropout at epic's
+   shape.  K3 also at
    egoprocel's 200 queries (1 x 4096, E=256, H=8, forward with dropout 0.2
    and backward); K1 and K6 also at the narrow twin's 24 channels (forward,
    training form and backward).  The
@@ -396,8 +407,11 @@ def _seed(rng):
 
 
 def _valid(lens, n: int) -> int:
-    """Valid rows (frames or keys) of a batch: what the work depends on."""
-    return int(lens.clamp(max=n).sum())
+    """Valid rows (frames or keys) of a batch: what the work depends on (a
+    video with no valid key attends to all n)."""
+    import torch
+
+    return int(torch.where(lens > 0, lens.clamp(max=n), n).sum())
 
 
 def k1_case(rng, B, T, C, O, dilations, lengths, use_ln):
@@ -555,8 +569,7 @@ def x2y_fwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     work = (2 * B * Y * Cy * d + kv + 4 * Y * d * Xv,
             nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4)
     fn = xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd
-    library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1) if flash \
-        else None
+    library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1)
     return lambda: fn(*args), lambda: xa.x2y_attention_reference(*args), work, None, library
 
 
@@ -568,16 +581,15 @@ def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     g_attn = _rand(rng, attn.shape)
     g_probs, g_logits = _rand(rng, probs.shape, 0.1), _rand(rng, logits.shape, 0.1)
     Xv = _valid(args[10], X)
-    if flash:
+    n_bytes = (nbytes(args, probs, attn if flash else None, g_attn, g_probs, g_logits)
+               + nbytes(args[:10]))
+    if flash:  # the projection's recompute, dx and the weight products as three TF32 passes
         kern = lambda: xa.x2y_flash_bwd(*args, probs, attn, g_attn, g_probs, g_logits)  # noqa: E731
-        flops = 12 * Cx * d * Xv + 8 * Y * d * Xv + 6 * B * Y * Cy * d
+        work = (8 * Y * d * Xv + 6 * B * Y * Cy * d, n_bytes, 0, 12 * Cx * d * Xv)
     else:
         kern = lambda: xa.x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)  # noqa: E731
-        flops = 6 * B * Y * Cy * d + 8 * Y * d * Xv + 12 * B * X * Cx * d
-    work = (flops, nbytes(args, probs, attn if flash else None, g_attn, g_probs, g_logits)
-            + nbytes(args[:10]))
-    library = (sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1, g=g_attn)
-               if flash else None)
+        work = (6 * B * Y * Cy * d + 8 * Y * d * Xv + 12 * B * X * Cx * d, n_bytes)
+    library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1, g=g_attn)
     return (kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work,
             None, library)
 
@@ -689,7 +701,32 @@ def sa_fwd_case(rng, B, M, E, H, rate=0.0):
     work = (B * (8 * M * E * E + 4 * M * M * E), nbytes(args) + B * M * E * 4)
     return (lambda: sl.sa_sublayer_fwd(*args, num_heads=H, rate_attn=rate, rate=rate, seed=seed),
             lambda: sl.sa_sublayer_reference(*args, num_heads=H, keep_attn=ka, keep_out=ko),
-            work)
+            work, None, sa_library(*args, H, rate))
+
+
+def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rate=0.0):
+    """The library yardstick of the SA sublayer's forward: ``torch.matmul``
+    of (x + pos) on [Wq | Wk] and of x on Wv, ``F.scaled_dot_product_attention``
+    (dropout on the probabilities), ``torch.matmul`` on Wo and
+    ``F.layer_norm`` of the residual (TF32 off; the output dropout left out).
+    Timed here, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    B, M, E = x.shape
+    hd = E // H
+    wqk, bqk = torch.cat([wq, wk], dim=1), torch.cat([bq, bk])
+
+    def run():
+        qk = torch.matmul(x + pos, wqk) + bqk
+        v = torch.matmul(x, wv) + bv
+        heads = lambda t: t.view(B, M, H, hd).transpose(1, 2)  # noqa: E731
+        ctx = F.scaled_dot_product_attention(heads(qk[..., :E]), heads(qk[..., E:]), heads(v),
+                                             dropout_p=rate)
+        o = torch.matmul(ctx.transpose(1, 2).reshape(B, M, E), wo) + bo
+        return F.layer_norm(x + o, (E,), ln_scale, ln_bias, 1e-6)
+
+    return run
 
 
 def sa_bwd_case(rng, B, M, E, H, rate=0.2):
@@ -1173,7 +1210,10 @@ def kernel_table():
          [("flagship", lambda r: x2y_fwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_fwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
-                                            _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
+                                            _rand(r, (1, 37, D)), _rand(r, (1, 2000, D)))),
+          # a video with no valid key attends to all its frames, as JAX's
+          ("xlen0", lambda r: x2y_fwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
+                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
         ("mha_cross", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
@@ -1187,14 +1227,19 @@ def kernel_table():
           ("m200", lambda r: mha_fwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
                                           zeros(1, 4096, D))),
           ("m200_drop", lambda r: mha_fwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
-                                               zeros(1, 4096, D), 0.2))]),
+                                               zeros(1, 4096, D), 0.2)),
+          ("xlen0", lambda r: mha_fwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
+                                           _rand(r, (1, 1100, D)), 0.2))]),
         ("sa_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "rel",
          [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
           ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
           ("flag_drop", lambda r: sa_fwd_case(r, B, 40, 256, 8, 0.2)),
           ("rag_drop", lambda r: sa_fwd_case(r, 3, 11, 256, 8, 0.2)),
           ("epic", lambda r: sa_fwd_case(r, 1, 300, E, 8)),
-          ("epic_b3", lambda r: sa_fwd_case(r, 3, 300, E, 8))]),
+          ("epic_b3", lambda r: sa_fwd_case(r, 3, 300, E, 8)),
+          ("epic_drop", lambda r: sa_fwd_case(r, 1, 300, E, 8, 0.2)),
+          # egoprocel's token decoders: 200 tokens, batch 2
+          ("ego", lambda r: sa_fwd_case(r, 2, 200, E, 8))]),
         ("ffn_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "rel",
          [("flagship", lambda r: ffn_fwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_fwd_case(r, 3, 37, 256, 512)),
@@ -1237,14 +1282,21 @@ def kernel_table():
          [("flagship", lambda r: x2y_bwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_bwd_case(r, True, 2, 37, 2000, D, D, D, [2000, 1500],
-                                            _rand(r, (1, 37, D)), _rand(r, (1, 2000, D))))]),
+                                            _rand(r, (1, 37, D)), _rand(r, (1, 2000, D)))),
+          # Breakfast's u-block X2Y: 60 tokens over 4 x 4096 frames, d = 512
+          ("breakfast", lambda r: x2y_bwd_case(r, True, 4, 60, 4096, D, D, D, bf_len,
+                                               _rand(r, (1, 60, D)), zeros(1, 4096, D))),
+          ("xlen0", lambda r: x2y_bwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
+                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
         ("mha_cross_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("flagship", lambda r: mha_bwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
           ("ragged", lambda r: mha_bwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
                                             _rand(r, (1, 1100, D)))),
           ("m200", lambda r: mha_bwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
-                                          zeros(1, 4096, D)))]),
+                                          zeros(1, 4096, D))),
+          ("xlen0", lambda r: mha_bwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
+                                           _rand(r, (1, 1100, D))))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
          [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
           ("flag_nodrop", lambda r: sa_bwd_case(r, B, 40, 256, 8, 0.0)),
@@ -1449,7 +1501,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1 and K3 case that must give the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2-flash-backward and K4 SA case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1462,7 +1514,10 @@ def k6_repeat_check(seed: int = 0):
     K1 at the flagship's shape (its dc GEMM's sums, its k1_dz); K3 at the
     flagship's shape, the forward with dropout 0.2 (the projection GEMM, the
     per-head partials, the combine) and the backward (its tile shares and
-    bias sums in two stages)."""
+    bias sums in two stages); K2's flash backward at the flagship's shape
+    (the attention's panels and column sums, dyq's tile shares); K4's SA
+    forward with dropout 0.2 at epic's B=1, M=300 and the flagship's B=8,
+    M=40 (the three split kernels, the cp.async staging)."""
     import torch
 
     def tensors(out):
@@ -1482,7 +1537,12 @@ def k6_repeat_check(seed: int = 0):
              ("k3_drop", lambda: mha_fwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                               zeros, 0.2)),
              ("k3_bwd", lambda: mha_bwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
-                                             zeros)))
+                                             zeros)),
+             ("k2_flash_bwd", lambda: x2y_bwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                                   FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
+                                                   zeros)),
+             ("sa_epic", lambda: sa_fwd_case(rng, 1, 300, 256, 8, 0.2)),
+             ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1491,14 +1551,15 @@ def k6_repeat_check(seed: int = 0):
             differ = 0
             for _ in range(K6_REPEATS - 1):
                 differ += not all(torch.equal(a, b) for a, b in zip(first, tensors(kern())))
-        log(f"[k6-repeat] {name:<8} {K6_REPEATS} runs, {len(first)} tensors each: {differ} runs "
+        log(f"[k6-repeat] {name:<12} {K6_REPEATS} runs, {len(first)} tensors each: {differ} runs "
             "differ from the first" + ("  FAIL" if differ else ""))
         if differ:
             failed.append(name)
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower or K3 gives different bits on the same inputs: {failed}")
+        raise AssertionError(f"a tower, K2, K3 or K4 gives different bits on the same inputs: "
+                             f"{failed}")
 
 
 # ---------------------------------------------------------------------------

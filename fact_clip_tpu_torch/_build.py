@@ -55,7 +55,7 @@ SIGNATURES = {
     "fk_atb": [P, P, L, I, P, I, I, P, P, I, I, I, I, I, I, P],
     "fk_reduce": [P, I, I, L, L, I, L, I, P, P],
     "fk_x2y_sx_bwd": [P, P, L, I] + [P] * 15 + [I, I, I, I, I, F, P],
-    "fk_x2y_flash_bwd": [P, P, L, I] + [P] * 19 + [I, I, I, I, I, F, P],
+    "fk_x2y_flash_attn_bwd": [P] * 8 + [I, I, I, I, F] + [P] * 3 + [I, P],
     "fk_frame_loss_fwd": [P] * 6 + [I, I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
     "fk_x2y_small_x": [P, P, L, I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
@@ -63,7 +63,8 @@ SIGNATURES = {
                      P, I, U, F, P, I, P],
     "fk_k3_attn": [P, P, P, I, I, I, I, I, F, P, P, P, P, P, I, U, F, P],
     "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P],
-    "fk_sa_sublayer": [P, P, L, I] + [P] * 12 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
+    "fk_sa_qkv": [P, P, I] + [P] * 7 + [I, I, I, P],
+    "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],

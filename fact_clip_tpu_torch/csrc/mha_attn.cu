@@ -33,7 +33,10 @@
 // TF32 passes; what a block spends is loading its K_h / V_h tile and writing
 // its partials, which tensor cores would not shorten.  A tile wholly past
 // x_len writes the partials the full computation gives (m = -1e9, l = the
-// tile's keys, acc = 0: its V rows are zero) without reading anything.
+// tile's keys, acc = 0: its V rows are zero) without reading anything.  A
+// video with no valid key (x_len = 0) attends uniformly to all X frames, as
+// JAX's kernels and the plain version do: the caller projects every frame of
+// it (ops/mha_attn.py::attended_lengths) and its tiles run, every logit -1e9.
 //
 // Backward, from the forward's saves (q, x, the stats, the output):
 //   KV recomputed by the forward's projection GEMM (never stored);
@@ -79,7 +82,7 @@ __global__ void __launch_bounds__(fk::kThreads)
   const size_t prow = ((size_t)b * n_t + tile) * HM + (size_t)h * M;  // partial row of m = 0
   float* pa = part_acc + prow * hd;
   float* ml = part_ml + prow * 2;
-  if (x0 >= xl) {  // every key masked at -1e9: p = 1 on the tile's keys, V rows zero
+  if (xl > 0 && x0 >= xl) {  // every key masked at -1e9: p = 1 on the tile's keys, V rows zero
     for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) pa[i] = 0.f;
     for (int m = threadIdx.x; m < M; m += fk::kThreads) {
       ml[2 * m] = fk::kMaskedLogit;
@@ -196,7 +199,7 @@ __global__ void __launch_bounds__(fk::kThreads)
   float* dq = part_dq + ((size_t)b * n_slots + tile) * M * E + h * hd;  // row m at + m * E
   float* pb = part_b + ((size_t)b * n_slots + tile) * 2 * E + h * hd;   // dV's sums at + E
   float* dkvb = dkv + ((size_t)b * X + x0) * 2 * E + h * hd;        // key j at + j * 2E
-  if (x0 >= xl) {  // every key masked: p = 0, so dl, p * keep and all of this are zero
+  if (xl > 0 && x0 >= xl) {  // every key masked: p = 0, so dl, p * keep and all of this are zero
     for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) dq[(size_t)(i / hd) * E + i % hd] = 0.f;
     for (int i = threadIdx.x; i < rows * hd; i += fk::kThreads) {
       const size_t o = (size_t)(i / hd) * 2 * E + i % hd;

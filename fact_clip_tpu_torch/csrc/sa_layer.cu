@@ -2,14 +2,23 @@
 // dropout and backward.
 //
 // Forward: replaces fact_clip_tpu/ops/pallas/sa_layer.py::_sa_fwd_impl
-// (_sa_fwd_kernel) and ::_ffn_fwd_impl (_ffn_fwd_kernel), one block per video:
+// (_sa_fwd_kernel) and ::_ffn_fwd_impl (_ffn_fwd_kernel):
 //   SA:  y = LN(x + drop_o(MHA(x + pos, x + pos, x; drop_a on the probs) @ Wo + bo))
 //   FFN: y = LN(x + drop_2(drop_1(relu(x @ W1 + b1)) @ W2 + b2))   (LN eps 1e-6)
 // Every projection, the softmax, the dropout, the residual and the LayerNorm
-// run in the kernel.  The per-video intermediates (q, k, v and the attention
-// context, or the FFN hidden rows) go to a scratch buffer that the wrapper
-// allocates; at M=40 tokens they are 160 KB per video and stay in L2; the
-// attention stages one head's q, k and v at a time in shared memory.
+// run in the kernels.  The TPU kernel holds a video's whole SA sublayer in
+// VMEM, one grid step a video; on the H100 one block a video ran one SM of
+// 132 at epic's batch of 1 (2.9 ms at M=300, its eight heads one after
+// another).  So the SA forward is three kernels, the backward's split:
+// q, k, v over (32-row tile, video, projection) on the GEMM core
+// (sa_qkv_kernel); the attention over (32-query tile, head, video), a warp
+// per query row with K_h and V_h of every key staged by cp.async
+// (sa_context_kernel, shared with the backward); the out projection, its
+// dropout, the residual and the LayerNorm over (32-row tile, video)
+// (sa_out_ln_kernel).  At B=1, M=300, H=8 that is 30, 80 and 10 blocks.
+// The intermediates (q, k, v, the context) go to buffers the wrapper
+// allocates: 1.2 MB a video at M=300, in L2.  The FFN forward stays one block
+// per video: its intermediate (the hidden rows) goes to a scratch buffer.
 //
 // Dropout: the TPU kernels draw from the on-core PRNG seeded per video
 // (sa_layer.py:138, :240).  Here a keep value is common.cuh's counter hash of
@@ -49,10 +58,11 @@
 //        as in the JAX wrapper.
 //
 // Bound on the H100: latency.  A forward is 2*M*E*(4E) FLOPs per video (21
-// MFLOP at M=40, E=256; the backward about three times that): one SM per
-// video in the forwards, and at B=8 only 8 of the 132 SMs have work.  The SA
-// backward at epic's B=1, M=300, H=8 gives each attention kernel 80 blocks
-// and each row kernel 5 (0.75 GFLOP in all: 0.011 ms at 67 TFLOP/s); it
+// MFLOP at M=40, E=256; the backward about three times that).  The FFN
+// forward and backward run one SM per video: at B=8 only 8 of the 132 SMs
+// have work.  The SA forward and backward at epic's B=1, M=300, H=8 give
+// each attention kernel 80 blocks and each row kernel 10 (forward) or 5
+// (backward); the backward's 0.75 GFLOP is 0.011 ms at 67 TFLOP/s; it
 // recomputes p twice more and its key-tile kernel reduces each score over
 // the lanes with shuffles.
 #include <math.h>
@@ -61,20 +71,21 @@
 
 namespace {
 
-constexpr int BM = 64;  // token rows per GEMM pass
+constexpr int BM = 64;        // token rows per GEMM pass
+constexpr int kFwdRows = 32;  // token rows of the SA forward's projection and out-projection blocks
 
-// rows [r0, r0 + BM) of A @ W (W: K x N, row-major); epi(r, c, acc) takes
+// rows [r0, r0 + TBM) of A @ W (W: K x N, row-major); epi(r, c, acc) takes
 // each finished value of a row r < M
-template <class LoadA, class Epi>
+template <int TBM = BM, class LoadA, class Epi>
 __device__ __forceinline__ void rows_gemm(LoadA load_a, const float* __restrict__ W, int K, int N,
-                                          int r0, int M, Epi epi, fk::GemmSmem<BM>& s) {
-  constexpr int RM = BM / 8;
+                                          int r0, int M, Epi epi, fk::GemmSmem<TBM>& s) {
+  constexpr int RM = TBM / 8;
   float acc[RM][8];
   for (int n0 = 0; n0 < N; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, load_a, W, N, K, n0, N, s);
+    fk::gemm_pass<TBM>(acc, load_a, W, N, K, n0, N, s);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int r = r0 + fk::pass_row<BM>(i);
+      const int r = r0 + fk::pass_row<TBM>(i);
       if (r >= M) continue;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -175,105 +186,6 @@ __device__ __forceinline__ void ln_backward(float* res, const float* __restrict_
         dout[(size_t)r * E + c] = keep_out != nullptr ? d * __ldg(keep_out + (size_t)r * E + c) : d;
     }
   }
-}
-
-__global__ void __launch_bounds__(fk::kThreads)
-sa_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-                   long long pos_bstride, int Pp, const float* __restrict__ wq,
-                   const float* __restrict__ bq, const float* __restrict__ wk,
-                   const float* __restrict__ bk, const float* __restrict__ wv,
-                   const float* __restrict__ bv, const float* __restrict__ wo,
-                   const float* __restrict__ bo, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ scratch,
-                   float* __restrict__ y, int M, int E, int H, float eps, fk::Dropout drop_a,
-                   fk::Dropout drop_o) {
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* p_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
-
-  const int b = blockIdx.x;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int hd = E / H;
-  const float scale = 1.f / sqrtf((float)hd);
-  const size_t ME = (size_t)M * E;
-  const float* xb = x + b * ME;
-  const float* pb = pos ? pos + (size_t)b * pos_bstride : nullptr;
-  float* qb = scratch + b * 4 * ME;  // q, k, v, context
-  float* kb = qb + ME;
-  float* vb = kb + ME;
-  float* cb = vb + ME;
-  float* yb = y + b * ME;
-  const uint32_t seed_a = drop_a.load_seed();
-  const uint32_t seed_o = drop_o.load_seed();
-
-  project(xb, pb, Pp, M, E, wq, bq, E, qb, s);
-  project(xb, pb, Pp, M, E, wk, bk, E, kb, s);
-  project(xb, nullptr, 0, M, E, wv, bv, E, vb, s);
-  __syncthreads();
-
-  // one head at a time: its q, k, v columns staged in shared memory (odd
-  // row stride: lane j reading key row j is conflict-free), one warp per
-  // query row
-  float* pw = p_s + (size_t)ty * M;
-  const int ldh = hd + 1;
-  float* qs = p_s + (size_t)fk::kWarps * M;
-  float* ks = qs + (size_t)M * ldh;
-  float* vs = ks + (size_t)M * ldh;
-  for (int h = 0; h < H; ++h) {
-    for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
-      const int m = i / hd;
-      const int dd = i - m * hd;
-      const size_t g = (size_t)m * E + h * hd + dd;
-      qs[m * ldh + dd] = qb[g];
-      ks[m * ldh + dd] = kb[g];
-      vs[m * ldh + dd] = vb[g];
-    }
-    __syncthreads();
-    for (int m = ty; m < M; m += fk::kWarps) {
-      const float* qr = qs + m * ldh;
-      for (int j = tx; j < M; j += 32) {
-        const float* kr = ks + j * ldh;
-        float dot = 0.f;
-        for (int dd = 0; dd < hd; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-        pw[j] = dot * scale;
-      }
-      __syncwarp();
-      float mx = -INFINITY;
-      for (int j = tx; j < M; j += 32) mx = fmaxf(mx, pw[j]);
-      mx = fk::warp_max(mx);
-      float sum = 0.f;
-      for (int j = tx; j < M; j += 32) sum += expf(pw[j] - mx);
-      const float inv = 1.f / fk::warp_sum(sum);
-      __syncwarp();
-      const uint32_t row = ((uint32_t)b * (uint32_t)H + (uint32_t)h) * (uint32_t)M + (uint32_t)m;
-      for (int j = tx; j < M; j += 32) {
-        float p = expf(pw[j] - mx) * inv;
-        if (drop_a.seed != nullptr) p *= drop_a.keep(row * (uint32_t)M + (uint32_t)j, seed_a);
-        pw[j] = p;
-      }
-      __syncwarp();
-      for (int dd = tx; dd < hd; dd += 32) {
-        float o = 0.f;
-        for (int j = 0; j < M; ++j) o = fmaf(pw[j], vs[j * ldh + dd], o);
-        cb[(size_t)m * E + h * hd + dd] = o;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{cb, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
-              [&](int r, int c, float v) {
-                v += __ldg(bo + c);
-                if (drop_o.seed != nullptr)
-                  v *= drop_o.keep(((uint32_t)b * (uint32_t)M + (uint32_t)r) * (uint32_t)E +
-                                       (uint32_t)c, seed_o);
-                yb[(size_t)r * E + c] = v + __ldg(xb + (size_t)r * E + c);
-              }, s);
-  __syncthreads();
-  fk::layer_norm_rows(yb, M, M, E, gamma, beta, eps);
 }
 
 __global__ void __launch_bounds__(fk::kThreads)
@@ -424,32 +336,56 @@ __device__ __forceinline__ float dot_h(const float* a, const float* b, int hd) {
 }
 
 // 1. q = (x + pos) Wq + bq, k = (x + pos) Wk + bk, v = x Wv + bv into
-//    qkv[b][0..2]: one block per (64-row tile, video, projection)
+//    qkv[b][0..2]: one block per (TBM-row tile, video, projection); the
+//    forward takes 32-row tiles (kFwdRows), the backward 64
+template <int TBM>
 __global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
-                  const float* __restrict__ wq, const float* __restrict__ bq,
-                  const float* __restrict__ wk, const float* __restrict__ bk,
-                  const float* __restrict__ wv, const float* __restrict__ bv,
-                  float* __restrict__ qkv, int M, int E) {
+sa_qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
+              const float* __restrict__ wq, const float* __restrict__ bq,
+              const float* __restrict__ wk, const float* __restrict__ bk,
+              const float* __restrict__ wv, const float* __restrict__ bv,
+              float* __restrict__ qkv, int M, int E) {
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  const int r0 = blockIdx.x * BM;
+  fk::GemmSmem<TBM>& s = *reinterpret_cast<fk::GemmSmem<TBM>*>(smem_raw);
+  const int r0 = blockIdx.x * TBM;
   const int b = blockIdx.y;
   const int which = blockIdx.z;
   const size_t ME = (size_t)M * E;
   const float* W = which == 0 ? wq : which == 1 ? wk : wv;
   const float* bias = which == 0 ? bq : which == 1 ? bk : bv;
   float* out = qkv + ((size_t)b * 3 + which) * ME;
-  rows_gemm(Rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E}, W, E, E, r0, M,
-            [&](int r, int c, float v) { out[(size_t)r * E + c] = v + __ldg(bias + c); }, s);
+  rows_gemm<TBM>(Rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E}, W, E, E, r0, M,
+                 [&](int r, int c, float v) { out[(size_t)r * E + c] = v + __ldg(bias + c); }, s);
+}
+
+// rows [r0, r0 + n) of head h of a panel with row stride ld into dst[n][hd + 1]
+// by cp.async (4-byte copies: the odd row stride), zero past M; the caller
+// waits (fk::cp_async_wait_all) and synchronises
+__device__ __forceinline__ void stage_head_async(float* dst, const float* src, int ld, int r0,
+                                                 int n, int M, int h, int hd) {
+  const int ldh = hd + 1;
+  for (int i = threadIdx.x; i < n * hd; i += fk::kThreads) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    const bool ok = r0 + r < M;
+    fk::cp_async<4>(dst + r * ldh + d, ok ? src + (size_t)(r0 + r) * ld + h * hd + d : src, ok);
+  }
 }
 
 // 2. per (query tile, head, video): each query row's softmax over the M keys
-//    by one warp, its row statistics (max, 1 / sum) into stats[b][h][m][0..1]
-//    and its context c_h = (P * keep_a) v_h
+//    by one warp and its context c_h = (P * keep) v_h, into c (B, M, E).
+//    q, k and v of video b, token m sit at qkv + b * bstride + m * ld (+ koff,
+//    + voff), head h's columns at + h * hd; K_h and V_h of every key and the
+//    tile's q rows are staged by cp.async.  The backward hands the mask that
+//    dropout.cu regenerated (keep_a) and takes each row's statistics (max,
+//    1 / sum) into stats[b][h][m][0..1]; the forward hashes the keep values
+//    inline (drop: SA stream 0 over (B, H*M, M), the index layout of
+//    ops/sa_layer.py::sa_dropout_masks, so the bits equal the mask kernel's)
+//    and keeps no statistics.
 __global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_context_kernel(const float* __restrict__ qkv, const float* __restrict__ keep_a,
-                      float* __restrict__ c, float* __restrict__ stats, int M, int E, int H) {
+sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int koff, int voff,
+                  const float* __restrict__ keep_a, fk::Dropout drop, float* __restrict__ c,
+                  float* __restrict__ stats, int M, int E, int H) {
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
@@ -460,14 +396,16 @@ sa_bwd_context_kernel(const float* __restrict__ qkv, const float* __restrict__ k
   const int ty = threadIdx.x >> 5;
   const float scale = 1.f / sqrtf((float)hd);
   const size_t ME = (size_t)M * E;
-  const float* qb = qkv + (size_t)b * 3 * ME;
+  const float* qb = qkv + (size_t)b * bstride;
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + (size_t)M * ldh;
   float* qs = vs + (size_t)M * ldh;
   float* pw = qs + (size_t)2 * QT * ldh + (size_t)ty * M;
-  stage_head(ks, qb + ME, 0, M, M, E, h, hd);
-  stage_head(vs, qb + 2 * ME, 0, M, M, E, h, hd);
-  stage_head(qs, qb, m0, QT, M, E, h, hd);
+  stage_head_async(ks, qb + koff, ld, 0, M, M, h, hd);
+  stage_head_async(vs, qb + voff, ld, 0, M, M, h, hd);
+  stage_head_async(qs, qb, ld, m0, QT, M, h, hd);
+  const uint32_t seed = drop.load_seed();
+  fk::cp_async_wait_all();
   __syncthreads();
   for (int r = ty; r < min(QT, M - m0); r += fk::kWarps) {
     const int m = m0 + r;
@@ -481,8 +419,12 @@ sa_bwd_context_kernel(const float* __restrict__ qkv, const float* __restrict__ k
     for (int j = tx; j < M; j += 32) sum += expf(pw[j] - mx);
     const float inv = 1.f / fk::warp_sum(sum);
     for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
-      const float p = expf(pw[j] - mx) * inv;
-      pw[j] = keep_a != nullptr ? p * __ldg(keep_a + row * M + j) : p;
+      float p = expf(pw[j] - mx) * inv;
+      if (keep_a != nullptr)
+        p *= __ldg(keep_a + row * M + j);
+      else if (drop.seed != nullptr)
+        p *= drop.keep((uint32_t)row * (uint32_t)M + (uint32_t)j, seed);
+      pw[j] = p;
     }
     __syncwarp();
     for (int d = tx; d < hd; d += 32) {
@@ -490,12 +432,40 @@ sa_bwd_context_kernel(const float* __restrict__ qkv, const float* __restrict__ k
       for (int j = 0; j < M; ++j) o = fmaf(pw[j], vs[j * ldh + d], o);
       c[(size_t)b * ME + (size_t)m * E + h * hd + d] = o;
     }
-    if (tx == 0) {
+    if (stats != nullptr && tx == 0) {
       stats[row * 3] = mx;
       stats[row * 3 + 1] = inv;
     }
     __syncwarp();
   }
+}
+
+// 3 (forward). per (TBM-row tile, video): y = LN(x + drop_o(c Wo + bo)), the
+//    output dropout hashed inline (SA stream 1 over (B, M, E)); a tile holds
+//    whole rows, so the LayerNorm runs in the block
+template <int TBM>
+__global__ void __launch_bounds__(fk::kThreads)
+sa_out_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                 const float* __restrict__ wo, const float* __restrict__ bo,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 float* __restrict__ y, int M, int E, float eps, fk::Dropout drop_o) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<TBM>& s = *reinterpret_cast<fk::GemmSmem<TBM>*>(smem_raw);
+  const int r0 = blockIdx.x * TBM;
+  const int b = blockIdx.y;
+  const size_t off = (size_t)b * M * E;
+  const uint32_t seed_o = drop_o.load_seed();
+  rows_gemm<TBM>(Rows{c + off, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
+                 [&](int r, int col, float v) {
+                   const size_t e = (size_t)r * E + col;
+                   v += __ldg(bo + col);
+                   if (drop_o.seed != nullptr)
+                     v *= drop_o.keep((uint32_t)(off + e), seed_o);
+                   y[off + e] = v + __ldg(x + off + e);
+                 }, s);
+  __syncthreads();
+  const int rows = min(TBM, M - r0);
+  fk::layer_norm_rows(y + off + (size_t)r0 * E, rows, rows, E, gamma, beta, eps);
 }
 
 // 3. per (64-row tile, video): res = x + drop_o(c Wo + bo), its LayerNorm
@@ -720,22 +690,43 @@ sa_bwd_dx_kernel(const float* __restrict__ dqk, const float* __restrict__ dv,
 
 }  // namespace
 
-extern "C" int fk_sa_sublayer(const float* x, const float* pos, long long pos_bstride, int Pp,
-                              const float* wq, const float* bq, const float* wk,
-                              const float* bk, const float* wv, const float* bv,
-                              const float* wo, const float* bo, const float* gamma,
-                              const float* beta, float* scratch, float* y, int B, int M, int E,
-                              int H, float eps, const int* seed_a, int stream_a,
+// The SA forward's projections: q, k, v into qkv (B, 3, M, E), one block
+// per (kFwdRows-row tile, video, projection).
+extern "C" int fk_sa_qkv(const float* x, const float* pos, int Pp, const float* wq,
+                         const float* bq, const float* wk, const float* bk, const float* wv,
+                         const float* bv, float* qkv, int B, int M, int E, void* stream) {
+  const size_t smem = sizeof(fk::GemmSmem<kFwdRows>);
+  cudaError_t err = fk::set_smem((const void*)sa_qkv_kernel<kFwdRows>, smem);
+  if (err != cudaSuccess) return (int)err;
+  sa_qkv_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B, 3), fk::kThreads, smem,
+                            (cudaStream_t)stream>>>(x, pos, Pp, wq, bq, wk, bk, wv, bv, qkv, M,
+                                                    E);
+  return (int)cudaGetLastError();
+}
+
+// The SA forward's attention and out projection from q, k, v (video b, token
+// m at qkv + b * bstride + m * ld; k at + koff, v at + voff): the context c
+// (B, M, E) per (32-query tile, head, video), then y = LN(x + drop_o(c Wo +
+// bo)) per (kFwdRows-row tile, video).
+extern "C" int fk_sa_attn_out(const float* qkv, long long bstride, int ld, int koff, int voff,
+                              const float* x, const float* wo, const float* bo,
+                              const float* gamma, const float* beta, float* c, float* y, int B,
+                              int M, int E, int H, float eps, const int* seed_a, int stream_a,
                               unsigned thresh_a, float scale_a, const int* seed_o, int stream_o,
                               unsigned thresh_o, float scale_o, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BM>) +
-                      ((size_t)fk::kWarps * M + (size_t)3 * M * (E / H + 1)) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)sa_sublayer_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  sa_sublayer_kernel<<<B, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, pos, pos_bstride, Pp, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, scratch, y, M, E, H,
-      eps, fk::Dropout{seed_a, stream_a, thresh_a, scale_a},
-      fk::Dropout{seed_o, stream_o, thresh_o, scale_o});
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t rsm = sa_rows_smem_floats(M, E / H) * sizeof(float);
+  const size_t osm = sizeof(fk::GemmSmem<kFwdRows>);
+  cudaError_t err;
+  if ((err = fk::set_smem((const void*)sa_context_kernel, rsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_out_ln_kernel<kFwdRows>, osm)) != cudaSuccess)
+    return (int)err;
+  sa_context_kernel<<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
+      qkv, bstride, ld, koff, voff, nullptr, fk::Dropout{seed_a, stream_a, thresh_a, scale_a}, c,
+      nullptr, M, E, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_out_ln_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B), fk::kThreads, osm, st>>>(
+      x, c, wo, bo, gamma, beta, y, M, E, eps, fk::Dropout{seed_o, stream_o, thresh_o, scale_o});
   return (int)cudaGetLastError();
 }
 
@@ -773,18 +764,21 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
   const size_t ksm = sa_keys_smem_floats(M, hd) * sizeof(float);
   const void* dkv = hd <= 32 ? (const void*)sa_bwd_dkv_kernel<1> : (const void*)sa_bwd_dkv_kernel<2>;
   cudaError_t err;
-  if ((err = fk::set_smem((const void*)sa_bwd_qkv_kernel, gsm)) != cudaSuccess ||
-      (err = fk::set_smem((const void*)sa_bwd_context_kernel, rsm)) != cudaSuccess ||
+  if ((err = fk::set_smem((const void*)sa_qkv_kernel<BM>, gsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_context_kernel, rsm)) != cudaSuccess ||
       (err = fk::set_smem((const void*)sa_bwd_ln_kernel, gsm + 2 * BM * sizeof(float))) !=
           cudaSuccess ||
       (err = fk::set_smem((const void*)sa_bwd_dq_kernel, rsm)) != cudaSuccess ||
       (err = fk::set_smem(dkv, ksm)) != cudaSuccess ||
       (err = fk::set_smem((const void*)sa_bwd_dx_kernel, gsm)) != cudaSuccess)
     return (int)err;
-  sa_bwd_qkv_kernel<<<dim3(rows.x, B, 3), fk::kThreads, gsm, st>>>(x, pos, Pp, wq, bq, wk, bk, wv,
+  sa_qkv_kernel<BM><<<dim3(rows.x, B, 3), fk::kThreads, gsm, st>>>(x, pos, Pp, wq, bq, wk, bk, wv,
                                                                    bv, qkv, M, E);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sa_bwd_context_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, keep_a, c, stats, M, E, H);
+  const long long ME = (long long)M * E;
+  sa_context_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, 3 * ME, E, (int)ME, (int)(2 * ME),
+                                                     keep_a, fk::Dropout{nullptr, 0, 0u, 1.f}, c,
+                                                     stats, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sa_bwd_ln_kernel<<<rows, fk::kThreads, gsm + 2 * BM * sizeof(float), st>>>(
       x, c, wo, bo, wot, gamma, keep_o, g, res, dout, dc, part, M, E, eps);

@@ -20,8 +20,11 @@ q (B, M, E) arrives projected (the q projection and the out projection stay
 outside, as in the JAX caller); the result (B, M, E) holds the heads'
 outputs side by side, before the out projection.  Keys at or past
 ``x_len[b]`` get the logit -1e9; the kernels never read the frames there
-(the projection writes zeros), which gives the plain version's result for
-every video with at least one valid key.  Dropout (torch semantics)
+(the projection writes zeros).  A video with no valid key (x_len = 0) gives
+every key that logit, so it attends uniformly to all X frames, as JAX's
+kernels and the plain version do: the projection, dx and the weight products
+take all its frames (``attended_lengths``, on the device, no host sync).
+Dropout (torch semantics)
 multiplies the probabilities in the attend sum only, the softmax normaliser
 sums the undropped ones: out = dropout(softmax(logits)) @ V.  Its keep mask
 is the counter hash of ``ops/dropout.py``, stream 0 over (B, H*M, X) with
@@ -127,6 +130,13 @@ def has_forward(M: int, E: int, num_heads: int) -> bool:
     return attn_smem(M, E // num_heads) <= _build.MAX_SMEM
 
 
+def attended_lengths(x_len, X: int):
+    """The frames a video's attention reads: x_len, or all X of a video
+    with no valid key (its logits are all -1e9, so it attends to every
+    frame).  The projection, dx and the weight products run over these."""
+    return x_len.masked_fill(x_len <= 0, X)
+
+
 def k3_pack(wk, bk, wv, bv):
     """The projection's weights as the GEMM reads them: [Wk | Wv]^T's TF32
     hi / lo parts (2, 2E, Cx), [bk | bv] (2E,) and Wk^T's (2, E, Cx) for the
@@ -136,8 +146,9 @@ def k3_pack(wk, bk, wv, bv):
 
 def _project(x_in, x_pos, x_len, packed):
     """KV = x @ [Wk | Wv] + [bk | bv] + [pos @ Wk | 0], (B, X, 2E), zero at
-    frames at or past x_len: the table pos @ Wk (1 or B, X, E) by one GEMM
-    (kMasked), then the projection (kProj) adding it on the K columns."""
+    frames at or past ``x_len`` (the caller's ``attended_lengths``): the table
+    pos @ Wk (1 or B, X, E) by one GEMM (kMasked), then the projection
+    (kProj) adding it on the K columns."""
     B, X, Cx = x_in.shape
     wkv, bkv, wkp = packed
     E = wkp.shape[1]
@@ -197,7 +208,7 @@ def _mha_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, rate, seed, 
                                   f"{_build.MAX_SMEM} at most)")
     packed = k3_pack(wk, bk, wv, bv) if packed is None else packed
     _build.check_tensors("mha_cross_fwd", [*packed], x_in.device)
-    kv = _project(x_in, x_pos, x_len, packed)
+    kv = _project(x_in, x_pos, attended_lengths(x_len, X), packed)
     n_t = -(-X // FWD_KEY_TILE)
     f32 = dict(device=x_in.device, dtype=torch.float32)
     part_acc = torch.empty((B, n_t, H * M, hd), **f32)
@@ -308,7 +319,8 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
     g = g.contiguous()
     _build.check_tensors("mha_cross_bwd", [pos, stats, out, g, keep], x_in.device)
     D = _row_term(g, out, H).contiguous()
-    kv = _project(x_in, x_pos, x_len, k3_pack(wk, bk, wv, bv))  # recomputed, as JAX's does
+    lens = attended_lengths(x_len, X)
+    kv = _project(x_in, x_pos, lens, k3_pack(wk, bk, wv, bv))  # recomputed, as JAX's does
     n_slots = -(-(-(-X // tile)) // K3_SUM_GROUP) * K3_SUM_GROUP
     f32 = dict(device=x_in.device, dtype=torch.float32)
     dkv = torch.empty((B, X, 2 * E), **f32)
@@ -322,20 +334,24 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
     _build.check("fk_k3_attn_bwd", err)
     del kv
     dx = torch.empty_like(x_in)
-    _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, x_len, dx)
-    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * E, x_len)[0]  # [x^T dK | x^T dV]
+    _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
+    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * E, lens)[0]  # [x^T dK | x^T dV]
     d_wk, d_wv = dw[:, :E], dw[:, E:]
     if pos is not None:  # dWk += pos^T dK, the batch's dK summed first where pos is shared
-        if pos.shape[0] == 1:
-            dk_p = _grad.batch_sum(dkv, E)
-            lens = torch.full((1,), X, dtype=torch.int32, device=x_in.device)
-        else:
-            dk_p, lens = dkv, x_len
         d_wk = d_wk.clone()
-        d_wk[:P] += _k6_wgrad(pos, 0, P, dk_p, 0, E, lens)[0]
+        d_wk[:P] += _pos_wgrad(pos, P, dkv, E, lens)
     dq = _grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
     d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]
     return dq, dx, None, d_wk, d_b[:E], d_wv, d_b[E:]
+
+
+def _pos_wgrad(pos, P: int, dkv, E: int, lens):
+    """pos^T dK (P, E) from dkv's first E columns: the batch's dK summed first
+    where pos (1 or B, X, P) is shared by the batch."""
+    if pos.shape[0] == 1:
+        full = torch.full((1,), dkv.shape[1], dtype=torch.int32, device=dkv.device)
+        return _k6_wgrad(pos, 0, P, _grad.batch_sum(dkv, E), 0, E, full)[0]
+    return _k6_wgrad(pos, 0, P, dkv, 0, E, lens)[0]
 
 
 class _MHA(torch.autograd.Function):

@@ -10,15 +10,18 @@ Pallas forms, chosen at the same threshold (``X > 1024``):
   outside the kernels, as in the JAX caller; the q projection, logits,
   softmax and attend (and their backward) run inside.
 * large X (keys are frames): ``_x2y_flash_fwd_impl`` ->
-  ``csrc/flash_attn.cu``, backward ``_x2y_flash_bwd_impl`` ->
-  ``csrc/x2y_bwd.cu``.  The q projection and its gradient stay outside, as
-  in the JAX caller; the per-tile k/v projections, logits, softmax and
-  attend run inside, and so does the probability pass that JAX leaves to
-  XLA.
+  ``csrc/flash_attn.cu``, backward ``_x2y_flash_bwd_impl`` -> K3's split at
+  one head: the projection [xk | xv] recomputed on the towers' 3xTF32 GEMM
+  (``mha_attn._project``), the attention terms per 64-key tile
+  (``csrc/x2y_bwd.cu``), dx and the weight products on the same core.  The
+  q projection and its gradient stay outside, as in the JAX caller; the
+  forward's per-tile k/v projections, logits, softmax and attend run inside
+  its kernel, and so does the probability pass that JAX leaves to XLA.
 
 Both return (attn (B, Y, d), probs (B, Y, X), logits (B, Y, X)) in float32,
 with -1e9 at keys at or past ``x_len`` in the logits; gradients into those
-entries are zero.  Layouts follow the JAX function: weights (in, out);
+entries are zero.  A video with no valid key (x_len = 0) attends uniformly to
+every frame, as JAX's does.  Layouts follow the JAX function: weights (in, out);
 positional terms (1 or B, N, P) added to the leading P channels of the key /
 query projection inputs.  ``x2y_attention`` is the differentiable entry.
 Its backward dispatches as JAX's does: the kernel when the
@@ -36,6 +39,8 @@ import torch
 
 from .. import _build
 from . import _grad
+from .dilated_conv import _MASKED, _ONE, _k6_gemm, _k6_wgrad, k6_pack
+from .mha_attn import _check_strides, _pos_wgrad, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
@@ -163,13 +168,16 @@ def key_tile(M: int, E: int, num_heads: int):
 # backward
 
 FLASH_MAX_QUERIES = 64  # csrc/x2y_bwd.cu kMaxM
+FLASH_KEY_TILE = 64  # keys per block of the flash backward's attention (kFT)
+FLASH_SUM_GROUP = 16  # dyq's tile shares and the bias sums, added a run at a time
 
 
 def has_backward(M: int, X: int, d: int) -> bool:
-    """Whether the card has a backward kernel at this shape."""
+    """Whether the card has a backward kernel at this shape: the flash form
+    holds M query rows in its 64-wide panels (any d, in column chunks), the
+    small-X form a (64, d) panel beside its GEMM staging."""
     if X >= FLASH_MIN_KEYS:
-        tiles = 4 * 64 * (d + M)
-        return M <= FLASH_MAX_QUERIES and _build.GEMM_SMEM + tiles <= _build.MAX_SMEM
+        return M <= FLASH_MAX_QUERIES
     return _build.GEMM_SMEM + 4 * 64 * d <= _build.MAX_SMEM
 
 
@@ -269,17 +277,33 @@ x2y_small_x_bwd.launches = 0
 
 def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn, g_attn,
                   g_probs=None, g_logits=None, *, need_xpos_grad: bool = True):
-    """Flash backward: the kernel on CUDA tensors (x_pos shared by the
+    """Flash backward: the kernels on CUDA tensors (x_pos shared by the
     batch), the plain version on CPU tensors."""
     if x_in.device.type == "cpu":
         return x2y_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
                                  g_attn, g_probs, g_logits)
+    grads = _x2y_flash_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
+                                attn, g_attn, g_probs, g_logits, need_xpos_grad)
+    x2y_flash_bwd.launches += 1
+    return grads
+
+
+x2y_flash_bwd.launches = 0
+
+
+def _x2y_flash_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn,
+                        g_attn, g_probs, g_logits, need_xpos_grad):
+    """``x2y_flash_bwd``'s launches (CPU tensors reach it only in the tests,
+    which stand a model of the kernels' C interface in for the library): the
+    projection recomputed, the attention terms, dx, the weight products and
+    the fixed-order sums."""
     B, M, _ = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
     xpos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
     if pos_stride or not has_backward(M, X, d):
-        raise ValueError("x2y_flash_bwd: needs a shared x_pos, M <= 64 and d <= 640")
+        raise ValueError("x2y_flash_bwd: needs a shared x_pos and M <= 64")
+    _check_strides("x2y_flash_bwd", Cx, d, Px)
     g_attn = g_attn.contiguous()
     g_probs = g_probs.contiguous() if g_probs is not None else None
     g_logits = g_logits.contiguous() if g_logits is not None else None
@@ -292,39 +316,39 @@ def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs
     if g_probs is not None:
         D = D + (probs * g_probs).sum(dim=-1)
     D = D.contiguous()
-    gattnt = g_attn.transpose(1, 2).contiguous()
-    wkvt = torch.cat([wk.t(), wv.t()], dim=0).contiguous()
-    nblk = B * (-(-X // 64))
+    lens = attended_lengths(x_len, X)
+    kv = _project(x_in, x_pos, lens, k3_pack(wk, bk, wv, bv))  # [xk | xv], recomputed as JAX's
+    n_t = -(-X // FLASH_KEY_TILE)
+    n_slots = -(-n_t // FLASH_SUM_GROUP) * FLASH_SUM_GROUP
     f32 = dict(device=x_in.device, dtype=torch.float32)
-    xk, dxk, dxv = (torch.empty((B, X, d), **f32) for _ in range(3))
-    dlogt = torch.empty((B, X, M), **f32)
-    dx = torch.empty_like(x_in)
-    part = torch.empty((nblk, 2, d), **f32)
+    dkv = torch.empty((B, X, 2 * d), **f32)
+    part_dyq = torch.zeros((B, n_slots, M * d), **f32)
+    part_b = torch.zeros((B, n_slots, 2 * d), **f32)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = _build.lib().fk_x2y_flash_bwd(
-        x_in.data_ptr(), ptr(xpos), pos_stride, Px, probs.data_ptr(), ptr(g_probs),
-        ptr(g_logits), g_attn.data_ptr(), gattnt.data_ptr(), yq.data_ptr(), D.data_ptr(),
-        wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), wkvt.data_ptr(),
-        x_len.data_ptr(), xk.data_ptr(), dlogt.data_ptr(), dxk.data_ptr(), dxv.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), B, X, Cx, M, d, 1.0 / math.sqrt(d),
+    err = _build.lib().fk_x2y_flash_attn_bwd(
+        kv.data_ptr(), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(),
+        yq.data_ptr(), D.data_ptr(), x_len.data_ptr(), B, X, M, d, 1.0 / math.sqrt(d),
+        dkv.data_ptr(), part_dyq.data_ptr(), part_b.data_ptr(), n_slots,
         _build.stream_ptr(x_in.device))
-    _build.check("fk_x2y_flash_bwd", err)
-    d_yq = _grad.atb(dlogt, xk, per_video=True)
-    d_wk = _grad.atb(x_in, dxk, pos=xpos)[0]
-    d_wv = _grad.atb(x_in, dxv)[0]
-    d_bk, d_bv = _grad.block_sums(part, 2, d)
+    _build.check("fk_x2y_flash_attn_bwd", err)
+    del kv
+    dx = torch.empty_like(x_in)
+    _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
+    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * d, lens)[0]  # [x^T dxk | x^T dxv]
+    d_wk, d_wv = dw[:, :d], dw[:, d:]
     d_xpos = None
-    if x_pos is not None and need_xpos_grad:
-        # sum_b dxk_in[b] = (sum_b dxk[b]) @ Wk^T: one product of the batch sum
-        d_xpos = _pos_like((_grad.batch_sum(dxk, d) @ wk.t())[..., :Px], x_pos)
+    if xpos is not None:  # dWk += x_pos^T (sum_b dxk)
+        d_wk = d_wk.clone()
+        d_wk[:Px] += _pos_wgrad(xpos, Px, dkv, d, lens)
+        if need_xpos_grad:
+            # sum_b dxk_in[b] = (sum_b dxk[b]) @ Wk^T: one product of the batch sum
+            d_xpos = _pos_like((_grad.batch_sum(dkv, d) @ wk.t())[..., :Px], x_pos)
+    d_yq = _grad.sum_groups(part_dyq, FLASH_SUM_GROUP).view(B, M, d)
+    d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * d), FLASH_SUM_GROUP)[0]
     # the q side stays plain matmuls, as in the JAX caller (M is the token axis)
     d_yq_in = d_yq @ wq.t()
-    x2y_flash_bwd.launches += 1
-    return (d_yq_in, pos_grad(d_yq_in, y_pos), dx, d_xpos, d_wk, d_bk, d_wv, d_bv,
+    return (d_yq_in, pos_grad(d_yq_in, y_pos), dx, d_xpos, d_wk, d_b[:d], d_wv, d_b[d:],
             torch.einsum("bmc,bmd->cd", yq_in, d_yq), d_yq.sum(dim=(0, 1)))
-
-
-x2y_flash_bwd.launches = 0
 
 
 class _X2Y(torch.autograd.Function):

@@ -55,7 +55,9 @@ XLEN = [150, 70]  # the second video's last tile lies wholly past it
 
 class FakeK3Lib(FakeK6Lib):
     """``FakeK6Lib`` and K3's attention entries: per (key tile, head, video)
-    partials in the kernels' layouts, the combine in tile order."""
+    partials in the kernels' layouts, the combine in tile order; a tile wholly
+    past x_len is skipped unless the video has no valid key (x_len = 0: every
+    logit -1e9, so every tile runs)."""
 
     def fk_k3_attn(self, kv, q, xlen, B, X_, M, H, hd, scale, part_acc, part_ml, out, stats, seed,
                    drop_stream, thresh, drop_scale, stream):
@@ -72,7 +74,7 @@ class FakeK3Lib(FakeK6Lib):
             xl = min(int(lens[b]), X_)
             for t in range(n_t):
                 keys = torch.arange(t * BK, min((t + 1) * BK, X_))
-                if t * BK >= xl:  # every key masked: the partials of p = 1, V = 0
+                if xl > 0 and t * BK >= xl:  # every key masked: the partials of p = 1, V = 0
                     PA[b, t] = 0.0
                     PML[b, t, :, :, 0] = -1e9
                     PML[b, t, :, :, 1] = float(len(keys))
@@ -116,7 +118,7 @@ class FakeK3Lib(FakeK6Lib):
             xl = min(int(lens[b]), X_)
             for t in range(n_t):
                 keys = torch.arange(t * BK, min((t + 1) * BK, X_))
-                if t * BK >= xl:
+                if xl > 0 and t * BK >= xl:  # p = 0 on every key: all zero
                     PQ[b, t] = 0.0
                     DKV[b, keys] = 0.0
                     PB[b, t] = 0.0
