@@ -40,12 +40,6 @@
         cotangent from the same saves (probabilities, output) against the
         plain backward in float64.
 
-    python3 chip_dev.py sa-qkv
-        K4's SA forward rows of phase 3 with q, k and v projected by each
-        form of ``ops/sa_layer.py`` (``SA_QKV_FORMS``: the f32 row-tile
-        kernel, "fma", or one 3xTF32 GEMM of the towers' core, "tc"), in
-        turns (fma, tc, tc, fma) in one process.
-
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -274,20 +268,6 @@ def k2_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
-def sa_qkv(seed: int = 0):
-    """Phase 3's SA forward rows under each projection form, in turns."""
-    cs = _chip_smoke(REPO)
-    from fact_clip_tpu_torch.ops import sa_layer as sl
-
-    rows = [r for r in cs.kernel_table() if r[0] == "sa_sublayer"]
-    cs.kernel_table = lambda: rows
-    for form in ("fma", "tc", "tc", "fma"):
-        sl.SA_QKV = form
-        print(f"== qkv form {form}", flush=True)
-        cs.phase_kernels(seed)
-    return 0
-
-
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -299,8 +279,6 @@ def main(argv):
         return k3_f64(*argv[1:])
     if argv[:1] == ["k2-f64"] and len(argv) <= 2:
         return k2_f64(*argv[1:])
-    if argv == ["sa-qkv"]:
-        return sa_qkv()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -35,17 +35,10 @@ import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
-from .dilated_conv import _MASKED, _ONE, _PROJ, _k6_gemm, k6_pack
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
-from .mha_attn import _check_strides
 from .pos import add_pos, kernel_pos, pos_grad
 
 LN_EPS = 1e-6
-# how the SA forward projects q, k, v: "fma", csrc/sa_layer.cu's row-tile
-# kernel on the f32 FMA GEMM core, or "tc", one 3xTF32 GEMM of the towers'
-# core on [Wq | Wk | Wv] with the table pos @ [Wq | Wk] added in its epilogue
-SA_QKV_FORMS = ("fma", "tc")
-SA_QKV = "fma"
 
 
 def sa_sublayer_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
@@ -158,12 +151,16 @@ sa_sublayer_fwd.launches = 0
 
 
 def _sa_fwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_heads, eps,
-                 rate_attn, rate, seed, qkv_form=None):
+                 rate_attn, rate, seed):
     """``sa_sublayer_fwd``'s launches (CPU tensors reach it only in the
     tests, which stand a model of the kernels' C interface in for the
-    library): q, k and v (``qkv_form``, default ``SA_QKV``), then the
-    attention per (32-query tile, head, video) and the out projection with
-    its dropout, the residual and the LayerNorm per 32-row tile."""
+    library): q, k and v per (32-row tile, video, projection) on the f32
+    GEMM core, then the attention per (32-query tile, head, video) and the
+    out projection with its dropout, the residual and the LayerNorm per
+    32-row tile.  (One 3xTF32 GEMM of the towers' core on [Wq | Wk | Wv]
+    with pos @ [Wq | Wk] in its epilogue projected q, k, v 1.3-3x slower at
+    epic's and the flagship's shapes: two packs and a table GEMM a call; the
+    f32 row-tile kernel is one launch, PERF.md §6.)"""
     B, M, E = x.shape
     weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
     pos_t, Pp = _check_sa("sa_sublayer_fwd", x, pos, *weights, num_heads)
@@ -172,48 +169,20 @@ def _sa_fwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_
                                   f"H={num_heads} (its attention block needs "
                                   f"{sa_bwd_smem(M, E, num_heads)} bytes of shared memory, "
                                   f"{_build.MAX_SMEM} at most)")
-    form = SA_QKV if qkv_form is None else qkv_form
-    if form == "fma":
-        qkv = torch.empty((B, 3, M, E), device=x.device, dtype=torch.float32)
-        err = _build.lib().fk_sa_qkv(x.data_ptr(), _ptr(pos_t), Pp, wq.data_ptr(), bq.data_ptr(),
-                                     wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
-                                     qkv.data_ptr(), B, M, E, _build.stream_ptr(x.device))
-        _build.check("fk_sa_qkv", err)
-        layout = (3 * M * E, E, M * E, 2 * M * E)  # (B, 3, M, E)
-    elif form == "tc":
-        _check_strides("sa_sublayer_fwd", E, E, Pp)
-        qkv = _qkv_tc(x, pos_t, wq, bq, wk, bk, wv, bv)
-        layout = (3 * M * E, 3 * E, E, 2 * E)  # (B, M, 3E)
-    else:
-        raise ValueError(f"sa_sublayer_fwd: qkv_form {form!r} not in {SA_QKV_FORMS}")
+    qkv = torch.empty((B, 3, M, E), device=x.device, dtype=torch.float32)
+    err = _build.lib().fk_sa_qkv(x.data_ptr(), _ptr(pos_t), Pp, wq.data_ptr(), bq.data_ptr(),
+                                 wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+                                 qkv.data_ptr(), B, M, E, _build.stream_ptr(x.device))
+    _build.check("fk_sa_qkv", err)
     c = torch.empty_like(x)
     y = torch.empty_like(x)
     err = _build.lib().fk_sa_attn_out(
-        qkv.data_ptr(), *layout, x.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
+        qkv.data_ptr(), 3 * M * E, E, M * E, 2 * M * E, x.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
         ln_bias.data_ptr(), c.data_ptr(), y.data_ptr(), B, M, E, num_heads, float(eps),
         *dropout_args(seed, 0, rate_attn), *dropout_args(seed, 1, rate),
         _build.stream_ptr(x.device))
     _build.check("fk_sa_attn_out", err)
     return y
-
-
-def _qkv_tc(x, pos_t, wq, bq, wk, bk, wv, bv):
-    """[q | k | v] (B, M, 3E) = x @ [Wq | Wk | Wv] + [bq | bk | bv] + [pos @
-    [Wq | Wk] | 0]: the positional table by one GEMM (kMasked) of the one
-    table pos (1, M, P), then the projection (kProj) adding it on the q and k
-    columns, both on the towers' 3xTF32 core."""
-    B, M, E = x.shape
-    f32 = dict(device=x.device, dtype=torch.float32)
-    tab = None
-    if pos_t is not None:
-        tab = torch.empty((1, M, 2 * E), **f32)
-        one = torch.full((1,), M, dtype=torch.int32, device=x.device)
-        _k6_gemm(_MASKED, pos_t, _ONE, k6_pack(torch.cat([wq, wk], dim=1), True), 2 * E, one, tab)
-    qkv = torch.empty((B, M, 3 * E), **f32)
-    lens = torch.full((B,), M, dtype=torch.int32, device=x.device)
-    _k6_gemm(_PROJ, x, _ONE, k6_pack(torch.cat([wq, wk, wv], dim=1), True), 3 * E, lens, qkv,
-             bias=(torch.cat([bq, bk, bv]), None), res=tab, res_ld=2 * E, res_bstride=0)
-    return qkv
 
 
 def _ln_backward(res, g, ln_scale, eps):

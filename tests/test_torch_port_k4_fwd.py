@@ -2,19 +2,18 @@
 
 The SA sublayer's forward on the card is three kernels of
 ``csrc/sa_layer.cu``, the backward's split: q, k and v per (32-row tile,
-video, projection) on the f32 GEMM core (``fk_sa_qkv``; or, the "tc" form,
-one 3xTF32 GEMM of the towers' core on [Wq | Wk | Wv] with the table
-pos @ [Wq | Wk] in its epilogue), then ``fk_sa_attn_out``: the attention per
+video, projection) on the f32 GEMM core (``fk_sa_qkv``), then
+``fk_sa_attn_out``: the attention per
 (32-query tile, head, video) with the probability dropout hashed inline
 (SA stream 0 over (B, H*M, M)), and the out projection, its dropout
 (stream 1 over (B, M, E)), the residual and the LayerNorm per 32-row tile.
 Here, without a card, ``FakeK4Lib`` (``FakeK6Lib`` of
 ``test_torch_port_k6_tc.py`` and the two SA entries, on the raw memory of
 CPU tensors, reading q, k and v at the strides the wrapper hands them)
-stands in for the library; the port's launch sequence (``_sa_fwd_card``,
-both forms) is held against JAX's ``sa_sublayer`` in interpret mode and the
+stands in for the library; the port's launch sequence (``_sa_fwd_card``)
+is held against JAX's ``sa_sublayer`` in interpret mode and the
 f32 plain version: M = 11, 40, 200 and 300, B = 1-3, E = 64 (H = 2, hd =
-32) and E = 128 (hd = 64).  With dropout the fake's keep bits are those of
+32) and E = 128 (H = 2 and 4: hd = 64 and 32).  With dropout (B = 1-8) the fake's keep bits are those of
 ``sa_dropout_masks`` (the mask kernel's replay, which the backward takes),
 and the result equals the plain version given those masks.
 
@@ -29,7 +28,6 @@ from test_torch_port_k6_tc import FakeK6Lib, _view
 
 from fact_clip_tpu.ops.pallas.sa_layer import sa_sublayer
 from fact_clip_tpu_torch import _build
-from fact_clip_tpu_torch.ops import dilated_conv as dc
 from fact_clip_tpu_torch.ops import sa_layer as sl
 
 torch.set_num_threads(2)
@@ -109,28 +107,25 @@ def _close(got, ref, what=""):
     assert float(np.abs(got - ref).max()) <= TOL * scale, (what, float(np.abs(got - ref).max()))
 
 
-CALLS = {"fma": [("sa_qkv",), ("sa_attn_out",)],
-         "tc": [("gemm", dc._MASKED), ("gemm", dc._PROJ), ("sa_attn_out",)]}
+CALLS = [("sa_qkv",), ("sa_attn_out",)]
 
 
-@pytest.mark.parametrize("form", sl.SA_QKV_FORMS)
 @pytest.mark.parametrize("B,M,E,H", [(3, 11, 64, 2), (2, 40, 128, 2), (2, 200, 64, 2),
-                                     (1, 300, 64, 2)])
-def test_emulated_sa_forward_matches_jax_interpret(fake, form, B, M, E, H):
-    """Both forms of the projections, then the attention and the out
-    projection with the LayerNorm, against JAX's ``sa_sublayer`` in
-    interpret mode and the plain version."""
+                                     (1, 300, 64, 2), (3, 300, 128, 4)])
+def test_emulated_sa_forward_matches_jax_interpret(fake, B, M, E, H):
+    """The projections, then the attention and the out projection with the
+    LayerNorm, against JAX's ``sa_sublayer`` in interpret mode and the plain
+    version."""
     j, t = _inputs(1, B, M, E)
     ref_j = sa_sublayer(*j, num_heads=H, interpret=True)
-    got = sl._sa_fwd_card(*t, H, sl.LN_EPS, 0.0, 0.0, None, form)
-    assert fake.calls == CALLS[form]
+    got = sl._sa_fwd_card(*t, H, sl.LN_EPS, 0.0, 0.0, None)
+    assert fake.calls == CALLS
     _close(got.numpy(), ref_j, "jax")
     _close(got.numpy(), sl.sa_sublayer_reference(*t, num_heads=H).numpy(), "plain")
 
 
-@pytest.mark.parametrize("form", sl.SA_QKV_FORMS)
-@pytest.mark.parametrize("B,M", [(3, 11), (1, 300)])
-def test_emulated_sa_forward_with_dropout_replays_the_masks(fake, form, B, M):
+@pytest.mark.parametrize("B,M", [(3, 11), (1, 300), (2, 200), (8, 40)])
+def test_emulated_sa_forward_with_dropout_replays_the_masks(fake, B, M):
     """Rate 0.2 on the probabilities and the output: the keep values the
     forward draws equal ``sa_dropout_masks`` of the same seed (the masks the
     backward regenerates), and the result equals the plain version given
@@ -138,7 +133,7 @@ def test_emulated_sa_forward_with_dropout_replays_the_masks(fake, form, B, M):
     E, H = 64, 2
     _, t = _inputs(2, B, M, E)
     seed = torch.tensor([77777], dtype=torch.int32)
-    got = sl._sa_fwd_card(*t, H, sl.LN_EPS, 0.2, 0.2, seed, form)
+    got = sl._sa_fwd_card(*t, H, sl.LN_EPS, 0.2, 0.2, seed)
     ka, ko = sl.sa_dropout_masks(seed, B, M, E, H, 0.2, 0.2)
     assert torch.equal(fake.keeps[-1][0], ka) and torch.equal(fake.keeps[-1][1], ko)
     ref = sl.sa_sublayer_reference(*t, num_heads=H, keep_attn=ka, keep_out=ko)
@@ -147,15 +142,15 @@ def test_emulated_sa_forward_with_dropout_replays_the_masks(fake, form, B, M):
     assert float((got - nodrop).abs().max()) > 1e-2
 
 
-def test_emulated_sa_forward_without_pos(fake):
-    """No positional table: the "tc" form runs no table GEMM."""
+@pytest.mark.parametrize("P", [None, 32])
+def test_emulated_sa_forward_with_a_narrow_or_no_pos(fake, P):
+    """No positional table, or one narrower than E (added to the leading
+    channels of the query / key input)."""
     _, t = _inputs(3, 2, 40, 64)
-    t[1] = None
-    for form in sl.SA_QKV_FORMS:
-        fake.calls.clear()
-        got = sl._sa_fwd_card(*t, 2, sl.LN_EPS, 0.0, 0.0, None, form)
-        assert fake.calls == [c for c in CALLS[form] if c != ("gemm", dc._MASKED)]
-        _close(got.numpy(), sl.sa_sublayer_reference(*t, num_heads=2).numpy(), form)
+    t[1] = None if P is None else t[1][..., :P].contiguous()
+    got = sl._sa_fwd_card(*t, 2, sl.LN_EPS, 0.0, 0.0, None)
+    assert fake.calls == CALLS
+    _close(got.numpy(), sl.sa_sublayer_reference(*t, num_heads=2).numpy())
 
 
 def test_sa_forward_limits():
@@ -170,9 +165,8 @@ def test_sa_forward_limits():
 
 
 def test_sa_forward_refuses_before_any_launch(monkeypatch):
-    """Off the CPU a token count past the attention block's shared memory,
-    or an unknown projection form, raises before the library is asked for
-    (meta tensors for the card's)."""
+    """Off the CPU a token count past the attention block's shared memory
+    raises before the library is asked for (meta tensors for the card's)."""
     def no_lib():
         raise AssertionError("the kernel library was asked for")
 
@@ -183,5 +177,3 @@ def test_sa_forward_refuses_before_any_launch(monkeypatch):
                meta(E), meta(E), meta(E)]
     with pytest.raises(NotImplementedError, match="M=800, E=256"):
         sl.sa_sublayer_fwd(meta(1, 800, E), meta(1, 800, E), *weights, num_heads=8)
-    with pytest.raises(ValueError, match="qkv_form"):
-        sl._sa_fwd_card(meta(1, 40, E), None, *weights, 8, sl.LN_EPS, 0.0, 0.0, None, "bf16")

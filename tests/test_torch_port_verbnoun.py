@@ -103,13 +103,13 @@ def test_epic_shapes_at_full_width():
 
 
 def test_shared_memory_at_epic_widths(monkeypatch):
-    """K4 at M = 300, E = 256, H = 8: the forward's block is 169,872 bytes,
-    the SA backward's largest block (one head's k and v rows of every key,
-    a 32-row tile's q and dc rows, an M-long row per warp) 97,248; at
-    egoprocel's M = 200 67,648; it fits up to M = 756 at hd = 32 and refuses
-    heads wider than 64; K6 at C = 256; K7 at 98 / 301 / 3,806."""
+    """K4 at M = 300, E = 256, H = 8: the SA forward's and backward's largest
+    block (one head's k and v rows of every key, a 32-row tile's q and dc
+    rows, an M-long row per warp) is 97,248 bytes; at egoprocel's M = 200
+    67,648; both fit up to M = 756 at hd = 32 and the backward refuses heads
+    wider than 64; K6 at C = 256; K7 at 98 / 301 / 3,806."""
     assert sa_layer.has_forward(300, 256, 8) and sa_layer.has_backward(300, 256, 8)
-    assert _build.GEMM_SMEM + 4 * (8 * 300 + 3 * 300 * 33) == 169872
+    assert sa_layer.has_forward(756, 256, 8) and not sa_layer.has_forward(757, 256, 8)
     assert sa_layer.sa_bwd_smem(300, 256, 8) == 4 * (2 * 300 * 33 + 2 * 32 * 33 + 8 * 300) == 97248
     assert sa_layer.has_backward(200, 256, 8) and sa_layer.sa_bwd_smem(200, 256, 8) == 67648
     assert sa_layer.has_backward(756, 256, 8) and not sa_layer.has_backward(757, 256, 8)
