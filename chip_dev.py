@@ -174,12 +174,8 @@ def k1_f64(seed: int = 0):
     return 0
 
 
-def k3_f64(tree: str = REPO, seed: int = 0):
-    """K3 (forward and backward, no dropout, Breakfast's 4 x 4096, M=60,
-    E=512, H=8, and the flagship's 8 x 3072, M=40, E=256) of the package in
-    ``tree`` and its f32 plain version, each against the plain version in
-    float64: max, rms and coherent error of the output, dq, dx, dWk, dbk,
-    dWv and dbv."""
+def _chip_smoke(tree: str):
+    """This checkout's chip_smoke.py on the package in ``tree``, built."""
     import importlib.util
 
     import torch
@@ -192,6 +188,18 @@ def k3_f64(tree: str = REPO, seed: int = 0):
     cs.REPO = tree
     cs.phase_environment(torch)
     cs.phase_build()
+    return cs
+
+
+def k3_f64(tree: str = REPO, seed: int = 0):
+    """K3 (forward and backward, no dropout, Breakfast's 4 x 4096, M=60,
+    E=512, H=8, and the flagship's 8 x 3072, M=40, E=256) of the package in
+    ``tree`` and its f32 plain version, each against the plain version in
+    float64: max, rms and coherent error of the output, dq, dx, dWk, dbk,
+    dWv and dbv."""
+    import torch
+
+    cs = _chip_smoke(tree)
     from fact_clip_tpu_torch.ops import mha_attn as ma
 
     one = torch.ones((), device="cuda", dtype=torch.float64)
@@ -217,23 +225,6 @@ def k3_f64(tree: str = REPO, seed: int = 0):
             print(f"[k3-f64] {os.path.relpath(tree, REPO)} {tag} {name:<6} vs float64: "
                   + "; ".join(parts), flush=True)
     return 0
-
-
-def _chip_smoke(tree: str):
-    """This checkout's chip_smoke.py on the package in ``tree``, built."""
-    import importlib.util
-
-    import torch
-
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    cs.REPO = tree
-    cs.phase_environment(torch)
-    cs.phase_build()
-    return cs
 
 
 def k2_f64(tree: str = REPO, seed: int = 0):

@@ -338,20 +338,16 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
     dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * E, lens)[0]  # [x^T dK | x^T dV]
     d_wk, d_wv = dw[:, :E], dw[:, E:]
     if pos is not None:  # dWk += pos^T dK, the batch's dK summed first where pos is shared
+        if pos.shape[0] == 1:
+            dk_p = _grad.batch_sum(dkv, E)
+            pos_lens = torch.full((1,), X, dtype=torch.int32, device=x_in.device)
+        else:
+            dk_p, pos_lens = dkv, lens
         d_wk = d_wk.clone()
-        d_wk[:P] += _pos_wgrad(pos, P, dkv, E, lens)
+        d_wk[:P] += _k6_wgrad(pos, 0, P, dk_p, 0, E, pos_lens)[0]
     dq = _grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
     d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]
     return dq, dx, None, d_wk, d_b[:E], d_wv, d_b[E:]
-
-
-def _pos_wgrad(pos, P: int, dkv, E: int, lens):
-    """pos^T dK (P, E) from dkv's first E columns: the batch's dK summed first
-    where pos (1 or B, X, P) is shared by the batch."""
-    if pos.shape[0] == 1:
-        full = torch.full((1,), dkv.shape[1], dtype=torch.int32, device=dkv.device)
-        return _k6_wgrad(pos, 0, P, _grad.batch_sum(dkv, E), 0, E, full)[0]
-    return _k6_wgrad(pos, 0, P, dkv, 0, E, lens)[0]
 
 
 class _MHA(torch.autograd.Function):

@@ -155,12 +155,11 @@ def _sa_fwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_
     """``sa_sublayer_fwd``'s launches (CPU tensors reach it only in the
     tests, which stand a model of the kernels' C interface in for the
     library): q, k and v per (32-row tile, video, projection) on the f32
-    GEMM core, then the attention per (32-query tile, head, video) and the
+    GEMM core (one launch: the towers' 3xTF32 GEMM, which needs packed
+    weights and a positional-table GEMM a call, measured slower here,
+    PERF.md §6), then the attention per (32-query tile, head, video) and the
     out projection with its dropout, the residual and the LayerNorm per
-    32-row tile.  (One 3xTF32 GEMM of the towers' core on [Wq | Wk | Wv]
-    with pos @ [Wq | Wk] in its epilogue projected q, k, v 1.3-3x slower at
-    epic's and the flagship's shapes: two packs and a table GEMM a call; the
-    f32 row-tile kernel is one launch, PERF.md §6.)"""
+    32-row tile."""
     B, M, E = x.shape
     weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
     pos_t, Pp = _check_sa("sa_sublayer_fwd", x, pos, *weights, num_heads)
@@ -177,8 +176,9 @@ def _sa_fwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_
     c = torch.empty_like(x)
     y = torch.empty_like(x)
     err = _build.lib().fk_sa_attn_out(
-        qkv.data_ptr(), 3 * M * E, E, M * E, 2 * M * E, x.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
-        ln_bias.data_ptr(), c.data_ptr(), y.data_ptr(), B, M, E, num_heads, float(eps),
+        qkv.data_ptr(), 3 * M * E, E, M * E, 2 * M * E, x.data_ptr(), wo.data_ptr(),
+        bo.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), c.data_ptr(), y.data_ptr(), B, M,
+        E, num_heads, float(eps),
         *dropout_args(seed, 0, rate_attn), *dropout_args(seed, 1, rate),
         _build.stream_ptr(x.device))
     _build.check("fk_sa_attn_out", err)

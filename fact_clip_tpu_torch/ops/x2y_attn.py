@@ -40,7 +40,7 @@ import torch
 from .. import _build
 from . import _grad
 from .dilated_conv import _MASKED, _ONE, _k6_gemm, _k6_wgrad, k6_pack
-from .mha_attn import _check_strides, _pos_wgrad, _project, attended_lengths, k3_pack
+from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
@@ -337,12 +337,14 @@ def _x2y_flash_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
     dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * d, lens)[0]  # [x^T dxk | x^T dxv]
     d_wk, d_wv = dw[:, :d], dw[:, d:]
     d_xpos = None
-    if xpos is not None:  # dWk += x_pos^T (sum_b dxk)
+    if xpos is not None:  # shared by the batch: dWk += x_pos^T (sum_b dxk)
+        dk_sum = _grad.batch_sum(dkv, d)
+        full = torch.full((1,), X, dtype=torch.int32, device=x_in.device)
         d_wk = d_wk.clone()
-        d_wk[:Px] += _pos_wgrad(xpos, Px, dkv, d, lens)
+        d_wk[:Px] += _k6_wgrad(xpos, 0, Px, dk_sum, 0, d, full)[0]
         if need_xpos_grad:
             # sum_b dxk_in[b] = (sum_b dxk[b]) @ Wk^T: one product of the batch sum
-            d_xpos = _pos_like((_grad.batch_sum(dkv, d) @ wk.t())[..., :Px], x_pos)
+            d_xpos = _pos_like((dk_sum @ wk.t())[..., :Px], x_pos)
     d_yq = _grad.sum_groups(part_dyq, FLASH_SUM_GROUP).view(B, M, d)
     d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * d), FLASH_SUM_GROUP)[0]
     # the q side stays plain matmuls, as in the JAX caller (M is the token axis)

@@ -12,8 +12,9 @@ Here, without a card, ``FakeK4Lib`` (``FakeK6Lib`` of
 CPU tensors, reading q, k and v at the strides the wrapper hands them)
 stands in for the library; the port's launch sequence (``_sa_fwd_card``)
 is held against JAX's ``sa_sublayer`` in interpret mode and the
-f32 plain version: M = 11, 40, 200 and 300, B = 1-3, E = 64 (H = 2, hd =
-32) and E = 128 (H = 2 and 4: hd = 64 and 32).  With dropout (B = 1-8) the fake's keep bits are those of
+f32 plain version: M = 11, 40, 200 and 300, B = 1-3, E = 64 (H = 2,
+hd = 32) and E = 128 (H = 2 and 4: hd = 64 and 32).  With dropout (B =
+1-8) the fake's keep bits are those of
 ``sa_dropout_masks`` (the mask kernel's replay, which the backward takes),
 and the result equals the plain version given those masks.
 
