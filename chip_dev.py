@@ -6,7 +6,8 @@
         named cases of a row (``mha_cross:flagship,ragged``; a case the
         parent's package refuses, such as one this tree made possible, is
         left out so); ``k3`` stands for K3's rows at the cases both trees
-        run, ``k2k4`` for K2's flash backward and K4's SA forward at theirs:
+        run, ``k2k4`` for K2's flash backward and K4's SA forward at theirs,
+        ``k2sx`` for K2's small-X forward and backward at theirs:
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -39,6 +40,14 @@
         Breakfast's 4 x 4096, M=60, d = Cx = 512, shared x_pos): every
         cotangent from the same saves (probabilities, output) against the
         plain backward in float64.
+
+    python3 chip_dev.py k2sx-f64
+        The same for K2's small-X forward and backward (the flagship's a2f,
+        8 x 3072 over X=40, and epic's a2f and f2a at batch 1, Cy = Cx =
+        d = 512, shared positional tables): yq, attn and probs, then from
+        the kernel forward's probabilities dy, dy_pos, dWq, dbq, dxk and dxv
+        (the per-video products inside the backward) and the X side's
+        cotangents, against the plain versions in float64.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -73,7 +82,9 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
                   "mha_cross_e512", "mha_cross_bwd_e512"],
            # K2's flash backward and K4's SA forward at the cases their parent runs too
            "k2k4": ["x2y_flash_bwd:flagship,ragged,breakfast",
-                    "sa_sublayer:flagship,ragged,flag_drop,rag_drop,epic,epic_b3,epic_drop,ego"]}
+                    "sa_sublayer:flagship,ragged,flag_drop,rag_drop,epic,epic_b3,epic_drop,ego"],
+           # K2's small-X forward and backward: the parent of their redesign runs every case
+           "k2sx": ["x2y_small_x", "x2y_small_x_bwd"]}
 
 
 def ab(parent: str, names):
@@ -259,6 +270,78 @@ def k2_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
+def _sx_dxkv(xa, a, probs, g):
+    """The small-X backward's dxk = dlogits^T yq and dxv = probs^T g_attn per
+    video, plain, in the precision of the arguments ``a`` (x2y_attention's)."""
+    import torch
+
+    d = a[8].shape[1]
+    yq = xa.add_pos(a[0], a[1]) @ a[8] + a[9]
+    dp = g[1] + g[0] @ (a[2] @ a[6] + a[7]).transpose(1, 2)
+    dl = probs * (dp - (dp * probs).sum(-1, keepdim=True)) + g[2]
+    valid = torch.arange(probs.shape[2], device=probs.device)[None, None, :] < a[10][:, None, None]
+    dl = torch.where(valid, dl, 0.0) * (1.0 / np.sqrt(d))
+    return torch.einsum("byx,byd->bxd", dl, yq), torch.einsum("byx,byd->bxd", probs, g[0])
+
+
+def k2sx_f64(seed: int = 0):
+    """K2's small-X forward and backward (shared positional tables, g_probs
+    and g_logits non-zero) of this checkout's package and its f32 plain
+    version, each against the plain version in float64: max, rms and
+    coherent error of yq, attn, probs and every cotangent, and of dxk and
+    dxv, the per-video weight products the backward runs inside."""
+    import torch
+
+    cs = _chip_smoke(REPO)
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    seen = []  # the backward's per-video weight products, dxk then dxv
+    wgrad = xa._k6_wgrad
+
+    def spy(*args, **kw):
+        out = wgrad(*args, **kw)
+        if kw.get("per_video"):
+            seen.append(out)
+        return out
+
+    xa._k6_wgrad = spy
+    names = ("dy", "dy_pos", "dx", "dx_pos", "dWk", "dbk", "dWv", "dbv", "dWq", "dbq", "dxk",
+             "dxv")
+    cases = {"flagship": (8, 3072, 40, [40] * 8, (1, 3072, 512), (1, 40, 256)),
+             "epic_a2f": (1, 256, 300, [300], (1, 256, 512), (1, 300, 256)),
+             "epic_f2a": (1, 300, 256, [256], (1, 300, 256), (1, 256, 512))}
+    for tag, (B, Y, X, lens, yps, xps) in cases.items():
+        args = cs.x2y_case(rng, B, Y, X, 512, 512, 512, lens, cs._rand(rng, yps),
+                           cs._rand(rng, xps))
+        a64 = [t.double() if t is not None and t.is_floating_point() else t for t in args]
+        with torch.no_grad():
+            yq64 = xa.add_pos(a64[0], a64[1]) @ a64[8] + a64[9]
+            attn64, probs64, _ = xa.x2y_attention_reference(*a64)
+            fwd = {"kernel": (xa._queries(args[0], args[1], args[8], args[9]),
+                              *xa.x2y_small_x_fwd(*args)[:2]),
+                   "plain": (xa.add_pos(args[0], args[1]) @ args[8] + args[9],
+                             *xa.x2y_attention_reference(*args)[:2])}
+            probs = fwd["kernel"][2]  # the kernel's saves feed every backward
+            g = [cs._rand(rng, attn64.shape), cs._rand(rng, probs.shape, 0.1),
+                 cs._rand(rng, probs.shape, 0.1)]
+            p64, g64 = probs.double(), [t.double() for t in g]
+            ref = (*xa.x2y_bwd_reference(*a64, p64, *g64), *_sx_dxkv(xa, a64, p64, g64))
+            seen.clear()
+            bwd = {"kernel": (*xa.x2y_small_x_bwd(*args, probs, *g), *seen),
+                   "plain": (*xa.x2y_bwd_reference(*args, probs, *g),
+                             *_sx_dxkv(xa, args, probs, g))}
+        for name in ("kernel", "plain"):
+            parts = [f"{n} {_stats(a, r, one)}"
+                     for n, a, r in zip(("yq", "attn", "probs"), fwd[name], (yq64, attn64,
+                                                                             probs64))]
+            parts += [f"{n} {_stats(a, r, one)}" for n, a, r in zip(names, bwd[name], ref)]
+            print(f"[k2sx-f64] {tag} {name:<6} vs float64: " + "; ".join(parts), flush=True)
+    xa._k6_wgrad = wgrad
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -270,6 +353,8 @@ def main(argv):
         return k3_f64(*argv[1:])
     if argv[:1] == ["k2-f64"] and len(argv) <= 2:
         return k2_f64(*argv[1:])
+    if argv == ["k2sx-f64"]:
+        return k2sx_f64()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -30,9 +30,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    JSON line); the towers' training forms and backwards and K3's forward
    (dropout 0.2) and backward are also run 20 times each on the same
    inputs and must give the same bits every time (``k6_repeat_check``:
-   K6 at Breakfast's and epic's shapes, K1, K3 and K2's flash backward at
-   the flagship's, K4's SA forward with dropout 0.2 at epic's and the
-   flagship's).
+   K6 at Breakfast's and epic's shapes, K1, K3, K2's flash backward and
+   K2's small-X forward and backward at the flagship's, K4's SA forward
+   with dropout 0.2 at epic's and the flagship's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -42,10 +42,13 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    computes the other fused functions (K6: two dilated conv3s, the split
    fuse, the ReLU, the mask and the out projection), so their
    ``library_ms`` is null.  K2's flash backward runs the projection's
-   recompute, dx and the weight products on the tensor cores too (three
-   TF32 passes in its bound).  K2's flash forms and K3 also at a video with
-   no valid key (``xlen0``: x_len = 0 attends to every frame, as JAX's);
-   K2's flash backward also at Breakfast's 4 x 4096, M=60, d=512; K4's SA
+   recompute, dx and the weight products on the tensor cores too, and K2's
+   small-X forms their q and key projections, dy and the weight products
+   (three TF32 passes in their bounds, the attention terms in f32).  K2's
+   flash and small-X forms and K3 also at a video with no valid key
+   (``xlen0``: x_len = 0 attends to every key, as JAX's); K2's small-X
+   forward also at the TDU's 8 x 40 x 128; K2's flash backward and small-X
+   backward also at Breakfast's 4 x 4096, d=512 (M=60, X=60); K4's SA
    forward also at egoprocel's B=2, M=200 and with dropout at epic's
    shape.  K3 also at
    egoprocel's 200 queries (1 x 4096, E=256, H=8, forward with dropout 0.2
@@ -565,9 +568,11 @@ def x2y_fwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
 
     args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
     Xv = _valid(args[10], X)
-    kv = 4 * Cx * d * Xv if flash else 4 * B * X * Cx * d  # the projections of the keys
-    work = (2 * B * Y * Cy * d + kv + 4 * Y * d * Xv,
-            nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4)
+    n_bytes = nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4
+    if flash:
+        work = (2 * B * Y * Cy * d + 4 * Cx * d * Xv + 4 * Y * d * Xv, n_bytes)
+    else:  # the q and key projections as three TF32 passes, the attention terms in f32
+        work = (4 * Y * d * Xv, n_bytes, 0, 2 * B * Y * Cy * d + 4 * B * X * Cx * d)
     fn = xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd
     library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1)
     return lambda: fn(*args), lambda: xa.x2y_attention_reference(*args), work, None, library
@@ -588,7 +593,10 @@ def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
         work = (8 * Y * d * Xv + 6 * B * Y * Cy * d, n_bytes, 0, 12 * Cx * d * Xv)
     else:
         kern = lambda: xa.x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)  # noqa: E731
-        work = (6 * B * Y * Cy * d + 8 * Y * d * Xv + 12 * B * X * Cx * d, n_bytes)
+        # yq's recompute, dy, dWq, dxk, dxv and the keys' recompute as three
+        # TF32 passes; the attention terms and the X side's products in f32
+        work = (4 * Y * d * Xv + 8 * B * X * Cx * d, n_bytes, 0,
+                6 * B * Y * Cy * d + 4 * Y * d * Xv + 4 * B * X * Cx * d)
     library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1, g=g_attn)
     return (kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work,
             None, library)
@@ -1205,7 +1213,13 @@ def kernel_table():
           ("epic_f2a", lambda r: x2y_fwd_case(r, False, 2, 300, 256, D, D, D, [256, 190],
                                               _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
           ("epic_a2f", lambda r: x2y_fwd_case(r, False, 2, 256, 300, D, D, D, [300, 300],
-                                              _rand(r, (2, 256, D)), _rand(r, (1, 300, E))))]),
+                                              _rand(r, (2, 256, D)), _rand(r, (1, 300, E)))),
+          # the TDU: 40 tokens over 128 segments (per-video segment positions)
+          ("tdu", lambda r: x2y_fwd_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
+                                         _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
+          # a video with no valid key attends to all its keys, as JAX's
+          ("xlen0", lambda r: x2y_fwd_case(r, False, 2, 300, 256, D, D, D, [256, 0],
+                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
         ("x2y_flash", csrc + "flash_attn.cu", pallas + "x2y_attn.py:159", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -1277,7 +1291,12 @@ def kernel_table():
           ("epic_a2f", lambda r: x2y_bwd_case(r, False, 1, 256, 300, D, D, D, [300],
                                               _rand(r, (1, 256, D)), _rand(r, (1, 300, E)))),
           ("ragged", lambda r: x2y_bwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
-                                            _rand(r, (1, 1000, D)), _rand(r, (2, 37, D))))]),
+                                            _rand(r, (1, 1000, D)), _rand(r, (2, 37, D)))),
+          # Breakfast's a2f: 4 x 4096 frames over 60 tokens
+          ("breakfast", lambda r: x2y_bwd_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
+                                               zeros(1, 4096, D), _rand(r, (1, 60, D)))),
+          ("xlen0", lambda r: x2y_bwd_case(r, False, 2, 300, 256, D, D, D, [256, 0],
+                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
         ("x2y_flash_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -1515,7 +1534,9 @@ def k6_repeat_check(seed: int = 0):
     flagship's shape, the forward with dropout 0.2 (the projection GEMM, the
     per-head partials, the combine) and the backward (its tile shares and
     bias sums in two stages); K2's flash backward at the flagship's shape
-    (the attention's panels and column sums, dyq's tile shares); K4's SA
+    (the attention's panels and column sums, dyq's tile shares); K2's
+    small-X forward and backward at the flagship's a2f (the projections, the
+    attention's panels, dbq's tile shares); K4's SA
     forward with dropout 0.2 at epic's B=1, M=300 and the flagship's B=8,
     M=40 (the three split kernels, the cp.async staging)."""
     import torch
@@ -1541,6 +1562,10 @@ def k6_repeat_check(seed: int = 0):
              ("k2_flash_bwd", lambda: x2y_bwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
                                                    FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
                                                    zeros)),
+             ("k2_sx", lambda: x2y_fwd_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
+                                            zeros, _rand(rng, (1, 40, 256)))),
+             ("k2_sx_bwd", lambda: x2y_bwd_case(rng, False, 8, 3072, 40, 512, 512, 512,
+                                                [40] * 8, zeros, _rand(rng, (1, 40, 256)))),
              ("sa_epic", lambda: sa_fwd_case(rng, 1, 300, 256, 8, 0.2)),
              ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)))
     failed = []

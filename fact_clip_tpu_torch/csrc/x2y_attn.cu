@@ -2,40 +2,46 @@
 // segments) over a few projected keys (action tokens or segments).
 //
 // Replaces fact_clip_tpu/ops/pallas/x2y_attn.py::_x2y_small_x_fwd_impl
-// (_small_x_kernel).  One block per (tile of 64 query rows, video), three
-// products on the GEMM core:
-//   yq = (y + y_pos) @ Wq + bq                       (kept in shared memory)
-//   logits = yq @ xk^T * scale, keys at or past x_len set to -1e9
-//   probs = softmax(logits), attn = probs @ xv
-// xk and xv are projected outside, as the TPU kernel's caller does (xk
-// arrives transposed, (d, X), so that it is the second operand of a row-major
-// product); the key axis is at most 1024 long.  The logits and probabilities
-// are outputs, so the block writes them to global memory and reads them back
-// (its own rows, from L1/L2) for the softmax and the attend.
+// (_small_x_kernel).  On the H100 the work splits by what bounds it
+// (ops/x2y_attn.py::_x2y_small_x_fwd_card):
+//   yq = (y + y_pos) @ Wq + bq: one 3xTF32 GEMM of tc_tower.cuh (epilogue
+//     kProj, the table y_pos @ Wq from a kMasked GEMM added on all d
+//     columns; ops/mha_attn.py::_project), every query row;
+//   kv = [xk | xv], the projection of the keys (outside the TPU kernel, in
+//     its caller), the same GEMM, zero at keys at or past x_len (all X keys
+//     of a video with x_len = 0);
+//   the attention (this file, x2y_sx_attn_kernel): one block per (tile of
+//     BQ = 8 or 16 query rows, video), f32 FMA on sx_attn.cuh's panels:
+//       logits = yq xk^T * scale, -1e9 at keys at or past x_len,
+//       probs = softmax(logits), attn = probs xv,
+//     the logits and probs kept in shared memory (X <= 1024) and written
+//     once.
+// Bound on the H100: the q projection, 2 * B*Y*Cy*d FLOPs (12.9 GFLOP for
+// the u-block's a2f at B=8, Y=3072, Cy=d=512: 0.078 ms as three TF32 passes
+// at 495 TFLOP/s); the logits and the attend add 4 * B*Y*X*d (2 GFLOP at
+// X=40, 0.030 ms of f32 FMA).  Short query tiles fill the card at epic's
+// B=2, Y=256-300 (64-76 blocks where 64-row tiles gave 8-10).
 //
 // K8b, the int8 twin (x2y_small_x_q8_kernel), replaces
 // fact_clip_tpu/ops/pallas/quant_conv.py::_x2y_small_x_q8_impl
 // (_x2y_small_x_kernel_q8): the frame rows y + y_pos arrive quantized per row
 // (quant.cu's q8_rows_kernel: int8 values and each row's absmax s_y), the q
 // projection is an int8 GEMM on quant.cuh's mma.sync core, dequantized in
-// JAX's order fma(idot * s_y, swq, bq) (ops/quant_conv.py), and the logits, softmax and attend
-// are this kernel's (small_x_attend).
-//
-// Bound on the H100: the q projection, 2 * B*Y*Cy*d FLOPs of f32 FMA
-// (12.9 GFLOP for the u-block's a2f at B=8, Y=3072, Cy=d=512); the logits
-// and the attend add 4 * B*Y*X*d (2 GFLOP at X=40).  Every product reads its
-// second operand once per block of 64 rows, so each weight or key value
-// fetched from L2 serves 64 rows.
+// JAX's order fma(idot * s_y, swq, bq) (ops/quant_conv.py), and the logits,
+// softmax and attend are small_x_attend's on common.cuh's f32 GEMM core, one
+// block per (64 query rows, video); xk arrives transposed, (d, X), and xv
+// (X, d), projected outside.
 #include <math.h>
 
 #include "common.cuh"
 #include "quant.cuh"
+#include "sx_attn.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // query rows per block
-// floats at the front of the block's memory: the GEMM staging (f32, and the
-// int8 staging of the q8 twin in the same place)
+constexpr int BM = 64;  // query rows per block of K8b
+// floats at the front of K8b's block memory: the f32 GEMM staging and the
+// int8 staging in the same place
 constexpr int kStageFloats =
     (sizeof(fk::GemmSmem<BM>) > sizeof(fk::QSmem<BM>) ? sizeof(fk::GemmSmem<BM>)
                                                       : sizeof(fk::QSmem<BM>)) / sizeof(float);
@@ -99,50 +105,79 @@ __device__ __forceinline__ void small_x_attend(const float* yq, fk::GemmSmem<BM>
   }
 }
 
+// The attention of x2y_small_x_fwd: logits, probs and attn of the block's
+// BQ = 4R query rows from the projected queries yq (B, Y, d) and kv = [xk |
+// xv] (B, X, 2d).  Key tiles wholly past x_len compute nothing (their logits
+// are -1e9, their probabilities exactly 0), and neither do a video's keys at
+// x_len = 0 (every logit -1e9: it attends uniformly to all X values).
+template <int R>
 __global__ void __launch_bounds__(fk::kThreads)
-x2y_small_x_kernel(const float* __restrict__ y, const float* __restrict__ ypos,
-                   long long pos_bstride, int Py, const float* __restrict__ xkt,
-                   const float* __restrict__ xv, const float* __restrict__ wq,
-                   const float* __restrict__ bq, const int* __restrict__ xlen,
-                   float* __restrict__ attn, float* __restrict__ probs,
-                   float* __restrict__ logits, int Y, int X, int Cy, int d, float scale) {
-  constexpr int RM = BM / 8;
+x2y_sx_attn_kernel(const float* __restrict__ yq, const float* __restrict__ kv,
+                   const int* __restrict__ xlen, int Y, int X, int d, float scale,
+                   float* __restrict__ logits, float* __restrict__ probs,
+                   float* __restrict__ attn) {
+  constexpr int BQ = 4 * R;
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* yq = reinterpret_cast<float*>(smem_raw) + kStageFloats;
-
-  const int b = blockIdx.y;
-  const int y0 = blockIdx.x * BM;
-  const int rows = min(BM, Y - y0);
+  const int ls = fk::sx_pad(X);
+  float* Q = reinterpret_cast<float*>(smem_raw);  // (BQ, d + 4): the tile's yq rows
+  float* S = Q + BQ * (d + 4);                     // (BQ, ls): logits, then probs
+  float* panel = S + BQ * ls;
+  const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6, lane = tid & 31;
+  const int b = blockIdx.y, y0 = blockIdx.x * BQ;
+  const int rows = min(BQ, Y - y0);
   const int xl = min(xlen[b], X);
-  const float* yb = y + (size_t)b * Y * Cy;
-  const float* pb = ypos ? ypos + (size_t)b * pos_bstride : nullptr;
-  const float* xkb = xkt + (size_t)b * d * X;
-  const float* xvb = xv + (size_t)b * X * d;
-  float* lb = logits + ((size_t)b * Y + y0) * X;  // this block's rows
-  float* prb = probs + ((size_t)b * Y + y0) * X;
-  float* ab = attn + ((size_t)b * Y + y0) * d;
-  float acc[RM][8];
+  const float* kvb = kv + (size_t)b * X * 2 * d;
+  const size_t rx = ((size_t)b * Y + y0) * X;  // this block's rows of (B, Y, X)
+  fk::sx_stage_rows(Q, yq + ((size_t)b * Y + y0) * d, BQ, rows, d);
 
-  auto yq_in = [&](int r, int k) {  // y + pos: the query projection's input
-    if (r >= rows) return 0.f;
-    float v = __ldg(yb + (size_t)(y0 + r) * Cy + k);
-    if (pb != nullptr && k < Py) v += __ldg(pb + (size_t)(y0 + r) * Py + k);
-    return v;
-  };
-  for (int n0 = 0; n0 < d; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, yq_in, wq, d, Cy, n0, d, s);
+  // 1. logits = yq xk^T * scale; -1e9 at keys at or past x_len
+  for (int j0 = 0; j0 < X; j0 += fk::kSxKeys) {
+    float acc[R] = {};
+    if (j0 < xl) fk::sx_dots<R>(acc, Q, d, kvb, X, 0, j0, panel);  // block-uniform
+    const int j = j0 + tx;
+    if (j >= X) continue;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c < d) yq[fk::pass_row<BM>(i) * d + c] = acc[i][j] + __ldg(bq + c);
-      }
+    for (int i = 0; i < R; ++i) {
+      const int m = R * ty + i;
+      const float v = j < xl ? acc[i] * scale : fk::kMaskedLogit;
+      S[m * ls + j] = v;
+      if (m < rows) logits[rx + (size_t)m * X + j] = v;
+    }
   }
   __syncthreads();
 
-  small_x_attend(yq, s, xkb, xvb, rows, xl, X, d, scale, lb, prb, ab);
+  // 2. softmax, one warp per row
+  for (int m = tid >> 5; m < rows; m += fk::kWarps) {
+    float* srow = S + m * ls;
+    float mx = -INFINITY;
+    for (int k = lane; k < X; k += 32) mx = fmaxf(mx, srow[k]);
+    mx = fk::warp_max(mx);
+    float sum = 0.f;
+    for (int k = lane; k < X; k += 32) sum += expf(srow[k] - mx);
+    const float inv = 1.f / fk::warp_sum(sum);
+    float* prow = probs + rx + (size_t)m * X;
+    for (int k = lane; k < X; k += 32) {
+      const float p = expf(srow[k] - mx) * inv;
+      srow[k] = p;
+      prow[k] = p;
+    }
+  }
+
+  // 3. attn = probs xv over the keys whose probability can be non-zero
+  const int nk = xl > 0 ? xl : X;
+  for (int n0 = 0; n0 < d; n0 += fk::kSxNC) {
+    float acc[R][4];
+    fk::sx_attend<R>(acc, S, ls, kvb, d, d, n0, nk, panel);  // its first sync covers step 2
+    const int c = n0 + 4 * tx;
+    if (c >= d) continue;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int m = R * ty + i;
+      if (m < rows)
+        fk::sx_st4(attn + ((size_t)b * Y + y0 + m) * d + c,
+                   make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(fk::kThreads)
@@ -190,16 +225,25 @@ x2y_small_x_q8_kernel(const int8_t* __restrict__ qy, const float* __restrict__ s
 
 }  // namespace
 
-extern "C" int fk_x2y_small_x(const float* y, const float* ypos, long long pos_bstride, int Py,
-                              const float* xkt, const float* xv, const float* wq, const float* bq,
-                              const int* xlen, float* attn, float* probs, float* logits, int B,
-                              int Y, int X, int Cy, int d, float scale, void* stream) {
-  const size_t smem = (kStageFloats + (size_t)BM * d) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)x2y_small_x_kernel, smem);
+// x2y_small_x_fwd's attention: yq (B, Y, d), kv (B, X, 2d) -> logits and
+// probs (B, Y, X), attn (B, Y, d); bq query rows per block (8 or 16).
+extern "C" int fk_x2y_sx_attn(const float* yq, const float* kv, const int* xlen, int B, int Y,
+                              int X, int d, float scale, float* logits, float* probs,
+                              float* attn, int bq, void* stream) {
+  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (bq != 8 && bq != 16))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fk::sx_smem_floats(bq, X, d) * sizeof(float);
+  const void* kernel = bq == 16 ? (const void*)x2y_sx_attn_kernel<4>
+                                : (const void*)x2y_sx_attn_kernel<2>;
+  cudaError_t err = fk::set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Y + BM - 1) / BM, B);
-  x2y_small_x_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      y, ypos, pos_bstride, Py, xkt, xv, wq, bq, xlen, attn, probs, logits, Y, X, Cy, d, scale);
+  dim3 grid((Y + bq - 1) / bq, B);
+  if (bq == 16)
+    x2y_sx_attn_kernel<4><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
+        yq, kv, xlen, Y, X, d, scale, logits, probs, attn);
+  else
+    x2y_sx_attn_kernel<2><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
+        yq, kv, xlen, Y, X, d, scale, logits, probs, attn);
   return (int)cudaGetLastError();
 }
 

@@ -1,21 +1,31 @@
 // K2 backward: single-head X2Y cross-attention, both forms.
 //
 // Small-X form: replaces fact_clip_tpu/ops/pallas/x2y_attn.py::
-// _x2y_small_x_bwd_impl (_small_x_bwd_kernel).  One block per (tile of 64
-// query rows, video), from the saved probabilities and the cotangents of
-// (attn, probs, logits):
-//   dprobs = g_probs + g_attn @ xv^T
-//   dlogits = (probs * (dprobs - rowsum(probs * dprobs)) + g_logits) * scale,
-//             exactly zero at keys at or past x_len (the -1e9 logits)
-//   yq = (y + y_pos) @ Wq + bq        (recomputed, for dxk)
-//   dyq = dlogits @ xk,  dy = dyq @ Wq^T
-// The block writes dlogits, yq, dyq, dy and its column sums of dyq (dbq).
-// The sums over query rows, dxk = dlogits^T yq and dxv = probs^T g_attn per
-// video and dWq = (y + y_pos)^T dyq, are grad.cu's fk_atb + fk_reduce, and so
-// is the batch sum of d_ypos; the X-side projections' grads stay plain
-// matmuls outside, as in the JAX caller.  Bound on the H100: f32 FMA, the q
-// projection, dy and dWq (3 * 12.9 GFLOP for the flagship's a2f at B=8,
-// Y=3072, Cy=d=512); the (B, Y, X) intermediates are small next to it.
+// _x2y_small_x_bwd_impl (_small_x_bwd_kernel).  The TPU kernel walks the
+// query tiles in order, recomputes yq in VMEM and carries dxk, dxv, dWq and
+// dbq there.  On the H100 the work splits by what bounds it, as the flash
+// form's does (ops/x2y_attn.py::_x2y_small_x_bwd_card):
+//   yq = (y + y_pos) @ Wq + bq and kv = [xk | xv], recomputed as JAX's does,
+//     on tc_tower.cuh's 3xTF32 GEMM (epilogue kProj; ops/mha_attn.py::_project);
+//   the attention terms (this file, x2y_sx_attn_bwd_kernel): one block per
+//     (tile of BQ = 8 or 16 query rows, video), f32 FMA on sx_attn.cuh's
+//     panels, from the saved probabilities and the cotangents of (attn,
+//     probs, logits):
+//       dprobs = g_probs + g_attn xv^T,
+//       dlogits = (probs * (dprobs - rowsum(probs * dprobs)) + g_logits) * scale,
+//                 exactly zero at keys at or past x_len (the -1e9 logits),
+//       dyq = dlogits xk,
+//     writing dlogits (rows padded to 16 bytes), dyq and the tile's column
+//     sums of dyq (dbq's shares, summed in two fixed-order stages);
+//   dy = dyq Wq^T: one GEMM of the tensor cores (K = d);
+//   dWq = (y + y_pos)^T dyq, dxk = dlogits^T yq and dxv = probs^T g_attn
+//     (per video): mstcn2.cu's k6_wgrad, y_pos^T of the batch's dyq added
+//     for the shared table.  No float atomics.
+// The X side's projections and their cotangents stay plain matmuls outside,
+// as in the JAX caller.  Bound on the H100: the products yq, dy and dWq,
+// 3 * 2 * B*Y*Cy*d (38.7 GFLOP for the flagship's a2f at B=8, Y=3072,
+// Cy=d=512: 0.234 ms as three TF32 passes); the attention terms, 8 * B*Y*X*d
+// with dxk and dxv (4 GFLOP at X=40), are small beside them.
 //
 // Flash form: replaces _x2y_flash_bwd_impl (_flash_bwd_kernel).  The TPU
 // kernel walks the key tiles in order, recomputes each tile's projections in
@@ -44,128 +54,107 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "sx_attn.cuh"
 
 namespace {
 
-constexpr int BM = 64;     // query rows per block of the small-X form
 constexpr int kMaxM = 64;  // flash: query rows per video (the attention's 64-wide panels)
 
+// The small-X form's attention terms for the block's BQ = 4R query rows, from
+// kv = [xk | xv] (B, X, 2d).  A video with no valid key (x_len = 0) has no
+// dlogit that is not 0 (its -1e9 logits are constants), so its blocks write
+// zeros; otherwise only the keys below x_len take part (probs 0 past them).
+template <int R>
 __global__ void __launch_bounds__(fk::kThreads)
-x2y_sx_bwd_kernel(const float* __restrict__ y, const float* __restrict__ ypos,
-                  long long pos_bstride, int Py, const float* __restrict__ probs,
-                  const float* __restrict__ gprobs, const float* __restrict__ glogits,
-                  const float* __restrict__ gattn, const float* __restrict__ xk,
-                  const float* __restrict__ xvt, const float* __restrict__ wq,
-                  const float* __restrict__ wqt, const float* __restrict__ bq,
-                  const int* __restrict__ xlen, float* __restrict__ dlog,
-                  float* __restrict__ yq, float* __restrict__ dyq, float* __restrict__ dy,
-                  float* __restrict__ part_bq, int Y, int X, int Cy, int d, float scale) {
-  constexpr int RM = BM / 8;
+x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ probs,
+                       const float* __restrict__ gprobs, const float* __restrict__ glogits,
+                       const float* __restrict__ gattn, const int* __restrict__ xlen, int Y,
+                       int X, int d, float scale, float* __restrict__ dlog,
+                       float* __restrict__ dyq, float* __restrict__ part_bq) {
+  constexpr int BQ = 4 * R;
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* Sq = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
-
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int y0 = blockIdx.x * BM;
-  const int rows = min(BM, Y - y0);
+  const int ls = fk::sx_pad(X);  // S's row stride and dlog's
+  float* G = reinterpret_cast<float*>(smem_raw);  // (BQ, d + 4): the tile's g_attn rows
+  float* S = G + BQ * (d + 4);                     // (BQ, ls): dprobs, then dlogits
+  float* panel = S + BQ * ls;
+  const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6, lane = tid & 31;
+  const int b = blockIdx.y, y0 = blockIdx.x * BQ;
+  const int rows = min(BQ, Y - y0);
   const int xl = min(xlen[b], X);
-  const int blk = b * gridDim.x + blockIdx.x;
+  const float* kvb = kv + (size_t)b * X * 2 * d;
   const size_t rx = ((size_t)b * Y + y0) * X;  // this block's rows of (B, Y, X)
-  const size_t rd = ((size_t)b * Y + y0) * d;  // of (B, Y, d)
-  float* lb = dlog + rx;
-  const float* prb = probs + rx;
-  const float* pb = ypos ? ypos + (size_t)b * pos_bstride : nullptr;
-  float acc[RM][8];
+  float* dlb = dlog + ((size_t)b * Y + y0) * ls;
+  float* dqb = dyq + ((size_t)b * Y + y0) * d;
+  float* pb = part_bq + (size_t)(b * gridDim.x + blockIdx.x) * d;
+  if (xl <= 0) {
+    for (int i = tid; i < rows * ls; i += fk::kThreads) dlb[i] = 0.f;
+    for (int i = tid; i < rows * d; i += fk::kThreads) dqb[i] = 0.f;
+    for (int i = tid; i < d; i += fk::kThreads) pb[i] = 0.f;
+    return;
+  }
+  fk::sx_stage_rows(G, gattn + ((size_t)b * Y + y0) * d, BQ, rows, d);
 
-  // 1. dprobs = g_attn @ xv^T (+ g_probs), into the dlogits buffer
-  auto ga = [&](int r, int k) { return r < rows ? __ldg(gattn + rd + (size_t)r * d + k) : 0.f; };
-  for (int n0 = 0; n0 < X; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, ga, xvt + (size_t)b * d * X, X, d, n0, X, s);
+  // 1. dprobs = g_attn xv^T + g_probs on the keys below x_len
+  for (int j0 = 0; j0 < xl; j0 += fk::kSxKeys) {
+    float acc[R];
+    fk::sx_dots<R>(acc, G, d, kvb, X, d, j0, panel);
+    const int j = j0 + tx;
+    if (j >= xl) continue;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = n0 + fk::pass_col(j);
-        if (key >= X) continue;
-        float v = acc[i][j];
-        if (gprobs != nullptr) v += __ldg(gprobs + rx + (size_t)r * X + key);
-        lb[(size_t)r * X + key] = v;
-      }
+    for (int i = 0; i < R; ++i) {
+      const int m = R * ty + i;
+      float v = acc[i];
+      if (gprobs != nullptr && m < rows) v += __ldg(gprobs + rx + (size_t)m * X + j);
+      S[m * ls + j] = v;
     }
   }
   __syncthreads();
 
-  // 2. softmax backward, one warp per row; plain loads: written above
-  for (int r = threadIdx.x >> 5; r < rows; r += fk::kWarps) {
-    float* lrow = lb + (size_t)r * X;
-    const float* prow = prb + (size_t)r * X;
+  // 2. softmax backward, one warp per row: dlogits into S and dlog (zero at
+  // keys at or past x_len, and on the tile's rows past Y)
+  for (int m = tid >> 5; m < BQ; m += fk::kWarps) {
+    float* srow = S + m * ls;
+    if (m >= rows) {
+      for (int k = lane; k < X; k += 32) srow[k] = 0.f;
+      continue;
+    }
+    const float* prow = probs + rx + (size_t)m * X;
     float D = 0.f;
-    for (int k = lane; k < X; k += 32) D += prow[k] * lrow[k];
+    for (int k = lane; k < xl; k += 32) D += __ldg(prow + k) * srow[k];
     D = fk::warp_sum(D);
-    for (int k = lane; k < X; k += 32) {
-      float v = prow[k] * (lrow[k] - D);
-      if (glogits != nullptr) v += __ldg(glogits + rx + (size_t)r * X + k);
-      lrow[k] = k < xl ? v * scale : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // 3. yq = (y + y_pos) @ Wq + bq
-  auto yq_in = [&](int r, int k) {
-    if (r >= rows) return 0.f;
-    float v = __ldg(y + ((size_t)b * Y + y0 + r) * Cy + k);
-    if (pb != nullptr && k < Py) v += __ldg(pb + (size_t)(y0 + r) * Py + k);
-    return v;
-  };
-  for (int n0 = 0; n0 < d; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, yq_in, wq, d, Cy, n0, d, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c < d) yq[rd + (size_t)r * d + c] = acc[i][j] + __ldg(bq + c);
+    float* drow = dlb + (size_t)m * ls;
+    for (int k = lane; k < ls; k += 32) {
+      float v = 0.f;
+      if (k < xl) {
+        v = __ldg(prow + k) * (srow[k] - D);
+        if (glogits != nullptr) v += __ldg(glogits + rx + (size_t)m * X + k);
+        v *= scale;
       }
+      if (k < X) srow[k] = v;
+      drow[k] = v;
     }
   }
 
-  // 4. dyq = dlogits @ xk, kept in shared memory
-  auto dl = [&](int r, int k) { return r < rows ? lb[(size_t)r * X + k] : 0.f; };
-  for (int n0 = 0; n0 < d; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, dl, xk + (size_t)b * X * d, d, X, n0, d, s);
+  // 3. dyq = dlogits xk over the keys below x_len, and the tile's column sums
+  for (int n0 = 0; n0 < d; n0 += fk::kSxNC) {
+    float acc[R][4];
+    fk::sx_attend<R>(acc, S, ls, kvb, d, 0, n0, xl, panel);  // its first sync covers step 2
+    const int c = n0 + 4 * tx;
+    float4 cs = make_float4(0.f, 0.f, 0.f, 0.f);  // this thread's rows, in order
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c >= d) continue;
-        Sq[r * d + c] = acc[i][j];
-        if (r < rows) dyq[rd + (size_t)r * d + c] = acc[i][j];
-      }
+    for (int i = 0; i < R; ++i) {
+      const int m = R * ty + i;
+      if (m >= rows || c >= d) continue;
+      fk::sx_st4(dqb + (size_t)m * d + c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      cs = make_float4(cs.x + acc[i][0], cs.y + acc[i][1], cs.z + acc[i][2], cs.w + acc[i][3]);
     }
-  }
-  __syncthreads();
-  fk::block_colsum(Sq, d, rows, d, part_bq + (size_t)blk * d);
-
-  // 5. dy = dyq @ Wq^T
-  auto sq = [&](int r, int k) { return Sq[r * d + k]; };
-  for (int n0 = 0; n0 < Cy; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, sq, wqt, Cy, d, n0, Cy, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c < Cy) dy[((size_t)b * Y + y0 + r) * Cy + c] = acc[i][j];
-      }
+    __syncthreads();  // the panel's readers are done: it takes the four thread rows' sums
+    fk::sx_st4(panel + ty * fk::kSxNC + 4 * tx, cs);
+    __syncthreads();
+    if (n0 + tid < d) {
+      float s = 0.f;
+      for (int t = 0; t < 4; ++t) s += panel[t * fk::kSxNC + tid];
+      pb[n0 + tid] = s;
     }
   }
 }
@@ -356,19 +345,27 @@ x2y_flash_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict_
 
 }  // namespace
 
-extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long pos_bstride, int Py,
-                             const float* probs, const float* gprobs, const float* glogits,
-                             const float* gattn, const float* xk, const float* xvt,
-                             const float* wq, const float* wqt, const float* bq, const int* xlen,
-                             float* dlog, float* yq, float* dyq, float* dy, float* part_bq,
-                             int B, int Y, int X, int Cy, int d, float scale, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BM>) + (size_t)BM * d * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)x2y_sx_bwd_kernel, smem);
+// The small-X form's attention terms: dlog (B, Y, sx_pad(X)), dyq (B, Y, d)
+// and part_bq (>= B * ceil(Y / bq), d), block b * ceil(Y / bq) + t's column
+// sums in row b * ceil(Y / bq) + t; bq query rows per block (8 or 16).
+extern "C" int fk_x2y_sx_attn_bwd(const float* kv, const float* probs, const float* gprobs,
+                                  const float* glogits, const float* gattn, const int* xlen,
+                                  int B, int Y, int X, int d, float scale, float* dlog,
+                                  float* dyq, float* part_bq, int bq, void* stream) {
+  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (bq != 8 && bq != 16))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fk::sx_smem_floats(bq, X, d) * sizeof(float);
+  const void* kernel = bq == 16 ? (const void*)x2y_sx_attn_bwd_kernel<4>
+                                : (const void*)x2y_sx_attn_bwd_kernel<2>;
+  cudaError_t err = fk::set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Y + BM - 1) / BM, B);
-  x2y_sx_bwd_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      y, ypos, pos_bstride, Py, probs, gprobs, glogits, gattn, xk, xvt, wq, wqt, bq, xlen, dlog,
-      yq, dyq, dy, part_bq, Y, X, Cy, d, scale);
+  dim3 grid((Y + bq - 1) / bq, B);
+  if (bq == 16)
+    x2y_sx_attn_bwd_kernel<4><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
+        kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
+  else
+    x2y_sx_attn_bwd_kernel<2><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
+        kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
   return (int)cudaGetLastError();
 }
 

@@ -767,11 +767,12 @@ def _k6_gemm(mode, a, segs, wpack, N, lengths, out, *, ldo=None, col_step=0,
     _build.check("fk_k6_gemm", err)
 
 
-def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
+def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,), per_video: bool = False):
     """sum_t A[b, t + s, a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per
     shift s (rows outside [0, lengths[b]) zero): (len(shifts), Ca, Cb), the
     partials of ``fk_k6_wgrad`` over K6_CHUNK frames of one video each,
-    summed in a fixed order."""
+    summed in a fixed order; with ``per_video`` (one shift) each video's
+    own sum, (B, Ca, Cb)."""
     B, T, a_ch = A.shape
     n_taps = len(shifts)
     step = shifts[1] - shifts[0] if n_taps > 1 else 0
@@ -782,6 +783,10 @@ def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
                                    part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
     _build.check("fk_k6_wgrad", err)
     n = Ca * Cb
+    if per_video:
+        per = n_chunks // B
+        return _grad.reduce(part, G=B, P=per, pstride=n, gstride=per * n, rows=1, rstride=0,
+                            cols=n).view(B, Ca, Cb)
     return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
                         rstride=0, cols=n).view(n_taps, Ca, Cb)
 

@@ -5,10 +5,15 @@ Replaces ``fact_clip_tpu/ops/pallas/x2y_attn.py::x2y_attention`` and its two
 Pallas forms, chosen at the same threshold (``X > 1024``):
 
 * small X (keys are action tokens or segments): ``_x2y_small_x_fwd_impl``
-  -> ``csrc/x2y_attn.cu``, backward ``_x2y_small_x_bwd_impl`` ->
-  ``csrc/x2y_bwd.cu``.  The key/value projections and their gradients stay
-  outside the kernels, as in the JAX caller; the q projection, logits,
-  softmax and attend (and their backward) run inside.
+  -> the q projection yq = (y + y_pos) Wq + bq on the towers' 3xTF32 GEMM
+  (``mha_attn._project`` with the q pack: kProj, the table y_pos @ Wq on
+  every column), the key/value projection [xk | xv] the same way (outside
+  the TPU kernel, in its caller), then the logits, softmax and attend per
+  (tile of 8 or 16 query rows, video) in f32 (``csrc/x2y_attn.cu``);
+  backward ``_x2y_small_x_bwd_impl`` -> yq and [xk | xv] recomputed, the
+  attention terms per tile (``csrc/x2y_bwd.cu``: dlogits, dyq, dbq's
+  shares), dy, dWq, dxk and dxv on the same core.  The X side's gradients
+  stay plain matmuls, as in the JAX caller.
 * large X (keys are frames): ``_x2y_flash_fwd_impl`` ->
   ``csrc/flash_attn.cu``, backward ``_x2y_flash_bwd_impl`` -> K3's split at
   one head: the projection [xk | xv] recomputed on the towers' 3xTF32 GEMM
@@ -36,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
@@ -86,32 +92,82 @@ def _prologue(name, rate, y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_le
 
 def x2y_small_x_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
                     rate: float = 0.0):
-    """Small-X form: every query row's softmax over all X keys in one block."""
+    """Small-X form: the projections on the tensor cores, then every query
+    row's softmax over all X keys in one block of its tile."""
     if _prologue("x2y_small_x_fwd", rate, y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
                  x_len):
         return x2y_attention_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
-    B, Y, Cy = y_in.shape
-    X, d = x_in.shape[1], wq.shape[1]
-    # the key/value projections run outside the kernel, as in the JAX caller;
-    # the keys go in transposed, (B, d, X)
-    xkt = (add_pos(x_in, x_pos) @ wk + bk).transpose(1, 2).contiguous()
-    xv = (x_in @ wv + bv).contiguous()
-    ypos, ypos_stride, Py = kernel_pos(y_pos, B, Y, Cy)
-    _build.check_tensors("x2y_small_x_fwd", [ypos], x_in.device)
-    attn = torch.empty((B, Y, d), device=x_in.device, dtype=torch.float32)
-    probs = torch.empty((B, Y, X), device=x_in.device, dtype=torch.float32)
-    logits = torch.empty((B, Y, X), device=x_in.device, dtype=torch.float32)
-    err = _build.lib().fk_x2y_small_x(
-        y_in.data_ptr(), ypos.data_ptr() if ypos is not None else None, ypos_stride, Py,
-        xkt.data_ptr(), xv.data_ptr(), wq.data_ptr(), bq.data_ptr(), x_len.data_ptr(),
-        attn.data_ptr(), probs.data_ptr(), logits.data_ptr(), B, Y, X, Cy, d,
-        1.0 / math.sqrt(d), _build.stream_ptr(x_in.device))
-    _build.check("fk_x2y_small_x", err)
+    out = _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
     x2y_small_x_fwd.launches += 1
-    return attn, probs, logits
+    return out
 
 
 x2y_small_x_fwd.launches = 0
+
+
+def _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
+    """``x2y_small_x_fwd``'s launches (CPU tensors reach it only in the tests,
+    which stand a model of the kernels' C interface in for the library): the
+    packs, yq and [xk | xv] on the GEMM (with their positional tables), the
+    attention."""
+    B, Y, _ = y_in.shape
+    X, d = x_in.shape[1], wq.shape[1]
+    _check_small_x("x2y_small_x_fwd", y_in, y_pos, x_in, x_pos, d)
+    yq = _queries(y_in, y_pos, wq, bq)
+    kv = _project(x_in, x_pos, attended_lengths(x_len, X), k3_pack(wk, bk, wv, bv))
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    attn = torch.empty((B, Y, d), **f32)
+    probs = torch.empty((B, Y, X), **f32)
+    logits = torch.empty((B, Y, X), **f32)
+    err = _build.lib().fk_x2y_sx_attn(
+        yq.data_ptr(), kv.data_ptr(), x_len.data_ptr(), B, Y, X, d, 1.0 / math.sqrt(d),
+        logits.data_ptr(), probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y),
+        _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_attn", err)
+    return attn, probs, logits
+
+
+SX_ROWS = (16, 8)  # query rows per block of the small-X attention kernels (csrc/sx_attn.cuh)
+SX_WIDE = 264  # blocks from which 16-row tiles fill the card: two on each of the H100's 132 SMs
+SX_SUM_GROUP = 16  # dbq's tile shares, added a run at a time
+
+
+def sx_rows(B: int, Y: int) -> int:
+    """Query rows per block of the small-X attention kernels: 16, or 8 where
+    16-row tiles would leave the card's SMs short of two blocks each (epic's
+    B = 1-2 and Y = 256-300, the TDU's Y = 40)."""
+    return SX_ROWS[0] if B * -(-Y // SX_ROWS[0]) >= SX_WIDE else SX_ROWS[1]
+
+
+def sx_smem(X: int, d: int) -> int:
+    """Bytes of a small-X attention block at 16 rows
+    (``csrc/sx_attn.cuh::sx_smem_floats``): the tile's (16, d) operand, its
+    (16, X) logits, a 32 x 260 panel."""
+    return 4 * (SX_ROWS[0] * (d + 4) + SX_ROWS[0] * (-(-X // 4) * 4) + 32 * 260)
+
+
+def _check_small_x(name, y_in, y_pos, x_in, x_pos, d):
+    """The small-X kernels' limits, before any launch: the GEMMs' TMA row
+    strides (Cy, Cx, d and the positional widths multiples of 4) and the
+    attention's block in shared memory (d up to 2,084 at X = 1024)."""
+    Cy, (X, Cx) = y_in.shape[2], x_in.shape[1:]
+    py = kernel_pos(y_pos, y_in.shape[0], y_in.shape[1], Cy)[2]
+    _check_strides(name, Cx, d, 0 if x_pos is None else x_pos.shape[-1])
+    _check_strides(name, Cy, d, py)
+    if sx_smem(X, d) > _build.MAX_SMEM:
+        raise NotImplementedError(f"{name}: no kernel for X={X}, d={d} (its block needs "
+                                  f"{sx_smem(X, d)} bytes of shared memory, "
+                                  f"{_build.MAX_SMEM} at most)")
+
+
+def _queries(y_in, y_pos, wq, bq):
+    """yq = (y + y_pos) @ Wq + bq (B, Y, d), every row: ``_project`` with the
+    q pack (Wq^T's TF32 parts for the projection and for the table y_pos @ Wq,
+    which covers all d columns and may be per video)."""
+    B, Y, _ = y_in.shape
+    wqp = k6_pack(wq, True)
+    full = torch.full((B,), Y, dtype=torch.int32, device=y_in.device)
+    return _project(y_in, y_pos, full, (wqp, bq, wqp))
 
 
 def x2y_flash_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
@@ -175,10 +231,11 @@ FLASH_SUM_GROUP = 16  # dyq's tile shares and the bias sums, added a run at a ti
 def has_backward(M: int, X: int, d: int) -> bool:
     """Whether the card has a backward kernel at this shape: the flash form
     holds M query rows in its 64-wide panels (any d, in column chunks), the
-    small-X form a (64, d) panel beside its GEMM staging."""
+    small-X form a (16, d) tile of g_attn and a (16, X) tile of dlogits
+    beside its panel (``sx_smem``)."""
     if X >= FLASH_MIN_KEYS:
         return M <= FLASH_MAX_QUERIES
-    return _build.GEMM_SMEM + 4 * 64 * d <= _build.MAX_SMEM
+    return sx_smem(X, d) <= _build.MAX_SMEM
 
 
 def _shared(pos) -> bool:
@@ -227,52 +284,72 @@ def _pos_like(g, pos):
 
 def x2y_small_x_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
                     g_probs=None, g_logits=None):
-    """Small-X backward: the kernel on CUDA tensors (y_pos shared by the
+    """Small-X backward: the kernels on CUDA tensors (y_pos shared by the
     batch), the plain version on CPU tensors."""
     if x_in.device.type == "cpu":
         return x2y_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
                                  g_attn, g_probs, g_logits)
+    grads = _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
+                                  g_attn, g_probs, g_logits)
+    x2y_small_x_bwd.launches += 1
+    return grads
+
+
+x2y_small_x_bwd.launches = 0
+
+
+def _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
+                          g_probs, g_logits):
+    """``x2y_small_x_bwd``'s launches (CPU tensors reach it only in the tests,
+    as ``_x2y_small_x_fwd_card``): yq and [xk | xv] recomputed, the attention
+    terms, dy, the weight products and the fixed-order sums."""
     B, Y, Cy = y_in.shape
     X, d = x_in.shape[1], wq.shape[1]
     ypos, pos_stride, Py = kernel_pos(y_pos, B, Y, Cy)
     if pos_stride or not has_backward(Y, X, d):
-        raise ValueError("x2y_small_x_bwd: needs a shared y_pos and d <= 746")
+        raise ValueError("x2y_small_x_bwd: needs a shared y_pos and a (16, d) tile that fits")
+    _check_small_x("x2y_small_x_bwd", y_in, y_pos, x_in, x_pos, d)
     g_attn = g_attn.contiguous()
     g_probs = g_probs.contiguous() if g_probs is not None else None
     g_logits = g_logits.contiguous() if g_logits is not None else None
-    _build.check_tensors("x2y_small_x_bwd", [y_in, ypos, probs, g_probs, g_logits, g_attn, wq, bq,
-                                             x_len], x_in.device)
-    xk_in = add_pos(x_in, x_pos)
-    xk = (xk_in @ wk + bk).contiguous()
-    xvt = (x_in @ wv + bv).transpose(1, 2).contiguous()
-    wqt = wq.t().contiguous()
-    nblk = B * (-(-Y // 64))
-    dlog = torch.empty((B, Y, X), device=x_in.device, dtype=torch.float32)
-    yq, dyq = (torch.empty((B, Y, d), device=x_in.device, dtype=torch.float32) for _ in range(2))
-    dy = torch.empty_like(y_in)
-    part = torch.empty((nblk, 1, d), device=x_in.device, dtype=torch.float32)
+    _build.check_tensors("x2y_small_x_bwd", [y_in, ypos, x_in, probs, g_probs, g_logits, g_attn,
+                                             wk, bk, wv, bv, wq, bq, x_len], x_in.device)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    full = torch.full((B,), Y, dtype=torch.int32, device=x_in.device)
+    yq = _queries(y_in, y_pos, wq, bq)  # recomputed, as JAX's kernel does
+    kv = _project(x_in, x_pos, attended_lengths(x_len, X), k3_pack(wk, bk, wv, bv))
+    rows = sx_rows(B, Y)
+    n_blk = B * -(-Y // rows)
+    n_slots = -(-n_blk // SX_SUM_GROUP) * SX_SUM_GROUP
+    xp = -(-X // 4) * 4  # dlogits' rows padded to 16 bytes (the weight products' TMA strides)
+    dlog = torch.empty((B, Y, xp), **f32)
+    dyq = torch.empty((B, Y, d), **f32)
+    part_bq = torch.zeros((n_slots, d), **f32)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = _build.lib().fk_x2y_sx_bwd(
-        y_in.data_ptr(), ptr(ypos), pos_stride, Py, probs.data_ptr(), ptr(g_probs),
-        ptr(g_logits), g_attn.data_ptr(), xk.data_ptr(), xvt.data_ptr(), wq.data_ptr(),
-        wqt.data_ptr(), bq.data_ptr(), x_len.data_ptr(), dlog.data_ptr(), yq.data_ptr(),
-        dyq.data_ptr(), dy.data_ptr(), part.data_ptr(), B, Y, X, Cy, d, 1.0 / math.sqrt(d),
-        _build.stream_ptr(x_in.device))
-    _build.check("fk_x2y_sx_bwd", err)
-    d_xk = _grad.atb(dlog, yq, per_video=True)
-    d_xv = _grad.atb(probs, g_attn, per_video=True)
-    d_wq = _grad.atb(y_in, dyq, pos=ypos)[0]
-    d_bq = _grad.block_sums(part, 1, d)[0]
-    d_ypos = _pos_like(_grad.batch_sum(dy, Py), y_pos) if ypos is not None else None
+    err = _build.lib().fk_x2y_sx_attn_bwd(
+        kv.data_ptr(), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(),
+        x_len.data_ptr(), B, Y, X, d, 1.0 / math.sqrt(d), dlog.data_ptr(), dyq.data_ptr(),
+        part_bq.data_ptr(), rows, _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_attn_bwd", err)
+    del kv
+    dy = torch.empty_like(y_in)
+    _k6_gemm(_MASKED, dyq, _ONE, k6_pack(wq), Cy, full, dy)
+    d_wq = _k6_wgrad(y_in, 0, Cy, dyq, 0, d, full)[0]
+    d_ypos = None
+    if ypos is not None:  # shared by the batch: dWq += y_pos^T (sum_b dyq)
+        one = torch.full((1,), Y, dtype=torch.int32, device=x_in.device)
+        d_wq[:Py] += _k6_wgrad(ypos, 0, Py, _grad.batch_sum(dyq, d), 0, d, one)[0]
+        d_ypos = _pos_like(_grad.batch_sum(dy, Py), y_pos)
+    d_bq = _grad.sum_groups(part_bq.view(1, n_slots, d), SX_SUM_GROUP)[0]
+    probs_p = probs if xp == X else F.pad(probs, (0, xp - X))
+    d_xk = _k6_wgrad(dlog, 0, X, yq, 0, d, full, per_video=True)
+    d_xv = _k6_wgrad(probs_p, 0, X, g_attn, 0, d, full, per_video=True)
     # the X side stays plain matmuls, as in the JAX caller (X is tokens or segments)
+    xk_in = add_pos(x_in, x_pos)
     d_xk_in = d_xk @ wk.t()
-    x2y_small_x_bwd.launches += 1
     return (dy, d_ypos, d_xk_in + d_xv @ wv.t(), pos_grad(d_xk_in, x_pos),
             torch.einsum("bxc,bxd->cd", xk_in, d_xk), d_xk.sum(dim=(0, 1)),
             torch.einsum("bxc,bxd->cd", x_in, d_xv), d_xv.sum(dim=(0, 1)), d_wq, d_bq)
-
-
-x2y_small_x_bwd.launches = 0
 
 
 def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn, g_attn,

@@ -211,7 +211,7 @@ def test_flash_backward_limits():
     d runs in column chunks); the small-X form's limit is its (64, d) panel."""
     assert xa.has_backward(64, 4096, 512) and not xa.has_backward(65, 4096, 512)
     assert xa.has_backward(60, 4096, 1024) and xa.has_backward(40, 3072, 512)
-    assert xa.has_backward(4096, 60, 512) and not xa.has_backward(4096, 60, 1024)
+    assert xa.has_backward(4096, 60, 512) and not xa.has_backward(4096, 60, 4096)
 
 
 def test_emulated_flash_backward_refuses_before_any_launch(monkeypatch):
