@@ -289,7 +289,7 @@ def k2sx_f64(seed: int = 0):
     and g_logits non-zero) of this checkout's package and its f32 plain
     version, each against the plain version in float64: max, rms and
     coherent error of yq, attn, probs and every cotangent, and of dxk and
-    dxv, the per-video weight products the backward runs inside."""
+    dxv, the per-video weight products inside the backward."""
     import torch
 
     cs = _chip_smoke(REPO)
@@ -297,16 +297,6 @@ def k2sx_f64(seed: int = 0):
 
     one = torch.ones((), device="cuda", dtype=torch.float64)
     rng = np.random.default_rng(seed)
-    seen = []  # the backward's per-video weight products, dxk then dxv
-    wgrad = xa._k6_wgrad
-
-    def spy(*args, **kw):
-        out = wgrad(*args, **kw)
-        if kw.get("per_video"):
-            seen.append(out)
-        return out
-
-    xa._k6_wgrad = spy
     names = ("dy", "dy_pos", "dx", "dx_pos", "dWk", "dbk", "dWv", "dbv", "dWq", "dbq", "dxk",
              "dxv")
     cases = {"flagship": (8, 3072, 40, [40] * 8, (1, 3072, 512), (1, 40, 256)),
@@ -319,17 +309,16 @@ def k2sx_f64(seed: int = 0):
         with torch.no_grad():
             yq64 = xa.add_pos(a64[0], a64[1]) @ a64[8] + a64[9]
             attn64, probs64, _ = xa.x2y_attention_reference(*a64)
-            fwd = {"kernel": (xa._queries(args[0], args[1], args[8], args[9]),
-                              *xa.x2y_small_x_fwd(*args)[:2]),
+            (attn, probs, _), yq = xa._sx_fwd(*args)
+            fwd = {"kernel": (yq, attn, probs),
                    "plain": (xa.add_pos(args[0], args[1]) @ args[8] + args[9],
                              *xa.x2y_attention_reference(*args)[:2])}
-            probs = fwd["kernel"][2]  # the kernel's saves feed every backward
             g = [cs._rand(rng, attn64.shape), cs._rand(rng, probs.shape, 0.1),
                  cs._rand(rng, probs.shape, 0.1)]
-            p64, g64 = probs.double(), [t.double() for t in g]
+            p64, g64 = probs.double(), [t.double() for t in g]  # the kernel's saves for all
             ref = (*xa.x2y_bwd_reference(*a64, p64, *g64), *_sx_dxkv(xa, a64, p64, g64))
-            seen.clear()
-            bwd = {"kernel": (*xa.x2y_small_x_bwd(*args, probs, *g), *seen),
+            grads, dkv = xa._sx_bwd(*args, probs, *g)  # [dxk | dxv] from its workspace
+            bwd = {"kernel": (*grads, dkv[..., :512], dkv[..., 512:]),
                    "plain": (*xa.x2y_bwd_reference(*args, probs, *g),
                              *_sx_dxkv(xa, args, probs, g))}
         for name in ("kernel", "plain"):
@@ -338,7 +327,6 @@ def k2sx_f64(seed: int = 0):
                                                                              probs64))]
             parts += [f"{n} {_stats(a, r, one)}" for n, a, r in zip(names, bwd[name], ref)]
             print(f"[k2sx-f64] {tag} {name:<6} vs float64: " + "; ".join(parts), flush=True)
-    xa._k6_wgrad = wgrad
     return 0
 
 

@@ -15,7 +15,8 @@
 //              shifted chunk lies wholly outside [0, length) writes zeros.
 //   fk_reduce: out[g][r][c] = sum_p src[g*gstride + p*pstride + r*rstride + c],
 //              p in order: the partials' sum, a batch sum of a positional
-//              gradient, or the column sums the row kernels write per block.
+//              gradient, or the column sums the row kernels write per block;
+//              fk_reduce_to writes out[g*out_gstride + r*out_rstride + c].
 //
 // Bound on the H100: fk_atb is the f32 FMA GEMM core (2 * N * Ca * Cb FLOPs,
 // 3.2 GFLOP for one (256 x 256) tap of the flagship tower); its A operand is
@@ -81,7 +82,8 @@ atb_kernel(const float* __restrict__ A, const float* __restrict__ pos, long long
 
 __global__ void reduce_kernel(const float* __restrict__ src, int P, long long pstride,
                               long long gstride, int rows, long long rstride, int cols,
-                              float* __restrict__ out) {
+                              float* __restrict__ out, long long out_gstride,
+                              long long out_rstride) {
   const long long n = (long long)rows * cols;
   const int g = blockIdx.y;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -91,7 +93,7 @@ __global__ void reduce_kernel(const float* __restrict__ src, int P, long long ps
     const float* p = src + g * gstride + r * rstride + c;
     float s = 0.f;
     for (int q = 0; q < P; ++q) s += p[q * pstride];
-    out[g * n + e] = s;
+    out[g * out_gstride + r * out_rstride + c] = s;
   }
 }
 
@@ -111,12 +113,19 @@ extern "C" int fk_atb(const float* A, const float* pos, long long pos_bstride, i
   return (int)cudaGetLastError();
 }
 
-extern "C" int fk_reduce(const float* src, int G, int P, long long pstride, long long gstride,
-                         int rows, long long rstride, int cols, float* out, void* stream) {
+extern "C" int fk_reduce_to(const float* src, int G, int P, long long pstride,
+                            long long gstride, int rows, long long rstride, int cols, float* out,
+                            long long out_gstride, long long out_rstride, void* stream) {
   const long long n = (long long)rows * cols;
   const int blocks = (int)min((n + 255) / 256, 4096LL);
   dim3 grid(blocks > 0 ? blocks : 1, G);
   reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(src, P, pstride, gstride, rows, rstride,
-                                                         cols, out);
+                                                         cols, out, out_gstride, out_rstride);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fk_reduce(const float* src, int G, int P, long long pstride, long long gstride,
+                         int rows, long long rstride, int cols, float* out, void* stream) {
+  return fk_reduce_to(src, G, P, pstride, gstride, rows, rstride, cols, out,
+                      (long long)rows * cols, cols, stream);
 }

@@ -274,10 +274,10 @@ extern "C" int fk_k6_pack(const float* src, float* dst, int R, int S, int transp
 }
 
 // One GEMM of the towers' kernel: K6's epilogues kMasked ... kDx, K1's kRelu,
-// kResid, kGate and K3's kProj (tc_tower.cuh).  A: (B, T, a_ch); W_z's hi
-// and lo parts K-major in wpack (nprob, 2, N, K) (fk_k6_pack, each of the
-// nseg segments kseg values); segs: host ints, per problem and segment
-// (shift, c0); res at res + b * res_bstride + t * res_ld + n.
+// kResid, kGate, K3's kProj and K2's kProj32 (tc_tower.cuh).  A: (B, T,
+// a_ch); W_z's hi and lo parts K-major in wpack (nprob, 2, N, K) (fk_k6_pack,
+// each of the nseg segments kseg values); segs: host ints, per problem and
+// segment (shift, c0); res at res + b * res_bstride + t * res_ld + n.
 extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nseg,
                           const int* segs, int kseg, const float* wpack, int N, int K, int B,
                           int T, const int* lengths, float* out, int ldo, int col_step,
@@ -326,6 +326,7 @@ extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nse
     case kResid: return (int)launch_gemm<kResid>(g, grid, st);
     case kGate: return (int)launch_gemm<kGate>(g, grid, st);
     case kProj: return (int)launch_gemm<kProj>(g, grid, st);
+    case kProj32: return (int)launch_gemm<kProj32>(g, grid, st);
   }
   return (int)cudaErrorInvalidValue;
 }

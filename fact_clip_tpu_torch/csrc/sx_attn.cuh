@@ -1,31 +1,71 @@
-// K2's small-X attention on the CUDA cores: the panel products that its
-// forward (x2y_attn.cu, x2y_sx_attn_kernel) and its backward (x2y_bwd.cu,
-// x2y_sx_attn_bwd_kernel) share.
+// K2's small-X form on the H100: what its forward (x2y_attn.cu,
+// fk_x2y_sx_fwd) and its backward (x2y_bwd.cu, fk_x2y_sx_bwd) share.
 //
-// A block takes BQ = 4R query rows of one video, 256 threads: thread row ty
-// (0..3) owns rows R*ty .. R*ty + R - 1, thread column tx (0..63) a key (the
-// dot products against the keys, sx_dots) or four columns of d (the sums
-// over the keys, sx_attend).  The operands come from kv = [xk | xv] (B, X,
-// 2d), the projection of the keys, row-major, staged into one shared-memory
-// panel at a time:
-//   sx_dots    acc[i] = sum_c A[R ty + i][c] kv[j0 + tx][col0 + c]
-//              (A the block's (BQ, d) rows in shared memory: yq for the
-//              logits, g_attn for the dprobs), through 64-key x 64-column
-//              panels; a thread's float4 of its key against the float4 of
-//              each of its rows (broadcast to the warp);
-//   sx_attend  acc[i][q] = sum_{j < nk} S[R ty + i][j] kv[j][col0 + n0 + 4 tx + q]
-//              (S the block's (BQ, X) rows in shared memory: probs for the
-//              attend, dlogits for dyq), through 32-key x 256-column panels;
-//              a thread's float4 of the key's row against one S value of each
-//              of its rows (broadcast).
-// Both read four shared-memory values to the float4 of the panel for 4R
-// FMAs: at R = 4 the shared-memory pipe, not the FMA pipe, is the bound
-// (about half the f32 rate).  Every sum runs in one fixed order.
+// 1. The projections, one host call launching (sx_project):
+//      sx_prep_kernel   the GEMMs' inputs: y + y_pos, [x + x_pos | x] (the
+//                       key's and the value's inputs side by side), the
+//                       lengths (Y for every video's queries; x_len, or all
+//                       X keys of a video with x_len = 0, for the keys)
+//      fk_k6_pack       Wq^T, Wk^T and Wv^T as the GEMM reads them (3xTF32 hi / lo)
+//      fk_k6_gemm       yq = (y + y_pos) Wq + bq, every row, and
+//                       kv = [xk | xv] (B, X, 2d): one launch of two problems
+//                       (Wk on the first Cx channels, Wv on the next), zero
+//                       at keys at or past the key length; epilogue kProj32
+//                       (tc_tower.cuh: kProj's, promoted once a 32-deep step).
+//    JAX's kernel adds y_pos to y before its product, and so does the prep:
+//    one elementwise pass (a table y_pos @ Wq from a GEMM of its own took
+//    ~25 us a call at epic's shapes, the add ~3; H100 80GB HBM3, 700 W).
+// 2. The panel products of the attention kernels, f32 FMA.  A block takes
+//    BQ = 4R query rows of one video, 256 threads: thread row ty (0..3) owns
+//    rows R*ty .. R*ty + R - 1, thread column tx (0..63) a key (the dot
+//    products against the keys, sx_dots) or four columns of d (the sums over
+//    the keys, sx_attend).  The operands come from kv, row-major, staged
+//    into one shared-memory panel at a time; the next panel's loads are in
+//    registers while this one is multiplied:
+//      sx_dots    acc[i] = sum_c A[R ty + i][c] kv[j0 + tx][col0 + c]
+//                 (A the block's (BQ, d) rows in shared memory: yq for the
+//                 logits, g_attn for the dprobs), through 64-key x 64-column
+//                 panels; a thread's float4 of its key against the float4 of
+//                 each of its rows (broadcast to the warp);
+//      sx_attend  acc[i][q] = sum_{j < nk} S[R ty + i][j] kv[j][col0 + n0 + 4 tx + q]
+//                 (S the block's (BQ, X) rows in shared memory: probs for
+//                 the attend, dlogits for dyq), through 32-key x 256-column
+//                 panels; a thread's float4 of the key's row against one S
+//                 value of each of its rows (broadcast).
+//    sx_dots reads R + 1 shared-memory vectors for 4R FMAs, sx_attend R + 4
+//    for 16R, so the shared-memory pipe, not the FMA pipe, is the bound, the
+//    less so the larger R: 32-row tiles where the grid gives two blocks or
+//    more an SM (the flagship's and Breakfast's a2f), 4 rows where even 8
+//    would leave SMs idle (epic's B = 1-2 and Y = 256-300, the TDU's Y = 40).
+//    Every sum runs in one fixed order.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include "common.cuh"
+#include "tc_gemm.cuh"
+
+// the towers' GEMM entries (mstcn2.cu) and the fixed-order sum (grad.cu)
+extern "C" int fk_k6_pack(const float* src, float* dst, int R, int S, int transpose, int kseg,
+                          int kpad, void* stream);
+extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nseg,
+                          const int* segs, int kseg, const float* wpack, int N, int K, int B,
+                          int T, const int* lengths, float* out, int ldo, int col_step,
+                          const float* bias0, const float* bias1, const float* res, int res_ld,
+                          long long res_bstride, float* out2, float* part, const int* seed,
+                          int layer, unsigned thresh, float scale, void* stream);
+extern "C" int fk_k6_wgrad(const float* A, int a_ch, int a_c0, int Ca, const float* Bm, int b_ch,
+                           int b_c0, int Cb, const int* lengths, int shift0, int shift_step,
+                           int n_taps, float* part, int B, int T, int Kc, void* stream);
+extern "C" int fk_reduce(const float* src, int G, int P, long long pstride, long long gstride,
+                         int rows, long long rstride, int cols, float* out, void* stream);
+extern "C" int fk_reduce_to(const float* src, int G, int P, long long pstride,
+                            long long gstride, int rows, long long rstride, int cols, float* out,
+                            long long out_gstride, long long out_rstride, void* stream);
 
 namespace fk {
+
+constexpr int kGemmMasked = 0, kGemmProj32 = 9;  // tc_tower.cuh's Mode: kMasked, kProj32
 
 constexpr int kSxKeys = 64;                 // keys per pass of sx_dots (one per thread column)
 constexpr int kSxDC = 64;                   // columns of d per panel of sx_dots
@@ -33,18 +73,18 @@ constexpr int kSxKS = kSxDC + 4;            // its row stride: 16-byte rows, con
 constexpr int kSxVK = 32;                   // keys per panel of sx_attend
 constexpr int kSxNC = 256;                  // columns of d per pass of sx_attend (four a thread)
 constexpr int kSxVS = kSxNC + 4;
-constexpr int kSxPanel = kSxVK * kSxVS;     // floats of the staging panel (the larger of the two)
+// floats of the staging panel: the larger of sx_dots' and sx_attend's
+constexpr int kSxPanel = kSxKeys * kSxKS > kSxVK * kSxVS ? kSxKeys * kSxKS : kSxVK * kSxVS;
 constexpr int kSxMaxKeys = 1024;            // X <= 1024: the small-X form (X > 1024 is flash)
-static_assert(kSxKeys * kSxKS <= kSxPanel, "the key panel fits in the staging panel");
 
 // a row stride of X floats rounded to 16 bytes: the blocks' S rows, and the
-// backward's dlogits rows in global memory (TMA row strides of the weight products)
+// backward's dlogits and padded probs rows (TMA row strides of the weight products)
 __host__ __device__ __forceinline__ int sx_pad(int X) { return (X + 3) & ~3; }
 
 // floats of a block's shared memory: the (BQ, d) rows (yq or g_attn, row
 // stride d + 4), the (BQ, X) rows of S, the staging panel
-__host__ __device__ __forceinline__ size_t sx_smem_floats(int bq, int X, int d) {
-  return (size_t)bq * (d + 4) + (size_t)bq * sx_pad(X) + kSxPanel;
+__host__ __device__ __forceinline__ size_t sx_smem_floats(int tile, int X, int d) {
+  return (size_t)tile * (d + 4) + (size_t)tile * sx_pad(X) + kSxPanel;
 }
 
 __device__ __forceinline__ float4 sx_ld4(const float* p) {
@@ -57,12 +97,16 @@ __device__ __forceinline__ float4 sx_ldg4(const float* p) {
 
 __device__ __forceinline__ void sx_st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
-// the block's rows [0, bq) of a row-major (., d) matrix into dst (row stride
+__device__ __forceinline__ float4 sx_add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// the block's rows [0, tile) of a row-major (., d) matrix into dst (row stride
 // d + 4), rows at or past `rows` zero; the caller synchronises before reading
-__device__ __forceinline__ void sx_stage_rows(float* dst, const float* __restrict__ src, int bq,
+__device__ __forceinline__ void sx_stage_rows(float* dst, const float* __restrict__ src, int tile,
                                               int rows, int d) {
   const int n4 = d / 4;
-  for (int i = threadIdx.x; i < bq * n4; i += kThreads) {
+  for (int i = threadIdx.x; i < tile * n4; i += kThreads) {
     const int r = i / n4, c = (i - r * n4) * 4;
     sx_st4(dst + r * (d + 4) + c,
            r < rows ? sx_ldg4(src + (size_t)r * d + c) : make_float4(0.f, 0.f, 0.f, 0.f));
@@ -75,20 +119,34 @@ template <int R>
 __device__ __forceinline__ void sx_dots(float (&acc)[R], const float* A, int d,
                                         const float* __restrict__ kvb, int X, int col0, int j0,
                                         float* panel) {
+  constexpr int kPer = kSxKeys * (kSxDC / 4) / kThreads;  // float4 a thread stages per panel
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const size_t ld = 2 * (size_t)d;
+  float4 next[kPer];
+  auto fetch = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads;
+      const int r = i / (kSxDC / 4), c = (i - r * (kSxDC / 4)) * 4;
+      next[u] = j0 + r < X && c0 + c < d
+                    ? sx_ldg4(kvb + (size_t)(j0 + r) * ld + col0 + c0 + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  fetch(0);
   for (int c0 = 0; c0 < d; c0 += kSxDC) {
-    const int cn = min(kSxDC, d - c0);
     __syncthreads();  // the panel's last readers are done
-    for (int i = tid; i < kSxKeys * (kSxDC / 4); i += kThreads) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads;
       const int r = i / (kSxDC / 4), c = (i - r * (kSxDC / 4)) * 4;
-      sx_st4(panel + r * kSxKS + c, j0 + r < X && c < cn
-                                        ? sx_ldg4(kvb + (size_t)(j0 + r) * ld + col0 + c0 + c)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f));
+      sx_st4(panel + r * kSxKS + c, next[u]);
     }
     __syncthreads();
+    if (c0 + kSxDC < d) fetch(c0 + kSxDC);  // in flight while this panel is multiplied
+    const int cn = min(kSxDC, d - c0);
     const float* kr = panel + tx * kSxKS;
     const float* ar = A + (size_t)R * ty * (d + 4) + c0;
 #pragma unroll 4
@@ -107,41 +165,191 @@ __device__ __forceinline__ void sx_dots(float (&acc)[R], const float* A, int d,
 }
 
 // acc[i][q] = sum_{j < nk} S[R ty + i][j] * kv[j][col0 + n0 + 4 tx + q], the
-// keys in order (S row stride ls); columns at or past d read as zero.
-// Synchronises the block (call it block-uniformly).
+// keys in order (S row stride ls, a multiple of 4, its values finite up to
+// ls: keys past nk are read four at a time against zero rows of the panel);
+// columns at or past d read as zero.  Synchronises the block (call it
+// block-uniformly).
 template <int R>
 __device__ __forceinline__ void sx_attend(float (&acc)[R][4], const float* S, int ls,
                                           const float* __restrict__ kvb, int d, int col0, int n0,
                                           int nk, float* panel) {
+  // keys per panel: 16 at R = 8, whose accumulators leave the next panel's
+  // prefetch fewer registers (two blocks an SM hold 128 a thread)
+  constexpr int kVK = R >= 8 ? kSxVK / 2 : kSxVK;
+  constexpr int kPer = kVK * (kSxNC / 4) / kThreads;
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const size_t ld = 2 * (size_t)d;
-  const int nn = min(kSxNC, d - n0);
+  float4 next[kPer];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads;
+      const int r = i / (kSxNC / 4), c = (i - r * (kSxNC / 4)) * 4;
+      next[u] = k0 + r < nk && n0 + c < d
+                    ? sx_ldg4(kvb + (size_t)(k0 + r) * ld + col0 + n0 + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += kSxVK) {
-    const int kn = min(kSxVK, nk - k0);
+  if (nk > 0) fetch(0);
+  for (int k0 = 0; k0 < nk; k0 += kVK) {
     __syncthreads();  // the panel's last readers are done
-    for (int i = tid; i < kSxVK * (kSxNC / 4); i += kThreads) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads;
       const int r = i / (kSxNC / 4), c = (i - r * (kSxNC / 4)) * 4;
-      sx_st4(panel + r * kSxVS + c, r < kn && c < nn
-                                        ? sx_ldg4(kvb + (size_t)(k0 + r) * ld + col0 + n0 + c)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f));
+      sx_st4(panel + r * kSxVS + c, next[u]);
     }
     __syncthreads();
+    if (k0 + kVK < nk) fetch(k0 + kVK);
+    const int kn = min(kVK, nk - k0);
     const float* sr = S + (size_t)R * ty * ls + k0;
-#pragma unroll 4
-    for (int j = 0; j < kn; ++j) {
-      const float4 v = sx_ld4(panel + j * kSxVS + 4 * tx);
+#pragma unroll 1
+    for (int j = 0; j < kn; j += 4) {  // four keys: one float4 of S a row
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = sx_ld4(panel + (j + u) * kSxVS + 4 * tx);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const float p = sr[(size_t)i * ls + j];
-        acc[i][0] = fmaf(p, v.x, acc[i][0]);
-        acc[i][1] = fmaf(p, v.y, acc[i][1]);
-        acc[i][2] = fmaf(p, v.z, acc[i][2]);
-        acc[i][3] = fmaf(p, v.w, acc[i][3]);
+        const float4 p = sx_ld4(sr + (size_t)i * ls + j);
+        const float pu[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][0] = fmaf(pu[u], v[u].x, acc[i][0]);
+          acc[i][1] = fmaf(pu[u], v[u].y, acc[i][1]);
+          acc[i][2] = fmaf(pu[u], v[u].z, acc[i][2]);
+          acc[i][3] = fmaf(pu[u], v[u].w, acc[i][3]);
+        }
       }
     }
   }
 }
 
+// The inputs of the projections and where the prep writes.
+struct SxProj {
+  const float* y;     // (B, Y, Cy)
+  const float* ypos;  // (1 or B, Y, Py) or null
+  long long ystride;  // its batch stride (0: shared)
+  int Py;
+  const float* x;     // (B, X, Cx)
+  const float* xpos;  // (1 or B, X, Px) or null
+  long long xstride;
+  int Px;
+  const float *wq, *bq, *wk, *bk, *wv, *bv;  // (Cy, d), (d,), (Cx, d), (d,), (Cx, d), (d,)
+  const int* xlen;
+  int B, Y, X, Cy, Cx, d;
+  // workspace (16-byte aligned): lens (2B + 1 ints), yin (B*Y*Cy, with ypos
+  // and no tab), xin (B*X*2Cx, with xpos), wqp (2*d*Cy), wkvp (2*2*d*Cx), yq
+  // (B*Y*d), kv (B*X*2d), tab (Y*d: the forward's table y_pos @ Wq where the
+  // batch shares a large y_pos, added in the epilogue; else null)
+  int* lens;
+  float *yin, *xin, *wqp, *wkvp, *yq, *kv, *tab;
+  // the backward's probs in rows of sx_pad(X) when X % 4 != 0 (else null)
+  const float* probs;
+  float* probs_p;
+};
+
 }  // namespace fk
+
+namespace {
+
+// lens[b] = Y, lens[B + b] = the key length (x_len clipped to X, or X at
+// x_len <= 0), lens[2B] = X; yin = y + y_pos on its Py leading channels; xin
+// = [x + x_pos | x]; probs_p = probs in rows of sx_pad(X), zero past X.  A
+// grid-stride pass of float4s (Cy, Cx, Py, Px multiples of 4).
+__global__ void __launch_bounds__(256) sx_prep_kernel(const fk::SxProj p) {
+  const long long n = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t0 < p.B) {
+    const int l = p.xlen[t0];
+    p.lens[t0] = p.Y;
+    p.lens[p.B + t0] = l > 0 ? min(l, p.X) : p.X;
+  }
+  if (t0 == 0) p.lens[2 * p.B] = p.X;
+  if (p.yin != nullptr) {
+    const int c4n = p.Cy / 4;
+    for (long long i = t0; i < (long long)p.B * p.Y * c4n; i += n) {
+      const long long row = i / c4n;
+      const int c = (int)(i - row * c4n) * 4;
+      const int b = (int)(row / p.Y), t = (int)(row - (long long)b * p.Y);
+      float4 v = fk::sx_ldg4(p.y + row * p.Cy + c);
+      if (c < p.Py)
+        v = fk::sx_add4(v, fk::sx_ldg4(p.ypos + b * p.ystride + (long long)t * p.Py + c));
+      fk::sx_st4(p.yin + row * p.Cy + c, v);
+    }
+  }
+  if (p.xin != nullptr) {
+    const int c4n = p.Cx / 4;
+    for (long long i = t0; i < (long long)p.B * p.X * c4n; i += n) {
+      const long long row = i / c4n;
+      const int c = (int)(i - row * c4n) * 4;
+      const int b = (int)(row / p.X), t = (int)(row - (long long)b * p.X);
+      const float4 v = fk::sx_ldg4(p.x + row * p.Cx + c);
+      fk::sx_st4(p.xin + row * 2 * p.Cx + p.Cx + c, v);
+      fk::sx_st4(p.xin + row * 2 * p.Cx + c,
+                 c < p.Px ? fk::sx_add4(v, fk::sx_ldg4(p.xpos + b * p.xstride +
+                                                       (long long)t * p.Px + c))
+                          : v);
+    }
+  }
+  if (p.probs_p != nullptr) {
+    const int xp = fk::sx_pad(p.X);
+    for (long long i = t0; i < (long long)p.B * p.Y * xp; i += n) {
+      const long long row = i / xp;
+      const int k = (int)(i - row * xp);
+      p.probs_p[i] = k < p.X ? p.probs[row * p.X + k] : 0.f;
+    }
+  }
+}
+
+// The prep, the packs and the two projection GEMMs (see the top of this file).
+inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
+  long long work = p.B;  // the longest of the prep's passes
+  auto at_least = [&](bool on, long long n) { work = on && n > work ? n : work; };
+  at_least(p.yin != nullptr, (long long)p.B * p.Y * p.Cy / 4);
+  at_least(p.xin != nullptr, (long long)p.B * p.X * p.Cx / 4);
+  at_least(p.probs_p != nullptr, (long long)p.B * p.Y * fk::sx_pad(p.X));
+  const int blocks = (int)((work + 255) / 256 < 1056 ? (work + 255) / 256 : 1056);  // 8 an SM
+  sx_prep_kernel<<<blocks, 256, 0, stream>>>(p);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t kvz = (size_t)2 * p.d * p.Cx;  // one projection's packed hi / lo parts
+  if ((err = fk_k6_pack(p.wq, p.wqp, p.Cy, p.d, 1, p.Cy, p.Cy, stream)) ||
+      (err = fk_k6_pack(p.wk, p.wkvp, p.Cx, p.d, 1, p.Cx, p.Cx, stream)) ||
+      (err = fk_k6_pack(p.wv, p.wkvp + kvz, p.Cx, p.d, 1, p.Cx, p.Cx, stream)))
+    return err;
+  const int one[2] = {0, 0};
+  if (p.tab != nullptr &&  // the table y_pos @ Wq (1, Y, d): channels past Py read as zero
+      (err = fk_k6_gemm(fk::kGemmMasked, p.ypos, p.Py, 1, 1, one, p.Cy, p.wqp, p.d, p.Cy, 1, p.Y,
+                        p.lens, p.tab, p.d, 0, nullptr, nullptr, nullptr, 0, 0, nullptr, nullptr,
+                        nullptr, 0, 0u, 1.f, stream)))
+    return err;
+  err = fk_k6_gemm(fk::kGemmProj32, p.yin ? p.yin : p.y, p.Cy, 1, 1, one, p.Cy, p.wqp, p.d,
+                   p.Cy, p.B, p.Y, p.lens, p.yq, p.d, 0, p.bq, nullptr, p.tab, p.d, 0, nullptr,
+                   nullptr, nullptr, 0, 0u, 1.f, stream);
+  if (err) return err;
+  // problem 0: Wk on [x + x_pos] (channels 0..Cx), problem 1: Wv on x (Cx..2Cx, or 0..Cx)
+  const int two[4] = {0, 0, 0, p.xin ? p.Cx : 0};
+  return fk_k6_gemm(fk::kGemmProj32, p.xin ? p.xin : p.x, p.xin ? 2 * p.Cx : p.Cx, 2, 1, two,
+                    p.Cx, p.wkvp, p.d, p.Cx, p.B, p.X, p.lens + p.B, p.kv, 2 * p.d, p.d, p.bk,
+                    p.bv, nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0u, 1.f, stream);
+}
+
+// dst (2, Cx, 2d): the TF32 hi and lo parts of [Wk | Wv] (Cx, 2d), as
+// fk_k6_pack lays out a weight the GEMM multiplies untransposed: the
+// operand of the X side's dx = [dxk | dxv] [Wk | Wv]^T (K = 2d).
+__global__ void __launch_bounds__(256) sx_pack_kv_kernel(const float* __restrict__ wk,
+                                                         const float* __restrict__ wv, int Cx,
+                                                         int d, float* __restrict__ dst) {
+  const long long n = (long long)Cx * 2 * d;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / (2 * d);
+    const int k = (int)(i - r * 2 * d);
+    const float w = k < d ? __ldg(wk + r * d + k) : __ldg(wv + r * d + k - d);
+    tc::split(w, dst[i], dst[n + i]);
+  }
+}
+
+}  // namespace

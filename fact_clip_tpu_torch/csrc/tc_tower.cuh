@@ -46,6 +46,9 @@
 //       kGate    acc where res > 0 (dc gated by the ReLU), column sums
 //   K3  kProj    acc + bias + res on the columns n < res_ld (the key's
 //                positional term pos @ Wk, res_bstride 0 when the batch shares it)
+//   K2  kProj32  kProj's epilogue, promoted once a 32-deep step as the
+//                towers are (K2's small-X yq and [xk | xv], the latter as two
+//                problems side by side)
 // and zero past the video where the mode masks.  The residual-like operand
 // res sits at res + b * res_bstride + t * res_ld + n.  The dropout keep is
 // fk::dropout_bits (stream = layer, index (b*T + t)*N + n): the mask of
@@ -77,7 +80,8 @@ constexpr int MAX_SEG = 6;
 enum Mode {
   kMasked = 0, kFuse = 1, kFolded = 2, kLogits = 3, kDx = 4,  // K6's
   kRelu = 5, kResid = 6, kGate = 7,                           // K1's
-  kProj = 8                                                   // K3's
+  kProj = 8,                                                  // K3's
+  kProj32 = 9                                                 // K2's small-X
 };
 
 struct GemmArgs {
@@ -315,7 +319,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
             }
             store2(p.out + row * N + n, y0, y1);
           }
-        } else if (MODE == kProj) {  // res: pos @ Wk on its res_ld columns, or none
+        } else if (MODE == kProj || MODE == kProj32) {  // res: pos @ Wk on res_ld columns, or none
           if (write) {
             float y0 = 0.f, y1 = 0.f;
             if (valid) {
@@ -327,7 +331,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
                 y1 += r.y;
               }
             }
-            store2(p.out + row * p.ldo + n, y0, y1);
+            store2(p.out + row * p.ldo + col_off + n, y0, y1);
           }
         } else {  // kLogits: every frame of [0, T), the padded ones the bias row
           if (write) store2(p.out + row * p.ldo + n, v0 + bv.x, v1 + bv.y);

@@ -2,16 +2,15 @@
 // segments) over a few projected keys (action tokens or segments).
 //
 // Replaces fact_clip_tpu/ops/pallas/x2y_attn.py::_x2y_small_x_fwd_impl
-// (_small_x_kernel).  On the H100 the work splits by what bounds it
-// (ops/x2y_attn.py::_x2y_small_x_fwd_card):
+// (_small_x_kernel).  On the H100 the work splits by what bounds it, one
+// host call (fk_x2y_sx_fwd; ops/x2y_attn.py::_x2y_small_x_fwd_card):
 //   yq = (y + y_pos) @ Wq + bq: one 3xTF32 GEMM of tc_tower.cuh (epilogue
-//     kProj, the table y_pos @ Wq from a kMasked GEMM added on all d
-//     columns; ops/mha_attn.py::_project), every query row;
+//     kProj), every query row, on y + y_pos from sx_attn.cuh's prep;
 //   kv = [xk | xv], the projection of the keys (outside the TPU kernel, in
-//     its caller), the same GEMM, zero at keys at or past x_len (all X keys
-//     of a video with x_len = 0);
+//     its caller), one more launch of the same GEMM, zero at keys at or past
+//     x_len (all X keys of a video with x_len = 0);
 //   the attention (this file, x2y_sx_attn_kernel): one block per (tile of
-//     BQ = 8 or 16 query rows, video), f32 FMA on sx_attn.cuh's panels:
+//     BQ = 4-32 query rows, video), f32 FMA on sx_attn.cuh's panels:
 //       logits = yq xk^T * scale, -1e9 at keys at or past x_len,
 //       probs = softmax(logits), attn = probs xv,
 //     the logits and probs kept in shared memory (X <= 1024) and written
@@ -20,7 +19,10 @@
 // the u-block's a2f at B=8, Y=3072, Cy=d=512: 0.078 ms as three TF32 passes
 // at 495 TFLOP/s); the logits and the attend add 4 * B*Y*X*d (2 GFLOP at
 // X=40, 0.030 ms of f32 FMA).  Short query tiles fill the card at epic's
-// B=2, Y=256-300 (64-76 blocks where 64-row tiles gave 8-10).
+// B=2, Y=256-300 (64-76 blocks where 64-row tiles gave 8-10); one host
+// call keeps the host's share of a call at epic's shapes small (the same
+// sequence driven from Python took 0.32 ms of host time a call, H100 80GB
+// HBM3, 700 W).
 //
 // K8b, the int8 twin (x2y_small_x_q8_kernel), replaces
 // fact_clip_tpu/ops/pallas/quant_conv.py::_x2y_small_x_q8_impl
@@ -111,7 +113,7 @@ __device__ __forceinline__ void small_x_attend(const float* yq, fk::GemmSmem<BM>
 // are -1e9, their probabilities exactly 0), and neither do a video's keys at
 // x_len = 0 (every logit -1e9: it attends uniformly to all X values).
 template <int R>
-__global__ void __launch_bounds__(fk::kThreads)
+__global__ void __launch_bounds__(fk::kThreads, 2)
 x2y_sx_attn_kernel(const float* __restrict__ yq, const float* __restrict__ kv,
                    const int* __restrict__ xlen, int Y, int X, int d, float scale,
                    float* __restrict__ logits, float* __restrict__ probs,
@@ -135,13 +137,13 @@ x2y_sx_attn_kernel(const float* __restrict__ yq, const float* __restrict__ kv,
     float acc[R] = {};
     if (j0 < xl) fk::sx_dots<R>(acc, Q, d, kvb, X, 0, j0, panel);  // block-uniform
     const int j = j0 + tx;
-    if (j >= X) continue;
+    if (j >= ls) continue;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int m = R * ty + i;
       const float v = j < xl ? acc[i] * scale : fk::kMaskedLogit;
-      S[m * ls + j] = v;
-      if (m < rows) logits[rx + (size_t)m * X + j] = v;
+      S[m * ls + j] = j < X ? v : 0.f;  // the row's padding to 16 bytes: 0 (sx_attend)
+      if (m < rows && j < X) logits[rx + (size_t)m * X + j] = v;
     }
   }
   __syncthreads();
@@ -223,28 +225,54 @@ x2y_small_x_q8_kernel(const int8_t* __restrict__ qy, const float* __restrict__ s
                  attn + ((size_t)b * Y + y0) * d);
 }
 
+template <int R>
+cudaError_t launch_sx_attn(size_t smem, dim3 grid, cudaStream_t stream, const float* yq,
+                           const float* kv, const int* xlen, int Y, int X, int d, float scale,
+                           float* logits, float* probs, float* attn) {
+  cudaError_t err = fk::set_smem((const void*)x2y_sx_attn_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  x2y_sx_attn_kernel<R><<<grid, fk::kThreads, smem, stream>>>(yq, kv, xlen, Y, X, d, scale,
+                                                              logits, probs, attn);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x2y_small_x_fwd's attention: yq (B, Y, d), kv (B, X, 2d) -> logits and
-// probs (B, Y, X), attn (B, Y, d); bq query rows per block (8 or 16).
-extern "C" int fk_x2y_sx_attn(const float* yq, const float* kv, const int* xlen, int B, int Y,
-                              int X, int d, float scale, float* logits, float* probs,
-                              float* attn, int bq, void* stream) {
-  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (bq != 8 && bq != 16))
+// K2's small-X forward, one host call: the prep, packs and projections of
+// sx_attn.cuh (yq and kv in the caller's workspace, fk::SxProj; y_pos as yin
+// = y + y_pos, or as the table tab where the batch shares it), then the
+// attention -> logits and probs (B, Y, X), attn (B, Y, d); `tile` query rows
+// per block (4, 8, 16 or 32).
+extern "C" int fk_x2y_sx_fwd(const float* y, const float* ypos, long long ystride, int Py,
+                             const float* x, const float* xpos, long long xstride, int Px,
+                             const float* wq, const float* bq, const float* wk, const float* bk,
+                             const float* wv, const float* bv, const int* xlen, int B, int Y,
+                             int X, int Cy, int Cx, int d, float scale, int* lens, float* yin,
+                             float* xin, float* wqp, float* wkvp, float* yq, float* kv,
+                             float* tab, float* logits, float* probs, float* attn, int tile,
+                             void* stream) {
+  if (d % 4 || Cy % 4 || Cx % 4 || Py % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
+      (tile != 4 && tile != 8 && tile != 16 && tile != 32) ||
+      (ypos != nullptr) != (yin != nullptr || tab != nullptr) ||
+      (yin != nullptr && tab != nullptr) || (tab != nullptr && ystride != 0) ||
+      (xpos != nullptr) != (xin != nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fk::sx_smem_floats(bq, X, d) * sizeof(float);
-  const void* kernel = bq == 16 ? (const void*)x2y_sx_attn_kernel<4>
-                                : (const void*)x2y_sx_attn_kernel<2>;
-  cudaError_t err = fk::set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Y + bq - 1) / bq, B);
-  if (bq == 16)
-    x2y_sx_attn_kernel<4><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-        yq, kv, xlen, Y, X, d, scale, logits, probs, attn);
-  else
-    x2y_sx_attn_kernel<2><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-        yq, kv, xlen, Y, X, d, scale, logits, probs, attn);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const fk::SxProj p{y,  ypos, ystride, Py, x,  xpos, xstride, Px,  wq,  bq,   wk, bk,
+                     wv, bv,   xlen,    B,  Y,  X,    Cy,      Cx,  d,   lens, yin, xin,
+                     wqp, wkvp, yq,     kv, tab, nullptr, nullptr};
+  int err = sx_project(p, s);
+  if (err) return err;
+  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
+  const dim3 grid((Y + tile - 1) / tile, B);
+  return (int)(tile == 32   ? launch_sx_attn<8>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                  logits, probs, attn)
+               : tile == 16 ? launch_sx_attn<4>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                  logits, probs, attn)
+               : tile == 8  ? launch_sx_attn<2>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                  logits, probs, attn)
+                            : launch_sx_attn<1>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                  logits, probs, attn));
 }
 
 // K8b: qy (B, Y, Cy) int8 and sy (B, Y) from quant.cu's fk_q8_rows of y + y_pos;

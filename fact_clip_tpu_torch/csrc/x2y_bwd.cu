@@ -4,11 +4,12 @@
 // _x2y_small_x_bwd_impl (_small_x_bwd_kernel).  The TPU kernel walks the
 // query tiles in order, recomputes yq in VMEM and carries dxk, dxv, dWq and
 // dbq there.  On the H100 the work splits by what bounds it, as the flash
-// form's does (ops/x2y_attn.py::_x2y_small_x_bwd_card):
+// form's does, in one host call (fk_x2y_sx_bwd;
+// ops/x2y_attn.py::_x2y_small_x_bwd_card):
 //   yq = (y + y_pos) @ Wq + bq and kv = [xk | xv], recomputed as JAX's does,
-//     on tc_tower.cuh's 3xTF32 GEMM (epilogue kProj; ops/mha_attn.py::_project);
+//     on tc_tower.cuh's 3xTF32 GEMM (epilogue kProj; sx_attn.cuh's sx_project);
 //   the attention terms (this file, x2y_sx_attn_bwd_kernel): one block per
-//     (tile of BQ = 8 or 16 query rows, video), f32 FMA on sx_attn.cuh's
+//     (tile of BQ = 4-32 query rows, video), f32 FMA on sx_attn.cuh's
 //     panels, from the saved probabilities and the cotangents of (attn,
 //     probs, logits):
 //       dprobs = g_probs + g_attn xv^T,
@@ -19,8 +20,8 @@
 //     sums of dyq (dbq's shares, summed in two fixed-order stages);
 //   dy = dyq Wq^T: one GEMM of the tensor cores (K = d);
 //   dWq = (y + y_pos)^T dyq, dxk = dlogits^T yq and dxv = probs^T g_attn
-//     (per video): mstcn2.cu's k6_wgrad, y_pos^T of the batch's dyq added
-//     for the shared table.  No float atomics.
+//     (per video): mstcn2.cu's k6_wgrad and grad.cu's fixed-order sums.  No
+//     float atomics.
 // The X side's projections and their cotangents stay plain matmuls outside,
 // as in the JAX caller.  Bound on the H100: the products yq, dy and dWq,
 // 3 * 2 * B*Y*Cy*d (38.7 GFLOP for the flagship's a2f at B=8, Y=3072,
@@ -65,7 +66,7 @@ constexpr int kMaxM = 64;  // flash: query rows per video (the attention's 64-wi
 // dlogit that is not 0 (its -1e9 logits are constants), so its blocks write
 // zeros; otherwise only the keys below x_len take part (probs 0 past them).
 template <int R>
-__global__ void __launch_bounds__(fk::kThreads)
+__global__ void __launch_bounds__(fk::kThreads, 2)
 x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ probs,
                        const float* __restrict__ gprobs, const float* __restrict__ glogits,
                        const float* __restrict__ gattn, const int* __restrict__ xlen, int Y,
@@ -115,7 +116,7 @@ x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ p
   for (int m = tid >> 5; m < BQ; m += fk::kWarps) {
     float* srow = S + m * ls;
     if (m >= rows) {
-      for (int k = lane; k < X; k += 32) srow[k] = 0.f;
+      for (int k = lane; k < ls; k += 32) srow[k] = 0.f;
       continue;
     }
     const float* prow = probs + rx + (size_t)m * X;
@@ -130,7 +131,7 @@ x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ p
         if (glogits != nullptr) v += __ldg(glogits + rx + (size_t)m * X + k);
         v *= scale;
       }
-      if (k < X) srow[k] = v;
+      srow[k] = v;
       drow[k] = v;
     }
   }
@@ -343,30 +344,144 @@ x2y_flash_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict_
   }
 }
 
+template <int R>
+cudaError_t launch_sx_attn_bwd(size_t smem, dim3 grid, cudaStream_t stream, const float* kv,
+                               const float* probs, const float* gprobs, const float* glogits,
+                               const float* gattn, const int* xlen, int Y, int X, int d,
+                               float scale, float* dlog, float* dyq, float* part_bq) {
+  cudaError_t err = fk::set_smem((const void*)x2y_sx_attn_bwd_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  x2y_sx_attn_bwd_kernel<R><<<grid, fk::kThreads, smem, stream>>>(
+      kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The small-X form's attention terms: dlog (B, Y, sx_pad(X)), dyq (B, Y, d)
-// and part_bq (>= B * ceil(Y / bq), d), block b * ceil(Y / bq) + t's column
-// sums in row b * ceil(Y / bq) + t; bq query rows per block (8 or 16).
-extern "C" int fk_x2y_sx_attn_bwd(const float* kv, const float* probs, const float* gprobs,
-                                  const float* glogits, const float* gattn, const int* xlen,
-                                  int B, int Y, int X, int d, float scale, float* dlog,
-                                  float* dyq, float* part_bq, int bq, void* stream) {
-  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (bq != 8 && bq != 16))
+// K2's small-X backward, one host call: the prep, packs and projections of
+// sx_attn.cuh (recomputed, as JAX's kernel does), the attention terms, then
+//   dy = dyq Wq^T                         (fk_k6_gemm, kMasked, K = d)
+//   dWq = (y + y_pos)^T dyq               (fk_k6_wgrad over kc_y-frame chunks, fk_reduce)
+//   d_ypos = sum_b dy[..., :Py]           (where wanted; y_pos shared by the batch)
+//   dbq = the tiles' column sums          (fk_reduce in two stages: runs of `group`)
+//   dkv = [dxk | dxv] (B, X, 2d), dxk = dlogits^T yq and dxv = probs^T g_attn per
+//         video (fk_k6_wgrad, fk_reduce_to)
+// and the X side that JAX's caller computes with plain products:
+//   dx = dkv [Wk | Wv]^T                  (kMasked, K = 2d, over the key lengths)
+//   dWk = (x + x_pos)^T dxk, dWv = x^T dxv (fk_k6_wgrad over kc_x-key chunks, fk_reduce)
+//   [dbk | dbv] = the column sums of dkv           (two fixed-order stages, as dbq's)
+//   d_xpos = (dxk, summed over the batch where x_pos is shared) Wk^T (where wanted;
+//            (1 or B, X, Cx), the caller takes the leading Px channels)
+// into the caller's workspace and outputs (ops/x2y_attn.py::_sx_bwd lays them
+// out): part_bq holds n_slots >= B * ceil(Y / tile) rows (a multiple of
+// group), stage n_slots / group rows, part the weight products' partials,
+// dkv B * X rows rounded up to a multiple of group, dk the batch's dxk for
+// d_xpos.  One host call: at epic's shapes the same
+// work driven from Python took 0.3-0.4 ms of host time a call (H100 80GB
+// HBM3, 700 W).
+extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystride, int Py,
+                             const float* x, const float* xpos, long long xstride, int Px,
+                             const float* wq, const float* bq, const float* wk, const float* bk,
+                             const float* wv, const float* bv, const int* xlen,
+                             const float* probs, const float* gprobs, const float* glogits,
+                             const float* gattn, int B, int Y, int X, int Cy, int Cx, int d,
+                             float scale, int* lens, float* yin, float* xin, float* probs_p,
+                             float* wqp, float* wqn, float* wkvp, float* wkvn, float* yq,
+                             float* kv, float* dlog, float* dyq, float* part_bq, int n_slots,
+                             float* stage, float* part, float* dkv, float* dk, float* dy,
+                             float* dypos, float* dwq, float* dbq, float* dx, float* dxpos,
+                             float* dwk, float* dwv, float* dbkv, int tile, int group, int kc_y,
+                             int kc_x, void* stream) {
+  const int n_blk = B * ((Y + tile - 1) / tile);
+  const int Bx = xstride ? B : 1;  // d_xpos's batch
+  if (d % 4 || Cy % 4 || Cx % 4 || Py % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
+      (tile != 4 && tile != 8 && tile != 16 && tile != 32) ||
+      (ypos != nullptr) != (yin != nullptr) || (xpos != nullptr) != (xin != nullptr) ||
+      (X % 4 != 0) != (probs_p != nullptr) || group < 1 || n_slots % group ||
+      n_slots < n_blk || kc_y % 32 || kc_x % 32 || kc_y < 32 || kc_x < 32 ||
+      (dypos != nullptr && (ypos == nullptr || ystride != 0)) ||
+      (dxpos != nullptr && (xpos == nullptr || dk == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fk::sx_smem_floats(bq, X, d) * sizeof(float);
-  const void* kernel = bq == 16 ? (const void*)x2y_sx_attn_bwd_kernel<4>
-                                : (const void*)x2y_sx_attn_bwd_kernel<2>;
-  cudaError_t err = fk::set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Y + bq - 1) / bq, B);
-  if (bq == 16)
-    x2y_sx_attn_bwd_kernel<4><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-        kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
-  else
-    x2y_sx_attn_bwd_kernel<2><<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-        kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const fk::SxProj p{y,  ypos, ystride, Py, x,  xpos, xstride, Px,  wq,  bq,    wk, bk,
+                     wv, bv,   xlen,    B,  Y,  X,    Cy,      Cx,  d,   lens,  yin, xin,
+                     wqp, wkvp, yq,     kv, nullptr, probs, probs_p};
+  int err = sx_project(p, s);
+  if (err) return err;
+  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
+  const dim3 grid((Y + tile - 1) / tile, B);
+  err = (int)(tile == 32   ? launch_sx_attn_bwd<8>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                     gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                     part_bq)
+              : tile == 16 ? launch_sx_attn_bwd<4>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                     gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                     part_bq)
+              : tile == 8  ? launch_sx_attn_bwd<2>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                     gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                     part_bq)
+                           : launch_sx_attn_bwd<1>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                     gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                     part_bq));
+  if (err) return err;
+  if (n_slots > n_blk &&
+      (err = (int)cudaMemsetAsync(part_bq + (size_t)n_blk * d, 0,
+                                  (size_t)(n_slots - n_blk) * d * sizeof(float), s)))
+    return err;
+  const int one[2] = {0, 0};
+  const int per_y = (Y + kc_y - 1) / kc_y, per_x = (X + kc_x - 1) / kc_x;  // chunks a video
+  const int xp = fk::sx_pad(X);
+  const long long cd = (long long)Cy * d, xd = (long long)X * d, kd = (long long)Cx * d;
+  const int* lx = lens + B;  // the keys' lengths
+  const float* xa = xin ? xin : x;  // [x + x_pos | x], or x for both
+  const int xa_ch = xin ? 2 * Cx : Cx;
+  const int runs_kv = (B * X + group - 1) / group;  // dkv holds runs_kv * group rows
+  if ((err = fk_k6_pack(wq, wqn, Cy, d, 0, d, d, s)) ||
+      (err = fk_k6_gemm(fk::kGemmMasked, dyq, d, 1, 1, one, d, wqn, Cy, d, B, Y, lens, dy, Cy,
+                        0, nullptr, nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0u,
+                        1.f, s)) ||
+      (err = fk_k6_wgrad(yin ? yin : y, Cy, 0, Cy, dyq, d, 0, d, lens, 0, 0, 1, part, B, Y, kc_y,
+                         s)) ||
+      (err = fk_reduce(part, 1, B * per_y, cd, 0, 1, 0, (int)cd, dwq, s)) ||
+      (dypos != nullptr &&
+       (err = fk_reduce(dy, 1, B, (long long)Y * Cy, 0, Y, Cy, Py, dypos, s))) ||
+      (err = fk_reduce(part_bq, n_slots / group, group, d, (long long)group * d, 1, 0, d, stage,
+                       s)) ||
+      (err = fk_reduce(stage, 1, n_slots / group, d, 0, 1, 0, d, dbq, s)) ||
+      (err = fk_k6_wgrad(dlog, xp, 0, X, yq, d, 0, d, lens, 0, 0, 1, part, B, Y, kc_y, s)) ||
+      (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv, 2 * xd, 2 * d, s)) ||
+      (err = fk_k6_wgrad(probs_p ? probs_p : probs, xp, 0, X, gattn, d, 0, d, lens, 0, 0, 1,
+                         part, B, Y, kc_y, s)) ||
+      (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv + d, 2 * xd, 2 * d, s)))
+    return err;
+  // the X side
+  const long long nkv = (long long)Cx * 2 * d;
+  sx_pack_kv_kernel<<<(int)((nkv + 255) / 256 < 1056 ? (nkv + 255) / 256 : 1056), 256, 0, s>>>(
+      wk, wv, Cx, d, wkvn);
+  if ((err = (int)cudaGetLastError()) ||
+      (err = fk_k6_gemm(fk::kGemmMasked, dkv, 2 * d, 1, 1, one, 2 * d, wkvn, Cx, 2 * d, B, X, lx,
+                        dx, Cx, 0, nullptr, nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, 0,
+                        0u, 1.f, s)) ||
+      (err = fk_k6_wgrad(xa, xa_ch, 0, Cx, dkv, 2 * d, 0, d, lx, 0, 0, 1, part, B, X, kc_x, s)) ||
+      (err = fk_reduce(part, 1, B * per_x, kd, 0, 1, 0, (int)kd, dwk, s)) ||
+      (err = fk_k6_wgrad(xa, xa_ch, xin ? Cx : 0, Cx, dkv, 2 * d, d, d, lx, 0, 0, 1, part, B, X,
+                         kc_x, s)) ||
+      (err = fk_reduce(part, 1, B * per_x, kd, 0, 1, 0, (int)kd, dwv, s)) ||
+      // [dbk | dbv]: runs of `group` rows of dkv (zero rows pad it to whole runs), then the runs
+      (err = (int)cudaMemsetAsync(dkv + 2 * (long long)B * xd, 0,
+                                  (size_t)(runs_kv * group - B * X) * 2 * d * sizeof(float),
+                                  s)) ||
+      (err = fk_reduce(dkv, runs_kv, group, 2 * d, (long long)group * 2 * d, 1, 0, 2 * d, part,
+                       s)) ||
+      (err = fk_reduce(part, 1, runs_kv, 2 * d, 0, 1, 0, 2 * d, dbkv, s)))
+    return err;
+  if (dxpos == nullptr) return 0;
+  // dxk of the batch (summed where x_pos is shared), (Bx, X, d), times Wk^T: the
+  // first d of each packed row of [Wk | Wv] (a step past them reads dk's zeros)
+  if ((err = fk_reduce_to(dkv, Bx, Bx == 1 ? B : 1, 2 * xd, 2 * xd, X, 2 * d, d, dk, xd, d, s)))
+    return err;
+  return fk_k6_gemm(fk::kGemmMasked, dk, d, 1, 1, one, d, wkvn, Cx, 2 * d, Bx, X,
+                    Bx == 1 ? lens + 2 * B : lx, dxpos, Cx, 0, nullptr, nullptr, nullptr, 0, 0,
+                    nullptr, nullptr, nullptr, 0, 0u, 1.f, s);
 }
 
 // The flash form's attention backward on the recomputed projection kv (B, X,

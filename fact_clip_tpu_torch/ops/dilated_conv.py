@@ -658,8 +658,8 @@ K6_CHUNK = 768
 K6_DS_ROWS = 16  # frames per block of the elementwise k6_ds and k1_dz
 K1_LN_ROWS = 32  # frames per block of K1's LayerNorm pass
 K1_SUM_GROUP = 64  # per-block column sums added a group at a time (_sums)
-# the GEMM's epilogues (csrc/tc_tower.cuh::Mode): K6's, then K1's and K3's own
-_MASKED, _FUSE, _FOLDED, _LOGITS, _DX, _RELU, _RESID, _GATE, _PROJ = range(9)
+# the GEMM's epilogues (csrc/tc_tower.cuh::Mode): K6's, then K1's, K3's and K2's own
+_MASKED, _FUSE, _FOLDED, _LOGITS, _DX, _RELU, _RESID, _GATE, _PROJ, _PROJ32 = range(10)
 _ONE = [[(0, 0)]]  # one problem, one segment, no shift
 
 
@@ -767,12 +767,11 @@ def _k6_gemm(mode, a, segs, wpack, N, lengths, out, *, ldo=None, col_step=0,
     _build.check("fk_k6_gemm", err)
 
 
-def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,), per_video: bool = False):
+def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
     """sum_t A[b, t + s, a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per
     shift s (rows outside [0, lengths[b]) zero): (len(shifts), Ca, Cb), the
     partials of ``fk_k6_wgrad`` over K6_CHUNK frames of one video each,
-    summed in a fixed order; with ``per_video`` (one shift) each video's
-    own sum, (B, Ca, Cb)."""
+    summed in a fixed order."""
     B, T, a_ch = A.shape
     n_taps = len(shifts)
     step = shifts[1] - shifts[0] if n_taps > 1 else 0
@@ -783,10 +782,6 @@ def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,), per_video: bool =
                                    part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
     _build.check("fk_k6_wgrad", err)
     n = Ca * Cb
-    if per_video:
-        per = n_chunks // B
-        return _grad.reduce(part, G=B, P=per, pstride=n, gstride=per * n, rows=1, rstride=0,
-                            cols=n).view(B, Ca, Cb)
     return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
                         rstride=0, cols=n).view(n_taps, Ca, Cb)
 

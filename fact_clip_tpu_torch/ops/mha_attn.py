@@ -148,12 +148,10 @@ def _project(x_in, x_pos, x_len, packed):
     """KV = x @ [Wk | Wv] + [bk | bv] + [pos @ Wk | 0], (B, X, 2E), zero at
     frames at or past ``x_len`` (the caller's ``attended_lengths``): the table
     pos @ Wk (1 or B, X, E) by one GEMM (kMasked), then the projection
-    (kProj) adding it on the K columns.  The output takes the pack's width
-    N (2E for ``k3_pack``; K2's small-X queries pack (Wq, bq, Wq), so that
-    N = E and the table covers every column)."""
+    (kProj) adding it on the K columns."""
     B, X, Cx = x_in.shape
     wkv, bkv, wkp = packed
-    N, E = wkv.shape[1], wkp.shape[1]
+    E = wkp.shape[1]
     pos = kernel_pos(x_pos, B, X, Cx)[0]
     f32 = dict(device=x_in.device, dtype=torch.float32)
     tab = None
@@ -162,8 +160,8 @@ def _project(x_in, x_pos, x_len, packed):
         tab = torch.empty((Bp, X, E), **f32)
         lens = x_len if Bp == B else torch.full((Bp,), X, dtype=torch.int32, device=x_in.device)
         _k6_gemm(_MASKED, pos, _ONE, wkp, E, lens, tab)
-    kv = torch.empty((B, X, N), **f32)
-    _k6_gemm(_PROJ, x_in, _ONE, wkv, N, x_len, kv, bias=(bkv, None), res=tab, res_ld=E,
+    kv = torch.empty((B, X, 2 * E), **f32)
+    _k6_gemm(_PROJ, x_in, _ONE, wkv, 2 * E, x_len, kv, bias=(bkv, None), res=tab, res_ld=E,
              res_bstride=X * E if tab is not None and tab.shape[0] == B > 1 else 0)
     return kv
 

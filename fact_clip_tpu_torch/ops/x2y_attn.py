@@ -5,15 +5,15 @@ Replaces ``fact_clip_tpu/ops/pallas/x2y_attn.py::x2y_attention`` and its two
 Pallas forms, chosen at the same threshold (``X > 1024``):
 
 * small X (keys are action tokens or segments): ``_x2y_small_x_fwd_impl``
-  -> the q projection yq = (y + y_pos) Wq + bq on the towers' 3xTF32 GEMM
-  (``mha_attn._project`` with the q pack: kProj, the table y_pos @ Wq on
-  every column), the key/value projection [xk | xv] the same way (outside
-  the TPU kernel, in its caller), then the logits, softmax and attend per
-  (tile of 8 or 16 query rows, video) in f32 (``csrc/x2y_attn.cu``);
-  backward ``_x2y_small_x_bwd_impl`` -> yq and [xk | xv] recomputed, the
-  attention terms per tile (``csrc/x2y_bwd.cu``: dlogits, dyq, dbq's
-  shares), dy, dWq, dxk and dxv on the same core.  The X side's gradients
-  stay plain matmuls, as in the JAX caller.
+  -> one library call (``csrc/x2y_attn.cu::fk_x2y_sx_fwd``): y + y_pos and
+  [x + x_pos | x] by an elementwise pass, yq = (y + y_pos) Wq + bq and the
+  key/value projection [xk | xv] (outside the TPU kernel, in its caller) on
+  the towers' 3xTF32 GEMM (``csrc/sx_attn.cuh``), then the logits, softmax
+  and attend per (tile of 8-32 query rows, video) in f32; backward
+  ``_x2y_small_x_bwd_impl`` -> one call (``csrc/x2y_bwd.cu::fk_x2y_sx_bwd``):
+  yq and [xk | xv] recomputed, the attention terms per tile (dlogits, dyq,
+  dbq's shares), dy, dWq, dxk and dxv on the same core.  The X side's
+  gradients stay plain matmuls, as in the JAX caller.
 * large X (keys are frames): ``_x2y_flash_fwd_impl`` ->
   ``csrc/flash_attn.cu``, backward ``_x2y_flash_bwd_impl`` -> K3's split at
   one head: the projection [xk | xv] recomputed on the towers' 3xTF32 GEMM
@@ -41,11 +41,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
-from .dilated_conv import _MASKED, _ONE, _k6_gemm, _k6_wgrad, k6_pack
+from .dilated_conv import _MASKED, _ONE, K6_CHUNK, _k6_gemm, _k6_wgrad, k6_pack
 from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -106,50 +105,87 @@ x2y_small_x_fwd.launches = 0
 
 
 def _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
-    """``x2y_small_x_fwd``'s launches (CPU tensors reach it only in the tests,
-    which stand a model of the kernels' C interface in for the library): the
-    packs, yq and [xk | xv] on the GEMM (with their positional tables), the
-    attention."""
-    B, Y, _ = y_in.shape
-    X, d = x_in.shape[1], wq.shape[1]
+    """``x2y_small_x_fwd``'s launches, one library call (CPU tensors reach it
+    only in the tests, which stand a model of the kernels' C interface in for
+    the library): the prep, the packs, yq and [xk | xv] on the GEMM, the
+    attention (``csrc/x2y_attn.cu::fk_x2y_sx_fwd``)."""
+    return _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)[0]
+
+
+def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
+    """((attn, probs, logits), yq): the forward's outputs and the projected
+    queries it computed (a view of its workspace)."""
+    B, Y, Cy = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
     _check_small_x("x2y_small_x_fwd", y_in, y_pos, x_in, x_pos, d)
-    yq = _queries(y_in, y_pos, wq, bq)
-    kv = _project(x_in, x_pos, attended_lengths(x_len, X), k3_pack(wk, bk, wv, bv))
+    ypos, ystride, Py = kernel_pos(y_pos, B, Y, Cy)
+    xpos, xstride, Px = kernel_pos(x_pos, B, X, Cx)
+    _build.check_tensors("x2y_small_x_fwd", [ypos, xpos], x_in.device)
+    table = ypos is not None and not ystride and B * Y * Cy >= SX_TABLE_MIN
+    work, w = _workspace(x_in.device, dict(
+        _proj_buffers(B, Y, X, Cy, Cx, d, ypos is not None and not table, xpos is not None),
+        tab=Y * d if table else None))
     f32 = dict(device=x_in.device, dtype=torch.float32)
-    attn = torch.empty((B, Y, d), **f32)
+    attn = torch.empty((B, Y, d), **f32)  # separate tensors: the autograd entry's outputs
     probs = torch.empty((B, Y, X), **f32)
     logits = torch.empty((B, Y, X), **f32)
-    err = _build.lib().fk_x2y_sx_attn(
-        yq.data_ptr(), kv.data_ptr(), x_len.data_ptr(), B, Y, X, d, 1.0 / math.sqrt(d),
-        logits.data_ptr(), probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y),
-        _build.stream_ptr(x_in.device))
-    _build.check("fk_x2y_sx_attn", err)
-    return attn, probs, logits
+    err = _build.lib().fk_x2y_sx_fwd(
+        *_proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
+                    x_len), B, Y, X, Cy, Cx, d, 1.0 / math.sqrt(d), w["lens"], w["yin"],
+        w["xin"], w["wqp"], w["wkvp"], w["yq"], w["kv"], w["tab"], logits.data_ptr(),
+        probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y, X, d), _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_fwd", err)
+    yq = (w["yq"] - work.data_ptr()) // 4
+    return (attn, probs, logits), work[yq:yq + B * Y * d].view(B, Y, d)
 
 
-SX_ROWS = (16, 8)  # query rows per block of the small-X attention kernels (csrc/sx_attn.cuh)
-SX_WIDE = 264  # blocks from which 16-row tiles fill the card: two on each of the H100's 132 SMs
+SX_ROWS = (32, 16, 8, 4)  # query rows per block of the small-X attention (csrc/sx_attn.cuh)
+SX_SMS = 132  # the H100's SMs
 SX_SUM_GROUP = 16  # dbq's tile shares, added a run at a time
+SX_PANEL = max(64 * 68, 32 * 260)  # floats of the attention's staging panel (kSxPanel)
+# from this many elements of y a y_pos shared by the batch goes in as the table
+# y_pos @ Wq (a GEMM over one video's rows) rather than as y + y_pos (a pass
+# over the batch's): the flagship's 8 x 3072 x 512, Breakfast's 4 x 4096 x 512
+SX_TABLE_MIN = 1 << 22
+SX_PARTIALS = 16  # the weight products' partials a call aims at (sx_chunk)
+_ALIGN = 64  # floats: every workspace buffer starts on a 256-byte boundary (TMA takes 16)
 
 
-def sx_rows(B: int, Y: int) -> int:
-    """Query rows per block of the small-X attention kernels: 16, or 8 where
-    16-row tiles would leave the card's SMs short of two blocks each (epic's
-    B = 1-2 and Y = 256-300, the TDU's Y = 40)."""
-    return SX_ROWS[0] if B * -(-Y // SX_ROWS[0]) >= SX_WIDE else SX_ROWS[1]
+def sx_rows(B: int, Y: int, X: int, d: int) -> int:
+    """Query rows per block of the small-X attention kernels: the tallest
+    tile of ``SX_ROWS`` that fits in shared memory and gives two blocks an
+    SM (32 at the flagship's and Breakfast's a2f), else the tallest that
+    gives one, else 4 (epic's B = 1-2 and Y = 256-300, the TDU's Y = 40:
+    short blocks, more of them in flight)."""
+    fits = [r for r in SX_ROWS if sx_smem(X, d, r) <= _build.MAX_SMEM]
+    for per_sm in (2, 1):
+        for rows in fits:
+            if B * -(-Y // rows) >= per_sm * SX_SMS:
+                return rows
+    return SX_ROWS[-1]
 
 
-def sx_smem(X: int, d: int) -> int:
-    """Bytes of a small-X attention block at 16 rows
-    (``csrc/sx_attn.cuh::sx_smem_floats``): the tile's (16, d) operand, its
-    (16, X) logits, a 32 x 260 panel."""
-    return 4 * (SX_ROWS[0] * (d + 4) + SX_ROWS[0] * (-(-X // 4) * 4) + 32 * 260)
+def sx_chunk(B: int, T: int) -> int:
+    """Rows of one video per partial of the backward's weight products:
+    K6_CHUNK where the batch gives SX_PARTIALS partials or more, else shorter
+    chunks (a multiple of 32) so that about that many blocks share the sum
+    (epic's one video of 300 frames: 10 chunks of 32)."""
+    per = -(-SX_PARTIALS // B)
+    return min(K6_CHUNK, max(32, -(-T // per + 31) // 32 * 32))
+
+
+def sx_smem(X: int, d: int, rows: int = 16) -> int:
+    """Bytes of a small-X attention block (``csrc/sx_attn.cuh::sx_smem_floats``):
+    the tile's (rows, d) operand, its (rows, X) logits and the panel."""
+    return 4 * (rows * (d + 4) + rows * (-(-X // 4) * 4) + SX_PANEL)
 
 
 def _check_small_x(name, y_in, y_pos, x_in, x_pos, d):
     """The small-X kernels' limits, before any launch: the GEMMs' TMA row
     strides (Cy, Cx, d and the positional widths multiples of 4) and the
-    attention's block in shared memory (d up to 2,084 at X = 1024)."""
+    attention's block of 16 rows in shared memory (d up to 2,084 at
+    X = 1024)."""
     Cy, (X, Cx) = y_in.shape[2], x_in.shape[1:]
     py = kernel_pos(y_pos, y_in.shape[0], y_in.shape[1], Cy)[2]
     _check_strides(name, Cx, d, 0 if x_pos is None else x_pos.shape[-1])
@@ -160,14 +196,48 @@ def _check_small_x(name, y_in, y_pos, x_in, x_pos, d):
                                   f"{_build.MAX_SMEM} at most)")
 
 
-def _queries(y_in, y_pos, wq, bq):
-    """yq = (y + y_pos) @ Wq + bq (B, Y, d), every row: ``_project`` with the
-    q pack (Wq^T's TF32 parts for the projection and for the table y_pos @ Wq,
-    which covers all d columns and may be per video)."""
-    B, Y, _ = y_in.shape
-    wqp = k6_pack(wq, True)
-    full = torch.full((B,), Y, dtype=torch.int32, device=y_in.device)
-    return _project(y_in, y_pos, full, (wqp, bq, wqp))
+def _offsets(sizes):
+    """Offsets in floats of the named buffers (a size of None: absent), each
+    on an _ALIGN boundary, and the total."""
+    offsets, total = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = None if n is None else total
+        total += 0 if n is None else -(-n // _ALIGN) * _ALIGN
+    return offsets, max(total, 1)
+
+
+def _workspace(device, sizes):
+    """One float32 tensor holding the named buffers and each buffer's
+    address in it, or None."""
+    offsets, total = _offsets(sizes)
+    work = torch.empty((total,), device=device, dtype=torch.float32)
+    return work, {k: None if o is None else work.data_ptr() + 4 * o for k, o in offsets.items()}
+
+
+def _carve(device, shapes):
+    """One float32 tensor and views of it of the given shapes (None: absent):
+    a call's outputs from one allocation."""
+    sizes = {i: None if s is None else math.prod(s) for i, s in enumerate(shapes)}
+    offsets, total = _offsets(sizes)
+    buf = torch.empty((total,), device=device, dtype=torch.float32)
+    return buf, [None if s is None else buf[offsets[i]:offsets[i] + sizes[i]].view(s)
+                 for i, s in enumerate(shapes)]
+
+
+def _proj_buffers(B, Y, X, Cy, Cx, d, with_yin, with_xin):
+    """The projections' workspace (``csrc/sx_attn.cuh::SxProj``): the
+    lengths, y + y_pos, [x + x_pos | x], the packed Wq^T, Wk^T and Wv^T, yq
+    and kv = [xk | xv]."""
+    return dict(lens=2 * B + 1, yin=B * Y * Cy if with_yin else None,
+                xin=B * X * 2 * Cx if with_xin else None, wqp=2 * d * Cy, wkvp=4 * d * Cx,
+                yq=B * Y * d, kv=B * X * 2 * d)
+
+
+def _proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, x_len):
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    return (y_in.data_ptr(), ptr(ypos), ystride, Py, x_in.data_ptr(), ptr(xpos), xstride, Px,
+            wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
+            bv.data_ptr(), x_len.data_ptr())
 
 
 def x2y_flash_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
@@ -283,14 +353,15 @@ def _pos_like(g, pos):
 
 
 def x2y_small_x_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
-                    g_probs=None, g_logits=None):
+                    g_probs=None, g_logits=None, *, need_ypos_grad: bool = True,
+                    need_xpos_grad: bool = True):
     """Small-X backward: the kernels on CUDA tensors (y_pos shared by the
     batch), the plain version on CPU tensors."""
     if x_in.device.type == "cpu":
         return x2y_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
                                  g_attn, g_probs, g_logits)
     grads = _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
-                                  g_attn, g_probs, g_logits)
+                                  g_attn, g_probs, g_logits, need_ypos_grad, need_xpos_grad)
     x2y_small_x_bwd.launches += 1
     return grads
 
@@ -299,57 +370,71 @@ x2y_small_x_bwd.launches = 0
 
 
 def _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
-                          g_probs, g_logits):
-    """``x2y_small_x_bwd``'s launches (CPU tensors reach it only in the tests,
-    as ``_x2y_small_x_fwd_card``): yq and [xk | xv] recomputed, the attention
-    terms, dy, the weight products and the fixed-order sums."""
+                          g_probs, g_logits, need_ypos_grad=True, need_xpos_grad=True):
+    """``x2y_small_x_bwd``'s launches, one library call (CPU tensors reach it
+    only in the tests, as ``_x2y_small_x_fwd_card``): yq and [xk | xv]
+    recomputed, the attention terms, dy, the weight products, the X side and
+    the fixed-order sums (``csrc/x2y_bwd.cu::fk_x2y_sx_bwd``)."""
+    return _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
+                   g_probs, g_logits, need_ypos_grad, need_xpos_grad)[0]
+
+
+def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn, g_probs,
+            g_logits, need_ypos_grad=True, need_xpos_grad=True):
+    """(the cotangents of (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq),
+    dkv): the library call's results (a positional cotangent None where its
+    table is absent or not wanted) and [dxk | dxv] (B, X, 2d), the per-video
+    products it computed (a view of its workspace)."""
     B, Y, Cy = y_in.shape
-    X, d = x_in.shape[1], wq.shape[1]
-    ypos, pos_stride, Py = kernel_pos(y_pos, B, Y, Cy)
-    if pos_stride or not has_backward(Y, X, d):
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    ypos, ystride, Py = kernel_pos(y_pos, B, Y, Cy)
+    if ystride or not has_backward(Y, X, d):
         raise ValueError("x2y_small_x_bwd: needs a shared y_pos and a (16, d) tile that fits")
     _check_small_x("x2y_small_x_bwd", y_in, y_pos, x_in, x_pos, d)
+    xpos, xstride, Px = kernel_pos(x_pos, B, X, Cx)
     g_attn = g_attn.contiguous()
     g_probs = g_probs.contiguous() if g_probs is not None else None
     g_logits = g_logits.contiguous() if g_logits is not None else None
-    _build.check_tensors("x2y_small_x_bwd", [y_in, ypos, x_in, probs, g_probs, g_logits, g_attn,
-                                             wk, bk, wv, bv, wq, bq, x_len], x_in.device)
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    full = torch.full((B,), Y, dtype=torch.int32, device=x_in.device)
-    yq = _queries(y_in, y_pos, wq, bq)  # recomputed, as JAX's kernel does
-    kv = _project(x_in, x_pos, attended_lengths(x_len, X), k3_pack(wk, bk, wv, bv))
-    rows = sx_rows(B, Y)
-    n_blk = B * -(-Y // rows)
-    n_slots = -(-n_blk // SX_SUM_GROUP) * SX_SUM_GROUP
-    xp = -(-X // 4) * 4  # dlogits' rows padded to 16 bytes (the weight products' TMA strides)
-    dlog = torch.empty((B, Y, xp), **f32)
-    dyq = torch.empty((B, Y, d), **f32)
-    part_bq = torch.zeros((n_slots, d), **f32)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = _build.lib().fk_x2y_sx_attn_bwd(
-        kv.data_ptr(), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(),
-        x_len.data_ptr(), B, Y, X, d, 1.0 / math.sqrt(d), dlog.data_ptr(), dyq.data_ptr(),
-        part_bq.data_ptr(), rows, _build.stream_ptr(x_in.device))
-    _build.check("fk_x2y_sx_attn_bwd", err)
-    del kv
+    _build.check_tensors("x2y_small_x_bwd", [y_in, ypos, x_in, xpos, probs, g_probs, g_logits,
+                                             g_attn, wk, bk, wv, bv, wq, bq, x_len],
+                         x_in.device)
+    rows = sx_rows(B, Y, X, d)
+    n_slots = -(-B * -(-Y // rows) // SX_SUM_GROUP) * SX_SUM_GROUP
+    xp = -(-X // 4) * 4  # dlogits' and the padded probs' rows: 16 bytes (TMA row strides)
+    kc_y, kc_x = sx_chunk(B, Y), sx_chunk(B, X)
+    per_y, per_x = -(-Y // kc_y), -(-X // kc_x)
+    want_ypos, want_xpos = need_ypos_grad and ypos is not None, need_xpos_grad and xpos is not None
+    Bx = B if xstride else 1  # d_xpos's batch
+    work, w = _workspace(x_in.device, dict(
+        _proj_buffers(B, Y, X, Cy, Cx, d, ypos is not None, xpos is not None),
+        probs_p=B * Y * xp if xp != X else None, wqn=2 * Cy * d, wkvn=4 * Cx * d, dlog=B * Y * xp,
+        dyq=B * Y * d, part_bq=n_slots * d, stage=n_slots // SX_SUM_GROUP * d,
+        part=max(B * per_y * max(Cy, X), B * per_x * Cx) * d,
+        dkv=-(-B * X // SX_SUM_GROUP) * SX_SUM_GROUP * 2 * d,
+        dk=Bx * X * d if want_xpos else None))
     dy = torch.empty_like(y_in)
-    _k6_gemm(_MASKED, dyq, _ONE, k6_pack(wq), Cy, full, dy)
-    d_wq = _k6_wgrad(y_in, 0, Cy, dyq, 0, d, full)[0]
-    d_ypos = None
-    if ypos is not None:  # shared by the batch: dWq += y_pos^T (sum_b dyq)
-        one = torch.full((1,), Y, dtype=torch.int32, device=x_in.device)
-        d_wq[:Py] += _k6_wgrad(ypos, 0, Py, _grad.batch_sum(dyq, d), 0, d, one)[0]
-        d_ypos = _pos_like(_grad.batch_sum(dy, Py), y_pos)
-    d_bq = _grad.sum_groups(part_bq.view(1, n_slots, d), SX_SUM_GROUP)[0]
-    probs_p = probs if xp == X else F.pad(probs, (0, xp - X))
-    d_xk = _k6_wgrad(dlog, 0, X, yq, 0, d, full, per_video=True)
-    d_xv = _k6_wgrad(probs_p, 0, X, g_attn, 0, d, full, per_video=True)
-    # the X side stays plain matmuls, as in the JAX caller (X is tokens or segments)
-    xk_in = add_pos(x_in, x_pos)
-    d_xk_in = d_xk @ wk.t()
-    return (dy, d_ypos, d_xk_in + d_xv @ wv.t(), pos_grad(d_xk_in, x_pos),
-            torch.einsum("bxc,bxd->cd", xk_in, d_xk), d_xk.sum(dim=(0, 1)),
-            torch.einsum("bxc,bxd->cd", x_in, d_xv), d_xv.sum(dim=(0, 1)), d_wq, d_bq)
+    _, (d_ypos, d_wq, d_bq, dx, d_xpos, d_wk, d_wv, d_bkv) = _carve(x_in.device, [
+        (1, Y, Py) if want_ypos else None, (Cy, d), (d,), (B, X, Cx),
+        (Bx, X, Cx) if want_xpos else None, (Cx, d), (Cx, d), (2 * d,)])
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = _build.lib().fk_x2y_sx_bwd(
+        *_proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
+                    x_len), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(), B,
+        Y, X, Cy, Cx, d, 1.0 / math.sqrt(d), w["lens"], w["yin"], w["xin"], w["probs_p"],
+        w["wqp"], w["wqn"], w["wkvp"], w["wkvn"], w["yq"], w["kv"], w["dlog"], w["dyq"],
+        w["part_bq"], n_slots, w["stage"], w["part"], w["dkv"], w["dk"], dy.data_ptr(),
+        ptr(d_ypos), d_wq.data_ptr(), d_bq.data_ptr(), dx.data_ptr(), ptr(d_xpos),
+        d_wk.data_ptr(), d_wv.data_ptr(), d_bkv.data_ptr(), rows, SX_SUM_GROUP, kc_y, kc_x,
+        _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_bwd", err)
+    if d_xpos is not None:
+        d_xpos = d_xpos[..., :Px].reshape(x_pos.shape)
+    o = (w["dkv"] - work.data_ptr()) // 4
+    if d_ypos is not None:
+        d_ypos = d_ypos.view(y_pos.shape)
+    return ((dy, d_ypos, dx, d_xpos, d_wk, d_bkv[:d], d_wv, d_bkv[d:], d_wq, d_bq),
+            work[o:o + 2 * B * X * d].view(B, X, 2 * d))
 
 
 def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn, g_attn,
@@ -453,7 +538,9 @@ class _X2Y(torch.autograd.Function):
             grads = x2y_flash_bwd(*args, probs, attn, g_attn, g_probs, g_logits,
                                   need_xpos_grad=ctx.needs_input_grad[3])
         elif not flash and _shared(y_pos):
-            grads = x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)
+            grads = x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits,
+                                    need_ypos_grad=ctx.needs_input_grad[1],
+                                    need_xpos_grad=ctx.needs_input_grad[3])
         else:  # per-batch positional table: JAX's own plain backward (_*_bwd_xla)
             grads = x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits)
         return (*grads, None)

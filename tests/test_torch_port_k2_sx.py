@@ -26,6 +26,8 @@ K3's files: the split keeps ~2^-22 of each product, f32 sums in another
 order.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,38 +49,114 @@ CY = 40
 
 
 class FakeK2SxLib(FakeK2Lib):
-    """``FakeK2Lib`` and the small-X attention entries: per (tile of bq query
-    rows, video) the logits, probs and attn, or dlogits (rows padded to 16
-    bytes), dyq and dbq's tile share; keys at or past x_len compute nothing,
-    and a video with x_len = 0 attends to every key in the forward and writes
-    zeros in the backward."""
+    """``FakeK2Lib``, the pack and strided-sum entries and the two small-X
+    entries, step for step as ``csrc/sx_attn.cuh::sx_project`` and the two
+    entries launch them: the prep (the lengths, y + y_pos, [x + x_pos | x],
+    the padded probs), the packs, the projection GEMMs (y_pos as the table
+    y_pos @ Wq where given one), then per (tile of `tile` query rows, video)
+    the logits, probs and attn, or dlogits (rows padded to 16 bytes), dyq and
+    dbq's tile share, then dy, the weight products, the X side and the
+    fixed-order sums.  Keys at or past x_len compute nothing; a video with
+    x_len = 0 attends to every key in the forward and has no dlogit in the
+    backward."""
 
-    def fk_x2y_sx_attn(self, yq, kv, xlen, B, Y_, X_, d, scale, logits, probs, attn, bq, stream):
-        self.calls.append(("x2y_sx_attn", bq))
-        assert d % 4 == 0 and 1 <= X_ <= 1024 and bq in xa.SX_ROWS
+    def fk_k6_pack(self, src, dst, R, S, transpose, kseg, kpad, stream):
+        self.calls.append(("pack", transpose))
+        assert kseg == kpad == (R if transpose else S)  # one segment, no padding
+        w = _view(src, R * S).view(R, S)
+        w = w.t().contiguous() if transpose else w
+        hi, lo = dc.tf32_split(w)
+        out = _view(dst, 2 * w.numel()).view(2, *w.shape)
+        out[0], out[1] = hi, lo
+        return 0
+
+    def fk_reduce_to(self, src, G, P, pstride, gstride, rows, rstride, cols, out, out_gstride,
+                     out_rstride, stream):
+        S = _view(src, (G - 1) * gstride + (P - 1) * pstride + (rows - 1) * rstride + cols)
+        O = _view(out, (G - 1) * out_gstride + (rows - 1) * out_rstride + cols)
+        idx = torch.arange(rows)[:, None] * rstride + torch.arange(cols)[None]
+        oidx = torch.arange(rows)[:, None] * out_rstride + torch.arange(cols)[None]
+        for g in range(G):
+            acc = torch.zeros(rows, cols)
+            for p in range(P):
+                acc += S[g * gstride + p * pstride + idx]
+            O[g * out_gstride + oidx] = acc
+        return 0
+
+    def _project(self, y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
+                 B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, tab=None, probs=None,
+                 probs_p=None):
+        self.calls.append(("sx_prep",))
+        L, xl = _ints(lens, 2 * B + 1), _ints(xlen, B)
+        L[:B], L[2 * B] = Y_, X_
+        L[B:2 * B] = torch.where(xl > 0, xl.clamp(max=X_), X_)
+        if yin is not None:
+            Yi = _view(y, B * Y_ * Cy).view(B, Y_, Cy).clone()
+            Yi[..., :Py] += _view(ypos, (B if ystride else 1) * Y_ * Py).view(-1, Y_, Py)
+            _view(yin, B * Y_ * Cy)[:] = Yi.flatten()
+        if xin is not None:
+            Xv = _view(x, B * X_ * Cx).view(B, X_, Cx)
+            Xk = Xv.clone()
+            Xk[..., :Px] += _view(xpos, (B if xstride else 1) * X_ * Px).view(-1, X_, Px)
+            _view(xin, B * X_ * 2 * Cx)[:] = torch.cat([Xk, Xv], -1).flatten()
+        if probs_p is not None:
+            xp = -(-X_ // 4) * 4
+            P = F.pad(_view(probs, B * Y_ * X_).view(B, Y_, X_), (0, xp - X_))
+            _view(probs_p, B * Y_ * xp)[:] = P.flatten()
+        self.fk_k6_pack(wq, wqp, Cy, d, 1, Cy, Cy, 0)
+        self.fk_k6_pack(wk, wkvp, Cx, d, 1, Cx, Cx, 0)
+        self.fk_k6_pack(wv, wkvp + 4 * 2 * d * Cx, Cx, d, 1, Cx, Cx, 0)
+        one = ctypes.addressof(ONE)
+        if tab is not None:
+            self.fk_k6_gemm(dc._MASKED, ypos, Py, 1, 1, one, Cy, wqp, d, Cy, 1, Y_, lens, tab, d,
+                            0, None, None, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
+        self.fk_k6_gemm(dc._PROJ32, yin or y, Cy, 1, 1, one, Cy, wqp, d, Cy, B, Y_, lens, yq, d,
+                        0, bq, None, tab, d, 0, None, None, None, 0, 0, 1.0, 0)
+        two = (ctypes.c_int * 4)(0, 0, 0, Cx if xin is not None else 0)
+        self.fk_k6_gemm(dc._PROJ32, xin or x, 2 * Cx if xin is not None else Cx, 2, 1,
+                        ctypes.addressof(two), Cx, wkvp, d, Cx, B, X_, lens + 4 * B, kv, 2 * d,
+                        d, bk, bv, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
+
+    def fk_x2y_sx_fwd(self, y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
+                      xlen, B, Y_, X_, Cy, Cx, d, scale, lens, yin, xin, wqp, wkvp, yq, kv, tab,
+                      logits, probs, attn, tile, stream):
+        assert all(c % 4 == 0 for c in (d, Cy, Cx, Py, Px)) and 1 <= X_ <= 1024
+        assert tile in xa.SX_ROWS and (ypos is None) == (yin is None and tab is None)
+        assert tab is None or not ystride
+        self._project(y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
+                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, tab)
+        self.calls.append(("x2y_sx_attn", tile))
         YQ = _view(yq, B * Y_ * d).view(B, Y_, d)
         KV = _view(kv, B * X_ * 2 * d).view(B, X_, 2 * d)
         LG, PR = (_view(p, B * Y_ * X_).view(B, Y_, X_) for p in (logits, probs))
         AT = _view(attn, B * Y_ * d).view(B, Y_, d)
-        lens = _ints(xlen, B)
+        xls = _ints(xlen, B)
         keys = torch.arange(X_)
         for b in range(B):
-            xl = min(int(lens[b]), X_)
+            xl = min(int(xls[b]), X_)
             xk, xv = KV[b, :, :d], KV[b, :, d:]
             nk = xl if xl > 0 else X_
-            for y0 in range(0, Y_, bq):
-                rows = slice(y0, min(y0 + bq, Y_))
+            for y0 in range(0, Y_, tile):
+                rows = slice(y0, min(y0 + tile, Y_))
                 lg = torch.where(keys < xl, (YQ[b, rows] @ xk.t()) * scale, -1e9)
                 p = torch.softmax(lg, -1)
                 LG[b, rows], PR[b, rows] = lg, p
                 AT[b, rows] = p[:, :nk] @ xv[:nk]
         return 0
 
-    def fk_x2y_sx_attn_bwd(self, kv, probs, gprobs, glogits, gattn, xlen, B, Y_, X_, d, scale,
-                           dlog, dyq, part_bq, bq, stream):
-        self.calls.append(("x2y_sx_attn_bwd", bq))
-        assert d % 4 == 0 and 1 <= X_ <= 1024 and bq in xa.SX_ROWS
-        xp, n_t = -(-X_ // 4) * 4, -(-Y_ // bq)
+    def fk_x2y_sx_bwd(self, y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
+                      xlen, probs, gprobs, glogits, gattn, B, Y_, X_, Cy, Cx, d, scale, lens,
+                      yin, xin, probs_p, wqp, wqn, wkvp, wkvn, yq, kv, dlog, dyq, part_bq,
+                      n_slots, stage, part, dkv, dk, dy, dypos, dwq, dbq, dx, dxpos, dwk, dwv,
+                      dbkv, tile, group, kc_y, kc_x, stream):
+        xp, n_t = -(-X_ // 4) * 4, -(-Y_ // tile)
+        assert all(c % 4 == 0 for c in (d, Cy, Cx, Py, Px)) and 1 <= X_ <= 1024
+        assert tile in xa.SX_ROWS and (probs_p is None) == (xp == X_)
+        assert n_slots % group == 0 and n_slots >= B * n_t and kc_y % 32 == kc_x % 32 == 0
+        self._project(y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
+                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, None, probs,
+                      probs_p)
+        self.calls.append(("x2y_sx_attn_bwd", tile))
         KV = _view(kv, B * X_ * 2 * d).view(B, X_, 2 * d)
         P = _view(probs, B * Y_ * X_).view(B, Y_, X_)
         zeros = torch.zeros(B, Y_, X_)
@@ -87,16 +165,17 @@ class FakeK2SxLib(FakeK2Lib):
         GA = _view(gattn, B * Y_ * d).view(B, Y_, d)
         DL = _view(dlog, B * Y_ * xp).view(B, Y_, xp)
         DQ = _view(dyq, B * Y_ * d).view(B, Y_, d)
-        PB = _view(part_bq, B * n_t * d).view(B, n_t, d)
-        lens = _ints(xlen, B)
+        PB = _view(part_bq, n_slots * d).view(n_slots, d)
+        PB[B * n_t:] = 0.0
+        xls = _ints(xlen, B)
         keys = torch.arange(X_)
         for b in range(B):
-            xl = min(int(lens[b]), X_)
+            xl = min(int(xls[b]), X_)
             xk, xv = KV[b, :, :d], KV[b, :, d:]
             for t in range(n_t):
-                rows = slice(t * bq, min((t + 1) * bq, Y_))
+                rows = slice(t * tile, min((t + 1) * tile, Y_))
                 if xl <= 0:  # every dlogit 0
-                    DL[b, rows], DQ[b, rows], PB[b, t] = 0.0, 0.0, 0.0
+                    DL[b, rows], DQ[b, rows], PB[b * n_t + t] = 0.0, 0.0, 0.0
                     continue
                 p = P[b, rows]
                 dp = GA[b, rows] @ xv.t() + GP[b, rows]
@@ -104,8 +183,49 @@ class FakeK2SxLib(FakeK2Lib):
                 dl = torch.where(keys < xl, (p * (dp - D) + GL[b, rows]) * scale, 0.0)
                 DL[b, rows] = F.pad(dl, (0, xp - X_))
                 dq = dl[:, :xl] @ xk[:xl]
-                DQ[b, rows], PB[b, t] = dq, dq.sum(0)
+                DQ[b, rows], PB[b * n_t + t] = dq, dq.sum(0)
+        one = ctypes.addressof(ONE)
+        per_y, per_x = -(-Y_ // kc_y), -(-X_ // kc_x)
+        xd, lx = X_ * d, lens + 4 * B
+        self.fk_k6_pack(wq, wqn, Cy, d, 0, d, d, 0)
+        self.fk_k6_gemm(dc._MASKED, dyq, d, 1, 1, one, d, wqn, Cy, d, B, Y_, lens, dy, Cy, 0,
+                        None, None, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
+        self.fk_k6_wgrad(yin or y, Cy, 0, Cy, dyq, d, 0, d, lens, 0, 0, 1, part, B, Y_, kc_y, 0)
+        self.fk_reduce(part, 1, B * per_y, Cy * d, 0, 1, 0, Cy * d, dwq, 0)
+        if dypos is not None:
+            self.fk_reduce(dy, 1, B, Y_ * Cy, 0, Y_, Cy, Py, dypos, 0)
+        self.fk_reduce(part_bq, n_slots // group, group, d, group * d, 1, 0, d, stage, 0)
+        self.fk_reduce(stage, 1, n_slots // group, d, 0, 1, 0, d, dbq, 0)
+        for c0, (a, bm) in enumerate(((dlog, yq), (probs_p or probs, gattn))):
+            self.fk_k6_wgrad(a, xp, 0, X_, bm, d, 0, d, lens, 0, 0, 1, part, B, Y_, kc_y, 0)
+            self.fk_reduce_to(part, B, per_y, xd, per_y * xd, X_, d, d, dkv + 4 * c0 * d,
+                              2 * xd, 2 * d, 0)
+        # the X side
+        self.calls.append(("pack_kv",))
+        w = torch.cat([_view(wk, Cx * d).view(Cx, d), _view(wv, Cx * d).view(Cx, d)], 1)
+        _view(wkvn, 4 * Cx * d).view(2, Cx, 2 * d)[:] = torch.stack(dc.tf32_split(w))
+        xa_, xa_ch = (xin, 2 * Cx) if xin is not None else (x, Cx)
+        self.fk_k6_gemm(dc._MASKED, dkv, 2 * d, 1, 1, one, 2 * d, wkvn, Cx, 2 * d, B, X_, lx, dx,
+                        Cx, 0, None, None, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
+        for a_c0, b_c0, out in ((0, 0, dwk), (Cx if xin is not None else 0, d, dwv)):
+            self.fk_k6_wgrad(xa_, xa_ch, a_c0, Cx, dkv, 2 * d, b_c0, d, lx, 0, 0, 1, part, B, X_,
+                             kc_x, 0)
+            self.fk_reduce(part, 1, B * per_x, Cx * d, 0, 1, 0, Cx * d, out, 0)
+        runs = -(-B * X_ // group)
+        _view(dkv, runs * group * 2 * d)[B * X_ * 2 * d:] = 0.0
+        self.fk_reduce(dkv, runs, group, 2 * d, group * 2 * d, 1, 0, 2 * d, part, 0)
+        self.fk_reduce(part, 1, runs, 2 * d, 0, 1, 0, 2 * d, dbkv, 0)
+        if dxpos is not None:
+            Bx = B if xstride else 1
+            self.fk_reduce_to(dkv, Bx, B if Bx == 1 else 1, 2 * xd, 2 * xd, X_, 2 * d, d, dk, xd,
+                              d, 0)
+            self.fk_k6_gemm(dc._MASKED, dk, d, 1, 1, one, d, wkvn, Cx, 2 * d, Bx, X_,
+                            lens + 8 * B if Bx == 1 else lx, dxpos, Cx, 0, None, None, None, 0,
+                            0, None, None, None, 0, 0, 1.0, 0)
         return 0
+
+
+ONE = (ctypes.c_int * 2)(0, 0)  # one segment, no shift, channel 0
 
 
 @pytest.fixture
@@ -121,15 +241,16 @@ def _pair(rng, shape, scale=1.0):
     return jnp.asarray(a), torch.from_numpy(a)
 
 
-def _inputs(seed, Y, X, xlen, y_pos, x_pos, Py=CY):
+def _inputs(seed, Y, X, xlen, y_pos, x_pos, Py=CY, Px=CX):
     """(jax list, torch list) of x2y_attention's arguments: y (B, Y, CY) with
     y_pos "none" (JAX: zeros), "shared" or "per_video" on its Py leading
-    channels, x (B, X, CX) with x_pos None (JAX: zeros) or shared."""
+    channels, x (B, X, CX) with x_pos False (JAX: zeros), True (shared) or
+    "per_video" on its Px leading channels."""
     rng = np.random.default_rng(seed)
     B = len(xlen)
     y, x = _pair(rng, (B, Y, CY)), _pair(rng, (B, X, CX))
     yp = None if y_pos == "none" else _pair(rng, (B if y_pos == "per_video" else 1, Y, Py), 0.5)
-    xp = _pair(rng, (1, X, CX), 0.5) if x_pos else None
+    xp = _pair(rng, (B if x_pos == "per_video" else 1, X, Px), 0.5) if x_pos else None
     w = [_pair(rng, (CX, D), 0.15), _pair(rng, (D,), 0.05), _pair(rng, (CX, D), 0.15),
          _pair(rng, (D,), 0.05), _pair(rng, (CY, D), 0.15), _pair(rng, (D,), 0.05)]
     xl = np.array(xlen, np.int32)
@@ -148,36 +269,33 @@ def _close(got, ref, tol=TOL, what=""):
     assert float(np.abs(got - ref).max()) <= tol * scale, (what, float(np.abs(got - ref).max()))
 
 
-def _calls(y_pos, x_pos):
-    tables = lambda pos: [("gemm", dc._MASKED)] if pos else []  # noqa: E731
-    return (tables(y_pos) + [("gemm", dc._PROJ)] + tables(x_pos) + [("gemm", dc._PROJ)])
+PROJECT = [("sx_prep",), ("pack", 1), ("pack", 1), ("pack", 1), ("gemm", dc._PROJ32),
+           ("gemm", dc._PROJ32)]  # sx_project: the prep, Wq^T, Wk^T, Wv^T, yq, [xk | xv]
 
 
-def _wide(monkeypatch, wide):
-    """16-row query tiles where ``wide`` (the card takes them from 264 blocks)."""
-    if wide:
-        monkeypatch.setattr(xa, "SX_WIDE", 1)
-    return xa.SX_ROWS[0] if wide else xa.SX_ROWS[1]
+def _rows(monkeypatch, rows):
+    """Tiles of ``rows`` query rows (the card takes 32 or 16 from 264 blocks up)."""
+    monkeypatch.setattr(xa, "sx_rows", lambda *shape: rows)
 
 
-FWD_CASES = [  # Y, X, x_len, y_pos, x_pos, 16-row tiles
-    (1, 40, [40, 17], "shared", True, False),
-    (37, 300, [300, 0, 123], "per_video", False, False),
-    (100, 1, [1, 0], "none", True, True),
-    (100, 40, [40, 0, 7], "per_video", True, True),
+FWD_CASES = [  # Y, X, x_len, y_pos, x_pos, query rows per tile
+    (1, 40, [40, 17], "shared", True, 4),
+    (37, 300, [300, 0, 123], "per_video", False, 8),
+    (100, 1, [1, 0], "none", True, 16),
+    (100, 40, [40, 0, 7], "per_video", True, 32),
 ]
 
 
-@pytest.mark.parametrize("Y,X,xlen,y_pos,x_pos,wide", FWD_CASES)
-def test_emulated_small_x_forward_matches_jax(fake, monkeypatch, Y, X, xlen, y_pos, x_pos, wide):
+@pytest.mark.parametrize("Y,X,xlen,y_pos,x_pos,rows", FWD_CASES)
+def test_emulated_small_x_forward_matches_jax(fake, monkeypatch, Y, X, xlen, y_pos, x_pos, rows):
     """The forward's launches against JAX's ``x2y_attention`` in interpret
     mode (``_small_x_vjp``) and the plain version: attn, probs, logits (the
     masked logits exactly -1e9; a video with x_len = 0 attends uniformly)."""
-    bq = _wide(monkeypatch, wide)
+    _rows(monkeypatch, rows)
     j, t = _inputs(1, Y, X, xlen, y_pos, x_pos)
     ref = x2y_attention(*j, interpret=True)
     got = xa._x2y_small_x_fwd_card(*t)
-    assert fake.calls == _calls(y_pos != "none", x_pos) + [("x2y_sx_attn", bq)]
+    assert fake.calls == PROJECT + [("x2y_sx_attn", rows)]
     plain = xa.x2y_attention_reference(*t)
     for name, g, r, p in zip(("attn", "probs", "logits"), got, ref, plain):
         _close(g.numpy(), r, what=name)
@@ -190,11 +308,12 @@ def test_emulated_small_x_forward_matches_jax(fake, monkeypatch, Y, X, xlen, y_p
 
 
 GRADS = ("d_y", "d_ypos", "d_x", "d_xpos", "d_wk", "d_bk", "d_wv", "d_bv", "d_wq", "d_bq")
-BWD_CASES = [  # Y, X, x_len, y_pos, x_pos, 16-row tiles
-    (1, 40, [40, 17], "shared", True, False),
-    (37, 300, [300, 0, 123], "shared", False, False),
-    (100, 1, [1, 0], "none", True, True),
-    (100, 40, [40, 0, 7], "shared", True, True),
+BWD_CASES = [  # Y, X, x_len, y_pos, x_pos, query rows per tile
+    (1, 40, [40, 17], "shared", True, 4),
+    (37, 300, [300, 0, 123], "shared", False, 8),
+    (100, 1, [1, 0], "none", True, 16),
+    (100, 40, [40, 0, 7], "shared", True, 32),
+    (37, 128, [128, 90], "shared", "per_video", 4),  # the TDU's per-video segment positions
 ]
 
 
@@ -216,23 +335,27 @@ def _run_bwd(t, outs, g):
     return xa._x2y_small_x_bwd_card(*t, probs, *gt), (probs, gt)
 
 
-def _bwd_calls(y_pos, x_pos, bq):
-    wgrads = [("wgrad", 1)] * (4 if y_pos else 3)  # dWq (+ y_pos^T of sum_b dyq), dxk, dxv
-    return (_calls(y_pos, x_pos) + [("x2y_sx_attn_bwd", bq), ("gemm", dc._MASKED)] + wgrads)
+def _bwd_calls(rows, x_pos):
+    """The backward's launches but the sums: the projections, the attention
+    terms, Wq's pack, dy, dWq, dxk and dxv on the weight-product kernel, then
+    the X side: [Wk | Wv]'s pack, dx, dWk, dWv (and d_xpos's product)."""
+    return (PROJECT + [("x2y_sx_attn_bwd", rows), ("pack", 0), ("gemm", dc._MASKED)]
+            + [("wgrad", 1)] * 3 + [("pack_kv",), ("gemm", dc._MASKED)] + [("wgrad", 1)] * 2
+            + [("gemm", dc._MASKED)] * bool(x_pos))
 
 
-@pytest.mark.parametrize("Y,X,xlen,y_pos,x_pos,wide", BWD_CASES)
+@pytest.mark.parametrize("Y,X,xlen,y_pos,x_pos,rows", BWD_CASES)
 def test_emulated_small_x_backward_matches_jax_vjp(fake, monkeypatch, Y, X, xlen, y_pos, x_pos,
-                                                   wide):
+                                                   rows):
     """The backward's launches from JAX's forward saves against ``jax.vjp``
     of JAX's small-X form in interpret mode (its fused Pallas backward, y_pos
     shared or zeros) and against the plain backward: every cotangent (d_ypos
     and d_xpos None where the port has no table, as the entry returns)."""
-    bq = _wide(monkeypatch, wide)
+    _rows(monkeypatch, rows)
     j, t = _inputs(2, Y, X, xlen, y_pos, x_pos)
     outs, g, refs = _vjp(j, np.random.default_rng(3))
     got, (probs, gt) = _run_bwd(t, outs, g)
-    assert [c for c in fake.calls if c[0] != "reduce"] == _bwd_calls(y_pos != "none", x_pos, bq)
+    assert [c for c in fake.calls if c[0] != "reduce"] == _bwd_calls(rows, x_pos)
     plain = xa.x2y_bwd_reference(*t, probs, *gt)
     for i, name in enumerate(GRADS):
         if (name, y_pos) == ("d_ypos", "none") or (name, x_pos) == ("d_xpos", False):
@@ -245,11 +368,29 @@ def test_emulated_small_x_backward_matches_jax_vjp(fake, monkeypatch, Y, X, xlen
             assert float(np.abs(got[2][b].numpy()).max()) > 1e-3
 
 
-def test_emulated_small_x_with_a_narrow_y_pos_matches_plain(fake):
+def test_emulated_small_x_forward_with_the_shared_table_matches_jax(fake, monkeypatch):
+    """From SX_TABLE_MIN elements of y on (the flagship's and Breakfast's
+    a2f), a y_pos shared by the batch goes in as the table y_pos @ Wq (one
+    more GEMM, added in the projection's epilogue): against JAX's forward in
+    interpret mode and the plain version."""
+    monkeypatch.setattr(xa, "SX_TABLE_MIN", 0)
+    _rows(monkeypatch, 16)
+    j, t = _inputs(8, 37, 40, [40, 0, 11], "shared", True)
+    ref = x2y_attention(*j, interpret=True)
+    got = xa._x2y_small_x_fwd_card(*t)
+    assert fake.calls == PROJECT[:4] + [("gemm", dc._MASKED)] + PROJECT[4:] + [("x2y_sx_attn", 16)]
+    for name, g, r, p in zip(("attn", "probs", "logits"), got, ref, xa.x2y_attention_reference(*t)):
+        _close(g.numpy(), r, what=name)
+        _close(g.numpy(), p.numpy(), what=name)
+
+
+def test_emulated_small_x_with_narrow_positional_tables_matches_plain(fake):
     """A y_pos over the leading 24 of the 40 query channels (epic's tables
-    are 256 wide on a 512-wide stream): the forward's table and the backward's
-    dWq[:24] += y_pos^T (sum_b dyq) and d_ypos against the plain versions."""
-    j, t = _inputs(4, 37, 40, [40, 9], "shared", True, Py=24)
+    are 256 wide on a 512-wide stream) and a per-video x_pos over 24 of the
+    48 key channels: the forward's y + y_pos and [x + x_pos | x], the
+    backward's dWq, d_ypos, dWk and d_xpos against the plain versions; and
+    without the positional cotangents where they are not wanted."""
+    j, t = _inputs(4, 37, 40, [40, 9], "shared", "per_video", Py=24, Px=24)
     got = xa._x2y_small_x_fwd_card(*t)
     plain = xa.x2y_attention_reference(*t)
     for name, g, p in zip(("attn", "probs", "logits"), got, plain):
@@ -262,13 +403,19 @@ def test_emulated_small_x_with_a_narrow_y_pos_matches_plain(fake):
     for name, a, r in zip(GRADS, grads, ref):
         assert a.shape == r.shape, name
         _close(a.numpy(), r.numpy(), what=name)
+    fake.calls.clear()
+    unwanted = xa._x2y_small_x_bwd_card(*t, plain[1], *g, False, False)
+    assert unwanted[1] is None and unwanted[3] is None
+    assert fake.calls.count(("gemm", dc._MASKED)) == 2  # dy and dx: no d_xpos product
+    for i in (0, 2, 4, 5, 6, 7, 8, 9):
+        assert torch.equal(unwanted[i], grads[i]), GRADS[i]
 
 
 def test_emulated_small_x_backward_gives_the_same_bits_twice(fake, monkeypatch):
     """dbq's tile shares go through two fixed-order stages (runs of
     SX_SUM_GROUP slots, then the runs), dWq, dxk and dxv through fk_reduce's
     fixed order: two runs on the same inputs give the same bits."""
-    _wide(monkeypatch, True)
+    _rows(monkeypatch, 16)
     j, t = _inputs(6, 100, 40, [40, 0, 7], "shared", True)
     outs, g, _ = _vjp(j, np.random.default_rng(7))
     seen = []
@@ -288,11 +435,15 @@ def test_emulated_small_x_backward_gives_the_same_bits_twice(fake, monkeypatch):
 
 
 def test_small_x_tiles_and_limits():
-    """16-row tiles from 264 blocks (the flagship's 8 x 3072), 8 rows below
-    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40); the block holds a
-    (16, d) tile and (16, X) logits: d up to 2,084 at X = 1024."""
-    assert xa.sx_rows(8, 3072) == 16 and xa.sx_rows(4, 4096) == 16
-    assert xa.sx_rows(2, 300) == 8 and xa.sx_rows(1, 256) == 8 and xa.sx_rows(8, 40) == 8
+    """32-row tiles where they fit and give two blocks an SM (the flagship's
+    8 x 3072, Breakfast's 4 x 4096), else the tallest that gives one, else 4
+    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40); a block of 16 rows
+    holds a (16, d) tile and (16, X) logits: d up to 2,084 at X = 1024."""
+    assert xa.sx_rows(8, 3072, 40, 512) == 32 and xa.sx_rows(4, 4096, 60, 512) == 32
+    assert xa.sx_rows(8, 1000, 40, 512) == 16 and xa.sx_rows(8, 3072, 1024, 746) == 16
+    assert xa.sx_rows(1, 2200, 40, 512) == 8 and xa.sx_rows(2, 700, 40, 512) == 4
+    assert xa.sx_rows(2, 300, 256, 512) == 4 and xa.sx_rows(1, 256, 300, 512) == 4
+    assert xa.sx_rows(8, 40, 128, 512) == 4
     assert xa.has_backward(3072, 1024, 2084) and not xa.has_backward(3072, 1024, 2088)
     assert xa.sx_smem(1024, 746) <= _build.MAX_SMEM  # the widest d served before the redesign
 

@@ -190,13 +190,14 @@ class FakeK6Lib:
                    ldo, col_step, bias0, bias1, res, res_ld, res_bstride, out2, part, seed, layer,
                    thresh, scale, stream):
         self.calls.append(("gemm", mode))
-        assert K == nseg * kseg and (nseg == 1 or kseg % 32 == 0)
+        # K is the packed rows' length; a product may use their first nseg * kseg
+        assert K >= nseg * kseg and (nseg == 1 or kseg % 32 == 0)
         # TMA reads zeros past the activations' channels
         A = torch.nn.functional.pad(_view(a, B * T * a_ch).view(B, T, a_ch), (0, kseg))
         W = _view(wpack, nprob * 2 * N * K).view(nprob, 2, N, K)
         lens = _ints(lengths, B)
         sg = _ints(segs, nprob * nseg * 2).view(nprob, nseg, 2)
-        cols = ldo if mode in (dc._MASKED, dc._LOGITS, dc._GATE, dc._PROJ) else N
+        cols = ldo if mode in (dc._MASKED, dc._LOGITS, dc._GATE, dc._PROJ, dc._PROJ32) else N
         Y = _view(out, B * T * cols).view(B, T, cols)
 
         def res_rows(b):  # res + b * res_bstride + t * res_ld
@@ -235,11 +236,11 @@ class FakeK6Lib:
                             P[b, i, c_off:c_off + N] = v[i * 128:(i + 1) * 128].sum(0)
                 elif mode == dc._LOGITS:
                     Y[b] = acc + bv
-                elif mode == dc._PROJ:  # + the positional term on its res_ld columns
+                elif mode in (dc._PROJ, dc._PROJ32):  # + the positional term on res_ld columns
                     tab = torch.zeros(T, N)
                     if res is not None:
                         tab[:, :res_ld] = res_rows(b)
-                    Y[b, :, :N] = torch.where(valid, acc + bv + tab, 0.0)
+                    Y[b, :, c_off:c_off + N] = torch.where(valid, acc + bv + tab, 0.0)
                 elif mode == dc._RELU:
                     Y[b] = torch.where(valid, torch.relu(acc + bv), 0.0)
                 else:
