@@ -49,11 +49,6 @@
         (the per-video products inside the backward) and the X side's
         cotangents, against the plain versions in float64.
 
-    python3 chip_dev.py k2sx-shares
-        K2's small-X backward with dxk and dxv as per-video weight products
-        and as per-tile shares of the attention kernel, in turns, at the
-        flagship's, epic's and the TDU's shapes.
-
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -335,42 +330,6 @@ def k2sx_f64(seed: int = 0):
     return 0
 
 
-def k2sx_shares(seed: int = 0):
-    """K2's small-X backward with dxk and dxv as per-video weight products
-    (``fk_k6_wgrad``, the kept form) and as per-tile shares written by the
-    attention kernel and summed in two fixed-order stages, in turns (wgrad,
-    shares, shares, wgrad) at the flagship's a2f, epic's f2a and a2f and the
-    TDU: ms of the whole backward and the largest difference of dkv."""
-    import torch
-
-    cs = _chip_smoke(REPO)
-    from fact_clip_tpu_torch.ops import x2y_attn as xa
-
-    rng = np.random.default_rng(seed)
-    zeros = torch.zeros((1, 3072, 512), device="cuda")
-    cases = {"flagship": (8, 3072, 40, [40] * 8, zeros, cs._rand(rng, (1, 40, 256))),
-             "epic_f2a": (1, 300, 256, [256], cs._rand(rng, (1, 300, 256)),
-                          cs._rand(rng, (1, 256, 512))),
-             "epic_a2f": (1, 256, 300, [300], cs._rand(rng, (1, 256, 512)),
-                          cs._rand(rng, (1, 300, 256))),
-             "tdu": (8, 40, 128, [128, 90] * 4, cs._rand(rng, (1, 40, 256)),
-                     cs._rand(rng, (8, 128, 512)))}
-    for tag, (B, Y, X, lens, yp, xp) in cases.items():
-        args = cs.x2y_case(rng, B, Y, X, 512, 512, 512, lens, yp, xp)
-        with torch.no_grad():
-            probs = xa.x2y_small_x_fwd(*args)[1]
-            g = [cs._rand(rng, (B, Y, 512)), cs._rand(rng, probs.shape, 0.1),
-                 cs._rand(rng, probs.shape, 0.1)]
-            runs = {form: (lambda form=form: xa._sx_bwd(*args, probs, *g, shares=form))
-                    for form in (False, True)}
-            diff = float((runs[True]()[1] - runs[False]()[1]).abs().max())
-            ms = [f"{'shares' if form else 'wgrad'} {cs.cuda_ms(runs[form], 20):.4f}"
-                  for form in (False, True, True, False)]
-        print(f"[k2sx-shares] {tag}: " + ", ".join(ms) + f" ms; max |dkv shares - wgrad| "
-              f"{diff:.3e}", flush=True)
-    return 0
-
-
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -384,8 +343,6 @@ def main(argv):
         return k2_f64(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
-    if argv == ["k2sx-shares"]:
-        return k2sx_shares()
     print(__doc__, file=sys.stderr)
     return 2
 

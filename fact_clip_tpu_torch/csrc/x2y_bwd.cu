@@ -21,7 +21,11 @@
 //   dy = dyq Wq^T: one GEMM of the tensor cores (K = d);
 //   dWq = (y + y_pos)^T dyq, dxk = dlogits^T yq and dxv = probs^T g_attn
 //     (per video): mstcn2.cu's k6_wgrad and grad.cu's fixed-order sums.  No
-//     float atomics.
+//     float atomics.  (dxk and dxv as the query tiles' shares, written by the
+//     attention kernel and summed in two stages, made the whole backward
+//     1.32 ms against 1.05 at the flagship and 0.42-0.43 against 0.35-0.39
+//     at epic's and the TDU's shapes: the shares are B x tiles x X x 2d
+//     floats; H100 80GB HBM3, 700 W.)
 // The X side's projections and their cotangents stay plain matmuls outside,
 // as in the JAX caller.  Bound on the H100: the products yq, dy and dWq,
 // 3 * 2 * B*Y*Cy*d (38.7 GFLOP for the flagship's a2f at B=8, Y=3072,
@@ -71,8 +75,7 @@ x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ p
                        const float* __restrict__ gprobs, const float* __restrict__ glogits,
                        const float* __restrict__ gattn, const int* __restrict__ xlen, int Y,
                        int X, int d, float scale, float* __restrict__ dlog,
-                       float* __restrict__ dyq, float* __restrict__ part_bq,
-                       const float* __restrict__ yq, float* __restrict__ part_kv, int n_tpad) {
+                       float* __restrict__ dyq, float* __restrict__ part_bq) {
   constexpr int BQ = 4 * R;
   extern __shared__ float4 smem_raw[];
   const int ls = fk::sx_pad(X);  // S's row stride and dlog's
@@ -159,33 +162,6 @@ x2y_sx_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ p
       pb[n0 + tid] = s;
     }
   }
-  if (part_kv == nullptr) return;
-
-  // 4. (the shares form of dxk and dxv) the tile's shares dlogits^T yq and
-  // probs^T g_attn, (X, 2d), summed over the tiles by the caller
-  float* Qy = panel + fk::kSxPanel;  // (BQ, d + 4): the tile's yq rows
-  float* Pr = Qy + BQ * (d + 4);     // (BQ, ls): its probs rows
-  fk::sx_stage_rows(Qy, yq + ((size_t)b * Y + y0) * d, BQ, rows, d);
-  for (int i = tid; i < BQ * ls; i += fk::kThreads) {
-    const int m = i / ls, k = i - m * ls;
-    Pr[i] = m < rows && k < X ? __ldg(probs + rx + (size_t)m * X + k) : 0.f;
-  }
-  __syncthreads();
-  float* out = part_kv + ((size_t)b * n_tpad + blockIdx.x) * X * 2 * d;
-  for (int j = ty; j < X; j += 4)
-    for (int c = 4 * tx; c < d; c += 4 * 64) {
-      float4 ak = make_float4(0.f, 0.f, 0.f, 0.f), av = ak;
-      for (int m = 0; m < BQ; ++m) {
-        const float sl = S[m * ls + j], pr = Pr[m * ls + j];
-        const float4 q = fk::sx_ld4(Qy + m * (d + 4) + c), g = fk::sx_ld4(G + m * (d + 4) + c);
-        ak = make_float4(fmaf(sl, q.x, ak.x), fmaf(sl, q.y, ak.y), fmaf(sl, q.z, ak.z),
-                         fmaf(sl, q.w, ak.w));
-        av = make_float4(fmaf(pr, g.x, av.x), fmaf(pr, g.y, av.y), fmaf(pr, g.z, av.z),
-                         fmaf(pr, g.w, av.w));
-      }
-      fk::sx_st4(out + (size_t)j * 2 * d + c, ak);
-      fk::sx_st4(out + (size_t)j * 2 * d + d + c, av);
-    }
 }
 
 // The flash form's attention backward over one tile of kFT keys of one video,
@@ -376,13 +352,11 @@ template <int R>
 cudaError_t launch_sx_attn_bwd(size_t smem, dim3 grid, cudaStream_t stream, const float* kv,
                                const float* probs, const float* gprobs, const float* glogits,
                                const float* gattn, const int* xlen, int Y, int X, int d,
-                               float scale, float* dlog, float* dyq, float* part_bq,
-                               const float* yq, float* part_kv, int n_tpad) {
+                               float scale, float* dlog, float* dyq, float* part_bq) {
   cudaError_t err = fk::set_smem((const void*)x2y_sx_attn_bwd_kernel<R>, smem);
   if (err != cudaSuccess) return err;
   x2y_sx_attn_bwd_kernel<R><<<grid, fk::kThreads, smem, stream>>>(
-      kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq, yq, part_kv,
-      n_tpad);
+      kv, probs, gprobs, glogits, gattn, xlen, Y, X, d, scale, dlog, dyq, part_bq);
   return cudaGetLastError();
 }
 
@@ -421,8 +395,7 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
                              float* stage, float* part, float* dkv, float* dk, float* dy,
                              float* dypos, float* dwq, float* dbq, float* dx, float* dxpos,
                              float* dwk, float* dwv, float* dbkv, int tile, int group, int kc_y,
-                             int kc_x, float* part_kv, int n_tpad, float* stage_kv,
-                             void* stream) {
+                             int kc_x, void* stream) {
   const int n_blk = B * ((Y + tile - 1) / tile);
   const int Bx = xstride ? B : 1;  // d_xpos's batch
   if (d % 4 || Cy % 4 || Cx % 4 || Py % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
@@ -439,25 +412,20 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
                      wqp, wkvp, yq,     kv, nullptr, probs, probs_p};
   int err = sx_project(p, s);
   if (err) return err;
-  const size_t smem = (fk::sx_smem_floats(tile, X, d) +
-                       (part_kv ? (size_t)tile * (d + 4 + fk::sx_pad(X)) : 0)) * sizeof(float);
+  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
   const dim3 grid((Y + tile - 1) / tile, B);
-  if (part_kv != nullptr &&  // the shares form: tiles past the grid's own add zeros
-      (err = (int)cudaMemsetAsync(part_kv, 0, (size_t)B * n_tpad * X * 2 * d * sizeof(float),
-                                  s)))
-    return err;
   err = (int)(tile == 32   ? launch_sx_attn_bwd<8>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
-                                                     part_bq, yq, part_kv, n_tpad)
+                                                     part_bq)
               : tile == 16 ? launch_sx_attn_bwd<4>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
-                                                     part_bq, yq, part_kv, n_tpad)
+                                                     part_bq)
               : tile == 8  ? launch_sx_attn_bwd<2>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
-                                                     part_bq, yq, part_kv, n_tpad)
+                                                     part_bq)
                            : launch_sx_attn_bwd<1>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
-                                                     part_bq, yq, part_kv, n_tpad));
+                                                     part_bq));
   if (err) return err;
   if (n_slots > n_blk &&
       (err = (int)cudaMemsetAsync(part_bq + (size_t)n_blk * d, 0,
@@ -482,23 +450,12 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
        (err = fk_reduce(dy, 1, B, (long long)Y * Cy, 0, Y, Cy, Py, dypos, s))) ||
       (err = fk_reduce(part_bq, n_slots / group, group, d, (long long)group * d, 1, 0, d, stage,
                        s)) ||
-      (err = fk_reduce(stage, 1, n_slots / group, d, 0, 1, 0, d, dbq, s)))
-    return err;
-  if (part_kv != nullptr) {  // the shares form: runs of `group` tiles, then the runs
-    const int runs = n_tpad / group;
-    if ((err = fk_reduce(part_kv, B * runs, group, 2 * xd, group * 2 * xd, 1, 0, (int)(2 * xd),
-                         stage_kv, s)) ||
-        (err = fk_reduce(stage_kv, B, runs, 2 * xd, runs * 2 * xd, 1, 0, (int)(2 * xd), dkv,
-                         s)))
-      return err;
-  } else if ((err = fk_k6_wgrad(dlog, xp, 0, X, yq, d, 0, d, lens, 0, 0, 1, part, B, Y, kc_y,
-                                s)) ||
-             (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv, 2 * xd, 2 * d,
-                                 s)) ||
-             (err = fk_k6_wgrad(probs_p ? probs_p : probs, xp, 0, X, gattn, d, 0, d, lens, 0, 0,
-                                1, part, B, Y, kc_y, s)) ||
-             (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv + d, 2 * xd,
-                                 2 * d, s)))
+      (err = fk_reduce(stage, 1, n_slots / group, d, 0, 1, 0, d, dbq, s)) ||
+      (err = fk_k6_wgrad(dlog, xp, 0, X, yq, d, 0, d, lens, 0, 0, 1, part, B, Y, kc_y, s)) ||
+      (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv, 2 * xd, 2 * d, s)) ||
+      (err = fk_k6_wgrad(probs_p ? probs_p : probs, xp, 0, X, gattn, d, 0, d, lens, 0, 0, 1,
+                         part, B, Y, kc_y, s)) ||
+      (err = fk_reduce_to(part, B, per_y, xd, per_y * xd, X, d, d, dkv + d, 2 * xd, 2 * d, s)))
     return err;
   // the X side
   const long long nkv = (long long)Cx * 2 * d;

@@ -380,7 +380,7 @@ def _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_le
 
 
 def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn, g_probs,
-            g_logits, need_ypos_grad=True, need_xpos_grad=True, shares=False):
+            g_logits, need_ypos_grad=True, need_xpos_grad=True):
     """(the cotangents of (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq),
     dkv): the library call's results (a positional cotangent None where its
     table is absent or not wanted) and [dxk | dxv] (B, X, 2d), the per-video
@@ -413,10 +413,6 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
         part=max(B * per_y * max(Cy, X), B * per_x * Cx) * d,
         dkv=-(-B * X // SX_SUM_GROUP) * SX_SUM_GROUP * 2 * d,
         dk=Bx * X * d if want_xpos else None))
-    n_tpad = -(-(-(-Y // rows)) // SX_SUM_GROUP) * SX_SUM_GROUP  # the shares form's tile slots
-    kvw, kv_w = _workspace(x_in.device, dict(
-        part=B * n_tpad * X * 2 * d if shares else None,
-        stage=B * n_tpad // SX_SUM_GROUP * X * 2 * d if shares else None))
     dy = torch.empty_like(y_in)
     _, (d_ypos, d_wq, d_bq, dx, d_xpos, d_wk, d_wv, d_bkv) = _carve(x_in.device, [
         (1, Y, Py) if want_ypos else None, (Cy, d), (d,), (B, X, Cx),
@@ -430,7 +426,7 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
         w["part_bq"], n_slots, w["stage"], w["part"], w["dkv"], w["dk"], dy.data_ptr(),
         ptr(d_ypos), d_wq.data_ptr(), d_bq.data_ptr(), dx.data_ptr(), ptr(d_xpos),
         d_wk.data_ptr(), d_wv.data_ptr(), d_bkv.data_ptr(), rows, SX_SUM_GROUP, kc_y, kc_x,
-        kv_w["part"], n_tpad, kv_w["stage"], _build.stream_ptr(x_in.device))
+        _build.stream_ptr(x_in.device))
     _build.check("fk_x2y_sx_bwd", err)
     if d_xpos is not None:
         d_xpos = d_xpos[..., :Px].reshape(x_pos.shape)

@@ -148,8 +148,7 @@ class FakeK2SxLib(FakeK2Lib):
                       xlen, probs, gprobs, glogits, gattn, B, Y_, X_, Cy, Cx, d, scale, lens,
                       yin, xin, probs_p, wqp, wqn, wkvp, wkvn, yq, kv, dlog, dyq, part_bq,
                       n_slots, stage, part, dkv, dk, dy, dypos, dwq, dbq, dx, dxpos, dwk, dwv,
-                      dbkv, tile, group, kc_y, kc_x, part_kv, n_tpad, stage_kv, stream):
-        assert part_kv is None  # the shares form is timed on the card only
+                      dbkv, tile, group, kc_y, kc_x, stream):
         xp, n_t = -(-X_ // 4) * 4, -(-Y_ // tile)
         assert all(c % 4 == 0 for c in (d, Cy, Cx, Py, Px)) and 1 <= X_ <= 1024
         assert tile in xa.SX_ROWS and (probs_p is None) == (xp == X_)
