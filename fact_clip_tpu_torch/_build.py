@@ -55,7 +55,7 @@ SIGNATURES = {
     "fk_atb": [P, P, L, I, P, I, I, P, P, I, I, I, I, I, I, P],
     "fk_reduce": [P, I, I, L, L, I, L, I, P, P],
     "fk_x2y_sx_bwd": [P, P, L, I, P, P, L, I] + [P] * 11 + [I] * 6 + [F] + [P] * 13 + [I]
-                     + [P] * 13 + [I] * 4 + [P],
+                     + [P] * 14 + [I] * 4 + [P],
     "fk_x2y_flash_attn_bwd": [P] * 8 + [I, I, I, I, F] + [P] * 3 + [I, P],
     "fk_frame_loss_fwd": [P] * 6 + [I, I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],

@@ -1,7 +1,9 @@
 // K2's small-X form on the H100: what its forward (x2y_attn.cu,
 // fk_x2y_sx_fwd) and its backward (x2y_bwd.cu, fk_x2y_sx_bwd) share.
 //
-// 1. The projections, one host call launching (sx_project):
+// 1. The projections, one host call launching (sx_project; the key / value
+//    side on a second stream beside the query side: at epic's and the TDU's
+//    shapes each GEMM fills only 24-64 of the 132 SMs):
 //      sx_prep_kernel   the GEMMs' inputs: y + y_pos, [x + x_pos | x] (the
 //                       key's and the value's inputs side by side), the
 //                       lengths (Y for every video's queries; x_len, or all
@@ -303,6 +305,31 @@ __global__ void __launch_bounds__(256) sx_prep_kernel(const fk::SxProj p) {
   }
 }
 
+// A second stream of the current device and two events (made at first use,
+// kept for the process): the key / value projection runs there beside the
+// query projection, forked after the prep and joined before the attention.
+struct SxSide {
+  cudaStream_t stream;
+  cudaEvent_t fork, join;
+};
+
+inline int sx_side(SxSide& side) {
+  constexpr int kMaxDevices = 64;
+  static SxSide made[kMaxDevices];
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || dev >= kMaxDevices) return err ? err : (int)cudaErrorInvalidDevice;
+  if (!ready[dev] &&
+      ((err = (int)cudaStreamCreateWithFlags(&made[dev].stream, cudaStreamNonBlocking)) ||
+       (err = (int)cudaEventCreateWithFlags(&made[dev].fork, cudaEventDisableTiming)) ||
+       (err = (int)cudaEventCreateWithFlags(&made[dev].join, cudaEventDisableTiming))))
+    return err;
+  ready[dev] = true;
+  side = made[dev];
+  return 0;
+}
+
 // The prep, the packs and the two projection GEMMs (see the top of this file).
 inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
   long long work = p.B;  // the longest of the prep's passes
@@ -313,11 +340,23 @@ inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
   const int blocks = (int)((work + 255) / 256 < 1056 ? (work + 255) / 256 : 1056);  // 8 an SM
   sx_prep_kernel<<<blocks, 256, 0, stream>>>(p);
   int err = (int)cudaGetLastError();
-  if (err) return err;
+  SxSide side;
+  if (err || (err = sx_side(side)) ||
+      (err = (int)cudaEventRecord(side.fork, stream)) ||
+      (err = (int)cudaStreamWaitEvent(side.stream, side.fork, 0)))
+    return err;
+  // on the side stream: Wk^T, Wv^T and kv; problem 0: Wk on [x + x_pos]
+  // (channels 0..Cx), problem 1: Wv on x (Cx..2Cx, or 0..Cx)
   const size_t kvz = (size_t)2 * p.d * p.Cx;  // one projection's packed hi / lo parts
-  if ((err = fk_k6_pack(p.wq, p.wqp, p.Cy, p.d, 1, p.Cy, p.Cy, stream)) ||
-      (err = fk_k6_pack(p.wk, p.wkvp, p.Cx, p.d, 1, p.Cx, p.Cx, stream)) ||
-      (err = fk_k6_pack(p.wv, p.wkvp + kvz, p.Cx, p.d, 1, p.Cx, p.Cx, stream)))
+  const int two[4] = {0, 0, 0, p.xin ? p.Cx : 0};
+  if ((err = fk_k6_pack(p.wk, p.wkvp, p.Cx, p.d, 1, p.Cx, p.Cx, side.stream)) ||
+      (err = fk_k6_pack(p.wv, p.wkvp + kvz, p.Cx, p.d, 1, p.Cx, p.Cx, side.stream)) ||
+      (err = fk_k6_gemm(fk::kGemmProj32, p.xin ? p.xin : p.x, p.xin ? 2 * p.Cx : p.Cx, 2, 1, two,
+                        p.Cx, p.wkvp, p.d, p.Cx, p.B, p.X, p.lens + p.B, p.kv, 2 * p.d, p.d,
+                        p.bk, p.bv, nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0u, 1.f,
+                        side.stream)) ||
+      (err = (int)cudaEventRecord(side.join, side.stream)) ||
+      (err = fk_k6_pack(p.wq, p.wqp, p.Cy, p.d, 1, p.Cy, p.Cy, stream)))
     return err;
   const int one[2] = {0, 0};
   if (p.tab != nullptr &&  // the table y_pos @ Wq (1, Y, d): channels past Py read as zero
@@ -329,11 +368,7 @@ inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
                    p.Cy, p.B, p.Y, p.lens, p.yq, p.d, 0, p.bq, nullptr, p.tab, p.d, 0, nullptr,
                    nullptr, nullptr, 0, 0u, 1.f, stream);
   if (err) return err;
-  // problem 0: Wk on [x + x_pos] (channels 0..Cx), problem 1: Wv on x (Cx..2Cx, or 0..Cx)
-  const int two[4] = {0, 0, 0, p.xin ? p.Cx : 0};
-  return fk_k6_gemm(fk::kGemmProj32, p.xin ? p.xin : p.x, p.xin ? 2 * p.Cx : p.Cx, 2, 1, two,
-                    p.Cx, p.wkvp, p.d, p.Cx, p.B, p.X, p.lens + p.B, p.kv, 2 * p.d, p.d, p.bk,
-                    p.bv, nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0u, 1.f, stream);
+  return (int)cudaStreamWaitEvent(stream, side.join, 0);  // kv is ready for what follows
 }
 
 // dst (2, Cx, 2d): the TF32 hi and lo parts of [Wk | Wv] (Cx, 2d), as

@@ -394,7 +394,8 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
                              float* kv, float* dlog, float* dyq, float* part_bq, int n_slots,
                              float* stage, float* part, float* dkv, float* dk, float* dy,
                              float* dypos, float* dwq, float* dbq, float* dx, float* dxpos,
-                             float* dwk, float* dwv, float* dbkv, int tile, int group, int kc_y,
+                             float* dwk, float* dwv, float* dbk, float* dbv, int tile, int group,
+                             int kc_y,
                              int kc_x, void* stream) {
   const int n_blk = B * ((Y + tile - 1) / tile);
   const int Bx = xstride ? B : 1;  // d_xpos's batch
@@ -476,7 +477,8 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
                                   s)) ||
       (err = fk_reduce(dkv, runs_kv, group, 2 * d, (long long)group * 2 * d, 1, 0, 2 * d, part,
                        s)) ||
-      (err = fk_reduce(part, 1, runs_kv, 2 * d, 0, 1, 0, 2 * d, dbkv, s)))
+      (err = fk_reduce(part, 1, runs_kv, 2 * d, 0, 1, 0, d, dbk, s)) ||
+      (err = fk_reduce(part + d, 1, runs_kv, 2 * d, 0, 1, 0, d, dbv, s)))
     return err;
   if (dxpos == nullptr) return 0;
   // dxk of the batch (summed where x_pos is shared), (Bx, X, d), times Wk^T: the

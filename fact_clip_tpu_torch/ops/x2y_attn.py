@@ -113,8 +113,8 @@ def _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_le
 
 
 def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
-    """((attn, probs, logits), yq): the forward's outputs and the projected
-    queries it computed (a view of its workspace)."""
+    """((attn, probs, logits), yq): the forward's outputs and a function that
+    gives the projected queries it computed (a view of its workspace)."""
     B, Y, Cy = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
@@ -134,10 +134,10 @@ def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
         *_proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
                     x_len), B, Y, X, Cy, Cx, d, 1.0 / math.sqrt(d), w["lens"], w["yin"],
         w["xin"], w["wqp"], w["wkvp"], w["yq"], w["kv"], w["tab"], logits.data_ptr(),
-        probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y, X, d), _build.stream_ptr(x_in.device))
+        probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y, X, d, 8),
+        _build.stream_ptr(x_in.device))
     _build.check("fk_x2y_sx_fwd", err)
-    yq = (w["yq"] - work.data_ptr()) // 4
-    return (attn, probs, logits), work[yq:yq + B * Y * d].view(B, Y, d)
+    return (attn, probs, logits), lambda: _view(work, w["yq"], (B, Y, d))
 
 
 SX_ROWS = (32, 16, 8, 4)  # query rows per block of the small-X attention (csrc/sx_attn.cuh)
@@ -152,18 +152,21 @@ SX_PARTIALS = 16  # the weight products' partials a call aims at (sx_chunk)
 _ALIGN = 64  # floats: every workspace buffer starts on a 256-byte boundary (TMA takes 16)
 
 
-def sx_rows(B: int, Y: int, X: int, d: int) -> int:
+def sx_rows(B: int, Y: int, X: int, d: int, least: int = 4) -> int:
     """Query rows per block of the small-X attention kernels: the tallest
     tile of ``SX_ROWS`` that fits in shared memory and gives two blocks an
     SM (32 at the flagship's and Breakfast's a2f), else the tallest that
-    gives one, else 4 (epic's B = 1-2 and Y = 256-300, the TDU's Y = 40:
-    short blocks, more of them in flight)."""
-    fits = [r for r in SX_ROWS if sx_smem(X, d, r) <= _build.MAX_SMEM]
+    gives one, else ``least`` (epic's B = 1-2 and Y = 256-300, the TDU's
+    Y = 40: short blocks, more of them in flight).  The forward takes 8 as
+    its least, the backward 4: at epic's f2a the forward took 0.142 ms with
+    8-row tiles against 0.152 with 4, the backward 0.371 with 4 against 0.379
+    with 8 (H100 80GB HBM3, 700 W)."""
+    fits = [r for r in SX_ROWS if r >= least and sx_smem(X, d, r) <= _build.MAX_SMEM]
     for per_sm in (2, 1):
         for rows in fits:
             if B * -(-Y // rows) >= per_sm * SX_SMS:
                 return rows
-    return SX_ROWS[-1]
+    return least
 
 
 def sx_chunk(B: int, T: int) -> int:
@@ -211,7 +214,14 @@ def _workspace(device, sizes):
     address in it, or None."""
     offsets, total = _offsets(sizes)
     work = torch.empty((total,), device=device, dtype=torch.float32)
-    return work, {k: None if o is None else work.data_ptr() + 4 * o for k, o in offsets.items()}
+    base = work.data_ptr()
+    return work, {k: None if o is None else base + 4 * o for k, o in offsets.items()}
+
+
+def _view(work, address, shape):
+    """The buffer at ``address`` in ``work`` as a tensor of ``shape``."""
+    o = (address - work.data_ptr()) // 4
+    return work[o:o + math.prod(shape)].view(shape)
 
 
 def _carve(device, shapes):
@@ -383,8 +393,9 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
             g_logits, need_ypos_grad=True, need_xpos_grad=True):
     """(the cotangents of (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq),
     dkv): the library call's results (a positional cotangent None where its
-    table is absent or not wanted) and [dxk | dxv] (B, X, 2d), the per-video
-    products it computed (a view of its workspace)."""
+    table is absent or not wanted) and a function that gives [dxk | dxv]
+    (B, X, 2d), the per-video products it computed (a view of its
+    workspace)."""
     B, Y, Cy = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
@@ -414,9 +425,12 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
         dkv=-(-B * X // SX_SUM_GROUP) * SX_SUM_GROUP * 2 * d,
         dk=Bx * X * d if want_xpos else None))
     dy = torch.empty_like(y_in)
-    _, (d_ypos, d_wq, d_bq, dx, d_xpos, d_wk, d_wv, d_bkv) = _carve(x_in.device, [
-        (1, Y, Py) if want_ypos else None, (Cy, d), (d,), (B, X, Cx),
-        (Bx, X, Cx) if want_xpos else None, (Cx, d), (Cx, d), (2 * d,)])
+    # the small cotangents from one allocation, each in its final shape (d_xpos
+    # over all Cx channels where x_pos is narrower: the leading Px are taken)
+    _, (d_ypos, d_wq, d_bq, dx, d_xpos, d_wk, d_bk, d_wv, d_bv) = _carve(x_in.device, [
+        y_pos.shape if want_ypos else None, (Cy, d), (d,), (B, X, Cx),
+        (x_pos.shape if Px == Cx else (Bx, X, Cx)) if want_xpos else None, (Cx, d), (d,),
+        (Cx, d), (d,)])
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.lib().fk_x2y_sx_bwd(
         *_proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
@@ -425,16 +439,13 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
         w["wqp"], w["wqn"], w["wkvp"], w["wkvn"], w["yq"], w["kv"], w["dlog"], w["dyq"],
         w["part_bq"], n_slots, w["stage"], w["part"], w["dkv"], w["dk"], dy.data_ptr(),
         ptr(d_ypos), d_wq.data_ptr(), d_bq.data_ptr(), dx.data_ptr(), ptr(d_xpos),
-        d_wk.data_ptr(), d_wv.data_ptr(), d_bkv.data_ptr(), rows, SX_SUM_GROUP, kc_y, kc_x,
-        _build.stream_ptr(x_in.device))
+        d_wk.data_ptr(), d_wv.data_ptr(), d_bk.data_ptr(), d_bv.data_ptr(), rows,
+        SX_SUM_GROUP, kc_y, kc_x, _build.stream_ptr(x_in.device))
     _build.check("fk_x2y_sx_bwd", err)
-    if d_xpos is not None:
+    if d_xpos is not None and Px < Cx:
         d_xpos = d_xpos[..., :Px].reshape(x_pos.shape)
-    o = (w["dkv"] - work.data_ptr()) // 4
-    if d_ypos is not None:
-        d_ypos = d_ypos.view(y_pos.shape)
-    return ((dy, d_ypos, dx, d_xpos, d_wk, d_bkv[:d], d_wv, d_bkv[d:], d_wq, d_bq),
-            work[o:o + 2 * B * X * d].view(B, X, 2 * d))
+    return ((dy, d_ypos, dx, d_xpos, d_wk, d_bk, d_wv, d_bv, d_wq, d_bq),
+            lambda: _view(work, w["dkv"], (B, X, 2 * d)))
 
 
 def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn, g_attn,

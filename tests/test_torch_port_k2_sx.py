@@ -148,7 +148,7 @@ class FakeK2SxLib(FakeK2Lib):
                       xlen, probs, gprobs, glogits, gattn, B, Y_, X_, Cy, Cx, d, scale, lens,
                       yin, xin, probs_p, wqp, wqn, wkvp, wkvn, yq, kv, dlog, dyq, part_bq,
                       n_slots, stage, part, dkv, dk, dy, dypos, dwq, dbq, dx, dxpos, dwk, dwv,
-                      dbkv, tile, group, kc_y, kc_x, stream):
+                      dbk, dbv, tile, group, kc_y, kc_x, stream):
         xp, n_t = -(-X_ // 4) * 4, -(-Y_ // tile)
         assert all(c % 4 == 0 for c in (d, Cy, Cx, Py, Px)) and 1 <= X_ <= 1024
         assert tile in xa.SX_ROWS and (probs_p is None) == (xp == X_)
@@ -214,7 +214,8 @@ class FakeK2SxLib(FakeK2Lib):
         runs = -(-B * X_ // group)
         _view(dkv, runs * group * 2 * d)[B * X_ * 2 * d:] = 0.0
         self.fk_reduce(dkv, runs, group, 2 * d, group * 2 * d, 1, 0, 2 * d, part, 0)
-        self.fk_reduce(part, 1, runs, 2 * d, 0, 1, 0, 2 * d, dbkv, 0)
+        self.fk_reduce(part, 1, runs, 2 * d, 0, 1, 0, d, dbk, 0)
+        self.fk_reduce(part + 4 * d, 1, runs, 2 * d, 0, 1, 0, d, dbv, 0)
         if dxpos is not None:
             Bx = B if xstride else 1
             self.fk_reduce_to(dkv, Bx, B if Bx == 1 else 1, 2 * xd, 2 * xd, X_, 2 * d, d, dk, xd,
@@ -437,13 +438,14 @@ def test_emulated_small_x_backward_gives_the_same_bits_twice(fake, monkeypatch):
 def test_small_x_tiles_and_limits():
     """32-row tiles where they fit and give two blocks an SM (the flagship's
     8 x 3072, Breakfast's 4 x 4096), else the tallest that gives one, else 4
-    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40); a block of 16 rows
+    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40; 8 in the forward,
+    whose least it is); a block of 16 rows
     holds a (16, d) tile and (16, X) logits: d up to 2,084 at X = 1024."""
     assert xa.sx_rows(8, 3072, 40, 512) == 32 and xa.sx_rows(4, 4096, 60, 512) == 32
     assert xa.sx_rows(8, 1000, 40, 512) == 16 and xa.sx_rows(8, 3072, 1024, 746) == 16
     assert xa.sx_rows(1, 2200, 40, 512) == 8 and xa.sx_rows(2, 700, 40, 512) == 4
     assert xa.sx_rows(2, 300, 256, 512) == 4 and xa.sx_rows(1, 256, 300, 512) == 4
-    assert xa.sx_rows(8, 40, 128, 512) == 4
+    assert xa.sx_rows(8, 40, 128, 512) == 4 and xa.sx_rows(2, 300, 256, 512, 8) == 8
     assert xa.has_backward(3072, 1024, 2084) and not xa.has_backward(3072, 1024, 2088)
     assert xa.sx_smem(1024, 746) <= _build.MAX_SMEM  # the widest d served before the redesign
 
