@@ -1,25 +1,28 @@
 """K2's small-X forward and backward on the port's tensor-core GEMM, on the CPU.
 
-On the card the small-X forward projects the queries, yq = (y + y_pos) Wq +
-bq, with one 3xTF32 GEMM of the towers' core (``fk_k6_gemm``, epilogue kProj,
-the table y_pos @ Wq from a kMasked GEMM on every column, shared or per
-video), the keys [xk | xv] the same way (x_len = 0 projects every key), then
-runs the logits, softmax and attend per (tile of 8 or 16 query rows, video)
-(``fk_x2y_sx_attn``, ``csrc/x2y_attn.cu``).  The backward recomputes yq and
-[xk | xv], runs the attention terms per tile (``fk_x2y_sx_attn_bwd``,
-``csrc/x2y_bwd.cu``: dlogits in 16-byte rows, dyq, dbq's tile shares), dy
-as one more GEMM, dWq (+ y_pos^T of the batch's dyq), dxk and dxv per video
-on ``fk_k6_wgrad``, and the two-stage fixed-order sums.  Here, without a
-card, ``FakeK2SxLib`` (``FakeK2Lib`` of ``test_torch_port_k2_tc.py`` and the
-two attention entries, on the raw memory of CPU tensors, with the kernels'
-tiles, skips and partial layouts) stands in for the library; the port's
-launch sequences (``_x2y_small_x_fwd_card``, ``_x2y_small_x_bwd_card``) are
-held against JAX's ``x2y_attention`` in interpret mode at X <= 1024 (its
-``_small_x_vjp``) and ``jax.vjp`` of it (the fused Pallas backward where
-y_pos is shared), and against the f32 plain versions: Y = 1, 37 and 100
-(ragged last query tiles of 8 and 16 rows), X = 1, 40 and 300, ragged
-x_len with a video at x_len = 0, no and a shared x_pos, per-video y_pos in
-the forward, g_probs and g_logits non-zero; Cy = 40, Cx = d = 48.
+On the card each direction is one library call.  The forward
+(``fk_x2y_sx_fwd``, ``csrc/x2y_attn.cu`` on ``csrc/sx_attn.cuh``) preps y +
+y_pos and [x + x_pos | x] (a y_pos shared by a large batch goes in as the
+table y_pos @ Wq instead), packs Wq^T, Wk^T and Wv^T, projects yq = (y +
+y_pos) Wq + bq and [xk | xv] on the towers' 3xTF32 GEMM (``fk_k6_gemm``,
+epilogue kProj32; x_len = 0 projects every key), then runs the logits,
+softmax and attend per (tile of 4-32 query rows, video).  The backward
+(``fk_x2y_sx_bwd``, ``csrc/x2y_bwd.cu``) recomputes the projections, runs
+the attention terms per tile (dlogits in 16-byte rows, dyq, dbq's tile
+shares), dy as one more GEMM, dWq, dxk and dxv per video on
+``fk_k6_wgrad``, the X side (dx, dWk, dWv, the bias sums, d_xpos where
+wanted) and the two-stage fixed-order sums.  Here, without a card,
+``FakeK2SxLib`` (``FakeK2Lib`` of ``test_torch_port_k2_tc.py`` and models of
+the pack, the strided sum and the two entries, step for step on the raw
+memory of CPU tensors, with the kernels' tiles, skips and partial layouts)
+stands in for the library; the port's wrappers (``_x2y_small_x_fwd_card``,
+``_x2y_small_x_bwd_card``) are held against JAX's ``x2y_attention`` in
+interpret mode at X <= 1024 (its ``_small_x_vjp``) and ``jax.vjp`` of it
+(the fused Pallas backward where y_pos is shared), and against the f32
+plain versions: Y = 1, 37, 100 and 128 (ragged last query tiles), X = 1,
+40, 128 and 300, ragged x_len with a video at x_len = 0, no, shared and
+per-video positional tables (narrow ones against the plain versions),
+g_probs and g_logits non-zero; Cy = 40, Cx = d = 48.
 
 Tolerance: 2e-5 of max(1, the reference's largest value), as in K2's and
 K3's files: the split keeps ~2^-22 of each product, f32 sums in another
