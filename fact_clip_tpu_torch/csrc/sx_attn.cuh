@@ -26,14 +26,14 @@
 //    registers while this one is multiplied:
 //      sx_dots    acc[i] = sum_c A[R ty + i][c] kv[j0 + tx][col0 + c]
 //                 (A the block's (BQ, d) rows in shared memory: yq for the
-//                 logits, g_attn for the dprobs), through 64-key x 64-column
-//                 panels; a thread's float4 of its key against the float4 of
-//                 each of its rows (broadcast to the warp);
+//                 logits, g_attn for the dprobs), through 64-key panels of
+//                 64 or 128 columns (SxPanels); a thread's float4 of its key
+//                 against the float4 of each of its rows (broadcast);
 //      sx_attend  acc[i][q] = sum_{j < nk} S[R ty + i][j] kv[j][col0 + n0 + 4 tx + q]
 //                 (S the block's (BQ, X) rows in shared memory: probs for
-//                 the attend, dlogits for dyq), through 32-key x 256-column
-//                 panels; a thread's float4 of the key's row against one S
-//                 value of each of its rows (broadcast).
+//                 the attend, dlogits for dyq), through panels of 16-64 keys
+//                 x 256 columns; a thread's float4 of the key's row against
+//                 one S value of each of its rows (broadcast).
 //    sx_dots reads R + 1 shared-memory vectors for 4R FMAs, sx_attend R + 4
 //    for 16R, so the shared-memory pipe, not the FMA pipe, is the bound, the
 //    less so the larger R: 32-row tiles where the grid gives two blocks or
@@ -70,14 +70,28 @@ namespace fk {
 constexpr int kGemmMasked = 0, kGemmProj32 = 9;  // tc_tower.cuh's Mode: kMasked, kProj32
 
 constexpr int kSxKeys = 64;                 // keys per pass of sx_dots (one per thread column)
-constexpr int kSxDC = 64;                   // columns of d per panel of sx_dots
-constexpr int kSxKS = kSxDC + 4;            // its row stride: 16-byte rows, conflict-free reads
-constexpr int kSxVK = 32;                   // keys per panel of sx_attend
 constexpr int kSxNC = 256;                  // columns of d per pass of sx_attend (four a thread)
-constexpr int kSxVS = kSxNC + 4;
-// floats of the staging panel: the larger of sx_dots' and sx_attend's
-constexpr int kSxPanel = kSxKeys * kSxKS > kSxVK * kSxVS ? kSxKeys * kSxKS : kSxVK * kSxVS;
+constexpr int kSxVS = kSxNC + 4;            // the value panel's row stride
 constexpr int kSxMaxKeys = 1024;            // X <= 1024: the small-X form (X > 1024 is flash)
+
+// The panels of a tile of BQ = 4R rows.  A short tile (4 or 8 rows) is
+// latency-bound on its panels' round trips at epic's and the TDU's shapes and
+// has registers to spare, so it stages panels twice as deep; the 32-row tile's
+// accumulators leave its value panel's prefetch room for 16 keys only (two
+// blocks an SM hold 128 registers a thread).
+template <int R>
+struct SxPanels {
+  static constexpr int DC = R <= 2 ? 128 : 64;              // columns of d per key panel
+  static constexpr int KS = DC + 4;                         // its row stride: 16-byte rows,
+                                                            // conflict-free float4 reads
+  static constexpr int VK = R <= 2 ? 64 : R >= 8 ? 16 : 32;  // keys per value panel
+  static constexpr int FLOATS = kSxKeys * KS > VK * kSxVS ? kSxKeys * KS : VK * kSxVS;
+};
+
+// floats of the staging panel of a tile of `tile` rows (SxPanels<tile / 4>::FLOATS)
+__host__ __device__ __forceinline__ int sx_panel_floats(int tile) {
+  return tile <= 8 ? SxPanels<1>::FLOATS : tile >= 32 ? SxPanels<8>::FLOATS : SxPanels<4>::FLOATS;
+}
 
 // a row stride of X floats rounded to 16 bytes: the blocks' S rows, and the
 // backward's dlogits and padded probs rows (TMA row strides of the weight products)
@@ -86,7 +100,7 @@ __host__ __device__ __forceinline__ int sx_pad(int X) { return (X + 3) & ~3; }
 // floats of a block's shared memory: the (BQ, d) rows (yq or g_attn, row
 // stride d + 4), the (BQ, X) rows of S, the staging panel
 __host__ __device__ __forceinline__ size_t sx_smem_floats(int tile, int X, int d) {
-  return (size_t)tile * (d + 4) + (size_t)tile * sx_pad(X) + kSxPanel;
+  return (size_t)tile * (d + 4) + (size_t)tile * sx_pad(X) + sx_panel_floats(tile);
 }
 
 __device__ __forceinline__ float4 sx_ld4(const float* p) {
@@ -121,7 +135,8 @@ template <int R>
 __device__ __forceinline__ void sx_dots(float (&acc)[R], const float* A, int d,
                                         const float* __restrict__ kvb, int X, int col0, int j0,
                                         float* panel) {
-  constexpr int kPer = kSxKeys * (kSxDC / 4) / kThreads;  // float4 a thread stages per panel
+  constexpr int kDC = SxPanels<R>::DC, kKS = SxPanels<R>::KS;
+  constexpr int kPer = kSxKeys * (kDC / 4) / kThreads;  // float4 a thread stages per panel
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const size_t ld = 2 * (size_t)d;
   float4 next[kPer];
@@ -129,7 +144,7 @@ __device__ __forceinline__ void sx_dots(float (&acc)[R], const float* A, int d,
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int i = tid + u * kThreads;
-      const int r = i / (kSxDC / 4), c = (i - r * (kSxDC / 4)) * 4;
+      const int r = i / (kDC / 4), c = (i - r * (kDC / 4)) * 4;
       next[u] = j0 + r < X && c0 + c < d
                     ? sx_ldg4(kvb + (size_t)(j0 + r) * ld + col0 + c0 + c)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -138,18 +153,18 @@ __device__ __forceinline__ void sx_dots(float (&acc)[R], const float* A, int d,
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
   fetch(0);
-  for (int c0 = 0; c0 < d; c0 += kSxDC) {
+  for (int c0 = 0; c0 < d; c0 += kDC) {
     __syncthreads();  // the panel's last readers are done
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int i = tid + u * kThreads;
-      const int r = i / (kSxDC / 4), c = (i - r * (kSxDC / 4)) * 4;
-      sx_st4(panel + r * kSxKS + c, next[u]);
+      const int r = i / (kDC / 4), c = (i - r * (kDC / 4)) * 4;
+      sx_st4(panel + r * kKS + c, next[u]);
     }
     __syncthreads();
-    if (c0 + kSxDC < d) fetch(c0 + kSxDC);  // in flight while this panel is multiplied
-    const int cn = min(kSxDC, d - c0);
-    const float* kr = panel + tx * kSxKS;
+    if (c0 + kDC < d) fetch(c0 + kDC);  // in flight while this panel is multiplied
+    const int cn = min(kDC, d - c0);
+    const float* kr = panel + tx * kKS;
     const float* ar = A + (size_t)R * ty * (d + 4) + c0;
 #pragma unroll 4
     for (int c = 0; c < cn; c += 4) {
@@ -175,9 +190,7 @@ template <int R>
 __device__ __forceinline__ void sx_attend(float (&acc)[R][4], const float* S, int ls,
                                           const float* __restrict__ kvb, int d, int col0, int n0,
                                           int nk, float* panel) {
-  // keys per panel: 16 at R = 8, whose accumulators leave the next panel's
-  // prefetch fewer registers (two blocks an SM hold 128 a thread)
-  constexpr int kVK = R >= 8 ? kSxVK / 2 : kSxVK;
+  constexpr int kVK = SxPanels<R>::VK;
   constexpr int kPer = kVK * (kSxNC / 4) / kThreads;
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const size_t ld = 2 * (size_t)d;

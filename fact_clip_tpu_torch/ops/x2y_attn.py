@@ -143,7 +143,9 @@ def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
 SX_ROWS = (32, 16, 8, 4)  # query rows per block of the small-X attention (csrc/sx_attn.cuh)
 SX_SMS = 132  # the H100's SMs
 SX_SUM_GROUP = 16  # dbq's tile shares, added a run at a time
-SX_PANEL = max(64 * 68, 32 * 260)  # floats of the attention's staging panel (kSxPanel)
+# floats of the attention's staging panel by tile height (csrc/sx_attn.cuh::SxPanels)
+SX_PANEL = {4: max(64 * 132, 64 * 260), 8: max(64 * 132, 64 * 260), 16: max(64 * 68, 32 * 260),
+            32: max(64 * 68, 16 * 260)}
 # from this many elements of y a y_pos shared by the batch goes in as the table
 # y_pos @ Wq (a GEMM over one video's rows) rather than as y + y_pos (a pass
 # over the batch's): the flagship's 8 x 3072 x 512, Breakfast's 4 x 4096 x 512
@@ -181,7 +183,7 @@ def sx_chunk(B: int, T: int) -> int:
 def sx_smem(X: int, d: int, rows: int = 16) -> int:
     """Bytes of a small-X attention block (``csrc/sx_attn.cuh::sx_smem_floats``):
     the tile's (rows, d) operand, its (rows, X) logits and the panel."""
-    return 4 * (rows * (d + 4) + rows * (-(-X // 4) * 4) + SX_PANEL)
+    return 4 * (rows * (d + 4) + rows * (-(-X // 4) * 4) + SX_PANEL[rows])
 
 
 def _check_small_x(name, y_in, y_pos, x_in, x_pos, d):
