@@ -1520,7 +1520,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2-flash-backward and K4 SA case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2 and K4 SA case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
