@@ -309,8 +309,9 @@ def k2sx_f64(seed: int = 0):
         with torch.no_grad():
             yq64 = xa.add_pos(a64[0], a64[1]) @ a64[8] + a64[9]
             attn64, probs64, _ = xa.x2y_attention_reference(*a64)
-            (attn, probs, _), yq = xa._sx_fwd(*args)
-            yq = yq()
+            seen = {}
+            attn, probs, _ = xa._x2y_small_x_fwd_card(*args, inspect=seen)
+            yq = seen["yq"]
             fwd = {"kernel": (yq, attn, probs),
                    "plain": (xa.add_pos(args[0], args[1]) @ args[8] + args[9],
                              *xa.x2y_attention_reference(*args)[:2])}
@@ -318,8 +319,8 @@ def k2sx_f64(seed: int = 0):
                  cs._rand(rng, probs.shape, 0.1)]
             p64, g64 = probs.double(), [t.double() for t in g]  # the kernel's saves for all
             ref = (*xa.x2y_bwd_reference(*a64, p64, *g64), *_sx_dxkv(xa, a64, p64, g64))
-            grads, dkv = xa._sx_bwd(*args, probs, *g)
-            dkv = dkv()  # [dxk | dxv] from its workspace
+            grads = xa._x2y_small_x_bwd_card(*args, probs, *g, inspect=seen)
+            dkv = seen["dkv"]  # [dxk | dxv] from its workspace
             bwd = {"kernel": (*grads, dkv[..., :512], dkv[..., 512:]),
                    "plain": (*xa.x2y_bwd_reference(*args, probs, *g),
                              *_sx_dxkv(xa, args, probs, g))}

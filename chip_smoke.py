@@ -43,12 +43,13 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    fuse, the ReLU, the mask and the out projection), so their
    ``library_ms`` is null.  K2's flash backward runs the projection's
    recompute, dx and the weight products on the tensor cores too, and K2's
-   small-X forms their q and key projections, dy and the weight products
-   (three TF32 passes in their bounds, the attention terms in f32).  K2's
+   small-X forms their q and key projections, dy, the weight products and
+   the backward's X side, dx, dWk and dWv (three TF32 passes in their
+   bounds, the attention terms in f32).  K2's
    flash and small-X forms and K3 also at a video with no valid key
    (``xlen0``: x_len = 0 attends to every key, as JAX's); K2's small-X
-   forward also at the TDU's 8 x 40 x 128; K2's flash backward and small-X
-   backward also at Breakfast's 4 x 4096, d=512 (M=60, X=60); K4's SA
+   forward also at the TDU's 8 x 40 x 128; K2's flash backward and both
+   small-X forms also at Breakfast's 4 x 4096, d=512 (M=60, X=60); K4's SA
    forward also at egoprocel's B=2, M=200 and with dropout at epic's
    shape.  K3 also at
    egoprocel's 200 queries (1 x 4096, E=256, H=8, forward with dropout 0.2
@@ -593,10 +594,11 @@ def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
         work = (8 * Y * d * Xv + 6 * B * Y * Cy * d, n_bytes, 0, 12 * Cx * d * Xv)
     else:
         kern = lambda: xa.x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)  # noqa: E731
-        # yq's recompute, dy, dWq, dxk, dxv and the keys' recompute as three
-        # TF32 passes; the attention terms and the X side's products in f32
-        work = (4 * Y * d * Xv + 8 * B * X * Cx * d, n_bytes, 0,
-                6 * B * Y * Cy * d + 4 * Y * d * Xv + 4 * B * X * Cx * d)
+        # yq's recompute, dy, dWq, dxk, dxv, the keys' recompute and the X
+        # side's products (dx, dWk, dWv) as three TF32 passes; the attention
+        # terms in f32
+        work = (4 * Y * d * Xv, n_bytes, 0,
+                6 * B * Y * Cy * d + 4 * Y * d * Xv + 12 * B * X * Cx * d)
     library = sdpa_library(args[0], args[2], args[8], args[4], args[6], args[10], 1, g=g_attn)
     return (kern, lambda: xa.x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits), work,
             None, library)
@@ -1205,7 +1207,7 @@ def kernel_table():
                                               True))]),
         ("x2y_small_x", csrc + "x2y_attn.cu", pallas + "x2y_attn.py:76", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, False, B, T, 40, D, D, D, [40] * B,
-                                              zeros(1, T, D), _rand(r, (1, 40, 256)))),
+                                              _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
           ("ragged", lambda r: x2y_fwd_case(r, False, 2, 1000, 37, D, D, D, [37, 20],
                                             _rand(r, (2, 1000, D)), _rand(r, (1, 37, D)))),
           # epic: f2a, 300 tokens over <= 256 segments; a2f, 256 segments
@@ -1217,6 +1219,9 @@ def kernel_table():
           # the TDU: 40 tokens over 128 segments (per-video segment positions)
           ("tdu", lambda r: x2y_fwd_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
                                          _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
+          # Breakfast's a2f: 4 x 4096 frames over 60 tokens
+          ("breakfast", lambda r: x2y_fwd_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
+                                               _rand(r, (1, 4096, D)), _rand(r, (1, 60, D)))),
           # a video with no valid key attends to all its keys, as JAX's
           ("xlen0", lambda r: x2y_fwd_case(r, False, 2, 300, 256, D, D, D, [256, 0],
                                            _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
@@ -1281,7 +1286,7 @@ def kernel_table():
           ("c24", lambda r: k1_bwd_case(r, 2, 1000, 24, 32, *ragged_k1, False))]),
         ("x2y_small_x_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:430", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, False, B, T, 40, D, D, D, [40] * B,
-                                              zeros(1, T, D), _rand(r, (1, 40, 256)))),
+                                              _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
           ("tdu", lambda r: x2y_bwd_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
                                          _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
           # epic at batch 1: f2a, 300 tokens over 256 segments; a2f, 256
@@ -1563,9 +1568,11 @@ def k6_repeat_check(seed: int = 0):
                                                    FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
                                                    zeros)),
              ("k2_sx", lambda: x2y_fwd_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
-                                            zeros, _rand(rng, (1, 40, 256)))),
+                                            _rand(rng, (1, 3072, 512)),
+                                            _rand(rng, (1, 40, 256)))),
              ("k2_sx_bwd", lambda: x2y_bwd_case(rng, False, 8, 3072, 40, 512, 512, 512,
-                                                [40] * 8, zeros, _rand(rng, (1, 40, 256)))),
+                                                [40] * 8, _rand(rng, (1, 3072, 512)),
+                                                _rand(rng, (1, 40, 256)))),
              ("sa_epic", lambda: sa_fwd_case(rng, 1, 300, 256, 8, 0.2)),
              ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)))
     failed = []

@@ -59,7 +59,7 @@ SIGNATURES = {
     "fk_x2y_flash_attn_bwd": [P] * 8 + [I, I, I, I, F] + [P] * 3 + [I, P],
     "fk_frame_loss_fwd": [P] * 6 + [I, I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
-    "fk_x2y_sx_fwd": [P, P, L, I, P, P, L, I] + [P] * 7 + [I] * 6 + [F] + [P] * 11 + [I, P],
+    "fk_x2y_sx_fwd": [P, P, L, I, P, P, L, I] + [P] * 7 + [I] * 6 + [F] + [P] * 10 + [I, P],
     "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
                      P, I, U, F, P, I, P],
     "fk_k3_attn": [P, P, P, I, I, I, I, I, F, P, P, P, P, P, I, U, F, P],

@@ -14,9 +14,12 @@
 //                       (Wk on the first Cx channels, Wv on the next), zero
 //                       at keys at or past the key length; epilogue kProj32
 //                       (tc_tower.cuh: kProj's, promoted once a 32-deep step).
-//    JAX's kernel adds y_pos to y before its product, and so does the prep:
-//    one elementwise pass (a table y_pos @ Wq from a GEMM of its own took
-//    ~25 us a call at epic's shapes, the add ~3; H100 80GB HBM3, 700 W).
+//    JAX's kernel adds y_pos to y before its product, and so does the prep,
+//    at every shape, so that the backward's recomputed yq is the forward's
+//    (a table y_pos @ Wq from a GEMM over one video's rows in yq's epilogue
+//    was 0.014 ms faster at the flagship's 8 x 3072 x 512, 0.005 ms slower at
+//    Breakfast's 4 x 4096 x 512 and ~0.02 ms slower at epic's shapes; H100
+//    80GB HBM3, 700 W).
 // 2. The panel products of the attention kernels, f32 FMA.  A block takes
 //    BQ = 4R query rows of one video, 256 threads: thread row ty (0..3) owns
 //    rows R*ty .. R*ty + R - 1, thread column tx (0..63) a key (the dot
@@ -37,7 +40,7 @@
 //    sx_dots reads R + 1 shared-memory vectors for 4R FMAs, sx_attend R + 4
 //    for 16R, so the shared-memory pipe, not the FMA pipe, is the bound, the
 //    less so the larger R: 32-row tiles where the grid gives two blocks or
-//    more an SM (the flagship's and Breakfast's a2f), 4 rows where even 8
+//    more an SM (the flagship's and Breakfast's a2f), 8 rows where even 16
 //    would leave SMs idle (epic's B = 1-2 and Y = 256-300, the TDU's Y = 40).
 //    Every sum runs in one fixed order.
 #pragma once
@@ -74,23 +77,23 @@ constexpr int kSxNC = 256;                  // columns of d per pass of sx_atten
 constexpr int kSxVS = kSxNC + 4;            // the value panel's row stride
 constexpr int kSxMaxKeys = 1024;            // X <= 1024: the small-X form (X > 1024 is flash)
 
-// The panels of a tile of BQ = 4R rows.  A short tile (4 or 8 rows) is
+// The panels of a tile of BQ = 4R rows.  The short tile (8 rows) is
 // latency-bound on its panels' round trips at epic's and the TDU's shapes and
 // has registers to spare, so it stages panels twice as deep; the 32-row tile's
 // accumulators leave its value panel's prefetch room for 16 keys only (two
 // blocks an SM hold 128 registers a thread).
 template <int R>
 struct SxPanels {
-  static constexpr int DC = R <= 2 ? 128 : 64;              // columns of d per key panel
+  static constexpr int DC = R == 2 ? 128 : 64;              // columns of d per key panel
   static constexpr int KS = DC + 4;                         // its row stride: 16-byte rows,
                                                             // conflict-free float4 reads
-  static constexpr int VK = R <= 2 ? 64 : R >= 8 ? 16 : 32;  // keys per value panel
+  static constexpr int VK = R == 2 ? 64 : R == 8 ? 16 : 32;  // keys per value panel
   static constexpr int FLOATS = kSxKeys * KS > VK * kSxVS ? kSxKeys * KS : VK * kSxVS;
 };
 
 // floats of the staging panel of a tile of `tile` rows (SxPanels<tile / 4>::FLOATS)
 __host__ __device__ __forceinline__ int sx_panel_floats(int tile) {
-  return tile <= 8 ? SxPanels<1>::FLOATS : tile >= 32 ? SxPanels<8>::FLOATS : SxPanels<4>::FLOATS;
+  return tile == 8 ? SxPanels<2>::FLOATS : tile == 32 ? SxPanels<8>::FLOATS : SxPanels<4>::FLOATS;
 }
 
 // a row stride of X floats rounded to 16 bytes: the blocks' S rows, and the
@@ -254,12 +257,11 @@ struct SxProj {
   const float *wq, *bq, *wk, *bk, *wv, *bv;  // (Cy, d), (d,), (Cx, d), (d,), (Cx, d), (d,)
   const int* xlen;
   int B, Y, X, Cy, Cx, d;
-  // workspace (16-byte aligned): lens (2B + 1 ints), yin (B*Y*Cy, with ypos
-  // and no tab), xin (B*X*2Cx, with xpos), wqp (2*d*Cy), wkvp (2*2*d*Cx), yq
-  // (B*Y*d), kv (B*X*2d), tab (Y*d: the forward's table y_pos @ Wq where the
-  // batch shares a large y_pos, added in the epilogue; else null)
+  // workspace (16-byte aligned): lens (2B + 1 ints), yin (B*Y*Cy, with ypos),
+  // xin (B*X*2Cx, with xpos), wqp (2*d*Cy), wkvp (2*2*d*Cx), yq (B*Y*d), kv
+  // (B*X*2d)
   int* lens;
-  float *yin, *xin, *wqp, *wkvp, *yq, *kv, *tab;
+  float *yin, *xin, *wqp, *wkvp, *yq, *kv;
   // the backward's probs in rows of sx_pad(X) when X % 4 != 0 (else null)
   const float* probs;
   float* probs_p;
@@ -372,13 +374,8 @@ inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
       (err = fk_k6_pack(p.wq, p.wqp, p.Cy, p.d, 1, p.Cy, p.Cy, stream)))
     return err;
   const int one[2] = {0, 0};
-  if (p.tab != nullptr &&  // the table y_pos @ Wq (1, Y, d): channels past Py read as zero
-      (err = fk_k6_gemm(fk::kGemmMasked, p.ypos, p.Py, 1, 1, one, p.Cy, p.wqp, p.d, p.Cy, 1, p.Y,
-                        p.lens, p.tab, p.d, 0, nullptr, nullptr, nullptr, 0, 0, nullptr, nullptr,
-                        nullptr, 0, 0u, 1.f, stream)))
-    return err;
   err = fk_k6_gemm(fk::kGemmProj32, p.yin ? p.yin : p.y, p.Cy, 1, 1, one, p.Cy, p.wqp, p.d,
-                   p.Cy, p.B, p.Y, p.lens, p.yq, p.d, 0, p.bq, nullptr, p.tab, p.d, 0, nullptr,
+                   p.Cy, p.B, p.Y, p.lens, p.yq, p.d, 0, p.bq, nullptr, nullptr, 0, 0, nullptr,
                    nullptr, nullptr, 0, 0u, 1.f, stream);
   if (err) return err;
   return (int)cudaStreamWaitEvent(stream, side.join, 0);  // kv is ready for what follows

@@ -10,7 +10,7 @@
 //     its caller), one more launch of the same GEMM, zero at keys at or past
 //     x_len (all X keys of a video with x_len = 0);
 //   the attention (this file, x2y_sx_attn_kernel): one block per (tile of
-//     BQ = 4-32 query rows, video), f32 FMA on sx_attn.cuh's panels:
+//     BQ = 8-32 query rows, video), f32 FMA on sx_attn.cuh's panels:
 //       logits = yq xk^T * scale, -1e9 at keys at or past x_len,
 //       probs = softmax(logits), attn = probs xv,
 //     the logits and probs kept in shared memory (X <= 1024) and written
@@ -240,27 +240,23 @@ cudaError_t launch_sx_attn(size_t smem, dim3 grid, cudaStream_t stream, const fl
 
 // K2's small-X forward, one host call: the prep, packs and projections of
 // sx_attn.cuh (yq and kv in the caller's workspace, fk::SxProj; y_pos as yin
-// = y + y_pos, or as the table tab where the batch shares it), then the
-// attention -> logits and probs (B, Y, X), attn (B, Y, d); `tile` query rows
-// per block (4, 8, 16 or 32).
+// = y + y_pos), then the attention -> logits and probs (B, Y, X), attn (B, Y,
+// d); `tile` query rows per block (8, 16 or 32).
 extern "C" int fk_x2y_sx_fwd(const float* y, const float* ypos, long long ystride, int Py,
                              const float* x, const float* xpos, long long xstride, int Px,
                              const float* wq, const float* bq, const float* wk, const float* bk,
                              const float* wv, const float* bv, const int* xlen, int B, int Y,
                              int X, int Cy, int Cx, int d, float scale, int* lens, float* yin,
                              float* xin, float* wqp, float* wkvp, float* yq, float* kv,
-                             float* tab, float* logits, float* probs, float* attn, int tile,
-                             void* stream) {
+                             float* logits, float* probs, float* attn, int tile, void* stream) {
   if (d % 4 || Cy % 4 || Cx % 4 || Py % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
-      (tile != 4 && tile != 8 && tile != 16 && tile != 32) ||
-      (ypos != nullptr) != (yin != nullptr || tab != nullptr) ||
-      (yin != nullptr && tab != nullptr) || (tab != nullptr && ystride != 0) ||
+      (tile != 8 && tile != 16 && tile != 32) || (ypos != nullptr) != (yin != nullptr) ||
       (xpos != nullptr) != (xin != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const fk::SxProj p{y,  ypos, ystride, Py, x,  xpos, xstride, Px,  wq,  bq,   wk, bk,
                      wv, bv,   xlen,    B,  Y,  X,    Cy,      Cx,  d,   lens, yin, xin,
-                     wqp, wkvp, yq,     kv, tab, nullptr, nullptr};
+                     wqp, wkvp, yq,     kv, nullptr, nullptr};
   int err = sx_project(p, s);
   if (err) return err;
   const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
@@ -269,9 +265,7 @@ extern "C" int fk_x2y_sx_fwd(const float* y, const float* ypos, long long ystrid
                                                   logits, probs, attn)
                : tile == 16 ? launch_sx_attn<4>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
                                                   logits, probs, attn)
-               : tile == 8  ? launch_sx_attn<2>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
-                                                  logits, probs, attn)
-                            : launch_sx_attn<1>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                            : launch_sx_attn<2>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
                                                   logits, probs, attn));
 }
 

@@ -9,7 +9,7 @@
 //   yq = (y + y_pos) @ Wq + bq and kv = [xk | xv], recomputed as JAX's does,
 //     on tc_tower.cuh's 3xTF32 GEMM (epilogue kProj; sx_attn.cuh's sx_project);
 //   the attention terms (this file, x2y_sx_attn_bwd_kernel): one block per
-//     (tile of BQ = 4-32 query rows, video), f32 FMA on sx_attn.cuh's
+//     (tile of BQ = 8-32 query rows, video), f32 FMA on sx_attn.cuh's
 //     panels, from the saved probabilities and the cotangents of (attn,
 //     probs, logits):
 //       dprobs = g_probs + g_attn xv^T,
@@ -400,8 +400,8 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
   const int n_blk = B * ((Y + tile - 1) / tile);
   const int Bx = xstride ? B : 1;  // d_xpos's batch
   if (d % 4 || Cy % 4 || Cx % 4 || Py % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
-      (tile != 4 && tile != 8 && tile != 16 && tile != 32) ||
-      (ypos != nullptr) != (yin != nullptr) || (xpos != nullptr) != (xin != nullptr) ||
+      (tile != 8 && tile != 16 && tile != 32) || (ypos != nullptr) != (yin != nullptr) ||
+      (xpos != nullptr) != (xin != nullptr) ||
       (X % 4 != 0) != (probs_p != nullptr) || group < 1 || n_slots % group ||
       n_slots < n_blk || kc_y % 32 || kc_x % 32 || kc_y < 32 || kc_x < 32 ||
       (dypos != nullptr && (ypos == nullptr || ystride != 0)) ||
@@ -410,7 +410,7 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
   const cudaStream_t s = (cudaStream_t)stream;
   const fk::SxProj p{y,  ypos, ystride, Py, x,  xpos, xstride, Px,  wq,  bq,    wk, bk,
                      wv, bv,   xlen,    B,  Y,  X,    Cy,      Cx,  d,   lens,  yin, xin,
-                     wqp, wkvp, yq,     kv, nullptr, probs, probs_p};
+                     wqp, wkvp, yq,     kv, probs, probs_p};
   int err = sx_project(p, s);
   if (err) return err;
   const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
@@ -421,10 +421,7 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
               : tile == 16 ? launch_sx_attn_bwd<4>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
                                                      part_bq)
-              : tile == 8  ? launch_sx_attn_bwd<2>(smem, grid, s, kv, probs, gprobs, glogits,
-                                                     gattn, xlen, Y, X, d, scale, dlog, dyq,
-                                                     part_bq)
-                           : launch_sx_attn_bwd<1>(smem, grid, s, kv, probs, gprobs, glogits,
+                           : launch_sx_attn_bwd<2>(smem, grid, s, kv, probs, gprobs, glogits,
                                                      gattn, xlen, Y, X, d, scale, dlog, dyq,
                                                      part_bq));
   if (err) return err;

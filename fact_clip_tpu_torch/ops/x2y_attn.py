@@ -104,17 +104,14 @@ def x2y_small_x_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
 x2y_small_x_fwd.launches = 0
 
 
-def _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
+def _x2y_small_x_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
+                          inspect=None):
     """``x2y_small_x_fwd``'s launches, one library call (CPU tensors reach it
     only in the tests, which stand a model of the kernels' C interface in for
     the library): the prep, the packs, yq and [xk | xv] on the GEMM, the
-    attention (``csrc/x2y_attn.cu::fk_x2y_sx_fwd``)."""
-    return _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)[0]
-
-
-def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
-    """((attn, probs, logits), yq): the forward's outputs and a function that
-    gives the projected queries it computed (a view of its workspace)."""
+    attention (``csrc/x2y_attn.cu::fk_x2y_sx_fwd``).  Given a dict
+    ``inspect``, its "yq" receives the projected queries (B, Y, d), a view of
+    the call's workspace (for accuracy checks)."""
     B, Y, Cy = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
@@ -122,10 +119,8 @@ def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
     ypos, ystride, Py = kernel_pos(y_pos, B, Y, Cy)
     xpos, xstride, Px = kernel_pos(x_pos, B, X, Cx)
     _build.check_tensors("x2y_small_x_fwd", [ypos, xpos], x_in.device)
-    table = ypos is not None and not ystride and B * Y * Cy >= SX_TABLE_MIN
-    work, w = _workspace(x_in.device, dict(
-        _proj_buffers(B, Y, X, Cy, Cx, d, ypos is not None and not table, xpos is not None),
-        tab=Y * d if table else None))
+    work, w = _workspace(x_in.device, _proj_buffers(B, Y, X, Cy, Cx, d, ypos is not None,
+                                                    xpos is not None))
     f32 = dict(device=x_in.device, dtype=torch.float32)
     attn = torch.empty((B, Y, d), **f32)  # separate tensors: the autograd entry's outputs
     probs = torch.empty((B, Y, X), **f32)
@@ -133,42 +128,36 @@ def _sx_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
     err = _build.lib().fk_x2y_sx_fwd(
         *_proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
                     x_len), B, Y, X, Cy, Cx, d, 1.0 / math.sqrt(d), w["lens"], w["yin"],
-        w["xin"], w["wqp"], w["wkvp"], w["yq"], w["kv"], w["tab"], logits.data_ptr(),
-        probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y, X, d, 8),
-        _build.stream_ptr(x_in.device))
+        w["xin"], w["wqp"], w["wkvp"], w["yq"], w["kv"], logits.data_ptr(), probs.data_ptr(),
+        attn.data_ptr(), sx_rows(B, Y, X, d), _build.stream_ptr(x_in.device))
     _build.check("fk_x2y_sx_fwd", err)
-    return (attn, probs, logits), lambda: _view(work, w["yq"], (B, Y, d))
+    if inspect is not None:
+        inspect["yq"] = _view(work, w["yq"], (B, Y, d))
+    return attn, probs, logits
 
 
-SX_ROWS = (32, 16, 8, 4)  # query rows per block of the small-X attention (csrc/sx_attn.cuh)
+SX_ROWS = (32, 16, 8)  # query rows per block of the small-X attention (csrc/sx_attn.cuh)
 SX_SMS = 132  # the H100's SMs
 SX_SUM_GROUP = 16  # dbq's tile shares, added a run at a time
 # floats of the attention's staging panel by tile height (csrc/sx_attn.cuh::SxPanels)
-SX_PANEL = {4: max(64 * 132, 64 * 260), 8: max(64 * 132, 64 * 260), 16: max(64 * 68, 32 * 260),
-            32: max(64 * 68, 16 * 260)}
-# from this many elements of y a y_pos shared by the batch goes in as the table
-# y_pos @ Wq (a GEMM over one video's rows) rather than as y + y_pos (a pass
-# over the batch's): the flagship's 8 x 3072 x 512, Breakfast's 4 x 4096 x 512
-SX_TABLE_MIN = 1 << 22
+SX_PANEL = {8: max(64 * 132, 64 * 260), 16: max(64 * 68, 32 * 260), 32: max(64 * 68, 16 * 260)}
 SX_PARTIALS = 16  # the weight products' partials a call aims at (sx_chunk)
 _ALIGN = 64  # floats: every workspace buffer starts on a 256-byte boundary (TMA takes 16)
 
 
-def sx_rows(B: int, Y: int, X: int, d: int, least: int = 4) -> int:
-    """Query rows per block of the small-X attention kernels: the tallest
-    tile of ``SX_ROWS`` that fits in shared memory and gives two blocks an
-    SM (32 at the flagship's and Breakfast's a2f), else the tallest that
-    gives one, else ``least`` (epic's B = 1-2 and Y = 256-300, the TDU's
-    Y = 40: short blocks, more of them in flight).  The forward takes 8 as
-    its least, the backward 4: at epic's f2a the forward took 0.142 ms with
-    8-row tiles against 0.152 with 4, the backward 0.371 with 4 against 0.379
-    with 8 (H100 80GB HBM3, 700 W)."""
-    fits = [r for r in SX_ROWS if r >= least and sx_smem(X, d, r) <= _build.MAX_SMEM]
+def sx_rows(B: int, Y: int, X: int, d: int) -> int:
+    """Query rows per block of the small-X attention kernels, both
+    directions: the tallest tile of ``SX_ROWS`` that fits in shared memory
+    and gives two blocks an SM (32 at the flagship's and Breakfast's a2f),
+    else the tallest that gives one, else 8 (epic's B = 1-2 and Y = 256-300,
+    the TDU's Y = 40: short blocks, more of them in flight).  An 8-row block
+    fits wherever a 16-row one does (``_check_small_x``)."""
+    fits = [r for r in SX_ROWS if sx_smem(X, d, r) <= _build.MAX_SMEM]
     for per_sm in (2, 1):
         for rows in fits:
             if B * -(-Y // rows) >= per_sm * SX_SMS:
                 return rows
-    return least
+    return SX_ROWS[-1]
 
 
 def sx_chunk(B: int, T: int) -> int:
@@ -382,22 +371,17 @@ x2y_small_x_bwd.launches = 0
 
 
 def _x2y_small_x_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
-                          g_probs, g_logits, need_ypos_grad=True, need_xpos_grad=True):
+                          g_probs, g_logits, need_ypos_grad=True, need_xpos_grad=True,
+                          inspect=None):
     """``x2y_small_x_bwd``'s launches, one library call (CPU tensors reach it
     only in the tests, as ``_x2y_small_x_fwd_card``): yq and [xk | xv]
     recomputed, the attention terms, dy, the weight products, the X side and
-    the fixed-order sums (``csrc/x2y_bwd.cu::fk_x2y_sx_bwd``)."""
-    return _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
-                   g_probs, g_logits, need_ypos_grad, need_xpos_grad)[0]
-
-
-def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn, g_probs,
-            g_logits, need_ypos_grad=True, need_xpos_grad=True):
-    """(the cotangents of (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq),
-    dkv): the library call's results (a positional cotangent None where its
-    table is absent or not wanted) and a function that gives [dxk | dxv]
-    (B, X, 2d), the per-video products it computed (a view of its
-    workspace)."""
+    the fixed-order sums (``csrc/x2y_bwd.cu::fk_x2y_sx_bwd``).  Returns the
+    cotangents of (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq), a
+    positional one None where its table is absent or not wanted.  Given a
+    dict ``inspect``, its "dkv" receives [dxk | dxv] (B, X, 2d), the per-video
+    products the call computed, a view of its workspace (for accuracy
+    checks)."""
     B, Y, Cy = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
@@ -446,8 +430,9 @@ def _sx_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_at
     _build.check("fk_x2y_sx_bwd", err)
     if d_xpos is not None and Px < Cx:
         d_xpos = d_xpos[..., :Px].reshape(x_pos.shape)
-    return ((dy, d_ypos, dx, d_xpos, d_wk, d_bk, d_wv, d_bv, d_wq, d_bq),
-            lambda: _view(work, w["dkv"], (B, X, 2 * d)))
+    if inspect is not None:
+        inspect["dkv"] = _view(work, w["dkv"], (B, X, 2 * d))
+    return dy, d_ypos, dx, d_xpos, d_wk, d_bk, d_wv, d_bv, d_wq, d_bq
 
 
 def x2y_flash_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn, g_attn,

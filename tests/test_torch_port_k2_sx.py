@@ -2,11 +2,10 @@
 
 On the card each direction is one library call.  The forward
 (``fk_x2y_sx_fwd``, ``csrc/x2y_attn.cu`` on ``csrc/sx_attn.cuh``) preps y +
-y_pos and [x + x_pos | x] (a y_pos shared by a large batch goes in as the
-table y_pos @ Wq instead), packs Wq^T, Wk^T and Wv^T, projects yq = (y +
+y_pos and [x + x_pos | x], packs Wq^T, Wk^T and Wv^T, projects yq = (y +
 y_pos) Wq + bq and [xk | xv] on the towers' 3xTF32 GEMM (``fk_k6_gemm``,
 epilogue kProj32; x_len = 0 projects every key), then runs the logits,
-softmax and attend per (tile of 4-32 query rows, video).  The backward
+softmax and attend per (tile of 8-32 query rows, video).  The backward
 (``fk_x2y_sx_bwd``, ``csrc/x2y_bwd.cu``) recomputes the projections, runs
 the attention terms per tile (dlogits in 16-byte rows, dyq, dbq's tile
 shares), dy as one more GEMM, dWq, dxk and dxv per video on
@@ -55,8 +54,8 @@ class FakeK2SxLib(FakeK2Lib):
     """``FakeK2Lib``, the pack and strided-sum entries and the two small-X
     entries, step for step as ``csrc/sx_attn.cuh::sx_project`` and the two
     entries launch them: the prep (the lengths, y + y_pos, [x + x_pos | x],
-    the padded probs), the packs, the projection GEMMs (y_pos as the table
-    y_pos @ Wq where given one), then per (tile of `tile` query rows, video)
+    the padded probs), the packs, the projection GEMMs, then per (tile of
+    `tile` query rows, video)
     the logits, probs and attn, or dlogits (rows padded to 16 bytes), dyq and
     dbq's tile share, then dy, the weight products, the X side and the
     fixed-order sums.  Keys at or past x_len compute nothing; a video with
@@ -87,7 +86,7 @@ class FakeK2SxLib(FakeK2Lib):
         return 0
 
     def _project(self, y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
-                 B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, tab=None, probs=None,
+                 B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, probs=None,
                  probs_p=None):
         self.calls.append(("sx_prep",))
         L, xl = _ints(lens, 2 * B + 1), _ints(xlen, B)
@@ -110,24 +109,20 @@ class FakeK2SxLib(FakeK2Lib):
         self.fk_k6_pack(wk, wkvp, Cx, d, 1, Cx, Cx, 0)
         self.fk_k6_pack(wv, wkvp + 4 * 2 * d * Cx, Cx, d, 1, Cx, Cx, 0)
         one = ctypes.addressof(ONE)
-        if tab is not None:
-            self.fk_k6_gemm(dc._MASKED, ypos, Py, 1, 1, one, Cy, wqp, d, Cy, 1, Y_, lens, tab, d,
-                            0, None, None, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
         self.fk_k6_gemm(dc._PROJ32, yin or y, Cy, 1, 1, one, Cy, wqp, d, Cy, B, Y_, lens, yq, d,
-                        0, bq, None, tab, d, 0, None, None, None, 0, 0, 1.0, 0)
+                        0, bq, None, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
         two = (ctypes.c_int * 4)(0, 0, 0, Cx if xin is not None else 0)
         self.fk_k6_gemm(dc._PROJ32, xin or x, 2 * Cx if xin is not None else Cx, 2, 1,
                         ctypes.addressof(two), Cx, wkvp, d, Cx, B, X_, lens + 4 * B, kv, 2 * d,
                         d, bk, bv, None, 0, 0, None, None, None, 0, 0, 1.0, 0)
 
     def fk_x2y_sx_fwd(self, y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv,
-                      xlen, B, Y_, X_, Cy, Cx, d, scale, lens, yin, xin, wqp, wkvp, yq, kv, tab,
+                      xlen, B, Y_, X_, Cy, Cx, d, scale, lens, yin, xin, wqp, wkvp, yq, kv,
                       logits, probs, attn, tile, stream):
         assert all(c % 4 == 0 for c in (d, Cy, Cx, Py, Px)) and 1 <= X_ <= 1024
-        assert tile in xa.SX_ROWS and (ypos is None) == (yin is None and tab is None)
-        assert tab is None or not ystride
+        assert tile in xa.SX_ROWS and (ypos is None) == (yin is None)
         self._project(y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
-                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, tab)
+                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv)
         self.calls.append(("x2y_sx_attn", tile))
         YQ = _view(yq, B * Y_ * d).view(B, Y_, d)
         KV = _view(kv, B * X_ * 2 * d).view(B, X_, 2 * d)
@@ -157,8 +152,7 @@ class FakeK2SxLib(FakeK2Lib):
         assert tile in xa.SX_ROWS and (probs_p is None) == (xp == X_)
         assert n_slots % group == 0 and n_slots >= B * n_t and kc_y % 32 == kc_x % 32 == 0
         self._project(y, ypos, ystride, Py, x, xpos, xstride, Px, wq, bq, wk, bk, wv, bv, xlen,
-                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, None, probs,
-                      probs_p)
+                      B, Y_, X_, Cy, Cx, d, lens, yin, xin, wqp, wkvp, yq, kv, probs, probs_p)
         self.calls.append(("x2y_sx_attn_bwd", tile))
         KV = _view(kv, B * X_ * 2 * d).view(B, X_, 2 * d)
         P = _view(probs, B * Y_ * X_).view(B, Y_, X_)
@@ -283,7 +277,7 @@ def _rows(monkeypatch, rows):
 
 
 FWD_CASES = [  # Y, X, x_len, y_pos, x_pos, query rows per tile
-    (1, 40, [40, 17], "shared", True, 4),
+    (1, 40, [40, 17], "shared", True, 8),
     (37, 300, [300, 0, 123], "per_video", False, 8),
     (100, 1, [1, 0], "none", True, 16),
     (100, 40, [40, 0, 7], "per_video", True, 32),
@@ -313,11 +307,11 @@ def test_emulated_small_x_forward_matches_jax(fake, monkeypatch, Y, X, xlen, y_p
 
 GRADS = ("d_y", "d_ypos", "d_x", "d_xpos", "d_wk", "d_bk", "d_wv", "d_bv", "d_wq", "d_bq")
 BWD_CASES = [  # Y, X, x_len, y_pos, x_pos, query rows per tile
-    (1, 40, [40, 17], "shared", True, 4),
+    (1, 40, [40, 17], "shared", True, 8),
     (37, 300, [300, 0, 123], "shared", False, 8),
     (100, 1, [1, 0], "none", True, 16),
     (100, 40, [40, 0, 7], "shared", True, 32),
-    (37, 128, [128, 90], "shared", "per_video", 4),  # the TDU's per-video segment positions
+    (37, 128, [128, 90], "shared", "per_video", 8),  # the TDU's per-video segment positions
 ]
 
 
@@ -372,22 +366,6 @@ def test_emulated_small_x_backward_matches_jax_vjp(fake, monkeypatch, Y, X, xlen
             assert float(np.abs(got[2][b].numpy()).max()) > 1e-3
 
 
-def test_emulated_small_x_forward_with_the_shared_table_matches_jax(fake, monkeypatch):
-    """From SX_TABLE_MIN elements of y on (the flagship's and Breakfast's
-    a2f), a y_pos shared by the batch goes in as the table y_pos @ Wq (one
-    more GEMM, added in the projection's epilogue): against JAX's forward in
-    interpret mode and the plain version."""
-    monkeypatch.setattr(xa, "SX_TABLE_MIN", 0)
-    _rows(monkeypatch, 16)
-    j, t = _inputs(8, 37, 40, [40, 0, 11], "shared", True)
-    ref = x2y_attention(*j, interpret=True)
-    got = xa._x2y_small_x_fwd_card(*t)
-    assert fake.calls == PROJECT[:4] + [("gemm", dc._MASKED)] + PROJECT[4:] + [("x2y_sx_attn", 16)]
-    for name, g, r, p in zip(("attn", "probs", "logits"), got, ref, xa.x2y_attention_reference(*t)):
-        _close(g.numpy(), r, what=name)
-        _close(g.numpy(), p.numpy(), what=name)
-
-
 def test_emulated_small_x_with_narrow_positional_tables_matches_plain(fake):
     """A y_pos over the leading 24 of the 40 query channels (epic's tables
     are 256 wide on a 512-wide stream) and a per-video x_pos over 24 of the
@@ -440,15 +418,19 @@ def test_emulated_small_x_backward_gives_the_same_bits_twice(fake, monkeypatch):
 
 def test_small_x_tiles_and_limits():
     """32-row tiles where they fit and give two blocks an SM (the flagship's
-    8 x 3072, Breakfast's 4 x 4096), else the tallest that gives one, else 4
-    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40; 8 in the forward,
-    whose least it is); a block of 16 rows
+    8 x 3072, Breakfast's 4 x 4096), else the tallest that gives one, else 8
+    (epic's B = 1-2 and Y = 256-300, the TDU's 8 x 40), in both directions;
+    an 8-row block fits wherever a 16-row one does; a block of 16 rows
     holds a (16, d) tile and (16, X) logits: d up to 2,084 at X = 1024."""
     assert xa.sx_rows(8, 3072, 40, 512) == 32 and xa.sx_rows(4, 4096, 60, 512) == 32
     assert xa.sx_rows(8, 1000, 40, 512) == 16 and xa.sx_rows(8, 3072, 1024, 746) == 16
-    assert xa.sx_rows(1, 2200, 40, 512) == 8 and xa.sx_rows(2, 700, 40, 512) == 4
-    assert xa.sx_rows(2, 300, 256, 512) == 4 and xa.sx_rows(1, 256, 300, 512) == 4
-    assert xa.sx_rows(8, 40, 128, 512) == 4 and xa.sx_rows(2, 300, 256, 512, 8) == 8
+    assert xa.sx_rows(1, 2200, 40, 512) == 8 and xa.sx_rows(2, 700, 40, 512) == 8
+    assert xa.sx_rows(2, 300, 256, 512) == 8 and xa.sx_rows(1, 256, 300, 512) == 8
+    assert xa.sx_rows(8, 40, 128, 512) == 8
+    for X in (1, 40, 300, 1024):
+        for d in (48, 512, 2084):
+            if xa.sx_smem(X, d, 16) <= _build.MAX_SMEM:
+                assert xa.sx_smem(X, d, 8) <= _build.MAX_SMEM, (X, d)
     assert xa.has_backward(3072, 1024, 2084) and not xa.has_backward(3072, 1024, 2088)
     assert xa.sx_smem(1024, 746) <= _build.MAX_SMEM  # the widest d served before the redesign
 
