@@ -7,7 +7,9 @@
         parent's package refuses, such as one this tree made possible, is
         left out so); ``k3`` stands for K3's rows at the cases both trees
         run, ``k2k4`` for K2's flash backward and K4's SA forward at theirs,
-        ``k2sx`` for K2's small-X forward and backward at theirs:
+        ``k2sx`` for K2's small-X forward and backward at theirs,
+        ``k8ffn`` for K8e (the int8 MS-TCN++ tower) and K4's FFN backward
+        at theirs with K6's serving form at Breakfast's 4 x 4096 x 512:
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -84,7 +86,11 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            "k2k4": ["x2y_flash_bwd:flagship,ragged,breakfast",
                     "sa_sublayer:flagship,ragged,flag_drop,rag_drop,epic,epic_b3,epic_drop,ego"],
            # K2's small-X forward and backward: the parent of their redesign runs every case
-           "k2sx": ["x2y_small_x", "x2y_small_x_bwd"]}
+           "k2sx": ["x2y_small_x", "x2y_small_x_bwd"],
+           # K8e and K4's FFN backward at the cases their parent runs too (it refused
+           # widths of no multiple of 32), beside K6's serving form at Breakfast's shape
+           "k8ffn": ["mstcn2_stack_q8:breakfast,ragged,epic", "ffn_sublayer_bwd",
+                     "mstcn2_stack:bf_full"]}
 
 
 def ab(parent: str, names):

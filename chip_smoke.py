@@ -32,7 +32,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    inputs and must give the same bits every time (``k6_repeat_check``:
    K6 at Breakfast's and epic's shapes, K1, K3, K2's flash backward and
    K2's small-X forward and backward at the flagship's, K4's SA forward
-   with dropout 0.2 at epic's and the flagship's).
+   with dropout 0.2 at epic's and the flagship's, K8e at Breakfast's and
+   epic's, K4's FFN backward with dropout 0.2 at epic's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -77,7 +78,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    (serving form, training form and backward, dropout 0), K4 SA / FFN
    forwards and backwards at M=300 (the SA backward's tiled blocks also at
    M=200, the ragged B=3, M=11 and the flagship shape, each with and
-   without dropout), K2 small-X over 256 segment keys (f2a, forward and
+   without dropout; the FFN backward's split also at egoprocel's B=1,
+   M=200 and Breakfast's B=4, M=60, E=512), K2 small-X over 256 segment keys (f2a, forward and
    backward) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
    The int8 rows (K8, ``TPU.quantize_infer: "int8"``): the int8 MSTCN tower
    at 8 x 3072 x 256, 10 layers, no LN, at a ragged B=3, T=600 (600 / 517 /
@@ -89,7 +91,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    E=512, H=8, M=60, X=4096 and a ragged X=1100 (32-key tiles); X2Y small-X
    at epic's f2a and a2f shapes; the int8 MS-TCN++ tower (K8e) at 4 x 4096
    x 512, 10 layers, every frame valid, at a ragged B=3, T=600 (600 / 517 /
-   90) and at epic's 1 x 24,576 x 256.  Their integer parts (the towers'
+   90), at epic's 1 x 24,576 x 256 and at the ragged shape 24 and 40
+   channels wide (``narrow24``, ``narrow40``: K segments padded to whole
+   32-byte steps).  Their integer parts (the towers'
    8-frame group and tile maxima, which make their activation scales; the
    frames as the row quantizer makes them) must equal the plain versions',
    their f32 results lie within REL_TOL, and the no-LN towers print their
@@ -1333,7 +1337,10 @@ def kernel_table():
         ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
          [("flagship", lambda r: ffn_bwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_bwd_case(r, 3, 11, 256, 512)),
-          ("epic", lambda r: ffn_bwd_case(r, 1, 300, E, 512, 0.0))]),
+          ("epic", lambda r: ffn_bwd_case(r, 1, 300, E, 512, 0.0)),
+          # egoprocel's B=1, M=200 and Breakfast's B=4, M=60, E=512 (a_ffdim 512 both)
+          ("ego", lambda r: ffn_bwd_case(r, 1, 200, E, 512, 0.0)),
+          ("breakfast", lambda r: ffn_bwd_case(r, 4, 60, D, 512, 0.0))]),
         ("frame_loss_fwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:185", "rel",
          [("flagship", lambda r: frame_loss_case(r, False, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, False, B, T, 40, FLAGSHIP_LENGTHS, False)),
@@ -1346,6 +1353,8 @@ def kernel_table():
         ("mstcn2_stack", csrc + "mstcn2.cu", pallas + "dilated_conv.py:976", "rel",
          [("breakfast", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len)),
           ("ragged", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag)),
+          # every frame valid, as K8e's Breakfast case: the f32 tower beside the int8 one
+          ("bf_full", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, [4096] * 4)),
           ("train", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len, 0.2, True)),
           ("rag_train", lambda r: k6_fwd_case(r, 3, 600, D, D, 10, bf_rag, 0.2, True)),
           ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET])),
@@ -1423,7 +1432,10 @@ def kernel_table():
         ("mstcn2_stack_q8", csrc + "quant2.cu", pallas + "quant_conv.py:390", "argmax",
          [("breakfast", lambda r: k8e_case(r, 4, 4096, D, 10, [4096] * 4)),
           ("ragged", lambda r: k8e_case(r, 3, 600, D, 10, bf_rag)),
-          ("epic", lambda r: k8e_case(r, 1, ET, 256, 10, [ET]))]),
+          ("epic", lambda r: k8e_case(r, 1, ET, 256, 10, [ET])),
+          # widths of no multiple of 32: each tap's K segment padded to 32-byte steps
+          ("narrow24", lambda r: k8e_case(r, 3, 600, 24, 10, bf_rag)),
+          ("narrow40", lambda r: k8e_case(r, 3, 600, 40, 10, bf_rag))]),
         # the single-layer K1 (no model reaches it; phase 12 drives its module)
         ("dilated_residual_layer", csrc + "mstcn.cu", pallas + "dilated_conv.py:872", "rel",
          [(f"d{d}{'_ln' if ln else ''}{'_drop' if rate else ''}",
@@ -1525,7 +1537,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2 and K4 SA case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4 and K8e case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1543,7 +1555,11 @@ def k6_repeat_check(seed: int = 0):
     small-X forward and backward at the flagship's a2f (the projections, the
     attention's panels, dbq's tile shares); K4's SA
     forward with dropout 0.2 at epic's B=1, M=300 and the flagship's B=8,
-    M=40 (the three split kernels, the cp.async staging)."""
+    M=40 (the three split kernels, the cp.async staging); K8e at
+    Breakfast's 4 x 4096 x 512 and epic's 1 x 24,576 x 256 (its output and
+    its group and tile maxima: the wgmma ring, the atomicMax of the maxima);
+    K4's FFN backward with dropout 0.2 at epic's B=1, M=300 (the split
+    kernels, the per-tile LayerNorm sums)."""
     import torch
 
     def tensors(out):
@@ -1574,7 +1590,10 @@ def k6_repeat_check(seed: int = 0):
                                                 [40] * 8, _rand(rng, (1, 3072, 512)),
                                                 _rand(rng, (1, 40, 256)))),
              ("sa_epic", lambda: sa_fwd_case(rng, 1, 300, 256, 8, 0.2)),
-             ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)))
+             ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)),
+             ("k8e_bf", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)),
+             ("k8e_epic", lambda: k8e_case(rng, 1, EPIC_T, 256, 10, [EPIC_T])),
+             ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1590,8 +1609,8 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3 or K4 gives different bits on the same inputs: "
-                             f"{failed}")
+        raise AssertionError(f"a tower, K2, K3, K4 or K8e gives different bits on the same "
+                             f"inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ SIGNATURES = {
     "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
-    "fk_ffn_bwd": [P] * 17 + [I, I, I, I, F, P],
+    "fk_ffn_bwd": [P] * 21 + [I, I, I, I, F, P],
     "fk_k6_pack": [P, P, I, I, I, I, I, P],
     "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 3 + [I, L]
                   + [P] * 3 + [I, U, F, P],
@@ -81,7 +81,7 @@ SIGNATURES = {
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
     "fk_q8_tower_layer": [P] * 15 + [I] * 9 + [F, P],
-    "fk_q8_tower2_layer": [P] * 18 + [I] * 9 + [P],
+    "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
     "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
     "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
@@ -209,6 +209,12 @@ def check_tensors(name: str, tensors, device) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of ``device`` as an int (the raw handle where this
+    PyTorch build exposes it: a Stream object costs a few microseconds of
+    host time per kernel call)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream

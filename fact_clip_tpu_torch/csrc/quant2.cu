@@ -1,5 +1,5 @@
 // K8e: the int8 MS-TCN++ tower (int8 evaluation of the f: m2 models,
-// Breakfast and Epic-Kitchens), on quant.cuh's int8 mma.sync core.
+// Breakfast and Epic-Kitchens), on tc_int8.cuh's int8 wgmma core.
 //
 // Replaces fact_clip_tpu/ops/pallas/quant_conv.py::_stack2_layer_q8
 // (_stack2_kernel_q8, act_scale="tile"), one layer of
@@ -8,289 +8,538 @@
 //   out = (relu(h + bf) + x[t]) * mask
 // with d1 = 2^(L-1-i) and d2 = 2^i, int8 joint-tap conv weights and int8
 // fuse halves (per output channel scales), and three activation scales per
-// video and JAX tile of ``tile`` frames (ops/quant_conv.py::_tiling, not
-// any block of this kernel): s_x the absmax of the layer input over the
-// tile's window [t*tile - halo, t*tile + tile + halo) within [0, T_pad),
-// halo = ceil8(max(d1, d2)) for both convs; s1 and s2 the max of |c1| and
-// |c2| over EVERY row of the tile, padded rows included (past a video's end
-// c_k is b_k plus the taps of valid frames within d_k).  A tile of c (512 x
-// 512 f32, 1 MB at Breakfast's width) does not fit in a block, so a layer
-// runs in two passes, as K8a's (quant.cu):
-//   A: per (64 frames, video): s_x from the 8-row group maxima of the layer
-//      input; for each conv the three taps quantized while staged with one
-//      window scale and summed in ONE int32 accumulator (joint weight
-//      scale), dequantize + b_k, write c_k (f32), and fold |c_k|'s max into
-//      one word per (conv, video, tile) with atomicMax on the int bits
-//      (|c| >= 0: int order is float order; a max does not depend on the
-//      order).  Blocks whose every tap reads past the video (r0 >= len +
-//      d_k) skip the GEMM: their c_k is exactly b_k, as in the plain
-//      version.
-//   B: per (64 frames, video): quantize c1 and c2 with their tile's s1, s2
-//      while staged, the two fuse GEMMs (K = C each, one accumulator pass
-//      after the other, the first kept as f32 in registers), the f32
-//      epilogue, the residual, the write mask and each 8-row group's absmax
-//      of the output: the next layer's window maxima.  Blocks wholly past
-//      the video write zeros and skip their GEMMs.
-// Every dequantization follows JAX's kernel as XLA's CPU backend computes it
-// (the CPU tests hold the plain version bit-equal to the interpret mode):
-// c_k = fma(acc, s_x * sk, b_k); h = fma(h1, s1 * swt, h2 * (s2 * swb));
-// relu(h + bf) + x, each other step rounded on its own.
+// video and JAX tile of ``tile`` frames (ops/quant_conv.py::_tiling): s_x
+// the absmax of the layer input over the tile's window [t*tile - halo,
+// t*tile + tile + halo) within [0, T_pad), halo = ceil8(max(d1, d2)); s1 and
+// s2 the max of |c1| and |c2| over EVERY row of the tile, padded rows
+// included (past a video's end c_k is b_k plus the taps of valid frames
+// within d_k).  A layer is four launches:
+//   W: per (32 window rows, tile, video): s_x from the input's 8-row group
+//      maxima, then the tile's window quantized ONCE as int8 (rows outside
+//      [0, len) zero) into its own slab of the window buffer (B, n_tiles,
+//      tile + 2 halo, Cw).  Each tap of each conv is that slab read at a
+//      row offset of halo + (tap - 1) d: nothing is quantized in a product.
+//   A: both convs on the int8 wgmma core, per item (128 rows of one tile,
+//      BN columns, conv, video) of a persistent grid: K = three taps x
+//      ceil32(C), each tap a TMA box of the window slab at its row offset;
+//      the f32 epilogue c_k = fma(acc, s_x * sk, b_k) into c (2, B, T_pad,
+//      Cq), and |c_k|'s max folded into one word per (conv, video, tile) by
+//      atomicMax on the int bits (|c| >= 0: int order is float order; a max
+//      does not depend on the order).  An item whose every tap reads past
+//      the video (r0 >= len + d_k) runs no product: its c_k is exactly b_k,
+//      as in the plain version.
+//   Q: c1 and c2 quantized with their tile's s1, s2 into qc (2, B, T_pad, Cq).
+//   F: the two fuse products on the core, per item (128 rows of one tile,
+//      128 columns, video), h1 and h2 in two accumulators; h = fma(h1, s1 *
+//      swt, h2 * (s2 * swb)), relu(h + bf) + x, the mask, and each 8-row
+//      group's absmax of the output (atomicMax into the zeroed next layer's
+//      group maxima): the next layer's window scales.  Items wholly past the
+//      video write zeros and run no product.
+// A block of A or F never straddles two JAX tiles (the grid walks each
+// tile's rows in blocks of 128; at the default tile of 512 four blocks a
+// tile), so one s_x, s1, s2 serves it.  Every dequantization follows JAX's
+// kernel as XLA's CPU backend computes it (the CPU tests hold the plain
+// version bit-equal to the interpret mode): c_k = fma(acc, s_x * sk, b_k);
+// h = fma(h1, s1 * swt, h2 * (s2 * swb)); relu(h + bf) + x, each other step
+// rounded on its own.  Any width: each tap's K segment is padded to whole
+// 32-byte steps (kseg = ceil32(C)) and a step multiplies only those; the
+// rows of the int8 buffers are Cw = ceil16(C) bytes (128 below C = 128, one
+// whole TMA box) with zeros past C.
 //
 // Bound on the H100 (chip_smoke.py::k8e_case), counting the work the
 // function needs: the six tap products on the rows whose c feeds a tile's
-// scale (valid rows, and past a video's end those within d_k of it inside
-// its last tile), the two fuse products and the f32 epilogue on the valid
-// rows.  At Breakfast's 4 x 4096 x 512 with every frame valid the ten
-// layers' int8 products are 8 C^2 operations a frame and layer, 0.69 T
-// operations (0.35 ms at 1,979 TOPS).  Its own traffic is larger: a layer
-// reads its input three times (taps and residual), writes and reads c1 and
-// c2 once and writes its output once, ~7 * 4 * B*T*C bytes (0.23 GB, 0.07
-// ms at 3.35 TB/s).  The six int8 tap weights of a layer (1.5 MB at C=512)
-// stream from L2.  The kernel is neither: the simple single-buffered
-// mma.sync pipeline of K8a, see PERF.md for its time.
+// scale, the two fuse products and the f32 epilogue on the valid rows.  At
+// Breakfast's 4 x 4096 x 512 with every frame valid the ten layers' int8
+// products are 0.69 T operations (0.35 ms at 1,979 TOPS).  This design's
+// own traffic, a frame and channel of a layer: the input read (4 bytes) and
+// its windows written (~1.8 on average over the ten halos; the taps read
+// them back from L2), c written (8), read (8) and written as int8 (2), read
+// again (2 per column block, L2), the residual read and the output written
+// (8): ~32 bytes from device memory, 0.08 ms a layer at 3.35 TB/s (PERF.md's
+// K8e findings: why c keeps its f32 round trip).
 #include <math.h>
+#include <string.h>
 
+#include "common.cuh"
 #include "quant.cuh"
+#include "tc_int8.cuh"
 
 namespace {
 
-constexpr int TBM = 64;            // frames per block
-constexpr int kMaxBlockTiles = 9;  // JAX tiles (multiples of 8 frames) 64 frames can touch
+constexpr int kWinRows = 32;  // window rows per block of pass W
+constexpr int kQRows = 32;    // rows per block of pass Q
+constexpr int kFuseBN = 128;  // columns per block of pass F (two accumulators)
 
-// Pass A: c_k on rows [r0, r0 + 64) of video b, k = 1, 2, and the per-(conv,
-// video, tile) max of |c_k| into smax (2, B, n_tiles).
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// 16 int8 values of row `src` (f32, C wide) from channel c0 on, quantized
+// with inv = 127 / s; channels at or past C are 0
+__device__ __forceinline__ int4 quant_chunk(const float* __restrict__ src, int c0, int C,
+                                            float inv) {
+  if (c0 + 16 <= C && (C & 3) == 0) return fk::quant16(src + c0, inv);
+  int v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = c0 + i < C ? fk::quant_s8(__ldg(src + c0 + i), inv) : 0;
+  return make_int4(fk::pack_s8(v[0], v[1], v[2], v[3]), fk::pack_s8(v[4], v[5], v[6], v[7]),
+                   fk::pack_s8(v[8], v[9], v[10], v[11]),
+                   fk::pack_s8(v[12], v[13], v[14], v[15]));
+}
+
+// Pass W: rows [32 x, 32 x + 32) of tile t's window of video b, and (block
+// x = 0) s_x into sx (B, n_tiles)
 __global__ void __launch_bounds__(fk::kThreads)
-q8_tower2_a_kernel(const float* __restrict__ x, const int* __restrict__ len,
-                   const float* __restrict__ gmax, const int8_t* __restrict__ qk1t,
-                   const float* __restrict__ sk1, const float* __restrict__ b1,
-                   const int8_t* __restrict__ qk2t, const float* __restrict__ sk2,
-                   const float* __restrict__ b2, float* c_out, int* smax, int B, int T, int C,
-                   int d1, int d2, int halo, int tile, int n_tiles, int T_pad) {
-  extern __shared__ float4 smem_raw[];
-  fk::QSmem<TBM>& s = *reinterpret_cast<fk::QSmem<TBM>*>(smem_raw);
-  __shared__ float t_scale[kMaxBlockTiles];
-  __shared__ int t_max[2][kMaxBlockTiles];
-  __shared__ float row_s[TBM];
-  __shared__ float row_inv[TBM];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TBM;
+q8e_window_kernel(const float* __restrict__ x, const int* __restrict__ len,
+                  const float* __restrict__ gmax, int8_t* __restrict__ qwin,
+                  float* __restrict__ sx, int T, int C, int Cw, int halo, int tile, int n_tiles,
+                  int T_pad, int wrows) {
+  __shared__ float s_scale;
+  const int t = blockIdx.y, b = blockIdx.z;
   const int G = T_pad / 8;
   const int lim = min(len[b], T);
-  const int t_first = r0 / tile;
-  const int nt = min(r0 + TBM - 1, T_pad - 1) / tile - t_first + 1;
-
-  for (int i = tid >> 5; i < nt; i += fk::kWarps) {  // s_x of each tile the block touches
-    const int t = t_first + i;
+  if (threadIdx.x < 32) {
     const int lo = max(0, t * tile - halo) / 8;
     const int hi = min(T_pad, t * tile + tile + halo) / 8;
     float m = 0.f;
-    for (int g = lo + lane; g < hi; g += 32) m = fmaxf(m, gmax[(size_t)b * G + g]);
-    m = fk::warp_max(m);
-    if (lane == 0) {
-      t_scale[i] = fmaxf(m, 1e-12f);
-      t_max[0][i] = t_max[1][i] = 0;
+    for (int g = lo + threadIdx.x; g < hi; g += 32) m = fmaxf(m, gmax[(size_t)b * G + g]);
+    m = fmaxf(fk::warp_max(m), 1e-12f);
+    if (threadIdx.x == 0) {
+      s_scale = m;
+      if (blockIdx.x == 0) sx[(size_t)b * n_tiles + t] = m;
     }
   }
   __syncthreads();
-  for (int r = tid; r < TBM; r += fk::kThreads) {
-    const float sc = t_scale[min(r0 + r, T_pad - 1) / tile - t_first];
-    row_s[r] = sc;
-    row_inv[r] = __fdiv_rn(127.f, sc);
-  }
-  // (q_gemm_pass synchronises before its first staging)
-
-  int acc[TBM / 16][4][4];
-  for (int k = 0; k < 2; ++k) {
-    const int d = k == 0 ? d1 : d2;
-    const int8_t* qkt = k == 0 ? qk1t : qk2t;
-    const float* sk = k == 0 ? sk1 : sk2;
-    const float* bk = k == 0 ? b1 : b2;
-    float* ck = c_out + (size_t)k * B * T_pad * C;
-    const bool skip = r0 >= lim + d;  // every tap of every row reads past the video
-    // A[r][tap * C + c] = q(x[r0 + r + (tap - 1) d][c]); rows outside [0, len) read 0
-    auto stage = [&](int8_t (*as)[fk::kQLD], int k0) {
-      const int r = tid >> 2;
-      const int kk = (tid & 3) * 16;
-      const int kx = k0 + kk;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (kx < 3 * C) {
-        const int tap = kx / C;
-        const int cc = kx - tap * C;
-        const int src = r0 + r + (tap - 1) * d;
-        if (src >= 0 && src < lim) v = fk::quant16(x + ((size_t)b * T + src) * C + cc, row_inv[r]);
-      }
-      *reinterpret_cast<int4*>(&as[r][kk]) = v;
-    };
-    float rmax[TBM / 16][2];
-#pragma unroll
-    for (int mt = 0; mt < TBM / 16; ++mt) rmax[mt][0] = rmax[mt][1] = 0.f;
-    for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-      if (skip) {
-#pragma unroll
-        for (int mt = 0; mt < TBM / 16; ++mt)
-#pragma unroll
-          for (int nt2 = 0; nt2 < 4; ++nt2)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][nt2][i] = 0;
-      } else {
-        fk::q_gemm_pass<TBM>(acc, stage, qkt, 3 * C, n0, C, s);
-      }
-#pragma unroll
-      for (int mt = 0; mt < TBM / 16; ++mt)
-#pragma unroll
-        for (int nt2 = 0; nt2 < 4; ++nt2)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = fk::q_row(mt, i);
-            const int c = n0 + fk::q_col(nt2, i);
-            const int row = r0 + r;
-            if (c >= C || row >= T_pad) continue;
-            const float v = __fmaf_rn(__int2float_rn(acc[mt][nt2][i]),
-                                      __fmul_rn(row_s[r], __ldg(sk + c)), __ldg(bk + c));
-            ck[((size_t)b * T_pad + row) * C + c] = v;
-            rmax[mt][i >> 1] = fmaxf(rmax[mt][i >> 1], fabsf(v));
-          }
-    }
-#pragma unroll
-    for (int mt = 0; mt < TBM / 16; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + fk::q_row(mt, 2 * h);
-        if (row < T_pad) atomicMax(&t_max[k][row / tile - t_first], __float_as_int(rmax[mt][h]));
-      }
-  }
-  __syncthreads();
-  if (tid < 2 * nt) {
-    const int k = tid / nt;
-    const int i = tid - k * nt;
-    if (t_max[k][i] > 0) atomicMax(smax + ((size_t)k * B + b) * n_tiles + t_first + i, t_max[k][i]);
+  const float inv = __fdiv_rn(127.f, s_scale);
+  const int chunks = Cw / 16;
+  const int w0 = blockIdx.x * kWinRows;
+  int8_t* dst = qwin + ((size_t)b * n_tiles + t) * wrows * Cw;
+  for (int i = threadIdx.x; i < kWinRows * chunks; i += fk::kThreads) {
+    const int wr = w0 + i / chunks;
+    const int cc = (i - (i / chunks) * chunks) * 16;
+    if (wr >= wrows) break;
+    const int row = t * tile - halo + wr;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (row >= 0 && row < lim) v = quant_chunk(x + ((size_t)b * T + row) * C, cc, C, inv);
+    *reinterpret_cast<int4*>(dst + (size_t)wr * Cw + cc) = v;
   }
 }
 
-// Pass B: out = (relu(fuse(q(c1), q(c2)) + bf) + x) * mask on rows [r0, r0 +
-// 64) of video b, and the output's 8-row group maxima.
-__global__ void __launch_bounds__(fk::kThreads)
-q8_tower2_b_kernel(const float* __restrict__ x, const int* __restrict__ len,
-                   const float* __restrict__ c_in, const int* __restrict__ smax,
-                   const int8_t* __restrict__ qwtt, const float* __restrict__ swt,
-                   const int8_t* __restrict__ qwbt, const float* __restrict__ swb,
-                   const float* __restrict__ bf, float* y, float* gmax_out, int B, int T, int C,
-                   int tile, int n_tiles, int T_pad) {
+struct ConvArgs {
+  CUtensorMap amap;  // the window buffer (Cw, wrows, B * n_tiles)
+  CUtensorMap bmap;  // the conv weights (Kc, C, 2): row n of conv z, tap k at k * kseg
+  const int* len;
+  const float* sx;  // (B, n_tiles)
+  const float* sk[2];
+  const float* bias[2];
+  float* c;   // (2, B, T_pad, Cq)
+  int* smax;  // (2, B, n_tiles): |c|'s maxima, as int bits
+  int B, C, Cq, kseg, halo, tile, n_tiles, T_pad, jt, ncol;
+  int d[2];
+};
+
+// Pass A, persistent: item (row block, column block, conv z, video b), the
+// row block fastest-but-one so that the items of one row block (both convs,
+// every column block) run side by side and share its window rows in L2.
+// The item's c_z on rows [r0, r0 + 128) of tile t (r0 = t * tile + j * 128),
+// BN columns from n0.
+template <int BN>
+__global__ void __launch_bounds__(tc8::kThreads, 1)
+    q8e_conv_kernel(const __grid_constant__ ConvArgs p) {
   extern __shared__ float4 smem_raw[];
-  fk::QSmem<TBM>& s = *reinterpret_cast<fk::QSmem<TBM>*>(smem_raw);
-  __shared__ float row_s[2][TBM];
-  __shared__ float row_inv[2][TBM];
-  __shared__ int g_max[TBM / 8];
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TBM;
-  const int G = T_pad / 8;
-  const int lim = min(len[b], T);
-  for (int e = tid; e < 2 * TBM; e += fk::kThreads) {
-    const int k = e / TBM;
-    const int r = e - k * TBM;
-    const int t = min(r0 + r, T_pad - 1) / tile;
-    const float sc = fmaxf(__int_as_float(smax[((size_t)k * B + b) * n_tiles + t]), 1e-12f);
-    row_s[k][r] = sc;
-    row_inv[k][r] = __fdiv_rn(127.f, sc);
-  }
-  if (tid < TBM / 8) g_max[tid] = 0;
-  const bool skip = r0 >= lim;  // every row is masked: zeros
-
-  int kc = 0;  // the conv whose output is staged: c1 (0) or c2 (1)
-  auto stage = [&](int8_t (*as)[fk::kQLD], int k0) {
-    const int r = tid >> 2;
-    const int kk = (tid & 3) * 16;
-    const int row = r0 + r;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (row < T_pad && k0 + kk < C)
-      v = fk::quant16(c_in + (((size_t)kc * B + b) * T_pad + row) * C + k0 + kk, row_inv[kc][r]);
-    *reinterpret_cast<int4*>(&as[r][kk]) = v;
+  __shared__ float wmax[8];
+  __shared__ float col_s[BN], col_b[BN];  // s_x * sk and b of the item's columns
+  uint8_t* sm = tc8::align1024(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = p.n_tiles * p.jt;
+  const int items = rows * 2 * p.ncol * p.B;
+  const int kbs = ceil_div(p.kseg, tc8::kKB);
+  // (t, j, n0, z, b, first row, K steps) of item i
+  auto decode = [&](int i, int& t, int& j, int& n0, int& z, int& b, int& r0, int& nk) {
+    const int col = i % (2 * p.ncol);
+    const int rb = i / (2 * p.ncol);
+    b = rb / rows;
+    const int r = rb - b * rows;
+    t = r / p.jt;
+    j = r - t * p.jt;
+    z = col / p.ncol;
+    n0 = (col - z * p.ncol) * BN;
+    r0 = t * p.tile + j * tc8::kBM;
+    // every tap of every row past the video: no product, c = b
+    nk = r0 >= min(p.len[b], p.T_pad) + p.d[z] ? 0 : 3 * kbs;
   };
-
-  int acc[TBM / 16][4][4];
-  float h1[TBM / 16][4][4];
-  float rmax[TBM / 16][2];
-#pragma unroll
-  for (int mt = 0; mt < TBM / 16; ++mt) rmax[mt][0] = rmax[mt][1] = 0.f;
-  for (int n0 = 0; n0 < C; n0 += fk::kBN) {
-    if (!skip) {
-      kc = 0;
-      fk::q_gemm_pass<TBM>(acc, stage, qwtt, C, n0, C, s);
-#pragma unroll
-      for (int mt = 0; mt < TBM / 16; ++mt)
-#pragma unroll
-        for (int nt2 = 0; nt2 < 4; ++nt2)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) h1[mt][nt2][i] = __int2float_rn(acc[mt][nt2][i]);
-      kc = 1;
-      fk::q_gemm_pass<TBM>(acc, stage, qwbt, C, n0, C, s);
-    }
-#pragma unroll
-    for (int mt = 0; mt < TBM / 16; ++mt)
-#pragma unroll
-      for (int nt2 = 0; nt2 < 4; ++nt2)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = fk::q_row(mt, i);
-          const int c = n0 + fk::q_col(nt2, i);
-          const int row = r0 + r;
-          if (c >= C || row >= T) continue;
-          float o = 0.f;
-          if (!skip && row < lim) {
-            const float h2 = __fmul_rn(__int2float_rn(acc[mt][nt2][i]),
-                                       __fmul_rn(row_s[1][r], __ldg(swb + c)));
-            const float h = __fmaf_rn(h1[mt][nt2][i], __fmul_rn(row_s[0][r], __ldg(swt + c)), h2);
-            const float v = __fadd_rn(h, __ldg(bf + c));
-            o = __fadd_rn(v > 0.f ? v : 0.f, __ldg(x + ((size_t)b * T + row) * C + c));
-          }
-          y[((size_t)b * T + row) * C + c] = o;
-          rmax[mt][i >> 1] = fmaxf(rmax[mt][i >> 1], fabsf(o));
-        }
+  uint64_t* full = tc8::ring_init<BN>(sm);
+  __syncthreads();
+  int g = 0;
+  if (warp < 4) {
+    tc::setmaxnreg_dec<40>();
+    if (tid == 0)
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        int t, j, n0, z, b, r0, nk;
+        decode(i, t, j, n0, z, b, r0, nk);
+        const int wrow = p.halo + j * tc8::kBM;  // the item's first row in its tile's window
+        const int d = p.d[z];
+        tc8::produce<BN>(sm, full, g, nk, [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
+          const int tap = kc / kbs, kb = (kc - tap * kbs) * tc8::kKB;
+          tc::tma_load_3d(a, &p.amap, bar, kb, wrow + (tap - 1) * d, b * p.n_tiles + t);
+          tc::tma_load_3d(w, &p.bmap, bar, tap * p.kseg + kb, n0, z);
+        });
+      }
+    return;
   }
+  tc::setmaxnreg_inc<232>();
+  const int wg = (warp >> 2) - 1;
+  const int ct = tid - 128;  // consumer thread
+  // epilogue: register 4jj + 2h + e holds row rw + 8h, column n0 + 8jj + cq + e
+  const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int acc[1][BN / 2];
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int t, j, n0, z, b, r0, nk;
+    decode(i, t, j, n0, z, b, r0, nk);
 #pragma unroll
-  for (int mt = 0; mt < TBM / 16; ++mt)
+    for (int k = 0; k < BN / 2; ++k) acc[0][k] = 0;
+    tc8::consume<BN, 1>(acc, sm, full, g, nk, wg, [&](int kc) {
+      const int kb = (kc % kbs) * tc8::kKB;
+      return min(4, (p.kseg - kb) / 32);
+    });
+    const float s_x = p.sx[(size_t)b * p.n_tiles + t];
+    for (int c = ct; c < BN; c += 256) {
+      const int n = n0 + c;
+      col_s[c] = n < p.C ? __fmul_rn(s_x, __ldg(p.sk[z] + n)) : 0.f;
+      col_b[c] = n < p.C ? __ldg(p.bias[z] + n) : 0.f;
+    }
+    tc::bar_sync(1, 256);
+    float* cz = p.c + ((size_t)z * p.B + b) * p.T_pad * p.Cq;
+    float m = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int cl = 8 * jj + cq;  // the column within the item
+      const int n = n0 + cl;
+      if (n >= p.C) continue;
+      const bool n1 = n + 1 < p.C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = j * tc8::kBM + rw + 8 * h;  // row within the tile
+        if (rt >= p.tile) continue;
+        const float v0 = __fmaf_rn(__int2float_rn(acc[0][4 * jj + 2 * h]), col_s[cl], col_b[cl]);
+        const float v1 =
+            __fmaf_rn(__int2float_rn(acc[0][4 * jj + 2 * h + 1]), col_s[cl + 1], col_b[cl + 1]);
+        // Cq is a multiple of 16 above C: column n + 1 lies in the row
+        *reinterpret_cast<float2*>(cz + (size_t)(t * p.tile + rt) * p.Cq + n) =
+            make_float2(v0, v1);
+        m = fmaxf(m, fabsf(v0));
+        if (n1) m = fmaxf(m, fabsf(v1));
+      }
+    }
+    m = fk::warp_max(m);
+    if (lane == 0) wmax[warp - 4] = m;
+    tc::bar_sync(1, 256);
+    if (ct == 0) {
+      float mm = 0.f;
+      for (int w = 0; w < 8; ++w) mm = fmaxf(mm, wmax[w]);
+      if (mm > 0.f) atomicMax(p.smax + ((size_t)z * p.B + b) * p.n_tiles + t, __float_as_int(mm));
+    }
+    tc::bar_sync(1, 256);  // wmax, col_s and col_b are free for the next item
+  }
+}
+
+// Pass Q: rows [32 x, 32 x + 32) of c_z of video b quantized with their
+// tile's s_z into qc; channels at or past C are 0
+__global__ void __launch_bounds__(fk::kThreads)
+q8e_quant_c_kernel(const float* __restrict__ c, const int* __restrict__ smax,
+                   int8_t* __restrict__ qc, int B, int C, int Cq, int tile, int n_tiles,
+                   int T_pad) {
+  __shared__ float inv_row[kQRows];
+  const int z = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * kQRows;
+  const size_t plane = ((size_t)z * B + b) * T_pad;
+  if (threadIdx.x < kQRows && r0 + (int)threadIdx.x < T_pad) {
+    const int t = (r0 + threadIdx.x) / tile;
+    const float s = fmaxf(__int_as_float(smax[((size_t)z * B + b) * n_tiles + t]), 1e-12f);
+    inv_row[threadIdx.x] = __fdiv_rn(127.f, s);
+  }
+  __syncthreads();
+  const int chunks = Cq / 16;
+  for (int i = threadIdx.x; i < kQRows * chunks; i += fk::kThreads) {
+    const int r = i / chunks;
+    const int cc = (i - r * chunks) * 16;
+    if (r0 + r >= T_pad) break;
+    const size_t row = plane + r0 + r;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (cc < C) {
+      const float inv = inv_row[r];
+      const float* src = c + row * Cq + cc;
+      int q[16];
+#pragma unroll
+      for (int k = 0; k < 16; k += 4) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(src + k));
+        q[k] = cc + k < C ? fk::quant_s8(f.x, inv) : 0;
+        q[k + 1] = cc + k + 1 < C ? fk::quant_s8(f.y, inv) : 0;
+        q[k + 2] = cc + k + 2 < C ? fk::quant_s8(f.z, inv) : 0;
+        q[k + 3] = cc + k + 3 < C ? fk::quant_s8(f.w, inv) : 0;
+      }
+      v = make_int4(fk::pack_s8(q[0], q[1], q[2], q[3]), fk::pack_s8(q[4], q[5], q[6], q[7]),
+                    fk::pack_s8(q[8], q[9], q[10], q[11]), fk::pack_s8(q[12], q[13], q[14], q[15]));
+    }
+    *reinterpret_cast<int4*>(qc + row * Cq + cc) = v;
+  }
+}
+
+struct FuseArgs {
+  CUtensorMap amap;  // qc (Cq, T_pad, 2 B)
+  CUtensorMap bmap;  // the fuse halves (Kf, C, 2): row n of Wt (0) or Wb (1)
+  const int* len;
+  const float* x;
+  const int* smax;  // (2, B, n_tiles)
+  const float* swt;
+  const float* swb;
+  const float* bf;
+  float* y;
+  float* gmax;  // (B, T_pad / 8), zeros: each 8-row group's max |out|
+  int B, T, C, kseg, tile, n_tiles, T_pad, jt;
+};
+
+// Pass F, persistent: item (row block, column block, video b), out on rows
+// [r0, r0 + 128) of tile t, 128 columns from n0
+__global__ void __launch_bounds__(tc8::kThreads, 1)
+    q8e_fuse_kernel(const __grid_constant__ FuseArgs p) {
+  constexpr int BN = kFuseBN;
+  constexpr int JB = 8;  // column groups whose residual loads go out together
+  extern __shared__ float4 smem_raw[];
+  // s1 * swt, s2 * swb and bf of the item's columns
+  __shared__ float col_t[BN], col_w[BN], col_f[BN];
+  uint8_t* sm = tc8::align1024(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = p.n_tiles * p.jt;
+  const int ncol = ceil_div(p.C, BN);
+  const int items = rows * ncol * p.B;
+  const int kbs = ceil_div(p.kseg, tc8::kKB);
+  auto decode = [&](int i, int& t, int& j, int& n0, int& b, int& r0, int& lim, int& nk) {
+    const int rb = i / ncol;
+    n0 = (i - rb * ncol) * BN;
+    b = rb / rows;
+    const int r = rb - b * rows;
+    t = r / p.jt;
+    j = r - t * p.jt;
+    r0 = t * p.tile + j * tc8::kBM;
+    lim = min(p.len[b], p.T);
+    nk = r0 >= lim ? 0 : 2 * kbs;  // every row masked: zeros, no product
+  };
+  uint64_t* full = tc8::ring_init<BN>(sm);
+  __syncthreads();
+  int g = 0;
+  if (warp < 4) {
+    tc::setmaxnreg_dec<40>();
+    if (tid == 0)
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        int t, j, n0, b, r0, lim, nk;
+        decode(i, t, j, n0, b, r0, lim, nk);
+        tc8::produce<BN>(sm, full, g, nk, [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
+          const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+          tc::tma_load_3d(a, &p.amap, bar, kb, r0, half * p.B + b);
+          tc::tma_load_3d(w, &p.bmap, bar, kb, n0, half);
+        });
+      }
+    return;
+  }
+  tc::setmaxnreg_inc<232>();
+  const int wg = (warp >> 2) - 1;
+  const int ct = tid - 128;
+  const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const bool pair = (p.C & 1) == 0;  // float2 access to x and y
+  int acc[2][BN / 2];
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int t, j, n0, b, r0, lim, nk;
+    decode(i, t, j, n0, b, r0, lim, nk);
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k) acc[0][k] = acc[1][k] = 0;
+    tc8::consume<BN, 2>(acc, sm, full, g, nk, wg, [&](int kc) {
+      const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+      return half * 8 + min(4, (p.kseg - kb) / 32);
+    });
+    if (ct < BN) {
+      const float s1 = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
+      const float s2 = fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
+      const int n = n0 + ct;
+      col_t[ct] = n < p.C ? __fmul_rn(s1, __ldg(p.swt + n)) : 0.f;
+      col_w[ct] = n < p.C ? __fmul_rn(s2, __ldg(p.swb + n)) : 0.f;
+      col_f[ct] = n < p.C ? __ldg(p.bf + n) : 0.f;
+    }
+    tc::bar_sync(1, 256);
+    float gm[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; jb += JB) {
+      // the residual of JB column groups and both rows, loaded ahead of their use
+      float2 xv[JB][2];
+#pragma unroll
+      for (int u = 0; u < JB; ++u) {
+        const int n = n0 + 8 * (jb + u) + cq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rt = j * tc8::kBM + rw + 8 * h;
+          const int row = t * p.tile + rt;
+          xv[u][h] = make_float2(0.f, 0.f);
+          if (n < p.C && rt < p.tile && row < lim) {
+            const float* xp = p.x + ((size_t)b * p.T + row) * p.C + n;
+            if (pair)
+              xv[u][h] = __ldg(reinterpret_cast<const float2*>(xp));
+            else
+              xv[u][h] = make_float2(__ldg(xp), n + 1 < p.C ? __ldg(xp + 1) : 0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < JB; ++u) {
+        const int jj = jb + u;
+        const int cl = 8 * jj + cq;
+        const int n = n0 + cl;
+        if (n >= p.C) continue;
+        const bool n1 = n + 1 < p.C;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rt = j * tc8::kBM + rw + 8 * h;
+          const int row = t * p.tile + rt;
+          if (rt >= p.tile || row >= p.T) continue;
+          float o0 = 0.f, o1 = 0.f;
+          if (row < lim) {
+            const int k = 4 * jj + 2 * h;
+            // h = fma(h1, s1 * swt, h2 * (s2 * swb)); out = relu(h + bf) + x
+            const float v0 = __fadd_rn(
+                __fmaf_rn(__int2float_rn(acc[0][k]), col_t[cl],
+                          __fmul_rn(__int2float_rn(acc[1][k]), col_w[cl])),
+                col_f[cl]);
+            const float v1 = __fadd_rn(
+                __fmaf_rn(__int2float_rn(acc[0][k + 1]), col_t[cl + 1],
+                          __fmul_rn(__int2float_rn(acc[1][k + 1]), col_w[cl + 1])),
+                col_f[cl + 1]);
+            o0 = __fadd_rn(v0 > 0.f ? v0 : 0.f, xv[u][h].x);
+            o1 = __fadd_rn(v1 > 0.f ? v1 : 0.f, xv[u][h].y);
+          }
+          float* yp = p.y + ((size_t)b * p.T + row) * p.C + n;
+          if (pair) {
+            *reinterpret_cast<float2*>(yp) = make_float2(o0, o1);
+          } else {
+            yp[0] = o0;
+            if (n1) yp[1] = o1;
+          }
+          gm[h] = fmaxf(gm[h], fabsf(o0));
+          if (n1) gm[h] = fmaxf(gm[h], fabsf(o1));
+        }
+      }
+    }
+    // a warp's rows of one h are one 8-row group (the tile and 128 are
+    // multiples of 8); the groups' maxima over the columns of every item
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = fk::q_row(mt, 2 * h);
-      if (r0 + r < T_pad) atomicMax(&g_max[r >> 3], __float_as_int(rmax[mt][h]));
+      const float m = fk::warp_max(gm[h]);
+      const int rt = j * tc8::kBM + wg * 64 + (warp & 3) * 16 + 8 * h;
+      const int row = t * p.tile + rt;
+      if (lane == 0 && m > 0.f && rt < p.tile && row < p.T)
+        atomicMax(reinterpret_cast<int*>(p.gmax) + (size_t)b * (p.T_pad / 8) + row / 8,
+                  __float_as_int(m));
     }
-  __syncthreads();
-  if (tid < TBM / 8 && r0 / 8 + tid < G)
-    gmax_out[(size_t)b * G + r0 / 8 + tid] = __int_as_float(g_max[tid]);
+    tc::bar_sync(1, 256);  // col_t, col_w and col_f are free for the next item
+  }
+}
+
+template <class Kernel, class Args>
+cudaError_t launch_tc8(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a) {
+  const cudaError_t err = fk::set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, tc8::kThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// One int8 MS-TCN++ layer: pass A then pass B.  c (2, B, T_pad, C) f32
-// scratch; smax (2, B, n_tiles) int32 zeros; gmax_in the layer input's 8-row
-// group maxima (fk_q8_group_max for layer 0, the previous layer's pass B
-// after it).
+// One int8 MS-TCN++ layer: passes W, A, Q, F.  Buffers (the wrapper's, see
+// ops/quant_conv.py::mstcn2_stack_q8): qwin (B, n_tiles, tile + 2 halo, Cw)
+// int8, sx (B, n_tiles) f32, c (2, B, T_pad, Cw) f32, qc (2, B, T_pad, Cw)
+// int8, smax (2, B, n_tiles) int32 zeros, gmax_out (B, T_pad / 8) zeros;
+// gmax_in the layer input's 8-row group maxima (fk_q8_group_max for layer
+// 0, the previous layer's pass F after it).  kpack (2, C, Kc) int8: conv z's
+// out channel n, tap k's inputs from column k * kseg (zeros past C); fpack
+// (2, C, Kf) int8: Wt's (0) and Wb's (1) out channel n (zeros past C).
 extern "C" int fk_q8_tower2_layer(const float* x, const int* len, const float* gmax_in,
-                                  const int8_t* qk1t, const float* sk1, const float* b1,
-                                  const int8_t* qk2t, const float* sk2, const float* b2, float* c,
-                                  int* smax, const int8_t* qwtt, const float* swt,
-                                  const int8_t* qwbt, const float* swb, const float* bf, float* y,
-                                  float* gmax_out, int B, int T, int C, int d1, int d2, int halo,
-                                  int tile, int n_tiles, int T_pad, void* stream) {
-  if (C % 32 != 0 || tile < 8 || tile % 8 != 0 || T_pad % tile != 0 || halo % 8 != 0)
+                                  const int8_t* kpack, int Kc, const float* sk1, const float* b1,
+                                  const float* sk2, const float* b2, const int8_t* fpack, int Kf,
+                                  const float* swt, const float* swb, const float* bf,
+                                  int8_t* qwin, float* sx, float* c, int8_t* qc, int* smax,
+                                  float* y, float* gmax_out, int B, int T, int C, int Cw, int d1,
+                                  int d2, int halo, int tile, int n_tiles, int T_pad,
+                                  void* stream) {
+  const int kseg = (C + 31) / 32 * 32;
+  if (tile < 8 || tile % 8 != 0 || T_pad % tile != 0 || halo % 8 != 0 || halo < max(d1, d2) ||
+      Cw % 16 != 0 || Cw < C || Cw < tc8::kKB || Kc < 3 * kseg || Kc % 16 != 0 ||
+      Kc < tc8::kKB || Kf < kseg || Kf % 16 != 0 || Kf < tc8::kKB)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T_pad + TBM - 1) / TBM, B);
-  const size_t smem = sizeof(fk::QSmem<TBM>);
-  cudaError_t err = fk::set_smem((const void*)q8_tower2_a_kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int wrows = tile + 2 * halo;
+  const int jt = ceil_div(tile, tc8::kBM);  // blocks of 128 rows in a tile
+  cudaError_t err;
+
+  q8e_window_kernel<<<dim3(ceil_div(wrows, kWinRows), n_tiles, B), fk::kThreads, 0, st>>>(
+      x, len, gmax_in, qwin, sx, T, C, Cw, halo, tile, n_tiles, T_pad, wrows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  ConvArgs a;
+  memset(&a, 0, sizeof(a));
+  // 256 columns a block where that still gives the card a full wave
+  const bool wide = C > 128 && n_tiles * jt * B * 2 * ceil_div(C, 256) >= 132;
+  const int bn = wide ? 256 : 128;
+  if (!tc8::encode_3d_s8(&a.amap, qwin, Cw, wrows, (long long)B * n_tiles, tc8::kBM) ||
+      !tc8::encode_3d_s8(&a.bmap, kpack, Kc, C, 2, bn))
+    return (int)cudaErrorInvalidValue;
+  a.len = len;
+  a.sx = sx;
+  a.sk[0] = sk1;
+  a.sk[1] = sk2;
+  a.bias[0] = b1;
+  a.bias[1] = b2;
+  a.c = c;
+  a.smax = smax;
+  a.B = B;
+  a.C = C;
+  a.Cq = Cw;
+  a.kseg = kseg;
+  a.halo = halo;
+  a.tile = tile;
+  a.n_tiles = n_tiles;
+  a.T_pad = T_pad;
+  a.jt = jt;
+  a.ncol = ceil_div(C, bn);
+  a.d[0] = d1;
+  a.d[1] = d2;
+  const dim3 agrid(tc8::persistent_blocks(n_tiles * jt * 2 * a.ncol * B));
+  err = wide ? launch_tc8(q8e_conv_kernel<256>, agrid, tc8::Ring<256>::kBytes, st, a)
+             : launch_tc8(q8e_conv_kernel<128>, agrid, tc8::Ring<128>::kBytes, st, a);
   if (err != cudaSuccess) return (int)err;
-  q8_tower2_a_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, len, gmax_in, qk1t, sk1, b1, qk2t, sk2, b2, c, smax, B, T, C, d1, d2, halo, tile,
-      n_tiles, T_pad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = fk::set_smem((const void*)q8_tower2_b_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  q8_tower2_b_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, len, c, smax, qwtt, swt, qwbt, swb, bf, y, gmax_out, B, T, C, tile, n_tiles, T_pad);
-  return (int)cudaGetLastError();
+
+  q8e_quant_c_kernel<<<dim3(ceil_div(T_pad, kQRows), 2, B), fk::kThreads, 0, st>>>(
+      c, smax, qc, B, C, Cw, tile, n_tiles, T_pad);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  FuseArgs f;
+  memset(&f, 0, sizeof(f));
+  if (!tc8::encode_3d_s8(&f.amap, qc, Cw, T_pad, 2LL * B, tc8::kBM) ||
+      !tc8::encode_3d_s8(&f.bmap, fpack, Kf, C, 2, kFuseBN))
+    return (int)cudaErrorInvalidValue;
+  f.len = len;
+  f.x = x;
+  f.smax = smax;
+  f.swt = swt;
+  f.swb = swb;
+  f.bf = bf;
+  f.y = y;
+  f.gmax = gmax_out;
+  f.B = B;
+  f.T = T;
+  f.C = C;
+  f.kseg = kseg;
+  f.tile = tile;
+  f.n_tiles = n_tiles;
+  f.T_pad = T_pad;
+  f.jt = jt;
+  const dim3 fgrid(tc8::persistent_blocks(n_tiles * jt * ceil_div(C, kFuseBN) * B));
+  return (int)launch_tc8(q8e_fuse_kernel, fgrid, tc8::Ring<kFuseBN>::kBytes, st, f);
 }

@@ -51,16 +51,24 @@
 //        dWv = x^T dv, dWo = c^T dout with grad.cu's fk_atb and sums those
 //        partials, the bias columns, the per-tile LN sums and d(pos) =
 //        sum_b dxa[b] with fk_reduce, in a fixed order.
-//   FFN: one block per video.  dt2 = dres * keep_2; dh = (dt2 W2^T) *
-//        keep_1; dz1 = dh * (z1 > 0); dx = dres + dz1 W1^T.  It writes dx,
-//        the panels dz1, h * keep_1 and dt2, and the LN column sums; dW1 =
-//        x^T dz1 and dW2 = (h * keep_1)^T dt2 stay matrix products outside,
-//        as in the JAX wrapper.
+//   FFN: dt2 = dres * keep_2; dh = (dt2 W2^T) * keep_1; dz1 = dh * (z1 >
+//        0); dx = dres + dz1 W1^T.  One block per video ran one SM at
+//        epic's batch of one (1.46 ms at M=300), so the backward's four
+//        products go over (32-row tile, 256-column chunk, K slice of 128)
+//        blocks of the batch's B * M token rows, and the step after each
+//        adds its slices: z1 and h * keep_1, and dz1, as the next product
+//        stages its A operand; res, the LayerNorm backward and dt2 on whole
+//        E rows per 16-row tile; dx and the tiles' LayerNorm sums (40 blocks a
+//        product at B=1, M=300, E=256, F=512), behind one transpose launch
+//        for W1^T and W2^T: one library call of six launches, no host-side
+//        copies.  It writes dx, the panels dz1, h *
+//        keep_1 and dt2, and dgamma, dbeta; dW1 = x^T dz1 and dW2 = (h *
+//        keep_1)^T dt2 and the bias sums stay outside, as in the JAX wrapper.
 //
 // Bound on the H100: latency.  A forward is 2*M*E*(4E) FLOPs per video (21
 // MFLOP at M=40, E=256; the backward about three times that).  The FFN
-// forward and backward run one SM per video: at B=8 only 8 of the 132 SMs
-// have work.  The SA forward and backward at epic's B=1, M=300, H=8 give
+// forward runs one SM per video: at B=8 only 8 of the 132 SMs have work.
+// The SA forward and backward at epic's B=1, M=300, H=8 give
 // each attention kernel 80 blocks and each row kernel 10 (forward) or 5
 // (backward); the backward's 0.75 GFLOP is 0.011 ms at 67 TFLOP/s; it
 // recomputes p twice more and its key-tile kernel reduces each score over
@@ -74,14 +82,15 @@ namespace {
 constexpr int BM = 64;        // token rows per GEMM pass
 constexpr int kFwdRows = 32;  // token rows of the SA forward's projection and out-projection blocks
 
-// rows [r0, r0 + TBM) of A @ W (W: K x N, row-major); epi(r, c, acc) takes
-// each finished value of a row r < M
+// rows [r0, r0 + TBM) of A @ W (W: K x N, row-major), the columns from n_lo
+// up to n_hi; epi(r, c, acc) takes each finished value of a row r < M
 template <int TBM = BM, class LoadA, class Epi>
 __device__ __forceinline__ void rows_gemm(LoadA load_a, const float* __restrict__ W, int K, int N,
-                                          int r0, int M, Epi epi, fk::GemmSmem<TBM>& s) {
+                                          int r0, int M, Epi epi, fk::GemmSmem<TBM>& s,
+                                          int n_lo = 0, int n_hi = 1 << 30) {
   constexpr int RM = TBM / 8;
   float acc[RM][8];
-  for (int n0 = 0; n0 < N; n0 += fk::kBN) {
+  for (int n0 = n_lo; n0 < min(N, n_hi); n0 += fk::kBN) {
     fk::gemm_pass<TBM>(acc, load_a, W, N, K, n0, N, s);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
@@ -227,74 +236,253 @@ ffn_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   fk::layer_norm_rows(yb, M, M, E, gamma, beta, eps);
 }
 
+// The FFN backward over (32-row tile, 256-column chunk, K slice of 128)
+// blocks of the batch's B * M token rows (every step works row by row: the
+// rows of all the videos are one row space, the dropout masks' indices
+// too), in the order of the one-block-per-video kernel it replaces (which
+// ran one SM at epic's batch of one).  Every product is the f32 FMA core's,
+// in K slices of 128 to blocks of their own, each writing its partial
+// product; the next step adds the partials in slice order: a 16-deep chunk
+// of the core costs about a microsecond of latency whatever its work, so a
+// 256- or 512-deep product in one block was the longest link of the chain.
+// The LayerNorm column sums go per row tile (fixed-order partials, added in
+// tile order by ffn_finish_kernel).  z1 lives in dz1 until step 3
+// overwrites it.
+constexpr int kFfnRows = 32;
+constexpr int kFfnSlice = 128;  // K of one partial product
+
+// sum of the partials of element e in slice order (slice stride n)
+__device__ __forceinline__ float slice_sum(const float* __restrict__ part, size_t n, int slices,
+                                           size_t e) {
+  float v = __ldg(part + e);
+#pragma unroll 4
+  for (int k = 1; k < slices; ++k) v += __ldg(part + k * n + e);  // loads issued 4 at a time
+  return v;
+}
+
+// Where a K-slice product's A operand comes from: a panel (x, dt2); or the
+// step that follows the product before it, done as the elements are
+// staged: hk = relu(z1) * keep_1 with z1 = (x W1's slices) + b1, or dz1 =
+// (dt2 W2^T's slices) * keep_1 * (z1 > 0).  The blocks of the first column
+// chunk also write what they stage (z1 and hk, or dz1): every other block
+// recomputes the same values, so no step waits for another.
+enum FfnA { kPanel = 0, kHidden = 1, kDz1 = 2 };
+
+struct FfnSlice {
+  const float* A;     // kPanel: the panel (R x K)
+  const float* pa;    // kHidden, kDz1: the previous product's slices (n_pa, R, K)
+  int n_pa;
+  const float* bias;  // kHidden: b1
+  const float* keep;  // keep_1 or null
+  float* z1;          // kHidden: written; kDz1: read
+  float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk)
+};
+
+// per (32-row tile, K slice, 256 columns of N): the slice's partial product
+// A[:, slice] W[slice, :] (A: R x K, W: K x N) into part[slice] (R x N)
+template <int AM>
 __global__ void __launch_bounds__(fk::kThreads)
-ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ gamma,
-               const float* __restrict__ w1t, const float* __restrict__ w2t,
-               const float* __restrict__ keep_1, const float* __restrict__ keep_2,
-               const float* __restrict__ g, float* __restrict__ scratch, float* __restrict__ dz1,
-               float* __restrict__ hk, float* __restrict__ dt2, float* __restrict__ dx,
-               float* __restrict__ part, int M, int E, int F, float eps) {
+ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restrict__ part,
+                     int R, int K, int N) {
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* mean = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
-  float* rstd = mean + M;
-  const int b = blockIdx.x;
-  const size_t ME = (size_t)M * E;
-  const size_t MF = (size_t)M * F;
-  const float* xb = x + b * ME;
-  float* rb = scratch + b * ME;  // res, then dres
-  float* zb = dz1 + b * MF;      // z1, then dz1
-  float* hkb = hk + b * MF;
-  float* dt2b = dt2 + b * ME;
-  const float* k1 = keep_1 ? keep_1 + b * MF : nullptr;
-  const float* k2 = keep_2 ? keep_2 + b * ME : nullptr;
+  fk::GemmSmem<kFfnRows>& s = *reinterpret_cast<fk::GemmSmem<kFfnRows>*>(smem_raw);
+  const int r0 = blockIdx.x * kFfnRows, k0 = blockIdx.y * kFfnSlice, n0 = blockIdx.z * fk::kBN;
+  const int ks = min(kFfnSlice, K - k0);
+  const bool write = blockIdx.z == 0;
+  const size_t RK = (size_t)R * K;
+  float* out = part + (size_t)blockIdx.y * R * N;
+  rows_gemm<kFfnRows>(
+      [&](int r, int k) {
+        const int row = r0 + r;
+        if (row >= R) return 0.f;
+        const size_t e = (size_t)row * K + k0 + k;
+        if (AM == kPanel) return a.A[e];
+        if (AM == kHidden) {  // z1 = x W1 + b1; hk = relu(z1) * keep_1
+          const float v = slice_sum(a.pa, RK, a.n_pa, e) + __ldg(a.bias + k0 + k);
+          const float h = a.keep != nullptr ? fmaxf(v, 0.f) * __ldg(a.keep + e) : fmaxf(v, 0.f);
+          if (write) {
+            a.z1[e] = v;
+            a.out[e] = h;
+          }
+          return h;
+        }
+        // dz1 = (dt2 W2^T) * keep_1 * (z1 > 0)
+        float v = slice_sum(a.pa, RK, a.n_pa, e);
+        if (a.keep != nullptr) v *= __ldg(a.keep + e);
+        const float d = __ldg(a.z1 + e) > 0.f ? v : 0.f;
+        if (write) a.out[e] = d;
+        return d;
+      },
+      W + (size_t)k0 * N, ks, N, r0, R,
+      [&](int r, int c, float v) { out[(size_t)r * N + c] = v; }, s, n0, n0 + fk::kBN);
+}
 
-  // 1. the forward again: z1, h * keep_1, res = x + drop_2(t2)
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{xb, nullptr, 0, r0, M, E}, w1, E, F, r0, M,
-              [&](int r, int c, float v) {
-                const size_t e = (size_t)r * F + c;
-                v += __ldg(b1 + c);
-                zb[e] = v;
-                const float h = fmaxf(v, 0.f);
-                hkb[e] = k1 != nullptr ? h * __ldg(k1 + e) : h;
-              }, s);
-  __syncthreads();
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{hkb, nullptr, 0, r0, M, F}, w2, F, E, r0, M,
-              [&](int r, int c, float v) {
-                const size_t e = (size_t)r * E + c;
-                v += __ldg(b2 + c);
-                if (k2 != nullptr) v *= __ldg(k2 + e);
-                rb[e] = v + __ldg(xb + e);
-              }, s);
-  __syncthreads();
+// 2'. per 16-row tile, whole E rows: res = x + drop_2((hk W2's slices) +
+//    b2), its LayerNorm statistics and backward (dres into res; dgamma and
+//    dbeta of the tile into part[tile]) and dt2 = dres * keep_2.  The tile's
+//    res and g rows are staged in shared memory, four columns a thread at a
+//    time with every load of them issued before any is used, and the
+//    LayerNorm runs there: the same sums as ln_stats and ln_backward, whose
+//    row-serial global loads took ~30 us a tile.
+constexpr int kLnRows = 16;
+constexpr int kMaxSlices = 16;  // F up to 2048 in the four-column staging
 
-  // 2. the LN backward; dt2 = dres * keep_2
-  ln_stats(rb, M, E, eps, mean, rstd);
-  __syncthreads();
-  ln_backward(rb, g + b * ME, gamma, mean, rstd, M, E, part + (size_t)b * 2 * E, k2, dt2b);
-  __syncthreads();
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
-  // 3. dz1 = (dt2 W2^T) * keep_1 * (z1 > 0), over z1 in place (one thread per element)
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{dt2b, nullptr, 0, r0, M, E}, w2t, E, F, r0, M,
-              [&](int r, int c, float v) {
-                const size_t e = (size_t)r * F + c;
-                if (k1 != nullptr) v *= __ldg(k1 + e);
-                zb[e] = zb[e] > 0.f ? v : 0.f;
-              }, s);
+__global__ void __launch_bounds__(fk::kThreads)
+ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
+                  const float* __restrict__ b2, const float* __restrict__ gamma,
+                  const float* __restrict__ keep_2, const float* __restrict__ g,
+                  float* __restrict__ res, float* __restrict__ dt2, float* __restrict__ part,
+                  int R, int E, int slices, float eps) {
+  extern __shared__ float4 smem_raw[];
+  float* rs = reinterpret_cast<float*>(smem_raw);  // [rows][E]: res, then dres
+  float* gs = rs + kLnRows * E;                    // [rows][E]: g
+  __shared__ float mean[kLnRows], rstd[kLnRows];
+  const int tile = blockIdx.x, r0 = tile * kLnRows;
+  const int rows = min(kLnRows, R - r0);
+  const int n = rows * E;
+  const size_t t0 = (size_t)r0 * E, RE = (size_t)R * E;
+  const bool vec = (E & 3) == 0 && slices <= kMaxSlices;
+  if (vec) {
+    for (int i = threadIdx.x; i < n / 4; i += fk::kThreads) {
+      const size_t e = t0 + 4 * (size_t)i;
+      float4 p[kMaxSlices];
+#pragma unroll
+      for (int k = 0; k < kMaxSlices; ++k)
+        if (k < slices) p[k] = ld4(t2 + k * RE + e);
+      const float4 bb = ld4(b2 + (4 * i) % E), xv = ld4(x + e), gv = ld4(g + e);
+      const float4 kv = keep_2 != nullptr ? ld4(keep_2 + e) : make_float4(1.f, 1.f, 1.f, 1.f);
+      float4 v = p[0];
+#pragma unroll
+      for (int k = 1; k < kMaxSlices; ++k)
+        if (k < slices) {
+          v.x += p[k].x;
+          v.y += p[k].y;
+          v.z += p[k].z;
+          v.w += p[k].w;
+        }
+      v = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+      if (keep_2 != nullptr) v = make_float4(v.x * kv.x, v.y * kv.y, v.z * kv.z, v.w * kv.w);
+      reinterpret_cast<float4*>(rs)[i] =
+          make_float4(v.x + xv.x, v.y + xv.y, v.z + xv.z, v.w + xv.w);
+      reinterpret_cast<float4*>(gs)[i] = gv;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += fk::kThreads) {
+      const size_t e = t0 + i;
+      float v = __ldg(t2 + e);
+      for (int k = 1; k < slices; ++k) v += __ldg(t2 + k * RE + e);
+      v += __ldg(b2 + i % E);
+      if (keep_2 != nullptr) v *= __ldg(keep_2 + e);
+      rs[i] = v + __ldg(x + e);
+      gs[i] = __ldg(g + e);
+    }
+  }
   __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += fk::kWarps) {  // two-pass statistics
+    const float* row = rs + r * E;
+    float sum = 0.f;
+    for (int c = lane; c < E; c += 32) sum += row[c];
+    const float mu = fk::warp_sum(sum) / E;
+    float var = 0.f;
+    for (int c = lane; c < E; c += 32) {
+      const float d = row[c] - mu;
+      var += d * d;
+    }
+    const float inv = rsqrtf(fk::warp_sum(var) / E + eps);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = inv;
+    }
+  }
+  __syncthreads();
+  float* pt = part + (size_t)tile * 2 * E;
+  for (int c = threadIdx.x; c < E; c += fk::kThreads) {  // the tile's column sums, row order
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float gv = gs[r * E + c];
+      sg = fmaf(gv, (rs[r * E + c] - mean[r]) * rstd[r], sg);
+      sb += gv;
+    }
+    pt[c] = sg;
+    pt[E + c] = sb;
+  }
+  __syncthreads();  // every column sum has read rs before it is overwritten
+  for (int r = threadIdx.x >> 5; r < rows; r += fk::kWarps) {
+    float* row = rs + r * E;
+    const float* gr = gs + r * E;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < E; c += 32) {
+      const float gg = gr[c] * __ldg(gamma + c);
+      s1 += gg;
+      s2 += gg * (row[c] - mean[r]) * rstd[r];
+    }
+    s1 = fk::warp_sum(s1) / E;
+    s2 = fk::warp_sum(s2) / E;
+    for (int c = lane; c < E; c += 32) {
+      const float xhat = (row[c] - mean[r]) * rstd[r];
+      row[c] = rstd[r] * (gr[c] * __ldg(gamma + c) - s1 - xhat * s2);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += fk::kThreads) {
+    const float d = rs[i];
+    res[t0 + i] = d;
+    dt2[t0 + i] = keep_2 != nullptr ? d * __ldg(keep_2 + t0 + i) : d;
+  }
+}
 
-  // 4. dx = dres + dz1 W1^T
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{zb, nullptr, 0, r0, M, F}, w1t, F, E, r0, M,
-              [&](int r, int c, float v) {
-                const size_t e = (size_t)r * E + c;
-                dx[b * ME + e] = v + rb[e];
-              }, s);
+// 4'. dx = (dz1 W1^T's slices) + dres; and (the blocks past dx's elements)
+//    dgamma | dbeta = the row tiles' partials (tiles, 2, E) summed in tile order
+__global__ void __launch_bounds__(fk::kThreads)
+ffn_finish_kernel(const float* __restrict__ t1, const float* __restrict__ dres,
+                  float* __restrict__ dx, const float* __restrict__ part, float* __restrict__ dgb,
+                  int R, int E, int slices, int tiles) {
+  const size_t RE = (size_t)R * E;
+  const size_t nx = (RE + fk::kThreads - 1) / fk::kThreads;
+  if (blockIdx.x < nx) {
+    const size_t e = (size_t)blockIdx.x * fk::kThreads + threadIdx.x;
+    if (e < RE) dx[e] = slice_sum(t1, RE, slices, e) + __ldg(dres + e);
+    return;
+  }
+  const int i = (int)(blockIdx.x - nx) * fk::kThreads + threadIdx.x;
+  if (i >= 2 * E) return;
+  float v = 0.f;
+  for (int p = 0; p < tiles; ++p) v += __ldg(part + (size_t)p * 2 * E + i);
+  dgb[i] = v;
+}
+
+// W1^T and W2^T for steps 3 and 4 (blockIdx.z 0 and 1), through 32 x 33
+// tiles of shared memory; and (blockIdx.z 2) a copy of x beside dt2, so that
+// the wrapper's two weight products are one batched product
+__global__ void __launch_bounds__(fk::kThreads)
+ffn_transpose_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                     float* __restrict__ wt, const float* __restrict__ x,
+                     float* __restrict__ xcopy, int n_x, int E, int F) {
+  __shared__ float tile[32][33];
+  const int z = blockIdx.z;
+  if (z == 2) {
+    const int nb = gridDim.x * gridDim.y;
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * fk::kThreads + threadIdx.x; i < n_x;
+         i += nb * fk::kThreads)
+      xcopy[i] = __ldg(x + i);
+    return;
+  }
+  const int R = z == 0 ? E : F, Cc = z == 0 ? F : E;  // the source is R x Cc
+  const float* src = z == 0 ? w1 : w2;
+  float* dst = wt + (size_t)z * E * F;
+  const int c0 = blockIdx.x * 32, rr0 = blockIdx.y * 32;
+  if (c0 >= Cc || rr0 >= R) return;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += fk::kWarps)
+    if (rr0 + i < R && c0 + tx < Cc) tile[i][tx] = __ldg(src + (size_t)(rr0 + i) * Cc + c0 + tx);
+  __syncthreads();
+  for (int i = ty; i < 32; i += fk::kWarps)
+    if (c0 + i < Cc && rr0 + tx < R) dst[(size_t)(c0 + i) * R + rr0 + tx] = tile[tx][i];
 }
 
 // ---------------------------------------------------------------------------
@@ -794,17 +982,48 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
   return (int)cudaGetLastError();
 }
 
+// The FFN backward in one call over the B * M token rows: W1^T and W2^T
+// into wt (2 E F floats) and x into xcopy, then the steps above: z1, dz1,
+// hk (R x F), dres (into res), dt2, dx (R x E), dgamma | dbeta into dgb (2,
+// E); part (ceil(R / 16), 2, E) the LayerNorm tiles' sums; sa (ceil(E /
+// 128), R, F) and sb (ceil(F / 128), R, E) the products' slices.
 extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-                          const float* b2, const float* gamma, const float* w1t,
-                          const float* w2t, const float* keep_1, const float* keep_2,
-                          const float* g, float* scratch, float* dz1, float* hk, float* dt2,
-                          float* dx, float* part, int B, int M, int E, int F, float eps,
+                          const float* b2, const float* gamma, const float* keep_1,
+                          const float* keep_2, const float* g, float* wt, float* res, float* z1,
+                          float* dz1, float* hk, float* xcopy, float* dt2, float* dx, float* part,
+                          float* dgb, float* sa, float* sb, int B, int M, int E, int F, float eps,
                           void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BM>) + (size_t)2 * M * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)ffn_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ffn_bwd_kernel<<<B, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, w1, b1, w2, b2, gamma, w1t, w2t, keep_1, keep_2, g, scratch, dz1, hk, dt2, dx, part, M,
-      E, F, eps);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t gsm = sizeof(fk::GemmSmem<kFfnRows>);
+  const size_t lsm = (size_t)2 * kLnRows * E * sizeof(float);  // the LN tile's res and g
+  const int R = B * M;
+  const int tiles = (R + kFfnRows - 1) / kFfnRows, ln_tiles = (R + kLnRows - 1) / kLnRows;
+  const int es = (E + kFfnSlice - 1) / kFfnSlice, fs = (F + kFfnSlice - 1) / kFfnSlice;
+  const int fchunks = (F + fk::kBN - 1) / fk::kBN, echunks = (E + fk::kBN - 1) / fk::kBN;
+  const int big = E > F ? E : F;
+  const int re = (int)(((size_t)R * E + fk::kThreads - 1) / fk::kThreads);
+  // the slice kernel's 37 KB need no attribute; the LayerNorm's past E = 384 do
+  if (lsm > 48 * 1024) {
+    const cudaError_t err = fk::set_smem((const void*)ffn_bwd_ln_kernel, lsm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ffn_transpose_kernel<<<dim3((big + 31) / 32, (big + 31) / 32, 3), fk::kThreads, 0, st>>>(
+      w1, w2, wt, x, xcopy, R * E, E, F);
+  // x W1 -> sa; hk W2 -> sb (z1 and hk from sa as they are staged); the
+  // LayerNorm step; dt2 W2^T -> sa; dz1 W1^T -> sb (dz1 from sa); dx and the
+  // LN sums
+  ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
+      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr}, w1, sa, R, E, F);
+  ffn_bwd_slice_kernel<kHidden><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, es, b1, keep_1, z1, hk}, w2, sb, R, F, E);
+  ffn_bwd_ln_kernel<<<ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, keep_2, g, res, dt2,
+                                                         part, R, E, fs, eps);
+  ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
+      FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr}, wt + (size_t)E * F, sa, R,
+      E, F);
+  ffn_bwd_slice_kernel<kDz1><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, es, nullptr, keep_1, z1, dz1}, wt, sb, R, F, E);
+  ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
+      sb, res, dx, part, dgb, R, E, fs, ln_tiles);
+  return (int)cudaGetLastError();  // the first failed launch's error, if any
 }

@@ -327,10 +327,12 @@ mstcn_stack_q8.launches = 0
 
 
 class Q8Layer2(NamedTuple):
-    """One quantized MS-TCN++ layer in the kernel's layout: the two convs'
-    qk1t, qk2t (C_out, 3 C_in) int8 (tap k's inputs at k C_in) with their
-    joint scales sk1, sk2 (C,), the fuse halves qwtt, qwbt (C_out, C_in) int8
-    with swt, swb (C,), and the f32 biases."""
+    """One quantized MS-TCN++ layer: the two convs' qk1t, qk2t (C_out, 3 C_in)
+    int8 (tap k's inputs at k C_in) with their joint scales sk1, sk2 (C,), the
+    fuse halves qwtt, qwbt (C_out, C_in) int8 with swt, swb (C,), the f32
+    biases, and the same int8 weights in the card's layout (``k8e_layout``):
+    kpack (2, C_out, Kc), conv k's tap t at columns t kseg, and fpack (2,
+    C_out, Kf), Wt then Wb, each zero past C_in."""
 
     qk1t: torch.Tensor
     sk1: torch.Tensor
@@ -343,6 +345,29 @@ class Q8Layer2(NamedTuple):
     qwbt: torch.Tensor
     swb: torch.Tensor
     bf: torch.Tensor
+    kpack: torch.Tensor
+    fpack: torch.Tensor
+
+
+class K8eLayout(NamedTuple):
+    """K8e's padded widths at C channels (csrc/quant2.cu): kseg = ceil32(C),
+    a tap's K segment in whole 32-byte wgmma steps; Kc and Kf the rows of
+    the conv and fuse packs (3 kseg and kseg, at least one 128-byte TMA box);
+    Cw the rows of the int8 activation buffers (ceil16(C), at least 128)."""
+
+    kseg: int
+    Kc: int
+    Kf: int
+    Cw: int
+
+
+def k8e_layout(C: int) -> K8eLayout:
+    kseg = -(-C // 32) * 32
+    return K8eLayout(kseg, max(3 * kseg, 128), max(kseg, 128), max(-(-C // 16) * 16, 128))
+
+
+def _pad_cols(w, n: int):
+    return torch.nn.functional.pad(w, (0, n - w.shape[-1]))
 
 
 def quantize_tower2(layers) -> list:
@@ -352,11 +377,16 @@ def quantize_tower2(layers) -> list:
     out = []
     for k1, b1, k2, b2, wt, wb, bf in layers:
         C = wt.shape[0]
+        lay = k8e_layout(C)
         (qk1, sk1), (qk2, sk2) = quantize_weight_joint(k1), quantize_weight_joint(k2)
         (qwt, swt), (qwb, swb) = quantize_weight(wt), quantize_weight(wb)
+        kpack = torch.stack([_pad_cols(_pad_cols(q.permute(2, 0, 1), lay.kseg).reshape(C, -1),
+                                       lay.Kc) for q in (qk1, qk2)]).contiguous()
+        fpack = torch.stack([_pad_cols(q.t(), lay.Kf) for q in (qwt, qwb)]).contiguous()
         out.append(Q8Layer2(qk1.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), sk1, b1.float(),
                             qk2.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), sk2, b2.float(),
-                            qwt.t().contiguous(), swt, qwb.t().contiguous(), swb, bf.float()))
+                            qwt.t().contiguous(), swt, qwb.t().contiguous(), swb, bf.float(),
+                            kpack, fpack))
     return out
 
 
@@ -415,46 +445,64 @@ def mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, *, tile: int = 512
 
 
 def mstcn2_stack_q8(x, lengths, qlayers, dil_pairs, *, tile: int = 512, scales: bool = False):
-    """K8e: the int8 MS-TCN++ tower (``csrc/quant2.cu``, two launches a layer
-    and one for the input's group maxima) on CUDA tensors, the plain version
-    on CPU tensors.  ``qlayers`` from ``quantize_tower2``; ``scales`` as in the
-    plain version (the kernels' own group and tile maxima).  Every width that
-    is a multiple of 32 has a block (the blocks' shared memory does not grow
-    with C); another raises before any launch."""
+    """K8e: the int8 MS-TCN++ tower (``csrc/quant2.cu``, one library call a
+    layer, four launches, and one for the input's group maxima) on CUDA
+    tensors, the plain version on CPU tensors.  ``qlayers`` from
+    ``quantize_tower2``; ``scales`` as in the plain version (the kernels' own
+    group and tile maxima).  Any width: the packs and buffers pad C
+    (``k8e_layout``)."""
     _build.no_grad_inputs("mstcn2_stack_q8", [x] + [t for ql in qlayers
                                                     for t in (ql.b1, ql.b2, ql.bf)])
     if x.device.type == "cpu":
         return mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, tile=tile,
                                          scales=scales)
+    out = _mstcn2_q8_card(x, lengths, qlayers, dil_pairs, tile, scales)
+    mstcn2_stack_q8.launches += 1
+    return out
+
+
+def _mstcn2_q8_card(x, lengths, qlayers, dil_pairs, tile: int, scales: bool):
+    """The card's launch sequence (also run on CPU tensors against a model of
+    the library in the tests)."""
     B, T, C = x.shape
     _, tile, n_tiles = _tiling(T, tile, 1)
     T_pad = n_tiles * tile
-    if C % 32:
-        raise NotImplementedError(f"mstcn2_stack_q8: C={C} is not a multiple of 32")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise ValueError("mstcn2_stack_q8: lengths must be (B,) int32")
+    lay = k8e_layout(C)
+    if any(ql.kpack.shape != (2, C, lay.Kc) or ql.fpack.shape != (2, C, lay.Kf)
+           for ql in qlayers):
+        raise ValueError("mstcn2_stack_q8: packs not in k8e_layout(C); use quantize_tower2")
     x = x.contiguous()
     _build.check_tensors("mstcn2_stack_q8", [x, lengths, *[t for ql in qlayers for t in ql]],
                          x.device)
-    f32 = dict(device=x.device, dtype=torch.float32)
+    dev = x.device
     L = len(qlayers)
-    c = torch.empty((2, B, T_pad, C), **f32)  # c1 and c2 between the two passes
-    ys = [torch.empty((B, T, C), **f32) for _ in range(min(2, L))]
-    gmax = torch.empty((L + 1, B, T_pad // 8), **f32)  # each layer input's group maxima
-    smax = torch.zeros((L, 2, B, n_tiles), device=x.device, dtype=torch.int32)
-    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    halos = [-(-max(d1, d2) // 8) * 8 for d1, d2 in dil_pairs]
+    # the tiles' int8 windows (the widest halo's size, each layer lays out its own),
+    # c1 | c2 in f32 and as int8, the window scales; group maxima zeroed
+    qwin = torch.empty(B * n_tiles * (tile + 2 * max(halos, default=0)) * lay.Cw, device=dev,
+                       dtype=torch.int8)
+    c = torch.empty((2, B, T_pad, lay.Cw), device=dev, dtype=torch.float32)
+    qc = torch.empty((2, B, T_pad, lay.Cw), device=dev, dtype=torch.int8)
+    sx = torch.empty((B, n_tiles), device=dev, dtype=torch.float32)
+    ys = [torch.empty((B, T, C), device=dev, dtype=torch.float32) for _ in range(min(2, L))]
+    gmax = torch.zeros((L + 1, B, T_pad // 8), device=dev, dtype=torch.float32)
+    smax = torch.zeros((L, 2, B, n_tiles), device=dev, dtype=torch.int32)  # |c|'s tile maxima
+    lib, stream = _build.lib(), _build.stream_ptr(dev)
     _build.check("fk_q8_group_max", lib.fk_q8_group_max(
         x.data_ptr(), lengths.data_ptr(), gmax[0].data_ptr(), B, T, T_pad, C, stream))
     cur = x
-    for i, (ql, (d1, d2)) in enumerate(zip(qlayers, dil_pairs)):
+    for i, (ql, (d1, d2), halo) in enumerate(zip(qlayers, dil_pairs, halos)):
         y = ys[i % 2]
         _build.check("fk_q8_tower2_layer", lib.fk_q8_tower2_layer(
-            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), *[t.data_ptr() for t in ql[:6]],
-            c.data_ptr(), smax[i].data_ptr(), *[t.data_ptr() for t in ql[6:]], y.data_ptr(),
-            gmax[i + 1].data_ptr(), B, T, C, int(d1), int(d2), -(-max(d1, d2) // 8) * 8, tile,
+            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), ql.kpack.data_ptr(), lay.Kc,
+            ql.sk1.data_ptr(), ql.b1.data_ptr(), ql.sk2.data_ptr(), ql.b2.data_ptr(),
+            ql.fpack.data_ptr(), lay.Kf, ql.swt.data_ptr(), ql.swb.data_ptr(), ql.bf.data_ptr(),
+            qwin.data_ptr(), sx.data_ptr(), c.data_ptr(), qc.data_ptr(), smax[i].data_ptr(),
+            y.data_ptr(), gmax[i + 1].data_ptr(), B, T, C, lay.Cw, int(d1), int(d2), halo, tile,
             n_tiles, T_pad, stream))
         cur = y
-    mstcn2_stack_q8.launches += 1
     if scales:  # the tile maxima are the int bits of non-negative floats
         return cur, gmax[:L], smax.view(torch.float32)
     return cur

@@ -7,8 +7,9 @@ Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py``: ``sa_sublayer``
 ``_ffn_bwd`` / ``_ffn_bwd_kernel``) and the mask replays ``sa_dropout_masks``
 and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (the SA forward and
 backward over (row tile, video) and (query tile, head, video) blocks at any
-token count of the zoo, the FFN one block per video), ``csrc/dropout.cu``
-and ``csrc/grad.cu``:
+token count of the zoo, the FFN forward one block per video and its backward
+over (32-row tile, column chunk, K slice) blocks of the batch's rows),
+``csrc/dropout.cu`` and ``csrc/grad.cu``:
 
 * ``sa_sublayer``:  y = LN(x + drop(MHA(x + pos, x + pos, x) @ Wo + bo)), the
   attention probabilities dropped at ``rate_attn``;
@@ -415,25 +416,52 @@ def ffn_sublayer_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN
     if x.device.type == "cpu":
         return ffn_sublayer_bwd_reference(x, *weights, g, eps=eps, keep_hidden=keep_hidden,
                                           keep_out=keep_out)
+    grads = _ffn_bwd_card(x, *weights, g, eps, keep_hidden, keep_out)
+    ffn_sublayer_bwd.launches += 1
+    return grads
+
+
+FFN_BWD_LN_ROWS = 16  # token rows of the FFN backward's LayerNorm blocks (csrc/sa_layer.cu)
+FFN_BWD_SLICE = 128  # K of its partial products
+
+
+def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, keep_out):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call launches the split into one
+    workspace (W1^T | W2^T, dres, z1, then dz1 beside h * keep_1 and a copy of
+    x beside dt2, dx, the LayerNorm tiles' sums, dgamma | dbeta, the
+    products' K slices), read back through strided views: on the card's
+    host every tensor op costs a few microseconds, the call's floor at these
+    shapes, so the two weight products are one batched product."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
     B, M, E = x.shape
     Fd = w1.shape[1]
     _check_ffn("ffn_sublayer_bwd", x, *weights)
     g = g.contiguous()
     _build.check_tensors("ffn_sublayer_bwd", [g, keep_hidden, keep_out], x.device)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    scratch, dt2, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    dz1, hk = torch.empty((B, M, Fd), **f32), torch.empty((B, M, Fd), **f32)
-    part = torch.empty((B, 2, E), **f32)
+    R = B * M
+    RE, RF = R * E, R * Fd
+    sizes = (2 * E * Fd, RE, RF, RF, RF, RE, RE, RE, -(-R // FFN_BWD_LN_ROWS) * 2 * E, 2 * E,
+             -(-E // FFN_BWD_SLICE) * RF, -(-Fd // FFN_BWD_SLICE) * RE)
+    offs = [0]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + n)
+    ws = torch.empty(offs[-1] + sizes[-1], device=x.device, dtype=torch.float32)
+    base = ws.data_ptr()
     err = _build.lib().fk_ffn_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        ln_scale.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), _ptr(keep_hidden), _ptr(keep_out),
-        g.data_ptr(), scratch.data_ptr(), dz1.data_ptr(), hk.data_ptr(), dt2.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+        ln_scale.data_ptr(), _ptr(keep_hidden), _ptr(keep_out), g.data_ptr(),
+        *[base + 4 * o for o in offs], B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
     _build.check("fk_ffn_bwd", err)
-    dgamma, dbeta = _grad.block_sums(part, 2, E)
-    ffn_sublayer_bwd.launches += 1
-    return _ffn_grads(x, dx, dz1, hk, dt2, dgamma, dbeta, E, Fd)
+    _, _, _, o_dz1, _, o_x, o_dt2, o_dx, _, o_dgb, _, _ = offs
+    # dW1 = x^T dz1 and dW2 = (h * keep_1)^T dt2 and the bias sums: outside, as in
+    # JAX; [dz1 | h * keep_1]^T [x | dt2] = [dW1^T | dW2] in one batched product
+    dw = torch.bmm(ws.as_strided((2, Fd, R), (RF, 1, Fd), o_dz1),
+                   ws.as_strided((2, R, E), (RE, E, 1), o_x))
+    return (ws.as_strided((B, M, E), (M * E, E, 1), o_dx), dw.as_strided((E, Fd), (1, E)),
+            ws.as_strided((R, Fd), (Fd, 1), o_dz1).sum(dim=0),
+            dw.as_strided((Fd, E), (E, 1), Fd * E), ws.as_strided((R, E), (E, 1), o_dt2).sum(dim=0),
+            *ws.as_strided((2, E), (E, 1), o_dgb).unbind(0))
 
 
 ffn_sublayer_bwd.launches = 0

@@ -202,12 +202,22 @@ def test_m2_int8_configs_equal_the_jax_package_field_for_field(monkeypatch, name
 
 
 def test_k8e_refuses_gradients_and_odd_widths():
+    """A gradient is refused; a width of no multiple of 32 (C = 48) is taken:
+    the card's packs pad each tap's K segment to whole 32-byte steps (64)
+    with zeros and keep the weights of the plain layout."""
     x = torch.ones(1, 8, 16, requires_grad=True)
     k, v = torch.ones(3, 16, 16), torch.zeros(16)
     ql = qc.quantize_tower2([(k, v, k, v, torch.ones(16, 16), torch.ones(16, 16), v)])
     lens = torch.tensor([8], dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         qc.mstcn2_stack_q8(x, lens, ql, [(1, 1)])
-    meta = torch.empty((1, 8, 48), device="meta")  # C = 48: no block; raised before any launch
-    with pytest.raises(NotImplementedError, match="C=48"):
-        qc.mstcn2_stack_q8(meta, lens.to("meta"), [], [])
+    rng = np.random.default_rng(12)
+    _, _, _, lt, _, _ = _tower2_inputs(rng, 1, 8, 48, ((1, 1),), (8,))
+    q48, = qc.quantize_tower2(lt)
+    assert qc.k8e_layout(48) == (64, 192, 128, 128)
+    assert q48.kpack.shape == (2, 48, 192) and q48.fpack.shape == (2, 48, 128)
+    for k in range(3):
+        np.testing.assert_array_equal(q48.kpack[0, :, 64 * k:64 * k + 48].numpy(),
+                                      q48.qk1t[:, 48 * k:48 * k + 48].numpy())
+        assert not q48.kpack[:, :, 64 * k + 48:64 * k + 64].any()
+    assert not q48.fpack[:, :, 48:].any()
