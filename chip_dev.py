@@ -51,6 +51,13 @@
         (the per-video products inside the backward) and the X side's
         cotangents, against the plain versions in float64.
 
+    python3 chip_dev.py ffn-host [TREE]
+        K4's FFN backward (``ffn_sublayer_bwd``) of the package in TREE at
+        the flagship's B=8, M=40 (dropout 0.2) and epic's B=1, M=300, E=256,
+        F=512: the wrapper's host time a call (200 calls, no sync), the
+        CUDA-event time a call, and the device busy time a call from
+        ``torch.profiler`` with its kernels.
+
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -339,6 +346,40 @@ def k2sx_f64(seed: int = 0):
     return 0
 
 
+def ffn_host(tree: str = REPO, seed: int = 0):
+    """The FFN backward's host time, event time and device busy time a call."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    for tag, (B, M, rate) in {"flagship": (8, 40, 0.2), "epic": (1, 300, 0.0)}.items():
+        kern = cs.ffn_bwd_case(rng, B, M, 256, 512, rate)[0]
+        n = 200
+        for _ in range(10):
+            kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            kern()
+        host = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        ms = cs.cuda_ms(kern, n)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kern()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "device_time_total", 0) / 20e3, e.count // 20, e.key[:70])
+                for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        print(f"[ffn-host] {tag}: host {host:.4f} ms a call, events {ms:.4f} ms, device busy "
+              f"{sum(r[0] for r in rows):.4f} ms", flush=True)
+        for r in sorted(rows, reverse=True):
+            print(f"[ffn-host]    {r[0]:.4f} ms x{r[1]} {r[2]}", flush=True)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -350,6 +391,8 @@ def main(argv):
         return k3_f64(*argv[1:])
     if argv[:1] == ["k2-f64"] and len(argv) <= 2:
         return k2_f64(*argv[1:])
+    if argv[:1] == ["ffn-host"] and len(argv) <= 2:
+        return ffn_host(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
     print(__doc__, file=sys.stderr)

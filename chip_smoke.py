@@ -1095,9 +1095,13 @@ def k8e_case(rng, B, T, C, L, lengths):
     # in its last tile (further on c is exactly the bias).  The two fuse
     # products and the f32 work a frame and channel (the input's and c's
     # quantizations, the dequantizations, ReLU, bias, residual) on valid rows.
+    # Bytes: x, the lengths, each layer's weights once (the int8 ones at C
+    # wide, not the card's padded packs), the output.
     tap_rows = sum(min(n + d, -(-n // tile) * tile, T_pad)
                    for pair in dil for d in pair for n in lens.clamp(max=T).tolist())
-    work = (L * 18 * N * C, nbytes(x, lens, ql) + B * T * C * 4,
+    weights = [t for q in ql for t in (q.qk1t, q.sk1, q.b1, q.qk2t, q.sk2, q.b2, q.qwtt, q.swt,
+                                       q.qwbt, q.swb, q.bf)]
+    work = (L * 18 * N * C, nbytes(x, lens, weights) + B * T * C * 4,
             (6 * tap_rows + 4 * L * N) * C * C)
     judge = q8_judge("mstcn2_stack_q8", lambda o: o[0], lambda o: o[1:], bit_share=True)
     return (lambda: qc.mstcn2_stack_q8(x, lens, ql, dil, scales=True),
@@ -1340,7 +1344,10 @@ def kernel_table():
           ("epic", lambda r: ffn_bwd_case(r, 1, 300, E, 512, 0.0)),
           # egoprocel's B=1, M=200 and Breakfast's B=4, M=60, E=512 (a_ffdim 512 both)
           ("ego", lambda r: ffn_bwd_case(r, 1, 200, E, 512, 0.0)),
-          ("breakfast", lambda r: ffn_bwd_case(r, 4, 60, D, 512, 0.0))]),
+          ("breakfast", lambda r: ffn_bwd_case(r, 4, 60, D, 512, 0.0)),
+          # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
+          ("e42", lambda r: ffn_bwd_case(r, 2, 37, 42, 84)),
+          ("f2304", lambda r: ffn_bwd_case(r, 1, 64, 64, 2304, 0.0))]),
         ("frame_loss_fwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:185", "rel",
          [("flagship", lambda r: frame_loss_case(r, False, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, False, B, T, 40, FLAGSHIP_LENGTHS, False)),

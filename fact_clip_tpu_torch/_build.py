@@ -68,7 +68,8 @@ SIGNATURES = {
     "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
-    "fk_ffn_bwd": [P] * 21 + [I, I, I, I, F, P],
+    "fk_ffn_bwd": [P] * 10 + [I, I, I, I, F, P],
+    "fk_ffn_bwd_workspace": [I, I, I, I, P],
     "fk_k6_pack": [P, P, I, I, I, I, I, P],
     "fk_k6_gemm": [I, P, I, I, I, P, I, P, I, I, I, I, P, P, I, I] + [P] * 3 + [I, L]
                   + [P] * 3 + [I, U, F, P],

@@ -75,7 +75,7 @@ struct WgradArgs {
 // and Bm's at or past len zero.
 __global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant__ WgradArgs p) {
   extern __shared__ float4 smem_raw[];
-  float* sm = align1024(smem_raw);
+  float* sm = tc::align1024<float>(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * WG_STAGE + 8 * TILE);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;

@@ -147,7 +147,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   extern __shared__ float4 smem_raw[];
   __shared__ float wmax[8];
   __shared__ float col_s[BN], col_b[BN];  // s_x * sk and b of the item's columns
-  uint8_t* sm = tc8::align1024(smem_raw);
+  uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rows = p.n_tiles * p.jt;
   const int items = rows * 2 * p.ncol * p.B;
@@ -307,7 +307,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   extern __shared__ float4 smem_raw[];
   // s1 * swt, s2 * swb and bf of the item's columns
   __shared__ float col_t[BN], col_w[BN], col_f[BN];
-  uint8_t* sm = tc8::align1024(smem_raw);
+  uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rows = p.n_tiles * p.jt;
   const int ncol = ceil_div(p.C, BN);

@@ -246,10 +246,11 @@ ffn_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 // of the core costs about a microsecond of latency whatever its work, so a
 // 256- or 512-deep product in one block was the longest link of the chain.
 // The LayerNorm column sums go per row tile (fixed-order partials, added in
-// tile order by ffn_finish_kernel).  z1 lives in dz1 until step 3
-// overwrites it.
+// tile order by ffn_finish_kernel).  The workspace's layout is
+// ffn_workspace's alone: the entry and its callers read it from there.
 constexpr int kFfnRows = 32;
 constexpr int kFfnSlice = 128;  // K of one partial product
+constexpr int kLnRows = 16;     // token rows of a LayerNorm block
 
 // sum of the partials of element e in slice order (slice stride n)
 __device__ __forceinline__ float slice_sum(const float* __restrict__ part, size_t n, int slices,
@@ -269,13 +270,14 @@ __device__ __forceinline__ float slice_sum(const float* __restrict__ part, size_
 enum FfnA { kPanel = 0, kHidden = 1, kDz1 = 2 };
 
 struct FfnSlice {
-  const float* A;     // kPanel: the panel (R x K)
+  const float* A;     // kPanel: the panel (R x K, row stride ld)
   const float* pa;    // kHidden, kDz1: the previous product's slices (n_pa, R, K)
   int n_pa;
   const float* bias;  // kHidden: b1
   const float* keep;  // keep_1 or null
-  float* z1;          // kHidden: written; kDz1: read
-  float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk)
+  float* z1;          // kHidden: written; kDz1: read (R x K)
+  float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk, row stride ld)
+  int ld;
 };
 
 // per (32-row tile, K slice, 256 columns of N): the slice's partial product
@@ -295,14 +297,14 @@ ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __res
       [&](int r, int k) {
         const int row = r0 + r;
         if (row >= R) return 0.f;
-        const size_t e = (size_t)row * K + k0 + k;
-        if (AM == kPanel) return a.A[e];
+        const size_t e = (size_t)row * K + k0 + k, eo = (size_t)row * a.ld + k0 + k;
+        if (AM == kPanel) return a.A[eo];
         if (AM == kHidden) {  // z1 = x W1 + b1; hk = relu(z1) * keep_1
           const float v = slice_sum(a.pa, RK, a.n_pa, e) + __ldg(a.bias + k0 + k);
           const float h = a.keep != nullptr ? fmaxf(v, 0.f) * __ldg(a.keep + e) : fmaxf(v, 0.f);
           if (write) {
             a.z1[e] = v;
-            a.out[e] = h;
+            a.out[eo] = h;
           }
           return h;
         }
@@ -310,7 +312,7 @@ ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __res
         float v = slice_sum(a.pa, RK, a.n_pa, e);
         if (a.keep != nullptr) v *= __ldg(a.keep + e);
         const float d = __ldg(a.z1 + e) > 0.f ? v : 0.f;
-        if (write) a.out[e] = d;
+        if (write) a.out[eo] = d;
         return d;
       },
       W + (size_t)k0 * N, ks, N, r0, R,
@@ -319,12 +321,12 @@ ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __res
 
 // 2'. per 16-row tile, whole E rows: res = x + drop_2((hk W2's slices) +
 //    b2), its LayerNorm statistics and backward (dres into res; dgamma and
-//    dbeta of the tile into part[tile]) and dt2 = dres * keep_2.  The tile's
-//    res and g rows are staged in shared memory, four columns a thread at a
-//    time with every load of them issued before any is used, and the
-//    LayerNorm runs there: the same sums as ln_stats and ln_backward, whose
-//    row-serial global loads took ~30 us a tile.
-constexpr int kLnRows = 16;
+//    dbeta of the tile into part[tile]) and dt2 = dres * keep_2 (row stride
+//    ld).  The tile's res and g rows are staged in shared memory, four
+//    columns a thread at a time with every load of them issued before any is
+//    used (a scalar loop where E % 4 != 0 or F > 2048), and the LayerNorm
+//    runs there: the same sums as ln_stats and ln_backward, whose row-serial
+//    global loads took ~30 us a tile.
 constexpr int kMaxSlices = 16;  // F up to 2048 in the four-column staging
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -335,8 +337,8 @@ __global__ void __launch_bounds__(fk::kThreads)
 ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
                   const float* __restrict__ b2, const float* __restrict__ gamma,
                   const float* __restrict__ keep_2, const float* __restrict__ g,
-                  float* __restrict__ res, float* __restrict__ dt2, float* __restrict__ part,
-                  int R, int E, int slices, float eps) {
+                  float* __restrict__ res, float* __restrict__ dt2, int ld,
+                  float* __restrict__ part, int R, int E, int slices, float eps) {
   extern __shared__ float4 smem_raw[];
   float* rs = reinterpret_cast<float*>(smem_raw);  // [rows][E]: res, then dres
   float* gs = rs + kLnRows * E;                    // [rows][E]: g
@@ -432,7 +434,7 @@ ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
   for (int i = threadIdx.x; i < n; i += fk::kThreads) {
     const float d = rs[i];
     res[t0 + i] = d;
-    dt2[t0 + i] = keep_2 != nullptr ? d * __ldg(keep_2 + t0 + i) : d;
+    dt2[(size_t)(r0 + i / E) * ld + i % E] = keep_2 != nullptr ? d * __ldg(keep_2 + t0 + i) : d;
   }
 }
 
@@ -457,19 +459,27 @@ ffn_finish_kernel(const float* __restrict__ t1, const float* __restrict__ dres,
 }
 
 // W1^T and W2^T for steps 3 and 4 (blockIdx.z 0 and 1), through 32 x 33
-// tiles of shared memory; and (blockIdx.z 2) a copy of x beside dt2, so that
-// the wrapper's two weight products are one batched product
+// tiles of shared memory; and (blockIdx.z 2) x into the weight products'
+// rhs and the ones columns of both operands (ffn_workspace)
 __global__ void __launch_bounds__(fk::kThreads)
 ffn_transpose_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
-                     float* __restrict__ wt, const float* __restrict__ x,
-                     float* __restrict__ xcopy, int n_x, int E, int F) {
+                     float* __restrict__ wt, const float* __restrict__ x, float* __restrict__ lhs,
+                     int ldl, float* __restrict__ rhs, int ldr, int n_rows, int E, int F) {
   __shared__ float tile[32][33];
   const int z = blockIdx.z;
   if (z == 2) {
     const int nb = gridDim.x * gridDim.y;
-    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * fk::kThreads + threadIdx.x; i < n_x;
-         i += nb * fk::kThreads)
-      xcopy[i] = __ldg(x + i);
+    const size_t nl = (size_t)n_rows * ldl, nr = (size_t)n_rows * ldr;
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * fk::kThreads + threadIdx.x;
+         i < n_rows * (E + 1); i += nb * fk::kThreads) {
+      const int r = i / (E + 1), c = i % (E + 1);
+      if (c < E) {
+        rhs[(size_t)r * ldr + c] = __ldg(x + (size_t)r * E + c);
+        continue;
+      }
+      rhs[(size_t)r * ldr + E] = rhs[nr + (size_t)r * ldr + E] = 1.f;
+      lhs[(size_t)r * ldl + F] = lhs[nl + (size_t)r * ldl + F] = 1.f;
+    }
     return;
   }
   const int R = z == 0 ? E : F, Cc = z == 0 ? F : E;  // the source is R x Cc
@@ -982,21 +992,75 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
   return (int)cudaGetLastError();
 }
 
-// The FFN backward in one call over the B * M token rows: W1^T and W2^T
-// into wt (2 E F floats) and x into xcopy, then the steps above: z1, dz1,
-// hk (R x F), dres (into res), dt2, dx (R x E), dgamma | dbeta into dgb (2,
-// E); part (ceil(R / 16), 2, E) the LayerNorm tiles' sums; sa (ceil(E /
-// 128), R, F) and sb (ceil(F / 128), R, E) the products' slices.
+namespace {
+
+// The FFN backward's workspace (floats; each region starts on 64 floats):
+// W1^T | W2^T (2 E F); dres, dx (R x E); z1 (R x F); the weight products'
+// operands, the batch's two products in one: lhs (2, R, ldl) = [dz1 | 1]
+// then [hk | 1], rhs (2, R, ldr) = [x | 1] then [dt2 | 1] (ldl = F + 4,
+// ldr = E + 4), so that lhs^T rhs = [[dW1^T, db1], .] and [[dW2, .], [db2,
+// .]]; the LayerNorm tiles' sums (ceil(R / 16), 2, E); dgamma | dbeta (2,
+// E); the products' K slices sa (ceil(E / 128), R, F) and sb (ceil(F /
+// 128), R, E).
+struct FfnWorkspace {
+  size_t wt, res, dx, z1, lhs, rhs, part, dgb, sa, sb, total;
+  int ldl, ldr;
+};
+
+FfnWorkspace ffn_workspace(int B, int M, int E, int F) {
+  const size_t R = (size_t)B * M;
+  FfnWorkspace w;
+  w.ldl = F + 4;
+  w.ldr = E + 4;
+  size_t at = 0;
+  const auto take = [&](size_t n) {
+    const size_t o = at;
+    at += (n + 63) / 64 * 64;
+    return o;
+  };
+  w.wt = take(2 * (size_t)E * F);
+  w.res = take(R * E);
+  w.dx = take(R * E);
+  w.z1 = take(R * F);
+  w.lhs = take(2 * R * w.ldl);
+  w.rhs = take(2 * R * w.ldr);
+  w.part = take((R + kLnRows - 1) / kLnRows * 2 * E);
+  w.dgb = take(2 * (size_t)E);
+  w.sa = take((size_t)(E + kFfnSlice - 1) / kFfnSlice * R * F);
+  w.sb = take((size_t)(F + kFfnSlice - 1) / kFfnSlice * R * E);
+  w.total = at;
+  return w;
+}
+
+}  // namespace
+
+// The workspace fk_ffn_bwd needs at (B, M, E, F), for its callers: out[0]
+// its floats, then the offsets of dx, lhs and rhs with their row strides
+// ldl and ldr, and dgamma | dbeta.
+extern "C" int fk_ffn_bwd_workspace(int B, int M, int E, int F, long long* out) {
+  const FfnWorkspace w = ffn_workspace(B, M, E, F);
+  const long long v[7] = {(long long)w.total, (long long)w.dx, (long long)w.lhs, w.ldl,
+                          (long long)w.rhs, w.ldr, (long long)w.dgb};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The FFN backward in one call over the B * M token rows into ws
+// (fk_ffn_bwd_workspace's floats): W1^T and W2^T, x and the ones columns
+// into the weight products' operands, then the steps above.
 extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, const float* w2,
                           const float* b2, const float* gamma, const float* keep_1,
-                          const float* keep_2, const float* g, float* wt, float* res, float* z1,
-                          float* dz1, float* hk, float* xcopy, float* dt2, float* dx, float* part,
-                          float* dgb, float* sa, float* sb, int B, int M, int E, int F, float eps,
-                          void* stream) {
+                          const float* keep_2, const float* g, float* ws, int B, int M, int E,
+                          int F, float eps, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const FfnWorkspace w = ffn_workspace(B, M, E, F);
+  float *wt = ws + w.wt, *res = ws + w.res, *dx = ws + w.dx, *z1 = ws + w.z1;
+  float *lhs = ws + w.lhs, *rhs = ws + w.rhs, *part = ws + w.part, *sa = ws + w.sa,
+        *sb = ws + w.sb;
+  const int R = B * M;
+  float *dz1 = lhs, *hk = lhs + (size_t)R * w.ldl, *dt2 = rhs + (size_t)R * w.ldr;
   const size_t gsm = sizeof(fk::GemmSmem<kFfnRows>);
   const size_t lsm = (size_t)2 * kLnRows * E * sizeof(float);  // the LN tile's res and g
-  const int R = B * M;
   const int tiles = (R + kFfnRows - 1) / kFfnRows, ln_tiles = (R + kLnRows - 1) / kLnRows;
   const int es = (E + kFfnSlice - 1) / kFfnSlice, fs = (F + kFfnSlice - 1) / kFfnSlice;
   const int fchunks = (F + fk::kBN - 1) / fk::kBN, echunks = (E + fk::kBN - 1) / fk::kBN;
@@ -1008,22 +1072,22 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
     if (err != cudaSuccess) return (int)err;
   }
   ffn_transpose_kernel<<<dim3((big + 31) / 32, (big + 31) / 32, 3), fk::kThreads, 0, st>>>(
-      w1, w2, wt, x, xcopy, R * E, E, F);
+      w1, w2, wt, x, lhs, w.ldl, rhs, w.ldr, R, E, F);
   // x W1 -> sa; hk W2 -> sb (z1 and hk from sa as they are staged); the
   // LayerNorm step; dt2 W2^T -> sa; dz1 W1^T -> sb (dz1 from sa); dx and the
   // LN sums
   ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr}, w1, sa, R, E, F);
+      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E}, w1, sa, R, E, F);
   ffn_bwd_slice_kernel<kHidden><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, es, b1, keep_1, z1, hk}, w2, sb, R, F, E);
+      FfnSlice{nullptr, sa, es, b1, keep_1, z1, hk, w.ldl}, w2, sb, R, F, E);
   ffn_bwd_ln_kernel<<<ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, keep_2, g, res, dt2,
-                                                         part, R, E, fs, eps);
+                                                         w.ldr, part, R, E, fs, eps);
   ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr}, wt + (size_t)E * F, sa, R,
-      E, F);
+      FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr, w.ldr}, wt + (size_t)E * F,
+      sa, R, E, F);
   ffn_bwd_slice_kernel<kDz1><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, es, nullptr, keep_1, z1, dz1}, wt, sb, R, F, E);
+      FfnSlice{nullptr, sa, es, nullptr, keep_1, z1, dz1, w.ldl}, wt, sb, R, F, E);
   ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
-      sb, res, dx, part, dgb, R, E, fs, ln_tiles);
+      sb, res, dx, part, ws + w.dgb, R, E, fs, ln_tiles);
   return (int)cudaGetLastError();  // the first failed launch's error, if any
 }

@@ -161,9 +161,23 @@ __device__ __forceinline__ void wgmma_wait_all() {
 }
 
 // keep the compiler from moving accumulator registers across the async ops
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+// (the f32 and the int32 accumulators)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// dynamic shared memory rounded up to 1,024 bytes, where the 128-byte
+// swizzle's pattern repeats
+template <class T>
+__device__ __forceinline__ T* align1024(void* p) {
+  return reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // d[64 x 128] = A[64 x 8] B[8 x 128]^T (+ d when accumulate), both K-major

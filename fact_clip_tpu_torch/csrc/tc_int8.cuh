@@ -130,23 +130,12 @@ __device__ __forceinline__ void wgmma_wait_1() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// keep the compiler from moving accumulator registers across the async ops
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 template <int BN>
 __device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256)
     wgmma_s8_n256(d, da, db);
   else
     wgmma_s8_n128(d, da, db);
-}
-
-__device__ __forceinline__ uint8_t* align1024(void* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // The ring's barriers behind its stages; thread 0 initialises them (the
@@ -204,7 +193,7 @@ __device__ __forceinline__ void consume(int (&acc)[NACC][BN / 2], uint8_t* sm, u
     const uint64_t da = tc::desc_sw128(st + wg * (kATile / 2));
     const uint64_t db = tc::desc_sw128(st + kATile);
 #pragma unroll
-    for (int a = 0; a < NACC; ++a) fence_acc(acc[a]);
+    for (int a = 0; a < NACC; ++a) tc::fence_acc(acc[a]);
     tc::wgmma_fence();
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
@@ -220,7 +209,7 @@ __device__ __forceinline__ void consume(int (&acc)[NACC][BN / 2], uint8_t* sm, u
   tc::wgmma_wait_all();
   if (nk > 0 && lane == 0) tc::mbar_arrive(&empty[(g - 1) % S]);
 #pragma unroll
-  for (int a = 0; a < NACC; ++a) fence_acc(acc[a]);
+  for (int a = 0; a < NACC; ++a) tc::fence_acc(acc[a]);
 }
 
 // blocks of a persistent launch: one per SM, at most `items`

@@ -106,10 +106,6 @@ struct GemmArgs {
   fk::Dropout drop;
 };
 
-__device__ __forceinline__ float* align1024(void* p) {
-  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -127,7 +123,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   constexpr bool kSums = MODE == kMasked || MODE == kGate;
   constexpr bool kDrop = MODE == kFuse || MODE == kResid;
   extern __shared__ float4 smem_raw[];
-  float* sm = align1024(smem_raw);
+  float* sm = tc::align1024<float>(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * GEMM_STAGE);  // then empty
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int Bsz = gridDim.z / p.nprob;

@@ -29,6 +29,7 @@ the kernels' wrappers beside their plain versions.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -421,46 +422,52 @@ def ffn_sublayer_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN
     return grads
 
 
-FFN_BWD_LN_ROWS = 16  # token rows of the FFN backward's LayerNorm blocks (csrc/sa_layer.cu)
-FFN_BWD_SLICE = 128  # K of its partial products
+_FFN_WS = {}  # (library, B, M, E, F) -> fk_ffn_bwd_workspace's answer
+
+
+def _ffn_workspace(lib, B: int, M: int, E: int, Fd: int) -> tuple:
+    """(floats, dx, lhs, ldl, rhs, ldr, dgamma | dbeta): the FFN backward's
+    workspace as the library lays it out (``csrc/sa_layer.cu::
+    ffn_workspace``), asked once a shape."""
+    key = (lib, B, M, E, Fd)
+    if key not in _FFN_WS:
+        out = (ctypes.c_longlong * 7)()
+        _build.check("fk_ffn_bwd_workspace", lib.fk_ffn_bwd_workspace(B, M, E, Fd, out))
+        _FFN_WS[key] = tuple(out)
+    return _FFN_WS[key]
 
 
 def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, keep_out):
     """The card's call (also run on CPU tensors against a model of the
     library in the tests): one library call launches the split into one
-    workspace (W1^T | W2^T, dres, z1, then dz1 beside h * keep_1 and a copy of
-    x beside dt2, dx, the LayerNorm tiles' sums, dgamma | dbeta, the
-    products' K slices), read back through strided views: on the card's
-    host every tensor op costs a few microseconds, the call's floor at these
-    shapes, so the two weight products are one batched product."""
+    workspace, read back through strided views: on the card's host every
+    tensor op costs a few microseconds, the call's floor at these shapes.
+    The library leaves the weight products' operands with a column of ones
+    each, lhs = [dz1 | 1], [h * keep_1 | 1] and rhs = [x | 1], [dt2 | 1],
+    so that one batched product lhs^T rhs gives both weight gradients and
+    both bias sums."""
     weights = [w1, b1, w2, b2, ln_scale, ln_bias]
     B, M, E = x.shape
     Fd = w1.shape[1]
     _check_ffn("ffn_sublayer_bwd", x, *weights)
     g = g.contiguous()
     _build.check_tensors("ffn_sublayer_bwd", [g, keep_hidden, keep_out], x.device)
-    R = B * M
-    RE, RF = R * E, R * Fd
-    sizes = (2 * E * Fd, RE, RF, RF, RF, RE, RE, RE, -(-R // FFN_BWD_LN_ROWS) * 2 * E, 2 * E,
-             -(-E // FFN_BWD_SLICE) * RF, -(-Fd // FFN_BWD_SLICE) * RE)
-    offs = [0]
-    for n in sizes[:-1]:
-        offs.append(offs[-1] + n)
-    ws = torch.empty(offs[-1] + sizes[-1], device=x.device, dtype=torch.float32)
-    base = ws.data_ptr()
-    err = _build.lib().fk_ffn_bwd(
+    R, E1, F1 = B * M, E + 1, Fd + 1
+    lib = _build.lib()
+    total, o_dx, o_lhs, ldl, o_rhs, ldr, o_dgb = _ffn_workspace(lib, B, M, E, Fd)
+    ws = torch.empty(total, device=x.device, dtype=torch.float32)
+    err = lib.fk_ffn_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        ln_scale.data_ptr(), _ptr(keep_hidden), _ptr(keep_out), g.data_ptr(),
-        *[base + 4 * o for o in offs], B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+        ln_scale.data_ptr(), _ptr(keep_hidden), _ptr(keep_out), g.data_ptr(), ws.data_ptr(),
+        B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
     _build.check("fk_ffn_bwd", err)
-    _, _, _, o_dz1, _, o_x, o_dt2, o_dx, _, o_dgb, _, _ = offs
-    # dW1 = x^T dz1 and dW2 = (h * keep_1)^T dt2 and the bias sums: outside, as in
-    # JAX; [dz1 | h * keep_1]^T [x | dt2] = [dW1^T | dW2] in one batched product
-    dw = torch.bmm(ws.as_strided((2, Fd, R), (RF, 1, Fd), o_dz1),
-                   ws.as_strided((2, R, E), (RE, E, 1), o_x))
-    return (ws.as_strided((B, M, E), (M * E, E, 1), o_dx), dw.as_strided((E, Fd), (1, E)),
-            ws.as_strided((R, Fd), (Fd, 1), o_dz1).sum(dim=0),
-            dw.as_strided((Fd, E), (E, 1), Fd * E), ws.as_strided((R, E), (E, 1), o_dt2).sum(dim=0),
+    # dW1 = x^T dz1, dW2 = (h * keep_1)^T dt2 and the bias sums, outside the
+    # kernels as in JAX: [[dW1^T, db1], .] and [[dW2, .], [db2, .]]
+    dw = torch.bmm(ws.as_strided((2, F1, R), (R * ldl, 1, ldl), o_lhs),
+                   ws.as_strided((2, R, E1), (R * ldr, ldr, 1), o_rhs))
+    return (ws.as_strided((B, M, E), (M * E, E, 1), o_dx), dw.as_strided((E, Fd), (1, E1)),
+            dw.as_strided((Fd,), (E1,), E), dw.as_strided((Fd, E), (E1, 1), F1 * E1),
+            dw.as_strided((E,), (1,), F1 * E1 + Fd * E1),
             *ws.as_strided((2, E), (E, 1), o_dgb).unbind(0))
 
 

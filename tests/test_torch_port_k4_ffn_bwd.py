@@ -1,22 +1,24 @@
 """K4's FFN backward on the port's split kernels, on the CPU.
 
 On the card the FFN sublayer's backward is one library call,
-``csrc/sa_layer.cu::fk_ffn_bwd``: W1^T, W2^T and a copy of x beside dt2 (the
-wrapper's two weight products become one batched product) by one launch, then
-its four products on the f32 FMA core over (32-row tile, 256-column chunk,
-K slice of 128) blocks of the batch's B * M token rows, each product's
-slices added in order by the step after it: z1 = x W1 + b1 and h * keep_1,
-as hk W2 stages its A operand; res = x + drop_2(hk W2 + b2), the LayerNorm
-backward (its column sums per 16-row tile) and dt2 on whole E rows; dz1 =
-(dt2 W2^T) * keep_1 * (z1 > 0), as dz1 W1^T stages it; dx = dz1 W1^T +
-dres, and the tiles' column sums added in tile order.  Here,
-without a card, ``FakeFFNLib`` (a model of that entry on the raw memory of
-CPU tensors) runs the split tile by tile, chunk by chunk and slice by
-slice; the port's call (``_ffn_bwd_card``) is held against JAX's
-``_ffn_bwd`` (the Pallas backward, interpret mode) and the plain version at
-(B, M) = (3, 11), (1, 300), (2, 200) and (8, 40), without dropout and with
-the port's replayed masks (JAX's kernel handed the same masks in place of
-its on-core draws).
+``csrc/sa_layer.cu::fk_ffn_bwd``, into a workspace that the library lays out
+and reports (``fk_ffn_bwd_workspace``): W1^T, W2^T, and x with the ones
+columns of the weight products' operands by one launch, then its four
+products on the f32 FMA core over (32-row tile, 256-column chunk, K slice
+of 128) blocks of the batch's B * M token rows, each product's slices added
+in order by the step after it: z1 = x W1 + b1 and h * keep_1, as hk W2
+stages its A operand; res = x + drop_2(hk W2 + b2), the LayerNorm backward
+(its column sums per 16-row tile) and dt2 on whole E rows; dz1 = (dt2 W2^T)
+* keep_1 * (z1 > 0), as dz1 W1^T stages it; dx = dz1 W1^T + dres, and the
+tiles' column sums added in tile order.  The wrapper takes both weight
+gradients and both bias sums from one batched product of the operands
+[dz1 | 1], [hk | 1] and [x | 1], [dt2 | 1].  Here, without a card,
+``FakeFFNLib`` (a model of both entries on the raw memory of CPU tensors)
+runs the split tile by tile, chunk by chunk and slice by slice; the port's
+call (``_ffn_bwd_card``) is held against JAX's ``_ffn_bwd`` (the Pallas
+backward, interpret mode) and the plain version at (B, M) = (3, 11), (1,
+300), (2, 200) and (8, 40), without dropout and with the port's replayed
+masks (JAX's kernel handed the same masks in place of its on-core draws).
 
 Tolerance: 2e-5 of max(1, the reference's largest value), as in K4's
 forward file: f32 products, sums in other orders.
@@ -38,33 +40,62 @@ TOL = 2e-5
 
 
 class FakeFFNLib:
-    """The FFN backward's entry, block by block over the batch's B * M token
-    rows; ``calls`` lists the entries run."""
+    """The FFN backward's entries: its workspace's layout, and the split
+    block by block over the batch's B * M token rows; ``calls`` lists the
+    splits run."""
 
     def __init__(self):
         self.calls = []
 
     ROWS, LN_ROWS, CHUNK, SLICE = 32, 16, 256, 128
 
-    def fk_ffn_bwd(self, x, w1, b1, w2, b2, gamma, keep_1, keep_2, g, wt, res, z1, dz1, hk,
-                   xcopy, dt2, dx, part, dgb, sa, sb, B, M, E, F, eps, stream):
+    def _layout(self, B, M, E, F):
+        """csrc/sa_layer.cu::ffn_workspace: each region's offset (64-float
+        steps), the operands' row strides, the total."""
+        R, at, off = B * M, 0, {}
+        ldl, ldr = F + 4, E + 4
+        for name, n in (("wt", 2 * E * F), ("res", R * E), ("dx", R * E), ("z1", R * F),
+                        ("lhs", 2 * R * ldl), ("rhs", 2 * R * ldr),
+                        ("part", -(-R // self.LN_ROWS) * 2 * E), ("dgb", 2 * E),
+                        ("sa", -(-E // self.SLICE) * R * F), ("sb", -(-F // self.SLICE) * R * E)):
+            off[name] = at
+            at += -(-n // 64) * 64
+        return off, ldl, ldr, at
+
+    def fk_ffn_bwd_workspace(self, B, M, E, F, out):
+        off, ldl, ldr, total = self._layout(B, M, E, F)
+        out[:] = [total, off["dx"], off["lhs"], ldl, off["rhs"], ldr, off["dgb"]]
+        return 0
+
+    def fk_ffn_bwd(self, x, w1, b1, w2, b2, gamma, keep_1, keep_2, g, ws, B, M, E, F, eps,
+                   stream):
         self.calls.append(("ffn_bwd",))
         R = B * M
+        off, ldl, ldr, total = self._layout(B, M, E, F)
+        WS = _view(ws, total)
+
+        def region(name, *shape):
+            n = int(np.prod(shape))
+            return WS[off[name]:off[name] + n].view(*shape)
+
         X, G = (_view(p, R * E).view(R, E) for p in (x, g))
         W1, W2 = _view(w1, E * F).view(E, F), _view(w2, F * E).view(F, E)
         bias1, bias2, gam = _view(b1, F), _view(b2, E), _view(gamma, E)
         K1 = _view(keep_1, R * F).view(R, F) if keep_1 else torch.ones(R, F)
         K2 = _view(keep_2, R * E).view(R, E) if keep_2 else torch.ones(R, E)
-        WT = _view(wt, 2 * E * F)
+        WT = region("wt", 2 * E * F)
         W1T, W2T = WT[:E * F].view(F, E), WT[E * F:].view(E, F)
-        RS, DT2, DX = (_view(p, R * E).view(R, E) for p in (res, dt2, dx))
-        Z, DZ, HK = (_view(p, R * F).view(R, F) for p in (z1, dz1, hk))
+        RS, DX, Z = region("res", R, E), region("dx", R, E), region("z1", R, F)
+        LHS, RHS = region("lhs", 2, R, ldl), region("rhs", 2, R, ldr)
+        DZ, HK, DT2 = LHS[0, :, :F], LHS[1, :, :F], RHS[1, :, :E]
         tiles, ln_tiles = -(-R // self.ROWS), -(-R // self.LN_ROWS)
-        PART = _view(part, ln_tiles * 2 * E).view(ln_tiles, 2, E)
-        SA = _view(sa, -(-E // self.SLICE) * R * F)
-        SB = _view(sb, -(-F // self.SLICE) * R * E)
+        PART = region("part", ln_tiles, 2, E)
+        SA = region("sa", -(-E // self.SLICE) * R * F)
+        SB = region("sb", -(-F // self.SLICE) * R * E)
         W1T[:], W2T[:] = W1.t(), W2.t()
-        _view(xcopy, R * E)[:] = X.reshape(-1)
+        RHS[0, :, :E] = X
+        LHS[:, :, F] = 1.0
+        RHS[:, :, E] = 1.0
         rows = [slice(i * self.ROWS, min(R, (i + 1) * self.ROWS)) for i in range(tiles)]
 
         def chunks(n, w):
@@ -101,7 +132,7 @@ class FakeFFNLib:
             DT2[r] = d * K2[r]
         DZ[:] = torch.where(Z > 0, sliced(DT2, W2T, SA) * K1, 0.0)  # dz1, staged likewise
         DX[:] = sliced(DZ, W1T, SB) + RS  # dz1 W1^T's slices, + dres
-        out = _view(dgb, 2 * E).view(2, E)  # the tiles' sums in tile order
+        out = region("dgb", 2, E)  # the tiles' sums in tile order
         out[:] = 0.0
         for i in range(ln_tiles):
             out += PART[i]
