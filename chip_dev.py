@@ -9,7 +9,9 @@
         run, ``k2k4`` for K2's flash backward and K4's SA forward at theirs,
         ``k2sx`` for K2's small-X forward and backward at theirs,
         ``k8ffn`` for K8e (the int8 MS-TCN++ tower) and K4's FFN backward
-        at theirs with K6's serving form at Breakfast's 4 x 4096 x 512:
+        at theirs with K6's serving form at Breakfast's 4 x 4096 x 512,
+        ``ffn_sublayer_fwd`` for K4's FFN forward (the row ``ffn_sublayer``)
+        and ``k4k5`` for it and K5's forward (``frame_loss_fwd``):
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -51,12 +53,20 @@
         (the per-video products inside the backward) and the X side's
         cotangents, against the plain versions in float64.
 
+    python3 chip_dev.py ffn-f64 [TREE]
+        The same for K4's FFN forward without dropout (the flagship's B=8,
+        M=40, E=256, epic's B=1, M=300, E=256 and Breakfast's B=4, M=60,
+        E=512; F=512) of the package in TREE: y, the kernel's and the f32
+        plain version's, against the plain version in float64.
+
     python3 chip_dev.py ffn-host [TREE]
-        K4's FFN backward (``ffn_sublayer_bwd``) of the package in TREE at
-        the flagship's B=8, M=40 (dropout 0.2) and epic's B=1, M=300, E=256,
-        F=512: the wrapper's host time a call (200 calls, no sync), the
-        CUDA-event time a call, and the device busy time a call from
-        ``torch.profiler`` with its kernels.
+        K4's FFN backward (``ffn_sublayer_bwd``) and forward
+        (``ffn_sublayer_fwd``) of the package in TREE at the flagship's B=8,
+        M=40 (the backward with dropout 0.2) and epic's B=1, M=300, E=256,
+        F=512, and K5's forward at the flagship's 8 x 3072 x 75: the
+        wrapper's host time a call (200 calls, no sync), the CUDA-event time
+        a call, and the device busy time a call from ``torch.profiler`` with
+        its kernels.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -97,7 +107,10 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            # K8e and K4's FFN backward at the cases their parent runs too (it refused
            # widths of no multiple of 32), beside K6's serving form at Breakfast's shape
            "k8ffn": ["mstcn2_stack_q8:breakfast,ragged,epic", "ffn_sublayer_bwd",
-                     "mstcn2_stack:bf_full"]}
+                     "mstcn2_stack:bf_full"],
+           # K4's FFN forward (its phase-3 row is ffn_sublayer) and K5's forward
+           "ffn_sublayer_fwd": ["ffn_sublayer"],
+           "k4k5": ["ffn_sublayer", "frame_loss_fwd"]}
 
 
 def ab(parent: str, names):
@@ -346,8 +359,32 @@ def k2sx_f64(seed: int = 0):
     return 0
 
 
+def ffn_f64(tree: str = REPO, seed: int = 0):
+    """K4's FFN forward (no dropout) of the package in ``tree`` and its f32
+    plain version against the plain version in float64: max, rms and
+    coherent error of y."""
+    import torch
+
+    cs = _chip_smoke(tree)
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    for tag, (B, M, E) in {"flagship": (8, 40, 256), "epic": (1, 300, 256),
+                           "breakfast": (4, 60, 512)}.items():
+        args = cs.ffn_case(rng, B, M, E, 512)
+        with torch.no_grad():
+            ref = sl.ffn_sublayer_reference(*[t.double() for t in args])
+            runs = {"kernel": sl.ffn_sublayer_fwd(*args), "plain": sl.ffn_sublayer_reference(*args)}
+        for name, y in runs.items():
+            print(f"[ffn-f64] {os.path.relpath(os.path.abspath(tree), REPO)} {tag} {name:<6} vs "
+                  f"float64: y {_stats(y, ref, one)}", flush=True)
+    return 0
+
+
 def ffn_host(tree: str = REPO, seed: int = 0):
-    """The FFN backward's host time, event time and device busy time a call."""
+    """The host time, event time and device busy time a call of K4's FFN
+    backward and forward and of K5's forward."""
     import time
 
     import torch
@@ -355,8 +392,14 @@ def ffn_host(tree: str = REPO, seed: int = 0):
 
     cs = _chip_smoke(tree)
     rng = np.random.default_rng(seed)
-    for tag, (B, M, rate) in {"flagship": (8, 40, 0.2), "epic": (1, 300, 0.0)}.items():
-        kern = cs.ffn_bwd_case(rng, B, M, 256, 512, rate)[0]
+    cases = {"bwd flagship": lambda: cs.ffn_bwd_case(rng, 8, 40, 256, 512, 0.2),
+             "bwd epic": lambda: cs.ffn_bwd_case(rng, 1, 300, 256, 512, 0.0),
+             "fwd flagship": lambda: cs.ffn_fwd_case(rng, 8, 40, 256, 512, 0.2),
+             "fwd epic": lambda: cs.ffn_fwd_case(rng, 1, 300, 256, 512),
+             "k5 flagship": lambda: cs.frame_loss_case(rng, False, 8, 3072, 75,
+                                                       cs.FLAGSHIP_LENGTHS)}
+    for tag, make in cases.items():
+        kern = make()[0]
         n = 200
         for _ in range(10):
             kern()
@@ -391,6 +434,8 @@ def main(argv):
         return k3_f64(*argv[1:])
     if argv[:1] == ["k2-f64"] and len(argv) <= 2:
         return k2_f64(*argv[1:])
+    if argv[:1] == ["ffn-f64"] and len(argv) <= 2:
+        return ffn_f64(*argv[1:])
     if argv[:1] == ["ffn-host"] and len(argv) <= 2:
         return ffn_host(*argv[1:])
     if argv == ["k2sx-f64"]:

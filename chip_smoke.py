@@ -33,13 +33,20 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    K6 at Breakfast's and epic's shapes, K1, K3, K2's flash backward and
    K2's small-X forward and backward at the flagship's, K4's SA forward
    with dropout 0.2 at epic's and the flagship's, K8e at Breakfast's and
-   epic's, K4's FFN backward with dropout 0.2 at epic's).
+   epic's, K4's FFN backward and forward with dropout 0.2 at epic's, the
+   forward also at the flagship's, K5's forward at the flagship's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
    backward of that pair), and so do K2's small-X rows (the same X2Y
-   function) and K4's SA forward rows (``torch.matmul`` on [Wq | Wk] and
-   Wv, SDPA, ``torch.matmul`` on Wo, ``F.layer_norm``); no PyTorch call
+   function), K4's SA rows (``torch.matmul`` on [Wq | Wk] and Wv, SDPA,
+   ``torch.matmul`` on Wo, ``F.layer_norm``; the backward that
+   composition's autograd backward), K4's FFN rows (``F.linear``,
+   ``F.relu``, the keep_1 product, ``F.linear``, the keep_2 product, ``+
+   x``, ``F.layer_norm``; the backward its autograd backward) and K5's
+   (``F.log_softmax``, ``gather`` of the labels, the class-weight and mask
+   products, the clipped squared differences of consecutive rows, the
+   per-video sums; the backward its autograd backward); no PyTorch call
    computes the other fused functions (K6: two dilated conv3s, the split
    fuse, the ReLU, the mask and the out projection), so their
    ``library_ms`` is null.  K2's flash backward runs the projection's
@@ -79,7 +86,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    forwards and backwards at M=300 (the SA backward's tiled blocks also at
    M=200, the ragged B=3, M=11 and the flagship shape, each with and
    without dropout; the FFN backward's split also at egoprocel's B=1,
-   M=200 and Breakfast's B=4, M=60, E=512), K2 small-X over 256 segment keys (f2a, forward and
+   M=200 and Breakfast's B=4, M=60, E=512, the forward's at egoprocel's
+   B=2, M=200 and Breakfast's B=8, M=60, E=512; both also at E=42, F=84
+   and E=64, F=2304), K5's forward also at a video of no valid frame and
+   one shorter than a 64-row chunk, K2 small-X over 256 segment keys (f2a, forward and
    backward) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
    The int8 rows (K8, ``TPU.quantize_infer: "int8"``): the int8 MSTCN tower
    at 8 x 3072 x 256, 10 layers, no LN, at a ragged B=3, T=600 (600 / 517 /
@@ -221,6 +231,7 @@ MIN_AGREE = 0.95  # share of valid frames whose final prediction agrees
 TRAIN_LOSS_TOL = 1e-4  # relative, kernel-path vs plain-path train loss
 GRAD_TOL = 1e-3  # per parameter, max |kernel - plain| / max |plain| and the same in norm
 FLOOR_K = 2.0  # the element-wise limit is max(GRAD_TOL, FLOOR_K x the paths' own floor)
+RELU_TIE = 2.0 ** -20  # a ReLU input within this share of |x| |W1| + |b1| of 0: a tie (16 ulp)
 COMPARE_SEEDS = (1, 2, 3)  # the weight seeds of each kernel-vs-plain training comparison
 SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                    "ffn_sublayer")
@@ -631,19 +642,8 @@ def sdpa_library(q_in, x_in, wq, wk, wv, x_len, H, rate=0.0, g=None):
             q.view(B, M, H, hd).transpose(1, 2), kv[:, :, 0].transpose(1, 2),
             kv[:, :, 1].transpose(1, 2), attn_mask=mask, dropout_p=rate)
 
-    wkv = torch.cat([wk, wv], dim=1)
-    if g is None:
-        return lambda: run(q_in, x_in, wkv)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q_in, x_in, wkv)]
-    with torch.enable_grad():
-        out = run(*leaves)
-    gh = g.view(B, M, H, hd).transpose(1, 2)
-
-    def backward():
-        with torch.enable_grad():
-            return torch.autograd.grad(out, leaves, gh, retain_graph=True)
-
-    return backward
+    gh = g.view(B, M, H, hd).transpose(1, 2) if g is not None else None
+    return _autograd_library(run, [q_in, x_in, torch.cat([wk, wv], dim=1)], gh)
 
 
 def mha_case(rng, B, M, X, E, Cx, x_len, pos):
@@ -718,12 +718,34 @@ def sa_fwd_case(rng, B, M, E, H, rate=0.0):
             work, None, sa_library(*args, H, rate))
 
 
-def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rate=0.0):
+def _autograd_library(run, inputs, g):
+    """``run()`` itself (no ``g``), or the autograd backward of
+    ``run(*leaves)`` (leaves: detached copies of ``inputs``) for the
+    cotangents ``g``, its graph built once: the library yardstick of a
+    backward."""
+    import torch
+
+    if g is None:
+        return lambda: run(*inputs)
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        out = run(*leaves)
+    outs, gs = (list(out), list(g)) if isinstance(out, tuple) else ([out], [g])
+
+    def backward():
+        with torch.enable_grad():
+            return torch.autograd.grad(outs, leaves, gs, retain_graph=True)
+
+    return backward
+
+
+def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rate=0.0, g=None):
     """The library yardstick of the SA sublayer's forward: ``torch.matmul``
     of (x + pos) on [Wq | Wk] and of x on Wv, ``F.scaled_dot_product_attention``
     (dropout on the probabilities), ``torch.matmul`` on Wo and
-    ``F.layer_norm`` of the residual (TF32 off; the output dropout left out).
-    Timed here, used nowhere in the port."""
+    ``F.layer_norm`` of the residual (TF32 off; the output dropout left out);
+    with ``g``, its autograd backward to x and every weight ([Wq | Wk] as
+    one).  Timed here, used nowhere in the port."""
     import torch
     import torch.nn.functional as F
 
@@ -731,7 +753,7 @@ def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rat
     hd = E // H
     wqk, bqk = torch.cat([wq, wk], dim=1), torch.cat([bq, bk])
 
-    def run():
+    def run(x, wqk, bqk, wv, bv, wo, bo, ln_scale, ln_bias):
         qk = torch.matmul(x + pos, wqk) + bqk
         v = torch.matmul(x, wv) + bv
         heads = lambda t: t.view(B, M, H, hd).transpose(1, 2)  # noqa: E731
@@ -740,7 +762,7 @@ def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rat
         o = torch.matmul(ctx.transpose(1, 2).reshape(B, M, E), wo) + bo
         return F.layer_norm(x + o, (E,), ln_scale, ln_bias, 1e-6)
 
-    return run
+    return _autograd_library(run, [x, wqk, bqk, wv, bv, wo, bo, ln_scale, ln_bias], g)
 
 
 def sa_bwd_case(rng, B, M, E, H, rate=0.2):
@@ -752,7 +774,8 @@ def sa_bwd_case(rng, B, M, E, H, rate=0.2):
     kw = dict(num_heads=H, keep_attn=ka, keep_out=ko)
     work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g, ka, ko) + nbytes(args))
     return (lambda: sl.sa_sublayer_bwd(*args, g, **kw),
-            lambda: sl.sa_sublayer_bwd_reference(*args, g, **kw), work)
+            lambda: sl.sa_sublayer_bwd_reference(*args, g, **kw), work, None,
+            sa_library(*args, H, rate, g))
 
 
 def ffn_case(rng, B, M, E, Fd, away_from_zero=False):
@@ -788,7 +811,30 @@ def ffn_fwd_case(rng, B, M, E, Fd, rate=0.0):
     seed, k1, k2 = _ffn_masks(rng, B, M, E, Fd, rate)
     work = (B * 4 * M * E * Fd, nbytes(args) + B * M * E * 4)
     return (lambda: sl.ffn_sublayer_fwd(*args, rate=rate, seed=seed),
-            lambda: sl.ffn_sublayer_reference(*args, keep_hidden=k1, keep_out=k2), work)
+            lambda: sl.ffn_sublayer_reference(*args, keep_hidden=k1, keep_out=k2), work, None,
+            ffn_library(*args, k1, k2))
+
+
+def ffn_library(x, w1, b1, w2, b2, ln_scale, ln_bias, keep_1, keep_2, g=None):
+    """The library yardstick of the FFN sublayer: ``F.linear``, ``F.relu``,
+    the keep_1 product, ``F.linear``, the keep_2 product, ``+ x`` and
+    ``F.layer_norm`` (TF32 off; the masks given, where the kernel draws
+    them); with ``g``, its autograd backward to x and every weight.  Timed
+    here, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    E = x.shape[-1]
+
+    def run(x, w1, b1, w2, b2, ln_scale, ln_bias):
+        h = F.relu(F.linear(x, w1.t(), b1))
+        if keep_1 is not None:
+            h = h * keep_1
+        o = F.linear(h, w2.t(), b2)
+        if keep_2 is not None:
+            o = o * keep_2
+        return F.layer_norm(o + x, (E,), ln_scale, ln_bias, 1e-6)
+
+    return _autograd_library(run, [x, w1, b1, w2, b2, ln_scale, ln_bias], g)
 
 
 def ffn_bwd_case(rng, B, M, E, Fd, rate=0.2):
@@ -800,7 +846,8 @@ def ffn_bwd_case(rng, B, M, E, Fd, rate=0.2):
     kw = dict(keep_hidden=k1, keep_out=k2)
     work = (B * 12 * M * E * Fd, nbytes(args, g, k1, k2) + nbytes(args))
     return (lambda: sl.ffn_sublayer_bwd(*args, g, **kw),
-            lambda: sl.ffn_sublayer_bwd_reference(*args, g, **kw), work)
+            lambda: sl.ffn_sublayer_bwd_reference(*args, g, **kw), work, None,
+            ffn_library(*args, k1, k2, g))
 
 
 def frame_loss_case(rng, backward, B, T, C, lengths, with_ce=True):
@@ -822,9 +869,32 @@ def frame_loss_case(rng, backward, B, T, C, lengths, with_ce=True):
         g = (_rand(rng, (B,)), _rand(rng, (B,)))
         return (lambda: fl.frame_loss_bwd(*args, *g),
                 lambda: fl.frame_loss_bwd_reference(*args, *g),
-                (12 * N * C, nbytes(args, g) + nbytes(x)))
+                (12 * N * C, nbytes(args, g) + nbytes(x)), None,
+                frame_loss_library(*args, g if with_ce else g[1]))
     return (lambda: fl.frame_loss_fwd(*args), lambda: fl.frame_loss_reference(*args),
-            (12 * N * C, nbytes(args) + 2 * B * 4))
+            (12 * N * C, nbytes(args) + 2 * B * 4), None, frame_loss_library(*args))
+
+
+def frame_loss_library(x, labels, maskf, cw, g=None):
+    """The library yardstick of K5: ``F.log_softmax``, ``gather`` of the
+    labels, the class-weight and mask products, the clipped squared
+    difference of consecutive rows and the per-video ``sum``s; with ``g``,
+    its autograd backward to the logits.  Timed here, used nowhere in the
+    port."""
+    import torch.nn.functional as F
+
+    pm = maskf[:, 1:] * maskf[:, :-1]
+    lab = labels.long()[..., None] if labels is not None else None
+    w = cw[labels.long()] * maskf if labels is not None else None
+
+    def run(x):
+        ls = F.log_softmax(x, dim=-1)
+        sl = ((ls[:, 1:] - ls[:, :-1]).square().clamp(max=16.0).sum(-1) * pm).sum(1)
+        if lab is None:
+            return sl
+        return -(ls.gather(-1, lab)[..., 0] * w).sum(1), sl
+
+    return _autograd_library(run, [x], g)
 
 
 def mask_case(rng, kind, shape, rate=0.2):
@@ -1273,7 +1343,13 @@ def kernel_table():
           ("flag_drop", lambda r: ffn_fwd_case(r, B, 40, 256, 512, 0.2)),
           ("rag_drop", lambda r: ffn_fwd_case(r, 3, 11, 256, 512, 0.2)),
           ("epic", lambda r: ffn_fwd_case(r, 1, 300, E, 512)),
-          ("epic_b3", lambda r: ffn_fwd_case(r, 3, 300, E, 512))]),
+          ("epic_b3", lambda r: ffn_fwd_case(r, 3, 300, E, 512)),
+          # egoprocel's B=2, M=200 and Breakfast's B=8, M=60, E=512 (a_ffdim 512 both)
+          ("ego", lambda r: ffn_fwd_case(r, 2, 200, E, 512)),
+          ("breakfast", lambda r: ffn_fwd_case(r, 8, 60, D, 512)),
+          # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
+          ("e42", lambda r: ffn_fwd_case(r, 2, 37, 42, 84, 0.2)),
+          ("f2304", lambda r: ffn_fwd_case(r, 1, 64, 64, 2304))]),
         # the training path's masks and backwards, and K5
         ("mstcn_dropout_mask", csrc + "dropout.cu", pallas + "dilated_conv.py:97", "mask",
          [("flagship", lambda r: mask_case(r, "k1", (B, T, 256))),
@@ -1351,7 +1427,10 @@ def kernel_table():
         ("frame_loss_fwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:185", "rel",
          [("flagship", lambda r: frame_loss_case(r, False, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, False, B, T, 40, FLAGSHIP_LENGTHS, False)),
-          ("ragged", lambda r: frame_loss_case(r, False, 2, 1000, 37, [1000, 777]))]),
+          ("ragged", lambda r: frame_loss_case(r, False, 2, 1000, 37, [1000, 777])),
+          # a video of no valid frame, one shorter than a row chunk; T shorter than one
+          ("len0", lambda r: frame_loss_case(r, False, 3, 1000, 75, [1000, 0, 50])),
+          ("short", lambda r: frame_loss_case(r, False, 2, 90, 40, [90, 0]))]),
         ("frame_loss_bwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:212", "rel",
          [("flagship", lambda r: frame_loss_case(r, True, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, True, B, T, 40, FLAGSHIP_LENGTHS, False)),
@@ -1544,7 +1623,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4 and K8e case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5 and K8e case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1566,7 +1645,9 @@ def k6_repeat_check(seed: int = 0):
     Breakfast's 4 x 4096 x 512 and epic's 1 x 24,576 x 256 (its output and
     its group and tile maxima: the wgmma ring, the atomicMax of the maxima);
     K4's FFN backward with dropout 0.2 at epic's B=1, M=300 (the split
-    kernels, the per-tile LayerNorm sums)."""
+    kernels, the per-tile LayerNorm sums) and its forward with dropout 0.2
+    there and at the flagship's B=8, M=40; K5's forward at the flagship's
+    8 x 3072 x 75 (its chunks' partials summed in chunk order)."""
     import torch
 
     def tensors(out):
@@ -1600,7 +1681,10 @@ def k6_repeat_check(seed: int = 0):
              ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)),
              ("k8e_bf", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)),
              ("k8e_epic", lambda: k8e_case(rng, 1, EPIC_T, 256, 10, [EPIC_T])),
-             ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2)))
+             ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2)),
+             ("ffn_epic", lambda: ffn_fwd_case(rng, 1, 300, 256, 512, 0.2)),
+             ("ffn_flag", lambda: ffn_fwd_case(rng, 8, 40, 256, 512, 0.2)),
+             ("k5_fwd", lambda: frame_loss_case(rng, False, 8, 3072, 75, FLAGSHIP_LENGTHS)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1616,7 +1700,7 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4 or K8e gives different bits on the same "
+        raise AssertionError(f"a tower, K2, K3, K4, K5 or K8e gives different bits on the same "
                              f"inputs: {failed}")
 
 
@@ -1975,6 +2059,116 @@ class SharedSegmentation:
                          for p, (f, n, bad) in self.differ.items())
 
 
+class FfnRelus:
+    """The FFN sublayers' inputs of a run, in call order, recorded by patching
+    ``models.layers._ffn`` (the plain sublayer) and ``models.layers.
+    ffn_sublayer`` (K4's); and a replay of the plain path that puts each
+    proven ReLU tie on the kernel path's side.
+
+    A ReLU input within rounding of 0 can fall on either side in the two
+    paths (their inputs differ by ~16 ulp), and its flip moves a row of
+    linear1's gradient, and every gradient upstream of it, by far more than
+    rounding.  A flip is a unit whose float64 pre-activation, recomputed
+    from each path's own recorded input, has opposite signs on the two
+    paths; it is a proven tie when on both paths it lies within RELU_TIE of
+    that path's magnitude sum |x| |W1| + |b1|, which must be positive.  The
+    replay keeps every other bit of the plain path; the kernel path is held
+    against it with the same limits as against the plain path."""
+
+    def __init__(self):
+        self.runs = {}
+
+    def record(self, path):
+        import contextlib
+
+        from fact_clip_tpu_torch.models import layers
+
+        @contextlib.contextmanager
+        def patched():
+            orig_ffn, orig_k4 = layers._ffn, layers.ffn_sublayer
+            calls = self.runs[path] = []
+
+            def ffn(layer, tgt, norm, generator):
+                calls.append((layer, tgt.detach().clone()))
+                return orig_ffn(layer, tgt, norm, generator)
+
+            def k4(y, *args, **kw):
+                calls.append((None, y.detach().clone()))
+                return orig_k4(y, *args, **kw)
+
+            layers._ffn, layers.ffn_sublayer = ffn, k4
+            try:
+                yield
+            finally:
+                layers._ffn, layers.ffn_sublayer = orig_ffn, orig_k4
+
+        return patched()
+
+    def ties(self):
+        """({call: (tie mask, kernel side)}, flips, proven ties, text) of the
+        kernel run against the plain run; ({}, -1, 0, "") where their calls
+        do not pair up.  The text gives, for each call with a tie, how far
+        the kernel path's input is off the plain path's, coherently (along
+        the sign of x) and in rms, as shares of mean |x|: a tie met through
+        a coherent bias (a truncating tensor-core sum makes one) shows
+        there."""
+        pp, pk = self.runs["plain"], self.runs["kernels"]
+        if len(pp) != len(pk) or any(a[1].shape != b[1].shape for a, b in zip(pp, pk)):
+            return {}, -1, 0, ""
+        forced, flips, proven, text = {}, 0, 0, []
+        for i, ((layer, xp), (_, xk)) in enumerate(zip(pp, pk)):
+            w = layer.linear1.weight.detach().double().t()
+            b = layer.linear1.bias.detach().double()
+            zp, zk = xp.double() @ w + b, xk.double() @ w + b
+            mp, mk = xp.double().abs() @ w.abs() + b.abs(), xk.double().abs() @ w.abs() + b.abs()
+            flip = (zp > 0) != (zk > 0)
+            tie = (flip & (mp > 0) & (mk > 0) & (zp.abs() <= RELU_TIE * mp)
+                   & (zk.abs() <= RELU_TIE * mk))
+            flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
+            if bool(tie.any()):
+                forced[i] = (tie, (zk > 0).to(xp.dtype))
+                d, ax = xk.double() - xp.double(), xp.double().abs().mean()
+                text.append(f"FFN call {i}: input off coherently "
+                            f"{float((d * xp.double().sign()).mean() / ax):+.2e}, rms "
+                            f"{float(d.pow(2).mean().sqrt() / ax):.2e}")
+        return forced, flips, proven, "; ".join(text)
+
+    @staticmethod
+    def replay(forced):
+        """The plain sublayer with the ReLU of each unit in ``forced[call]``'s
+        mask on the given side (1: passes z, 0: gives 0)."""
+        import contextlib
+        import itertools
+
+        import torch
+
+        from fact_clip_tpu_torch.models import layers
+
+        @contextlib.contextmanager
+        def patched():
+            orig = layers._ffn
+            count = itertools.count()
+
+            def ffn(layer, tgt, norm, generator):
+                force = forced.get(next(count))
+                if force is None:
+                    return orig(layer, tgt, norm, generator)
+                mask, side = force
+                z = layer.linear1(tgt)
+                h = torch.where(mask, z * side, torch.relu(z))
+                ff = layers._drop(layer, generator, h, layer.dropout)
+                return norm(tgt + layers._drop(layer, generator, layer.linear2(ff),
+                                               layer.dropout))
+
+            layers._ffn = ffn
+            try:
+                yield
+            finally:
+                layers._ffn = orig
+
+        return patched()
+
+
 def _matching_gaps(sk, sp, ck, cp, nsegs):
     """[(video, gap, limit)] for each video whose two matchings differ.  gap =
     the kernel path's cost of the plain matching less that of its own.  If
@@ -2018,7 +2212,11 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
     each path is also run against itself on features moved by about one ulp
     (its own floor), and the element-wise check is held to the larger of
     GRAD_TOL and FLOOR_K times the larger floor; the norm check, which one
-    flipped row barely moves, is held to GRAD_TOL."""
+    flipped row barely moves, is held to GRAD_TOL.  Where the element check
+    fails and every FFN ReLU that the paths put on opposite sides is a
+    proven tie (``FfnRelus``), the kernel path is held to the same limits
+    against the plain path replayed with those ReLUs on its side; one flip
+    that is not proven fails the seed."""
     import contextlib
 
     import torch
@@ -2037,11 +2235,15 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
         nudge = torch.randn(batch["feats"].shape, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed))
         nudged = dict(batch, feats=batch["feats"] * (1.0 + 2.0 ** -23 * nudge))
-        res, sp = {}, None
+        res, sp, relus = {}, None, FfnRelus()
         for path, b in (("plain", batch), ("kernels", batch), ("plain_nudged", nudged),
                         ("kernels_nudged", nudged)):
             ref.set_kernels(path.startswith("kernels"))
-            with seg.run(path) if seg is not None else contextlib.nullcontext():
+            with contextlib.ExitStack() as stack:
+                if seg is not None:
+                    stack.enter_context(seg.run(path))
+                if path in ("plain", "kernels"):
+                    stack.enter_context(relus.record(path))
                 per_video, s2t, saves = step0.loss(b, gen, seg2tok=sp)
             loss = per_video.mean()
             names, params = zip(*ref.named_parameters())
@@ -2051,35 +2253,59 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
             sp = s2t
             del saves
             res[path] = (float(loss.detach()), grads)
-        del ref, step0
         (lk, gk), (lp, gp) = res["kernels"], res["plain"]
-        (sk, ck, nsegs), (sp, cp, _) = res["kernels_match"], res["plain_match"]
-        gaps = _matching_gaps(sk, sp, ck, cp, nsegs)
+        (sk, ck, nsegs), (sp_own, cp, _) = res["kernels_match"], res["plain_match"]
+        gaps = _matching_gaps(sk, sp_own, ck, cp, nsegs)
         matched = ("equal" if not gaps else "differs in videos " + ", ".join(
             f"{b} (cost gap {gap:.3e}, tie limit {limit:.3e})" for b, gap, limit in gaps))
         if o2m:
-            differ = sum(int((sk[b, :int(n)] != sp[b, :int(n)]).sum())
+            differ = sum(int((sk[b, :int(n)] != sp_own[b, :int(n)]).sum())
                          for b, n in enumerate(nsegs))
             matched = f"o2m {matched}, {differ} of {int(nsegs.sum())} segments differ"
-        if seg is not None:
-            matched += f"; own TDU picks differ from the shared ones on {seg.text()}"
         top = max(float(g.abs().max()) for g in gp)
         (elem, elem_n), (norm, norm_n) = _grad_errors(names, gk, gp, top)
         (fp, fp_n), (fpn, _) = _grad_errors(names, res["plain_nudged"][1], gp, top)
         (fk, fk_n), (fkn, _) = _grad_errors(names, res["kernels_nudged"][1], gk, top)
-        del res
-        torch.cuda.empty_cache()
+        del res["plain_nudged"], res["kernels_nudged"]
         elem_tol = max(GRAD_TOL, FLOOR_K * max(fp, fk))
         loss_err = abs(lk - lp) / abs(lp)
+        replayed, elem_ok = "", elem <= elem_tol
+        if not elem_ok:
+            # the element check against the plain path with the proven ReLU ties
+            # on the kernel path's side (FfnRelus); an unproven flip fails it
+            forced, flips, proven, where = relus.ties()
+            replayed = f"; ReLU flips {flips}, proven ties {proven}" + (
+                f" ({where})" if where else "")
+            if forced and flips == proven:
+                ref.set_kernels(False)
+                with contextlib.ExitStack() as stack:
+                    if seg is not None:
+                        stack.enter_context(seg.run("plain_ties"))
+                    stack.enter_context(relus.replay(forced))
+                    per_video, _, saves = step0.loss(batch, gen, seg2tok=sp)
+                del saves
+                lr = float(per_video.mean().detach())
+                gr = torch.autograd.grad(per_video.mean(), params)
+                (elem_r, elem_rn), (norm_r, norm_rn) = _grad_errors(names, gk, gr, top)
+                del gr
+                elem_ok = (elem_r <= elem_tol and norm_r <= GRAD_TOL
+                           and abs(lk - lr) / abs(lr) <= TRAIN_LOSS_TOL)
+                replayed += (f"; against the plain path with them on the kernel side: loss "
+                             f"{lr:.6f}, worst norm ratio {norm_r:.3e} ({norm_rn}), worst "
+                             f"element ratio {elem_r:.3e} ({elem_rn}; tol {elem_tol:.3e})")
+        del ref, step0, res, relus
+        torch.cuda.empty_cache()
+        if seg is not None:
+            matched += f"; own TDU picks differ from the shared ones on {seg.text()}"
         ties = all(abs(gap) <= limit for _, gap, limit in gaps) and (seg is None or seg.ok())
-        ok = loss_err <= TRAIN_LOSS_TOL and ties and norm <= GRAD_TOL and elem <= elem_tol
+        ok = loss_err <= TRAIN_LOSS_TOL and ties and norm <= GRAD_TOL and elem_ok
         log(f"[{tag}] weights seed {seed}, kernel vs plain path (dropout and masking off): "
             f"loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL:g}); own "
             f"matching {matched}; over {len(names)} parameters, largest gradient {top:.3e}: "
             f"worst norm ratio {norm:.3e} ({norm_n}; tol {GRAD_TOL:g}), worst element ratio "
-            f"{elem:.3e} ({elem_n}; tol {elem_tol:.3e}); each path against itself on features "
-            f"nudged by ~1 ulp: plain {fp:.3e} ({fp_n}; norm {fpn:.3e}), kernels {fk:.3e} "
-            f"({fk_n}; norm {fkn:.3e})" + ("" if ok else "  FAIL"))
+            f"{elem:.3e} ({elem_n}; tol {elem_tol:.3e}){replayed}; each path against itself on "
+            f"features nudged by ~1 ulp: plain {fp:.3e} ({fp_n}; norm {fpn:.3e}), kernels "
+            f"{fk:.3e} ({fk_n}; norm {fkn:.3e})" + ("" if ok else "  FAIL"))
         if not ok:
             failed.append(seed)
     if failed:

@@ -57,7 +57,8 @@ SIGNATURES = {
     "fk_x2y_sx_bwd": [P, P, L, I, P, P, L, I] + [P] * 11 + [I] * 6 + [F] + [P] * 13 + [I]
                      + [P] * 14 + [I] * 4 + [P],
     "fk_x2y_flash_attn_bwd": [P] * 8 + [I, I, I, I, F] + [P] * 3 + [I, P],
-    "fk_frame_loss_fwd": [P] * 6 + [I, I, I, P],
+    "fk_frame_loss_fwd": [P] * 5 + [I, I, I, P],
+    "fk_frame_loss_fwd_workspace": [I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
     "fk_x2y_sx_fwd": [P, P, L, I, P, P, L, I] + [P] * 7 + [I] * 6 + [F] + [P] * 10 + [I, P],
     "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
@@ -66,7 +67,8 @@ SIGNATURES = {
     "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P],
     "fk_sa_qkv": [P, P, I] + [P] * 7 + [I, I, I, P],
     "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
-    "fk_ffn_sublayer": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
+    "fk_ffn_fwd": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
+    "fk_ffn_fwd_workspace": [I, I, I, I, P],
     "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
     "fk_ffn_bwd": [P] * 10 + [I, I, I, I, F, P],
     "fk_ffn_bwd_workspace": [I, I, I, I, P],
@@ -167,6 +169,22 @@ def lib() -> ctypes.CDLL:
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+_WORKSPACES = {}  # (library, entry, dims) -> the entry's answer
+
+
+def workspace(library, entry: str, n: int, *dims: int) -> tuple:
+    """The first ``n`` numbers that the workspace entry ``entry`` (e.g.
+    ``fk_ffn_bwd_workspace``) reports for ``dims``: the floats of a call's
+    workspace as the library lays it out, then whatever offsets and strides
+    the entry gives.  Asked once a shape."""
+    key = (library, entry, dims)
+    if key not in _WORKSPACES:
+        out = (ctypes.c_longlong * n)()
+        check(entry, getattr(library, entry)(*dims, out))
+        _WORKSPACES[key] = tuple(out)
+    return _WORKSPACES[key]
 
 
 def no_grad_inputs(name: str, tensors) -> None:

@@ -16,17 +16,20 @@
 //
 // The TPU kernel tiles the time axis and reads each tile's neighbour rows
 // from strided boundary arrays.  Here a warp walks contiguous rows and keeps
-// the previous and next rows' log-softmax in registers, so the pair across a
-// tile boundary needs no second array.  Forward: one block per video, 16
-// warps over 16 contiguous row ranges, their sums added in a fixed order
-// (no atomics), one launch.  Backward: one block per (128 rows, video), 16
-// rows a warp, one launch.
+// the previous and next rows' log-softmax in registers; the pair across its
+// range's end recomputes the log-softmax of the next range's first row, as
+// JAX reads one boundary row a tile.  Forward: one block per (64-row chunk,
+// video), 8 rows a warp, each block's (ce, sl) partials (its warps' sums
+// added in warp order) into a buffer, then a second launch adds each video's
+// partials in chunk order: fixed orders, no atomics.  A block per video (16
+// warps walking 192 rows each in series at T=3072) left most of the 132 SMs
+// idle at B=8 and took 0.32 ms; 384 blocks hold every SM.  Backward: one
+// block per (128 rows, video), 16 rows a warp, one launch.
 //
 // Bound on the H100: memory.  The forward reads B*T*C floats once (7.4 MB at
-// B=8, T=3072, C=75) and the backward reads them and writes dx; the
-// forward's eight blocks at B=8 leave most SMs idle, which a first kernel
-// accepts (it is ~1% of a train step); 16 warps a block (512 threads, so
-// that the 32-float row windows stay in registers) shorten each warp's walk.
+// B=8, T=3072, C=75, 2.3 us at 3.35 TB/s) and the backward reads them and
+// writes dx; what the forward takes past that is each warp's chain of row
+// reductions (warp shuffles) and its two launches.
 #include <math.h>
 
 #include "common.cuh"
@@ -34,7 +37,8 @@
 namespace {
 
 constexpr int KMAX = 16;  // classes per lane: C <= 512
-constexpr int FWD_WARPS = 16;
+constexpr int FWD_ROWS = 8;  // rows per warp in the forward
+constexpr int FWD_CHUNK = fk::kWarps * FWD_ROWS;  // rows of a forward block
 constexpr int BWD_ROWS = 16;  // rows per warp in the backward
 
 // log_softmax of one row: v[j] = ls[lane + 32 j] for valid classes, 0 past C
@@ -57,19 +61,21 @@ __device__ __forceinline__ void row_ls(const float* __restrict__ row, int C, int
   for (int j = 0; j < KMAX; ++j) v[j] = lane + 32 * j < C ? v[j] - lse : 0.f;
 }
 
-__global__ void __launch_bounds__(FWD_WARPS * 32)
+// per (FWD_CHUNK-row chunk, video): warp w walks rows [t_lo, t_lo + 8) of
+// the chunk, the pair (t, t + 1) for each (t + 1 < T); the block's (ce, sl)
+// into part[b][chunk][0..1]
+__global__ void __launch_bounds__(fk::kThreads)
 frame_loss_fwd_kernel(const float* __restrict__ x, const int* __restrict__ labels,
                       const float* __restrict__ mk, const float* __restrict__ cw,
-                      float* __restrict__ ce_out, float* __restrict__ sl_out, int T, int C) {
-  __shared__ float red[2][FWD_WARPS];
+                      float* __restrict__ part, int T, int C) {
+  __shared__ float red[2][fk::kWarps];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x;
+  const int b = blockIdx.y;
   const float* xb = x + (size_t)b * T * C;
   const float* mb = mk + (size_t)b * T;
-  const int per = (T + FWD_WARPS - 1) / FWD_WARPS;
-  const int t_lo = w * per;
-  const int t_hi = min(T, t_lo + per);
+  const int t_lo = blockIdx.x * FWD_CHUNK + w * FWD_ROWS;
+  const int t_hi = min(T, t_lo + FWD_ROWS);
   float ce = 0.f, sl = 0.f;
   float cur[KMAX], nxt[KMAX];
   if (t_lo < t_hi) row_ls(xb + (size_t)t_lo * C, C, lane, cur);
@@ -99,15 +105,23 @@ frame_loss_fwd_kernel(const float* __restrict__ x, const int* __restrict__ label
     red[1][w] = sl;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float a = 0.f, s = 0.f;
-    for (int i = 0; i < FWD_WARPS; ++i) {
-      a += red[0][i];
-      s += red[1][i];
-    }
-    ce_out[b] = a;
-    sl_out[b] = s;
+  if (threadIdx.x < 2) {
+    float v = 0.f;
+    for (int i = 0; i < fk::kWarps; ++i) v += red[threadIdx.x][i];
+    part[((size_t)b * gridDim.x + blockIdx.x) * 2 + threadIdx.x] = v;
   }
+}
+
+// out[q * B + b] = the sum of video b's partials q (0: ce, 1: sl) in chunk order
+__global__ void __launch_bounds__(fk::kThreads)
+frame_loss_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int B,
+                      int chunks) {
+  const int i = blockIdx.x * fk::kThreads + threadIdx.x;
+  if (i >= 2 * B) return;
+  const float* p = part + (size_t)(i % B) * chunks * 2 + i / B;
+  float v = 0.f;
+  for (int c = 0; c < chunks; ++c) v += __ldg(p + 2 * c);
+  out[i] = v;
 }
 
 __global__ void __launch_bounds__(256)
@@ -170,15 +184,30 @@ frame_loss_bwd_kernel(const float* __restrict__ x, const int* __restrict__ label
   }
 }
 
+int fwd_chunks(int T) { return T > 0 ? (T + FWD_CHUNK - 1) / FWD_CHUNK : 1; }
+
 }  // namespace
 
+// The workspace fk_frame_loss_fwd needs for B videos of T rows, for its
+// callers: out[0] its floats, ce (B), sl (B), then the chunks' partials
+// (B, ceil(T / FWD_CHUNK), 2).
+extern "C" int fk_frame_loss_fwd_workspace(int B, int T, long long* out) {
+  out[0] = 2LL * B * (1 + fwd_chunks(T));
+  return 0;
+}
+
+// The forward into ws (fk_frame_loss_fwd_workspace's floats): ws[0:B] = ce,
+// ws[B:2B] = sl (ce 0 without labels), summed from the chunks' partials.
 extern "C" int fk_frame_loss_fwd(const float* x, const int* labels, const float* mk,
-                                 const float* cw, float* ce, float* sl, int B, int T, int C,
-                                 void* stream) {
+                                 const float* cw, float* ws, int B, int T, int C, void* stream) {
   if (C > 32 * KMAX) return (int)cudaErrorInvalidValue;
-  frame_loss_fwd_kernel<<<B, FWD_WARPS * 32, 0, (cudaStream_t)stream>>>(x, labels, mk, cw, ce,
-                                                                      sl, T, C);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int chunks = fwd_chunks(T);
+  float* part = ws + 2 * (size_t)B;
+  frame_loss_fwd_kernel<<<dim3(chunks, B), fk::kThreads, 0, st>>>(x, labels, mk, cw, part, T, C);
+  frame_loss_sum_kernel<<<(2 * B + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
+      part, ws, B, chunks);
+  return (int)cudaGetLastError();  // the first failed launch's error, if any
 }
 
 extern "C" int fk_frame_loss_bwd(const float* x, const int* labels, const float* mk,

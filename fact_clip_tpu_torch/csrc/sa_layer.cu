@@ -17,8 +17,11 @@
 // dropout, the residual and the LayerNorm over (32-row tile, video)
 // (sa_out_ln_kernel).  At B=1, M=300, H=8 that is 30, 80 and 10 blocks.
 // The intermediates (q, k, v, the context) go to buffers the wrapper
-// allocates: 1.2 MB a video at M=300, in L2.  The FFN forward stays one block
-// per video: its intermediate (the hidden rows) goes to a scratch buffer.
+// allocates: 1.2 MB a video at M=300, in L2.  The FFN forward takes its
+// backward's split (below): x W1 and hk W2 in K slices over (32-row tile,
+// column chunk) blocks of the batch's B * M rows, hk staged from the first
+// product's slices, then the residual and LayerNorm per 16-row tile; one
+// library call of three launches into a workspace the library lays out.
 //
 // Dropout: the TPU kernels draw from the on-core PRNG seeded per video
 // (sa_layer.py:138, :240).  Here a keep value is common.cuh's counter hash of
@@ -67,7 +70,9 @@
 //
 // Bound on the H100: latency.  A forward is 2*M*E*(4E) FLOPs per video (21
 // MFLOP at M=40, E=256; the backward about three times that).  The FFN
-// forward runs one SM per video: at B=8 only 8 of the 132 SMs have work.
+// forward's products give 40 blocks each at epic's B=1, M=300, E=256,
+// F=512 (its LayerNorm 19); the chain of its three launches, not the 0.16
+// GFLOP (2.3 us at 67 TFLOP/s), is its time.
 // The SA forward and backward at epic's B=1, M=300, H=8 give
 // each attention kernel 80 blocks and each row kernel 10 (forward) or 5
 // (backward); the backward's 0.75 GFLOP is 0.011 ms at 67 TFLOP/s; it
@@ -119,16 +124,6 @@ struct Rows {
     return v;
   }
 };
-
-// out = rows (M x N) @ W + bias, for all row tiles; a plain store
-__device__ __forceinline__ void project(const float* src, const float* pos, int Pp, int M, int K,
-                                        const float* __restrict__ W,
-                                        const float* __restrict__ bias, int N, float* out,
-                                        fk::GemmSmem<BM>& s) {
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{src, pos, Pp, r0, M, K}, W, K, N, r0, M,
-              [&](int r, int c, float v) { out[(size_t)r * N + c] = v + __ldg(bias + c); }, s);
-}
 
 // Per-row LayerNorm statistics (two-pass mean and 1/sqrt(var + eps)) of M
 // rows of width E, one warp per row, into mean[M], rstd[M].
@@ -197,57 +192,23 @@ __device__ __forceinline__ void ln_backward(float* res, const float* __restrict_
   }
 }
 
-__global__ void __launch_bounds__(fk::kThreads)
-ffn_sublayer_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                    const float* __restrict__ b1, const float* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* __restrict__ scratch,
-                    float* __restrict__ y, int M, int E, int F, float eps, fk::Dropout drop_1,
-                    fk::Dropout drop_2) {
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  const int b = blockIdx.x;
-  const float* xb = x + (size_t)b * M * E;
-  float* hb = scratch + (size_t)b * M * F;
-  float* yb = y + (size_t)b * M * E;
-  const uint32_t seed_1 = drop_1.load_seed();
-  const uint32_t seed_2 = drop_2.load_seed();
-
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{xb, nullptr, 0, r0, M, E}, w1, E, F, r0, M,
-              [&](int r, int c, float v) {
-                v = fmaxf(v + __ldg(b1 + c), 0.f);
-                if (drop_1.seed != nullptr)
-                  v *= drop_1.keep(((uint32_t)b * (uint32_t)M + (uint32_t)r) * (uint32_t)F +
-                                       (uint32_t)c, seed_1);
-                hb[(size_t)r * F + c] = v;
-              }, s);
-  __syncthreads();
-  for (int r0 = 0; r0 < M; r0 += BM)
-    rows_gemm(Rows{hb, nullptr, 0, r0, M, F}, w2, F, E, r0, M,
-              [&](int r, int c, float v) {
-                v += __ldg(b2 + c);
-                if (drop_2.seed != nullptr)
-                  v *= drop_2.keep(((uint32_t)b * (uint32_t)M + (uint32_t)r) * (uint32_t)E +
-                                       (uint32_t)c, seed_2);
-                yb[(size_t)r * E + c] = v + __ldg(xb + (size_t)r * E + c);
-              }, s);
-  __syncthreads();
-  fk::layer_norm_rows(yb, M, M, E, gamma, beta, eps);
-}
-
-// The FFN backward over (32-row tile, 256-column chunk, K slice of 128)
-// blocks of the batch's B * M token rows (every step works row by row: the
-// rows of all the videos are one row space, the dropout masks' indices
-// too), in the order of the one-block-per-video kernel it replaces (which
-// ran one SM at epic's batch of one).  Every product is the f32 FMA core's,
-// in K slices of 128 to blocks of their own, each writing its partial
-// product; the next step adds the partials in slice order: a 16-deep chunk
-// of the core costs about a microsecond of latency whatever its work, so a
-// 256- or 512-deep product in one block was the longest link of the chain.
-// The LayerNorm column sums go per row tile (fixed-order partials, added in
-// tile order by ffn_finish_kernel).  The workspace's layout is
-// ffn_workspace's alone: the entry and its callers read it from there.
+// The FFN forward and backward over (32-row tile, 256-column chunk, K slice
+// of 128) blocks of the batch's B * M token rows (every step works row by
+// row: the rows of all the videos are one row space, the dropout masks'
+// indices too).  A video a block, as the TPU kernels run, ran one SM of 132
+// at epic's batch of one (the forward 0.68 ms at M=300, the backward 1.47).
+// Every product is the f32 FMA core's, in K slices of 128 to blocks of
+// their own, each writing its partial product; the next step adds the
+// partials in slice order: a 16-deep chunk of the core costs about a
+// microsecond of latency whatever its work, so a 256- or 512-deep product in
+// one block was the longest link of the chain.  The forward is three
+// launches (x W1; hk W2, hk staged from the first product's slices; the
+// residual and the LayerNorm per 16-row tile), the backward six; both stage
+// z1 and hk with the same kernel in the same order, so the backward's
+// recomputed ReLU inputs are the forward's bit for bit.  The backward's
+// LayerNorm column sums go per row tile (fixed-order partials, added in tile
+// order by ffn_finish_kernel).  The workspaces' layout is ffn_workspace's
+// alone: the entries and their callers read it from there.
 constexpr int kFfnRows = 32;
 constexpr int kFfnSlice = 128;  // K of one partial product
 constexpr int kLnRows = 16;     // token rows of a LayerNorm block
@@ -264,9 +225,11 @@ __device__ __forceinline__ float slice_sum(const float* __restrict__ part, size_
 // Where a K-slice product's A operand comes from: a panel (x, dt2); or the
 // step that follows the product before it, done as the elements are
 // staged: hk = relu(z1) * keep_1 with z1 = (x W1's slices) + b1, or dz1 =
-// (dt2 W2^T's slices) * keep_1 * (z1 > 0).  The blocks of the first column
-// chunk also write what they stage (z1 and hk, or dz1): every other block
-// recomputes the same values, so no step waits for another.
+// (dt2 W2^T's slices) * keep_1 * (z1 > 0).  The backward's blocks of the
+// first column chunk also write what they stage (z1 and hk, or dz1): every
+// other block recomputes the same values, so no step waits for another.
+// keep_1 is the backward's mask tensor or, in the forward, hashed inline
+// (FFN stream 0 over (B, M, F), the bits of ffn_dropout_masks).
 enum FfnA { kPanel = 0, kHidden = 1, kDz1 = 2 };
 
 struct FfnSlice {
@@ -276,22 +239,25 @@ struct FfnSlice {
   const float* bias;  // kHidden: b1
   const float* keep;  // keep_1 or null
   float* z1;          // kHidden: written; kDz1: read (R x K)
-  float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk, row stride ld)
+  float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk, row
+                      // stride ld; null in the forward, which writes neither)
   int ld;
+  fk::Dropout drop;   // kHidden without keep: keep_1 hashed (a null seed: none)
 };
 
 // per (32-row tile, K slice, 256 columns of N): the slice's partial product
 // A[:, slice] W[slice, :] (A: R x K, W: K x N) into part[slice] (R x N)
 template <int AM>
 __global__ void __launch_bounds__(fk::kThreads)
-ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restrict__ part,
-                     int R, int K, int N) {
+ffn_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restrict__ part, int R,
+                 int K, int N) {
   extern __shared__ float4 smem_raw[];
   fk::GemmSmem<kFfnRows>& s = *reinterpret_cast<fk::GemmSmem<kFfnRows>*>(smem_raw);
   const int r0 = blockIdx.x * kFfnRows, k0 = blockIdx.y * kFfnSlice, n0 = blockIdx.z * fk::kBN;
   const int ks = min(kFfnSlice, K - k0);
-  const bool write = blockIdx.z == 0;
+  const bool write = blockIdx.z == 0 && a.out != nullptr;
   const size_t RK = (size_t)R * K;
+  const uint32_t seed = a.drop.load_seed();
   float* out = part + (size_t)blockIdx.y * R * N;
   rows_gemm<kFfnRows>(
       [&](int r, int k) {
@@ -301,7 +267,11 @@ ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __res
         if (AM == kPanel) return a.A[eo];
         if (AM == kHidden) {  // z1 = x W1 + b1; hk = relu(z1) * keep_1
           const float v = slice_sum(a.pa, RK, a.n_pa, e) + __ldg(a.bias + k0 + k);
-          const float h = a.keep != nullptr ? fmaxf(v, 0.f) * __ldg(a.keep + e) : fmaxf(v, 0.f);
+          float h = fmaxf(v, 0.f);
+          if (a.keep != nullptr)
+            h *= __ldg(a.keep + e);
+          else if (a.drop.seed != nullptr)
+            h *= a.drop.keep((uint32_t)e, seed);
           if (write) {
             a.z1[e] = v;
             a.out[eo] = h;
@@ -319,20 +289,104 @@ ffn_bwd_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __res
       [&](int r, int c, float v) { out[(size_t)r * N + c] = v; }, s, n0, n0 + fk::kBN);
 }
 
-// 2'. per 16-row tile, whole E rows: res = x + drop_2((hk W2's slices) +
-//    b2), its LayerNorm statistics and backward (dres into res; dgamma and
-//    dbeta of the tile into part[tile]) and dt2 = dres * keep_2 (row stride
-//    ld).  The tile's res and g rows are staged in shared memory, four
-//    columns a thread at a time with every load of them issued before any is
-//    used (a scalar loop where E % 4 != 0 or F > 2048), and the LayerNorm
-//    runs there: the same sums as ln_stats and ln_backward, whose row-serial
-//    global loads took ~30 us a tile.
+// Per 16-row tile, whole E rows: res = x + drop_2((hk W2's slices) + b2)
+// into rs (the tile's rows in shared memory, E wide) and, where g is
+// given, the tile's g rows into gs; then the rows' LayerNorm statistics
+// (ln_stats's two-pass sums).  Four columns a thread at a time with every
+// load issued before any is used (a scalar loop where E % 4 != 0 or F >
+// 2048): row-serial global loads took ~30 us a tile.  keep_2 is the
+// backward's mask tensor or, in the forward, hashed inline (FFN stream 1
+// over (B, M, E)).  Both directions' LayerNorm kernels start so.
 constexpr int kMaxSlices = 16;  // F up to 2048 in the four-column staging
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ void ffn_ln_stage(const float* __restrict__ x,
+                                             const float* __restrict__ t2,
+                                             const float* __restrict__ b2,
+                                             const float* __restrict__ keep_2,
+                                             const fk::Dropout& drop_2,
+                                             const float* __restrict__ g, float* rs, float* gs,
+                                             float* mean, float* rstd, int r0, int rows, int R,
+                                             int E, int slices, float eps) {
+  const int n = rows * E;
+  const size_t t0 = (size_t)r0 * E, RE = (size_t)R * E;
+  const uint32_t seed = drop_2.load_seed();
+  const bool hash = keep_2 == nullptr && drop_2.seed != nullptr;
+  const auto keep = [&](size_t e) { return drop_2.keep((uint32_t)e, seed); };
+  if ((E & 3) == 0 && slices <= kMaxSlices) {
+    for (int i = threadIdx.x; i < n / 4; i += fk::kThreads) {
+      const size_t e = t0 + 4 * (size_t)i;
+      float4 p[kMaxSlices];
+#pragma unroll
+      for (int k = 0; k < kMaxSlices; ++k)
+        if (k < slices) p[k] = ld4(t2 + k * RE + e);
+      const float4 bb = ld4(b2 + (4 * i) % E), xv = ld4(x + e);
+      const float4 kv = keep_2 != nullptr ? ld4(keep_2 + e)
+                        : hash ? make_float4(keep(e), keep(e + 1), keep(e + 2), keep(e + 3))
+                               : make_float4(1.f, 1.f, 1.f, 1.f);
+      float4 v = p[0];
+#pragma unroll
+      for (int k = 1; k < kMaxSlices; ++k)
+        if (k < slices) {
+          v.x += p[k].x;
+          v.y += p[k].y;
+          v.z += p[k].z;
+          v.w += p[k].w;
+        }
+      v = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+      if (keep_2 != nullptr || hash)
+        v = make_float4(v.x * kv.x, v.y * kv.y, v.z * kv.z, v.w * kv.w);
+      reinterpret_cast<float4*>(rs)[i] =
+          make_float4(v.x + xv.x, v.y + xv.y, v.z + xv.z, v.w + xv.w);
+      if (g != nullptr) reinterpret_cast<float4*>(gs)[i] = ld4(g + e);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += fk::kThreads) {
+      const size_t e = t0 + i;
+      float v = __ldg(t2 + e);
+      for (int k = 1; k < slices; ++k) v += __ldg(t2 + k * RE + e);
+      v += __ldg(b2 + i % E);
+      if (keep_2 != nullptr)
+        v *= __ldg(keep_2 + e);
+      else if (hash)
+        v *= keep(e);
+      rs[i] = v + __ldg(x + e);
+      if (g != nullptr) gs[i] = __ldg(g + e);
+    }
+  }
+  __syncthreads();
+  ln_stats(rs, rows, E, eps, mean, rstd);
+  __syncthreads();
+}
+
+// 3 (forward). per 16-row tile: y = LN(x + drop_2(hk W2 + b2)) (row stride E)
+__global__ void __launch_bounds__(fk::kThreads)
+ffn_fwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
+                  const float* __restrict__ b2, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, fk::Dropout drop_2, float* __restrict__ y,
+                  int R, int E, int slices, float eps) {
+  extern __shared__ float4 smem_raw[];
+  float* rs = reinterpret_cast<float*>(smem_raw);  // [rows][E]: res
+  __shared__ float mean[kLnRows], rstd[kLnRows];
+  const int r0 = blockIdx.x * kLnRows;
+  const int rows = min(kLnRows, R - r0);
+  ffn_ln_stage(x, t2, b2, nullptr, drop_2, nullptr, rs, nullptr, mean, rstd, r0, rows, R, E,
+               slices, eps);
+  float* yt = y + (size_t)r0 * E;
+  for (int i = threadIdx.x; i < rows * E; i += fk::kThreads) {
+    const int r = i / E, c = i - r * E;
+    yt[i] = (rs[i] - mean[r]) * rstd[r] * __ldg(gamma + c) + __ldg(beta + c);
+  }
+}
+
+// 2'. per 16-row tile, whole E rows: res = x + drop_2((hk W2's slices) +
+//    b2), its LayerNorm statistics and backward (dres into res; dgamma and
+//    dbeta of the tile into part[tile]) and dt2 = dres * keep_2 (row stride
+//    ld), the LayerNorm on the tile's res and g rows in shared memory: the
+//    same sums as ln_stats and ln_backward.
 __global__ void __launch_bounds__(fk::kThreads)
 ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
                   const float* __restrict__ b2, const float* __restrict__ gamma,
@@ -346,62 +400,10 @@ ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
   const int tile = blockIdx.x, r0 = tile * kLnRows;
   const int rows = min(kLnRows, R - r0);
   const int n = rows * E;
-  const size_t t0 = (size_t)r0 * E, RE = (size_t)R * E;
-  const bool vec = (E & 3) == 0 && slices <= kMaxSlices;
-  if (vec) {
-    for (int i = threadIdx.x; i < n / 4; i += fk::kThreads) {
-      const size_t e = t0 + 4 * (size_t)i;
-      float4 p[kMaxSlices];
-#pragma unroll
-      for (int k = 0; k < kMaxSlices; ++k)
-        if (k < slices) p[k] = ld4(t2 + k * RE + e);
-      const float4 bb = ld4(b2 + (4 * i) % E), xv = ld4(x + e), gv = ld4(g + e);
-      const float4 kv = keep_2 != nullptr ? ld4(keep_2 + e) : make_float4(1.f, 1.f, 1.f, 1.f);
-      float4 v = p[0];
-#pragma unroll
-      for (int k = 1; k < kMaxSlices; ++k)
-        if (k < slices) {
-          v.x += p[k].x;
-          v.y += p[k].y;
-          v.z += p[k].z;
-          v.w += p[k].w;
-        }
-      v = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
-      if (keep_2 != nullptr) v = make_float4(v.x * kv.x, v.y * kv.y, v.z * kv.z, v.w * kv.w);
-      reinterpret_cast<float4*>(rs)[i] =
-          make_float4(v.x + xv.x, v.y + xv.y, v.z + xv.z, v.w + xv.w);
-      reinterpret_cast<float4*>(gs)[i] = gv;
-    }
-  } else {
-    for (int i = threadIdx.x; i < n; i += fk::kThreads) {
-      const size_t e = t0 + i;
-      float v = __ldg(t2 + e);
-      for (int k = 1; k < slices; ++k) v += __ldg(t2 + k * RE + e);
-      v += __ldg(b2 + i % E);
-      if (keep_2 != nullptr) v *= __ldg(keep_2 + e);
-      rs[i] = v + __ldg(x + e);
-      gs[i] = __ldg(g + e);
-    }
-  }
-  __syncthreads();
+  const size_t t0 = (size_t)r0 * E;
+  ffn_ln_stage(x, t2, b2, keep_2, fk::Dropout{nullptr, 0, 0u, 1.f}, g, rs, gs, mean, rstd, r0,
+               rows, R, E, slices, eps);
   const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += fk::kWarps) {  // two-pass statistics
-    const float* row = rs + r * E;
-    float sum = 0.f;
-    for (int c = lane; c < E; c += 32) sum += row[c];
-    const float mu = fk::warp_sum(sum) / E;
-    float var = 0.f;
-    for (int c = lane; c < E; c += 32) {
-      const float d = row[c] - mu;
-      var += d * d;
-    }
-    const float inv = rsqrtf(fk::warp_sum(var) / E + eps);
-    if (lane == 0) {
-      mean[r] = mu;
-      rstd[r] = inv;
-    }
-  }
-  __syncthreads();
   float* pt = part + (size_t)tile * 2 * E;
   for (int c = threadIdx.x; c < E; c += fk::kThreads) {  // the tile's column sums, row order
     float sg = 0.f, sb = 0.f;
@@ -928,22 +930,6 @@ extern "C" int fk_sa_attn_out(const float* qkv, long long bstride, int ld, int k
   return (int)cudaGetLastError();
 }
 
-extern "C" int fk_ffn_sublayer(const float* x, const float* w1, const float* b1,
-                               const float* w2, const float* b2, const float* gamma,
-                               const float* beta, float* scratch, float* y, int B, int M, int E,
-                               int F, float eps, const int* seed_1, int stream_1,
-                               unsigned thresh_1, float scale_1, const int* seed_2, int stream_2,
-                               unsigned thresh_2, float scale_2, void* stream) {
-  const size_t smem = sizeof(fk::GemmSmem<BM>);
-  cudaError_t err = fk::set_smem((const void*)ffn_sublayer_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ffn_sublayer_kernel<<<B, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      x, w1, b1, w2, b2, gamma, beta, scratch, y, M, E, F, eps,
-      fk::Dropout{seed_1, stream_1, thresh_1, scale_1},
-      fk::Dropout{seed_2, stream_2, thresh_2, scale_2});
-  return (int)cudaGetLastError();
-}
-
 extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* wq,
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, const float* wo, const float* bo, const float* gamma,
@@ -994,22 +980,22 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
 
 namespace {
 
-// The FFN backward's workspace (floats; each region starts on 64 floats):
-// W1^T | W2^T (2 E F); dres, dx (R x E); z1 (R x F); the weight products'
-// operands, the batch's two products in one: lhs (2, R, ldl) = [dz1 | 1]
-// then [hk | 1], rhs (2, R, ldr) = [x | 1] then [dt2 | 1] (ldl = F + 4,
-// ldr = E + 4), so that lhs^T rhs = [[dW1^T, db1], .] and [[dW2, .], [db2,
-// .]]; the LayerNorm tiles' sums (ceil(R / 16), 2, E); dgamma | dbeta (2,
-// E); the products' K slices sa (ceil(E / 128), R, F) and sb (ceil(F /
-// 128), R, E).
+// The FFN's workspaces (floats; each region starts on 64 floats).  The
+// backward's: W1^T | W2^T (2 E F); dres, dx (R x E); z1 (R x F); the weight
+// products' operands, the batch's two products in one: lhs (2, R, ldl) =
+// [dz1 | 1] then [hk | 1], rhs (2, R, ldr) = [x | 1] then [dt2 | 1] (ldl =
+// F + 4, ldr = E + 4), so that lhs^T rhs = [[dW1^T, db1], .] and [[dW2, .],
+// [db2, .]]; the LayerNorm tiles' sums (ceil(R / 16), 2, E); dgamma | dbeta
+// (2, E).  Both directions': the products' K slices sa (ceil(E / 128), R,
+// F) and sb (ceil(F / 128), R, E), the forward's only regions.
 struct FfnWorkspace {
   size_t wt, res, dx, z1, lhs, rhs, part, dgb, sa, sb, total;
   int ldl, ldr;
 };
 
-FfnWorkspace ffn_workspace(int B, int M, int E, int F) {
+FfnWorkspace ffn_workspace(int B, int M, int E, int F, bool backward) {
   const size_t R = (size_t)B * M;
-  FfnWorkspace w;
+  FfnWorkspace w{};
   w.ldl = F + 4;
   w.ldr = E + 4;
   size_t at = 0;
@@ -1018,27 +1004,87 @@ FfnWorkspace ffn_workspace(int B, int M, int E, int F) {
     at += (n + 63) / 64 * 64;
     return o;
   };
-  w.wt = take(2 * (size_t)E * F);
-  w.res = take(R * E);
-  w.dx = take(R * E);
-  w.z1 = take(R * F);
-  w.lhs = take(2 * R * w.ldl);
-  w.rhs = take(2 * R * w.ldr);
-  w.part = take((R + kLnRows - 1) / kLnRows * 2 * E);
-  w.dgb = take(2 * (size_t)E);
+  if (backward) {
+    w.wt = take(2 * (size_t)E * F);
+    w.res = take(R * E);
+    w.dx = take(R * E);
+    w.z1 = take(R * F);
+    w.lhs = take(2 * R * w.ldl);
+    w.rhs = take(2 * R * w.ldr);
+    w.part = take((R + kLnRows - 1) / kLnRows * 2 * E);
+    w.dgb = take(2 * (size_t)E);
+  }
   w.sa = take((size_t)(E + kFfnSlice - 1) / kFfnSlice * R * F);
   w.sb = take((size_t)(F + kFfnSlice - 1) / kFfnSlice * R * E);
   w.total = at;
   return w;
 }
 
+// The grids of both directions over the R = B * M token rows: the
+// products over (32-row tile, K slice, 256-column chunk), x W1 and dt2 W2^T
+// over E's slices and F's chunks, hk W2 and dz1 W1^T over F's slices and
+// E's chunks; the LayerNorm over 16-row tiles.
+struct FfnGrid {
+  int R, es, fs, ln_tiles;
+  dim3 ef, fe;
+  FfnGrid(int B, int M, int E, int F) : R(B * M) {
+    const int tiles = (R + kFfnRows - 1) / kFfnRows;
+    es = (E + kFfnSlice - 1) / kFfnSlice;
+    fs = (F + kFfnSlice - 1) / kFfnSlice;
+    ln_tiles = (R + kLnRows - 1) / kLnRows;
+    ef = dim3(tiles, es, (F + fk::kBN - 1) / fk::kBN);
+    fe = dim3(tiles, fs, (E + fk::kBN - 1) / fk::kBN);
+  }
+};
+
 }  // namespace
+
+// The workspace fk_ffn_fwd needs at (B, M, E, F), for its callers: out[0]
+// its floats.
+extern "C" int fk_ffn_fwd_workspace(int B, int M, int E, int F, long long* out) {
+  out[0] = (long long)ffn_workspace(B, M, E, F, false).total;
+  return 0;
+}
+
+// The FFN forward in one call over the B * M token rows into ws
+// (fk_ffn_fwd_workspace's floats) and y: x W1 into sa's K slices; hk W2
+// into sb's, hk = relu(z1) * keep_1 staged from sa's slices + b1 (keep_1
+// hashed: FFN stream 0 over (B, M, F)); y = LN(x + drop_2(hk W2 + b2)) per
+// 16-row tile (stream 1 over (B, M, E)).  Three launches.
+extern "C" int fk_ffn_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+                          const float* b2, const float* gamma, const float* beta, float* ws,
+                          float* y, int B, int M, int E, int F, float eps, const int* seed_1,
+                          int stream_1, unsigned thresh_1, float scale_1, const int* seed_2,
+                          int stream_2, unsigned thresh_2, float scale_2, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FfnWorkspace w = ffn_workspace(B, M, E, F, false);
+  const FfnGrid gr(B, M, E, F);
+  float *sa = ws + w.sa, *sb = ws + w.sb;
+  const size_t gsm = sizeof(fk::GemmSmem<kFfnRows>);
+  const size_t lsm = (size_t)kLnRows * E * sizeof(float);  // the LN tile's res
+  // the slice kernel's 37 KB need no attribute; the LayerNorm's past E = 768 do
+  if (lsm > 48 * 1024) {
+    const cudaError_t err = fk::set_smem((const void*)ffn_fwd_ln_kernel, lsm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
+      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none}, w1, sa, gr.R, E, F);
+  ffn_slice_kernel<kHidden><<<gr.fe, fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, gr.es, b1, nullptr, nullptr, nullptr, F,
+               fk::Dropout{seed_1, stream_1, thresh_1, scale_1}},
+      w2, sb, gr.R, F, E);
+  ffn_fwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(
+      x, sb, b2, gamma, beta, fk::Dropout{seed_2, stream_2, thresh_2, scale_2}, y, gr.R, E, gr.fs,
+      eps);
+  return (int)cudaGetLastError();  // the first failed launch's error, if any
+}
 
 // The workspace fk_ffn_bwd needs at (B, M, E, F), for its callers: out[0]
 // its floats, then the offsets of dx, lhs and rhs with their row strides
 // ldl and ldr, and dgamma | dbeta.
 extern "C" int fk_ffn_bwd_workspace(int B, int M, int E, int F, long long* out) {
-  const FfnWorkspace w = ffn_workspace(B, M, E, F);
+  const FfnWorkspace w = ffn_workspace(B, M, E, F, true);
   const long long v[7] = {(long long)w.total, (long long)w.dx, (long long)w.lhs, w.ldl,
                           (long long)w.rhs, w.ldr, (long long)w.dgb};
   for (int i = 0; i < 7; ++i) out[i] = v[i];
@@ -1053,17 +1099,15 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
                           const float* keep_2, const float* g, float* ws, int B, int M, int E,
                           int F, float eps, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const FfnWorkspace w = ffn_workspace(B, M, E, F);
+  const FfnWorkspace w = ffn_workspace(B, M, E, F, true);
+  const FfnGrid gr(B, M, E, F);
   float *wt = ws + w.wt, *res = ws + w.res, *dx = ws + w.dx, *z1 = ws + w.z1;
   float *lhs = ws + w.lhs, *rhs = ws + w.rhs, *part = ws + w.part, *sa = ws + w.sa,
         *sb = ws + w.sb;
-  const int R = B * M;
+  const int R = gr.R;
   float *dz1 = lhs, *hk = lhs + (size_t)R * w.ldl, *dt2 = rhs + (size_t)R * w.ldr;
   const size_t gsm = sizeof(fk::GemmSmem<kFfnRows>);
   const size_t lsm = (size_t)2 * kLnRows * E * sizeof(float);  // the LN tile's res and g
-  const int tiles = (R + kFfnRows - 1) / kFfnRows, ln_tiles = (R + kLnRows - 1) / kLnRows;
-  const int es = (E + kFfnSlice - 1) / kFfnSlice, fs = (F + kFfnSlice - 1) / kFfnSlice;
-  const int fchunks = (F + fk::kBN - 1) / fk::kBN, echunks = (E + fk::kBN - 1) / fk::kBN;
   const int big = E > F ? E : F;
   const int re = (int)(((size_t)R * E + fk::kThreads - 1) / fk::kThreads);
   // the slice kernel's 37 KB need no attribute; the LayerNorm's past E = 384 do
@@ -1071,23 +1115,24 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
     const cudaError_t err = fk::set_smem((const void*)ffn_bwd_ln_kernel, lsm);
     if (err != cudaSuccess) return (int)err;
   }
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
   ffn_transpose_kernel<<<dim3((big + 31) / 32, (big + 31) / 32, 3), fk::kThreads, 0, st>>>(
       w1, w2, wt, x, lhs, w.ldl, rhs, w.ldr, R, E, F);
   // x W1 -> sa; hk W2 -> sb (z1 and hk from sa as they are staged); the
   // LayerNorm step; dt2 W2^T -> sa; dz1 W1^T -> sb (dz1 from sa); dx and the
   // LN sums
-  ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E}, w1, sa, R, E, F);
-  ffn_bwd_slice_kernel<kHidden><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, es, b1, keep_1, z1, hk, w.ldl}, w2, sb, R, F, E);
-  ffn_bwd_ln_kernel<<<ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, keep_2, g, res, dt2,
-                                                         w.ldr, part, R, E, fs, eps);
-  ffn_bwd_slice_kernel<kPanel><<<dim3(tiles, es, fchunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr, w.ldr}, wt + (size_t)E * F,
-      sa, R, E, F);
-  ffn_bwd_slice_kernel<kDz1><<<dim3(tiles, fs, echunks), fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, es, nullptr, keep_1, z1, dz1, w.ldl}, wt, sb, R, F, E);
+  ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
+      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none}, w1, sa, R, E, F);
+  ffn_slice_kernel<kHidden><<<gr.fe, fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, gr.es, b1, keep_1, z1, hk, w.ldl, none}, w2, sb, R, F, E);
+  ffn_bwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, keep_2, g, res,
+                                                            dt2, w.ldr, part, R, E, gr.fs, eps);
+  ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
+      FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr, w.ldr, none},
+      wt + (size_t)E * F, sa, R, E, F);
+  ffn_slice_kernel<kDz1><<<gr.fe, fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, gr.es, nullptr, keep_1, z1, dz1, w.ldl, none}, wt, sb, R, F, E);
   ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
-      sb, res, dx, part, ws + w.dgb, R, E, fs, ln_tiles);
+      sb, res, dx, part, ws + w.dgb, R, E, gr.fs, gr.ln_tiles);
   return (int)cudaGetLastError();  // the first failed launch's error, if any
 }

@@ -8,10 +8,11 @@ returns per video the unnormalized sums
     sl[b] = sum_{t, c} clip((ls[t+1] - ls[t])^2, 0, 16) * mask[b, t] * mask[b, t+1]
 
 with ls the log-softmax over classes, and the backward (``_loss_bwd``,
-``_bwd_kernel``) writes dlogits.  Kernels: ``csrc/frame_loss.cu``, one
-launch forward and one backward.  The class weights, labels and mask get no
-gradient (the JAX wrapper stop-gradients the weights).  The caller
-normalizes (models/losses.py).
+``_bwd_kernel``) writes dlogits.  Kernels: ``csrc/frame_loss.cu``, the
+forward over (64-row chunk, video) blocks with a second launch that adds
+each video's chunk partials in chunk order, the backward one launch.  The
+class weights, labels and mask get no gradient (the JAX wrapper
+stop-gradients the weights).  The caller normalizes (models/losses.py).
 """
 
 from __future__ import annotations
@@ -71,22 +72,30 @@ def _check(name, x, labels, maskf, cweight):
 
 
 def frame_loss_fwd(x, labels, maskf, cweight):
-    """The forward kernel on CUDA tensors, the plain version on CPU ones."""
+    """The forward kernels on CUDA tensors, the plain version on CPU ones."""
     if x.device.type == "cpu":
         return frame_loss_reference(x, labels, maskf, cweight)
-    _check("frame_loss_fwd", x, labels, maskf, cweight)
-    B, T, C = x.shape
-    ce = torch.empty((B,), device=x.device, dtype=torch.float32)
-    sl = torch.empty_like(ce)
-    err = _build.lib().fk_frame_loss_fwd(x.data_ptr(), _ptr(labels), maskf.data_ptr(),
-                                         _ptr(cweight), ce.data_ptr(), sl.data_ptr(), B, T, C,
-                                         _build.stream_ptr(x.device))
-    _build.check("fk_frame_loss_fwd", err)
+    out = _frame_loss_fwd_card(x, labels, maskf, cweight)
     frame_loss_fwd.launches += 1
-    return (ce if labels is not None else None), sl
+    return out
 
 
 frame_loss_fwd.launches = 0
+
+
+def _frame_loss_fwd_card(x, labels, maskf, cweight):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call into one workspace that holds
+    ce, sl and the partials of the per-chunk blocks."""
+    _check("frame_loss_fwd", x, labels, maskf, cweight)
+    B, T, C = x.shape
+    lib = _build.lib()
+    total, = _build.workspace(lib, "fk_frame_loss_fwd_workspace", 1, B, T)
+    buf = torch.empty((total,), device=x.device, dtype=torch.float32)
+    err = lib.fk_frame_loss_fwd(x.data_ptr(), _ptr(labels), maskf.data_ptr(), _ptr(cweight),
+                                buf.data_ptr(), B, T, C, _build.stream_ptr(x.device))
+    _build.check("fk_frame_loss_fwd", err)
+    return (buf[:B] if labels is not None else None), buf[B:2 * B]
 
 
 def frame_loss_bwd(x, labels, maskf, cweight, g_ce, g_sl):

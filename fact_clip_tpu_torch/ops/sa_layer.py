@@ -7,8 +7,8 @@ Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py``: ``sa_sublayer``
 ``_ffn_bwd`` / ``_ffn_bwd_kernel``) and the mask replays ``sa_dropout_masks``
 and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (the SA forward and
 backward over (row tile, video) and (query tile, head, video) blocks at any
-token count of the zoo, the FFN forward one block per video and its backward
-over (32-row tile, column chunk, K slice) blocks of the batch's rows),
+token count of the zoo, the FFN forward and backward over (32-row tile,
+column chunk, K slice) blocks of the batch's rows),
 ``csrc/dropout.cu`` and ``csrc/grad.cu``:
 
 * ``sa_sublayer``:  y = LN(x + drop(MHA(x + pos, x + pos, x) @ Wo + bo)), the
@@ -29,7 +29,6 @@ the kernels' wrappers beside their plain versions.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -355,30 +354,43 @@ def _check_ffn(name, x, w1, b1, w2, b2, ln_scale, ln_bias):
 
 def ffn_sublayer_fwd(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
                      rate: float = 0.0, seed=None):
-    """The forward kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The forward kernels on CUDA tensors, the plain version on CPU tensors."""
     weights = [w1, b1, w2, b2, ln_scale, ln_bias]
     _build.no_grad_inputs("ffn_sublayer_fwd", [x, *weights])
     if rate > 0.0:
         check_seed("ffn_sublayer_fwd", seed, x.device)
-    B, M, E = x.shape
-    Fd = w1.shape[1]
     if x.device.type == "cpu":
-        keep_hidden, keep_out = ffn_dropout_masks(seed, B, M, E, Fd, rate)
+        B, M, E = x.shape
+        keep_hidden, keep_out = ffn_dropout_masks(seed, B, M, E, w1.shape[1], rate)
         return ffn_sublayer_reference(x, *weights, eps=eps, keep_hidden=keep_hidden,
                                       keep_out=keep_out)
-    _check_ffn("ffn_sublayer_fwd", x, *weights)
-    scratch = torch.empty((B, M, Fd), device=x.device, dtype=torch.float32)
-    y = torch.empty_like(x)
-    err = _build.lib().fk_ffn_sublayer(
-        x.data_ptr(), *[w.data_ptr() for w in weights], scratch.data_ptr(), y.data_ptr(),
-        B, M, E, Fd, float(eps), *dropout_args(seed, 0, rate), *dropout_args(seed, 1, rate),
-        _build.stream_ptr(x.device))
-    _build.check("fk_ffn_sublayer", err)
+    y = _ffn_fwd_card(x, *weights, eps, rate, seed)
     ffn_sublayer_fwd.launches += 1
     return y
 
 
 ffn_sublayer_fwd.launches = 0
+
+def _ffn_fwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, rate, seed):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call of three launches, the products
+    x W1 and hk W2 in K slices into a workspace the library lays out, the
+    residual and the LayerNorm into y; both dropout masks hashed in the
+    kernels (FFN streams 0 and 1), never stored."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    B, M, E = x.shape
+    Fd = w1.shape[1]
+    _check_ffn("ffn_sublayer_fwd", x, *weights)
+    lib = _build.lib()
+    total, = _build.workspace(lib, "fk_ffn_fwd_workspace", 1, B, M, E, Fd)
+    ws = torch.empty(total, device=x.device, dtype=torch.float32)
+    y = torch.empty_like(x)
+    err = lib.fk_ffn_fwd(
+        x.data_ptr(), *[w.data_ptr() for w in weights], ws.data_ptr(), y.data_ptr(), B, M, E,
+        Fd, float(eps), *dropout_args(seed, 0, rate), *dropout_args(seed, 1, rate),
+        _build.stream_ptr(x.device))
+    _build.check("fk_ffn_fwd", err)
+    return y
 
 
 def ffn_sublayer_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *,
@@ -422,21 +434,6 @@ def ffn_sublayer_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN
     return grads
 
 
-_FFN_WS = {}  # (library, B, M, E, F) -> fk_ffn_bwd_workspace's answer
-
-
-def _ffn_workspace(lib, B: int, M: int, E: int, Fd: int) -> tuple:
-    """(floats, dx, lhs, ldl, rhs, ldr, dgamma | dbeta): the FFN backward's
-    workspace as the library lays it out (``csrc/sa_layer.cu::
-    ffn_workspace``), asked once a shape."""
-    key = (lib, B, M, E, Fd)
-    if key not in _FFN_WS:
-        out = (ctypes.c_longlong * 7)()
-        _build.check("fk_ffn_bwd_workspace", lib.fk_ffn_bwd_workspace(B, M, E, Fd, out))
-        _FFN_WS[key] = tuple(out)
-    return _FFN_WS[key]
-
-
 def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, keep_out):
     """The card's call (also run on CPU tensors against a model of the
     library in the tests): one library call launches the split into one
@@ -454,7 +451,9 @@ def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, kee
     _build.check_tensors("ffn_sublayer_bwd", [g, keep_hidden, keep_out], x.device)
     R, E1, F1 = B * M, E + 1, Fd + 1
     lib = _build.lib()
-    total, o_dx, o_lhs, ldl, o_rhs, ldr, o_dgb = _ffn_workspace(lib, B, M, E, Fd)
+    # (floats, dx, lhs, ldl, rhs, ldr, dgamma | dbeta)
+    total, o_dx, o_lhs, ldl, o_rhs, ldr, o_dgb = _build.workspace(
+        lib, "fk_ffn_bwd_workspace", 7, B, M, E, Fd)
     ws = torch.empty(total, device=x.device, dtype=torch.float32)
     err = lib.fk_ffn_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

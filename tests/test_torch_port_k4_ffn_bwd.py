@@ -49,18 +49,48 @@ class FakeFFNLib:
 
     ROWS, LN_ROWS, CHUNK, SLICE = 32, 16, 256, 128
 
-    def _layout(self, B, M, E, F):
+    def _layout(self, B, M, E, F, backward=True):
         """csrc/sa_layer.cu::ffn_workspace: each region's offset (64-float
-        steps), the operands' row strides, the total."""
+        steps), the operands' row strides, the total; the forward's
+        workspace holds only the products' K slices sa and sb."""
         R, at, off = B * M, 0, {}
         ldl, ldr = F + 4, E + 4
-        for name, n in (("wt", 2 * E * F), ("res", R * E), ("dx", R * E), ("z1", R * F),
-                        ("lhs", 2 * R * ldl), ("rhs", 2 * R * ldr),
-                        ("part", -(-R // self.LN_ROWS) * 2 * E), ("dgb", 2 * E),
-                        ("sa", -(-E // self.SLICE) * R * F), ("sb", -(-F // self.SLICE) * R * E)):
+        regions = [("wt", 2 * E * F), ("res", R * E), ("dx", R * E), ("z1", R * F),
+                   ("lhs", 2 * R * ldl), ("rhs", 2 * R * ldr),
+                   ("part", -(-R // self.LN_ROWS) * 2 * E), ("dgb", 2 * E)] if backward else []
+        for name, n in regions + [("sa", -(-E // self.SLICE) * R * F),
+                                  ("sb", -(-F // self.SLICE) * R * E)]:
             off[name] = at
             at += -(-n // 64) * 64
         return off, ldl, ldr, at
+
+    def _sliced(self, A, W, buf):
+        """A (R x K) W (K x N) over (32-row tile, K slice of 128, 256-column
+        chunk) blocks, each block's partial into its slice of ``buf``; the
+        slices summed in order."""
+        R, (K, N) = A.shape[0], W.shape
+
+        def chunks(n, w):
+            return [slice(c, min(n, c + w)) for c in range(0, n, w)]
+
+        ks = chunks(K, self.SLICE)
+        P = buf[:len(ks) * R * N].view(len(ks), R, N)
+        for r in chunks(R, self.ROWS):
+            for k, kk in enumerate(ks):
+                for c in chunks(N, self.CHUNK):
+                    P[k, r, c] = A[r, kk] @ W[kk, c]
+        out = P[0].clone()
+        for k in range(1, len(ks)):
+            out += P[k]
+        return out
+
+    def _ln_tiles(self, R):
+        return [slice(i, min(R, i + self.LN_ROWS)) for i in range(0, R, self.LN_ROWS)]
+
+    @staticmethod
+    def _ln_stats(v, eps):
+        mean = v.mean(dim=-1, keepdim=True)
+        return mean, torch.rsqrt((v - mean).pow(2).mean(dim=-1, keepdim=True) + eps)
 
     def fk_ffn_bwd_workspace(self, B, M, E, F, out):
         off, ldl, ldr, total = self._layout(B, M, E, F)
@@ -88,41 +118,20 @@ class FakeFFNLib:
         RS, DX, Z = region("res", R, E), region("dx", R, E), region("z1", R, F)
         LHS, RHS = region("lhs", 2, R, ldl), region("rhs", 2, R, ldr)
         DZ, HK, DT2 = LHS[0, :, :F], LHS[1, :, :F], RHS[1, :, :E]
-        tiles, ln_tiles = -(-R // self.ROWS), -(-R // self.LN_ROWS)
-        PART = region("part", ln_tiles, 2, E)
+        ln_rows = self._ln_tiles(R)
+        PART = region("part", len(ln_rows), 2, E)
         SA = region("sa", -(-E // self.SLICE) * R * F)
         SB = region("sb", -(-F // self.SLICE) * R * E)
         W1T[:], W2T[:] = W1.t(), W2.t()
         RHS[0, :, :E] = X
         LHS[:, :, F] = 1.0
         RHS[:, :, E] = 1.0
-        rows = [slice(i * self.ROWS, min(R, (i + 1) * self.ROWS)) for i in range(tiles)]
-
-        def chunks(n, w):
-            return [slice(c, min(n, c + w)) for c in range(0, n, w)]
-
-        def sliced(A, W, buf):  # A (R x K) W (K x N): the K slices' partials, summed in order
-            K, N = W.shape
-            ks = chunks(K, self.SLICE)
-            P = buf[:len(ks) * R * N].view(len(ks), R, N)
-            for r in rows:
-                for k, kk in enumerate(ks):
-                    for c in chunks(N, self.CHUNK):
-                        P[k, r, c] = A[r, kk] @ W[kk, c]
-            out = P[0].clone()
-            for k in range(1, len(ks)):
-                out += P[k]
-            return out
-
-        Z[:] = sliced(X, W1, SA) + bias1  # z1 and hk, staged by the next product
+        Z[:] = self._sliced(X, W1, SA) + bias1  # z1 and hk, staged by the next product
         HK[:] = torch.relu(Z) * K1
-        t2 = sliced(HK, W2, SB)
-        ln_rows = [slice(i * self.LN_ROWS, min(R, (i + 1) * self.LN_ROWS))
-                   for i in range(ln_tiles)]
+        t2 = self._sliced(HK, W2, SB)
         for i, r in enumerate(ln_rows):  # res, the LayerNorm backward, dt2, the tile's sums
             v = (t2[r] + bias2) * K2[r] + X[r]
-            mean = v.mean(dim=-1, keepdim=True)
-            rstd = torch.rsqrt((v - mean).pow(2).mean(dim=-1, keepdim=True) + eps)
+            mean, rstd = self._ln_stats(v, eps)
             xhat = (v - mean) * rstd
             gg = G[r] * gam
             PART[i, 0], PART[i, 1] = (G[r] * xhat).sum(dim=0), G[r].sum(dim=0)
@@ -130,11 +139,11 @@ class FakeFFNLib:
                         - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
             RS[r] = d
             DT2[r] = d * K2[r]
-        DZ[:] = torch.where(Z > 0, sliced(DT2, W2T, SA) * K1, 0.0)  # dz1, staged likewise
-        DX[:] = sliced(DZ, W1T, SB) + RS  # dz1 W1^T's slices, + dres
+        DZ[:] = torch.where(Z > 0, self._sliced(DT2, W2T, SA) * K1, 0.0)  # dz1, staged likewise
+        DX[:] = self._sliced(DZ, W1T, SB) + RS  # dz1 W1^T's slices, + dres
         out = region("dgb", 2, E)  # the tiles' sums in tile order
         out[:] = 0.0
-        for i in range(ln_tiles):
+        for i in range(len(ln_rows)):
             out += PART[i]
         return 0
 
@@ -176,8 +185,11 @@ class _KeepSpy:
         pad = lambda k: np.pad(k.numpy(), ((0, 0), (0, M8 - k.shape[1]), (0, 0)))  # noqa: E731
         self.k1, self.k2 = pad(k1), pad(k2)
 
+    def _pick(self, shape):
+        return self.k1 if shape[1] == self.k1.shape[2] else self.k2
+
     def keep_mask(self, rate, shape):
-        src = self.k1 if shape[1] == self.k1.shape[2] else self.k2
+        src = self._pick(shape)
         assert tuple(shape) == src.shape[1:]
         return jax.pure_callback(lambda b: src[int(b)], jax.ShapeDtypeStruct(shape, jnp.float32),
                                  jsl.pl.program_id(0))
