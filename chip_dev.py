@@ -11,7 +11,9 @@
         ``k8ffn`` for K8e (the int8 MS-TCN++ tower) and K4's FFN backward
         at theirs with K6's serving form at Breakfast's 4 x 4096 x 512,
         ``ffn_sublayer_fwd`` for K4's FFN forward (the row ``ffn_sublayer``)
-        and ``k4k5`` for it and K5's forward (``frame_loss_fwd``):
+        ``k4k5`` for it and K5's forward (``frame_loss_fwd``), ``k8a`` for
+        K8a (the int8 MSTCN tower) at the cases its parent runs and ``k8d``
+        for K8d (int8 SCA cross-attention):
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -68,6 +70,11 @@
         a call, and the device busy time a call from ``torch.profiler`` with
         its kernels.
 
+    python3 chip_dev.py k8a-fuse
+        K8a's phase-3 rows with its pass Q folded into pass B (one item over
+        every column at C <= 256, ``ops/quant_conv.py::K8A_FUSE_Q``) off and
+        on, in turns off / on / on / off on one build.
+
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -110,7 +117,11 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
                      "mstcn2_stack:bf_full"],
            # K4's FFN forward (its phase-3 row is ffn_sublayer) and K5's forward
            "ffn_sublayer_fwd": ["ffn_sublayer"],
-           "k4k5": ["ffn_sublayer", "frame_loss_fwd"]}
+           "k4k5": ["ffn_sublayer", "frame_loss_fwd"],
+           # K8a (the int8 MSTCN tower) at the cases its parent runs too (it refused
+           # widths of no multiple of 32), and K8d (int8 SCA cross-attention)
+           "k8a": ["mstcn_stack_q8:flagship,ragged,ln"],
+           "k8d": ["mha_cross_q8"]}
 
 
 def ab(parent: str, names):
@@ -423,6 +434,24 @@ def ffn_host(tree: str = REPO, seed: int = 0):
     return 0
 
 
+def k8a_fuse(seed: int = 0):
+    """K8a's phase-3 rows with pass Q folded into pass B
+    (``ops/quant_conv.py::K8A_FUSE_Q``, widths up to 256) off and on, in
+    turns off / on / on / off on one build."""
+    import torch  # noqa: F401
+
+    cs = _chip_smoke(REPO)
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    table = cs.kernel_table
+    cs.kernel_table = lambda: [r for r in table() if r[0] == "mstcn_stack_q8"]
+    for on in (False, True, True, False):
+        qc.K8A_FUSE_Q = on
+        print(f"== K8A_FUSE_Q {on}", flush=True)
+        cs.phase_kernels(seed)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -440,6 +469,8 @@ def main(argv):
         return ffn_host(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
+    if argv == ["k8a-fuse"]:
+        return k8a_fuse()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -1139,9 +1139,12 @@ def k8a_case(rng, B, T, C, L, lengths, use_ln):
     # its last tile (further on the taps read zeros and a = relu(bd)).  The
     # 1x1 product and the f32 work a frame and channel (two quantizations, two
     # dequantizations with bias, ReLU, the residual, LN) only on valid rows.
+    # Bytes: x, the lengths, each layer's weights once (the int8 ones at C
+    # wide, not the card's padded packs), the output.
     tap_rows = sum(min(n + d, -(-n // tile) * tile, T_pad)
                    for d in dil for n in lens.clamp(max=T).tolist())
-    work = (L * (12 + (8 if use_ln else 0)) * N * C, nbytes(x, lens, ql) + B * T * C * 4,
+    weights = [t for q in ql for t in q[:8]]
+    work = (L * (12 + (8 if use_ln else 0)) * N * C, nbytes(x, lens, weights) + B * T * C * 4,
             (6 * tap_rows + 2 * L * N) * C * C)
     judge = q8_judge("mstcn_stack_q8", lambda o: o[0], lambda o: o[1:],
                      bit_share=not use_ln)
@@ -1234,20 +1237,54 @@ def k8bc_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
             _frames_judge(judge, frames))
 
 
+def _kv_judge(judge, args, H, qw):
+    """``judge`` on (the outputs, K8d's quantized rows and projection): the
+    rows of csrc/q8_proj.cu's quantizer (q(x + pos), q(x), their scales, the
+    zeros past Cx) and its [K | V] (zeros past the attended length) against
+    ``_quantize_rows`` and ``_proj_q8`` on the same inputs, all exact."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+    from fact_clip_tpu_torch.ops.mha_attn import attended_lengths
+    from fact_clip_tpu_torch.ops.pos import add_pos
+
+    def run(out, ref):
+        q, x, pos, wk, bk, wv, bv, x_len = args
+        X, Cx = x.shape[1:]
+        seen = {}
+        qc._mha_q8_card(q, x, pos, wk, bk, wv, bv, x_len, H, qw, inspect=seen)
+        xk = add_pos(x, pos)
+        (kq, ks), (vq, vs) = qc._quantize_rows(xk), qc._quantize_rows(x)
+        att = torch.arange(X, device=x.device)[None, :] < attended_lengths(x_len, X)[:, None]
+        kv = torch.cat([qc._proj_q8(xk, qw.qk, bk), qc._proj_q8(x, qw.qv, bv)], -1)
+        kv = torch.where(att[..., None], kv, 0.0)
+        qx, sx = seen["qx"], seen["sx"]
+        mine = [qx[0, ..., :Cx], sx[0], qx[1, ..., :Cx], sx[1], qx[..., Cx:], seen["kv"]]
+        plain = [kq, ks[..., 0], vq, vs[..., 0], torch.zeros_like(qx[..., Cx:]), kv]
+        return judge((_flat(out), mine), (_flat(ref), plain))
+
+    return run
+
+
 def k8d_case(rng, B, M, X, E, Cx, H, x_len, pos):
     """K8d: SCA cross-attention with int8 K / V projections, and the frames
-    as the row quantizer makes them (x + pos for K, x for V)."""
+    as its row quantizer makes them (x + pos for K, x for V) and the [K | V]
+    projection it attends over, each against the plain one exactly."""
     from fact_clip_tpu_torch.ops import quant_conv as qc
 
     args = mha_case(rng, B, M, X, E, Cx, x_len, pos)
-    qw = (qc.quantize_proj(args[3]), qc.quantize_proj(args[5]))
-    Xv = _valid(args[7], X)
-    work = (4 * M * E * Xv, nbytes(args[:3], args[4], args[6], args[7], qw) + B * M * E * 4,
-            4 * Xv * Cx * E)
     judge = q8_judge("mha_cross_q8", lambda o: o[0], lambda o: o[1])
+    if hasattr(qc, "quantize_kv"):
+        qw = qc.quantize_kv(args[3], args[5])
+        frames = _kv_judge(judge, args, H, qw)
+    else:  # a parent's package of the K8d redesign (chip_dev.py's A/B): its row quantizer
+        qw = (qc.quantize_proj(args[3]), qc.quantize_proj(args[5]))
+        frames = _frames_judge(judge, [(args[1], args[2]), (args[1], None)])
+    Xv = _valid(args[7], X)
+    work = (4 * M * E * Xv, nbytes(args[:3], args[4], args[6], args[7], qw[:2]) + B * M * E * 4,
+            4 * Xv * Cx * E)
     return (lambda: qc.mha_cross_q8(*args, num_heads=H, qweights=qw),
-            lambda: qc.mha_cross_q8_reference(*args, num_heads=H, qweights=qw), work,
-            _frames_judge(judge, [(args[1], args[2]), (args[1], None)]))
+            lambda: qc.mha_cross_q8_reference(*args, num_heads=H, qweights=qw), work, frames)
 
 
 def kernel_table():
@@ -1482,10 +1519,14 @@ def kernel_table():
           ("ragged", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag)),
           ("ties", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
         # int8 evaluation (flagship_int8_cfg): K8a-K8d at the flagship's shapes
-        ("mstcn_stack_q8", csrc + "quant.cu", pallas + "quant_conv.py:217", "argmax",
+        ("mstcn_stack_q8", csrc + "quant2.cu", pallas + "quant_conv.py:217", "argmax",
          [("flagship", lambda r: k8a_case(r, B, T, 256, 10, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, False)),
-          ("ln", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, True))]),
+          ("ln", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, True)),
+          # small_cfg()'s 24 and a width of no multiple of 32 either: each tap's
+          # K segment padded to 32-byte steps
+          ("narrow24", lambda r: k8a_case(r, 3, 600, 24, 10, bf_rag, False)),
+          ("narrow40", lambda r: k8a_case(r, 3, 600, 40, 10, bf_rag, False))]),
         ("x2y_small_x_q8", csrc + "x2y_attn.cu", pallas + "quant_conv.py:594", "argmax",
          [("flagship", lambda r: k8bc_case(r, False, B, T, 40, D, D, D, [40] * B,
                                            zeros(1, T, D), _rand(r, (1, 40, 256)))),
@@ -1505,15 +1546,18 @@ def kernel_table():
           # Breakfast int8: 60 tokens over 4 x 4096 frames, d = 512
           ("breakfast", lambda r: k8bc_case(r, True, 4, 60, 4096, D, D, D, bf_len,
                                             _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
-        ("mha_cross_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:715", "argmax",
+        ("mha_cross_q8", csrc + "q8_proj.cu", pallas + "quant_conv.py:715", "argmax",
          [("flagship", lambda r: k8d_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                           zeros(1, T, D))),
           ("ragged", lambda r: k8d_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
                                         _rand(r, (1, 1100, D)))),
-          # Breakfast int8: E = 512, hd = 64, M = 60 (32-key tiles)
+          # Breakfast int8: E = 512, hd = 64, M = 60
           ("bf_e512", lambda r: k8d_case(r, 4, 60, 4096, D, D, 8, bf_len, zeros(1, 4096, D))),
           ("bf_ragged", lambda r: k8d_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
-                                           _rand(r, (1, 1100, D))))]),
+                                           _rand(r, (1, 1100, D)))),
+          # a video with no valid key attends to every frame; per-video pos
+          ("xlen0", lambda r: k8d_case(r, 3, 11, 1100, 256, D, 8, [1100, 0, 517],
+                                       _rand(r, (3, 1100, D))))]),
         # int8 evaluation of the f: m2 models (breakfast_int8_cfg, epic_int8_cfg): K8e
         ("mstcn2_stack_q8", csrc + "quant2.cu", pallas + "quant_conv.py:390", "argmax",
          [("breakfast", lambda r: k8e_case(r, 4, 4096, D, 10, [4096] * 4)),
@@ -1623,7 +1667,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5 and K8e case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5, K8a, K8d and K8e case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1647,7 +1691,11 @@ def k6_repeat_check(seed: int = 0):
     K4's FFN backward with dropout 0.2 at epic's B=1, M=300 (the split
     kernels, the per-tile LayerNorm sums) and its forward with dropout 0.2
     there and at the flagship's B=8, M=40; K5's forward at the flagship's
-    8 x 3072 x 75 (its chunks' partials summed in chunk order)."""
+    8 x 3072 x 75 (its chunks' partials summed in chunk order); K8a at the
+    flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
+    output and group and tile maxima: the wgmma ring, the atomicMax of the
+    maxima, pass N); K8d at the flagship's and Breakfast's shapes (its
+    projection's ring, K3's attention and combine)."""
     import torch
 
     def tensors(out):
@@ -1681,6 +1729,13 @@ def k6_repeat_check(seed: int = 0):
              ("sa_flag", lambda: sa_fwd_case(rng, 8, 40, 256, 8, 0.2)),
              ("k8e_bf", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)),
              ("k8e_epic", lambda: k8e_case(rng, 1, EPIC_T, 256, 10, [EPIC_T])),
+             ("k8a_flag", lambda: k8a_case(rng, 8, 3072, 256, 10, FLAGSHIP_LENGTHS, False)),
+             ("k8a_ln", lambda: k8a_case(rng, 3, 600, 256, 10, [600, 517, 90], True)),
+             ("k8a_c24", lambda: k8a_case(rng, 3, 600, 24, 10, [600, 517, 90], False)),
+             ("k8d_flag", lambda: k8d_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
+                                           zeros)),
+             ("k8d_bf", lambda: k8d_case(rng, 4, 60, 4096, 512, 512, 8, BF_TRAIN_LENGTHS,
+                                         torch.zeros((1, 4096, 512), device="cuda"))),
              ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2)),
              ("ffn_epic", lambda: ffn_fwd_case(rng, 1, 300, 256, 512, 0.2)),
              ("ffn_flag", lambda: ffn_fwd_case(rng, 8, 40, 256, 512, 0.2)),
@@ -1700,8 +1755,8 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5 or K8e gives different bits on the same "
-                             f"inputs: {failed}")
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K8a, K8d or K8e gives different bits on "
+                             f"the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -2104,19 +2159,14 @@ class FfnRelus:
 
         return patched()
 
-    def ties(self):
-        """({call: (tie mask, kernel side)}, flips, proven ties, text) of the
-        kernel run against the plain run; ({}, -1, 0, "") where their calls
-        do not pair up.  The text gives, for each call with a tie, how far
-        the kernel path's input is off the plain path's, coherently (along
-        the sign of x) and in rms, as shares of mean |x|: a tie met through
-        a coherent bias (a truncating tensor-core sum makes one) shows
-        there."""
+    def _calls(self):
+        """Per FFN call of the two runs (None where their calls do not pair
+        up): (plain input, kernel input, flip mask, proven-tie mask)."""
         pp, pk = self.runs["plain"], self.runs["kernels"]
         if len(pp) != len(pk) or any(a[1].shape != b[1].shape for a, b in zip(pp, pk)):
-            return {}, -1, 0, ""
-        forced, flips, proven, text = {}, 0, 0, []
-        for i, ((layer, xp), (_, xk)) in enumerate(zip(pp, pk)):
+            return None
+        out = []
+        for (layer, xp), (_, xk) in zip(pp, pk):
             w = layer.linear1.weight.detach().double().t()
             b = layer.linear1.bias.detach().double()
             zp, zk = xp.double() @ w + b, xk.double() @ w + b
@@ -2124,14 +2174,43 @@ class FfnRelus:
             flip = (zp > 0) != (zk > 0)
             tie = (flip & (mp > 0) & (mk > 0) & (zp.abs() <= RELU_TIE * mp)
                    & (zk.abs() <= RELU_TIE * mk))
+            out.append((xp, xk, flip, tie, zk))
+        return out
+
+    @staticmethod
+    def coherent(xp, xk) -> float:
+        """How far the kernel path's input is off the plain path's along the
+        sign of x, as a share of mean |x|: mean(err * sign(x)) / mean |x|."""
+        d, ax = xk.double() - xp.double(), xp.double().abs().mean()
+        return float((d * xp.double().sign()).mean() / ax)
+
+    def offsets(self):
+        """[(coherent offset, flipped units)] per FFN call ([] where the
+        calls do not pair up): what the tie gate's bound is measured on."""
+        return [(self.coherent(xp, xk), int(flip.sum()))
+                for xp, xk, flip, _, _ in self._calls() or []]
+
+    def ties(self):
+        """({call: (tie mask, kernel side)}, flips, proven ties, {call: coherent
+        offset}, text) of the kernel run against the plain run; ({}, -1, 0, {},
+        "") where their calls do not pair up.  The text gives, for each call
+        with a tie, how far the kernel path's input is off the plain path's,
+        coherently and in rms, as shares of mean |x|: a tie met through a
+        coherent bias (a truncating tensor-core sum makes one) shows there,
+        and ``train_compare``'s tie gate reads it."""
+        calls = self._calls()
+        if calls is None:
+            return {}, -1, 0, {}, ""
+        forced, flips, proven, off, text = {}, 0, 0, {}, []
+        for i, (xp, xk, flip, tie, zk) in enumerate(calls):
             flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
             if bool(tie.any()):
                 forced[i] = (tie, (zk > 0).to(xp.dtype))
+                off[i] = self.coherent(xp, xk)
                 d, ax = xk.double() - xp.double(), xp.double().abs().mean()
-                text.append(f"FFN call {i}: input off coherently "
-                            f"{float((d * xp.double().sign()).mean() / ax):+.2e}, rms "
+                text.append(f"FFN call {i}: input off coherently {off[i]:+.2e}, rms "
                             f"{float(d.pow(2).mean().sqrt() / ax):.2e}")
-        return forced, flips, proven, "; ".join(text)
+        return forced, flips, proven, off, "; ".join(text)
 
     @staticmethod
     def replay(forced):
@@ -2228,6 +2307,7 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
     batch = batch_to_device(arrays, dev)
     o2m = cfg0["Loss"]["match"] == "o2m"
     failed = []
+    calm, tie_offsets = [], {}  # flip-free calls' offsets (first two seeds); each seed's ties'
     for seed in seeds:
         ref = build(seed)
         step0 = make_train_step(ref, cfg0, nclasses, cweight)
@@ -2273,10 +2353,11 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
         if not elem_ok:
             # the element check against the plain path with the proven ReLU ties
             # on the kernel path's side (FfnRelus); an unproven flip fails it
-            forced, flips, proven, where = relus.ties()
+            forced, flips, proven, off, where = relus.ties()
             replayed = f"; ReLU flips {flips}, proven ties {proven}" + (
                 f" ({where})" if where else "")
             if forced and flips == proven:
+                tie_offsets[seed] = off
                 ref.set_kernels(False)
                 with contextlib.ExitStack() as stack:
                     if seg is not None:
@@ -2293,6 +2374,8 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
                 replayed += (f"; against the plain path with them on the kernel side: loss "
                              f"{lr:.6f}, worst norm ratio {norm_r:.3e} ({norm_rn}), worst "
                              f"element ratio {elem_r:.3e} ({elem_rn}; tol {elem_tol:.3e})")
+        if seed in seeds[:2]:
+            calm += [abs(o) for o, n in relus.offsets() if n == 0]
         del ref, step0, res, relus
         torch.cuda.empty_cache()
         if seg is not None:
@@ -2308,6 +2391,18 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
             f"{fk:.3e} ({fk_n}; norm {fkn:.3e})" + ("" if ok else "  FAIL"))
         if not ok:
             failed.append(seed)
+    # the tie gate: a proven tie's call input may be off the plain one coherently
+    # no further than the flip-free calls' inputs are
+    bound = FLOOR_K * max(calm) if calm else 0.0
+    log(f"[{tag}] ReLU-tie gate: coherent input offset bound {bound:.3e} (FLOOR_K x the "
+        f"largest |offset| of {len(calm)} flip-free FFN calls, seeds {list(seeds[:2])})")
+    for seed, off in tie_offsets.items():
+        for call, o in off.items():
+            bad = abs(o) > bound
+            log(f"[{tag}] ReLU-tie gate: weights seed {seed}, FFN call {call}: offset {o:+.3e}"
+                + ("  FAIL" if bad else ""))
+            if bad and seed not in failed:
+                failed.append(seed)
     if failed:
         raise AssertionError(f"{tag}: training kernel path disagrees with the plain path "
                              f"for weight seeds {failed}")
@@ -3086,9 +3181,12 @@ def phase_small(seed: int = 0):
     m`` towers 24 wide in a 32-wide stream) on the card, its towers' K steps
     padded from 24 to 32 channels: 4 requests through ``Predictor(batch_size=2,
     max_len=1024)``, K1 launched; the eval step on 2 x 1024 on both paths
-    (block-0 logits, predictions); then 1 + 2 Adam steps on 2 x 1024
-    (dropout 0.1, channel masking 0.3), K1's forward and backward launched
-    and every loss finite."""
+    (block-0 logits, predictions); the same weights with int8 evaluation
+    (``TPU.quantize_infer: "int8"``, K8a at 24 channels): the 4 requests
+    with K8a launched and K1 not, then ``int8_paths`` on 2 x 1024 (the int8
+    kernel path against the int8 plain path, gated); then 1 + 2 Adam steps
+    on 2 x 1024 (dropout 0.1, channel masking 0.3), K1's forward and
+    backward launched and every loss finite."""
     import torch
 
     from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
@@ -3123,6 +3221,31 @@ def phase_small(seed: int = 0):
     if counts["mstcn_stack"] <= 0:
         raise AssertionError("small: K1 did not launch while serving")
     eval_paths("small", model, cfg, rng, [T, 700], T, D)
+
+    cfg8 = small_cfg()
+    cfg8["TPU"].update(matcher="host", quantize_infer="int8")
+    model8 = build_fact(cfg8, D, C, S_CAP, device=dev)
+    model8.load_state_dict(model.state_dict(), strict=True)
+    pred8 = Predictor(model8, mwt=cfg8["FACT"]["mwt"], batch_size=2, max_len=T, device=dev)
+    pred8.predict(feats[-1:])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = pred8.predict(feats)
+    torch.cuda.synchronize()
+    counts8 = kernel_counters()
+    for n, o in zip(lengths, outs):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bad int8 prediction: shape {o.shape}")
+    log(f"[small] small_cfg() with int8 evaluation: predict {lengths}, K8a mstcn_stack_q8 "
+        f"launches {counts8['mstcn_stack_q8']}, K1 mstcn_stack {counts8['mstcn_stack']}")
+    if counts8["mstcn_stack_q8"] <= 0 or counts8["mstcn_stack"] != 0:
+        raise AssertionError(f"small int8: K8a launched {counts8['mstcn_stack_q8']} times, K1 "
+                             f"{counts8['mstcn_stack']}")
+    x, mask, lens, full = _batch(rng, [T, 700], T, D)
+    int8_paths("small_int8", model8, model, cfg8["FACT"]["mwt"], x, mask, lens, full, 2, T,
+               ("frame_clogit",))
+    del model8, pred8
+
     batches = [synthetic_batch(rng, D, C, 16, T, ln) for ln in ([T, 700], [900, 512])]
     step = make_train_step(model, cfg, C, build_class_weights(cfg, C, []))
     gen = torch.Generator(device=dev).manual_seed(seed)

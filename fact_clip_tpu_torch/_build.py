@@ -83,9 +83,12 @@ SIGNATURES = {
     "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
-    "fk_q8_tower_layer": [P] * 15 + [I] * 9 + [F, P],
+    "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 10
+                         + [P],
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
+    "fk_q8_rows_kv": [P, P, L] + [I] * 5 + [P] * 3,
+    "fk_q8_kv_proj": [P] * 3 + [I] + [P] * 6 + [I] * 5 + [P],
     "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
     "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
 }

@@ -1,7 +1,9 @@
-// K8e: the int8 MS-TCN++ tower (int8 evaluation of the f: m2 models,
-// Breakfast and Epic-Kitchens), on tc_int8.cuh's int8 wgmma core.
+// The int8 towers on tc_int8.cuh's int8 wgmma core: K8e, the MS-TCN++
+// tower (int8 evaluation of the f: m2 models, Breakfast and Epic-Kitchens),
+// and K8a, the MSTCN tower (the f: m models, the flagship), which runs
+// K8e's passes with one conv (below).
 //
-// Replaces fact_clip_tpu/ops/pallas/quant_conv.py::_stack2_layer_q8
+// K8e replaces fact_clip_tpu/ops/pallas/quant_conv.py::_stack2_layer_q8
 // (_stack2_kernel_q8, act_scale="tile"), one layer of
 //   c_k = (sum_tap q(x[t + (tap-1) d_k]) . qk_k[tap]) * (s_x * sk_k) + b_k   k = 1, 2
 //   h   = (q(c1) . Wt) * (s1 * swt) + (q(c2) . Wb) * (s2 * swb)
@@ -57,6 +59,34 @@
 // again (2 per column block, L2), the residual read and the output written
 // (8): ~32 bytes from device memory, 0.08 ms a layer at 3.35 TB/s (PERF.md's
 // K8e findings: why c keeps its f32 round trip).
+//
+// K8a replaces fact_clip_tpu/ops/pallas/quant_conv.py::_stack_layer_q8
+// (_stack_kernel_q8, act_scale="tile"), one layer of
+//   a   = relu((sum_tap q(x[t + (tap-1) d]) . qwd[tap]) * (s_x * swd) + bd)
+//   out = (q(a) . qw1) * (s_a * sw1) + b1 + x[t]   (-> LayerNorm) * mask
+// with int8 joint-tap conv weights and an int8 1x1 weight (per output
+// channel scales); s_x the absmax of the layer input over the tile's window
+// with halo = ceil8(d), s_a the max of a over every row of the tile, padded
+// rows included (a >= 0).  The same passes: W; A with one conv, the ReLU in
+// its epilogue (an item past the video writes relu(bd)); Q (a quantized
+// with its tile's s_a); B, pass F's kernel with one accumulator: out =
+// fma(acc, s_a * sw1, b1) + x, the mask and the group maxima.  With the
+// LayerNorm (eps 1e-5), B writes the rows before the norm and pass N
+// normalizes them in place, a warp a row (lane l sums channels l, l + 32,
+// ... in turn, then the xor-shuffle tree: ops/quant_conv.py::_lane_sum is
+// this order), and writes the group maxima: a row's sums span the column
+// items of B.  Any width, as K8e.
+//
+// K8a's bound (chip_smoke.py::k8a_case): the 3-tap product on the rows
+// whose a feeds a tile's s_a (the valid rows and, past a video's end, those
+// within d of it in its last tile; further on a = relu(bd)), the 1x1
+// product and the f32 epilogue on the valid rows.  At the flagship's
+// lengths (22,022 valid frames of 8 x 3072, C = 256) the ten layers' int8
+// products are 117.2 G operations (0.059 ms at 1,979 TOPS).  Its own
+// traffic a frame and channel of a layer: the input read (4) and its
+// windows written (~1.6 at d <= 512), a written (4), read (4) and written as
+// int8 (1), read again (1 per column item, L2), the residual read and the
+// output written (8): ~23 bytes, 0.045 ms a layer at 3.35 TB/s.
 #include <math.h>
 #include <string.h>
 
@@ -68,7 +98,7 @@ namespace {
 
 constexpr int kWinRows = 32;  // window rows per block of pass W
 constexpr int kQRows = 32;    // rows per block of pass Q
-constexpr int kFuseBN = 128;  // columns per block of pass F (two accumulators)
+constexpr int kOutBN = 128;   // columns per block of passes F and B
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -125,22 +155,22 @@ q8e_window_kernel(const float* __restrict__ x, const int* __restrict__ len,
 
 struct ConvArgs {
   CUtensorMap amap;  // the window buffer (Cw, wrows, B * n_tiles)
-  CUtensorMap bmap;  // the conv weights (Kc, C, 2): row n of conv z, tap k at k * kseg
+  CUtensorMap bmap;  // the conv weights (Kc, C, nconv): row n of conv z, tap k at k * kseg
   const int* len;
   const float* sx;  // (B, n_tiles)
   const float* sk[2];
   const float* bias[2];
-  float* c;   // (2, B, T_pad, Cq)
-  int* smax;  // (2, B, n_tiles): |c|'s maxima, as int bits
-  int B, C, Cq, kseg, halo, tile, n_tiles, T_pad, jt, ncol;
+  float* c;   // (nconv, B, T_pad, Cq)
+  int* smax;  // (nconv, B, n_tiles): |c|'s maxima, as int bits
+  int B, C, Cq, kseg, halo, tile, n_tiles, T_pad, jt, ncol, nconv, relu;
   int d[2];
 };
 
 // Pass A, persistent: item (row block, column block, conv z, video b), the
-// row block fastest-but-one so that the items of one row block (both convs,
-// every column block) run side by side and share its window rows in L2.
+// row block fastest-but-one so that the items of one row block (every conv
+// and column block) run side by side and share its window rows in L2.
 // The item's c_z on rows [r0, r0 + 128) of tile t (r0 = t * tile + j * 128),
-// BN columns from n0.
+// BN columns from n0; with relu (K8a) c is relu'd, so |c| = c.
 template <int BN>
 __global__ void __launch_bounds__(tc8::kThreads, 1)
     q8e_conv_kernel(const __grid_constant__ ConvArgs p) {
@@ -150,12 +180,13 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rows = p.n_tiles * p.jt;
-  const int items = rows * 2 * p.ncol * p.B;
+  const int per_row = p.nconv * p.ncol;
+  const int items = rows * per_row * p.B;
   const int kbs = ceil_div(p.kseg, tc8::kKB);
   // (t, j, n0, z, b, first row, K steps) of item i
   auto decode = [&](int i, int& t, int& j, int& n0, int& z, int& b, int& r0, int& nk) {
-    const int col = i % (2 * p.ncol);
-    const int rb = i / (2 * p.ncol);
+    const int col = i % per_row;
+    const int rb = i / per_row;
     b = rb / rows;
     const int r = rb - b * rows;
     t = r / p.jt;
@@ -220,9 +251,13 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
       for (int h = 0; h < 2; ++h) {
         const int rt = j * tc8::kBM + rw + 8 * h;  // row within the tile
         if (rt >= p.tile) continue;
-        const float v0 = __fmaf_rn(__int2float_rn(acc[0][4 * jj + 2 * h]), col_s[cl], col_b[cl]);
-        const float v1 =
+        float v0 = __fmaf_rn(__int2float_rn(acc[0][4 * jj + 2 * h]), col_s[cl], col_b[cl]);
+        float v1 =
             __fmaf_rn(__int2float_rn(acc[0][4 * jj + 2 * h + 1]), col_s[cl + 1], col_b[cl + 1]);
+        if (p.relu) {
+          v0 = v0 > 0.f ? v0 : 0.f;
+          v1 = v1 > 0.f ? v1 : 0.f;
+        }
         // Cq is a multiple of 16 above C: column n + 1 lies in the row
         *reinterpret_cast<float2*>(cz + (size_t)(t * p.tile + rt) * p.Cq + n) =
             make_float2(v0, v1);
@@ -284,28 +319,36 @@ q8e_quant_c_kernel(const float* __restrict__ c, const int* __restrict__ smax,
   }
 }
 
-struct FuseArgs {
-  CUtensorMap amap;  // qc (Cq, T_pad, 2 B)
-  CUtensorMap bmap;  // the fuse halves (Kf, C, 2): row n of Wt (0) or Wb (1)
+struct OutArgs {
+  CUtensorMap amap;  // the quantized inputs qc (Cq, T_pad, NACC * B)
+  CUtensorMap bmap;  // the weights (Kf, C, NACC): K8e's Wt (0) and Wb (1), K8a's W1
   const int* len;
+  const float* a;  // K8a's f32 a (B, T_pad, Cq), quantized in the kernel (kQuantA)
   const float* x;
-  const int* smax;  // (2, B, n_tiles)
-  const float* swt;
-  const float* swb;
-  const float* bf;
+  const int* smax;     // (NACC, B, n_tiles)
+  const float* sw[2];  // K8e's swt, swb; K8a's sw1
+  const float* bias;   // K8e's bf; K8a's b1
   float* y;
   float* gmax;  // (B, T_pad / 8), zeros: each 8-row group's max |out|
-  int B, T, C, kseg, tile, n_tiles, T_pad, jt;
+  int B, T, C, Cq, kseg, tile, n_tiles, T_pad, jt, ln;
 };
 
-// Pass F, persistent: item (row block, column block, video b), out on rows
-// [r0, r0 + 128) of tile t, 128 columns from n0
+// Passes F (K8e, NACC = 2) and B (K8a, NACC = 1), persistent: item (row
+// block, column block, video b), out on rows [r0, r0 + 128) of tile t, BN
+// columns from n0.  K8e: h = fma(h1, s1 * swt, h2 * (s2 * swb)), out =
+// relu(h + bf) + x; K8a: out = fma(acc, s_a * sw1, b1) + x (before its
+// LayerNorm when ln: pass N then takes the group maxima).  With kQuantA
+// (K8a, one item over every column) pass Q runs inside: each consumer
+// warpgroup quantizes its 64 rows of a with the tile's s_a into the stage's
+// A tile (the 128-byte swizzle TMA would write), and TMA brings the
+// weights only.
+template <int NACC, int BN, bool kQuantA>
 __global__ void __launch_bounds__(tc8::kThreads, 1)
-    q8e_fuse_kernel(const __grid_constant__ FuseArgs p) {
-  constexpr int BN = kFuseBN;
+    q8_out_kernel(const __grid_constant__ OutArgs p) {
   constexpr int JB = 8;  // column groups whose residual loads go out together
+  constexpr int S = tc8::Ring<BN>::kStages;
   extern __shared__ float4 smem_raw[];
-  // s1 * swt, s2 * swb and bf of the item's columns
+  // the columns' first scale (s1 * swt or s_a * sw1), second (s2 * swb) and bias
   __shared__ float col_t[BN], col_w[BN], col_f[BN];
   uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -322,7 +365,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     j = r - t * p.jt;
     r0 = t * p.tile + j * tc8::kBM;
     lim = min(p.len[b], p.T);
-    nk = r0 >= lim ? 0 : 2 * kbs;  // every row masked: zeros, no product
+    nk = r0 >= lim ? 0 : NACC * kbs;  // every row masked: zeros, no product
   };
   uint64_t* full = tc8::ring_init<BN>(sm);
   __syncthreads();
@@ -333,11 +376,14 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
       for (int i = blockIdx.x; i < items; i += gridDim.x) {
         int t, j, n0, b, r0, lim, nk;
         decode(i, t, j, n0, b, r0, lim, nk);
-        tc8::produce<BN>(sm, full, g, nk, [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
-          const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
-          tc::tma_load_3d(a, &p.amap, bar, kb, r0, half * p.B + b);
-          tc::tma_load_3d(w, &p.bmap, bar, kb, n0, half);
-        });
+        tc8::produce<BN>(
+            sm, full, g, nk,
+            [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
+              const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+              if constexpr (!kQuantA) tc::tma_load_3d(a, &p.amap, bar, kb, r0, half * p.B + b);
+              tc::tma_load_3d(w, &p.bmap, bar, kb, n0, half);
+            },
+            kQuantA ? BN * tc8::kKB : tc8::Ring<BN>::kStage);
       }
     return;
   }
@@ -347,23 +393,71 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
   const bool pair = (p.C & 1) == 0;  // float2 access to x and y
-  int acc[2][BN / 2];
+  int acc[NACC][BN / 2];
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     int t, j, n0, b, r0, lim, nk;
     decode(i, t, j, n0, b, r0, lim, nk);
 #pragma unroll
-    for (int k = 0; k < BN / 2; ++k) acc[0][k] = acc[1][k] = 0;
-    tc8::consume<BN, 2>(acc, sm, full, g, nk, wg, [&](int kc) {
-      const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
-      return half * 8 + min(4, (p.kseg - kb) / 32);
-    });
-    if (ct < BN) {
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int k = 0; k < BN / 2; ++k) acc[a][k] = 0;
+    if constexpr (kQuantA) {
+      // thread wt of the warpgroup quantizes half of row R of the item: 4 of
+      // the K step's eight 16-byte chunks
+      const int wt = ct - wg * 128;
+      const int R = wg * 64 + (wt >> 1), qh = wt & 1;
+      const int arow = r0 + R;  // a's row (past the tile: discarded outputs)
+      const float s_a = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
+      const float inv = __fdiv_rn(127.f, s_a);
+      const float* src = p.a + ((size_t)b * p.T_pad + arow) * p.Cq;
+      uint64_t* empty = full + S;
+      for (int kc = 0; kc < nk; ++kc, ++g) {
+        const int s = g % S;
+        uint8_t* st = sm + s * tc8::Ring<BN>::kStage;
+        // this warpgroup's wgmma of step g - S, the last to read these rows, is done
+        int4 q[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int ch = kc * tc8::kKB + 16 * (4 * qh + u);
+          q[u] = arow < p.T_pad && ch < p.C ? quant_chunk(src, ch, p.C, inv)
+                                            : make_int4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<int4*>(st + R * tc8::kKB + ((((4 * qh + u) ^ R) & 7) << 4)) = q[u];
+        tc::fence_proxy_async();  // the generic-proxy writes, before the wgmma reads them
+        tc::bar_sync(2 + wg, 128);
+        tc::mbar_wait(&full[s], (g / S) & 1);
+        const uint64_t da = tc::desc_sw128(st + wg * (tc8::kATile / 2));
+        const uint64_t db = tc::desc_sw128(st + tc8::kATile);
+        const int nsub = min(4, (p.kseg - kc * tc8::kKB) / 32);
+        tc::fence_acc(acc[0]);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < tc8::kKB / 32; ++k)
+          if (k < nsub) tc8::wgmma_s8<BN>(acc[0], da + 2 * k, db + 2 * k);
+        tc::wgmma_commit();
+        tc8::wgmma_wait_1();
+        if (kc > 0 && lane == 0) tc::mbar_arrive(&empty[(g - 1) % S]);
+      }
+      tc::wgmma_wait_all();
+      if (nk > 0 && lane == 0) tc::mbar_arrive(&empty[(g - 1) % S]);
+      tc::fence_acc(acc[0]);
+    } else {
+      tc8::consume<BN, NACC>(acc, sm, full, g, nk, wg, [&](int kc) {
+        const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+        return half * 8 + min(4, (p.kseg - kb) / 32);
+      });
+    }
+    for (int c = ct; c < BN; c += 256) {
+      const int n = n0 + c;
       const float s1 = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
-      const float s2 = fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
-      const int n = n0 + ct;
-      col_t[ct] = n < p.C ? __fmul_rn(s1, __ldg(p.swt + n)) : 0.f;
-      col_w[ct] = n < p.C ? __fmul_rn(s2, __ldg(p.swb + n)) : 0.f;
-      col_f[ct] = n < p.C ? __ldg(p.bf + n) : 0.f;
+      col_t[c] = n < p.C ? __fmul_rn(s1, __ldg(p.sw[0] + n)) : 0.f;
+      if constexpr (NACC == 2) {
+        const float s2 = fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
+        col_w[c] = n < p.C ? __fmul_rn(s2, __ldg(p.sw[1] + n)) : 0.f;
+      }
+      col_f[c] = n < p.C ? __ldg(p.bias + n) : 0.f;
     }
     tc::bar_sync(1, 256);
     float gm[2] = {0.f, 0.f};
@@ -403,17 +497,26 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
           float o0 = 0.f, o1 = 0.f;
           if (row < lim) {
             const int k = 4 * jj + 2 * h;
-            // h = fma(h1, s1 * swt, h2 * (s2 * swb)); out = relu(h + bf) + x
-            const float v0 = __fadd_rn(
-                __fmaf_rn(__int2float_rn(acc[0][k]), col_t[cl],
-                          __fmul_rn(__int2float_rn(acc[1][k]), col_w[cl])),
-                col_f[cl]);
-            const float v1 = __fadd_rn(
-                __fmaf_rn(__int2float_rn(acc[0][k + 1]), col_t[cl + 1],
-                          __fmul_rn(__int2float_rn(acc[1][k + 1]), col_w[cl + 1])),
-                col_f[cl + 1]);
-            o0 = __fadd_rn(v0 > 0.f ? v0 : 0.f, xv[u][h].x);
-            o1 = __fadd_rn(v1 > 0.f ? v1 : 0.f, xv[u][h].y);
+            if constexpr (NACC == 2) {
+              // h = fma(h1, s1 * swt, h2 * (s2 * swb)); out = relu(h + bf) + x
+              const float v0 = __fadd_rn(
+                  __fmaf_rn(__int2float_rn(acc[0][k]), col_t[cl],
+                            __fmul_rn(__int2float_rn(acc[1][k]), col_w[cl])),
+                  col_f[cl]);
+              const float v1 = __fadd_rn(
+                  __fmaf_rn(__int2float_rn(acc[0][k + 1]), col_t[cl + 1],
+                            __fmul_rn(__int2float_rn(acc[1][k + 1]), col_w[cl + 1])),
+                  col_f[cl + 1]);
+              o0 = __fadd_rn(v0 > 0.f ? v0 : 0.f, xv[u][h].x);
+              o1 = __fadd_rn(v1 > 0.f ? v1 : 0.f, xv[u][h].y);
+            } else {
+              // out = fma(acc, s_a * sw1, b1) + x
+              o0 = __fadd_rn(__fmaf_rn(__int2float_rn(acc[0][k]), col_t[cl], col_f[cl]),
+                             xv[u][h].x);
+              o1 = __fadd_rn(
+                  __fmaf_rn(__int2float_rn(acc[0][k + 1]), col_t[cl + 1], col_f[cl + 1]),
+                  xv[u][h].y);
+            }
           }
           float* yp = p.y + ((size_t)b * p.T + row) * p.C + n;
           if (pair) {
@@ -429,16 +532,60 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     }
     // a warp's rows of one h are one 8-row group (the tile and 128 are
     // multiples of 8); the groups' maxima over the columns of every item
+    if (!p.ln) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m = fk::warp_max(gm[h]);
-      const int rt = j * tc8::kBM + wg * 64 + (warp & 3) * 16 + 8 * h;
-      const int row = t * p.tile + rt;
-      if (lane == 0 && m > 0.f && rt < p.tile && row < p.T)
-        atomicMax(reinterpret_cast<int*>(p.gmax) + (size_t)b * (p.T_pad / 8) + row / 8,
-                  __float_as_int(m));
+      for (int h = 0; h < 2; ++h) {
+        const float m = fk::warp_max(gm[h]);
+        const int rt = j * tc8::kBM + wg * 64 + (warp & 3) * 16 + 8 * h;
+        const int row = t * p.tile + rt;
+        if (lane == 0 && m > 0.f && rt < p.tile && row < p.T)
+          atomicMax(reinterpret_cast<int*>(p.gmax) + (size_t)b * (p.T_pad / 8) + row / 8,
+                    __float_as_int(m));
+      }
     }
     tc::bar_sync(1, 256);  // col_t, col_w and col_f are free for the next item
+  }
+}
+
+// Pass N (K8a's LayerNorm): rows [8 g, 8 g + 8) of video b normalized in
+// place, a warp a row, in two passes with 1 / sqrt correctly rounded (the
+// plain version rounds alike), and the group's max |out| into gmax (B,
+// T_pad / 8): the next layer's window maxima.  Rows past the video stay 0.
+__global__ void __launch_bounds__(fk::kThreads)
+q8a_ln_kernel(float* __restrict__ y, const int* __restrict__ len, const float* __restrict__ gamma,
+              const float* __restrict__ beta, float eps, float* __restrict__ gmax, int T, int C,
+              int G) {
+  __shared__ float wm[fk::kWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gi = blockIdx.x, b = blockIdx.y;
+  const int row = gi * 8 + w;
+  float m = 0.f;
+  if (row < min(len[b], T)) {
+    float* o = y + ((size_t)b * T + row) * C;
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) sum = __fadd_rn(sum, o[c]);
+    const float mean = __fdiv_rn(fk::warp_sum(sum), (float)C);
+    float var = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dv = __fsub_rn(o[c], mean);
+      var = __fadd_rn(var, __fmul_rn(dv, dv));
+    }
+    const float inv =
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(fk::warp_sum(var), (float)C), eps)));
+    for (int c = lane; c < C; c += 32) {
+      const float v =
+          __fmaf_rn(__fmul_rn(__fsub_rn(o[c], mean), inv), __ldg(gamma + c), __ldg(beta + c));
+      o[c] = v;
+      m = fmaxf(m, fabsf(v));
+    }
+  }
+  m = fk::warp_max(m);
+  if (lane == 0) wm[w] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float mm = 0.f;
+    for (int i = 0; i < fk::kWarps; ++i) mm = fmaxf(mm, wm[i]);
+    gmax[(size_t)b * G + gi] = mm;
   }
 }
 
@@ -448,6 +595,107 @@ cudaError_t launch_tc8(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, c
   if (err != cudaSuccess) return err;
   kernel<<<grid, tc8::kThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The shapes a layer's launches take (both towers)
+struct Layout {
+  int B, T, C, Cw, halo, tile, n_tiles, T_pad;
+  int kseg() const { return (C + 31) / 32 * 32; }
+  int jt() const { return ceil_div(tile, tc8::kBM); }  // blocks of 128 rows in a tile
+  bool ok(int Kc, int Kf, int dmax) const {
+    return tile >= 8 && tile % 8 == 0 && T_pad % tile == 0 && halo % 8 == 0 && halo >= dmax &&
+           Cw % 16 == 0 && Cw >= C && Cw >= tc8::kKB && Kc >= 3 * kseg() && Kc % 16 == 0 &&
+           Kc >= tc8::kKB && Kf >= kseg() && Kf % 16 == 0 && Kf >= tc8::kKB;
+  }
+};
+
+// Passes W, A and (with quant) Q: the windows quantized once, the nconv
+// convs (relu'd when relu) with their tiles' maxima, and c quantized into qc
+cudaError_t conv_passes(const Layout& l, const float* x, const int* len, const float* gmax_in,
+                        const int8_t* kpack, int Kc, const float* const* sk,
+                        const float* const* bias, const int* d, int nconv, int relu, bool quant,
+                        int8_t* qwin, float* sx, float* c, int8_t* qc, int* smax,
+                        cudaStream_t st) {
+  const int wrows = l.tile + 2 * l.halo;
+  const int jt = l.jt();
+  q8e_window_kernel<<<dim3(ceil_div(wrows, kWinRows), l.n_tiles, l.B), fk::kThreads, 0, st>>>(
+      x, len, gmax_in, qwin, sx, l.T, l.C, l.Cw, l.halo, l.tile, l.n_tiles, l.T_pad, wrows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  ConvArgs a;
+  memset(&a, 0, sizeof(a));
+  // 256 columns a block where that still gives the card a full wave
+  const bool wide = l.C > 128 && l.n_tiles * jt * l.B * nconv * ceil_div(l.C, 256) >= 132;
+  const int bn = wide ? 256 : 128;
+  if (!tc8::encode_3d_s8(&a.amap, qwin, l.Cw, wrows, (long long)l.B * l.n_tiles, tc8::kBM) ||
+      !tc8::encode_3d_s8(&a.bmap, kpack, Kc, l.C, nconv, bn))
+    return cudaErrorInvalidValue;
+  a.len = len;
+  a.sx = sx;
+  for (int z = 0; z < nconv; ++z) {
+    a.sk[z] = sk[z];
+    a.bias[z] = bias[z];
+    a.d[z] = d[z];
+  }
+  a.c = c;
+  a.smax = smax;
+  a.B = l.B;
+  a.C = l.C;
+  a.Cq = l.Cw;
+  a.kseg = l.kseg();
+  a.halo = l.halo;
+  a.tile = l.tile;
+  a.n_tiles = l.n_tiles;
+  a.T_pad = l.T_pad;
+  a.jt = jt;
+  a.ncol = ceil_div(l.C, bn);
+  a.nconv = nconv;
+  a.relu = relu;
+  const dim3 agrid(tc8::persistent_blocks(l.n_tiles * jt * nconv * a.ncol * l.B));
+  err = wide ? launch_tc8(q8e_conv_kernel<256>, agrid, tc8::Ring<256>::kBytes, st, a)
+             : launch_tc8(q8e_conv_kernel<128>, agrid, tc8::Ring<128>::kBytes, st, a);
+  if (err != cudaSuccess || !quant) return err;
+
+  q8e_quant_c_kernel<<<dim3(ceil_div(l.T_pad, kQRows), nconv, l.B), fk::kThreads, 0, st>>>(
+      c, smax, qc, l.B, l.C, l.Cw, l.tile, l.n_tiles, l.T_pad);
+  return cudaGetLastError();
+}
+
+// Pass F (NACC = 2) or B (NACC = 1) on qc, or with kQuantA pass B on the
+// f32 a (one item over every column: BN >= C)
+template <int NACC, int BN, bool kQuantA>
+cudaError_t out_pass(const Layout& l, const int8_t* qc, const float* a, const int8_t* wpack,
+                     int Kf, const int* len, const float* x, const int* smax, const float* sw0,
+                     const float* sw1, const float* bias, int ln, float* y, float* gmax_out,
+                     cudaStream_t st) {
+  OutArgs f;
+  memset(&f, 0, sizeof(f));
+  if ((!kQuantA &&
+       !tc8::encode_3d_s8(&f.amap, qc, l.Cw, l.T_pad, (long long)NACC * l.B, tc8::kBM)) ||
+      !tc8::encode_3d_s8(&f.bmap, wpack, Kf, l.C, NACC, BN))
+    return cudaErrorInvalidValue;
+  f.len = len;
+  f.a = a;
+  f.x = x;
+  f.smax = smax;
+  f.sw[0] = sw0;
+  f.sw[1] = sw1;
+  f.bias = bias;
+  f.y = y;
+  f.gmax = gmax_out;
+  f.B = l.B;
+  f.T = l.T;
+  f.C = l.C;
+  f.Cq = l.Cw;
+  f.kseg = l.kseg();
+  f.tile = l.tile;
+  f.n_tiles = l.n_tiles;
+  f.T_pad = l.T_pad;
+  f.jt = l.jt();
+  f.ln = ln;
+  const dim3 grid(tc8::persistent_blocks(l.n_tiles * l.jt() * ceil_div(l.C, BN) * l.B));
+  return launch_tc8(q8_out_kernel<NACC, BN, kQuantA>, grid, tc8::Ring<BN>::kBytes, st, f);
 }
 
 }  // namespace
@@ -468,78 +716,55 @@ extern "C" int fk_q8_tower2_layer(const float* x, const int* len, const float* g
                                   float* y, float* gmax_out, int B, int T, int C, int Cw, int d1,
                                   int d2, int halo, int tile, int n_tiles, int T_pad,
                                   void* stream) {
-  const int kseg = (C + 31) / 32 * 32;
-  if (tile < 8 || tile % 8 != 0 || T_pad % tile != 0 || halo % 8 != 0 || halo < max(d1, d2) ||
-      Cw % 16 != 0 || Cw < C || Cw < tc8::kKB || Kc < 3 * kseg || Kc % 16 != 0 ||
-      Kc < tc8::kKB || Kf < kseg || Kf % 16 != 0 || Kf < tc8::kKB)
-    return (int)cudaErrorInvalidValue;
+  const Layout l{B, T, C, Cw, halo, tile, n_tiles, T_pad};
+  if (!l.ok(Kc, Kf, max(d1, d2))) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int wrows = tile + 2 * halo;
-  const int jt = ceil_div(tile, tc8::kBM);  // blocks of 128 rows in a tile
-  cudaError_t err;
-
-  q8e_window_kernel<<<dim3(ceil_div(wrows, kWinRows), n_tiles, B), fk::kThreads, 0, st>>>(
-      x, len, gmax_in, qwin, sx, T, C, Cw, halo, tile, n_tiles, T_pad, wrows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  ConvArgs a;
-  memset(&a, 0, sizeof(a));
-  // 256 columns a block where that still gives the card a full wave
-  const bool wide = C > 128 && n_tiles * jt * B * 2 * ceil_div(C, 256) >= 132;
-  const int bn = wide ? 256 : 128;
-  if (!tc8::encode_3d_s8(&a.amap, qwin, Cw, wrows, (long long)B * n_tiles, tc8::kBM) ||
-      !tc8::encode_3d_s8(&a.bmap, kpack, Kc, C, 2, bn))
-    return (int)cudaErrorInvalidValue;
-  a.len = len;
-  a.sx = sx;
-  a.sk[0] = sk1;
-  a.sk[1] = sk2;
-  a.bias[0] = b1;
-  a.bias[1] = b2;
-  a.c = c;
-  a.smax = smax;
-  a.B = B;
-  a.C = C;
-  a.Cq = Cw;
-  a.kseg = kseg;
-  a.halo = halo;
-  a.tile = tile;
-  a.n_tiles = n_tiles;
-  a.T_pad = T_pad;
-  a.jt = jt;
-  a.ncol = ceil_div(C, bn);
-  a.d[0] = d1;
-  a.d[1] = d2;
-  const dim3 agrid(tc8::persistent_blocks(n_tiles * jt * 2 * a.ncol * B));
-  err = wide ? launch_tc8(q8e_conv_kernel<256>, agrid, tc8::Ring<256>::kBytes, st, a)
-             : launch_tc8(q8e_conv_kernel<128>, agrid, tc8::Ring<128>::kBytes, st, a);
+  const float* sk[2] = {sk1, sk2};
+  const float* bias[2] = {b1, b2};
+  const int d[2] = {d1, d2};
+  cudaError_t err = conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, d, 2, 0, true, qwin,
+                                sx, c, qc, smax, st);
   if (err != cudaSuccess) return (int)err;
+  return (int)out_pass<2, kOutBN, false>(l, qc, nullptr, fpack, Kf, len, x, smax, swt, swb, bf, 0,
+                                         y, gmax_out, st);
+}
 
-  q8e_quant_c_kernel<<<dim3(ceil_div(T_pad, kQRows), 2, B), fk::kThreads, 0, st>>>(
-      c, smax, qc, B, C, Cw, tile, n_tiles, T_pad);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  FuseArgs f;
-  memset(&f, 0, sizeof(f));
-  if (!tc8::encode_3d_s8(&f.amap, qc, Cw, T_pad, 2LL * B, tc8::kBM) ||
-      !tc8::encode_3d_s8(&f.bmap, fpack, Kf, C, 2, kFuseBN))
-    return (int)cudaErrorInvalidValue;
-  f.len = len;
-  f.x = x;
-  f.smax = smax;
-  f.swt = swt;
-  f.swb = swb;
-  f.bf = bf;
-  f.y = y;
-  f.gmax = gmax_out;
-  f.B = B;
-  f.T = T;
-  f.C = C;
-  f.kseg = kseg;
-  f.tile = tile;
-  f.n_tiles = n_tiles;
-  f.T_pad = T_pad;
-  f.jt = jt;
-  const dim3 fgrid(tc8::persistent_blocks(n_tiles * jt * ceil_div(C, kFuseBN) * B));
-  return (int)launch_tc8(q8e_fuse_kernel, fgrid, tc8::Ring<kFuseBN>::kBytes, st, f);
+// One int8 MSTCN layer: passes W, A, Q, B (and N with the LayerNorm); with
+// fuse_q at C <= 256 pass B quantizes a itself (no pass Q, qa unused).
+// Buffers as fk_q8_tower2_layer's with one conv: qwin (B, n_tiles, tile + 2
+// halo, Cw), sx (B, n_tiles), a (B, T_pad, Cw) f32, qa (B, T_pad, Cw) int8,
+// smax (B, n_tiles) int32 zeros, gmax_out (B, T_pad / 8) zeros.  kpack (C,
+// Kc) int8: out channel n, tap k's inputs from column k * kseg; wpack (C,
+// Kw) int8: W1's out channel n (zeros past C in both).
+extern "C" int fk_q8_tower_layer(const float* x, const int* len, const float* gmax_in,
+                                 const int8_t* kpack, int Kc, const float* swd, const float* bd,
+                                 const int8_t* wpack, int Kw, const float* sw1, const float* b1,
+                                 const float* gamma, const float* beta, int use_ln, float eps,
+                                 int8_t* qwin, float* sx, float* a, int8_t* qa, int* smax,
+                                 float* y, float* gmax_out, int B, int T, int C, int Cw, int d,
+                                 int halo, int tile, int n_tiles, int T_pad, int fuse_q,
+                                 void* stream) {
+  const Layout l{B, T, C, Cw, halo, tile, n_tiles, T_pad};
+  if (!l.ok(Kc, Kw, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* sk[2] = {swd, nullptr};
+  const float* bias[2] = {bd, nullptr};
+  const int dd[2] = {d, 0};
+  const bool fused = fuse_q && C <= 256;
+  cudaError_t err = conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, dd, 1, 1, !fused, qwin,
+                                sx, a, qa, smax, st);
+  if (err != cudaSuccess) return (int)err;
+  if (!fused)
+    err = out_pass<1, kOutBN, false>(l, qa, nullptr, wpack, Kw, len, x, smax, sw1, nullptr, b1,
+                                     use_ln, y, gmax_out, st);
+  else if (C > 128)
+    err = out_pass<1, 256, true>(l, nullptr, a, wpack, Kw, len, x, smax, sw1, nullptr, b1, use_ln,
+                                 y, gmax_out, st);
+  else
+    err = out_pass<1, 128, true>(l, nullptr, a, wpack, Kw, len, x, smax, sw1, nullptr, b1, use_ln,
+                                 y, gmax_out, st);
+  if (err != cudaSuccess || !use_ln) return (int)err;
+  q8a_ln_kernel<<<dim3(ceil_div(T, 8), B), fk::kThreads, 0, st>>>(y, len, gamma, beta, eps,
+                                                                 gmax_out, T, C, T_pad / 8);
+  return (int)cudaGetLastError();
 }

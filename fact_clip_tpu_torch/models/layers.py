@@ -49,7 +49,7 @@ from ..ops.mha_attn import k3_pack, mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
                               mstcn2_stack_q8_reference, mstcn_stack_q8,
-                              mstcn_stack_q8_reference, quantize_proj, quantize_tower,
+                              mstcn_stack_q8_reference, quantize_kv, quantize_proj, quantize_tower,
                               quantize_tower2, x2y_attention_q8, x2y_attention_q8_reference)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
 from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
@@ -396,7 +396,7 @@ class MultiheadAttention(nn.Module, KernelLayout):
             if key_len is None:
                 key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
             if q8:  # K8d: int8 K / V projections (layers.py:673-681)
-                qw = self.cached("q8", lambda: (quantize_proj(wk_t), quantize_proj(wv_t)))
+                qw = self.cached("q8", lambda: quantize_kv(wk_t, wv_t))
                 fn = mha_cross_q8 if self.use_kernel else mha_cross_q8_reference
                 return self.out_proj(fn(q, key, key_pos, wk_t, bk_c, wv_t, bv_c, key_len,
                                         num_heads=H, qweights=qw))

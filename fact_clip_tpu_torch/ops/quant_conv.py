@@ -8,7 +8,7 @@ of JAX's tower layout (``dilated_conv.py::_tiling`` :89 and
 versions:
 
 * K8a ``mstcn_stack_q8`` (``f: m``): ``dilated_residual_stack_q8`` with
-  ``act_scale="tile"`` (``_stack_layer_q8`` :217) -> ``csrc/quant.cu``;
+  ``act_scale="tile"`` (``_stack_layer_q8`` :217) -> ``csrc/quant2.cu``;
 * K8e ``mstcn2_stack_q8`` (``f: m2``, Breakfast and Epic-Kitchens):
   ``dilated_residual2_stack_q8`` with ``act_scale="tile"``
   (``_stack2_layer_q8`` :390) -> ``csrc/quant2.cu``;
@@ -17,8 +17,9 @@ versions:
 * K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> ``csrc/flash_attn.cu``'s
   int8 twin; ``x2y_attention_q8`` picks K8b or K8c at JAX's threshold
   (X > 1024, :639);
-* K8d ``mha_cross_q8``: ``mha_cross_attention_q8`` (:715) -> the same int8
-  twin, multi-head.
+* K8d ``mha_cross_q8``: ``mha_cross_attention_q8`` (:715) -> the int8 K / V
+  projection of ``csrc/q8_proj.cu``, then K3's attention
+  (``csrc/mha_attn.cu``).
 
 JAX's ``act_scale="row"`` forms of the two towers are reached by no
 configuration and are not ported.
@@ -27,7 +28,7 @@ Quantization is JAX's: weights symmetric per output channel with the two
 1/127 factors folded into the scale (``s / 16129``); activations
 ``round(x * (127 / s))`` (half to even) with ``s = max(absmax, 1e-12)`` per
 row, or for the towers one scalar per video and JAX tile of frames (see
-``csrc/quant.cu`` and ``csrc/quant2.cu``).  Every integer product of a plain
+``csrc/quant2.cu``).  Every integer product of a plain
 version is exact (an f64 product of int8 values: every partial sum is an
 integer below 2^53), so a kernel's integer parts equal its plain version's
 bit for bit and only the f32 epilogue can differ.  The epilogues follow
@@ -37,8 +38,8 @@ and the LayerNorm's ``* g + beta``) into one fused multiply-add: the plain
 versions take that FMA (``_fma``) and the kernels write it (``__fmaf_rn``),
 every other step rounded on its own (K8e's fuse: fma(h1, s1 * swt, h2 * (s2
 * swb)), the bias added after).  The entries take their weights quantized
-(``quantize_tower`` / ``quantize_tower2`` / ``quantize_proj``, which a
-module caches), launch the kernel on CUDA tensors and run the plain version
+(``quantize_tower`` / ``quantize_tower2`` / ``quantize_proj`` /
+``quantize_kv``, which a module caches), launch the kernel on CUDA tensors and run the plain version
 on CPU tensors, count their launches, and refuse inputs that want a
 gradient: JAX's int8 path is never differentiated.
 """
@@ -51,6 +52,8 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .dropout import dropout_args
+from .mha_attn import FWD_KEY_TILE, attended_lengths, attn_smem, has_forward
 from .pos import add_pos, kernel_pos
 from .x2y_attn import FLASH_MIN_KEYS, key_tile
 
@@ -151,6 +154,28 @@ def _proj_q8(x, qw: QWeight, b):
 # K8a: the int8 MSTCN tower
 
 
+class K8eLayout(NamedTuple):
+    """The int8 towers' padded widths at C channels (csrc/quant2.cu, K8a's
+    and K8e's): kseg = ceil32(C),
+    a tap's K segment in whole 32-byte wgmma steps; Kc and Kf the rows of
+    the conv and fuse packs (3 kseg and kseg, at least one 128-byte TMA box);
+    Cw the rows of the int8 activation buffers (ceil16(C), at least 128)."""
+
+    kseg: int
+    Kc: int
+    Kf: int
+    Cw: int
+
+
+def k8e_layout(C: int) -> K8eLayout:
+    kseg = -(-C // 32) * 32
+    return K8eLayout(kseg, max(3 * kseg, 128), max(kseg, 128), max(-(-C // 16) * 16, 128))
+
+
+def _pad_cols(w, n: int):
+    return torch.nn.functional.pad(w, (0, n - w.shape[-1]))
+
+
 def _tiling(T: int, tile: int, dilation: int):
     """``dilated_conv.py::_tiling``: (8-aligned halo, tile, n_tiles)."""
     halo = -(-dilation // 8) * 8
@@ -166,9 +191,11 @@ def _stack_layout(T: int, dilations, tile: int):
 
 
 class Q8Layer(NamedTuple):
-    """One quantized tower layer in the kernel's layout: qwdt (C_out, 3 C_in)
-    int8 (tap k's inputs at k C_in) with the joint scale swd (C,), qw1t
-    (C_out, C_in) int8 with sw1 (C,), and the f32 vectors."""
+    """One quantized tower layer: qwdt (C_out, 3 C_in) int8 (tap k's inputs at
+    k C_in) with the joint scale swd (C,), qw1t (C_out, C_in) int8 with sw1
+    (C,), the f32 vectors, and the int8 weights in the card's layout
+    (``k8e_layout``, K8e's): kpack (C_out, Kc), tap k at columns k kseg, and
+    wpack (C_out, Kf), each zero past C_in."""
 
     qwdt: torch.Tensor
     swd: torch.Tensor
@@ -178,6 +205,8 @@ class Q8Layer(NamedTuple):
     b1: torch.Tensor
     gamma: torch.Tensor
     beta: torch.Tensor
+    kpack: torch.Tensor
+    wpack: torch.Tensor
 
 
 def quantize_tower(layers) -> list:
@@ -186,20 +215,25 @@ def quantize_tower(layers) -> list:
     out = []
     for wd, bd, w1, b1, gamma, beta in layers:
         C = w1.shape[0]
+        lay = k8e_layout(C)
         qwd, swd = quantize_weight_joint(wd)
         qw1, sw1 = quantize_weight(w1)
         ones = torch.ones(C, device=w1.device)
+        kpack = _pad_cols(_pad_cols(qwd.permute(2, 0, 1), lay.kseg).reshape(C, -1), lay.Kc)
         out.append(Q8Layer(qwd.permute(2, 0, 1).reshape(C, 3 * C).contiguous(), swd,
                            bd.float(), qw1.t().contiguous(), sw1, b1.float(),
                            gamma if gamma is not None else ones,
-                           beta if beta is not None else torch.zeros_like(ones)))
+                           beta if beta is not None else torch.zeros_like(ones),
+                           kpack.contiguous(), _pad_cols(qw1.t(), lay.Kf).contiguous()))
     return out
 
 
 def _lane_sum(v):
-    """Sum over the last dim (a multiple of 32) in the order of the kernel's
-    warp reduction (csrc/quant.cu's LayerNorm): lane l sums channels
-    l, l + 32, ... in turn, then five xor-shuffle steps add the lanes."""
+    """Sum over the last dim in the order of the kernel's warp reduction
+    (csrc/quant2.cu's pass N): lane l sums channels l, l + 32, ... in turn,
+    then five xor-shuffle steps add the lanes.  The lanes past the last
+    channel add zeros, which changes no sum."""
+    v = _pad_cols(v, -(-v.shape[-1] // 32) * 32)
     lanes = v[..., :32]
     for j in range(1, v.shape[-1] // 32):
         lanes = lanes + v[..., 32 * j: 32 * j + 32]
@@ -212,7 +246,7 @@ def _lane_sum(v):
 def _layer_norm(out, gamma, beta, eps: float):
     """JAX's two-pass LayerNorm (quant_conv.py::_ln_normalize), its sums in
     the kernel's order and 1 / sqrt correctly rounded, so that the kernel and
-    this version round alike (C a multiple of 32)."""
+    this version round alike."""
     C = out.shape[-1]
     mean = _over(_lane_sum(out), float(C))
     d = out - mean
@@ -273,47 +307,68 @@ def mstcn_stack_q8_reference(x, lengths, qlayers, dilations, *, use_ln: bool,
     return cur[:, :T]
 
 
+K8A_FUSE_Q = True  # at C <= 256 pass B quantizes a itself (csrc/quant2.cu): no pass Q
+
+
 def mstcn_stack_q8(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float = 1e-5,
                    tile: int = 512, scales: bool = False):
-    """K8a: the int8 tower (``csrc/quant.cu``, two launches a layer and one
-    for the input's group maxima) on CUDA tensors, the plain version on CPU
-    tensors.  ``qlayers`` from ``quantize_tower``; ``scales`` as in the
-    plain version (the kernels' own group and tile maxima)."""
+    """K8a: the int8 tower (``csrc/quant2.cu``, one library call a layer,
+    four launches and a fifth with the LayerNorm, and one for the input's
+    group maxima) on CUDA tensors, the plain version on CPU tensors.
+    ``qlayers`` from ``quantize_tower``; ``scales`` as in the plain version
+    (the kernels' own group and tile maxima).  Any width: the packs and
+    buffers pad C (``k8e_layout``)."""
     _build.no_grad_inputs("mstcn_stack_q8", [x] + [t for ql in qlayers
                                                    for t in (ql.bd, ql.b1, ql.gamma, ql.beta)])
     if x.device.type == "cpu":
         return mstcn_stack_q8_reference(x, lengths, qlayers, dilations, use_ln=use_ln, eps=eps,
                                         tile=tile, scales=scales)
+    out = _mstcn_q8_card(x, lengths, qlayers, dilations, use_ln, eps, tile, scales)
+    mstcn_stack_q8.launches += 1
+    return out
+
+
+def _mstcn_q8_card(x, lengths, qlayers, dilations, use_ln: bool, eps: float, tile: int,
+                   scales: bool):
+    """The card's launch sequence (also run on CPU tensors against a model of
+    the library in the tests)."""
     B, T, C = x.shape
     tile, n_tiles, T_pad, _ = _stack_layout(T, dilations, tile)
-    if C % 32:
-        raise NotImplementedError(f"mstcn_stack_q8: C={C} is not a multiple of 32")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise ValueError("mstcn_stack_q8: lengths must be (B,) int32")
+    lay = k8e_layout(C)
+    if any(ql.kpack.shape != (C, lay.Kc) or ql.wpack.shape != (C, lay.Kf) for ql in qlayers):
+        raise ValueError("mstcn_stack_q8: packs not in k8e_layout(C); use quantize_tower")
     x = x.contiguous()
-    vecs = [t for ql in qlayers for t in (ql.swd, ql.bd, ql.sw1, ql.b1, ql.gamma, ql.beta)]
-    _build.check_tensors("mstcn_stack_q8", [x, lengths, *vecs]
-                         + [t for ql in qlayers for t in (ql.qwdt, ql.qw1t)], x.device)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    a = torch.empty((B, T_pad, C), **f32)
-    ys = [torch.empty((B, T, C), **f32) for _ in range(min(2, len(qlayers)))]
+    _build.check_tensors("mstcn_stack_q8", [x, lengths, *[t for ql in qlayers for t in ql]],
+                         x.device)
+    dev = x.device
     L = len(qlayers)
-    gmax = torch.empty((L + 1, B, T_pad // 8), **f32)  # each layer input's group maxima
-    smax = torch.zeros((L, B, n_tiles), device=x.device, dtype=torch.int32)
-    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    halos = [-(-d // 8) * 8 for d in dilations]
+    # the tiles' int8 windows (the widest halo's size, each layer lays out its own),
+    # a in f32 and as int8, the window scales; group maxima zeroed
+    qwin = torch.empty(B * n_tiles * (tile + 2 * max(halos, default=0)) * lay.Cw, device=dev,
+                       dtype=torch.int8)
+    a = torch.empty((B, T_pad, lay.Cw), device=dev, dtype=torch.float32)
+    qa = torch.empty((B, T_pad, lay.Cw), device=dev, dtype=torch.int8)
+    sx = torch.empty((B, n_tiles), device=dev, dtype=torch.float32)
+    ys = [torch.empty((B, T, C), device=dev, dtype=torch.float32) for _ in range(min(2, L))]
+    gmax = torch.zeros((L + 1, B, T_pad // 8), device=dev, dtype=torch.float32)
+    smax = torch.zeros((L, B, n_tiles), device=dev, dtype=torch.int32)  # a's tile maxima
+    lib, stream = _build.lib(), _build.stream_ptr(dev)
     _build.check("fk_q8_group_max", lib.fk_q8_group_max(
         x.data_ptr(), lengths.data_ptr(), gmax[0].data_ptr(), B, T, T_pad, C, stream))
     cur = x
-    for i, (ql, d) in enumerate(zip(qlayers, dilations)):
+    for i, (ql, d, halo) in enumerate(zip(qlayers, dilations, halos)):
         y = ys[i % 2]
         _build.check("fk_q8_tower_layer", lib.fk_q8_tower_layer(
-            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), ql.qwdt.data_ptr(),
-            ql.swd.data_ptr(), ql.bd.data_ptr(), a.data_ptr(), smax[i].data_ptr(),
-            ql.qw1t.data_ptr(), ql.sw1.data_ptr(), ql.b1.data_ptr(), ql.gamma.data_ptr(),
-            ql.beta.data_ptr(), y.data_ptr(), gmax[i + 1].data_ptr(), B, T, C, d,
-            -(-d // 8) * 8, tile, n_tiles, T_pad, int(use_ln), float(eps), stream))
+            cur.data_ptr(), lengths.data_ptr(), gmax[i].data_ptr(), ql.kpack.data_ptr(), lay.Kc,
+            ql.swd.data_ptr(), ql.bd.data_ptr(), ql.wpack.data_ptr(), lay.Kf, ql.sw1.data_ptr(),
+            ql.b1.data_ptr(), ql.gamma.data_ptr(), ql.beta.data_ptr(), int(use_ln), float(eps),
+            qwin.data_ptr(), sx.data_ptr(), a.data_ptr(), qa.data_ptr(), smax[i].data_ptr(),
+            y.data_ptr(), gmax[i + 1].data_ptr(), B, T, C, lay.Cw, int(d), halo, tile, n_tiles,
+            T_pad, int(K8A_FUSE_Q), stream))
         cur = y
-    mstcn_stack_q8.launches += 1
     if scales:  # the tile maxima are the int bits of non-negative floats
         return cur, gmax[:L], smax.view(torch.float32)
     return cur
@@ -347,27 +402,6 @@ class Q8Layer2(NamedTuple):
     bf: torch.Tensor
     kpack: torch.Tensor
     fpack: torch.Tensor
-
-
-class K8eLayout(NamedTuple):
-    """K8e's padded widths at C channels (csrc/quant2.cu): kseg = ceil32(C),
-    a tap's K segment in whole 32-byte wgmma steps; Kc and Kf the rows of
-    the conv and fuse packs (3 kseg and kseg, at least one 128-byte TMA box);
-    Cw the rows of the int8 activation buffers (ceil16(C), at least 128)."""
-
-    kseg: int
-    Kc: int
-    Kf: int
-    Cw: int
-
-
-def k8e_layout(C: int) -> K8eLayout:
-    kseg = -(-C // 32) * 32
-    return K8eLayout(kseg, max(3 * kseg, 128), max(kseg, 128), max(-(-C // 16) * 16, 128))
-
-
-def _pad_cols(w, n: int):
-    return torch.nn.functional.pad(w, (0, n - w.shape[-1]))
 
 
 def quantize_tower2(layers) -> list:
@@ -662,11 +696,47 @@ def x2y_attention_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qw
 # K8d: SCA cross-attention with int8 K/V projections
 
 
+class QKV(NamedTuple):
+    """K8d's weights: the ``quantize_proj`` of Wk and Wv, and both in the
+    card's layout (``k8d_layout``): pack (2E, Kw) int8, Wk's out channel n at
+    row n and Wv's at E + n, zeros past Cx."""
+
+    qk: QWeight
+    qv: QWeight
+    pack: torch.Tensor
+
+
+class K8dLayout(NamedTuple):
+    """K8d's padded widths at Cx input channels (csrc/q8_proj.cu): kseg =
+    ceil32(Cx) in whole 32-byte wgmma steps, Kw the rows of the weight pack
+    and Cw those of the int8 frame rows (ceil16(Cx)), each at least one
+    128-byte TMA box."""
+
+    kseg: int
+    Kw: int
+    Cw: int
+
+
+def k8d_layout(Cx: int) -> K8dLayout:
+    kseg = -(-Cx // 32) * 32
+    return K8dLayout(kseg, max(kseg, 128), max(-(-Cx // 16) * 16, 128))
+
+
+def _kv_pack(qk: QWeight, qv: QWeight) -> QKV:
+    Kw = k8d_layout(qk.qt.shape[1]).Kw
+    return QKV(qk, qv, torch.cat([_pad_cols(qk.qt, Kw), _pad_cols(qv.qt, Kw)]).contiguous())
+
+
+def quantize_kv(wk, wv) -> QKV:
+    return _kv_pack(quantize_proj(wk), quantize_proj(wv))
+
+
 def mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
                            qweights=None):
     """Plain PyTorch version of ``mha_cross_attention_q8``: q (B, M, E)
-    projected queries -> (B, M, E), the heads side by side."""
-    qk, qv = qweights or (quantize_proj(wk), quantize_proj(wv))
+    projected queries -> (B, M, E), the heads side by side.  ``qweights``:
+    (qk, qv[, pack]) as ``quantize_kv`` gives them, made here when None."""
+    qk, qv = (qweights or (quantize_proj(wk), quantize_proj(wv)))[:2]
     B, X, _ = x_in.shape
     M, E = q.shape[1], wk.shape[1]
     H = num_heads
@@ -681,26 +751,80 @@ def mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: 
 
 
 def mha_cross_q8(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, qweights=None):
-    """K8d on CUDA tensors, the plain version on CPU tensors."""
+    """K8d on CUDA tensors, the plain version on CPU tensors.  ``qweights``
+    as the plain version's (with the pack a call does not make it)."""
     _build.no_grad_inputs("mha_cross_q8", [q, x_in, x_pos, wk, bk, wv, bv])
     if x_in.device.type == "cpu":
         return mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len,
                                       num_heads=num_heads, qweights=qweights)
+    out = _mha_q8_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, qweights)
+    mha_cross_q8.launches += 1
+    return out
+
+
+def rows_kv_q8(x_in, x_pos):
+    """K8d's row quantizer (csrc/q8_proj.cu): (int8 (2, B, X, Cw), (2, B, X)
+    scales), q(x + pos) at 0 and q(x) at 1, zeros past Cx."""
+    B, X, Cx = x_in.shape
+    p, p_stride, P = kernel_pos(x_pos, B, X, Cx)
+    _build.check_tensors("fk_q8_rows_kv", [x_in, p], x_in.device)
+    Cw = k8d_layout(Cx).Cw
+    qx = torch.empty((2, B, X, Cw), device=x_in.device, dtype=torch.int8)
+    sx = torch.empty((2, B, X), device=x_in.device, dtype=torch.float32)
+    _build.check("fk_q8_rows_kv", _build.lib().fk_q8_rows_kv(
+        x_in.data_ptr(), p.data_ptr() if p is not None else None, p_stride, P, B, X, Cx, Cw,
+        qx.data_ptr(), sx.data_ptr(), _build.stream_ptr(x_in.device)))
+    return qx, sx
+
+
+def _mha_q8_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, qweights, inspect=None):
+    """``mha_cross_q8``'s launches: the frame rows quantized, the int8 [K | V]
+    projection into K3's layout, then K3's attention and combine (CPU
+    tensors reach it only in the tests, against a model of the library).
+    ``inspect`` (a dict) receives the quantized rows and the projection."""
     B, X, Cx = x_in.shape
     M, E = q.shape[1], wk.shape[1]
-    if (q.shape != (B, M, E) or E % num_heads or wk.shape != (Cx, E) or wv.shape != (Cx, E)
+    H = num_heads
+    if (q.shape != (B, M, E) or E % H or wk.shape != (Cx, E) or wv.shape != (Cx, E)
             or bk.shape != (E,) or bv.shape != (E,)):
         raise ValueError("mha_cross_q8: inconsistent shapes")
     if x_len.dtype != torch.int32 or x_len.shape != (B,):
         raise ValueError("mha_cross_q8: x_len must be (B,) int32")
-    qk, qv = qweights or (quantize_proj(wk), quantize_proj(wv))
+    hd = E // H
+    if E % 4 or not has_forward(M, E, H):
+        raise NotImplementedError(f"mha_cross_q8: no kernel for M={M}, E={E}, H={H} (E a "
+                                  f"multiple of 4, the attention's block {attn_smem(M, hd)} "
+                                  f"bytes of shared memory, {_build.MAX_SMEM} at most)")
+    if qweights is None:
+        qkv = quantize_kv(wk, wv)
+    else:
+        qkv = QKV(*qweights) if len(qweights) == 3 else _kv_pack(*qweights)
+    lay = k8d_layout(Cx)
+    if qkv.pack.shape != (2 * E, lay.Kw):
+        raise ValueError("mha_cross_q8: pack not in k8d_layout(Cx); use quantize_kv")
     x_in = x_in.contiguous()
-    _build.check_tensors("mha_cross_q8", [x_in, bk, bv, x_len, *qk, *qv], x_in.device)
-    qs = (q * (1.0 / math.sqrt(E // num_heads))).contiguous()  # _arrange_queries folds the scale
-    out = torch.empty((B, M, E), device=x_in.device, dtype=torch.float32)
-    _proj_attn_q8(x_in, x_pos, qs, qk, bk, qv, bv, x_len, num_heads=num_heads, scale=1.0,
-                  out=out)
-    mha_cross_q8.launches += 1
+    _build.check_tensors("mha_cross_q8", [q, x_in, bk, bv, x_len, *qkv.qk, *qkv.qv, qkv.pack],
+                         x_in.device)
+    qx, sx = rows_kv_q8(x_in, x_pos)
+    alen = attended_lengths(x_len, X)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    kv = torch.empty((B, X, 2 * E), **f32)
+    lib, stream = _build.lib(), _build.stream_ptr(x_in.device)
+    _build.check("fk_q8_kv_proj", lib.fk_q8_kv_proj(
+        qx.data_ptr(), sx.data_ptr(), qkv.pack.data_ptr(), lay.Kw, qkv.qk.s.data_ptr(),
+        bk.data_ptr(), qkv.qv.s.data_ptr(), bv.data_ptr(),
+        alen.data_ptr(), kv.data_ptr(), B, X, Cx, lay.Cw, E, stream))
+    qs = (q * (1.0 / math.sqrt(hd))).contiguous()  # _arrange_queries folds the scale
+    n_t = -(-X // FWD_KEY_TILE)
+    part_acc = torch.empty((B, n_t, H * M, hd), **f32)
+    part_ml = torch.empty((B, n_t, H * M, 2), **f32)
+    out = torch.empty((B, M, E), **f32)
+    _build.check("fk_k3_attn", lib.fk_k3_attn(
+        kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M, H, hd, 1.0,
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), None,
+        *dropout_args(None, 0, 0.0), stream))
+    if inspect is not None:
+        inspect.update(qx=qx, sx=sx, kv=kv)
     return out
 
 

@@ -29,6 +29,18 @@ torch.set_num_threads(2)
 ATOL, RTOL = 1e-5, 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Each test runs at two intra-op threads: in a whole run the module-level
+    setting above is overwritten by whichever test module is imported last
+    (some set one thread), so without this the file's sums would run at
+    another thread count there than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(rng, shape, scale=1.0, shift=0.0):
     a = (rng.standard_normal(shape) * scale + shift).astype(np.float32)
     return jnp.asarray(a), torch.from_numpy(a)

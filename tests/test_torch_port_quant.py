@@ -32,7 +32,7 @@ from fact_clip_tpu.models import blocks as jblocks
 from fact_clip_tpu.models import decode as jdecode
 from fact_clip_tpu.ops.pallas import dilated_conv as jdc
 from fact_clip_tpu.ops.pallas import quant_conv as jqc
-from fact_clip_tpu_torch import kernel_counters
+from fact_clip_tpu_torch import _build, kernel_counters
 from fact_clip_tpu_torch.configs import (flagship_cfg, flagship_int8_cfg, resolve_block_cfgs,
                                          small_cfg)
 from fact_clip_tpu_torch.engine.steps import make_eval_step
@@ -221,8 +221,8 @@ def test_int8_configs_equal_the_jax_package_field_for_field(monkeypatch):
     assert {c.quantize for c in got} == {"int8"}
 
 
-@pytest.mark.parametrize("case", ["int4", "m2", "no_pallas", "grad"])
-def test_int8_refusals(case):
+@pytest.mark.parametrize("case", ["int4", "m2", "no_pallas", "grad", "c24"])
+def test_int8_refusals(case, monkeypatch):
     cfg = flagship_int8_cfg()
     if case == "int4":
         cfg["TPU"]["quantize_infer"] = "int4"
@@ -235,6 +235,24 @@ def test_int8_refusals(case):
     elif case == "no_pallas":
         cfg["TPU"]["pallas"] = False
         assert {c.quantize for c in resolve_block_cfgs(cfg)} == {""}
+    elif case == "c24":  # K8a takes any width: small_cfg()'s towers, 24 wide, reach the launches
+        cfg = small_cfg()
+        cfg["TPU"]["quantize_infer"] = "int8"
+        got = resolve_block_cfgs(cfg)
+        assert {c.f_dim for c in got} == {24} and {c.quantize for c in got} == {"int8"}
+        calls = []
+
+        class Lib:  # records the entries launched, each returning cudaSuccess
+            def __getattr__(self, name):
+                return lambda *args: calls.append(name) or 0
+
+        monkeypatch.setattr(_build, "lib", Lib)
+        monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+        ql = qc.quantize_tower([(torch.ones(3, 24, 24), torch.zeros(24), torch.ones(24, 24),
+                                 torch.zeros(24), None, None)])
+        qc._mstcn_q8_card(torch.ones(1, 8, 24), torch.tensor([8], dtype=torch.int32), ql, [1],
+                          False, 1e-5, 512, False)
+        assert calls == ["fk_q8_group_max", "fk_q8_tower_layer"]
     else:
         x = torch.ones(1, 8, 16, requires_grad=True)
         ql = qc.quantize_tower([(torch.ones(3, 16, 16), torch.zeros(16), torch.ones(16, 16),
