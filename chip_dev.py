@@ -70,11 +70,6 @@
         a call, and the device busy time a call from ``torch.profiler`` with
         its kernels.
 
-    python3 chip_dev.py k8a-fuse
-        K8a's phase-3 rows with its pass Q folded into pass B (one item over
-        every column at C <= 256, ``ops/quant_conv.py::K8A_FUSE_Q``) off and
-        on, in turns off / on / on / off on one build.
-
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -434,24 +429,6 @@ def ffn_host(tree: str = REPO, seed: int = 0):
     return 0
 
 
-def k8a_fuse(seed: int = 0):
-    """K8a's phase-3 rows with pass Q folded into pass B
-    (``ops/quant_conv.py::K8A_FUSE_Q``, widths up to 256) off and on, in
-    turns off / on / on / off on one build."""
-    import torch  # noqa: F401
-
-    cs = _chip_smoke(REPO)
-    from fact_clip_tpu_torch.ops import quant_conv as qc
-
-    table = cs.kernel_table
-    cs.kernel_table = lambda: [r for r in table() if r[0] == "mstcn_stack_q8"]
-    for on in (False, True, True, False):
-        qc.K8A_FUSE_Q = on
-        print(f"== K8A_FUSE_Q {on}", flush=True)
-        cs.phase_kernels(seed)
-    return 0
-
-
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -469,8 +446,6 @@ def main(argv):
         return ffn_host(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
-    if argv == ["k8a-fuse"]:
-        return k8a_fuse()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -83,7 +83,7 @@ SIGNATURES = {
     "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
-    "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 10
+    "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 9
                          + [P],
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],

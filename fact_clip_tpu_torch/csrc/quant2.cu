@@ -323,30 +323,25 @@ struct OutArgs {
   CUtensorMap amap;  // the quantized inputs qc (Cq, T_pad, NACC * B)
   CUtensorMap bmap;  // the weights (Kf, C, NACC): K8e's Wt (0) and Wb (1), K8a's W1
   const int* len;
-  const float* a;  // K8a's f32 a (B, T_pad, Cq), quantized in the kernel (kQuantA)
   const float* x;
   const int* smax;     // (NACC, B, n_tiles)
   const float* sw[2];  // K8e's swt, swb; K8a's sw1
   const float* bias;   // K8e's bf; K8a's b1
   float* y;
   float* gmax;  // (B, T_pad / 8), zeros: each 8-row group's max |out|
-  int B, T, C, Cq, kseg, tile, n_tiles, T_pad, jt, ln;
+  int B, T, C, kseg, tile, n_tiles, T_pad, jt, ln;
 };
 
 // Passes F (K8e, NACC = 2) and B (K8a, NACC = 1), persistent: item (row
-// block, column block, video b), out on rows [r0, r0 + 128) of tile t, BN
+// block, column block, video b), out on rows [r0, r0 + 128) of tile t, 128
 // columns from n0.  K8e: h = fma(h1, s1 * swt, h2 * (s2 * swb)), out =
 // relu(h + bf) + x; K8a: out = fma(acc, s_a * sw1, b1) + x (before its
-// LayerNorm when ln: pass N then takes the group maxima).  With kQuantA
-// (K8a, one item over every column) pass Q runs inside: each consumer
-// warpgroup quantizes its 64 rows of a with the tile's s_a into the stage's
-// A tile (the 128-byte swizzle TMA would write), and TMA brings the
-// weights only.
-template <int NACC, int BN, bool kQuantA>
+// LayerNorm when ln: pass N then takes the group maxima).
+template <int NACC>
 __global__ void __launch_bounds__(tc8::kThreads, 1)
     q8_out_kernel(const __grid_constant__ OutArgs p) {
+  constexpr int BN = kOutBN;
   constexpr int JB = 8;  // column groups whose residual loads go out together
-  constexpr int S = tc8::Ring<BN>::kStages;
   extern __shared__ float4 smem_raw[];
   // the columns' first scale (s1 * swt or s_a * sw1), second (s2 * swb) and bias
   __shared__ float col_t[BN], col_w[BN], col_f[BN];
@@ -376,14 +371,11 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
       for (int i = blockIdx.x; i < items; i += gridDim.x) {
         int t, j, n0, b, r0, lim, nk;
         decode(i, t, j, n0, b, r0, lim, nk);
-        tc8::produce<BN>(
-            sm, full, g, nk,
-            [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
-              const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
-              if constexpr (!kQuantA) tc::tma_load_3d(a, &p.amap, bar, kb, r0, half * p.B + b);
-              tc::tma_load_3d(w, &p.bmap, bar, kb, n0, half);
-            },
-            kQuantA ? BN * tc8::kKB : tc8::Ring<BN>::kStage);
+        tc8::produce<BN>(sm, full, g, nk, [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
+          const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+          tc::tma_load_3d(a, &p.amap, bar, kb, r0, half * p.B + b);
+          tc::tma_load_3d(w, &p.bmap, bar, kb, n0, half);
+        });
       }
     return;
   }
@@ -401,63 +393,19 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     for (int a = 0; a < NACC; ++a)
 #pragma unroll
       for (int k = 0; k < BN / 2; ++k) acc[a][k] = 0;
-    if constexpr (kQuantA) {
-      // thread wt of the warpgroup quantizes half of row R of the item: 4 of
-      // the K step's eight 16-byte chunks
-      const int wt = ct - wg * 128;
-      const int R = wg * 64 + (wt >> 1), qh = wt & 1;
-      const int arow = r0 + R;  // a's row (past the tile: discarded outputs)
-      const float s_a = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
-      const float inv = __fdiv_rn(127.f, s_a);
-      const float* src = p.a + ((size_t)b * p.T_pad + arow) * p.Cq;
-      uint64_t* empty = full + S;
-      for (int kc = 0; kc < nk; ++kc, ++g) {
-        const int s = g % S;
-        uint8_t* st = sm + s * tc8::Ring<BN>::kStage;
-        // this warpgroup's wgmma of step g - S, the last to read these rows, is done
-        int4 q[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int ch = kc * tc8::kKB + 16 * (4 * qh + u);
-          q[u] = arow < p.T_pad && ch < p.C ? quant_chunk(src, ch, p.C, inv)
-                                            : make_int4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          *reinterpret_cast<int4*>(st + R * tc8::kKB + ((((4 * qh + u) ^ R) & 7) << 4)) = q[u];
-        tc::fence_proxy_async();  // the generic-proxy writes, before the wgmma reads them
-        tc::bar_sync(2 + wg, 128);
-        tc::mbar_wait(&full[s], (g / S) & 1);
-        const uint64_t da = tc::desc_sw128(st + wg * (tc8::kATile / 2));
-        const uint64_t db = tc::desc_sw128(st + tc8::kATile);
-        const int nsub = min(4, (p.kseg - kc * tc8::kKB) / 32);
-        tc::fence_acc(acc[0]);
-        tc::wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < tc8::kKB / 32; ++k)
-          if (k < nsub) tc8::wgmma_s8<BN>(acc[0], da + 2 * k, db + 2 * k);
-        tc::wgmma_commit();
-        tc8::wgmma_wait_1();
-        if (kc > 0 && lane == 0) tc::mbar_arrive(&empty[(g - 1) % S]);
-      }
-      tc::wgmma_wait_all();
-      if (nk > 0 && lane == 0) tc::mbar_arrive(&empty[(g - 1) % S]);
-      tc::fence_acc(acc[0]);
-    } else {
-      tc8::consume<BN, NACC>(acc, sm, full, g, nk, wg, [&](int kc) {
-        const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
-        return half * 8 + min(4, (p.kseg - kb) / 32);
-      });
-    }
-    for (int c = ct; c < BN; c += 256) {
-      const int n = n0 + c;
+    tc8::consume<BN, NACC>(acc, sm, full, g, nk, wg, [&](int kc) {
+      const int half = kc / kbs, kb = (kc - half * kbs) * tc8::kKB;
+      return half * 8 + min(4, (p.kseg - kb) / 32);
+    });
+    if (ct < BN) {
+      const int n = n0 + ct;
       const float s1 = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
-      col_t[c] = n < p.C ? __fmul_rn(s1, __ldg(p.sw[0] + n)) : 0.f;
+      col_t[ct] = n < p.C ? __fmul_rn(s1, __ldg(p.sw[0] + n)) : 0.f;
       if constexpr (NACC == 2) {
         const float s2 = fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
-        col_w[c] = n < p.C ? __fmul_rn(s2, __ldg(p.sw[1] + n)) : 0.f;
+        col_w[ct] = n < p.C ? __fmul_rn(s2, __ldg(p.sw[1] + n)) : 0.f;
       }
-      col_f[c] = n < p.C ? __ldg(p.bias + n) : 0.f;
+      col_f[ct] = n < p.C ? __ldg(p.bias + n) : 0.f;
     }
     tc::bar_sync(1, 256);
     float gm[2] = {0.f, 0.f};
@@ -609,11 +557,11 @@ struct Layout {
   }
 };
 
-// Passes W, A and (with quant) Q: the windows quantized once, the nconv
-// convs (relu'd when relu) with their tiles' maxima, and c quantized into qc
+// Passes W, A and Q: the windows quantized once, the nconv convs (relu'd
+// when relu) with their tiles' maxima, and c quantized into qc
 cudaError_t conv_passes(const Layout& l, const float* x, const int* len, const float* gmax_in,
                         const int8_t* kpack, int Kc, const float* const* sk,
-                        const float* const* bias, const int* d, int nconv, int relu, bool quant,
+                        const float* const* bias, const int* d, int nconv, int relu,
                         int8_t* qwin, float* sx, float* c, int8_t* qc, int* smax,
                         cudaStream_t st) {
   const int wrows = l.tile + 2 * l.halo;
@@ -655,28 +603,25 @@ cudaError_t conv_passes(const Layout& l, const float* x, const int* len, const f
   const dim3 agrid(tc8::persistent_blocks(l.n_tiles * jt * nconv * a.ncol * l.B));
   err = wide ? launch_tc8(q8e_conv_kernel<256>, agrid, tc8::Ring<256>::kBytes, st, a)
              : launch_tc8(q8e_conv_kernel<128>, agrid, tc8::Ring<128>::kBytes, st, a);
-  if (err != cudaSuccess || !quant) return err;
+  if (err != cudaSuccess) return err;
 
   q8e_quant_c_kernel<<<dim3(ceil_div(l.T_pad, kQRows), nconv, l.B), fk::kThreads, 0, st>>>(
       c, smax, qc, l.B, l.C, l.Cw, l.tile, l.n_tiles, l.T_pad);
   return cudaGetLastError();
 }
 
-// Pass F (NACC = 2) or B (NACC = 1) on qc, or with kQuantA pass B on the
-// f32 a (one item over every column: BN >= C)
-template <int NACC, int BN, bool kQuantA>
-cudaError_t out_pass(const Layout& l, const int8_t* qc, const float* a, const int8_t* wpack,
-                     int Kf, const int* len, const float* x, const int* smax, const float* sw0,
+// Pass F (NACC = 2) or B (NACC = 1) on qc
+template <int NACC>
+cudaError_t out_pass(const Layout& l, const int8_t* qc, const int8_t* wpack, int Kf,
+                     const int* len, const float* x, const int* smax, const float* sw0,
                      const float* sw1, const float* bias, int ln, float* y, float* gmax_out,
                      cudaStream_t st) {
   OutArgs f;
   memset(&f, 0, sizeof(f));
-  if ((!kQuantA &&
-       !tc8::encode_3d_s8(&f.amap, qc, l.Cw, l.T_pad, (long long)NACC * l.B, tc8::kBM)) ||
-      !tc8::encode_3d_s8(&f.bmap, wpack, Kf, l.C, NACC, BN))
+  if (!tc8::encode_3d_s8(&f.amap, qc, l.Cw, l.T_pad, (long long)NACC * l.B, tc8::kBM) ||
+      !tc8::encode_3d_s8(&f.bmap, wpack, Kf, l.C, NACC, kOutBN))
     return cudaErrorInvalidValue;
   f.len = len;
-  f.a = a;
   f.x = x;
   f.smax = smax;
   f.sw[0] = sw0;
@@ -687,15 +632,14 @@ cudaError_t out_pass(const Layout& l, const int8_t* qc, const float* a, const in
   f.B = l.B;
   f.T = l.T;
   f.C = l.C;
-  f.Cq = l.Cw;
   f.kseg = l.kseg();
   f.tile = l.tile;
   f.n_tiles = l.n_tiles;
   f.T_pad = l.T_pad;
   f.jt = l.jt();
   f.ln = ln;
-  const dim3 grid(tc8::persistent_blocks(l.n_tiles * l.jt() * ceil_div(l.C, BN) * l.B));
-  return launch_tc8(q8_out_kernel<NACC, BN, kQuantA>, grid, tc8::Ring<BN>::kBytes, st, f);
+  const dim3 grid(tc8::persistent_blocks(l.n_tiles * l.jt() * ceil_div(l.C, kOutBN) * l.B));
+  return launch_tc8(q8_out_kernel<NACC>, grid, tc8::Ring<kOutBN>::kBytes, st, f);
 }
 
 }  // namespace
@@ -722,15 +666,13 @@ extern "C" int fk_q8_tower2_layer(const float* x, const int* len, const float* g
   const float* sk[2] = {sk1, sk2};
   const float* bias[2] = {b1, b2};
   const int d[2] = {d1, d2};
-  cudaError_t err = conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, d, 2, 0, true, qwin,
-                                sx, c, qc, smax, st);
+  cudaError_t err =
+      conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, d, 2, 0, qwin, sx, c, qc, smax, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)out_pass<2, kOutBN, false>(l, qc, nullptr, fpack, Kf, len, x, smax, swt, swb, bf, 0,
-                                         y, gmax_out, st);
+  return (int)out_pass<2>(l, qc, fpack, Kf, len, x, smax, swt, swb, bf, 0, y, gmax_out, st);
 }
 
-// One int8 MSTCN layer: passes W, A, Q, B (and N with the LayerNorm); with
-// fuse_q at C <= 256 pass B quantizes a itself (no pass Q, qa unused).
+// One int8 MSTCN layer: passes W, A, Q, B (and N with the LayerNorm).
 // Buffers as fk_q8_tower2_layer's with one conv: qwin (B, n_tiles, tile + 2
 // halo, Cw), sx (B, n_tiles), a (B, T_pad, Cw) f32, qa (B, T_pad, Cw) int8,
 // smax (B, n_tiles) int32 zeros, gmax_out (B, T_pad / 8) zeros.  kpack (C,
@@ -742,27 +684,17 @@ extern "C" int fk_q8_tower_layer(const float* x, const int* len, const float* gm
                                  const float* gamma, const float* beta, int use_ln, float eps,
                                  int8_t* qwin, float* sx, float* a, int8_t* qa, int* smax,
                                  float* y, float* gmax_out, int B, int T, int C, int Cw, int d,
-                                 int halo, int tile, int n_tiles, int T_pad, int fuse_q,
-                                 void* stream) {
+                                 int halo, int tile, int n_tiles, int T_pad, void* stream) {
   const Layout l{B, T, C, Cw, halo, tile, n_tiles, T_pad};
   if (!l.ok(Kc, Kw, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* sk[2] = {swd, nullptr};
   const float* bias[2] = {bd, nullptr};
   const int dd[2] = {d, 0};
-  const bool fused = fuse_q && C <= 256;
-  cudaError_t err = conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, dd, 1, 1, !fused, qwin,
-                                sx, a, qa, smax, st);
+  cudaError_t err =
+      conv_passes(l, x, len, gmax_in, kpack, Kc, sk, bias, dd, 1, 1, qwin, sx, a, qa, smax, st);
   if (err != cudaSuccess) return (int)err;
-  if (!fused)
-    err = out_pass<1, kOutBN, false>(l, qa, nullptr, wpack, Kw, len, x, smax, sw1, nullptr, b1,
-                                     use_ln, y, gmax_out, st);
-  else if (C > 128)
-    err = out_pass<1, 256, true>(l, nullptr, a, wpack, Kw, len, x, smax, sw1, nullptr, b1, use_ln,
-                                 y, gmax_out, st);
-  else
-    err = out_pass<1, 128, true>(l, nullptr, a, wpack, Kw, len, x, smax, sw1, nullptr, b1, use_ln,
-                                 y, gmax_out, st);
+  err = out_pass<1>(l, qa, wpack, Kw, len, x, smax, sw1, nullptr, b1, use_ln, y, gmax_out, st);
   if (err != cudaSuccess || !use_ln) return (int)err;
   q8a_ln_kernel<<<dim3(ceil_div(T, 8), B), fk::kThreads, 0, st>>>(y, len, gamma, beta, eps,
                                                                  gmax_out, T, C, T_pad / 8);

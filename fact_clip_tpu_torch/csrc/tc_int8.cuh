@@ -154,21 +154,20 @@ __device__ __forceinline__ uint64_t* ring_init(uint8_t* sm) {
 }
 
 // The producer's loop over one work item (thread 0 of warpgroup 0):
-// issue(kc, a_dst, b_dst, bar) starts the boxes of the item's K step kc on
-// barrier bar, `bytes` of them (both tiles; the B tile alone where the
-// consumers write the A tile themselves).  g counts the block's steps over
-// all its items, so the ring runs on from one item into the next: the next
-// item's first stages load while the consumers run the epilogue of this one.
+// issue(kc, a_dst, b_dst, bar) starts the two boxes of the item's K step kc
+// on barrier bar.  g counts the block's steps over all its items, so the
+// ring runs on from one item into the next: the next item's first stages
+// load while the consumers run the epilogue of this one.
 template <int BN, class Issue>
 __device__ __forceinline__ void produce(uint8_t* sm, uint64_t* full, int& g, int nk,
-                                        Issue issue, unsigned bytes = Ring<BN>::kStage) {
+                                        Issue issue) {
   constexpr int S = Ring<BN>::kStages;
   uint64_t* empty = full + S;
   for (int kc = 0; kc < nk; ++kc, ++g) {
     const int s = g % S;
     if (g >= S) tc::mbar_wait(&empty[s], (g / S - 1) & 1);
     uint8_t* st = sm + s * Ring<BN>::kStage;
-    tc::mbar_expect_tx(&full[s], bytes);
+    tc::mbar_expect_tx(&full[s], Ring<BN>::kStage);
     issue(kc, st, st + kATile, &full[s]);
   }
 }

@@ -307,9 +307,6 @@ def mstcn_stack_q8_reference(x, lengths, qlayers, dilations, *, use_ln: bool,
     return cur[:, :T]
 
 
-K8A_FUSE_Q = True  # at C <= 256 pass B quantizes a itself (csrc/quant2.cu): no pass Q
-
-
 def mstcn_stack_q8(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float = 1e-5,
                    tile: int = 512, scales: bool = False):
     """K8a: the int8 tower (``csrc/quant2.cu``, one library call a layer,
@@ -367,7 +364,7 @@ def _mstcn_q8_card(x, lengths, qlayers, dilations, use_ln: bool, eps: float, til
             ql.b1.data_ptr(), ql.gamma.data_ptr(), ql.beta.data_ptr(), int(use_ln), float(eps),
             qwin.data_ptr(), sx.data_ptr(), a.data_ptr(), qa.data_ptr(), smax[i].data_ptr(),
             y.data_ptr(), gmax[i + 1].data_ptr(), B, T, C, lay.Cw, int(d), halo, tile, n_tiles,
-            T_pad, int(K8A_FUSE_Q), stream))
+            T_pad, stream))
         cur = y
     if scales:  # the tile maxima are the int bits of non-negative floats
         return cur, gmax[:L], smax.view(torch.float32)

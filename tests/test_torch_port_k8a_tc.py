@@ -56,7 +56,7 @@ class FakeK8aLib(FakeK8eLib):
 
     def fk_q8_tower_layer(self, x, lengths, gmax_in, kpack, Kc, swd, bd, wpack, Kw, sw1, b1,
                           gamma, beta, use_ln, eps, qwin, sx, a, qa, smax, y, gmax_out, B, T, C,
-                          Cw, d, halo, tile, n_tiles, T_pad, fuse_q, stream):
+                          Cw, d, halo, tile, n_tiles, T_pad, stream):
         self.calls.append("tower_layer")
         kseg = -(-C // 32) * 32
         assert Cw >= C and Cw % 16 == 0 and Kc >= 3 * kseg and Kw >= kseg
@@ -113,17 +113,14 @@ class FakeK8aLib(FakeK8eLib):
                     v = torch.relu(fma(acc, SX[b, t] * swd_, bd_))
                     A[b, t * tile + rt, :C] = v
                     SMf[b, t] = max(float(v.max()), float(SMf[b, t]))
-        # pass Q: a quantized with its tile's s_a (into qa, or with fuse_q at C <= 256
-        # by pass B into its operand tiles: the same int8 values, no qa)
+        # pass Q: a quantized with its tile's s_a
         tile_of = torch.arange(T_pad) // tile
-        fused = bool(fuse_q) and C <= 256
-        QA = QA if not fused else torch.zeros(B, T_pad, Cw, dtype=torch.int8)
         for b in range(B):
             s = SMf[b].clamp_min(1e-12)[tile_of][:, None]
             q = torch.zeros(T_pad, Cw, dtype=torch.int8)
             q[:, :C] = torch.round(A[b, :, :C] * qc._div(127.0, s)).to(torch.int8)
             QA[b] = q
-        # pass B: per (128 rows of a tile, video; with fuse_q every column in one item)
+        # pass B: per (128 rows of a tile, video)
         for b in range(B):
             for t in range(n_tiles):
                 s_a = SMf[b, t].clamp_min(1e-12)
