@@ -66,9 +66,14 @@
         (``ffn_sublayer_fwd``) of the package in TREE at the flagship's B=8,
         M=40 (the backward with dropout 0.2) and epic's B=1, M=300, E=256,
         F=512, and K5's forward at the flagship's 8 x 3072 x 75: the
-        wrapper's host time a call (200 calls, no sync), the CUDA-event time
-        a call, and the device busy time a call from ``torch.profiler`` with
-        its kernels.
+        wrapper's host time a call (the median over 50 calls, each started
+        on an idle card), the CUDA-event time a call, and the device busy
+        time a call from ``torch.profiler`` with its kernels.
+
+    python3 chip_dev.py k8-host [TREE]
+        The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
+        case), K8d (the flagship's and Breakfast's shapes) and K8e
+        (Breakfast's 4 x 4096 x 512) of the package in TREE.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -388,32 +393,29 @@ def ffn_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
-def ffn_host(tree: str = REPO, seed: int = 0):
-    """The host time, event time and device busy time a call of K4's FFN
-    backward and forward and of K5's forward."""
+def _per_call(cs, tag: str, cases):
+    """For each case's kernel call: the wrapper's host time a call (the
+    median over 50 calls of the time until it returns, each started on an
+    idle card, so that no full launch queue holds the host back), the
+    CUDA-event time a call, and the device busy time a call from
+    ``torch.profiler`` with its kernels."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cs = _chip_smoke(tree)
-    rng = np.random.default_rng(seed)
-    cases = {"bwd flagship": lambda: cs.ffn_bwd_case(rng, 8, 40, 256, 512, 0.2),
-             "bwd epic": lambda: cs.ffn_bwd_case(rng, 1, 300, 256, 512, 0.0),
-             "fwd flagship": lambda: cs.ffn_fwd_case(rng, 8, 40, 256, 512, 0.2),
-             "fwd epic": lambda: cs.ffn_fwd_case(rng, 1, 300, 256, 512),
-             "k5 flagship": lambda: cs.frame_loss_case(rng, False, 8, 3072, 75,
-                                                       cs.FLAGSHIP_LENGTHS)}
-    for tag, make in cases.items():
+    for name, make in cases.items():
         kern = make()[0]
         n = 200
         for _ in range(10):
             kern()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
+        times = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             kern()
-        host = (time.perf_counter() - t0) / n * 1e3
+            times.append(time.perf_counter() - t0)
+        host = sorted(times)[len(times) // 2] * 1e3
         torch.cuda.synchronize()
         ms = cs.cuda_ms(kern, n)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -422,11 +424,43 @@ def ffn_host(tree: str = REPO, seed: int = 0):
             torch.cuda.synchronize()
         rows = [(getattr(e, "device_time_total", 0) / 20e3, e.count // 20, e.key[:70])
                 for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        print(f"[ffn-host] {tag}: host {host:.4f} ms a call, events {ms:.4f} ms, device busy "
+        print(f"[{tag}] {name}: host {host:.4f} ms a call, events {ms:.4f} ms, device busy "
               f"{sum(r[0] for r in rows):.4f} ms", flush=True)
         for r in sorted(rows, reverse=True):
-            print(f"[ffn-host]    {r[0]:.4f} ms x{r[1]} {r[2]}", flush=True)
+            print(f"[{tag}]    {r[0]:.4f} ms x{r[1]} {r[2]}", flush=True)
     return 0
+
+
+def ffn_host(tree: str = REPO, seed: int = 0):
+    """The host time, event time and device busy time a call of K4's FFN
+    backward and forward and of K5's forward."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    return _per_call(cs, "ffn-host", {
+        "bwd flagship": lambda: cs.ffn_bwd_case(rng, 8, 40, 256, 512, 0.2),
+        "bwd epic": lambda: cs.ffn_bwd_case(rng, 1, 300, 256, 512, 0.0),
+        "fwd flagship": lambda: cs.ffn_fwd_case(rng, 8, 40, 256, 512, 0.2),
+        "fwd epic": lambda: cs.ffn_fwd_case(rng, 1, 300, 256, 512),
+        "k5 flagship": lambda: cs.frame_loss_case(rng, False, 8, 3072, 75, cs.FLAGSHIP_LENGTHS)})
+
+
+def k8_host(tree: str = REPO, seed: int = 0):
+    """The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
+    case), K8d (the flagship's and Breakfast's shapes) and K8e (Breakfast's
+    4 x 4096 x 512)."""
+    import torch
+
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    zeros = lambda X: torch.zeros((1, X, 512), device="cuda")  # noqa: E731
+    return _per_call(cs, "k8-host", {
+        "k8a flagship": lambda: cs.k8a_case(rng, 8, 3072, 256, 10, cs.FLAGSHIP_LENGTHS, False),
+        "k8a ln": lambda: cs.k8a_case(rng, 3, 600, 256, 10, [600, 517, 90], True),
+        "k8d flagship": lambda: cs.k8d_case(rng, 8, 40, 3072, 256, 512, 8, cs.FLAGSHIP_LENGTHS,
+                                            zeros(3072)),
+        "k8d breakfast": lambda: cs.k8d_case(rng, 4, 60, 4096, 512, 512, 8, cs.BF_TRAIN_LENGTHS,
+                                             zeros(4096)),
+        "k8e breakfast": lambda: cs.k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)})
 
 
 def main(argv):
@@ -444,6 +478,8 @@ def main(argv):
         return ffn_f64(*argv[1:])
     if argv[:1] == ["ffn-host"] and len(argv) <= 2:
         return ffn_host(*argv[1:])
+    if argv[:1] == ["k8-host"] and len(argv) <= 2:
+        return k8_host(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
     print(__doc__, file=sys.stderr)

@@ -34,7 +34,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    K2's small-X forward and backward at the flagship's, K4's SA forward
    with dropout 0.2 at epic's and the flagship's, K8e at Breakfast's and
    epic's, K4's FFN backward and forward with dropout 0.2 at epic's, the
-   forward also at the flagship's, K5's forward at the flagship's).
+   forward also at the flagship's, K5's forward at the flagship's, K8a at
+   the flagship's, LN and 24-channel cases, K8d at the flagship's and
+   Breakfast's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -92,22 +94,24 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    one shorter than a 64-row chunk, K2 small-X over 256 segment keys (f2a, forward and
    backward) and 256 segment queries over 300 tokens (a2f, per-video y_pos).
    The int8 rows (K8, ``TPU.quantize_infer: "int8"``): the int8 MSTCN tower
-   at 8 x 3072 x 256, 10 layers, no LN, at a ragged B=3, T=600 (600 / 517 /
-   90 frames: the d=512 taps fall outside the videos) without and with LN;
-   X2Y small-X at Y=3072, X=40, d=512 and a ragged (2, 1000, 37); X2Y flash
-   at X=3072, M=40 and X=1100 with ragged keys; the SCA cross-attention at
-   M=40, E=256, H=8, X=3072 and a ragged B=3, M=11, X=1100; at Breakfast's
+   (K8a) at 8 x 3072 x 256, 10 layers, no LN, at a ragged B=3, T=600 (600 /
+   517 / 90 frames: the d=512 taps fall outside the videos) without and
+   with LN and at that shape 24 and 40 channels wide (``narrow24``,
+   ``narrow40``: K segments padded to whole 32-byte steps); X2Y small-X at
+   Y=3072, X=40, d=512 and a ragged (2, 1000, 37); X2Y flash at X=3072,
+   M=40 and X=1100 with ragged keys; the SCA cross-attention (K8d) at M=40,
+   E=256, H=8, X=3072, a ragged B=3, M=11, X=1100 and the same with a video
+   of no valid key and per-video positions (``xlen0``); at Breakfast's
    shapes X2Y flash at X=4096, M=60, d=512 and the SCA cross-attention at
-   E=512, H=8, M=60, X=4096 and a ragged X=1100 (32-key tiles); X2Y small-X
-   at epic's f2a and a2f shapes; the int8 MS-TCN++ tower (K8e) at 4 x 4096
-   x 512, 10 layers, every frame valid, at a ragged B=3, T=600 (600 / 517 /
-   90), at epic's 1 x 24,576 x 256 and at the ragged shape 24 and 40
-   channels wide (``narrow24``, ``narrow40``: K segments padded to whole
-   32-byte steps).  Their integer parts (the towers'
-   8-frame group and tile maxima, which make their activation scales; the
-   frames as the row quantizer makes them) must equal the plain versions',
-   their f32 results lie within REL_TOL, and the no-LN towers print their
-   share of bit-equal elements.  Their bound adds the int8 products at the
+   E=512, H=8, M=60, X=4096 and a ragged X=1100; X2Y small-X at epic's f2a
+   and a2f shapes; the int8 MS-TCN++ tower (K8e) at 4 x 4096 x 512, 10
+   layers, every frame valid, at a ragged B=3, T=600 (600 / 517 / 90), at
+   epic's 1 x 24,576 x 256 and at the ragged shape 24 and 40 channels wide.
+   Their integer parts (the towers' 8-frame group and tile maxima, which
+   make their activation scales; the frames as the row quantizers make
+   them; K8d's [K | V] projection) must equal the plain versions', their
+   f32 results lie within REL_TOL, and the no-LN towers print their share
+   of bit-equal elements.  Their bound adds the int8 products at the
    dense int8 rate (1,979 TOP/s) to the f32 work.  The single-layer K1's
    forward at 8 x 3072 x 256, d in {1, 512}, LN on and off, with and
    without dropout 0.2.
@@ -196,7 +200,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    of K3, K6 and K4 at M=200.
 14. the narrow twin: ``small_cfg()`` (towers 24 wide) serves 4 requests and
    takes 1 + 2 Adam steps on the card, K1 launched; its eval step against
-   the plain path.
+   the plain path; the same weights with int8 evaluation serve the 4
+   requests (K8a launched, K1 not) and the int8 kernel path is held to its
+   int8 plain path (block-0 logits within LOGIT_TOL, >= MIN_AGREE of the
+   predictions).
 15. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the single-layer
    K1's and K1's mask kernel's from phase 12 (the tower re-hashes its masks

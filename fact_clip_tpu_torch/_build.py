@@ -87,8 +87,7 @@ SIGNATURES = {
                          + [P],
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
-    "fk_q8_rows_kv": [P, P, L] + [I] * 5 + [P] * 3,
-    "fk_q8_kv_proj": [P] * 3 + [I] + [P] * 6 + [I] * 5 + [P],
+    "fk_q8_mha_cross": [P, P, L, I, P, I] + [P] * 6 + [I] * 7 + [P] * 7,
     "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
     "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
 }

@@ -1,7 +1,8 @@
 // The fixed-order combine of per-key-tile softmax partials, shared by the
-// flash forwards of flash_attn.cu (K2's flash form, K8c, K8d) and K3's
-// per-head forward (mha_attn.cu): one block per (head, query row, video)
-// merges the tiles' (m, l, acc) into the attention output, in tile order
+// flash forwards of flash_attn.cu (K2's flash form, K8c) and K3's per-head
+// forward (mha_attn.cu, which K8d's attention runs too): one block per
+// (head, query row, video) merges the tiles' (m, l, acc) into the
+// attention output, in tile order
 // within each thread and then in warp order (no atomics: the same bits on
 // every run).  For the single-head form it also writes probs = exp(logit -
 // m_max) / l_total; for K3's backward the row's softmax stats (m_max,

@@ -1,7 +1,7 @@
 // Cross-attention of a few query rows over a long projected key/value stream
 // on the f32 FMA core of common.cuh: the forward of K2's flash form (single
-// head) and its int8 twins K8c / K8d (multi-head).  fk_proj_attn takes heads,
-// dropout and softmax stats too, which K2's single-head call leaves unused.
+// head) and its int8 twin K8c.  fk_proj_attn and fk_proj_attn_q8 take heads,
+// dropout and softmax stats too, which their single-head callers leave unused.
 //
 // Replaces fact_clip_tpu/ops/pallas/x2y_attn.py::_x2y_flash_fwd_impl
 // (_flash_kernel).  The TPU kernel walks the key axis sequentially per video,
@@ -32,21 +32,20 @@
 // K/V buffer keeps the block within shared memory at E=512.  The partial
 // results add B * X/BK * H*M * (hd + 2) floats of traffic each way (32 MB
 // for the f2a), small next to the FMA time.  The block holds the GEMM
-// staging, the (BK, E+1) K/V buffer and the (H*M, BK) weights: at E=512,
-// H=8, M=60 (Breakfast's int8 SCA, K8d) that is 296 KB at BK = 64, above the
-// 227 KB a block may hold, so the caller (ops/x2y_attn.py::key_tile) takes
-// the largest tile of 64 or 32 that fits: 164 KB at BK = 32 there, while
-// every K2 flash call keeps BK = 64.
+// staging, the (BK, E+1) K/V buffer and the (H*M, BK) weights: where that
+// exceeds the 227 KB a block may hold (E=512, H=8, M=60 needs 296 KB at
+// BK = 64), the caller (ops/x2y_attn.py::key_tile) takes the largest tile
+// of 64 or 32 that fits; every K2 flash call keeps BK = 64.
 //
-// K8c and K8d, the int8 twins (proj_attn_q8_partial_kernel + the same
-// combine), replace fact_clip_tpu/ops/pallas/quant_conv.py::
-// _x2y_flash_q8_impl (_x2y_flash_kernel_q8) and ::mha_cross_attention_q8
-// (_mha_kernel_q8): the frame rows arrive quantized per row (quant.cu's
+// K8c, the int8 twin (proj_attn_q8_partial_kernel + the same combine),
+// replaces fact_clip_tpu/ops/pallas/quant_conv.py::_x2y_flash_q8_impl
+// (_x2y_flash_kernel_q8): the frame rows arrive quantized per row (quant.cu's
 // q8_rows_kernel: x + pos for K, x for V, int8 values and each row's absmax),
 // the two projections run on quant.cuh's int8 mma.sync core and dequantize in
-// JAX's order fma(idot * s_row, sw, b) (ops/quant_conv.py); the softmax and attend stages are
-// this file's (partial_attend).  K8d's caller folds 1 / sqrt(hd) into the
-// queries (scale 1 here), as _arrange_queries does.
+// JAX's order fma(idot * s_row, sw, b) (ops/quant_conv.py); the softmax and
+// attend stages are this file's (partial_attend).  K8d, the multi-head SCA
+// twin, projects on the int8 wgmma core and attends through K3's kernels
+// (q8_proj.cu).
 #include <math.h>
 
 #include "attn_combine.cuh"
@@ -309,8 +308,7 @@ extern "C" int fk_proj_attn(const float* x, const float* xpos, long long pos_bst
                              (cudaStream_t)stream);
 }
 
-// K8c (H = 1, logits and probs written) and K8d (H heads, queries pre-scaled,
-// scale 1, no logits): the int8 partial kernel, then the combine
+// K8c (logits and probs written): the int8 partial kernel, then the combine
 extern "C" int fk_proj_attn_q8(const int8_t* qxk, const float* sxk, const int8_t* qxv,
                                const float* sxv, const float* q, const int8_t* qwkt,
                                const float* swk, const float* bk, const int8_t* qwvt,

@@ -14,19 +14,23 @@
 // attention loop; a block of the port's first int8 twin did the same per
 // (key tile, video) and re-read both weights in every block.  Here the work
 // splits as K3's does (PR 11's design):
-//   rows: fk_q8_rows_kv, a warp a frame row, reads x and its positional
-//     term once and writes q(x + pos) and q(x) (2, B, X, Cw) int8 (zeros past
-//     C) and their scales (2, B, X);
-//   projection: fk_q8_kv_proj, one persistent launch of two problems, the K
-//     columns on q(x + pos) and the V columns on q(x): items (128 frames,
-//     BN columns of one problem, video), the frames' int8 rows and the
-//     weights' rows as TMA boxes through the ring, the dequantization above
-//     in the epilogue, written into K3's (B, X, 2E) layout.  Rows at or past
-//     a video's attended length (x_len, or X for x_len = 0:
+//   rows: a warp a frame row reads x and its positional term once and
+//     writes q(x + pos) and q(x) (2, B, X, Cw) int8 (zeros past C) and their
+//     scales (2, B, X);
+//   projection: one persistent launch of two problems, the K columns on
+//     q(x + pos) and the V columns on q(x): items (128 frames, BN columns of
+//     one problem, video), the frames' int8 rows and the weights' rows as
+//     TMA boxes through the ring, the dequantization above in the epilogue,
+//     written into K3's (B, X, 2E) layout.  Rows at or past a video's
+//     attended length (x_len, or X for x_len = 0, as
 //     ops/mha_attn.py::attended_lengths) are zeros and a block of them runs
 //     no product;
-//   attention: fk_k3_attn with the queries pre-scaled by 1 / sqrt(hd) and
-//     scale 1, no dropout, no stats (the wrapper, ops/quant_conv.py).
+//   attention: mha_attn.cu's fk_k3_attn with the queries pre-scaled by
+//     1 / sqrt(hd) (the wrapper, ops/quant_conv.py) and scale 1, no
+//     dropout, no stats.
+// One library call, fk_q8_mha_cross, makes the four launches into buffers
+// the wrapper lays out in one workspace: a call's host time, not its
+// device time, bounded the three-call form at the flagship's shape.
 // Int32 sums are exact, so the projection equals the plain version's bit for
 // bit; the attention differs from the plain softmax by summation order.
 //
@@ -127,7 +131,7 @@ q8_rows_kv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
 struct KVArgs {
   CUtensorMap amap;  // the int8 rows (Cw, X, 2 B): q(x + pos) of video b at b, q(x) at B + b
   CUtensorMap bmap;  // the weights (Kw, 2 E, 1): [qWk^T ; qWv^T], zeros past Cx
-  const int* alen;   // (B,) the attended lengths
+  const int* xlen;   // (B,) the valid keys; a video of none attends to all X
   const float* sx;   // (2, B, X) the rows' scales
   const float* sw[2];
   const float* bias[2];
@@ -156,8 +160,8 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     r0 = (rb - b * p.nrb) * tc8::kBM;
     z = col / p.ncol;
     n0 = (col - z * p.ncol) * BN;
-    lim = min(p.alen[b], p.X);
-    nk = r0 >= lim ? 0 : kbs;  // every frame past the attended length: zeros
+    lim = p.xlen[b] > 0 ? min(p.xlen[b], p.X) : p.X;  // the attended length
+    nk = r0 >= lim ? 0 : kbs;  // every frame past it: zeros
   };
   uint64_t* full = tc8::ring_init<BN>(sm);
   __syncthreads();
@@ -236,39 +240,45 @@ cudaError_t launch_tc8(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, c
 
 }  // namespace
 
-// K8d's rows: x (B, X, C) and its positional term on the leading P channels
-// (batch stride pos_bstride; null for none) -> qx (2, B, X, Cw) int8, sx (2,
-// B, X): q(x + pos) and its scales at 0, q(x) and its scales at 1.
-extern "C" int fk_q8_rows_kv(const float* x, const float* pos, long long pos_bstride, int P,
-                             int B, int X, int C, int Cw, int8_t* qx, float* sx, void* stream) {
-  if (Cw < C || Cw % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int rows = B * X;
-  const int vec = C % 4 == 0 && (pos == nullptr || (P % 4 == 0 && pos_bstride % 4 == 0));
-  q8_rows_kv_kernel<<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, (cudaStream_t)stream>>>(
-      x, pos, pos_bstride, P, X, C, Cw, rows, vec, qx, sx);
-  return (int)cudaGetLastError();
-}
+extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int B, int X, int M,
+                          int H, int hd, float scale, float* part_acc, float* part_ml, float* out,
+                          float* stats, const int* seed, int drop_stream, unsigned thresh,
+                          float drop_scale, void* stream);
 
-// K8d's projection: kv (B, X, 2E) = [K | V] of fk_q8_rows_kv's rows, zero
-// at frames at or past alen.  wpack (2E, Kw) int8: Wk's out channel n at
-// row n and Wv's at E + n (the quantize_proj weights, zeros past Cx); swk,
-// swv their folded scales, bk, bv the biases.
-extern "C" int fk_q8_kv_proj(const int8_t* qx, const float* sx, const int8_t* wpack, int Kw,
-                             const float* swk, const float* bk, const float* swv,
-                             const float* bv, const int* alen, float* kv, int B, int X, int Cx,
-                             int Cw, int E, void* stream) {
+// K8d: x (B, X, Cx) with its positional term on the leading P channels
+// (batch stride pos_bstride; null for none) and the pre-scaled queries q
+// (B, M, H hd) -> out (B, M, H hd).  wpack (2E, Kw) int8: Wk's out channel
+// n at row n and Wv's at E + n (the quantize_proj weights, zeros past Cx);
+// swk, swv their folded scales, bk, bv the biases.  Buffers: qx (2, B, X,
+// Cw) int8 and sx (2, B, X), q(x + pos) at 0 and q(x) at 1; kv (B, X, 2E);
+// part_acc (B, n_t, H M, hd) and part_ml (B, n_t, H M, 2) over K3's 64-key
+// tiles.
+extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_bstride, int P,
+                               const int8_t* wpack, int Kw, const float* swk, const float* bk,
+                               const float* swv, const float* bv, const float* q,
+                               const int* xlen, int B, int X, int Cx, int Cw, int M, int H,
+                               int hd, int8_t* qx, float* sx, float* kv, float* part_acc,
+                               float* part_ml, float* out, void* stream) {
+  const int E = H * hd;
   const int kseg = (Cx + 31) / 32 * 32;
   if (Cw < Cx || Cw % 16 != 0 || Cw < tc8::kKB || Kw < kseg || Kw % 16 != 0 ||
       Kw < tc8::kKB || E % 2 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  const int rows = B * X;
+  const int vec = Cx % 4 == 0 && (pos == nullptr || (P % 4 == 0 && pos_bstride % 4 == 0));
+  q8_rows_kv_kernel<<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, st>>>(
+      x, pos, pos_bstride, P, X, Cx, Cw, rows, vec, qx, sx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
   KVArgs a;
   memset(&a, 0, sizeof(a));
   const int bn = E > 128 ? 256 : 128;
   if (!tc8::encode_3d_s8(&a.amap, qx, Cw, X, 2LL * B, tc8::kBM) ||
       !tc8::encode_3d_s8(&a.bmap, wpack, Kw, 2LL * E, 1, bn))
     return (int)cudaErrorInvalidValue;
-  a.alen = alen;
+  a.xlen = xlen;
   a.sx = sx;
   a.sw[0] = swk;
   a.sw[1] = swv;
@@ -282,6 +292,9 @@ extern "C" int fk_q8_kv_proj(const int8_t* qx, const float* sx, const int8_t* wp
   a.nrb = ceil_div(X, tc8::kBM);
   a.ncol = ceil_div(E, bn);
   const dim3 grid(tc8::persistent_blocks(a.nrb * 2 * a.ncol * B));
-  return (int)(bn == 256 ? launch_tc8(q8_kv_kernel<256>, grid, tc8::Ring<256>::kBytes, st, a)
-                         : launch_tc8(q8_kv_kernel<128>, grid, tc8::Ring<128>::kBytes, st, a));
+  err = bn == 256 ? launch_tc8(q8_kv_kernel<256>, grid, tc8::Ring<256>::kBytes, st, a)
+                  : launch_tc8(q8_kv_kernel<128>, grid, tc8::Ring<128>::kBytes, st, a);
+  if (err != cudaSuccess) return (int)err;
+  return fk_k3_attn(kv, q, xlen, B, X, M, H, hd, 1.f, part_acc, part_ml, out, nullptr, nullptr, 0,
+                    0u, 1.f, stream);
 }

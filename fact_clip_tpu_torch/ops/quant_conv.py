@@ -39,9 +39,9 @@ versions take that FMA (``_fma``) and the kernels write it (``__fmaf_rn``),
 every other step rounded on its own (K8e's fuse: fma(h1, s1 * swt, h2 * (s2
 * swb)), the bias added after).  The entries take their weights quantized
 (``quantize_tower`` / ``quantize_tower2`` / ``quantize_proj`` /
-``quantize_kv``, which a module caches), launch the kernel on CUDA tensors and run the plain version
-on CPU tensors, count their launches, and refuse inputs that want a
-gradient: JAX's int8 path is never differentiated.
+``quantize_kv``, which a module caches), launch the kernel on CUDA tensors
+and run the plain version on CPU tensors, count their launches, and refuse
+inputs that want a gradient: JAX's int8 path is never differentiated.
 """
 
 from __future__ import annotations
@@ -52,8 +52,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .dropout import dropout_args
-from .mha_attn import FWD_KEY_TILE, attended_lengths, attn_smem, has_forward
+from .mha_attn import FWD_KEY_TILE, attn_smem, has_forward
 from .pos import add_pos, kernel_pos
 from .x2y_attn import FLASH_MIN_KEYS, key_tile
 
@@ -156,10 +155,10 @@ def _proj_q8(x, qw: QWeight, b):
 
 class K8eLayout(NamedTuple):
     """The int8 towers' padded widths at C channels (csrc/quant2.cu, K8a's
-    and K8e's): kseg = ceil32(C),
-    a tap's K segment in whole 32-byte wgmma steps; Kc and Kf the rows of
-    the conv and fuse packs (3 kseg and kseg, at least one 128-byte TMA box);
-    Cw the rows of the int8 activation buffers (ceil16(C), at least 128)."""
+    and K8e's): kseg = ceil32(C), a tap's K segment in whole 32-byte wgmma
+    steps; Kc and Kf the rows of the conv and fuse (or 1x1) packs (3 kseg and
+    kseg, at least one 128-byte TMA box); Cw the rows of the int8 activation
+    buffers (ceil16(C), at least 128)."""
 
     kseg: int
     Kc: int
@@ -719,20 +718,17 @@ def k8d_layout(Cx: int) -> K8dLayout:
     return K8dLayout(kseg, max(kseg, 128), max(-(-Cx // 16) * 16, 128))
 
 
-def _kv_pack(qk: QWeight, qv: QWeight) -> QKV:
-    Kw = k8d_layout(qk.qt.shape[1]).Kw
-    return QKV(qk, qv, torch.cat([_pad_cols(qk.qt, Kw), _pad_cols(qv.qt, Kw)]).contiguous())
-
-
 def quantize_kv(wk, wv) -> QKV:
-    return _kv_pack(quantize_proj(wk), quantize_proj(wv))
+    qk, qv = quantize_proj(wk), quantize_proj(wv)
+    Kw = k8d_layout(wk.shape[0]).Kw
+    return QKV(qk, qv, torch.cat([_pad_cols(qk.qt, Kw), _pad_cols(qv.qt, Kw)]).contiguous())
 
 
 def mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
                            qweights=None):
     """Plain PyTorch version of ``mha_cross_attention_q8``: q (B, M, E)
     projected queries -> (B, M, E), the heads side by side.  ``qweights``:
-    (qk, qv[, pack]) as ``quantize_kv`` gives them, made here when None."""
+    ``quantize_kv(wk, wv)``, made here when None."""
     qk, qv = (qweights or (quantize_proj(wk), quantize_proj(wv)))[:2]
     B, X, _ = x_in.shape
     M, E = q.shape[1], wk.shape[1]
@@ -749,7 +745,7 @@ def mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: 
 
 def mha_cross_q8(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, qweights=None):
     """K8d on CUDA tensors, the plain version on CPU tensors.  ``qweights``
-    as the plain version's (with the pack a call does not make it)."""
+    as the plain version's."""
     _build.no_grad_inputs("mha_cross_q8", [q, x_in, x_pos, wk, bk, wv, bv])
     if x_in.device.type == "cpu":
         return mha_cross_q8_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len,
@@ -759,26 +755,28 @@ def mha_cross_q8(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, qweig
     return out
 
 
-def rows_kv_q8(x_in, x_pos):
-    """K8d's row quantizer (csrc/q8_proj.cu): (int8 (2, B, X, Cw), (2, B, X)
-    scales), q(x + pos) at 0 and q(x) at 1, zeros past Cx."""
-    B, X, Cx = x_in.shape
-    p, p_stride, P = kernel_pos(x_pos, B, X, Cx)
-    _build.check_tensors("fk_q8_rows_kv", [x_in, p], x_in.device)
-    Cw = k8d_layout(Cx).Cw
-    qx = torch.empty((2, B, X, Cw), device=x_in.device, dtype=torch.int8)
-    sx = torch.empty((2, B, X), device=x_in.device, dtype=torch.float32)
-    _build.check("fk_q8_rows_kv", _build.lib().fk_q8_rows_kv(
-        x_in.data_ptr(), p.data_ptr() if p is not None else None, p_stride, P, B, X, Cx, Cw,
-        qx.data_ptr(), sx.data_ptr(), _build.stream_ptr(x_in.device)))
-    return qx, sx
+def _k8d_buffers(B: int, X: int, Cw: int, M: int, E: int, H: int):
+    """K8d's buffers in one workspace, each at a 256-byte offset: the rows qx
+    (2, B, X, Cw) int8 and their scales sx (2, B, X), kv (B, X, 2E), K3's
+    partials over 64-key tiles.  ({name: (offset, shape, dtype)}, bytes)."""
+    n_t = -(-X // FWD_KEY_TILE)
+    parts = {"qx": ((2, B, X, Cw), torch.int8), "sx": ((2, B, X), torch.float32),
+             "kv": ((B, X, 2 * E), torch.float32),
+             "part_acc": ((B, n_t, H * M, E // H), torch.float32),
+             "part_ml": ((B, n_t, H * M, 2), torch.float32)}
+    out, off = {}, 0
+    for name, (shape, dtype) in parts.items():
+        out[name] = (off, shape, dtype)
+        off += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+    return out, off
 
 
 def _mha_q8_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, qweights, inspect=None):
-    """``mha_cross_q8``'s launches: the frame rows quantized, the int8 [K | V]
-    projection into K3's layout, then K3's attention and combine (CPU
-    tensors reach it only in the tests, against a model of the library).
-    ``inspect`` (a dict) receives the quantized rows and the projection."""
+    """``mha_cross_q8``'s one library call (csrc/q8_proj.cu): the frame rows
+    quantized, the int8 [K | V] projection into K3's layout, then K3's
+    attention and combine, into one workspace (CPU tensors reach it only in
+    the tests, against a model of the library).  ``inspect`` (a dict)
+    receives the quantized rows, their scales and the projection."""
     B, X, Cx = x_in.shape
     M, E = q.shape[1], wk.shape[1]
     H = num_heads
@@ -792,36 +790,29 @@ def _mha_q8_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, qweights, ins
         raise NotImplementedError(f"mha_cross_q8: no kernel for M={M}, E={E}, H={H} (E a "
                                   f"multiple of 4, the attention's block {attn_smem(M, hd)} "
                                   f"bytes of shared memory, {_build.MAX_SMEM} at most)")
-    if qweights is None:
-        qkv = quantize_kv(wk, wv)
-    else:
-        qkv = QKV(*qweights) if len(qweights) == 3 else _kv_pack(*qweights)
+    qkv = quantize_kv(wk, wv) if qweights is None else qweights
     lay = k8d_layout(Cx)
     if qkv.pack.shape != (2 * E, lay.Kw):
         raise ValueError("mha_cross_q8: pack not in k8d_layout(Cx); use quantize_kv")
     x_in = x_in.contiguous()
-    _build.check_tensors("mha_cross_q8", [q, x_in, bk, bv, x_len, *qkv.qk, *qkv.qv, qkv.pack],
-                         x_in.device)
-    qx, sx = rows_kv_q8(x_in, x_pos)
-    alen = attended_lengths(x_len, X)
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    kv = torch.empty((B, X, 2 * E), **f32)
-    lib, stream = _build.lib(), _build.stream_ptr(x_in.device)
-    _build.check("fk_q8_kv_proj", lib.fk_q8_kv_proj(
-        qx.data_ptr(), sx.data_ptr(), qkv.pack.data_ptr(), lay.Kw, qkv.qk.s.data_ptr(),
-        bk.data_ptr(), qkv.qv.s.data_ptr(), bv.data_ptr(),
-        alen.data_ptr(), kv.data_ptr(), B, X, Cx, lay.Cw, E, stream))
+    pos, p_stride, P = kernel_pos(x_pos, B, X, Cx)
     qs = (q * (1.0 / math.sqrt(hd))).contiguous()  # _arrange_queries folds the scale
-    n_t = -(-X // FWD_KEY_TILE)
-    part_acc = torch.empty((B, n_t, H * M, hd), **f32)
-    part_ml = torch.empty((B, n_t, H * M, 2), **f32)
-    out = torch.empty((B, M, E), **f32)
-    _build.check("fk_k3_attn", lib.fk_k3_attn(
-        kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M, H, hd, 1.0,
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), None,
-        *dropout_args(None, 0, 0.0), stream))
+    _build.check_tensors("mha_cross_q8", [qs, x_in, pos, bk, bv, x_len, *qkv.qk, *qkv.qv,
+                                          qkv.pack], x_in.device)
+    bufs, nbytes = _k8d_buffers(B, X, lay.Cw, M, E, H)
+    ws = torch.empty(nbytes, device=x_in.device, dtype=torch.uint8)
+    out = torch.empty((B, M, E), device=x_in.device, dtype=torch.float32)
+    at = {name: ws.data_ptr() + off for name, (off, _, _) in bufs.items()}
+    _build.check("fk_q8_mha_cross", _build.lib().fk_q8_mha_cross(
+        x_in.data_ptr(), pos.data_ptr() if pos is not None else None, p_stride, P,
+        qkv.pack.data_ptr(), lay.Kw, qkv.qk.s.data_ptr(), bk.data_ptr(), qkv.qv.s.data_ptr(),
+        bv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, Cx, lay.Cw, M, H, hd, at["qx"],
+        at["sx"], at["kv"], at["part_acc"], at["part_ml"], out.data_ptr(),
+        _build.stream_ptr(x_in.device)))
     if inspect is not None:
-        inspect.update(qx=qx, sx=sx, kv=kv)
+        for name in ("qx", "sx", "kv"):
+            off, shape, dtype = bufs[name]
+            inspect[name] = ws[off:off + math.prod(shape) * dtype.itemsize].view(dtype).view(shape)
     return out
 
 

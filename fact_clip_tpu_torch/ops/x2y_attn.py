@@ -281,8 +281,8 @@ x2y_flash_fwd.launches = 0
 
 
 def key_tile(M: int, E: int, num_heads: int):
-    """The key tile of csrc/flash_attn.cu's partial kernels (K2's flash form,
-    K8c and K8d): the largest of ``KEY_TILES`` whose block (GEMM staging, the
+    """The key tile of csrc/flash_attn.cu's partial kernels (K2's flash form
+    and K8c): the largest of ``KEY_TILES`` whose block (GEMM staging, the
     (BK, E+1) K/V buffer, the (H*M, BK) weights) fits in shared memory, or
     None."""
     for bk in KEY_TILES:

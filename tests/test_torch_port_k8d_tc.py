@@ -1,22 +1,22 @@
 """K8d's redesign (``csrc/q8_proj.cu`` on ``csrc/tc_int8.cuh``, then K3's attention) on the CPU.
 
-On the card K8d is three library calls: the frame rows quantized once into
-q(x + pos) and q(x) with their scales (``fk_q8_rows_kv``), the int8 [K | V]
-projection as one persistent wgmma launch of two problems into K3's (B, X,
-2E) layout, zero at frames past the attended length (``fk_q8_kv_proj``),
-and K3's attention and combine with the queries pre-scaled (``fk_k3_attn``).
-Here, without a card, ``FakeK8dLib`` (``FakeK3Lib`` of
-``test_torch_port_k3_tc.py`` and the two new entries on the raw memory of
-CPU tensors: the padded rows, the 128-frame items and their skips, the
-dequantization in the kernel's order) stands in for the library.  The
-port's launch sequence (``_mha_q8_card``) is held against JAX's
-``mha_cross_attention_q8`` in interpret mode and the plain version
-(tolerance: 2e-5 of max(1, the reference's largest value), the softmax
-summed in another order), and its quantized rows and projection bit-equal
-to the plain quantizer and ``_proj_q8``.  Cases: H = 8 at hd = 32 and 64,
-ragged ``x_len`` with a video of no valid key (it attends to every frame),
-shared and per-video positional terms, Cx = 48 (one and a half 32-byte K
-steps).
+On the card K8d is one library call, ``fk_q8_mha_cross``, of four launches
+into one workspace: the frame rows quantized once into q(x + pos) and q(x)
+with their scales, the int8 [K | V] projection as one persistent wgmma
+launch of two problems into K3's (B, X, 2E) layout, zero at frames past
+the attended length, and K3's attention and combine (``fk_k3_attn``) with
+the queries pre-scaled.  Here, without a card, ``FakeK8dLib``
+(``FakeK3Lib`` of ``test_torch_port_k3_tc.py`` and the new entry on the
+raw memory of CPU tensors: the padded rows, the 128-frame items and their
+skips, the dequantization in the kernel's order, then K3's attention
+model) stands in for the library.  The port's launch sequence
+(``_mha_q8_card``) is held against JAX's ``mha_cross_attention_q8`` in
+interpret mode and the plain version (tolerance: 2e-5 of max(1, the
+reference's largest value), the softmax summed in another order), and its
+quantized rows and projection bit-equal to the plain quantizer and
+``_proj_q8``.  Cases: H = 8 at hd = 32 and 64, ragged ``x_len`` with a
+video of no valid key (it attends to every frame), shared and per-video
+positional terms, Cx = 48 (one and a half 32-byte K steps).
 """
 
 import jax.numpy as jnp
@@ -40,54 +40,52 @@ XLEN = [512, 0, 301]
 
 
 class FakeK8dLib(FakeK3Lib):
-    """``FakeK3Lib`` and K8d's row quantizer and projection entries."""
+    """``FakeK3Lib`` and K8d's entry: its row quantizer and projection, then
+    K3's attention model on the projection."""
 
     BM = 128  # frames of a projection item
 
-    def fk_q8_rows_kv(self, x, pos, pos_bstride, P, B_, X_, C, Cw, qx, sx, stream):
+    def fk_q8_mha_cross(self, x, pos, pos_bstride, P, wpack, Kw, swk, bk, swv, bv, q, xlen, B_,
+                        X_, Cx, Cw, M_, H_, hd, qx, sx, kv, part_acc, part_ml, out, stream):
+        E = H_ * hd
+        kseg = -(-Cx // 32) * 32
+        assert Cw >= Cx and Cw % 16 == 0 and Kw >= kseg and E % 2 == 0
+        # the rows: q(x + pos) at 0, q(x) at 1, zeros past Cx
         self.calls.append(("rows_kv",))
-        assert Cw >= C and Cw % 16 == 0
-        xs = _view(x, B_ * X_ * C).view(B_, X_, C)
+        xs = _view(x, B_ * X_ * Cx).view(B_, X_, Cx)
         QX = _bytes(qx, 2 * B_ * X_ * Cw).view(2, B_, X_, Cw)
         SX = _view(sx, 2 * B_ * X_).view(2, B_, X_)
         xk = xs.clone()
         if pos is not None:
             Bp = 1 if pos_bstride == 0 else B_
-            pv = _view(pos, Bp * X_ * P).view(Bp, X_, P)
-            xk[..., :P] = xs[..., :P] + pv
+            xk[..., :P] = xs[..., :P] + _view(pos, Bp * X_ * P).view(Bp, X_, P)
         for z, v in enumerate((xk, xs)):
             s = v.abs().amax(dim=-1).clamp_min(1e-12)
-            q = torch.zeros(B_, X_, Cw, dtype=torch.int8)
-            q[..., :C] = torch.round(v * qc._div(127.0, s[..., None])).to(torch.int8)
-            QX[z], SX[z] = q, s
-        return 0
-
-    def fk_q8_kv_proj(self, qx, sx, wpack, Kw, swk, bk, swv, bv, alen, kv, B_, X_, Cx, Cw, E,
-                      stream):
+            qz = torch.zeros(B_, X_, Cw, dtype=torch.int8)
+            qz[..., :Cx] = torch.round(v * qc._div(127.0, s[..., None])).to(torch.int8)
+            QX[z], SX[z] = qz, s
+        # the projection: per (128 frames, problem, video), zeros past the attended length
         self.calls.append(("kv_proj",))
-        kseg = -(-Cx // 32) * 32
-        assert Kw >= kseg and Cw >= Cx and E % 2 == 0
-        QX = _bytes(qx, 2 * B_ * X_ * Cw).view(2, B_, X_, Cw)
-        SX = _view(sx, 2 * B_ * X_).view(2, B_, X_)
         WP = _bytes(wpack, 2 * E * Kw).view(2, E, Kw)
         KV = _view(kv, B_ * X_ * 2 * E).view(B_, X_, 2, E)
         sw, bias = (_view(swk, E), _view(swv, E)), (_view(bk, E), _view(bv, E))
-        lens = _ints(alen, B_)
+        lens = _ints(xlen, B_)
         for b in range(B_):
-            lim = min(int(lens[b]), X_)
+            lim = min(int(lens[b]), X_) if int(lens[b]) > 0 else X_
             for r0 in range(0, X_, self.BM):
                 rows = torch.arange(r0, min(r0 + self.BM, X_))
                 for z in range(2):
-                    out = torch.zeros(len(rows), E)
-                    if r0 < lim:  # else no product: every frame past the attended length
+                    res = torch.zeros(len(rows), E)
+                    if r0 < lim:  # else no product
                         a = torch.nn.functional.pad(QX[z, b, rows], (0, max(0, kseg - Cw)))
                         acc = torch.matmul(a[:, :kseg].double(),
                                            WP[z, :, :kseg].double().t()).float()
                         v = ((acc * SX[z, b, rows][:, None]).double() * sw[z].double()
                              + bias[z].double()).float()  # fma(idot * s_row, sw, b)
-                        out = torch.where((rows < lim)[:, None], v, 0.0)
-                    KV[b, rows, z] = out
-        return 0
+                        res = torch.where((rows < lim)[:, None], v, 0.0)
+                    KV[b, rows, z] = res
+        return self.fk_k3_attn(kv, q, xlen, B_, X_, M_, H_, hd, 1.0, part_acc, part_ml, out,
+                               None, None, 0, 0, 1.0, stream)
 
 
 @pytest.fixture
@@ -150,8 +148,7 @@ def test_emulated_k8d_matches_jax_interpret_and_plain(fake, hd, pos):
 
 def test_k8d_weights_pack_any_width():
     """``quantize_kv``'s pack: [qWk^T ; qWv^T] rows K-major, padded past Cx to
-    ``k8d_layout``'s Kw; a two-tuple of ``quantize_proj`` weights packs the
-    same on the card path."""
+    ``k8d_layout``'s Kw."""
     _, t = _inputs(8, 32, "shared")
     qw = qc.quantize_kv(t[3], t[5])
     lay = qc.k8d_layout(CX)
@@ -159,4 +156,3 @@ def test_k8d_weights_pack_any_width():
     assert qw.pack.shape == (2 * H * 32, lay.Kw)
     assert torch.equal(qw.pack[:256, :CX], qw.qk.qt) and torch.equal(qw.pack[256:, :CX], qw.qv.qt)
     assert not qw.pack[:, CX:].any()
-    assert torch.equal(qc._kv_pack(qw.qk, qw.qv).pack, qw.pack)
