@@ -2168,7 +2168,8 @@ class FfnRelus:
 
     def _calls(self):
         """Per FFN call of the two runs (None where their calls do not pair
-        up): (plain input, kernel input, flip mask, proven-tie mask)."""
+        up): (plain input, kernel input, flip mask, proven-tie mask, the
+        kernel path's float64 ReLU inputs)."""
         pp, pk = self.runs["plain"], self.runs["kernels"]
         if len(pp) != len(pk) or any(a[1].shape != b[1].shape for a, b in zip(pp, pk)):
             return None
