@@ -12,8 +12,9 @@
         at theirs with K6's serving form at Breakfast's 4 x 4096 x 512,
         ``ffn_sublayer_fwd`` for K4's FFN forward (the row ``ffn_sublayer``)
         ``k4k5`` for it and K5's forward (``frame_loss_fwd``), ``k8a`` for
-        K8a (the int8 MSTCN tower) at the cases its parent runs and ``k8d``
-        for K8d (int8 SCA cross-attention):
+        K8a (the int8 MSTCN tower) at the cases its parent runs, ``k8d``
+        for K8d (int8 SCA cross-attention), ``k2f`` for K2's flash forward
+        (``x2y_flash``) and ``k8b`` for K8b (int8 small-X X2Y):
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -47,6 +48,13 @@
         cotangent from the same saves (probabilities, output) against the
         plain backward in float64.
 
+    python3 chip_dev.py k2f-f64 [TREE]
+        The same for K2's flash forward (the flagship's 8 x 3072, M=40 and
+        Breakfast's 4 x 4096, M=60, d = Cx = 512, shared x_pos): the
+        projection [xk | xv] (from the call's workspace, where the package
+        has one), the logits on the valid keys, attn and probs, against the
+        plain version in float64.
+
     python3 chip_dev.py k2sx-f64
         The same for K2's small-X forward and backward (the flagship's a2f,
         8 x 3072 over X=40, and epic's a2f and f2a at batch 1, Cy = Cx =
@@ -67,13 +75,16 @@
         M=40 (the backward with dropout 0.2) and epic's B=1, M=300, E=256,
         F=512, and K5's forward at the flagship's 8 x 3072 x 75: the
         wrapper's host time a call (the median over 50 calls, each started
-        on an idle card), the CUDA-event time a call, and the device busy
-        time a call from ``torch.profiler`` with its kernels.
+        on an idle card) and the library entries' share of it, the
+        CUDA-event time a call, and the device busy time a call from
+        ``torch.profiler`` with its kernels.
 
     python3 chip_dev.py k8-host [TREE]
         The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
-        case), K8d (the flagship's and Breakfast's shapes) and K8e
-        (Breakfast's 4 x 4096 x 512) of the package in TREE.
+        case), K8b (the flagship's a2f and epic's f2a and a2f), K8d (the
+        flagship's and Breakfast's shapes), K8e (Breakfast's 4 x 4096 x
+        512) and K2's flash forward (the flagship's and Breakfast's) of the
+        package in TREE.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -121,7 +132,10 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            # K8a (the int8 MSTCN tower) at the cases its parent runs too (it refused
            # widths of no multiple of 32), and K8d (int8 SCA cross-attention)
            "k8a": ["mstcn_stack_q8:flagship,ragged,ln"],
-           "k8d": ["mha_cross_q8"]}
+           "k8d": ["mha_cross_q8"],
+           # K2's flash forward and K8b (int8 small-X X2Y): their parent runs every case
+           "k2f": ["x2y_flash:flagship,ragged,xlen0,breakfast"],
+           "k8b": ["x2y_small_x_q8"]}
 
 
 def ab(parent: str, names):
@@ -307,6 +321,50 @@ def k2_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
+def k2f_f64(tree: str = REPO, seed: int = 0):
+    """K2's flash forward (shared x_pos) of the package in ``tree`` and its
+    f32 plain version against the plain version in float64: max, rms and
+    coherent error of the projection [xk | xv] over the attended frames
+    (the kernel's from its workspace, where the package's wrapper hands it
+    out), the logits over the valid keys, attn and probs."""
+    import torch
+
+    cs = _chip_smoke(tree)
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    for tag, (B, M, X, lens, P) in {"flagship": (8, 40, 3072, cs.FLAGSHIP_LENGTHS, 256),
+                                    "breakfast": (4, 60, 4096, cs.BF_TRAIN_LENGTHS, 512)}.items():
+        args = cs.x2y_case(rng, B, M, X, 512, 512, 512, lens, cs._rand(rng, (1, M, P)),
+                           cs._rand(rng, (1, X, 512)))
+        a64 = [t.double() if t is not None and t.is_floating_point() else t for t in args]
+        keys = (torch.arange(X, device="cuda")[None, :] < args[10][:, None]).double()
+        valid = keys[:, None, :]  # the logits' valid keys (the masked ones are -1e9 exactly)
+
+        def project(a):
+            return torch.cat([xa.add_pos(a[2], a[3]) @ a[4] + a[5], a[2] @ a[6] + a[7]], -1)
+
+        with torch.no_grad():
+            ref = xa.x2y_attention_reference(*a64)
+            kv64 = project(a64)
+            seen = {}
+            if hasattr(xa, "_x2y_flash_fwd_card"):
+                kern = xa._x2y_flash_fwd_card(*args, inspect=seen)
+            else:  # a parent's package
+                kern = xa.x2y_flash_fwd(*args)
+            runs = {"kernel": (kern, seen.get("kv")),
+                    "plain": (xa.x2y_attention_reference(*args), project(args))}
+            for name, ((attn, probs, logits), kv) in runs.items():
+                parts = [] if kv is None else [f"kv {_stats(kv, kv64, keys[..., None])}"]
+                parts += [f"logits {_stats(logits, ref[2], valid)}",
+                          f"attn {_stats(attn, ref[0], one)}",
+                          f"probs {_stats(probs, ref[1], one)}"]
+                print(f"[k2f-f64] {os.path.relpath(os.path.abspath(tree), REPO)} {tag} "
+                      f"{name:<6} vs float64: " + "; ".join(parts), flush=True)
+    return 0
+
+
 def _sx_dxkv(xa, a, probs, g):
     """The small-X backward's dxk = dlogits^T yq and dxv = probs^T g_attn per
     video, plain, in the precision of the arguments ``a`` (x2y_attention's)."""
@@ -393,29 +451,63 @@ def ffn_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
+class _TimedLib:
+    """The kernel library with the host time of its entries' calls added up
+    (``spent``): the library's share of a wrapper's host time."""
+
+    def __init__(self, lib):
+        self.lib, self.spent = lib, 0.0
+
+    def __getattr__(self, name):
+        import time
+
+        fn = getattr(self.lib, name)
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.spent += time.perf_counter() - t0
+
+        return timed
+
+
 def _per_call(cs, tag: str, cases):
     """For each case's kernel call: the wrapper's host time a call (the
     median over 50 calls of the time until it returns, each started on an
-    idle card, so that no full launch queue holds the host back), the
-    CUDA-event time a call, and the device busy time a call from
-    ``torch.profiler`` with its kernels."""
+    idle card, so that no full launch queue holds the host back) and the
+    median of the library calls' share of it, the CUDA-event time a call,
+    and the device busy time a call from ``torch.profiler`` with its
+    kernels."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fact_clip_tpu_torch import _build
+
+    timed = _TimedLib(_build.lib())
     for name, make in cases.items():
         kern = make()[0]
         n = 200
         for _ in range(10):
             kern()
-        times = []
-        for _ in range(50):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            kern()
-            times.append(time.perf_counter() - t0)
+        times, inner = [], []
+        lib = _build.lib
+        _build.lib = lambda: timed
+        try:
+            for _ in range(50):
+                torch.cuda.synchronize()
+                timed.spent = 0.0
+                t0 = time.perf_counter()
+                kern()
+                times.append(time.perf_counter() - t0)
+                inner.append(timed.spent)
+        finally:
+            _build.lib = lib
         host = sorted(times)[len(times) // 2] * 1e3
+        in_lib = sorted(inner)[len(inner) // 2] * 1e3
         torch.cuda.synchronize()
         ms = cs.cuda_ms(kern, n)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -424,8 +516,9 @@ def _per_call(cs, tag: str, cases):
             torch.cuda.synchronize()
         rows = [(getattr(e, "device_time_total", 0) / 20e3, e.count // 20, e.key[:70])
                 for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        print(f"[{tag}] {name}: host {host:.4f} ms a call, events {ms:.4f} ms, device busy "
-              f"{sum(r[0] for r in rows):.4f} ms", flush=True)
+        print(f"[{tag}] {name}: host {host:.4f} ms a call ({in_lib:.4f} in the library's "
+              f"entries), events {ms:.4f} ms, device busy {sum(r[0] for r in rows):.4f} ms",
+              flush=True)
         for r in sorted(rows, reverse=True):
             print(f"[{tag}]    {r[0]:.4f} ms x{r[1]} {r[2]}", flush=True)
     return 0
@@ -446,16 +539,31 @@ def ffn_host(tree: str = REPO, seed: int = 0):
 
 def k8_host(tree: str = REPO, seed: int = 0):
     """The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
-    case), K8d (the flagship's and Breakfast's shapes) and K8e (Breakfast's
-    4 x 4096 x 512)."""
+    case), K8b (the flagship's a2f, epic's f2a and a2f), K8d (the
+    flagship's and Breakfast's shapes), K8e (Breakfast's 4 x 4096 x 512) and
+    K2's flash forward (the flagship's 8 x 3072, M=40 and Breakfast's 4 x
+    4096, M=60)."""
     import torch
 
     cs = _chip_smoke(tree)
     rng = np.random.default_rng(seed)
     zeros = lambda X: torch.zeros((1, X, 512), device="cuda")  # noqa: E731
+    rand = lambda *s: cs._rand(rng, s)  # noqa: E731
     return _per_call(cs, "k8-host", {
         "k8a flagship": lambda: cs.k8a_case(rng, 8, 3072, 256, 10, cs.FLAGSHIP_LENGTHS, False),
         "k8a ln": lambda: cs.k8a_case(rng, 3, 600, 256, 10, [600, 517, 90], True),
+        "k8b flagship": lambda: cs.k8bc_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
+                                             zeros(3072), rand(1, 40, 256)),
+        "k8b epic_f2a": lambda: cs.k8bc_case(rng, False, 2, 300, 256, 512, 512, 512, [256, 190],
+                                             rand(1, 300, 256), rand(2, 256, 512)),
+        "k8b epic_a2f": lambda: cs.k8bc_case(rng, False, 2, 256, 300, 512, 512, 512, [300, 300],
+                                             rand(2, 256, 512), rand(1, 300, 256)),
+        "k2f flagship": lambda: cs.x2y_fwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                                cs.FLAGSHIP_LENGTHS, rand(1, 40, 256),
+                                                zeros(3072)),
+        "k2f breakfast": lambda: cs.x2y_fwd_case(rng, True, 4, 60, 4096, 512, 512, 512,
+                                                 cs.BF_TRAIN_LENGTHS, rand(1, 60, 512),
+                                                 zeros(4096)),
         "k8d flagship": lambda: cs.k8d_case(rng, 8, 40, 3072, 256, 512, 8, cs.FLAGSHIP_LENGTHS,
                                             zeros(3072)),
         "k8d breakfast": lambda: cs.k8d_case(rng, 4, 60, 4096, 512, 512, 8, cs.BF_TRAIN_LENGTHS,
@@ -480,6 +588,8 @@ def main(argv):
         return ffn_host(*argv[1:])
     if argv[:1] == ["k8-host"] and len(argv) <= 2:
         return k8_host(*argv[1:])
+    if argv[:1] == ["k2f-f64"] and len(argv) <= 2:
+        return k2f_f64(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
     print(__doc__, file=sys.stderr)

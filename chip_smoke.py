@@ -592,8 +592,8 @@ def x2y_fwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
     Xv = _valid(args[10], X)
     n_bytes = nbytes(args) + (B * Y * d + 2 * B * Y * X) * 4
-    if flash:
-        work = (2 * B * Y * Cy * d + 4 * Cx * d * Xv + 4 * Y * d * Xv, n_bytes)
+    if flash:  # the key projection as three TF32 passes; the q projection and attention f32
+        work = (2 * B * Y * Cy * d + 4 * Y * d * Xv, n_bytes, 0, 4 * Cx * d * Xv)
     else:  # the q and key projections as three TF32 passes, the attention terms in f32
         work = (4 * Y * d * Xv, n_bytes, 0, 2 * B * Y * Cy * d + 4 * B * X * Cx * d)
     fn = xa.x2y_flash_fwd if flash else xa.x2y_small_x_fwd
@@ -1219,29 +1219,52 @@ def _frames_judge(judge, frames):
     return run
 
 
+def _q_judge(judge, args, qw):
+    """``judge`` on (the outputs, K8b's query side): the rows of
+    csrc/q8_proj.cu's quantizer (q(y + y_pos), their scales, the zeros past
+    Cy) and yq of its int8 projection against ``_quantize_rows`` and
+    ``_proj_q8`` on the same inputs, all exact."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+    from fact_clip_tpu_torch.ops.pos import add_pos
+
+    def run(out, ref):
+        seen = {}
+        qc._x2y_sx_q8_card(*args, qw, inspect=seen)
+        Cy = args[0].shape[2]
+        yin = add_pos(args[0], args[1])
+        q, sc = qc._quantize_rows(yin)
+        mine = [seen["qy"][..., :Cy], seen["sy"], seen["qy"][..., Cy:], seen["yq"]]
+        plain = [q, sc[..., 0], torch.zeros_like(seen["qy"][..., Cy:]),
+                 qc._proj_q8(yin, qw[2], args[9])]
+        return judge((_flat(out), mine), (_flat(ref), plain))
+
+    return run
+
+
 def k8bc_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     """K8b (frames are the queries) or K8c (frames are the keys): attn,
     probs and logits, and the frames as the row quantizer makes them (the
-    integer parts) against the plain ones."""
+    integer parts; K8b's yq too) against the plain ones."""
     from fact_clip_tpu_torch.ops import quant_conv as qc
 
     args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
     qw = tuple(qc.quantize_proj(w) for w in args[4:10:2])
     Xv = _valid(args[10], X)
-    if flash:  # int8 K / V over the valid keys, f32 q projection, logits and attend
-        flops, int8_ops = 2 * B * Y * Cy * d + 4 * Y * d * Xv, 4 * Xv * Cx * d
-        frames = [(args[2], args[3]), (args[2], None)]
-    else:  # int8 q projection of the frames; f32 K / V of the tokens, logits and attend
-        flops, int8_ops = 4 * B * X * Cx * d + 4 * Y * d * Xv, 2 * B * Y * Cy * d
-        frames = [(args[0], args[1])]
-    work = (flops, nbytes(args[:4], args[5:10:2], args[10], qw) + (B * Y * d + 2 * B * Y * X) * 4,
-            int8_ops)
+    n_bytes = nbytes(args[:4], args[5:10:2], args[10], qw) + (B * Y * d + 2 * B * Y * X) * 4
     name = "x2y_flash_q8" if flash else "x2y_small_x_q8"
     judge = q8_judge(name, lambda o: o[0], lambda o: o[1], probs=lambda o: o[0][1])
+    if flash:  # int8 K / V over the valid keys, f32 q projection, logits and attend
+        work = (2 * B * Y * Cy * d + 4 * Y * d * Xv, n_bytes, 4 * Xv * Cx * d)
+        check = _frames_judge(judge, [(args[2], args[3]), (args[2], None)])
+    else:  # int8 q projection of the frames; the tokens' K / V as three TF32 passes
+        work = (4 * Y * d * Xv, n_bytes, 2 * B * Y * Cy * d, 4 * B * X * Cx * d)
+        check = (_q_judge(judge, args, qw) if hasattr(qc, "_x2y_sx_q8_card")
+                 else _frames_judge(judge, [(args[0], args[1])]))  # a parent's package (A/B)
     fn = qc.x2y_flash_q8 if flash else qc.x2y_small_x_q8
     return (lambda: fn(*args, qweights=qw),
-            lambda: qc.x2y_attention_q8_reference(*args, qweights=qw), work,
-            _frames_judge(judge, frames))
+            lambda: qc.x2y_attention_q8_reference(*args, qweights=qw), work, check)
 
 
 def _kv_judge(judge, args, H, qw):
@@ -1354,7 +1377,10 @@ def kernel_table():
                                             _rand(r, (1, 37, D)), _rand(r, (1, 2000, D)))),
           # a video with no valid key attends to all its frames, as JAX's
           ("xlen0", lambda r: x2y_fwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
-                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
+                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D)))),
+          # Breakfast's u-block X2Y: 60 tokens over 4 x 4096 frames, d = 512
+          ("breakfast", lambda r: x2y_fwd_case(r, True, 4, 60, 4096, D, D, D, bf_len,
+                                               _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
         ("mha_cross", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
@@ -1544,7 +1570,13 @@ def kernel_table():
           ("epic_f2a", lambda r: k8bc_case(r, False, 2, 300, 256, D, D, D, [256, 190],
                                            _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
           ("epic_a2f", lambda r: k8bc_case(r, False, 2, 256, 300, D, D, D, [300, 300],
-                                           _rand(r, (2, 256, D)), _rand(r, (1, 300, E))))]),
+                                           _rand(r, (2, 256, D)), _rand(r, (1, 300, E)))),
+          # Breakfast int8's a2f: 4 x 4096 frames over 60 tokens
+          ("breakfast", lambda r: k8bc_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
+                                            _rand(r, (1, 4096, D)), _rand(r, (1, 60, D)))),
+          # a video with no valid key attends to all its keys, as JAX's
+          ("xlen0", lambda r: k8bc_case(r, False, 2, 300, 256, D, D, D, [256, 0],
+                                        _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
         ("x2y_flash_q8", csrc + "flash_attn.cu", pallas + "quant_conv.py:519", "argmax",
          [("flagship", lambda r: k8bc_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                            _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -1648,7 +1680,7 @@ def phase_kernels(seed: int = 0):
                 int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 and work[2] else ""
                 tf32 = ""
                 if len(work) > 3:  # beside it, the f32-FMA bound of the same work
-                    f32_ms = bound(work[0] + work[3], work[1])[0]
+                    f32_ms = bound(work[0] + work[3], work[1], work[2])[0]
                     tf32 = (f", {work[3]:.4g} FLOP as 3xTF32; f32-FMA bound {f32_ms:.4f} ms, "
                             f"{bound_ms / ms:.3f} of the 3xTF32 bound reached")
                 lib_text = "none" if library_ms is None else f"{library_ms:.4f}"
@@ -1674,7 +1706,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5, K8a, K8d and K8e case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5, K8a, K8b, K8d and K8e case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1687,8 +1719,9 @@ def k6_repeat_check(seed: int = 0):
     K1 at the flagship's shape (its dc GEMM's sums, its k1_dz); K3 at the
     flagship's shape, the forward with dropout 0.2 (the projection GEMM, the
     per-head partials, the combine) and the backward (its tile shares and
-    bias sums in two stages); K2's flash backward at the flagship's shape
-    (the attention's panels and column sums, dyq's tile shares); K2's
+    bias sums in two stages); K2's flash forward and backward at the
+    flagship's shape (the projection GEMM, the forward's partials and
+    combine, the backward's panels and column sums, dyq's tile shares); K2's
     small-X forward and backward at the flagship's a2f (the projections, the
     attention's panels, dbq's tile shares); K4's SA
     forward with dropout 0.2 at epic's B=1, M=300 and the flagship's B=8,
@@ -1701,8 +1734,10 @@ def k6_repeat_check(seed: int = 0):
     8 x 3072 x 75 (its chunks' partials summed in chunk order); K8a at the
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
-    maxima, pass N); K8d at the flagship's and Breakfast's shapes (its
-    projection's ring, K3's attention and combine)."""
+    maxima, pass N); K8b at the flagship's a2f (the key side's GEMM on its
+    second stream, the int8 projection's ring, the attention's panels); K8d
+    at the flagship's and Breakfast's shapes (its projection's ring, K3's
+    attention and combine)."""
     import torch
 
     def tensors(out):
@@ -1723,6 +1758,9 @@ def k6_repeat_check(seed: int = 0):
                                               zeros, 0.2)),
              ("k3_bwd", lambda: mha_bwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                              zeros)),
+             ("k2_flash", lambda: x2y_fwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                               FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
+                                               zeros)),
              ("k2_flash_bwd", lambda: x2y_bwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
                                                    FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
                                                    zeros)),
@@ -1739,6 +1777,8 @@ def k6_repeat_check(seed: int = 0):
              ("k8a_flag", lambda: k8a_case(rng, 8, 3072, 256, 10, FLAGSHIP_LENGTHS, False)),
              ("k8a_ln", lambda: k8a_case(rng, 3, 600, 256, 10, [600, 517, 90], True)),
              ("k8a_c24", lambda: k8a_case(rng, 3, 600, 24, 10, [600, 517, 90], False)),
+             ("k8b_flag", lambda: k8bc_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
+                                            zeros, _rand(rng, (1, 40, 256)))),
              ("k8d_flag", lambda: k8d_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                            zeros)),
              ("k8d_bf", lambda: k8d_case(rng, 4, 60, 4096, 512, 512, 8, BF_TRAIN_LENGTHS,
@@ -1762,8 +1802,8 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5, K8a, K8d or K8e gives different bits on "
-                             f"the same inputs: {failed}")
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K8a, K8b, K8d or K8e gives different "
+                             f"bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------

@@ -61,8 +61,7 @@ SIGNATURES = {
     "fk_frame_loss_fwd_workspace": [I, I, P],
     "fk_frame_loss_bwd": [P] * 7 + [I, I, I, P],
     "fk_x2y_sx_fwd": [P, P, L, I, P, P, L, I] + [P] * 7 + [I] * 6 + [F] + [P] * 10 + [I, P],
-    "fk_proj_attn": [P, P, L, I, P, P, P, P, P, P, I, I, I, I, I, I, F, P, P, P, P, P,
-                     P, I, U, F, P, I, P],
+    "fk_x2y_flash_fwd": [P, P, L, I] + [P] * 6 + [I] * 5 + [F] + [P] * 9 + [I, P],
     "fk_k3_attn": [P, P, P, I, I, I, I, I, F, P, P, P, P, P, I, U, F, P],
     "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P],
     "fk_sa_qkv": [P, P, I] + [P] * 7 + [I, I, I, P],
@@ -88,7 +87,8 @@ SIGNATURES = {
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
     "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
     "fk_q8_mha_cross": [P, P, L, I, P, I] + [P] * 6 + [I] * 7 + [P] * 7,
-    "fk_x2y_small_x_q8": [P] * 11 + [I] * 5 + [F, P],
+    "fk_x2y_sx_q8_fwd": [P, P, L, I, P, P, L, I, P, I] + [P] * 7 + [I] * 7 + [F] + [P] * 10
+                        + [I, P],
     "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
 }
 

@@ -34,6 +34,10 @@
 // Int32 sums are exact, so the projection equals the plain version's bit for
 // bit; the attention differs from the plain softmax by summation order.
 //
+// K8b (x2y_attn.cu's fk_x2y_sx_q8_fwd) takes the same two launches for its
+// query side (fk::q8_rows_proj): the rows quantizer in its one-output form,
+// q(y + y_pos), and the projection as one problem over every query row.
+//
 // Bound on the H100 (chip_smoke.py::k8d_case): the int8 products, 4 * Xv *
 // Cx * E operations over the valid keys Xv (12.9 G at the flagship's B=8,
 // X=3072, Cx=512, E=256: 0.007 ms at 1,979 TOPS), the f32 attention, 4 * M *
@@ -53,9 +57,11 @@ namespace {
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// q(x + pos) into qx[0] and q(x) into qx[1] (row stride Cw, zeros past C),
-// their scales into sx[0] and sx[1]; one warp a row of the B x N rows.
-// With vec (C and P multiples of 4) each lane takes four channels at a time.
+// q(x + pos) into qx[0] and, with TWO, q(x) into qx[1] (row stride Cw,
+// zeros past C), their scales into sx[0] and sx[1]; one warp a row of the B x
+// N rows.  With vec (C and P multiples of 4) each lane takes four channels
+// at a time.  K8d takes both (its K and V), K8b the first (its queries).
+template <bool TWO>
 __global__ void __launch_bounds__(fk::kThreads)
 q8_rows_kv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
                   long long pos_bstride, int P, int N, int C, int Cw, int rows, int vec,
@@ -108,7 +114,7 @@ q8_rows_kv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
                          fk::quant_s8(v.w, iv));
       }
       *reinterpret_cast<int*>(qk + c) = wk;
-      *reinterpret_cast<int*>(qv + c) = wv;
+      if (TWO) *reinterpret_cast<int*>(qv + c) = wv;
     }
   } else {
     for (int c = lane; c < Cw; c += 32) {
@@ -119,30 +125,31 @@ q8_rows_kv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
         e = (int8_t)fk::quant_s8(v, iv);
       }
       qk[c] = a;
-      qv[c] = e;
+      if (TWO) qv[c] = e;
     }
   }
   if (lane == 0) {
     sx[row] = sk;
-    sx[rows + row] = sv;
+    if (TWO) sx[rows + row] = sv;
   }
 }
 
 struct KVArgs {
-  CUtensorMap amap;  // the int8 rows (Cw, X, 2 B): q(x + pos) of video b at b, q(x) at B + b
-  CUtensorMap bmap;  // the weights (Kw, 2 E, 1): [qWk^T ; qWv^T], zeros past Cx
-  const int* xlen;   // (B,) the valid keys; a video of none attends to all X
-  const float* sx;   // (2, B, X) the rows' scales
+  CUtensorMap amap;  // the int8 rows (Cw, X, nprob B): problem z's rows of video b at z B + b
+  CUtensorMap bmap;  // the weights (Kw, nprob E, 1): problem z's at rows z E, zeros past Cx
+  const int* xlen;   // (B,) the valid rows, a video of none all X; null: every row
+  const float* sx;   // (nprob, B, X) the rows' scales
   const float* sw[2];
   const float* bias[2];
-  float* kv;  // (B, X, 2 E)
-  int B, X, E, kseg, nrb, ncol;
+  float* kv;  // (B, X, ldo): problem z at columns z E
+  int B, X, E, kseg, nrb, ncol, nprob, ldo;
 };
 
-// The projection, persistent: item (frame block, column block, problem z,
-// video b), the column blocks and both problems of a frame block side by
-// side (they read the same frames).  Problem z's columns [n0, n0 + BN) of
-// frames [r0, r0 + 128): K (z = 0) or V (z = 1) into kv's columns z E + n.
+// The projection, persistent: item (row block, column block, problem z,
+// video b), the column blocks and the problems of a row block side by side
+// (they read the same rows).  Problem z's columns [n0, n0 + BN) of rows
+// [r0, r0 + 128) into kv's columns z E + n: K8d's K (z = 0) and V (z = 1)
+// into K3's (B, X, 2E) layout, K8b's queries (one problem, every row valid).
 template <int BN>
 __global__ void __launch_bounds__(tc8::kThreads, 1)
     q8_kv_kernel(const __grid_constant__ KVArgs p) {
@@ -150,7 +157,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   __shared__ float col_s[BN], col_b[BN];  // the item's columns' weight scales and biases
   uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int per_rb = 2 * p.ncol;
+  const int per_rb = p.nprob * p.ncol;
   const int items = p.nrb * per_rb * p.B;
   const int kbs = ceil_div(p.kseg, tc8::kKB);
   auto decode = [&](int i, int& n0, int& z, int& b, int& r0, int& lim, int& nk) {
@@ -160,7 +167,8 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     r0 = (rb - b * p.nrb) * tc8::kBM;
     z = col / p.ncol;
     n0 = (col - z * p.ncol) * BN;
-    lim = p.xlen[b] > 0 ? min(p.xlen[b], p.X) : p.X;  // the attended length
+    // the attended length
+    lim = p.xlen != nullptr && p.xlen[b] > 0 ? min(p.xlen[b], p.X) : p.X;
     nk = r0 >= lim ? 0 : kbs;  // every frame past it: zeros
   };
   uint64_t* full = tc8::ring_init<BN>(sm);
@@ -223,7 +231,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
           v.y = __fmaf_rn(__fmul_rn(__int2float_rn(acc[0][4 * jj + 2 * h + 1]), sr[h]),
                           col_s[cl + 1], col_b[cl + 1]);
         }
-        *reinterpret_cast<float2*>(p.kv + ((size_t)b * p.X + row) * 2 * p.E + z * p.E + n) = v;
+        *reinterpret_cast<float2*>(p.kv + ((size_t)b * p.X + row) * p.ldo + z * p.E + n) = v;
       }
     }
     tc::bar_sync(1, 256);  // col_s and col_b are free for the next item
@@ -238,7 +246,56 @@ cudaError_t launch_tc8(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, c
   return cudaGetLastError();
 }
 
+// the projection's persistent launch, bn (128 or 256) columns an item
+cudaError_t launch_proj(const KVArgs& a, int bn, cudaStream_t st) {
+  const dim3 grid(tc8::persistent_blocks(a.nrb * a.nprob * a.ncol * a.B));
+  return bn == 256 ? launch_tc8(q8_kv_kernel<256>, grid, tc8::Ring<256>::kBytes, st, a)
+                   : launch_tc8(q8_kv_kernel<128>, grid, tc8::Ring<128>::kBytes, st, a);
+}
+
 }  // namespace
+
+namespace fk {
+
+// K8b's query side (x2y_attn.cu's fk_x2y_sx_q8_fwd): q(y + pos) of the B x N
+// rows y (B, N, C) into qy (B, N, Cw) int8 (zeros past C) and sy (B, N), then
+// out = fma(idot(q(y + pos), qW) * s_y, sw, bias) (B, N, E), every row, as
+// one persistent launch of one problem.  wpack (E, Kw) int8, zeros past C.
+int q8_rows_proj(const float* y, const float* pos, long long pos_bstride, int P,
+                 const int8_t* wpack, int Kw, const float* sw, const float* bias, int B, int N,
+                 int C, int Cw, int E, int8_t* qy, float* sy, float* out, cudaStream_t st) {
+  const int kseg = (C + 31) / 32 * 32;
+  if (Cw < C || Cw % 16 != 0 || Cw < tc8::kKB || Kw < kseg || Kw % 16 != 0 || Kw < tc8::kKB ||
+      E % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * N;
+  const int vec = C % 4 == 0 && (pos == nullptr || (P % 4 == 0 && pos_bstride % 4 == 0));
+  q8_rows_kv_kernel<false><<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, st>>>(
+      y, pos, pos_bstride, P, N, C, Cw, rows, vec, qy, sy);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  KVArgs a;
+  memset(&a, 0, sizeof(a));
+  const int bn = E > 128 ? 256 : 128;
+  if (!tc8::encode_3d_s8(&a.amap, qy, Cw, N, B, tc8::kBM) ||
+      !tc8::encode_3d_s8(&a.bmap, wpack, Kw, E, 1, bn))
+    return (int)cudaErrorInvalidValue;
+  a.sx = sy;
+  a.sw[0] = sw;
+  a.bias[0] = bias;
+  a.kv = out;
+  a.B = B;
+  a.X = N;
+  a.E = E;
+  a.kseg = kseg;
+  a.nrb = ceil_div(N, tc8::kBM);
+  a.ncol = ceil_div(E, bn);
+  a.nprob = 1;
+  a.ldo = E;
+  return (int)launch_proj(a, bn, st);
+}
+
+}  // namespace fk
 
 extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int B, int X, int M,
                           int H, int hd, float scale, float* part_acc, float* part_ml, float* out,
@@ -267,7 +324,7 @@ extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_b
   const cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * X;
   const int vec = Cx % 4 == 0 && (pos == nullptr || (P % 4 == 0 && pos_bstride % 4 == 0));
-  q8_rows_kv_kernel<<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, st>>>(
+  q8_rows_kv_kernel<true><<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, st>>>(
       x, pos, pos_bstride, P, X, Cx, Cw, rows, vec, qx, sx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -291,9 +348,9 @@ extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_b
   a.kseg = kseg;
   a.nrb = ceil_div(X, tc8::kBM);
   a.ncol = ceil_div(E, bn);
-  const dim3 grid(tc8::persistent_blocks(a.nrb * 2 * a.ncol * B));
-  err = bn == 256 ? launch_tc8(q8_kv_kernel<256>, grid, tc8::Ring<256>::kBytes, st, a)
-                  : launch_tc8(q8_kv_kernel<128>, grid, tc8::Ring<128>::kBytes, st, a);
+  a.nprob = 2;
+  a.ldo = 2 * E;
+  err = launch_proj(a, bn, st);
   if (err != cudaSuccess) return (int)err;
   return fk_k3_attn(kv, q, xlen, B, X, M, H, hd, 1.f, part_acc, part_ml, out, nullptr, nullptr, 0,
                     0u, 1.f, stream);

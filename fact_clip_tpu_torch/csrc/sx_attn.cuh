@@ -1,5 +1,8 @@
 // K2's small-X form on the H100: what its forward (x2y_attn.cu,
-// fk_x2y_sx_fwd) and its backward (x2y_bwd.cu, fk_x2y_sx_bwd) share.
+// fk_x2y_sx_fwd) and its backward (x2y_bwd.cu, fk_x2y_sx_bwd) share.  K8b
+// (x2y_attn.cu, fk_x2y_sx_q8_fwd) takes the prep, the key side and the
+// attention's panels, K2's flash forward (flash_attn.cu) the prep's lengths
+// and sx_attend.
 //
 // 1. The projections, one host call launching (sx_project; the key / value
 //    side on a second stream beside the query side: at epic's and the TDU's
@@ -70,7 +73,8 @@ extern "C" int fk_reduce_to(const float* src, int G, int P, long long pstride,
 
 namespace fk {
 
-constexpr int kGemmMasked = 0, kGemmProj32 = 9;  // tc_tower.cuh's Mode: kMasked, kProj32
+// tc_tower.cuh's Mode: kMasked, kProj, kProj32
+constexpr int kGemmMasked = 0, kGemmProj = 8, kGemmProj32 = 9;
 
 constexpr int kSxKeys = 64;                 // keys per pass of sx_dots (one per thread column)
 constexpr int kSxNC = 256;                  // columns of d per pass of sx_attend (four a thread)
@@ -345,8 +349,8 @@ inline int sx_side(SxSide& side) {
   return 0;
 }
 
-// The prep, the packs and the two projection GEMMs (see the top of this file).
-inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
+// The prep pass: whichever of lens, yin, xin and probs_p the workspace holds.
+inline int sx_prep(const fk::SxProj& p, cudaStream_t stream) {
   long long work = p.B;  // the longest of the prep's passes
   auto at_least = [&](bool on, long long n) { work = on && n > work ? n : work; };
   at_least(p.yin != nullptr, (long long)p.B * p.Y * p.Cy / 4);
@@ -354,14 +358,17 @@ inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
   at_least(p.probs_p != nullptr, (long long)p.B * p.Y * fk::sx_pad(p.X));
   const int blocks = (int)((work + 255) / 256 < 1056 ? (work + 255) / 256 : 1056);  // 8 an SM
   sx_prep_kernel<<<blocks, 256, 0, stream>>>(p);
-  int err = (int)cudaGetLastError();
-  SxSide side;
-  if (err || (err = sx_side(side)) ||
-      (err = (int)cudaEventRecord(side.fork, stream)) ||
+  return (int)cudaGetLastError();
+}
+
+// The key side on the side stream, after what `stream` holds so far: Wk^T,
+// Wv^T and kv = [xk | xv] (problem 0: Wk on [x + x_pos] (channels 0..Cx),
+// problem 1: Wv on x (Cx..2Cx, or 0..Cx)); side.join marks kv done.
+inline int sx_key_side(const fk::SxProj& p, cudaStream_t stream, SxSide& side) {
+  int err;
+  if ((err = sx_side(side)) || (err = (int)cudaEventRecord(side.fork, stream)) ||
       (err = (int)cudaStreamWaitEvent(side.stream, side.fork, 0)))
     return err;
-  // on the side stream: Wk^T, Wv^T and kv; problem 0: Wk on [x + x_pos]
-  // (channels 0..Cx), problem 1: Wv on x (Cx..2Cx, or 0..Cx)
   const size_t kvz = (size_t)2 * p.d * p.Cx;  // one projection's packed hi / lo parts
   const int two[4] = {0, 0, 0, p.xin ? p.Cx : 0};
   if ((err = fk_k6_pack(p.wk, p.wkvp, p.Cx, p.d, 1, p.Cx, p.Cx, side.stream)) ||
@@ -369,8 +376,16 @@ inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
       (err = fk_k6_gemm(fk::kGemmProj32, p.xin ? p.xin : p.x, p.xin ? 2 * p.Cx : p.Cx, 2, 1, two,
                         p.Cx, p.wkvp, p.d, p.Cx, p.B, p.X, p.lens + p.B, p.kv, 2 * p.d, p.d,
                         p.bk, p.bv, nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0u, 1.f,
-                        side.stream)) ||
-      (err = (int)cudaEventRecord(side.join, side.stream)) ||
+                        side.stream)))
+    return err;
+  return (int)cudaEventRecord(side.join, side.stream);
+}
+
+// The prep, the packs and the two projection GEMMs (see the top of this file).
+inline int sx_project(const fk::SxProj& p, cudaStream_t stream) {
+  SxSide side;
+  int err;
+  if ((err = sx_prep(p, stream)) || (err = sx_key_side(p, stream, side)) ||
       (err = fk_k6_pack(p.wq, p.wqp, p.Cy, p.d, 1, p.Cy, p.Cy, stream)))
     return err;
   const int one[2] = {0, 0};

@@ -44,8 +44,9 @@
 //   K1  kRelu    relu(acc + bias) (the conv's h)
 //       kResid   (acc + bias) * keep + res (the 1x1, dropout, residual)
 //       kGate    acc where res > 0 (dc gated by the ReLU), column sums
-//   K3  kProj    acc + bias + res on the columns n < res_ld (the key's
-//                positional term pos @ Wk, res_bstride 0 when the batch shares it)
+//   K3  kProj    acc + bias + res on the columns n < res_ld of problem 0 (the
+//                key's positional term pos @ Wk, res_bstride 0 when the batch
+//                shares it; K2's flash forward: [xk | xv] as two problems)
 //   K2  kProj32  kProj's epilogue, promoted once a 32-deep step as the
 //                towers are (K2's small-X yq and [xk | xv], the latter as two
 //                problems side by side)
@@ -222,6 +223,9 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const int N = p.N;
   const float* bias = z ? p.bias1 : p.bias0;
   const int col_off = z * p.col_step;
+  // kProj's and kProj32's positional term goes to problem 0 only (K2's flash
+  // forward projects xk and xv as two problems side by side)
+  const float* res_p = (MODE == kProj || MODE == kProj32) && z != 0 ? nullptr : p.res;
   const uint32_t seed = kDrop ? p.drop.load_seed() : 0u;
   float csum[32];
   // With JB > 1 the epilogue's global loads (bias, and the residual,
@@ -244,8 +248,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         const int t = t0 + rw + 8 * h;
         rvs[jj][h] = make_float2(0.f, 0.f);
-        if (JB > 1 && kRes && t < L && ncol && p.res != nullptr && n < p.res_ld)
-          rvs[jj][h] = load2(p.res + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
+        if (JB > 1 && kRes && t < L && ncol && res_p != nullptr && n < p.res_ld)
+          rvs[jj][h] = load2(res_p + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
       }
     }
 #pragma unroll
@@ -264,7 +268,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         // the row's residual, cotangent, gate or positional term (valid && ncol only)
         auto res = [&]() {
           return JB > 1 ? rvs[jj][h]
-                        : load2(p.res + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
+                        : load2(res_p + (size_t)b * p.res_bstride + (size_t)t * p.res_ld + n);
         };
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         if (MODE == kMasked) {
@@ -321,7 +325,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
             if (valid) {
               y0 = v0 + bv.x;
               y1 = v1 + bv.y;
-              if (p.res != nullptr && n < p.res_ld) {  // res_ld % 4 == 0: n + 1 too
+              if (res_p != nullptr && n < p.res_ld) {  // res_ld % 4 == 0: n + 1 too
                 const float2 r = res();
                 y0 += r.x;
                 y1 += r.y;

@@ -24,88 +24,34 @@
 // sequence driven from Python took 0.32 ms of host time a call, H100 80GB
 // HBM3, 700 W).
 //
-// K8b, the int8 twin (x2y_small_x_q8_kernel), replaces
+// K8b, the int8 twin, replaces
 // fact_clip_tpu/ops/pallas/quant_conv.py::_x2y_small_x_q8_impl
-// (_x2y_small_x_kernel_q8): the frame rows y + y_pos arrive quantized per row
-// (quant.cu's q8_rows_kernel: int8 values and each row's absmax s_y), the q
-// projection is an int8 GEMM on quant.cuh's mma.sync core, dequantized in
-// JAX's order fma(idot * s_y, swq, bq) (ops/quant_conv.py), and the logits,
-// softmax and attend are small_x_attend's on common.cuh's f32 GEMM core, one
-// block per (64 query rows, video); xk arrives transposed, (d, X), and xv
-// (X, d), projected outside.
+// (_x2y_small_x_kernel_q8) on the same split, one host call
+// (fk_x2y_sx_q8_fwd; ops/quant_conv.py::_x2y_sx_q8_card):
+//   the key side as K2's (sx_attn.cuh's prep and sx_key_side: kv = [xk |
+//     xv] in f32 on the 3xTF32 GEMM, as JAX computes it outside its kernel,
+//     zero at keys at or past x_len), on the side stream;
+//   the query side on q8_proj.cu's int8 wgmma core (fk::q8_rows_proj): the
+//     rows q(y + y_pos) and their absmax scales s_y (JAX's per-row
+//     quantizer), then yq = fma(idot(q(y + y_pos), qWq) * s_y, swq, bq),
+//     JAX's dequantization order (ops/quant_conv.py::_proj_q8), every row,
+//     one persistent launch; the int32 sums are exact, so yq equals the
+//     plain version's bit for bit;
+//   the attention above (x2y_sx_attn_kernel) on yq and kv.
+// Bound on the H100: the int8 product, 2 * B*Y*Cy*d operations (12.9 G at
+// the flagship's a2f: 0.007 ms at 1,979 TOPS), the key side's f32-accurate
+// products and the attention's f32 terms as above; the bytes of y (50 MB
+// at the flagship) and of the (B, Y, X) logits and probs.  One block per 64
+// query rows and video, with the int8 product on mma.sync inside it, gives
+// 48 blocks a video at Y = 3072 and 8-10 at epic's B = 2, Y = 256-300: 0.44
+// ms against 0.25 for this split at the flagship's shape (H100 80GB HBM3,
+// 700 W).
 #include <math.h>
 
 #include "common.cuh"
-#include "quant.cuh"
 #include "sx_attn.cuh"
 
 namespace {
-
-constexpr int BM = 64;  // query rows per block of K8b
-// floats at the front of K8b's block memory: the f32 GEMM staging and the
-// int8 staging in the same place
-constexpr int kStageFloats =
-    (sizeof(fk::GemmSmem<BM>) > sizeof(fk::QSmem<BM>) ? sizeof(fk::GemmSmem<BM>)
-                                                      : sizeof(fk::QSmem<BM>)) / sizeof(float);
-
-// logits = yq @ xk^T * scale (masked keys -1e9), probs = softmax(logits),
-// attn = probs @ xv for the block's rows, from yq (BM x d) in shared memory
-__device__ __forceinline__ void small_x_attend(const float* yq, fk::GemmSmem<BM>& s,
-                                               const float* __restrict__ xkb,
-                                               const float* __restrict__ xvb, int rows, int xl,
-                                               int X, int d, float scale, float* lb, float* prb,
-                                               float* ab) {
-  constexpr int RM = BM / 8;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float acc[RM][8];
-  // logits straight to global memory
-  auto yq_elem = [&](int r, int k) { return yq[r * d + k]; };
-  for (int n0 = 0; n0 < X; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, yq_elem, xkb, X, d, n0, X, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = n0 + fk::pass_col(j);
-        if (key < X) lb[(size_t)r * X + key] = key < xl ? acc[i][j] * scale : fk::kMaskedLogit;
-      }
-    }
-  }
-  __syncthreads();  // the block's logits are visible to the whole block
-
-  // softmax, one warp per row; plain loads: the rows were written above
-  for (int r = ty; r < rows; r += fk::kWarps) {
-    const float* lrow = lb + (size_t)r * X;
-    float* prow = prb + (size_t)r * X;
-    float mx = -INFINITY;
-    for (int k = tx; k < X; k += 32) mx = fmaxf(mx, lrow[k]);
-    mx = fk::warp_max(mx);
-    float sum = 0.f;
-    for (int k = tx; k < X; k += 32) sum += expf(lrow[k] - mx);
-    const float inv = 1.f / fk::warp_sum(sum);
-    for (int k = tx; k < X; k += 32) prow[k] = expf(lrow[k] - mx) * inv;
-  }
-  __syncthreads();
-
-  // attn = probs @ xv
-  auto p_elem = [&](int r, int k) { return r < rows ? prb[(size_t)r * X + k] : 0.f; };
-  for (int n0 = 0; n0 < d; n0 += fk::kBN) {
-    fk::gemm_pass<BM>(acc, p_elem, xvb, d, X, n0, d, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = fk::pass_row<BM>(i);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + fk::pass_col(j);
-        if (c < d) ab[(size_t)r * d + c] = acc[i][j];
-      }
-    }
-  }
-}
 
 // The attention of x2y_small_x_fwd: logits, probs and attn of the block's
 // BQ = 4R query rows from the projected queries yq (B, Y, d) and kv = [xk |
@@ -182,49 +128,6 @@ x2y_sx_attn_kernel(const float* __restrict__ yq, const float* __restrict__ kv,
   }
 }
 
-__global__ void __launch_bounds__(fk::kThreads)
-x2y_small_x_q8_kernel(const int8_t* __restrict__ qy, const float* __restrict__ sy,
-                      const float* __restrict__ xkt, const float* __restrict__ xv,
-                      const int8_t* __restrict__ qwqt, const float* __restrict__ swq,
-                      const float* __restrict__ bq, const int* __restrict__ xlen,
-                      float* __restrict__ attn, float* __restrict__ probs,
-                      float* __restrict__ logits, int Y, int X, int Cy, int d, float scale) {
-  extern __shared__ float4 smem_raw[];
-  // the int8 staging and the f32 GEMM staging share the front of the block's memory
-  fk::QSmem<BM>& qs = *reinterpret_cast<fk::QSmem<BM>*>(smem_raw);
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* yq = reinterpret_cast<float*>(smem_raw) + kStageFloats;
-
-  const int b = blockIdx.y;
-  const int y0 = blockIdx.x * BM;
-  const int rows = min(BM, Y - y0);
-  const int xl = min(xlen[b], X);
-  const int8_t* qyb = qy + ((size_t)b * Y + y0) * Cy;
-  const float* syb = sy + (size_t)b * Y + y0;
-  int acc[BM / 16][4][4];
-  auto stage = [&](int8_t (*as)[fk::kQLD], int k0) { fk::q_stage_a_rows<BM>(as, qyb, Cy, rows, k0); };
-  for (int n0 = 0; n0 < d; n0 += fk::kBN) {
-    fk::q_gemm_pass<BM>(acc, stage, qwqt, Cy, n0, d, qs);
-#pragma unroll
-    for (int mt = 0; mt < BM / 16; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = fk::q_row(mt, i);
-          const int c = n0 + fk::q_col(nt, i);
-          if (c >= d) continue;
-          const float sr = r < rows ? syb[r] : 0.f;
-          yq[r * d + c] = __fmaf_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), sr),
-                                    __ldg(swq + c), __ldg(bq + c));
-        }
-  }
-  __syncthreads();
-  small_x_attend(yq, s, xkt + (size_t)b * d * X, xv + (size_t)b * X * d, rows, xl, X, d, scale,
-                 logits + ((size_t)b * Y + y0) * X, probs + ((size_t)b * Y + y0) * X,
-                 attn + ((size_t)b * Y + y0) * d);
-}
-
 template <int R>
 cudaError_t launch_sx_attn(size_t smem, dim3 grid, cudaStream_t stream, const float* yq,
                            const float* kv, const int* xlen, int Y, int X, int d, float scale,
@@ -236,7 +139,27 @@ cudaError_t launch_sx_attn(size_t smem, dim3 grid, cudaStream_t stream, const fl
   return cudaGetLastError();
 }
 
+// the attention of `tile` query rows a block (8, 16 or 32)
+int sx_attn(int tile, cudaStream_t s, const float* yq, const float* kv, const int* xlen, int B,
+            int Y, int X, int d, float scale, float* logits, float* probs, float* attn) {
+  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
+  const dim3 grid((Y + tile - 1) / tile, B);
+  return (int)(tile == 32   ? launch_sx_attn<8>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                logits, probs, attn)
+               : tile == 16 ? launch_sx_attn<4>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                logits, probs, attn)
+                            : launch_sx_attn<2>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
+                                                logits, probs, attn));
+}
+
 }  // namespace
+
+namespace fk {
+// q8_proj.cu: K8b's query side, the rows quantized and projected on the int8 core
+int q8_rows_proj(const float* y, const float* pos, long long pos_bstride, int P,
+                 const int8_t* wpack, int Kw, const float* sw, const float* bias, int B, int N,
+                 int C, int Cw, int E, int8_t* qy, float* sy, float* out, cudaStream_t st);
+}  // namespace fk
 
 // K2's small-X forward, one host call: the prep, packs and projections of
 // sx_attn.cuh (yq and kv in the caller's workspace, fk::SxProj; y_pos as yin
@@ -259,29 +182,39 @@ extern "C" int fk_x2y_sx_fwd(const float* y, const float* ypos, long long ystrid
                      wqp, wkvp, yq,     kv, nullptr, nullptr};
   int err = sx_project(p, s);
   if (err) return err;
-  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
-  const dim3 grid((Y + tile - 1) / tile, B);
-  return (int)(tile == 32   ? launch_sx_attn<8>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
-                                                  logits, probs, attn)
-               : tile == 16 ? launch_sx_attn<4>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
-                                                  logits, probs, attn)
-                            : launch_sx_attn<2>(smem, grid, s, yq, kv, xlen, Y, X, d, scale,
-                                                  logits, probs, attn));
+  return sx_attn(tile, s, yq, kv, xlen, B, Y, X, d, scale, logits, probs, attn);
 }
 
-// K8b: qy (B, Y, Cy) int8 and sy (B, Y) from quant.cu's fk_q8_rows of y + y_pos;
-// qwqt (d, Cy) int8, swq (d,) the folded weight scale
-extern "C" int fk_x2y_small_x_q8(const int8_t* qy, const float* sy, const float* xkt,
-                                 const float* xv, const int8_t* qwqt, const float* swq,
-                                 const float* bq, const int* xlen, float* attn, float* probs,
-                                 float* logits, int B, int Y, int X, int Cy, int d, float scale,
-                                 void* stream) {
-  if (Cy % 16 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (kStageFloats + (size_t)BM * d) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)x2y_small_x_q8_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Y + BM - 1) / BM, B);
-  x2y_small_x_q8_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      qy, sy, xkt, xv, qwqt, swq, bq, xlen, attn, probs, logits, Y, X, Cy, d, scale);
-  return (int)cudaGetLastError();
+// K8b, one host call: the key side of sx_attn.cuh (lens, xin = [x + x_pos |
+// x] with x_pos, the packs wkvp and kv in the caller's workspace, fk::SxProj)
+// on the side stream; the query side, qy (B, Y, Cw) int8, sy (B, Y) and yq
+// (B, Y, d), on q8_proj.cu's int8 core (wqpack (d, Kw) int8, zeros past Cy;
+// swq (d,) the folded weight scale); then the attention -> logits and probs
+// (B, Y, X), attn (B, Y, d); `tile` query rows per block (8, 16 or 32).
+extern "C" int fk_x2y_sx_q8_fwd(const float* y, const float* ypos, long long ystride, int Py,
+                                const float* x, const float* xpos, long long xstride, int Px,
+                                const int8_t* wqpack, int Kw, const float* swq, const float* bq,
+                                const float* wk, const float* bk, const float* wv,
+                                const float* bv, const int* xlen, int B, int Y, int X, int Cy,
+                                int Cx, int Cw, int d, float scale, int* lens, float* xin,
+                                float* wkvp, float* kv, int8_t* qy, float* sy, float* yq,
+                                float* logits, float* probs, float* attn, int tile,
+                                void* stream) {
+  if (d % 4 || Cx % 4 || Px % 4 || X < 1 || X > fk::kSxMaxKeys ||
+      (tile != 8 && tile != 16 && tile != 32) || (xpos != nullptr) != (xin != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  // the key side's inputs and buffers (the query side is the int8 one)
+  const fk::SxProj p{y,  nullptr, 0,    0,  x,  xpos,    xstride, Px,      nullptr, nullptr,
+                     wk, bk,      wv,   bv, xlen, B,     Y,       X,       Cy,      Cx,
+                     d,  lens,    nullptr, xin, nullptr, wkvp,   nullptr, kv,      nullptr,
+                     nullptr};
+  SxSide side;
+  int err;
+  if ((err = sx_prep(p, s)) || (err = sx_key_side(p, s, side)) ||
+      (err = fk::q8_rows_proj(y, ypos, ystride, Py, wqpack, Kw, swq, bq, B, Y, Cy, Cw, d, qy, sy,
+                              yq, s)) ||
+      (err = (int)cudaStreamWaitEvent(s, side.join, 0)))  // kv is ready
+    return err;
+  return sx_attn(tile, s, yq, kv, xlen, B, Y, X, d, scale, logits, probs, attn);
 }

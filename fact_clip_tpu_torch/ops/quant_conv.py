@@ -12,8 +12,9 @@ versions:
 * K8e ``mstcn2_stack_q8`` (``f: m2``, Breakfast and Epic-Kitchens):
   ``dilated_residual2_stack_q8`` with ``act_scale="tile"``
   (``_stack2_layer_q8`` :390) -> ``csrc/quant2.cu``;
-* K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) ->
-  ``csrc/x2y_attn.cu``'s int8 twin;
+* K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) -> one library
+  call, ``csrc/x2y_attn.cu::fk_x2y_sx_q8_fwd``: K2's small-X split with the
+  q projection on the int8 ``wgmma`` core of ``csrc/q8_proj.cu``;
 * K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> ``csrc/flash_attn.cu``'s
   int8 twin; ``x2y_attention_q8`` picks K8b or K8c at JAX's threshold
   (X > 1024, :639);
@@ -46,15 +47,16 @@ inputs that want a gradient: JAX's int8 path is never differentiated.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from .. import _build
-from .mha_attn import FWD_KEY_TILE, attn_smem, has_forward
+from .mha_attn import FWD_KEY_TILE, _check_strides, attn_smem, has_forward
 from .pos import add_pos, kernel_pos
-from .x2y_attn import FLASH_MIN_KEYS, key_tile
+from .x2y_attn import FLASH_MIN_KEYS, _offsets, _view, key_tile, sx_rows, sx_smem
 
 _NEG = -1e9
 
@@ -598,29 +600,86 @@ def _x2y_prologue(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, qweights):
 
 def x2y_small_x_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
     """K8b: the frames are the queries (X <= 1024 keys).  The key / value
-    projections over the short axis stay f32 and outside, as in JAX."""
+    projections over the short axis stay f32, as in JAX; the q projection of
+    every frame runs on the int8 tensor cores."""
     if x_in.device.type == "cpu":
         _build.no_grad_inputs("x2y_small_x_q8", [y_in, x_in, wk, bk, wv, bv, wq, bq])
         return x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
                                           x_len, qweights)
-    y_in, x_in = y_in.contiguous(), x_in.contiguous()
-    _, _, qq = _x2y_prologue("x2y_small_x_q8", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
-                             qweights)
-    B, Y, Cy = y_in.shape
-    X, d = x_in.shape[1], wq.shape[1]
-    if Cy % 16:
-        raise NotImplementedError(f"x2y_small_x_q8: Cy={Cy} is not a multiple of 16")
-    xkt = (add_pos(x_in, x_pos) @ wk + bk).transpose(1, 2).contiguous()
-    xv = (x_in @ wv + bv).contiguous()
-    qy, sy = _rows_q8(y_in, y_pos)
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    attn, probs, logits = (torch.empty((B, Y, d), **f32), torch.empty((B, Y, X), **f32),
-                           torch.empty((B, Y, X), **f32))
-    _build.check("fk_x2y_small_x_q8", _build.lib().fk_x2y_small_x_q8(
-        qy.data_ptr(), sy.data_ptr(), xkt.data_ptr(), xv.data_ptr(), qq.qt.data_ptr(),
-        qq.s.data_ptr(), bq.data_ptr(), x_len.data_ptr(), attn.data_ptr(), probs.data_ptr(),
-        logits.data_ptr(), B, Y, X, Cy, d, 1.0 / math.sqrt(d), _build.stream_ptr(x_in.device)))
+    out = _x2y_sx_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights)
     x2y_small_x_q8.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _sx_q8_plan(B: int, Y: int, X: int, Cy: int, Cx: int, d: int, Px: int, with_xpos: bool):
+    """K8b's limits and layout at one shape, before any launch: the key
+    side's GEMM takes 16-byte rows (Cx, d and Px multiples of 4), the
+    attention X <= 1024 keys and a block of ``sx_smem`` bytes; any Cy (the
+    rows and Wq's pack padded to ``k8d_layout(Cy)``).  Returns the
+    workspace's offsets in floats (read only) and size and the layout: asked
+    once a shape, so that a call's host time stays small."""
+    name = "x2y_small_x_q8"
+    _check_strides(name, Cx, d, Px)
+    if X >= FLASH_MIN_KEYS or sx_smem(X, d) > _build.MAX_SMEM:
+        raise NotImplementedError(f"{name}: no kernel for X={X}, d={d} (X <= 1024, the "
+                                  f"attention's block {sx_smem(X, d)} bytes of shared memory, "
+                                  f"{_build.MAX_SMEM} at most)")
+    lay = k8d_layout(Cy)
+    offsets, total = _offsets(dict(
+        lens=2 * B + 1, xin=B * X * 2 * Cx if with_xpos else None, wkvp=4 * d * Cx,
+        kv=B * X * 2 * d, yq=B * Y * d, sy=B * Y, qy=-(-B * Y * lay.Cw // 4)))
+    return offsets, total, lay
+
+
+def _x2y_sx_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None,
+                    inspect=None):
+    """``x2y_small_x_q8``'s one library call (``csrc/x2y_attn.cu::
+    fk_x2y_sx_q8_fwd``; CPU tensors reach it only in the tests, against a
+    model of the library): the key side [xk | xv] in f32 on the 3xTF32 GEMM,
+    the rows q(y + y_pos) and yq on the int8 core, then the attention per
+    tile of 8-32 query rows, into one workspace.  ``qweights`` as the plain
+    version's (only Wq's is read).  ``inspect`` (a dict) receives the
+    quantized rows "qy" (B, Y, Cw), their scales "sy" (B, Y), "yq" (B, Y, d)
+    and "kv" (B, X, 2d), views of the workspace."""
+    name = "x2y_small_x_q8"
+    _build.no_grad_inputs(name, [y_in, x_in, wk, bk, wv, bv, wq, bq])
+    y_in, x_in = y_in.contiguous(), x_in.contiguous()
+    B, Y, Cy = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    if (x_in.shape[0] != B or wk.shape != (Cx, d) or wv.shape != (Cx, d) or wq.shape != (Cy, d)
+            or bk.shape != (d,) or bv.shape != (d,) or bq.shape != (d,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if x_len.dtype != torch.int32 or x_len.shape != (B,):
+        raise ValueError(f"{name}: x_len must be (B,) int32")
+    qq = quantize_proj(wq) if qweights is None else qweights[2]
+    ypos, ystride, Py = kernel_pos(y_pos, B, Y, Cy)
+    xpos, xstride, Px = kernel_pos(x_pos, B, X, Cx)
+    offsets, total, lay = _sx_q8_plan(B, Y, X, Cy, Cx, d, Px, xpos is not None)
+    _build.check_tensors(name, [y_in, ypos, x_in, xpos, wk, bk, wv, bv, bq, x_len, *qq],
+                         x_in.device)
+    pack = qq.qt if qq.qt.shape[1] == lay.Kw else _pad_cols(qq.qt, lay.Kw).contiguous()
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    work = torch.empty((total,), **f32)
+    base = work.data_ptr()
+    w = {k: None if o is None else base + 4 * o for k, o in offsets.items()}
+    attn = torch.empty((B, Y, d), **f32)
+    probs = torch.empty((B, Y, X), **f32)
+    logits = torch.empty((B, Y, X), **f32)
+    _build.check(name, _build.lib().fk_x2y_sx_q8_fwd(
+        y_in.data_ptr(), ypos.data_ptr() if ypos is not None else None, ystride, Py,
+        x_in.data_ptr(), xpos.data_ptr() if xpos is not None else None, xstride, Px,
+        pack.data_ptr(), lay.Kw, qq.s.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        wv.data_ptr(), bv.data_ptr(), x_len.data_ptr(), B, Y, X, Cy, Cx, lay.Cw, d,
+        1.0 / math.sqrt(d), w["lens"], w["xin"], w["wkvp"], w["kv"], w["qy"], w["sy"], w["yq"],
+        logits.data_ptr(), probs.data_ptr(), attn.data_ptr(), sx_rows(B, Y, X, d),
+        _build.stream_ptr(x_in.device)))
+    if inspect is not None:
+        inspect["qy"] = work[offsets["qy"]:].view(torch.int8)[:B * Y * lay.Cw].view(B, Y, lay.Cw)
+        inspect["sy"] = _view(work, w["sy"], (B, Y))
+        inspect["yq"] = _view(work, w["yq"], (B, Y, d))
+        inspect["kv"] = _view(work, w["kv"], (B, X, 2 * d))
     return attn, probs, logits
 
 

@@ -14,14 +14,16 @@ Pallas forms, chosen at the same threshold (``X > 1024``):
   yq and [xk | xv] recomputed, the attention terms per tile (dlogits, dyq,
   dbq's shares), dy, dWq, dxk and dxv on the same core.  The X side's
   gradients stay plain matmuls, as in the JAX caller.
-* large X (keys are frames): ``_x2y_flash_fwd_impl`` ->
-  ``csrc/flash_attn.cu``, backward ``_x2y_flash_bwd_impl`` -> K3's split at
-  one head: the projection [xk | xv] recomputed on the towers' 3xTF32 GEMM
-  (``mha_attn._project``), the attention terms per 64-key tile
+* large X (keys are frames): ``_x2y_flash_fwd_impl`` -> K3's split at one
+  head, one library call (``csrc/flash_attn.cu::fk_x2y_flash_fwd``): the
+  key's positional table and [xk | xv] on the towers' 3xTF32 GEMM (epilogue
+  kProj), then the logits, softmax partials and attend per (group of query
+  rows, 64-key tile, video) in f32 and the fixed-order combine, which also
+  writes the probabilities that JAX leaves to XLA; backward
+  ``_x2y_flash_bwd_impl`` -> the projection [xk | xv] recomputed on the same
+  GEMM (``mha_attn._project``), the attention terms per 64-key tile
   (``csrc/x2y_bwd.cu``), dx and the weight products on the same core.  The
-  q projection and its gradient stay outside, as in the JAX caller; the
-  forward's per-tile k/v projections, logits, softmax and attend run inside
-  its kernel, and so does the probability pass that JAX leaves to XLA.
+  q projection and its gradient stay outside, as in the JAX caller.
 
 Both return (attn (B, Y, d), probs (B, Y, X), logits (B, Y, X)) in float32,
 with -1e9 at keys at or past ``x_len`` in the logits; gradients into those
@@ -49,7 +51,11 @@ from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
-KEY_TILES = (64, 32)  # keys per block of csrc/flash_attn.cu (its BK), the largest that fits
+KEY_TILES = (64, 32)  # keys per block of K8c's partial kernel (its BK), the largest that fits
+FLASH_ROW_GROUP = 32  # query rows at most per block of the flash forward's attention
+# keys per block of the flash attention kernels, both directions
+# (csrc/flash_attn.cu kFlashKeys, csrc/x2y_bwd.cu kFT)
+FLASH_KEY_TILE = 64
 _NEG = -1e9
 
 
@@ -243,48 +249,68 @@ def _proj_args(y_in, ypos, ystride, Py, x_in, xpos, xstride, Px, wq, bq, wk, bk,
 
 def x2y_flash_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, *,
                   rate: float = 0.0):
-    """Flash form: key tiles projected and attended in parallel, then merged."""
+    """Flash form: the keys projected on the tensor cores, then the key tiles
+    attended in parallel and merged."""
     if _prologue("x2y_flash_fwd", rate, y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
                  x_len):
         return x2y_attention_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
-    B, M, _ = y_in.shape
-    X, Cx = x_in.shape[1], x_in.shape[2]
-    d = wq.shape[1]
-    # the q projection runs outside the kernel, as in the JAX caller
-    yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()
-    tile = key_tile(M, d, 1)
-    if tile is None:
-        raise NotImplementedError(f"x2y_flash_fwd: no key tile fits in shared memory at M={M}, "
-                                  f"d={d}")
-    pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
-    _build.check_tensors("x2y_flash_fwd", [pos], x_in.device)
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    logits = torch.empty((B, M, X), **f32)
-    probs = torch.empty_like(logits)
-    attn = torch.empty((B, M, d), **f32)
-    n_t = -(-X // tile)
-    part_acc = torch.empty((B, n_t, M, d), **f32)
-    part_ml = torch.empty((B, n_t, M, 2), **f32)
-    # csrc/flash_attn.cu, one head; no dropout and no softmax stats
-    err = _build.lib().fk_proj_attn(
-        x_in.data_ptr(), pos.data_ptr() if pos is not None else None, pos_stride, Px,
-        yq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
-        x_len.data_ptr(), B, X, Cx, M, 1, d, 1.0 / math.sqrt(d), logits.data_ptr(),
-        probs.data_ptr(), attn.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), None, 0, 0,
-        1.0, None, tile, _build.stream_ptr(x_in.device))
-    _build.check("fk_proj_attn", err)
+    out = _x2y_flash_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
     x2y_flash_fwd.launches += 1
-    return attn, probs, logits
+    return out
 
 
 x2y_flash_fwd.launches = 0
 
 
+def flash_rows(M: int) -> int:
+    """Query rows per block of the flash forward's attention: the M rows in
+    the fewest groups of at most FLASH_ROW_GROUP, each a multiple of 4 (a
+    thread row holds a quarter): 20 at the flagship's M=40, 32 at
+    Breakfast's 60, 12 at 11."""
+    groups = -(-M // FLASH_ROW_GROUP)
+    return -(-(-(-M // groups)) // 4) * 4
+
+
+def _x2y_flash_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, inspect=None):
+    """``x2y_flash_fwd``'s one library call (CPU tensors reach it only in the
+    tests, which stand a model of the kernels' C interface in for the
+    library): the lengths, the packs, the positional table and [xk | xv] on
+    the GEMM, the attention partials and the combine
+    (``csrc/flash_attn.cu::fk_x2y_flash_fwd``), into one workspace.  Given a
+    dict ``inspect``, its "kv" receives [xk | xv] (B, X, 2d), a view of the
+    call's workspace (for accuracy checks)."""
+    B, M, _ = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    pos, pos_stride, Px = kernel_pos(x_pos, B, X, Cx)
+    _check_strides("x2y_flash_fwd", Cx, d, Px)
+    _build.check_tensors("x2y_flash_fwd", [pos], x_in.device)
+    # the q projection runs outside the kernel, as in the JAX caller
+    yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()
+    n_t = -(-X // FLASH_KEY_TILE)
+    work, w = _workspace(x_in.device, dict(
+        lens=2 * B + 1, wkvp=4 * d * Cx, tab=pos.shape[0] * X * d if pos is not None else None,
+        kv=B * X * 2 * d, part_acc=B * n_t * M * d, part_ml=B * n_t * M * 2))
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    attn = torch.empty((B, M, d), **f32)  # separate tensors: the autograd entry's outputs
+    probs = torch.empty((B, M, X), **f32)
+    logits = torch.empty((B, M, X), **f32)
+    err = _build.lib().fk_x2y_flash_fwd(
+        x_in.data_ptr(), pos.data_ptr() if pos is not None else None, pos_stride, Px,
+        yq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        x_len.data_ptr(), B, X, Cx, M, d, 1.0 / math.sqrt(d), w["lens"], w["wkvp"], w["tab"],
+        w["kv"], w["part_acc"], w["part_ml"], logits.data_ptr(), probs.data_ptr(),
+        attn.data_ptr(), flash_rows(M), _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_flash_fwd", err)
+    if inspect is not None:
+        inspect["kv"] = _view(work, w["kv"], (B, X, 2 * d))
+    return attn, probs, logits
+
+
 def key_tile(M: int, E: int, num_heads: int):
-    """The key tile of csrc/flash_attn.cu's partial kernels (K2's flash form
-    and K8c): the largest of ``KEY_TILES`` whose block (GEMM staging, the
-    (BK, E+1) K/V buffer, the (H*M, BK) weights) fits in shared memory, or
-    None."""
+    """The key tile of csrc/flash_attn.cu's int8 partial kernel (K8c): the
+    largest of ``KEY_TILES`` whose block (the staging, the (BK, E+1) K/V
+    buffer, the (H*M, BK) weights) fits in shared memory, or None."""
     for bk in KEY_TILES:
         if _build.gemm_smem(bk) + 4 * (bk * (E + 1) + num_heads * M * bk) <= _build.MAX_SMEM:
             return bk
@@ -295,7 +321,6 @@ def key_tile(M: int, E: int, num_heads: int):
 # backward
 
 FLASH_MAX_QUERIES = 64  # csrc/x2y_bwd.cu kMaxM
-FLASH_KEY_TILE = 64  # keys per block of the flash backward's attention (kFT)
 FLASH_SUM_GROUP = 16  # dyq's tile shares and the bias sums, added a run at a time
 
 

@@ -238,7 +238,7 @@ class FakeK6Lib:
                     Y[b] = acc + bv
                 elif mode in (dc._PROJ, dc._PROJ32):  # + the positional term on res_ld columns
                     tab = torch.zeros(T, N)
-                    if res is not None:
+                    if res is not None and z == 0:  # of problem 0
                         tab[:, :res_ld] = res_rows(b)
                     Y[b, :, c_off:c_off + N] = torch.where(valid, acc + bv + tab, 0.0)
                 elif mode == dc._RELU:
