@@ -14,7 +14,9 @@
         ``k4k5`` for it and K5's forward (``frame_loss_fwd``), ``k8a`` for
         K8a (the int8 MSTCN tower) at the cases its parent runs, ``k8d``
         for K8d (int8 SCA cross-attention), ``k2f`` for K2's flash forward
-        (``x2y_flash``) and ``k8b`` for K8b (int8 small-X X2Y):
+        (``x2y_flash``), ``k8b`` for K8b (int8 small-X X2Y) and ``k8c``
+        for K8c (int8 flash X2Y) at the cases its parent runs too (it
+        refused Cx = 40):
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -81,10 +83,16 @@
 
     python3 chip_dev.py k8-host [TREE]
         The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
-        case), K8b (the flagship's a2f and epic's f2a and a2f), K8d (the
-        flagship's and Breakfast's shapes), K8e (Breakfast's 4 x 4096 x
+        case), K8b (the flagship's a2f and epic's f2a and a2f), K8c and K8d
+        (the flagship's and Breakfast's shapes), K8e (Breakfast's 4 x 4096 x
         512) and K2's flash forward (the flagship's and Breakfast's) of the
         package in TREE.
+
+    python3 chip_dev.py sa-host [TREE]
+        The same for K4's SA backward (dropout 0.2) at the flagship's B=8,
+        M=40, E=256, H=8 and epic's B=1, M=300, its masks hashed in the
+        kernels from the seed and fed as replayed tensors (a package whose
+        backward takes no seed is fed the masks in both).
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -135,7 +143,9 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            "k8d": ["mha_cross_q8"],
            # K2's flash forward and K8b (int8 small-X X2Y): their parent runs every case
            "k2f": ["x2y_flash:flagship,ragged,xlen0,breakfast"],
-           "k8b": ["x2y_small_x_q8"]}
+           "k8b": ["x2y_small_x_q8"],
+           # K8c (int8 flash X2Y) at the cases its parent runs too (it refused Cx = 40)
+           "k8c": ["x2y_flash_q8:flagship,ragged,breakfast,xlen0"]}
 
 
 def ab(parent: str, names):
@@ -539,10 +549,10 @@ def ffn_host(tree: str = REPO, seed: int = 0):
 
 def k8_host(tree: str = REPO, seed: int = 0):
     """The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
-    case), K8b (the flagship's a2f, epic's f2a and a2f), K8d (the
-    flagship's and Breakfast's shapes), K8e (Breakfast's 4 x 4096 x 512) and
-    K2's flash forward (the flagship's 8 x 3072, M=40 and Breakfast's 4 x
-    4096, M=60)."""
+    case), K8b (the flagship's a2f, epic's f2a and a2f), K8c (the flagship's
+    8 x 3072, M=40 and Breakfast's 4 x 4096, M=60), K8d (the flagship's and
+    Breakfast's shapes), K8e (Breakfast's 4 x 4096 x 512) and K2's flash
+    forward (the flagship's and Breakfast's shapes)."""
     import torch
 
     cs = _chip_smoke(tree)
@@ -564,11 +574,27 @@ def k8_host(tree: str = REPO, seed: int = 0):
         "k2f breakfast": lambda: cs.x2y_fwd_case(rng, True, 4, 60, 4096, 512, 512, 512,
                                                  cs.BF_TRAIN_LENGTHS, rand(1, 60, 512),
                                                  zeros(4096)),
+        "k8c flagship": lambda: cs.k8bc_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                             cs.FLAGSHIP_LENGTHS, rand(1, 40, 256), zeros(3072)),
+        "k8c breakfast": lambda: cs.k8bc_case(rng, True, 4, 60, 4096, 512, 512, 512,
+                                              cs.BF_TRAIN_LENGTHS, rand(1, 60, 512),
+                                              zeros(4096)),
         "k8d flagship": lambda: cs.k8d_case(rng, 8, 40, 3072, 256, 512, 8, cs.FLAGSHIP_LENGTHS,
                                             zeros(3072)),
         "k8d breakfast": lambda: cs.k8d_case(rng, 4, 60, 4096, 512, 512, 8, cs.BF_TRAIN_LENGTHS,
                                              zeros(4096)),
         "k8e breakfast": lambda: cs.k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)})
+
+
+def sa_host(tree: str = REPO, seed: int = 0):
+    """The same for K4's SA backward, its masks hashed and fed."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    return _per_call(cs, "sa-host", {
+        f"{name} {form}": (lambda B=B, M=M, hashed=form == "hashed":
+                           cs.sa_bwd_case(rng, B, M, 256, 8, hashed=hashed))
+        for name, B, M in (("flagship", 8, 40), ("epic", 1, 300))
+        for form in ("hashed", "fed")})
 
 
 def main(argv):
@@ -588,6 +614,8 @@ def main(argv):
         return ffn_host(*argv[1:])
     if argv[:1] == ["k8-host"] and len(argv) <= 2:
         return k8_host(*argv[1:])
+    if argv[:1] == ["sa-host"] and len(argv) <= 2:
+        return sa_host(*argv[1:])
     if argv[:1] == ["k2f-f64"] and len(argv) <= 2:
         return k2f_f64(*argv[1:])
     if argv == ["k2sx-f64"]:

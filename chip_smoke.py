@@ -244,9 +244,9 @@ SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_s
                    "ffn_sublayer")
 TRAIN_KERNELS = ("mstcn_stack", "mstcn_stack_bwd", "x2y_small_x",
                  "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "mha_cross",
-                 "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_dropout_masks",
-                 "sa_sublayer_bwd", "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd",
-                 "frame_loss_fwd", "frame_loss_bwd")
+                 "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_sublayer_bwd",
+                 "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd", "frame_loss_fwd",
+                 "frame_loss_bwd")
 BF_SERVING_KERNELS = ("mstcn2_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                       "ffn_sublayer")
 BF_TRAIN_KERNELS = ("mstcn2_stack", "mstcn2_stack_bwd", "x2y_small_x", "x2y_small_x_bwd",
@@ -772,17 +772,29 @@ def sa_library(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, H, rat
     return _autograd_library(run, [x, wqk, bqk, wv, bv, wo, bo, ln_scale, ln_bias], g)
 
 
-def sa_bwd_case(rng, B, M, E, H, rate=0.2):
+def sa_bwd_case(rng, B, M, E, H, rate=0.2, hashed=False):
+    """K4's SA backward against its plain version given the call's masks.
+    With ``hashed`` (the training path's form) the kernels hash the masks
+    from the seed, and their gradients must equal, bit for bit, those of
+    the same kernels fed the masks (``sa_dropout_masks``' bits); a package
+    whose backward takes no seed (a parent's, in ``chip_dev.py ab``) is fed
+    the masks."""
+    import inspect
+
     from fact_clip_tpu_torch.ops import sa_layer as sl
 
     args = sa_case(rng, B, M, E)
-    _, ka, ko = _sa_masks(rng, B, M, E, H, rate)
+    seed, ka, ko = _sa_masks(rng, B, M, E, H, rate)
     g = _rand(rng, (B, M, E))
     kw = dict(num_heads=H, keep_attn=ka, keep_out=ko)
-    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g, ka, ko) + nbytes(args))
-    return (lambda: sl.sa_sublayer_bwd(*args, g, **kw),
-            lambda: sl.sa_sublayer_bwd_reference(*args, g, **kw), work, None,
-            sa_library(*args, H, rate, g))
+    hashed = hashed and "seed" in inspect.signature(sl.sa_sublayer_bwd).parameters
+    mask_bytes = 0 if hashed else nbytes(ka, ko)
+    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g) + mask_bytes + nbytes(args))
+    fed = lambda: sl.sa_sublayer_bwd(*args, g, **kw)  # noqa: E731
+    kern = ((lambda: sl.sa_sublayer_bwd(*args, g, num_heads=H, seed=seed, rate_attn=rate,
+                                        rate=rate)) if hashed else fed)
+    return (kern, lambda: sl.sa_sublayer_bwd_reference(*args, g, **kw), work, None,
+            sa_library(*args, H, rate, g), fed if hashed else None)
 
 
 def ffn_case(rng, B, M, E, Fd, away_from_zero=False):
@@ -1203,8 +1215,9 @@ def dr_layer_case(rng, B, T, C, d, use_ln, rate=0.0):
 
 def _frames_judge(judge, frames):
     """``judge`` on (the function's outputs, each side's row-quantized frames):
-    ``frames()`` gives [(kernel (q, s), plain (q, s))] of the row quantizer
-    (csrc/quant.cu) against ``_quantize_rows`` on the same inputs."""
+    ``frames`` gives [(x, pos)] whose rows the package's own row quantizer
+    (``_rows_q8``, csrc/quant.cu's ``fk_q8_rows``: a parent's package of the
+    K8c redesign, in ``chip_dev.py ab``) makes against ``_quantize_rows``."""
     from fact_clip_tpu_torch.ops import quant_conv as qc
     from fact_clip_tpu_torch.ops.pos import add_pos
 
@@ -1250,47 +1263,74 @@ def k8bc_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     from fact_clip_tpu_torch.ops import quant_conv as qc
 
     args = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos)
-    qw = tuple(qc.quantize_proj(w) for w in args[4:10:2])
+    new_k8c = hasattr(qc, "quantize_x2y")  # False: a parent's package (chip_dev.py ab)
+    qw = (qc.quantize_x2y(*args[4:10:2]) if new_k8c
+          else tuple(qc.quantize_proj(w) for w in args[4:10:2]))
     Xv = _valid(args[10], X)
-    n_bytes = nbytes(args[:4], args[5:10:2], args[10], qw) + (B * Y * d + 2 * B * Y * X) * 4
+    # each int8 weight counted once (K8c's pack holds Wk's and Wv's bytes again)
+    n_bytes = nbytes(args[:4], args[5:10:2], args[10], qw[:3]) + (B * Y * d + 2 * B * Y * X) * 4
     name = "x2y_flash_q8" if flash else "x2y_small_x_q8"
     judge = q8_judge(name, lambda o: o[0], lambda o: o[1], probs=lambda o: o[0][1])
     if flash:  # int8 K / V over the valid keys, f32 q projection, logits and attend
         work = (2 * B * Y * Cy * d + 4 * Y * d * Xv, n_bytes, 4 * Xv * Cx * d)
-        check = _frames_judge(judge, [(args[2], args[3]), (args[2], None)])
+        check = (_kq_judge(judge, args, qw) if new_k8c
+                 else _frames_judge(judge, [(args[2], args[3]), (args[2], None)]))
     else:  # int8 q projection of the frames; the tokens' K / V as three TF32 passes
         work = (4 * Y * d * Xv, n_bytes, 2 * B * Y * Cy * d, 4 * B * X * Cx * d)
-        check = (_q_judge(judge, args, qw) if hasattr(qc, "_x2y_sx_q8_card")
-                 else _frames_judge(judge, [(args[0], args[1])]))  # a parent's package (A/B)
+        check = _q_judge(judge, args, qw)
     fn = qc.x2y_flash_q8 if flash else qc.x2y_small_x_q8
     return (lambda: fn(*args, qweights=qw),
             lambda: qc.x2y_attention_q8_reference(*args, qweights=qw), work, check)
 
 
-def _kv_judge(judge, args, H, qw):
-    """``judge`` on (the outputs, K8d's quantized rows and projection): the
-    rows of csrc/q8_proj.cu's quantizer (q(x + pos), q(x), their scales, the
-    zeros past Cx) and its [K | V] (zeros past the attended length) against
-    ``_quantize_rows`` and ``_proj_q8`` on the same inputs, all exact."""
+def _kv_parts(seen, x, pos, x_len, qk, bk, qv, bv):
+    """(the kernel's, the plain) key side of K8c and K8d: the rows of
+    csrc/q8_proj.cu's quantizer (q(x + pos), q(x), their scales, the zeros
+    past Cx) and [K | V] (zeros past the attended length), read from the
+    call's workspace, against ``_quantize_rows`` and ``_proj_q8``."""
     import torch
 
     from fact_clip_tpu_torch.ops import quant_conv as qc
     from fact_clip_tpu_torch.ops.mha_attn import attended_lengths
     from fact_clip_tpu_torch.ops.pos import add_pos
 
+    X, Cx = x.shape[1:]
+    xk = add_pos(x, pos)
+    (kq, ks), (vq, vs) = qc._quantize_rows(xk), qc._quantize_rows(x)
+    att = torch.arange(X, device=x.device)[None, :] < attended_lengths(x_len, X)[:, None]
+    kv = torch.cat([qc._proj_q8(xk, qk, bk), qc._proj_q8(x, qv, bv)], -1)
+    kv = torch.where(att[..., None], kv, 0.0)
+    qx, sx = seen["qx"], seen["sx"]
+    mine = [qx[0, ..., :Cx], sx[0], qx[1, ..., :Cx], sx[1], qx[..., Cx:], seen["kv"]]
+    plain = [kq, ks[..., 0], vq, vs[..., 0], torch.zeros_like(qx[..., Cx:]), kv]
+    return mine, plain
+
+
+def _kv_judge(judge, args, H, qw):
+    """``judge`` on (the outputs, K8d's quantized rows and projection), all
+    exact (``_kv_parts``)."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
     def run(out, ref):
         q, x, pos, wk, bk, wv, bv, x_len = args
-        X, Cx = x.shape[1:]
         seen = {}
         qc._mha_q8_card(q, x, pos, wk, bk, wv, bv, x_len, H, qw, inspect=seen)
-        xk = add_pos(x, pos)
-        (kq, ks), (vq, vs) = qc._quantize_rows(xk), qc._quantize_rows(x)
-        att = torch.arange(X, device=x.device)[None, :] < attended_lengths(x_len, X)[:, None]
-        kv = torch.cat([qc._proj_q8(xk, qw.qk, bk), qc._proj_q8(x, qw.qv, bv)], -1)
-        kv = torch.where(att[..., None], kv, 0.0)
-        qx, sx = seen["qx"], seen["sx"]
-        mine = [qx[0, ..., :Cx], sx[0], qx[1, ..., :Cx], sx[1], qx[..., Cx:], seen["kv"]]
-        plain = [kq, ks[..., 0], vq, vs[..., 0], torch.zeros_like(qx[..., Cx:]), kv]
+        mine, plain = _kv_parts(seen, x, pos, x_len, qw.qk, bk, qw.qv, bv)
+        return judge((_flat(out), mine), (_flat(ref), plain))
+
+    return run
+
+
+def _kq_judge(judge, args, qw):
+    """``judge`` on (the outputs, K8c's quantized rows and [xk | xv]), all
+    exact (``_kv_parts``)."""
+    from fact_clip_tpu_torch.ops import quant_conv as qc
+
+    def run(out, ref):
+        seen = {}
+        qc._x2y_flash_q8_card(*args, qw, inspect=seen)
+        x, pos, bk, bv, x_len = args[2], args[3], args[5], args[7], args[10]
+        mine, plain = _kv_parts(seen, x, pos, x_len, qw.qk, bk, qw.qv, bv)
         return judge((_flat(out), mine), (_flat(ref), plain))
 
     return run
@@ -1304,12 +1344,8 @@ def k8d_case(rng, B, M, X, E, Cx, H, x_len, pos):
 
     args = mha_case(rng, B, M, X, E, Cx, x_len, pos)
     judge = q8_judge("mha_cross_q8", lambda o: o[0], lambda o: o[1])
-    if hasattr(qc, "quantize_kv"):
-        qw = qc.quantize_kv(args[3], args[5])
-        frames = _kv_judge(judge, args, H, qw)
-    else:  # a parent's package of the K8d redesign (chip_dev.py's A/B): its row quantizer
-        qw = (qc.quantize_proj(args[3]), qc.quantize_proj(args[5]))
-        frames = _frames_judge(judge, [(args[1], args[2]), (args[1], None)])
+    qw = qc.quantize_kv(args[3], args[5])
+    frames = _kv_judge(judge, args, H, qw)
     Xv = _valid(args[7], X)
     work = (4 * M * E * Xv, nbytes(args[:3], args[4], args[6], args[7], qw[:2]) + B * M * E * 4,
             4 * Xv * Cx * E)
@@ -1476,7 +1512,9 @@ def kernel_table():
           ("xlen0", lambda r: mha_bwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
                                            _rand(r, (1, 1100, D))))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
-         [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
+         [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8, hashed=True)),
+          ("flag_masks", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
+          ("rag_hash", lambda r: sa_bwd_case(r, 3, 11, 256, 8, hashed=True)),
           ("flag_nodrop", lambda r: sa_bwd_case(r, B, 40, 256, 8, 0.0)),
           ("ragged", lambda r: sa_bwd_case(r, 3, 11, 256, 8)),
           ("rag_nodrop", lambda r: sa_bwd_case(r, 3, 11, 256, 8, 0.0)),
@@ -1584,7 +1622,13 @@ def kernel_table():
                                          _rand(r, (1, 37, D)), _rand(r, (1, 1100, D)))),
           # Breakfast int8: 60 tokens over 4 x 4096 frames, d = 512
           ("breakfast", lambda r: k8bc_case(r, True, 4, 60, 4096, D, D, D, bf_len,
-                                            _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
+                                            _rand(r, (1, 60, D)), zeros(1, 4096, D))),
+          # a video with no valid key attends to every frame; per-video x_pos
+          ("xlen0", lambda r: k8bc_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
+                                        _rand(r, (1, 37, D)), _rand(r, (2, 2048, D)))),
+          # 40 channels, no multiple of 16 (the parent refused it): rows and pack padded
+          ("cx40", lambda r: k8bc_case(r, True, 2, 37, 1100, D, 40, D, [1100, 517],
+                                       _rand(r, (1, 37, D)), _rand(r, (1, 1100, 40))))]),
         ("mha_cross_q8", csrc + "q8_proj.cu", pallas + "quant_conv.py:715", "argmax",
          [("flagship", lambda r: k8d_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                           zeros(1, T, D))),
@@ -1638,8 +1682,10 @@ def phase_kernels(seed: int = 0):
     """Every kernel against its plain version on the same inputs, each case
     timed beside the plain version, the bound and, where one PyTorch call
     (or pair) computes the same function, that library call.
-    A case is (kernel, plain, work[, view[, library]]): ``view`` (or None)
-    picks from both results what is compared, ``library`` is timed."""
+    A case is (kernel, plain, work[, view[, library[, twin]]]): ``view`` (or
+    None) picks from both results what is compared, ``library`` is timed,
+    ``twin`` (or None) gives results that the kernel's must equal bit for
+    bit (the SA backward fed the masks that it hashes)."""
     import torch
 
     results = {}
@@ -1658,15 +1704,20 @@ def phase_kernels(seed: int = 0):
                     text, ok, err_abs = judge(kern(), plain())
                 else:
                     kern, plain, work, *extra = make(rng)
-                    view, library = (extra + [None, None])[:2]
+                    view, library, twin = (extra + [None] * 3)[:3]
                     outs, refs = kern(), plain()
+                    same = twin is None or all(
+                        torch.equal(a, b) for a, b in zip(_flat([outs]), _flat([twin()]))
+                        if a is not None)
                     if view is not None:
                         outs, refs = view(outs), view(refs)
                     outs, refs = _pairs(name, outs, refs)
                     torch.cuda.synchronize()
                     err_abs, err_rel = compare(f"{name}/{case_name}", outs, refs)
-                    ok = err_rel <= REL_TOL
+                    ok = err_rel <= REL_TOL and same
                     text = f"max_abs_err {err_abs:.3e} max_rel_err {err_rel:.3e} (tol {REL_TOL:g})"
+                    if twin is not None:
+                        text += f" twin {'bit-equal' if same else 'DIFFERS'}"
                     if check == "probs":
                         p_err = float((outs[1] - refs[1]).abs().max())
                         ok = ok and p_err <= PROB_TOL
@@ -1706,7 +1757,7 @@ def phase_kernels(seed: int = 0):
     return results
 
 
-K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5, K8a, K8b, K8d and K8e case: the same bits
+K6_REPEATS = 20  # runs of each K6, K1, K3, K2, K4, K5 and K8 case: the same bits
 
 
 def k6_repeat_check(seed: int = 0):
@@ -1735,9 +1786,11 @@ def k6_repeat_check(seed: int = 0):
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
     maxima, pass N); K8b at the flagship's a2f (the key side's GEMM on its
-    second stream, the int8 projection's ring, the attention's panels); K8d
-    at the flagship's and Breakfast's shapes (its projection's ring, K3's
-    attention and combine)."""
+    second stream, the int8 projection's ring, the attention's panels); K8c
+    at the flagship's shape (the int8 projection's ring, the flash
+    attention's partials and combine); K8d at the flagship's and
+    Breakfast's shapes (its projection's ring, K3's attention and
+    combine)."""
     import torch
 
     def tensors(out):
@@ -1779,6 +1832,8 @@ def k6_repeat_check(seed: int = 0):
              ("k8a_c24", lambda: k8a_case(rng, 3, 600, 24, 10, [600, 517, 90], False)),
              ("k8b_flag", lambda: k8bc_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
                                             zeros, _rand(rng, (1, 40, 256)))),
+             ("k8c_flag", lambda: k8bc_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                            FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)), zeros)),
              ("k8d_flag", lambda: k8d_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                            zeros)),
              ("k8d_bf", lambda: k8d_case(rng, 4, 60, 4096, 512, 512, 8, BF_TRAIN_LENGTHS,
@@ -2024,6 +2079,10 @@ def phase_training(seed: int = 0):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"training kernels not launched in the 5 steps: {missing}")
+    # K1's and K4's SA backwards hash their masks again: no mask replay
+    replayed = [k for k in MASK_KERNELS if k not in TRAIN_KERNELS and counts[k]]
+    if replayed:
+        raise AssertionError(f"mask replays launched in the 5 steps: {replayed}")
     train_paths("train", model, step, batches, gen, f"{B} x {T}")
 
     # kernel path against the plain path, dropout and channel masking off, on

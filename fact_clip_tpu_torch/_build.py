@@ -68,7 +68,7 @@ SIGNATURES = {
     "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_fwd": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_fwd_workspace": [I, I, I, I, P],
-    "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F, P],
+    "fk_sa_bwd": [P, P, I] + [P] * 26 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_bwd": [P] * 10 + [I, I, I, I, F, P],
     "fk_ffn_bwd_workspace": [I, I, I, I, P],
     "fk_k6_pack": [P, P, I, I, I, I, I, P],
@@ -85,11 +85,10 @@ SIGNATURES = {
     "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 9
                          + [P],
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
-    "fk_q8_rows": [P, P, L, I, I, I, I, P, P, P],
     "fk_q8_mha_cross": [P, P, L, I, P, I] + [P] * 6 + [I] * 7 + [P] * 7,
     "fk_x2y_sx_q8_fwd": [P, P, L, I, P, P, L, I, P, I] + [P] * 7 + [I] * 7 + [F] + [P] * 10
                         + [I, P],
-    "fk_proj_attn_q8": [P] * 12 + [I] * 6 + [F] + [P] * 5 + [I, P],
+    "fk_x2y_flash_q8_fwd": [P, P, L, I, P, I] + [P] * 6 + [I] * 6 + [F] + [P] * 8 + [I, P],
 }
 
 

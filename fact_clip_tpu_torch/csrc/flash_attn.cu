@@ -38,183 +38,32 @@
 // block: 1.35 ms at the flagship's shape against 0.64-0.67 for this split
 // (H100 80GB HBM3, 700 W).
 //
-// K8c, the int8 twin (proj_attn_q8_partial_kernel + the same combine),
-// replaces fact_clip_tpu/ops/pallas/quant_conv.py::_x2y_flash_q8_impl
-// (_x2y_flash_kernel_q8): one block per (key tile of BK keys, video)
-// projects its tile inside the block: the frame rows
-// arrive quantized per row (quant.cu's q8_rows_kernel: x + pos for K, x for
-// V, int8 values and each row's absmax), the two projections run on
-// quant.cuh's int8 mma.sync core and dequantize in JAX's order fma(idot *
-// s_row, sw, b) (ops/quant_conv.py) into shared memory, then per query row
-// the logits (keys at or past x_len -1e9, the masked logits streamed out),
-// the tile max m, exp(logit - m) and their sum l, and acc = sum exp(logit -
-// m) V (partial_attend).  The block holds the int8 staging, the (BK, E+1)
-// K/V buffer and the (M, BK) weights: ops/x2y_attn.py::key_tile takes 64
-// keys where that fits in 227 KB, else 32.  K8d, the multi-head SCA twin,
-// projects on the int8 wgmma core and attends through K3's kernels
-// (q8_proj.cu).
+// K8c, the int8 twin, replaces fact_clip_tpu/ops/pallas/quant_conv.py::
+// _x2y_flash_q8_impl (_x2y_flash_kernel_q8) on the same split, one host call
+// (fk_x2y_flash_q8_fwd; ops/quant_conv.py::_x2y_flash_q8_card):
+//   rows      q(x + pos) and q(x) (2, B, X, Cw) int8, zeros past Cx, with
+//             their absmax scales (JAX's per-row quantizer);
+//   kv        [xk | xv] = fma(idot(q(.), qW) * s_row, sw, b) (B, X, 2d) as one
+//             persistent int8 wgmma launch of two problems, zeros past the
+//             attended length: K8d's pair at one head (q8_proj.cu's
+//             fk::q8_rows_kv_proj); the int32 sums are exact, so the rows,
+//             their scales and kv equal the plain version's bit for bit;
+//   partial   and combine as K2's flash forward's above.
+// The q projection yq = (y + y_pos) Wq + bq stays in f32 outside, as in JAX.
+// Bound on the H100: the int8 products, 4 * Xv * Cx * d operations over the
+// valid keys Xv (25 G at the flagship's B=8, X=3072, Cx=d=512: 0.013 ms at
+// 1,979 TOPS), the attention's f32 terms as K2's and the bytes of x, the
+// weights, the logits and probs.  One block per (key tile, video) that
+// projected its own tile on mma.sync re-read both int8 weights in every
+// block and attended on f32 FMA with the whole (BK, d + 1) K/V tile in
+// shared memory: 0.72 ms at the flagship's shape (H100 80GB HBM3, 700 W).
 #include <math.h>
 
 #include "attn_combine.cuh"
 #include "common.cuh"
-#include "quant.cuh"
 #include "sx_attn.cuh"
 
 namespace {
-
-// K8c's tile attention once proj_k / proj_v have written K / V (BK x E) into
-// kv_s (row stride E + 1): per (head, query) row the logits (keys at or past
-// x_len -1e9, past X -inf), the tile max m, exp(logit - m) and their sum l
-// (part_ml), then acc = sum exp(logit - m) V (part_acc).  BK / 32 keys a lane.
-template <int BK, class ProjK, class ProjV>
-__device__ __forceinline__ void partial_attend(ProjK proj_k, ProjV proj_v, float* kv_s,
-                                               float* p_s, const float* __restrict__ q, int b,
-                                               int tile, int n_t, int xl, int X, int M, int H,
-                                               int hd, float scale, float* __restrict__ logits,
-                                               float* __restrict__ part_acc,
-                                               float* __restrict__ part_ml, fk::Dropout drop) {
-  constexpr int KPL = BK / 32;  // keys per lane
-  const int E = H * hd;
-  const int HM = H * M;
-  const int lde = E + 1;  // odd stride: lane j reading row j is conflict-free
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int x0 = tile * BK;
-  const uint32_t seed = drop.load_seed();
-
-  proj_k();
-  for (int hm = ty; hm < HM; hm += fk::kWarps) {
-    const int h = hm / M;
-    const int m = hm - h * M;
-    const float* qr = q + ((size_t)b * M + m) * E + h * hd;
-    float lg[KPL];
-#pragma unroll
-    for (int u = 0; u < KPL; ++u) {
-      const int key = x0 + u * 32 + tx;
-      const float* kr = kv_s + (u * 32 + tx) * lde + h * hd;
-      float dot = 0.f;
-      for (int dd = 0; dd < hd; ++dd) dot = fmaf(__ldg(qr + dd), kr[dd], dot);
-      lg[u] = key < X ? (key < xl ? dot * scale : fk::kMaskedLogit) : -INFINITY;
-      if (logits != nullptr && key < X) logits[((size_t)b * M + m) * X + key] = lg[u];
-    }
-    float lm = lg[0];
-#pragma unroll
-    for (int u = 1; u < KPL; ++u) lm = fmaxf(lm, lg[u]);
-    const float mt = fk::warp_max(lm);
-    float lt = 0.f;
-#pragma unroll
-    for (int u = 0; u < KPL; ++u) {
-      const int key = x0 + u * 32 + tx;
-      const float p = key < X ? expf(lg[u] - mt) : 0.f;
-      lt += p;  // the normaliser sums the undropped weights
-      float pk = p;
-      if (drop.seed != nullptr && key < X)
-        pk *= drop.keep(((uint32_t)b * (uint32_t)HM + (uint32_t)hm) * (uint32_t)X + (uint32_t)key,
-                        seed);
-      p_s[hm * BK + u * 32 + tx] = pk;
-    }
-    lt = fk::warp_sum(lt);
-    if (tx == 0) {
-      float* ml = part_ml + (((size_t)b * n_t + tile) * HM + hm) * 2;
-      ml[0] = mt;
-      ml[1] = lt;
-    }
-  }
-  __syncthreads();  // every row is done with K before V overwrites it
-
-  proj_v();
-  for (int hm = ty; hm < HM; hm += fk::kWarps) {
-    const int h = hm / M;
-    const float* pr = p_s + hm * BK;
-    float* pa = part_acc + (((size_t)b * n_t + tile) * HM + hm) * hd;
-    for (int dd = tx; dd < hd; dd += 32) {
-      const float* vc = kv_s + h * hd + dd;
-      float a = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) a = fmaf(pr[j], vc[j * lde], a);
-      pa[dd] = a;
-    }
-  }
-}
-
-// The int8 twin: qxk / qxv (B, X, Cx) int8 with row absmaxes sxk / sxv (B, X),
-// qwkt / qwvt (E, Cx) int8 with the folded weight scales swk / swv (E,).
-template <int BK>
-__global__ void __launch_bounds__(fk::kThreads)
-proj_attn_q8_partial_kernel(const int8_t* __restrict__ qxk, const float* __restrict__ sxk,
-                            const int8_t* __restrict__ qxv, const float* __restrict__ sxv,
-                            const float* __restrict__ q, const int8_t* __restrict__ qwkt,
-                            const float* __restrict__ swk, const float* __restrict__ bk,
-                            const int8_t* __restrict__ qwvt, const float* __restrict__ swv,
-                            const float* __restrict__ bv, const int* __restrict__ xlen, int X,
-                            int Cx, int M, int H, int hd, float scale,
-                            float* __restrict__ logits, float* __restrict__ part_acc,
-                            float* __restrict__ part_ml) {
-  const int E = H * hd;
-  const int lde = E + 1;
-  extern __shared__ float4 smem_raw[];
-  // the int8 staging sits where the f32 twin keeps its GEMM staging
-  fk::QSmem<BK>& s = *reinterpret_cast<fk::QSmem<BK>*>(smem_raw);
-  float* kv_s = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BK>) / sizeof(float);
-  float* p_s = kv_s + BK * lde;
-
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const int x0 = tile * BK;
-  const int rows = min(BK, X - x0);
-  int acc[BK / 16][4][4];
-
-  // kv_s[r][c] = fma((qx[r] . qwt[c]) * sx[r], sw[c], bias[c])
-  auto project = [&](const int8_t* __restrict__ qx, const float* __restrict__ sx,
-                     const int8_t* __restrict__ qwt, const float* __restrict__ sw,
-                     const float* __restrict__ bias) {
-    const int8_t* qb = qx + ((size_t)b * X + x0) * Cx;
-    const float* sb = sx + (size_t)b * X + x0;
-    auto stage = [&](int8_t (*as)[fk::kQLD], int k0) {
-      fk::q_stage_a_rows<BK>(as, qb, Cx, rows, k0);
-    };
-    for (int n0 = 0; n0 < E; n0 += fk::kBN) {
-      fk::q_gemm_pass<BK>(acc, stage, qwt, Cx, n0, E, s);
-#pragma unroll
-      for (int mt = 0; mt < BK / 16; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = fk::q_row(mt, i);
-            const int c = n0 + fk::q_col(nt, i);
-            if (c >= E) continue;
-            const float sr = r < rows ? sb[r] : 0.f;
-            kv_s[r * lde + c] = __fmaf_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), sr),
-                                          __ldg(sw + c), __ldg(bias + c));
-          }
-    }
-    __syncthreads();
-  };
-  partial_attend<BK>([&] { project(qxk, sxk, qwkt, swk, bk); },
-                     [&] { project(qxv, sxv, qwvt, swv, bv); }, kv_s, p_s, q, b, tile,
-                     gridDim.x, min(xlen[b], X), X, M, H, hd, scale, logits, part_acc, part_ml,
-                     fk::Dropout{nullptr, 0, 0u, 1.f});
-}
-
-template <int BK>
-cudaError_t launch_q8_partial(const int8_t* qxk, const float* sxk, const int8_t* qxv,
-                              const float* sxv, const float* q, const int8_t* qwkt,
-                              const float* swk, const float* bk, const int8_t* qwvt,
-                              const float* swv, const float* bv, const int* xlen, int B, int X,
-                              int Cx, int M, int H, int hd, float scale, float* logits,
-                              float* part_acc, float* part_ml, cudaStream_t stream) {
-  const int E = H * hd;
-  const int n_t = (X + BK - 1) / BK;
-  const size_t smem = sizeof(fk::GemmSmem<BK>) +
-                      ((size_t)BK * (E + 1) + (size_t)H * M * BK) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)proj_attn_q8_partial_kernel<BK>, smem);
-  if (err != cudaSuccess) return err;
-  proj_attn_q8_partial_kernel<BK><<<dim3(n_t, B), fk::kThreads, smem, stream>>>(
-      qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, X, Cx, M, H, hd, scale, logits,
-      part_acc, part_ml);
-  return cudaGetLastError();
-}
 
 constexpr int kFlashKeys = fk::kSxKeys;  // keys per block of K2's flash attention
 constexpr int kFlashDC = 64;             // columns of d per panel of its logits
@@ -397,30 +246,33 @@ cudaError_t launch_flash(dim3 grid, cudaStream_t st, const float* yq, const floa
   return cudaGetLastError();
 }
 
+// the partials of every (group of `rows` query rows, 64-key tile, video) and
+// the combine: logits and probs (B, M, X), attn (B, M, d) from yq (B, M, d)
+// and kv = [xk | xv] (B, X, 2d)
+int flash_attend(const float* yq, const float* kv, const int* xlen, int B, int X, int M, int d,
+                 float scale, float* part_acc, float* part_ml, float* logits, float* probs,
+                 float* attn, int rows, cudaStream_t s) {
+  const int n_t = (X + kFlashKeys - 1) / kFlashKeys;
+  const dim3 grid((M + rows - 1) / rows, n_t, B);
+  decltype(&launch_flash<1>) const launch[8] = {
+      launch_flash<1>, launch_flash<2>, launch_flash<3>, launch_flash<4>,
+      launch_flash<5>, launch_flash<6>, launch_flash<7>, launch_flash<8>};
+  const cudaError_t e = launch[rows / 4 - 1](grid, s, yq, kv, xlen, X, M, d, scale, logits,
+                                             part_acc, part_ml);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, 1, d, attn, logits, probs, X, nullptr,
+                             s);
+}
+
 }  // namespace
 
-// K8c (logits and probs written): the int8 partial kernel, then the combine
-extern "C" int fk_proj_attn_q8(const int8_t* qxk, const float* sxk, const int8_t* qxv,
-                               const float* sxv, const float* q, const int8_t* qwkt,
-                               const float* swk, const float* bk, const int8_t* qwvt,
-                               const float* swv, const float* bv, const int* xlen, int B, int X,
-                               int Cx, int M, int H, int hd, float scale, float* logits,
-                               float* probs, float* out, float* part_acc, float* part_ml,
-                               int key_tile, void* stream) {
-  if ((key_tile != 64 && key_tile != 32) || Cx % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int n_t = (X + key_tile - 1) / key_tile;
-  cudaError_t err =
-      key_tile == 64
-          ? launch_q8_partial<64>(qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, B, X,
-                                  Cx, M, H, hd, scale, logits, part_acc, part_ml,
-                                  (cudaStream_t)stream)
-          : launch_q8_partial<32>(qxk, sxk, qxv, sxv, q, qwkt, swk, bk, qwvt, swv, bv, xlen, B, X,
-                                  Cx, M, H, hd, scale, logits, part_acc, part_ml,
-                                  (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, logits, probs, X, nullptr,
-                             (cudaStream_t)stream);
-}
+namespace fk {
+// q8_proj.cu: K8d's rows and int8 [K | V] projection, here at one head
+int q8_rows_kv_proj(const float* x, const float* pos, long long pos_bstride, int P,
+                    const int8_t* wpack, int Kw, const float* swk, const float* bk,
+                    const float* swv, const float* bv, const int* xlen, int B, int X, int Cx,
+                    int Cw, int E, int8_t* qx, float* sx, float* kv, cudaStream_t st);
+}  // namespace fk
 
 // K2's flash forward, one host call (see the top of this file): x (B, X, Cx)
 // with x_pos (1 or B, X, Px; null for none) on its leading Px channels, the
@@ -460,14 +312,31 @@ extern "C" int fk_x2y_flash_fwd(const float* x, const float* xpos, long long xst
                         2 * d, d, bk, bv, tab, d, xstride ? (long long)X * d : 0, nullptr,
                         nullptr, nullptr, 0, 0u, 1.f, stream)))
     return err;
-  const int n_t = (X + kFlashKeys - 1) / kFlashKeys;
-  const dim3 grid((M + rows - 1) / rows, n_t, B);
-  decltype(&launch_flash<1>) const launch[8] = {
-      launch_flash<1>, launch_flash<2>, launch_flash<3>, launch_flash<4>,
-      launch_flash<5>, launch_flash<6>, launch_flash<7>, launch_flash<8>};
-  const cudaError_t e = launch[rows / 4 - 1](grid, s, yq, kv, xlen, X, M, d, scale, logits,
-                                             part_acc, part_ml);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_combine(part_acc, part_ml, B, n_t, M, 1, d, attn, logits, probs, X, nullptr,
-                             s);
+  return flash_attend(yq, kv, xlen, B, X, M, d, scale, part_acc, part_ml, logits, probs, attn,
+                      rows, s);
+}
+
+// K8c, one host call (see the top of this file): x (B, X, Cx) with x_pos (1
+// or B, X, Px; null for none) on its leading Px channels, the projected
+// queries yq (B, M, d) -> logits and probs (B, M, X), attn (B, M, d).
+// wpack (2d, Kw) int8 [qWk^T ; qWv^T] (zeros past Cx) with the folded
+// scales swk, swv and the biases bk, bv.  Buffers: qx (2, B, X, Cw) int8,
+// sx (2, B, X), kv (B, X, 2d), part_acc (B, n_t, M, d) and part_ml (B, n_t,
+// M, 2) over 64-key tiles; `rows` query rows a block (a multiple of 4 up to
+// 32).
+extern "C" int fk_x2y_flash_q8_fwd(const float* x, const float* xpos, long long xstride, int Px,
+                                   const int8_t* wpack, int Kw, const float* swk,
+                                   const float* bk, const float* swv, const float* bv,
+                                   const float* yq, const int* xlen, int B, int X, int Cx, int Cw,
+                                   int M, int d, float scale, int8_t* qx, float* sx, float* kv,
+                                   float* part_acc, float* part_ml, float* logits, float* probs,
+                                   float* attn, int rows, void* stream) {
+  if (d % 4 || rows % 4 || rows < 4 || rows > 32 || X < 1 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = fk::q8_rows_kv_proj(x, xpos, xstride, Px, wpack, Kw, swk, bk, swv, bv, xlen, B,
+                                      X, Cx, Cw, d, qx, sx, kv, s);
+  if (err) return err;
+  return flash_attend(yq, kv, xlen, B, X, M, d, scale, part_acc, part_ml, logits, probs, attn,
+                      rows, s);
 }

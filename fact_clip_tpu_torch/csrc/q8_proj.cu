@@ -1,6 +1,6 @@
 // K8d's int8 K / V projection, on tc_int8.cuh's int8 wgmma core: the SCA
 // cross-attention with int8 key / value projections, whose attention is
-// K3's (mha_attn.cu's fk_k3_attn).
+// K3's (mha_attn.cu's fk_k3_attn); K8c projects its keys on it too.
 //
 // Replaces, with K3's attention, fact_clip_tpu/ops/pallas/quant_conv.py::
 // mha_cross_attention_q8 (_mha_kernel_q8): per frame row
@@ -34,9 +34,12 @@
 // Int32 sums are exact, so the projection equals the plain version's bit for
 // bit; the attention differs from the plain softmax by summation order.
 //
-// K8b (x2y_attn.cu's fk_x2y_sx_q8_fwd) takes the same two launches for its
-// query side (fk::q8_rows_proj): the rows quantizer in its one-output form,
-// q(y + y_pos), and the projection as one problem over every query row.
+// K8c (flash_attn.cu's fk_x2y_flash_q8_fwd) takes the rows and the
+// projection as they are (fk::q8_rows_kv_proj, at one head: E = d) and
+// feeds K2's flash attention.  K8b (x2y_attn.cu's fk_x2y_sx_q8_fwd) takes
+// the same two launches for its query side (fk::q8_rows_proj): the rows
+// quantizer in its one-output form, q(y + y_pos), and the projection as one
+// problem over every query row.
 //
 // Bound on the H100 (chip_smoke.py::k8d_case): the int8 products, 4 * Xv *
 // Cx * E operations over the valid keys Xv (12.9 G at the flagship's B=8,
@@ -297,31 +300,24 @@ int q8_rows_proj(const float* y, const float* pos, long long pos_bstride, int P,
 
 }  // namespace fk
 
-extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int B, int X, int M,
-                          int H, int hd, float scale, float* part_acc, float* part_ml, float* out,
-                          float* stats, const int* seed, int drop_stream, unsigned thresh,
-                          float drop_scale, void* stream);
+namespace fk {
 
-// K8d: x (B, X, Cx) with its positional term on the leading P channels
-// (batch stride pos_bstride; null for none) and the pre-scaled queries q
-// (B, M, H hd) -> out (B, M, H hd).  wpack (2E, Kw) int8: Wk's out channel
-// n at row n and Wv's at E + n (the quantize_proj weights, zeros past Cx);
-// swk, swv their folded scales, bk, bv the biases.  Buffers: qx (2, B, X,
-// Cw) int8 and sx (2, B, X), q(x + pos) at 0 and q(x) at 1; kv (B, X, 2E);
-// part_acc (B, n_t, H M, hd) and part_ml (B, n_t, H M, 2) over K3's 64-key
-// tiles.
-extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_bstride, int P,
-                               const int8_t* wpack, int Kw, const float* swk, const float* bk,
-                               const float* swv, const float* bv, const float* q,
-                               const int* xlen, int B, int X, int Cx, int Cw, int M, int H,
-                               int hd, int8_t* qx, float* sx, float* kv, float* part_acc,
-                               float* part_ml, float* out, void* stream) {
-  const int E = H * hd;
+// K8d's and K8c's key side: q(x + pos) and q(x) of the B x X rows x (B, X,
+// Cx) (the positional term on the leading P channels, batch stride
+// pos_bstride; null for none) into qx (2, B, X, Cw) int8 (zeros past Cx)
+// and their scales sx (2, B, X), then kv = [K | V] (B, X, 2E): K = fma(idot(
+// q(x + pos), qWk) * s, swk, bk) and V = fma(idot(q(x), qWv) * s, swv, bv),
+// zeros at rows at or past the attended length, as one persistent launch of
+// two problems.  wpack (2E, Kw) int8: Wk's out channel n at row n and Wv's
+// at E + n (the quantize_proj weights, zeros past Cx).
+int q8_rows_kv_proj(const float* x, const float* pos, long long pos_bstride, int P,
+                    const int8_t* wpack, int Kw, const float* swk, const float* bk,
+                    const float* swv, const float* bv, const int* xlen, int B, int X, int Cx,
+                    int Cw, int E, int8_t* qx, float* sx, float* kv, cudaStream_t st) {
   const int kseg = (Cx + 31) / 32 * 32;
   if (Cw < Cx || Cw % 16 != 0 || Cw < tc8::kKB || Kw < kseg || Kw % 16 != 0 ||
       Kw < tc8::kKB || E % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * X;
   const int vec = Cx % 4 == 0 && (pos == nullptr || (P % 4 == 0 && pos_bstride % 4 == 0));
   q8_rows_kv_kernel<true><<<ceil_div(rows, fk::kWarps), fk::kThreads, 0, st>>>(
@@ -350,8 +346,31 @@ extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_b
   a.ncol = ceil_div(E, bn);
   a.nprob = 2;
   a.ldo = 2 * E;
-  err = launch_proj(a, bn, st);
-  if (err != cudaSuccess) return (int)err;
+  return (int)launch_proj(a, bn, st);
+}
+
+}  // namespace fk
+
+extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int B, int X, int M,
+                          int H, int hd, float scale, float* part_acc, float* part_ml, float* out,
+                          float* stats, const int* seed, int drop_stream, unsigned thresh,
+                          float drop_scale, void* stream);
+
+// K8d: x (B, X, Cx) with its positional term on the leading P channels
+// (batch stride pos_bstride; null for none) and the pre-scaled queries q
+// (B, M, H hd) -> out (B, M, H hd).  wpack, swk, bk, swv, bv and the
+// buffers qx (2, B, X, Cw) int8, sx (2, B, X) and kv (B, X, 2E) as
+// fk::q8_rows_kv_proj's; part_acc (B, n_t, H M, hd) and part_ml (B, n_t,
+// H M, 2) over K3's 64-key tiles.
+extern "C" int fk_q8_mha_cross(const float* x, const float* pos, long long pos_bstride, int P,
+                               const int8_t* wpack, int Kw, const float* swk, const float* bk,
+                               const float* swv, const float* bv, const float* q,
+                               const int* xlen, int B, int X, int Cx, int Cw, int M, int H,
+                               int hd, int8_t* qx, float* sx, float* kv, float* part_acc,
+                               float* part_ml, float* out, void* stream) {
+  const int err = fk::q8_rows_kv_proj(x, pos, pos_bstride, P, wpack, Kw, swk, bk, swv, bv, xlen,
+                                      B, X, Cx, Cw, H * hd, qx, sx, kv, (cudaStream_t)stream);
+  if (err) return err;
   return fk_k3_attn(kv, q, xlen, B, X, M, H, hd, 1.f, part_acc, part_ml, out, nullptr, nullptr, 0,
                     0u, 1.f, stream);
 }

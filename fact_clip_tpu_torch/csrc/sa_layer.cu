@@ -32,8 +32,10 @@
 //
 // Backward: replaces ::_sa_bwd (_sa_bwd_kernel) and ::_ffn_bwd
 // (_ffn_bwd_kernel).  Each recomputes its forward from x (and pos) with the
-// masks that dropout.cu regenerated for the call, takes the LayerNorm
-// backward (eps 1e-6) and writes dx:
+// call's masks, takes the LayerNorm backward (eps 1e-6) and writes dx.  The
+// SA backward hashes its two masks inline from the forward's seed, as the
+// forward does (a replayed mask tensor may stand in, for the tests); the
+// FFN backward reads the masks that dropout.cu regenerated for the call:
 //   SA:  dout = dres * keep_o; dc = dout Wo^T; per head dPd = dc_h v_h^T,
 //        dv_h = Pd^T dc_h, dS = P * (dPd * keep_a - D) * scale with the row
 //        term D = dc_h . c_h (= rowsum(P * dPd * keep_a)), dq_h = dS k_h,
@@ -125,6 +127,23 @@ struct Rows {
   }
 };
 
+// A dropout mask as the SA backward reads it, by the element's index over
+// the mask's logical shape: the replayed mask tensor where one is given,
+// else the forward's hash of (seed, stream, index) (SA stream 0 over (B,
+// H*M, M), stream 1 over (B, M, E): the bits of ops/sa_layer.py::
+// sa_dropout_masks), else no dropout.
+struct Keep {
+  const float* mask;
+  fk::Dropout drop;
+  uint32_t seed;  // drop's seed, read once a block
+  __device__ __forceinline__ Keep(const float* m, fk::Dropout d)
+      : mask(m), drop(d), seed(m == nullptr ? d.load_seed() : 0u) {}
+  __device__ __forceinline__ bool on() const { return mask != nullptr || drop.seed != nullptr; }
+  __device__ __forceinline__ float at(size_t i) const {
+    return mask != nullptr ? __ldg(mask + i) : drop.keep((uint32_t)i, seed);
+  }
+};
+
 // Per-row LayerNorm statistics (two-pass mean and 1/sqrt(var + eps)) of M
 // rows of width E, one warp per row, into mean[M], rstd[M].
 __device__ __forceinline__ void ln_stats(const float* base, int M, int E, float eps, float* mean,
@@ -151,14 +170,14 @@ __device__ __forceinline__ void ln_stats(const float* base, int M, int E, float 
 // The LayerNorm backward of M rows: `res` holds the LN input and is
 // overwritten with dres = rstd * (gg - mean(gg) - xhat * mean(gg * xhat)),
 // gg = g * gamma; dgamma = sum_r g * xhat and dbeta = sum_r g go to
-// part[0:E], part[E:2E] (row order).  keep_out != nullptr also writes
-// dout = dres * keep_out.  The caller synchronises first.
+// part[0:E], part[E:2E] (row order).  dout != nullptr also writes dout =
+// dres * keep_out, row r's element c at keep_out's index k0 + r E + c.  The
+// caller synchronises first.
 __device__ __forceinline__ void ln_backward(float* res, const float* __restrict__ g,
                                             const float* __restrict__ gamma, const float* mean,
                                             const float* rstd, int M, int E,
-                                            float* __restrict__ part,
-                                            const float* __restrict__ keep_out,
-                                            float* __restrict__ dout) {
+                                            float* __restrict__ part, const Keep& keep_out,
+                                            size_t k0, float* __restrict__ dout) {
   for (int c = threadIdx.x; c < E; c += fk::kThreads) {
     float sg = 0.f, sb = 0.f;
     for (int r = 0; r < M; ++r) {
@@ -187,7 +206,7 @@ __device__ __forceinline__ void ln_backward(float* res, const float* __restrict_
       const float d = rstd[r] * (__ldg(gr + c) * __ldg(gamma + c) - s1 - xhat * s2);
       row[c] = d;
       if (dout != nullptr)
-        dout[(size_t)r * E + c] = keep_out != nullptr ? d * __ldg(keep_out + (size_t)r * E + c) : d;
+        dout[(size_t)r * E + c] = keep_out.on() ? d * keep_out.at(k0 + (size_t)r * E + c) : d;
     }
   }
 }
@@ -576,12 +595,12 @@ __device__ __forceinline__ void stage_head_async(float* dst, const float* src, i
 //    by one warp and its context c_h = (P * keep) v_h, into c (B, M, E).
 //    q, k and v of video b, token m sit at qkv + b * bstride + m * ld (+ koff,
 //    + voff), head h's columns at + h * hd; K_h and V_h of every key and the
-//    tile's q rows are staged by cp.async.  The backward hands the mask that
-//    dropout.cu regenerated (keep_a) and takes each row's statistics (max,
-//    1 / sum) into stats[b][h][m][0..1]; the forward hashes the keep values
-//    inline (drop: SA stream 0 over (B, H*M, M), the index layout of
-//    ops/sa_layer.py::sa_dropout_masks, so the bits equal the mask kernel's)
-//    and keeps no statistics.
+//    tile's q rows are staged by cp.async.  Both directions hash the keep
+//    values inline (drop: SA stream 0 over (B, H*M, M), the index layout of
+//    ops/sa_layer.py::sa_dropout_masks, so the bits equal the mask
+//    kernel's), or read a replayed mask (keep_a) where one is given; the
+//    backward takes each row's statistics (max, 1 / sum) into
+//    stats[b][h][m][0..1].
 __global__ void __launch_bounds__(fk::kThreads)
 sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int koff, int voff,
                   const float* __restrict__ keep_a, fk::Dropout drop, float* __restrict__ c,
@@ -671,12 +690,12 @@ sa_out_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
 // 3. per (64-row tile, video): res = x + drop_o(c Wo + bo), its LayerNorm
 //    statistics and backward (res is overwritten with dres; dgamma and dbeta
 //    of the tile into part[b * tiles + tile]), dout = dres * keep_o, and
-//    dc = dout Wo^T
+//    dc = dout Wo^T; keep_o the replayed mask or hashed (drop_o)
 __global__ void __launch_bounds__(fk::kThreads)
 sa_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
                  const float* __restrict__ wo, const float* __restrict__ bo,
                  const float* __restrict__ wot, const float* __restrict__ gamma,
-                 const float* __restrict__ keep_o, const float* __restrict__ g,
+                 const float* __restrict__ keep_o, fk::Dropout drop_o, const float* __restrict__ g,
                  float* __restrict__ res, float* __restrict__ dout, float* __restrict__ dc,
                  float* __restrict__ part, int M, int E, float eps) {
   extern __shared__ float4 smem_raw[];
@@ -690,22 +709,21 @@ sa_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const size_t off = (size_t)b * M * E;
   const size_t t0 = (size_t)r0 * E;
   const float* xb = x + off;
-  const float* ko = keep_o != nullptr ? keep_o + off : nullptr;
+  const Keep ko(keep_o, drop_o);
   float* rb = res + off;
   float* db = dout + off;
   rows_gemm(Rows{c + off, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
             [&](int r, int col, float v) {
               const size_t e = (size_t)r * E + col;
               v += __ldg(bo + col);
-              if (ko != nullptr) v *= __ldg(ko + e);
+              if (ko.on()) v *= ko.at(off + e);
               rb[e] = v + __ldg(xb + e);
             }, s);
   __syncthreads();
   ln_stats(rb + t0, rows, E, eps, mean, rstd);
   __syncthreads();
   ln_backward(rb + t0, g + off + t0, gamma, mean, rstd, rows, E,
-              part + ((size_t)b * gridDim.x + tile) * 2 * E, ko != nullptr ? ko + t0 : nullptr,
-              db + t0);
+              part + ((size_t)b * gridDim.x + tile) * 2 * E, ko, off + t0, db + t0);
   __syncthreads();
   rows_gemm(Rows{db, nullptr, 0, r0, M, E}, wot, E, E, r0, M,
             [&](int r, int col, float v) { dc[off + (size_t)r * E + col] = v; }, s);
@@ -715,11 +733,13 @@ sa_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
 //    D = dc_h[m] . c_h[m] (= sum_j p_mj dp_mj, also under the attention
 //    dropout) into stats[b][h][m][2]; dS_mj = p_mj (dPd_mj keep_mj - D)
 //    scale with p recomputed from the saved statistics and dPd = dc_h v_h^T;
-//    dq_h[m] = dS_m k_h into the first E columns of dqk
+//    dq_h[m] = dS_m k_h into the first E columns of dqk; keep_a the replayed
+//    mask or hashed (drop_a)
 __global__ void __launch_bounds__(fk::kThreads)
 sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
                  const float* __restrict__ dc, const float* __restrict__ keep_a,
-                 float* __restrict__ stats, float* __restrict__ dqk, int M, int E, int H) {
+                 fk::Dropout drop_a, float* __restrict__ stats, float* __restrict__ dqk, int M,
+                 int E, int H) {
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
@@ -740,6 +760,7 @@ sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
   stage_head(vs, qb + 2 * ME, 0, M, M, E, h, hd);
   stage_head(qs, qb, m0, QT, M, E, h, hd);
   stage_head(dcs, dc + (size_t)b * ME, m0, QT, M, E, h, hd);
+  const Keep ka(keep_a, drop_a);
   __syncthreads();
   for (int r = ty; r < min(QT, M - m0); r += fk::kWarps) {
     const int m = m0 + r;
@@ -755,7 +776,7 @@ sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
     for (int j = tx; j < M; j += 32) {
       const float p = expf(dot_h(qr, ks + j * ldh, hd) * scale - mx) * inv;
       float dp = dot_h(dr, vs + j * ldh, hd);
-      if (keep_a != nullptr) dp *= __ldg(keep_a + row * M + j);
+      if (ka.on()) dp *= ka.at(row * M + j);
       pw[j] = p * (dp - D) * scale;
     }
     __syncwarp();
@@ -773,11 +794,14 @@ sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
 //    walks every query row i, lanes over the head's dimensions (NT per
 //    lane): p_ij and dS_ij recomputed from the saved statistics and D, then
 //    dv_h[j] += (p_ij keep_ij) dc_h[i] and dk_h[j] += dS_ij q_h[i] in
-//    registers, in row order; dk_h into the last E columns of dqk, dv_h into dv
+//    registers, in row order; dk_h into the last E columns of dqk, dv_h into
+//    dv; keep_a the replayed mask or hashed (drop_a), each lane reading or
+//    hashing one of the warp's 4 keys x 8 rows and shuffling it to the others
 template <int NT>
 __global__ void __launch_bounds__(fk::kThreads)
 sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
-                  const float* __restrict__ keep_a, const float* __restrict__ stats,
+                  const float* __restrict__ keep_a, fk::Dropout drop_a,
+                  const float* __restrict__ stats,
                   float* __restrict__ dqk, float* __restrict__ dv, int M, int E, int H) {
   constexpr int KW = QT / fk::kWarps;  // keys per warp
   extern __shared__ float4 smem_raw[];
@@ -802,6 +826,7 @@ sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
   stage_head(kt, qb + ME, j0, QT, M, E, h, hd);
   stage_head(vt, qb + 2 * ME, j0, QT, M, E, h, hd);
   for (int i = threadIdx.x; i < 3 * M; i += fk::kThreads) st[i] = stats[row0 * 3 + i];
+  const Keep ka(keep_a, drop_a);
   __syncthreads();
 
   float kr[KW][NT], vr[KW][NT], ak[KW][NT], av[KW][NT];
@@ -816,7 +841,13 @@ sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
       ak[u][t] = av[u][t] = 0.f;
     }
   const int jw = j0 + ty * KW;  // the warp's first key
+  constexpr int KR = 32 / KW;   // query rows whose keep values the warp's lanes hold at once
+  float kl = 1.f;  // lane tx's keep value of (row i - i % KR + tx / KW, key jw + tx % KW)
   for (int i = 0; i < M; ++i) {
+    if (ka.on() && i % KR == 0) {  // warp-uniform: one load or hash a lane for KR rows
+      const int il = i + tx / KW, j = jw + tx % KW;
+      kl = il < M && j < M ? ka.at((row0 + il) * M + j) : 1.f;
+    }
     float qd[NT], dd[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
@@ -837,11 +868,10 @@ sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
       dp[u] = fk::warp_sum(e);
     }
     const float mx = st[3 * i], inv = st[3 * i + 1], D = st[3 * i + 2];
-    const float* kp = keep_a != nullptr ? keep_a + (row0 + i) * M + jw : nullptr;
 #pragma unroll
     for (int u = 0; u < KW; ++u) {
       const float p = expf(sp[u] * scale - mx) * inv;
-      const float keep = kp != nullptr && jw + u < M ? __ldg(kp + u) : 1.f;
+      const float keep = ka.on() ? __shfl_sync(0xffffffffu, kl, (i % KR) * KW + u) : 1.f;
       const float pd = p * keep;
       const float ds = p * (dp[u] * keep - D) * scale;
 #pragma unroll
@@ -937,10 +967,14 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
                          const float* keep_a, const float* keep_o, const float* g, float* qkv,
                          float* c, float* res, float* dout, float* dc, float* stats, float* dqk,
                          float* dv, float* dxa, float* dx, float* part, int B, int M, int E,
-                         int H, float eps, void* stream) {
+                         int H, float eps, const int* seed_a, int stream_a, unsigned thresh_a,
+                         float scale_a, const int* seed_o, int stream_o, unsigned thresh_o,
+                         float scale_o, void* stream) {
   const int hd = E / H;
   if (hd > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const fk::Dropout drop_a{seed_a, stream_a, thresh_a, scale_a};
+  const fk::Dropout drop_o{seed_o, stream_o, thresh_o, scale_o};
   const dim3 rows((M + BM - 1) / BM, B);
   const dim3 attn((M + QT - 1) / QT, H, B);
   const size_t gsm = sizeof(fk::GemmSmem<BM>);
@@ -961,18 +995,20 @@ extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* 
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long ME = (long long)M * E;
   sa_context_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, 3 * ME, E, (int)ME, (int)(2 * ME),
-                                                     keep_a, fk::Dropout{nullptr, 0, 0u, 1.f}, c,
-                                                     stats, M, E, H);
+                                                     keep_a, drop_a, c, stats, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sa_bwd_ln_kernel<<<rows, fk::kThreads, gsm + 2 * BM * sizeof(float), st>>>(
-      x, c, wo, bo, wot, gamma, keep_o, g, res, dout, dc, part, M, E, eps);
+      x, c, wo, bo, wot, gamma, keep_o, drop_o, g, res, dout, dc, part, M, E, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sa_bwd_dq_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, c, dc, keep_a, stats, dqk, M, E, H);
+  sa_bwd_dq_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, c, dc, keep_a, drop_a, stats, dqk, M, E,
+                                                    H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (hd <= 32)
-    sa_bwd_dkv_kernel<1><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, stats, dqk, dv, M, E, H);
+    sa_bwd_dkv_kernel<1><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, drop_a, stats, dqk, dv,
+                                                          M, E, H);
   else
-    sa_bwd_dkv_kernel<2><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, stats, dqk, dv, M, E, H);
+    sa_bwd_dkv_kernel<2><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, drop_a, stats, dqk, dv,
+                                                          M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sa_bwd_dx_kernel<<<rows, fk::kThreads, gsm, st>>>(dqk, dv, res, wqkt, wvt, dxa, dx, M, E);
   return (int)cudaGetLastError();

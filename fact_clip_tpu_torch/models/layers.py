@@ -49,8 +49,8 @@ from ..ops.mha_attn import k3_pack, mha_cross_attention
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
                               mstcn2_stack_q8_reference, mstcn_stack_q8,
-                              mstcn_stack_q8_reference, quantize_kv, quantize_proj, quantize_tower,
-                              quantize_tower2, x2y_attention_q8, x2y_attention_q8_reference)
+                              mstcn_stack_q8_reference, quantize_kv, quantize_tower, quantize_tower2,
+                              quantize_x2y, x2y_attention_q8, x2y_attention_q8_reference)
 from ..ops.sa_layer import ffn_sublayer, sa_sublayer
 from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
 
@@ -450,7 +450,7 @@ class X2YMap(nn.Module, KernelLayout):
         if self.quantize == "int8" and not self.training:
             # K8b / K8c: int8 projection over the frame axis (layers.py:762-765)
             layout = self.layout()
-            qw = self.cached("q8", lambda: tuple(quantize_proj(w) for w in layout[0:6:2]))
+            qw = self.cached("q8", lambda: quantize_x2y(*layout[0:6:2]))
             fn = x2y_attention_q8 if self.use_kernel else x2y_attention_q8_reference
             attn, probs, logits = fn(y.contiguous(), y_pos, x.contiguous(), x_pos, *layout, x_len,
                                      qw)

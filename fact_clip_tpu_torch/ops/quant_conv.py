@@ -15,9 +15,11 @@ versions:
 * K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) -> one library
   call, ``csrc/x2y_attn.cu::fk_x2y_sx_q8_fwd``: K2's small-X split with the
   q projection on the int8 ``wgmma`` core of ``csrc/q8_proj.cu``;
-* K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> ``csrc/flash_attn.cu``'s
-  int8 twin; ``x2y_attention_q8`` picks K8b or K8c at JAX's threshold
-  (X > 1024, :639);
+* K8c ``x2y_flash_q8``: ``_x2y_flash_q8_impl`` (:519) -> one library call,
+  ``csrc/flash_attn.cu::fk_x2y_flash_q8_fwd``: K8d's row quantizer and int8
+  [xk | xv] projection at one head (``csrc/q8_proj.cu``) feeding K2's flash
+  attention; ``x2y_attention_q8`` picks K8b or K8c at JAX's threshold (X >
+  1024, :639);
 * K8d ``mha_cross_q8``: ``mha_cross_attention_q8`` (:715) -> the int8 K / V
   projection of ``csrc/q8_proj.cu``, then K3's attention
   (``csrc/mha_attn.cu``).
@@ -39,7 +41,7 @@ and the LayerNorm's ``* g + beta``) into one fused multiply-add: the plain
 versions take that FMA (``_fma``) and the kernels write it (``__fmaf_rn``),
 every other step rounded on its own (K8e's fuse: fma(h1, s1 * swt, h2 * (s2
 * swb)), the bias added after).  The entries take their weights quantized
-(``quantize_tower`` / ``quantize_tower2`` / ``quantize_proj`` /
+(``quantize_tower`` / ``quantize_tower2`` / ``quantize_x2y`` /
 ``quantize_kv``, which a module caches), launch the kernel on CUDA tensors
 and run the plain version on CPU tensors, count their launches, and refuse
 inputs that want a gradient: JAX's int8 path is never differentiated.
@@ -56,7 +58,7 @@ import torch
 from .. import _build
 from .mha_attn import FWD_KEY_TILE, _check_strides, attn_smem, has_forward
 from .pos import add_pos, kernel_pos
-from .x2y_attn import FLASH_MIN_KEYS, _offsets, _view, key_tile, sx_rows, sx_smem
+from .x2y_attn import FLASH_MIN_KEYS, _offsets, _view, flash_rows, sx_rows, sx_smem
 
 _NEG = -1e9
 
@@ -550,9 +552,10 @@ mstcn2_stack_q8.launches = 0
 def x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
                                qweights=None):
     """Plain PyTorch version of ``x2y_attention_q8`` (both forms): returns
-    (attn, probs, logits) as ``x2y_attention`` does.  ``qweights`` are the
-    ``quantize_proj`` of (wk, wv, wq), quantized here when None."""
-    qk, qv, qq = qweights or (quantize_proj(wk), quantize_proj(wv), quantize_proj(wq))
+    (attn, probs, logits) as ``x2y_attention`` does.  ``qweights``: the
+    ``quantize_proj`` of (wk, wv, wq) first (``quantize_x2y``'s), quantized
+    here when None."""
+    qk, qv, qq = (qweights or (quantize_proj(wk), quantize_proj(wv), quantize_proj(wq)))[:3]
     X, d = x_in.shape[1], wq.shape[1]
     if X >= FLASH_MIN_KEYS:  # the frames are the keys: int8 K/V projections
         yq = add_pos(y_in, y_pos) @ wq + bq
@@ -569,33 +572,34 @@ def x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
     return probs @ xv, probs, logits
 
 
-def _rows_q8(x, pos):
-    """csrc/quant.cu's row quantizer on (x + pos): (int8 (B, N, C), (B, N) scales)."""
-    B, N, C = x.shape
-    p, p_stride, P = kernel_pos(pos, B, N, C)
-    _build.check_tensors("fk_q8_rows", [x, p], x.device)
-    q = torch.empty((B, N, C), device=x.device, dtype=torch.int8)
-    s = torch.empty((B, N), device=x.device, dtype=torch.float32)
-    _build.check("fk_q8_rows", _build.lib().fk_q8_rows(
-        x.data_ptr(), p.data_ptr() if p is not None else None, p_stride, P, B, N, C,
-        q.data_ptr(), s.data_ptr(), _build.stream_ptr(x.device)))
-    return q, s
+class QX2Y(NamedTuple):
+    """K8b's and K8c's weights: the ``quantize_proj`` of Wk, Wv and Wq, which
+    the plain version reads, and [qWk^T ; qWv^T] in K8c's layout
+    (``k8d_layout(Cx)``): kvpack (2d, Kw) int8, Wk's out channel n at row n
+    and Wv's at d + n, zeros past Cx."""
+
+    qk: QWeight
+    qv: QWeight
+    qq: QWeight
+    kvpack: torch.Tensor
 
 
-def _x2y_prologue(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, qweights):
+def quantize_x2y(wk, wv, wq) -> QX2Y:
+    """The X2Y layer's int8 weights, made once while the layer serves."""
+    kv = quantize_kv(wk, wv)
+    return QX2Y(kv.qk, kv.qv, quantize_proj(wq), kv.pack)
+
+
+def _x2y_shapes(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len):
     _build.no_grad_inputs(name, [y_in, x_in, wk, bk, wv, bv, wq, bq])
-    B, Y, Cy = y_in.shape
-    _, X, Cx = x_in.shape
+    B, _, Cy = y_in.shape
+    Cx = x_in.shape[2]
     d = wq.shape[1]
     if (x_in.shape[0] != B or wk.shape != (Cx, d) or wv.shape != (Cx, d) or wq.shape != (Cy, d)
             or bk.shape != (d,) or bv.shape != (d,) or bq.shape != (d,)):
         raise ValueError(f"{name}: inconsistent shapes")
     if x_len.dtype != torch.int32 or x_len.shape != (B,):
         raise ValueError(f"{name}: x_len must be (B,) int32")
-    qw = qweights or (quantize_proj(wk), quantize_proj(wv), quantize_proj(wq))
-    _build.check_tensors(name, [y_in, x_in, bk, bv, bq, x_len, *[t for w in qw for t in w]],
-                         x_in.device)
-    return qw
 
 
 def x2y_small_x_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
@@ -643,16 +647,11 @@ def _x2y_sx_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qwe
     quantized rows "qy" (B, Y, Cw), their scales "sy" (B, Y), "yq" (B, Y, d)
     and "kv" (B, X, 2d), views of the workspace."""
     name = "x2y_small_x_q8"
-    _build.no_grad_inputs(name, [y_in, x_in, wk, bk, wv, bv, wq, bq])
+    _x2y_shapes(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len)
     y_in, x_in = y_in.contiguous(), x_in.contiguous()
     B, Y, Cy = y_in.shape
     X, Cx = x_in.shape[1], x_in.shape[2]
     d = wq.shape[1]
-    if (x_in.shape[0] != B or wk.shape != (Cx, d) or wv.shape != (Cx, d) or wq.shape != (Cy, d)
-            or bk.shape != (d,) or bv.shape != (d,) or bq.shape != (d,)):
-        raise ValueError(f"{name}: inconsistent shapes")
-    if x_len.dtype != torch.int32 or x_len.shape != (B,):
-        raise ValueError(f"{name}: x_len must be (B,) int32")
     qq = quantize_proj(wq) if qweights is None else qweights[2]
     ypos, ystride, Py = kernel_pos(y_pos, B, Y, Cy)
     xpos, xstride, Px = kernel_pos(x_pos, B, X, Cx)
@@ -686,54 +685,75 @@ def _x2y_sx_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qwe
 x2y_small_x_q8.launches = 0
 
 
-def _proj_attn_q8(x_in, x_pos, q, qk: QWeight, bk, qv: QWeight, bv, x_len, *, num_heads: int,
-                  scale: float, out, logits=None, probs=None):
-    """csrc/flash_attn.cu's int8 twin: the frame rows quantized (x + pos for
-    K, x for V), then the int8 partial kernel and the combine."""
-    B, X, Cx = x_in.shape
-    M, E = q.shape[1], q.shape[2]
-    H = num_heads
-    if Cx % 16:
-        raise NotImplementedError(f"fk_proj_attn_q8: Cx={Cx} is not a multiple of 16")
-    tile = key_tile(M, E, H)
-    if tile is None:
-        raise NotImplementedError(f"fk_proj_attn_q8: no key tile fits in shared memory at M={M}, "
-                                  f"E={E}, H={H}")
-    qxk, sxk = _rows_q8(x_in, x_pos)
-    qxv, sxv = _rows_q8(x_in, None)
-    _build.check_tensors("fk_proj_attn_q8", [q, out, logits, probs], x_in.device)
-    n_t = -(-X // tile)
-    part_acc = torch.empty((B, n_t, H * M, E // H), device=x_in.device, dtype=torch.float32)
-    part_ml = torch.empty((B, n_t, H * M, 2), device=x_in.device, dtype=torch.float32)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    _build.check("fk_proj_attn_q8", _build.lib().fk_proj_attn_q8(
-        qxk.data_ptr(), sxk.data_ptr(), qxv.data_ptr(), sxv.data_ptr(), q.data_ptr(),
-        qk.qt.data_ptr(), qk.s.data_ptr(), bk.data_ptr(), qv.qt.data_ptr(), qv.s.data_ptr(),
-        bv.data_ptr(), x_len.data_ptr(), B, X, Cx, M, H, E // H, scale, ptr(logits), ptr(probs),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tile,
-        _build.stream_ptr(x_in.device)))
-
-
 def x2y_flash_q8(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None):
     """K8c: the frames are the keys (X > 1024).  The q projection over the
-    token axis stays f32 and outside, as in JAX."""
+    token axis stays f32 and outside the TPU kernel, as in JAX; the key /
+    value projections of every frame run on the int8 tensor cores."""
     if x_in.device.type == "cpu":
         _build.no_grad_inputs("x2y_flash_q8", [y_in, x_in, wk, bk, wv, bv, wq, bq])
         return x2y_attention_q8_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq,
                                           x_len, qweights)
-    y_in, x_in = y_in.contiguous(), x_in.contiguous()
-    qk, qv, _ = _x2y_prologue("x2y_flash_q8", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
-                              qweights)
-    B, M, _ = y_in.shape
-    X, d = x_in.shape[1], wq.shape[1]
-    yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()
-    f32 = dict(device=x_in.device, dtype=torch.float32)
-    logits = torch.empty((B, M, X), **f32)
-    probs = torch.empty_like(logits)
-    attn = torch.empty((B, M, d), **f32)
-    _proj_attn_q8(x_in, x_pos, yq, qk, bk, qv, bv, x_len, num_heads=1,
-                  scale=1.0 / math.sqrt(d), out=attn, logits=logits, probs=probs)
+    out = _x2y_flash_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights)
     x2y_flash_q8.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _flash_q8_plan(B: int, M: int, X: int, Cx: int, d: int):
+    """K8c's limits and layout at one shape, before any launch: the
+    attention reads 16-byte rows of yq and [xk | xv] (d a multiple of 4);
+    any Cx (the rows and the pack padded to ``k8d_layout(Cx)``).  Returns
+    K8d's buffers at one head ({name: (offset, shape, dtype)}, bytes), the
+    layout and the query rows a block: asked once a shape, so that a call's
+    host time stays small."""
+    if d % 4:
+        raise NotImplementedError(f"x2y_flash_q8: no kernel for d={d} (a multiple of 4)")
+    lay = k8d_layout(Cx)
+    bufs, nbytes = _k8d_buffers(B, X, lay.Cw, M, d, 1)
+    return bufs, nbytes, lay, flash_rows(M)
+
+
+def _x2y_flash_q8_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, qweights=None,
+                       inspect=None):
+    """``x2y_flash_q8``'s one library call (``csrc/flash_attn.cu::
+    fk_x2y_flash_q8_fwd``; CPU tensors reach it only in the tests, against a
+    model of the library): the frame rows quantized (q(x + x_pos), q(x)),
+    [xk | xv] on the int8 core, then the attention partials per (group of
+    query rows, 64-key tile, video) and the combine, into one workspace.
+    ``qweights``: ``quantize_x2y``'s, made here when None.  ``inspect``
+    (a dict) receives the quantized rows "qx" (2, B, X, Cw), their scales
+    "sx" (2, B, X) and "kv" (B, X, 2d), views of the workspace."""
+    name = "x2y_flash_q8"
+    _x2y_shapes(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len)
+    x_in = x_in.contiguous()
+    B, M, _ = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    bufs, nbytes, lay, rows = _flash_q8_plan(B, M, X, Cx, d)
+    qw = quantize_x2y(wk, wv, wq) if qweights is None else qweights
+    if qw.kvpack.shape != (2 * d, lay.Kw):
+        raise ValueError(f"{name}: pack not in k8d_layout(Cx); use quantize_x2y")
+    pos, p_stride, P = kernel_pos(x_pos, B, X, Cx)
+    yq = (add_pos(y_in, y_pos) @ wq + bq).contiguous()  # f32, outside, as in JAX
+    _build.check_tensors(name, [x_in, pos, qw.kvpack, qw.qk.s, bk, qw.qv.s, bv, yq, x_len],
+                         x_in.device)
+    ws = torch.empty(nbytes, device=x_in.device, dtype=torch.uint8)
+    at = {k: ws.data_ptr() + off for k, (off, _, _) in bufs.items()}
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    attn = torch.empty((B, M, d), **f32)
+    probs = torch.empty((B, M, X), **f32)
+    logits = torch.empty((B, M, X), **f32)
+    _build.check(name, _build.lib().fk_x2y_flash_q8_fwd(
+        x_in.data_ptr(), pos.data_ptr() if pos is not None else None, p_stride, P,
+        qw.kvpack.data_ptr(), lay.Kw, qw.qk.s.data_ptr(), bk.data_ptr(), qw.qv.s.data_ptr(),
+        bv.data_ptr(), yq.data_ptr(), x_len.data_ptr(), B, X, Cx, lay.Cw, M, d,
+        1.0 / math.sqrt(d), at["qx"], at["sx"], at["kv"], at["part_acc"], at["part_ml"],
+        logits.data_ptr(), probs.data_ptr(), attn.data_ptr(), rows,
+        _build.stream_ptr(x_in.device)))
+    if inspect is not None:
+        for k in ("qx", "sx", "kv"):
+            off, shape, dtype = bufs[k]
+            inspect[k] = ws[off:off + math.prod(shape) * dtype.itemsize].view(dtype).view(shape)
     return attn, probs, logits
 
 

@@ -89,7 +89,9 @@ def _masks(fn, seed, shapes_rates):
 
 def sa_dropout_masks(seed, B: int, M: int, E: int, H: int, rate_attn: float, rate: float):
     """(keep_attn (B, H*M, M), keep_out (B, M, E)) of an SA call, as its
-    forward kernel draws them (replaces ``sa_layer.py::sa_dropout_masks``)."""
+    forward kernel draws them (replaces ``sa_layer.py::sa_dropout_masks``).
+    The backward's kernels hash the same bits, so the training path on the
+    card makes no such mask; the CPU's plain backward takes it."""
     return _masks(sa_dropout_masks, seed, [((B, H * M, M), rate_attn), ((B, M, E), rate)])
 
 
@@ -255,18 +257,45 @@ def has_backward(M: int, E: int, num_heads: int) -> bool:
 
 
 def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
-                    num_heads: int, eps: float = LN_EPS, keep_attn=None, keep_out=None):
-    """The SA backward on the card (CUDA tensors) or its plain version (CPU)."""
+                    num_heads: int, eps: float = LN_EPS, keep_attn=None, keep_out=None,
+                    seed=None, rate_attn: float = 0.0, rate: float = 0.0):
+    """The SA backward on the card (CUDA tensors) or its plain version (CPU).
+    Its dropout: the forward's, from ``seed`` at ``rate_attn`` and ``rate``
+    (the card's kernels hash the keep values inline, the plain version takes
+    ``sa_dropout_masks``), or, where given, the replayed masks ``keep_attn``
+    and ``keep_out`` (then ``seed`` is not read)."""
     weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    B, M, E = x.shape
+    hashed = keep_attn is None and keep_out is None and (rate_attn > 0.0 or rate > 0.0)
+    if hashed:
+        check_seed("sa_sublayer_bwd", seed, x.device)
     if x.device.type == "cpu":
+        if hashed:
+            keep_attn, keep_out = sa_dropout_masks(seed, B, M, E, num_heads, rate_attn, rate)
         return sa_sublayer_bwd_reference(x, pos, *weights, g, num_heads=num_heads, eps=eps,
                                          keep_attn=keep_attn, keep_out=keep_out)
+    grads = _sa_bwd_card(x, pos, *weights, g, num_heads, eps, keep_attn, keep_out,
+                         seed if hashed else None, rate_attn, rate)
+    sa_sublayer_bwd.launches += 1
+    return grads
+
+
+def _sa_bwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, num_heads, eps,
+                 keep_attn, keep_out, seed, rate_attn, rate):
+    """``sa_sublayer_bwd``'s launches (CPU tensors reach it only in the
+    tests, which stand a model of the kernels' C interface in for the
+    library): the six kernels of ``fk_sa_bwd``, the keep values read from
+    ``keep_attn`` / ``keep_out`` where given, else hashed from ``seed``
+    (None: no dropout), then the weight products and the fixed-order sums."""
+    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
     B, M, E = x.shape
     pos_t, Pp = _check_sa("sa_sublayer_bwd", x, pos, *weights, num_heads)
     if not has_backward(M, E, num_heads):
         raise NotImplementedError(f"sa_sublayer_bwd: no backward kernel for M={M}, E={E}")
     g = g.contiguous()
     _build.check_tensors("sa_sublayer_bwd", [g, keep_attn, keep_out], x.device)
+    drops = ((*dropout_args(seed, 0, rate_attn), *dropout_args(seed, 1, rate)) if seed is not None
+             else (None, 0, 0, 1.0) * 2)
     f32 = dict(device=x.device, dtype=torch.float32)
     wot = wo.t().contiguous()
     wqkt = torch.cat([wq.t(), wk.t()], dim=0).contiguous()
@@ -282,7 +311,7 @@ def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g
         wot.data_ptr(), wqkt.data_ptr(), wvt.data_ptr(), _ptr(keep_attn), _ptr(keep_out),
         g.data_ptr(), qkv.data_ptr(), c.data_ptr(), dres.data_ptr(), dout.data_ptr(),
         dc.data_ptr(), stats.data_ptr(), dqk.data_ptr(), dv.data_ptr(), dxa.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), B, M, E, num_heads, float(eps),
+        dx.data_ptr(), part.data_ptr(), B, M, E, num_heads, float(eps), *drops,
         _build.stream_ptr(x.device))
     _build.check("fk_sa_bwd", err)
     # partial products, column sums and the per-tile LN sums, summed in a fixed order
@@ -292,7 +321,6 @@ def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g
     dbq, dbk = _grad.col_sums(dqk).split(E)
     dgamma, dbeta = _grad.block_sums(part, 2, E)
     dpos = _grad.batch_sum(dxa, Pp).view(pos.shape) if pos is not None else None
-    sa_sublayer_bwd.launches += 1
     return (dx, dpos, dwqk[:, :E], dbq, dwqk[:, E:], dbk, dwv, _grad.col_sums(dv), dwo,
             _grad.col_sums(dout), dgamma, dbeta)
 
@@ -314,12 +342,9 @@ class _SA(torch.autograd.Function):
     def backward(ctx, g):
         num_heads, eps, rate_attn, rate = ctx.cfg
         x, pos, seed, *weights = ctx.saved_tensors
-        B, M, E = x.shape
-        # the call's keep masks, regenerated by the mask kernel (never stored)
-        keep_attn, keep_out = (sa_dropout_masks(seed, B, M, E, num_heads, rate_attn, rate)
-                               if seed is not None else (None, None))
+        # the call's keep masks, hashed again from the forward's seed (never stored)
         dx, dpos, *dw = sa_sublayer_bwd(x, pos, *weights, g.contiguous(), num_heads=num_heads,
-                                        eps=eps, keep_attn=keep_attn, keep_out=keep_out)
+                                        eps=eps, seed=seed, rate_attn=rate_attn, rate=rate)
         return (dx, dpos, None, None, *dw)
 
 

@@ -51,7 +51,6 @@ from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
 FLASH_MIN_KEYS = 1025  # X > 1024 takes the flash form (x2y_attn.py:704-708)
-KEY_TILES = (64, 32)  # keys per block of K8c's partial kernel (its BK), the largest that fits
 FLASH_ROW_GROUP = 32  # query rows at most per block of the flash forward's attention
 # keys per block of the flash attention kernels, both directions
 # (csrc/flash_attn.cu kFlashKeys, csrc/x2y_bwd.cu kFT)
@@ -305,16 +304,6 @@ def _x2y_flash_fwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
     if inspect is not None:
         inspect["kv"] = _view(work, w["kv"], (B, X, 2 * d))
     return attn, probs, logits
-
-
-def key_tile(M: int, E: int, num_heads: int):
-    """The key tile of csrc/flash_attn.cu's int8 partial kernel (K8c): the
-    largest of ``KEY_TILES`` whose block (the staging, the (BK, E+1) K/V
-    buffer, the (H*M, BK) weights) fits in shared memory, or None."""
-    for bk in KEY_TILES:
-        if _build.gemm_smem(bk) + 4 * (bk * (E + 1) + num_heads * M * bk) <= _build.MAX_SMEM:
-            return bk
-    return None
 
 
 # ---------------------------------------------------------------------------

@@ -95,12 +95,13 @@ def test_breakfast_shapes_and_null_weight():
 
 def test_shared_memory_fits_at_breakfast_widths():
     # K3 at E=512, H=8, M=60: per-head blocks, 64-key tiles forward and
-    # backward (K8d, the int8 twin on flash_attn.cu, takes 32-key tiles)
+    # backward; K2's flash forward and its int8 twin K8c stream panels at any
+    # M and d, Breakfast's 60 query rows in one group of 32 rows a block
     assert mha_attn.has_forward(60, 512, 8) and mha_attn.has_backward(60, 512, 8)
-    assert x2y_attn.key_tile(60, 512, 8) == 32 and mha_attn.bwd_key_tile(60, 512, 8) == 64
-    # the flagship's K3 and K2's flash form keep their 64-key tiles
-    assert x2y_attn.key_tile(40, 256, 8) == 64 and mha_attn.bwd_key_tile(40, 256, 8) == 64
-    assert x2y_attn.key_tile(60, 512, 1) == 64
+    assert mha_attn.bwd_key_tile(60, 512, 8) == 64 and x2y_attn.flash_rows(60) == 32
+    # the flagship's K3 keeps its 64-key tiles; its 40 query rows in two groups of 20
+    assert mha_attn.bwd_key_tile(40, 256, 8) == 64 and x2y_attn.flash_rows(40) == 20
+    assert x2y_attn.FLASH_KEY_TILE == 64
     assert x2y_attn.has_backward(60, 4096, 512) and x2y_attn.has_backward(4096, 60, 512)
     # K6 at C=512, and K1 (on the same GEMM) at the flagship's 256 / O=512
     # and gtea's 128.  The tensor-core kernels hold 128 x 128 tiles whatever

@@ -66,6 +66,13 @@ class FakeK2FlashLib(FakeK2SxLib):
         self.fk_k6_gemm(dc._PROJ, x, Cx, 2, 1, ctypes.addressof(TWO), Cx, wkvp, d, Cx, B, X_,
                         lens + 4 * B, kv, 2 * d, d, bk, bv, tab, d, X_ * d if xstride else 0,
                         None, None, None, 0, 0, 1.0, 0)
+        return self._flash_attend(yq, kv, xlen, B, X_, M, d, scale, part_acc, part_ml, logits,
+                                  probs, attn, rows)
+
+    def _flash_attend(self, yq, kv, xlen, B, X_, M, d, scale, part_acc, part_ml, logits, probs,
+                      attn, rows):
+        """``flash_attn.cu::flash_attend``: the partials, then the combine."""
+        xl = _ints(xlen, B)
         self.calls.append(("x2y_flash_attn", rows))
         T = xa.FLASH_KEY_TILE
         n_t = -(-X_ // T)

@@ -47,7 +47,14 @@ class FakeK8dLib(FakeK3Lib):
 
     def fk_q8_mha_cross(self, x, pos, pos_bstride, P, wpack, Kw, swk, bk, swv, bv, q, xlen, B_,
                         X_, Cx, Cw, M_, H_, hd, qx, sx, kv, part_acc, part_ml, out, stream):
-        E = H_ * hd
+        self._rows_kv_proj(x, pos, pos_bstride, P, wpack, Kw, swk, bk, swv, bv, xlen, B_, X_, Cx,
+                           Cw, H_ * hd, qx, sx, kv)
+        return self.fk_k3_attn(kv, q, xlen, B_, X_, M_, H_, hd, 1.0, part_acc, part_ml, out,
+                               None, None, 0, 0, 1.0, stream)
+
+    def _rows_kv_proj(self, x, pos, pos_bstride, P, wpack, Kw, swk, bk, swv, bv, xlen, B_, X_,
+                      Cx, Cw, E, qx, sx, kv):
+        """``fk::q8_rows_kv_proj`` (csrc/q8_proj.cu): the rows, then [K | V]."""
         kseg = -(-Cx // 32) * 32
         assert Cw >= Cx and Cw % 16 == 0 and Kw >= kseg and E % 2 == 0
         # the rows: q(x + pos) at 0, q(x) at 1, zeros past Cx
@@ -84,8 +91,6 @@ class FakeK8dLib(FakeK3Lib):
                              + bias[z].double()).float()  # fma(idot * s_row, sw, b)
                         res = torch.where((rows < lim)[:, None], v, 0.0)
                     KV[b, rows, z] = res
-        return self.fk_k3_attn(kv, q, xlen, B_, X_, M_, H_, hd, 1.0, part_acc, part_ml, out,
-                               None, None, 0, 0, 1.0, stream)
 
 
 @pytest.fixture
