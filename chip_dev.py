@@ -16,7 +16,7 @@
         for K8d (int8 SCA cross-attention), ``k2f`` for K2's flash forward
         (``x2y_flash``), ``k8b`` for K8b (int8 small-X X2Y) and ``k8c``
         for K8c (int8 flash X2Y) at the cases its parent runs too (it
-        refused Cx = 40):
+        refused Cx = 40), ``k4bwd`` for K4's SA and FFN backwards:
         PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
@@ -90,9 +90,16 @@
 
     python3 chip_dev.py sa-host [TREE]
         The same for K4's SA backward (dropout 0.2) at the flagship's B=8,
-        M=40, E=256, H=8 and epic's B=1, M=300, its masks hashed in the
-        kernels from the seed and fed as replayed tensors (a package whose
-        backward takes no seed is fed the masks in both).
+        M=40, E=256, H=8, epic's B=1, M=300, EgoProceL's B=2, M=200 and
+        Breakfast's B=4, M=60, E=512, its masks hashed in the kernels from
+        the seed and fed as replayed tensors (a package whose backward takes
+        no seed is fed the masks in both), and K4's FFN backward hashed at
+        the flagship's shape.
+
+    python3 chip_dev.py sa-f64 [TREE]
+        K4's SA backward (dropout 0.2, hashed) of the package in TREE and
+        its f32 plain version against the plain version in float64 at the
+        same four shapes: max, rms and coherent error of every cotangent.
 
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
@@ -145,7 +152,10 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            "k2f": ["x2y_flash:flagship,ragged,xlen0,breakfast"],
            "k8b": ["x2y_small_x_q8"],
            # K8c (int8 flash X2Y) at the cases its parent runs too (it refused Cx = 40)
-           "k8c": ["x2y_flash_q8:flagship,ragged,breakfast,xlen0"]}
+           "k8c": ["x2y_flash_q8:flagship,ragged,breakfast,xlen0"],
+           # K4's SA and FFN backwards: their parent runs every case (its FFN backward
+           # takes no seed, so it is fed the masks of the hashed cases)
+           "k4bwd": ["sa_sublayer_bwd", "ffn_sublayer_bwd"]}
 
 
 def ab(parent: str, names):
@@ -586,15 +596,61 @@ def k8_host(tree: str = REPO, seed: int = 0):
         "k8e breakfast": lambda: cs.k8e_case(rng, 4, 4096, 512, 10, [4096] * 4)})
 
 
+SA_SHAPES = {"flagship": (8, 40, 256), "epic": (1, 300, 256), "m200": (2, 200, 256),
+             "breakfast": (4, 60, 512)}  # (B, M, E) of the zoo's SA backwards, H = 8
+
+
 def sa_host(tree: str = REPO, seed: int = 0):
-    """The same for K4's SA backward, its masks hashed and fed."""
+    """The same for K4's SA backward, its masks hashed and fed, and its FFN
+    backward hashed, at the zoo's SA shapes."""
     cs = _chip_smoke(tree)
     rng = np.random.default_rng(seed)
-    return _per_call(cs, "sa-host", {
-        f"{name} {form}": (lambda B=B, M=M, hashed=form == "hashed":
-                           cs.sa_bwd_case(rng, B, M, 256, 8, hashed=hashed))
-        for name, B, M in (("flagship", 8, 40), ("epic", 1, 300))
-        for form in ("hashed", "fed")})
+    cases = {f"{name} {form}": (lambda B=B, M=M, E=E, hashed=form == "hashed":
+                                cs.sa_bwd_case(rng, B, M, E, 8, hashed=hashed))
+             for name, (B, M, E) in SA_SHAPES.items() for form in ("hashed", "fed")}
+    cases["ffn flagship hashed"] = lambda: cs.ffn_bwd_case(rng, 8, 40, 256, 512, 0.2, True)
+    return _per_call(cs, "sa-host", cases)
+
+
+def sa_f64(tree: str = REPO, seed: int = 0):
+    """K4's SA backward (dropout 0.2, its masks hashed where the package
+    hashes them) of the package in ``tree`` and its f32 plain version, each
+    against the plain version in float64 given the same masks, at the zoo's
+    SA shapes: max, rms and coherent error of every cotangent."""
+    import inspect
+
+    import torch
+
+    cs = _chip_smoke(tree)
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    one = torch.ones((), device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    hashed = "seed" in inspect.signature(sl.sa_sublayer_bwd).parameters
+    names = ("dx", "dpos", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo", "dgamma",
+             "dbeta")
+    for tag, (B, M, E) in SA_SHAPES.items():
+        args = cs.sa_case(rng, B, M, E)
+        seed_t, ka, ko = cs._sa_masks(rng, B, M, E, 8, 0.2)
+        g = cs._rand(rng, (B, M, E))
+        kw = dict(num_heads=8, keep_attn=ka, keep_out=ko)
+        with torch.no_grad():
+            ref = sl.sa_sublayer_bwd_reference(*[t.double() for t in args], g.double(),
+                                               num_heads=8, keep_attn=ka.double(),
+                                               keep_out=ko.double())
+            kern = (sl.sa_sublayer_bwd(*args, g, num_heads=8, seed=seed_t, rate_attn=0.2,
+                                       rate=0.2) if hashed else sl.sa_sublayer_bwd(*args, g, **kw))
+            runs = {"kernel": kern, "plain": sl.sa_sublayer_bwd_reference(*args, g, **kw)}
+        for name, grads in runs.items():
+            # dbk is 0 in exact arithmetic (a softmax row is shift-invariant): its
+            # error is read against dbq's scale
+            parts = [f"{n} {_stats(a, r if n != 'dbk' else ref[3], one)}" if n != "dbk" else
+                     f"dbk max {float((a.double() - r).abs().max() / ref[3].abs().max()):.2e} "
+                     "of dbq's"
+                     for n, a, r in zip(names, grads, ref)]
+            print(f"[sa-f64] {os.path.relpath(os.path.abspath(tree), REPO)} {tag} {name:<6} vs "
+                  "float64: " + "; ".join(parts), flush=True)
+    return 0
 
 
 def main(argv):
@@ -616,6 +672,8 @@ def main(argv):
         return k8_host(*argv[1:])
     if argv[:1] == ["sa-host"] and len(argv) <= 2:
         return sa_host(*argv[1:])
+    if argv[:1] == ["sa-f64"] and len(argv) <= 2:
+        return sa_f64(*argv[1:])
     if argv[:1] == ["k2f-f64"] and len(argv) <= 2:
         return k2f_f64(*argv[1:])
     if argv == ["k2sx-f64"]:

@@ -245,8 +245,7 @@ SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_s
 TRAIN_KERNELS = ("mstcn_stack", "mstcn_stack_bwd", "x2y_small_x",
                  "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "mha_cross",
                  "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_sublayer_bwd",
-                 "ffn_sublayer", "ffn_dropout_masks", "ffn_sublayer_bwd", "frame_loss_fwd",
-                 "frame_loss_bwd")
+                 "ffn_sublayer", "ffn_sublayer_bwd", "frame_loss_fwd", "frame_loss_bwd")
 BF_SERVING_KERNELS = ("mstcn2_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                       "ffn_sublayer")
 BF_TRAIN_KERNELS = ("mstcn2_stack", "mstcn2_stack_bwd", "x2y_small_x", "x2y_small_x_bwd",
@@ -789,7 +788,10 @@ def sa_bwd_case(rng, B, M, E, H, rate=0.2, hashed=False):
     kw = dict(num_heads=H, keep_attn=ka, keep_out=ko)
     hashed = hashed and "seed" in inspect.signature(sl.sa_sublayer_bwd).parameters
     mask_bytes = 0 if hashed else nbytes(ka, ko)
-    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g) + mask_bytes + nbytes(args))
+    # the attention terms in f32; the ten products (q, k, v, c Wo, dout Wo^T,
+    # dx's three and the weight products) as three TF32 passes
+    work = (B * 12 * M * M * E, nbytes(args, g) + mask_bytes + nbytes(args), 0,
+            B * 24 * M * E * E)
     fed = lambda: sl.sa_sublayer_bwd(*args, g, **kw)  # noqa: E731
     kern = ((lambda: sl.sa_sublayer_bwd(*args, g, num_heads=H, seed=seed, rate_attn=rate,
                                         rate=rate)) if hashed else fed)
@@ -856,17 +858,28 @@ def ffn_library(x, w1, b1, w2, b2, ln_scale, ln_bias, keep_1, keep_2, g=None):
     return _autograd_library(run, [x, w1, b1, w2, b2, ln_scale, ln_bias], g)
 
 
-def ffn_bwd_case(rng, B, M, E, Fd, rate=0.2):
+def ffn_bwd_case(rng, B, M, E, Fd, rate=0.2, hashed=False):
+    """K4's FFN backward against its plain version given the call's masks.
+    With ``hashed`` (the training path's form) the kernels hash both masks
+    from the seed, and their gradients must equal, bit for bit, those of the
+    same kernels fed the masks (``ffn_dropout_masks``' bits); a package
+    whose backward takes no seed (a parent's, in ``chip_dev.py ab``) is fed
+    the masks."""
+    import inspect
+
     from fact_clip_tpu_torch.ops import sa_layer as sl
 
     args = ffn_case(rng, B, M, E, Fd, away_from_zero=True)
-    _, k1, k2 = _ffn_masks(rng, B, M, E, Fd, rate)
+    seed, k1, k2 = _ffn_masks(rng, B, M, E, Fd, rate)
     g = _rand(rng, (B, M, E))
     kw = dict(keep_hidden=k1, keep_out=k2)
-    work = (B * 12 * M * E * Fd, nbytes(args, g, k1, k2) + nbytes(args))
-    return (lambda: sl.ffn_sublayer_bwd(*args, g, **kw),
-            lambda: sl.ffn_sublayer_bwd_reference(*args, g, **kw), work, None,
-            ffn_library(*args, k1, k2, g))
+    hashed = hashed and "seed" in inspect.signature(sl.ffn_sublayer_bwd).parameters
+    mask_bytes = 0 if hashed else nbytes(k1, k2)
+    work = (B * 12 * M * E * Fd, nbytes(args, g) + mask_bytes + nbytes(args))
+    fed = lambda: sl.ffn_sublayer_bwd(*args, g, **kw)  # noqa: E731
+    kern = (lambda: sl.ffn_sublayer_bwd(*args, g, seed=seed, rate=rate)) if hashed else fed
+    return (kern, lambda: sl.ffn_sublayer_bwd_reference(*args, g, **kw), work, None,
+            ffn_library(*args, k1, k2, g), fed if hashed else None)
 
 
 def frame_loss_case(rng, backward, B, T, C, lengths, with_ce=True):
@@ -1521,10 +1534,18 @@ def kernel_table():
           ("epic", lambda r: sa_bwd_case(r, 1, 300, E, 8, 0.0)),
           ("epic_drop", lambda r: sa_bwd_case(r, 1, 300, E, 8)),
           ("m200", lambda r: sa_bwd_case(r, 2, 200, E, 8, 0.0)),
-          ("m200_drop", lambda r: sa_bwd_case(r, 2, 200, E, 8))]),
+          ("m200_drop", lambda r: sa_bwd_case(r, 2, 200, E, 8)),
+          ("m200_hash", lambda r: sa_bwd_case(r, 2, 200, E, 8, hashed=True)),
+          # Breakfast's token decoders: B=4, M=60, E=512, H=8 (hd = 64), dropout 0.2
+          ("breakfast", lambda r: sa_bwd_case(r, 4, 60, D, 8, hashed=True)),
+          # small_cfg()'s (phase 14): 8 tokens, E=16, H=4 (hd = 4; E below a K step)
+          ("small", lambda r: sa_bwd_case(r, 2, 8, 16, 4, hashed=True))]),
         ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
          [("flagship", lambda r: ffn_bwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_bwd_case(r, 3, 11, 256, 512)),
+          # the training path's form: both masks hashed, bit-equal to the fed form
+          ("flag_hash", lambda r: ffn_bwd_case(r, B, 40, 256, 512, hashed=True)),
+          ("rag_hash", lambda r: ffn_bwd_case(r, 3, 11, 256, 512, hashed=True)),
           ("epic", lambda r: ffn_bwd_case(r, 1, 300, E, 512, 0.0)),
           # egoprocel's B=1, M=200 and Breakfast's B=4, M=60, E=512 (a_ffdim 512 both)
           ("ego", lambda r: ffn_bwd_case(r, 1, 200, E, 512, 0.0)),
@@ -1779,9 +1800,12 @@ def k6_repeat_check(seed: int = 0):
     M=40 (the three split kernels, the cp.async staging); K8e at
     Breakfast's 4 x 4096 x 512 and epic's 1 x 24,576 x 256 (its output and
     its group and tile maxima: the wgmma ring, the atomicMax of the maxima);
-    K4's FFN backward with dropout 0.2 at epic's B=1, M=300 (the split
-    kernels, the per-tile LayerNorm sums) and its forward with dropout 0.2
-    there and at the flagship's B=8, M=40; K5's forward at the flagship's
+    K4's FFN backward with dropout 0.2 at epic's B=1, M=300, its masks
+    hashed (the split kernels, the per-tile LayerNorm sums); K4's SA backward
+    with dropout 0.2, its masks hashed, at the flagship's B=8, M=40, epic's
+    B=1, M=300 and Breakfast's B=4, M=60, E=512 (its GEMMs, the weight
+    products' chunks and their two-stage sums); K4's FFN forward with dropout 0.2
+    at epic's B=1, M=300 and the flagship's B=8, M=40; K5's forward at the flagship's
     8 x 3072 x 75 (its chunks' partials summed in chunk order); K8a at the
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
@@ -1838,7 +1862,10 @@ def k6_repeat_check(seed: int = 0):
                                            zeros)),
              ("k8d_bf", lambda: k8d_case(rng, 4, 60, 4096, 512, 512, 8, BF_TRAIN_LENGTHS,
                                          torch.zeros((1, 4096, 512), device="cuda"))),
-             ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2)),
+             ("ffn_bwd_epic", lambda: ffn_bwd_case(rng, 1, 300, 256, 512, 0.2, True)),
+             ("sa_bwd_flag", lambda: sa_bwd_case(rng, 8, 40, 256, 8, hashed=True)),
+             ("sa_bwd_epic", lambda: sa_bwd_case(rng, 1, 300, 256, 8, hashed=True)),
+             ("sa_bwd_bf", lambda: sa_bwd_case(rng, 4, 60, 512, 8, hashed=True)),
              ("ffn_epic", lambda: ffn_fwd_case(rng, 1, 300, 256, 512, 0.2)),
              ("ffn_flag", lambda: ffn_fwd_case(rng, 8, 40, 256, 512, 0.2)),
              ("k5_fwd", lambda: frame_loss_case(rng, False, 8, 3072, 75, FLAGSHIP_LENGTHS)))
@@ -2079,7 +2106,7 @@ def phase_training(seed: int = 0):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"training kernels not launched in the 5 steps: {missing}")
-    # K1's and K4's SA backwards hash their masks again: no mask replay
+    # K1's and K4's SA and FFN backwards hash their masks again: no mask replay
     replayed = [k for k in MASK_KERNELS if k not in TRAIN_KERNELS and counts[k]]
     if replayed:
         raise AssertionError(f"mask replays launched in the 5 steps: {replayed}")
@@ -3293,7 +3320,7 @@ def phase_small(seed: int = 0):
     with K8a launched and K1 not, then ``int8_paths`` on 2 x 1024 (the int8
     kernel path against the int8 plain path, gated); then 1 + 2 Adam steps
     on 2 x 1024 (dropout 0.1, channel masking 0.3), K1's forward and
-    backward launched and every loss finite."""
+    backward launched, K4's mask replays not, and every loss finite."""
     import torch
 
     from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
@@ -3369,6 +3396,9 @@ def phase_small(seed: int = 0):
     if not all(math.isfinite(v) for v in losses) or min(
             counts_t["mstcn_stack"], counts_t["mstcn_stack_bwd"]) <= 0:
         raise AssertionError(f"small: training failed: losses {losses}, launches {counts_t}")
+    # K4's SA and FFN backwards hash their masks again: no mask replay
+    if counts_t["sa_dropout_masks"] or counts_t["ffn_dropout_masks"]:
+        raise AssertionError(f"small: K4's masks launched in training: {counts_t}")
 
 
 def main():

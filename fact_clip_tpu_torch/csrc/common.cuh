@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace fk {
 
 constexpr int kThreads = 256;
@@ -248,8 +250,32 @@ __device__ __forceinline__ void block_colsum(const float* base, int ld, int rows
   }
 }
 
+// cudaFuncSetAttribute(kernel, max dynamic shared memory, bytes) on the
+// current device, called only where `bytes` is more than this process set
+// for that kernel and device before: the entries ask for it before every
+// launch, and each such CUDA call costs host time
 inline cudaError_t set_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  constexpr int kSlots = 512;
+  static const void* keys[kSlots];
+  static int devs[kSlots];
+  static size_t done[kSlots];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int i = (int)((((uintptr_t)kernel >> 4) * 31u + (unsigned)dev) % kSlots);
+  for (int n = 0; n < kSlots && keys[i] != nullptr && (keys[i] != kernel || devs[i] != dev); ++n)
+    i = (i + 1) % kSlots;
+  const bool known = keys[i] == kernel && devs[i] == dev;
+  if (known && done[i] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && (known || keys[i] == nullptr)) {
+    keys[i] = kernel;
+    devs[i] = dev;
+    done[i] = bytes;
+  }
+  return err;
 }
 
 }  // namespace fk

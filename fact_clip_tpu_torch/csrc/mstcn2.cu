@@ -40,7 +40,9 @@
 // The GEMMs run on tc_tower.cuh's kernel (shared with K1; its design and the
 // variants tried are written there).
 //
-// The weight-gradient products (k6_wgrad, which K1 also launches) take both
+// The weight-gradient products (k6_wgrad, which K1, K2 and K3 also launch,
+// and K4's SA backward with up to four products of one row space a launch,
+// promoted every 8 rows: fk::tc_wgrad_pairs) take both
 // operands time-major from TMA and transpose and split them in one
 // shared-memory pass into the K-major swizzled layout, into two sets of
 // tiles that alternate so that the next step's pass overlaps this step's
@@ -62,23 +64,38 @@ namespace {
 constexpr int WG_STAGE = 2 * TILE;      // raw A, raw B (time-major)
 // three raw stages and two sets of split tiles (A hi, A lo, B hi, B lo)
 constexpr size_t WGRAD_SMEM = ((size_t)STAGES * WG_STAGE + 8 * TILE) * 4 + 64 + 1024;
+constexpr int kMaxPairs = 4;  // products of one weight-product launch
 struct WgradArgs {
   CUtensorMap amap;  // (C_a total, T, B), 128 x 32 boxes, plain rows
   CUtensorMap bmap;
-  int a_c0, b_c0, Ca, Cb, T, Kc, per, n_chunks, shift0, shift_step;
+  // pair i: dW_i = A[:, a_c0 .. a_c0 + Ca]^T Bm[:, b_c0 .. b_c0 + Cb], over
+  // tiles[i] blocks of blockIdx.x (its 128 x 128 tiles), its partials at
+  // out_off[i] of each (tap, chunk)'s chunk_floats
+  int npair;
+  int tiles[kMaxPairs], a_c0[kMaxPairs], Ca[kMaxPairs], b_c0[kMaxPairs], Cb[kMaxPairs];
+  long long out_off[kMaxPairs];
+  long long chunk_floats;
+  int T, Kc, per, n_chunks, shift0, shift_step;
   const int* lengths;
   float* part;
 };
 
 // dW[tap][m][n] partial = sum over the chunk's frames t of
 // A[b, t + shift, a_c0 + m] * Bm[b, t, b_c0 + n], A's rows outside [0, len)
-// and Bm's at or past len zero.
+// and Bm's at or past len zero, for the pair and tile that blockIdx.x picks.
+// P8: the products promoted after every 8 frames (as the tower GEMM's kProj),
+// else after every 32.
+template <bool P8>
 __global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant__ WgradArgs p) {
   extern __shared__ float4 smem_raw[];
   float* sm = tc::align1024<float>(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * WG_STAGE + 8 * TILE);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  int pair = 0, tile = blockIdx.x;
+  while (pair + 1 < p.npair && tile >= p.tiles[pair]) tile -= p.tiles[pair++];
+  const int a_c0 = p.a_c0[pair], b_c0 = p.b_c0[pair], Ca = p.Ca[pair], Cb = p.Cb[pair];
+  const int tn = (Cb + BN - 1) / BN;
+  const int n0 = (tile % tn) * BN, m0 = (tile / tn) * BM;
   const int tap = blockIdx.z / p.n_chunks;
   const int chunk = blockIdx.z - tap * p.n_chunks;
   const int b = chunk / p.per;
@@ -102,8 +119,8 @@ __global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant_
     float* st = sm + s * WG_STAGE;
     const int t = kstart + kc * tc::kBK;
     tc::mbar_expect_tx(&full[s], 2 * TILE * 4);
-    tc::tma_load_3d(st, &p.amap, &full[s], p.a_c0 + m0, t + shift, b);
-    tc::tma_load_3d(st + TILE, &p.bmap, &full[s], p.b_c0 + n0, t, b);
+    tc::tma_load_3d(st, &p.amap, &full[s], a_c0 + m0, t + shift, b);
+    tc::tma_load_3d(st + TILE, &p.bmap, &full[s], b_c0 + n0, t, b);
   };
   // transpose (32 frames x 128 channels -> 128 rows of 32 frames, K-major in
   // the 128-byte swizzle) and split both operands of step kc into split set
@@ -150,28 +167,40 @@ __global__ void __launch_bounds__(256, 1) k6_wgrad_kernel(const __grid_constant_
   if (tid == 0 && STAGES < nk) issue(STAGES);  // raw stage 0 is free
   for (int kc = 0; kc < nk; ++kc) {
     const float* set = sm + STAGES * WG_STAGE + (kc & 1) * 4 * TILE;
-    tc::wgmma_fence();
-    tc::mma3_k32(big, small, set + wg * (TILE / 2), set + TILE + wg * (TILE / 2),
-                 set + 2 * TILE, set + 3 * TILE);
-    tc::wgmma_commit();
-    if (kc + 1 < nk) split_step(kc + 1);
-    tc::wgmma_wait_all();
-    tc::promote(acc, big, small);
+    const float *ah = set + wg * (TILE / 2), *al = set + TILE + wg * (TILE / 2);
+    if (P8) {
+#pragma unroll
+      for (int k = 0; k < tc::kBK / 8; ++k) {
+        tc::wgmma_fence();
+        tc::mma3_k8(big, small, ah, al, set + 2 * TILE, set + 3 * TILE, k);
+        tc::wgmma_commit();
+        if (k == 0 && kc + 1 < nk) split_step(kc + 1);
+        tc::wgmma_wait_all();
+        tc::promote(acc, big, small);
+      }
+    } else {
+      tc::wgmma_fence();
+      tc::mma3_k32(big, small, ah, al, set + 2 * TILE, set + 3 * TILE);
+      tc::wgmma_commit();
+      if (kc + 1 < nk) split_step(kc + 1);
+      tc::wgmma_wait_all();
+      tc::promote(acc, big, small);
+    }
     __syncthreads();  // split set kc % 2 and raw stage (kc + 1) % STAGES are free
     if (tid == 0 && kc + 1 + STAGES < nk) issue(kc + 1 + STAGES);
   }
 
-  float* out = p.part + ((size_t)tap * p.n_chunks + chunk) * p.Ca * p.Cb;
+  float* out = p.part + ((size_t)tap * p.n_chunks + chunk) * p.chunk_floats + p.out_off[pair];
   const int rw = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int n = n0 + 8 * j + cq;
-    if (n >= p.Cb) continue;
+    if (n >= Cb) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = rw + 8 * h;
-      if (m < p.Ca) store2(out + (size_t)m * p.Cb + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (m < Ca) store2(out + (size_t)m * Cb + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -306,8 +335,8 @@ extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nse
   g.out = out;
   g.ldo = ldo;
   g.col_step = col_step;
-  g.bias0 = bias0;
-  g.bias1 = bias1;
+  g.bias[0] = bias0;
+  g.bias[1] = bias1;
   g.res = res;
   g.res_ld = res_ld;
   g.res_bstride = res_bstride;
@@ -331,22 +360,28 @@ extern "C" int fk_k6_gemm(int mode, const float* a, int a_ch, int nprob, int nse
   return (int)cudaErrorInvalidValue;
 }
 
-// part (n_taps, B * ceil(T / Kc), Ca, Cb): per tap and chunk, sum over the
-// chunk's frames t of A[b, t + shift0 + tap*shift_step, a_c0 + m] *
-// Bm[b, t, b_c0 + n]; A (B, T, a_ch), Bm (B, T, b_ch)
-extern "C" int fk_k6_wgrad(const float* A, int a_ch, int a_c0, int Ca, const float* Bm, int b_ch,
-                           int b_c0, int Cb, const int* lengths, int shift0, int shift_step,
-                           int n_taps, float* part, int B, int T, int Kc, void* stream) {
-  if (a_ch % 4 || b_ch % 4 || Cb % 2 || Kc % tc::kBK) return (int)cudaErrorInvalidValue;
-  WgradArgs w;
-  memset(&w, 0, sizeof(w));
+namespace {
+
+// One weight-product launch of w's pairs (w.npair and the pair fields set)
+// over A (B, T, a_ch) and Bm (B, T, b_ch) in chunks of Kc frames, promoted
+// every 8 frames (p8) or 32.
+int launch_wgrad(WgradArgs& w, const float* A, int a_ch, const float* Bm, int b_ch,
+                 const int* lengths, int B, int T, int Kc, int n_taps, int shift0,
+                 int shift_step, float* part, bool p8, cudaStream_t stream) {
+  if (a_ch % 4 || b_ch % 4 || Kc % tc::kBK) return (int)cudaErrorInvalidValue;
   if (!tc::encode_3d(&w.amap, A, a_ch, T, B, BM, tc::kBK, false) ||
       !tc::encode_3d(&w.bmap, Bm, b_ch, T, B, BN, tc::kBK, false))
     return (int)cudaErrorInvalidValue;
-  w.a_c0 = a_c0;
-  w.b_c0 = b_c0;
-  w.Ca = Ca;
-  w.Cb = Cb;
+  int tiles = 0;
+  long long at = 0;
+  for (int i = 0; i < w.npair; ++i) {
+    if (w.Cb[i] % 2) return (int)cudaErrorInvalidValue;
+    w.tiles[i] = (w.Cb[i] + BN - 1) / BN * ((w.Ca[i] + BM - 1) / BM);
+    w.out_off[i] = at;
+    tiles += w.tiles[i];
+    at += (long long)w.Ca[i] * w.Cb[i];
+  }
+  w.chunk_floats = at;
   w.T = T;
   w.Kc = Kc;
   w.per = (T + Kc - 1) / Kc;
@@ -355,12 +390,99 @@ extern "C" int fk_k6_wgrad(const float* A, int a_ch, int a_c0, int Ca, const flo
   w.shift_step = shift_step;
   w.lengths = lengths;
   w.part = part;
-  cudaError_t err = fk::set_smem((const void*)k6_wgrad_kernel, WGRAD_SMEM);
+  const void* kernel =
+      p8 ? (const void*)k6_wgrad_kernel<true> : (const void*)k6_wgrad_kernel<false>;
+  cudaError_t err = fk::set_smem(kernel, WGRAD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Cb + BN - 1) / BN, (Ca + BM - 1) / BM, w.n_chunks * n_taps);
-  k6_wgrad_kernel<<<grid, 256, WGRAD_SMEM, (cudaStream_t)stream>>>(w);
+  const dim3 grid(tiles, 1, w.n_chunks * n_taps);
+  if (p8)
+    k6_wgrad_kernel<true><<<grid, 256, WGRAD_SMEM, stream>>>(w);
+  else
+    k6_wgrad_kernel<false><<<grid, 256, WGRAD_SMEM, stream>>>(w);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// part (n_taps, B * ceil(T / Kc), Ca, Cb): per tap and chunk, sum over the
+// chunk's frames t of A[b, t + shift0 + tap*shift_step, a_c0 + m] *
+// Bm[b, t, b_c0 + n]; A (B, T, a_ch), Bm (B, T, b_ch)
+extern "C" int fk_k6_wgrad(const float* A, int a_ch, int a_c0, int Ca, const float* Bm, int b_ch,
+                           int b_c0, int Cb, const int* lengths, int shift0, int shift_step,
+                           int n_taps, float* part, int B, int T, int Kc, void* stream) {
+  WgradArgs w;
+  memset(&w, 0, sizeof(w));
+  w.npair = 1;
+  w.a_c0[0] = a_c0;
+  w.Ca[0] = Ca;
+  w.b_c0[0] = b_c0;
+  w.Cb[0] = Cb;
+  return launch_wgrad(w, A, a_ch, Bm, b_ch, lengths, B, T, Kc, n_taps, shift0, shift_step, part,
+                      false, (cudaStream_t)stream);
+}
+
+namespace fk {
+
+// K4's SA backward (sa_layer.cu) on this file's kernels, over the R rows of
+// one row space (lens[0] = R, in device memory):
+// tc_rows_gemm: out[r * ldo + z * col_step + n] = sum_{k < K} A[r, c0[z] + k]
+//   W_z[k][n] + bias[z][n] for each problem z < nprob <= MAX_PROB (wpack
+//   (nprob, 2, N, K) as fk_k6_pack lays it out, K a multiple of 32; a K
+//   split into slices is a problem a slice), kProj's epilogue: promoted every
+//   8 deep (against float64 the SA backward's weight gradients came out
+//   -1.1e-7 to -2.1e-7 coherently small so, -2.9e-7 to -5.2e-7 promoted once
+//   a 32-deep step, for 0.012 ms more a call at the flagship's shape; H100
+//   80GB HBM3, 700 W, chip_dev.py sa-f64)
+int tc_rows_gemm(const float* a, int a_ch, int nprob, const int* c0, int K, const float* wpack,
+                 int N, int R, const int* lens, float* out, int ldo, int col_step,
+                 const float* const* bias, cudaStream_t stream) {
+  if (nprob < 1 || nprob > MAX_PROB || a_ch % 4 || K % tc::kBK || N % 4)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs g;
+  memset(&g, 0, sizeof(g));
+  if (!tc::encode_3d(&g.amap, a, a_ch, R, 1, tc::kBK, BM, true) ||
+      !tc::encode_3d(&g.bmap, wpack, K, N, 2 * nprob, tc::kBK, BN, true))
+    return (int)cudaErrorInvalidValue;
+  for (int z = 0; z < nprob; ++z) {
+    g.seg_c0[z][0] = c0[z];
+    g.bias[z] = bias != nullptr ? bias[z] : nullptr;
+  }
+  g.nseg = 1;
+  g.kseg = K;
+  g.N = N;
+  g.T = R;
+  g.nprob = nprob;
+  g.lengths = lens;
+  g.out = out;
+  g.ldo = ldo;
+  g.col_step = col_step;
+  return (int)launch_gemm<kProj>(g, dim3((N + BN - 1) / BN, (R + BM - 1) / BM, nprob), stream);
+}
+
+// tc_wgrad_pairs: one launch of npair <= 4 weight products over the same
+// rows, pair i = pairs[4i .. 4i + 3] = (a_c0, Ca, b_c0, Cb):
+//   part[chunk][off_i + m Cb + n] = sum over the chunk's rows r of
+//   A[r, a_c0 + m] Bm[r, b_c0 + n]
+// with off_i the sum of Ca Cb over the pairs before i: a chunk's partials are
+// the products side by side, ceil(R / Kc) chunks of Kc rows; promoted every
+// 8 rows, as tc_rows_gemm's products.
+int tc_wgrad_pairs(const float* A, int a_ch, const float* Bm, int b_ch, int npair,
+                   const int* pairs, const int* lens, int R, int Kc, float* part,
+                   cudaStream_t stream) {
+  if (npair < 1 || npair > kMaxPairs) return (int)cudaErrorInvalidValue;
+  WgradArgs w;
+  memset(&w, 0, sizeof(w));
+  w.npair = npair;
+  for (int i = 0; i < npair; ++i) {
+    w.a_c0[i] = pairs[4 * i];
+    w.Ca[i] = pairs[4 * i + 1];
+    w.b_c0[i] = pairs[4 * i + 2];
+    w.Cb[i] = pairs[4 * i + 3];
+  }
+  return launch_wgrad(w, A, a_ch, Bm, b_ch, lens, 1, R, Kc, 1, 0, 0, part, true, stream);
+}
+
+}  // namespace fk
 
 extern "C" int fk_k6_ds(const float* g, const float* h, const float* x, const float* glg,
                         const int* lengths, const int* seed, int layer, unsigned thresh,

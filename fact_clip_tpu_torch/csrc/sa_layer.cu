@@ -9,7 +9,7 @@
 // run in the kernels.  The TPU kernel holds a video's whole SA sublayer in
 // VMEM, one grid step a video; on the H100 one block a video ran one SM of
 // 132 at epic's batch of 1 (2.9 ms at M=300, its eight heads one after
-// another).  So the SA forward is three kernels, the backward's split:
+// another).  So the SA forward is three kernels:
 // q, k, v over (32-row tile, video, projection) on the GEMM core
 // (sa_qkv_kernel); the attention over (32-query tile, head, video), a warp
 // per query row with K_h and V_h of every key staged by cp.async
@@ -32,30 +32,46 @@
 //
 // Backward: replaces ::_sa_bwd (_sa_bwd_kernel) and ::_ffn_bwd
 // (_ffn_bwd_kernel).  Each recomputes its forward from x (and pos) with the
-// call's masks, takes the LayerNorm backward (eps 1e-6) and writes dx.  The
-// SA backward hashes its two masks inline from the forward's seed, as the
-// forward does (a replayed mask tensor may stand in, for the tests); the
-// FFN backward reads the masks that dropout.cu regenerated for the call:
+// call's masks, takes the LayerNorm backward (eps 1e-6) and writes dx.  Both
+// hash their two masks inline from the forward's seed, as the forwards do (a
+// replayed mask tensor may stand in, for the tests), so that the training
+// path makes no mask:
 //   SA:  dout = dres * keep_o; dc = dout Wo^T; per head dPd = dc_h v_h^T,
 //        dv_h = Pd^T dc_h, dS = P * (dPd * keep_a - D) * scale with the row
 //        term D = dc_h . c_h (= rowsum(P * dPd * keep_a)), dq_h = dS k_h,
 //        dk_h = dS^T q_h; dxa = dq Wq^T + dk Wk^T; dx = dres + dxa + dv Wv^T.
 //        The TPU kernel holds a video's whole sublayer in VMEM (100 MB,
-//        _COMPILER_PARAMS); one H100 block cannot hold the two (M, M) panels
-//        past M ~ 124 (922 KB at epic's M=300).  So the backward is six
-//        kernels in the FlashAttention-2 split, none with atomics: the
-//        projections (q, k, v), the per-row softmax with its statistics and
-//        the context c, the LayerNorm backward with dout and dc, and dx, over
-//        (64-row tile, video) on the GEMM core; dq over (32-query tile, head,
-//        video), a warp per query row with p recomputed from the saved
-//        statistics; dk and dv over (32-key tile, head, video), each warp
-//        walking every query row in order for its 4 keys.  A block holds one
-//        head's rows of every key (or query) and of its tile: 97 KB at
-//        M=300, hd=32, so any token count of the zoo fits (ops/sa_layer.py::
-//        has_backward).  The wrapper takes dWq|dWk = (x + pos)^T [dq | dk],
-//        dWv = x^T dv, dWo = c^T dout with grad.cu's fk_atb and sums those
-//        partials, the bias columns, the per-tile LN sums and d(pos) =
-//        sum_b dxa[b] with fk_reduce, in a fixed order.
+//        _COMPILER_PARAMS).  On the H100 one library call (fk_sa_bwd) of
+//        eleven launches takes the batch's B * M token rows as one row
+//        space, through a workspace into a buffer of results, both laid out
+//        by the library (sa_workspace):
+//          0. the packs of the eight weight operands and the rows [x + pos |
+//             x | . | 1] (one launch);
+//          1. [q | k | v] on mstcn2.cu's 3xTF32 GEMM (tc_rows_gemm: three
+//             problems, kProj's epilogue, promoted every 8 deep);
+//          2. P and c per (32-query tile, head, video), P kept, four query
+//             rows a warp (sa_bwd_probs_kernel);
+//          3. c Wo on the GEMM (in K slices, sa_slices); 4. res = x +
+//             drop_o(c Wo + bo), its LayerNorm backward per 16-row tile and
+//             dout (the FFN backward's LayerNorm kernel); 5. dc = dout Wo^T
+//             on the GEMM (K slices);
+//          6. dS, P * keep_a and dq per (32-query tile, head, video), from P:
+//             the probabilities are computed once;
+//          7. dk and dv per (32-key tile, head, video) from dS and P * keep_a;
+//          8. dq Wq^T, dk Wk^T and dv Wv^T on the GEMM (K slices);
+//          9. the weight products and bias sums (x + pos)^T [dq | dk], x^T dv,
+//             c^T dout and 1^T [dq | dk | dv | dout] as one launch of
+//             mstcn2.cu's weight-product kernel (tc_wgrad_pairs) over chunks
+//             of the rows, so that B = 1 fills the card;
+//          10. the chunks' and LayerNorm tiles' sums in two fixed-order
+//             stages, dx, and d(pos) = the batch sum of dxa.
+//        No float atomics: every run gives the same bits.  The previous design
+//        (six kernels over (64-row tile, video) and (query or key tile, head,
+//        video) blocks on the f32 FMA core, p computed three times, the
+//        weight products and sums from Python) took 0.33 ms of device time at
+//        the flagship's B=8, M=40 and 0.68 at epic's B=1, M=300, this one
+//        0.107 and 0.163 (H100 80GB HBM3, 700 W): the old row kernels filled
+//        5-24 SMs.
 //   FFN: dt2 = dres * keep_2; dh = (dt2 W2^T) * keep_1; dz1 = dh * (z1 >
 //        0); dx = dres + dz1 W1^T.  One block per video ran one SM at
 //        epic's batch of one (1.46 ms at M=300), so the backward's four
@@ -75,23 +91,24 @@
 // forward's products give 40 blocks each at epic's B=1, M=300, E=256,
 // F=512 (its LayerNorm 19); the chain of its three launches, not the 0.16
 // GFLOP (2.3 us at 67 TFLOP/s), is its time.
-// The SA forward and backward at epic's B=1, M=300, H=8 give
-// each attention kernel 80 blocks and each row kernel 10 (forward) or 5
-// (backward); the backward's 0.75 GFLOP is 0.011 ms at 67 TFLOP/s; it
-// recomputes p twice more and its key-tile kernel reduces each score over
-// the lanes with shuffles.
+// The SA forward at epic's B=1, M=300, H=8 gives its attention kernel 80
+// blocks and its row kernels 10.  The SA backward's products are 24 R E^2
+// FLOPs (0.50 GFLOP at the flagship: 3 us as three TF32 passes at 495
+// TFLOP/s), its attention terms 12 B M^2 E; its eleven launches, each a few
+// microseconds of latency, are its time (0.107 ms at the flagship's shape,
+// four tower GEMMs 0.053 of it).
 #include <math.h>
 
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // token rows per GEMM pass
 constexpr int kFwdRows = 32;  // token rows of the SA forward's projection and out-projection blocks
 
 // rows [r0, r0 + TBM) of A @ W (W: K x N, row-major), the columns from n_lo
 // up to n_hi; epi(r, c, acc) takes each finished value of a row r < M
-template <int TBM = BM, class LoadA, class Epi>
+template <int TBM, class LoadA, class Epi>
 __device__ __forceinline__ void rows_gemm(LoadA load_a, const float* __restrict__ W, int K, int N,
                                           int r0, int M, Epi epi, fk::GemmSmem<TBM>& s,
                                           int n_lo = 0, int n_hi = 1 << 30) {
@@ -167,50 +184,6 @@ __device__ __forceinline__ void ln_stats(const float* base, int M, int E, float 
   }
 }
 
-// The LayerNorm backward of M rows: `res` holds the LN input and is
-// overwritten with dres = rstd * (gg - mean(gg) - xhat * mean(gg * xhat)),
-// gg = g * gamma; dgamma = sum_r g * xhat and dbeta = sum_r g go to
-// part[0:E], part[E:2E] (row order).  dout != nullptr also writes dout =
-// dres * keep_out, row r's element c at keep_out's index k0 + r E + c.  The
-// caller synchronises first.
-__device__ __forceinline__ void ln_backward(float* res, const float* __restrict__ g,
-                                            const float* __restrict__ gamma, const float* mean,
-                                            const float* rstd, int M, int E,
-                                            float* __restrict__ part, const Keep& keep_out,
-                                            size_t k0, float* __restrict__ dout) {
-  for (int c = threadIdx.x; c < E; c += fk::kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < M; ++r) {
-      const float gv = __ldg(g + (size_t)r * E + c);
-      sg = fmaf(gv, (res[(size_t)r * E + c] - mean[r]) * rstd[r], sg);
-      sb += gv;
-    }
-    part[c] = sg;
-    part[E + c] = sb;
-  }
-  __syncthreads();  // every column sum has read res before it is overwritten
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < M; r += fk::kWarps) {
-    float* row = res + (size_t)r * E;
-    const float* gr = g + (size_t)r * E;
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < E; c += 32) {
-      const float gg = __ldg(gr + c) * __ldg(gamma + c);
-      s1 += gg;
-      s2 += gg * (row[c] - mean[r]) * rstd[r];
-    }
-    s1 = fk::warp_sum(s1) / E;
-    s2 = fk::warp_sum(s2) / E;
-    for (int c = lane; c < E; c += 32) {
-      const float xhat = (row[c] - mean[r]) * rstd[r];
-      const float d = rstd[r] * (__ldg(gr + c) * __ldg(gamma + c) - s1 - xhat * s2);
-      row[c] = d;
-      if (dout != nullptr)
-        dout[(size_t)r * E + c] = keep_out.on() ? d * keep_out.at(k0 + (size_t)r * E + c) : d;
-    }
-  }
-}
-
 // The FFN forward and backward over (32-row tile, 256-column chunk, K slice
 // of 128) blocks of the batch's B * M token rows (every step works row by
 // row: the rows of all the videos are one row space, the dropout masks'
@@ -247,8 +220,9 @@ __device__ __forceinline__ float slice_sum(const float* __restrict__ part, size_
 // (dt2 W2^T's slices) * keep_1 * (z1 > 0).  The backward's blocks of the
 // first column chunk also write what they stage (z1 and hk, or dz1): every
 // other block recomputes the same values, so no step waits for another.
-// keep_1 is the backward's mask tensor or, in the forward, hashed inline
-// (FFN stream 0 over (B, M, F), the bits of ffn_dropout_masks).
+// keep_1 is a replayed mask tensor (the backward's, where the caller gives
+// one) or hashed inline (FFN stream 0 over (B, M, F), the bits of
+// ffn_dropout_masks).
 enum FfnA { kPanel = 0, kHidden = 1, kDz1 = 2 };
 
 struct FfnSlice {
@@ -261,7 +235,7 @@ struct FfnSlice {
   float* out;         // kHidden: hk; kDz1: dz1 (written by the first column chunk, row
                       // stride ld; null in the forward, which writes neither)
   int ld;
-  fk::Dropout drop;   // kHidden without keep: keep_1 hashed (a null seed: none)
+  fk::Dropout drop;   // without keep: keep_1 hashed (a null seed: none)
 };
 
 // per (32-row tile, K slice, 256 columns of N): the slice's partial product
@@ -299,7 +273,10 @@ ffn_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restric
         }
         // dz1 = (dt2 W2^T) * keep_1 * (z1 > 0)
         float v = slice_sum(a.pa, RK, a.n_pa, e);
-        if (a.keep != nullptr) v *= __ldg(a.keep + e);
+        if (a.keep != nullptr)
+          v *= __ldg(a.keep + e);
+        else if (a.drop.seed != nullptr)
+          v *= a.drop.keep((uint32_t)e, seed);
         const float d = __ldg(a.z1 + e) > 0.f ? v : 0.f;
         if (write) a.out[eo] = d;
         return d;
@@ -313,9 +290,10 @@ ffn_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restric
 // given, the tile's g rows into gs; then the rows' LayerNorm statistics
 // (ln_stats's two-pass sums).  Four columns a thread at a time with every
 // load issued before any is used (a scalar loop where E % 4 != 0 or F >
-// 2048): row-serial global loads took ~30 us a tile.  keep_2 is the
-// backward's mask tensor or, in the forward, hashed inline (FFN stream 1
-// over (B, M, E)).  Both directions' LayerNorm kernels start so.
+// 2048): row-serial global loads took ~30 us a tile.  keep_2 is a replayed
+// mask tensor (the backward's, where given) or hashed inline (FFN stream 1
+// over (B, M, E); the SA backward's keep_o, SA stream 1, the same way).
+// Both directions' LayerNorm kernels start so.
 constexpr int kMaxSlices = 16;  // F up to 2048 in the four-column staging
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -405,13 +383,15 @@ ffn_fwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
 //    b2), its LayerNorm statistics and backward (dres into res; dgamma and
 //    dbeta of the tile into part[tile]) and dt2 = dres * keep_2 (row stride
 //    ld), the LayerNorm on the tile's res and g rows in shared memory: the
-//    same sums as ln_stats and ln_backward.
+//    rows' two-pass statistics (ln_stats), the column sums in row order, then
+//    dres = rstd (gg - mean(gg) - xhat mean(gg xhat)), gg = g gamma.  The SA
+//    backward's LayerNorm step too (t2 = c Wo, one slice; b2 = bo; keep_o).
 __global__ void __launch_bounds__(fk::kThreads)
 ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
                   const float* __restrict__ b2, const float* __restrict__ gamma,
-                  const float* __restrict__ keep_2, const float* __restrict__ g,
-                  float* __restrict__ res, float* __restrict__ dt2, int ld,
-                  float* __restrict__ part, int R, int E, int slices, float eps) {
+                  const float* __restrict__ keep_2, fk::Dropout drop_2,
+                  const float* __restrict__ g, float* __restrict__ res, float* __restrict__ dt2,
+                  int ld, float* __restrict__ part, int R, int E, int slices, float eps) {
   extern __shared__ float4 smem_raw[];
   float* rs = reinterpret_cast<float*>(smem_raw);  // [rows][E]: res, then dres
   float* gs = rs + kLnRows * E;                    // [rows][E]: g
@@ -420,8 +400,7 @@ ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
   const int rows = min(kLnRows, R - r0);
   const int n = rows * E;
   const size_t t0 = (size_t)r0 * E;
-  ffn_ln_stage(x, t2, b2, keep_2, fk::Dropout{nullptr, 0, 0u, 1.f}, g, rs, gs, mean, rstd, r0,
-               rows, R, E, slices, eps);
+  ffn_ln_stage(x, t2, b2, keep_2, drop_2, g, rs, gs, mean, rstd, r0, rows, R, E, slices, eps);
   const int lane = threadIdx.x & 31;
   float* pt = part + (size_t)tile * 2 * E;
   for (int c = threadIdx.x; c < E; c += fk::kThreads) {  // the tile's column sums, row order
@@ -452,10 +431,14 @@ ffn_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ t2,
     }
   }
   __syncthreads();
+  const uint32_t seed = drop_2.load_seed();
   for (int i = threadIdx.x; i < n; i += fk::kThreads) {
     const float d = rs[i];
     res[t0 + i] = d;
-    dt2[(size_t)(r0 + i / E) * ld + i % E] = keep_2 != nullptr ? d * __ldg(keep_2 + t0 + i) : d;
+    const float k = keep_2 != nullptr       ? __ldg(keep_2 + t0 + i)
+                    : drop_2.seed != nullptr ? drop_2.keep((uint32_t)(t0 + i), seed)
+                                             : 1.f;
+    dt2[(size_t)(r0 + i / E) * ld + i % E] = d * k;
   }
 }
 
@@ -517,35 +500,16 @@ ffn_transpose_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
 }
 
 // ---------------------------------------------------------------------------
-// SA backward: six kernels, each over (row tile, video) or (tile of QT query
-// rows or keys, head, video), so that a video's attention spreads over
-// H * ceil(M / QT) blocks and no (M, M) panel is ever held.
+// The SA attention kernels, over (tile of QT query rows or keys, head, video)
+// blocks, so that a video's attention spreads over H * ceil(M / QT) blocks.
 
 constexpr int QT = 32;  // query rows or keys of an attention block
 
 // Shared memory (floats) of the attention kernels over query tiles: one
-// head's k and v rows of every key, the tile's q and dc rows, and one
-// M-long row per warp.
+// head's k and v rows of every key, the tile's two (QT, hd + 1) panels (q
+// or dc, the forward's second one unused), and one M-long row per warp.
 __host__ __device__ inline size_t sa_rows_smem_floats(int M, int hd) {
   return (size_t)2 * M * (hd + 1) + (size_t)2 * QT * (hd + 1) + (size_t)fk::kWarps * M;
-}
-
-// ... and of the kernel over key tiles: one head's q and dc rows of every
-// query, the tile's k and v rows and the row statistics (max, 1 / sum, D).
-__host__ __device__ inline size_t sa_keys_smem_floats(int M, int hd) {
-  return (size_t)2 * M * (hd + 1) + (size_t)2 * QT * (hd + 1) + (size_t)3 * M;
-}
-
-// rows [r0, r0 + n) of head h of an (M, E) panel into dst[n][hd + 1] (odd
-// row stride: lane j reading row j is conflict-free), zero past M
-__device__ __forceinline__ void stage_head(float* dst, const float* src, int r0, int n, int M,
-                                           int E, int h, int hd) {
-  const int ldh = hd + 1;
-  for (int i = threadIdx.x; i < n * hd; i += fk::kThreads) {
-    const int r = i / hd;
-    const int d = i - r * hd;
-    dst[r * ldh + d] = r0 + r < M ? src[(size_t)(r0 + r) * E + h * hd + d] : 0.f;
-  }
 }
 
 __device__ __forceinline__ float dot_h(const float* a, const float* b, int hd) {
@@ -554,10 +518,8 @@ __device__ __forceinline__ float dot_h(const float* a, const float* b, int hd) {
   return s;
 }
 
-// 1. q = (x + pos) Wq + bq, k = (x + pos) Wk + bk, v = x Wv + bv into
-//    qkv[b][0..2]: one block per (TBM-row tile, video, projection); the
-//    forward takes 32-row tiles (kFwdRows), the backward 64
-template <int TBM>
+// 1 (forward). q = (x + pos) Wq + bq, k = (x + pos) Wk + bk, v = x Wv + bv
+//    into qkv[b][0..2]: one block per (kFwdRows-row tile, video, projection)
 __global__ void __launch_bounds__(fk::kThreads)
 sa_qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
               const float* __restrict__ wq, const float* __restrict__ bq,
@@ -565,16 +527,17 @@ sa_qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp
               const float* __restrict__ wv, const float* __restrict__ bv,
               float* __restrict__ qkv, int M, int E) {
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<TBM>& s = *reinterpret_cast<fk::GemmSmem<TBM>*>(smem_raw);
-  const int r0 = blockIdx.x * TBM;
+  fk::GemmSmem<kFwdRows>& s = *reinterpret_cast<fk::GemmSmem<kFwdRows>*>(smem_raw);
+  const int r0 = blockIdx.x * kFwdRows;
   const int b = blockIdx.y;
   const int which = blockIdx.z;
   const size_t ME = (size_t)M * E;
   const float* W = which == 0 ? wq : which == 1 ? wk : wv;
   const float* bias = which == 0 ? bq : which == 1 ? bk : bv;
   float* out = qkv + ((size_t)b * 3 + which) * ME;
-  rows_gemm<TBM>(Rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E}, W, E, E, r0, M,
-                 [&](int r, int c, float v) { out[(size_t)r * E + c] = v + __ldg(bias + c); }, s);
+  rows_gemm<kFwdRows>(Rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E}, W, E, E, r0, M,
+                      [&](int r, int c, float v) { out[(size_t)r * E + c] = v + __ldg(bias + c); },
+                      s);
 }
 
 // rows [r0, r0 + n) of head h of a panel with row stride ld into dst[n][hd + 1]
@@ -591,20 +554,17 @@ __device__ __forceinline__ void stage_head_async(float* dst, const float* src, i
   }
 }
 
-// 2. per (query tile, head, video): each query row's softmax over the M keys
-//    by one warp and its context c_h = (P * keep) v_h, into c (B, M, E).
-//    q, k and v of video b, token m sit at qkv + b * bstride + m * ld (+ koff,
-//    + voff), head h's columns at + h * hd; K_h and V_h of every key and the
-//    tile's q rows are staged by cp.async.  Both directions hash the keep
-//    values inline (drop: SA stream 0 over (B, H*M, M), the index layout of
+// 2 (forward). per (query tile, head, video): each query row's softmax over
+//    the M keys by one warp and its context c_h = (P * keep) v_h, into c (B,
+//    M, E).  q, k and v of video b, token m sit at qkv + b * bstride + m * ld
+//    (+ koff, + voff), head h's columns at + h * hd; K_h and V_h of every key
+//    and the tile's q rows are staged by cp.async.  The keep values are
+//    hashed inline (drop: SA stream 0 over (B, H*M, M), the index layout of
 //    ops/sa_layer.py::sa_dropout_masks, so the bits equal the mask
-//    kernel's), or read a replayed mask (keep_a) where one is given; the
-//    backward takes each row's statistics (max, 1 / sum) into
-//    stats[b][h][m][0..1].
+//    kernel's; the backward's probabilities kernel draws the same).
 __global__ void __launch_bounds__(fk::kThreads)
 sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int koff, int voff,
-                  const float* __restrict__ keep_a, fk::Dropout drop, float* __restrict__ c,
-                  float* __restrict__ stats, int M, int E, int H) {
+                  fk::Dropout drop, float* __restrict__ c, int M, int E, int H) {
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
@@ -639,10 +599,7 @@ sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int 
     const float inv = 1.f / fk::warp_sum(sum);
     for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
       float p = expf(pw[j] - mx) * inv;
-      if (keep_a != nullptr)
-        p *= __ldg(keep_a + row * M + j);
-      else if (drop.seed != nullptr)
-        p *= drop.keep((uint32_t)row * (uint32_t)M + (uint32_t)j, seed);
+      if (drop.seed != nullptr) p *= drop.keep((uint32_t)row * (uint32_t)M + (uint32_t)j, seed);
       pw[j] = p;
     }
     __syncwarp();
@@ -650,10 +607,6 @@ sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int 
       float o = 0.f;
       for (int j = 0; j < M; ++j) o = fmaf(pw[j], vs[j * ldh + d], o);
       c[(size_t)b * ME + (size_t)m * E + h * hd + d] = o;
-    }
-    if (stats != nullptr && tx == 0) {
-      stats[row * 3] = mx;
-      stats[row * 3 + 1] = inv;
     }
     __syncwarp();
   }
@@ -687,59 +640,270 @@ sa_out_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
   fk::layer_norm_rows(y + off + (size_t)r0 * E, rows, rows, E, gamma, beta, eps);
 }
 
-// 3. per (64-row tile, video): res = x + drop_o(c Wo + bo), its LayerNorm
-//    statistics and backward (res is overwritten with dres; dgamma and dbeta
-//    of the tile into part[b * tiles + tile]), dout = dres * keep_o, and
-//    dc = dout Wo^T; keep_o the replayed mask or hashed (drop_o)
-__global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                 const float* __restrict__ wo, const float* __restrict__ bo,
-                 const float* __restrict__ wot, const float* __restrict__ gamma,
-                 const float* __restrict__ keep_o, fk::Dropout drop_o, const float* __restrict__ g,
-                 float* __restrict__ res, float* __restrict__ dout, float* __restrict__ dc,
-                 float* __restrict__ part, int M, int E, float eps) {
-  extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  float* mean = reinterpret_cast<float*>(smem_raw) + sizeof(fk::GemmSmem<BM>) / sizeof(float);
-  float* rstd = mean + BM;
-  const int tile = blockIdx.x;
-  const int r0 = tile * BM;
-  const int b = blockIdx.y;
-  const int rows = min(BM, M - r0);
-  const size_t off = (size_t)b * M * E;
-  const size_t t0 = (size_t)r0 * E;
-  const float* xb = x + off;
-  const Keep ko(keep_o, drop_o);
-  float* rb = res + off;
-  float* db = dout + off;
-  rows_gemm(Rows{c + off, nullptr, 0, r0, M, E}, wo, E, E, r0, M,
-            [&](int r, int col, float v) {
-              const size_t e = (size_t)r * E + col;
-              v += __ldg(bo + col);
-              if (ko.on()) v *= ko.at(off + e);
-              rb[e] = v + __ldg(xb + e);
-            }, s);
-  __syncthreads();
-  ln_stats(rb + t0, rows, E, eps, mean, rstd);
-  __syncthreads();
-  ln_backward(rb + t0, g + off + t0, gamma, mean, rstd, rows, E,
-              part + ((size_t)b * gridDim.x + tile) * 2 * E, ko, off + t0, db + t0);
-  __syncthreads();
-  rows_gemm(Rows{db, nullptr, 0, r0, M, E}, wot, E, E, r0, M,
-            [&](int r, int col, float v) { dc[off + (size_t)r * E + col] = v; }, s);
+// ---------------------------------------------------------------------------
+// The SA backward's own kernels (the entry, fk_sa_bwd, is below).
+
+// The SA backward's workspace (floats; each region starts on 64 floats),
+// the batch's R = B * M token rows one row space:
+//   lens   R (an int: the GEMMs' one row length)
+//   pack   the eight weights as tc_rows_gemm multiplies them (fk_k6_pack's
+//          layout: hi then lo, N = E rows of Kp = E rounded up to 32): Wq^T,
+//          Wk^T, Wv^T (the q | k | v problems), then, each in S K slices of
+//          Kp / S, Wo^T (c Wo), Wo (dout Wo^T), Wq, Wk, Wv (the parts of dx)
+//   rows   (R, 3E + 4) = [x + pos | x | c | 1 0 0 0]: the A operand of the q,
+//          k, v and out products and of the weight products
+//   qkv    (3, R, E): q, k and v
+//   o      (S, R, E): c Wo;  dres (R, E);  dc (S, R, E): dout Wo^T
+//   grads  (R, 4E) = [dq | dk | dv | dout]: the A operand of dx, the B
+//          operand of the weight products
+//   dxo    (3, S, R, E): dq Wq^T, dk Wk^T, dv Wv^T
+//   P, dS  (B H M, M) each: the probabilities (then P * keep) and dS
+//   part   (ceil(R / 16), 2, E): the LayerNorm tiles' dgamma | dbeta
+//   wpart  (chunks, Sw): each chunk of Kc rows' weight products side by
+//          side, Sw = [dWq | dWk] (E, 2E), dWv (E, E), dWo (E, E), the bias
+//          sums (4E)
+// and the results, in a buffer of their own (out_floats; the caller's
+// gradients may outlive the call, and the scratch need not):
+//   dx (R, E), dpos (M, Pp), then dw: dWq, dWk, dWv, dWo (E, E) each, dbq,
+//   dbk, dbv, dbo, dgamma, dbeta (E) each
+constexpr int kSaPacks = 8;
+constexpr int kSaPairs = 4;
+constexpr int kH100SMs = 132;  // an H100's SMs: the weight products' chunks fill one wave
+
+struct SaWorkspace {
+  size_t lens, pack, rows, qkv, o, dres, dc, grads, dxo, P, dS, part, wpart, total;
+  size_t dx, dpos, dw, out_floats;  // offsets into the results' buffer
+  int Kp, S, Kc, chunks, ln_tiles;
+  long long Sw;  // floats of one chunk's weight products
+};
+
+// K slices of the out, dc and dx products: 4 or 2, whichever leaves each
+// slice whole 32-deep steps, two or more; else 1.  A 128 x 128 tile's chain of
+// K steps is the tower GEMM's time at these row counts (6 tiles a product at
+// the flagship's R = 320; ~2.3 us a 32-deep step promoted every 8 deep, H100
+// 80GB HBM3, 700 W), so a product takes a problem a slice and its consumer
+// adds the slices as it reads them.  q | k | v stays whole: its consumers
+// stage every key's rows, in each of a head's query tiles.
+inline int sa_slices(int Kp) {
+  for (int s = 4; s > 1; s /= 2)
+    if (Kp % (32 * s) == 0 && Kp / s >= 64) return s;
+  return 1;
 }
 
-// 4. per (query tile, head, video), one warp per query row m: the row term
-//    D = dc_h[m] . c_h[m] (= sum_j p_mj dp_mj, also under the attention
-//    dropout) into stats[b][h][m][2]; dS_mj = p_mj (dPd_mj keep_mj - D)
-//    scale with p recomputed from the saved statistics and dPd = dc_h v_h^T;
-//    dq_h[m] = dS_m k_h into the first E columns of dqk; keep_a the replayed
-//    mask or hashed (drop_a)
+// the weight products' (a_c0, Ca, b_c0, Cb): [dWq | dWk] = (x + pos)^T [dq |
+// dk], dWv = x^T dv, dWo = c^T dout, and the bias sums 1^T [dq | dk | dv | dout]
+inline void sa_pairs(int E, int* p) {
+  const int v[4 * kSaPairs] = {0, E, 0, 2 * E, E, E, 2 * E, E, 2 * E, E, 3 * E, E, 3 * E, 1, 0,
+                               4 * E};
+  for (int i = 0; i < 4 * kSaPairs; ++i) p[i] = v[i];
+}
+
+inline SaWorkspace sa_workspace(int B, int M, int E, int H, int Pp) {
+  const size_t R = (size_t)B * M;
+  SaWorkspace w{};
+  w.Kp = (E + 31) / 32 * 32;
+  w.S = sa_slices(w.Kp);
+  int tiles = 0, p[4 * kSaPairs];
+  sa_pairs(E, p);
+  for (int i = 0; i < kSaPairs; ++i)
+    tiles += (p[4 * i + 1] + 127) / 128 * ((p[4 * i + 3] + 127) / 128);
+  const int want = kH100SMs / tiles > 1 ? kH100SMs / tiles : 1;
+  const int per = (int)((R + want - 1) / want);
+  w.Kc = (per + 31) / 32 * 32;
+  w.chunks = (int)((R + w.Kc - 1) / w.Kc);
+  w.ln_tiles = (int)((R + kLnRows - 1) / kLnRows);
+  w.Sw = 4LL * E * E + 4LL * E;
+  size_t at = 0;
+  const auto take = [&](size_t n) {
+    const size_t o = at;
+    at += (n + 63) / 64 * 64;
+    return o;
+  };
+  w.lens = take(1);
+  w.pack = take((size_t)kSaPacks * 2 * E * w.Kp);
+  w.rows = take(R * (3 * E + 4));
+  w.qkv = take(3 * R * E);
+  w.o = take(w.S * R * E);
+  w.dres = take(R * E);
+  w.dc = take(w.S * R * E);
+  w.grads = take(R * 4 * E);
+  w.dxo = take(3 * w.S * R * E);
+  w.P = take(R * H * M);
+  w.dS = take(R * H * M);
+  w.part = take((size_t)w.ln_tiles * 2 * E);
+  w.wpart = take((size_t)w.chunks * w.Sw);
+  w.total = at;
+  at = 0;
+  w.dx = take(R * E);
+  w.dpos = take((size_t)M * Pp);
+  w.dw = take((size_t)w.Sw + 2 * E);
+  w.out_floats = at;
+  return w;
+}
+
+// 0. the GEMMs' operands in one launch: blocks [0, 8 * tiles) pack the
+//    weights (a 32 x 32 tile of one pack a block, through shared memory, the
+//    TF32 hi and lo parts; K past E zero), the others write rows = [x + pos
+//    | x | 0 | 1 0 0 0] (c's columns zeroed: the q, k, v products read past
+//    their E channels where E % 32 != 0) and lens[0] = R
 __global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
-                 const float* __restrict__ dc, const float* __restrict__ keep_a,
-                 fk::Dropout drop_a, float* __restrict__ stats, float* __restrict__ dqk, int M,
-                 int E, int H) {
+sa_bwd_prep_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
+                   const float* __restrict__ wq, const float* __restrict__ wk,
+                   const float* __restrict__ wv, const float* __restrict__ wo,
+                   float* __restrict__ pack, float* __restrict__ rows, int* __restrict__ lens,
+                   int R, int M, int E, int Kp, int S) {
+  __shared__ float tile[32][33];
+  const int tn = (E + 31) / 32, tk = Kp / 32, per = tn * tk;
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x < kSaPacks * per) {
+    const int j = blockIdx.x / per, t = blockIdx.x - j * per;
+    const float* src = j == 0 || j == 5 ? wq : j == 1 || j == 6 ? wk : j == 2 || j == 7 ? wv : wo;
+    const bool tr = j < 4;  // W^T: dst[n][k] = W[k][n]; else dst[n][k] = W[n][k]
+    const int n0 = (t / tk) * 32, k0 = (t % tk) * 32;
+    const int tx = tid & 31, ty = tid >> 5;
+    for (int i = ty; i < 32; i += fk::kWarps) {
+      if (tr) {  // tile[k][n], rows of W read whole
+        const int k = k0 + i, n = n0 + tx;
+        tile[i][tx] = k < E && n < E ? __ldg(src + (size_t)k * E + n) : 0.f;
+      } else {
+        const int n = n0 + i, k = k0 + tx;
+        tile[i][tx] = k < E && n < E ? __ldg(src + (size_t)n * E + k) : 0.f;
+      }
+    }
+    __syncthreads();
+    const int Ks = j < 3 ? Kp : Kp / S;  // one K slice; a 32-wide tile lies in one
+    const int sl = k0 / Ks;
+    float* dst = pack + (size_t)j * 2 * E * Kp + (size_t)sl * 2 * E * Ks;
+    for (int i = ty; i < 32; i += fk::kWarps) {
+      const int n = n0 + i, k = k0 - sl * Ks + tx;
+      if (n >= E) continue;
+      float hi, lo;
+      tc::split(tr ? tile[tx][i] : tile[i][tx], hi, lo);
+      dst[(size_t)n * Ks + k] = hi;
+      dst[(size_t)E * Ks + (size_t)n * Ks + k] = lo;
+    }
+    return;
+  }
+  const int w4 = (3 * E + 4) / 4;
+  const long long nb = (long long)(gridDim.x - kSaPacks * per) * fk::kThreads;
+  const long long t0 = (long long)(blockIdx.x - kSaPacks * per) * fk::kThreads + tid;
+  if (t0 == 0) lens[0] = R;
+  for (long long i = t0; i < (long long)R * w4; i += nb) {
+    const long long r = i / w4;
+    const int c = (int)(i - r * w4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < 2 * E) {  // x's rows may start off 16 bytes: four loads
+      const int cc = c < E ? c : c - E;
+      const float* xr = x + r * E + cc;
+      v = make_float4(__ldg(xr), __ldg(xr + 1), __ldg(xr + 2), __ldg(xr + 3));
+      if (c < E && pos != nullptr) {
+        const float* pr = pos + (r % M) * Pp;
+        if (cc < Pp) v.x += __ldg(pr + cc);
+        if (cc + 1 < Pp) v.y += __ldg(pr + cc + 1);
+        if (cc + 2 < Pp) v.z += __ldg(pr + cc + 2);
+        if (cc + 3 < Pp) v.w += __ldg(pr + cc + 3);
+      }
+    } else if (c == 3 * E) {
+      v.x = 1.f;
+    }
+    reinterpret_cast<float4*>(rows + r * (3 * E + 4))[c / 4] = v;
+  }
+}
+
+// The backward's attention over query tiles: per (32-query tile, head,
+// video), warp w owns the tile's rows w, w + 8, w + 16, w + 24 and works on
+// the four at once, so that each key row read from shared memory serves four
+// query rows (one row at a time, two shared-memory reads a product, took
+// 0.038-0.044 ms a kernel at epic's B=1, M=300, four 0.021-0.027; H100 80GB
+// HBM3, 700 W).  In
+// shared memory: one head's rows of one (M, E) panel at a time (k or v, odd
+// row stride hd + 1: lane j reading key j is conflict-free), the tile's rows
+// of the query-side panel (q or dc) by dimension, four rows a float4
+// (rt[w][d]), and a float4 a key of the four rows' values (pw[w][j]).  Every
+// sum runs in the order of the one-row kernels (d, then j, in order), so the
+// results are theirs bit for bit.
+constexpr int kRows4 = QT / fk::kWarps;  // query rows of a warp (4)
+
+__host__ __device__ inline size_t sa_bwd_rows_smem_floats(int M, int hd) {
+  return ((size_t)M * (hd + 1) + 3) / 4 * 4 + (size_t)QT * hd + (size_t)QT * M;
+}
+
+// the tile's rows [m0, m0 + QT) of head h of a panel (row stride ld; the sum
+// of `slices` K slices sstride apart, at most 4, loaded together and added in
+// order) into rt[w][d] (row w + 8 i in component i), zero past M
+__device__ __forceinline__ void stage_rows4(float4* rt, const float* __restrict__ src, int ld,
+                                            long long sstride, int slices, int m0, int M, int h,
+                                            int hd) {
+  float* r = reinterpret_cast<float*>(rt);
+  for (int e = threadIdx.x; e < QT * hd; e += fk::kThreads) {
+    const int row = e / hd;
+    const int d = e - row * hd;
+    float v = 0.f;
+    if (m0 + row < M) {
+      const float* p = src + (size_t)(m0 + row) * ld + h * hd + d;
+      float t[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[k] = k < slices ? __ldg(p + k * sstride) : 0.f;
+      v = t[0];
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        if (k < slices) v += t[k];
+    }
+    r[((row % fk::kWarps) * hd + d) * kRows4 + row / fk::kWarps] = v;
+  }
+}
+
+// the four rows' dot products with key row kr: a[i] = sum_d rw[d].i kr[d]
+__device__ __forceinline__ void dot4(const float4* rw, const float* kr, int hd, float (&a)[4]) {
+  a[0] = a[1] = a[2] = a[3] = 0.f;
+  for (int d = 0; d < hd; ++d) {
+    const float k = kr[d];
+    const float4 r = rw[d];
+    a[0] = fmaf(r.x, k, a[0]);
+    a[1] = fmaf(r.y, k, a[1]);
+    a[2] = fmaf(r.z, k, a[2]);
+    a[3] = fmaf(r.w, k, a[3]);
+  }
+}
+
+// o[i] = sum_j pw[j].i vs[j][d], j in order
+__device__ __forceinline__ void attend4(const float4* pw, const float* vs, int ldh, int d, int M,
+                                        float (&o)[4]) {
+  o[0] = o[1] = o[2] = o[3] = 0.f;
+  for (int j = 0; j < M; ++j) {
+    const float v = vs[j * ldh + d];
+    const float4 p = pw[j];
+    o[0] = fmaf(p.x, v, o[0]);
+    o[1] = fmaf(p.y, v, o[1]);
+    o[2] = fmaf(p.z, v, o[2]);
+    o[3] = fmaf(p.w, v, o[3]);
+  }
+}
+
+// component i of a float4 (i a constant once the loops over it unroll)
+__device__ __forceinline__ float get4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void set4(float4& v, int i, float x) {
+  if (i == 0)
+    v.x = x;
+  else if (i == 1)
+    v.y = x;
+  else if (i == 2)
+    v.z = x;
+  else
+    v.w = x;
+}
+
+// 2. per (query tile, head, video): each query row's probabilities P
+//    (kept, before the dropout) and its context c_h = (P * keep_a) v_h into
+//    c (row stride ldc); q, k, v: (R, E) panels RE apart at qkv; keep_a the
+//    replayed mask or hashed (drop: the forward's bits)
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_probs_kernel(const float* __restrict__ qkv, long long RE,
+                    const float* __restrict__ keep_a, fk::Dropout drop, float* __restrict__ c,
+                    int ldc, float* __restrict__ P, int M, int E, int H) {
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
@@ -749,176 +913,357 @@ sa_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ c,
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
   const float scale = 1.f / sqrtf((float)hd);
-  const size_t ME = (size_t)M * E;
-  const float* qb = qkv + (size_t)b * 3 * ME;
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + (size_t)M * ldh;
-  float* qs = vs + (size_t)M * ldh;
-  float* dcs = qs + (size_t)QT * ldh;
-  float* pw = dcs + (size_t)QT * ldh + (size_t)ty * M;
-  stage_head(ks, qb + ME, 0, M, M, E, h, hd);
-  stage_head(vs, qb + 2 * ME, 0, M, M, E, h, hd);
-  stage_head(qs, qb, m0, QT, M, E, h, hd);
-  stage_head(dcs, dc + (size_t)b * ME, m0, QT, M, E, h, hd);
-  const Keep ka(keep_a, drop_a);
+  const size_t vb = (size_t)b * M * E;
+  float* kv = reinterpret_cast<float*>(smem_raw);  // k, then v
+  float4* rt = reinterpret_cast<float4*>(kv + ((size_t)M * ldh + 3) / 4 * 4);
+  float4* pw = rt + (size_t)fk::kWarps * hd + (size_t)ty * M;
+  const float4* rw = rt + (size_t)ty * hd;
+  stage_head_async(kv, qkv + RE + vb, E, 0, M, M, h, hd);
+  stage_rows4(rt, qkv + vb, E, 0, 1, m0, M, h, hd);
+  const Keep ka(keep_a, drop);
+  size_t row[kRows4];
+  bool live[kRows4];
+#pragma unroll
+  for (int i = 0; i < kRows4; ++i) {
+    const int m = m0 + ty + fk::kWarps * i;
+    live[i] = m < M;
+    row[i] = ((size_t)b * H + h) * M + m;
+  }
+  fk::cp_async_wait_all();
   __syncthreads();
-  for (int r = ty; r < min(QT, M - m0); r += fk::kWarps) {
-    const int m = m0 + r;
-    const size_t row = ((size_t)b * H + h) * M + m;
-    const float* qr = qs + r * ldh;
-    const float* dr = dcs + r * ldh;
-    const float* cr = c + (size_t)b * ME + (size_t)m * E + h * hd;
-    float dsum = 0.f;
-    for (int d = tx; d < hd; d += 32) dsum = fmaf(dr[d], cr[d], dsum);
-    const float D = fk::warp_sum(dsum);
-    const float mx = stats[row * 3];
-    const float inv = stats[row * 3 + 1];
-    for (int j = tx; j < M; j += 32) {
-      const float p = expf(dot_h(qr, ks + j * ldh, hd) * scale - mx) * inv;
-      float dp = dot_h(dr, vs + j * ldh, hd);
-      if (ka.on()) dp *= ka.at(row * M + j);
-      pw[j] = p * (dp - D) * scale;
+  float mx[kRows4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int j = tx; j < M; j += 32) {
+    float a[4];
+    dot4(rw, kv + j * ldh, hd, a);
+    const float4 s = make_float4(a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale);
+    pw[j] = s;
+    mx[0] = fmaxf(mx[0], s.x);
+    mx[1] = fmaxf(mx[1], s.y);
+    mx[2] = fmaxf(mx[2], s.z);
+    mx[3] = fmaxf(mx[3], s.w);
+  }
+  float sum[kRows4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kRows4; ++i) mx[i] = fk::warp_max(mx[i]);
+  for (int j = tx; j < M; j += 32) {
+    float4 s = pw[j];
+#pragma unroll
+    for (int i = 0; i < kRows4; ++i) sum[i] += expf(get4(s, i) - mx[i]);
+  }
+  float inv[kRows4];
+#pragma unroll
+  for (int i = 0; i < kRows4; ++i) inv[i] = 1.f / fk::warp_sum(sum[i]);
+  for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
+    float4 s = pw[j];
+#pragma unroll
+    for (int i = 0; i < kRows4; ++i) {
+      float p = 0.f;
+      if (live[i]) {
+        p = expf(get4(s, i) - mx[i]) * inv[i];
+        P[row[i] * M + j] = p;
+        if (ka.on()) p *= ka.at(row[i] * M + j);
+      }
+      set4(s, i, p);
     }
-    __syncwarp();
-    for (int d = tx; d < hd; d += 32) {
-      float a = 0.f;
-      for (int j = 0; j < M; ++j) a = fmaf(pw[j], ks[j * ldh + d], a);
-      dqk[((size_t)b * M + m) * 2 * E + h * hd + d] = a;
-    }
-    if (tx == 0) stats[row * 3 + 2] = D;
-    __syncwarp();
+    pw[j] = s;
+  }
+  __syncthreads();  // every warp is done with k: v takes its place
+  stage_head_async(kv, qkv + 2 * RE + vb, E, 0, M, M, h, hd);
+  fk::cp_async_wait_all();
+  __syncthreads();
+  for (int d = tx; d < hd; d += 32) {
+    float o[4];
+    attend4(pw, kv, ldh, d, M, o);
+#pragma unroll
+    for (int i = 0; i < kRows4; ++i)
+      if (live[i]) c[((size_t)b * M + m0 + ty + fk::kWarps * i) * ldc + h * hd + d] = o[i];
   }
 }
 
-// 5. per (key tile, head, video): each warp owns 4 keys of the tile and
-//    walks every query row i, lanes over the head's dimensions (NT per
-//    lane): p_ij and dS_ij recomputed from the saved statistics and D, then
-//    dv_h[j] += (p_ij keep_ij) dc_h[i] and dk_h[j] += dS_ij q_h[i] in
-//    registers, in row order; dk_h into the last E columns of dqk, dv_h into
-//    dv; keep_a the replayed mask or hashed (drop_a), each lane reading or
-//    hashing one of the warp's 4 keys x 8 rows and shuffling it to the others
-template <int NT>
+// 5. per (query tile, head, video): each query row m's term D = dc_h[m] .
+//    c_h[m] (= sum_j p_mj dPd_mj keep_mj, also under the attention dropout);
+//    dS_mj = p_mj (dPd_mj keep_mj - D) scale with p from P and dPd = dc_h
+//    v_h^T, into dS, and P * keep into P; dq_h[m] = dS_m k_h into dq (row
+//    stride ldg).  k, v: (R, E) panels; dc: an (R, E) panel of `slices` K
+//    slices sstride apart; c at c (row stride ldc); keep_a the replayed mask
+//    or hashed (drop_a)
 __global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dc,
-                  const float* __restrict__ keep_a, fk::Dropout drop_a,
-                  const float* __restrict__ stats,
-                  float* __restrict__ dqk, float* __restrict__ dv, int M, int E, int H) {
-  constexpr int KW = QT / fk::kWarps;  // keys per warp
+sa_bwd_dq_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dc, int slices, long long sstride,
+                 const float* __restrict__ c, int ldc, const float* __restrict__ keep_a,
+                 fk::Dropout drop_a, float* __restrict__ P, float* __restrict__ dS,
+                 float* __restrict__ dq, int ldg, int M, int E, int H) {
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
-  const int j0 = blockIdx.x * QT;
+  const int m0 = blockIdx.x * QT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
   const float scale = 1.f / sqrtf((float)hd);
-  const size_t ME = (size_t)M * E;
-  const float* qb = qkv + (size_t)b * 3 * ME;
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* dcs = qs + (size_t)M * ldh;
-  float* kt = dcs + (size_t)M * ldh;
-  float* vt = kt + (size_t)QT * ldh;
-  float* st = vt + (size_t)QT * ldh;
-  const size_t row0 = ((size_t)b * H + h) * M;
-  stage_head(qs, qb, 0, M, M, E, h, hd);
-  stage_head(dcs, dc + (size_t)b * ME, 0, M, M, E, h, hd);
-  stage_head(kt, qb + ME, j0, QT, M, E, h, hd);
-  stage_head(vt, qb + 2 * ME, j0, QT, M, E, h, hd);
-  for (int i = threadIdx.x; i < 3 * M; i += fk::kThreads) st[i] = stats[row0 * 3 + i];
+  const size_t vb = (size_t)b * M * E;  // video b's first row of an (R, E) panel
+  float* kv = reinterpret_cast<float*>(smem_raw);  // v, then k
+  float4* rt = reinterpret_cast<float4*>(kv + ((size_t)M * ldh + 3) / 4 * 4);
+  float4* pw = rt + (size_t)fk::kWarps * hd + (size_t)ty * M;
+  const float4* rw = rt + (size_t)ty * hd;
+  stage_head_async(kv, v + vb, E, 0, M, M, h, hd);
+  stage_rows4(rt, dc + vb, E, sstride, slices, m0, M, h, hd);
   const Keep ka(keep_a, drop_a);
+  fk::cp_async_wait_all();
   __syncthreads();
-
-  float kr[KW][NT], vr[KW][NT], ak[KW][NT], av[KW][NT];
+  float D[kRows4];
+  size_t row[kRows4];
+  bool live[kRows4];
 #pragma unroll
-  for (int u = 0; u < KW; ++u)
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int d = tx + 32 * t;
-      const int jl = ty * KW + u;
-      kr[u][t] = d < hd ? kt[jl * ldh + d] : 0.f;
-      vr[u][t] = d < hd ? vt[jl * ldh + d] : 0.f;
-      ak[u][t] = av[u][t] = 0.f;
+  for (int i = 0; i < kRows4; ++i) {
+    const int m = m0 + ty + fk::kWarps * i;
+    live[i] = m < M;
+    row[i] = ((size_t)b * H + h) * M + m;
+    float dsum = 0.f;
+    if (live[i]) {
+      const float* cr = c + ((size_t)b * M + m) * ldc + h * hd;
+      for (int d = tx; d < hd; d += 32) dsum = fmaf(get4(rw[d], i), cr[d], dsum);
     }
-  const int jw = j0 + ty * KW;  // the warp's first key
-  constexpr int KR = 32 / KW;   // query rows whose keep values the warp's lanes hold at once
-  float kl = 1.f;  // lane tx's keep value of (row i - i % KR + tx / KW, key jw + tx % KW)
-  for (int i = 0; i < M; ++i) {
-    if (ka.on() && i % KR == 0) {  // warp-uniform: one load or hash a lane for KR rows
-      const int il = i + tx / KW, j = jw + tx % KW;
-      kl = il < M && j < M ? ka.at((row0 + il) * M + j) : 1.f;
-    }
-    float qd[NT], dd[NT];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int d = tx + 32 * t;
-      qd[t] = d < hd ? qs[i * ldh + d] : 0.f;
-      dd[t] = d < hd ? dcs[i * ldh + d] : 0.f;
-    }
-    float sp[KW], dp[KW];
-#pragma unroll
-    for (int u = 0; u < KW; ++u) {
-      float a = 0.f, e = 0.f;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        a = fmaf(qd[t], kr[u][t], a);
-        e = fmaf(dd[t], vr[u][t], e);
-      }
-      sp[u] = fk::warp_sum(a);
-      dp[u] = fk::warp_sum(e);
-    }
-    const float mx = st[3 * i], inv = st[3 * i + 1], D = st[3 * i + 2];
-#pragma unroll
-    for (int u = 0; u < KW; ++u) {
-      const float p = expf(sp[u] * scale - mx) * inv;
-      const float keep = ka.on() ? __shfl_sync(0xffffffffu, kl, (i % KR) * KW + u) : 1.f;
-      const float pd = p * keep;
-      const float ds = p * (dp[u] * keep - D) * scale;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        av[u][t] = fmaf(pd, dd[t], av[u][t]);
-        ak[u][t] = fmaf(ds, qd[t], ak[u][t]);
-      }
-    }
+    D[i] = fk::warp_sum(dsum);
   }
+  for (int j = tx; j < M; j += 32) {
+    float a[4];
+    dot4(rw, kv + j * ldh, hd, a);
+    float4 s;
 #pragma unroll
-  for (int u = 0; u < KW; ++u) {
-    const int j = jw + u;
-    if (j >= M) continue;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int d = tx + 32 * t;
-      if (d >= hd) continue;
-      dqk[((size_t)b * M + j) * 2 * E + E + h * hd + d] = ak[u][t];
-      dv[(size_t)b * ME + (size_t)j * E + h * hd + d] = av[u][t];
+    for (int i = 0; i < kRows4; ++i) {
+      float ds = 0.f;
+      if (live[i]) {
+        const size_t e = row[i] * M + j;
+        const float p = P[e];
+        float dp = a[i];
+        if (ka.on()) {
+          const float kk = ka.at(e);
+          dp *= kk;
+          P[e] = p * kk;
+        }
+        ds = p * (dp - D[i]) * scale;
+        dS[e] = ds;
+      }
+      set4(s, i, ds);
     }
+    pw[j] = s;
+  }
+  __syncthreads();  // every warp is done with v: k takes its place
+  stage_head_async(kv, k + vb, E, 0, M, M, h, hd);
+  fk::cp_async_wait_all();
+  __syncthreads();
+  for (int d = tx; d < hd; d += 32) {
+    float o[4];
+    attend4(pw, kv, ldh, d, M, o);
+#pragma unroll
+    for (int i = 0; i < kRows4; ++i)
+      if (live[i]) dq[((size_t)b * M + m0 + ty + fk::kWarps * i) * ldg + h * hd + d] = o[i];
   }
 }
 
-// 6. per (64-row tile, video): dxa = [dq | dk] @ [Wq^T ; Wk^T] and
-//    dx = dres + dxa + dv Wv^T
+// 6. per (key tile, head, video): dk_h[j] = sum_i dS_ij q_h[i] and dv_h[j] =
+//    sum_i (P keep)_ij dc_h[i] in row order, over chunks of QC query rows
+//    staged in shared memory at once (their q and dc rows, the tile's columns
+//    of dS and P * keep; QC = sa_dkv_rows: every row of the zoo's M in one
+//    chunk, its loads issued in batches, so that the block waits on them a
+//    few times: 32-row chunks, a wait each, took 0.043 ms at epic's B=1,
+//    M=300, this 0.030, on an H100 80GB HBM3 at 700 W); thread (j, u) holds
+//    key j's dimensions 4u .. 4u + 3 and 32 + 4u .. 32 + 4u + 3 (hd <= 64,
+//    hd % 4 == 0), of both sums.  q: an (R, E) panel; dc: one of `slices` K
+//    slices sstride apart.  dk into dk, dv into dk + E (row stride ldg)
+constexpr int kDkvBudget = 200 * 1024;  // bytes of a dkv block's staged rows
+
+__host__ __device__ inline int sa_dkv_rows(int M, int hd) {
+  const int fit = kDkvBudget / (4 * (2 * hd + 2 * (QT + 1)));
+  return M < fit ? M : fit;
+}
+
 __global__ void __launch_bounds__(fk::kThreads)
-sa_bwd_dx_kernel(const float* __restrict__ dqk, const float* __restrict__ dv,
-                 const float* __restrict__ dres, const float* __restrict__ wqkt,
-                 const float* __restrict__ wvt, float* __restrict__ dxa, float* __restrict__ dx,
-                 int M, int E) {
+sa_bwd_dkv_kernel(const float* __restrict__ qp, const float* __restrict__ dc, int slices,
+                  long long sstride, const float* __restrict__ Pd, const float* __restrict__ dS,
+                  float* __restrict__ dk, int ldg, int M, int E, int H, int QC) {
   extern __shared__ float4 smem_raw[];
-  fk::GemmSmem<BM>& s = *reinterpret_cast<fk::GemmSmem<BM>*>(smem_raw);
-  const int r0 = blockIdx.x * BM;
-  const int b = blockIdx.y;
-  const size_t off = (size_t)b * M * E;
-  rows_gemm(Rows{dqk + 2 * off, nullptr, 0, r0, M, 2 * E}, wqkt, 2 * E, E, r0, M,
-            [&](int r, int col, float v) { dxa[off + (size_t)r * E + col] = v; }, s);
-  __syncthreads();
-  // plain loads of dxa: written above, by this thread (same pass mapping)
-  rows_gemm(Rows{dv + off, nullptr, 0, r0, M, E}, wvt, E, E, r0, M,
-            [&](int r, int col, float v) {
-              const size_t e = off + (size_t)r * E + col;
-              dx[e] = v + dres[e] + dxa[e];
-            }, s);
+  const int hd = E / H;
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [QC][hd]
+  float* gs = qs + (size_t)QC * hd;                 // [QC][hd]: dc
+  float* ss = gs + (size_t)QC * hd;                 // [QC][QT + 1]: dS
+  float* ps = ss + (size_t)QC * (QT + 1);           // [QC][QT + 1]: P * keep
+  const int j0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int jj = tid >> 3, u = tid & 7;
+  const size_t row0 = ((size_t)b * H + h) * M;
+  const float* qb = qp + (size_t)b * M * E + h * hd;
+  const float* db = dc + (size_t)b * M * E + h * hd;
+  const int h4 = hd / 4;
+  float4 ak[2], av[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) ak[t] = av[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < M; i0 += QC) {
+    const int n = min(QC, M - i0);
+    for (int e = tid; e < n * h4; e += fk::kThreads) {
+      const int i = e / h4, d = (e - i * h4) * 4;
+      const float* p = db + (size_t)(i0 + i) * E + d;
+      float4 t[4];  // dc's K slices (at most 4), loaded together, added in order
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < slices) t[k] = *reinterpret_cast<const float4*>(p + k * sstride);
+      float4 g = t[0];
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        if (k < slices) g = make_float4(g.x + t[k].x, g.y + t[k].y, g.z + t[k].z, g.w + t[k].w);
+      *reinterpret_cast<float4*>(qs + i * hd + d) =
+          *reinterpret_cast<const float4*>(qb + (size_t)(i0 + i) * E + d);
+      *reinterpret_cast<float4*>(gs + i * hd + d) = g;
+    }
+    // dS and P * keep, kBatch rows' loads a thread issued before any store:
+    // one row after another, each load waited for, took most of the time
+    constexpr int kBatch = 8;
+    const int j = tid & 31;
+    const bool jok = j0 + j < M;
+    for (int i = tid >> 5; i < n; i += kBatch * fk::kWarps) {
+      float sv[kBatch], pv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int ii = i + u * fk::kWarps;
+        const size_t at = (row0 + i0 + ii) * M + j0 + j;
+        const bool ok = jok && ii < n;
+        sv[u] = ok ? dS[at] : 0.f;
+        pv[u] = ok ? Pd[at] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int ii = i + u * fk::kWarps;
+        if (ii < n) {
+          ss[ii * (QT + 1) + j] = sv[u];
+          ps[ii * (QT + 1) + j] = pv[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const float s = ss[i * (QT + 1) + jj], p = ps[i * (QT + 1) + jj];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int d = 4 * u + 32 * t;
+        if (d >= hd) continue;
+        const float4 q = *reinterpret_cast<const float4*>(qs + i * hd + d);
+        const float4 g = *reinterpret_cast<const float4*>(gs + i * hd + d);
+        ak[t] = make_float4(fmaf(s, q.x, ak[t].x), fmaf(s, q.y, ak[t].y), fmaf(s, q.z, ak[t].z),
+                            fmaf(s, q.w, ak[t].w));
+        av[t] = make_float4(fmaf(p, g.x, av[t].x), fmaf(p, g.y, av[t].y), fmaf(p, g.z, av[t].z),
+                            fmaf(p, g.w, av[t].w));
+      }
+    }
+    __syncthreads();
+  }
+  const int j = j0 + jj;
+  if (j >= M) return;
+  float* out = dk + ((size_t)b * M + j) * ldg + h * hd;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int d = 4 * u + 32 * t;
+    if (d >= hd) continue;
+    *reinterpret_cast<float4*>(out + d) = ak[t];
+    *reinterpret_cast<float4*>(out + E + d) = av[t];
+  }
+}
+
+// sum of n partials at p, p + stride, ... in two fixed-order stages: each
+// run of G in order, then the runs in order
+template <int G>
+__device__ __forceinline__ float sum2(const float* __restrict__ p, size_t stride, int n) {
+  float s = 0.f;
+  for (int r = 0; r < n; r += G) {
+    float v[G];  // the run's loads issued together
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = r + k < n ? __ldg(p + (size_t)(r + k) * stride) : 0.f;
+    float t = v[0];
+#pragma unroll
+    for (int k = 1; k < G; ++k)
+      if (r + k < n) t += v[k];
+    s = r == 0 ? t : s + t;
+  }
+  return s;
+}
+
+// 9. the results, a thread an element: the weight products' chunks summed
+//    (into dw's order: [dWq | dWk]'s rows split into dWq and dWk), the
+//    LayerNorm tiles' sums (dgamma | dbeta, after dw), dx = dres + (dq Wq^T +
+//    dk Wk^T) + dv Wv^T and d(pos) = the batch sum of dxa = dq Wq^T + dk Wk^T
+//    on its Pp leading channels
+__global__ void __launch_bounds__(fk::kThreads)
+sa_bwd_finish_kernel(const float* __restrict__ wpart, int chunks, long long Sw,
+                     const float* __restrict__ part, int tiles, const float* __restrict__ dres,
+                     const float* __restrict__ dxo, int S, float* __restrict__ dw,
+                     float* __restrict__ dx, float* __restrict__ dpos, int B, int M, int E,
+                     int Pp) {
+  const long long R = (long long)B * M;
+  const long long RE = R * E;
+  const long long n_dw = Sw, n_gb = 2 * E, n_dx = RE, n_pos = (long long)M * Pp;
+  // dxo's part p (0: dq Wq^T, 1: dk Wk^T, 2: dv Wv^T) at flat (R, E) index e,
+  // its S K slices added in order
+  const auto part_of = [&](int p, long long e) {  // S <= 4: the loads issued together
+    const float* o = dxo + (long long)p * S * RE + e;
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t[k] = k < S ? __ldg(o + k * RE) : 0.f;
+    float v = t[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k)
+      if (k < S) v += t[k];
+    return v;
+  };
+  const long long n = (long long)gridDim.x * fk::kThreads;
+  for (long long i = (long long)blockIdx.x * fk::kThreads + threadIdx.x;
+       i < n_dw + n_gb + n_dx + n_pos; i += n) {
+    long long k = i;
+    if (k < n_dw) {
+      long long to = k;  // [dWq | dWk] row m, column n -> dWq or dWk, row m
+      if (k < 2LL * E * E) {
+        const long long m = k / (2 * E), n2 = k - m * 2 * E;
+        to = n2 < E ? m * E + n2 : (long long)E * E + m * E + n2 - E;
+      }
+      dw[to] = sum2<4>(wpart + k, (size_t)Sw, chunks);
+      continue;
+    }
+    k -= n_dw;
+    if (k < n_gb) {
+      dw[n_dw + k] = sum2<8>(part + k, 2 * (size_t)E, tiles);
+      continue;
+    }
+    k -= n_gb;
+    if (k < n_dx) {
+      dx[k] = __ldg(dres + k) + (part_of(0, k) + part_of(1, k)) + part_of(2, k);
+      continue;
+    }
+    k -= n_dx;
+    const int m = (int)(k / Pp), cc = (int)(k - (long long)m * Pp);
+    float s = 0.f;
+#pragma unroll 4
+    for (int b = 0; b < B; ++b) {
+      const long long e = ((long long)b * M + m) * E + cc;
+      const float a = part_of(0, e) + part_of(1, e);
+      s = b == 0 ? a : s + a;
+    }
+    dpos[k] = s;
+  }
 }
 
 }  // namespace
+
+namespace fk {
+// mstcn2.cu: the 3xTF32 GEMM and weight products over one row space
+int tc_rows_gemm(const float* a, int a_ch, int nprob, const int* c0, int K, const float* wpack,
+                 int N, int R, const int* lens, float* out, int ldo, int col_step,
+                 const float* const* bias, cudaStream_t stream);
+int tc_wgrad_pairs(const float* A, int a_ch, const float* Bm, int b_ch, int npair,
+                   const int* pairs, const int* lens, int R, int Kc, float* part,
+                   cudaStream_t stream);
+}  // namespace fk
 
 // The SA forward's projections: q, k, v into qkv (B, 3, M, E), one block
 // per (kFwdRows-row tile, video, projection).
@@ -926,11 +1271,10 @@ extern "C" int fk_sa_qkv(const float* x, const float* pos, int Pp, const float* 
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, float* qkv, int B, int M, int E, void* stream) {
   const size_t smem = sizeof(fk::GemmSmem<kFwdRows>);
-  cudaError_t err = fk::set_smem((const void*)sa_qkv_kernel<kFwdRows>, smem);
+  cudaError_t err = fk::set_smem((const void*)sa_qkv_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  sa_qkv_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B, 3), fk::kThreads, smem,
-                            (cudaStream_t)stream>>>(x, pos, Pp, wq, bq, wk, bk, wv, bv, qkv, M,
-                                                    E);
+  sa_qkv_kernel<<<dim3((M + kFwdRows - 1) / kFwdRows, B, 3), fk::kThreads, smem,
+                  (cudaStream_t)stream>>>(x, pos, Pp, wq, bq, wk, bk, wv, bv, qkv, M, E);
   return (int)cudaGetLastError();
 }
 
@@ -952,65 +1296,122 @@ extern "C" int fk_sa_attn_out(const float* qkv, long long bstride, int ld, int k
       (err = fk::set_smem((const void*)sa_out_ln_kernel<kFwdRows>, osm)) != cudaSuccess)
     return (int)err;
   sa_context_kernel<<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
-      qkv, bstride, ld, koff, voff, nullptr, fk::Dropout{seed_a, stream_a, thresh_a, scale_a}, c,
-      nullptr, M, E, H);
+      qkv, bstride, ld, koff, voff, fk::Dropout{seed_a, stream_a, thresh_a, scale_a}, c, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sa_out_ln_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B), fk::kThreads, osm, st>>>(
       x, c, wo, bo, gamma, beta, y, M, E, eps, fk::Dropout{seed_o, stream_o, thresh_o, scale_o});
   return (int)cudaGetLastError();
 }
 
+// The buffers fk_sa_bwd needs at (B, M, E, H, Pp), for its callers: out[0]
+// the workspace's floats, out[1] the results', then the offsets in the latter
+// of dx (B, M, E), d(pos) (M, Pp) and dw (dWq, dWk, dWv, dWo (E, E) each,
+// then dbq, dbk, dbv, dbo, dgamma, dbeta (E) each).
+extern "C" int fk_sa_bwd_workspace(int B, int M, int E, int H, int Pp, long long* out) {
+  const SaWorkspace w = sa_workspace(B, M, E, H, Pp);
+  const long long v[5] = {(long long)w.total, (long long)w.out_floats, (long long)w.dx,
+                          (long long)w.dpos, (long long)w.dw};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The SA backward in one call over the B * M token rows, through ws into out
+// (fk_sa_bwd_workspace's floats of each): the steps at the top of this file,
+// eleven launches.  The keep values come from keep_a / keep_o where given,
+// else are hashed from the seeds (a null seed: no dropout).
 extern "C" int fk_sa_bwd(const float* x, const float* pos, int Pp, const float* wq,
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, const float* wo, const float* bo, const float* gamma,
-                         const float* wot, const float* wqkt, const float* wvt,
-                         const float* keep_a, const float* keep_o, const float* g, float* qkv,
-                         float* c, float* res, float* dout, float* dc, float* stats, float* dqk,
-                         float* dv, float* dxa, float* dx, float* part, int B, int M, int E,
-                         int H, float eps, const int* seed_a, int stream_a, unsigned thresh_a,
-                         float scale_a, const int* seed_o, int stream_o, unsigned thresh_o,
-                         float scale_o, void* stream) {
+                         const float* keep_a, const float* keep_o, const float* g, float* ws,
+                         float* out, int B, int M, int E, int H, float eps, const int* seed_a,
+                         int stream_a,
+                         unsigned thresh_a, float scale_a, const int* seed_o, int stream_o,
+                         unsigned thresh_o, float scale_o, void* stream) {
   const int hd = E / H;
-  if (hd > 64) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (E % H || hd > 64 || hd % 4 || E % 4 || Pp > E) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const SaWorkspace w = sa_workspace(B, M, E, H, Pp);
+  const int R = B * M, Kp = w.Kp, lda = 3 * E + 4, ldg = 4 * E;
+  float *pack = ws + w.pack, *rows = ws + w.rows, *qkv = ws + w.qkv, *o = ws + w.o,
+        *dres = ws + w.dres, *dc = ws + w.dc, *grads = ws + w.grads, *dxo = ws + w.dxo,
+        *P = ws + w.P, *dS = ws + w.dS, *part = ws + w.part, *wpart = ws + w.wpart;
+  const int* lens = reinterpret_cast<const int*>(ws + w.lens);
+  const size_t plane = (size_t)2 * E * Kp;  // one packed weight
   const fk::Dropout drop_a{seed_a, stream_a, thresh_a, scale_a};
   const fk::Dropout drop_o{seed_o, stream_o, thresh_o, scale_o};
-  const dim3 rows((M + BM - 1) / BM, B);
+  const size_t rsm = sa_bwd_rows_smem_floats(M, hd) * sizeof(float);
+  const size_t lsm = (size_t)2 * kLnRows * E * sizeof(float);  // the LN tile's res and g
+  const int qc = sa_dkv_rows(M, hd);
+  const size_t ksm = (size_t)qc * (2 * hd + 2 * (QT + 1)) * sizeof(float);
   const dim3 attn((M + QT - 1) / QT, H, B);
-  const size_t gsm = sizeof(fk::GemmSmem<BM>);
-  const size_t rsm = sa_rows_smem_floats(M, hd) * sizeof(float);
-  const size_t ksm = sa_keys_smem_floats(M, hd) * sizeof(float);
-  const void* dkv = hd <= 32 ? (const void*)sa_bwd_dkv_kernel<1> : (const void*)sa_bwd_dkv_kernel<2>;
   cudaError_t err;
-  if ((err = fk::set_smem((const void*)sa_qkv_kernel<BM>, gsm)) != cudaSuccess ||
-      (err = fk::set_smem((const void*)sa_context_kernel, rsm)) != cudaSuccess ||
-      (err = fk::set_smem((const void*)sa_bwd_ln_kernel, gsm + 2 * BM * sizeof(float))) !=
-          cudaSuccess ||
+  if ((err = fk::set_smem((const void*)sa_bwd_probs_kernel, rsm)) != cudaSuccess ||
       (err = fk::set_smem((const void*)sa_bwd_dq_kernel, rsm)) != cudaSuccess ||
-      (err = fk::set_smem(dkv, ksm)) != cudaSuccess ||
-      (err = fk::set_smem((const void*)sa_bwd_dx_kernel, gsm)) != cudaSuccess)
+      (err = fk::set_smem((const void*)sa_bwd_dkv_kernel, ksm)) != cudaSuccess ||
+      (lsm > 48 * 1024 &&
+       (err = fk::set_smem((const void*)ffn_bwd_ln_kernel, lsm)) != cudaSuccess))
     return (int)err;
-  sa_qkv_kernel<BM><<<dim3(rows.x, B, 3), fk::kThreads, gsm, st>>>(x, pos, Pp, wq, bq, wk, bk, wv,
-                                                                   bv, qkv, M, E);
+  const int tiles = kSaPacks * ((E + 31) / 32) * (Kp / 32);
+  const long long n4 = (long long)R * lda / 4;
+  const int rblocks = (int)((n4 + fk::kThreads - 1) / fk::kThreads < 1056
+                                ? (n4 + fk::kThreads - 1) / fk::kThreads : 1056);
+  sa_bwd_prep_kernel<<<tiles + rblocks, fk::kThreads, 0, st>>>(
+      x, pos, Pp, wq, wk, wv, wo, pack, rows, reinterpret_cast<int*>(ws + w.lens), R, M, E, Kp,
+      w.S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long ME = (long long)M * E;
-  sa_context_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, 3 * ME, E, (int)ME, (int)(2 * ME),
-                                                     keep_a, drop_a, c, stats, M, E, H);
+  // a product of parts p < np (A columns at cp[p], weight pack wp + p * plane)
+  // in `sl` K slices of Kp / sl: problem p * sl + s, its output plane at
+  // out + (p * sl + s) R E; the bias (if any) on slice 0
+  const long long RE = (long long)R * E;
+  const auto product = [&](const float* a, int a_ch, int np, const int* cp, const float* wp,
+                           int sl, const float* const* bias, float* out) {
+    int c0[12];
+    const float* bz[12];
+    for (int p = 0; p < np; ++p)
+      for (int k = 0; k < sl; ++k) {
+        c0[p * sl + k] = cp[p] + k * (Kp / sl);
+        bz[p * sl + k] = bias != nullptr && k == 0 ? bias[p] : nullptr;
+      }
+    return fk::tc_rows_gemm(a, a_ch, np * sl, c0, Kp / sl, wp, E, R, lens, out, E, (int)RE, bz,
+                            st);
+  };
+  int rc;
+  const int c_qkv[3] = {0, 0, E}, c_o[1] = {2 * E}, c_dc[1] = {3 * E}, c_dx[3] = {0, E, 2 * E};
+  const float* b_qkv[3] = {bq, bk, bv};
+  // q | k | v, then the attention's P and c (into rows), then o = c Wo
+  if ((rc = product(rows, lda, 3, c_qkv, pack, 1, b_qkv, qkv))) return rc;
+  sa_bwd_probs_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, RE, keep_a, drop_a, rows + 2 * E, lda,
+                                                       P, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sa_bwd_ln_kernel<<<rows, fk::kThreads, gsm + 2 * BM * sizeof(float), st>>>(
-      x, c, wo, bo, wot, gamma, keep_o, drop_o, g, res, dout, dc, part, M, E, eps);
+  if ((rc = product(rows, lda, 1, c_o, pack + 3 * plane, w.S, nullptr, o))) return rc;
+  // res = x + drop_o(o + bo) (o's slices added in order), its LayerNorm
+  // backward (dres, the tiles' sums) and dout = dres * keep_o into grads'
+  // last E columns; dc = dout Wo^T
+  ffn_bwd_ln_kernel<<<w.ln_tiles, fk::kThreads, lsm, st>>>(x, o, bo, gamma, keep_o, drop_o, g,
+                                                          dres, grads + 3 * E, ldg, part, R, E,
+                                                          w.S, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sa_bwd_dq_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv, c, dc, keep_a, drop_a, stats, dqk, M, E,
-                                                    H);
+  if ((rc = product(grads, ldg, 1, c_dc, pack + 4 * plane, w.S, nullptr, dc))) return rc;
+  // dS, P * keep and dq; dk and dv
+  sa_bwd_dq_kernel<<<attn, fk::kThreads, rsm, st>>>(qkv + RE, qkv + 2 * RE, dc, w.S, RE,
+                                                    rows + 2 * E, lda, keep_a, drop_a, P, dS,
+                                                    grads, ldg, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (hd <= 32)
-    sa_bwd_dkv_kernel<1><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, drop_a, stats, dqk, dv,
-                                                          M, E, H);
-  else
-    sa_bwd_dkv_kernel<2><<<attn, fk::kThreads, ksm, st>>>(qkv, dc, keep_a, drop_a, stats, dqk, dv,
-                                                          M, E, H);
+  sa_bwd_dkv_kernel<<<attn, fk::kThreads, ksm, st>>>(qkv, dc, w.S, RE, P, dS, grads + E, ldg, M,
+                                                     E, H, qc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sa_bwd_dx_kernel<<<rows, fk::kThreads, gsm, st>>>(dqk, dv, res, wqkt, wvt, dxa, dx, M, E);
+  // dq Wq^T, dk Wk^T, dv Wv^T, and the weight products with the bias sums
+  int pairs[4 * kSaPairs];
+  sa_pairs(E, pairs);
+  if ((rc = product(grads, ldg, 3, c_dx, pack + 5 * plane, w.S, nullptr, dxo)) ||
+      (rc = fk::tc_wgrad_pairs(rows, lda, grads, ldg, kSaPairs, pairs, lens, R, w.Kc, wpart, st)))
+    return rc;
+  const long long n = w.Sw + 2 * E + RE + (long long)M * Pp;
+  const int fblocks = (int)((n + fk::kThreads - 1) / fk::kThreads < 2112
+                                ? (n + fk::kThreads - 1) / fk::kThreads : 2112);
+  sa_bwd_finish_kernel<<<fblocks, fk::kThreads, 0, st>>>(
+      wpart, w.chunks, w.Sw, part, w.ln_tiles, dres, dxo, w.S, out + w.dw, out + w.dx,
+      out + w.dpos, B, M, E, Pp);
   return (int)cudaGetLastError();
 }
 
@@ -1129,11 +1530,16 @@ extern "C" int fk_ffn_bwd_workspace(int B, int M, int E, int F, long long* out) 
 
 // The FFN backward in one call over the B * M token rows into ws
 // (fk_ffn_bwd_workspace's floats): W1^T and W2^T, x and the ones columns
-// into the weight products' operands, then the steps above.
+// into the weight products' operands, then the steps above.  The keep
+// values come from keep_1 / keep_2 where given, else are hashed from the
+// forward's seeds as fk_ffn_fwd draws them (a null seed: no dropout), so
+// that the training path makes no mask.
 extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, const float* w2,
                           const float* b2, const float* gamma, const float* keep_1,
                           const float* keep_2, const float* g, float* ws, int B, int M, int E,
-                          int F, float eps, void* stream) {
+                          int F, float eps, const int* seed_1, int stream_1, unsigned thresh_1,
+                          float scale_1, const int* seed_2, int stream_2, unsigned thresh_2,
+                          float scale_2, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const FfnWorkspace w = ffn_workspace(B, M, E, F, true);
   const FfnGrid gr(B, M, E, F);
@@ -1152,6 +1558,7 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
     if (err != cudaSuccess) return (int)err;
   }
   const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  const fk::Dropout drop_1{seed_1, stream_1, thresh_1, scale_1};
   ffn_transpose_kernel<<<dim3((big + 31) / 32, (big + 31) / 32, 3), fk::kThreads, 0, st>>>(
       w1, w2, wt, x, lhs, w.ldl, rhs, w.ldr, R, E, F);
   // x W1 -> sa; hk W2 -> sb (z1 and hk from sa as they are staged); the
@@ -1160,14 +1567,15 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
   ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
       FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none}, w1, sa, R, E, F);
   ffn_slice_kernel<kHidden><<<gr.fe, fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, gr.es, b1, keep_1, z1, hk, w.ldl, none}, w2, sb, R, F, E);
-  ffn_bwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, keep_2, g, res,
-                                                            dt2, w.ldr, part, R, E, gr.fs, eps);
+      FfnSlice{nullptr, sa, gr.es, b1, keep_1, z1, hk, w.ldl, drop_1}, w2, sb, R, F, E);
+  ffn_bwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(
+      x, sb, b2, gamma, keep_2, fk::Dropout{seed_2, stream_2, thresh_2, scale_2}, g, res, dt2,
+      w.ldr, part, R, E, gr.fs, eps);
   ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
       FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr, w.ldr, none},
       wt + (size_t)E * F, sa, R, E, F);
   ffn_slice_kernel<kDz1><<<gr.fe, fk::kThreads, gsm, st>>>(
-      FfnSlice{nullptr, sa, gr.es, nullptr, keep_1, z1, dz1, w.ldl, none}, wt, sb, R, F, E);
+      FfnSlice{nullptr, sa, gr.es, nullptr, keep_1, z1, dz1, w.ldl, drop_1}, wt, sb, R, F, E);
   ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
       sb, res, dx, part, ws + w.dgb, R, E, gr.fs, gr.ln_tiles);
   return (int)cudaGetLastError();  // the first failed launch's error, if any

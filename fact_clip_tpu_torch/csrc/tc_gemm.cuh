@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace tc {
 
 constexpr int kBK = 32;  // floats of K per tile row (128 bytes)
@@ -287,19 +289,53 @@ inline EncodeTiledFn encode_fn() {
 
 // A float32 tensor (d2, d1, d0) row-major, boxes of (1, box1, box0);
 // `swizzle` selects the 128-byte swizzle (box0 = 32) over plain rows.
-// Returns false when the driver refuses the map.
+// Returns false when cuTensorMapEncodeTiled refuses the map.  The last
+// kMapCache maps are kept by their arguments: an entry encodes the same maps
+// call after call (its buffers come back at the same addresses from
+// PyTorch's caching allocator), and each encode costs host time.
+struct MapKey {
+  const void* ptr;
+  long long d0, d1, d2;
+  int box0, box1;
+  bool swizzle;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && box0 == o.box0 &&
+           box1 == o.box1 && swizzle == o.swizzle;
+  }
+};
+
 inline bool encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1, long long d2,
                       int box0, int box1, bool swizzle) {
+  constexpr int kMapCache = 64;
+  static MapKey keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int next = 0;
+  static std::mutex mu;
+  const MapKey key{ptr, d0, d1, d2, box0, box1, swizzle};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < kMapCache; ++i)
+      if (keys[i] == key) {
+        *map = maps[i];
+        return true;
+      }
+  }
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
   const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 4), (cuuint64_t)(d0 * d1 * 4)};
   const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> lock(mu);
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  return true;
 }
 
 }  // namespace tc

@@ -2,7 +2,8 @@
 // tc_gemm.cuh): one kernel, templated on its epilogue, that K6 (the MS-TCN++
 // tower), K1 (the MSTCN tower, ops/dilated_conv.py) and K3 (the SCA
 // cross-attention's K / V projection and its dx, ops/mha_attn.py) all launch
-// through one entry, mstcn2.cu's fk_k6_gemm.
+// through one entry, mstcn2.cu's fk_k6_gemm (K4's SA backward through
+// fk::tc_rows_gemm, which takes more problems a launch).
 //
 //   out[b, t, z*col_step + n] = epilogue(sum over segments s, channels c < kseg
 //       of A[b, t + shift[z][s], c0[z][s] + c] * W_z[s*kseg + c][n])
@@ -46,7 +47,9 @@
 //       kGate    acc where res > 0 (dc gated by the ReLU), column sums
 //   K3  kProj    acc + bias + res on the columns n < res_ld of problem 0 (the
 //                key's positional term pos @ Wk, res_bstride 0 when the batch
-//                shares it; K2's flash forward: [xk | xv] as two problems)
+//                shares it; K2's flash forward: [xk | xv] as two problems;
+//                K4's SA backward: its products over one row space, up to
+//                twelve problems, mstcn2.cu's fk::tc_rows_gemm)
 //   K2  kProj32  kProj's epilogue, promoted once a 32-deep step as the
 //                towers are (K2's small-X yq and [xk | xv], the latter as two
 //                problems side by side)
@@ -77,6 +80,7 @@ constexpr int TILE = BM * tc::kBK;      // floats of one 128 x 32 tile (16 KB)
 constexpr int GEMM_STAGE = 4 * TILE;    // A (hi), A lo, W (hi), W lo
 constexpr size_t GEMM_SMEM = (size_t)STAGES * GEMM_STAGE * 4 + 64 + 1024;
 constexpr int MAX_SEG = 6;
+constexpr int MAX_PROB = 12;  // problems of one launch (K4's SA backward: q, k, v x 4 K slices)
 
 enum Mode {
   kMasked = 0, kFuse = 1, kFolded = 2, kLogits = 3, kDx = 4,  // K6's
@@ -88,14 +92,13 @@ enum Mode {
 struct GemmArgs {
   CUtensorMap amap;  // the activations (C_a, T, B), 32 x 128 boxes, 128-byte swizzle
   CUtensorMap bmap;  // the weights' K-major hi and lo parts (K, N, 2 nprob), 32 x 128 boxes
-  int seg_shift[2][MAX_SEG];  // per problem and K segment: the time shift of the tap
-  int seg_c0[2][MAX_SEG];     // and its first channel in A
+  int seg_shift[MAX_PROB][MAX_SEG];  // per problem and K segment: the time shift of the tap
+  int seg_c0[MAX_PROB][MAX_SEG];     // and its first channel in A
   int nseg, kseg, N, T, nprob;
   const int* lengths;
   float* out;
   int ldo, col_step;  // out row stride; problem z writes columns z * col_step + n
-  const float* bias0;
-  const float* bias1;
+  const float* bias[MAX_PROB];  // per problem, or null
   // the residual x (kFuse, kFolded, kResid), the cotangent g (kDx), the
   // ReLU output h (kGate) or the key's positional term (kProj), at
   // res + b * res_bstride + t * res_ld + n
@@ -221,7 +224,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
   const int N = p.N;
-  const float* bias = z ? p.bias1 : p.bias0;
+  const float* bias = p.bias[z];
   const int col_off = z * p.col_step;
   // kProj's and kProj32's positional term goes to problem 0 only (K2's flash
   // forward projects xk and xv as two problems side by side)

@@ -84,9 +84,3 @@ def sum_groups(part, group: int):
     return reduce(out, G=G, P=runs, pstride=cols, gstride=runs * cols, rows=1, rstride=0,
                   cols=cols).view(G, cols)
 
-
-def col_sums(x):
-    """(..., C) -> (C,): the sum of every row, in row order."""
-    C = x.shape[-1]
-    return reduce(x, G=1, P=x.numel() // C, pstride=C, gstride=0, rows=1, rstride=0,
-                  cols=C).view(C)

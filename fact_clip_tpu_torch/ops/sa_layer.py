@@ -5,11 +5,12 @@ Replaces ``fact_clip_tpu/ops/pallas/sa_layer.py``: ``sa_sublayer``
 (``_sa_fwd_impl`` / ``_sa_fwd_kernel``, backward ``_sa_bwd`` /
 ``_sa_bwd_kernel``), ``ffn_sublayer`` (``_ffn_fwd_impl`` / ``_ffn_fwd_kernel``,
 ``_ffn_bwd`` / ``_ffn_bwd_kernel``) and the mask replays ``sa_dropout_masks``
-and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (the SA forward and
-backward over (row tile, video) and (query tile, head, video) blocks at any
-token count of the zoo, the FFN forward and backward over (32-row tile,
-column chunk, K slice) blocks of the batch's rows),
-``csrc/dropout.cu`` and ``csrc/grad.cu``:
+and ``ffn_dropout_masks``, with ``csrc/sa_layer.cu`` (the SA forward over
+(row tile, video) and (query tile, head, video) blocks at any token count of
+the zoo, its backward one library call over the batch's rows as one row
+space on ``csrc/mstcn2.cu``'s 3xTF32 GEMM and weight products, the FFN
+forward and backward over (32-row tile, column chunk, K slice) blocks of the
+batch's rows) and ``csrc/dropout.cu``:
 
 * ``sa_sublayer``:  y = LN(x + drop(MHA(x + pos, x + pos, x) @ Wo + bo)), the
   attention probabilities dropped at ``rate_attn``;
@@ -35,7 +36,6 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from . import _grad
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -99,15 +99,18 @@ sa_dropout_masks.launches = 0
 
 
 def ffn_dropout_masks(seed, B: int, M: int, E: int, Fd: int, rate: float):
-    """(keep_hidden (B, M, Fd), keep_out (B, M, E)) of an FFN call (replaces
-    ``sa_layer.py::ffn_dropout_masks``)."""
+    """(keep_hidden (B, M, Fd), keep_out (B, M, E)) of an FFN call, as its
+    forward kernels draw them (replaces ``sa_layer.py::ffn_dropout_masks``).
+    The backward's kernels hash the same bits, so the training path on the
+    card makes no such mask; the CPU's plain backward takes it."""
     return _masks(ffn_dropout_masks, seed, [((B, M, Fd), rate), ((B, M, E), rate)])
 
 
 ffn_dropout_masks.launches = 0
 
 
-def _check_sa(name, x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_heads):
+def _check_sa(name, x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_heads,
+              more=()):
     B, M, E = x.shape
     if E % num_heads or any(w.shape != (E, E) for w in (wq, wk, wv, wo)) \
             or any(b.shape != (E,) for b in (bq, bk, bv, bo, ln_scale, ln_bias)):
@@ -115,8 +118,8 @@ def _check_sa(name, x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, n
     pos_t, pos_stride, Pp = kernel_pos(pos, B, M, E)
     if pos_stride:
         raise ValueError(f"{name}: pos must be one table shared by the batch")
-    _build.check_tensors(name, [x, pos_t, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias],
-                         x.device)
+    _build.check_tensors(name, [x, pos_t, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias,
+                                *more], x.device)
     return pos_t, Pp
 
 
@@ -234,26 +237,42 @@ def sa_sublayer_bwd_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, 
             dout.sum(dim=(0, 1)), dgamma, dbeta)
 
 
-# csrc/sa_layer.cu's SA backward tiling; change them together with the kernel
+# csrc/sa_layer.cu's attention tiling; change them together with the kernels
 SA_TILE = 32  # query rows or keys of an attention block (QT)
-SA_ROWS = 64  # token rows of a row-tile block (BM)
 SA_WARPS = 8  # warps of a block (fk::kWarps)
 
 
 def sa_bwd_smem(M: int, E: int, num_heads: int) -> int:
-    """Bytes of the SA backward's largest attention block: one head's rows of
-    every key (k, v) or query (q, dc), the tile's two (``SA_TILE``, hd + 1)
-    panels, and per warp one M-long row (the query-tile kernels; the key-tile
-    kernel's 3 M floats of row statistics are fewer)."""
+    """Bytes of the SA forward's attention block (its context kernel): one
+    head's rows of every key (k, v), the tile's two (``SA_TILE``, hd + 1)
+    panels, and per warp one M-long row.  The backward's blocks, which hold
+    one of k and v at a time, take fewer at every head width of 23 or more
+    (``sa_bwd_rows_smem``)."""
     ldh = E // num_heads + 1
     return 4 * (2 * M * ldh + 2 * SA_TILE * ldh + SA_WARPS * M)
 
 
+def sa_bwd_rows_smem(M: int, E: int, num_heads: int) -> int:
+    """Bytes of the SA backward's blocks over query tiles
+    (``csrc/sa_layer.cu::sa_bwd_rows_smem_floats``): one head's rows of
+    one (M, E) panel (odd row stride), the tile's rows by dimension and a
+    float4 of four rows' values a key."""
+    hd = E // num_heads
+    return 4 * (-(-M * (hd + 1) // 4) * 4 + SA_TILE * hd + SA_TILE * M)
+
+
 def has_backward(M: int, E: int, num_heads: int) -> bool:
-    """The SA backward's blocks fit in shared memory (97,248 bytes at epic's
-    M=300, E=256, H=8) and a head is at most 64 wide (two dimensions a lane
-    in the key-tile kernel)."""
-    return E // num_heads <= 64 and sa_bwd_smem(M, E, num_heads) <= _build.MAX_SMEM
+    """The SA backward takes the shape: the forward's attention block fits
+    in shared memory (97,248 bytes at epic's M=300, E=256, H=8; up to M =
+    756 at hd = 32 and M = 390 at hd = 64) and so do the backward's (fewer
+    bytes but at narrow heads), a head is at most 64 wide and both E
+    and the head width are multiples of 4 (the key-tile kernel's four
+    dimensions a thread, the GEMMs' 16-byte rows), and the LayerNorm
+    step's 16-row tile of res and g fits (E up to 1,816)."""
+    hd = E // num_heads
+    return (E % num_heads == 0 and hd <= 64 and hd % 4 == 0 and E % 4 == 0
+            and max(sa_bwd_smem(M, E, num_heads), sa_bwd_rows_smem(M, E, num_heads))
+            <= _build.MAX_SMEM and 2 * 16 * 4 * E <= _build.MAX_SMEM)
 
 
 def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
@@ -280,49 +299,67 @@ def sa_sublayer_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g
     return grads
 
 
+def _aligned(t):
+    """``t`` contiguous on 16 bytes: the backward kernels read its rows four
+    floats at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_SCRATCH = {}  # (device, stream) -> the SA backward's workspace, the largest asked for
+
+
+def _scratch(n: int, device, stream: int):
+    """A workspace of at least n floats kept for one stream of one device:
+    the calls on a stream run in its order, so each reuses the one before's
+    (a fresh torch.empty a call costs host time; the results never live
+    here).  Calls that share a stream from two threads at once would share
+    it too; the port makes none."""
+    ws = _SCRATCH.get((device, stream))
+    if ws is None or ws.numel() < n:
+        ws = _SCRATCH[(device, stream)] = torch.empty(n, device=device, dtype=torch.float32)
+    return ws
+
+
 def _sa_bwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, num_heads, eps,
                  keep_attn, keep_out, seed, rate_attn, rate):
     """``sa_sublayer_bwd``'s launches (CPU tensors reach it only in the
     tests, which stand a model of the kernels' C interface in for the
-    library): the six kernels of ``fk_sa_bwd``, the keep values read from
-    ``keep_attn`` / ``keep_out`` where given, else hashed from ``seed``
-    (None: no dropout), then the weight products and the fixed-order sums."""
-    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    library): one library call, ``fk_sa_bwd``, through a workspace (kept
+    for the stream, ``_scratch``) into a buffer of results, both laid out
+    by the library (``fk_sa_bwd_workspace``), every result a view of the
+    latter.  The keep values are read from ``keep_attn`` / ``keep_out``
+    where given, else hashed from ``seed`` (None: no dropout)."""
     B, M, E = x.shape
-    pos_t, Pp = _check_sa("sa_sublayer_bwd", x, pos, *weights, num_heads)
+    x, g = _aligned(x), _aligned(g)
+    pos_t, Pp = _check_sa("sa_sublayer_bwd", x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale,
+                          ln_bias, num_heads, (g, keep_attn, keep_out))
     if not has_backward(M, E, num_heads):
-        raise NotImplementedError(f"sa_sublayer_bwd: no backward kernel for M={M}, E={E}")
-    g = g.contiguous()
-    _build.check_tensors("sa_sublayer_bwd", [g, keep_attn, keep_out], x.device)
+        raise NotImplementedError(f"sa_sublayer_bwd: no backward kernel for M={M}, E={E}, "
+                                  f"H={num_heads}")
     drops = ((*dropout_args(seed, 0, rate_attn), *dropout_args(seed, 1, rate)) if seed is not None
              else (None, 0, 0, 1.0) * 2)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    wot = wo.t().contiguous()
-    wqkt = torch.cat([wq.t(), wk.t()], dim=0).contiguous()
-    wvt = wv.t().contiguous()
-    qkv = torch.empty((B, 3, M, E), **f32)
-    c, dres, dout, dc, dv, dxa, dx = (torch.empty_like(x) for _ in range(7))
-    stats = torch.empty((B, num_heads, M, 3), **f32)  # softmax max, 1 / sum, D per query row
-    dqk = torch.empty((B, M, 2 * E), **f32)
-    part = torch.empty((B * -(-M // SA_ROWS), 2, E), **f32)  # dgamma, dbeta per row tile
-    err = _build.lib().fk_sa_bwd(
+    lib = _build.lib()
+    # (workspace floats, result floats, then in the results: dx, d(pos), dWq
+    # dWk dWv dWo and dbq dbk dbv dbo dgamma dbeta)
+    n_ws, n_out, o_dx, o_pos, o_dw = _build.workspace(lib, "fk_sa_bwd_workspace", 5, B, M, E,
+                                                      num_heads, Pp)
+    stream = _build.stream_ptr(x.device)
+    ws = _scratch(n_ws, x.device, stream)
+    out = torch.empty(n_out, device=x.device, dtype=torch.float32)
+    err = lib.fk_sa_bwd(
         x.data_ptr(), _ptr(pos_t), Pp, wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
-        wot.data_ptr(), wqkt.data_ptr(), wvt.data_ptr(), _ptr(keep_attn), _ptr(keep_out),
-        g.data_ptr(), qkv.data_ptr(), c.data_ptr(), dres.data_ptr(), dout.data_ptr(),
-        dc.data_ptr(), stats.data_ptr(), dqk.data_ptr(), dv.data_ptr(), dxa.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), B, M, E, num_heads, float(eps), *drops,
-        _build.stream_ptr(x.device))
+        _ptr(keep_attn), _ptr(keep_out), g.data_ptr(), ws.data_ptr(), out.data_ptr(), B, M, E,
+        num_heads, float(eps), *drops, stream)
     _build.check("fk_sa_bwd", err)
-    # partial products, column sums and the per-tile LN sums, summed in a fixed order
-    dwqk = _grad.atb(x, dqk, pos=pos_t)[0]
-    dwv = _grad.atb(x, dv)[0]
-    dwo = _grad.atb(c, dout)[0]
-    dbq, dbk = _grad.col_sums(dqk).split(E)
-    dgamma, dbeta = _grad.block_sums(part, 2, E)
-    dpos = _grad.batch_sum(dxa, Pp).view(pos.shape) if pos is not None else None
-    return (dx, dpos, dwqk[:, :E], dbq, dwqk[:, E:], dbk, dwv, _grad.col_sums(dv), dwo,
-            _grad.col_sums(dout), dgamma, dbeta)
+    # a few views, unbound: on the card's host each tensor op costs microseconds
+    dwq, dwk, dwv, dwo = out.as_strided((4, E, E), (E * E, E, 1), o_dw).unbind(0)
+    dbq, dbk, dbv, dbo, dgamma, dbeta = out.as_strided((6, E), (E, 1), o_dw + 4 * E * E).unbind(0)
+    dpos = (out.as_strided(pos.shape, (M * Pp, Pp, 1)[-pos.dim():], o_pos) if pos is not None
+            else None)
+    return (out.as_strided((B, M, E), (M * E, E, 1), o_dx), dpos, dwq, dbq, dwk, dbk, dwv, dbv,
+            dwo, dbo, dgamma, dbeta)
 
 
 sa_sublayer_bwd.launches = 0
@@ -448,18 +485,30 @@ def _ffn_grads(x, dx, dz1, hk, dt2, dgamma, dbeta, E, Fd):
 
 
 def ffn_sublayer_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN_EPS,
-                     keep_hidden=None, keep_out=None):
-    """The FFN backward on the card (CUDA tensors) or its plain version (CPU)."""
+                     keep_hidden=None, keep_out=None, seed=None, rate: float = 0.0):
+    """The FFN backward on the card (CUDA tensors) or its plain version (CPU).
+    Its dropout: the forward's, from ``seed`` at ``rate`` (the card's kernels
+    hash both keep masks inline, the plain version takes
+    ``ffn_dropout_masks``), or, where given, the replayed masks
+    ``keep_hidden`` and ``keep_out`` (then ``seed`` is not read)."""
     weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    hashed = keep_hidden is None and keep_out is None and rate > 0.0
+    if hashed:
+        check_seed("ffn_sublayer_bwd", seed, x.device)
     if x.device.type == "cpu":
+        if hashed:
+            B, M, E = x.shape
+            keep_hidden, keep_out = ffn_dropout_masks(seed, B, M, E, w1.shape[1], rate)
         return ffn_sublayer_bwd_reference(x, *weights, g, eps=eps, keep_hidden=keep_hidden,
                                           keep_out=keep_out)
-    grads = _ffn_bwd_card(x, *weights, g, eps, keep_hidden, keep_out)
+    grads = _ffn_bwd_card(x, *weights, g, eps, keep_hidden, keep_out,
+                          seed if hashed else None, rate)
     ffn_sublayer_bwd.launches += 1
     return grads
 
 
-def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, keep_out):
+def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, keep_out,
+                  seed=None, rate=0.0):
     """The card's call (also run on CPU tensors against a model of the
     library in the tests): one library call launches the split into one
     workspace, read back through strided views: on the card's host every
@@ -467,13 +516,17 @@ def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, kee
     The library leaves the weight products' operands with a column of ones
     each, lhs = [dz1 | 1], [h * keep_1 | 1] and rhs = [x | 1], [dt2 | 1],
     so that one batched product lhs^T rhs gives both weight gradients and
-    both bias sums."""
+    both bias sums.  The keep values are read from ``keep_hidden`` /
+    ``keep_out`` where given, else hashed from ``seed`` (None: no
+    dropout)."""
     weights = [w1, b1, w2, b2, ln_scale, ln_bias]
     B, M, E = x.shape
     Fd = w1.shape[1]
     _check_ffn("ffn_sublayer_bwd", x, *weights)
-    g = g.contiguous()
+    x, g = _aligned(x), _aligned(g)
     _build.check_tensors("ffn_sublayer_bwd", [g, keep_hidden, keep_out], x.device)
+    drops = ((*dropout_args(seed, 0, rate), *dropout_args(seed, 1, rate)) if seed is not None
+             else (None, 0, 0, 1.0) * 2)
     R, E1, F1 = B * M, E + 1, Fd + 1
     lib = _build.lib()
     # (floats, dx, lhs, ldl, rhs, ldr, dgamma | dbeta)
@@ -483,7 +536,7 @@ def _ffn_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, keep_hidden, kee
     err = lib.fk_ffn_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         ln_scale.data_ptr(), _ptr(keep_hidden), _ptr(keep_out), g.data_ptr(), ws.data_ptr(),
-        B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+        B, M, E, Fd, float(eps), *drops, _build.stream_ptr(x.device))
     _build.check("fk_ffn_bwd", err)
     # dW1 = x^T dz1, dW2 = (h * keep_1)^T dt2 and the bias sums, outside the
     # kernels as in JAX: [[dW1^T, db1], .] and [[dW2, .], [db2, .]]
@@ -511,11 +564,9 @@ class _FFN(torch.autograd.Function):
     def backward(ctx, g):
         eps, rate = ctx.cfg
         x, seed, *weights = ctx.saved_tensors
-        B, M, E = x.shape
-        keep_hidden, keep_out = (ffn_dropout_masks(seed, B, M, E, weights[0].shape[1], rate)
-                                 if seed is not None else (None, None))
-        grads = ffn_sublayer_bwd(x, *weights, g.contiguous(), eps=eps, keep_hidden=keep_hidden,
-                                 keep_out=keep_out)
+        # the call's keep masks, hashed again from the forward's seed (never stored)
+        grads = ffn_sublayer_bwd(x, *weights, g.contiguous(), eps=eps, seed=seed,
+                                 rate=rate if seed is not None else 0.0)
         return (grads[0], None, None, *grads[1:])
 
 

@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_port_k6_tc import _view
+from test_torch_port_k6_tc import FakeK6Lib, _view
 
 from fact_clip_tpu.ops.pallas import sa_layer as jsl
 from fact_clip_tpu_torch import _build
@@ -46,6 +46,7 @@ class FakeFFNLib:
 
     def __init__(self):
         self.calls = []
+        self.bwd_keeps = []  # the keep values of each backward call (hidden, output)
 
     ROWS, LN_ROWS, CHUNK, SLICE = 32, 16, 256, 128
 
@@ -98,6 +99,7 @@ class FakeFFNLib:
         return 0
 
     def fk_ffn_bwd(self, x, w1, b1, w2, b2, gamma, keep_1, keep_2, g, ws, B, M, E, F, eps,
+                   seed_1, stream_1, thresh_1, scale_1, seed_2, stream_2, thresh_2, scale_2,
                    stream):
         self.calls.append(("ffn_bwd",))
         R = B * M
@@ -111,8 +113,12 @@ class FakeFFNLib:
         X, G = (_view(p, R * E).view(R, E) for p in (x, g))
         W1, W2 = _view(w1, E * F).view(E, F), _view(w2, F * E).view(F, E)
         bias1, bias2, gam = _view(b1, F), _view(b2, E), _view(gamma, E)
-        K1 = _view(keep_1, R * F).view(R, F) if keep_1 else torch.ones(R, F)
-        K2 = _view(keep_2, R * E).view(R, E) if keep_2 else torch.ones(R, E)
+        # the masks: the replayed tensors, or the forward's hash at its indices
+        K1 = (_view(keep_1, R * F).view(R, F).clone() if keep_1
+              else FakeK6Lib._keep(self, seed_1, stream_1, thresh_1, scale_1, (B, M, F)).view(R, F))
+        K2 = (_view(keep_2, R * E).view(R, E).clone() if keep_2
+              else FakeK6Lib._keep(self, seed_2, stream_2, thresh_2, scale_2, (B, M, E)).view(R, E))
+        self.bwd_keeps.append((K1.view(B, M, F), K2.view(B, M, E)))
         WT = region("wt", 2 * E * F)
         W1T, W2T = WT[:E * F].view(F, E), WT[E * F:].view(E, F)
         RS, DX, Z = region("res", R, E), region("dx", R, E), region("z1", R, F)
@@ -242,3 +248,73 @@ def test_emulated_ffn_backward_matches_jax_interpret(fake, monkeypatch, B, M, E,
     if rate:  # the masks acted
         nodrop = sl.ffn_sublayer_bwd_reference(*t)
         assert float((got[0] - nodrop[0]).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("B,M,E,F", SHAPES)
+def test_emulated_ffn_backward_hashes_the_masks(fake, B, M, E, F):
+    """Rate 0.2, the masks hashed from the forward's seed in the kernels: the
+    keep values equal ``ffn_dropout_masks`` of the seed bit for bit, and
+    every gradient equals, bit for bit, that of the same call fed those
+    masks."""
+    _, t = _inputs(B * 1000 + M + 1, B, M, E, F)
+    seed = torch.tensor([5151 + M], dtype=torch.int32)
+    hashed = sl._ffn_bwd_card(*t[:7], t[7], sl.LN_EPS, None, None, seed, 0.2)
+    k1, k2 = sl.ffn_dropout_masks(seed, B, M, E, F, 0.2)
+    assert torch.equal(fake.bwd_keeps[-1][0], k1) and torch.equal(fake.bwd_keeps[-1][1], k2)
+    fed = sl._ffn_bwd_card(*t[:7], t[7], sl.LN_EPS, k1, k2)
+    for name, a, b in zip(NAMES, hashed, fed):
+        assert torch.equal(a, b), name
+    plain = sl.ffn_sublayer_bwd_reference(*t, keep_hidden=k1, keep_out=k2)
+    for name, a, p in zip(NAMES, hashed, plain):
+        _close(a, p, f"{name} vs plain")
+
+
+def test_ffn_autograd_backward_hashes_and_makes_no_mask(fake, monkeypatch):
+    """``ffn_sublayer``'s autograd backward hands the backward the forward's
+    seed and rate and no mask; on the card's launch sequence no mask is made
+    (``ffn_dropout_masks`` not called, its launches 0), and the gradients
+    equal the plain backward given the replayed masks."""
+    B, M, E, F = 2, 11, 64, 160
+    _, t = _inputs(17, B, M, E, F)
+    x = [a.clone().requires_grad_(True) for a in t[:7]]
+    seed = torch.tensor([31337], dtype=torch.int32)
+    seen = []
+
+    def card_bwd(*args, eps, keep_hidden=None, keep_out=None, seed=None, rate=0.0):
+        seen.append((keep_hidden, keep_out, seed, rate))
+        return sl._ffn_bwd_card(*args, eps, keep_hidden, keep_out, seed, rate)
+
+    y = sl.ffn_sublayer(*x, rate=0.2, seed=seed)
+    k1, k2 = sl.ffn_dropout_masks(seed, B, M, E, F, 0.2)
+
+    def no_mask(*a, **k):
+        raise AssertionError("a mask was made for the backward")
+
+    replay = sl.ffn_dropout_masks
+    launches = replay.launches
+    monkeypatch.setattr(sl, "ffn_sublayer_bwd", card_bwd)
+    monkeypatch.setattr(sl, "ffn_dropout_masks", no_mask)
+    y.backward(t[7])
+    (keep_hidden, keep_out, seen_seed, rate), = seen
+    assert keep_hidden is None and keep_out is None and int(seen_seed[0]) == 31337
+    assert rate == 0.2 and replay.launches == launches
+    ref = sl.ffn_sublayer_bwd_reference(*t, keep_hidden=k1, keep_out=k2)
+    for name, a, r in zip(NAMES, [a.grad for a in x], ref):
+        _close(a, r, name)
+
+
+def test_ffn_backward_refuses_dropout_without_a_seed(monkeypatch):
+    """A rate above 0 with neither a seed nor masks raises before the library
+    is asked for; masks given need no seed."""
+    def no_lib():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(_build, "lib", no_lib)
+    _, t = _inputs(19, 1, 11, 64, 160)
+    with pytest.raises(ValueError, match="seed"):
+        sl.ffn_sublayer_bwd(*t, rate=0.2)
+    k1, k2 = sl.ffn_dropout_masks(torch.tensor([3], dtype=torch.int32), 1, 11, 64, 160, 0.2)
+    got = sl.ffn_sublayer_bwd(*t, keep_hidden=k1, keep_out=k2, rate=0.2)
+    ref = sl.ffn_sublayer_bwd_reference(*t, keep_hidden=k1, keep_out=k2)
+    for name, a, r in zip(NAMES, got, ref):
+        assert torch.equal(a, r), name
