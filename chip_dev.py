@@ -16,8 +16,9 @@
         for K8d (int8 SCA cross-attention), ``k2f`` for K2's flash forward
         (``x2y_flash``), ``k8b`` for K8b (int8 small-X X2Y) and ``k8c``
         for K8c (int8 flash X2Y) at the cases its parent runs too (it
-        refused Cx = 40), ``k4bwd`` for K4's SA and FFN backwards:
-        PARENT_DIR is
+        refused Cx = 40), ``k4bwd`` for K4's SA and FFN backwards,
+        ``k5k7`` for K5's backward (``frame_loss_bwd``) and K7a
+        (``compose_argmax``): PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
         its own kernel library and runs the rows of this tree's
@@ -96,6 +97,11 @@
         no seed is fed the masks in both), and K4's FFN backward hashed at
         the flagship's shape.
 
+    python3 chip_dev.py k5k7-host [TREE]
+        The same for K5's backward (the flagship's 8 x 3072 x 75 with the CE
+        term, and 8 x 3072 x 40 without it) and K7a (epic's 1 x 24,576 over
+        98 / 301 / 3,806, and the ragged 3 x 1000 over 13 / 29 / 97).
+
     python3 chip_dev.py sa-f64 [TREE]
         K4's SA backward (dropout 0.2, hashed) of the package in TREE and
         its f32 plain version against the plain version in float64 at the
@@ -155,7 +161,9 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            "k8c": ["x2y_flash_q8:flagship,ragged,breakfast,xlen0"],
            # K4's SA and FFN backwards: their parent runs every case (its FFN backward
            # takes no seed, so it is fed the masks of the hashed cases)
-           "k4bwd": ["sa_sublayer_bwd", "ffn_sublayer_bwd"]}
+           "k4bwd": ["sa_sublayer_bwd", "ffn_sublayer_bwd"],
+           # K5's backward and K7a: their parent runs every case
+           "k5k7": ["frame_loss_bwd", "compose_argmax"]}
 
 
 def ab(parent: str, names):
@@ -612,6 +620,19 @@ def sa_host(tree: str = REPO, seed: int = 0):
     return _per_call(cs, "sa-host", cases)
 
 
+def k5k7_host(tree: str = REPO, seed: int = 0):
+    """The same for K5's backward and K7a at their main paths' shapes."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    return _per_call(cs, "k5k7-host", {
+        "k5 bwd flagship": lambda: cs.frame_loss_case(rng, True, 8, 3072, 75,
+                                                      cs.FLAGSHIP_LENGTHS),
+        "k5 bwd smooth": lambda: cs.frame_loss_case(rng, True, 8, 3072, 40, cs.FLAGSHIP_LENGTHS,
+                                                    False),
+        "k7a epic": lambda: cs.k7a_case(rng, 1, cs.EPIC_T, (98, 301, 3806), [cs.EPIC_T]),
+        "k7a ragged": lambda: cs.k7a_case(rng, 3, 1000, (13, 29, 97), [1000, 777, 129])})
+
+
 def sa_f64(tree: str = REPO, seed: int = 0):
     """K4's SA backward (dropout 0.2, its masks hashed where the package
     hashes them) of the package in ``tree`` and its f32 plain version, each
@@ -672,6 +693,8 @@ def main(argv):
         return k8_host(*argv[1:])
     if argv[:1] == ["sa-host"] and len(argv) <= 2:
         return sa_host(*argv[1:])
+    if argv[:1] == ["k5k7-host"] and len(argv) <= 2:
+        return k5k7_host(*argv[1:])
     if argv[:1] == ["sa-f64"] and len(argv) <= 2:
         return sa_f64(*argv[1:])
     if argv[:1] == ["k2f-f64"] and len(argv) <= 2:

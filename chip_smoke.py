@@ -34,9 +34,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    K2's small-X forward and backward at the flagship's, K4's SA forward
    with dropout 0.2 at epic's and the flagship's, K8e at Breakfast's and
    epic's, K4's FFN backward and forward with dropout 0.2 at epic's, the
-   forward also at the flagship's, K5's forward at the flagship's, K8a at
-   the flagship's, LN and 24-channel cases, K8d at the flagship's and
-   Breakfast's).
+   forward also at the flagship's, K5's forward and backward at the
+   flagship's, K7a at epic's, K8a at the flagship's, LN and 24-channel
+   cases, K8d at the flagship's and Breakfast's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -48,7 +48,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    x``, ``F.layer_norm``; the backward its autograd backward) and K5's
    (``F.log_softmax``, ``gather`` of the labels, the class-weight and mask
    products, the clipped squared differences of consecutive rows, the
-   per-video sums; the backward its autograd backward); no PyTorch call
+   per-video sums; the backward its autograd backward) and K7a's and K7b's
+   (the dense composition: ``torch.index_select`` of the verb and noun
+   columns, their add and ``argmax``; for K7b also the ``gather`` of the
+   voting tokens' q rows, ``exp`` and the blend); no PyTorch call
    computes the other fused functions (K6: two dilated conv3s, the split
    fuse, the ReLU, the mask and the out projection), so their
    ``library_ms`` is null.  K2's flash backward runs the projection's
@@ -997,19 +1000,28 @@ def _coarse(x):
     return np.round(x * 4.0) / 4.0
 
 
-def _vn_inputs(rng, B, T, vocab, coarse=False):
+def _vn_inputs(rng, B, T, vocab, coarse=False, shuffle=False, segment=0):
     """Log-Dirichlet verb and noun rows (as the JAX package's ``_vn_fixture``),
-    with ``coarse`` rounded to quarters, and the (vids, nids) tables of
-    ``vocab`` = (n1, n2, n_act)."""
+    with ``coarse`` rounded to quarters, with ``segment`` constant over runs
+    of that many frames plus noise of 1e-3 (as a model's output is over an
+    action's frames: whole tiles share their best verb), and the (vids,
+    nids) tables of ``vocab`` = (n1, n2, n_act), with ``shuffle`` in a random
+    action order (not sorted by verb, as a user's mapping need not be)."""
     import torch
 
     from fact_clip_tpu_torch.configs import epic_vocab
 
     n1, n2, n_act = vocab
-    vids, nids = (torch.from_numpy(t).cuda() for t in epic_vocab(n1, n2, n_act))
+    perm = rng.permutation(n_act) if shuffle else np.arange(n_act)
+    vids, nids = (torch.from_numpy(np.ascontiguousarray(t[perm])).cuda()
+                  for t in epic_vocab(n1, n2, n_act))
 
     def logp(n):
-        x = np.log(rng.dirichlet(np.ones(n), size=(B, T)))
+        if segment:
+            x = np.log(rng.dirichlet(np.ones(n), size=(B, T // segment + 1)))
+            x = x[:, np.arange(T) // segment] + rng.standard_normal((B, T, n)) * 1e-3
+        else:
+            x = np.log(rng.dirichlet(np.ones(n), size=(B, T)))
         return torch.from_numpy((_coarse(x) if coarse else x).astype(np.float32)).cuda()
 
     return logp(n1), logp(n2), vids, nids
@@ -1022,21 +1034,46 @@ def _valid_frames(lengths, T):
     return torch.arange(T, device=lens.device)[None, :] < lens[:, None]
 
 
-def k7a_case(rng, B, T, vocab, lengths, coarse=False):
+def k7a_case(rng, B, T, vocab, lengths, coarse=False, shuffle=False, segment=0):
+    """The composed argmax; its picks must equal the plain ones on every
+    valid frame (the kernel's second pass finds the first index among
+    exact ties)."""
     from fact_clip_tpu_torch.ops import compose_decode as k7
     from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
 
-    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse)
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse, shuffle, segment)
     valid = _valid_frames(lengths, T)
     work = (2 * B * T * vocab[2], nbytes(lv, ln, vids, nids) + B * T * 4)
 
     def judge(out, ref):
         return argmax_check([("argmax", out, ref,
                               lambda ids: composed_gather(lv, ln, vids, nids, ids))], valid,
-                            exact=coarse)
+                            exact=True)
 
     return (lambda: k7.compose_argmax(lv, ln, vids, nids),
-            lambda: k7.compose_argmax_reference(lv, ln, vids, nids), work, judge)
+            lambda: k7.compose_argmax_reference(lv, ln, vids, nids), work, judge,
+            compose_library(lv, ln, vids, nids))
+
+
+def compose_library(lv, ln, vids, nids, q=None, act=None, weight=0.0):
+    """The library yardstick of K7a (and with ``q``, K7b): the dense
+    composition, ``torch.index_select`` of the verb and noun columns, their
+    add and ``argmax``; for the blend also ``gather`` of the voting tokens'
+    q rows, ``exp``, the weighted sum and its ``argmax``.  Timed here, used
+    nowhere in the port."""
+    import torch
+
+    vl, nl = vids.long(), nids.long()
+    idx = act.long()[..., None].expand(-1, -1, q.shape[-1]) if q is not None else None
+
+    def run():
+        s = torch.index_select(lv, -1, vl) + torch.index_select(ln, -1, nl)
+        if q is None:
+            return s.argmax(-1)
+        blend = (1.0 - weight) * q.gather(1, idx) + weight * torch.exp(s)
+        return blend.argmax(-1), s.argmax(-1)
+
+    return run
 
 
 def blend_items(lv, ln, vids, nids, q, act, weight, out, ref):
@@ -1086,7 +1123,8 @@ def k7b_case(rng, B, T, vocab, lengths, M, weight, all_null=None, coarse=False):
                             exact=coarse)
 
     return (lambda: k7.compose_blend(lv, ln, vids, nids, q, act, weight),
-            lambda: k7.compose_blend_reference(lv, ln, vids, nids, q, act, weight), work, judge)
+            lambda: k7.compose_blend_reference(lv, ln, vids, nids, q, act, weight), work, judge,
+            compose_library(lv, ln, vids, nids, q, act, weight))
 
 
 def k7c_case(rng, B, T, vocab, lengths, coarse=False):
@@ -1563,7 +1601,10 @@ def kernel_table():
         ("frame_loss_bwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:212", "rel",
          [("flagship", lambda r: frame_loss_case(r, True, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, True, B, T, 40, FLAGSHIP_LENGTHS, False)),
-          ("ragged", lambda r: frame_loss_case(r, True, 2, 1000, 37, [1000, 777]))]),
+          ("ragged", lambda r: frame_loss_case(r, True, 2, 1000, 37, [1000, 777])),
+          # a video of no valid frame, one shorter than a row chunk; T shorter than one
+          ("len0", lambda r: frame_loss_case(r, True, 3, 1000, 75, [1000, 0, 50])),
+          ("short", lambda r: frame_loss_case(r, True, 2, 90, 40, [90, 0]))]),
         # Breakfast (f: m2, E = 512): K6 and K3 at its widths
         ("mstcn2_stack", csrc + "mstcn2.cu", pallas + "dilated_conv.py:976", "rel",
          [("breakfast", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len)),
@@ -1597,7 +1638,12 @@ def kernel_table():
         ("compose_argmax", csrc + "compose_decode.cu", pallas + "compose_decode.py:150", "argmax",
          [("epic", lambda r: k7a_case(r, 1, ET, epic_voc, [ET])),
           ("ragged", lambda r: k7a_case(r, 3, 1000, rag_voc, vn_rag)),
-          ("ties", lambda r: k7a_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
+          ("ties", lambda r: k7a_case(r, 3, 1000, rag_voc, vn_rag, coarse=True)),
+          # the action table out of verb order, at epic's vocabulary
+          ("shuffled", lambda r: k7a_case(r, 2, 4000, epic_voc, [4000, 2500], shuffle=True)),
+          # epic's shape with rows constant over 500-frame segments: whole tiles
+          # share their best verb, as in a model's output
+          ("segments", lambda r: k7a_case(r, 1, ET, epic_voc, [ET], segment=500))]),
         ("compose_blend", csrc + "compose_decode.cu", pallas + "compose_decode.py:247", "argmax",
          [("epic", lambda r: k7b_case(r, 1, ET, epic_voc, [ET], 300, 0.1)),
           ("ragged", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.5, all_null=1)),
@@ -1721,7 +1767,8 @@ def phase_kernels(seed: int = 0):
                     err_abs = 0.0 if ok else float("nan")
                     kern, plain, work = make(rng)
                 elif check == "argmax":
-                    kern, plain, work, judge = make(rng)
+                    kern, plain, work, judge, *extra = make(rng)
+                    library = extra[0] if extra else None
                     text, ok, err_abs = judge(kern(), plain())
                 else:
                     kern, plain, work, *extra = make(rng)
@@ -1806,7 +1853,10 @@ def k6_repeat_check(seed: int = 0):
     B=1, M=300 and Breakfast's B=4, M=60, E=512 (its GEMMs, the weight
     products' chunks and their two-stage sums); K4's FFN forward with dropout 0.2
     at epic's B=1, M=300 and the flagship's B=8, M=40; K5's forward at the flagship's
-    8 x 3072 x 75 (its chunks' partials summed in chunk order); K8a at the
+    8 x 3072 x 75 (its chunks' partials summed in chunk order) and its
+    backward there (its blocks' shared-memory staging); K7a at epic's
+    1 x 24,576 (its run table built by the blocks' atomics: the picks must
+    not depend on the order); K8a at the
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
     maxima, pass N); K8b at the flagship's a2f (the key side's GEMM on its
@@ -1868,7 +1918,9 @@ def k6_repeat_check(seed: int = 0):
              ("sa_bwd_bf", lambda: sa_bwd_case(rng, 4, 60, 512, 8, hashed=True)),
              ("ffn_epic", lambda: ffn_fwd_case(rng, 1, 300, 256, 512, 0.2)),
              ("ffn_flag", lambda: ffn_fwd_case(rng, 8, 40, 256, 512, 0.2)),
-             ("k5_fwd", lambda: frame_loss_case(rng, False, 8, 3072, 75, FLAGSHIP_LENGTHS)))
+             ("k5_fwd", lambda: frame_loss_case(rng, False, 8, 3072, 75, FLAGSHIP_LENGTHS)),
+             ("k5_bwd", lambda: frame_loss_case(rng, True, 8, 3072, 75, FLAGSHIP_LENGTHS)),
+             ("k7a_epic", lambda: k7a_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1884,8 +1936,8 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5, K8a, K8b, K8d or K8e gives different "
-                             f"bits on the same inputs: {failed}")
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a, K8a, K8b, K8d or K8e gives "
+                             f"different bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,23 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid)
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+// The n floats at src into dst + off by threads t of nt (the block's by
+// default) as asynchronous copies, 16 bytes each but for the unaligned head
+// and tail: off (returned,
+// 0-3) puts src's 16-byte boundaries on dst's, which must be 16-byte aligned
+// and hold n + 3 floats.
+__device__ __forceinline__ int cp_async_floats(float* dst, const float* src, int n,
+                                               int t = threadIdx.x, int nt = blockDim.x) {
+  const int off = (int)(((uintptr_t)src >> 2) & 3);
+  const int head = min(n, (4 - off) & 3);
+  const int nv = (n - head) >> 2;
+  float* d = dst + off;
+  for (int i = t; i < head; i += nt) cp_async<4>(d + i, src + i, true);
+  for (int i = t; i < nv; i += nt) cp_async<16>(d + head + 4 * i, src + head + 4 * i, true);
+  for (int i = head + 4 * nv + t; i < n; i += nt) cp_async<4>(d + i, src + i, true);
+  return off;
+}
+
 // Start the asynchronous copies of W rows [k0, k0 + kBK), columns [n0, n0 + kBN) into w.
 __device__ __forceinline__ void fetch_w(float (*w)[kBN], const float* __restrict__ W, int ldw,
                                         int K, int k0, int n0, int N, bool vec) {

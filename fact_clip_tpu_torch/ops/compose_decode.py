@@ -4,7 +4,9 @@ Replaces ``fact_clip_tpu/ops/pallas/compose_decode.py`` with
 ``csrc/compose_decode.cu``, one launch each:
 
 * ``compose_argmax`` (``mxu_argmax``): per frame the first argmax over the
-  actions of ``lv[vids[a]] + ln[nids[a]]``, (B, T) int32;
+  actions of ``lv[vids[a]] + ln[nids[a]]``, (B, T) int32, two frames a lane
+  over the actions grouped into verb runs: the best verb from the max of
+  each run, then the lowest action index of the best verbs' runs;
 * ``compose_blend`` (``blend_argmax``): the two-branch decode's blend, the
   first argmax of ``(1 - w) q[b, act_idx[t], a] + w exp(lv[vids[a]] +
   ln[nids[a]])``, and the all-null fallback, the composed argmax, both
@@ -31,7 +33,10 @@ import torch
 
 from .. import _build
 
-TILE = 32  # frames per block of the composed argmax and the blend (csrc/compose_decode.cu)
+TILE = 32  # frames per block of the blend (csrc/compose_decode.cu)
+ARGMAX_TILE = 64  # frames per tile of the composed argmax, two a lane
+ARGMAX_WARPS = 16  # warps of a composed-argmax block, each on a share of the verbs
+ARGMAX_QUEUE = 128  # pass-2 items a tile
 MAX_IDS = 32767  # verb and noun ids share one int in the kernels' table
 
 
@@ -64,8 +69,25 @@ def factored_argmax_reference(lv, ln, mask_vn, a_table):
 
 
 def compose_smem(n1: int, n2: int, n_act: int) -> int:
-    """Bytes of a composed-argmax / blend block: the action table and a tile's rows."""
+    """Bytes of a blend block: the action table and a tile's rows."""
     return 4 * n_act + 4 * TILE * (n1 + n2)
+
+
+def argmax_smem(n1: int, n2: int, n_act: int) -> int:
+    """Bytes of a composed-argmax block (csrc/compose_decode.cu::argmax_smem):
+    the run table (each run padded to a multiple of 4 entries), the run
+    starts, the fill counts and the warps' verb bounds (padded to 16 bytes),
+    the warps' bests, pass 2's queue, the frames' picks and the queue's
+    count, and two tiles' rows (each block of rows with room for its
+    16-byte alignment); past the limit where the ids, staged in a tile's
+    room, do not fit there."""
+    slots = (n_act + 3 * n1 + 3) // 4 * 4
+    tile = ((ARGMAX_TILE * n1 + 7) & ~3) + ((ARGMAX_TILE * n2 + 7) & ~3)
+    if 2 * ((n_act + 7) & ~3) > tile:  # the ids are staged in a tile's room
+        return _build.MAX_SMEM + 1
+    return (16 * ((slots + 2 * n1 + ARGMAX_WARPS + 5) // 4) + 8 * ARGMAX_WARPS * 32
+            + 16 * ARGMAX_QUEUE + 4 * ARGMAX_TILE + 16
+            + 8 * tile)
 
 
 def factored_smem(n1: int, n2: int) -> int:
@@ -81,12 +103,12 @@ def _check_lp(name, lv, ln):
     return B, T, n1, n2
 
 
-def _check_ids(name, lv, ln, vids, nids):
+def _check_ids(name, lv, ln, vids, nids, smem):
     B, T, n1, n2 = _check_lp(name, lv, ln)
     if vids.dim() != 1 or nids.shape != vids.shape or vids.dtype != torch.int32 \
             or nids.dtype != torch.int32:
         raise ValueError(f"{name}: vids and nids must be (n_act,) int32")
-    if compose_smem(n1, n2, vids.shape[0]) > _build.MAX_SMEM:
+    if smem > _build.MAX_SMEM:
         raise NotImplementedError(f"{name}: no block fits in shared memory at n1={n1}, "
                                   f"n2={n2}, n_act={vids.shape[0]}")
     _build.check_tensors(name, [lv, ln, vids, nids], lv.device)
@@ -97,13 +119,23 @@ def compose_argmax(lv, ln, vids, nids):
     """The kernel on CUDA tensors, the plain version on CPU ones: (B, T) int32."""
     if lv.device.type == "cpu":
         return compose_argmax_reference(lv, ln, vids, nids)
-    B, T, n1, n2 = _check_ids("compose_argmax", lv, ln, vids, nids)
+    out = _compose_argmax_card(lv, ln, vids, nids)
+    compose_argmax.launches += 1
+    return out
+
+
+def _compose_argmax_card(lv, ln, vids, nids):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call, one launch whose blocks build
+    the run table from vids and nids themselves, into (B, T) int32."""
+    n_act = vids.shape[0] if vids.dim() == 1 else 0
+    B, T, n1, n2 = _check_ids("compose_argmax", lv, ln, vids, nids,
+                              argmax_smem(lv.shape[-1], ln.shape[-1], n_act))
     out = torch.empty((B, T), device=lv.device, dtype=torch.int32)
     err = _build.lib().fk_compose_argmax(lv.data_ptr(), ln.data_ptr(), vids.data_ptr(),
                                          nids.data_ptr(), out.data_ptr(), B, T, n1, n2,
-                                         vids.shape[0], _build.stream_ptr(lv.device))
+                                         n_act, _build.stream_ptr(lv.device))
     _build.check("fk_compose_argmax", err)
-    compose_argmax.launches += 1
     return out
 
 
@@ -114,8 +146,9 @@ def compose_blend(lv, ln, vids, nids, q, act_idx, weight: float):
     """The kernel on CUDA tensors, the plain version on CPU ones: (pred, fallback)."""
     if lv.device.type == "cpu":
         return compose_blend_reference(lv, ln, vids, nids, q, act_idx, weight)
-    B, T, n1, n2 = _check_ids("compose_blend", lv, ln, vids, nids)
-    n_act = vids.shape[0]
+    n_act = vids.shape[0] if vids.dim() == 1 else 0
+    B, T, n1, n2 = _check_ids("compose_blend", lv, ln, vids, nids,
+                              compose_smem(lv.shape[-1], ln.shape[-1], n_act))
     if q.dim() != 3 or q.shape[0] != B or q.shape[2] != n_act or act_idx.shape != (B, T) \
             or act_idx.dtype != torch.int32:
         raise ValueError("compose_blend: q (B, M, n_act) and act_idx (B, T) int32")

@@ -10,7 +10,9 @@ returns per video the unnormalized sums
 with ls the log-softmax over classes, and the backward (``_loss_bwd``,
 ``_bwd_kernel``) writes dlogits.  Kernels: ``csrc/frame_loss.cu``, the
 forward over (64-row chunk, video) blocks with a second launch that adds
-each video's chunk partials in chunk order, the backward one launch.  The
+each video's chunk partials in chunk order, the backward one launch over
+(64-row chunk, video) blocks that stage the chunk's rows and their two
+neighbours in shared memory and take each staged row's log-softmax once.  The
 class weights, labels and mask get no gradient (the JAX wrapper
 stop-gradients the weights).  The caller normalizes (models/losses.py).
 """
@@ -102,6 +104,15 @@ def frame_loss_bwd(x, labels, maskf, cweight, g_ce, g_sl):
     """The backward kernel on CUDA tensors, the plain version on CPU ones."""
     if x.device.type == "cpu":
         return frame_loss_bwd_reference(x, labels, maskf, cweight, g_ce, g_sl)
+    dx = _frame_loss_bwd_card(x, labels, maskf, cweight, g_ce, g_sl)
+    frame_loss_bwd.launches += 1
+    return dx
+
+
+def _frame_loss_bwd_card(x, labels, maskf, cweight, g_ce, g_sl):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call, one launch over (64-row chunk,
+    video) blocks, into dx."""
     _check("frame_loss_bwd", x, labels, maskf, cweight)
     B, T, C = x.shape
     g_ce = g_ce.contiguous() if (g_ce is not None and labels is not None) else None
@@ -111,7 +122,6 @@ def frame_loss_bwd(x, labels, maskf, cweight, g_ce, g_sl):
                                          _ptr(cweight), _ptr(g_ce), g_sl.data_ptr(),
                                          dx.data_ptr(), B, T, C, _build.stream_ptr(x.device))
     _build.check("fk_frame_loss_bwd", err)
-    frame_loss_bwd.launches += 1
     return dx
 
 
