@@ -18,7 +18,10 @@
         for K8c (int8 flash X2Y) at the cases its parent runs too (it
         refused Cx = 40), ``k4bwd`` for K4's SA and FFN backwards,
         ``k5k7`` for K5's backward (``frame_loss_bwd``) and K7a
-        (``compose_argmax``): PARENT_DIR is
+        (``compose_argmax``), ``k7k3`` for K7a, K7b (``compose_blend``) and
+        K3's backward (its mask hashed, a parent's fed it) and mask at the
+        cases their parent runs too (it refused the wide vocabularies):
+        PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
         its own kernel library and runs the rows of this tree's
@@ -102,6 +105,14 @@
         term, and 8 x 3072 x 40 without it) and K7a (epic's 1 x 24,576 over
         98 / 301 / 3,806, and the ragged 3 x 1000 over 13 / 29 / 97).
 
+    python3 chip_dev.py k7k3-host [TREE]
+        The same for K7a (epic's 1 x 24,576 over 98 / 301 / 3,806), K7b
+        there (random votes and votes constant over 500-frame runs), at
+        phase 3's small rows and over a sweep of sizes (the data behind the
+        library's choice of the blend's form), and K3's backward at the
+        flagship's shape, dropout 0.2 (its mask hashed where the package
+        hashes it, and fed).
+
     python3 chip_dev.py sa-f64 [TREE]
         K4's SA backward (dropout 0.2, hashed) of the package in TREE and
         its f32 plain version against the plain version in float64 at the
@@ -118,6 +129,18 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
+# this tree's chip_smoke.py (``cs``) on a parent's package: a K3 backward
+# that takes no seed is fed the mask, and a blend with no plan takes the tile
+# form at every call
+_OLD_PACKAGE = """
+import inspect
+from fact_clip_tpu_torch.ops import compose_decode as _k7, mha_attn as _ma
+if "seed" not in inspect.signature(_ma.mha_cross_bwd).parameters:
+    _bwd_case = cs.mha_bwd_case
+    cs.mha_bwd_case = lambda *a, hashed=False, **kw: _bwd_case(*a, **kw)
+if not hasattr(_k7, "blend_plan"):
+    _k7.blend_plan = lambda *a: ("tile", 0)
+"""
 # run in each tree's own directory: this tree's chip_smoke.py (argv[1]) on
 # that tree's package and build
 _PHASE3 = """
@@ -135,6 +158,7 @@ cs.kernel_table = lambda: [
     for r in table() if r[0] in want]
 cs.phase_kernels()
 """
+_PHASE3 = _PHASE3.replace("cs.phase_kernels()", _OLD_PACKAGE + "cs.phase_kernels()")
 # K3's rows at the cases the parent of the K3 redesign runs too (it refused M=200)
 ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd:flagship,ragged",
                   "mha_cross_e512", "mha_cross_bwd_e512"],
@@ -163,7 +187,12 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            # takes no seed, so it is fed the masks of the hashed cases)
            "k4bwd": ["sa_sublayer_bwd", "ffn_sublayer_bwd"],
            # K5's backward and K7a: their parent runs every case
-           "k5k7": ["frame_loss_bwd", "compose_argmax"]}
+           "k5k7": ["frame_loss_bwd", "compose_argmax"],
+           # K7a, K7b and K3's backward and mask at the cases their parent runs too
+           "k7k3": ["compose_argmax:epic,ragged,ties,shuffled,segments",
+                    "compose_blend:epic,segments,ragged,w0,w1,ties,ties_w0,m1,v1000,v2000,v2000_ties",
+                    "mha_cross_bwd:flagship,flag_fed,m200", "mha_cross_bwd_e512:breakfast",
+                    "mha_dropout_mask:flagship"]}
 
 
 def ab(parent: str, names):
@@ -278,6 +307,7 @@ def _chip_smoke(tree: str):
     cs.REPO = tree
     cs.phase_environment(torch)
     cs.phase_build()
+    exec(_OLD_PACKAGE, {"cs": cs})
     return cs
 
 
@@ -633,6 +663,48 @@ def k5k7_host(tree: str = REPO, seed: int = 0):
         "k7a ragged": lambda: cs.k7a_case(rng, 3, 1000, (13, 29, 97), [1000, 777, 129])})
 
 
+def k7k3_host(tree: str = REPO, seed: int = 0):
+    """The same for K7a and K7b at epic's shape, K7b at phase 3's small rows
+    and over a sweep of sizes (random votes unless named: epic's vocabulary
+    at T = 250-8000 with M = 300 and 30, segment votes at 4000, a vocabulary
+    of 13 x 29 -> 97 at T = 1000, 4000 and epic's, epic's verbs and nouns
+    over 250-2000 actions at T = 1000 and epic's), and K3's backward at the
+    flagship's."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    voc, rag = (98, 301, 3806), (13, 29, 97)
+    epic = (1, cs.EPIC_T, voc, [cs.EPIC_T])
+    cases = {
+        "k7a epic": lambda: cs.k7a_case(rng, *epic),
+        "k7b epic": lambda: cs.k7b_case(rng, *epic, 300, 0.1),
+        "k7b segments": lambda: cs.k7b_case(rng, *epic, 300, 0.1, segment=500),
+        "k7b ragged": lambda: cs.k7b_case(rng, 3, 1000, rag, [1000, 777, 129], 7, 0.5, all_null=1),
+        "k7b ties": lambda: cs.k7b_case(rng, 3, 1000, rag, [1000, 777, 129], 7, 0.5, all_null=0,
+                                        coarse=True),
+        "k7b m1": lambda: cs.k7b_case(rng, 2, 3000, voc, [3000, 1200], 1, 0.5),
+        "k7b wide": lambda: cs.k7b_case(rng, 2, 4000, (98, 900, 6000), [4000, 2500], 60, 0.1,
+                                        pairs=True)}
+    for T, M in [(250, 30), (500, 300), (1000, 300), (2000, 300), (4000, 300), (8000, 300),
+                 (1000, 30), (4000, 30)]:
+        cases[f"k7b T={T} M={M}"] = lambda T=T, M=M: cs.k7b_case(rng, 1, T, voc, [T], M, 0.1)
+    cases["k7b T=4000 M=300 segments"] = lambda: cs.k7b_case(rng, 1, 4000, voc, [4000], 300,
+                                                              0.1, segment=500)
+    for T in (1000, 4000, cs.EPIC_T):
+        cases[f"k7b 13x29->97 T={T}"] = lambda T=T: cs.k7b_case(rng, 1, T, rag, [T], 300, 0.1)
+    for n_act in (250, 500, 1000, 2000):
+        for T in (1000, cs.EPIC_T):
+            cases[f"k7b 98x301->{n_act} T={T}"] = (
+                lambda T=T, n_act=n_act: cs.k7b_case(rng, 1, T, (98, 301, n_act), [T], 300, 0.1))
+    import torch
+
+    zeros = torch.zeros((1, 3072, 512), device="cuda")
+    for form in ("hashed", "fed"):
+        cases[f"k3 bwd flagship {form}"] = (
+            lambda form=form: cs.mha_bwd_case(rng, 8, 40, 3072, 256, 512, 8, cs.FLAGSHIP_LENGTHS,
+                                              zeros, hashed=form == "hashed"))
+    return _per_call(cs, "k7k3-host", cases)
+
+
 def sa_f64(tree: str = REPO, seed: int = 0):
     """K4's SA backward (dropout 0.2, its masks hashed where the package
     hashes them) of the package in ``tree`` and its f32 plain version, each
@@ -695,6 +767,8 @@ def main(argv):
         return sa_host(*argv[1:])
     if argv[:1] == ["k5k7-host"] and len(argv) <= 2:
         return k5k7_host(*argv[1:])
+    if argv[:1] == ["k7k3-host"] and len(argv) <= 2:
+        return k7k3_host(*argv[1:])
     if argv[:1] == ["sa-f64"] and len(argv) <= 2:
         return sa_f64(*argv[1:])
     if argv[:1] == ["k2f-f64"] and len(argv) <= 2:

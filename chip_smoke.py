@@ -19,11 +19,16 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    flagship's shape, dropout 0.2, its logits and every save, the ReLU
    outputs on valid frames), the four dropout-mask kernels (bit-equal,
    the keep rate pooled over 32 seeds within 0.001 of 0.8), the K1-K4
-   backwards (from the same forward saves and masks) and K5.  For every
+   backwards (from the same forward saves and masks; K3's and K4's SA
+   backward hashing the masks from the seed, as training runs them, and
+   bit-equal to the same kernels fed the masks: K3 at the flagship's,
+   Breakfast's and EgoProceL's shapes) and K5.  For every
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
-   3.35 TB/s.  K1, K6 and K3's projections multiply on the TF32 tensor
+   3.35 TB/s (K7b: its expfs at the MUFU rate beside the FLOPs, every
+   (frame, action)'s where the library's plan takes the tile form, else
+   those the token-grouped form's bounds cannot skip on the case's inputs).  K1, K6 and K3's projections multiply on the TF32 tensor
    cores at f32 accuracy (3xTF32, one GEMM kernel), so their rows count
    those products as three TF32 passes at 495 TFLOP/s, and print the
    f32-FMA bound of the same work beside it (``f32_fma_bound_ms`` in the
@@ -36,7 +41,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    epic's, K4's FFN backward and forward with dropout 0.2 at epic's, the
    forward also at the flagship's, K5's forward and backward at the
    flagship's, K7a at epic's, K8a at the flagship's, LN and 24-channel
-   cases, K8d at the flagship's and Breakfast's).
+   cases, K8d at the flagship's and Breakfast's, K7b at epic's with random
+   votes and with votes constant over 500-frame runs).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -78,8 +84,15 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    composed argmax, the blend decode and the factored argmax, at epic's
    shape (1 x 24,576 frames, 98 verbs x 301 nouns, 3,806 actions, M=300)
    and at a ragged B=3 case (1000 / 777 / 129 frames, 13 / 29 / 97, M=7,
-   one video whose tokens all predict null), log-Dirichlet rows; their
-   outputs are integers, so each must equal its plain version on every
+   one video whose tokens all predict null), log-Dirichlet rows; the
+   composed argmax also past its run table (``wide``, 98 x 900 -> 6,000 on
+   the tile form) and over 300 actions of 2 x 2 ids (``dups``); the blend
+   also with votes constant over 500-frame runs (``segments``, a trained
+   model's), past 407 ids (``wide``, 98 x 900 -> 6,000, token-grouped;
+   ``wide_tile``, 98 x 1,599 -> 3,806, the tile form) and with one token
+   (``m1``), on either side of the plan's 1,280 actions (``v1000`` on the
+   tile form as the small rows, ``v2000*`` token-grouped, with ties, w = 0
+   and 1); their outputs are integers, so each must equal its plain version on every
    valid frame or differ only at a proven tie (the two picks' plain scores
    within 2 ulp of the larger), and the factored argmax agrees with the
    composed one on >= 0.999 of the frames (its ties break verb first).
@@ -129,8 +142,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    and backward, K5) at full width with seeded weights takes one
    warm-up step and 5 Adam steps through ``run_steps`` on 8 seeded videos
    with piecewise-constant labels in the 8 x 3072 bucket, dropout 0.2 and
-   channel masking 0.3.  Every loss must be finite and every training
-   kernel must have launched during the 5 steps.  Then the warm step time
+   channel masking 0.3.  Every loss must be finite, every training
+   kernel must have launched during the 5 steps and no mask kernel (the
+   backwards of K1, K3 and K4 hash their masks again).  Then the warm step time
    of the kernel path and of the plain path, each split into forward, host
    match, losses, backward and optimizer, with peak memory; and, with
    dropout and masking off, for the weights of each of three seeds, the
@@ -245,9 +259,8 @@ RELU_TIE = 2.0 ** -20  # a ReLU input within this share of |x| |W1| + |b1| of 0:
 COMPARE_SEEDS = (1, 2, 3)  # the weight seeds of each kernel-vs-plain training comparison
 SERVING_KERNELS = ("mstcn_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                    "ffn_sublayer")
-TRAIN_KERNELS = ("mstcn_stack", "mstcn_stack_bwd", "x2y_small_x",
-                 "x2y_small_x_bwd", "x2y_flash", "x2y_flash_bwd", "mha_cross",
-                 "mha_dropout_mask", "mha_cross_bwd", "sa_sublayer", "sa_sublayer_bwd",
+TRAIN_KERNELS = ("mstcn_stack", "mstcn_stack_bwd", "x2y_small_x", "x2y_small_x_bwd", "x2y_flash",
+                 "x2y_flash_bwd", "mha_cross", "mha_cross_bwd", "sa_sublayer", "sa_sublayer_bwd",
                  "ffn_sublayer", "ffn_sublayer_bwd", "frame_loss_fwd", "frame_loss_bwd")
 BF_SERVING_KERNELS = ("mstcn2_stack", "x2y_small_x", "x2y_flash", "mha_cross", "sa_sublayer",
                       "ffn_sublayer")
@@ -335,6 +348,10 @@ PEAK_F32 = 67e12  # FLOP/s: float32 outside the tensor cores (H100 SXM data shee
 PEAK_BYTES = 3.35e12  # bytes/s of HBM3 (H100 SXM data sheet)
 PEAK_INT8 = 1979e12  # int8 tensor-core operations/s, dense (H100 SXM data sheet)
 PEAK_TF32 = 495e12  # TF32 tensor-core FLOP/s, dense (H100 SXM data sheet)
+# expf results/s: the MUFU's ex2, 16 a clock an SM (CUDA programming guide's
+# throughput table, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+# that PEAK_F32 assumes (132 SMs x 128 lanes x 2 x 1.98 GHz)
+PEAK_EXP = 16 * 132 * 1.98e9
 MASK_SEEDS = 32  # seeds whose flagship-shaped masks pool into one keep rate
 KEEP_TOL = 1e-3  # |pooled keep rate - 0.8|
 
@@ -391,13 +408,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in _flat(list(tensors)) if t is not None)
 
 
-def bound(flops: float, n_bytes: float, int8_ops: float = 0.0, tf32x3_flops: float = 0.0):
+def bound(flops: float, n_bytes: float, int8_ops: float = 0.0, tf32x3_flops: float = 0.0,
+          exps: float = 0.0):
     """(ms, "operations" or "bytes"): the least time the card needs for the
     work, the larger of the operations (f32 at the f32 peak, int8 at the
-    int8 tensor-core peak, and f32-accurate products by the 3xTF32 split:
-    three TF32 passes at the TF32 tensor-core peak) and the bytes at the
-    memory rate."""
-    t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8 + 3 * tf32x3_flops / PEAK_TF32) * 1e3
+    int8 tensor-core peak, f32-accurate products by the 3xTF32 split: three
+    TF32 passes at the TF32 tensor-core peak, and expfs at the MUFU rate)
+    and the bytes at the memory rate."""
+    t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8 + 3 * tf32x3_flops / PEAK_TF32
+             + exps / PEAK_EXP) * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -676,11 +695,13 @@ def mha_fwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.0):
             sdpa_library(args[0], args[1], None, args[3], args[5], args[7], H, rate))
 
 
-def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2):
+def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2, hashed=False):
     """The backward from the kernel forward's saves (output and softmax
-    stats), with the layer's mask; the plain backward takes the same.  The
-    projection's recompute, dx and the weight products count as three TF32
-    passes, the attention terms as f32."""
+    stats), with the layer's mask; the plain backward takes the same.  With
+    ``hashed`` (the training path's form) the kernel hashes the mask from the
+    seed, and its gradients must equal, bit for bit, those of the same
+    kernels fed the mask (``mha_dropout_mask``'s bits).  The projection's recompute, dx and the weight products count as
+    three TF32 passes, the attention terms as f32."""
     from fact_clip_tpu_torch.ops import mha_attn as ma
     from fact_clip_tpu_torch.ops.dropout import dropout_mask_reference
 
@@ -691,12 +712,16 @@ def mha_bwd_case(rng, B, M, X, E, Cx, H, x_len, pos, rate=0.2):
     g = _rand(rng, (B, M, E))
     Xv = _valid(args[7], X)
     work = (10 * M * E * Xv,
-            nbytes(args, stats, out, g, keep) + nbytes(args[0], args[1], args[3:7]), 0,
-            12 * Cx * E * Xv)
-    return (lambda: ma.mha_cross_bwd(*args, stats, out, g, num_heads=H, keep=keep),
+            nbytes(args, stats, out, g) + (0 if hashed else nbytes(keep))
+            + nbytes(args[0], args[1], args[3:7]), 0, 12 * Cx * E * Xv)
+    fed = lambda: ma.mha_cross_bwd(*args, stats, out, g, num_heads=H, keep=keep)  # noqa: E731
+    kern = ((lambda: ma.mha_cross_bwd(*args, stats, out, g, num_heads=H, seed=seed, rate=rate))
+            if hashed else fed)
+    return (kern,
             lambda: ma.mha_cross_bwd_reference(*args, stats, out, g, num_heads=H, keep=keep),
             work, None,
-            sdpa_library(args[0], args[1], None, args[3], args[5], args[7], H, rate, g))
+            sdpa_library(args[0], args[1], None, args[3], args[5], args[7], H, rate, g),
+            fed if hashed else None)
 
 
 def sa_case(rng, B, M, E):
@@ -1000,21 +1025,30 @@ def _coarse(x):
     return np.round(x * 4.0) / 4.0
 
 
-def _vn_inputs(rng, B, T, vocab, coarse=False, shuffle=False, segment=0):
+def _repeated_pairs(rng, n1, n2, n_act):
+    """n_act actions over n1 x n2 ids, every id used and pairs repeated (a
+    vocabulary of more actions than distinct pairs)."""
+    vids = np.concatenate([np.arange(n1), rng.integers(0, n1, max(0, n_act - n1))])[:n_act]
+    nids = np.concatenate([np.arange(n2), rng.integers(0, n2, max(0, n_act - n2))])[:n_act]
+    return vids.astype(np.int32), rng.permutation(nids).astype(np.int32)
+
+
+def _vn_inputs(rng, B, T, vocab, coarse=False, shuffle=False, segment=0, pairs=False):
     """Log-Dirichlet verb and noun rows (as the JAX package's ``_vn_fixture``),
     with ``coarse`` rounded to quarters, with ``segment`` constant over runs
     of that many frames plus noise of 1e-3 (as a model's output is over an
     action's frames: whole tiles share their best verb), and the (vids,
     nids) tables of ``vocab`` = (n1, n2, n_act), with ``shuffle`` in a random
-    action order (not sorted by verb, as a user's mapping need not be)."""
+    action order (not sorted by verb, as a user's mapping need not be), with
+    ``pairs`` drawn with repeated (verb, noun) pairs."""
     import torch
 
     from fact_clip_tpu_torch.configs import epic_vocab
 
     n1, n2, n_act = vocab
     perm = rng.permutation(n_act) if shuffle else np.arange(n_act)
-    vids, nids = (torch.from_numpy(np.ascontiguousarray(t[perm])).cuda()
-                  for t in epic_vocab(n1, n2, n_act))
+    ids = _repeated_pairs(rng, n1, n2, n_act) if pairs else epic_vocab(n1, n2, n_act)
+    vids, nids = (torch.from_numpy(np.ascontiguousarray(t[perm])).cuda() for t in ids)
 
     def logp(n):
         if segment:
@@ -1034,14 +1068,14 @@ def _valid_frames(lengths, T):
     return torch.arange(T, device=lens.device)[None, :] < lens[:, None]
 
 
-def k7a_case(rng, B, T, vocab, lengths, coarse=False, shuffle=False, segment=0):
+def k7a_case(rng, B, T, vocab, lengths, coarse=False, shuffle=False, segment=0, pairs=False):
     """The composed argmax; its picks must equal the plain ones on every
     valid frame (the kernel's second pass finds the first index among
     exact ties)."""
     from fact_clip_tpu_torch.ops import compose_decode as k7
     from fact_clip_tpu_torch.ops.verbnoun_compose import composed_gather
 
-    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse, shuffle, segment)
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse, shuffle, segment, pairs)
     valid = _valid_frames(lengths, T)
     work = (2 * B * T * vocab[2], nbytes(lv, ln, vids, nids) + B * T * 4)
 
@@ -1095,36 +1129,83 @@ def blend_items(lv, ln, vids, nids, q, act, weight, out, ref):
     return [("blend", out[0], ref[0], bscore), ("fallback", out[1], ref[1], fscore)]
 
 
-def k7b_case(rng, B, T, vocab, lengths, M, weight, all_null=None, coarse=False):
+def blend_needed_exps(lv, ln, vids, nids, q, act, weight):
+    """The (frame, action) expfs that the pruned blend cannot skip on these
+    inputs: the actions of each frame's verbs whose bound UB_v reaches the
+    frame's lower bound (csrc/compose_decode.cu's bounds, frame by frame:
+    the kernel skips a verb only where all 32 frames of an item may, so it
+    computes at least these); every (frame, action) where the weight takes
+    no pruning."""
+    import torch
+
+    B, T = act.shape
+    n1, n_act = lv.shape[-1], vids.shape[0]
+    if not 0.0 <= weight <= 1.0:
+        return B * T * n_act
+    vl, inf = vids.long(), float("inf")
+    s = lv[..., vl] + ln[..., nids.long()]
+    S = torch.full((B, T, n1), -inf, device=lv.device).scatter_reduce(
+        -1, vl.expand(B, T, -1), s, "amax")
+    qp = (1.0 - weight) * q
+    Qv = torch.full((B, q.shape[1], n1), -inf, device=lv.device).scatter_reduce(
+        -1, vl.expand(B, q.shape[1], -1), qp, "amax")
+    tok = act.long()
+    aq = qp.argmax(-1).gather(1, tok)[..., None]  # each frame's token's best q' action
+    seed = qp.gather(1, tok[..., None].expand(-1, -1, n_act)).gather(2, aq)[..., 0] \
+        + weight * torch.exp(s.gather(2, aq)[..., 0])
+    low = torch.maximum(seed, weight * torch.exp(S.amax(-1)))
+    m = 1.0 + 2.0 ** -16
+    ub = (Qv.gather(1, tok[..., None].expand(-1, -1, n1)) + weight * torch.exp(S) * m) * m \
+        + 2.0 ** -126
+    runs = torch.bincount(vl, minlength=n1)
+    runs = (runs + 3) // 4 * 4  # each run padded to a multiple of 4 entries
+    return int(((ub >= low[..., None]) * runs).sum())
+
+
+def k7b_case(rng, B, T, vocab, lengths, M, weight, all_null=None, coarse=False, segment=0,
+             pairs=False):
     """The blend's inputs as ``composed_decode`` makes them from token
     log-probs and a2f attention (``all_null``: a video whose tokens all
     predict null, so that its decode takes the fallback; ``coarse``: every
-    log-prob rounded to quarters, and the picks must equal the plain ones)."""
+    log-prob rounded to quarters, and the picks must equal the plain ones;
+    ``segment``: the rows and the votes constant over runs of that many
+    frames, as a trained model's are).  Its bound: the bytes, or the expfs
+    at the MUFU rate: B T n_act where the library's plan takes the tile form
+    (every expf), else those the token-grouped form's bounds cannot skip on
+    these inputs (``blend_needed_exps``)."""
     import torch
 
     from fact_clip_tpu_torch.models.decode import token_probs, votes
     from fact_clip_tpu_torch.ops import compose_decode as k7
 
-    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse)
+    lv, ln, vids, nids = _vn_inputs(rng, B, T, vocab, coarse, segment=segment, pairs=pairs)
     n_act = vocab[2]
     alogp = np.log(rng.dirichlet(np.ones(n_act + 1), size=(B, M)))
     alogp = (_coarse(alogp) if coarse else alogp).astype(np.float32)
     if all_null is not None:
         alogp[all_null, :, :-1] -= 50.0
     alogp = torch.from_numpy(alogp).cuda()
-    attn = _rand(rng, (B, T, M))
-    _, act = votes(alogp, attn, torch.ones((B, M), dtype=torch.bool, device=alogp.device))
-    q, act = token_probs(alogp).contiguous(), act.to(torch.int32)
+    if segment:
+        act = torch.from_numpy(rng.integers(0, M, (B, T // segment + 1))[:, np.arange(T) // segment]
+                               .astype(np.int32)).cuda()
+    else:
+        attn = _rand(rng, (B, T, M))
+        _, act = votes(alogp, attn, torch.ones((B, M), dtype=torch.bool, device=alogp.device))
+    q, act = token_probs(alogp).contiguous(), act.to(torch.int32).contiguous()
     valid = _valid_frames(lengths, T)
-    work = (7 * B * T * n_act, nbytes(lv, ln, vids, nids, q, act) + 2 * B * T * 4)
+    form, _ = k7.blend_plan(B, T, vocab[0], vocab[1], n_act, M)
+    exps = (B * T * n_act if form == "tile"
+            else blend_needed_exps(lv, ln, vids, nids, q, act, weight))
+    work = (0, nbytes(lv, ln, vids, nids, q, act) + 2 * B * T * 4, 0, 0, exps)
 
     def judge(out, ref):
-        return argmax_check(blend_items(lv, ln, vids, nids, q, act, weight, out, ref), valid,
-                            exact=coarse)
+        text, ok, worst = argmax_check(blend_items(lv, ln, vids, nids, q, act, weight, out, ref),
+                                       valid, exact=coarse)
+        return text + f"; {form} form, {exps} of {B * T * n_act} expfs needed", ok, worst
 
     return (lambda: k7.compose_blend(lv, ln, vids, nids, q, act, weight),
-            lambda: k7.compose_blend_reference(lv, ln, vids, nids, q, act, weight), work, judge,
-            compose_library(lv, ln, vids, nids, q, act, weight))
+            lambda: k7.compose_blend_reference(lv, ln, vids, nids, q, act, weight), work,
+            judge, compose_library(lv, ln, vids, nids, q, act, weight))
 
 
 def k7c_case(rng, B, T, vocab, lengths, coarse=False):
@@ -1553,13 +1634,17 @@ def kernel_table():
                                                _rand(r, (1, 60, D)), zeros(1, 4096, D))),
           ("xlen0", lambda r: x2y_bwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
                                            _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
+        # hashed: the training path's form, held bit for bit against the
+        # same kernels fed the mask; the other cases are fed it
         ("mha_cross_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("flagship", lambda r: mha_bwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                              zeros(1, T, D), hashed=True)),
+          ("flag_fed", lambda r: mha_bwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
           ("ragged", lambda r: mha_bwd_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 517],
                                             _rand(r, (1, 1100, D)))),
           ("m200", lambda r: mha_bwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
-                                          zeros(1, 4096, D))),
+                                          zeros(1, 4096, D), hashed=True)),
           ("xlen0", lambda r: mha_bwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
                                            _rand(r, (1, 1100, D))))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
@@ -1631,7 +1716,7 @@ def kernel_table():
                                             _rand(r, (1, 1100, D)), 0.2))]),
         ("mha_cross_bwd_e512", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("breakfast", lambda r: mha_bwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
-                                               zeros(1, 4096, D))),
+                                               zeros(1, 4096, D), hashed=True)),
           ("ragged", lambda r: mha_bwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
                                             _rand(r, (1, 1100, D))))]),
         # epic (the verb/noun model): K7
@@ -1643,9 +1728,33 @@ def kernel_table():
           ("shuffled", lambda r: k7a_case(r, 2, 4000, epic_voc, [4000, 2500], shuffle=True)),
           # epic's shape with rows constant over 500-frame segments: whole tiles
           # share their best verb, as in a model's output
-          ("segments", lambda r: k7a_case(r, 1, ET, epic_voc, [ET], segment=500))]),
+          ("segments", lambda r: k7a_case(r, 1, ET, epic_voc, [ET], segment=500)),
+          # past the run-table block, the tile form: n1 + n2 = 998 > 407
+          ("wide", lambda r: k7a_case(r, 2, 4000, (98, 900, 6000), [4000, 2500])),
+          # 300 actions over 2 x 2 ids: the run table, its ids read from device memory
+          ("dups", lambda r: k7a_case(r, 3, 1000, (2, 2, 300), vn_rag, pairs=True))]),
+        # random votes (epic): neighbouring frames rarely share a token, the
+        # worst case of the token grouping; segments: votes constant over
+        # 500-frame runs, as a trained model's
         ("compose_blend", csrc + "compose_decode.cu", pallas + "compose_decode.py:247", "argmax",
          [("epic", lambda r: k7b_case(r, 1, ET, epic_voc, [ET], 300, 0.1)),
+          ("segments", lambda r: k7b_case(r, 1, ET, epic_voc, [ET], 300, 0.1, segment=500)),
+          # n1 + n2 = 998 > 407 on the token-grouped block; 1,697 on the tile form
+          ("wide", lambda r: k7b_case(r, 2, 4000, (98, 900, 6000), [4000, 2500], 60, 0.1,
+                                      pairs=True)),
+          ("wide_tile", lambda r: k7b_case(r, 1, 2000, (98, 1599, 3806), [2000], 60, 0.1,
+                                           pairs=True)),
+          ("m1", lambda r: k7b_case(r, 2, 3000, epic_voc, [3000, 1200], 1, 0.5)),
+          # either side of the plan's 1,280 actions: the tile form at 1,000, the
+          # token-grouped form at 2,000, there also on exact ties and at w = 0
+          # and 1 with a video whose tokens all predict null
+          ("v1000", lambda r: k7b_case(r, 1, 4000, (98, 301, 1000), [4000], 300, 0.1)),
+          ("v2000", lambda r: k7b_case(r, 1, 4000, (98, 301, 2000), [4000], 300, 0.1)),
+          ("v2000_ties", lambda r: k7b_case(r, 2, 3000, (98, 301, 2000), [3000, 1200], 60, 0.5,
+                                            all_null=0, coarse=True)),
+          ("v2000_w0", lambda r: k7b_case(r, 2, 3000, (98, 301, 2000), [3000, 1200], 60, 0.0,
+                                          all_null=1)),
+          ("v2000_w1", lambda r: k7b_case(r, 2, 3000, (98, 301, 2000), [3000, 1200], 60, 1.0)),
           ("ragged", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.5, all_null=1)),
           ("w0", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 0.0, all_null=2)),
           ("w1", lambda r: k7b_case(r, 3, 1000, rag_voc, vn_rag, 7, 1.0)),
@@ -1797,8 +1906,9 @@ def phase_kernels(seed: int = 0):
                 library_ms = cuda_ms(library, iters, warmup=1) if library is not None else None
                 bound_ms, bound_by = bound(*work)
                 int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 and work[2] else ""
+                int8 += f", {work[4]:.4g} expfs" if len(work) > 4 and work[4] else ""
                 tf32 = ""
-                if len(work) > 3:  # beside it, the f32-FMA bound of the same work
+                if len(work) > 3 and work[3]:  # beside it, the f32-FMA bound of the same work
                     f32_ms = bound(work[0] + work[3], work[1], work[2])[0]
                     tf32 = (f", {work[3]:.4g} FLOP as 3xTF32; f32-FMA bound {f32_ms:.4f} ms, "
                             f"{bound_ms / ms:.3f} of the 3xTF32 bound reached")
@@ -1811,7 +1921,7 @@ def phase_kernels(seed: int = 0):
                                          replaces=replaces, max_abs_err=err_abs, ms=ms,
                                          plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=library_ms)
-                    if len(work) > 3:
+                    if len(work) > 3 and work[3]:
                         results[name]["f32_fma_bound_ms"] = f32_ms
                 else:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_abs)
@@ -1837,8 +1947,8 @@ def k6_repeat_check(seed: int = 0):
     Breakfast's backward (the dc GEMM's sums at C=512) and epic's (C=256);
     K1 at the flagship's shape (its dc GEMM's sums, its k1_dz); K3 at the
     flagship's shape, the forward with dropout 0.2 (the projection GEMM, the
-    per-head partials, the combine) and the backward (its tile shares and
-    bias sums in two stages); K2's flash forward and backward at the
+    per-head partials, the combine) and the backward, its mask hashed (its
+    tile shares and bias sums in two stages); K2's flash forward and backward at the
     flagship's shape (the projection GEMM, the forward's partials and
     combine, the backward's panels and column sums, dyq's tile shares); K2's
     small-X forward and backward at the flagship's a2f (the projections, the
@@ -1856,7 +1966,9 @@ def k6_repeat_check(seed: int = 0):
     8 x 3072 x 75 (its chunks' partials summed in chunk order) and its
     backward there (its blocks' shared-memory staging); K7a at epic's
     1 x 24,576 (its run table built by the blocks' atomics: the picks must
-    not depend on the order); K8a at the
+    not depend on the order); K7b there with random votes and with votes
+    constant over 500-frame runs (its sort's and table's atomics, the
+    pruning's warp votes, pass 2's queue); K8a at the
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
     maxima, pass N); K8b at the flagship's a2f (the key side's GEMM on its
@@ -1884,7 +1996,7 @@ def k6_repeat_check(seed: int = 0):
              ("k3_drop", lambda: mha_fwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                               zeros, 0.2)),
              ("k3_bwd", lambda: mha_bwd_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
-                                             zeros)),
+                                             zeros, hashed=True)),
              ("k2_flash", lambda: x2y_fwd_case(rng, True, 8, 40, 3072, 512, 512, 512,
                                                FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
                                                zeros)),
@@ -1920,7 +2032,10 @@ def k6_repeat_check(seed: int = 0):
              ("ffn_flag", lambda: ffn_fwd_case(rng, 8, 40, 256, 512, 0.2)),
              ("k5_fwd", lambda: frame_loss_case(rng, False, 8, 3072, 75, FLAGSHIP_LENGTHS)),
              ("k5_bwd", lambda: frame_loss_case(rng, True, 8, 3072, 75, FLAGSHIP_LENGTHS)),
-             ("k7a_epic", lambda: k7a_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])))
+             ("k7a_epic", lambda: k7a_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])),
+             ("k7b_epic", lambda: k7b_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T], 300, 0.1)),
+             ("k7b_seg", lambda: k7b_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T], 300, 0.1,
+                                          segment=500)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -1936,7 +2051,7 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a, K8a, K8b, K8d or K8e gives "
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a, K7b, K8a, K8b, K8d or K8e gives "
                              f"different bits on the same inputs: {failed}")
 
 
@@ -2158,7 +2273,7 @@ def phase_training(seed: int = 0):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"training kernels not launched in the 5 steps: {missing}")
-    # K1's and K4's SA and FFN backwards hash their masks again: no mask replay
+    # K1's, K3's and K4's SA and FFN backwards hash their masks again: no mask replay
     replayed = [k for k in MASK_KERNELS if k not in TRAIN_KERNELS and counts[k]]
     if replayed:
         raise AssertionError(f"mask replays launched in the 5 steps: {replayed}")

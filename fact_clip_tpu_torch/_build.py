@@ -63,7 +63,7 @@ SIGNATURES = {
     "fk_x2y_sx_fwd": [P, P, L, I, P, P, L, I] + [P] * 7 + [I] * 6 + [F] + [P] * 10 + [I, P],
     "fk_x2y_flash_fwd": [P, P, L, I] + [P] * 6 + [I] * 5 + [F] + [P] * 9 + [I, P],
     "fk_k3_attn": [P, P, P, I, I, I, I, I, F, P, P, P, P, P, I, U, F, P],
-    "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P],
+    "fk_k3_attn_bwd": [P] * 7 + [I] * 5 + [F] + [P] * 3 + [I, I, P, I, U, F, P],
     "fk_sa_qkv": [P, P, I] + [P] * 7 + [I, I, I, P],
     "fk_sa_attn_out": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
     "fk_ffn_fwd": [P] * 9 + [I, I, I, I, F] + [P, I, U, F] * 2 + [P],
@@ -80,7 +80,8 @@ SIGNATURES = {
     "fk_k6_wgrad": [P, I, I, I, P, I, I, I, P, I, I, I, P, I, I, I, P],
     "fk_k6_ds": [P] * 6 + [I, U, F] + [P] * 4 + [I] * 5 + [P],
     "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],
-    "fk_compose_blend": [P] * 8 + [I] * 6 + [F, F, P],
+    "fk_compose_blend_plan": [I] * 6 + [P],
+    "fk_compose_blend": [P] * 9 + [I] * 6 + [F, F, P],
     "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
     "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 9

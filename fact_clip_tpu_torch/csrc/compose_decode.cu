@@ -26,7 +26,9 @@
 // lane.  Each block builds a run table from vids and nids in shared memory
 // (the actions grouped by verb, runs padded to packs of 4, a 16-bit noun and
 // a 16-bit action index an entry, 16 KB at epic scale; built anew in every
-// call, so no cached table can go stale, and the ids need not be sorted).
+// call, so no cached table can go stale, and the ids need not be sorted; the
+// ids staged in a tile's room, or read from device memory where many
+// repeated pairs make them too many for it).
 // Rounding is monotone, so the best rounded sum among verb v's actions is
 // S_v = fl(lv[v] + max over v's run of ln[nid]): pass 1 is one gather and
 // one fmaxf a (frame, action), with no index kept.  Any action that reaches
@@ -47,21 +49,58 @@
 // table again, two shared-memory gathers a (frame, action) at lane-varying
 // addresses, two shuffle argmaxes a frame) took 0.077 ms at epic's 1 x
 // 24,576.  Its floors: 39 MB of rows at 3.35 TB/s, 11.7 us; 24,576 x 3,806
-// 4-byte gathers at 128 bytes a clock an SM on 132 SMs, ~12.6 us at
-// 1.755 GHz, beside which the table reads and pass 2 come on top.
+// 4-byte gathers at 128 bytes a clock an SM on 132 SMs, ~11.2 us at
+// 1.98 GHz, beside which the table reads and pass 2 come on top.
 //
-// Layout of the blend: one block of 8 warps per tile of 32 frames of one
-// video.  The block stages the action table (vids | nids << 16, one int per
-// action, 15 KB at epic scale) and the tile's lv and ln rows in shared
-// memory.  Each warp owns 4 frames at once; its lanes stride over the
-// actions, so a table entry read from shared memory serves 4 frames, and
-// each lane keeps each frame's best (value, index) with a strict > (its
-// lowest index among equal values).  A shuffle reduction that prefers the
-// lower index on equal values ends each frame.  The blend reads the voting
-// token's q row from device memory, coalesced across the lanes (the (300,
-// 3,806) table, 4.6 MB a video, stays in L2).  The (T, n_act) composition
-// never reaches device memory: the plain version materialises it, 374 MB
-// for a 24,576-frame video.
+// The composed argmax past the run table's shared memory (a vocabulary
+// wider than n1 + n2 ~ 407 at epic's 3,806 actions), and the blend past its
+// own or on a small vocabulary (below BL_GROUPED_ACTIONS): the tile form, one block of 8 warps per tile of 32 frames of one
+// video (tile_kernel).  The block stages the action table (vids | nids << 16,
+// one int per action) and the tile's lv and ln rows, 4 n_act + 128 (n1 + n2)
+// bytes (ops/compose_decode.py::compose_smem); each warp owns 4 frames at
+// once, its lanes stride over the actions, so a table entry read from shared
+// memory serves 4 frames, and each lane keeps each frame's best (value,
+// index) with a strict > (its lowest index among equal values); a shuffle
+// reduction that prefers the lower index on equal values ends each frame.
+// The blend's form reads the voting token's q row from device memory.  This
+// was the only form of both before the run table and the token grouping (at
+// epic's 1 x 24,576 the composed argmax took 0.077 ms, the blend 0.192).
+//
+// The blend (redesigned for the H100): frames grouped by their voting token.
+// One library call, two launches.  blend_prep_kernel sorts each video's
+// frames by token (a counting sort in shared memory with warp-private
+// counts, one block a video) into runs of at most 32 frames that share a
+// token (items), a block builds the composed argmax's run table
+// (build_runs) into the workspace, and the others take each token's q row:
+// each verb's largest q and the action of its largest (pruning's bounds).
+// Then
+// blend_runs_kernel: persistent blocks of 16 warps, one an SM at epic's
+// 171 KB, each taking every grid-th item; an item's frames' lv and ln rows
+// (the ln rows at an odd stride) and its token's q row (15.2 KB once for 32
+// frames, not once a frame) arrive by cp.async into one of two buffers while
+// the block works on the item before (its item and row indices further
+// ahead).  A lane takes a frame, so a table entry and a q value are one
+// address across the warp (broadcasts) and only the noun gather varies by
+// lane; the warps split the verbs as the composed argmax's.
+// Pass A: S_v = fl(lv[v] + max of ln over v's run) for each verb, the
+// fallback's pass 1, which gives its S* and best verbs.  Pass B: for each
+// verb, p = fl(q' + fl(w expf(fl(lv + ln)))) over its run, the plain
+// version's roundings, and P_v = max p; the best P_v and up to four verbs
+// that reach it.  Pass 2 (both outputs): the lowest action index of the
+// best verbs' runs that reaches the top, through the block-wide queue.
+// Exact pruning skips a verb's expf where it cannot hold the pick: its
+// p's are at most UB_v = (Qv + w expf(S_v) (1 + 2^-16)) (1 + 2^-16) +
+// 2^-126 (Qv: the max of q' over the run; expf is within 2 ulp of exp,
+// CUDA's documented bound, so expf(s) <= expf(S_v) (1 + 2^-20) + 2^-146 for
+// s <= S_v, and each of the three roundings adds at most 2^-24), while the
+// best p is at least L = max(p at the token's best q' action, fl(w
+// expf(S*))) (both actual p values or below one: q' >= 0).  A verb with
+// UB_v < L for every frame of the warp is skipped: no action of it reaches
+// or ties the best, so the picks are those of the exhaustive pass, bit for
+// bit.  Pruning needs 0 <= w <= 1 (the host's flag) and q >= 0 (the first
+// launch's flag per token); otherwise every expf runs.  The (T, n_act)
+// composition never reaches device memory: the plain version materialises
+// it, 374 MB for a 24,576-frame video.
 //
 // The factored argmax keeps the (n1, n2) mask in shared memory (118 KB at
 // epic scale, rows padded to an odd stride so that lanes on neighbouring
@@ -70,10 +109,13 @@
 // the best verb is reduced across lanes as above.  Its ties break verb
 // first, then noun, not in action order (by design, as the TPU kernel's).
 //
-// Bound on the H100: device memory.  At epic scale the kernels read the
-// factored log-probs once, T * 399 * 4 B (39 MB at T = 24,576: 11.7 us at
-// 3.35 TB/s), and do 2 (argmax), ~8 (blend) or 2 n2 / n_act * n1 (factored)
-// operations per (frame, action) on the CUDA cores.
+// Bound on the H100: device memory for the composed and factored argmaxes.
+// At epic scale the kernels read the factored log-probs once, T * 399 * 4 B
+// (39 MB at T = 24,576: 11.7 us at 3.35 TB/s), and do 2 (argmax) or 2 n2 /
+// n_act * n1 (factored) operations per (frame, action) on the CUDA cores.
+// The blend's tile form owes one expf a (frame, action): 93.5 M at epic's
+// shape, 16 MUFU results a clock an SM on 132 SMs, ~22.4 us at 1.98 GHz,
+// above its bytes; the token-grouped form owes those its bounds cannot skip.
 #include <math.h>
 
 #include <algorithm>
@@ -83,6 +125,7 @@
 
 namespace {
 
+constexpr size_t kMaxSmem = 232448;     // a block's dynamic shared memory on sm_90
 constexpr int FPW = 4;                  // frames a warp composes at once
 constexpr int TILE = fk::kWarps * FPW;  // frames per block (blend)
 constexpr int FTILE = 64;               // frames per block (factored)
@@ -116,11 +159,15 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, size_t
   for (int i = threadIdx.x; i < TILE * n; i += fk::kThreads) s[i] = i < rows * n ? __ldg(p + i) : 0.f;
 }
 
+// The tile form: 32 frames of one video a block (see the top).  BLEND:
+// the blend into out and the composed argmax into fb; otherwise the composed
+// argmax alone into fb (q, act and out unread).
+template <bool BLEND>
 __global__ void __launch_bounds__(fk::kThreads)
-blend_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
-             const int* __restrict__ vids, const int* __restrict__ nids,
-             const float* __restrict__ q, const int* __restrict__ act, int* __restrict__ out,
-             int* __restrict__ fb, int T, int n1, int n2, int n_act, int M, float omw, float w) {
+tile_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
+            const int* __restrict__ vids, const int* __restrict__ nids,
+            const float* __restrict__ q, const int* __restrict__ act, int* __restrict__ out,
+            int* __restrict__ fb, int T, int n1, int n2, int n_act, int M, float omw, float w) {
   extern __shared__ float4 smem_raw[];
   int* tab = reinterpret_cast<int*>(smem_raw);
   float* lvs = reinterpret_cast<float*>(tab + n_act);
@@ -147,7 +194,7 @@ blend_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
     bv[j] = sv[j] = -INFINITY;
     bi[j] = si[j] = -1;
     const int f = min(f0 + j, rows - 1);
-    qrow[j] = q + ((size_t)b * M + __ldg(act + row0 + f)) * n_act;
+    qrow[j] = BLEND ? q + ((size_t)b * M + __ldg(act + row0 + f)) * n_act : nullptr;
   }
   for (int a = lane; a < n_act; a += 32) {
     const int e = tab[a];
@@ -160,19 +207,21 @@ blend_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
         sv[j] = s;
         si[j] = a;
       }
-      const float p = __fadd_rn(__fmul_rn(omw, __ldg(qrow[j] + a)), __fmul_rn(w, expf(s)));
-      if (p > bv[j] || bi[j] < 0) {
-        bv[j] = p;
-        bi[j] = a;
+      if (BLEND) {
+        const float p = __fadd_rn(__fmul_rn(omw, __ldg(qrow[j] + a)), __fmul_rn(w, expf(s)));
+        if (p > bv[j] || bi[j] < 0) {
+          bv[j] = p;
+          bi[j] = a;
+        }
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < FPW; ++j) {
     warp_argmax(sv[j], si[j]);
-    warp_argmax(bv[j], bi[j]);
+    if (BLEND) warp_argmax(bv[j], bi[j]);
     if (lane == 0 && f0 + j < rows) {
-      out[row0 + f0 + j] = bi[j];
+      if (BLEND) out[row0 + f0 + j] = bi[j];
       fb[row0 + f0 + j] = si[j];
     }
   }
@@ -180,18 +229,20 @@ blend_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
 
 constexpr int AM_TABLE_THREADS = AM_WARPS / 2 * 32;  // threads that build the table
 
-// the table warps' barrier (named barrier 1)
+// the table warps' barrier (named barrier 1), NTH threads
+template <int NTH = AM_TABLE_THREADS>
 __device__ __forceinline__ void build_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(AM_TABLE_THREADS) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NTH) : "memory");
 }
 
 // The runs' padded starts from the counts fill[v]: runs[v] and runs[n1] the
 // total, fill[v] where v's entries go, then bnd: warp i takes verbs [bnd[i],
 // bnd[i + 1]).  By the table warps (threads 0 to AM_TABLE_THREADS - 1); ends
 // synchronised among them.
+template <int NTH>
 __device__ __forceinline__ void scan_runs(int n1, int* runs, int* fill, int* bnd) {
   const int tid = threadIdx.x;
-  build_sync();
+  build_sync<NTH>();
   if (tid < 32) {  // the exclusive sum of the padded counts, a chunk of verbs a lane
     const int per = (n1 + 31) / 32;
     const int v0 = min(n1, tid * per), v1 = min(n1, v0 + per);
@@ -211,7 +262,7 @@ __device__ __forceinline__ void scan_runs(int n1, int* runs, int* fill, int* bnd
     }
     if (tid == 31) runs[n1] = incl;
   }
-  build_sync();
+  build_sync<NTH>();
   // a verb costs its entries and AM_VERB_COST more (its loads and its S_v);
   // thread i finds bnd[i], the first verb whose cost reaches i / AM_WARPS of
   // the total, by bisection
@@ -226,7 +277,7 @@ __device__ __forceinline__ void scan_runs(int n1, int* runs, int* fill, int* bnd
     bnd[tid] = lo;
   }
   if (tid == 0) bnd[AM_WARPS] = n1;
-  build_sync();
+  build_sync<NTH>();
 }
 
 // The run table of the composed argmax, built by every block from vids and
@@ -240,15 +291,16 @@ __device__ __forceinline__ void scan_runs(int n1, int* runs, int* fill, int* bnd
 // verbs when the actions come sorted by verb; within a run the order is the
 // atomics' (any order gives the same max and the same lowest index).  An
 // action whose ids lie outside [0, n1) x [0, n2) is left out.
+template <int NTH = AM_TABLE_THREADS>
 __device__ __forceinline__ void build_runs(const int* vids, const int* nids, int n1, int n2,
                                            int n_act, unsigned short* nid16,
                                            unsigned short* act16, int* runs, int* fill,
                                            int* bnd) {
   const int tid = threadIdx.x, lane = tid & 31;
-  constexpr int nth = AM_TABLE_THREADS, nwarp = nth >> 5;
+  constexpr int nth = NTH, nwarp = nth >> 5;
   const int L = (n_act + 31) / 32;
   for (int v = tid; v < n1; v += nth) fill[v] = 0;
-  build_sync();
+  build_sync<NTH>();
   for (int pass = 0; pass < 2; ++pass) {  // 0: count the runs; 1: place the entries
     for (int j = tid >> 5; j < L; j += nwarp) {
       const int a = lane * L + j;
@@ -263,9 +315,9 @@ __device__ __forceinline__ void build_runs(const int* vids, const int* nids, int
         atomicAdd(&fill[v], 1);
       }
     }
-    if (pass == 0) scan_runs(n1, runs, fill, bnd);
+    if (pass == 0) scan_runs<NTH>(n1, runs, fill, bnd);
   }
-  build_sync();
+  build_sync<NTH>();
   for (int v = tid; v < n1; v += nth)
     for (int s = fill[v]; s < runs[v + 1]; ++s) {
       nid16[s] = nid16[runs[v]];
@@ -316,18 +368,26 @@ struct Best {
   }
 };
 
+// The blend's value of one action: fl(q' + fl(w expf(s))), q' = fl((1 - w) q)
+// and s = fl(lv + ln), as the plain version rounds it.
+__device__ __forceinline__ float blend_value(float qs, float w, float s) {
+  return __fadd_rn(qs, __fmul_rn(w, expf(s)));
+}
+
 // Pass 2 for one frame by a group of G lanes (all 32 lanes call it; a group
 // whose active is false has no frame): its value top and its best verbs (nt
 // of them, the first four c0-c3; every verb of the share [vlo, vhi) past
 // four ties); lvf and lnf the frame's lv and ln rows.  The group's lanes
 // split each verb's run and reduce the lowest action index whose lv + ln
-// rounds to top.
-template <int G>
+// rounds to top (BLEND: whose blend value is top, qs the token's q row, q' =
+// fl(omw q)).
+template <int G, bool BLEND = false>
 __device__ __forceinline__ int lowest_action(bool active, float top, int nt, int c0, int c1,
                                              int c2, int c3, const float* lvf, const float* lnf,
                                              const unsigned short* nid16,
                                              const unsigned short* act16, const int* runs,
-                                             int vlo, int vhi) {
+                                             int vlo, int vhi, const float* qs = nullptr,
+                                             float w = 0.f, float omw = 0.f) {
   const int r = threadIdx.x & (G - 1);
   int amin = 0x7fffffff;
   const int nv = !active ? 0 : nt <= 4 ? nt : vhi - vlo;
@@ -335,8 +395,11 @@ __device__ __forceinline__ int lowest_action(bool active, float top, int nt, int
     const int v = nt > 4 ? vlo + i : i == 0 ? c0 : i == 1 ? c1 : i == 2 ? c2 : c3;
     const float lvv = lvf[v];
 #pragma unroll 4
-    for (int s = runs[v] + r; s < runs[v + 1]; s += G)
-      if (lvv + lnf[nid16[s]] == top) amin = min(amin, (int)act16[s]);
+    for (int s = runs[v] + r; s < runs[v + 1]; s += G) {
+      const float val = BLEND ? blend_value(__fmul_rn(omw, qs[act16[s]]), w, lvv + lnf[nid16[s]])
+                              : lvv + lnf[nid16[s]];
+      if (val == top) amin = min(amin, (int)act16[s]);
+    }
   }
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) amin = min(amin, __shfl_xor_sync(0xffffffffu, amin, o));
@@ -370,6 +433,7 @@ __device__ __forceinline__ int4 pack_item(int f, int warp, const Best& p, float 
 // split the runs of the verbs with S_v == S* (every verb of the warp's
 // share past four ties) and reduce the lowest action index whose lv + ln
 // rounds to S*.
+template <bool IDS_STAGED>
 __global__ void __launch_bounds__(AM_WARPS * 32)
 compose_argmax_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
                       const int* __restrict__ vids, const int* __restrict__ nids,
@@ -395,23 +459,25 @@ compose_argmax_kernel(const float* __restrict__ lv, const float* __restrict__ ln
   const int tiles = B * tpv;
 
   // the first half of the warps build the run table from the ids, staged in
-  // the second tile buffer (free until the first prefetch; argmax_smem
-  // refuses ids that do not fit there), while the others stage the first
-  // tile's rows
+  // the second tile buffer (free until the first prefetch) where they fit
+  // there (IDS_STAGED) and read from device memory where not, while the
+  // others stage the first tile's rows
   int k = blockIdx.x;
   if (threadIdx.x < AM_TABLE_THREADS) {
-    const int ids_at = (n_act + 7) & ~3;  // nids after vids, 16-byte aligned
-    const int* vs =
-        reinterpret_cast<const int*>(buf1) +
-        fk::cp_async_floats(buf1, reinterpret_cast<const float*>(vids), n_act, threadIdx.x,
-                            AM_TABLE_THREADS);
-    const int* ns =
-        reinterpret_cast<const int*>(buf1 + ids_at) +
-        fk::cp_async_floats(buf1 + ids_at, reinterpret_cast<const float*>(nids), n_act,
-                            threadIdx.x, AM_TABLE_THREADS);
-    cp_async_commit();
-    fk::cp_async_wait_all();
-    build_sync();
+    const int* vs = vids;
+    const int* ns = nids;
+    if (IDS_STAGED) {
+      const int ids_at = (n_act + 7) & ~3;  // nids after vids, 16-byte aligned
+      vs = reinterpret_cast<const int*>(buf1) +
+           fk::cp_async_floats(buf1, reinterpret_cast<const float*>(vids), n_act, threadIdx.x,
+                               AM_TABLE_THREADS);
+      ns = reinterpret_cast<const int*>(buf1 + ids_at) +
+           fk::cp_async_floats(buf1 + ids_at, reinterpret_cast<const float*>(nids), n_act,
+                               threadIdx.x, AM_TABLE_THREADS);
+      cp_async_commit();
+      fk::cp_async_wait_all();
+      build_sync();
+    }
     build_runs(vs, ns, n1, n2, n_act, nid16, act16, runs, fill, bnd);
   } else {
     if (k < tiles)
@@ -529,6 +595,559 @@ compose_argmax_kernel(const float* __restrict__ lv, const float* __restrict__ ln
 
 #undef FK_GATHER
 
+constexpr int BL_TILE = 32;         // frames of a blend item, one a lane, all sharing a token
+constexpr int BL_WARPS = AM_WARPS;  // warps of a blend block: the composed argmax's verb shares
+constexpr int BL_QUEUE = 128;       // pass-2 items a tile (both outputs)
+constexpr int PREP_THREADS = 1024;  // threads of a block of the first launch
+constexpr int PREP_KEYS = 640;      // tokens a sorting block counts at once (32 warps' counts)
+constexpr int PREP_UNROLL = 8;      // frames a lane sorts at once
+constexpr int PREP_QV_BLOCKS = 264; // blocks of the first launch on the tokens' Qv and seeds
+constexpr float BL_MARGIN = 1.0000152587890625f;  // 1 + 2^-16, the pruning bound's slack
+// actions below which the blend's tile form takes less device time than the
+// token-grouped form (its block's latency grows with the actions, the
+// token-grouped form's sort and per-item passes much less): at epic's 98
+// verbs and 301 nouns the two cross at ~1,270 actions at 1,000 frames and
+// at 24,576 alike (chip_dev.py k7k3-host)
+constexpr int BL_GROUPED_ACTIONS = 1280;
+
+// The blend's workspace, in ints (its size reported by fk_compose_blend_plan):
+// the run table (slots 16-bit nouns, then slots 16-bit
+// action indices), the run starts, the warps' verb bounds, the items of each
+// video (int4: first entry of perm, frames, b * M + token; max_items =
+// ceil(T / BL_TILE) + min(M, T) a video, the unused ones empty), perm (B *
+// T: the frames' rows, grouped by token), the tokens' Qv (B * M * n1: the
+// largest q of each verb's actions) and seeds (B * M int4: the verb and noun
+// of the token's largest q, its bits, and whether pruning is off for it).
+struct BlendWs {
+  int runs, bnd, items, perm, qv, seeds, total, max_items;
+  __host__ __device__ BlendWs(int B, int T, int n1, int M, int slots) {
+    runs = slots;
+    bnd = runs + n1 + 1;
+    items = (bnd + BL_WARPS + 1 + 3) & ~3;
+    max_items = (T + BL_TILE - 1) / BL_TILE + (M < T ? M : T);
+    perm = items + 4 * B * max_items;
+    qv = perm + B * T;
+    seeds = (qv + B * M * n1 + 3) & ~3;
+    total = seeds + 4 * B * M;
+  }
+};
+
+// The blend's first launch.  Blocks b < B sort video b's frames by voting
+// token (a counting sort, PREP_KEYS tokens at a time in shared memory; a warp
+// whose 32 frames share a token takes one atomic) and write its items; block
+// B builds the composed argmax's run table (build_runs, its first
+// AM_TABLE_THREADS threads) into the workspace; the last PREP_QV_BLOCKS blocks
+// take the tokens' q rows: each verb's largest q (Qv, the pruning bounds'
+// q part: fl((1 - w) q) is monotone in q), and the action of the largest q
+// (the lower bound's seed) with a flag where a q is below 0 or NaN (no
+// pruning for that token).  Tokens outside [0, M) are read as the nearest
+// (the plain version's gather would refuse them).
+__global__ void __launch_bounds__(PREP_THREADS)
+blend_prep_kernel(const int* __restrict__ act, const int* __restrict__ vids,
+                  const int* __restrict__ nids, const float* __restrict__ q, int* __restrict__ ws,
+                  int B, int T, int n1, int n2, int n_act, int M, int slots, int in_smem) {
+  extern __shared__ float4 smem_raw[];
+  const BlendWs L(B, T, n1, M, slots);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned all = 0xffffffffu;
+  if (blockIdx.x == B) {
+    unsigned short* nid16 = reinterpret_cast<unsigned short*>(smem_raw);
+    unsigned short* act16 = nid16 + slots;
+    int* runs = reinterpret_cast<int*>(act16 + slots);
+    int* fill = runs + n1 + 1;
+    int* bnd = fill + n1;
+    build_runs<PREP_THREADS>(vids, nids, n1, n2, n_act, nid16, act16, runs, fill, bnd);
+    __syncthreads();
+    const int* tab = reinterpret_cast<const int*>(smem_raw);
+    for (int i = tid; i < slots; i += PREP_THREADS) ws[i] = tab[i];
+    for (int i = tid; i <= n1; i += PREP_THREADS) ws[L.runs + i] = runs[i];
+    for (int i = tid; i <= BL_WARPS; i += PREP_THREADS) ws[L.bnd + i] = bnd[i];
+    return;
+  }
+  if (blockIdx.x > B) {  // the tokens' Qv and seeds, a (video, token) row at a time
+    int* qm = reinterpret_cast<int*>(smem_raw);           // [n1] the bits of each verb's max
+    float2* wbest = reinterpret_cast<float2*>(qm + ((n1 + 1) & ~1));  // [32] warps' best
+    float* qvo = reinterpret_cast<float*>(ws + L.qv);
+    int4* seeds = reinterpret_cast<int4*>(ws + L.seeds);
+    for (int r = blockIdx.x - B - 1; r < B * M; r += gridDim.x - B - 1) {
+      const float* qr = q + (size_t)r * n_act;
+      for (int v = tid; v < n1; v += PREP_THREADS) qm[v] = (int)0x80000000;
+      __syncthreads();
+      float bv = -INFINITY;
+      int ba = 0x7fffffff, neg = 0;
+      for (int a = tid; a < n_act; a += PREP_THREADS) {
+        const int v = __ldg(vids + a), n = __ldg(nids + a);
+        if (v < 0 || v >= n1 || n < 0 || n >= n2) continue;  // not in the run table
+        const float x = __ldg(qr + a);
+        neg |= !(x >= 0.f);
+        atomicMax(&qm[v], __float_as_int(x));  // the order of non-negative floats' bits
+        if (x > bv || (x == bv && a < ba)) {
+          bv = x;
+          ba = a;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(all, bv, o);
+        const int oa = __shfl_xor_sync(all, ba, o);
+        if (ov > bv || (ov == bv && oa < ba)) {
+          bv = ov;
+          ba = oa;
+        }
+      }
+      if (lane == 0) wbest[warp] = make_float2(bv, __int_as_float(ba));
+      neg = __syncthreads_or(neg);
+      for (int v = tid; v < n1; v += PREP_THREADS) qvo[(size_t)r * n1 + v] = __int_as_float(qm[v]);
+      if (warp == 0) {
+        bv = wbest[lane].x;
+        ba = __float_as_int(wbest[lane].y);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(all, bv, o);
+          const int oa = __shfl_xor_sync(all, ba, o);
+          if (ov > bv || (ov == bv && oa < ba)) {
+            bv = ov;
+            ba = oa;
+          }
+        }
+        if (lane == 0)
+          seeds[r] = ba == 0x7fffffff
+                         ? make_int4(0, 0, 0, 1)
+                         : make_int4(__ldg(vids + ba), __ldg(nids + ba), __float_as_int(bv), neg);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // A counting sort of video b's frames by token with warp-private counts:
+  // warp w takes the frames [w R, (w + 1) R), R = ceil(T / 32) in groups of
+  // 32, and counts its own (a run of groups of one token is one add, else a
+  // shared-memory atomic a frame on the warp's own counters); each token's
+  // frames are laid out warp after warp; then each warp places its frames
+  // group after group.  PREP_KEYS tokens at a time.
+  const int b = blockIdx.x;
+  const int kc = min(M, PREP_KEYS);                 // tokens counted at once
+  int* wcnt = reinterpret_cast<int*>(smem_raw);     // [32][kc] the warps' counts, then places
+  int* tok = wcnt + 32 * kc;                        // [kc] each token's frames, then first place
+  int* ioff = tok + kc;                             // [kc + 1] each token's first item
+  int2* wsum = reinterpret_cast<int2*>(wcnt + ((34 * kc + 2) & ~1));  // [33] warps' sums, total
+  // in_smem: the video's perm in shared memory, copied out whole (coalesced:
+  // scattered stores to device memory from one block cost more than its sort)
+  int* perm = in_smem ? reinterpret_cast<int*>(wsum + 34) : ws + L.perm + (size_t)b * T;
+  const int* actb = act + (size_t)b * T;
+  int4* items = reinterpret_cast<int4*>(ws + L.items) + (size_t)b * L.max_items;
+  const int R = ((T + 31) / 32 + 31) & ~31;          // a warp's frames
+  const int f0 = min(T, warp * R), f1 = min(T, f0 + R);
+  int* wc = wcnt + warp * kc;
+  int fbase = 0, ibase = 0;  // frames and items of the tokens before this chunk
+  for (int k0 = 0; k0 < M; k0 += kc) {
+    const int nk = min(kc, M - k0);
+    for (int i = tid; i < 32 * kc; i += PREP_THREADS) wcnt[i] = 0;
+    __syncthreads();
+    // this chunk's token of frame t, or -1; PREP_UNROLL groups' tokens at a
+    // time (in place, so that key[] stays in registers)
+#define FK_KEYS_AT(g, key)                                                   \
+  _Pragma("unroll") for (int u = 0; u < PREP_UNROLL; ++u) {                  \
+    const int t_ = (g) + 32 * u + lane;                                      \
+    const int a_ = t_ < f1 ? min(max(__ldg(actb + t_), 0), M - 1) - k0 : -1; \
+    key[u] = a_ >= 0 && a_ < nk ? a_ : -1;                                   \
+  }
+    int run = -1, run_n = 0;  // lane 0's run of whole groups of one token
+    for (int g = f0; g < f1; g += 32 * PREP_UNROLL) {
+      int key[PREP_UNROLL];
+      FK_KEYS_AT(g, key)
+#pragma unroll
+      for (int u = 0; u < PREP_UNROLL; ++u) {
+        const int lead = __shfl_sync(all, key[u], 0);
+        if (__all_sync(all, key[u] == lead)) {
+          if (lane == 0 && lead >= 0) {
+            if (lead != run && run >= 0) wc[run] += run_n;
+            run_n = lead == run ? run_n + 32 : 32;
+            run = lead;
+          }
+        } else {
+          if (lane == 0 && run >= 0) wc[run] += run_n;
+          run = -1;
+          __syncwarp();
+          if (key[u] >= 0) atomicAdd(&wc[key[u]], 1);  // the warp's own counts
+          __syncwarp();
+        }
+      }
+    }
+    if (lane == 0 && run >= 0) wc[run] += run_n;
+    __syncthreads();
+    // each token's frames laid out warp after warp: wc holds each warp's
+    // first place within the token, tok the token's frames
+    for (int k = tid; k < nk; k += PREP_THREADS) {
+      int at = 0;
+      for (int w2 = 0; w2 < 32; ++w2) {
+        const int c = wcnt[w2 * kc + k];
+        wcnt[w2 * kc + k] = at;
+        at += c;
+      }
+      tok[k] = at;
+    }
+    __syncthreads();
+    // exclusive scans of the frames and the items (ceil(tok / BL_TILE)) of
+    // the chunk's tokens, a contiguous run of tokens a thread
+    const int per = (nk + PREP_THREADS - 1) / PREP_THREADS;
+    const int i0 = min(nk, tid * per), i1 = min(nk, i0 + per);
+    int cs = 0, is = 0;
+    for (int i = i0; i < i1; ++i) {
+      cs += tok[i];
+      is += (tok[i] + BL_TILE - 1) / BL_TILE;
+    }
+    int ci = cs, ii = is;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int uc = __shfl_up_sync(all, ci, o), ui = __shfl_up_sync(all, ii, o);
+      if (lane >= o) {
+        ci += uc;
+        ii += ui;
+      }
+    }
+    if (lane == 31) wsum[warp] = make_int2(ci, ii);
+    __syncthreads();
+    if (warp == 0) {
+      const int2 v = wsum[lane];
+      int wc2 = v.x, wi = v.y;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int uc = __shfl_up_sync(all, wc2, o), ui = __shfl_up_sync(all, wi, o);
+        if (lane >= o) {
+          wc2 += uc;
+          wi += ui;
+        }
+      }
+      __syncwarp();
+      wsum[lane] = make_int2(wc2 - v.x, wi - v.y);
+      if (lane == 31) wsum[32] = make_int2(wc2, wi);
+    }
+    __syncthreads();
+    {
+      int c_at = fbase + wsum[warp].x + ci - cs, i_at = wsum[warp].y + ii - is;
+      for (int i = i0; i < i1; ++i) {
+        const int c = tok[i];
+        tok[i] = c_at;  // the token's first place in the video
+        ioff[i] = i_at;
+        c_at += c;
+        i_at += (c + BL_TILE - 1) / BL_TILE;
+      }
+      if (tid == 0) ioff[nk] = wsum[32].y;
+    }
+    __syncthreads();
+    // the chunk's items, a thread an item: its token by bisection of ioff
+    for (int i = tid; i < wsum[32].y; i += PREP_THREADS) {
+      int lo = 0, hi = nk - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (ioff[mid] <= i) lo = mid;
+        else hi = mid - 1;
+      }
+      const int j = i - ioff[lo];
+      const int c = (lo + 1 < nk ? tok[lo + 1] : fbase + wsum[32].x) - tok[lo];
+      items[ibase + i] = make_int4(b * T + tok[lo] + j * BL_TILE, min(BL_TILE, c - j * BL_TILE),
+                                   b * M + k0 + lo, 0);
+    }
+    // each warp's frames into their places, group after group (within a
+    // group of several tokens in the order of the warp's own atomics)
+    for (int g = f0; g < f1; g += 32 * PREP_UNROLL) {
+      int key[PREP_UNROLL];
+      FK_KEYS_AT(g, key)
+#pragma unroll
+      for (int u = 0; u < PREP_UNROLL; ++u) {
+        const int lead = __shfl_sync(all, key[u], 0);
+        int at;
+        if (__all_sync(all, key[u] == lead)) {
+          at = lead >= 0 ? tok[lead] + wc[lead] + lane : 0;
+          __syncwarp();
+          if (lane == 0 && lead >= 0) wc[lead] += 32;
+        } else {
+          at = key[u] >= 0 ? tok[key[u]] + atomicAdd(&wc[key[u]], 1) : 0;
+        }
+        if (key[u] >= 0) perm[at] = b * T + g + 32 * u + lane;
+        __syncwarp();
+      }
+    }
+    fbase += wsum[32].x;
+    ibase += wsum[32].y;
+    __syncthreads();
+  }
+  for (int i = ibase + tid; i < L.max_items; i += PREP_THREADS) items[i] = make_int4(0, 0, 0, 0);
+  if (in_smem) {
+    int* out = ws + L.perm + (size_t)b * T;
+    for (int t = tid; t < T; t += PREP_THREADS) out[t] = perm[t];
+  }
+}
+
+#undef FK_KEYS_AT
+
+// The blend's second launch: persistent blocks of BL_WARPS warps, block i
+// taking item slots i, i + grid, ... of the first launch's list.  Its copies
+// run three items ahead as 4- and 16-byte cp.async, one group an item: the
+// slot's item (start, frames, key) three ahead, its frames' rows of perm two
+// ahead, and one ahead the frames' lv and ln rows (odd row strides), the
+// token's q row in table order, its Qv and seed, into the other of nbuf = 2
+// buffers (nbuf = 1, where two do not fit in shared memory: after the item's
+// passes).  Shared memory (blend_smem): the run
+// table, the run starts and verb bounds, S_v per (verb, frame), the nbuf
+// buffers, the item and row rings, the warps' bests of both passes, pass 2's
+// queue, the frames' picks of both outputs and the queue's count.
+__global__ void __launch_bounds__(BL_WARPS * 32)
+blend_runs_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
+                  const float* __restrict__ q, int* __restrict__ pred, int* __restrict__ fb,
+                  const int* __restrict__ ws, int B, int T, int n1, int n2, int n_act, int M,
+                  int slots, int nbuf, float omw, float w, int prune) {
+  extern __shared__ float4 smem_raw[];
+  const BlendWs L(B, T, n1, M, slots);
+  // lv rows at a stride of 16 bytes, each at its source's 16-byte phase (a
+  // lane reads its lv once a verb: bank conflicts there cost little); ln rows
+  // at an odd stride (every (frame, action) gathers one: 32 banks)
+  const int ldv = (n1 + 3 + 3) & ~3, ldn = n2 | 1, ldq = (n_act + 3 + 3) & ~3;
+  const int buf_floats = 4 + ldq + ((n1 + 3) & ~3) + 32 * (ldv + ldn);
+  unsigned short* nid16 = reinterpret_cast<unsigned short*>(smem_raw);
+  unsigned short* act16 = nid16 + slots;
+  int* runs = reinterpret_cast<int*>(smem_raw) + slots;
+  int* bnd = runs + n1 + 1;
+  float* sv = reinterpret_cast<float*>(runs + ((n1 + BL_WARPS + 5) & ~3));  // [n1][32] S_v
+  float* bufs = sv + 32 * n1;  // nbuf x [seed int4 | the token's q row | Qv | lv rows | ln rows]
+  int4* meta = reinterpret_cast<int4*>(bufs + nbuf * buf_floats);  // [4] the items ahead
+  int* prow = reinterpret_cast<int*>(meta + 4);                     // [3][32] their rows
+  float* xs = reinterpret_cast<float*>(prow + 96);                  // [BL_WARPS][32] pass A
+  float* xp = xs + BL_WARPS * 32;                                   // [BL_WARPS][32] pass B
+  int4* queue = reinterpret_cast<int4*>(xp + BL_WARPS * 32);        // [BL_QUEUE]
+  int* amin = reinterpret_cast<int*>(queue + BL_QUEUE);             // [2][32]: blend, fallback
+  int* nq = amin + 64;                                              // the queue's count
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned all = 0xffffffffu;
+  const int total = B * L.max_items;
+  const int4* items = reinterpret_cast<const int4*>(ws + L.items);
+  const int* perm = ws + L.perm;
+  const float* qvg = reinterpret_cast<const float*>(ws + L.qv);
+  const int4* seeds = reinterpret_cast<const int4*>(ws + L.seeds);
+  auto slot = [&](int j) { return blockIdx.x + j * gridDim.x; };
+  auto buf = [&](int j) { return bufs + (nbuf == 2 ? (j & 1) : 0) * buf_floats; };
+  // the copies of item j's stages (each thread its share; no wait)
+  auto get_meta = [&](int j) {
+    if (tid == 0 && slot(j) < total) fk::cp_async<16>(&meta[j & 3], items + slot(j), true);
+  };
+  auto get_rows = [&](int j) {
+    const int4 m = meta[j & 3];
+    if (slot(j) < total && tid < m.y) fk::cp_async<4>(&prow[(j % 3) * 32 + tid], perm + m.x + tid, true);
+  };
+  auto get_data = [&](int j) {
+    const int4 m = meta[j & 3];
+    if (slot(j) >= total || m.y == 0) return;
+    float* bb = buf(j);
+    float* bq = bb + 4;
+    float* bqv = bq + ldq;
+    float* bl = bqv + ((n1 + 3) & ~3);
+    float* bn = bl + 32 * ldv;
+    const int* pr = prow + (j % 3) * 32;
+    for (int f = warp; f < m.y; f += BL_WARPS) {
+      const size_t row = (size_t)pr[f];
+      fk::cp_async_floats(bl + f * ldv, lv + row * n1, n1, lane, 32);
+      for (int i = lane; i < n2; i += 32) fk::cp_async<4>(bn + f * ldn + i, ln + row * n2 + i, true);
+    }
+    fk::cp_async_floats(bq, q + (size_t)m.z * n_act, n_act);
+    for (int i = tid; i < n1; i += BL_WARPS * 32)
+      fk::cp_async<4>(bqv + i, qvg + (size_t)m.z * n1 + i, true);
+    if (tid == 0) fk::cp_async<16>(bb, seeds + m.z, true);
+  };
+
+  // the run table, the run starts and the bounds, as the first launch left
+  // them; the first items' stages
+  fk::cp_async_floats(reinterpret_cast<float*>(smem_raw), reinterpret_cast<const float*>(ws),
+                      slots);
+  fk::cp_async_floats(reinterpret_cast<float*>(runs),
+                      reinterpret_cast<const float*>(ws + L.runs), n1 + BL_WARPS + 2);
+  get_meta(0);
+  get_meta(1);
+  get_meta(2);
+  cp_async_commit();
+  fk::cp_async_wait_all();
+  __syncthreads();
+  get_rows(0);
+  get_rows(1);
+  cp_async_commit();
+  fk::cp_async_wait_all();
+  __syncthreads();
+  get_data(0);
+  cp_async_commit();
+  const int vlo = bnd[warp], vhi = bnd[warp + 1];
+  const uint2* tab4 = reinterpret_cast<const uint2*>(nid16);  // packs of 4 nouns
+  const uint2* act4 = reinterpret_cast<const uint2*>(act16);  // packs of 4 action indices
+
+  for (int j = 0; slot(j) < total; ++j) {
+    fk::cp_async_wait_all();  // item j's data, j + 1's rows, j + 2's item
+    __syncthreads();          // (every thread's), and item j - 1 is done
+    get_meta(j + 3);
+    get_rows(j + 2);
+    if (nbuf == 2) get_data(j + 1);
+    cp_async_commit();
+    const int cnt = meta[j & 3].y;
+    if (cnt == 0) {  // an empty slot
+      if (nbuf == 1) {
+        get_data(j + 1);
+        cp_async_commit();
+      }
+      continue;
+    }
+    const float* bb = buf(j);
+    const int4 seed = *reinterpret_cast<const int4*>(bb);
+    const float* bqv = bb + 4 + ldq;
+    const float* lvt = bqv + ((n1 + 3) & ~3);  // the item's lv rows, each at its phase
+    const float* lnt = lvt + 32 * ldv;
+    const int* pr = prow + (j % 3) * 32;
+    const bool active = lane < cnt;
+    // the token's raw q row (q' = fl(omw q) where used), at its source's phase
+    const float* bq = bb + 4 + ((uintptr_t)(q + (size_t)meta[j & 3].z * n_act) >> 2 & 3);
+    const float* lvr = lvt + lane * ldv +  // the lane's frame
+                       (active ? ((uintptr_t)(lv + (size_t)pr[lane] * n1) >> 2 & 3) : 0);
+    const float* lnr = lnt + lane * ldn;
+    if (tid < 64) amin[tid] = 0x7fffffff;
+    if (tid == 0) *nq = 0;
+
+    // pass A: S_v of each verb of the warp's share, the fallback's pass 1
+    Best pa;
+    for (int v = vlo; v < vhi; ++v) {
+      const int q0 = runs[v] >> 2, q1 = runs[v + 1] >> 2;
+      if (q0 == q1) continue;  // a verb with no action
+      float m0 = -INFINITY, m1 = -INFINITY;
+      int qq = q0;
+      for (; qq + 2 <= q1; qq += 2) {
+        const uint2 e = tab4[qq], f = tab4[qq + 1];
+        m0 = fmaxf(m0, lnr[e.x & 0xffffu]);
+        m1 = fmaxf(m1, lnr[e.x >> 16]);
+        m0 = fmaxf(m0, lnr[e.y & 0xffffu]);
+        m1 = fmaxf(m1, lnr[e.y >> 16]);
+        m0 = fmaxf(m0, lnr[f.x & 0xffffu]);
+        m1 = fmaxf(m1, lnr[f.x >> 16]);
+        m0 = fmaxf(m0, lnr[f.y & 0xffffu]);
+        m1 = fmaxf(m1, lnr[f.y >> 16]);
+      }
+      if (qq < q1) {
+        const uint2 e = tab4[qq];
+        m0 = fmaxf(m0, lnr[e.x & 0xffffu]);
+        m1 = fmaxf(m1, lnr[e.x >> 16]);
+        m0 = fmaxf(m0, lnr[e.y & 0xffffu]);
+        m1 = fmaxf(m1, lnr[e.y >> 16]);
+      }
+      const float S = lvr[v] + fmaxf(m0, m1);  // rounding is monotone: v's best rounded sum
+      sv[v * 32 + lane] = S;
+      pa.add(S, v);
+    }
+    xs[warp * 32 + lane] = pa.best;
+    __syncthreads();
+    float top_s = xs[lane];
+#pragma unroll
+    for (int i = 1; i < BL_WARPS; ++i) top_s = fmaxf(top_s, xs[i * 32 + lane]);
+
+    // the lower bound of the frame's best blend value: the value at the
+    // token's largest q, and fl(w expf(S*)) (see the top)
+    const bool pruning = prune && seed.w == 0;
+    float low = -INFINITY;
+    if (pruning)
+      low = fmaxf(blend_value(__fmul_rn(omw, __int_as_float(seed.z)), w,
+                              lvr[seed.x] + lnr[seed.y]),
+                  __fmul_rn(w, expf(top_s)));
+
+    // pass B: the blend over the runs of the warp's share, a verb skipped
+    // where no frame of the warp can take its pick from it
+    Best pb;
+    for (int v = vlo; v < vhi; ++v) {
+      const int q0 = runs[v] >> 2, q1 = runs[v + 1] >> 2;
+      if (q0 == q1) continue;
+      if (pruning) {
+        const float qvv = __fmul_rn(omw, bqv[v]);  // the run's largest q'
+        const float ub = __fadd_rn(
+            __fmul_rn(__fadd_rn(qvv, __fmul_rn(__fmul_rn(w, expf(sv[v * 32 + lane])), BL_MARGIN)),
+                      BL_MARGIN),
+            1.17549435e-38f);
+        if (!__any_sync(all, active && !(ub < low))) continue;
+      }
+      const float lvv = lvr[v];
+      float m0 = -INFINITY, m1 = -INFINITY;
+      for (int qq = q0; qq < q1; ++qq) {
+        const uint2 e = tab4[qq], a = act4[qq];
+        m0 = fmaxf(m0, blend_value(__fmul_rn(omw, bq[a.x & 0xffffu]), w, lvv + lnr[e.x & 0xffffu]));
+        m1 = fmaxf(m1, blend_value(__fmul_rn(omw, bq[a.x >> 16]), w, lvv + lnr[e.x >> 16]));
+        m0 = fmaxf(m0, blend_value(__fmul_rn(omw, bq[a.y & 0xffffu]), w, lvv + lnr[e.y & 0xffffu]));
+        m1 = fmaxf(m1, blend_value(__fmul_rn(omw, bq[a.y >> 16]), w, lvv + lnr[e.y >> 16]));
+      }
+      pb.add(fmaxf(m0, m1), v);
+    }
+    xp[warp * 32 + lane] = pb.best;
+    __syncthreads();
+    float top_p = xp[lane];
+#pragma unroll
+    for (int i = 1; i < BL_WARPS; ++i) top_p = fmaxf(top_p, xp[i * 32 + lane]);
+
+    // pass 2, both outputs: each frame whose best this warp holds becomes
+    // an item of the block's queue; what finds no room is scanned by its
+    // own warp
+    const bool need_p = active && top_p != -INFINITY && pb.nt > 0 && pb.best == top_p;
+    const bool need_s = active && top_s != -INFINITY && pa.nt > 0 && pa.best == top_s;
+    const unsigned wp = __ballot_sync(all, need_p), wsb = __ballot_sync(all, need_s);
+    int at = 0;
+    if (lane == 0 && (wp | wsb)) at = atomicAdd(nq, __popc(wp) + __popc(wsb));
+    at = __shfl_sync(all, at, 0);
+    const unsigned below = (1u << lane) - 1;
+    const int sp = at + __popc(wp & below), ss = at + __popc(wp) + __popc(wsb & below);
+    if (need_p && sp < BL_QUEUE) queue[sp] = pack_item(lane, warp, pb, top_p);
+    if (need_s && ss < BL_QUEUE) queue[ss] = pack_item(lane | 32, warp, pa, top_s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const Best& p = h ? pa : pb;
+      const float t = h ? top_s : top_p;
+      for (unsigned m = __ballot_sync(all, h ? need_s && ss >= BL_QUEUE : need_p && sp >= BL_QUEUE);
+           m; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const float tt = __shfl_sync(all, t, src);
+        const int nt = __shfl_sync(all, p.nt, src), c0 = __shfl_sync(all, p.c0, src),
+                  c1 = __shfl_sync(all, p.c1, src), c2 = __shfl_sync(all, p.c2, src),
+                  c3 = __shfl_sync(all, p.c3, src);
+        const float* lvf = lvt + src * ldv + ((uintptr_t)(lv + (size_t)pr[src] * n1) >> 2 & 3);
+        const float* lnf = lnt + src * ldn;
+        const int a = h ? lowest_action<32>(true, tt, nt, c0, c1, c2, c3, lvf, lnf, nid16, act16,
+                                            runs, vlo, vhi)
+                        : lowest_action<32, true>(true, tt, nt, c0, c1, c2, c3, lvf, lnf, nid16,
+                                                  act16, runs, vlo, vhi, bq, w, omw);
+        if (lane == 0) atomicMin(&amin[h * 32 + src], a);
+      }
+    }
+    __syncthreads();
+    const int items_q = min(*nq, BL_QUEUE);
+    for (int i = warp * (32 / AM_GROUP) + lane / AM_GROUP; i < BL_QUEUE;
+         i += BL_WARPS * (32 / AM_GROUP)) {
+      const bool valid = i < items_q;
+      const int4 iq = valid ? queue[i] : make_int4(0, 0, 0, 0);
+      const int f = iq.x & 31, h = (iq.x >> 5) & 1, owner = (iq.x >> 8) & 0xff;
+      const float* lvf = lvt + f * ldv + ((uintptr_t)(lv + (size_t)pr[f] * n1) >> 2 & 3);
+      const float* lnf = lnt + f * ldn;
+      const int a =
+          h ? lowest_action<AM_GROUP>(valid, __int_as_float(iq.w), iq.x >> 16, iq.y & 0xffff,
+                                      iq.y >> 16, iq.z & 0xffff, iq.z >> 16, lvf, lnf, nid16,
+                                      act16, runs, bnd[owner], bnd[owner + 1])
+            : lowest_action<AM_GROUP, true>(valid, __int_as_float(iq.w), iq.x >> 16,
+                                            iq.y & 0xffff, iq.y >> 16, iq.z & 0xffff, iq.z >> 16,
+                                            lvf, lnf, nid16, act16, runs, bnd[owner],
+                                            bnd[owner + 1], bq, w, omw);
+      if (valid && lane % AM_GROUP == 0) atomicMin(&amin[h * 32 + f], a);
+    }
+    __syncthreads();
+    if (nbuf == 1) {  // the buffer is read: the next item's data into it
+      get_data(j + 1);
+      cp_async_commit();
+    }
+    if (warp == 0 && active) {  // every value at -inf: the plain argmax picks the first
+      const int row = pr[lane];
+      pred[row] = top_p == -INFINITY ? 0 : amin[lane];
+      fb[row] = top_s == -INFINITY ? 0 : amin[32 + lane];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(fk::kThreads)
 factored_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
                 const float* __restrict__ mvn, int* __restrict__ vstar, int T, int n1, int n2,
@@ -575,76 +1194,190 @@ factored_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
 // (each run padded to a multiple of 4: at most 3 n1 more than n_act): the
 // table, the run starts, the fill counts and the warps' bounds (padded to 16
 // bytes), the warps' bests, pass 2's queue, the frames' picks and the queue's
-// count, and two tiles' rows.
-size_t argmax_smem(int n1, int n2, int n_act, int* slots) {
+// count, and two tiles' rows; ids_staged: the ids fit the second tile's room
+// (a vocabulary of many repeated pairs may not: its blocks read them from
+// device memory).
+size_t argmax_smem(int n1, int n2, int n_act, int* slots, int* ids_staged) {
   *slots = (n_act + 3 * n1 + 3) & ~3;
-  // the ids are staged in a tile's room (a vocabulary of many repeated pairs
-  // may not fit there)
-  if (2 * ((n_act + 7) & ~3) > ((AM_TILE * n1 + 7) & ~3) + ((AM_TILE * n2 + 7) & ~3))
-    return ~(size_t)0;
+  const int tile = ((AM_TILE * n1 + 7) & ~3) + ((AM_TILE * n2 + 7) & ~3);
+  *ids_staged = 2 * ((n_act + 7) & ~3) <= tile;
   return 16 * (size_t)((*slots + 2 * n1 + AM_WARPS + 5) / 4) + 8 * (size_t)AM_WARPS * 32 +
-         16 * (size_t)AM_QUEUE + 4 * (size_t)AM_TILE + 16 +
-         8 * (size_t)(((AM_TILE * n1 + 7) & ~3) + ((AM_TILE * n2 + 7) & ~3));
+         16 * (size_t)AM_QUEUE + 4 * (size_t)AM_TILE + 16 + 8 * (size_t)tile;
 }
 
-// The resident blocks of the composed argmax on the current device (SMs x
-// blocks an SM at this shared memory), asked once per (device, size).
-cudaError_t argmax_blocks(size_t smem, int* blocks) {
-  constexpr int kDevs = 64;
-  static size_t sizes[kDevs];
-  static int counts[kDevs];
+// The resident blocks of a persistent kernel on the current device (SMs x
+// blocks an SM at this shared memory), asked once per (kernel, device, size).
+cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  constexpr int kSlots = 64;
+  static Entry cache[kSlots];
+  static int used = 0;
   static std::mutex mu;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  if (dev < kDevs && sizes[dev] == smem) {
-    *blocks = counts[dev];
-    return cudaSuccess;
-  }
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].smem == smem) {
+      *blocks = cache[i].blocks;
+      return cudaSuccess;
+    }
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compose_argmax_kernel,
-                                                           AM_WARPS * 32, smem)) != cudaSuccess)
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess)
     return err;
   *blocks = sms * std::max(per_sm, 1);
-  if (dev < kDevs) {
-    sizes[dev] = smem;
-    counts[dev] = *blocks;
-  }
+  if (used < kSlots) cache[used++] = Entry{kernel, dev, smem, *blocks};
   return cudaSuccess;
 }
 
+// Shared memory of the tile form, in bytes: the packed ids and 32 frames' rows.
+size_t tile_smem(int n1, int n2, int n_act) {
+  return (size_t)n_act * sizeof(int) + (size_t)TILE * (n1 + n2) * sizeof(float);
+}
+
+// Shared memory of a blend block with nbuf item buffers, in bytes (see
+// blend_runs_kernel).
+size_t blend_smem(int n1, int n2, int n_act, int slots, int nbuf) {
+  const size_t buf = 4 + ((n_act + 6) & ~3) + ((n1 + 3) & ~3) +
+                     32 * (size_t)(((n1 + 6) & ~3) + (n2 | 1));
+  const size_t floats = (size_t)slots + ((n1 + BL_WARPS + 5) & ~3) + 32 * (size_t)n1 + nbuf * buf +
+                        16 + 96 + 2 * BL_WARPS * 32 + 4 * BL_QUEUE + 64 + 4;
+  return floats * sizeof(float);
+}
+
+// Shared memory of a block of the blend's first launch: a sorting block's
+// warps' counts, its tokens' places and items, its warps' sums and, in_smem,
+// its frames'
+// place; the table's block; or a Qv block's maxima and warps' bests,
+// whichever is largest.
+size_t prep_smem(int n1, int T, int M, int slots, int in_smem) {
+  const int kc = std::min(M, PREP_KEYS);
+  const size_t sort =
+      4 * (size_t)((34 * kc + 2) & ~1) + 34 * 8 + (in_smem ? 4 * (size_t)T : 0);
+  const size_t table = 4 * (size_t)slots + 4 * (size_t)(2 * n1 + 1 + BL_WARPS + 1);
+  const size_t qv = 4 * (size_t)((n1 + 1) & ~1) + 32 * 8;
+  return std::max(sort, std::max(table, qv));
+}
+
+// The composed argmax's block form: 1, the run-table block, where it fits
+// in shared memory (n_act <= 65535: 16-bit action indices); 2, the tile form
+// (a wider vocabulary); 0, neither (refused).
+int argmax_form(int n1, int n2, int n_act, int* slots, int* staged, size_t* smem) {
+  *smem = argmax_smem(n1, n2, n_act, slots, staged);
+  if (n_act <= 65535 && *smem <= kMaxSmem) return 1;
+  return tile_smem(n1, n2, n_act) <= kMaxSmem ? 2 : 0;
+}
+
+// The blend's plan: form 1, the token-grouped pair of launches through ws
+// ints of workspace, where its block fits with two item buffers or one
+// (n_act <= 65535) and the vocabulary holds BL_GROUPED_ACTIONS actions or
+// more; form 2, the tile form (one launch, no workspace), for a smaller
+// vocabulary or past the token-grouped block; 0, neither (refused).
+struct BlendPlan {
+  int form, slots, nbuf;
+  size_t smem;
+  long long ws;
+  BlendPlan(int B, int T, int n1, int n2, int n_act, int M) {
+    slots = (n_act + 3 * n1 + 3) & ~3;
+    nbuf = blend_smem(n1, n2, n_act, slots, 2) <= kMaxSmem ? 2 : 1;
+    smem = blend_smem(n1, n2, n_act, slots, nbuf);
+    const bool grouped = n_act <= 65535 && smem <= kMaxSmem;
+    const bool tile = tile_smem(n1, n2, n_act) <= kMaxSmem;
+    form = grouped && !(tile && n_act < BL_GROUPED_ACTIONS) ? 1 : tile ? 2 : 0;
+    ws = form == 1 ? BlendWs(B, T, n1, M, slots).total : 0;
+  }
+};
+
 }  // namespace
 
+// The composed argmax, one launch of the form argmax_form picks.
 extern "C" int fk_compose_argmax(const float* lv, const float* ln, const int* vids,
                                  const int* nids, int* out, int B, int T, int n1, int n2,
                                  int n_act, void* stream) {
-  if (n_act > 65535 || n1 > 32767 || n2 > 32767) return (int)cudaErrorInvalidValue;
+  if (n1 > 32767 || n2 > 32767) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  int slots = 0;
-  const size_t smem = argmax_smem(n1, n2, n_act, &slots);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = fk::set_smem((const void*)compose_argmax_kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int slots = 0, staged = 0;
+  size_t smem = 0;
+  const int form = argmax_form(n1, n2, n_act, &slots, &staged, &smem);
+  if (form == 0) return (int)cudaErrorInvalidValue;
+  if (form == 2) {
+    const size_t tsmem = tile_smem(n1, n2, n_act);
+    cudaError_t err = fk::set_smem((const void*)tile_kernel<false>, tsmem);
+    if (err != cudaSuccess) return (int)err;
+    tile_kernel<false><<<dim3((T + TILE - 1) / TILE, B), fk::kThreads, tsmem, st>>>(
+        lv, ln, vids, nids, nullptr, nullptr, nullptr, out, T, n1, n2, n_act, 0, 0.f, 0.f);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = staged ? compose_argmax_kernel<true> : compose_argmax_kernel<false>;
+  cudaError_t err = fk::set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  if ((err = argmax_blocks(smem, &blocks)) != cudaSuccess) return (int)err;
+  if ((err = resident_blocks((const void*)kernel, AM_WARPS * 32, smem, &blocks)) != cudaSuccess)
+    return (int)err;
   const long long tiles = (long long)B * ((T + AM_TILE - 1) / AM_TILE);
   const int grid = (int)std::min<long long>(tiles, (long long)blocks);
-  compose_argmax_kernel<<<grid, AM_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      lv, ln, vids, nids, out, B, T, n1, n2, n_act, slots);
+  kernel<<<grid, AM_WARPS * 32, smem, st>>>(lv, ln, vids, nids, out, B, T, n1, n2, n_act, slots);
   return (int)cudaGetLastError();
 }
 
+// The blend's plan for a call: out[0] its form, out[1] the ints of its
+// workspace (BlendPlan).
+extern "C" int fk_compose_blend_plan(int B, int T, int n1, int n2, int n_act, int M,
+                                     long long* out) {
+  const BlendPlan p(B, T, n1, n2, n_act, M);
+  out[0] = p.form;
+  out[1] = p.ws;
+  return 0;
+}
+
+// The blend into pred and the composed argmax into fb, by the form
+// BlendPlan picks (the token-grouped form through ws, its plan's ints; ws
+// unread by the tile form).  The token-grouped form prunes its expfs where
+// 0 <= w <= 1 (exactly: the picks of every expf).
 extern "C" int fk_compose_blend(const float* lv, const float* ln, const int* vids,
                                 const int* nids, const float* q, const int* act, int* pred,
-                                int* fb, int B, int T, int n1, int n2, int n_act, int M,
+                                int* fb, int* ws, int B, int T, int n1, int n2, int n_act, int M,
                                 float omw, float w, void* stream) {
-  const size_t smem = (size_t)n_act * sizeof(int) + (size_t)TILE * (n1 + n2) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)blend_kernel, smem);
+  if (n1 > 32767 || n2 > 32767 || M < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const BlendPlan p(B, T, n1, n2, n_act, M);
+  if (p.form == 0) return (int)cudaErrorInvalidValue;
+  if (p.form == 2) {
+    const size_t tsmem = tile_smem(n1, n2, n_act);
+    cudaError_t err = fk::set_smem((const void*)tile_kernel<true>, tsmem);
+    if (err != cudaSuccess) return (int)err;
+    tile_kernel<true><<<dim3((T + TILE - 1) / TILE, B), fk::kThreads, tsmem, st>>>(
+        lv, ln, vids, nids, q, act, pred, fb, T, n1, n2, n_act, M, omw, w);
+    return (int)cudaGetLastError();
+  }
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int slots = p.slots;
+  const int in_smem = prep_smem(n1, T, M, slots, 1) <= kMaxSmem;
+  const size_t psmem = prep_smem(n1, T, M, slots, in_smem);
+  cudaError_t err = fk::set_smem((const void*)blend_prep_kernel, psmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TILE - 1) / TILE, B);
-  blend_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(
-      lv, ln, vids, nids, q, act, pred, fb, T, n1, n2, n_act, M, omw, w);
+  blend_prep_kernel<<<B + 1 + PREP_QV_BLOCKS, PREP_THREADS, psmem, st>>>(
+      act, vids, nids, q, ws, B, T, n1, n2, n_act, M, slots, in_smem);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = fk::set_smem((const void*)blend_runs_kernel, p.smem)) != cudaSuccess)
+    return (int)err;
+  int blocks = 0;
+  if ((err = resident_blocks((const void*)blend_runs_kernel, BL_WARPS * 32, p.smem, &blocks)) !=
+      cudaSuccess)
+    return (int)err;
+  const BlendWs L(B, T, n1, M, slots);
+  const int grid = (int)std::min<long long>((long long)B * L.max_items, (long long)blocks);
+  blend_runs_kernel<<<grid, BL_WARPS * 32, p.smem, st>>>(lv, ln, q, pred, fb, ws, B, T, n1, n2,
+                                                         n_act, M, slots, p.nbuf, omw, w,
+                                                         w >= 0.f && w <= 1.f);
   return (int)cudaGetLastError();
 }
 

@@ -45,7 +45,12 @@
 //     out_h) from the caller, exact under dropout), dq's per-tile share dl
 //     K_h, dK_h = dl^T q_h and dV_h = (p keep)^T g_h written to dKV (B, X,
 //     2E), and the tile's column sums of dK_h and dV_h (the bias gradients);
-//     keep is the layer's (B, H*M, X) mask that dropout.cu regenerated;
+//     the keep values are hashed again from the forward's seed at the
+//     forward's index (b*H*M + h*M + m)*X + key, one hash a (row, key) by
+//     the lane that owns the key, so no mask reaches device memory (31.5 MB
+//     a layer at the flagship's B=8, H*M=320, X=3072); a (B, H*M, X) mask
+//     given instead (keep) is read, as the tests and chip_smoke.py's
+//     hashed-against-fed check feed it;
 //   dx = dKV @ [Wk | Wv]^T: one GEMM of the tensor cores, K = 2E;
 //   dWk | dWv = x^T dKV (and dWk += pos^T dK): mstcn2.cu's k6_wgrad in
 //     768-frame chunks; dq's tile shares and the bias sums in two
@@ -186,7 +191,7 @@ __global__ void __launch_bounds__(fk::kThreads)
                        const float* __restrict__ Dr, const float* __restrict__ keep,
                        const int* __restrict__ xlen, int X, int M, int H, int hd_rt,
                        float scale, float* __restrict__ dkv, float* __restrict__ part_dq,
-                       float* __restrict__ part_b, int n_slots) {
+                       float* __restrict__ part_b, int n_slots, fk::Dropout drop) {
   constexpr int KPL = BK / 32;
   const int hd = HD ? HD : hd_rt;
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -236,6 +241,8 @@ __global__ void __launch_bounds__(fk::kThreads)
   __syncthreads();
 
   // 1. a warp per query row, BK / 32 keys a lane: p, dp, dl
+  const uint32_t seed = drop.load_seed();
+  const bool hashed = keep == nullptr && drop.seed != nullptr;
   for (int m = ty; m < M; m += fk::kWarps) {
     const size_t row = (size_t)b * HM + h * M + m;
     const float mrow = __ldg(stats + row * 2);
@@ -259,7 +266,9 @@ __global__ void __launch_bounds__(fk::kThreads)
         }
         const float lg = key < xl ? dot * scale : fk::kMaskedLogit;
         const float p = expf(lg - mrow) * linv;
-        const float kp = keep != nullptr ? __ldg(keep + row * X + key) : 1.f;
+        const float kp = keep != nullptr ? __ldg(keep + row * X + key)
+                         : hashed ? drop.keep((uint32_t)row * (uint32_t)X + (uint32_t)key, seed)
+                                  : 1.f;
         if (key < xl) dl = p * (dp * kp - Dv) * scale;
         pk = p * kp;
       }
@@ -319,12 +328,12 @@ template <int BK, int HD>
 cudaError_t launch_bwd(const float* kv, const float* q, const float* g, const float* stats,
                        const float* Dr, const float* keep, const int* xlen, int B, int X, int M,
                        int H, int hd, float scale, float* dkv, float* part_dq, float* part_b,
-                       int n_slots, cudaStream_t stream) {
+                       int n_slots, fk::Dropout drop, cudaStream_t stream) {
   const size_t smem = attn_bwd_smem(BK, M, hd);
   cudaError_t err = fk::set_smem((const void*)k3_attn_bwd_kernel<BK, HD>, smem);
   if (err != cudaSuccess) return err;
   k3_attn_bwd_kernel<BK, HD><<<dim3((X + BK - 1) / BK, H, B), fk::kThreads, smem, stream>>>(
-      kv, q, g, stats, Dr, keep, xlen, X, M, H, hd, scale, dkv, part_dq, part_b, n_slots);
+      kv, q, g, stats, Dr, keep, xlen, X, M, H, hd, scale, dkv, part_dq, part_b, n_slots, drop);
   return cudaGetLastError();
 }
 
@@ -332,10 +341,10 @@ template <int BK>
 cudaError_t launch_bwd_hd(const float* kv, const float* q, const float* g, const float* stats,
                           const float* Dr, const float* keep, const int* xlen, int B, int X,
                           int M, int H, int hd, float scale, float* dkv, float* part_dq,
-                          float* part_b, int n_slots, cudaStream_t stream) {
+                          float* part_b, int n_slots, fk::Dropout drop, cudaStream_t stream) {
   auto fn = hd == 32 ? launch_bwd<BK, 32> : hd == 64 ? launch_bwd<BK, 64> : launch_bwd<BK, 0>;
   return fn(kv, q, g, stats, Dr, keep, xlen, B, X, M, H, hd, scale, dkv, part_dq, part_b, n_slots,
-            stream);
+            drop, stream);
 }
 
 constexpr int kFwdTile = 64;  // keys per block of the forward
@@ -375,15 +384,19 @@ extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int 
 
 // The backward's attention: dkv (B, X, 2E), part_dq (B, n_slots, M, E) and
 // part_b (B, n_slots, 2E), the tiles' shares in slots t < ceil(X / key_tile)
-// <= n_slots of each video (the caller zeroes the others); keep (B, H*M, X)
-// or null.
+// <= n_slots of each video (the caller zeroes the others).  Its dropout:
+// keep (B, H*M, X) where given, else hashed from seed (the forward's (1,)
+// int32 seed, stream drop_stream, threshold and scale as fk_k3_attn's);
+// neither: no dropout.
 extern "C" int fk_k3_attn_bwd(const float* kv, const float* q, const float* g, const float* stats,
                               const float* Dr, const float* keep, const int* xlen, int B, int X,
                               int M, int H, int hd, float scale, float* dkv, float* part_dq,
-                              float* part_b, int n_slots, int key_tile, void* stream) {
+                              float* part_b, int n_slots, int key_tile, const int* seed,
+                              int drop_stream, unsigned thresh, float drop_scale, void* stream) {
   if ((key_tile != 64 && key_tile != 32) || n_slots < (X + key_tile - 1) / key_tile)
     return (int)cudaErrorInvalidValue;
   auto fn = key_tile == 64 ? launch_bwd_hd<64> : launch_bwd_hd<32>;
   return (int)fn(kv, q, g, stats, Dr, keep, xlen, B, X, M, H, hd, scale, dkv, part_dq, part_b,
-                 n_slots, (cudaStream_t)stream);
+                 n_slots, fk::Dropout{seed, drop_stream, thresh, drop_scale},
+                 (cudaStream_t)stream);
 }

@@ -6,11 +6,17 @@ Replaces ``fact_clip_tpu/ops/pallas/compose_decode.py`` with
 * ``compose_argmax`` (``mxu_argmax``): per frame the first argmax over the
   actions of ``lv[vids[a]] + ln[nids[a]]``, (B, T) int32, two frames a lane
   over the actions grouped into verb runs: the best verb from the max of
-  each run, then the lowest action index of the best verbs' runs;
+  each run, then the lowest action index of the best verbs' runs; a
+  vocabulary whose run-table block does not fit in shared memory takes the
+  tile form (32 frames a block, ``compose_smem``);
 * ``compose_blend`` (``blend_argmax``): the two-branch decode's blend, the
   first argmax of ``(1 - w) q[b, act_idx[t], a] + w exp(lv[vids[a]] +
   ln[nids[a]])``, and the all-null fallback, the composed argmax, both
-  (B, T) int32;
+  (B, T) int32: the frames grouped by voting token (a sort, then blocks
+  over runs of up to 32 frames that share a token, a lane a frame, the
+  token's q row staged once an item, the verb runs and exact pruning of the
+  expfs); on a small call or past its shared memory the tile form (the
+  library's plan, ``blend_plan``);
 * ``factored_argmax`` (``factored_argmax``): the composed argmax through the
   verb / noun factorisation, the best verb from the kernel and then the best
   noun and the action id in PyTorch, as JAX gathers them outside its kernel.
@@ -33,10 +39,7 @@ import torch
 
 from .. import _build
 
-TILE = 32  # frames per block of the blend (csrc/compose_decode.cu)
-ARGMAX_TILE = 64  # frames per tile of the composed argmax, two a lane
-ARGMAX_WARPS = 16  # warps of a composed-argmax block, each on a share of the verbs
-ARGMAX_QUEUE = 128  # pass-2 items a tile
+TILE = 32  # frames per block of the tile form (csrc/compose_decode.cu)
 MAX_IDS = 32767  # verb and noun ids share one int in the kernels' table
 
 
@@ -69,25 +72,24 @@ def factored_argmax_reference(lv, ln, mask_vn, a_table):
 
 
 def compose_smem(n1: int, n2: int, n_act: int) -> int:
-    """Bytes of a blend block: the action table and a tile's rows."""
+    """Bytes of a tile-form block (both K7a's and K7b's): the packed ids and
+    32 frames' rows.  Every other block form of K7a and K7b holds at least
+    as much, so a vocabulary whose tile form does not fit is refused."""
     return 4 * n_act + 4 * TILE * (n1 + n2)
 
 
-def argmax_smem(n1: int, n2: int, n_act: int) -> int:
-    """Bytes of a composed-argmax block (csrc/compose_decode.cu::argmax_smem):
-    the run table (each run padded to a multiple of 4 entries), the run
-    starts, the fill counts and the warps' verb bounds (padded to 16 bytes),
-    the warps' bests, pass 2's queue, the frames' picks and the queue's
-    count, and two tiles' rows (each block of rows with room for its
-    16-byte alignment); past the limit where the ids, staged in a tile's
-    room, do not fit there."""
-    slots = (n_act + 3 * n1 + 3) // 4 * 4
-    tile = ((ARGMAX_TILE * n1 + 7) & ~3) + ((ARGMAX_TILE * n2 + 7) & ~3)
-    if 2 * ((n_act + 7) & ~3) > tile:  # the ids are staged in a tile's room
-        return _build.MAX_SMEM + 1
-    return (16 * ((slots + 2 * n1 + ARGMAX_WARPS + 5) // 4) + 8 * ARGMAX_WARPS * 32
-            + 16 * ARGMAX_QUEUE + 4 * ARGMAX_TILE + 16
-            + 8 * tile)
+_FORMS = {1: "runs", 2: "tile"}  # the library's block forms by number (0: none fits)
+
+
+def blend_plan(B: int, T: int, n1: int, n2: int, n_act: int, M: int):
+    """(form, workspace ints) of a blend call, as the library reports them
+    (``fk_compose_blend_plan``): "runs" (the token-grouped form, two
+    launches through a workspace of that many ints), "tile" (the tile form,
+    one launch and no workspace: a vocabulary under 1,280 actions, or past
+    the token-grouped block's shared memory) or None (neither fits)."""
+    form, ints = _build.workspace(_build.lib(), "fk_compose_blend_plan", 2, B, T, n1, n2, n_act,
+                                  M)
+    return _FORMS.get(form), ints
 
 
 def factored_smem(n1: int, n2: int) -> int:
@@ -103,15 +105,16 @@ def _check_lp(name, lv, ln):
     return B, T, n1, n2
 
 
-def _check_ids(name, lv, ln, vids, nids, smem):
+def _check_ids(name, lv, ln, vids, nids):
+    """(B, T, n1, n2); a vocabulary that no block form takes (the tile
+    form's shared memory) is refused before any launch."""
     B, T, n1, n2 = _check_lp(name, lv, ln)
     if vids.dim() != 1 or nids.shape != vids.shape or vids.dtype != torch.int32 \
             or nids.dtype != torch.int32:
         raise ValueError(f"{name}: vids and nids must be (n_act,) int32")
-    if smem > _build.MAX_SMEM:
+    if compose_smem(n1, n2, vids.shape[0]) > _build.MAX_SMEM:
         raise NotImplementedError(f"{name}: no block fits in shared memory at n1={n1}, "
                                   f"n2={n2}, n_act={vids.shape[0]}")
-    _build.check_tensors(name, [lv, ln, vids, nids], lv.device)
     return B, T, n1, n2
 
 
@@ -126,11 +129,12 @@ def compose_argmax(lv, ln, vids, nids):
 
 def _compose_argmax_card(lv, ln, vids, nids):
     """The card's call (also run on CPU tensors against a model of the
-    library in the tests): one library call, one launch whose blocks build
-    the run table from vids and nids themselves, into (B, T) int32."""
-    n_act = vids.shape[0] if vids.dim() == 1 else 0
-    B, T, n1, n2 = _check_ids("compose_argmax", lv, ln, vids, nids,
-                              argmax_smem(lv.shape[-1], ln.shape[-1], n_act))
+    library in the tests): one library call, one launch into (B, T) int32,
+    of the run-table block (whose blocks build the run table from vids and
+    nids themselves) or, past its shared memory, of the tile form."""
+    B, T, n1, n2 = _check_ids("compose_argmax", lv, ln, vids, nids)
+    n_act = vids.shape[0]
+    _build.check_tensors("compose_argmax", [lv, ln, vids, nids], lv.device)
     out = torch.empty((B, T), device=lv.device, dtype=torch.int32)
     err = _build.lib().fk_compose_argmax(lv.data_ptr(), ln.data_ptr(), vids.data_ptr(),
                                          nids.data_ptr(), out.data_ptr(), B, T, n1, n2,
@@ -143,24 +147,37 @@ compose_argmax.launches = 0
 
 
 def compose_blend(lv, ln, vids, nids, q, act_idx, weight: float):
-    """The kernel on CUDA tensors, the plain version on CPU ones: (pred, fallback)."""
+    """The kernels on CUDA tensors, the plain version on CPU ones: (pred, fallback)."""
     if lv.device.type == "cpu":
         return compose_blend_reference(lv, ln, vids, nids, q, act_idx, weight)
-    n_act = vids.shape[0] if vids.dim() == 1 else 0
-    B, T, n1, n2 = _check_ids("compose_blend", lv, ln, vids, nids,
-                              compose_smem(lv.shape[-1], ln.shape[-1], n_act))
-    if q.dim() != 3 or q.shape[0] != B or q.shape[2] != n_act or act_idx.shape != (B, T) \
-            or act_idx.dtype != torch.int32:
-        raise ValueError("compose_blend: q (B, M, n_act) and act_idx (B, T) int32")
-    _build.check_tensors("compose_blend", [q, act_idx], lv.device)
+    out = _compose_blend_card(lv, ln, vids, nids, q, act_idx, weight)
+    compose_blend.launches += 1
+    return out
+
+
+def _compose_blend_card(lv, ln, vids, nids, q, act_idx, weight: float):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one library call into (pred, fallback), of the
+    form ``blend_plan`` reports: the token-grouped form through a workspace
+    (two launches: the sort and the table, then the blocks over the items)
+    or the tile form (one launch)."""
+    B, T, n1, n2 = _check_ids("compose_blend", lv, ln, vids, nids)
+    n_act = vids.shape[0]
+    if q.dim() != 3 or q.shape[0] != B or q.shape[1] < 1 or q.shape[2] != n_act \
+            or act_idx.shape != (B, T) or act_idx.dtype != torch.int32:
+        raise ValueError("compose_blend: q (B, M, n_act), M >= 1, and act_idx (B, T) int32")
+    _build.check_tensors("compose_blend", [lv, ln, vids, nids, q, act_idx], lv.device)
+    M = q.shape[1]
+    ints = blend_plan(B, T, n1, n2, n_act, M)[1]
     pred = torch.empty((B, T), device=lv.device, dtype=torch.int32)
     fb = torch.empty_like(pred)
+    ws = torch.empty(ints, device=lv.device, dtype=torch.int32) if ints else None
     err = _build.lib().fk_compose_blend(
         lv.data_ptr(), ln.data_ptr(), vids.data_ptr(), nids.data_ptr(), q.data_ptr(),
-        act_idx.data_ptr(), pred.data_ptr(), fb.data_ptr(), B, T, n1, n2, n_act, q.shape[1],
+        act_idx.data_ptr(), pred.data_ptr(), fb.data_ptr(),
+        ws.data_ptr() if ws is not None else None, B, T, n1, n2, n_act, M,
         float(1.0 - weight), float(weight), _build.stream_ptr(lv.device))
     _build.check("fk_compose_blend", err)
-    compose_blend.launches += 1
     return pred, fb
 
 

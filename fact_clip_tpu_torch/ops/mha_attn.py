@@ -12,9 +12,11 @@ head, video) the masked softmax attention and a fixed-order combine
 attention backward per (key tile, head, video), dx as one more GEMM of the
 same core and the weight products on ``fk_k6_wgrad``.  The TPU kernels'
 lane-masked row expansion (``_expand_rows``) is a workaround for the
-128-lane vector unit; the H100 kernels work per head with hd = E / H.  The
-mask is ``csrc/dropout.cu``.  What bounds them and what the design does
-about it is written at the top of ``csrc/mha_attn.cu``.
+128-lane vector unit; the H100 kernels work per head with hd = E / H.  Both
+attention kernels hash the keep mask themselves, so the training path makes
+no mask; ``mha_dropout_mask`` (``csrc/dropout.cu``) writes it where a caller
+wants it whole.  What bounds them and what the design does about it is
+written at the top of ``csrc/mha_attn.cu``.
 
 q (B, M, E) arrives projected (the q projection and the out projection stay
 outside, as in the JAX caller); the result (B, M, E) holds the heads'
@@ -87,7 +89,9 @@ def mha_cross_attention_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_
 
 def mha_dropout_mask(seed, shape, rate: float):
     """K3's (B, H*M, X) keep mask (replaces ``mha_attn.py::mha_dropout_mask``):
-    the mask kernel (CUDA) or its plain version (CPU)."""
+    the mask kernel (CUDA) or its plain version (CPU).  The backward's kernel
+    hashes the same bits, so the training path on the card makes no such
+    mask; the CPU's plain backward takes it."""
     if seed.device.type == "cpu":
         return dropout_mask_reference(seed, 0, shape, rate)
     out = launch_mask(seed, 0, shape, rate)
@@ -284,13 +288,23 @@ def has_backward(M: int, E: int, num_heads: int) -> bool:
 
 
 def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_heads: int,
-                  keep=None):
+                  keep=None, seed=None, rate: float = 0.0):
     """The backward on the card (CUDA tensors) or its plain version (CPU),
-    from the forward's saves; ``keep`` is the layer's regenerated mask."""
+    from the forward's saves.  Its dropout: the forward's, from ``seed`` at
+    ``rate`` (the card's kernel hashes the keep values inline, the plain
+    version takes ``mha_dropout_mask``), or, where given, the replayed mask
+    ``keep`` (then ``seed`` is not read)."""
+    hashed = keep is None and rate > 0.0
+    if hashed:
+        check_seed("mha_cross_bwd", seed, x_in.device)
     if x_in.device.type == "cpu":
+        if hashed:
+            keep = mha_dropout_mask(seed, (x_in.shape[0], num_heads * q.shape[1], x_in.shape[1]),
+                                    rate)
         return mha_cross_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g,
                                        num_heads=num_heads, keep=keep)
-    grads = _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep)
+    grads = _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep,
+                          seed if hashed else None, rate)
     mha_cross_bwd.launches += 1
     return grads
 
@@ -298,12 +312,15 @@ def mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_h
 mha_cross_bwd.launches = 0
 
 
-def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep):
+def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads, keep,
+                  seed=None, rate: float = 0.0):
     """``mha_cross_bwd``'s launches (CPU tensors reach it only in the tests,
     as ``_mha_fwd_card``): the packs, the projection recomputed, the
     attention backward, dx, the weight products and the fixed-order sums.
     Nothing of the forward's packs is kept for it: a training step holds no
-    more than the activations it saves."""
+    more than the activations it saves.  The keep values are read from
+    ``keep`` where given, else hashed from ``seed`` at ``rate`` (None: no
+    dropout)."""
     B, X, Cx = x_in.shape
     M, E = q.shape[1], wk.shape[1]
     H = num_heads
@@ -330,7 +347,8 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
         kv.data_ptr(), q.data_ptr(), g.data_ptr(), stats.data_ptr(), D.data_ptr(),
         keep.data_ptr() if keep is not None else None, x_len.data_ptr(), B, X, M, H, hd,
         1.0 / math.sqrt(hd), dkv.data_ptr(), part_dq.data_ptr(), part_b.data_ptr(), n_slots,
-        tile, _build.stream_ptr(x_in.device))
+        tile, *(dropout_args(seed, 0, rate) if keep is None and seed is not None
+                else (None, 0, 0, 1.0)), _build.stream_ptr(x_in.device))
     _build.check("fk_k3_attn_bwd", err)
     del kv
     dx = torch.empty_like(x_in)
@@ -367,12 +385,9 @@ class _MHA(torch.autograd.Function):
     def backward(ctx, g):
         num_heads, rate = ctx.cfg
         q, x_in, x_pos, wk, bk, wv, bv, x_len, seed, stats, out = ctx.saved_tensors
-        B, M = q.shape[:2]
-        # the layer's keep mask, regenerated by the mask kernel (never stored)
-        keep = (mha_dropout_mask(seed, (B, num_heads * M, x_in.shape[1]), rate)
-                if rate > 0.0 else None)
+        # the layer's keep values, hashed again from the forward's seed (never stored)
         grads = mha_cross_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g.contiguous(),
-                              num_heads=num_heads, keep=keep)
+                              num_heads=num_heads, seed=seed, rate=rate)
         return (*grads, None, None, None)
 
 

@@ -57,7 +57,12 @@ class FakeK3Lib(FakeK6Lib):
     """``FakeK6Lib`` and K3's attention entries: per (key tile, head, video)
     partials in the kernels' layouts, the combine in tile order; a tile wholly
     past x_len is skipped unless the video has no valid key (x_len = 0: every
-    logit -1e9, so every tile runs)."""
+    logit -1e9, so every tile runs).  ``bwd_keeps`` lists the keep values
+    each backward read or hashed."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.bwd_keeps = []
 
     def fk_k3_attn(self, kv, q, xlen, B, X_, M, H, hd, scale, part_acc, part_ml, out, stats, seed,
                    drop_stream, thresh, drop_scale, stream):
@@ -98,7 +103,8 @@ class FakeK3Lib(FakeK6Lib):
         return 0
 
     def fk_k3_attn_bwd(self, kv, q, g, stats, Dr, keep, xlen, B, X_, M, H, hd, scale, dkv,
-                       part_dq, part_b, n_slots, key_tile, stream):
+                       part_dq, part_b, n_slots, key_tile, seed, drop_stream, thresh, drop_scale,
+                       stream):
         self.calls.append(("k3_attn_bwd", key_tile))
         E, BK = H * hd, key_tile
         n_t = -(-X_ // BK)
@@ -108,8 +114,12 @@ class FakeK3Lib(FakeK6Lib):
         G = _view(g, B * M * E).view(B, M, H, hd)
         ST = _view(stats, B * H * M * 2).view(B, H, M, 2)
         DR = _view(Dr, B * H * M).view(B, H, M)
-        KP = (_view(keep, B * H * M * X_).view(B, H, M, X_) if keep is not None
-              else torch.ones(B, H, M, X_))
+        # the keep values: the mask given, else hashed from the seed (at the
+        # forward's index (b*H*M + h*M + m)*X + key), else none
+        KP = (_view(keep, B * H * M * X_).view(B, H, M, X_).clone() if keep is not None
+              else self._keep(seed, drop_stream, thresh, drop_scale, (B, H * M, X_))
+              .view(B, H, M, X_))
+        self.bwd_keeps.append(KP)
         DKV = _view(dkv, B * X_ * 2 * E).view(B, X_, 2 * E)
         PQ = _view(part_dq, B * n_slots * M * E).view(B, n_slots, M, E)
         PB = _view(part_b, B * n_slots * 2 * E).view(B, n_slots, 2 * E)
@@ -291,6 +301,73 @@ def test_emulated_backward_with_dropout_matches_plain_and_jax_reference(fake):
     _, vjp = jax.vjp(f, j[0], j[1], *j[3:7])
     refs = vjp(jnp.asarray(g.numpy()))
     _grads_close([got[0], got[1], *got[3:]], [np.asarray(r) for r in refs])
+
+
+@pytest.mark.parametrize("M,hd,pos", [(11, 32, "shared"), (40, 64, "per_video"),
+                                      (200, 32, None)])
+def test_emulated_backward_hashes_the_mask(fake, M, hd, pos):
+    """Rate 0.2, no mask handed over: the backward hashes the keep values
+    from the forward's seed, bit for bit ``mha_dropout_mask``'s, and its
+    gradients equal, bit for bit, those of the same call fed that mask; both
+    match the plain backward given the mask, and the mask did act."""
+    H, B = 2, 2
+    j, t = _inputs(11, M, hd, pos)
+    seed = torch.tensor([424243], dtype=torch.int32)
+    keep = ma.mha_dropout_mask(seed, (B, H * M, X), 0.2)
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal((B, M, H * hd))
+                         .astype(np.float32))
+    out, stats = ma._mha_fwd_card(*t, H, 0.2, seed, True, None)
+    hashed = ma._mha_bwd_card(*t, stats, out, g, H, None, seed, 0.2)
+    assert torch.equal(fake.bwd_keeps[-1], keep.view(B, H, M, X))
+    fed = ma._mha_bwd_card(*t, stats, out, g, H, keep)
+    assert torch.equal(fake.bwd_keeps[-1], keep.view(B, H, M, X))
+    for a, b in zip(hashed, fed):
+        assert (a is None and b is None) or torch.equal(a, b)
+    ref = ma.mha_cross_bwd_reference(*t, stats, out, g, num_heads=H, keep=keep)
+    _grads_close(hashed, ref)
+    nodrop = ma.mha_cross_bwd_reference(*t, stats, out, g, num_heads=H)
+    assert float((hashed[0] - nodrop[0]).abs().max()) > 1e-3
+
+
+def test_mha_autograd_backward_hashes_and_makes_no_mask(fake, monkeypatch):
+    """``mha_cross_attention``'s autograd backward hands the backward the
+    forward's seed and rate and no mask; on the card's launch sequence no
+    mask is made (``mha_dropout_mask`` not called, its launches unchanged),
+    and the gradients equal the plain backward given the replayed mask."""
+    M, hd, H, B = 11, 32, 2, 2
+    _, t = _inputs(13, M, hd, "shared")
+    seed = torch.tensor([777767], dtype=torch.int32)
+    diff = [a.clone().requires_grad_(True) for a in (t[0], t[1], *t[3:7])]
+    args = [diff[0], diff[1], t[2], *diff[2:], t[7]]
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal((B, M, H * hd))
+                         .astype(np.float32))
+    seen = []
+
+    def card_bwd(*a, num_heads, keep=None, seed=None, rate=0.0):
+        seen.append((keep, seed, rate))
+        return ma._mha_bwd_card(*a, num_heads, keep, seed, rate)
+
+    y = ma.mha_cross_attention(*args, num_heads=H, rate=0.2, seed=seed)
+    keep = ma.mha_dropout_mask(seed, (B, H * M, X), 0.2)
+    launches = ma.mha_dropout_mask.launches
+
+    def no_mask(*a, **k):
+        raise AssertionError("a mask was made for the backward")
+
+    monkeypatch.setattr(ma, "mha_cross_bwd", card_bwd)
+    monkeypatch.setattr(ma, "mha_dropout_mask", no_mask)
+    y.backward(g)
+    (kp, sd, rate), = seen
+    assert kp is None and int(sd[0]) == 777767 and rate == 0.2
+    assert torch.equal(fake.bwd_keeps[-1], keep.view(B, H, M, X))
+    monkeypatch.undo()
+    assert ma.mha_dropout_mask.launches == launches
+    y0, stats = ma.mha_cross_fwd(*[a.detach() if a is not None else None for a in args],
+                                 num_heads=H, rate=0.2, seed=seed, with_stats=True)
+    ref = ma.mha_cross_bwd_reference(*[a.detach() if a is not None else None for a in args],
+                                     stats, y0, g, num_heads=H, keep=keep)
+    got = [diff[0].grad, diff[1].grad, None, *[a.grad for a in diff[2:]]]
+    _grads_close(got, ref)
 
 
 def test_emulated_backward_sums_in_two_fixed_stages(fake):

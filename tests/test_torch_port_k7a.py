@@ -1,7 +1,11 @@
 """K7a, the composed argmax, on the port's kernel, on the CPU.
 
 On the card the composed argmax is one library call,
-``csrc/compose_decode.cu::fk_compose_argmax``, of one launch.  Its blocks
+``csrc/compose_decode.cu::fk_compose_argmax``, of one launch: the run-table
+block where it fits in shared memory (``argmax_smem``), else the tile form
+(``compose_smem``: 32 frames of one video a block, the lanes striding over
+the actions, a strict > a lane and a shuffle argmax that prefers the lower
+index).  The run-table blocks
 build a run table from vids and nids in shared memory (the actions grouped
 by verb, each run padded to a multiple of 4 entries with copies of its
 first, in whatever order the atomics give), then each block (16 warps, two
@@ -20,7 +24,10 @@ agreement against JAX's ``mxu_argmax`` in interpret mode (which composes
 with three-term bf16 splits): log-Dirichlet, normal and coarse inputs full
 of exact ties (quarters, and integers that tie five verbs and more), an
 action table shuffled out of verb order, a verb with one action and one
-with none, and an all -inf row.
+with none, and an all -inf row; and the vocabularies past the run-table
+block: (98, 900, 6,000) and n1 + n2 = 1,697 at 3,806 actions (the tile
+form), 300 actions over 2 x 2 ids (the run table, the ids read from device
+memory: they do not fit a tile's room).
 """
 
 import jax.numpy as jnp
@@ -36,19 +43,66 @@ from fact_clip_tpu_torch.ops import compose_decode as k7
 
 torch.set_num_threads(2)
 N1, N2, N_ACT = 13, 29, 97
+FORMS = {1: "runs", 2: "tile"}  # the library's block forms by number (0: none fits)
+
+
+def run_slots(n1, n_act):
+    """Entries of the run table: each verb's run padded to a multiple of 4."""
+    return (n_act + 3 * n1 + 3) // 4 * 4
+
+
+def argmax_smem(n1, n2, n_act):
+    """Bytes of a run-table block (csrc/compose_decode.cu::argmax_smem): the
+    table, the run starts, the fill counts and the warps' bounds (padded to
+    16 bytes), the warps' bests, pass 2's queue, the frames' picks and the
+    queue's count, and two tiles' rows of 64 frames."""
+    tile = ((64 * n1 + 7) & ~3) + ((64 * n2 + 7) & ~3)
+    return (16 * ((run_slots(n1, n_act) + 2 * n1 + 16 + 5) // 4) + 8 * 16 * 32 + 16 * 128
+            + 4 * 64 + 16 + 8 * tile)
+
+
+def tile_fits(n1, n2, n_act):
+    """The tile form's block (csrc/compose_decode.cu::tile_smem) fits."""
+    return 4 * n_act + 128 * (n1 + n2) <= _build.MAX_SMEM
+
+
+def argmax_form(n1, n2, n_act):
+    """csrc/compose_decode.cu::argmax_form: 1, the run-table block (16-bit
+    action indices); 2, the tile form; 0, neither."""
+    if n_act <= 65535 and argmax_smem(n1, n2, n_act) <= _build.MAX_SMEM:
+        return 1
+    return 2 if tile_fits(n1, n2, n_act) else 0
 
 
 class FakeK7aLib:
     """The composed argmax's entry: ``blocks`` resident blocks; ``tiles``
     lists the tiles composed, ``fallbacks`` counts the frames whose warp
-    kept more than four tied verbs."""
+    kept more than four tied verbs, ``forms`` the block form of each call
+    ("runs", or "tile" past the run table's shared memory) and ``staged``
+    whether its ids fit a tile's room."""
 
     TILE, WARPS, SLOTS = 64, 16, 4  # frames a tile, warps a block, tied verbs a warp keeps
     VERB_COST = 8  # a verb's share of a warp's work past its entries
+    TILE_FORM = 32  # frames a block of the tile form
 
     def __init__(self, blocks=3, seed=0):
         self.calls, self.tiles, self.fallbacks = [], [], 0
+        self.forms, self.staged = [], []
         self.blocks, self.rng = blocks, np.random.default_rng(seed)
+
+    def _tile_form(self, lv, ln, vids, nids):
+        """One tile-form block: lane l takes actions l, l + 32, ... with a
+        strict > (its first best), then the lanes' bests reduce to the
+        larger value, the lower index on equal values."""
+        s = lv[:, vids] + ln[:, nids]  # (rows, n_act) float32 adds
+        best_v = np.full((s.shape[0], 32), -np.inf, np.float32)
+        best_i = np.full((s.shape[0], 32), -1, np.int64)
+        for a in range(s.shape[1]):
+            lane = a % 32
+            new = (best_i[:, lane] < 0) | (s[:, a] > best_v[:, lane])
+            best_v[new, lane], best_i[new, lane] = s[new, a], a
+        top = best_v.max(1, keepdims=True)
+        return np.where(best_v == top, best_i, 2 ** 31 - 1).min(1)
 
     def _runs(self, vids, nids, n1, n2):
         """(runs, entries, bnd): run v is entries[runs[v]:runs[v + 1]], a
@@ -76,6 +130,18 @@ class FakeK7aLib:
         LV = _view(lv, B * T * n1).view(B, T, n1).numpy()
         LN = _view(ln, B * T * n2).view(B, T, n2).numpy()
         O = _ints(out, B * T).view(B, T).numpy()
+        form = FORMS.get(argmax_form(n1, n2, n_act))
+        assert form is not None, "the wrapper refuses what no form takes"
+        self.forms.append(form)
+        if form == "tile":
+            V, N = _ints(vids, n_act).numpy(), _ints(nids, n_act).numpy()
+            for b in range(B):
+                for f0 in range(0, T, self.TILE_FORM):
+                    f1 = min(T, f0 + self.TILE_FORM)
+                    O[b, f0:f1] = self._tile_form(LV[b, f0:f1], LN[b, f0:f1], V, N)
+            return 0
+        tile = ((self.TILE * n1 + 7) & ~3) + ((self.TILE * n2 + 7) & ~3)
+        self.staged.append(2 * ((n_act + 7) & ~3) <= tile)
         runs, entries, bnd = self._runs(_ints(vids, n_act).numpy(),
                                           _ints(nids, n_act).numpy(), n1, n2)
         tpv = -(-T // self.TILE)
@@ -247,20 +313,26 @@ def test_emulated_k7a_all_minus_inf_rows_pick_the_first_action(fake):
 
 
 def test_k7a_shared_memory_and_refusals(fake):
-    """Epic's 98 / 301 / 3,806 fits a block (228,032 bytes: the table, the
-    warps' bests, pass 2's queue and two tiles of 64 frames); a
-    vocabulary whose table, or whose ids in a tile's room, do not fit is
-    refused before any launch; on CPU tensors the wrapper runs the plain
-    version and counts no launch."""
-    assert k7.argmax_smem(98, 301, 3806) == 228032 <= _build.MAX_SMEM
+    """Epic's 98 / 301 / 3,806 fits a run-table block (228,032 bytes: the
+    table, the warps' bests, pass 2's queue and two tiles of 64 frames);
+    300 actions over 2 x 2 ids (whose ids do not fit a tile's room) take
+    the run table too, the ids read from device memory; a vocabulary past
+    the run table takes the tile form up to 4 n_act + 128 (n1 + n2) bytes;
+    one past that is refused before any launch; on CPU tensors the wrapper
+    runs the plain version and counts no launch."""
+    assert argmax_smem(98, 301, 3806) == 228032 <= _build.MAX_SMEM
+    assert FORMS[argmax_form(98, 301, 3806)] == FORMS[argmax_form(2, 2, 300)] == "runs"
+    assert FORMS[argmax_form(98, 900, 6000)] == FORMS[argmax_form(98, 1599, 3806)] == "tile"
+    assert argmax_form(98, 1599, 3809) == 0
+    assert k7.compose_smem(98, 1599, 3808) == 232448 == _build.MAX_SMEM
     meta = lambda *s, dt=torch.float32: torch.empty(s, device="meta", dtype=dt)  # noqa: E731
-    # many repeated pairs over few ids: the ids do not fit a tile's room
-    with pytest.raises(NotImplementedError, match="n_act=300"):
-        k7._compose_argmax_card(meta(1, 64, 2), meta(1, 64, 2), meta(300, dt=torch.int32),
-                                meta(300, dt=torch.int32))
     with pytest.raises(NotImplementedError, match="n_act=60000"):
         k7._compose_argmax_card(meta(1, 64, 98), meta(1, 64, 301), meta(60000, dt=torch.int32),
                                 meta(60000, dt=torch.int32))
+    with pytest.raises(NotImplementedError, match="n_act=3809"):
+        k7._compose_argmax_card(meta(1, 64, 98), meta(1, 64, 1599), meta(3809, dt=torch.int32),
+                                meta(3809, dt=torch.int32))
+    assert fake.calls == []
     lv, ln, vids, nids = _inputs(6, "dirichlet", T=40)
     t = torch.from_numpy
     before = k7.compose_argmax.launches
@@ -268,3 +340,35 @@ def test_k7a_shared_memory_and_refusals(fake):
     assert k7.compose_argmax.launches == before and fake.calls == []
     np.testing.assert_array_equal(out.numpy(),
                                   k7.compose_argmax_reference(t(lv), t(ln), t(vids), t(nids)))
+
+
+def _pairs_vocab(n1, n2, n_act, seed):
+    """n_act actions over n1 x n2 ids, every id used, pairs repeated where
+    n_act > n1 * n2 (a vocabulary of many repeated pairs)."""
+    rng = np.random.default_rng(seed)
+    vids = np.concatenate([np.arange(n1), rng.integers(0, n1, max(0, n_act - n1))])[:n_act]
+    nids = np.concatenate([np.arange(n2), rng.integers(0, n2, max(0, n_act - n2))])[:n_act]
+    return vids.astype(np.int32), rng.permutation(nids).astype(np.int32)
+
+
+@pytest.mark.parametrize("vocab,form,T", [((98, 900, 6000), "tile", 70),
+                                          ((98, 1599, 3806), "tile", 40),
+                                          ((2, 2, 300), "runs", 150)])
+def test_emulated_k7a_takes_every_vocabulary_the_tile_block_took(fake, vocab, form, T):
+    """Past the run-table block (98 x 900 -> 6,000 actions; n1 + n2 = 1,697
+    at 3,806 actions, the tile form's last width) and where the ids do not
+    fit a tile's room (300 actions over 2 x 2 ids): the picks equal the
+    plain first argmax bit for bit, on log-Dirichlet rows and on rows
+    rounded to quarters (exact ties); the small vocabulary agrees with JAX's
+    ``mxu_argmax``."""
+    n1, n2, n_act = vocab
+    for kind in ("dirichlet", "quarters"):
+        rng = np.random.default_rng(17)
+        vids, nids = _pairs_vocab(n1, n2, n_act, 18)
+        lv, ln = _rows(rng, 2, T, n1, kind), _rows(rng, 2, T, n2, kind)
+        got, plain = _card_and_plain(lv, ln, vids, nids)
+        assert fake.forms[-1] == form
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    if form == "runs":
+        assert fake.staged[-1] is False
+        assert float((got.numpy() == _jax(lv, ln, vids, nids)).mean()) >= 0.999
