@@ -20,8 +20,8 @@
         ``k5k7`` for K5's backward (``frame_loss_bwd``) and K7a
         (``compose_argmax``), ``k7k3`` for K7a, K7b (``compose_blend``) and
         K3's backward (its mask hashed, a parent's fed it) and mask at the
-        cases their parent runs too (it refused the wide vocabularies):
-        PARENT_DIR is
+        cases their parent runs too (it refused the wide vocabularies),
+        ``k7c`` for K7c (``factored_argmax``, every case): PARENT_DIR is
         an unpacked ``git archive`` of the parent commit inside this
         checkout (under ``build/``, which git ignores).  Each tree builds
         its own kernel library and runs the rows of this tree's
@@ -113,6 +113,18 @@
         flagship's shape, dropout 0.2 (its mask hashed where the package
         hashes it, and fed).
 
+    python3 chip_dev.py k8row-host [TREE]
+        The same for the int8 towers' row forms (``act_scale="row"``) beside
+        their tile forms: K8a at the flagship's 8 x 3072 x 256 (and with the
+        LayerNorm), K8e at Breakfast's 4 x 4096 x 512 and epic's 1 x 24,576
+        x 256.
+
+    python3 chip_dev.py k7c-host [TREE]
+        The same for K7c, the factored argmax, at epic's 1 x 24,576 over 98
+        / 301 / 3,806, at 4,224 frames (one 32-frame tile a block: the
+        table's prologue and one tile), over 13 / 29 / 97 at 24,576 frames,
+        and K7a at epic's shape beside it.
+
     python3 chip_dev.py sa-f64 [TREE]
         K4's SA backward (dropout 0.2, hashed) of the package in TREE and
         its f32 plain version against the plain version in float64 at the
@@ -192,7 +204,9 @@ ALIASES = {"k3": ["mha_cross:flagship,ragged,flag_drop,rag_drop", "mha_cross_bwd
            "k7k3": ["compose_argmax:epic,ragged,ties,shuffled,segments",
                     "compose_blend:epic,segments,ragged,w0,w1,ties,ties_w0,m1,v1000,v2000,v2000_ties",
                     "mha_cross_bwd:flagship,flag_fed,m200", "mha_cross_bwd_e512:breakfast",
-                    "mha_dropout_mask:flagship"]}
+                    "mha_dropout_mask:flagship"],
+           # K7c (the factored argmax): its parent runs every case
+           "k7c": ["factored_argmax"]}
 
 
 def ab(parent: str, names):
@@ -705,6 +719,35 @@ def k7k3_host(tree: str = REPO, seed: int = 0):
     return _per_call(cs, "k7k3-host", cases)
 
 
+def k8row_host(tree: str = REPO, seed: int = 0):
+    """The same for the int8 towers' row forms beside their tile forms."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    flag = (8, 3072, 256, 10, cs.FLAGSHIP_LENGTHS)
+    cases = {}
+    for form in ("tile", "row"):
+        cases[f"k8a {form} flagship"] = lambda f=form: cs.k8a_case(rng, *flag, False, f)
+        cases[f"k8a {form} ln"] = lambda f=form: cs.k8a_case(rng, *flag, True, f)
+        cases[f"k8e {form} breakfast"] = lambda f=form: cs.k8e_case(rng, 4, 4096, 512, 10,
+                                                                   [4096] * 4, f)
+        cases[f"k8e {form} epic"] = lambda f=form: cs.k8e_case(rng, 1, cs.EPIC_T, 256, 10,
+                                                              [cs.EPIC_T], f)
+    return _per_call(cs, "k8row-host", cases)
+
+
+def k7c_host(tree: str = REPO, seed: int = 0):
+    """The same for K7c at epic's shape, at one tile a block, over a small
+    vocabulary, and K7a at epic's shape."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    voc, rag = (98, 301, 3806), (13, 29, 97)
+    return _per_call(cs, "k7c-host", {
+        "k7c epic": lambda: cs.k7c_case(rng, 1, cs.EPIC_T, voc, [cs.EPIC_T]),
+        "k7c T=4224": lambda: cs.k7c_case(rng, 1, 4224, voc, [4224]),
+        "k7c 13x29->97": lambda: cs.k7c_case(rng, 1, cs.EPIC_T, rag, [cs.EPIC_T]),
+        "k7a epic": lambda: cs.k7a_case(rng, 1, cs.EPIC_T, voc, [cs.EPIC_T])})
+
+
 def sa_f64(tree: str = REPO, seed: int = 0):
     """K4's SA backward (dropout 0.2, its masks hashed where the package
     hashes them) of the package in ``tree`` and its f32 plain version, each
@@ -769,6 +812,10 @@ def main(argv):
         return k5k7_host(*argv[1:])
     if argv[:1] == ["k7k3-host"] and len(argv) <= 2:
         return k7k3_host(*argv[1:])
+    if argv[:1] == ["k8row-host"] and len(argv) <= 2:
+        return k8row_host(*argv[1:])
+    if argv[:1] == ["k7c-host"] and len(argv) <= 2:
+        return k7c_host(*argv[1:])
     if argv[:1] == ["sa-f64"] and len(argv) <= 2:
         return sa_f64(*argv[1:])
     if argv[:1] == ["k2f-f64"] and len(argv) <= 2:

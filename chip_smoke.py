@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port on one NVIDIA H100: build, kernels,
 serving, training, for the flagship, for Breakfast, for the Epic-Kitchens
 verb/noun model and for EgoProceL, the first three served with int8
-evaluation, the single-layer K1 and the narrow twin.
+evaluation (the flagship and Breakfast also with the int8 towers' row
+form), the single-layer K1 and the narrow twin.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,8 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    forward also at the flagship's, K5's forward and backward at the
    flagship's, K7a at epic's, K8a at the flagship's, LN and 24-channel
    cases, K8d at the flagship's and Breakfast's, K7b at epic's with random
-   votes and with votes constant over 500-frame runs).
+   votes and with votes constant over 500-frame runs, K7c at epic's, and
+   the row forms of K8a at the flagship's and K8e at Breakfast's).
    K3's rows and K2's flash rows time a library pair beside them
    (``library_ms``: ``torch.matmul`` on [Wk | Wv], then
    ``F.scaled_dot_product_attention``; for a backward, the autograd
@@ -57,7 +59,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    per-video sums; the backward its autograd backward) and K7a's and K7b's
    (the dense composition: ``torch.index_select`` of the verb and noun
    columns, their add and ``argmax``; for K7b also the ``gather`` of the
-   voting tokens' q rows, ``exp`` and the blend); no PyTorch call
+   voting tokens' q rows, ``exp`` and the blend) and K7c's (the dense
+   factored composition ``argmax(lv + amax(ln[..., None, :] + mvn, -1),
+   -1)``, then the noun's ``argmax`` and the action gather, in chunks of
+   4,096 frames); no PyTorch call
    computes the other fused functions (K6: two dilated conv3s, the split
    fuse, the ReLU, the mask and the out projection), so their
    ``library_ms`` is null.  K2's flash backward runs the projection's
@@ -94,8 +99,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    tile form as the small rows, ``v2000*`` token-grouped, with ties, w = 0
    and 1); their outputs are integers, so each must equal its plain version on every
    valid frame or differ only at a proven tie (the two picks' plain scores
-   within 2 ulp of the larger), and the factored argmax agrees with the
-   composed one on >= 0.999 of the frames (its ties break verb first).
+   within 2 ulp of the larger; the factored argmax's every pick equal), and
+   the factored argmax agrees with the composed one on >= 0.999 of the
+   frames (its ties break verb first).
    Their "ties" cases round every log-prob to quarters (a tied maximum on
    ~30 % of the frames): there every pick must equal the plain one, so
    ties break to the first index as ``torch.argmax`` breaks them.
@@ -122,7 +128,13 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    E=512, H=8, M=60, X=4096 and a ragged X=1100; X2Y small-X at epic's f2a
    and a2f shapes; the int8 MS-TCN++ tower (K8e) at 4 x 4096 x 512, 10
    layers, every frame valid, at a ragged B=3, T=600 (600 / 517 / 90), at
-   epic's 1 x 24,576 x 256 and at the ragged shape 24 and 40 channels wide.
+   epic's 1 x 24,576 x 256 and at the ragged shape 24 and 40 channels wide;
+   the towers' row forms (``act_scale="row"``: a scale per frame, per-tap
+   weight scales), K8a at 8 x 3072 x 256 without and with LN, the ragged B=3,
+   T=600 and 24 channels, K8e at 4 x 4096 x 512, epic's 1 x 24,576 x 256,
+   the ragged shape and 24 and 40 channels, each bit-equal to its plain row
+   version (gated), output and integer parts (each input row's scale, each
+   row's max of a or |c1|, |c2| on valid frames).
    Their integer parts (the towers' 8-frame group and tile maxima, which
    make their activation scales; the frames as the row quantizers make
    them; K8d's [K | V] projection) must equal the plain versions', their
@@ -202,6 +214,16 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    with phase 8's weights on one 1 x 24,576 batch: per eval step
    EPIC_PER_BATCH with K6 -> K8e and K2 small-X -> K8b, every other counter
    0, and the A/B (3 repeats).
+11b. the int8 towers' row form: ``flagship_int8_cfg()`` (phase 10's
+   weights, one 8 x 3072 batch) and ``breakfast_int8_cfg()`` (phase 11's
+   weights, one 8 x 4096 batch), each through ``Predictor.predict`` and
+   ``make_eval_step`` with every tower's ``act_scale`` (an attribute no
+   configuration sets) "tile" and then "row": the form's tower kernel 4
+   times a step and the other form's 0; the warm predict, the warm eval
+   step, its device busy time (``torch.profiler``) and peak memory of each
+   form; the row form's kernel path against its plain path (block-0 logits
+   within LOGIT_TOL, >= MIN_AGREE of the predictions: gated).  Before it,
+   the row forms' counters must be 0 on every earlier path.
 12. the single-layer K1 through its module: ``DilatedResidualLayer`` (C=256,
    d=512, LN, dropout 0.2, kernels on) in train mode on 8 x 3072 ragged
    videos, one forward and backward: its forward kernel launches once, K1's
@@ -222,8 +244,9 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    int8 plain path (block-0 logits within LOGIT_TOL, >= MIN_AGREE of the
    predictions).
 15. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
-   from phase 10, K8e's from phase 11's Breakfast requests, the single-layer
-   K1's and K1's mask kernel's from phase 12 (the tower re-hashes its masks
+   from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
+   from phase 11b's predicts (0 on every other path), the single-layer K1's
+   and K1's mask kernel's from phase 12 (the tower re-hashes its masks
    inside its kernels); the factored argmax, a verification oracle, launches
    0), the nvidia-smi line, and last the contract line {"ok": true,
    "device": {...}}.
@@ -1208,12 +1231,40 @@ def k7b_case(rng, B, T, vocab, lengths, M, weight, all_null=None, coarse=False, 
             judge, compose_library(lv, ln, vids, nids, q, act, weight))
 
 
-def k7c_case(rng, B, T, vocab, lengths, coarse=False):
-    """The factored argmax against its plain version, and against the
-    composed argmax kernel (at least MIN_FACTORED_AGREE of the frames; with
-    ``coarse`` inputs the two break their many ties differently by design,
-    so each difference must be a proven tie, and the factored picks must
-    equal the plain factored ones)."""
+def factored_library(lv, ln, mvn, at, chunk=4096):
+    """K7c's library yardstick: the dense composition argmax(lv + amax(ln[...,
+    None, :] + mvn, -1), -1), then the best noun argmax(ln + mvn[v*], -1) and
+    the ``a_table`` gather, in chunks of ``chunk`` frames (a 24,576-frame
+    video's (T, n1, n2) sum is 2.9 GB).  Timed here, used nowhere in the
+    port."""
+    import torch
+
+    def run():
+        B, T, _ = lv.shape
+        out = torch.empty((B, T), device=lv.device, dtype=at.dtype)
+        for t0 in range(0, T, chunk):
+            a, b = lv[:, t0:t0 + chunk], ln[:, t0:t0 + chunk]
+            v = torch.argmax(a + torch.amax(b[..., None, :] + mvn, -1), -1)
+            n = torch.argmax(b + mvn[v], -1)
+            out[:, t0:t0 + chunk] = at[v, n]
+        return out
+
+    return run
+
+
+def k7c_case(rng, B, T, vocab, lengths, coarse=False, dense=False, valued=False):
+    """The factored argmax against its plain version (every pick equal: the
+    kernel repeats the plain version's adds and maxima and breaks ties verb
+    first, then noun, as it does), and against the composed argmax kernel
+    (at least MIN_FACTORED_AGREE of the frames; with ``coarse`` inputs the
+    two break their many ties differently by design, so each difference must
+    be a proven tie).  With ``dense`` every mask entry is finite and random
+    (more than the block's table holds: the kernel reads the mask densely)
+    and the action table a permutation; with ``valued`` the vocabulary's
+    finite entries take random finite values (the table holds them); there
+    only the plain version is the reference.  Its bound counts what the
+    function needs on these inputs: an add and a max a (frame, finite mask
+    entry), an add and a compare a (frame, verb), the rows read once."""
     import torch
 
     from fact_clip_tpu_torch.ops import compose_decode as k7
@@ -1223,15 +1274,26 @@ def k7c_case(rng, B, T, vocab, lengths, coarse=False):
     n1, n2, n_act = vocab
     mvn, at = (torch.from_numpy(t).cuda() for t in
                build_factored_tables(vids.cpu().numpy(), nids.cpu().numpy(), n1, n2))
+    if dense:
+        mvn = _rand(rng, (n1, n2), 0.5)
+        at = torch.from_numpy(rng.permutation(n1 * n2).astype(np.int32).reshape(n1, n2)).cuda()
+    if valued:
+        mvn = torch.where(torch.isfinite(mvn), _rand(rng, (n1, n2), 0.5), mvn)
     valid = _valid_frames(lengths, T)
-    work = (2 * B * T * n1 * (n2 + 1), nbytes(lv, ln, mvn, at) + B * T * 4)
+    finite = int(torch.isfinite(mvn).sum())
+    work = (2 * B * T * (finite + n1), nbytes(lv, ln, mvn, at) + B * T * 4)
 
     def judge(out, ref):
-        def score(ids):
+        def score(ids):  # the picks' composed log-prob (reported where picks differ)
+            if dense:  # the permuted action table has no vids / nids
+                return torch.zeros(ids.shape, device=ids.device)
             return composed_gather(lv, ln, vids, nids, ids)
 
+        text, ok, worst = argmax_check([("factored", out, ref, score)], valid, exact=True)
+        text += f"; {finite} of {n1 * n2} mask entries finite"
+        if dense or valued:
+            return text, ok, worst
         composed = k7.compose_argmax(lv, ln, vids, nids)
-        text, ok, worst = argmax_check([("factored", out, ref, score)], valid, exact=coarse)
         if coarse:
             tie_text, tie_ok, _ = argmax_check([("vs composed", out, composed, score)], valid)
             return f"{text}; {tie_text}", ok and tie_ok, worst
@@ -1241,15 +1303,17 @@ def k7c_case(rng, B, T, vocab, lengths, coarse=False):
                 f"(min {MIN_FACTORED_AGREE})"), ok, worst
 
     return (lambda: k7.factored_argmax(lv, ln, mvn, at),
-            lambda: k7.factored_argmax_reference(lv, ln, mvn, at), work, judge)
+            lambda: k7.factored_argmax_reference(lv, ln, mvn, at), work, judge,
+            factored_library(lv, ln, mvn, at))
 
 
-def q8_judge(name, floats, ints, probs=None, bit_share=False):
+def q8_judge(name, floats, ints, probs=None, bit_share=False, bits=False):
     """K8's check: the integer parts (``ints(out)`` of the kernel result and
     of the plain one: quantized operands, row and tile scales) equal, the f32
     results (``floats(out)``) within REL_TOL, probabilities within PROB_TOL;
     with ``bit_share`` the share of bit-equal f32 elements is printed (the
-    no-LN tower: bit equality expected)."""
+    no-LN tower: bit equality expected), with ``bits`` it must be 1 (the
+    row forms)."""
     import torch
 
     def judge(out, ref):
@@ -1266,25 +1330,41 @@ def q8_judge(name, floats, ints, probs=None, bit_share=False):
             p_err = float((probs(out) - probs(ref)).abs().max())
             ok = ok and p_err <= PROB_TOL
             text += f" probs_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
-        if bit_share:
+        if bit_share or bits:
             eq = sum(int((a == b).sum()) for a, b in zip(fo, fr))
-            text += f"; bit-equal share {eq / sum(a.numel() for a in fo):.7f}"
+            n = sum(a.numel() for a in fo)
+            text += f"; bit-equal share {eq / n:.7f}" + (" (gated: 1)" if bits else "")
+            ok = ok and (eq == n or not bits)
         return text, ok, err_abs
 
     return judge
 
 
-def k8a_case(rng, B, T, C, L, lengths, use_ln):
+def k8a_case(rng, B, T, C, L, lengths, use_ln, act_scale="tile"):
     """K8a, the int8 tower, with its group and tile maxima (the integer
-    parts: they make the activation scales) beside the output."""
+    parts: they make the activation scales) beside the output; with
+    ``act_scale="row"`` its row form, with each input row's scale and each
+    row's max of a on valid frames, bit-equal to the plain row version."""
     from fact_clip_tpu_torch.ops import quant_conv as qc
 
     (x, lens, layers, dil), _ = k1_case(rng, B, T, C, C, [2 ** i for i in range(L)], lengths,
                                         use_ln)
-    ql = qc.quantize_tower(layers)
+    ql = qc.quantize_tower(layers, act_scale)
     tile, _, T_pad, _ = qc._stack_layout(T, dil, 512)
     kw = dict(use_ln=use_ln, eps=1e-5, scales=True)
     N = _valid(lens, T)
+    weights = [t for q in ql for t in q[:8]]
+    if act_scale == "row":
+        # The row form needs the taps on the valid rows only (no scale spans
+        # frames); f32 work a frame and channel: the input's and a's
+        # quantizations, three taps' dequantizations (two products, the sums),
+        # bias, ReLU, the 1x1's dequantization with bias, the residual, LN.
+        work = (L * (22 + (8 if use_ln else 0)) * N * C,
+                nbytes(x, lens, weights) + B * T * C * 4, 8 * L * N * C * C)
+        judge = q8_judge("mstcn_stack_q8_row", lambda o: o[0], lambda o: o[1:], bits=True)
+        return (lambda: qc.mstcn_stack_q8(x, lens, ql, dil, act_scale="row", **kw),
+                lambda: qc.mstcn_stack_q8_reference(x, lens, ql, dil, act_scale="row", **kw),
+                work, judge)
     # The 3-tap product is needed on the rows whose ReLU output feeds a tile's
     # s_a: the valid rows and, past a video's end, the rows within d of it in
     # its last tile (further on the taps read zeros and a = relu(bd)).  The
@@ -1294,7 +1374,6 @@ def k8a_case(rng, B, T, C, L, lengths, use_ln):
     # wide, not the card's padded packs), the output.
     tap_rows = sum(min(n + d, -(-n // tile) * tile, T_pad)
                    for d in dil for n in lens.clamp(max=T).tolist())
-    weights = [t for q in ql for t in q[:8]]
     work = (L * (12 + (8 if use_ln else 0)) * N * C, nbytes(x, lens, weights) + B * T * C * 4,
             (6 * tap_rows + 2 * L * N) * C * C)
     judge = q8_judge("mstcn_stack_q8", lambda o: o[0], lambda o: o[1:],
@@ -1303,17 +1382,31 @@ def k8a_case(rng, B, T, C, L, lengths, use_ln):
             lambda: qc.mstcn_stack_q8_reference(x, lens, ql, dil, **kw), work, judge)
 
 
-def k8e_case(rng, B, T, C, L, lengths):
+def k8e_case(rng, B, T, C, L, lengths, act_scale="tile"):
     """K8e, the int8 MS-TCN++ tower, with its group maxima and its tiles'
     |c1| and |c2| maxima (the integer parts: they make the activation scales)
-    beside the output."""
+    beside the output; with ``act_scale="row"`` its row form, with each input
+    row's scale and each row's max of |c1| and |c2| on valid frames,
+    bit-equal to the plain row version."""
     from fact_clip_tpu_torch.ops import quant_conv as qc
 
     x, lens, layers, dil, _ = k6_case(rng, B, T, C, C, L, lengths, 0.0)
-    ql = qc.quantize_tower2(layers)
+    ql = qc.quantize_tower2(layers, act_scale)
     _, tile, n_tiles = qc._tiling(T, 512, 1)
     T_pad = n_tiles * tile
     N = _valid(lens, T)
+    if act_scale == "row":
+        # The taps on the valid rows only; f32 work a frame and channel: the
+        # input's, c1's and c2's quantizations, two convs' three dequantized
+        # taps with bias, the fuse's two dequantizations, bias, ReLU, residual.
+        weights = [t for q in ql for t in (q.qk1t, q.sk1, q.b1, q.qk2t, q.sk2, q.b2, q.qwtt,
+                                           q.swt, q.qwbt, q.swb, q.bf)]
+        work = (L * 38 * N * C, nbytes(x, lens, weights) + B * T * C * 4, 16 * L * N * C * C)
+        judge = q8_judge("mstcn2_stack_q8_row", lambda o: o[0], lambda o: o[1:], bits=True)
+        return (lambda: qc.mstcn2_stack_q8(x, lens, ql, dil, scales=True, act_scale="row"),
+                lambda: qc.mstcn2_stack_q8_reference(x, lens, ql, dil, scales=True,
+                                                     act_scale="row"), work,
+                judge)
     # Each conv's three taps are needed on the rows whose c feeds a tile's
     # scale: the valid rows and, past a video's end, the rows within d of it
     # in its last tile (further on c is exactly the bias).  The two fuse
@@ -1764,7 +1857,11 @@ def kernel_table():
         ("factored_argmax", csrc + "compose_decode.cu", pallas + "compose_decode.py:77", "argmax",
          [("epic", lambda r: k7c_case(r, 1, ET, epic_voc, [ET])),
           ("ragged", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag)),
-          ("ties", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag, coarse=True))]),
+          ("ties", lambda r: k7c_case(r, 3, 1000, rag_voc, vn_rag, coarse=True)),
+          # epic's finite entries at random values: the table's values added
+          ("valued", lambda r: k7c_case(r, 1, 4000, epic_voc, [4000], valued=True)),
+          # every (verb, noun) finite: past the block's table, the mask read densely
+          ("dense", lambda r: k7c_case(r, 1, 2000, epic_voc, [2000], dense=True))]),
         # int8 evaluation (flagship_int8_cfg): K8a-K8d at the flagship's shapes
         ("mstcn_stack_q8", csrc + "quant2.cu", pallas + "quant_conv.py:217", "argmax",
          [("flagship", lambda r: k8a_case(r, B, T, 256, 10, FLAGSHIP_LENGTHS, False)),
@@ -1825,6 +1922,19 @@ def kernel_table():
           # widths of no multiple of 32: each tap's K segment padded to 32-byte steps
           ("narrow24", lambda r: k8e_case(r, 3, 600, 24, 10, bf_rag)),
           ("narrow40", lambda r: k8e_case(r, 3, 600, 40, 10, bf_rag))]),
+        # the row forms (act_scale="row"): no configuration sets them; phase 11b
+        # serves the flagship and Breakfast int8 models with their towers in it
+        ("mstcn_stack_q8_row", csrc + "quant2.cu", pallas + "quant_conv.py:170", "argmax",
+         [("flagship", lambda r: k8a_case(r, B, T, 256, 10, FLAGSHIP_LENGTHS, False, "row")),
+          ("ln", lambda r: k8a_case(r, B, T, 256, 10, FLAGSHIP_LENGTHS, True, "row")),
+          ("ragged", lambda r: k8a_case(r, 3, 600, 256, 10, bf_rag, False, "row")),
+          ("narrow24", lambda r: k8a_case(r, 3, 600, 24, 10, bf_rag, False, "row"))]),
+        ("mstcn2_stack_q8_row", csrc + "quant2.cu", pallas + "quant_conv.py:357", "argmax",
+         [("breakfast", lambda r: k8e_case(r, 4, 4096, D, 10, [4096] * 4, "row")),
+          ("epic", lambda r: k8e_case(r, 1, ET, 256, 10, [ET], "row")),
+          ("ragged", lambda r: k8e_case(r, 3, 600, D, 10, bf_rag, "row")),
+          ("narrow24", lambda r: k8e_case(r, 3, 600, 24, 10, bf_rag, "row")),
+          ("narrow40", lambda r: k8e_case(r, 3, 600, 40, 10, bf_rag, "row"))]),
         # the single-layer K1 (no model reaches it; phase 12 drives its module)
         ("dilated_residual_layer", csrc + "mstcn.cu", pallas + "dilated_conv.py:872", "rel",
          [(f"d{d}{'_ln' if ln else ''}{'_drop' if rate else ''}",
@@ -1968,7 +2078,10 @@ def k6_repeat_check(seed: int = 0):
     1 x 24,576 (its run table built by the blocks' atomics: the picks must
     not depend on the order); K7b there with random votes and with votes
     constant over 500-frame runs (its sort's and table's atomics, the
-    pruning's warp votes, pass 2's queue); K8a at the
+    pruning's warp votes, pass 2's queue); K7c there (its blocks' tables,
+    the warps' bests); the row forms of K8a at the flagship's and K8e at
+    Breakfast's shapes (each tap's accumulator, the rows' maxima by
+    atomicMax over column items); K8a at the
     flagship's 8 x 3072 x 256, the LayerNorm case and 24 channels (its
     output and group and tile maxima: the wgmma ring, the atomicMax of the
     maxima, pass N); K8b at the flagship's a2f (the key side's GEMM on its
@@ -2035,7 +2148,10 @@ def k6_repeat_check(seed: int = 0):
              ("k7a_epic", lambda: k7a_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])),
              ("k7b_epic", lambda: k7b_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T], 300, 0.1)),
              ("k7b_seg", lambda: k7b_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T], 300, 0.1,
-                                          segment=500)))
+                                          segment=500)),
+             ("k7c_epic", lambda: k7c_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])),
+             ("k8a_row", lambda: k8a_case(rng, 8, 3072, 256, 10, FLAGSHIP_LENGTHS, False, "row")),
+             ("k8e_row", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4, "row")))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -2051,7 +2167,7 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a, K7b, K8a, K8b, K8d or K8e gives "
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a-K7c or K8a-K8e gives "
                              f"different bits on the same inputs: {failed}")
 
 
@@ -3308,6 +3424,154 @@ def phase_m2_int8_serving(bf_f32_counts, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: the int8 towers' row form (act_scale="row") on the flagship and Breakfast
+
+ROW_OF = {"mstcn_stack_q8": "mstcn_stack_q8_row", "mstcn2_stack_q8": "mstcn2_stack_q8_row"}
+
+
+def _set_act_scale(model, form):
+    """Every int8 tower of the model in ``form`` ("tile" or "row")."""
+    from fact_clip_tpu_torch.models.layers import MSTCN, MSTCN2
+
+    towers = [m for m in model.modules() if isinstance(m, (MSTCN, MSTCN2))]
+    for m in towers:
+        m.act_scale = form
+    return len(towers)
+
+
+def _busy_ms(fn, n=3):
+    """The device busy time a call of ``fn``: the sum of its kernels' device
+    times under ``torch.profiler``.  A profiler that fails or sees no device
+    time fails the phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / n / 1e3
+    if not busy > 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return busy
+
+
+def row_paths(tag, model, mwt, x, mask, lens, full, batch_size, max_len, tower, reps=3):
+    """On one batch, with the towers in the tile form and then in the row
+    form: the launches of one eval step (the form's tower ``tower`` 4 times,
+    the other form's 0), the warm predict of the batch's videos and the warm
+    eval step (medians of ``reps``), the eval step's device busy time and
+    peak memory; then the row form's kernel path against its plain path
+    (block-0 frame logits within LOGIT_TOL, >= MIN_AGREE of the predictions
+    equal: gated).  Returns the row form's launches in its predict."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+
+    B, T = x.shape[:2]
+    step = make_eval_step(model, mwt)
+    pred = Predictor(model, mwt=mwt, batch_size=batch_size, max_len=max_len, device=x.device)
+    counts = {}
+    for form in ("tile", "row"):
+        _set_act_scale(model, form)
+        name, other = (ROW_OF[tower], tower) if form == "row" else (tower, ROW_OF[tower])
+        pred.predict(full)
+        step(x, mask, lens)
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        pred.predict(full)
+        torch.cuda.synchronize()
+        counts[form] = kernel_counters()
+        reset_kernel_counters()
+        step(x, mask, lens)
+        torch.cuda.synchronize()
+        c = kernel_counters()
+        if c[name] != 4 or c[other] or counts[form][other] or not counts[form][name]:
+            raise AssertionError(f"{tag} {form} form launches: step {name} {c[name]} (want 4), "
+                                 f"{other} {c[other]}; predict {counts[form][name]} / "
+                                 f"{counts[form][other]}")
+        ptimes, times = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pred.predict(full)
+            ptimes.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            step(x, mask, lens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = _busy_ms(lambda: step(x, mask, lens))
+        log(f"[{tag}] {form} form, kernels: predict {len(full)} requests ({B} x {T}) warm ms "
+            f"median {_median(ptimes):.3f}; eval step warm ms median {_median(times):.3f} (all "
+            f"{', '.join(f'{t:.3f}' for t in times)}), device busy {busy:.3f} ms; peak device memory "
+            f"{peak:.3f} GiB; {name} {c[name]} a step, {counts[form][name]} in the predict")
+    with torch.inference_mode():
+        saves_k, _ = model(x, mask, lens)
+        pk = step(x, mask, lens)
+        model.set_kernels(False)
+        saves_p, _ = model(x, mask, lens)
+        pp = step(x, mask, lens)
+        model.set_kernels(True)
+    _set_act_scale(model, "tile")
+    err = float((saves_k[0]["frame_clogit"] - saves_p[0]["frame_clogit"]).abs()[mask].max())
+    agree = float((pk == pp)[mask].float().mean())
+    log(f"[{tag}] row form, kernel vs plain path: block-0 frame logits max_abs_err {err:.3e} "
+        f"(tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid frames (min "
+        f"{MIN_AGREE})")
+    if not (err <= LOGIT_TOL and agree >= MIN_AGREE):
+        raise AssertionError(f"{tag}: the row form's kernel path disagrees with its plain path")
+    return counts["row"][ROW_OF[tower]]
+
+
+def phase_row_int8(seed: int = 0):
+    """``flagship_int8_cfg()`` with phase 10's weights on one 8 x 3072 batch
+    and ``breakfast_int8_cfg()`` with phase 11's on one 8 x 4096 batch, each
+    served through ``Predictor`` and ``make_eval_step`` with its towers in
+    the tile form and then in the row form (``act_scale="row"``, a tower
+    attribute that no configuration sets): K8a's and K8e's row forms launch
+    4 times a step and the tile forms not at all; the row form's kernel path
+    against its plain path.  Returns the row forms' launches in the
+    predicts."""
+    import torch
+
+    from fact_clip_tpu_torch.configs import breakfast_cfg, breakfast_int8_cfg, flagship_int8_cfg
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cfg = flagship_int8_cfg()
+    model = flagship_model(cfg, seed, dev)
+    D = FLAGSHIP_DIMS[0]
+    x, mask, lens, full = _batch(rng, FLAGSHIP_LENGTHS, 3072, D)
+    log(f"[row-int8] flagship_int8_cfg(): {_set_act_scale(model, 'tile')} int8 towers")
+    launches = {"mstcn_stack_q8_row": row_paths("row-int8", model, cfg["FACT"]["mwt"], x, mask,
+                                                lens, full, 8, 3072, "mstcn_stack_q8")}
+    del model, x
+    torch.cuda.empty_cache()
+    D, C, S_CAP = BF_DIMS
+    gen = lambda s: torch.Generator(device="cpu").manual_seed(s)  # noqa: E731
+    cfg = breakfast_int8_cfg()
+    f32 = build_fact(breakfast_cfg(), D, C, S_CAP, device=dev, generator=gen(seed))  # phase 6's
+    model = build_fact(cfg, D, C, S_CAP, device=dev, generator=gen(seed + 1))
+    model.load_state_dict(f32.state_dict(), strict=True)
+    del f32
+    x, mask, lens, full = _batch(rng, BF_EVAL_LENGTHS, 4096, D)
+    log(f"[bf-row-int8] breakfast_int8_cfg(): {_set_act_scale(model, 'tile')} int8 towers")
+    launches["mstcn2_stack_q8_row"] = row_paths("bf-row-int8", model, cfg["FACT"]["mwt"], x, mask,
+                                                lens, full, 8, 10240, "mstcn2_stack_q8")
+    del model, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the single-layer K1 through its module
 
 
@@ -3582,6 +3846,11 @@ def main():
     phase_epic_training()
     int8_counts = phase_int8_serving(counts)
     m2_int8_counts = phase_m2_int8_serving(bf_counts["serve"])
+    defaults = [counts, train_counts, *bf_counts.values(), epic_counts, int8_counts,
+                *m2_int8_counts.values()]
+    if any(c.get(k, 0) for c in defaults for k in ROW_OF.values()):
+        raise AssertionError("a row form launched on a default path")
+    row_counts = phase_row_int8()
     dr_counts = phase_dr_layer()
     phase_egoprocel()
     phase_small()
@@ -3589,6 +3858,9 @@ def main():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":
             r["launches"] = m2_int8_counts["bf"][name]
+        elif name in row_counts:  # 0 on every default path: phase 11b's predicts
+            r["launches"] = row_counts[name]
+            r["act_scale"] = "row"
         elif name in ("dilated_residual_layer", "mstcn_dropout_mask"):
             r["launches"] = dr_counts[name]  # K1's tower re-hashes its masks in its kernels
         elif name in INT8_OF:

@@ -56,6 +56,8 @@ _KERNELS = {
     "factored_argmax": compose_decode.factored_argmax,
     "mstcn_stack_q8": quant_conv.mstcn_stack_q8,
     "mstcn2_stack_q8": quant_conv.mstcn2_stack_q8,
+    "mstcn_stack_q8_row": quant_conv.mstcn_q8_row_count,
+    "mstcn2_stack_q8_row": quant_conv.mstcn2_q8_row_count,
     "x2y_small_x_q8": quant_conv.x2y_small_x_q8,
     "x2y_flash_q8": quant_conv.x2y_flash_q8,
     "mha_cross_q8": quant_conv.mha_cross_q8,

@@ -82,11 +82,15 @@ SIGNATURES = {
     "fk_compose_argmax": [P] * 5 + [I] * 5 + [P],
     "fk_compose_blend_plan": [I] * 6 + [P],
     "fk_compose_blend": [P] * 9 + [I] * 6 + [F, F, P],
-    "fk_factored_argmax": [P] * 4 + [I] * 4 + [P],
+    "fk_factored_plan": [I, I, P],
+    "fk_factored_argmax": [P] * 5 + [I] * 4 + [P],
     "fk_q8_group_max": [P] * 3 + [I] * 4 + [P],
     "fk_q8_tower_layer": [P] * 4 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 7 + [I] * 9
                          + [P],
     "fk_q8_tower2_layer": [P] * 4 + [I] + [P] * 5 + [I] + [P] * 10 + [I] * 10 + [P],
+    "fk_q8_tower_row_layer": [P] * 3 + [I] + [P] * 3 + [I] + [P] * 4 + [I, F] + [P] * 6
+                             + [I] * 9 + [P],
+    "fk_q8_tower2_row_layer": [P] * 3 + [I] + [P] * 5 + [I] + [P] * 9 + [I] * 10 + [P],
     "fk_q8_mha_cross": [P, P, L, I, P, I] + [P] * 6 + [I] * 7 + [P] * 7,
     "fk_x2y_sx_q8_fwd": [P, P, L, I, P, P, L, I, P, I] + [P] * 7 + [I] * 7 + [F] + [P] * 10
                         + [I, P],

@@ -10,7 +10,8 @@
 //   fk_compose_argmax:  out[t]   = first argmax_a s_a
 //   fk_compose_blend:   pred[t]  = first argmax_a (1-w) q[b, act[t], a] + w exp(s_a)
 //                       fb[t]    = first argmax_a s_a      (the all-null fallback)
-//   fk_factored_argmax: vstar[t] = first argmax_v lv[v] + max_n (ln[n] + mvn[v, n])
+//   fk_factored_argmax: v*       = first argmax_v lv[v] + max_n (ln[n] + mvn[v, n])
+//                       out[t]   = a_table[v*, first argmax_n ln[n] + mvn[v*, n]]
 //
 // The TPU kernels compose on the MXU as one-hot products with three-term bf16
 // splits of the log-probs, a workaround for its matrix unit.  On Hopper a
@@ -102,12 +103,43 @@
 // composition never reaches device memory: the plain version materialises
 // it, 374 MB for a 24,576-frame video.
 //
-// The factored argmax keeps the (n1, n2) mask in shared memory (118 KB at
-// epic scale, rows padded to an odd stride so that lanes on neighbouring
-// verbs hit distinct banks) and runs one frame per warp at a time: each lane
-// owns verbs lane, lane + 32, ... and reduces its verbs' masked noun rows;
-// the best verb is reduced across lanes as above.  Its ties break verb
-// first, then noun, not in action order (by design, as the TPU kernel's).
+// The factored argmax (redesigned for the H100): a lane a frame over a
+// table of each verb's finite mask entries.  A persistent block of
+// AM_WARPS warps lives on each SM and walks tiles of FC_TILE frames, staged
+// as K7a stages its tiles (16-byte cp.async into two buffers, the next
+// tile's rows arriving while the block works on this one; the ln rows at
+// their own stride n2, odd at epic scale, so a gather of one noun across
+// the lanes hits 32 banks).  Its prologue builds the table once for the
+// block while the first tile's rows arrive, from one coalesced read of the
+// dense mask: the entries that are not -inf set bits of a bitmap (kept,
+// with each word's prefix count in its verb, in the second tile buffer,
+// free until the first prefetch); K7a's scan_runs
+// pads each verb's run to a multiple of 4 and splits the verbs among the
+// warps by entries; each verb's run then takes (noun, value) in noun
+// order, 16-bit nouns and f32 values, the padding copies of its first entry
+// (max is idempotent).  Skipping the -inf entries is exact: ln + -inf =
+// -inf never raises a max, and a verb with no entry scores -inf, which
+// loses to any finite score.
+// Pass 1, for the warp's verbs in increasing order: m = max over the run
+// of fl(ln[n] + mvn[v, n]) (a table pack of 4 nouns and 4 values is one
+// address across the warp, a broadcast; the ln gather varies by lane), then
+// S_v = fl(lv[v] + m) and the first verb of the warp's best S_v by a strict
+// >.  The warps' bests reduce in warp order (the lower warp holds the
+// lower verbs), so v* is the plain version's first argmax; no verb above
+// -inf: v* = 0, as torch.argmax picks.  Then the noun and action gathers of
+// _factored_action in the same kernel: half a warp a frame scans v*'s run
+// for the first noun of its max (the lowest noun among equal values), and
+// out = a_table[v*, n*] (n* = 0 where v*'s run is empty, the plain argmax
+// over an all -inf row).  A mask whose table outgrows the block's shared
+// memory (more finite entries than ~20,000 at epic's widths) is read
+// densely from device memory instead, a noun at a time, in the same
+// passes.  The parent kernel (the dense 118 KB mask reloaded by each block
+// of 64 frames, one frame a warp and each lane scanning all 301 nouns of its
+// verbs) took 0.515 ms at epic's 1 x 24,576.
+// Bound (chip_smoke.py::k7c_case): the rows read once (39 MB at epic's
+// shape, 11.7 us at 3.35 TB/s) against two operations (an add and a max) a
+// (frame, finite mask entry), 3,806 of the 29,498 pairs at epic's
+// vocabulary: bytes-bound.
 //
 // Bound on the H100: device memory for the composed and factored argmaxes.
 // At epic scale the kernels read the factored log-probs once, T * 399 * 4 B
@@ -128,7 +160,6 @@ namespace {
 constexpr size_t kMaxSmem = 232448;     // a block's dynamic shared memory on sm_90
 constexpr int FPW = 4;                  // frames a warp composes at once
 constexpr int TILE = fk::kWarps * FPW;  // frames per block (blend)
-constexpr int FTILE = 64;               // frames per block (factored)
 constexpr int AM_TILE = 64;             // frames per tile of the composed argmax, two a lane
 constexpr int AM_WARPS = 16;            // warps of an argmax block, each on a share of the verbs
 constexpr int AM_QUEUE = 128;           // pass-2 items a tile (a frame's best in one warp or more)
@@ -331,19 +362,20 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Tile k's 64 frames (video k / tpv, frames 64 (k % tpv) ...) into dst by the
-// block's threads: their lv rows, then from dst + ln_at their ln rows, each
-// block of rows as contiguous in shared memory as in device memory, by
-// 16-byte asynchronous copies (fk::cp_async_floats; the rows start off1 and
-// off2 floats in, as the reader computes).  Frames past the video's end are
+// Tile k's frames (tile of them, 64 by default: video k / tpv, frames tile
+// (k % tpv) ...) into dst by threads t of nt: their lv rows, then from dst +
+// ln_at their ln rows, each block of rows as contiguous in shared memory as
+// in device memory, by 16-byte asynchronous copies (fk::cp_async_floats; the
+// rows start off1 and off2 floats in, as the reader computes).  Frames past the video's end are
 // not copied.
 __device__ __forceinline__ void stage_tile(const float* __restrict__ lv,
                                            const float* __restrict__ ln, float* dst, int ln_at,
                                            int k, int tpv, int T, int n1, int n2,
-                                           int t = threadIdx.x, int nt = blockDim.x) {
+                                           int t = threadIdx.x, int nt = blockDim.x,
+                                           int tile = AM_TILE) {
   const int b = k / tpv;
-  const int f0 = (k - b * tpv) * AM_TILE;
-  const int rows = min(AM_TILE, T - f0);
+  const int f0 = (k - b * tpv) * tile;
+  const int rows = min(tile, T - f0);
   const size_t row0 = (size_t)b * T + f0;
   fk::cp_async_floats(dst, lv + row0 * n1, rows * n1, t, nt);
   fk::cp_async_floats(dst + ln_at, ln + row0 * n2, rows * n2, t, nt);
@@ -1148,46 +1180,237 @@ blend_runs_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
   }
 }
 
-__global__ void __launch_bounds__(fk::kThreads)
-factored_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
-                const float* __restrict__ mvn, int* __restrict__ vstar, int T, int n1, int n2,
-                int ldm) {
-  extern __shared__ float4 smem_raw[];
-  float* ms = reinterpret_cast<float*>(smem_raw);  // (n1, ldm)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* lvw = ms + (size_t)n1 * ldm + (size_t)warp * (n1 + n2);  // the warp's frame
-  float* lnw = lvw + n1;
+constexpr int FC_TILE = 32;  // frames of a factored tile, one a lane
+constexpr int FC_LOADS = 16;  // 16-byte mask loads a thread keeps in flight in the prologue
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * FTILE;
-  for (int i = threadIdx.x; i < n1 * n2; i += fk::kThreads) {
-    const int v = i / n2;
-    ms[v * ldm + (i - v * n2)] = __ldg(mvn + i);
+// The factored argmax's shared memory: the two tile buffers (floats each),
+// the run starts, fill counts and warp bounds, the warps' bests, and a
+// table of cap (noun, value) slots in what is left of the block's
+// kMaxSmem bytes.  False where the tiles, or the prologue's bitmap and its
+// words' prefix counts in the second buffer, do not fit.
+struct FactoredLayout {
+  int tile_floats, ln_at, ints_at, best_at, val_at, cap;
+  size_t bytes;
+  bool ok;
+  __host__ __device__ FactoredLayout(int n1, int n2) {
+    ln_at = (FC_TILE * n1 + 7) & ~3;
+    tile_floats = ln_at + ((FC_TILE * n2 + 7) & ~3);
+    ints_at = 2 * tile_floats;
+    best_at = ints_at + ((2 * n1 + AM_WARPS + 2 + 3) & ~3);
+    val_at = best_at + 2 * AM_WARPS * FC_TILE;
+    const long long left = (long long)kMaxSmem - 4LL * val_at;
+    cap = left > 0 ? (int)(left / 6) & ~7 : 0;
+    bytes = 4 * (size_t)val_at + 6 * (size_t)cap;
+    ok = cap >= 8 && 2LL * n1 * ((n2 + 31) / 32) <= tile_floats;
+  }
+};
+
+// The factored argmax, a lane a frame (see the top): the table built once a
+// block, then tiles of FC_TILE frames, pass 1 over each warp's verbs, the
+// warps' bests, and v*'s noun and action by half a warp a frame.
+__global__ void __launch_bounds__(AM_WARPS * 32)
+factored_kernel(const float* __restrict__ lv, const float* __restrict__ ln,
+                const float* __restrict__ mvn, const int* __restrict__ atab,
+                int* __restrict__ out, int B, int T, int n1, int n2) {
+  extern __shared__ float4 smem_raw[];
+  const FactoredLayout L(n1, n2);
+  float* buf0 = reinterpret_cast<float*>(smem_raw);
+  float* buf1 = buf0 + L.tile_floats;
+  int* runs = reinterpret_cast<int*>(buf0 + L.ints_at);
+  int* fill = runs + n1 + 1;
+  int* bnd = fill + n1;
+  float2* xbest = reinterpret_cast<float2*>(buf0 + L.best_at);  // (best, verb bits) [warp][frame]
+  float* mval = buf0 + L.val_at;
+  unsigned short* nid16 = reinterpret_cast<unsigned short*>(mval + L.cap);
+  unsigned* bits = reinterpret_cast<unsigned*>(buf1);  // the prologue's bitmap (n1, W)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned all = 0xffffffffu;
+  const int W = (n2 + 31) / 32;
+  const int tpv = (T + FC_TILE - 1) / FC_TILE;
+  const int tiles = B * tpv;
+
+  // the entries above -inf as a bitmap, from one coalesced read of the mask
+  // (16-byte loads, FC_LOADS of them in flight a thread; the first ones
+  // requested before the first tile's rows, so as not to queue behind them)
+  const int nw = n1 * W, total = n1 * n2;
+  unsigned* pre = bits + nw;  // [v * W + w]: the entries of v's words before w
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) bits[i] = 0u;
+  const int head = min(total, (int)((16 - ((uintptr_t)mvn & 15)) & 15) >> 2);
+  const int nv = (total - head) >> 2;  // 16-byte pieces after the head
+  const float4* mv4 = reinterpret_cast<const float4*>(mvn + head);
+  float4 m[FC_LOADS];
+  auto load = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < FC_LOADS; ++u) {
+      const int p = p0 + u * blockDim.x;
+      m[u] = p < nv ? __ldg(mv4 + p) : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    }
+  };
+  load(threadIdx.x);
+  // the first tile's rows start on their way into buf0 while the block builds its table
+  int k = blockIdx.x;
+  if (k < tiles) stage_tile(lv, ln, buf0, L.ln_at, k, tpv, T, n1, n2, threadIdx.x, blockDim.x,
+                            FC_TILE);
+  cp_async_commit();
+  __syncthreads();  // the bitmap is zeroed
+  auto mark = [&](int v, int n, float x) {  // entry (v, n), n possibly past the row's end
+    if (x != -INFINITY) {
+      while (n >= n2) {
+        ++v;
+        n -= n2;
+      }
+      atomicOr(&bits[v * W + (n >> 5)], 1u << (n & 31));
+    }
+  };
+  for (int i = threadIdx.x; i < head; i += blockDim.x) mark(i / n2, i % n2, __ldg(mvn + i));
+  for (int i = head + 4 * nv + threadIdx.x; i < total; i += blockDim.x)
+    mark(i / n2, i % n2, __ldg(mvn + i));
+  for (int p0 = threadIdx.x; p0 < nv; p0 += FC_LOADS * blockDim.x) {
+    if (p0 != (int)threadIdx.x) load(p0);
+#pragma unroll
+    for (int u = 0; u < FC_LOADS; ++u) {
+      const int i = head + 4 * (p0 + u * blockDim.x);
+      const int v = i / n2, n = i - v * n2;  // one division a piece
+      mark(v, n, m[u].x);
+      mark(v, n + 1, m[u].y);
+      mark(v, n + 2, m[u].z);
+      mark(v, n + 3, m[u].w);
+    }
   }
   __syncthreads();
-
-  for (int t = t0 + warp; t < min(T, t0 + FTILE); t += fk::kWarps) {
-    const size_t row = (size_t)b * T + t;
-    for (int i = lane; i < n1; i += 32) lvw[i] = __ldg(lv + row * n1 + i);
-    for (int i = lane; i < n2; i += 32) lnw[i] = __ldg(ln + row * n2 + i);
-    __syncwarp();
-    float best = -INFINITY;
-    int bi = -1;
-    for (int v = lane; v < n1; v += 32) {  // increasing v: strict > keeps the first verb
-      const float* mrow = ms + v * ldm;
-      float m = -INFINITY;
-      for (int n = 0; n < n2; ++n) m = fmaxf(m, lnw[n] + mrow[n]);
-      const float s = lvw[v] + m;
-      if (s > best || bi < 0) {
-        best = s;
-        bi = v;
+  for (int v = threadIdx.x; v < n1; v += blockDim.x) {
+    unsigned c = 0;
+    for (int w = 0; w < W; ++w) {
+      pre[v * W + w] = c;
+      c += __popc(bits[v * W + w]);
+    }
+    fill[v] = (int)c;
+  }
+  scan_runs<AM_WARPS * 32>(n1, runs, fill, bnd);
+  const bool dense = runs[n1] > L.cap;  // the table does not fit: the mask from device memory
+  if (!dense) {
+    // each run's entries in noun order, a thread a bitmap word (the values
+    // read again from the mask), then its padding
+    for (int i = threadIdx.x; i < nw; i += blockDim.x) {
+      const int v = i / W, n0 = (i - v * W) * 32;
+      int at = runs[v] + (int)pre[i];
+      for (unsigned m = bits[i]; m != 0u; m &= m - 1u, ++at) {
+        const int n = n0 + __ffs(m) - 1;
+        nid16[at] = (unsigned short)n;
+        mval[at] = __ldg(mvn + (size_t)v * n2 + n);
       }
     }
-    warp_argmax(best, bi);
-    if (lane == 0) vstar[row] = bi;
-    __syncwarp();  // the rows are read before the next frame overwrites them
+    __syncthreads();
+    for (int v = threadIdx.x; v < n1; v += blockDim.x) {
+      const int end = runs[v] + (int)pre[v * W + W - 1] + __popc(bits[v * W + W - 1]);
+      for (int s2 = end; s2 < runs[v + 1]; ++s2) {
+        nid16[s2] = nid16[runs[v]];
+        mval[s2] = mval[runs[v]];
+      }
+    }
   }
+  __syncthreads();  // the table is built; buf1 (the bitmap) is free
+  const int vlo = bnd[warp], vhi = bnd[warp + 1];
+  const uint2* tab4 = reinterpret_cast<const uint2*>(nid16);  // packs of 4 nouns
+  const float4* val4 = reinterpret_cast<const float4*>(mval);
+
+  long long pend_row = -1;  // the previous tile's action, stored a tile later
+  int pend = 0;
+  for (int j = 0; k < tiles; ++j, k += gridDim.x) {
+    if (k + (int)gridDim.x < tiles)
+      stage_tile(lv, ln, (j & 1) ? buf0 : buf1, L.ln_at, k + gridDim.x, tpv, T, n1, n2,
+                 threadIdx.x, blockDim.x, FC_TILE);
+    cp_async_commit();
+    cp_async_wait_one();  // tile k's copies (this thread's) have landed
+    __syncthreads();      // and every thread's
+    const float* bufk = (j & 1) ? buf1 : buf0;
+    const int b = k / tpv;
+    const int f0 = (k - b * tpv) * FC_TILE;
+    const int rows = min(FC_TILE, T - f0);
+    const size_t row0 = (size_t)b * T + f0;
+    const float* lvt = bufk + ((uintptr_t)(lv + row0 * n1) >> 2 & 3);
+    const float* lnt = bufk + L.ln_at + ((uintptr_t)(ln + row0 * n2) >> 2 & 3);
+    const float* lvr = lvt + lane * n1;
+    const float* lnr = lnt + lane * n2;
+
+    float best = -INFINITY;
+    int bv = -1;
+    for (int v = vlo; v < vhi; ++v) {
+      float m = -INFINITY;
+      if (!dense) {
+        const int q0 = runs[v] >> 2, q1 = runs[v + 1] >> 2;  // the run's packs of 4 entries
+        if (q0 == q1) continue;  // no finite entry: -inf, never the first maximum
+#pragma unroll 2
+        for (int q = q0; q < q1; ++q) {
+          const uint2 e = tab4[q];
+          const float4 w = val4[q];
+          m = fmaxf(m, __fadd_rn(lnr[e.x & 0xffffu], w.x));
+          m = fmaxf(m, __fadd_rn(lnr[e.x >> 16], w.y));
+          m = fmaxf(m, __fadd_rn(lnr[e.y & 0xffffu], w.z));
+          m = fmaxf(m, __fadd_rn(lnr[e.y >> 16], w.w));
+        }
+      } else {
+        const float* mrow = mvn + (size_t)v * n2;
+        for (int n = 0; n < n2; ++n) m = fmaxf(m, __fadd_rn(lnr[n], __ldg(mrow + n)));
+      }
+      const float s = __fadd_rn(lvr[v], m);
+      if (s > best) {  // increasing v: the strict > keeps the first verb
+        best = s;
+        bv = v;
+      }
+    }
+    xbest[warp * FC_TILE + lane] = make_float2(best, __int_as_float(bv));
+    if (pend_row >= 0) out[pend_row] = pend;  // its a_table load has had the pass to arrive
+    __syncthreads();
+    // v* and its noun: half a warp a frame
+    const int f = 2 * warp + (lane >> 4), r = lane & 15;
+    float bb = -INFINITY;
+    int vs = -1;
+#pragma unroll
+    for (int i = 0; i < AM_WARPS; ++i) {  // the lower warp first: the lower verb on equal values
+      const float2 o = xbest[i * FC_TILE + f];
+      const int ov = __float_as_int(o.y);
+      if (ov >= 0 && (vs < 0 || o.x > bb)) {
+        bb = o.x;
+        vs = ov;
+      }
+    }
+    if (vs < 0) vs = 0;  // every verb at -inf: the plain argmax picks the first
+    const float* lnf = lnt + f * n2;
+    float bm = -INFINITY;
+    int bn = -1;
+    if (!dense) {
+      for (int s = runs[vs] + r; s < runs[vs + 1]; s += 16) {  // entries in noun order
+        const float x = __fadd_rn(lnf[nid16[s]], mval[s]);
+        if (x > bm) {
+          bm = x;
+          bn = nid16[s];
+        }
+      }
+    } else {
+      const float* mrow = mvn + (size_t)vs * n2;
+      for (int n = r; n < n2; n += 16) {
+        const float x = __fadd_rn(lnf[n], __ldg(mrow + n));
+        if (x > bm) {
+          bm = x;
+          bn = n;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {  // the half warp's first maximum
+      const float om = __shfl_xor_sync(all, bm, o);
+      const int on = __shfl_xor_sync(all, bn, o);
+      if (on >= 0 && (bn < 0 || om > bm || (om == bm && on < bn))) {
+        bm = om;
+        bn = on;
+      }
+    }
+    pend_row = r == 0 && f < rows ? (long long)(row0 + f) : -1;
+    if (pend_row >= 0) pend = __ldg(atab + (size_t)vs * n2 + (bn < 0 ? 0 : bn));
+    __syncthreads();  // the tile's rows and the warps' bests are read: both may be refilled
+  }
+  if (pend_row >= 0) out[pend_row] = pend;
 }
 
 // Shared memory of a composed-argmax block, in bytes, and its table's entries
@@ -1381,14 +1604,34 @@ extern "C" int fk_compose_blend(const float* lv, const float* ln, const int* vid
   return (int)cudaGetLastError();
 }
 
+// Whether the factored block fits (FactoredLayout): out[0] 1 or 0, out[1]
+// its bytes of shared memory, out[2] its table's slots.
+extern "C" int fk_factored_plan(int n1, int n2, long long* out) {
+  const FactoredLayout L(n1, n2);
+  out[0] = L.ok && n1 <= 32767 && n2 <= 32767;
+  out[1] = (long long)L.bytes;
+  out[2] = L.cap;
+  return 0;
+}
+
+// The factored argmax into out (B, T) int32: action ids a_table[v*, n*].
+// Persistent blocks of FactoredLayout's shared memory, one an SM.
 extern "C" int fk_factored_argmax(const float* lv, const float* ln, const float* mvn,
-                                  int* vstar, int B, int T, int n1, int n2, void* stream) {
-  const int ldm = n2 | 1;  // odd: lanes on neighbouring verbs read distinct banks
-  const size_t smem = ((size_t)n1 * ldm + (size_t)fk::kWarps * (n1 + n2)) * sizeof(float);
-  cudaError_t err = fk::set_smem((const void*)factored_kernel, smem);
+                                  const int* atab, int* out, int B, int T, int n1, int n2,
+                                  void* stream) {
+  if (n1 > 32767 || n2 > 32767) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  const FactoredLayout L(n1, n2);
+  if (!L.ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fk::set_smem((const void*)factored_kernel, L.bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + FTILE - 1) / FTILE, B);
-  factored_kernel<<<grid, fk::kThreads, smem, (cudaStream_t)stream>>>(lv, ln, mvn, vstar, T, n1,
-                                                                      n2, ldm);
+  int blocks = 0;
+  if ((err = resident_blocks((const void*)factored_kernel, AM_WARPS * 32, L.bytes, &blocks)) !=
+      cudaSuccess)
+    return (int)err;
+  const long long tiles = (long long)B * ((T + FC_TILE - 1) / FC_TILE);
+  const int grid = (int)std::min<long long>(tiles, (long long)blocks);
+  factored_kernel<<<grid, AM_WARPS * 32, L.bytes, (cudaStream_t)stream>>>(lv, ln, mvn, atab, out,
+                                                                          B, T, n1, n2);
   return (int)cudaGetLastError();
 }

@@ -87,6 +87,38 @@
 // windows written (~1.6 at d <= 512), a written (4), read (4) and written as
 // int8 (1), read again (1 per column item, L2), the residual read and the
 // output written (8): ~23 bytes, 0.045 ms a layer at 3.35 TB/s.
+//
+// The row forms (act_scale="row": _stack_kernel_q8's and _stack2_kernel_q8's
+// else: branches) give each frame its own activation scales and each tap
+// its own weight scales (quantize_weight per tap), so a tap's int32 product
+// cannot be summed with another's: each tap has its own accumulator,
+// dequantized into the f32 sum before the next tap runs, in JAX's order as
+// XLA's CPU backend contracts it (p_k = fl(idot_k * s_row(t + (k-1) d));
+// acc = fma(p0, sw0, p1 * sw1), then fma(p2, sw2, acc); + b).  A layer's
+// passes, on the tile form's kernels where they fit:
+//   R: each frame's row quantized once with its own absmax (one warp a row,
+//      the rounding of K8d's row quantizer) into a row buffer (B, H + T_pad +
+//      H, Cw) and its scale into (B, H + T_pad + H); rows at or past a
+//      video's end 0 with scale 1e-12, the halos of H = ceil8(max d) rows 0
+//      with scale 0 (a tap outside [0, T_pad) reads them, as JAX zeroes
+//      both).  Each tap is that buffer read at a row offset.
+//   A: per item (128 rows, 128 columns, conv, video) of a persistent grid,
+//      the three taps one after another through one int32 accumulator and
+//      an f32 sum (128 columns: both fit in a consumer's registers); the
+//      epilogue c (K8a: relu'd) into (nconv, B, T_pad, Cq) and each row's
+//      max |c| over all C columns, which span column items, by atomicMax on
+//      the int bits into (nconv, B, T_pad).  Items wholly past the video are
+//      skipped: in the row form nothing past a video's end reaches a valid
+//      frame.
+//   Q: the tile form's pass with each row's own scale.
+//   F / B: the tile form's pass with each row's scales: K8e h = fma(h1 s1,
+//      swt, (h2 s2) swb), relu(h + bf) + x; K8a fma(acc s_a, sw1, b1) + x
+//      (then pass N with the LayerNorm).  No group maxima: nothing reads
+//      them.
+// The result depends on the JAX tile only through T_pad.  Its bound counts
+// the int8 products on the valid rows (nothing else reaches a valid frame)
+// and ~6 more f32 operations a frame and channel for each conv's three
+// dequantizations.
 #include <math.h>
 #include <string.h>
 
@@ -277,19 +309,201 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
   }
 }
 
+// Pass R (the row forms): row t of video b quantized with its own absmax
+// into qrow (B, H + T_pad + H, Cw) at row H + t, its scale into srow (B, H +
+// T_pad + H); rows at or past the video's end are 0 with scale 1e-12 (the
+// plain version's zero rows), one warp a row of the B x T_pad rows
+__global__ void __launch_bounds__(fk::kThreads)
+q8r_rows_kernel(const float* __restrict__ x, const int* __restrict__ len,
+                int8_t* __restrict__ qrow, float* __restrict__ srow, int B, int T, int C, int Cw,
+                int H, int T_pad) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * fk::kWarps + (threadIdx.x >> 5);
+  if (r >= B * T_pad) return;
+  const int b = r / T_pad, t = r - b * T_pad;
+  const size_t orow = (size_t)b * (T_pad + 2 * H) + H + t;
+  const bool valid = t < min(len[b], T);
+  const float* xr = x + ((size_t)b * T + (valid ? t : 0)) * C;
+  float m = 0.f;
+  if (valid)
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, fabsf(__ldg(xr + c)));
+  const float s = fmaxf(fk::warp_max(m), 1e-12f);
+  const float inv = __fdiv_rn(127.f, s);
+  int8_t* q = qrow + orow * Cw;
+  for (int c = 4 * lane; c < Cw; c += 128) {
+    int v[4] = {0, 0, 0, 0};
+    if (valid)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i < C) v[i] = fk::quant_s8(__ldg(xr + c + i), inv);
+    *reinterpret_cast<int*>(q + c) = fk::pack_s8(v[0], v[1], v[2], v[3]);
+  }
+  if (lane == 0) srow[orow] = s;
+}
+
+struct RowConvArgs {
+  CUtensorMap amap;  // the row buffer (Cw, T_pad + 2 H, B)
+  CUtensorMap bmap;  // the conv weights (Kc, C, nconv): row n of conv z, tap k at k * kseg
+  const int* len;
+  const float* srow;   // (B, T_pad + 2 H) the rows' scales
+  const float* sk[2];  // (3, C): each tap's column scales
+  const float* bias[2];
+  float* c;   // (nconv, B, T_pad, Cq)
+  int* rmax;  // (nconv, B, T_pad): each row's max |c|, as int bits
+  int B, C, Cq, kseg, H, tile, n_tiles, T_pad, jt, ncol, nconv, relu;
+  int d[2];
+};
+
+// Pass A of the row forms, persistent: item (row block, column block, conv
+// z, video b) as the tile form's pass A, 128 columns.  The three taps run
+// one after another through one int32 accumulator; after each, its products
+// are scaled by their rows' scales (a register per row) and added into an
+// f32 sum in JAX's order; then + b_z (K8a: the ReLU), c written and each
+// row's max folded over the four lanes that share it and by atomicMax
+// across column items.
+__global__ void __launch_bounds__(tc8::kThreads, 1)
+    q8r_conv_kernel(const __grid_constant__ RowConvArgs p) {
+  constexpr int BN = 128;
+  extern __shared__ float4 smem_raw[];
+  __shared__ float col_s[3][BN], col_b[BN];  // each tap's sk and b of the item's columns
+  uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = p.n_tiles * p.jt;
+  const int per_row = p.nconv * p.ncol;
+  const int items = rows * per_row * p.B;
+  const int kbs = ceil_div(p.kseg, tc8::kKB);
+  const int Tw = p.T_pad + 2 * p.H;  // the row buffer's rows a video
+  auto decode = [&](int i, int& t, int& j, int& n0, int& z, int& b, int& r0, int& nk) {
+    const int col = i % per_row;
+    const int rb = i / per_row;
+    b = rb / rows;
+    const int r = rb - b * rows;
+    t = r / p.jt;
+    j = r - t * p.jt;
+    z = col / p.ncol;
+    n0 = (col - z * p.ncol) * BN;
+    r0 = t * p.tile + j * tc8::kBM;
+    nk = r0 >= min(p.len[b], p.T_pad) ? 0 : 3 * kbs;  // every row past the video: skipped
+  };
+  uint64_t* full = tc8::ring_init<BN>(sm);
+  __syncthreads();
+  int g = 0;
+  if (warp < 4) {
+    tc::setmaxnreg_dec<40>();
+    if (tid == 0)
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        int t, j, n0, z, b, r0, nk;
+        decode(i, t, j, n0, z, b, r0, nk);
+        const int d = p.d[z];
+        tc8::produce<BN>(sm, full, g, nk, [&](int kc, uint8_t* a, uint8_t* w, uint64_t* bar) {
+          const int tap = kc / kbs, kb = (kc - tap * kbs) * tc8::kKB;
+          tc::tma_load_3d(a, &p.amap, bar, kb, p.H + r0 + (tap - 1) * d, b);
+          tc::tma_load_3d(w, &p.bmap, bar, tap * p.kseg + kb, n0, z);
+        });
+      }
+    return;
+  }
+  tc::setmaxnreg_inc<232>();
+  const int wg = (warp >> 2) - 1;
+  const int ct = tid - 128;  // consumer thread
+  // register 4jj + 2h + e holds row rw + 8h, column n0 + 8jj + cq + e
+  const int rw = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int acc[1][BN / 2];
+  float f[BN / 2];
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int t, j, n0, z, b, r0, nk;
+    decode(i, t, j, n0, z, b, r0, nk);
+    if (nk == 0) continue;
+    for (int c = ct; c < 3 * BN; c += 256) {
+      const int tap = c / BN, cl = c - tap * BN;
+      col_s[tap][cl] = n0 + cl < p.C ? __ldg(p.sk[z] + tap * p.C + n0 + cl) : 0.f;
+    }
+    if (ct < BN) col_b[ct] = n0 + ct < p.C ? __ldg(p.bias[z] + n0 + ct) : 0.f;
+    tc::bar_sync(1, 256);
+    const int d = p.d[z];
+#pragma unroll 1
+    for (int tap = 0; tap < 3; ++tap) {
+#pragma unroll
+      for (int k = 0; k < BN / 2; ++k) acc[0][k] = 0;
+      tc8::consume<BN, 1>(acc, sm, full, g, kbs, wg,
+                          [&](int kc) { return min(4, (p.kseg - kc * tc8::kKB) / 32); });
+      float rs[2];  // the tap's rows' scales (0 in the halos)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = j * tc8::kBM + rw + 8 * h;
+        rs[h] = rt < p.tile
+                    ? __ldg(p.srow + (size_t)b * Tw + p.H + t * p.tile + rt + (tap - 1) * d)
+                    : 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * jj + 2 * h + e, cl = 8 * jj + cq + e;
+            const float pk = __fmul_rn(__int2float_rn(acc[0][k]), rs[h]);
+            if (tap == 0)
+              f[k] = pk;
+            else if (tap == 1)
+              f[k] = __fmaf_rn(f[k], col_s[0][cl], __fmul_rn(pk, col_s[1][cl]));
+            else
+              f[k] = __fmaf_rn(pk, col_s[2][cl], f[k]);
+          }
+    }
+    float* cz = p.c + ((size_t)z * p.B + b) * p.T_pad * p.Cq;
+    float m[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int cl = 8 * jj + cq;
+      const int n = n0 + cl;
+      if (n >= p.C) continue;
+      const bool n1 = n + 1 < p.C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = j * tc8::kBM + rw + 8 * h;
+        if (rt >= p.tile) continue;
+        float v0 = __fadd_rn(f[4 * jj + 2 * h], col_b[cl]);
+        float v1 = __fadd_rn(f[4 * jj + 2 * h + 1], col_b[cl + 1]);
+        if (p.relu) {
+          v0 = v0 > 0.f ? v0 : 0.f;
+          v1 = v1 > 0.f ? v1 : 0.f;
+        }
+        // Cq is a multiple of 16 above C: column n + 1 lies in the row
+        *reinterpret_cast<float2*>(cz + (size_t)(t * p.tile + rt) * p.Cq + n) =
+            make_float2(v0, v1);
+        m[h] = fmaxf(m[h], fabsf(v0));
+        if (n1) m[h] = fmaxf(m[h], fabsf(v1));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the four lanes of a row, then across column items
+      float mh = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, 2));
+      const int rt = j * tc8::kBM + rw + 8 * h;
+      if ((lane & 3) == 0 && rt < p.tile && mh > 0.f)
+        atomicMax(p.rmax + ((size_t)z * p.B + b) * p.T_pad + t * p.tile + rt,
+                  __float_as_int(mh));
+    }
+    tc::bar_sync(1, 256);  // col_s and col_b are free for the next item
+  }
+}
+
 // Pass Q: rows [32 x, 32 x + 32) of c_z of video b quantized with their
-// tile's s_z into qc; channels at or past C are 0
+// tile's s_z (row: each row's own) into qc; channels at or past C are 0
 __global__ void __launch_bounds__(fk::kThreads)
 q8e_quant_c_kernel(const float* __restrict__ c, const int* __restrict__ smax,
                    int8_t* __restrict__ qc, int B, int C, int Cq, int tile, int n_tiles,
-                   int T_pad) {
+                   int T_pad, int row) {
   __shared__ float inv_row[kQRows];
   const int z = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * kQRows;
   const size_t plane = ((size_t)z * B + b) * T_pad;
   if (threadIdx.x < kQRows && r0 + (int)threadIdx.x < T_pad) {
     const int t = (r0 + threadIdx.x) / tile;
-    const float s = fmaxf(__int_as_float(smax[((size_t)z * B + b) * n_tiles + t]), 1e-12f);
+    const int* m = row ? smax + plane + r0 + threadIdx.x : smax + ((size_t)z * B + b) * n_tiles + t;
+    const float s = fmaxf(__int_as_float(*m), 1e-12f);
     inv_row[threadIdx.x] = __fdiv_rn(127.f, s);
   }
   __syncthreads();
@@ -324,7 +538,7 @@ struct OutArgs {
   CUtensorMap bmap;  // the weights (Kf, C, NACC): K8e's Wt (0) and Wb (1), K8a's W1
   const int* len;
   const float* x;
-  const int* smax;     // (NACC, B, n_tiles)
+  const int* smax;     // (NACC, B, n_tiles); the row forms' (NACC, B, T_pad)
   const float* sw[2];  // K8e's swt, swb; K8a's sw1
   const float* bias;   // K8e's bf; K8a's b1
   float* y;
@@ -336,8 +550,10 @@ struct OutArgs {
 // block, column block, video b), out on rows [r0, r0 + 128) of tile t, 128
 // columns from n0.  K8e: h = fma(h1, s1 * swt, h2 * (s2 * swb)), out =
 // relu(h + bf) + x; K8a: out = fma(acc, s_a * sw1, b1) + x (before its
-// LayerNorm when ln: pass N then takes the group maxima).
-template <int NACC>
+// LayerNorm when ln: pass N then takes the group maxima).  ROW: the row
+// forms' scales, one a row and accumulator (K8e: h = fma(h1 s1, swt, (h2 s2)
+// swb); K8a: fma(acc s_a, sw1, b1)), and no group maxima.
+template <int NACC, bool ROW = false>
 __global__ void __launch_bounds__(tc8::kThreads, 1)
     q8_out_kernel(const __grid_constant__ OutArgs p) {
   constexpr int BN = kOutBN;
@@ -399,14 +615,32 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     });
     if (ct < BN) {
       const int n = n0 + ct;
-      const float s1 = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
-      col_t[ct] = n < p.C ? __fmul_rn(s1, __ldg(p.sw[0] + n)) : 0.f;
-      if constexpr (NACC == 2) {
-        const float s2 = fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
-        col_w[ct] = n < p.C ? __fmul_rn(s2, __ldg(p.sw[1] + n)) : 0.f;
+      if constexpr (ROW) {
+        col_t[ct] = n < p.C ? __ldg(p.sw[0] + n) : 0.f;
+        if constexpr (NACC == 2) col_w[ct] = n < p.C ? __ldg(p.sw[1] + n) : 0.f;
+      } else {
+        const float s1 = fmaxf(__int_as_float(p.smax[(size_t)b * p.n_tiles + t]), 1e-12f);
+        col_t[ct] = n < p.C ? __fmul_rn(s1, __ldg(p.sw[0] + n)) : 0.f;
+        if constexpr (NACC == 2) {
+          const float s2 =
+              fmaxf(__int_as_float(p.smax[((size_t)p.B + b) * p.n_tiles + t]), 1e-12f);
+          col_w[ct] = n < p.C ? __fmul_rn(s2, __ldg(p.sw[1] + n)) : 0.f;
+        }
       }
       col_f[ct] = n < p.C ? __ldg(p.bias + n) : 0.f;
     }
+    float rs[NACC][2];  // ROW: the rows' scales of each accumulator
+#pragma unroll
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = j * tc8::kBM + rw + 8 * h;
+        rs[a][h] = ROW && rt < p.tile
+                       ? fmaxf(__int_as_float(p.smax[((size_t)a * p.B + b) * p.T_pad +
+                                                     t * p.tile + rt]),
+                               1e-12f)
+                       : 0.f;
+      }
     tc::bar_sync(1, 256);
     float gm[2] = {0.f, 0.f};
 #pragma unroll
@@ -445,7 +679,28 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
           float o0 = 0.f, o1 = 0.f;
           if (row < lim) {
             const int k = 4 * jj + 2 * h;
-            if constexpr (NACC == 2) {
+            if constexpr (ROW && NACC == 2) {
+              // h = fma(h1 s1, swt, (h2 s2) swb); out = relu(h + bf) + x
+              const float v0 = __fadd_rn(
+                  __fmaf_rn(__fmul_rn(__int2float_rn(acc[0][k]), rs[0][h]), col_t[cl],
+                            __fmul_rn(__fmul_rn(__int2float_rn(acc[1][k]), rs[1][h]), col_w[cl])),
+                  col_f[cl]);
+              const float v1 = __fadd_rn(
+                  __fmaf_rn(__fmul_rn(__int2float_rn(acc[0][k + 1]), rs[0][h]), col_t[cl + 1],
+                            __fmul_rn(__fmul_rn(__int2float_rn(acc[1][k + 1]), rs[1][h]),
+                                      col_w[cl + 1])),
+                  col_f[cl + 1]);
+              o0 = __fadd_rn(v0 > 0.f ? v0 : 0.f, xv[u][h].x);
+              o1 = __fadd_rn(v1 > 0.f ? v1 : 0.f, xv[u][h].y);
+            } else if constexpr (ROW) {
+              // out = fma(acc s_a, sw1, b1) + x
+              o0 = __fadd_rn(__fmaf_rn(__fmul_rn(__int2float_rn(acc[0][k]), rs[0][h]),
+                                       col_t[cl], col_f[cl]),
+                             xv[u][h].x);
+              o1 = __fadd_rn(__fmaf_rn(__fmul_rn(__int2float_rn(acc[0][k + 1]), rs[0][h]),
+                                       col_t[cl + 1], col_f[cl + 1]),
+                             xv[u][h].y);
+            } else if constexpr (NACC == 2) {
               // h = fma(h1, s1 * swt, h2 * (s2 * swb)); out = relu(h + bf) + x
               const float v0 = __fadd_rn(
                   __fmaf_rn(__int2float_rn(acc[0][k]), col_t[cl],
@@ -480,7 +735,7 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
     }
     // a warp's rows of one h are one 8-row group (the tile and 128 are
     // multiples of 8); the groups' maxima over the columns of every item
-    if (!p.ln) {
+    if (!ROW && !p.ln) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float m = fk::warp_max(gm[h]);
@@ -498,7 +753,8 @@ __global__ void __launch_bounds__(tc8::kThreads, 1)
 // Pass N (K8a's LayerNorm): rows [8 g, 8 g + 8) of video b normalized in
 // place, a warp a row, in two passes with 1 / sqrt correctly rounded (the
 // plain version rounds alike), and the group's max |out| into gmax (B,
-// T_pad / 8): the next layer's window maxima.  Rows past the video stay 0.
+// T_pad / 8; null in the row form): the next layer's window maxima.  Rows
+// past the video stay 0.
 __global__ void __launch_bounds__(fk::kThreads)
 q8a_ln_kernel(float* __restrict__ y, const int* __restrict__ len, const float* __restrict__ gamma,
               const float* __restrict__ beta, float eps, float* __restrict__ gmax, int T, int C,
@@ -530,7 +786,7 @@ q8a_ln_kernel(float* __restrict__ y, const int* __restrict__ len, const float* _
   m = fk::warp_max(m);
   if (lane == 0) wm[w] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && gmax != nullptr) {
     float mm = 0.f;
     for (int i = 0; i < fk::kWarps; ++i) mm = fmaxf(mm, wm[i]);
     gmax[(size_t)b * G + gi] = mm;
@@ -606,12 +862,12 @@ cudaError_t conv_passes(const Layout& l, const float* x, const int* len, const f
   if (err != cudaSuccess) return err;
 
   q8e_quant_c_kernel<<<dim3(ceil_div(l.T_pad, kQRows), nconv, l.B), fk::kThreads, 0, st>>>(
-      c, smax, qc, l.B, l.C, l.Cw, l.tile, l.n_tiles, l.T_pad);
+      c, smax, qc, l.B, l.C, l.Cw, l.tile, l.n_tiles, l.T_pad, 0);
   return cudaGetLastError();
 }
 
 // Pass F (NACC = 2) or B (NACC = 1) on qc
-template <int NACC>
+template <int NACC, bool ROW = false>
 cudaError_t out_pass(const Layout& l, const int8_t* qc, const int8_t* wpack, int Kf,
                      const int* len, const float* x, const int* smax, const float* sw0,
                      const float* sw1, const float* bias, int ln, float* y, float* gmax_out,
@@ -639,7 +895,52 @@ cudaError_t out_pass(const Layout& l, const int8_t* qc, const int8_t* wpack, int
   f.jt = l.jt();
   f.ln = ln;
   const dim3 grid(tc8::persistent_blocks(l.n_tiles * l.jt() * ceil_div(l.C, kOutBN) * l.B));
-  return launch_tc8(q8_out_kernel<NACC>, grid, tc8::Ring<kOutBN>::kBytes, st, f);
+  return launch_tc8(q8_out_kernel<NACC, ROW>, grid, tc8::Ring<kOutBN>::kBytes, st, f);
+}
+
+// The row forms' passes R, A and Q: the rows quantized once, the nconv
+// convs (relu'd when relu) with their rows' maxima, and c quantized into qc
+cudaError_t row_conv_passes(const Layout& l, const float* x, const int* len, const int8_t* kpack,
+                            int Kc, const float* const* sk, const float* const* bias,
+                            const int* d, int nconv, int relu, int8_t* qrow, float* srow,
+                            float* c, int8_t* qc, int* rmax, cudaStream_t st) {
+  const int H = l.halo;
+  q8r_rows_kernel<<<ceil_div(l.B * l.T_pad, fk::kWarps), fk::kThreads, 0, st>>>(
+      x, len, qrow, srow, l.B, l.T, l.C, l.Cw, H, l.T_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  RowConvArgs a;
+  memset(&a, 0, sizeof(a));
+  if (!tc8::encode_3d_s8(&a.amap, qrow, l.Cw, l.T_pad + 2 * H, l.B, tc8::kBM) ||
+      !tc8::encode_3d_s8(&a.bmap, kpack, Kc, l.C, nconv, 128))
+    return cudaErrorInvalidValue;
+  a.len = len;
+  a.srow = srow;
+  for (int z = 0; z < nconv; ++z) {
+    a.sk[z] = sk[z];
+    a.bias[z] = bias[z];
+    a.d[z] = d[z];
+  }
+  a.c = c;
+  a.rmax = rmax;
+  a.B = l.B;
+  a.C = l.C;
+  a.Cq = l.Cw;
+  a.kseg = l.kseg();
+  a.H = H;
+  a.tile = l.tile;
+  a.n_tiles = l.n_tiles;
+  a.T_pad = l.T_pad;
+  a.jt = l.jt();
+  a.ncol = ceil_div(l.C, 128);
+  a.nconv = nconv;
+  a.relu = relu;
+  const dim3 grid(tc8::persistent_blocks(l.n_tiles * a.jt * nconv * a.ncol * l.B));
+  err = launch_tc8(q8r_conv_kernel, grid, tc8::Ring<128>::kBytes, st, a);
+  if (err != cudaSuccess) return err;
+  q8e_quant_c_kernel<<<dim3(ceil_div(l.T_pad, kQRows), nconv, l.B), fk::kThreads, 0, st>>>(
+      c, rmax, qc, l.B, l.C, l.Cw, l.tile, l.n_tiles, l.T_pad, 1);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -698,5 +999,58 @@ extern "C" int fk_q8_tower_layer(const float* x, const int* len, const float* gm
   if (err != cudaSuccess || !use_ln) return (int)err;
   q8a_ln_kernel<<<dim3(ceil_div(T, 8), B), fk::kThreads, 0, st>>>(y, len, gamma, beta, eps,
                                                                  gmax_out, T, C, T_pad / 8);
+  return (int)cudaGetLastError();
+}
+
+// One int8 MS-TCN++ layer in the row form: passes R, A, Q, F.  Buffers (the
+// wrapper's, see ops/quant_conv.py::_mstcn2_q8_row_card): qrow (B, H + T_pad
+// + H, Cw) int8 and srow (B, H + T_pad + H) f32, zeros in the halos of H >=
+// max(d1, d2) rows; c (2, B, T_pad, Cw) f32, qc (2, B, T_pad, Cw) int8, rmax
+// (2, B, T_pad) int32 zeros.  kpack and fpack as fk_q8_tower2_layer's; sk1
+// and sk2 (3, C), each tap's scales.
+extern "C" int fk_q8_tower2_row_layer(const float* x, const int* len, const int8_t* kpack, int Kc,
+                                      const float* sk1, const float* b1, const float* sk2,
+                                      const float* b2, const int8_t* fpack, int Kf,
+                                      const float* swt, const float* swb, const float* bf,
+                                      int8_t* qrow, float* srow, float* c, int8_t* qc, int* rmax,
+                                      float* y, int B, int T, int C, int Cw, int d1, int d2, int H,
+                                      int tile, int n_tiles, int T_pad, void* stream) {
+  const Layout l{B, T, C, Cw, H, tile, n_tiles, T_pad};
+  if (!l.ok(Kc, Kf, max(d1, d2))) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* sk[2] = {sk1, sk2};
+  const float* bias[2] = {b1, b2};
+  const int d[2] = {d1, d2};
+  cudaError_t err =
+      row_conv_passes(l, x, len, kpack, Kc, sk, bias, d, 2, 0, qrow, srow, c, qc, rmax, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)out_pass<2, true>(l, qc, fpack, Kf, len, x, rmax, swt, swb, bf, 0, y, nullptr, st);
+}
+
+// One int8 MSTCN layer in the row form: passes R, A, Q, B (and N with the
+// LayerNorm).  Buffers as fk_q8_tower2_row_layer's with one conv: a (B,
+// T_pad, Cw) f32, qa (B, T_pad, Cw) int8, rmax (B, T_pad) int32 zeros; swd
+// (3, C), each tap's scales.
+extern "C" int fk_q8_tower_row_layer(const float* x, const int* len, const int8_t* kpack, int Kc,
+                                     const float* swd, const float* bd, const int8_t* wpack, int Kw,
+                                     const float* sw1, const float* b1, const float* gamma,
+                                     const float* beta, int use_ln, float eps, int8_t* qrow,
+                                     float* srow, float* a, int8_t* qa, int* rmax, float* y, int B,
+                                     int T, int C, int Cw, int d, int H, int tile, int n_tiles,
+                                     int T_pad, void* stream) {
+  const Layout l{B, T, C, Cw, H, tile, n_tiles, T_pad};
+  if (!l.ok(Kc, Kw, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* sk[2] = {swd, nullptr};
+  const float* bias[2] = {bd, nullptr};
+  const int dd[2] = {d, 0};
+  cudaError_t err =
+      row_conv_passes(l, x, len, kpack, Kc, sk, bias, dd, 1, 1, qrow, srow, a, qa, rmax, st);
+  if (err != cudaSuccess) return (int)err;
+  err = out_pass<1, true>(l, qa, wpack, Kw, len, x, rmax, sw1, nullptr, b1, use_ln, y, nullptr,
+                          st);
+  if (err != cudaSuccess || !use_ln) return (int)err;
+  q8a_ln_kernel<<<dim3(ceil_div(T, 8), B), fk::kThreads, 0, st>>>(y, len, gamma, beta, eps,
+                                                                 nullptr, T, C, T_pad / 8);
   return (int)cudaGetLastError();
 }

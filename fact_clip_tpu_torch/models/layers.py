@@ -31,7 +31,9 @@ projection over the frame axis (K8b / K8c) and the fused SCA
 cross-attention's K / V projections (K8d).  Their quantized weights sit in
 the modules' caches.  Under ``set_kernels(False)`` those paths run the int8
 plain versions (never f32), and the fused SCA branch is still chosen by the
-configured kernel flag.
+configured kernel flag.  The towers' ``act_scale`` attribute ("tile", the
+default, or "row") picks the activation scales of JAX's tower kernels; no
+configuration sets it, and each form keeps its own quantized weights.
 """
 
 from __future__ import annotations
@@ -187,6 +189,8 @@ class DilatedResidualLayer(nn.Module, KernelLayout):
 class MSTCN(nn.Module, KernelLayout):
     """1x1 in map -> dilated residual layers -> 1x1 out map (f32 logits)."""
 
+    act_scale = "tile"  # the int8 tower's activation scales (ops/quant_conv.py)
+
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ln, ngroup=1, in_map=False,
                  use_kernel=True, dropout=0.0, quantize=""):
         super().__init__()
@@ -233,11 +237,12 @@ class MSTCN(nn.Module, KernelLayout):
         if self.in_map:
             x = dense_q8(x, self.conv_1x1.weight[:, :, 0].t(), self.conv_1x1.bias,
                          library=self.use_kernel)
-        qlayers = self.cached("q8", lambda: quantize_tower([l.kernel_layout()
-                                                            for l in self.layers]))
+        form = self.act_scale
+        qlayers = self.cached("q8_" + form, lambda: quantize_tower(
+            [l.kernel_layout() for l in self.layers], form))
         fn = mstcn_stack_q8 if self.use_kernel else mstcn_stack_q8_reference
         y = fn(x.contiguous(), lengths, qlayers, [l.dilation for l in self.layers], use_ln=self.ln,
-               eps=LN_EPS_TOWER)
+               eps=LN_EPS_TOWER, act_scale=form)
         return F.linear(y, self.conv_out.weight[:, :, 0], self.conv_out.bias)
 
 
@@ -250,6 +255,8 @@ class MSTCN2(nn.Module, KernelLayout):
     outside any kernel.  Module paths are the reference's torch keys
     (``conv_1x1_in``, ``conv_dilated_1.{i}``, ``conv_dilated_2.{i}``,
     ``conv_fusion.{i}``, ``conv_out``)."""
+
+    act_scale = "tile"  # the int8 tower's activation scales (ops/quant_conv.py)
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ngroup=1, in_map=True,
                  use_kernel=True, dropout=0.0, quantize=""):
@@ -322,9 +329,10 @@ class MSTCN2(nn.Module, KernelLayout):
         if self.in_map:
             x = dense_q8(x, self.conv_1x1_in.weight[:, :, 0].t(), self.conv_1x1_in.bias,
                          library=self.use_kernel)
-        qlayers = self.cached("q8", lambda: quantize_tower2(self._layers()))
+        form = self.act_scale
+        qlayers = self.cached("q8_" + form, lambda: quantize_tower2(self._layers(), form))
         fn = mstcn2_stack_q8 if self.use_kernel else mstcn2_stack_q8_reference
-        y = fn(x.contiguous(), lengths, qlayers, self.dil_pairs)
+        y = fn(x.contiguous(), lengths, qlayers, self.dil_pairs, act_scale=form)
         return F.linear(y, self.conv_out.weight[:, :, 0], self.conv_out.bias)
 
 

@@ -18,8 +18,10 @@ Replaces ``fact_clip_tpu/ops/pallas/compose_decode.py`` with
   expfs); on a small call or past its shared memory the tile form (the
   library's plan, ``blend_plan``);
 * ``factored_argmax`` (``factored_argmax``): the composed argmax through the
-  verb / noun factorisation, the best verb from the kernel and then the best
-  noun and the action id in PyTorch, as JAX gathers them outside its kernel.
+  verb / noun factorisation, a lane a frame over a table of each verb's
+  finite mask entries that each persistent block builds once, the best verb
+  and then, in the same kernel, the best noun and the action id (JAX
+  gathers those two outside its kernel).
 
 lv (B, T, n1) and ln (B, T, n2) are float32 log-probabilities; vids, nids
 (n_act,) int32 action -> verb / noun ids; q (B, M, n_act) the tokens'
@@ -92,9 +94,23 @@ def blend_plan(B: int, T: int, n1: int, n2: int, n_act: int, M: int):
     return _FORMS.get(form), ints
 
 
+FACTORED_TILE = 32  # frames of a factored tile, one a lane (csrc/compose_decode.cu)
+
+
 def factored_smem(n1: int, n2: int) -> int:
-    """Bytes of a factored block: the mask (odd row stride) and each warp's frame."""
-    return 4 * (n1 * (n2 | 1) + 8 * (n1 + n2))
+    """Bytes of the factored block's two tiles of rows.  The block holds more
+    (the run starts, the warps' bests, the table), laid out by the library
+    (``factored_plan``), so a vocabulary whose tiles do not fit is refused
+    before the library is asked."""
+    return 8 * FACTORED_TILE * (n1 + n2)
+
+
+def factored_plan(n1: int, n2: int):
+    """(fits, shared-memory bytes, table slots) of the factored block, as the
+    library lays it out (``fk_factored_plan``); a mask with more finite
+    entries than the table's slots is read densely."""
+    fits, smem, cap = _build.workspace(_build.lib(), "fk_factored_plan", 3, n1, n2)
+    return bool(fits), smem, cap
 
 
 def _check_lp(name, lv, ln):
@@ -185,24 +201,31 @@ compose_blend.launches = 0
 
 
 def factored_argmax(lv, ln, mask_vn, a_table):
-    """The best verb from the kernel (CUDA tensors) or the plain version (CPU
-    ones), then the best noun and the action id: (B, T) int32."""
+    """The kernel on CUDA tensors, the plain version on CPU ones: (B, T) int32
+    action ids (the best verb, its best noun, ``a_table``'s entry)."""
     if lv.device.type == "cpu":
         return factored_argmax_reference(lv, ln, mask_vn, a_table)
+    out = _factored_argmax_card(lv, ln, mask_vn, a_table)
+    factored_argmax.launches += 1
+    return out
+
+
+def _factored_argmax_card(lv, ln, mask_vn, a_table):
+    """The card's call (also run on CPU tensors against a model of the
+    library in the tests): one launch into (B, T) int32."""
     B, T, n1, n2 = _check_lp("factored_argmax", lv, ln)
-    if mask_vn.shape != (n1, n2) or a_table.shape != (n1, n2):
-        raise ValueError("factored_argmax: mask_vn and a_table must be (n1, n2)")
-    if factored_smem(n1, n2) > _build.MAX_SMEM:
-        raise NotImplementedError(f"factored_argmax: the mask does not fit in shared memory at "
+    if mask_vn.shape != (n1, n2) or a_table.shape != (n1, n2) or a_table.dtype != torch.int32:
+        raise ValueError("factored_argmax: mask_vn (n1, n2) and a_table (n1, n2) int32")
+    if factored_smem(n1, n2) > _build.MAX_SMEM or not factored_plan(n1, n2)[0]:
+        raise NotImplementedError(f"factored_argmax: no block fits in shared memory at "
                                   f"n1={n1}, n2={n2}")
-    _build.check_tensors("factored_argmax", [lv, ln, mask_vn], lv.device)
-    v_star = torch.empty((B, T), device=lv.device, dtype=torch.int32)
+    _build.check_tensors("factored_argmax", [lv, ln, mask_vn, a_table], lv.device)
+    out = torch.empty((B, T), device=lv.device, dtype=torch.int32)
     err = _build.lib().fk_factored_argmax(lv.data_ptr(), ln.data_ptr(), mask_vn.data_ptr(),
-                                          v_star.data_ptr(), B, T, n1, n2,
+                                          a_table.data_ptr(), out.data_ptr(), B, T, n1, n2,
                                           _build.stream_ptr(lv.device))
     _build.check("fk_factored_argmax", err)
-    factored_argmax.launches += 1
-    return _factored_action(ln, mask_vn, a_table, v_star)
+    return out
 
 
 factored_argmax.launches = 0

@@ -7,11 +7,13 @@ of JAX's tower layout (``dilated_conv.py::_tiling`` :89 and
 ``_stack_layout`` :454), and the five kernels' entries beside their plain
 versions:
 
-* K8a ``mstcn_stack_q8`` (``f: m``): ``dilated_residual_stack_q8`` with
-  ``act_scale="tile"`` (``_stack_layer_q8`` :217) -> ``csrc/quant2.cu``;
+* K8a ``mstcn_stack_q8`` (``f: m``): ``dilated_residual_stack_q8``
+  (``_stack_layer_q8`` :217) -> ``csrc/quant2.cu``, both activation
+  scales: ``act_scale="tile"`` (one scale per video and JAX tile, joint-tap
+  conv weights) and ``"row"`` (one scale per frame, per-tap conv weights);
 * K8e ``mstcn2_stack_q8`` (``f: m2``, Breakfast and Epic-Kitchens):
-  ``dilated_residual2_stack_q8`` with ``act_scale="tile"``
-  (``_stack2_layer_q8`` :390) -> ``csrc/quant2.cu``;
+  ``dilated_residual2_stack_q8`` (``_stack2_layer_q8`` :390) ->
+  ``csrc/quant2.cu``, both activation scales;
 * K8b ``x2y_small_x_q8``: ``_x2y_small_x_q8_impl`` (:594) -> one library
   call, ``csrc/x2y_attn.cu::fk_x2y_sx_q8_fwd``: K2's small-X split with the
   q projection on the int8 ``wgmma`` core of ``csrc/q8_proj.cu``;
@@ -24,8 +26,8 @@ versions:
   projection of ``csrc/q8_proj.cu``, then K3's attention
   (``csrc/mha_attn.cu``).
 
-JAX's ``act_scale="row"`` forms of the two towers are reached by no
-configuration and are not ported.
+No configuration sets ``act_scale="row"``: a tower module takes it as a
+plain attribute (``models/layers.py``), as JAX's tests bind it.
 
 Quantization is JAX's: weights symmetric per output channel with the two
 1/127 factors folded into the scale (``s / 16129``); activations
@@ -40,7 +42,8 @@ contracts each product-plus-bias of a dequantization (``acc * scale + b``,
 and the LayerNorm's ``* g + beta``) into one fused multiply-add: the plain
 versions take that FMA (``_fma``) and the kernels write it (``__fmaf_rn``),
 every other step rounded on its own (K8e's fuse: fma(h1, s1 * swt, h2 * (s2
-* swb)), the bias added after).  The entries take their weights quantized
+* swb)), the bias added after; the row forms' taps: fma(a0 s0, sw0, (a1 s1)
+sw1), then fma(a2 s2, sw2, .), the bias added after).  The entries take their weights quantized
 (``quantize_tower`` / ``quantize_tower2`` / ``quantize_x2y`` /
 ``quantize_kv``, which a module caches), launch the kernel on CUDA tensors
 and run the plain version on CPU tensors, count their launches, and refuse
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -193,9 +197,24 @@ def _stack_layout(T: int, dilations, tile: int):
     return tile, n_tiles, n_tiles * tile, -(-halo_req // tile) * tile
 
 
+ACT_SCALES = ("tile", "row")
+
+
+def _act_scale(name: str, act_scale: str) -> None:
+    if act_scale not in ACT_SCALES:
+        raise ValueError(f"{name}: act_scale must be one of {ACT_SCALES}, not {act_scale!r}")
+
+
+def _conv_weight(wd, act_scale: str):
+    """The conv's int8 taps (3, C, C) and their scales: one per output channel
+    over all taps (tile, (C,)) or one per tap and output channel (row, (3, C))."""
+    return quantize_weight_joint(wd) if act_scale == "tile" else quantize_weight(wd)
+
+
 class Q8Layer(NamedTuple):
     """One quantized tower layer: qwdt (C_out, 3 C_in) int8 (tap k's inputs at
-    k C_in) with the joint scale swd (C,), qw1t (C_out, C_in) int8 with sw1
+    k C_in) with its scales swd, (C,) joint over the taps (act_scale "tile") or
+    (3, C) per tap ("row"), qw1t (C_out, C_in) int8 with sw1
     (C,), the f32 vectors, and the int8 weights in the card's layout
     (``k8e_layout``, K8e's): kpack (C_out, Kc), tap k at columns k kseg, and
     wpack (C_out, Kf), each zero past C_in."""
@@ -212,14 +231,16 @@ class Q8Layer(NamedTuple):
     wpack: torch.Tensor
 
 
-def quantize_tower(layers) -> list:
+def quantize_tower(layers, act_scale: str = "tile") -> list:
     """(wd (3, C, C), bd, w1 (C, C), b1, gamma, beta) per layer -> Q8Layer
-    (``dilated_residual_stack_q8``'s per-step weight pass, tile mode)."""
+    (``dilated_residual_stack_q8``'s per-step weight pass: the conv's taps
+    quantized jointly for ``act_scale="tile"``, each on its own for "row")."""
+    _act_scale("quantize_tower", act_scale)
     out = []
     for wd, bd, w1, b1, gamma, beta in layers:
         C = w1.shape[0]
         lay = k8e_layout(C)
-        qwd, swd = quantize_weight_joint(wd)
+        qwd, swd = _conv_weight(wd, act_scale)
         qw1, sw1 = quantize_weight(w1)
         ones = torch.ones(C, device=w1.device)
         kpack = _pad_cols(_pad_cols(qwd.permute(2, 0, 1), lay.kseg).reshape(C, -1), lay.Kc)
@@ -272,13 +293,19 @@ def _shift(x, s: int):
 
 
 def mstcn_stack_q8_reference(x, lengths, qlayers, dilations, *, use_ln: bool,
-                             eps: float = 1e-5, tile: int = 512, scales: bool = False):
-    """Plain PyTorch version of ``dilated_residual_stack_q8`` (tile mode):
-    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  With
-    ``scales`` also what the activation scales are made of, per layer: the
-    8-frame group maxima of |input| (L, B, T_pad / 8), from which each
-    tile's window takes s_x, and each tile's max of the ReLU output (L, B,
-    n_tiles), before the 1e-12 floor."""
+                             eps: float = 1e-5, tile: int = 512, scales: bool = False,
+                             act_scale: str = "tile"):
+    """Plain PyTorch version of ``dilated_residual_stack_q8``: x (B, T, C) ->
+    (B, T, C), frames at or past ``lengths`` zero; ``act_scale="row"`` is
+    ``_mstcn_q8_row_plain``.  With ``scales`` (tile mode) also what the
+    activation scales are made of, per layer: the 8-frame group maxima of
+    |input| (L, B, T_pad / 8), from which each tile's window takes s_x, and
+    each tile's max of the ReLU output (L, B, n_tiles), before the 1e-12
+    floor."""
+    _check_scales("mstcn_stack_q8", qlayers, ("swd",), act_scale)
+    if act_scale == "row":
+        return _mstcn_q8_row_plain(x, lengths, qlayers, dilations, use_ln=use_ln, eps=eps,
+                                   tile=tile, scales=scales)
     B, T, C = x.shape
     tile, n_tiles, T_pad, _ = _stack_layout(T, dilations, tile)
     dev = x.device
@@ -310,19 +337,82 @@ def mstcn_stack_q8_reference(x, lengths, qlayers, dilations, *, use_ln: bool,
     return cur[:, :T]
 
 
+def _row_taps(qx, sx, qkt, sk, d: int):
+    """The row form's dilated conv (``_stack_kernel_q8``'s ``else:`` branch):
+    each tap's int8 product dequantized with its rows' scales and its own
+    column scales, as XLA's CPU backend contracts JAX's three sums: fma(a0
+    s0, sw0, (a1 s1) sw1), then fma(a2 s2, sw2, .).  qx (B, T_pad, C) int8
+    and sx (B, T_pad, 1) the rows; a tap reading outside [0, T_pad) reads a
+    zero row of scale 0."""
+    C = sk.shape[1]
+    p = [(_idot(_shift(qx, (k - 1) * d), qkt[:, k * C:(k + 1) * C].t())
+          * _shift(sx, (k - 1) * d), sk[k]) for k in range(3)]
+    return _fma(p[2][0], p[2][1], _fma(p[0][0], p[0][1], p[1][0] * p[1][1]))
+
+
+def _check_scales(name: str, qlayers, fields, act_scale: str) -> None:
+    """The conv scales must be the form's: (C,) for "tile", (3, C) for "row"."""
+    _act_scale(name, act_scale)
+    want = 1 if act_scale == "tile" else 2
+    if any(getattr(ql, f).dim() != want for ql in qlayers for f in fields):
+        raise ValueError(f"{name}: weights not quantized for act_scale={act_scale!r}; use "
+                         f"quantize_tower{'2' if len(fields) > 1 else ''}(..., "
+                         f"act_scale={act_scale!r})")
+
+
+def _mstcn_q8_row_plain(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float = 1e-5,
+                        tile: int = 512, scales: bool = False):
+    """Plain PyTorch version of ``dilated_residual_stack_q8(..., act_scale="row")``:
+    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  Per layer:
+    each frame's row quantized with its own absmax (``_quantize_rows``), the
+    three taps' products dequantized one by one (``_row_taps``), a =
+    relu(. + bd), a's rows quantized, out = fma(idot * s_a, sw1, b1) + x, the
+    LayerNorm, the mask.  ``tile`` matters only through T_pad: a tap past
+    T_pad reads zeros.  With ``scales`` also the integer parts of the
+    scales, per layer, on valid frames (0 elsewhere): each input row's scale
+    (L, B, T_pad) and each row's max of a (L, B, T_pad), before the floor."""
+    B, T, C = x.shape
+    _, _, T_pad, _ = _stack_layout(T, dilations, tile)
+    valid = (torch.arange(T_pad, device=x.device)[None, :] < lengths[:, None]).float()[..., None]
+    cur = torch.zeros((B, T_pad, C), device=x.device)
+    cur[:, :T] = x
+    cur = cur * valid
+    srows, amax = [], []
+    for ql, d in zip(qlayers, dilations):
+        qx, sx = _quantize_rows(cur)
+        a = torch.relu(_row_taps(qx, sx, ql.qwdt, ql.swd, d) + ql.bd)
+        qa, sa = _quantize_rows(a)
+        srows.append(sx[..., 0] * valid[..., 0])
+        amax.append(a.amax(dim=-1) * valid[..., 0])
+        out = _fma(_idot(qa, ql.qw1t.t()) * sa, ql.sw1, ql.b1) + cur
+        if use_ln:
+            out = _layer_norm(out, ql.gamma, ql.beta, eps)
+        cur = out * valid
+    if scales:
+        return cur[:, :T], torch.stack(srows), torch.stack(amax)
+    return cur[:, :T]
+
+
 def mstcn_stack_q8(x, lengths, qlayers, dilations, *, use_ln: bool, eps: float = 1e-5,
-                   tile: int = 512, scales: bool = False):
+                   tile: int = 512, scales: bool = False, act_scale: str = "tile"):
     """K8a: the int8 tower (``csrc/quant2.cu``, one library call a layer,
-    four launches and a fifth with the LayerNorm, and one for the input's
-    group maxima) on CUDA tensors, the plain version on CPU tensors.
-    ``qlayers`` from ``quantize_tower``; ``scales`` as in the plain version
-    (the kernels' own group and tile maxima).  Any width: the packs and
-    buffers pad C (``k8e_layout``)."""
+    four launches and a fifth with the LayerNorm, and for the tile form one
+    for the input's group maxima) on CUDA tensors, the plain version of the
+    form on CPU tensors.  ``qlayers`` from ``quantize_tower(..., act_scale)``;
+    ``scales`` as in the plain version (the kernels' own maxima).  Any
+    width: the packs and buffers pad C (``k8e_layout``).  The row form
+    counts its launches apart (``mstcn_q8_row_count``, ``kernel_counters()``'s
+    ``mstcn_stack_q8_row``)."""
     _build.no_grad_inputs("mstcn_stack_q8", [x] + [t for ql in qlayers
                                                    for t in (ql.bd, ql.b1, ql.gamma, ql.beta)])
     if x.device.type == "cpu":
         return mstcn_stack_q8_reference(x, lengths, qlayers, dilations, use_ln=use_ln, eps=eps,
-                                        tile=tile, scales=scales)
+                                        tile=tile, scales=scales, act_scale=act_scale)
+    _check_scales("mstcn_stack_q8", qlayers, ("swd",), act_scale)
+    if act_scale == "row":
+        out = _mstcn_q8_row_card(x, lengths, qlayers, dilations, use_ln, eps, tile, scales)
+        mstcn_q8_row_count.launches += 1
+        return out
     out = _mstcn_q8_card(x, lengths, qlayers, dilations, use_ln, eps, tile, scales)
     mstcn_stack_q8.launches += 1
     return out
@@ -375,6 +465,66 @@ def _mstcn_q8_card(x, lengths, qlayers, dilations, use_ln: bool, eps: float, til
 
 
 mstcn_stack_q8.launches = 0
+mstcn_q8_row_count = SimpleNamespace(launches=0)  # the row form's count (kernel_counters)
+
+
+def _row_buffers(name, x, lengths, qlayers, dmax: int, T_pad: int, nconv: int):
+    """The row forms' checks and buffers: the frames' int8 rows (B, H + T_pad
+    + H, Cw) and their scales (L, B, H + T_pad + H), zeros in the halos of H =
+    ceil8(max d) rows on each side (what a tap past [0, T_pad) reads); the
+    conv outputs in f32 and as int8 (nconv, B, T_pad, Cw) and their rows'
+    maxima (L, nconv, B, T_pad) as int bits, zeroed."""
+    B, T, C = x.shape
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError(f"{name}: lengths must be (B,) int32")
+    lay = k8e_layout(C)
+    H = -(-dmax // 8) * 8
+    dev = x.device
+    L = len(qlayers)
+    qrow = torch.zeros((B, T_pad + 2 * H, lay.Cw), device=dev, dtype=torch.int8)
+    srow = torch.zeros((L, B, T_pad + 2 * H), device=dev, dtype=torch.float32)
+    c = torch.empty((nconv, B, T_pad, lay.Cw), device=dev, dtype=torch.float32)
+    qc_ = torch.empty((nconv, B, T_pad, lay.Cw), device=dev, dtype=torch.int8)
+    rmax = torch.zeros((L, nconv, B, T_pad), device=dev, dtype=torch.int32)
+    ys = [torch.empty((B, T, C), device=dev, dtype=torch.float32) for _ in range(min(2, L))]
+    return lay, H, qrow, srow, c, qc_, rmax, ys
+
+
+def _row_scales(cur, lengths, srow, rmax, H: int, T_pad: int):
+    """The kernels' integer parts as the plain row version returns them: the
+    input rows' scales and the rows' maxima on valid frames, 0 elsewhere."""
+    valid = torch.arange(T_pad, device=cur.device)[None, :] < lengths[:, None]
+    return cur, srow[:, :, H:H + T_pad] * valid, rmax.view(torch.float32) * valid
+
+
+def _mstcn_q8_row_card(x, lengths, qlayers, dilations, use_ln: bool, eps: float, tile: int,
+                       scales: bool):
+    """K8a's row form on the card (also run on CPU tensors against a model of
+    the library in the tests): one library call a layer, ``fk_q8_tower_row_layer``
+    (passes R, A, Q, B and N with the LayerNorm: csrc/quant2.cu)."""
+    B, T, C = x.shape
+    tile, n_tiles, T_pad, _ = _stack_layout(T, dilations, tile)
+    lay, H, qrow, srow, a, qa, rmax, ys = _row_buffers("mstcn_stack_q8", x, lengths, qlayers,
+                                                       max(dilations), T_pad, 1)
+    if any(ql.kpack.shape != (C, lay.Kc) or ql.wpack.shape != (C, lay.Kf) for ql in qlayers):
+        raise ValueError("mstcn_stack_q8: packs not in k8e_layout(C); use quantize_tower")
+    x = x.contiguous()
+    _build.check_tensors("mstcn_stack_q8", [x, lengths, *[t for ql in qlayers for t in ql]],
+                         x.device)
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    cur = x
+    for i, (ql, d) in enumerate(zip(qlayers, dilations)):
+        y = ys[i % 2]
+        _build.check("fk_q8_tower_row_layer", lib.fk_q8_tower_row_layer(
+            cur.data_ptr(), lengths.data_ptr(), ql.kpack.data_ptr(), lay.Kc, ql.swd.data_ptr(),
+            ql.bd.data_ptr(), ql.wpack.data_ptr(), lay.Kf, ql.sw1.data_ptr(), ql.b1.data_ptr(),
+            ql.gamma.data_ptr(), ql.beta.data_ptr(), int(use_ln), float(eps), qrow.data_ptr(),
+            srow[i].data_ptr(), a.data_ptr(), qa.data_ptr(), rmax[i].data_ptr(), y.data_ptr(),
+            B, T, C, lay.Cw, int(d), H, tile, n_tiles, T_pad, stream))
+        cur = y
+    if scales:
+        return _row_scales(cur, lengths, srow, rmax[:, 0], H, T_pad)
+    return cur
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +533,8 @@ mstcn_stack_q8.launches = 0
 
 class Q8Layer2(NamedTuple):
     """One quantized MS-TCN++ layer: the two convs' qk1t, qk2t (C_out, 3 C_in)
-    int8 (tap k's inputs at k C_in) with their joint scales sk1, sk2 (C,), the
+    int8 (tap k's inputs at k C_in) with their scales sk1, sk2 ((C,) joint
+    over the taps, act_scale "tile"; (3, C) per tap, "row"), the
     fuse halves qwtt, qwbt (C_out, C_in) int8 with swt, swb (C,), the f32
     biases, and the same int8 weights in the card's layout (``k8e_layout``):
     kpack (2, C_out, Kc), conv k's tap t at columns t kseg, and fpack (2,
@@ -404,15 +555,17 @@ class Q8Layer2(NamedTuple):
     fpack: torch.Tensor
 
 
-def quantize_tower2(layers) -> list:
+def quantize_tower2(layers, act_scale: str = "tile") -> list:
     """(k1 (3, C, C), b1, k2, b2, wt (C, C), wb, bf) per layer -> Q8Layer2
-    (``dilated_residual2_stack_q8``'s per-step weight pass, tile mode:
-    joint-tap scales for the convs, per-column scales for the fuse halves)."""
+    (``dilated_residual2_stack_q8``'s per-step weight pass: the convs' taps
+    quantized jointly for ``act_scale="tile"``, each on its own for "row";
+    per-column scales for the fuse halves)."""
+    _act_scale("quantize_tower2", act_scale)
     out = []
     for k1, b1, k2, b2, wt, wb, bf in layers:
         C = wt.shape[0]
         lay = k8e_layout(C)
-        (qk1, sk1), (qk2, sk2) = quantize_weight_joint(k1), quantize_weight_joint(k2)
+        (qk1, sk1), (qk2, sk2) = _conv_weight(k1, act_scale), _conv_weight(k2, act_scale)
         (qwt, swt), (qwb, swb) = quantize_weight(wt), quantize_weight(wb)
         kpack = torch.stack([_pad_cols(_pad_cols(q.permute(2, 0, 1), lay.kseg).reshape(C, -1),
                                        lay.Kc) for q in (qk1, qk2)]).contiguous()
@@ -430,9 +583,10 @@ def _tile_max(v, B: int, n_tiles: int):
 
 
 def mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, *, tile: int = 512,
-                              scales: bool = False):
-    """Plain PyTorch version of ``dilated_residual2_stack_q8`` (tile mode):
-    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  Per layer
+                              scales: bool = False, act_scale: str = "tile"):
+    """Plain PyTorch version of ``dilated_residual2_stack_q8``: x (B, T, C) ->
+    (B, T, C), frames at or past ``lengths`` zero; ``act_scale="row"`` is
+    ``_mstcn2_q8_row_plain``.  Tile mode, per layer
     (d1, d2) and JAX tile of frames: s_x the absmax of the layer input over
     the tile's window [t tile - h, (t + 1) tile + h) within [0, T_pad), h =
     ceil8(max(d1, d2)); each conv's three taps of round(x * (127 / s_x)) in
@@ -443,6 +597,9 @@ def mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, *, tile: int = 512
     kernel.  With ``scales`` also the integer parts of the scales, per
     layer: the 8-frame group maxima of |input| (L, B, T_pad / 8) and each
     tile's max of |c1| and |c2| (L, 2, B, n_tiles), before the 1e-12 floor."""
+    _check_scales("mstcn2_stack_q8", qlayers, ("sk1", "sk2"), act_scale)
+    if act_scale == "row":
+        return _mstcn2_q8_row_plain(x, lengths, qlayers, dil_pairs, tile=tile, scales=scales)
     B, T, C = x.shape
     _, tile, n_tiles = _tiling(T, tile, 1)
     T_pad = n_tiles * tile
@@ -478,18 +635,58 @@ def mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, *, tile: int = 512
     return cur[:, :T]
 
 
-def mstcn2_stack_q8(x, lengths, qlayers, dil_pairs, *, tile: int = 512, scales: bool = False):
+def _mstcn2_q8_row_plain(x, lengths, qlayers, dil_pairs, *, tile: int = 512,
+                         scales: bool = False):
+    """Plain PyTorch version of ``dilated_residual2_stack_q8(..., act_scale="row")``:
+    x (B, T, C) -> (B, T, C), frames at or past ``lengths`` zero.  Per layer
+    (d1, d2): each frame's row quantized with its own absmax, both convs'
+    taps dequantized one by one (``_row_taps``) plus their biases, c1 and c2
+    quantized per row, h = fma(h1 s1, swt, (h2 s2) swb) as XLA's CPU backend
+    computes JAX's kernel, out = (relu(h + bf) + x) * mask.  ``tile`` matters
+    only through T_pad.  With ``scales`` also, per layer and on valid frames
+    (0 elsewhere), each input row's scale (L, B, T_pad) and each row's max of
+    |c1| and |c2| (L, 2, B, T_pad), before the floor."""
+    B, T, C = x.shape
+    _, tile, n_tiles = _tiling(T, tile, 1)
+    T_pad = n_tiles * tile
+    valid = (torch.arange(T_pad, device=x.device)[None, :] < lengths[:, None]).float()[..., None]
+    cur = torch.zeros((B, T_pad, C), device=x.device)
+    cur[:, :T] = x
+    cur = cur * valid
+    srows, cmax = [], []
+    for ql, (d1, d2) in zip(qlayers, dil_pairs):
+        qx, sx = _quantize_rows(cur)
+        c1 = _row_taps(qx, sx, ql.qk1t, ql.sk1, d1) + ql.b1
+        c2 = _row_taps(qx, sx, ql.qk2t, ql.sk2, d2) + ql.b2
+        srows.append(sx[..., 0] * valid[..., 0])
+        cmax.append(torch.stack([c.abs().amax(dim=-1) * valid[..., 0] for c in (c1, c2)]))
+        (q1, s1), (q2, s2) = _quantize_rows(c1), _quantize_rows(c2)
+        h = _fma(_idot(q1, ql.qwtt.t()) * s1, ql.swt, (_idot(q2, ql.qwbt.t()) * s2) * ql.swb)
+        cur = (torch.relu(h + ql.bf) + cur) * valid
+    if scales:
+        return cur[:, :T], torch.stack(srows), torch.stack(cmax)
+    return cur[:, :T]
+
+
+def mstcn2_stack_q8(x, lengths, qlayers, dil_pairs, *, tile: int = 512, scales: bool = False,
+                    act_scale: str = "tile"):
     """K8e: the int8 MS-TCN++ tower (``csrc/quant2.cu``, one library call a
-    layer, four launches, and one for the input's group maxima) on CUDA
-    tensors, the plain version on CPU tensors.  ``qlayers`` from
-    ``quantize_tower2``; ``scales`` as in the plain version (the kernels' own
-    group and tile maxima).  Any width: the packs and buffers pad C
-    (``k8e_layout``)."""
+    layer, four launches, and for the tile form one for the input's group
+    maxima) on CUDA tensors, the plain version of the form on CPU tensors.
+    ``qlayers`` from ``quantize_tower2(..., act_scale)``; ``scales`` as in the
+    plain version (the kernels' own maxima).  Any width: the packs and
+    buffers pad C (``k8e_layout``).  The row form counts its launches apart
+    (``mstcn2_q8_row_count``, ``kernel_counters()``'s ``mstcn2_stack_q8_row``)."""
     _build.no_grad_inputs("mstcn2_stack_q8", [x] + [t for ql in qlayers
                                                     for t in (ql.b1, ql.b2, ql.bf)])
     if x.device.type == "cpu":
         return mstcn2_stack_q8_reference(x, lengths, qlayers, dil_pairs, tile=tile,
-                                         scales=scales)
+                                         scales=scales, act_scale=act_scale)
+    _check_scales("mstcn2_stack_q8", qlayers, ("sk1", "sk2"), act_scale)
+    if act_scale == "row":
+        out = _mstcn2_q8_row_card(x, lengths, qlayers, dil_pairs, tile, scales)
+        mstcn2_q8_row_count.launches += 1
+        return out
     out = _mstcn2_q8_card(x, lengths, qlayers, dil_pairs, tile, scales)
     mstcn2_stack_q8.launches += 1
     return out
@@ -543,6 +740,39 @@ def _mstcn2_q8_card(x, lengths, qlayers, dil_pairs, tile: int, scales: bool):
 
 
 mstcn2_stack_q8.launches = 0
+mstcn2_q8_row_count = SimpleNamespace(launches=0)  # the row form's count (kernel_counters)
+
+
+def _mstcn2_q8_row_card(x, lengths, qlayers, dil_pairs, tile: int, scales: bool):
+    """K8e's row form on the card (also run on CPU tensors against a model of
+    the library in the tests): one library call a layer,
+    ``fk_q8_tower2_row_layer`` (passes R, A, Q, F: csrc/quant2.cu)."""
+    B, T, C = x.shape
+    _, tile, n_tiles = _tiling(T, tile, 1)
+    T_pad = n_tiles * tile
+    dmax = max(max(p) for p in dil_pairs)
+    lay, H, qrow, srow, c, qc_, rmax, ys = _row_buffers("mstcn2_stack_q8", x, lengths, qlayers,
+                                                        dmax, T_pad, 2)
+    if any(ql.kpack.shape != (2, C, lay.Kc) or ql.fpack.shape != (2, C, lay.Kf)
+           for ql in qlayers):
+        raise ValueError("mstcn2_stack_q8: packs not in k8e_layout(C); use quantize_tower2")
+    x = x.contiguous()
+    _build.check_tensors("mstcn2_stack_q8", [x, lengths, *[t for ql in qlayers for t in ql]],
+                         x.device)
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    cur = x
+    for i, (ql, (d1, d2)) in enumerate(zip(qlayers, dil_pairs)):
+        y = ys[i % 2]
+        _build.check("fk_q8_tower2_row_layer", lib.fk_q8_tower2_row_layer(
+            cur.data_ptr(), lengths.data_ptr(), ql.kpack.data_ptr(), lay.Kc, ql.sk1.data_ptr(),
+            ql.b1.data_ptr(), ql.sk2.data_ptr(), ql.b2.data_ptr(), ql.fpack.data_ptr(), lay.Kf,
+            ql.swt.data_ptr(), ql.swb.data_ptr(), ql.bf.data_ptr(), qrow.data_ptr(),
+            srow[i].data_ptr(), c.data_ptr(), qc_.data_ptr(), rmax[i].data_ptr(), y.data_ptr(),
+            B, T, C, lay.Cw, int(d1), int(d2), H, tile, n_tiles, T_pad, stream))
+        cur = y
+    if scales:
+        return _row_scales(cur, lengths, srow, rmax, H, T_pad)
+    return cur
 
 
 # ---------------------------------------------------------------------------

@@ -185,7 +185,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_before_any_launch(monkeypa
     with pytest.raises(ValueError, match="act_idx"):
         k7.compose_blend(lv, ln, ids, ids, meta(1, 300, 3806), meta(1, 64, dt=torch.int64), 0.1)
     with pytest.raises(NotImplementedError, match="n1=300"):
-        k7.factored_argmax(meta(1, 64, 300), ln, meta(300, 301), meta(300, 301, dt=torch.int32))
+        k7.factored_argmax(meta(1, 64, 300), meta(1, 64, 1000), meta(300, 1000),
+                           meta(300, 1000, dt=torch.int32))
     # epic's shapes fit
     assert k7.compose_smem(98, 301, 3806) <= _build.MAX_SMEM
     assert k7.factored_smem(98, 301) <= _build.MAX_SMEM

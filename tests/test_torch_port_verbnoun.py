@@ -116,7 +116,7 @@ def test_shared_memory_at_epic_widths(monkeypatch):
     assert sa_layer.has_backward(60, 512, 8) and not sa_layer.has_backward(40, 512, 4)
     assert dilated_conv.has_tower_kernels(256) and dilated_conv.has_tower_kernels(256, 512)
     assert compose_decode.compose_smem(98, 301, 3806) == 66296
-    assert compose_decode.factored_smem(98, 301) == 130760
+    assert compose_decode.factored_smem(98, 301) == 102144
 
     class Launched(Exception):
         pass
