@@ -130,6 +130,16 @@
         its f32 plain version against the plain version in float64 at the
         same four shapes: max, rms and coherent error of every cotangent.
 
+    python3 chip_dev.py loop-host [EPOCHS [sync]]
+        ``chip_smoke.py`` phase 15's training run (havid.yaml, batch 8, the
+        HAViD-shaped set) for EPOCHS epochs (default 6: 12 steps) with no
+        test pass: each loop step split into its wait on the prefetcher, the
+        batch's copy to the card, the train step and the train metrics
+        (``print_every 1``), each synchronised, beside the step's padded
+        length; medians over the steps at a length seen before.  With
+        ``sync`` the batches are assembled on the loop's own thread, with no
+        prefetcher beside the step.
+
 Run from the root of a checkout, on a machine with an H100 (the kernels
 build there with nvcc, as for ``chip_smoke.py``).
 """
@@ -789,6 +799,37 @@ def sa_f64(tree: str = REPO, seed: int = 0):
     return 0
 
 
+def loop_host(epochs: str = "6", mode: str = ""):
+    """``chip_smoke.py`` phase 15's run for ``epochs`` epochs, no test pass,
+    each loop step split by its parts; ``mode="sync"``: no prefetch thread
+    (see the module's docstring)."""
+    cs = _chip_smoke(REPO)
+    from fact_clip_tpu_torch.engine import train_loop
+
+    with cs._loop_run("chip_dev_loop") as (_, cfg_of), cs._LoopSpies(mode == "sync") as spies:
+        cfg, _, _ = cfg_of(int(epochs), "aux.eval_every", "1000000")
+        train_loop.run_train(cfg, device="cuda", base_dir=REPO)
+    smi = cs.nvidia_smi_line()
+    warm = []
+    for i, (st, nxt, gap) in enumerate(spies.gaps()):
+        # from this step's start to the next's: the step, its metrics, the
+        # next batch's wait and copy, and the rest (results, logging)
+        row = dict(T=st["T"], step=st["ms"], metrics=spies.metrics[i], wait=nxt["wait"],
+                   copy=nxt["copy"], gap=gap)
+        print(f"[loop-host] {smi}: step {i} " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()),
+            flush=True)
+        if spies.seen(st):
+            warm.append(row)
+    parts_of_step = ("wait", "copy", "step", "metrics")
+    med = {k: float(np.median([r[k] for r in warm])) for k in (*parts_of_step, "gap")}
+    rest = med["gap"] - sum(med[k] for k in parts_of_step)
+    print(f"[loop-host] {smi} ({mode or 'prefetch'}): {len(warm)} steps at a length seen "
+          "before, median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + f"; the rest of the loop's step {rest:.3f}", flush=True)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "ab":
         return ab(argv[1], [n for a in argv[2:] for n in ALIASES.get(a, [a])])
@@ -822,6 +863,8 @@ def main(argv):
         return k2f_f64(*argv[1:])
     if argv == ["k2sx-f64"]:
         return k2sx_f64()
+    if argv[:1] == ["loop-host"] and len(argv) <= 3:
+        return loop_host(*argv[1:])
     print(__doc__, file=sys.stderr)
     return 2
 

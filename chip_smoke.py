@@ -243,7 +243,31 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    requests (K8a launched, K1 not) and the int8 kernel path is held to its
    int8 plain path (block-0 logits within LOGIT_TOL, >= MIN_AGREE of the
    predictions).
-15. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+15. the training loop and its CLIs: the port's ``make_fixture_dataset``
+   writes a HAViD-shaped set in a temporary directory (D = 2048, 75
+   classes, class 0 background, features transposed, 16 train and 4 test
+   videos of 1,500-3,072 frames with 10-30 segments, seed 0); ``setup_cfg(
+   ["fact_clip_tpu/configs/havid.yaml"], --set the set's paths, bg_class 0,
+   batch_size 8, epoch 2, aux.eval_every 2, aux.print_every 1,
+   TPU.save_opt_state true)`` keeps the recipe's widths, depths, time
+   masking, sw 5 and nullw -1; ``run_train(cfg, device="cuda")`` takes 4
+   steps with test passes at 2 and 4: every logged loss finite, each step
+   launching exactly TRAIN_KERNELS (no mask kernel, nothing of K6-K8), and
+   args.json, metrics.jsonl, ckpts/network.iter-{2,4}.net with their
+   optimizer sidecars, saves/{2,4}.gz, best_ckpt.gz and FINISH_PROOF
+   written.  Then FINISH_PROOF goes (a cut run), its directory takes the
+   name of the same recipe at epoch 3, and ``run_train`` with epoch 3 must
+   resume at iteration 4 (weights loaded bit-equal to network.iter-4.net,
+   the optimizer at step 4), train 2 steps and test at 6.  Then
+   ``python3 -m fact_clip_tpu_torch.train`` with those arguments prints
+   "already finished", exits 0 and writes no checkpoint, and ``python3 -m
+   fact_clip_tpu_torch.run_eval --ckpt .../network.iter-6.net`` gives
+   metrics and predictions equal to saves/6.gz's.  Prints each train
+   step, the loop's steps per second, its wait on the prefetcher a step,
+   each test pass's wall time and peak memory beside the nvidia-smi line.
+   The run's log directory (under the checkout's log/) and the set are
+   removed at the end.
+16. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
    from phase 11b's predicts (0 on every other path), the single-layer K1's
    and K1's mask kernel's from phase 12 (the tower re-hashes its masks
@@ -256,6 +280,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3832,6 +3857,313 @@ def phase_small(seed: int = 0):
         raise AssertionError(f"small: K4's masks launched in training: {counts_t}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training loop and its CLIs on the flagship's recipe
+
+HAVID_YAML = os.path.join("fact_clip_tpu", "configs", "havid.yaml")
+LOOP_DATA = dict(name="havid", n_classes=75, n_train=16, n_test=4, feat_dim=2048, min_len=1500,
+                 max_len=3072, min_segs=10, max_segs=30, seed=0)
+LOOP_SETS = ["bg_class", "0", "batch_size", "8", "aux.eval_every", "2", "aux.print_every", "1",
+             "TPU.save_opt_state", "true"]
+
+
+class _LoopSpies:
+    """Spies on the loop's own calls, installed for a ``with`` block: every
+    train step (synchronised, its launch counts reset before and read after,
+    beside its batch's wait on the prefetcher and its copy to the card),
+    every test pass, the train metrics of ``print_every`` and what a resume
+    loaded.  With ``sync`` the loop assembles its batches on its own thread,
+    with no prefetcher."""
+
+    def __init__(self, sync=False):
+        self.sync = sync
+        self.steps, self.evals, self.metrics, self.loads, self.opt_steps = [], [], [], [], []
+        self._wait, self._copy = (None, None), None
+
+    def __enter__(self):
+        import torch
+
+        from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+        from fact_clip_tpu_torch.data.batching import TrainLoader
+        from fact_clip_tpu_torch.engine import checkpoint as ckpt_io
+        from fact_clip_tpu_torch.engine import train_loop
+        from fact_clip_tpu_torch.engine.steps import TrainStep
+        from fact_clip_tpu_torch.utils.results import Checkpoint
+
+        self._saved = [(TrainStep, "__call__", TrainStep.__call__),
+                       (train_loop, "evaluate", train_loop.evaluate),
+                       (train_loop, "prefetch", train_loop.prefetch),
+                       (train_loop, "batch_to_device", train_loop.batch_to_device),
+                       (Checkpoint, "compute_metrics", Checkpoint.compute_metrics),
+                       (ckpt_io, "load_model", ckpt_io.load_model),
+                       (ckpt_io, "load_train_state", ckpt_io.load_train_state)]
+        (step_call, evaluate, prefetch, to_device, compute_metrics, load_model,
+         load_state) = (x[2] for x in self._saved)
+        spies = self
+
+        def step_spy(self, batch, generator=None, times=None):
+            torch.cuda.synchronize()
+            reset_kernel_counters()
+            t0 = time.perf_counter()
+            out = step_call(self, batch, generator, times)
+            loss = float(out["loss"])
+            torch.cuda.synchronize()
+            wait, first = spies._wait
+            spies.steps.append(dict(t0=t0, ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                                    counts=kernel_counters(), T=int(batch["feats"].shape[1]),
+                                    wait=wait, first=first, copy=spies._copy))
+            return out
+
+        def eval_spy(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = evaluate(*args, **kwargs)
+            torch.cuda.synchronize()
+            spies.evals.append((t0, time.perf_counter()))
+            return out
+
+        def prefetch_spy(iterable, depth=2):
+            it = iter(iterable) if spies.sync else iter(prefetch(iterable, depth))
+            first = True
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                if isinstance(iterable, TrainLoader):  # (ms, an epoch's first batch)
+                    spies._wait = ((time.perf_counter() - t0) * 1e3, first)
+                first = False
+                yield item
+
+        def copy_spy(arrays, device):  # the train step reads the last one
+            t0 = time.perf_counter()
+            out = to_device(arrays, device)
+            torch.cuda.synchronize()
+            spies._copy = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def metrics_spy(ckpt):
+            t0 = time.perf_counter()
+            out = compute_metrics(ckpt)
+            if ckpt.iteration == -1:  # the train results of print_every
+                spies.metrics.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def load_spy(model, path):
+            load_model(model, path)
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            spies.loads.append(all(torch.equal(v.cpu(), saved[k])
+                                   for k, v in model.state_dict().items()))
+
+        def state_spy(optimizer, ckpt_file):
+            ok = load_state(optimizer, ckpt_file)
+            spies.opt_steps.append(optimizer.count if ok else None)
+            return ok
+
+        TrainStep.__call__ = step_spy
+        train_loop.evaluate, train_loop.prefetch = eval_spy, prefetch_spy
+        train_loop.batch_to_device, Checkpoint.compute_metrics = copy_spy, metrics_spy
+        ckpt_io.load_model, ckpt_io.load_train_state = load_spy, state_spy
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def gaps(self):
+        """(step, next step, ms from one's start to the next's) for consecutive
+        train steps with no test pass between them: the loop's own step (the
+        step, its results and metrics, the next batch's wait and copy)."""
+        out = []
+        for a, b in zip(self.steps, self.steps[1:]):
+            if not any(a["t0"] < e0 < b["t0"] for e0, _ in self.evals) and b["t0"] > a["t0"]:
+                out.append((a, b, (b["t0"] - a["t0"]) * 1e3))
+        return out
+
+    def seen(self, step):
+        """Whether a step before ``step`` ran at its padded length."""
+        return any(st["T"] == step["T"] for st in self.steps[: self.steps.index(step)])
+
+
+@contextlib.contextmanager
+def _loop_run(prefix):
+    """The HAViD-shaped set (``LOOP_DATA``) written into a temporary
+    directory; yields (its directory, ``cfg_of``).  ``cfg_of(epoch, *sets)``
+    gives (config, its ``--set`` list, log directory) of a havid.yaml run on
+    the set with ``LOOP_SETS`` and ``sets``, the log directory (under the
+    checkout, as the CLIs put it) cleared of an earlier run's leftovers.  The
+    set and every log directory go on exit."""
+    import shutil
+    import tempfile
+
+    from fact_clip_tpu_torch.configs import setup_cfg
+    from fact_clip_tpu_torch.data.synthetic import make_fixture_dataset
+
+    tmp, logdirs = tempfile.mkdtemp(prefix=prefix), []
+    try:
+        base = make_fixture_dataset(tmp, **LOOP_DATA)
+        paths = ["feature_path", base + "/features", "groundTruth_path", base + "/groundTruth",
+                 "map_fname", base + "/mapping.txt", "split_path", base + "/splits"]
+
+        def cfg_of(epoch, *sets):
+            sets = paths + LOOP_SETS + ["epoch", str(epoch), *sets]
+            cfg = setup_cfg([os.path.join(REPO, HAVID_YAML)], sets)
+            logdir = os.path.join(REPO, cfg.aux.logdir)
+            if logdir not in logdirs:
+                logdirs.append(logdir)
+            shutil.rmtree(logdir, ignore_errors=True)
+            return cfg, sets, logdir
+
+        yield base, cfg_of
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for d in logdirs:
+            shutil.rmtree(d, ignore_errors=True)
+            try:
+                os.removedirs(os.path.dirname(d))  # the experiment's empty parents
+            except OSError:
+                pass
+
+
+def _loop_files(logdir, iters):
+    files = ["args.json", "metrics.jsonl", "best_ckpt.gz", "FINISH_PROOF"]
+    for n in iters:
+        files += [f"ckpts/network.iter-{n}.net", f"ckpts/state.iter-{n}.state", f"saves/{n}.gz"]
+    missing = [f for f in files if not os.path.exists(os.path.join(logdir, f))]
+    if missing:
+        raise AssertionError(f"[loop] the run did not write {missing} in {logdir}")
+
+
+def _loop_steps_ok(tag, steps):
+    for i, st in enumerate(steps):
+        launched = {k for k, v in st["counts"].items() if v}
+        missing = [k for k in TRAIN_KERNELS if k not in launched]
+        extra = sorted(launched - set(TRAIN_KERNELS))
+        if missing or extra or not math.isfinite(st["loss"]):
+            raise AssertionError(f"[loop] {tag} step {i}: loss {st['loss']}, kernels not "
+                                 f"launched {missing}, launched off the path {extra}")
+
+
+def _cli(module, args):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[loop] {module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc, dt
+
+
+def phase_loop(smi):
+    """The flagship's recipe (havid.yaml) trained and evaluated through the
+    loop and its CLIs on a HAViD-shaped synthetic set."""
+    import shutil
+
+    import torch
+
+    from fact_clip_tpu_torch.engine.train_loop import run_train
+    from fact_clip_tpu_torch.utils.results import Checkpoint
+
+    t0 = time.perf_counter()
+    with _loop_run("chip_smoke_loop") as (base, cfg_of), _LoopSpies() as spies:
+        n_bytes = sum(os.path.getsize(os.path.join(base, "features", f))
+                      for f in os.listdir(os.path.join(base, "features")))
+        log(f"[loop] HAViD-shaped set: {LOOP_DATA}, {n_bytes / 2 ** 20:.0f} MiB of features, "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        yaml_path = os.path.join(REPO, HAVID_YAML)
+        cfg2, sets2, logdir2 = cfg_of(3)
+        cfg, _, logdir = cfg_of(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_train(cfg, device="cuda", base_dir=REPO)
+        log(f"[loop] run 1: havid.yaml (dataset {cfg.dataset}, iuUU, f: m, ntoken "
+            f"{cfg.FACT.ntoken}, sw {cfg.Loss.sw}, TM.use {cfg.TM.use}, nullw "
+            f"{cfg.Loss.nullw:.6f} resolved), batch 8, epoch 2: {len(spies.steps)} steps, "
+            f"{len(spies.evals)} test passes in {time.perf_counter() - t0:.1f} s")
+        if len(spies.steps) != 4 or len(spies.evals) != 2:
+            raise AssertionError("[loop] run 1 must take 4 steps with test passes at 2 and 4")
+        _loop_steps_ok("run 1", spies.steps)
+        _loop_files(logdir, (2, 4))
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["train-loss/loss"] for r in recs if "train-loss/loss" in r]
+        if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[loop] logged train losses {losses}")
+        log(f"[loop] run 1 logged losses {', '.join(f'{v:.5f}' for v in losses)}; every step "
+            f"launched {len(TRAIN_KERNELS)} kernels ({', '.join(TRAIN_KERNELS)}) and no other")
+
+        # a cut run: no FINISH_PROOF.  The epoch is part of the experiment's
+        # name, so the cut run's directory takes the epoch-3 run's name
+        os.remove(os.path.join(logdir, "FINISH_PROOF"))
+        os.makedirs(os.path.dirname(logdir2), exist_ok=True)
+        shutil.move(logdir, logdir2)
+        n1 = len(spies.steps)
+        t0 = time.perf_counter()
+        run_train(cfg2, device="cuda", base_dir=REPO)
+        resumed = spies.steps[n1:]
+        log(f"[loop] run 2 (epoch 3, resume max): weights loaded bit-equal {spies.loads}, "
+            f"optimizer step {spies.opt_steps}, {len(resumed)} steps, "
+            f"{len(spies.evals) - 2} test pass in {time.perf_counter() - t0:.1f} s")
+        if spies.loads != [True] or spies.opt_steps != [4] or len(resumed) != 2 \
+                or len(spies.evals) != 3:
+            raise AssertionError("[loop] the resume did not continue at iteration 4")
+        _loop_steps_ok("run 2", resumed)
+        _loop_files(logdir2, (2, 4, 6))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        ckpts = sorted(os.listdir(os.path.join(logdir2, "ckpts")))
+        proc, dt_again = _cli("fact_clip_tpu_torch.train", ["--cfg", yaml_path, "--set", *sets2])
+        if "already finished" not in proc.stdout or \
+                sorted(os.listdir(os.path.join(logdir2, "ckpts"))) != ckpts:
+            raise AssertionError(f"[loop] the train CLI did not skip the finished run: "
+                                 f"{proc.stdout[-2000:]}")
+        log(f"[loop] python3 -m fact_clip_tpu_torch.train (the same arguments): already "
+            f"finished, exit 0, no new checkpoint ({dt_again:.1f} s)")
+        net6 = os.path.join(logdir2, "ckpts", "network.iter-6.net")
+        proc, dt_eval = _cli("fact_clip_tpu_torch.run_eval",
+                             ["--cfg", yaml_path, "--ckpt", net6, "--set", *sets2])
+        got = Checkpoint.load(os.path.join(logdir2, "eval_results", "eval_result.gz"))
+        want = Checkpoint.load(os.path.join(logdir2, "saves", "6.gz"))
+        same_preds = list(got.videos) == list(want.videos) and all(
+            np.array_equal(got.videos[v].pred, want.videos[v].pred) for v in want.videos)
+        log(f"[loop] python3 -m fact_clip_tpu_torch.run_eval --ckpt network.iter-6.net "
+            f"({dt_eval:.1f} s with the process start): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in got.metrics.items())
+            + f"; equal to saves/6.gz: {got.metrics == want.metrics}, predictions {same_preds}")
+        if got.metrics != want.metrics or not same_preds:
+            raise AssertionError(f"[loop] run_eval gave {got.metrics}, saves/6.gz holds "
+                                 f"{want.metrics}")
+
+    steps = [f"{st['T']}: {st['ms']:.3f}" for st in spies.steps]
+    log(f"[loop] {smi}: train steps (padded length: ms, synchronised; runs 1 and 2) "
+        f"{', '.join(steps)}")
+    # the loop's step from a step's start to the next's; warm where the
+    # step's padded length ran before (a first visit builds plans and caches)
+    for warm in (False, True):
+        rows = [(a, b, gap) for a, b, gap in spies.gaps() if spies.seen(a) == warm]
+        parts = [f"{gap:.3f} (step {a['ms']:.3f}, the next batch's wait {b['wait']:.3f} and "
+                 f"copy {b['copy']:.3f}, data share {(b['wait'] + b['copy']) / gap:.4f})"
+                 for a, b, gap in rows]
+        rate = f": {1e3 / _median([g for _, _, g in rows]):.3f} steps/s at the median" if rows \
+            else ""
+        log(f"[loop] {smi}: the loop's step, start to start with no test pass between, at a "
+            f"length {'seen before' if warm else 'first visited'}: "
+            f"{'; '.join(parts) or 'none'} ms{rate}")
+    overlapped = [st["wait"] for st in spies.steps if not st["first"]]
+    firsts = [st["wait"] for st in spies.steps if st["first"]]
+    copies = [st["copy"] for st in spies.steps]
+    evals = [(b - a) * 1e3 for a, b in spies.evals]
+    log(f"[loop] {smi}: wait on the prefetcher for a batch a step overlapped "
+        f"{', '.join(f'{t:.3f}' for t in overlapped)} ms, for an epoch's first batch "
+        f"{', '.join(f'{t:.3f}' for t in firsts)} ms; each batch's copy to the card "
+        f"{', '.join(f'{t:.3f}' for t in copies)} ms; test pass over "
+        f"{LOOP_DATA['n_test']} videos (one 8-video batch, metrics, saves/<N>.gz): "
+        f"{', '.join(f'{t:.1f}' for t in evals)} ms; peak memory {peak:.2f} GiB")
+
+
 def main():
     import torch
 
@@ -3854,6 +4186,7 @@ def main():
     dr_counts = phase_dr_layer()
     phase_egoprocel()
     phase_small()
+    phase_loop(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":

@@ -3,10 +3,14 @@
 The JAX package ``fact_clip_tpu`` is the reference; this package mirrors its
 layout where that helps find a module's counterpart:
 
-configs.py        BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
+configs/          BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
                   breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
                   epic_vocab, flagship_int8_cfg, breakfast_int8_cfg,
-                  epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg (no YAML)
+                  epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg; the
+                  default tree, CfgNode and setup_cfg; yaml_lite, which reads
+                  the JAX package's YAML recipes as data (no PyYAML)
+data/             the dataset registry, bucketed loaders, the prefetcher and
+                  the synthetic fixture writers
 models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
                   the two-branch decodes, matching (o2o, o2m), losses (FACT's
                   and the verb/noun model's)
@@ -17,13 +21,19 @@ ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   the lazy verb/noun composition; TDU segment operations;
                   training masks; positional terms
 engine/           the eval and train steps, the serving Predictor (FACT and
-                  VerbNounFACT), the optimizer and a minimal training loop
-utils/           the FACT and verb/noun exporter (its own copy) and the
-                  bridge: JAX parameters (numpy) -> this package's state_dict
+                  VerbNounFACT), the optimizer, the training loop (run_train,
+                  evaluate), experiment setup, checkpoints with resume, logging
+utils/            the FACT and verb/noun exporter (its own copy), the bridge
+                  (JAX parameters (numpy) -> this package's state_dict), and
+                  segments, metrics and the results Checkpoint
+train.py          python -m fact_clip_tpu_torch.train --cfg <yaml> [--device cpu] --set k v ...
+run_eval.py       python -m fact_clip_tpu_torch.run_eval --cfg <yaml> --ckpt <file> [--device cpu]
 csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 
-Everything runs in float32.  Importing this package imports neither JAX nor
-the JAX package and builds nothing.
+The entry points run on the CUDA card and refuse to start without one
+unless given the CPU (``device="cpu"``, ``--device cpu``).  Everything runs
+in float32.  Importing this package imports neither JAX nor the JAX package
+nor PyYAML, and builds nothing.
 """
 
 from .ops import compose_decode, dilated_conv, frame_loss, mha_attn, quant_conv, sa_layer, x2y_attn

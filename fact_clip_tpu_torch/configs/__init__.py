@@ -1,10 +1,13 @@
-"""Model and training configuration without YAML.
+"""Model and training configuration.
 
-Counterpart of ``fact_clip_tpu/configs/default.py`` (the optimizer keys and
-the FACT, Bi, Bu, BU, Loss, TM and TPU sections),
-``fact_clip_tpu/models/blocks.py:40-143`` (BlockCfg and the Bi -> Bu -> BU
-inheritance) and ``__graft_entry__._make_cfg``.  A config is a plain nested
-dict; ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
+Counterpart of ``fact_clip_tpu/configs/`` (``default.py``: the default
+tree; ``node.py``: ``CfgNode``; ``utils.py``: ``setup_cfg`` and the
+experiment name; the YAML files are read as data by ``yaml_lite``, the
+port's own reader), ``fact_clip_tpu/models/blocks.py:40-143`` (BlockCfg
+and the Bi -> Bu -> BU inheritance) and ``__graft_entry__._make_cfg``.
+``resolve_block_cfgs`` and ``build_fact`` take a ``CfgNode`` tree from
+``setup_cfg`` or a plain nested dict; ``default_cfg()`` is the default
+tree as a plain dict, ``flagship_cfg()`` is the repository's flagship (HAViD-scale, ``iuUU``),
 ``small_cfg()`` its narrow test twin and ``train_cfg()`` the flagship as the
 port trains it; ``breakfast_cfg()`` mirrors ``fact_clip_tpu/configs/
 breakfast.yaml`` (MS-TCN++ towers, 512 wide) and ``breakfast_train_cfg()``
@@ -30,6 +33,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+
+from .default import get_cfg_defaults
+from .node import CfgNode, _to_plain_dict
+from .utils import cfg2flatdict, setup_cfg, update_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,29 +64,9 @@ class BlockCfg:
     dtype: str = ""
 
 
-_BLOCK_KEYS = ("hid_dim", "dropout", "a", "a_nhead", "a_ffdim", "a_layers", "a_dim",
-               "f", "f_layers", "f_ln", "f_dim", "f_ngp")
-
-
 def default_cfg() -> dict:
-    """The defaults of the JAX config tree's model sections."""
-    inherit = dict.fromkeys(_BLOCK_KEYS)
-    return {
-        "FACT": {"ntoken": 30, "block": "iuUU", "trans": False, "fpos": True, "cmr": 0.3,
-                 "mwt": 0.1},
-        "Bi": {"hid_dim": 512, "dropout": 0.5, "a": "sca", "a_nhead": 8, "a_ffdim": 2048,
-               "a_layers": 6, "a_dim": 512, "f": "cnn", "f_layers": 10, "f_ln": True,
-               "f_dim": 512, "f_ngp": 4},
-        "Bu": {**inherit, "a": "sa", "a_layers": 1, "f_layers": 5},
-        "BU": {**inherit, "a": "sa", "a_layers": 1, "f_layers": 5, "s_layers": 1},
-        "TPU": {"pallas": True, "pallas_attn": True, "pallas_sa": True,
-                "compute_dtype": "float32", "quantize_infer": "", "matcher": "auto"},
-        "Loss": {"pc": 1.0, "a2fc": 1.0, "match": "o2o", "bgw": 1.0, "nullw": -1.0,
-                 "sw": 0.0, "ref_weight_order": False},
-        "TM": {"use": False, "t": 30, "p": 0.05, "m": 5, "inplace": True},
-        "optimizer": "SGD", "lr": 0.1, "lr_decay": -1, "momentum": 0.009,
-        "weight_decay": 0.0, "clip_grad_norm": 10.0,
-    }
+    """The JAX config tree's defaults (``configs/default.py``) as a plain dict."""
+    return _to_plain_dict(get_cfg_defaults())
 
 
 def flagship_cfg() -> dict:

@@ -1,31 +1,17 @@
 """Serving: bucketed, padded batches of variable-length videos.
 
 Counterpart of ``fact_clip_tpu/engine/export.py:189-260``
-(``ServingModel.predict``) with the bucket ladder of
-``fact_clip_tpu/data/batching.py:25-43``.  The port keeps its own copy of
-the ladder so that serving imports nothing of the JAX package; a test holds
-the two equal.
+(``ServingModel.predict``), on the bucket ladder of the port's
+``data/batching.py::make_bucket_lengths``.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
+from ..data.batching import make_bucket_lengths
 from .steps import make_eval_step
-
-
-def bucket_lengths(max_len: int, multiple: int = 128, growth: float = 1.26) -> list:
-    """Geometric ladder of padded lengths, each a multiple of ``multiple``."""
-    buckets = []
-    cur = multiple
-    while cur < max_len:
-        buckets.append(cur)
-        cur = max(int(math.ceil(cur * growth / multiple)) * multiple, cur + multiple)
-    buckets.append(int(math.ceil(max_len / multiple)) * multiple)
-    return buckets
 
 
 class Predictor:
@@ -39,7 +25,7 @@ class Predictor:
         self.model = model
         self.step = make_eval_step(model, mwt)
         self.batch_size = batch_size
-        self.buckets = bucket_lengths(max_len, bucket_multiple, bucket_growth)
+        self.buckets = make_bucket_lengths(max_len, bucket_multiple, bucket_growth)
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
 

@@ -1,22 +1,43 @@
-"""A minimal training loop: numpy batches to the card, one train step each.
+"""The training and evaluation loops (the port's counterpart of
+``fact_clip_tpu/engine/train_loop.py``).
 
-The start of a counterpart of ``fact_clip_tpu/engine/train_loop.py``
-(``run_train``): batches arrive in the numpy layout of
-``fact_clip_tpu/data/batching.py::Batch.device_arrays`` (a loader that
-imports no JAX), are copied to the train step's device and stepped.
+``run_train`` follows the JAX loop: ``args.json``, the epoch loop over a
+shuffled ``TrainLoader(seed=aux.seed)`` with a thread prefetcher, train
+metrics every ``print_every`` steps, a test pass (``evaluate``) with its
+results checkpoint ``saves/<N>.gz`` and the weights ``ckpts/network.iter-<N>.net``
+(and the optimizer sidecar) every ``eval_every`` steps, the best test pass by
+F1@0.50 in ``best_ckpt.gz``, and FINISH_PROOF.  Channel and time masking and
+dropout of step ``g`` draw from a generator seeded by ``(aux.seed, g)``
+(``step_generator``), so a resumed run draws at step ``g`` what an unbroken
+run drew there.  One process drives one device: the JAX loop's mesh and
+multi-process branches, and its profiler hook, raise when a config asks for
+them.  A resumed run starts its epoch from the loader's first shuffle, as
+the JAX loop's does (ROADMAP Queue 3).
+
+``run_steps`` steps numpy batches in the ``Batch.device_arrays`` layout;
 ``synthetic_batch`` makes a seeded batch in that layout, ``epic_batch``
 one of long verb/noun videos, and ``synthetic_set_stats`` the dataset
 statistics a config's ``nullw = -1`` is resolved from
-(``models/losses.py::compute_null_weight``).  Checkpoints,
-evaluation, logging and the command line are not ported yet.
+(``models/losses.py::compute_null_weight``).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 import types
 
 import numpy as np
 import torch
+
+from ..configs.utils import cfg2flatdict
+from ..data.prefetch import prefetch
+from ..utils.results import Checkpoint, save_results
+from . import checkpoint as ckpt_io
+from .logging import Logger, split_metric_namespace
+from .setup import Experiment, build_experiment, resolve_device
+from .steps import make_eval_step, make_train_step
 
 BATCH_KEYS = ("feats", "mask", "labels", "seg_label", "transcript", "seg_mask", "lengths")
 
@@ -124,3 +145,176 @@ def synthetic_set_stats(batches, nclasses: int):
     the class count."""
     counts = [int(n) for b in batches for n in np.asarray(b["seg_mask"]).sum(axis=1)]
     return types.SimpleNamespace(average_transcript_len=float(np.mean(counts)), nclasses=nclasses)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step ``step``'s masks and dropout: seeded by
+    (seed, step) alone, on ``device``."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
+
+
+def _collect_video_saves(batch, pred, per_video_loss=None) -> list:
+    """Slice a step's outputs back into per-video host dicts."""
+    pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
+    saves = []
+    for i in range(len(batch.vnames)):
+        data = {"pred": pred[i, : int(batch.lengths[i])]}
+        if per_video_loss is not None:
+            data["loss"] = {"loss": float(per_video_loss[i])}
+        saves.append(data)
+    return saves
+
+
+def evaluate(global_step, exp: Experiment, eval_step, logger, savedir) -> Checkpoint:
+    """Test pass -> metrics -> results checkpoint ``saves/<global_step + 1>.gz``."""
+    cfg = exp.cfg
+    test_ds = exp.test_dataset
+    device = next(exp.model.parameters()).device
+    print("TESTING" + "~" * 10)
+    ckpt = Checkpoint(
+        global_step + 1,
+        bg_class=([] if cfg.eval_bg else test_ds.bg_class),
+        holdout_classes=test_ds.holdout_classes,
+        seen_classes=test_ds.seen_classes,
+    )
+    for batch in prefetch(exp.test_loader(), cfg.TPU.prefetch):
+        arrays = batch_to_device(batch.device_arrays, device)
+        pred = eval_step(arrays["feats"], arrays["mask"], arrays["lengths"])
+        save_results(ckpt, batch.vnames, batch.eval_labels, _collect_video_saves(batch, pred))
+
+    ckpt.compute_metrics()
+    log_dict = split_metric_namespace(ckpt.metrics)
+    print(", ".join("%s:%.1f" % (k, v) for k, v in ckpt.metrics.items()) + "\n")
+    if len(test_ds.holdout_classes) > 0:
+        print("=" * 60)
+        print("HOLDOUT EVALUATION SUMMARY")
+        for key in ("Acc-seen", "Acc-unseen", "F1@0.50-seen", "F1@0.50-unseen"):
+            if key in ckpt.metrics:
+                print(f"{key}: {ckpt.metrics[key]:.1f}%")
+        print("=" * 60)
+
+    if logger is not None:
+        logger.log(log_dict, step=global_step + 1)
+    if savedir is not None:
+        ckpt.save(os.path.join(savedir, "%d.gz" % (global_step + 1)))
+        if len(test_ds.holdout_classes) > 0:
+            ckpt.save_detailed_results(
+                os.path.join(savedir, f"{global_step + 1}_detailed.json"))
+    return ckpt
+
+
+def check_loop_cfg(cfg) -> None:
+    """Refuse what the JAX loop does and this one has no path for
+    (``build_experiment`` refuses the models the port has no path for)."""
+    tpu = cfg.TPU
+    if tpu.num_data_shards > 1 or tpu.num_slice_shards > 1 or tpu.num_seq_shards > 1:
+        raise NotImplementedError(
+            "TPU.num_data_shards / num_slice_shards / num_seq_shards > 1: the port trains on "
+            "one device (multi-GPU is ROADMAP M13)")
+    if tpu.profile_dir:
+        raise NotImplementedError("TPU.profile_dir: the loop's profiler hook is not ported "
+                                  "(ROADMAP Queue 1 item 5); use fact_clip_tpu_torch.profile_eval")
+    if tpu.feature_dtype not in ("", "float32"):
+        raise NotImplementedError(f"TPU.feature_dtype {tpu.feature_dtype!r}: the port runs "
+                                  "float32 only (ROADMAP M7)")
+    if tpu.matmul_precision not in ("", "highest"):
+        raise NotImplementedError(f"TPU.matmul_precision {tpu.matmul_precision!r}: the port's "
+                                  "matmuls are float32")
+    ckpt_io.check_backend(tpu.checkpoint_backend)
+
+
+def run_train(cfg, device=None, base_dir=None):
+    """The full training run of ``cfg`` (``setup_cfg``'s tree) on ``device``:
+    the CUDA card when None (it raises without one); ``device="cpu"`` runs
+    the plain PyTorch path on the CPU.  Logs go to ``<base_dir>/<aux.logdir>``
+    (``base_dir``: the working directory when None).  Returns (the train
+    step, with its model and optimizer, and the best test checkpoint or
+    None); exits early when the run already finished (``resume: max``)."""
+    device = resolve_device(device)
+    check_loop_cfg(cfg)
+    base = base_dir or os.getcwd()
+    logdir = os.path.join(base, cfg.aux.logdir)
+    ckptdir = os.path.join(logdir, "ckpts")
+    savedir = os.path.join(logdir, "saves")
+
+    # the resume decision first: it exits early when FINISH_PROOF exists;
+    # then the experiment, which refuses an unported model before any file
+    # is written.  args.json holds the config as given (nullw -1 unresolved)
+    global_step, ckpt_file = ckpt_io.resume_ckpt(cfg, logdir)
+    args = cfg2flatdict(cfg)
+    exp = build_experiment(cfg, device, seed=cfg.aux.seed)
+
+    os.makedirs(ckptdir, exist_ok=True)
+    os.makedirs(savedir, exist_ok=True)
+    print("Saving log at", logdir)
+    with open(os.path.join(logdir, "args.json"), "w") as f:
+        json.dump(args, f, indent=True)
+
+    dataset, test_ds = exp.dataset, exp.test_dataset
+    print("Train dataset", dataset)
+    print("Test dataset ", test_ds)
+    print(f"Buckets {exp.buckets}, seg_cap {exp.seg_cap}, pred_seg_cap {exp.s_pred_cap}")
+    print(f"Model parameters: {sum(p.numel() for p in exp.model.parameters()):,}")
+
+    trainloader = exp.train_loader(seed=cfg.aux.seed)
+    steps_per_epoch = len(trainloader)
+    step = make_train_step(exp.model, cfg, dataset.nclasses, exp.cweight, steps_per_epoch)
+    if ckpt_file is not None:
+        ckpt_io.load_model(exp.model, ckpt_file)
+        if cfg.TPU.save_opt_state and ckpt_io.load_train_state(step.optimizer, ckpt_file):
+            print(f"Restored the optimizer state (step {step.optimizer.count})")
+    eval_step = make_eval_step(exp.model, cfg.FACT.mwt)
+    logger = Logger(logdir)
+
+    def fresh_train_ckpt():
+        return Checkpoint(-1, bg_class=(dataset.bg_class if cfg.eval_bg else []),
+                          eval_edit=False, holdout_classes=test_ds.holdout_classes,
+                          seen_classes=test_ds.seen_classes)
+
+    train_ckpt = fresh_train_ckpt()
+    best_ckpt, best_metric = None, 0.0
+    start_epoch = global_step // max(steps_per_epoch, 1)
+    print(f"Start Training from Epoch {start_epoch}...")
+    t_start = time.time()
+
+    for _ in range(start_epoch, cfg.epoch):
+        for batch in prefetch(trainloader, cfg.TPU.prefetch):
+            out = step(batch_to_device(batch.device_arrays, device),
+                       step_generator(cfg.aux.seed, global_step, device))
+            save_results(train_ckpt, batch.vnames, batch.eval_labels,
+                         _collect_video_saves(batch, out["pred"],
+                                              out["per_video_loss"].cpu().numpy()))
+
+            if (global_step + 1) % cfg.aux.print_every == 0:
+                train_ckpt.compute_metrics()
+                train_ckpt.average_losses()
+                log_dict = {f"train-loss/{k}": v for k, v in train_ckpt.loss.items()}
+                log_dict.update({"train-metric/" + k: v for k, v in train_ckpt.metrics.items()})
+                loss_str = ", ".join(f"{k}:{v:.2f}" for k, v in train_ckpt.loss.items())
+                metr_str = ", ".join(f"{k}:{v:.3f}" for k, v in train_ckpt.metrics.items())
+                print(f"Iter{global_step + 1} [{time.time() - t_start:.0f}s], {loss_str}")
+                print(" " * 6 + metr_str)
+                logger.log(log_dict, step=global_step + 1)
+                train_ckpt = fresh_train_ckpt()
+
+            if global_step != 0 and (global_step + 1) % cfg.aux.eval_every == 0:
+                test_ckpt = evaluate(global_step, exp, eval_step, logger, savedir)
+                if test_ckpt.metrics["F1@0.50"] >= best_metric:
+                    best_ckpt = test_ckpt
+                    best_metric = test_ckpt.metrics["F1@0.50"]
+                ckpt_io.save_model(exp.model, ckptdir, global_step + 1)
+                if cfg.TPU.save_opt_state:
+                    ckpt_io.save_train_state(step.optimizer, ckptdir, global_step + 1)
+            global_step += 1
+
+    if best_ckpt is not None:
+        print(f"Best Checkpoint: {best_ckpt.iteration}")
+        best_ckpt.eval_edit = True
+        best_ckpt.compute_metrics()
+        best_ckpt.save(os.path.join(logdir, "best_ckpt.gz"))
+    else:
+        print("No evaluation performed during training (best checkpoint not available)")
+    logger.finish()
+    ckpt_io.write_finish_proof(logdir)
+    return step, best_ckpt

@@ -25,24 +25,11 @@ import torch
 from torch import nn
 
 from ..configs import BlockCfg, resolve_block_cfgs
+from ..data.io import load_action_mapping
 from ..ops import segments
 from ..ops.verbnoun_compose import composed_argmax
 from . import layers as L
 from .blocks import FACT, _apply_abranch, augment, make_abranch, make_fbranch, make_x2y
-
-
-def load_action_mapping(map_fname: str, sep: str = " "):
-    """``mapping.txt`` -> (label2index, index2label) (the port's copy of
-    ``fact_clip_tpu/data/io.py::load_action_mapping``)."""
-    label2index, index2label = {}, {}
-    with open(map_fname, "r") as f:
-        for line in f.read().split("\n")[:-1]:
-            tokens = line.split(sep)
-            label = sep.join(tokens[1:])
-            idx = int(tokens[0])
-            label2index[label] = idx
-            index2label[idx] = label
-    return label2index, index2label
 
 
 def load_vids_nids(processed_dir: str):

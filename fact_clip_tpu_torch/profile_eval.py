@@ -51,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 from .configs import (breakfast_cfg, breakfast_int8_cfg, breakfast_train_cfg, egoprocel_cfg,
                       egoprocel_train_cfg, epic_cfg, epic_int8_cfg, epic_train_cfg, epic_vocab,
                       flagship_cfg, flagship_int8_cfg, train_cfg)
+from .engine.setup import resolve_device
 from .engine.steps import make_eval_step, make_train_step
 from .engine.train_loop import batch_to_device, epic_batch, synthetic_batch, synthetic_set_stats
 from .models.blocks import build_fact
@@ -141,11 +142,7 @@ def main():
     ap.add_argument("--trace", default="", help="directory for chrome traces")
     ap.add_argument("--top", type=int, default=25)
     a = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_eval needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = resolve_device(None)  # the card, TF32 off
     model, step, args = (train_step_args if a.train else eval_step_args)(a.cfg, dev)
     B, T = args[0]["feats"].shape[:2] if a.train else args[0].shape[:2]
     kind = "train" if a.train else "eval"

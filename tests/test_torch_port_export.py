@@ -89,7 +89,19 @@ lens = torch.tensor([40, 29], dtype=torch.int32)
 with torch.no_grad():
     saves, _ = bf(torch.randn(2, 40, 12), torch.arange(40)[None] < lens[:, None], lens)
 assert len(saves) == 4 and bool(torch.isfinite(saves[-1]["frame_clogit"]).all())
-bad = [m for m in sys.modules if m in ("jax", "flax") or m.split(".")[0] == "fact_clip_tpu"]
+# the training loop, its entry points and everything they import
+import fact_clip_tpu_torch.run_eval, fact_clip_tpu_torch.train  # noqa: E401
+import fact_clip_tpu_torch.data.synthetic, fact_clip_tpu_torch.utils.reduce  # noqa: E401
+from fact_clip_tpu_torch.configs import setup_cfg
+for mod in ("configs.yaml_lite", "configs.node", "configs.default", "configs.utils", "home",
+            "utils.segments", "utils.metrics", "utils.results", "data.io", "data.dataset",
+            "data.batching", "data.prefetch", "engine.checkpoint", "engine.logging",
+            "engine.setup", "engine.train_loop"):
+    assert "fact_clip_tpu_torch." + mod in sys.modules, mod
+cfg = setup_cfg([sys.argv[2] + "/fact_clip_tpu/configs/havid_tpu.yaml"], ["lr", "0.001"])
+assert cfg.TPU.compute_dtype == "bfloat16" and cfg.TPU.matcher == "auction" and cfg.lr == 0.001
+bad = [m for m in sys.modules
+       if m in ("jax", "flax", "yaml") or m.split(".")[0] in ("fact_clip_tpu", "jax", "flax", "yaml")]
 assert not bad, bad
 print("GUARD_OK")
 """
@@ -101,7 +113,7 @@ def test_bridge_loads_numpy_params_without_the_jax_package(tmp_path):
     with open(path, "wb") as f:
         pickle.dump(params, f)
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _GUARD, str(path)], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", _GUARD, str(path), REPO], capture_output=True,
                           text=True, env=env, cwd=str(tmp_path), timeout=120)
     assert proc.returncode == 0 and "GUARD_OK" in proc.stdout, proc.stderr[-2000:]
 

@@ -17,9 +17,10 @@ import pytest
 import torch
 
 import fact_clip_tpu_torch
-from fact_clip_tpu.data.batching import make_bucket_lengths
+from fact_clip_tpu.data.batching import make_bucket_lengths as jax_bucket_lengths
 from fact_clip_tpu_torch.configs import small_cfg
-from fact_clip_tpu_torch.engine.serve import Predictor, bucket_lengths
+from fact_clip_tpu_torch.data.batching import make_bucket_lengths
+from fact_clip_tpu_torch.engine.serve import Predictor
 from fact_clip_tpu_torch.engine.steps import make_eval_step
 from fact_clip_tpu_torch.models.blocks import build_fact
 
@@ -52,8 +53,8 @@ def test_predict_equals_unbatched_eval(batch_size):
 
 @pytest.mark.parametrize("max_len", [100, 128, 3000, 3072, 24576])
 def test_bucket_ladder_is_the_jax_packages(max_len):
-    assert bucket_lengths(max_len) == make_bucket_lengths(max_len)
-    assert bucket_lengths(max_len, 64, 1.5) == make_bucket_lengths(max_len, 64, 1.5)
+    assert make_bucket_lengths(max_len) == jax_bucket_lengths(max_len)
+    assert make_bucket_lengths(max_len, 64, 1.5) == jax_bucket_lengths(max_len, 64, 1.5)
 
 
 def test_predict_rejects_too_long_requests():
