@@ -23,7 +23,10 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    backwards (from the same forward saves and masks; K3's and K4's SA
    backward hashing the masks from the seed, as training runs them, and
    bit-equal to the same kernels fed the masks: K3 at the flagship's,
-   Breakfast's and EgoProceL's shapes) and K5.  For every
+   Breakfast's and EgoProceL's shapes) and K5; FACT_CLIP's shapes (phase
+   16: K6, K3 at E=512 and M=40 and at M=75, K4 at E=512, M=40 and at
+   M=75, K2's flash form at 75 queries, its backward in two launches of
+   64 and 11 query rows as training runs it).  For every
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
@@ -267,7 +270,35 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    each test pass's wall time and peak memory beside the nvidia-smi line.
    The run's log directory (under the checkout's log/) and the set are
    removed at the end.
-16. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+16. FACT_CLIP, the open-vocabulary model (ROADMAP M10), on seeded random
+   unit text embeddings (75 x 512) written to a temporary ``.pt`` cache and
+   read back through ``load_text_embeddings``.  (a) ``openvocab_cfg()``
+   (``openvocab_havid_view0_lh_pt.yaml`` uncut: ``iuUU``, 40 tokens, ``f:
+   m2`` 512 wide, a 6-layer 8-head SCA at 512, projection hidden 1024,
+   D=2048, 75 classes) serves phase 4's requests and one full 8 x 3072 batch
+   through ``Predictor`` with the clip bundle (the zero-shot decode): K6 4
+   and K3 6 launches per batch (K3 where the bucket has >= 1,024 frames),
+   K2 and K4 launched, nothing of K1, K5, K7, K8 or any backward; then the
+   eval step on both paths (block-0 logits within LOGIT_TOL, the CLIP
+   probabilities within PROB_TOL, >= MIN_AGREE of the predictions equal)
+   with peak memory.  (b) ``openvocab_train_cfg()`` (classes 51, 53, 61,
+   67, 56 held out; nullw resolved from the batches) takes 1 + 3 Adam steps
+   on 2 x 3072 batches: K6 forward and backward 4 a step, K3 6, K2, K4 and
+   K5 launched, no mask kernel, ``contrastive_loss`` finite and > 0; the
+   warm step of each path split with peak memory; ``train_compare`` seeds
+   1-3 with the bundle (dropout, masking and the projection's dropout off):
+   loss within 1e-4, every gradient, ``frame_projection.*`` included.  (c)
+   phase 15's set with HAViD-coded label names (its seed 0 leaves 7 of 16
+   training videos without a held-out class; every test video holds one):
+   ``fact_clip_tpu_torch.train.main(["--cfg", havid_view0_lh_pt_holdout.yaml,
+   "--set", the set's paths, CLIP.text_emb_path, epoch 1, aux.eval_every
+   2])`` (the CLI's entry, in this process) trains 4 steps of batch 2 on K1
+   towers with test passes at 2 and 4: the metrics hold Acc-seen and
+   Acc-unseen, saves/4_detailed.json is written, metrics.jsonl logs
+   fact_loss and contrastive_loss; then ``python3 -m
+   fact_clip_tpu_torch.run_eval --ckpt .../network.iter-4.net`` gives
+   metrics and predictions equal to saves/4.gz's.
+17. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
    from phase 11b's predicts (0 on every other path), the single-layer K1's
    and K1's mask kernel's from phase 12 (the tower re-hashes its masks
@@ -681,7 +712,9 @@ def x2y_bwd_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
     n_bytes = (nbytes(args, probs, attn if flash else None, g_attn, g_probs, g_logits)
                + nbytes(args[:10]))
     if flash:  # the projection's recompute, dx and the weight products as three TF32 passes
-        kern = lambda: xa.x2y_flash_bwd(*args, probs, attn, g_attn, g_probs, g_logits)  # noqa: E731
+        # (past 64 query rows, as training runs it: on 64 rows at a time, joined)
+        kern = lambda: xa._flash_bwd_rows(*args, probs, attn, g_attn, g_probs,  # noqa: E731
+                                          g_logits, need_xpos_grad=True)
         work = (8 * Y * d * Xv + 6 * B * Y * Cy * d, n_bytes, 0, 12 * Cx * d * Xv)
     else:
         kern = lambda: xa.x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits)  # noqa: E731
@@ -1622,6 +1655,7 @@ def kernel_table():
     bf_len, bf_rag = BF_TRAIN_LENGTHS, [600, 517, 90]  # Breakfast: 4 x 4096; d = 512 > 90
     ET, epic_voc, rag_voc, vn_rag = EPIC_T, (98, 301, 3806), (13, 29, 97), [1000, 777, 129]
     E = 256  # epic's a_dim: the token decoders' width (the stream is 512 wide)
+    ov_len = [3072, 2950]  # phase 16's first training batch (FACT_CLIP)
     csrc = "fact_clip_tpu_torch/csrc/"
     pallas = "fact_clip_tpu/ops/pallas/"
     return [
@@ -1666,7 +1700,10 @@ def kernel_table():
                                            _rand(r, (1, 37, D)), _rand(r, (1, 2048, D)))),
           # Breakfast's u-block X2Y: 60 tokens over 4 x 4096 frames, d = 512
           ("breakfast", lambda r: x2y_fwd_case(r, True, 4, 60, 4096, D, D, D, bf_len,
-                                               _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
+                                               _rand(r, (1, 60, D)), zeros(1, 4096, D))),
+          # the holdout recipes' f2a (FACT_CLIP, phase 16): 75 tokens over 2 x 3072
+          ("holdout", lambda r: x2y_fwd_case(r, True, 2, 75, T, D, D, D, ov_len,
+                                             _rand(r, (1, 75, 256)), zeros(1, T, D)))]),
         ("mha_cross", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
@@ -1682,7 +1719,10 @@ def kernel_table():
           ("m200_drop", lambda r: mha_fwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
                                                zeros(1, 4096, D), 0.2)),
           ("xlen0", lambda r: mha_fwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
-                                           _rand(r, (1, 1100, D)), 0.2))]),
+                                           _rand(r, (1, 1100, D)), 0.2)),
+          # the holdout recipes' SCA (FACT_CLIP, phase 16): 75 tokens, dropout 0.2
+          ("holdout", lambda r: mha_fwd_case(r, 2, 75, T, 256, D, 8, ov_len, zeros(1, T, D),
+                                             0.2))]),
         ("sa_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "rel",
          [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
           ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
@@ -1692,7 +1732,12 @@ def kernel_table():
           ("epic_b3", lambda r: sa_fwd_case(r, 3, 300, E, 8)),
           ("epic_drop", lambda r: sa_fwd_case(r, 1, 300, E, 8, 0.2)),
           # egoprocel's token decoders: 200 tokens, batch 2
-          ("ego", lambda r: sa_fwd_case(r, 2, 200, E, 8))]),
+          ("ego", lambda r: sa_fwd_case(r, 2, 200, E, 8)),
+          # FACT_CLIP (phase 16): openvocab's E=512, M=40 served (B=8) and
+          # trained (B=2); the holdout recipes' M=75, E=256, dropout 0.2
+          ("openvocab", lambda r: sa_fwd_case(r, B, 40, D, 8)),
+          ("ov_train", lambda r: sa_fwd_case(r, 2, 40, D, 8)),
+          ("holdout", lambda r: sa_fwd_case(r, 2, 75, 256, 8, 0.2))]),
         ("ffn_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "rel",
          [("flagship", lambda r: ffn_fwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_fwd_case(r, 3, 37, 256, 512)),
@@ -1703,6 +1748,10 @@ def kernel_table():
           # egoprocel's B=2, M=200 and Breakfast's B=8, M=60, E=512 (a_ffdim 512 both)
           ("ego", lambda r: ffn_fwd_case(r, 2, 200, E, 512)),
           ("breakfast", lambda r: ffn_fwd_case(r, 8, 60, D, 512)),
+          # FACT_CLIP (phase 16), as the SA cases
+          ("openvocab", lambda r: ffn_fwd_case(r, B, 40, D, 512)),
+          ("ov_train", lambda r: ffn_fwd_case(r, 2, 40, D, 512)),
+          ("holdout", lambda r: ffn_fwd_case(r, 2, 75, 256, 512, 0.2)),
           # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
           ("e42", lambda r: ffn_fwd_case(r, 2, 37, 42, 84, 0.2)),
           ("f2304", lambda r: ffn_fwd_case(r, 1, 64, 64, 2304))]),
@@ -1750,6 +1799,9 @@ def kernel_table():
           # Breakfast's u-block X2Y: 60 tokens over 4 x 4096 frames, d = 512
           ("breakfast", lambda r: x2y_bwd_case(r, True, 4, 60, 4096, D, D, D, bf_len,
                                                _rand(r, (1, 60, D)), zeros(1, 4096, D))),
+          # the holdout recipes' 75 tokens: two launches, on 64 and 11 query rows
+          ("holdout", lambda r: x2y_bwd_case(r, True, 2, 75, T, D, D, D, ov_len,
+                                             _rand(r, (1, 75, 256)), zeros(1, T, D))),
           ("xlen0", lambda r: x2y_bwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
                                            _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
         # hashed: the training path's form, held bit for bit against the
@@ -1764,7 +1816,9 @@ def kernel_table():
           ("m200", lambda r: mha_bwd_case(r, 1, 200, 4096, 256, D, 8, [4096],
                                           zeros(1, 4096, D), hashed=True)),
           ("xlen0", lambda r: mha_bwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
-                                           _rand(r, (1, 1100, D))))]),
+                                           _rand(r, (1, 1100, D)))),
+          ("holdout", lambda r: mha_bwd_case(r, 2, 75, T, 256, D, 8, ov_len, zeros(1, T, D),
+                                             hashed=True))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
          [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8, hashed=True)),
           ("flag_masks", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
@@ -1779,6 +1833,10 @@ def kernel_table():
           ("m200_hash", lambda r: sa_bwd_case(r, 2, 200, E, 8, hashed=True)),
           # Breakfast's token decoders: B=4, M=60, E=512, H=8 (hd = 64), dropout 0.2
           ("breakfast", lambda r: sa_bwd_case(r, 4, 60, D, 8, hashed=True)),
+          # FACT_CLIP (phase 16): openvocab's training (E=512, M=40, B=2, no
+          # dropout) and the holdout recipes' (M=75, E=256, dropout 0.2)
+          ("ov_train", lambda r: sa_bwd_case(r, 2, 40, D, 8, 0.0)),
+          ("holdout", lambda r: sa_bwd_case(r, 2, 75, 256, 8, hashed=True)),
           # small_cfg()'s (phase 14): 8 tokens, E=16, H=4 (hd = 4; E below a K step)
           ("small", lambda r: sa_bwd_case(r, 2, 8, 16, 4, hashed=True))]),
         ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
@@ -1791,6 +1849,9 @@ def kernel_table():
           # egoprocel's B=1, M=200 and Breakfast's B=4, M=60, E=512 (a_ffdim 512 both)
           ("ego", lambda r: ffn_bwd_case(r, 1, 200, E, 512, 0.0)),
           ("breakfast", lambda r: ffn_bwd_case(r, 4, 60, D, 512, 0.0)),
+          # FACT_CLIP (phase 16), as the SA cases
+          ("ov_train", lambda r: ffn_bwd_case(r, 2, 40, D, 512, 0.0)),
+          ("holdout", lambda r: ffn_bwd_case(r, 2, 75, 256, 512, hashed=True)),
           # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
           ("e42", lambda r: ffn_bwd_case(r, 2, 37, 42, 84)),
           ("f2304", lambda r: ffn_bwd_case(r, 1, 64, 64, 2304, 0.0))]),
@@ -1819,24 +1880,32 @@ def kernel_table():
           ("epic", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET])),
           ("epic_train", lambda r: k6_fwd_case(r, 1, ET, 256, D, 10, [ET], 0.0, True)),
           ("c24", lambda r: k6_fwd_case(r, 3, 600, 24, 32, 10, bf_rag)),
-          ("c24_train", lambda r: k6_fwd_case(r, 3, 600, 24, 32, 10, bf_rag, 0.2, True))]),
+          ("c24_train", lambda r: k6_fwd_case(r, 3, 600, 24, 32, 10, bf_rag, 0.2, True)),
+          # FACT_CLIP's openvocab (phase 16): 8 x 3072 served, 512 wide
+          ("openvocab", lambda r: k6_fwd_case(r, B, T, D, D, 10, FLAGSHIP_LENGTHS))]),
         ("mstcn2_stack_bwd", csrc + "mstcn2.cu", pallas + "dilated_conv.py:1268", "rel",
          [("breakfast", lambda r: k6_bwd_case(r, 4, 4096, D, D, 10, bf_len)),
           ("ragged", lambda r: k6_bwd_case(r, 3, 600, D, D, 10, bf_rag)),
           ("epic", lambda r: k6_bwd_case(r, 1, ET, 256, D, 10, [ET], 0.0)),
-          ("c24", lambda r: k6_bwd_case(r, 3, 600, 24, 32, 10, bf_rag))]),
+          ("c24", lambda r: k6_bwd_case(r, 3, 600, 24, 32, 10, bf_rag)),
+          ("ov_train", lambda r: k6_bwd_case(r, 2, T, D, D, 10, ov_len, 0.0))]),
         ("mha_cross_e512", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("breakfast", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                                zeros(1, 4096, D))),
           ("bf_drop", lambda r: mha_fwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                              zeros(1, 4096, D), 0.2)),
           ("ragged", lambda r: mha_fwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
-                                            _rand(r, (1, 1100, D)), 0.2))]),
+                                            _rand(r, (1, 1100, D)), 0.2)),
+          # FACT_CLIP's openvocab (phase 16): 40 tokens over 8 x 3072 frames
+          ("openvocab", lambda r: mha_fwd_case(r, B, 40, T, D, D, 8, FLAGSHIP_LENGTHS,
+                                               zeros(1, T, D)))]),
         ("mha_cross_bwd_e512", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
          [("breakfast", lambda r: mha_bwd_case(r, 4, 60, 4096, D, D, 8, bf_len,
                                                zeros(1, 4096, D), hashed=True)),
           ("ragged", lambda r: mha_bwd_case(r, 3, 60, 1100, D, D, 8, [1100, 901, 517],
-                                            _rand(r, (1, 1100, D))))]),
+                                            _rand(r, (1, 1100, D)))),
+          ("ov_train", lambda r: mha_bwd_case(r, 2, 40, T, D, D, 8, ov_len, zeros(1, T, D),
+                                              0.0))]),
         # epic (the verb/noun model): K7
         ("compose_argmax", csrc + "compose_decode.cu", pallas + "compose_decode.py:150", "argmax",
          [("epic", lambda r: k7a_case(r, 1, ET, epic_voc, [ET])),
@@ -2283,9 +2352,12 @@ def phase_serving(seed: int = 0):
     return counts
 
 
-def eval_paths(tag, model, cfg, rng, lengths, T, D):
+def eval_paths(tag, model, cfg, rng, lengths, T, D, clip_bundle=None):
     """The warm eval step alone on one full batch, on the kernel and on the
-    plain path, and the two paths against each other."""
+    plain path, and the two paths against each other.  With a clip bundle
+    (FACT_CLIP) the step decodes against its text embeddings, and the
+    paths' CLIP probabilities (the softmax of the frames' similarities to
+    every class) are held within PROB_TOL too."""
     import torch
 
     from fact_clip_tpu_torch.engine.steps import make_eval_step
@@ -2299,7 +2371,7 @@ def eval_paths(tag, model, cfg, rng, lengths, T, D):
     x = torch.from_numpy(bfeats).to(dev)
     mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
     lens = torch.from_numpy(blen).to(dev)
-    step = make_eval_step(model, cfg["FACT"]["mwt"])
+    step = make_eval_step(model, cfg["FACT"]["mwt"], clip_bundle)
 
     def warm_ms(n=6):
         times = []
@@ -2321,19 +2393,28 @@ def eval_paths(tag, model, cfg, rng, lengths, T, D):
 
     # kernel path against the plain path (TPU.pallas=False counterpart) on one batch
     with torch.inference_mode():
-        saves_k, _ = model(x, mask, lens)
+        saves_k, tail_k = model(x, mask, lens)
         model.set_kernels(False)
-        saves_p, _ = model(x, mask, lens)
+        saves_p, tail_p = model(x, mask, lens)
     p_plain, times = warm_ms()
     model.set_kernels(True)
     log(f"[{tag}] eval step {B} x {T} warm ms, plain path: {summary(times)}")
     valid = mask
     fl_err = float((saves_k[0]["frame_clogit"] - saves_p[0]["frame_clogit"]).abs()[valid].max())
     agree = float((p_kernel == p_plain)[valid].float().mean())
+    clip_ok, clip_text = True, ""
+    if clip_bundle is not None:
+        def clip_probs(emb):
+            return torch.softmax(emb @ clip_bundle["text_emb"].t() / clip_bundle["temp"], -1)
+
+        with torch.inference_mode():
+            p_err = float((clip_probs(tail_k) - clip_probs(tail_p)).abs()[valid].max())
+        clip_ok = p_err <= PROB_TOL
+        clip_text = f"; CLIP probabilities max_abs_err {p_err:.3e} (tol {PROB_TOL:g})"
     log(f"[{tag}] kernel vs plain path: block-0 frame logits max_abs_err {fl_err:.3e} "
-        f"(tol {LOGIT_TOL:g}); final predictions agree on {agree:.5f} of valid frames "
-        f"(min {MIN_AGREE})")
-    if not (fl_err <= LOGIT_TOL and agree >= MIN_AGREE):
+        f"(tol {LOGIT_TOL:g}){clip_text}; final predictions agree on {agree:.5f} of valid "
+        f"frames (min {MIN_AGREE})")
+    if not (fl_err <= LOGIT_TOL and agree >= MIN_AGREE and clip_ok):
         raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
 
 
@@ -2712,7 +2793,7 @@ def _matching_gaps(sk, sp, ck, cp, nsegs):
     return out
 
 
-def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
+def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_bundle=None):
     """One train loss and every gradient of the kernel path against the plain
     path on the same batch, for the weights ``build(seed)`` makes for each
     of ``seeds`` (``cfg0`` has dropout and masking off).
@@ -2737,7 +2818,9 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
     fails and every FFN ReLU that the paths put on opposite sides is a
     proven tie (``FfnRelus``), the kernel path is held to the same limits
     against the plain path replayed with those ReLUs on its side; one flip
-    that is not proven fails the seed."""
+    that is not proven fails the seed.  With a clip bundle (FACT_CLIP) the
+    loss adds the contrastive term and the gradients include the frame
+    projection's."""
     import contextlib
 
     import torch
@@ -2752,7 +2835,7 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds):
     calm, tie_offsets = [], {}  # flip-free calls' offsets (first two seeds); each seed's ties'
     for seed in seeds:
         ref = build(seed)
-        step0 = make_train_step(ref, cfg0, nclasses, cweight)
+        step0 = make_train_step(ref, cfg0, nclasses, cweight, clip_bundle=clip_bundle)
         seg = SharedSegmentation(batch["mask"]) if step0.verbnoun else None
         nudge = torch.randn(batch["feats"].shape, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed))
@@ -3987,11 +4070,11 @@ class _LoopSpies:
 
 
 @contextlib.contextmanager
-def _loop_run(prefix):
-    """The HAViD-shaped set (``LOOP_DATA``) written into a temporary
-    directory; yields (its directory, ``cfg_of``).  ``cfg_of(epoch, *sets)``
-    gives (config, its ``--set`` list, log directory) of a havid.yaml run on
-    the set with ``LOOP_SETS`` and ``sets``, the log directory (under the
+def _loop_run(prefix, data=LOOP_DATA, yaml_path=HAVID_YAML, loop_sets=LOOP_SETS):
+    """The HAViD-shaped set (``data``) written into a temporary directory;
+    yields (its directory, ``cfg_of``).  ``cfg_of(epoch, *sets)`` gives
+    (config, its ``--set`` list, log directory) of a ``yaml_path`` run on the
+    set with ``loop_sets`` and ``sets``, the log directory (under the
     checkout, as the CLIs put it) cleared of an earlier run's leftovers.  The
     set and every log directory go on exit."""
     import shutil
@@ -4002,13 +4085,13 @@ def _loop_run(prefix):
 
     tmp, logdirs = tempfile.mkdtemp(prefix=prefix), []
     try:
-        base = make_fixture_dataset(tmp, **LOOP_DATA)
+        base = make_fixture_dataset(tmp, **data)
         paths = ["feature_path", base + "/features", "groundTruth_path", base + "/groundTruth",
                  "map_fname", base + "/mapping.txt", "split_path", base + "/splits"]
 
         def cfg_of(epoch, *sets):
-            sets = paths + LOOP_SETS + ["epoch", str(epoch), *sets]
-            cfg = setup_cfg([os.path.join(REPO, HAVID_YAML)], sets)
+            sets = paths + list(loop_sets) + ["epoch", str(epoch), *sets]
+            cfg = setup_cfg([os.path.join(REPO, yaml_path)], sets)
             logdir = os.path.join(REPO, cfg.aux.logdir)
             if logdir not in logdirs:
                 logdirs.append(logdir)
@@ -4164,6 +4247,275 @@ def phase_loop(smi):
         f"{', '.join(f'{t:.1f}' for t in evals)} ms; peak memory {peak:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: FACT_CLIP, the open-vocabulary model, and its zero-shot holdout workflow
+
+OV_DIMS = (2048, 75, 128, 512)  # D (I3D features), classes, s_pred_cap, text-embedding width
+HOLDOUT_YAML = os.path.join("fact_clip_tpu", "configs", "havid_view0_lh_pt_holdout.yaml")
+
+
+def havid_codes(n: int) -> list:
+    """``n`` class names in HAViD's code book: "null", then verb + object
+    (+ target object) codes from the port's prompt tables, in order."""
+    from fact_clip_tpu_torch.data.text_prompts import OBJECTS_MAP, VERB_MAP
+
+    verbs, objects = sorted(k for k in VERB_MAP if len(k) == 1), sorted(OBJECTS_MAP)
+    codes = ["null"] + [v + o for o in objects for v in verbs]
+    codes += [v + o + t for v in verbs for o in objects for t in objects]
+    return codes[:n]
+
+
+def _clip_cache(tmp, n, E, seed):
+    """Seeded random unit text embeddings (n, E) written as a ``.pt`` cache in
+    ``tmp`` and read back through the port's loader: (path, array)."""
+    import torch
+
+    from fact_clip_tpu_torch.data.text_embeddings import load_text_embeddings
+
+    emb = np.random.default_rng(seed).standard_normal((n, E)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    path = os.path.join(tmp, "havid_view0_lh_pt_text_embeddings.pt")
+    torch.save(torch.from_numpy(emb), path)
+    back = load_text_embeddings(path)
+    if not np.array_equal(back, emb):
+        raise AssertionError("[clip] the text-embedding cache did not read back equal")
+    return path, back
+
+
+def phase_openvocab(smi, seed: int = 0):
+    """FACT_CLIP on the card: (a) serving, (b) training, (c) the holdout
+    loop through the CLIs (module docstring, phase 16)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import openvocab_cfg, openvocab_train_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.setup import build_clip_bundle
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import (run_steps, synthetic_batch,
+                                                       synthetic_set_stats)
+    from fact_clip_tpu_torch.models.clip_model import build_fact_clip
+    from fact_clip_tpu_torch.models.losses import build_class_weights, compute_null_weight
+
+    D, C, S_CAP, E = OV_DIMS
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_clip")
+    try:
+        _, emb = _clip_cache(tmp, C, E, seed)
+
+        # (a) serving: the zero-shot decode over every class
+        cfg = openvocab_cfg()
+        t0 = time.perf_counter()
+        model = build_fact_clip(cfg, D, C, S_CAP, E, device=dev,
+                                generator=torch.Generator(device="cpu").manual_seed(seed))
+        bundle = build_clip_bundle(cfg, emb, [], dev)
+        log(f"[ov-serve] openvocab_cfg(): FACT_CLIP, {sum(p.numel() for p in model.parameters())} "
+            f"parameters ({sum(p.numel() for p in model.frame_projection.parameters())} in the "
+            f"projection, hidden {cfg['CLIP']['projection_hidden_dim']}), text embeddings {C} x {E}"
+            f" from a .pt cache, built in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(seed)
+        lengths, feats = flagship_requests(rng, D)
+        pred = Predictor(model, mwt=cfg["FACT"]["mwt"], batch_size=8, max_len=3072, device=dev,
+                         clip_bundle=bundle)
+        pred.predict(feats[-1:])  # warm
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        t0 = time.perf_counter()
+        outs = pred.predict(feats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernel_counters()
+        for n, o in zip(lengths, outs):
+            if o.shape != (n,) or o.dtype != np.int32 or o.min() < 0 or o.max() >= C:
+                raise AssertionError(f"[ov-serve] bad prediction: shape {o.shape} dtype {o.dtype}")
+        # the batches predict() forms (by bucket, 8 at most each) and what each
+        # launches: openvocab runs Breakfast's kernels (f: m2, every width 512)
+        per_bucket = {}
+        for n in lengths:
+            per_bucket[pred.bucket_for(n)] = per_bucket.get(pred.bucket_for(n), 0) + 1
+        batches = {bk: -(-k // 8) for bk, k in per_bucket.items()}
+        n_batches = sum(batches.values())
+        want = {k: 0 for k in counts if k not in BF_SERVING_KERNELS}
+        want.update(mstcn2_stack=4 * n_batches,
+                    mha_cross=6 * sum(v for bk, v in batches.items() if bk >= 1024))
+        log(f"[ov-serve] predict: {len(feats)} requests, lengths {lengths}, {dt:.3f} s; batches "
+            f"per bucket {dict(sorted(batches.items()))}; launches per batch: "
+            + ", ".join(f"{k} {counts[k] / n_batches:g}" for k in BF_SERVING_KERNELS)
+            + f"; K1 {counts['mstcn_stack']}, K5 {counts['frame_loss_fwd']}, K7 "
+            f"{counts['compose_argmax'] + counts['compose_blend']}, K8 "
+            f"{sum(v for k, v in counts.items() if k.endswith(('_q8', '_q8_row')))}")
+        wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        missing = [k for k in BF_SERVING_KERNELS if counts[k] <= 0]
+        if wrong or missing:
+            raise AssertionError(f"[ov-serve] launches: (got, want) {wrong}; not launched "
+                                 f"{missing}")
+        B, T = 8, 3072
+        full = [rng.standard_normal((int(n), D)).astype(np.float32)
+                for n in rng.integers(pred.buckets[-2] + 1, T + 1, B)]
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            outs = pred.predict(full)
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"[ov-serve] {smi}: predict 8 requests, one batch of 8 x {T}, warm ms: median "
+            f"{sorted(times[1:])[1]:.3f} (all {', '.join(f'{t:.3f}' for t in times)})")
+        del full
+        torch.cuda.reset_peak_memory_stats()
+        eval_paths("ov-serve", model, cfg, rng, FLAGSHIP_LENGTHS, T, D, clip_bundle=bundle)
+        log(f"[ov-serve] peak memory over the eval steps "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del model, pred, outs
+        torch.cuda.empty_cache()
+
+        # (b) training with classes held out
+        T, S = 3072, 32
+        lengths = [[3072, 2950], sorted(rng.integers(2500, T + 1, 2).tolist(), reverse=True),
+                   sorted(rng.integers(1500, T + 1, 2).tolist(), reverse=True)]
+        batches = [synthetic_batch(rng, D, C, S, T, ln) for ln in lengths]
+        cfg = compute_null_weight(openvocab_train_cfg(), synthetic_set_stats(batches, C))
+        bundle = build_clip_bundle(cfg, emb, cfg["holdout_classes"], dev)
+        model = build_fact_clip(cfg, D, C, S_CAP, E, device=dev,
+                                generator=torch.Generator(device="cpu").manual_seed(seed))
+        cweight = build_class_weights(cfg, C, [])
+        step = make_train_step(model, cfg, C, cweight, clip_bundle=bundle)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        held = int(sum(np.isin(b["labels"][b["mask"]], cfg["holdout_classes"]).sum()
+                       for b in batches))
+        warm = run_steps(step, batches[:1], generator=gen)
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        outs = run_steps(step, batches, generator=gen)
+        torch.cuda.synchronize()
+        counts_t = kernel_counters()
+        losses = [warm[0]["loss"]] + [o["loss"] for o in outs]
+        cont = [float(o["contrastive_loss"].mean()) for o in warm + outs]
+        fact = [float(o["fact_loss"].mean()) for o in warm + outs]
+        log(f"[ov-train] openvocab_train_cfg(): holdout {cfg['holdout_classes']} ({held} frames "
+            f"of held-out classes masked out of the contrastive loss), nullw "
+            f"{cfg['Loss']['nullw']:.6f}, cmr {cfg['FACT']['cmr']}, TM {cfg['TM']['use']}, "
+            f"projection dropout {cfg['CLIP']['projection_dropout']}; 1 warm-up + 3 Adam steps on "
+            f"2 x {T} (lengths {lengths}): losses {', '.join(f'{v:.5f}' for v in losses)}, "
+            f"fact_loss {', '.join(f'{v:.5f}' for v in fact)}, contrastive_loss "
+            f"{', '.join(f'{v:.5f}' for v in cont)}; launches in 3 steps {counts_t}")
+        if not all(math.isfinite(v) for v in losses + fact) or \
+                not all(math.isfinite(v) and v > 0 for v in cont):
+            raise AssertionError(f"[ov-train] losses {losses}, contrastive {cont}")
+        _launch_check("ov-train", counts_t, {"mstcn2_stack": 12, "mstcn2_stack_bwd": 12,
+                                             "mha_cross": 18, "mha_cross_bwd": 18,
+                                             "mstcn_stack": 0, "mstcn_stack_bwd": 0})
+        missing = [k for k in BF_TRAIN_KERNELS if counts_t[k] <= 0]
+        extra = [k for k, v in counts_t.items() if v and k not in BF_TRAIN_KERNELS]
+        if missing or extra:
+            raise AssertionError(f"[ov-train] not launched {missing}, launched off the path "
+                                 f"{extra}")
+        train_paths("ov-train", model, step, batches, gen, f"2 x {T}")
+        del model, step
+        torch.cuda.empty_cache()
+        cfg0 = compute_null_weight(openvocab_train_cfg(), synthetic_set_stats(batches, C))
+        cfg0["FACT"]["cmr"], cfg0["TM"]["use"] = 0.0, False
+        cfg0["CLIP"]["projection_dropout"] = 0.0
+        train_compare("ov-train", cfg0,
+                      lambda s: build_fact_clip(cfg0, D, C, S_CAP, E, device=dev,
+                                                generator=torch.Generator().manual_seed(s)),
+                      C, cweight, batches[0], gen, COMPARE_SEEDS, clip_bundle=bundle)
+        torch.cuda.empty_cache()
+
+        # (c) the holdout recipe through the loop and its CLIs
+        _clip_loop(smi, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _clip_loop(smi, seed):
+    """Phase 16 (c): ``havid_view0_lh_pt_holdout.yaml`` through the train
+    CLI's entry (in this process, so that the step spies read its launches)
+    and ``run_eval`` as a process."""
+    import torch
+
+    from fact_clip_tpu_torch import train as train_cli
+    from fact_clip_tpu_torch.configs import HOLDOUT_CLASSES
+    from fact_clip_tpu_torch.data.io import load_action_mapping, video_contains_holdout_classes
+    from fact_clip_tpu_torch.data.text_embeddings import generate_text_descriptions
+    from fact_clip_tpu_torch.utils.results import Checkpoint
+
+    data = dict(LOOP_DATA, name="havid_view0_lh_pt",
+                label_names=havid_codes(LOOP_DATA["n_classes"]))
+    t0 = time.perf_counter()
+    with _loop_run("chip_smoke_clip_loop", data, HOLDOUT_YAML, ["aux.print_every", "1"]) as \
+            (base, cfg_of), _LoopSpies() as spies:
+        emb_path, _ = _clip_cache(base, data["n_classes"], OV_DIMS[3], seed + 1)
+        yaml_path = os.path.join(REPO, HOLDOUT_YAML)
+        cfg, sets, logdir = cfg_of(1, "CLIP.text_emb_path", emb_path, "aux.eval_every", "2")
+        label2index, index2label = load_action_mapping(cfg.map_fname)
+        prompts = generate_text_descriptions(cfg, label2index, index2label)
+        held = [f"{c} {index2label[c]!r}: {prompts[c]!r}" for c in HOLDOUT_CLASSES]
+        kept = {}
+        for split in ("train", "test"):
+            with open(os.path.join(base, "splits", f"{split}.split1.bundle")) as f:
+                vids = [line.strip()[:-4] for line in f if line.strip()]  # "<name>.txt"
+            kept[split] = (sum(not video_contains_holdout_classes(
+                v, cfg.groundTruth_path, label2index, HOLDOUT_CLASSES) for v in vids), len(vids))
+        log(f"[clip-loop] HAViD-coded set ({data['n_classes']} classes, written in "
+            f"{time.perf_counter() - t0:.1f} s): {kept['train'][0]} of {kept['train'][1]} train "
+            f"videos and {kept['test'][0]} of {kept['test'][1]} test videos lack every held-out "
+            f"class; prompts of the held-out classes: {'; '.join(held)}")
+        if kept["train"][0] != 7 or kept["test"][0] == kept["test"][1]:
+            raise AssertionError(f"[clip-loop] the set's holdout split {kept}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main(["--cfg", yaml_path, "--set", *sets])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _loop_files(logdir, (2, 4))
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train = [r for r in recs if "train-loss/loss" in r]
+        split = [(r["train-loss/fact_loss"], r["train-loss/contrastive_loss"]) for r in train]
+        best = Checkpoint.load(os.path.join(logdir, "best_ckpt.gz"))
+        log(f"[clip-loop] python3 -m fact_clip_tpu_torch.train --cfg {HOLDOUT_YAML} (in this "
+            f"process; {cfg.FACT.block}, f: {cfg.Bi.f}, ntoken {cfg.FACT.ntoken}, dropout "
+            f"{cfg.Bi.dropout}, temp {cfg.CLIP.temp}, holdout {cfg.holdout_classes}), batch "
+            f"{cfg.batch_size}, epoch 1: {len(spies.steps)} steps, {len(spies.evals)} test passes "
+            f"in {time.perf_counter() - t0:.1f} s; logged (fact_loss, contrastive_loss) "
+            + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in split)
+            + "; best checkpoint " + ", ".join(f"{k} {v:.3f}" for k, v in best.metrics.items()))
+        if len(spies.steps) != 4 or len(spies.evals) != 2:
+            raise AssertionError("[clip-loop] the run must take 4 steps with test passes at 2 "
+                                 "and 4 (7 of 16 training videos lack a held-out class)")
+        _loop_steps_ok("clip", spies.steps)
+        if len(train) != 4 or not all(math.isfinite(a) and math.isfinite(b) and b > 0
+                                      for a, b in split):
+            raise AssertionError(f"[clip-loop] logged loss split {split}")
+        if not os.path.exists(os.path.join(logdir, "saves", "4_detailed.json")) or not all(
+                k in best.metrics for k in ("Acc-seen", "Acc-unseen")):
+            raise AssertionError(f"[clip-loop] no seen / unseen results: {best.metrics}")
+        net4 = os.path.join(logdir, "ckpts", "network.iter-4.net")
+        proc, dt_eval = _cli("fact_clip_tpu_torch.run_eval",
+                             ["--cfg", yaml_path, "--ckpt", net4, "--set", *sets])
+        got = Checkpoint.load(os.path.join(logdir, "eval_results", "eval_result.gz"))
+        want = Checkpoint.load(os.path.join(logdir, "saves", "4.gz"))
+        same_preds = list(got.videos) == list(want.videos) and all(
+            np.array_equal(got.videos[v].pred, want.videos[v].pred) for v in want.videos)
+        log(f"[clip-loop] python3 -m fact_clip_tpu_torch.run_eval --ckpt network.iter-4.net "
+            f"({dt_eval:.1f} s with the process start): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in got.metrics.items())
+            + f"; equal to saves/4.gz: {got.metrics == want.metrics}, predictions {same_preds}; "
+            f"eval_detailed.json written "
+            f"{os.path.exists(os.path.join(logdir, 'eval_results', 'eval_detailed.json'))}")
+        if got.metrics != want.metrics or not same_preds:
+            raise AssertionError(f"[clip-loop] run_eval gave {got.metrics}, saves/4.gz holds "
+                                 f"{want.metrics}")
+        steps = [f"{st['T']}: {st['ms']:.3f}" for st in spies.steps]
+        launches = {k: v for k, v in spies.steps[1]["counts"].items() if v}
+        log(f"[clip-loop] {smi}: train steps (padded length: ms, synchronised) "
+            f"{', '.join(steps)}; the second step's launches {launches}; test passes "
+            f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in spies.evals)} ms; peak memory "
+            f"{peak:.2f} GiB")
+
+
 def main():
     import torch
 
@@ -4187,6 +4539,7 @@ def main():
     phase_egoprocel()
     phase_small()
     phase_loop(smi)
+    phase_openvocab(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":

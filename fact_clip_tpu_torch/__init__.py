@@ -6,24 +6,27 @@ layout where that helps find a module's counterpart:
 configs/          BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
                   breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
                   epic_vocab, flagship_int8_cfg, breakfast_int8_cfg,
-                  epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg; the
+                  epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg,
+                  openvocab_cfg, openvocab_train_cfg; the
                   default tree, CfgNode and setup_cfg; yaml_lite, which reads
                   the JAX package's YAML recipes as data (no PyYAML)
-data/             the dataset registry, bucketed loaders, the prefetcher and
-                  the synthetic fixture writers
-models/           layers, blocks (FACT), the verb/noun model (VerbNounFACT),
-                  the two-branch decodes, matching (o2o, o2m), losses (FACT's
-                  and the verb/noun model's)
+data/             the dataset registry, bucketed loaders, the prefetcher, the
+                  synthetic fixture writers, and FACT_CLIP's prompts and
+                  text-embedding cache
+models/           layers, blocks (FACT), FACT_CLIP (FACTCLIP), the verb/noun
+                  model (VerbNounFACT), the two-branch and CLIP decodes,
+                  matching (o2o, o2m), losses (FACT's, the verb/noun model's
+                  and FACT_CLIP's contrastive ones)
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   and backwards, and the single-layer K1; the shared dropout
                   mask; K7, the composed verb/noun argmaxes; K8, int8
                   evaluation) beside their plain PyTorch versions;
                   the lazy verb/noun composition; TDU segment operations;
                   training masks; positional terms
-engine/           the eval and train steps, the serving Predictor (FACT and
-                  VerbNounFACT), the optimizer, the training loop (run_train,
+engine/           the eval and train steps, the serving Predictor (FACT,
+                  FACT_CLIP and VerbNounFACT), the optimizer, the training loop (run_train,
                   evaluate), experiment setup, checkpoints with resume, logging
-utils/            the FACT and verb/noun exporter (its own copy), the bridge
+utils/            the FACT, FACT_CLIP and verb/noun exporter (its own copy), the bridge
                   (JAX parameters (numpy) -> this package's state_dict), and
                   segments, metrics and the results Checkpoint
 train.py          python -m fact_clip_tpu_torch.train --cfg <yaml> [--device cpu] --set k v ...

@@ -18,7 +18,10 @@ trains it, and ``epic_vocab()`` draws its 3,806-action vocabulary;
 and ``egoprocel_train_cfg()`` is it as the port trains it;
 ``flagship_int8_cfg()``, ``breakfast_int8_cfg()`` and ``epic_int8_cfg()``
 are those three evaluated with int8 towers and projections
-(``TPU.quantize_infer: "int8"``).
+(``TPU.quantize_infer: "int8"``); ``openvocab_cfg()`` mirrors
+``openvocab_havid_view0_lh_pt.yaml`` (FACT_CLIP, MS-TCN++ towers 512 wide)
+and ``openvocab_train_cfg()`` is it as the port trains it, with the holdout
+recipes' held-out classes.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -224,6 +227,40 @@ def egoprocel_train_cfg() -> dict:
     """``egoprocel_cfg()`` with the host Hungarian matcher, as the port
     trains it.  ``model.set_kernels(False)`` gives its plain PyTorch path."""
     cfg = egoprocel_cfg()
+    cfg["TPU"]["matcher"] = "host"
+    return cfg
+
+
+def openvocab_cfg() -> dict:
+    """``fact_clip_tpu/configs/openvocab_havid_view0_lh_pt.yaml`` over the
+    defaults, uncut: FACT_CLIP (``use_clip``) on ``iuUU``, 40 action tokens,
+    a 6-layer 8-head SCA input decoder and ``f: m2`` 10-layer towers, every
+    width 512, the projection's hidden layer 1024 (dropout 0.1), InfoNCE at
+    temperature 0.07, o2o matching, ``nullw = -1`` resolved from the data,
+    sw 5, time masking on, Adam at 1e-4, batch size 2.  Every kernel is on.
+    Build it with ``models.clip_model.build_fact_clip(openvocab_cfg(), 2048,
+    75, s_pred_cap, clip_dim)``."""
+    cfg = breakfast_cfg()
+    cfg.update(dataset="havid_view0_lh_pt", split="split1", sr=1, eval_bg=True, batch_size=2,
+               epoch=150, use_clip=True)
+    cfg["FACT"].update(ntoken=40)
+    cfg["CLIP"].update(model_name="openai/clip-vit-base-patch32", text_trainable=True, temp=0.07,
+                       precompute_text=True, use_prompt=True, projection_hidden_dim=1024,
+                       projection_dropout=0.1)
+    cfg["aux"].update(eval_every=2000, print_every=1000, wandb_project="FACT-OpenVocab")
+    return cfg
+
+
+HOLDOUT_CLASSES = [51, 53, 61, 67, 56]  # the havid_view*_pt_holdout.yaml recipes'
+
+
+def openvocab_train_cfg() -> dict:
+    """``openvocab_cfg()`` with the host Hungarian matcher and the holdout
+    recipes' zero-shot split (``holdout_mode``, classes 51, 53, 61, 67 and
+    56 held out), as the port trains it.  ``model.set_kernels(False)`` gives
+    its plain PyTorch path."""
+    cfg = openvocab_cfg()
+    cfg.update(holdout_mode=True, holdout_classes=list(HOLDOUT_CLASSES))
     cfg["TPU"]["matcher"] = "host"
     return cfg
 

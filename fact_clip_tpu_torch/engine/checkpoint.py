@@ -51,10 +51,13 @@ def save_model(model: torch.nn.Module, ckptdir: str, iteration: int) -> str:
 def load_model(model: torch.nn.Module, path: str) -> None:
     """Load a weights file into ``model`` strictly.  The reference's files
     may also hold the positional tables (``*pe.pe``), which the port
-    computes; they are dropped, as the reference's own loader drops them."""
+    computes, and FACT_CLIP's ``text_embeddings``, which travel in the clip
+    bundle; they are dropped, as the reference's own loader and the JAX
+    package's importer drop them."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     own = model.state_dict()
-    sd = {k: v for k, v in sd.items() if k in own or not k.endswith("pe.pe")}
+    sd = {k: v for k, v in sd.items()
+          if k in own or not (k.endswith("pe.pe") or k == "text_embeddings")}
     model.load_state_dict(sd, strict=True)
 
 

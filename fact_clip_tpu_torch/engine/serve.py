@@ -18,12 +18,16 @@ class Predictor:
     """``predict(feats_list)`` buckets the requests by length, pads each
     group to ``batch_size`` by repeating its last video, runs the eval step
     and trims every prediction to its video's length.  ``model`` is a FACT
-    (class ids) or a VerbNounFACT (composed action ids in [0, n_act))."""
+    (class ids), a VerbNounFACT (composed action ids in [0, n_act)) or a
+    FACT_CLIP with its ``clip_bundle`` (class ids of the zero-shot decode
+    over every class's text embedding; ``engine/export.py:139, 159-166`` of
+    the JAX package)."""
 
     def __init__(self, model, mwt: float, batch_size: int = 8, max_len: int = 3072,
-                 bucket_multiple: int = 128, bucket_growth: float = 1.26, device=None):
+                 bucket_multiple: int = 128, bucket_growth: float = 1.26, device=None,
+                 clip_bundle=None):
         self.model = model
-        self.step = make_eval_step(model, mwt)
+        self.step = make_eval_step(model, mwt, clip_bundle)
         self.batch_size = batch_size
         self.buckets = make_bucket_lengths(max_len, bucket_multiple, bucket_growth)
         self.device = torch.device(device) if device is not None else next(

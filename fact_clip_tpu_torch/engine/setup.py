@@ -2,10 +2,11 @@
 counterpart of ``fact_clip_tpu/engine/setup.py``).
 
 Builds the datasets, the length buckets and segment caps, the model (FACT,
-or the verb/noun model for ``dataset: epic``) with weights initialised from
-``aux.seed``, and the class weights: the part of training that precedes the
-loop.  FACT_CLIP (``use_clip``, ROADMAP M10) and transcript mode
-(``FACT.trans``, M11) are not ported and raise.
+FACT_CLIP for ``use_clip``, or the verb/noun model for ``dataset: epic``)
+with weights initialised from ``aux.seed``, the class weights and, for
+FACT_CLIP given text embeddings, the clip bundle: the part of training that
+precedes the loop.  Transcript mode (``FACT.trans``, ROADMAP M11) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..data.dataset import create_dataset
 from ..home import get_project_base
 from ..models import losses as losses_mod
 from ..models.blocks import build_fact
+from ..models.clip_model import build_fact_clip
 from ..models.verbnoun import build_verbnoun_fact, load_vids_nids
 
 
@@ -36,6 +38,7 @@ class Experiment:
     cweight: np.ndarray
     assembler: BatchAssembler
     test_assembler: BatchAssembler
+    clip_bundle: dict | None = None
 
     def train_loader(self, seed=0):
         return TrainLoader(self.dataset, self.cfg.batch_size, self.assembler, seed=seed)
@@ -54,16 +57,38 @@ def auto_pred_seg_cap(cfg, seg_cap: int, max_len: int) -> int:
 
 def check_ported(cfg) -> None:
     """Refuse the configurations the port has no path for."""
-    if cfg.use_clip:
-        raise NotImplementedError("use_clip: FACT_CLIP is not ported (ROADMAP M10)")
     if cfg.FACT.trans:
         raise NotImplementedError("FACT.trans: transcript mode is not ported (ROADMAP M11)")
 
 
-def build_experiment(cfg, device, seed: int = 0) -> Experiment:
+def build_clip_bundle(cfg, text_embeddings: np.ndarray, holdout_classes, device="cpu") -> dict:
+    """FACT_CLIP's bundle (``fact_clip_tpu/engine/setup.py:55``): all-class
+    embeddings (decode), the seen classes' (the training loss), the global ->
+    seen ``label_map`` with -1 at held-out classes, as tensors on ``device``,
+    and the temperature and loss weights."""
+    n = text_embeddings.shape[0]
+    holdout = set(holdout_classes or [])
+    seen = np.array([i for i in range(n) if i not in holdout], np.int64)
+    label_map = np.full((n,), -1, np.int64)
+    label_map[seen] = np.arange(len(seen))
+    emb = np.asarray(text_embeddings, np.float32)
+    return {
+        "text_emb": torch.as_tensor(emb, device=device),
+        "seen_text_emb": torch.as_tensor(emb[seen], device=device),
+        "label_map": torch.as_tensor(label_map, device=device),
+        "temp": float(cfg["CLIP"]["temp"]),
+        "fact_w": float(cfg["CLIP"]["fact_loss_weight"]),
+        "cont_w": float(cfg["CLIP"]["contrastive_weight"]),
+    }
+
+
+def build_experiment(cfg, device, seed: int = 0, text_embeddings=None) -> Experiment:
     """The experiment of ``cfg`` with its model on ``device`` (as
     ``resolve_device`` takes it), initialised from
-    ``torch.Generator().manual_seed(seed)``."""
+    ``torch.Generator().manual_seed(seed)``.  With ``use_clip`` the model is
+    FACT_CLIP, its projection as wide as ``text_embeddings`` (n_classes, E)
+    (512 without them); the clip bundle is built only when they are given:
+    without them FACT_CLIP trains and decodes as FACT, as in JAX."""
     check_ported(cfg)
     device = resolve_device(device)
     dataset, test_dataset = create_dataset(cfg)
@@ -73,8 +98,17 @@ def build_experiment(cfg, device, seed: int = 0) -> Experiment:
     if cfg.Loss.nullw == -1:
         losses_mod.compute_null_weight(cfg, dataset)
 
+    clip_bundle = None
+    if cfg.use_clip and text_embeddings is not None:
+        holdout = cfg.holdout_classes if cfg.holdout_mode else []
+        clip_bundle = build_clip_bundle(cfg, text_embeddings, holdout, device)
+
     generator = torch.Generator().manual_seed(int(seed))
-    if cfg.dataset == "epic":
+    if cfg.use_clip:
+        clip_dim = int(text_embeddings.shape[1]) if text_embeddings is not None else 512
+        model = build_fact_clip(cfg, dataset.input_dimension, dataset.nclasses, s_pred_cap,
+                                clip_dim, device=device, generator=generator)
+    elif cfg.dataset == "epic":
         processed_dir = (os.path.dirname(cfg.map_fname) if cfg.map_fname
                          else get_project_base() + "data/epic-kitchens/processed")
         vids, nids = load_vids_nids(processed_dir)
@@ -91,7 +125,7 @@ def build_experiment(cfg, device, seed: int = 0) -> Experiment:
         cfg=cfg, dataset=dataset, test_dataset=test_dataset, buckets=buckets,
         seg_cap=seg_cap, s_pred_cap=s_pred_cap, model=model, cweight=cweight,
         assembler=BatchAssembler(dataset, seg_cap, buckets),
-        test_assembler=BatchAssembler(test_dataset, seg_cap, buckets),
+        test_assembler=BatchAssembler(test_dataset, seg_cap, buckets), clip_bundle=clip_bundle,
     )
 
 

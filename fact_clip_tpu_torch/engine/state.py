@@ -11,6 +11,7 @@ base.  ``torch.optim.Adam`` divides by sqrt(v_hat) + eps exactly where
 from __future__ import annotations
 
 import torch
+from torch.autograd.graph import increment_version
 
 
 def lr_schedule(base_lr: float, lr_decay_epochs: int, steps_per_epoch: int):
@@ -50,11 +51,22 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        # a parameter the loss does not reach (FACT_CLIP's projection without
+        # text embeddings) takes a zero gradient, as optax hands it one, so
+        # that weight decay and the moments move it as JAX's update does
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.clip > 0:
             torch.nn.utils.clip_grad_norm_(self.params, self.clip)
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.count)
         self.opt.step()
+        # the fused update writes the parameters without bumping their
+        # version counters, which the kernels' packed-weight caches key on
+        # (models/layers.py::KernelLayout): without this an eval after a
+        # step would run on the packs of the weights the last eval saw
+        increment_version(self.params)
         self.count += 1
 
 

@@ -1,13 +1,18 @@
 """The eval step and the train step.
 
-Counterpart of the vanilla branch of ``fact_clip_tpu/engine/steps.py``:
+Counterpart of ``fact_clip_tpu/engine/steps.py`` outside transcript mode:
 ``eval_step`` (:149-152) is the forward through every block and the
 two-branch decode (the composed one of the verb/noun model, :47-62);
 ``train_step_fn`` (:128-142) is the forward in train mode,
 the host match, all FACT losses, the backward, the optimizer update
 and the train-time decode of the pre-update forward; for a ``VerbNounFACT``
 (``verbnoun=True`` there) the match runs on exp(action_logp), the losses
-are the verb/noun ones and the decode is the composed one.
+are the verb/noun ones and the decode is the composed one.  Given a clip
+bundle (``engine/setup.py::build_clip_bundle``; FACT_CLIP, :41, :68-72,
+:107-126) the per-video loss is ``fact_w`` x the FACT loss + ``cont_w`` x
+the InfoNCE loss on the labels remapped to the seen classes (frames of a
+held-out class masked out), and the decode is the CLIP decode against every
+class's embedding; without one a FACT_CLIP model trains and decodes as FACT.
 """
 
 from __future__ import annotations
@@ -23,10 +28,16 @@ from ..ops.verbnoun_compose import composed_decode
 from .state import build_optimizer
 
 
-def _decode(saves, mwt: float):
+def _decode(saves, mwt: float, frame_emb=None, clip_bundle=None):
+    """The two-branch decode, every token valid; with a clip bundle the
+    zero-shot decode of ``frame_emb`` against every class's text embedding."""
     last = saves[-1]
     token_mask = torch.ones(last["action_clogit"].shape[:2], dtype=torch.bool,
                             device=last["action_clogit"].device)
+    if clip_bundle is not None:
+        return decode.decode_with_clip(last["action_clogit"], last["a2f_attn"], frame_emb,
+                                       clip_bundle["text_emb"], clip_bundle["temp"], mwt,
+                                       token_mask)
     return decode.decode_two_branch(last["action_clogit"], last["a2f_attn"],
                                     last["frame_clogit"], mwt, token_mask)
 
@@ -42,22 +53,29 @@ def _decode_verbnoun(model, saves, mwt: float):
                            kernel=model.kernels_enabled)
 
 
-def make_eval_step(model, mwt: float):
+def _decode_any(model, saves, tail, mwt: float, clip_bundle):
+    if isinstance(model, VerbNounFACT):
+        return _decode_verbnoun(model, saves, mwt)
+    return _decode(saves, mwt, tail, clip_bundle)
+
+
+def make_eval_step(model, mwt: float, clip_bundle=None):
     """eval_step(feats (B, T, D), mask (B, T) bool, lengths (B,)) -> (B, T)
     class ids (int64), or action ids in [0, n_act) (int32) for a
-    ``VerbNounFACT``."""
-    verbnoun = isinstance(model, VerbNounFACT)
+    ``VerbNounFACT``.  With a clip bundle (a FACT_CLIP model) the CLIP
+    decode gives the class ids."""
 
     def eval_step(feats, mask, lengths):
         with torch.inference_mode():
-            saves, _ = model(feats, mask, lengths)
-            return _decode_verbnoun(model, saves, mwt) if verbnoun else _decode(saves, mwt)
+            saves, tail = model(feats, mask, lengths)
+            return _decode_any(model, saves, tail, mwt, clip_bundle)
 
     return eval_step
 
 
 class TrainStep:
-    """``step(batch, generator)`` -> {"loss", "per_video_loss", "pred", "seg2tok"}.
+    """``step(batch, generator)`` -> {"loss", "per_video_loss", "pred", "seg2tok"}, and
+    with a clip bundle also the per-video "fact_loss" and "contrastive_loss".
 
     ``batch``: the ``Batch.device_arrays`` dict as tensors on the model's
     device; ``generator``: a ``torch.Generator`` on that device for the
@@ -65,7 +83,8 @@ class TrainStep:
     milliseconds (forward, match, losses, backward, optimizer, decode), each
     phase closed by a device synchronisation."""
 
-    def __init__(self, model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1):
+    def __init__(self, model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1,
+                 clip_bundle=None):
         if cfg["TPU"].get("matcher", "auto") not in ("auto", "host"):
             raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
         if cfg["FACT"].get("trans"):
@@ -74,7 +93,7 @@ class TrainStep:
         cweight = np.asarray(cweight, np.float32)
         if cweight.shape != (nclasses + 1,):
             raise ValueError(f"cweight must be (nclasses + 1,) = ({nclasses + 1},)")
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.clip_bundle = model, cfg, clip_bundle
         self.device = next(model.parameters()).device
         self.cweight = torch.as_tensor(cweight, device=self.device)
         self.sw = float(cfg["Loss"]["sw"])
@@ -93,13 +112,15 @@ class TrainStep:
         times[name] = times.get(name, 0.0) + (t - t0) * 1e3
         return t
 
-    def loss(self, batch: dict, generator=None, times=None, seg2tok=None):
+    def loss(self, batch: dict, generator=None, times=None, seg2tok=None, aux=None):
         """Forward in train mode, match and losses: (per-video loss (B,), seg2tok, saves).
         Given ``seg2tok``, the losses take that matching instead of a new one
-        (two paths of one model held to one discrete choice)."""
+        (two paths of one model held to one discrete choice).  ``aux``, when
+        given a dict, receives the per-video "fact_loss" and, with a clip
+        bundle, "contrastive_loss" and the frame embedding "frame_emb"."""
         t0 = self._now(times)
-        saves, _ = self.model(batch["feats"], batch["mask"], batch["lengths"], train=True,
-                              generator=generator)
+        saves, tail = self.model(batch["feats"], batch["mask"], batch["lengths"], train=True,
+                                 generator=generator)
         t0 = self._mark(times, "forward", t0)
         if seg2tok is None:
             last = saves[-1]
@@ -117,11 +138,23 @@ class TrainStep:
                 saves, batch, seg2tok, self.cweight, self.sw,
                 ref_weight_order=bool(self.cfg["Loss"].get("ref_weight_order", False)),
                 use_kernel=self.model.kernels_enabled)
+        if aux is not None:
+            aux["fact_loss"] = per_video
+        bundle = self.clip_bundle
+        if bundle is not None:
+            labels = bundle["label_map"][batch["labels"].long()]  # global -> seen, -1 held out
+            contrastive = losses.infonce_contrastive_loss(
+                tail, bundle["seen_text_emb"], labels.clamp(min=0),
+                batch["mask"] & (labels >= 0), bundle["temp"])
+            per_video = bundle["fact_w"] * per_video + bundle["cont_w"] * contrastive
+            if aux is not None:
+                aux.update(contrastive_loss=contrastive, frame_emb=tail)
         self._mark(times, "losses", t0)
         return per_video, seg2tok, saves
 
     def __call__(self, batch: dict, generator=None, times=None) -> dict:
-        per_video, seg2tok, saves = self.loss(batch, generator, times=times)
+        aux = {}
+        per_video, seg2tok, saves = self.loss(batch, generator, times=times, aux=aux)
         t0 = self._now(times)
         loss = per_video.mean()
         self.optimizer.zero_grad()
@@ -130,15 +163,21 @@ class TrainStep:
         self.optimizer.step()
         t0 = self._mark(times, "optimizer", t0)
         with torch.no_grad():
-            pred = (_decode_verbnoun(self.model, saves, self.mwt) if self.verbnoun
-                    else _decode(saves, self.mwt))
+            pred = _decode_any(self.model, saves, aux.get("frame_emb"), self.mwt,
+                               self.clip_bundle)
         self._mark(times, "decode", t0)
-        return {"loss": loss.detach(), "per_video_loss": per_video.detach(), "pred": pred,
-                "seg2tok": seg2tok}
+        out = {"loss": loss.detach(), "per_video_loss": per_video.detach(), "pred": pred,
+               "seg2tok": seg2tok}
+        if self.clip_bundle is not None:
+            out.update(fact_loss=aux["fact_loss"].detach(),
+                       contrastive_loss=aux["contrastive_loss"].detach())
+        return out
 
 
-def make_train_step(model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1):
+def make_train_step(model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1,
+                    clip_bundle=None):
     """The train step with its optimizer (``cfg``'s optimizer keys).  For a
     ``VerbNounFACT`` ``nclasses`` is the action count (3,806 at epic scale)
-    and ``cweight`` is (nclasses + 1,)."""
-    return TrainStep(model, cfg, nclasses, cweight, steps_per_epoch)
+    and ``cweight`` is (nclasses + 1,); for FACT_CLIP ``clip_bundle`` adds
+    the contrastive loss and the CLIP decode."""
+    return TrainStep(model, cfg, nclasses, cweight, steps_per_epoch, clip_bundle)

@@ -40,6 +40,7 @@ from .setup import Experiment, build_experiment, resolve_device
 from .steps import make_eval_step, make_train_step
 
 BATCH_KEYS = ("feats", "mask", "labels", "seg_label", "transcript", "seg_mask", "lengths")
+LOSS_KEYS = ("per_video_loss", "fact_loss", "contrastive_loss")  # per-video step outputs
 
 
 def _host(a) -> np.ndarray:
@@ -54,17 +55,18 @@ def batch_to_device(arrays: dict, device) -> dict:
 
 def run_steps(train_step, batches, *, generator: torch.Generator, times=None) -> list:
     """Step ``train_step`` once per numpy batch; returns each step's output
-    (loss and per-video loss as host floats).  The generator must live on
-    the step's device, which is where the batches go."""
+    (loss as a host float, the per-video losses, and FACT_CLIP's per-video
+    "fact_loss" and "contrastive_loss" where the step has them, as host
+    arrays).  The generator must live on the step's device, which is where
+    the batches go."""
     device = train_step.device
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"generator on {generator.device}, train step on {device}")
     outs = []
     for arrays in batches:
         out = train_step(batch_to_device(arrays, device), generator, times=times)
-        outs.append({"loss": float(out["loss"]),
-                     "per_video_loss": out["per_video_loss"].cpu().numpy(),
-                     "pred": out["pred"], "seg2tok": out["seg2tok"]})
+        outs.append({"loss": float(out["loss"]), "pred": out["pred"], "seg2tok": out["seg2tok"],
+                     **{k: out[k].cpu().numpy() for k in LOSS_KEYS if k in out}})
     return outs
 
 
@@ -154,14 +156,18 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
 
 
-def _collect_video_saves(batch, pred, per_video_loss=None) -> list:
-    """Slice a step's outputs back into per-video host dicts."""
+def _collect_video_saves(batch, pred, step_out=None) -> list:
+    """Slice a step's outputs back into per-video host dicts: the
+    predictions, and from a train step's output dict each video's
+    ``LOSS_KEYS`` entries it has ("per_video_loss" as "loss")."""
     pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
+    losses = {("loss" if k == "per_video_loss" else k): step_out[k].cpu().numpy()
+              for k in LOSS_KEYS if k in (step_out or {})}
     saves = []
     for i in range(len(batch.vnames)):
         data = {"pred": pred[i, : int(batch.lengths[i])]}
-        if per_video_loss is not None:
-            data["loss"] = {"loss": float(per_video_loss[i])}
+        if losses:
+            data["loss"] = {k: float(v[i]) for k, v in losses.items()}
         saves.append(data)
     return saves
 
@@ -224,13 +230,16 @@ def check_loop_cfg(cfg) -> None:
     ckpt_io.check_backend(tpu.checkpoint_backend)
 
 
-def run_train(cfg, device=None, base_dir=None):
+def run_train(cfg, device=None, base_dir=None, text_embeddings=None):
     """The full training run of ``cfg`` (``setup_cfg``'s tree) on ``device``:
     the CUDA card when None (it raises without one); ``device="cpu"`` runs
     the plain PyTorch path on the CPU.  Logs go to ``<base_dir>/<aux.logdir>``
-    (``base_dir``: the working directory when None).  Returns (the train
-    step, with its model and optimizer, and the best test checkpoint or
-    None); exits early when the run already finished (``resume: max``)."""
+    (``base_dir``: the working directory when None).  ``text_embeddings``
+    (n_classes, E) give a ``use_clip`` run its clip bundle: the contrastive
+    loss, logged beside the loss as ``fact_loss`` / ``contrastive_loss``, and
+    the CLIP decode.  Returns (the train step, with its model and optimizer,
+    and the best test checkpoint or None); exits early when the run already
+    finished (``resume: max``)."""
     device = resolve_device(device)
     check_loop_cfg(cfg)
     base = base_dir or os.getcwd()
@@ -243,7 +252,7 @@ def run_train(cfg, device=None, base_dir=None):
     # is written.  args.json holds the config as given (nullw -1 unresolved)
     global_step, ckpt_file = ckpt_io.resume_ckpt(cfg, logdir)
     args = cfg2flatdict(cfg)
-    exp = build_experiment(cfg, device, seed=cfg.aux.seed)
+    exp = build_experiment(cfg, device, seed=cfg.aux.seed, text_embeddings=text_embeddings)
 
     os.makedirs(ckptdir, exist_ok=True)
     os.makedirs(savedir, exist_ok=True)
@@ -259,12 +268,13 @@ def run_train(cfg, device=None, base_dir=None):
 
     trainloader = exp.train_loader(seed=cfg.aux.seed)
     steps_per_epoch = len(trainloader)
-    step = make_train_step(exp.model, cfg, dataset.nclasses, exp.cweight, steps_per_epoch)
+    step = make_train_step(exp.model, cfg, dataset.nclasses, exp.cweight, steps_per_epoch,
+                           exp.clip_bundle)
     if ckpt_file is not None:
         ckpt_io.load_model(exp.model, ckpt_file)
         if cfg.TPU.save_opt_state and ckpt_io.load_train_state(step.optimizer, ckpt_file):
             print(f"Restored the optimizer state (step {step.optimizer.count})")
-    eval_step = make_eval_step(exp.model, cfg.FACT.mwt)
+    eval_step = make_eval_step(exp.model, cfg.FACT.mwt, exp.clip_bundle)
     logger = Logger(logdir)
 
     def fresh_train_ckpt():
@@ -283,8 +293,7 @@ def run_train(cfg, device=None, base_dir=None):
             out = step(batch_to_device(batch.device_arrays, device),
                        step_generator(cfg.aux.seed, global_step, device))
             save_results(train_ckpt, batch.vnames, batch.eval_labels,
-                         _collect_video_saves(batch, out["pred"],
-                                              out["per_video_loss"].cpu().numpy()))
+                         _collect_video_saves(batch, out["pred"], out))
 
             if (global_step + 1) % cfg.aux.print_every == 0:
                 train_ckpt.compute_metrics()

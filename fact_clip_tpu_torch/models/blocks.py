@@ -7,8 +7,8 @@ static segment cap).  Each block returns (frame_feature, action_feature,
 saves); ``FACT.forward`` returns the list of saves and the final frame
 feature.  With ``train=True`` it runs in train mode: channel and time masks
 on the input features (blocks.py:460-465) and dropout in the layers, every
-draw from the ``generator`` passed in.  Transcript mode and the CLIP head
-are not ported yet.
+draw from the ``generator`` passed in.  Transcript mode is not ported; the
+CLIP head is ``models/clip_model.py``'s subclass.
 """
 
 from __future__ import annotations
@@ -261,17 +261,29 @@ def build_fact(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int, *, devic
     (the CUDA card when None: the port is written for it; pass
     ``device="cpu"`` for its plain PyTorch path on the CPU) and initialised
     from ``generator`` (a CPU torch.Generator; seed 0 if None)."""
+    return place_model(lambda: FACT(*fact_args(cfg, in_dim, n_classes, s_pred_cap)),
+                       "build_fact", device, generator)
+
+
+def fact_args(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int) -> tuple:
+    """FACT's constructor arguments of ``cfg``; transcript mode raises."""
     if cfg["FACT"].get("trans"):
         raise ValueError("transcript mode is not ported")
+    return (resolve_block_cfgs(cfg), in_dim, n_classes, cfg["FACT"]["ntoken"],
+            cfg["FACT"]["fpos"], s_pred_cap, cfg["FACT"].get("cmr", 0.0), cfg.get("TM"))
+
+
+def place_model(make, who: str, device, generator):
+    """``make()`` built on the meta device, then allocated on ``device`` (the
+    CUDA card when None; it raises without one) and initialised from
+    ``generator`` (seed 0 if None), in eval mode."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("build_fact: no CUDA card is available; pass device='cpu' to "
+            raise RuntimeError(f"{who}: no CUDA card is available; pass device='cpu' to "
                                "build the model on the CPU")
         device = "cuda"
     with torch.device("meta"):
-        model = FACT(resolve_block_cfgs(cfg), in_dim, n_classes, cfg["FACT"]["ntoken"],
-                     cfg["FACT"]["fpos"], s_pred_cap, cmr=cfg["FACT"].get("cmr", 0.0),
-                     tm=cfg.get("TM"))
+        model = make()
     model = model.to_empty(device=device)
     L.init_parameters(model, generator or torch.Generator().manual_seed(0))
     return model.eval()

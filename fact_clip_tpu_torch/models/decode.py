@@ -1,9 +1,10 @@
 """Inference decoding on the last block's saves.
 
-Counterpart of ``fact_clip_tpu/models/decode.py:15-43, 65-87``: the
+Counterpart of ``fact_clip_tpu/models/decode.py:15-43, 65-87, 99-110``: the
 two-branch decode blends the action tokens' votes with the frame branch and
 falls back to the frame branch when no token predicts a non-null class; its
-verb/noun variant does the same on composed log-probs.  ``votes`` and
+verb/noun variant does the same on composed log-probs, and FACT_CLIP's
+zero-shot decode on the CLIP similarities in place of the frame branch.  ``votes`` and
 ``token_probs`` are shared with ``ops/verbnoun_compose.py::composed_decode``.
 """
 
@@ -50,3 +51,16 @@ def decode_two_branch_logp(action_logp, a2f_attn, frame_logp, weight: float, tok
     definition that ``ops/verbnoun_compose.py::composed_decode`` equals."""
     has_action, act_idx = votes(action_logp, a2f_attn, token_mask)
     return _blend(token_probs(action_logp), act_idx, torch.exp(frame_logp), weight, has_action)
+
+
+def decode_with_clip(action_clogit, a2f_attn, frame_emb, text_emb, temp: float, weight: float,
+                     token_mask):
+    """FACT_CLIP's zero-shot decode (``decode.py:99``): the softmax of the
+    frames' cosine similarities to every class's text embedding, frame_emb
+    (B, T, E) against text_emb (n, E) at ``temp``, replaces the frame branch
+    and is blended with the tokens' votes at ``weight``; a video with no
+    voting token takes the CLIP argmax.  -> (B, T) int64 class per frame."""
+    fbranch = torch.softmax(torch.matmul(frame_emb, text_emb.t()) / temp, dim=-1)
+    has_action, act_idx = votes(action_clogit, a2f_attn, token_mask)
+    qtk_prob = torch.softmax(action_clogit[..., :-1], dim=-1)
+    return _blend(qtk_prob, act_idx, fbranch, weight, has_action)

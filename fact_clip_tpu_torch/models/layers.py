@@ -666,3 +666,29 @@ class BiGRU(nn.Module):
             bwd = bwd.gather(1, rev.expand(-1, -1, self.hidden))
             out = torch.cat([fwd, bwd], dim=-1)
         return out
+
+
+# ---------------------------------------------------------------------------
+# FACT_CLIP's frame projection
+
+
+class FeatureProjection(nn.Module):
+    """Linear -> LayerNorm -> ReLU -> dropout -> Linear, L2-normalised with
+    the norm clamped at 1e-12 (``fact_clip_tpu/models/layers.py:1209``).  The
+    reference's ``nn.Sequential`` indices name the parameters
+    (``projection.{0,1,4}``); the LayerNorm is flax's default, eps 1e-6.
+    Dropout in train mode draws from the ``generator`` passed in."""
+
+    def __init__(self, in_dim: int, clip_dim: int = 512, hidden_dim: int = 512,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.projection = nn.Sequential(nn.Linear(in_dim, hidden_dim),
+                                        nn.LayerNorm(hidden_dim, eps=LN_EPS_ATTN), nn.ReLU(),
+                                        nn.Dropout(dropout), nn.Linear(hidden_dim, clip_dim))
+
+    def forward(self, feature, generator=None):
+        lin1, norm, _, _, lin2 = self.projection
+        h = _drop(self, generator, torch.relu(norm(lin1(feature))), self.dropout)
+        h = lin2(h)
+        return h / h.norm(dim=-1, keepdim=True).clamp(min=1e-12)

@@ -1,6 +1,7 @@
 """Batched, masked training losses of FACT and of the verb/noun model.
 
-Counterpart of ``fact_clip_tpu/models/losses.py:27-369``, term for term:
+Counterpart of ``fact_clip_tpu/models/losses.py:27-436`` (FACT_CLIP's
+contrastive losses included), term for term:
 every normalizer is computed per video from validity masks, every function
 returns a per-video (B,) vector, and the batch loss is the mean of the
 per-video losses.  ``frame_ce_smooth`` and ``smooth_loss_opt`` reach the
@@ -272,3 +273,49 @@ def verbnoun_fact_loss(saves_list, batch, seg2tok, cweight, sw: float, vids, nid
     per_block = [verbnoun_block_loss(s, batch, seg2tok, cweight, sw, vids, nids)
                  for s in saves_list]
     return sum(per_block) / len(per_block)
+
+
+# --------------------------------------------------------------------------
+# FACT_CLIP's contrastive losses (``fact_clip_tpu/models/losses.py:376-436``)
+
+
+def infonce_contrastive_loss(frame_emb, text_emb, labels, frame_mask, temperature: float):
+    """Symmetric InfoNCE between frame embeddings and class text embeddings
+    -> (B,).  frame_emb (B, T, E) normalised; text_emb (n, E); labels (B, T)
+    in [0, n); frame_mask (B, T) bool.  v2t: the frames' CE over classes,
+    a masked mean (count clamped at 1e-12); t2v: per class a softmax over the
+    valid frames (-1e9 on the others), its CE averaged over the class's
+    frames (count clamped at 1), then the mean over all n classes, absent
+    ones included."""
+    n = text_emb.shape[0]
+    sim = torch.matmul(frame_emb, text_emb.t()) / temperature  # (B, T, n)
+    m = frame_mask.to(sim.dtype)
+    ce = -torch.log_softmax(sim, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
+    v2t = (ce * m).sum(dim=1) / m.sum(dim=1).clamp(min=1e-12)
+
+    logp_t2v = torch.log_softmax(sim.masked_fill(~frame_mask[:, :, None], -1e9), dim=1)
+    targets = F.one_hot(labels.long(), n).to(sim.dtype) * m[..., None]
+    counts = targets.sum(dim=1).clamp(min=1.0)  # (B, n)
+    t2v = (-(logp_t2v * targets).sum(dim=1) / counts).mean(dim=1)
+    return (v2t + t2v) / 2.0
+
+
+def action_token_contrastive_loss(projected_tokens, text_emb, seg2tok, transcript, seg_mask,
+                                  temperature: float):
+    """Symmetric contrastive loss between the matched action tokens and their
+    segments' text embeddings -> (B,) (the reference's loss.py:344-384; no
+    training path calls it, as in JAX).  projected_tokens (B, M, E)
+    normalised; text_emb (n, E); seg2tok (B, S) token of each segment
+    (negative indices wrap, as JAX's ``take_along_axis``); transcript (B, S);
+    seg_mask (B, S) bool."""
+    M, E = projected_tokens.shape[1:]
+    idx = (seg2tok.long() % M)[..., None].expand(-1, -1, E)
+    matched_tok = projected_tokens.gather(1, idx)  # (B, S, E)
+    matched_text = text_emb[transcript.long()]  # (B, S, E)
+    sim = torch.matmul(matched_tok, matched_text.transpose(1, 2)) / temperature  # (B, S, S)
+    sim = sim.masked_fill(~seg_mask[:, None, :], -1e9).masked_fill(~seg_mask[:, :, None], -1e9)
+    m = seg_mask.to(sim.dtype)
+    norm = m.sum(dim=1).clamp(min=1e-12)
+    ce_a2t = -torch.diagonal(torch.log_softmax(sim, dim=2), dim1=1, dim2=2)
+    ce_t2a = -torch.diagonal(torch.log_softmax(sim, dim=1), dim1=1, dim2=2)
+    return ((ce_a2t * m).sum(dim=1) / norm + (ce_t2a * m).sum(dim=1) / norm) / 2.0

@@ -314,13 +314,45 @@ FLASH_SUM_GROUP = 16  # dyq's tile shares and the bias sums, added a run at a ti
 
 
 def has_backward(M: int, X: int, d: int) -> bool:
-    """Whether the card has a backward kernel at this shape: the flash form
-    holds M query rows in its 64-wide panels (any d, in column chunks), the
-    small-X form a (16, d) tile of g_attn and a (16, X) tile of dlogits
-    beside its panel (``sx_smem``)."""
+    """Whether one backward call takes this shape: the flash form holds M
+    query rows in its 64-wide panels (any d, in column chunks), the small-X
+    form a (16, d) tile of g_attn and a (16, X) tile of dlogits beside its
+    panel (``sx_smem``).  ``_X2Y`` runs the flash backward on
+    FLASH_MAX_QUERIES query rows at a time (``takes_grad``)."""
     if X >= FLASH_MIN_KEYS:
         return M <= FLASH_MAX_QUERIES
     return sx_smem(X, d) <= _build.MAX_SMEM
+
+
+def takes_grad(M: int, X: int, d: int) -> bool:
+    """Whether the card has a backward at this shape: the flash form at any
+    M, its query rows in chunks of FLASH_MAX_QUERIES (``_flash_bwd_rows``;
+    the holdout recipes' 75 tokens in two), the small-X form where
+    ``has_backward`` holds."""
+    return has_backward(min(M, FLASH_MAX_QUERIES), X, d)
+
+
+def _flash_bwd_rows(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn,
+                    g_attn, g_probs, g_logits, need_xpos_grad):
+    """``x2y_flash_bwd`` on FLASH_MAX_QUERIES query rows at a time.  Each
+    query row attends on its own, so the chunks' cotangents of the query
+    side (y, y_pos) join along the rows and the others (x, x_pos and every
+    weight) add, in chunk order.  One call where M <= FLASH_MAX_QUERIES."""
+    M = y_in.shape[1]
+    parts = []
+    for m0 in range(0, M, FLASH_MAX_QUERIES):
+        r = slice(m0, m0 + FLASH_MAX_QUERIES)
+        rows = lambda t: None if t is None else t[:, r]  # noqa: E731
+        parts.append(x2y_flash_bwd(
+            y_in[:, r], rows(y_pos), x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
+            probs[:, r].contiguous(), attn[:, r], g_attn[:, r], rows(g_probs), rows(g_logits),
+            need_xpos_grad=need_xpos_grad))
+    if len(parts) == 1:
+        return parts[0]
+    joined = (0, 1)  # d_y, d_ypos: one row each
+    return tuple(None if p[0] is None
+                 else torch.cat(p, dim=1) if i in joined else torch.stack(p).sum(dim=0)
+                 for i, p in enumerate(zip(*parts)))
 
 
 def _shared(pos) -> bool:
@@ -547,8 +579,8 @@ class _X2Y(torch.autograd.Function):
         if x_in.device.type == "cpu":
             grads = x2y_bwd_reference(*args, probs, g_attn, g_probs, g_logits)
         elif flash and _shared(x_pos):
-            grads = x2y_flash_bwd(*args, probs, attn, g_attn, g_probs, g_logits,
-                                  need_xpos_grad=ctx.needs_input_grad[3])
+            grads = _flash_bwd_rows(*args, probs, attn, g_attn, g_probs, g_logits,
+                                    need_xpos_grad=ctx.needs_input_grad[3])
         elif not flash and _shared(y_pos):
             grads = x2y_small_x_bwd(*args, probs, g_attn, g_probs, g_logits,
                                     need_ypos_grad=ctx.needs_input_grad[1],
@@ -568,6 +600,6 @@ def x2y_attention(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
             return x2y_attention_reference(*args)
         return _x2y_forward(*args)
     if x_in.device.type != "cpu":
-        _build.require_backward("x2y_attention", has_backward(y_in.shape[1], x_in.shape[1],
-                                                              wq.shape[1]))
+        _build.require_backward("x2y_attention", takes_grad(y_in.shape[1], x_in.shape[1],
+                                                            wq.shape[1]))
     return _X2Y.apply(*args)

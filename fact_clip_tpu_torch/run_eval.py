@@ -6,7 +6,9 @@
 Loads ``network.iter-<N>.net`` (or a reference ``.net`` / ``.pth`` state_dict)
 into the config's model, runs the test split and writes
 ``eval_results/eval_result.gz`` beside the checkpoint's directory.  Runs on the
-CUDA card and refuses to start without one unless given ``--device cpu``.
+CUDA card and refuses to start without one unless given ``--device cpu``.  A
+``use_clip`` recipe reads its text embeddings as the train CLI does and
+decodes FACT_CLIP with them (zero-shot over every class).
 """
 
 from __future__ import annotations
@@ -17,18 +19,21 @@ from .engine import checkpoint as ckpt_io
 from .engine.setup import build_experiment
 from .engine.steps import make_eval_step
 from .engine.train_loop import evaluate
-from .train import parse_args, start
+from .home import get_project_base
+from .train import clip_text_embeddings, parse_args, start
 
 
 def main(argv=None):
     args = parse_args(argv, ckpt=True)
     device, cfg = start(args)
-    exp = build_experiment(cfg, device)
+    exp = build_experiment(cfg, device,
+                           text_embeddings=clip_text_embeddings(cfg, get_project_base()))
     print("Test dataset ", exp.test_dataset)
     print(f"Loading checkpoint: {args.ckpt_file}")
     ckpt_io.load_model(exp.model, args.ckpt_file)
     print("Checkpoint loaded.")
-    ckpt = evaluate(-2, exp, make_eval_step(exp.model, cfg.FACT.mwt), None, None)
+    ckpt = evaluate(-2, exp, make_eval_step(exp.model, cfg.FACT.mwt, exp.clip_bundle), None,
+                    None)
     savedir = os.path.join(os.path.dirname(args.ckpt_file), "../eval_results")
     os.makedirs(savedir, exist_ok=True)
     ckpt.save(os.path.join(savedir, "eval_result.gz"))

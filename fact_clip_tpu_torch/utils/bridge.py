@@ -18,22 +18,23 @@ from .torch_export import export_fact_state_dict, export_verbnoun_state_dict
 
 
 def state_dict_from_jax(params, block_cfgs, verbnoun: bool = False) -> dict:
-    """params: the flax ``variables["params"]`` tree of FACT, or of
-    VerbNounFACT with ``verbnoun`` (numpy or jax arrays); block_cfgs: the
-    port's (or the JAX package's) BlockCfg tuple."""
+    """params: the flax ``variables["params"]`` tree of FACT or FACT_CLIP
+    (``{"fact", "frame_projection"}``), or of VerbNounFACT with ``verbnoun``
+    (numpy or jax arrays); block_cfgs: the port's (or the JAX package's)
+    BlockCfg tuple."""
     export = export_verbnoun_state_dict if verbnoun else export_fact_state_dict
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in export(params, block_cfgs).items()}
 
 
 def load_jax_params(model, params) -> None:
-    """Load JAX FACT (or VerbNounFACT) parameters into the port's model of
-    the same kind, strictly."""
+    """Load JAX FACT, FACT_CLIP or VerbNounFACT parameters into the port's
+    model of the same kind, strictly."""
     verbnoun = isinstance(model, VerbNounFACT)
     model.load_state_dict(state_dict_from_jax(params, model.block_cfgs, verbnoun), strict=True)
 
 
 def grads_from_jax(grads, block_cfgs, verbnoun: bool = False) -> dict:
-    """A JAX gradient tree of FACT's (or with ``verbnoun`` VerbNounFACT's)
-    params -> {port parameter name: gradient}."""
+    """A JAX gradient tree of FACT's or FACT_CLIP's (or with ``verbnoun``
+    VerbNounFACT's) params -> {port parameter name: gradient}."""
     return state_dict_from_jax(grads, block_cfgs, verbnoun)

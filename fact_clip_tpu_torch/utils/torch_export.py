@@ -6,9 +6,10 @@ export_fact_state_dict`` (the FACT part) and ``::export_verbnoun_state_dict``
 (numpy only), so that the port imports nothing of the JAX package.  It
 covers what the port builds: MSTCN and MS-TCN++ frame towers (``f: m``,
 ``f: m2``), SA and SCA action decoders, the X2Y maps and the TDU blocks'
-BiGRU and dense layers; transcript mode and FACT_CLIP's projection are not
-ported yet and raise.  Tests hold it equal to the JAX package's exporter
-key for key and value for value.
+BiGRU and dense layers, and FACT_CLIP's frame projection (the ``{"fact",
+"frame_projection"}`` tree, ``export_fact_state_dict``'s CLIP branch);
+transcript mode is not ported and raises.  Tests hold it equal to the JAX
+package's exporter key for key and value for value.
 
 Layouts (flax -> torch):
 
@@ -163,18 +164,18 @@ def _x2y(out, prefix, node):
 
 
 def export_fact_state_dict(params, block_cfgs) -> dict:
-    """The flax FACT tree (``variables["params"]``, numpy or array leaves)
-    -> {reference state_dict key: float32 numpy array}."""
+    """The flax FACT tree (``variables["params"]``, numpy or array leaves),
+    or FACT_CLIP's ``{"fact": ..., "frame_projection": ...}``, -> {reference
+    state_dict key: float32 numpy array}."""
     params = _as_plain_dict(params)
-    if "frame_projection" in params or "fact" in params:
-        raise ValueError("FACT_CLIP is not ported")
-    if "action_query" not in params:
+    fact = params.get("fact", params)
+    if "action_query" not in fact:
         raise ValueError("transcript mode is not ported")
-    out = {"action_query": _f32(params["action_query"])[:, None, :]}  # (M, E) -> (M, 1, E)
+    out = {"action_query": _f32(fact["action_query"])[:, None, :]}  # (M, E) -> (M, 1, E)
     for idx, c in enumerate(block_cfgs):
         if c.f not in _FBRANCH:
             raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
-        p, blk = f"block_list.{idx}", params[f"block{idx}"]
+        p, blk = f"block_list.{idx}", fact[f"block{idx}"]
         _FBRANCH[c.f](out, p + ".frame_branch", blk["frame_branch"], in_map=c.kind == "i")
         _abranch(out, p + ".action_branch", blk["action_branch"], c)
         if c.kind in ("u", "U"):
@@ -186,6 +187,14 @@ def export_fact_state_dict(params, block_cfgs) -> dict:
             _dense(out, p + ".sf_merge.0", blk["sf_merge"])
         elif c.kind not in ("i", "u"):
             raise ValueError(f"unexpected block kind {c.kind!r} in FACT export")
+    if "frame_projection" in params:  # FACT_CLIP (layers.py:1209, blocks.py:141-175)
+        proj = params["frame_projection"]
+        missing = sorted({"TorchDense_0", "LayerNorm_0", "TorchDense_1"} - set(proj))
+        if missing:
+            raise ValueError(f"FACT_CLIP's frame_projection lacks {missing}")
+        _dense(out, "frame_projection.projection.0", proj["TorchDense_0"])
+        _layernorm(out, "frame_projection.projection.1", proj["LayerNorm_0"])
+        _dense(out, "frame_projection.projection.4", proj["TorchDense_1"])
     return out
 
 

@@ -306,8 +306,23 @@ def test_the_experiment_turns_tf32_off(recipe, monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
 
 
+def test_run_train_with_use_clip_trains_and_logs_contrastive_loss(recipe, tmp_path):
+    """FACT_CLIP (ROADMAP M10) on the CPU: given text embeddings the run
+    trains on the contrastive loss too and logs it beside the loss."""
+    _, cfg = _cfgs(recipe, "use_clip", "true")
+    emb = np.random.default_rng(0).normal(size=(5, 16)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    step, best = tl.run_train(cfg, device="cpu", base_dir=str(tmp_path), text_embeddings=emb)
+    assert step.clip_bundle is not None and step.optimizer.count == 4 and best is not None
+    with open(os.path.join(_logdir(str(tmp_path), cfg), "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "train-loss/loss" in line]
+    assert len(recs) == 2
+    assert all(r["train-loss/contrastive_loss"] > 0 and np.isfinite(r["train-loss/fact_loss"])
+               for r in recs)
+
+
 @pytest.mark.parametrize("sets, match", [
-    (("use_clip", "true"), "M10"), (("FACT.trans", "true"), "M11"),
+    (("FACT.trans", "true"), "M11"),
     (("TPU.num_data_shards", "2"), "M13"), (("TPU.num_seq_shards", "2"), "M13"),
     (("TPU.profile_dir", "trace"), "profile_dir"),
     (("TPU.checkpoint_backend", "orbax"), "orbax"),
