@@ -3,7 +3,8 @@
 serving, training, for the flagship, for Breakfast, for the Epic-Kitchens
 verb/noun model and for EgoProceL, the first three served with int8
 evaluation (the flagship and Breakfast also with the int8 towers' row
-form), the single-layer K1 and the narrow twin.
+form), the single-layer K1, the narrow twin, the training loop, FACT_CLIP,
+and GTEA's two recipes with transcript mode.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,14 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    Breakfast's and EgoProceL's shapes) and K5; FACT_CLIP's shapes (phase
    16: K6, K3 at E=512 and M=40 and at M=75, K4 at E=512, M=40 and at
    M=75, K2's flash form at 75 queries, its backward in two launches of
-   64 and 11 query rows as training runs it).  For every
+   64 and 11 query rows as training runs it); GTEA's shapes (phase 17,
+   ``gtea`` cases: K1 at 1 x 2,048 x 128, 10 layers, forward, training
+   form and backward; K3 forward and backward at X=2,048, M=35, E=128, H=8,
+   hd=16, dropout 0.2; K4's SA and FFN forwards and backwards at B=1, M=35,
+   E=128, F=512, dropout 0.2; K2's small-X form at X=35 with ragged x_len
+   (27, 13), d=512, and its flash form at M=35, X=2,048, both directions,
+   zero token positions as transcript mode has them; K5 at 1 x 2,048, 11
+   classes).  For every
    case, the kernel's time beside the plain version's (CUDA events) and
    its bound: the larger of its FLOPs at the card's f32 rate (67 TFLOP/s)
    and its bytes (each input read once, each output written once) at
@@ -298,12 +306,47 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    fact_loss and contrastive_loss; then ``python3 -m
    fact_clip_tpu_torch.run_eval --ckpt .../network.iter-4.net`` gives
    metrics and predictions equal to saves/4.gz's.
-17. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+17. transcript mode (ROADMAP M11) and GTEA's recipes (M9), uncut, seeded
+   weights, D=2048, 11 classes, a segment cap (the token count in
+   transcript mode) of 35, ``s_pred_cap`` 96.  (a) ``gtea_transcript_cfg()``
+   (``iuU``, an SCA of 3 layers at a_dim 128 with 8 heads, ``f: m`` 128
+   wide, ``seq`` matching, mwt 0): 6 requests of 650-2,048 frames with
+   transcripts of 10-35 entries through ``Predictor(batch_size=1,
+   seg_cap=35).predict(..., transcripts=)``, every prediction a class of
+   its transcript and the launches exactly ``gtea_serve_launches`` (K3
+   from 1,024 frames, K2's flash f2a past them), every other counter 0;
+   the eval step on both paths (block-0 logits within LOGIT_TOL, >=
+   MIN_AGREE of the predictions); 1 warm-up + 3 Adam steps at 1 x 2,048
+   (dropout 0.2, cmr 0.5, time masking): exactly ``gtea_step_launches``
+   a step (K1-K5 forward and backward, K5 three times: the column-masked
+   attention smoothing stays plain) and no mask kernel; the warm step of
+   each path split with peak memory; ``train_compare`` seeds 1-3.  (b) the
+   same with an ``a: gru_om`` input block (learning-dynamics recipe
+   "transcript"): the eval step on both paths, 1 + 1 steps with their
+   launches (no K3, 2 SA and FFN layers), ``train_compare`` seed 1.  (c)
+   ``gtea_cfg()`` / ``gtea_train_cfg()`` (60 learned tokens, a 6-layer SCA,
+   o2o matching) served on the same requests without transcripts and
+   trained as (a), K5 five times a step.  (d) gtea_transcript.yaml through
+   ``fact_clip_tpu_torch.train.main`` (in this process) on a GTEA-shaped
+   set (``data/synthetic.py::GTEA_SHAPE``: 2 + 2 videos of 600-2,100
+   frames, 10-35 segments): 4 steps of batch 1, test passes at 2 and 4,
+   each step's launches exactly ``gtea_step_launches`` of its padded
+   length; a cut run resumed at iteration 4 (weights bit-equal, the
+   optimizer at step 4) for 2 more steps and a test pass at 6; ``python3
+   -m fact_clip_tpu_torch.run_eval`` on network.iter-6.net equal to
+   saves/6.gz.  (e) ``epic_cfg()`` in transcript mode (``ntoken`` 0,
+   ``seq``) at 1 x 9,000 frames with a transcript of 40 of 64 slots: the
+   eval step launches EPIC_PER_BATCH without K7b (the transcript decode is
+   the attention's argmax), kernel against plain path, every prediction
+   an action of the transcript; ``train_compare`` seed 1.
+18. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
    from phase 11b's predicts (0 on every other path), the single-layer K1's
    and K1's mask kernel's from phase 12 (the tower re-hashes its masks
    inside its kernels); the factored argmax, a verification oracle, launches
-   0), the nvidia-smi line, and last the contract line {"ok": true,
+   0; each kernel of phase 17 (a)'s transcript path also its launches there,
+   ``transcript_launches``: the 6 requests and the 3 steps), the nvidia-smi
+   line, and last the contract line {"ok": true,
    "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -1656,6 +1699,9 @@ def kernel_table():
     ET, epic_voc, rag_voc, vn_rag = EPIC_T, (98, 301, 3806), (13, 29, 97), [1000, 777, 129]
     E = 256  # epic's a_dim: the token decoders' width (the stream is 512 wide)
     ov_len = [3072, 2950]  # phase 16's first training batch (FACT_CLIP)
+    # GTEA (phase 17): batch 1 of 2,048 frames, a_dim 128 with 8 heads (hd = 16),
+    # towers 128 wide, M = 35 transcript tokens (27 valid), 96 predicted segments
+    GT, GE, GM, ga = GTEA_T, 128, GTEA_DIMS[2], [27, 13]
     csrc = "fact_clip_tpu_torch/csrc/"
     pallas = "fact_clip_tpu/ops/pallas/"
     return [
@@ -1669,7 +1715,10 @@ def kernel_table():
           # small_cfg()'s towers: 24 channels, each tap padded to a 32-float K step
           ("c24", lambda r: k1_fwd_case(r, 2, 1000, 24, 32, *ragged_k1, False)),
           ("c24_train", lambda r: k1_fwd_case(r, 2, 1000, 24, 32, *ragged_k1, False, 0.2,
-                                              True))]),
+                                              True)),
+          ("gtea", lambda r: k1_fwd_case(r, 1, GT, GE, D, tower, [GT], False)),
+          ("gtea_train", lambda r: k1_fwd_case(r, 1, GT, GE, D, tower, [GT], False, 0.2,
+                                               True))]),
         ("x2y_small_x", csrc + "x2y_attn.cu", pallas + "x2y_attn.py:76", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
@@ -1689,7 +1738,11 @@ def kernel_table():
                                                _rand(r, (1, 4096, D)), _rand(r, (1, 60, D)))),
           # a video with no valid key attends to all its keys, as JAX's
           ("xlen0", lambda r: x2y_fwd_case(r, False, 2, 300, 256, D, D, D, [256, 0],
-                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
+                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
+          # GTEA's a2f in transcript mode: the frames over the transcript's 35
+          # token slots, ragged valid lengths, zero token positions
+          ("gtea_a2f", lambda r: x2y_fwd_case(r, False, 2, GT, GM, D, D, D, ga,
+                                              zeros(1, GT, D), zeros(1, GM, GE)))]),
         ("x2y_flash", csrc + "flash_attn.cu", pallas + "x2y_attn.py:159", "probs",
          [("flagship", lambda r: x2y_fwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -1703,7 +1756,10 @@ def kernel_table():
                                                _rand(r, (1, 60, D)), zeros(1, 4096, D))),
           # the holdout recipes' f2a (FACT_CLIP, phase 16): 75 tokens over 2 x 3072
           ("holdout", lambda r: x2y_fwd_case(r, True, 2, 75, T, D, D, D, ov_len,
-                                             _rand(r, (1, 75, 256)), zeros(1, T, D)))]),
+                                             _rand(r, (1, 75, 256)), zeros(1, T, D))),
+          # GTEA's f2a in transcript mode: the 35 token slots over 2,048 frames
+          ("gtea_f2a", lambda r: x2y_fwd_case(r, True, 1, GM, GT, D, D, D, [GT],
+                                              zeros(1, GM, GE), zeros(1, GT, D)))]),
         ("mha_cross", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "rel",
          [("flagship", lambda r: mha_fwd_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                               zeros(1, T, D))),
@@ -1722,7 +1778,9 @@ def kernel_table():
                                            _rand(r, (1, 1100, D)), 0.2)),
           # the holdout recipes' SCA (FACT_CLIP, phase 16): 75 tokens, dropout 0.2
           ("holdout", lambda r: mha_fwd_case(r, 2, 75, T, 256, D, 8, ov_len, zeros(1, T, D),
-                                             0.2))]),
+                                             0.2)),
+          # GTEA's SCA: 35 tokens at E = 128, H = 8 (hd = 16), dropout 0.2
+          ("gtea", lambda r: mha_fwd_case(r, 1, GM, GT, GE, D, 8, [GT], zeros(1, GT, D), 0.2))]),
         ("sa_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "rel",
          [("flagship", lambda r: sa_fwd_case(r, B, 40, 256, 8)),
           ("ragged", lambda r: sa_fwd_case(r, 3, 37, 256, 8)),
@@ -1737,7 +1795,8 @@ def kernel_table():
           # trained (B=2); the holdout recipes' M=75, E=256, dropout 0.2
           ("openvocab", lambda r: sa_fwd_case(r, B, 40, D, 8)),
           ("ov_train", lambda r: sa_fwd_case(r, 2, 40, D, 8)),
-          ("holdout", lambda r: sa_fwd_case(r, 2, 75, 256, 8, 0.2))]),
+          ("holdout", lambda r: sa_fwd_case(r, 2, 75, 256, 8, 0.2)),
+          ("gtea", lambda r: sa_fwd_case(r, 1, GM, GE, 8, 0.2))]),
         ("ffn_sublayer", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "rel",
          [("flagship", lambda r: ffn_fwd_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn_fwd_case(r, 3, 37, 256, 512)),
@@ -1752,6 +1811,7 @@ def kernel_table():
           ("openvocab", lambda r: ffn_fwd_case(r, B, 40, D, 512)),
           ("ov_train", lambda r: ffn_fwd_case(r, 2, 40, D, 512)),
           ("holdout", lambda r: ffn_fwd_case(r, 2, 75, 256, 512, 0.2)),
+          ("gtea", lambda r: ffn_fwd_case(r, 1, GM, GE, 512, 0.2)),
           # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
           ("e42", lambda r: ffn_fwd_case(r, 2, 37, 42, 84, 0.2)),
           ("f2304", lambda r: ffn_fwd_case(r, 1, 64, 64, 2304))]),
@@ -1772,7 +1832,8 @@ def kernel_table():
         ("mstcn_stack_bwd", csrc + "mstcn.cu", pallas + "dilated_conv.py:689", "rel",
          [("flagship", lambda r: k1_bwd_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: k1_bwd_case(r, 2, 1000, 256, D, *ragged_k1, True)),
-          ("c24", lambda r: k1_bwd_case(r, 2, 1000, 24, 32, *ragged_k1, False))]),
+          ("c24", lambda r: k1_bwd_case(r, 2, 1000, 24, 32, *ragged_k1, False)),
+          ("gtea", lambda r: k1_bwd_case(r, 1, GT, GE, D, tower, [GT], False))]),
         ("x2y_small_x_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:430", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, False, B, T, 40, D, D, D, [40] * B,
                                               _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
@@ -1790,7 +1851,9 @@ def kernel_table():
           ("breakfast", lambda r: x2y_bwd_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
                                                zeros(1, 4096, D), _rand(r, (1, 60, D)))),
           ("xlen0", lambda r: x2y_bwd_case(r, False, 2, 300, 256, D, D, D, [256, 0],
-                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D))))]),
+                                           _rand(r, (1, 300, E)), _rand(r, (2, 256, D)))),
+          ("gtea_a2f", lambda r: x2y_bwd_case(r, False, 2, GT, GM, D, D, D, ga,
+                                              zeros(1, GT, D), zeros(1, GM, GE)))]),
         ("x2y_flash_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "rel",
          [("flagship", lambda r: x2y_bwd_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                               _rand(r, (1, 40, 256)), zeros(1, T, D))),
@@ -1803,7 +1866,10 @@ def kernel_table():
           ("holdout", lambda r: x2y_bwd_case(r, True, 2, 75, T, D, D, D, ov_len,
                                              _rand(r, (1, 75, 256)), zeros(1, T, D))),
           ("xlen0", lambda r: x2y_bwd_case(r, True, 2, 37, 2048, D, D, D, [2048, 0],
-                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D))))]),
+                                           _rand(r, (1, 37, D)), _rand(r, (1, 2048, D)))),
+          # GTEA's f2a: 35 query rows, one launch
+          ("gtea_f2a", lambda r: x2y_bwd_case(r, True, 1, GM, GT, D, D, D, [GT],
+                                              zeros(1, GM, GE), zeros(1, GT, D)))]),
         # hashed: the training path's form, held bit for bit against the
         # same kernels fed the mask; the other cases are fed it
         ("mha_cross_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "rel",
@@ -1818,7 +1884,9 @@ def kernel_table():
           ("xlen0", lambda r: mha_bwd_case(r, 2, 11, 1100, 256, D, 8, [1100, 0],
                                            _rand(r, (1, 1100, D)))),
           ("holdout", lambda r: mha_bwd_case(r, 2, 75, T, 256, D, 8, ov_len, zeros(1, T, D),
-                                             hashed=True))]),
+                                             hashed=True)),
+          ("gtea", lambda r: mha_bwd_case(r, 1, GM, GT, GE, D, 8, [GT], zeros(1, GT, D),
+                                          hashed=True))]),
         ("sa_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "rel",
          [("flagship", lambda r: sa_bwd_case(r, B, 40, 256, 8, hashed=True)),
           ("flag_masks", lambda r: sa_bwd_case(r, B, 40, 256, 8)),
@@ -1837,6 +1905,7 @@ def kernel_table():
           # dropout) and the holdout recipes' (M=75, E=256, dropout 0.2)
           ("ov_train", lambda r: sa_bwd_case(r, 2, 40, D, 8, 0.0)),
           ("holdout", lambda r: sa_bwd_case(r, 2, 75, 256, 8, hashed=True)),
+          ("gtea", lambda r: sa_bwd_case(r, 1, GM, GE, 8, hashed=True)),
           # small_cfg()'s (phase 14): 8 tokens, E=16, H=4 (hd = 4; E below a K step)
           ("small", lambda r: sa_bwd_case(r, 2, 8, 16, 4, hashed=True))]),
         ("ffn_sublayer_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "rel",
@@ -1852,6 +1921,7 @@ def kernel_table():
           # FACT_CLIP (phase 16), as the SA cases
           ("ov_train", lambda r: ffn_bwd_case(r, 2, 40, D, 512, 0.0)),
           ("holdout", lambda r: ffn_bwd_case(r, 2, 75, 256, 512, hashed=True)),
+          ("gtea", lambda r: ffn_bwd_case(r, 1, GM, GE, 512, hashed=True)),
           # E % 4 != 0 and F > 2048: the LayerNorm step's scalar staging
           ("e42", lambda r: ffn_bwd_case(r, 2, 37, 42, 84)),
           ("f2304", lambda r: ffn_bwd_case(r, 1, 64, 64, 2304, 0.0))]),
@@ -1861,14 +1931,16 @@ def kernel_table():
           ("ragged", lambda r: frame_loss_case(r, False, 2, 1000, 37, [1000, 777])),
           # a video of no valid frame, one shorter than a row chunk; T shorter than one
           ("len0", lambda r: frame_loss_case(r, False, 3, 1000, 75, [1000, 0, 50])),
-          ("short", lambda r: frame_loss_case(r, False, 2, 90, 40, [90, 0]))]),
+          ("short", lambda r: frame_loss_case(r, False, 2, 90, 40, [90, 0])),
+          ("gtea", lambda r: frame_loss_case(r, False, 1, GT, 11, [GT]))]),
         ("frame_loss_bwd", csrc + "frame_loss.cu", pallas + "frame_loss.py:212", "rel",
          [("flagship", lambda r: frame_loss_case(r, True, B, T, 75, FLAGSHIP_LENGTHS)),
           ("smooth", lambda r: frame_loss_case(r, True, B, T, 40, FLAGSHIP_LENGTHS, False)),
           ("ragged", lambda r: frame_loss_case(r, True, 2, 1000, 37, [1000, 777])),
           # a video of no valid frame, one shorter than a row chunk; T shorter than one
           ("len0", lambda r: frame_loss_case(r, True, 3, 1000, 75, [1000, 0, 50])),
-          ("short", lambda r: frame_loss_case(r, True, 2, 90, 40, [90, 0]))]),
+          ("short", lambda r: frame_loss_case(r, True, 2, 90, 40, [90, 0])),
+          ("gtea", lambda r: frame_loss_case(r, True, 1, GT, 11, [GT]))]),
         # Breakfast (f: m2, E = 512): K6 and K3 at its widths
         ("mstcn2_stack", csrc + "mstcn2.cu", pallas + "dilated_conv.py:976", "rel",
          [("breakfast", lambda r: k6_fwd_case(r, 4, 4096, D, D, 10, bf_len)),
@@ -2352,12 +2424,14 @@ def phase_serving(seed: int = 0):
     return counts
 
 
-def eval_paths(tag, model, cfg, rng, lengths, T, D, clip_bundle=None):
+def eval_paths(tag, model, cfg, rng, lengths, T, D, clip_bundle=None, tokens=None):
     """The warm eval step alone on one full batch, on the kernel and on the
     plain path, and the two paths against each other.  With a clip bundle
     (FACT_CLIP) the step decodes against its text embeddings, and the
     paths' CLIP probabilities (the softmax of the frames' similarities to
-    every class) are held within PROB_TOL too."""
+    every class) are held within PROB_TOL too.  ``tokens`` (a model in
+    transcript mode): the batch's ``transcript`` and ``seg_mask`` on the
+    card, given to the step and the model."""
     import torch
 
     from fact_clip_tpu_torch.engine.steps import make_eval_step
@@ -2372,13 +2446,14 @@ def eval_paths(tag, model, cfg, rng, lengths, T, D, clip_bundle=None):
     mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
     lens = torch.from_numpy(blen).to(dev)
     step = make_eval_step(model, cfg["FACT"]["mwt"], clip_bundle)
+    tokens = tokens or {}
 
     def warm_ms(n=6):
         times = []
         for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = step(x, mask, lens)
+            out = step(x, mask, lens, **tokens)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         return out, times
@@ -2393,9 +2468,9 @@ def eval_paths(tag, model, cfg, rng, lengths, T, D, clip_bundle=None):
 
     # kernel path against the plain path (TPU.pallas=False counterpart) on one batch
     with torch.inference_mode():
-        saves_k, tail_k = model(x, mask, lens)
+        saves_k, tail_k = model(x, mask, lens, **tokens)
         model.set_kernels(False)
-        saves_p, tail_p = model(x, mask, lens)
+        saves_p, tail_p = model(x, mask, lens, **tokens)
     p_plain, times = warm_ms()
     model.set_kernels(True)
     log(f"[{tag}] eval step {B} x {T} warm ms, plain path: {summary(times)}")
@@ -2541,19 +2616,23 @@ def _grad_errors(names, ga, gb, top):
 
 def _own_matching(cfg0, saves, batch):
     """A path's own matching from its forward's saves, as the train step
-    makes it (o2o, or o2m on the verb/noun model's exp(action_logp)), with
-    the cost matrix it was made from."""
+    makes it (o2o, or o2m on the verb/noun model's exp(action_logp); seq,
+    transcript mode's identity, at a zero cost), with the cost matrix it was
+    made from."""
     import torch
 
     from fact_clip_tpu_torch.models import matching
 
     last = saves[-1]
+    nsegs = batch["seg_mask"].sum(dim=1)
+    if cfg0["Loss"]["match"] == "seq":
+        s2t = matching.match(cfg0["Loss"], None, None, batch["transcript"], None, None, None)
+        return s2t, torch.zeros(s2t.shape[:1] + s2t.shape[1:] * 2, device=s2t.device), nsegs
     cprob = (torch.exp(last["action_logp"]) if "action_logp" in last
              else torch.softmax(last["action_clogit"], dim=-1))
     cost = matching.match_cost(cprob, last["a2f_attn"], batch["transcript"], batch["seg_label"],
                                batch["seg_mask"], batch["mask"], float(cfg0["Loss"]["pc"]),
                                float(cfg0["Loss"]["a2fc"]))
-    nsegs = batch["seg_mask"].sum(dim=1)
     host, ns = cost.float().cpu().numpy(), nsegs.cpu().numpy()
     s2t = (matching.o2m_host(host, batch["transcript"].to(torch.int32).cpu().numpy(), ns)
            if cfg0["Loss"]["match"] == "o2m" else matching.hungarian_host(host, ns))
@@ -2771,6 +2850,151 @@ class FfnRelus:
         return patched()
 
 
+class TowerRelus:
+    """The MS-TCN++ towers' ReLU inputs of a run, in call order: each
+    layer's [c1 | c2] (the two dilated convs, the fuse's operands), recorded
+    by patching ``ops.dilated_conv._mstcn2_fwd_card`` (K6's training form,
+    which saves them) and ``models.layers.mstcn2_stack_reference`` (the
+    plain tower, asked to save them too: the same operations); and a replay
+    of the plain path that puts each proven ReLU tie on the kernel path's
+    side.  ``FfnRelus``'s rules, per (tower call, layer): a flip is a unit
+    whose float64 ReLU input fuse([c1 | c2]), recomputed from each path's
+    own [c1 | c2], has opposite signs on the two paths on a valid frame; a
+    proven tie lies within RELU_TIE of |c1| |Wt| + |c2| |Wb| + |bf| on both
+    paths."""
+
+    def __init__(self):
+        self.runs = {}
+
+    def record(self, path):
+        import contextlib
+
+        from fact_clip_tpu_torch.models import layers
+        from fact_clip_tpu_torch.ops import dilated_conv
+
+        @contextlib.contextmanager
+        def patched():
+            orig_k6, orig_ref = dilated_conv._mstcn2_fwd_card, layers.mstcn2_stack_reference
+            calls = self.runs[path] = []
+
+            def k6(x, lengths, tower, dil_pairs, out_w, out_b, rates, seeds, save, folded):
+                out = orig_k6(x, lengths, tower, dil_pairs, out_w, out_b, rates, seeds, save,
+                              folded)
+                if save:
+                    calls.append((lengths, tower, [c.detach().clone() for c in out[2]]))
+                return out
+
+            def ref(x, lengths, tower, dil_pairs, **kw):
+                logits, _, cs, _ = orig_ref(x, lengths, tower, dil_pairs, **dict(kw, save=True))
+                calls.append((lengths, tower, [c.detach().clone() for c in cs]))
+                return logits
+
+            dilated_conv._mstcn2_fwd_card, layers.mstcn2_stack_reference = k6, ref
+            try:
+                yield
+            finally:
+                dilated_conv._mstcn2_fwd_card, layers.mstcn2_stack_reference = orig_k6, orig_ref
+
+        return patched()
+
+    def _layers(self):
+        """Per (tower call, layer) of the two runs (None where their calls do
+        not pair up): (key, plain [c1 | c2], kernel [c1 | c2] (both on the
+        valid frames only: the kernel leaves the padding's alone), flip
+        mask, proven-tie mask, the kernel path's float64 ReLU inputs)."""
+        import torch
+
+        pp, pk = self.runs.get("plain", []), self.runs.get("kernels", [])
+        if len(pp) != len(pk) or any(len(a[2]) != len(b[2]) for a, b in zip(pp, pk)):
+            return None
+        out = []
+        for call, ((lengths, tower, csp), (_, _, csk)) in enumerate(zip(pp, pk)):
+            for i, (cp, ck) in enumerate(zip(csp, csk)):
+                wt, wb, bf = (t.detach().double() for t in tower[i][4:7])
+                w = torch.cat([wt, wb])  # [c1 | c2] @ [Wt ; Wb]: the fuse
+                valid = (torch.arange(cp.shape[1], device=cp.device)[None, :]
+                         < lengths.to(cp.device)[:, None])[..., None]
+                zp, zk = cp.double() @ w + bf, ck.double() @ w + bf
+                mp = cp.double().abs() @ w.abs() + bf.abs()
+                mk = ck.double().abs() @ w.abs() + bf.abs()
+                flip = ((zp > 0) != (zk > 0)) & valid
+                tie = (flip & (mp > 0) & (mk > 0) & (zp.abs() <= RELU_TIE * mp)
+                       & (zk.abs() <= RELU_TIE * mk))
+                rows = valid[..., 0]
+                out.append(((call, i), cp[rows], ck[rows], flip, tie, zk))
+        return out
+
+    def offsets(self):
+        """[(coherent offset of [c1 | c2], flipped units)] per tower layer."""
+        return [(FfnRelus.coherent(cp, ck), int(flip.sum()))
+                for _, cp, ck, flip, _, _ in self._layers() or []]
+
+    def ties(self):
+        """As ``FfnRelus.ties``, per (tower call, layer)."""
+        layers = self._layers()
+        if layers is None:
+            return {}, -1, 0, {}, ""
+        forced, flips, proven, off, text = {}, 0, 0, {}, []
+        for key, cp, ck, flip, tie, zk in layers:
+            flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
+            if bool(tie.any()):
+                forced[key] = (tie, (zk > 0).to(cp.dtype))
+                off[key] = FfnRelus.coherent(cp, ck)
+                text.append(f"tower call {key[0]} layer {key[1]}: [c1 | c2] off coherently "
+                            f"{off[key]:+.2e}")
+        return forced, flips, proven, off, "; ".join(text)
+
+    @staticmethod
+    def replay(forced):
+        """The plain tower with the ReLU of each unit in ``forced[(call,
+        layer)]``'s mask on the given side (1: passes z, 0: gives 0)."""
+        import contextlib
+        import itertools
+
+        import torch
+
+        from fact_clip_tpu_torch.models import layers
+        from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+        @contextlib.contextmanager
+        def patched():
+            orig = layers.mstcn2_stack_reference
+            count = itertools.count()
+
+            def ref(x, lengths, tower, dil_pairs, *, out_w, out_b, rates=None, seeds=None,
+                    save=False):
+                call = next(count)
+                B, T, C = x.shape
+                mask = dc._frame_mask(x, lengths)
+                y = x
+                streams, cs, hs = [x], [], []
+                for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(
+                        zip(tower, dil_pairs)):
+                    xm = y * mask
+                    c1, c2 = dc._conv3(xm, k1, b1, d1), dc._conv3(xm, k2, b2, d2)
+                    z = c1 @ wt + c2 @ wb + bf
+                    force = forced.get((call, i))
+                    h = torch.relu(z) if force is None else torch.where(
+                        force[0], z * force[1].to(z.dtype), torch.relu(z))
+                    r = dc._rate(rates, i)
+                    o = h * dc.dropout_mask_reference(seeds[i], i, (B, T, C), r) \
+                        if r > 0.0 else h
+                    y = (o + xm) * mask
+                    streams.append(y)
+                    cs.append(torch.cat([c1, c2], dim=-1))
+                    hs.append(h)
+                logits = y @ out_w + out_b
+                return (logits, streams[:-1], cs, hs) if save else logits
+
+            layers.mstcn2_stack_reference = ref
+            try:
+                yield
+            finally:
+                layers.mstcn2_stack_reference = orig
+
+        return patched()
+
+
 def _matching_gaps(sk, sp, ck, cp, nsegs):
     """[(video, gap, limit)] for each video whose two matchings differ.  gap =
     the kernel path's cost of the plain matching less that of its own.  If
@@ -2815,10 +3039,11 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
     (its own floor), and the element-wise check is held to the larger of
     GRAD_TOL and FLOOR_K times the larger floor; the norm check, which one
     flipped row barely moves, is held to GRAD_TOL.  Where the element check
-    fails and every FFN ReLU that the paths put on opposite sides is a
-    proven tie (``FfnRelus``), the kernel path is held to the same limits
-    against the plain path replayed with those ReLUs on its side; one flip
-    that is not proven fails the seed.  With a clip bundle (FACT_CLIP) the
+    fails and every FFN and MS-TCN++ tower ReLU that the paths put on
+    opposite sides is a proven tie (``FfnRelus``, ``TowerRelus``), the
+    kernel path is held to the same limits against the plain path replayed
+    with those ReLUs on its side; one flip that is not proven fails the
+    seed.  With a clip bundle (FACT_CLIP) the
     loss adds the contrastive term and the gradients include the frame
     projection's."""
     import contextlib
@@ -2832,7 +3057,9 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
     batch = batch_to_device(arrays, dev)
     o2m = cfg0["Loss"]["match"] == "o2m"
     failed = []
-    calm, tie_offsets = [], {}  # flip-free calls' offsets (first two seeds); each seed's ties'
+    # flip-free calls' offsets (first two seeds; FFN inputs, the towers' [c1 | c2]); each
+    # seed's ties'
+    calm, tower_calm, tie_offsets = [], [], {}
     for seed in seeds:
         ref = build(seed)
         step0 = make_train_step(ref, cfg0, nclasses, cweight, clip_bundle=clip_bundle)
@@ -2840,7 +3067,7 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
         nudge = torch.randn(batch["feats"].shape, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed))
         nudged = dict(batch, feats=batch["feats"] * (1.0 + 2.0 ** -23 * nudge))
-        res, sp, relus = {}, None, FfnRelus()
+        res, sp, relus, towers = {}, None, FfnRelus(), TowerRelus()
         for path, b in (("plain", batch), ("kernels", batch), ("plain_nudged", nudged),
                         ("kernels_nudged", nudged)):
             ref.set_kernels(path.startswith("kernels"))
@@ -2849,6 +3076,7 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
                     stack.enter_context(seg.run(path))
                 if path in ("plain", "kernels"):
                     stack.enter_context(relus.record(path))
+                    stack.enter_context(towers.record(path))
                 per_video, s2t, saves = step0.loss(b, gen, seg2tok=sp)
             loss = per_video.mean()
             names, params = zip(*ref.named_parameters())
@@ -2877,17 +3105,22 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
         replayed, elem_ok = "", elem <= elem_tol
         if not elem_ok:
             # the element check against the plain path with the proven ReLU ties
-            # on the kernel path's side (FfnRelus); an unproven flip fails it
+            # on the kernel path's side (FfnRelus, TowerRelus); an unproven flip
+            # fails it
             forced, flips, proven, off, where = relus.ties()
-            replayed = f"; ReLU flips {flips}, proven ties {proven}" + (
-                f" ({where})" if where else "")
-            if forced and flips == proven:
-                tie_offsets[seed] = off
+            tforced, tflips, tproven, toff, twhere = towers.ties()
+            replayed = (f"; ReLU flips {flips}, proven ties {proven}"
+                        + (f" ({where})" if where else "")
+                        + f"; tower ReLU flips {tflips}, proven ties {tproven}"
+                        + (f" ({twhere})" if twhere else ""))
+            if (forced or tforced) and flips == proven and tflips == tproven:
+                tie_offsets[seed] = {**off, **{("tower",) + k: v for k, v in toff.items()}}
                 ref.set_kernels(False)
                 with contextlib.ExitStack() as stack:
                     if seg is not None:
                         stack.enter_context(seg.run("plain_ties"))
                     stack.enter_context(relus.replay(forced))
+                    stack.enter_context(towers.replay(tforced))
                     per_video, _, saves = step0.loss(batch, gen, seg2tok=sp)
                 del saves
                 lr = float(per_video.mean().detach())
@@ -2901,7 +3134,8 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
                              f"element ratio {elem_r:.3e} ({elem_rn}; tol {elem_tol:.3e})")
         if seed in seeds[:2]:
             calm += [abs(o) for o, n in relus.offsets() if n == 0]
-        del ref, step0, res, relus
+            tower_calm += [abs(o) for o, n in towers.offsets() if n == 0]
+        del ref, step0, res, relus, towers
         torch.cuda.empty_cache()
         if seg is not None:
             matched += f"; own TDU picks differ from the shared ones on {seg.text()}"
@@ -2919,12 +3153,19 @@ def train_compare(tag, cfg0, build, nclasses, cweight, arrays, gen, seeds, clip_
     # the tie gate: a proven tie's call input may be off the plain one coherently
     # no further than the flip-free calls' inputs are
     bound = FLOOR_K * max(calm) if calm else 0.0
+    tower_bound = FLOOR_K * max(tower_calm) if tower_calm else 0.0
     log(f"[{tag}] ReLU-tie gate: coherent input offset bound {bound:.3e} (FLOOR_K x the "
         f"largest |offset| of {len(calm)} flip-free FFN calls, seeds {list(seeds[:2])})")
+    if tower_calm:
+        log(f"[{tag}] ReLU-tie gate: the towers' [c1 | c2] coherent offset bound "
+            f"{tower_bound:.3e} (FLOOR_K x the largest |offset| of {len(tower_calm)} flip-free "
+            f"tower layers)")
     for seed, off in tie_offsets.items():
         for call, o in off.items():
-            bad = abs(o) > bound
-            log(f"[{tag}] ReLU-tie gate: weights seed {seed}, FFN call {call}: offset {o:+.3e}"
+            tower = isinstance(call, tuple)
+            bad = abs(o) > (tower_bound if tower else bound)
+            where = f"tower call {call[1]} layer {call[2]}" if tower else f"FFN call {call}"
+            log(f"[{tag}] ReLU-tie gate: weights seed {seed}, {where}: offset {o:+.3e}"
                 + ("  FAIL" if bad else ""))
             if bad and seed not in failed:
                 failed.append(seed)
@@ -4516,6 +4757,388 @@ def _clip_loop(smi, seed):
             f"{peak:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: transcript mode (ROADMAP M11) and GTEA's recipes (M9)
+
+GTEA_DIMS = (2048, 11, 35, 96)  # D (I3D), classes, the segment cap (M tokens), s_pred_cap
+GTEA_T = 2048
+GTEA_BG = 10  # GTEA's background class
+# 6 requests of GTEA's lengths (600-2,100 frames; the buckets on both sides of
+# 1,024 keys, where K3 starts and the f2a leaves the small-X form for the flash one)
+GTEA_LENGTHS = [2048, 1840, 1530, 1210, 980, 650]
+GTEA_TRAIN_LENGTHS = [2048, 1900, 1500]
+TRANS_DATA = dict(name="gtea", n_classes=11, bg_class=GTEA_BG, feat_dim=2048, min_len=600,
+                  max_len=2100, min_segs=10, max_segs=35, n_train=2, n_test=2, seed=0)
+TRANS_YAML = os.path.join("fact_clip_tpu", "configs", "gtea_transcript.yaml")
+TRANS_SETS = ["bg_class", str(GTEA_BG), "aux.eval_every", "2", "aux.print_every", "1",
+              "TPU.save_opt_state", "true"]
+
+
+def gtea_serve_launches(a_layers: int, buckets) -> dict:
+    """What ``iuU`` at GTEA's widths launches over batches of the given
+    padded lengths: 3 towers (K1); the SCA's ``a_layers`` fused self-attention
+    and FFN sublayers (K4) and, from 1,024 frames, its cross-attention (K3);
+    one SA layer (K4) in each update block; four X2Y maps (K2): the a2f maps
+    and the TDU's f2a over the tokens or segments (small-X), the u block's
+    f2a over the frames, small-X up to 1,024 keys and flash past them."""
+    n = len(buckets)
+    flash = sum(b >= 1025 for b in buckets)
+    return {"mstcn_stack": 3 * n, "mha_cross": a_layers * sum(b >= 1024 for b in buckets),
+            "sa_sublayer": (a_layers + 2) * n, "ffn_sublayer": (a_layers + 2) * n,
+            "x2y_flash": flash, "x2y_small_x": 4 * n - flash}
+
+
+def gtea_step_launches(T: int, a_layers: int, trans: bool) -> dict:
+    """One ``iuU`` train step at GTEA's widths on a batch padded to T: the
+    forwards (``gtea_serve_launches``; ``a_layers`` 0 for a GRU input block,
+    which launches none), each of their backwards once, and K5 on the three
+    blocks' frame losses plus, outside transcript mode, the u block's two
+    attention smoothings (transcript mode's column-masked ones stay plain,
+    as JAX's)."""
+    fwd = gtea_serve_launches(a_layers, [T])
+    out = dict(fwd)
+    out.update({k + "_bwd": v for k, v in fwd.items()})
+    out["frame_loss_fwd"] = out["frame_loss_bwd"] = 3 if trans else 5
+    return out
+
+
+def _gtea_transcripts(rng, n: int, C: int, lo=10, hi=35) -> list:
+    """``n`` transcripts of lo-hi entries over C classes, no two neighbours equal."""
+    out = []
+    for _ in range(n):
+        t = [int(rng.integers(0, C))]
+        for _ in range(int(rng.integers(lo, hi + 1)) - 1):
+            t.append(int((t[-1] + rng.integers(1, C)) % C))
+        out.append(np.array(t, np.int32))
+    return out
+
+
+def _tokens(batch):
+    """A batch's transcript and seg_mask on the card (the model's transcript
+    arguments)."""
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to("cuda")
+            for k in ("transcript", "seg_mask")}
+
+
+def _serve_check(tag, pred, lengths, feats, transcripts, want, C):
+    """``pred.predict`` on the requests: every prediction's shape, dtype and
+    range (with transcripts a class of the request's transcript), and the
+    launches of the call, exactly ``want`` and every other counter 0."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+
+    pred.predict(feats[-1:], None if transcripts is None else transcripts[-1:])  # warm
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats, transcripts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    for i, (n, o) in enumerate(zip(lengths, outs)):
+        ok = o.shape == (n,) and o.dtype == np.int32 and o.min() >= 0 and o.max() < C
+        if transcripts is not None:
+            ok = ok and set(np.unique(o).tolist()) <= set(transcripts[i].tolist())
+        if not ok:
+            raise AssertionError(f"[{tag}] bad prediction {i}: shape {o.shape} dtype {o.dtype}")
+    buckets = [pred.bucket_for(n) for n in lengths]
+    log(f"[{tag}] predict: {len(feats)} requests of {lengths} frames (buckets {buckets})"
+        + ("" if transcripts is None else
+           f" with transcripts of {[len(t) for t in transcripts]} entries")
+        + f", {dt:.3f} s; launches {dict((k, v) for k, v in counts.items() if v)}")
+    _launch_check(tag, counts, {**{k: 0 for k in counts}, **want(buckets)})
+    return counts
+
+
+def _trans_train(tag, cfg, build, C, cweight, batches, gen, want, seeds):
+    """1 warm-up + one Adam step a batch of ``build(cfg["run"], 0)`` (every
+    loss finite, the launches of those steps exactly ``want`` a step, no
+    mask kernel), the warm step of each path split with peak memory, and
+    ``train_compare`` on ``seeds`` with dropout and masking off
+    (``cfg["compare"]``)."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import run_steps
+
+    model = build(cfg["run"], 0)
+    step = make_train_step(model, cfg["run"], C, cweight)
+    warm = run_steps(step, batches[:1], generator=gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = run_steps(step, batches, generator=gen)
+    torch.cuda.synchronize()
+    counts = kernel_counters()
+    losses = [warm[0]["loss"]] + [o["loss"] for o in outs]
+    log(f"[{tag}] {sum(p.numel() for p in model.parameters())} parameters, nullw "
+        f"{cfg['run']['Loss']['nullw']:.6f}, cmr {cfg['run']['FACT']['cmr']}, TM "
+        f"{cfg['run']['TM']['use']}, dropout {cfg['run']['Bi']['dropout']}, input block "
+        f"{cfg['run']['Bi']['a']}; 1 warm-up + {len(batches)} Adam steps on 1 x {GTEA_T} "
+        f"({[int(b['lengths'][0]) for b in batches]} frames): losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; launches in {len(batches)} steps "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[{tag}] losses {losses}")
+    _launch_check(tag, counts, {**{k: 0 for k in counts},
+                                **{k: len(batches) * v for k, v in want.items()}})
+    train_paths(tag, model, step, batches, gen, f"1 x {GTEA_T}")
+    del model, step
+    torch.cuda.empty_cache()
+    train_compare(tag, cfg["compare"], lambda s: build(cfg["compare"], s), C, cweight,
+                  batches[0], gen, seeds)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_transcript(smi, seed: int = 0):
+    """Transcript mode and GTEA's recipes on the card (module docstring,
+    phase 17): (a) ``gtea_transcript_cfg()``, (b) its ``a: gru_om`` input
+    block, (c) ``gtea_cfg()``, (d) the loop and both CLIs on
+    gtea_transcript.yaml, (e) the verb/noun model in transcript mode."""
+    import copy
+
+    import torch
+
+    from fact_clip_tpu_torch.configs import gtea_train_cfg, gtea_transcript_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.train_loop import synthetic_batch, synthetic_set_stats
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights, compute_null_weight
+
+    D, C, S, S_CAP = GTEA_DIMS
+    T = GTEA_T
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 17)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in GTEA_LENGTHS]
+    transcripts = _gtea_transcripts(rng, len(feats), C)
+    batches = [synthetic_batch(rng, D, C, S, T, [n]) for n in GTEA_TRAIN_LENGTHS]
+    stats = synthetic_set_stats(batches, C)
+
+    def cfgs(make, a="sca"):
+        run = compute_null_weight(make(), stats)
+        run["Bi"]["a"] = a
+        compare = copy.deepcopy(run)
+        compare["Bi"]["dropout"], compare["FACT"]["cmr"], compare["TM"]["use"] = 0.0, 0.0, False
+        return {"run": run, "compare": compare}
+
+    def build(cfg, s):
+        return build_fact(cfg, D, C, S_CAP, device=dev, generator=torch.Generator().manual_seed(s))
+
+    t_phase = time.perf_counter()
+    # (a) gtea_transcript.yaml, uncut
+    tc = cfgs(gtea_transcript_cfg)
+    model = build(tc["run"], seed)
+    pred = Predictor(model, mwt=tc["run"]["FACT"]["mwt"], batch_size=1, max_len=T, device=dev,
+                     seg_cap=S)
+    counts = _serve_check("trans-serve", pred, GTEA_LENGTHS, feats, transcripts,
+                          lambda bk: gtea_serve_launches(3, bk), C)
+    serve_counts = dict(counts)
+    torch.cuda.reset_peak_memory_stats()
+    eval_paths("trans-serve", model, tc["run"], rng, [T], T, D, tokens=_tokens(batches[0]))
+    log(f"[trans-serve] peak memory over the eval steps "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del model, pred
+    cweight = build_class_weights(tc["run"], C, [GTEA_BG])
+    train_counts = _trans_train("trans-train", tc, build, C, cweight, batches, gen,
+                                gtea_step_launches(T, 3, True), COMPARE_SEEDS)
+    log(f"[trans] (a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the GRU input block (learning-dynamics recipe "transcript": a: gru_om)
+    t0 = time.perf_counter()
+    gc = cfgs(gtea_transcript_cfg, "gru_om")
+    model = build(gc["run"], seed)
+    eval_paths("trans-gru", model, gc["run"], rng, [T], T, D, tokens=_tokens(batches[0]))
+    del model
+    _trans_train("trans-gru", gc, build, C, cweight, batches[:1], gen,
+                 gtea_step_launches(T, 0, True), (1,))
+    log(f"[trans] (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) gtea.yaml: 60 learned tokens, the same widths
+    t0 = time.perf_counter()
+    oc = cfgs(gtea_train_cfg)
+    model = build(oc["run"], seed)
+    pred = Predictor(model, mwt=oc["run"]["FACT"]["mwt"], batch_size=1, max_len=T, device=dev)
+    _serve_check("gtea-serve", pred, GTEA_LENGTHS, feats, None,
+                 lambda bk: gtea_serve_launches(6, bk), C)
+    eval_paths("gtea-serve", model, oc["run"], rng, [T], T, D)
+    del model, pred
+    cweight_o = build_class_weights(oc["run"], C, [GTEA_BG])
+    _trans_train("gtea-train", oc, build, C, cweight_o, batches, gen,
+                 gtea_step_launches(T, 6, False), COMPARE_SEEDS)
+    log(f"[trans] (c) {time.perf_counter() - t0:.1f} s")
+
+    # (d) the loop and both CLIs on gtea_transcript.yaml
+    t0 = time.perf_counter()
+    _trans_loop(smi)
+    log(f"[trans] (d) {time.perf_counter() - t0:.1f} s")
+
+    # (e) the verb/noun model in transcript mode
+    t0 = time.perf_counter()
+    _trans_verbnoun(seed)
+    log(f"[trans] (e) {time.perf_counter() - t0:.1f} s; phase 17 {time.perf_counter() - t_phase:.1f}"
+        f" s; {smi}")
+    return {"serve": serve_counts, "train": train_counts}
+
+
+def _trans_loop(smi):
+    """Phase 17 (d): gtea_transcript.yaml through the train CLI's entry (in
+    this process, so that the step spies read its launches): 4 steps of batch
+    1 with test passes at 2 and 4, a cut, a resume at iteration 4 (weights
+    bit-equal to network.iter-4.net, the optimizer at step 4) for 2 more and
+    a test pass at 6, then ``python3 -m fact_clip_tpu_torch.run_eval`` on
+    network.iter-6.net equal to saves/6.gz."""
+    import shutil
+
+    import torch
+
+    from fact_clip_tpu_torch import train as train_cli
+    from fact_clip_tpu_torch.utils.results import Checkpoint
+
+    t0 = time.perf_counter()
+    with _loop_run("chip_smoke_trans_loop", TRANS_DATA, TRANS_YAML, TRANS_SETS) as \
+            (base, cfg_of), _LoopSpies() as spies:
+        yaml_path = os.path.join(REPO, TRANS_YAML)
+        cfg2, sets2, logdir2 = cfg_of(3)
+        cfg, sets, logdir = cfg_of(2)
+        log(f"[trans-loop] GTEA-shaped set {TRANS_DATA} written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main(["--cfg", yaml_path, "--set", *sets])
+        log(f"[trans-loop] run 1: python3 -m fact_clip_tpu_torch.train --cfg {TRANS_YAML} (in "
+            f"this process; {cfg.FACT.block}, trans {cfg.FACT.trans}, match {cfg.Loss.match}, "
+            f"nullw {cfg.Loss.nullw}, TM.use {cfg.TM.use}, cmr {cfg.FACT.cmr}), batch "
+            f"{cfg.batch_size}, epoch 2: {len(spies.steps)} steps, {len(spies.evals)} test passes "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if len(spies.steps) != 4 or len(spies.evals) != 2:
+            raise AssertionError("[trans-loop] run 1 must take 4 steps with test passes at 2 "
+                                 "and 4")
+        _loop_files(logdir, (2, 4))
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["train-loss/loss"] for line in f
+                      if "train-loss/loss" in line]
+        if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[trans-loop] logged train losses {losses}")
+        os.remove(os.path.join(logdir, "FINISH_PROOF"))  # a cut run, renamed to epoch 3's
+        os.makedirs(os.path.dirname(logdir2), exist_ok=True)
+        shutil.move(logdir, logdir2)
+        n1 = len(spies.steps)
+        train_cli.main(["--cfg", yaml_path, "--set", *sets2])
+        log(f"[trans-loop] run 2 (epoch 3, resume max): weights loaded bit-equal {spies.loads}, "
+            f"optimizer step {spies.opt_steps}, {len(spies.steps) - n1} steps; logged losses "
+            f"of run 1 {', '.join(f'{v:.5f}' for v in losses)}")
+        if spies.loads != [True] or spies.opt_steps != [4] or len(spies.steps) != n1 + 2 \
+                or len(spies.evals) != 3:
+            raise AssertionError("[trans-loop] the resume did not continue at iteration 4")
+        _trans_steps_ok(spies.steps)
+        _loop_files(logdir2, (2, 4, 6))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        net6 = os.path.join(logdir2, "ckpts", "network.iter-6.net")
+        proc, dt_eval = _cli("fact_clip_tpu_torch.run_eval",
+                             ["--cfg", yaml_path, "--ckpt", net6, "--set", *sets2])
+        got = Checkpoint.load(os.path.join(logdir2, "eval_results", "eval_result.gz"))
+        want = Checkpoint.load(os.path.join(logdir2, "saves", "6.gz"))
+        same_preds = list(got.videos) == list(want.videos) and all(
+            np.array_equal(got.videos[v].pred, want.videos[v].pred) for v in want.videos)
+        log(f"[trans-loop] python3 -m fact_clip_tpu_torch.run_eval --ckpt network.iter-6.net "
+            f"({dt_eval:.1f} s with the process start): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in got.metrics.items())
+            + f"; equal to saves/6.gz: {got.metrics == want.metrics}, predictions {same_preds}")
+        if got.metrics != want.metrics or not same_preds:
+            raise AssertionError(f"[trans-loop] run_eval gave {got.metrics}, saves/6.gz holds "
+                                 f"{want.metrics}")
+    steps = [f"{st['T']}: {st['ms']:.3f}" for st in spies.steps]
+    log(f"[trans-loop] {smi}: train steps (padded length: ms, synchronised; runs 1 and 2) "
+        f"{', '.join(steps)}; test passes "
+        f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in spies.evals)} ms; peak memory "
+        f"{peak:.2f} GiB")
+
+
+def _trans_steps_ok(steps):
+    """Each loop step launched exactly what ``gtea_step_launches`` says of
+    its padded length (K3 from 1,024 frames, the flash f2a past them) and
+    took a finite loss."""
+    for i, st in enumerate(steps):
+        want = {k: v for k, v in gtea_step_launches(st["T"], 3, True).items() if v}
+        launched = {k: v for k, v in st["counts"].items() if v}
+        if launched != want or not math.isfinite(st["loss"]):
+            raise AssertionError(f"[trans-loop] step {i} at {st['T']} frames: loss "
+                                 f"{st['loss']}, launched {launched}, want {want}")
+
+
+def _trans_verbnoun(seed: int):
+    """Phase 17 (e): ``epic_cfg()`` in transcript mode (``FACT.trans``,
+    ``ntoken`` 0, ``seq``) at 1 x 9,000 frames: the eval step's launches
+    (EPIC_PER_BATCH without K7b: the transcript decode is the attention's
+    argmax), kernel against plain (block-0 frame log-probs, predictions), and
+    one train step kernel against plain (``train_compare``, seed 1)."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch.configs import epic_cfg, epic_vocab
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+    from fact_clip_tpu_torch.engine.train_loop import batch_to_device, epic_batch
+    from fact_clip_tpu_torch.models.losses import build_class_weights
+    from fact_clip_tpu_torch.models.verbnoun import build_verbnoun_fact
+
+    D, S_CAP = EPIC_DIMS
+    T, N = 9000, 3806
+    vids, nids = epic_vocab()
+    cfg = epic_cfg()
+    cfg["FACT"].update(trans=True, ntoken=0, cmr=0.0)
+    cfg["Loss"]["match"] = "seq"
+    cfg["TPU"]["matcher"] = "host"
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 170)
+    batch = epic_batch(rng, D, N, T, [T], n_seg=40, S=64)
+    x = batch_to_device(batch, dev)
+    kw = dict(transcript=x["transcript"], seg_mask=x["seg_mask"])
+
+    def build(s):
+        return build_verbnoun_fact(cfg, D, vids, nids, S_CAP, device=dev,
+                                   generator=torch.Generator().manual_seed(s))
+
+    model = build(seed)
+    step = make_eval_step(model, cfg["FACT"]["mwt"])
+    step(x["feats"], x["mask"], x["lengths"], **kw)  # warm
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    pk = step(x["feats"], x["mask"], x["lengths"], **kw)
+    torch.cuda.synchronize()
+    counts = kernel_counters()
+    want = {k: v for k, v in EPIC_PER_BATCH.items() if k != "compose_blend"}
+    _launch_check("trans-vn", counts, {**{k: 0 for k in counts}, **want})
+    with torch.inference_mode():
+        sk, _ = model(x["feats"], x["mask"], x["lengths"], **kw)
+        model.set_kernels(False)
+        sp, _ = model(x["feats"], x["mask"], x["lengths"], **kw)
+        pp = step(x["feats"], x["mask"], x["lengths"], **kw)
+    model.set_kernels(True)
+    valid = x["mask"]
+    err = float((sk[0]["frame_vlogp"] - sp[0]["frame_vlogp"]).abs()[valid].max())
+    agree = float((pk == pp)[valid].float().mean())
+    inside = set(pk[valid].unique().tolist()) <= set(batch["transcript"][0, :40].tolist())
+    log(f"[trans-vn] epic_cfg() in transcript mode, 1 x {T} frames, 40 segments (transcript of "
+        f"64): eval step launches {dict((k, v) for k, v in counts.items() if v)}; kernel vs "
+        f"plain: block-0 verb log-probs max_abs_err {err:.3e} (tol {LOGIT_TOL:g}), predictions "
+        f"agree on {agree:.5f} of the frames (min {MIN_AGREE}), every prediction an action of "
+        f"the transcript {inside}")
+    if not (err <= LOGIT_TOL and agree >= MIN_AGREE and inside):
+        raise AssertionError("trans-vn: kernel path disagrees with the plain path")
+    del model, step, sk, sp
+    torch.cuda.empty_cache()
+    cweight = build_class_weights(cfg, N, [])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    train_compare("trans-vn", cfg, build, N, cweight, batch, gen, (1,))
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4540,6 +5163,7 @@ def main():
     phase_small()
     phase_loop(smi)
     phase_openvocab(smi)
+    trans_counts = phase_transcript(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":
@@ -4560,6 +5184,10 @@ def main():
                 r["oracle"] = True  # a verification oracle: no path launches it
         else:
             r["launches"] = counts[name] if name in SERVING_KERNELS else train_counts[name]
+        # phase 17's transcript path (gtea_transcript_cfg(): 6 requests served, 3 steps)
+        if name in trans_counts["serve"]:
+            r["transcript_launches"] = (trans_counts["serve"][name]
+                                        + trans_counts["train"][name])
     kernels = [results[n] for n in results]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

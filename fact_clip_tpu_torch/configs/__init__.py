@@ -21,7 +21,11 @@ are those three evaluated with int8 towers and projections
 (``TPU.quantize_infer: "int8"``); ``openvocab_cfg()`` mirrors
 ``openvocab_havid_view0_lh_pt.yaml`` (FACT_CLIP, MS-TCN++ towers 512 wide)
 and ``openvocab_train_cfg()`` is it as the port trains it, with the holdout
-recipes' held-out classes.
+recipes' held-out classes; ``gtea_cfg()`` mirrors ``gtea.yaml`` (``iuU``,
+attention at a_dim 128 with 8 heads, towers 128 wide) and
+``gtea_train_cfg()`` is it as the port trains it; ``gtea_transcript_cfg()``
+mirrors ``gtea_transcript.yaml`` (transcript mode, ``FACT.trans``: the
+tokens are the transcript, ``seq`` matching).
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -251,6 +255,58 @@ def openvocab_cfg() -> dict:
     return cfg
 
 
+def gtea_cfg() -> dict:
+    """``fact_clip_tpu/configs/gtea.yaml`` over the defaults, uncut: FACT
+    ``iuU``, 60 action tokens, a 6-layer SCA input decoder of 8 heads at
+    a_dim 128 (a head 16 wide) over the 512-wide stream, ``f: m`` towers
+    128 wide (10 layers in every block), dropout
+    0.2, o2o matching with pc 0.2, ``nullw = -1`` resolved from the data,
+    sw 5, channel masking 0.5 and time masking on, Adam at 1e-4, batch
+    size 1.  Every kernel is on.  Build it with ``models.blocks.
+    build_fact(gtea_cfg(), 2048, 11, s_pred_cap)``."""
+    cfg = default_cfg()
+    cfg.update(dataset="gtea", split="split1", sr=1, eval_bg=False, batch_size=1,
+               optimizer="Adam", epoch=400, lr=1e-4, lr_decay=250, momentum=0.0,
+               weight_decay=0.0, clip_grad_norm=10.0)
+    cfg["FACT"].update(block="iuU", ntoken=60, trans=False, fpos=False, cmr=0.5, mwt=0.1)
+    cfg["Bi"].update(hid_dim=512, dropout=0.2, a="sca", a_nhead=8, a_ffdim=512, a_layers=6,
+                     a_dim=128, f="m", f_layers=10, f_ln=False, f_dim=128, f_ngp=1)
+    cfg["Bu"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10)
+    cfg["BU"].update(a="sa", a_nhead=8, a_layers=1, f_layers=10, s_layers=1)
+    cfg["Loss"].update(pc=0.2, a2fc=1.0, match="o2o", bgw=1.0, nullw=-1.0, sw=5.0)
+    cfg["TM"].update(use=True, t=60, p=0.1, m=5)
+    cfg["aux"].update(eval_every=300, print_every=100)
+    return cfg
+
+
+def gtea_train_cfg() -> dict:
+    """``gtea_cfg()`` with the host Hungarian matcher, as the port trains
+    it.  ``model.set_kernels(False)`` gives its plain PyTorch path."""
+    cfg = gtea_cfg()
+    cfg["TPU"]["matcher"] = "host"
+    return cfg
+
+
+def gtea_transcript_cfg() -> dict:
+    """``fact_clip_tpu/configs/gtea_transcript.yaml`` over the defaults,
+    uncut: transcript mode (``FACT.trans``, no learned tokens: the tokens
+    are the video's transcript, embedded, and the model is built with M =
+    the batches' segment cap), ``iuU`` with a 3-layer SCA input decoder at
+    a_dim 128 and ``f: m`` towers 128 wide (10 / 3 / 5 layers), ``seq``
+    matching (token k is segment k), the transcript decode at mwt 0, pc 1,
+    sw 5, ``nullw = -1`` (0 here: no token is null), channel masking 0.5
+    and time masking on, Adam at 1e-4, batch size 1.  Every kernel is on."""
+    cfg = gtea_cfg()
+    cfg.update(epoch=2000, lr_decay=-1)
+    cfg["FACT"].update(ntoken=0, trans=True, mwt=0.0)
+    cfg["Bi"].update(a_layers=3)
+    cfg["Bu"]["f_layers"] = 3
+    cfg["BU"]["f_layers"] = 5
+    cfg["Loss"].update(pc=1.0, match="seq")
+    cfg["aux"].update(eval_every=900, print_every=400)
+    return cfg
+
+
 HOLDOUT_CLASSES = [51, 53, 61, 67, 56]  # the havid_view*_pt_holdout.yaml recipes'
 
 
@@ -300,6 +356,7 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
     if quant not in ("", "int8"):
         raise ValueError(f"unsupported TPU.quantize_infer {quant!r}")
     quant = quant if tpu["pallas"] else ""  # int8 runs in the kernels only (blocks.py:126)
+    trans = bool(cfg["FACT"].get("trans"))
     cfg = copy.deepcopy(cfg)
     base = cfg["Bi"]
     out = []
@@ -314,5 +371,7 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
             base = node
         else:
             raise ValueError(f"unsupported block type {kind!r}")
+        if node["a"] in ("gru", "gru_om") and not trans:  # blocks.py:217-218
+            raise ValueError("the GRU action branch needs transcript mode (FACT.trans)")
         out.append(_block(node, kind, tpu, quant))
     return tuple(out)

@@ -87,6 +87,20 @@ def make_fixture_dataset(
     return base
 
 
+# GTEA's shape (28 videos of ~1,100 frames at 15 fps with ~20 actions each,
+# 11 classes, background class 10, I3D features): videos of 600-2,100 frames
+# and 10-35 segments, so that a transcript fits a segment cap of at most 64
+GTEA_SHAPE = dict(name="gtea", n_classes=11, bg_class=10, feat_dim=2048, min_len=600,
+                  max_len=2100, min_segs=10, max_segs=35)
+
+
+def make_gtea_fixture(root: str, n_train: int = 8, n_test: int = 4, seed: int = 0, **kwargs):
+    """A GTEA-shaped set (``GTEA_SHAPE``; ``kwargs`` override it) under
+    ``root/data/gtea/``; returns its directory."""
+    return make_fixture_dataset(root, **dict(GTEA_SHAPE, n_train=n_train, n_test=n_test,
+                                             seed=seed, **kwargs))
+
+
 def make_epic_fixture(
     root: str,
     n_verbs: int = 4,

@@ -5,8 +5,10 @@ Builds the datasets, the length buckets and segment caps, the model (FACT,
 FACT_CLIP for ``use_clip``, or the verb/noun model for ``dataset: epic``)
 with weights initialised from ``aux.seed``, the class weights and, for
 FACT_CLIP given text embeddings, the clip bundle: the part of training that
-precedes the loop.  Transcript mode (``FACT.trans``, ROADMAP M11) is not
-ported and raises.
+precedes the loop.  In transcript mode (``FACT.trans``) the model has no
+token count of its own: it takes as many tokens as the batches' segment cap
+(``TPU.max_gt_segs``, or the longest transcript of the data), which the
+assemblers pad every transcript to.
 """
 
 from __future__ import annotations
@@ -55,12 +57,6 @@ def auto_pred_seg_cap(cfg, seg_cap: int, max_len: int) -> int:
     return int(min(cap, max_len))
 
 
-def check_ported(cfg) -> None:
-    """Refuse the configurations the port has no path for."""
-    if cfg.FACT.trans:
-        raise NotImplementedError("FACT.trans: transcript mode is not ported (ROADMAP M11)")
-
-
 def build_clip_bundle(cfg, text_embeddings: np.ndarray, holdout_classes, device="cpu") -> dict:
     """FACT_CLIP's bundle (``fact_clip_tpu/engine/setup.py:55``): all-class
     embeddings (decode), the seen classes' (the training loss), the global ->
@@ -89,7 +85,6 @@ def build_experiment(cfg, device, seed: int = 0, text_embeddings=None) -> Experi
     FACT_CLIP, its projection as wide as ``text_embeddings`` (n_classes, E)
     (512 without them); the clip bundle is built only when they are given:
     without them FACT_CLIP trains and decodes as FACT, as in JAX."""
-    check_ported(cfg)
     device = resolve_device(device)
     dataset, test_dataset = create_dataset(cfg)
     buckets, seg_cap = scan_dataset_caps([dataset, test_dataset], cfg)

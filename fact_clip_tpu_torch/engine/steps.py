@@ -1,6 +1,6 @@
 """The eval step and the train step.
 
-Counterpart of ``fact_clip_tpu/engine/steps.py`` outside transcript mode:
+Counterpart of ``fact_clip_tpu/engine/steps.py``:
 ``eval_step`` (:149-152) is the forward through every block and the
 two-branch decode (the composed one of the verb/noun model, :47-62);
 ``train_step_fn`` (:128-142) is the forward in train mode,
@@ -13,6 +13,11 @@ bundle (``engine/setup.py::build_clip_bundle``; FACT_CLIP, :41, :68-72,
 the InfoNCE loss on the labels remapped to the seen classes (frames of a
 held-out class masked out), and the decode is the CLIP decode against every
 class's embedding; without one a FACT_CLIP model trains and decodes as FACT.
+In transcript mode (a model built with ``FACT.trans``, :20-23, :52-66, :97)
+the model takes the batch's transcript and seg_mask, the matching is
+``seq``, the update blocks' attention smoothing masks the padded tokens,
+and the decode is the transcript's (``decode_with_transcript``; the
+verb/noun model's ``decode_transcript_attn_only``).
 """
 
 from __future__ import annotations
@@ -53,7 +58,17 @@ def _decode_verbnoun(model, saves, mwt: float):
                            kernel=model.kernels_enabled)
 
 
-def _decode_any(model, saves, tail, mwt: float, clip_bundle):
+def _decode_transcript(model, saves, mwt: float, transcript, seg_mask):
+    last = saves[-1]
+    if isinstance(model, VerbNounFACT):
+        return decode.decode_transcript_attn_only(transcript, seg_mask, last["a2f_attn"])
+    return decode.decode_with_transcript(transcript, seg_mask, last["a2f_attn"],
+                                         last["frame_clogit"], mwt)
+
+
+def _decode_any(model, saves, tail, mwt: float, clip_bundle, transcript=None, seg_mask=None):
+    if model.trans:
+        return _decode_transcript(model, saves, mwt, transcript, seg_mask)
     if isinstance(model, VerbNounFACT):
         return _decode_verbnoun(model, saves, mwt)
     return _decode(saves, mwt, tail, clip_bundle)
@@ -63,14 +78,22 @@ def make_eval_step(model, mwt: float, clip_bundle=None):
     """eval_step(feats (B, T, D), mask (B, T) bool, lengths (B,)) -> (B, T)
     class ids (int64), or action ids in [0, n_act) (int32) for a
     ``VerbNounFACT``.  With a clip bundle (a FACT_CLIP model) the CLIP
-    decode gives the class ids."""
+    decode gives the class ids.  A model in transcript mode also takes
+    ``transcript`` (B, S) and ``seg_mask`` (B, S) and gives ids (int64) out
+    of each video's transcript."""
 
-    def eval_step(feats, mask, lengths):
+    def eval_step(feats, mask, lengths, transcript=None, seg_mask=None):
         with torch.inference_mode():
-            saves, tail = model(feats, mask, lengths)
-            return _decode_any(model, saves, tail, mwt, clip_bundle)
+            saves, tail = model(feats, mask, lengths, **_token_kwargs(model, transcript,
+                                                                      seg_mask))
+            return _decode_any(model, saves, tail, mwt, clip_bundle, transcript, seg_mask)
 
     return eval_step
+
+
+def _token_kwargs(model, transcript, seg_mask) -> dict:
+    """The model's transcript arguments: given in transcript mode only."""
+    return dict(transcript=transcript, seg_mask=seg_mask) if model.trans else {}
 
 
 class TrainStep:
@@ -87,8 +110,8 @@ class TrainStep:
                  clip_bundle=None):
         if cfg["TPU"].get("matcher", "auto") not in ("auto", "host"):
             raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
-        if cfg["FACT"].get("trans"):
-            raise ValueError("transcript mode is not ported")
+        if bool(cfg["FACT"].get("trans")) != model.trans:
+            raise ValueError("FACT.trans differs between the config and the model")
         self.verbnoun = isinstance(model, VerbNounFACT)
         cweight = np.asarray(cweight, np.float32)
         if cweight.shape != (nclasses + 1,):
@@ -120,7 +143,9 @@ class TrainStep:
         bundle, "contrastive_loss" and the frame embedding "frame_emb"."""
         t0 = self._now(times)
         saves, tail = self.model(batch["feats"], batch["mask"], batch["lengths"], train=True,
-                                 generator=generator)
+                                 generator=generator,
+                                 **_token_kwargs(self.model, batch["transcript"],
+                                                 batch["seg_mask"]))
         t0 = self._mark(times, "forward", t0)
         if seg2tok is None:
             last = saves[-1]
@@ -136,6 +161,7 @@ class TrainStep:
         else:
             per_video = losses.fact_loss(
                 saves, batch, seg2tok, self.cweight, self.sw,
+                token_mask=batch["seg_mask"] if self.model.trans else None,
                 ref_weight_order=bool(self.cfg["Loss"].get("ref_weight_order", False)),
                 use_kernel=self.model.kernels_enabled)
         if aux is not None:
@@ -164,7 +190,7 @@ class TrainStep:
         t0 = self._mark(times, "optimizer", t0)
         with torch.no_grad():
             pred = _decode_any(self.model, saves, aux.get("frame_emb"), self.mwt,
-                               self.clip_bundle)
+                               self.clip_bundle, batch["transcript"], batch["seg_mask"])
         self._mark(times, "decode", t0)
         out = {"loss": loss.detach(), "per_video_loss": per_video.detach(), "pred": pred,
                "seg2tok": seg2tok}

@@ -186,7 +186,10 @@ def evaluate(global_step, exp: Experiment, eval_step, logger, savedir) -> Checkp
     )
     for batch in prefetch(exp.test_loader(), cfg.TPU.prefetch):
         arrays = batch_to_device(batch.device_arrays, device)
-        pred = eval_step(arrays["feats"], arrays["mask"], arrays["lengths"])
+        # transcript mode decodes with the test videos' transcripts (JAX's eval
+        # step takes the whole batch)
+        pred = eval_step(arrays["feats"], arrays["mask"], arrays["lengths"],
+                         transcript=arrays["transcript"], seg_mask=arrays["seg_mask"])
         save_results(ckpt, batch.vnames, batch.eval_labels, _collect_video_saves(batch, pred))
 
     ckpt.compute_metrics()

@@ -7,8 +7,12 @@ static segment cap).  Each block returns (frame_feature, action_feature,
 saves); ``FACT.forward`` returns the list of saves and the final frame
 feature.  With ``train=True`` it runs in train mode: channel and time masks
 on the input features (blocks.py:460-465) and dropout in the layers, every
-draw from the ``generator`` passed in.  Transcript mode is not ported; the
-CLIP head is ``models/clip_model.py``'s subclass.
+draw from the ``generator`` passed in.  In transcript mode (``FACT.trans``,
+blocks.py:475-484) the tokens are the video's transcript, embedded
+(``action_embed``) plus the sinusoid table of the token axis, their
+positions zeros and their mask the transcript's; the GRU action branch
+(``a: gru`` / ``gru_om``) runs only there.  The CLIP head is
+``models/clip_model.py``'s subclass.
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ def make_fbranch(c: BlockCfg, in_dim: int | None):
 
 
 def make_abranch(c: BlockCfg):
+    """The action branch (blocks.py:200-223); ``resolve_block_cfgs`` lets the
+    GRU branch through in transcript mode only."""
+    if c.a in ("gru", "gru_om"):
+        return L.ActionUpdateGRU(c.a_dim, c.a_dim, c.hid_dim, c.a_layers, dropout=c.dropout,
+                                 out_map=c.a == "gru_om")
     if c.a == "sa":
         return L.SADecoder(c.a_dim, c.a_dim, c.hid_dim, c.a_layers, c.a_nhead, c.a_ffdim,
                            use_kernel=c.pallas and c.pallas_sa, dropout=c.dropout)
@@ -62,8 +71,10 @@ def make_x2y(c: BlockCfg, outdim: int):
                     dropout=c.dropout, quantize=c.quantize)
 
 
-def _apply_abranch(branch, c, action_feature, action_pos, generator, memory=None,
+def _apply_abranch(branch, c, action_feature, action_pos, token_len, generator, memory=None,
                    memory_pos=None, memory_len=None):
+    if c.a in ("gru", "gru_om"):  # over the valid tokens only (blocks.py:243)
+        return branch(action_feature, token_len, generator)
     if c.a == "sa":
         return branch(action_feature, pos=action_pos, generator=generator)
     return branch(action_feature, memory, pos=memory_pos, query_pos=action_pos,
@@ -82,8 +93,8 @@ class InputBlock(nn.Module):
         frame_feature = self.frame_branch(frame_feature, lengths, generator)
         frame_feature, frame_clogit = process_feature(frame_feature, self.nclass)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        generator, memory=frame_feature, memory_pos=frame_pos,
-                                        memory_len=lengths)
+                                        token_len, generator, memory=frame_feature,
+                                        memory_pos=frame_pos, memory_len=lengths)
         action_feature, action_clogit = process_feature(action_feature, self.nclass + 1)
         saves = {"frame_clogit": frame_clogit, "action_clogit": action_clogit,
                  "action_feature": action_feature[..., : -(self.nclass + 1)], "kind": "i"}
@@ -106,7 +117,7 @@ class UpdateBlock(nn.Module):
             frame_feature, action_feature, x_pos=frame_pos, y_pos=action_pos, x_len=lengths,
             generator=generator)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        generator)
+                                        token_len, generator)
         action_feature, action_clogit = process_feature(action_feature, self.nclass + 1)
         # a -> f: queries are the frames, keys/values the action tokens
         frame_feature, a2f_attn, a2f_logit = self.a2f_layer(
@@ -153,7 +164,7 @@ class UpdateBlockTDU(nn.Module):
             seg_feature, action_feature, x_pos=seg_pos, y_pos=action_pos, x_len=seg_len,
             generator=generator)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        generator)
+                                        token_len, generator)
         action_feature, action_clogit = process_feature(action_feature, self.nclass + 1)
         seg_out, a2f_attn_seg, a2f_logit = self.a2f_layer(
             action_feature, seg_feature, x_pos=action_pos, y_pos=seg_pos, x_len=token_len,
@@ -190,19 +201,25 @@ def augment(feats, lengths, cmr: float, tm: dict, generator):
 
 
 class FACT(nn.Module):
-    """The dual-branch model; forward returns (per-block saves, final frame feature)."""
+    """The dual-branch model; forward returns (per-block saves, final frame
+    feature).  With ``trans`` the model has no learned queries but the
+    transcript embedding ``action_embed`` (n_classes x a_dim), and forward
+    takes the transcript."""
 
     def __init__(self, block_cfgs, in_dim: int, n_classes: int, ntoken: int, fpos: bool,
-                 s_pred_cap: int, cmr: float = 0.0, tm: dict | None = None):
+                 s_pred_cap: int, cmr: float = 0.0, tm: dict | None = None, trans: bool = False):
         super().__init__()
         self.block_cfgs = tuple(block_cfgs)
         self.in_dim, self.n_classes, self.ntoken = in_dim, n_classes, ntoken
-        self.fpos, self.s_pred_cap = fpos, s_pred_cap
+        self.fpos, self.s_pred_cap, self.trans = fpos, s_pred_cap, bool(trans)
         self.cmr = float(cmr)
         self.tm = dict(tm or {"use": False})
         self.kernels_enabled = any(c.pallas for c in self.block_cfgs)
         bi = self.block_cfgs[0]
-        self.action_query = nn.Parameter(torch.empty(ntoken, 1, bi.a_dim))
+        if self.trans:
+            self.action_embed = nn.Embedding(n_classes, bi.a_dim)
+        else:
+            self.action_query = nn.Parameter(torch.empty(ntoken, 1, bi.a_dim))
         blocks = []
         for c in self.block_cfgs:
             if c.kind == "i":
@@ -217,7 +234,11 @@ class FACT(nn.Module):
 
     def init_with(self, g):
         with torch.no_grad():
-            self.action_query.copy_(torch.randn(self.action_query.shape, generator=g))
+            tokens = self.action_embed.weight if self.trans else self.action_query
+            tokens.copy_(torch.randn(tokens.shape, generator=g))
+
+    def embed_transcript(self, transcript):
+        return self.action_embed(transcript)
 
     def set_kernels(self, enabled: bool) -> None:
         """Hand-written kernels on (as configured) or the plain path everywhere
@@ -227,8 +248,11 @@ class FACT(nn.Module):
             if hasattr(m, "kernel_allowed"):
                 m.use_kernel = enabled and m.kernel_allowed
 
-    def forward(self, feats, mask, lengths, train: bool = False, generator=None):
-        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,).
+    def forward(self, feats, mask, lengths, train: bool = False, generator=None,
+                transcript=None, seg_mask=None):
+        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,);
+        in transcript mode also transcript (B, M) class ids and seg_mask (B, M)
+        bool, its valid prefix (M, the segment cap, is the token count).
 
         ``train`` puts the model in train mode for the call (as the JAX
         ``apply(train=...)``): the channel / time masks and dropout draw from
@@ -241,10 +265,8 @@ class FACT(nn.Module):
             feats = augment(feats, lengths, self.cmr, self.tm, generator)
         frame_pos = L.positional_encoding_table(T, bi.hid_dim, empty=not self.fpos,
                                                 device=feats.device)
-        # one (1, M, E) table shared by the batch: the fused sublayers' layout
-        action_pos = self.action_query.transpose(0, 1)
-        action_feature = feats.new_zeros((B, self.ntoken, bi.a_dim))
-        token_len = torch.full((B,), self.ntoken, dtype=torch.int32, device=feats.device)
+        action_feature, action_pos, token_len = token_inputs(self, B, transcript, seg_mask,
+                                                             feats)
         frame_feature = feats
         saves_list = []
         for block in self.block_list:
@@ -253,6 +275,29 @@ class FACT(nn.Module):
                 generator)
             saves_list.append(saves)
         return saves_list, frame_feature
+
+
+def token_inputs(model, B: int, transcript, seg_mask, feats):
+    """(action_feature (B, M, a_dim), action_pos (1, M, a_dim), token_len (B,))
+    of FACT or the verb/noun model (blocks.py:468-484, verbnoun.py:290-307):
+    zero features at the learned queries, or in transcript mode the embedded
+    transcript plus the M-row sinusoid table at zero positions, the valid
+    tokens the transcript's.  One positional table is shared by the batch:
+    the fused sublayers' layout."""
+    a_dim, dev = model.block_cfgs[0].a_dim, feats.device
+    if not model.trans:
+        if transcript is not None:
+            raise ValueError("a transcript was given to a model not in transcript mode")
+        return (feats.new_zeros((B, model.ntoken, a_dim)), model.action_query.transpose(0, 1),
+                torch.full((B,), model.ntoken, dtype=torch.int32, device=dev))
+    if transcript is None or seg_mask is None:
+        raise ValueError("transcript mode: pass transcript= and seg_mask=")
+    transcript = transcript.to(device=dev, dtype=torch.int64)
+    M = transcript.shape[1]
+    pe = L.positional_encoding_table(M, a_dim, device=dev)
+    action_feature = model.embed_transcript(transcript) + pe[None]
+    return (action_feature, feats.new_zeros((1, M, a_dim)),
+            seg_mask.to(dev).sum(dim=1).to(torch.int32))
 
 
 def build_fact(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int, *, device=None,
@@ -266,11 +311,10 @@ def build_fact(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int, *, devic
 
 
 def fact_args(cfg: dict, in_dim: int, n_classes: int, s_pred_cap: int) -> tuple:
-    """FACT's constructor arguments of ``cfg``; transcript mode raises."""
-    if cfg["FACT"].get("trans"):
-        raise ValueError("transcript mode is not ported")
+    """FACT's constructor arguments of ``cfg``."""
     return (resolve_block_cfgs(cfg), in_dim, n_classes, cfg["FACT"]["ntoken"],
-            cfg["FACT"]["fpos"], s_pred_cap, cfg["FACT"].get("cmr", 0.0), cfg.get("TM"))
+            cfg["FACT"]["fpos"], s_pred_cap, cfg["FACT"].get("cmr", 0.0), cfg.get("TM"),
+            bool(cfg["FACT"].get("trans")))
 
 
 def place_model(make, who: str, device, generator):

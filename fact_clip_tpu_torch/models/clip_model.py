@@ -24,18 +24,21 @@ class FACTCLIP(FACT):
     L2-normalised)."""
 
     def __init__(self, block_cfgs, in_dim: int, n_classes: int, ntoken: int, fpos: bool,
-                 s_pred_cap: int, cmr: float = 0.0, tm: dict | None = None,
+                 s_pred_cap: int, cmr: float = 0.0, tm: dict | None = None, trans: bool = False,
                  clip_dim: int = 512, projection_hidden_dim: int = 512,
                  projection_dropout: float = 0.1):
-        super().__init__(block_cfgs, in_dim, n_classes, ntoken, fpos, s_pred_cap, cmr, tm)
+        super().__init__(block_cfgs, in_dim, n_classes, ntoken, fpos, s_pred_cap, cmr, tm,
+                         trans)
         self.clip_dim = clip_dim
         raw_dim = self.block_cfgs[-1].hid_dim - n_classes
         self.frame_projection = FeatureProjection(raw_dim, clip_dim, projection_hidden_dim,
                                                   projection_dropout)
 
-    def forward(self, feats, mask, lengths, train: bool = False, generator=None):
+    def forward(self, feats, mask, lengths, train: bool = False, generator=None,
+                transcript=None, seg_mask=None):
         saves_list, frame_feature = super().forward(feats, mask, lengths, train=train,
-                                                    generator=generator)
+                                                    generator=generator, transcript=transcript,
+                                                    seg_mask=seg_mask)
         raw = frame_feature[..., : frame_feature.shape[-1] - self.n_classes]
         return saves_list, self.frame_projection(raw, generator)
 

@@ -1,10 +1,14 @@
 """Inference decoding on the last block's saves.
 
-Counterpart of ``fact_clip_tpu/models/decode.py:15-43, 65-87, 99-110``: the
-two-branch decode blends the action tokens' votes with the frame branch and
-falls back to the frame branch when no token predicts a non-null class; its
-verb/noun variant does the same on composed log-probs, and FACT_CLIP's
-zero-shot decode on the CLIP similarities in place of the frame branch.  ``votes`` and
+Counterpart of ``fact_clip_tpu/models/decode.py``: the two-branch decode
+blends the action tokens' votes with the frame branch and falls back to the
+frame branch when no token predicts a non-null class; its verb/noun variant
+does the same on composed log-probs, and FACT_CLIP's zero-shot decode on the
+CLIP similarities in place of the frame branch.  In transcript mode the
+decode picks, for each frame, one of the video's transcript entries: by the
+a2f attention over the transcript's columns blended with the frame branch
+at the transcript's classes (FACT), or by that attention alone (the
+verb/noun model).  ``votes`` and
 ``token_probs`` are shared with ``ops/verbnoun_compose.py::composed_decode``.
 """
 
@@ -64,3 +68,28 @@ def decode_with_clip(action_clogit, a2f_attn, frame_emb, text_emb, temp: float, 
     has_action, act_idx = votes(action_clogit, a2f_attn, token_mask)
     qtk_prob = torch.softmax(action_clogit[..., :-1], dim=-1)
     return _blend(qtk_prob, act_idx, fbranch, weight, has_action)
+
+
+def _transcript_pick(transcript, seg_mask, score):
+    """transcript (B, S) ids at the argmax of score (B, T, S) over the valid
+    columns (-inf at the padding; the first of tied columns)."""
+    score = score.masked_fill(~seg_mask[:, None, :], float("-inf"))
+    return transcript.long().gather(1, score.argmax(dim=-1))
+
+
+def decode_with_transcript(transcript, seg_mask, a2f_attn, frame_clogit, weight: float):
+    """FACT's transcript decode (``decode.py:46-62``): the softmax of the a2f
+    attention probabilities (B, T, S) over the transcript's valid columns,
+    blended at ``weight`` with the frame branch's probabilities of the
+    transcript's classes; each frame takes the class of its best column ->
+    (B, T) int64."""
+    fbranch = torch.softmax(frame_clogit, dim=-1)  # (B, T, C)
+    fbranch = fbranch.gather(2, transcript.long()[:, None, :].expand(-1, fbranch.shape[1], -1))
+    abranch = torch.softmax(a2f_attn.masked_fill(~seg_mask[:, None, :], float("-inf")), dim=-1)
+    return _transcript_pick(transcript, seg_mask, (1.0 - weight) * abranch + weight * fbranch)
+
+
+def decode_transcript_attn_only(transcript, seg_mask, a2f_attn):
+    """The verb/noun model's transcript decode (``decode.py:90-96``): each
+    frame takes the transcript entry it attends to most -> (B, T) int64."""
+    return _transcript_pick(transcript, seg_mask, a2f_attn)

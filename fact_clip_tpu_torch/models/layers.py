@@ -621,15 +621,19 @@ class SCADecoder(nn.Module):
 
 class BiGRU(nn.Module):
     """Bidirectional GRU over prefix-valid sequences (``nn.GRU`` parameter
-    names).  Matches the JAX masked scan on valid steps: the forward
-    direction runs over the padded sequence (padding only follows the valid
-    steps) and the backward direction over each sequence's valid prefix
-    reversed in place, so it enters the valid region from the last valid
-    step with a zero state.  Plain PyTorch: no Pallas kernel exists for it."""
+    names).  Matches the JAX masked scan (``layers.py:1111-1183``) on every
+    step: the forward direction runs over the padded sequence (padding only
+    follows the valid steps) and its state is held at the last valid step's
+    over the padding; the backward direction runs over each sequence's valid
+    prefix reversed in place, so it enters the valid region from the last
+    valid step with a zero state, and it is 0 over the padding.  In train
+    mode every layer's output but the last's is dropped out at ``dropout``
+    (torch's inter-layer dropout) from the ``generator`` passed in.  Plain
+    PyTorch: no Pallas kernel exists for it."""
 
-    def __init__(self, input_size: int, hidden: int, num_layers: int):
+    def __init__(self, input_size: int, hidden: int, num_layers: int, dropout: float = 0.0):
         super().__init__()
-        self.hidden, self.num_layers = hidden, num_layers
+        self.hidden, self.num_layers, self.dropout = hidden, num_layers, dropout
         for layer in range(num_layers):
             in_dim = input_size if layer == 0 else 2 * hidden
             for sfx in ("", "_reverse"):
@@ -653,19 +657,46 @@ class BiGRU(nn.Module):
         # train=True when a backward will run (cuDNN's RNN backward needs it)
         return torch.gru(x, h0, params, True, 1, 0.0, torch.is_grad_enabled(), False, True)[0]
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, generator=None):
         B, N, _ = x.shape
         s = torch.arange(N, device=x.device)[None, :]
         n = lengths[:, None].to(s.dtype)
+        valid = (s < n)[..., None]
         rev = torch.where(s < n, n - 1 - s, s)[..., None]  # an involution
+        last = (n - 1).clamp(min=0)[..., None].expand(-1, -1, self.hidden)
         out = x
         for layer in range(self.num_layers):
+            if layer:
+                out = _drop(self, generator, out, self.dropout)
             fwd = self._run(out, layer, "")
+            # the state is held over the padding (0 for a sequence with no valid step)
+            fwd = torch.where(valid, fwd, fwd.gather(1, last) * (n > 0)[..., None])
             r_in = out.gather(1, rev.expand(-1, -1, out.shape[-1]))
             bwd = self._run(r_in.contiguous(), layer, "_reverse")
-            bwd = bwd.gather(1, rev.expand(-1, -1, self.hidden))
+            bwd = torch.where(valid, bwd.gather(1, rev.expand(-1, -1, self.hidden)), 0.0)
             out = torch.cat([fwd, bwd], dim=-1)
         return out
+
+
+class ActionUpdateGRU(nn.Module):
+    """The GRU action branch of transcript mode (``layers.py:1186-1206``,
+    the reference's ``ActionUpdate_GRU``): a masked ``BiGRU`` of ``a_dim //
+    2`` a direction and ``n_layers`` layers over the tokens, dropout between
+    its layers, LayerNorm (eps 1e-5), then with ``out_map`` (``a: gru_om``) a
+    dense to ``out_dim``; without it ``hid_dim`` must equal ``out_dim``."""
+
+    def __init__(self, in_dim: int, hid_dim: int, out_dim: int, n_layers: int,
+                 dropout: float = 0.0, out_map: bool = False):
+        super().__init__()
+        if not out_map and hid_dim != out_dim:
+            raise ValueError("a: gru needs a_dim == hid_dim (a: gru_om maps to hid_dim)")
+        self.gru = BiGRU(in_dim, hid_dim // 2, n_layers, dropout)
+        self.layernorm = nn.LayerNorm(hid_dim // 2 * 2, eps=LN_EPS_TOWER)
+        self.out_map = nn.Linear(hid_dim // 2 * 2, out_dim) if out_map else None
+
+    def forward(self, action_feature, token_len, generator=None):
+        out = self.layernorm(self.gru(action_feature, token_len, generator))
+        return self.out_map(out) if self.out_map is not None else out
 
 
 # ---------------------------------------------------------------------------

@@ -138,15 +138,22 @@ def verbnoun_action_token_loss(action_logp, seg2tok, transcript, seg_mask, cweig
     return loss.mean(dim=1)
 
 
-def smooth_loss(logits, pair_mask):
+def smooth_loss(logits, pair_mask, col_mask=None):
     """Truncated squared difference of adjacent log-softmax rows, masked mean
-    over valid adjacent pairs; logits (B, R, C), pair_mask (B, R-1).  The
-    JAX function's column mask serves transcript mode only, which is not
-    ported."""
-    ls = torch.log_softmax(logits, dim=-1)
+    over valid adjacent pairs; logits (B, R, C), pair_mask (B, R-1).  With
+    ``col_mask`` (B, C) (transcript mode: the valid tokens) the log-softmax
+    runs over the valid columns only and the mean is over them."""
+    if col_mask is None:
+        ls = torch.log_softmax(logits, dim=-1)
+    else:
+        ls = masked_log_softmax(logits, col_mask[:, None, :], dim=-1)
     d = ((ls[:, 1:] - ls[:, :-1]) ** 2).clamp(0.0, 16.0)
     pm = pair_mask.to(d.dtype)[..., None]
-    denom = pair_mask.sum(dim=1) * logits.shape[-1]
+    if col_mask is None:
+        denom = pair_mask.sum(dim=1) * logits.shape[-1]
+    else:
+        pm = pm * col_mask[:, None, :].to(d.dtype)
+        denom = pair_mask.sum(dim=1) * col_mask.sum(dim=1).clamp(min=1)
     return (d * pm).sum(dim=(1, 2)) / _clamp_norm(denom.to(d.dtype))
 
 
@@ -165,13 +172,15 @@ def frame_ce_smooth(frame_clogit, labels, frame_mask, cweight, use_kernel: bool 
             smooth_loss(frame_clogit, pair_mask))
 
 
-def smooth_loss_opt(logits, frame_mask, use_kernel: bool = False):
-    """smooth_loss, through K5 with ``use_kernel``."""
+def smooth_loss_opt(logits, frame_mask, col_mask=None, use_kernel: bool = False):
+    """smooth_loss, through K5 with ``use_kernel`` where there is no column
+    mask (the column-masked form stays plain, as JAX's ``smooth_loss_opt``
+    keeps it off its kernel)."""
     pair_mask = frame_mask[:, 1:] & frame_mask[:, :-1]
-    if use_kernel:
+    if use_kernel and col_mask is None:
         sl_sum = fused_smooth_sum(logits, frame_mask)
         return sl_sum / _clamp_norm((pair_mask.sum(dim=1) * logits.shape[-1]).float())
-    return smooth_loss(logits, pair_mask)
+    return smooth_loss(logits, pair_mask, col_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +194,11 @@ def ref_order_sweight(sweight, seg2tok, seg_mask):
     return sweight.gather(1, rank)
 
 
-def block_loss(saves: dict, batch: dict, seg2tok, cweight, sw: float,
+def block_loss(saves: dict, batch: dict, seg2tok, cweight, sw: float, token_mask=None,
                ref_weight_order: bool = False, use_kernel: bool = False):
-    """Per-video loss (B,) of one block (the JAX ``token_mask`` is None
-    outside transcript mode, which is not ported)."""
+    """Per-video loss (B,) of one block; ``token_mask`` (B, M) (transcript
+    mode: the transcript's seg_mask) restricts an update block's attention
+    smoothing to the valid tokens."""
     labels, frame_mask = batch["labels"], batch["mask"]
     seg_label, transcript, seg_mask = batch["seg_label"], batch["transcript"], batch["seg_mask"]
 
@@ -208,9 +218,10 @@ def block_loss(saves: dict, batch: dict, seg2tok, cweight, sw: float,
         Y = _build_targets(seg_label, frame_mask, seg_mask)
         f2a = f2a_attn_loss(saves["f2a_attn_logit"], seg2tok, seg_mask, frame_mask, Y, sweight)
         a2f = a2f_attn_loss(saves["a2f_attn_logit"], seg2tok, seg_mask, Y, sweight)
-        al = smooth_loss_opt(saves["a2f_attn_logit"], frame_mask, use_kernel=use_kernel)
+        al = smooth_loss_opt(saves["a2f_attn_logit"], frame_mask, token_mask,
+                             use_kernel=use_kernel)
         flog = saves["f2a_attn_logit"].transpose(1, 2)  # (B, T, M)
-        fsl = smooth_loss_opt(flog, frame_mask, use_kernel=use_kernel)
+        fsl = smooth_loss_opt(flog, frame_mask, token_mask, use_kernel=use_kernel)
         return atk + f2a + a2f + fl + sw * (al + fsl + sl)
 
     if kind == "U":
@@ -235,10 +246,10 @@ def _tdu_attn_losses(saves: dict, batch: dict, seg2tok, sweight):
             + a2f_attn_loss(saves["a2f_attn_logit"], seg2tok, seg_mask, Y, sweight))
 
 
-def fact_loss(saves_list, batch, seg2tok, cweight, sw: float,
+def fact_loss(saves_list, batch, seg2tok, cweight, sw: float, token_mask=None,
               ref_weight_order: bool = False, use_kernel: bool = False):
     """Mean over blocks of the per-video block losses -> (B,)."""
-    per_block = [block_loss(s, batch, seg2tok, cweight, sw,
+    per_block = [block_loss(s, batch, seg2tok, cweight, sw, token_mask=token_mask,
                             ref_weight_order=ref_weight_order, use_kernel=use_kernel)
                  for s in saves_list]
     return sum(per_block) / len(per_block)

@@ -9,9 +9,11 @@ on the device without gradient and crosses to the host, where
   tokens to the video's classes, then each segment takes its cheapest token
   of its class (a token may serve several segments of one class).
 
+* ``seq`` (transcript mode, where the tokens are the transcript): token k
+  is segment k, with no cost computed.
+
 The result is ``seg2tok (B, S)``, the token index of each ground-truth
-segment.  ``seq`` (transcript mode) and the on-device auction (a TPU
-workaround) are not ported.
+segment.  The on-device auction (a TPU workaround) is not ported.
 """
 
 from __future__ import annotations
@@ -99,10 +101,14 @@ def o2m_host(cost: np.ndarray, transcript: np.ndarray, nsegs: np.ndarray) -> np.
 def match(loss_cfg: dict, action_cprob, a2f_attn, transcript, seg_label, seg_mask,
           frame_mask):
     """Cost on the device, ``loss_cfg["match"]`` (o2o or o2m) on the host:
-    seg2tok (B, S) int64 on the inputs' device."""
+    seg2tok (B, S) int64 on the inputs' device; ``seq`` is the identity
+    (matching.py:186-189)."""
     mode = loss_cfg["match"]
+    if mode == "seq":
+        B, S = transcript.shape
+        return torch.arange(S, device=transcript.device).repeat(B, 1)
     if mode not in ("o2o", "o2m"):
-        raise ValueError(f"match mode {mode!r} is not ported (o2o and o2m only)")
+        raise ValueError(f"unknown match mode {mode!r} (o2o, o2m or seq)")
     cost = match_cost(action_cprob, a2f_attn, transcript, seg_label, seg_mask, frame_mask,
                       float(loss_cfg["pc"]), float(loss_cfg["a2fc"]))
     cost = cost.float().cpu().numpy()

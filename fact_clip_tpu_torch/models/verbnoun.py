@@ -14,6 +14,9 @@ model serves and trains: ``forward(..., train=True, generator=...)`` masks
 the input channels at ``cmr`` (and time spans when ``TM.use``) and runs the
 layers' dropout, every draw from the generator, as ``FACT.forward`` does;
 the TDU's composed argmax takes detached inputs (JAX's ``stop_gradient``).
+In transcript mode (``FACT.trans``, ``verbnoun.py:296-307``) the tokens are
+the transcript's actions embedded as [verb_embed(verb) | noun_embed(noun)],
+each a_dim / 2 wide, plus the sinusoid table of the token axis.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from ..data.io import load_action_mapping
 from ..ops import segments
 from ..ops.verbnoun_compose import composed_argmax
 from . import layers as L
-from .blocks import FACT, _apply_abranch, augment, make_abranch, make_fbranch, make_x2y
+from .blocks import (FACT, _apply_abranch, augment, make_abranch, make_fbranch, make_x2y,
+                     token_inputs)
 
 
 def load_vids_nids(processed_dir: str):
@@ -126,7 +130,7 @@ class InputBlockTDUVN(_TDUBlock):
             self.frame_branch(frame_feature, lengths, generator), n1, n2)
         t = self.tdu(frame_feature, mask, vids, nids)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        generator, memory=t["seg_feature"],
+                                        token_len, generator, memory=t["seg_feature"],
                                         memory_pos=frame_pos[t["centers"]],
                                         memory_len=t["seg_len"])
         action_feature, action_clogit = process_feature_vn(action_feature, n1 + 1, n2 + 1)
@@ -156,7 +160,7 @@ class UpdateBlockTDUVN(_TDUBlock):
             seg_feature, action_feature, x_pos=seg_pos, y_pos=action_pos, x_len=t["seg_len"],
             generator=generator)
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
-                                        generator)
+                                        token_len, generator)
         action_feature, action_clogit = process_feature_vn(action_feature, n1 + 1, n2 + 1)
         seg_out, a2f_attn_seg, a2f_logit = self.a2f_layer(
             action_feature, seg_feature, x_pos=action_pos, y_pos=seg_pos, x_len=token_len,
@@ -175,23 +179,30 @@ class UpdateBlockTDUVN(_TDUBlock):
 
 
 class VerbNounFACT(nn.Module):
-    """``verbnoun.py:247-326`` without transcript mode; forward returns
-    (per-block saves, final frame feature).  ``vids`` / ``nids`` are int32
-    buffers, not parameters (the reference's state_dict has no such key)."""
+    """``verbnoun.py:247-326``; forward returns (per-block saves, final frame
+    feature).  ``vids`` / ``nids`` are int32 buffers, not parameters (the
+    reference's state_dict has no such key).  With ``trans`` the tokens are
+    the transcript's, embedded by ``verb_embed`` / ``noun_embed``."""
 
     def __init__(self, block_cfgs, in_dim: int, n_classes1: int, n_classes2: int, vids, nids,
                  ntoken: int, fpos: bool, s_pred_cap: int, cmr: float = 0.0,
-                 tm: dict | None = None):
+                 tm: dict | None = None, trans: bool = False):
         super().__init__()
         self.block_cfgs = tuple(block_cfgs)
         self.in_dim, self.n_classes1, self.n_classes2 = in_dim, n_classes1, n_classes2
         self.ntoken, self.fpos, self.s_pred_cap = ntoken, fpos, s_pred_cap
+        self.trans = bool(trans)
         self.cmr = float(cmr)
         self.tm = dict(tm or {"use": False})
         self.kernels_enabled = any(c.pallas for c in self.block_cfgs)
         self.register_buffer("vids", torch.as_tensor(np.asarray(vids, np.int32)), persistent=False)
         self.register_buffer("nids", torch.as_tensor(np.asarray(nids, np.int32)), persistent=False)
-        self.action_query = nn.Parameter(torch.empty(ntoken, 1, self.block_cfgs[0].a_dim))
+        a_dim = self.block_cfgs[0].a_dim
+        if self.trans:
+            self.verb_embed = nn.Embedding(n_classes1, a_dim // 2)
+            self.noun_embed = nn.Embedding(n_classes2, a_dim // 2)
+        else:
+            self.action_query = nn.Parameter(torch.empty(ntoken, 1, a_dim))
         blocks = []
         for c in self.block_cfgs:
             if c.kind == "I":
@@ -204,12 +215,21 @@ class VerbNounFACT(nn.Module):
 
     def init_with(self, g):
         with torch.no_grad():
-            self.action_query.copy_(torch.randn(self.action_query.shape, generator=g))
+            tables = ([self.verb_embed.weight, self.noun_embed.weight] if self.trans
+                      else [self.action_query])
+            for t in tables:
+                t.copy_(torch.randn(t.shape, generator=g))
+
+    def embed_transcript(self, transcript):
+        return torch.cat([self.verb_embed(self.vids[transcript].long()),
+                          self.noun_embed(self.nids[transcript].long())], dim=-1)
 
     set_kernels = FACT.set_kernels
 
-    def forward(self, feats, mask, lengths, train: bool = False, generator=None):
-        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,).
+    def forward(self, feats, mask, lengths, train: bool = False, generator=None,
+                transcript=None, seg_mask=None):
+        """feats (B, T, D) f32, mask (B, T) bool valid-frame prefix, lengths (B,);
+        in transcript mode also transcript (B, M) action ids and seg_mask (B, M).
 
         ``train`` puts the model in train mode for the call, as
         ``FACT.forward`` does: the masks and dropout draw from ``generator``,
@@ -223,9 +243,8 @@ class VerbNounFACT(nn.Module):
             feats = augment(feats, lengths, self.cmr, self.tm, generator)
         frame_pos = L.positional_encoding_table(T, bi.hid_dim, empty=not self.fpos,
                                                 device=feats.device)
-        action_pos = self.action_query.transpose(0, 1)  # (1, M, a_dim), shared by the batch
-        action_feature = feats.new_zeros((B, self.ntoken, bi.a_dim))
-        token_len = torch.full((B,), self.ntoken, dtype=torch.int32, device=feats.device)
+        action_feature, action_pos, token_len = token_inputs(self, B, transcript, seg_mask,
+                                                             feats)
         frame_feature = feats
         saves_list = []
         for block in self.block_list:
@@ -243,8 +262,6 @@ def build_verbnoun_fact(cfg: dict, in_dim: int, vids, nids, s_pred_cap: int,
     ``build_fact`` builds FACT: on ``device`` (the CUDA card when None;
     ``device="cpu"`` for the plain path on the CPU), initialised from
     ``generator`` (a CPU torch.Generator; seed 0 if None), in eval mode."""
-    if cfg["FACT"].get("trans"):
-        raise ValueError("transcript mode is not ported")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("build_verbnoun_fact: no CUDA card is available; pass "
@@ -253,7 +270,8 @@ def build_verbnoun_fact(cfg: dict, in_dim: int, vids, nids, s_pred_cap: int,
     with torch.device("meta"):
         model = VerbNounFACT(resolve_block_cfgs(cfg), in_dim, n_classes1, n_classes2, vids, nids,
                              cfg["FACT"]["ntoken"], cfg["FACT"]["fpos"], s_pred_cap,
-                             cmr=cfg["FACT"].get("cmr", 0.0), tm=cfg.get("TM"))
+                             cmr=cfg["FACT"].get("cmr", 0.0), tm=cfg.get("TM"),
+                             trans=bool(cfg["FACT"].get("trans")))
     model = model.to_empty(device=device)
     model.vids = torch.as_tensor(np.asarray(vids, np.int32), device=device)
     model.nids = torch.as_tensor(np.asarray(nids, np.int32), device=device)

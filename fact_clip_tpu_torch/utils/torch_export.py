@@ -5,11 +5,14 @@ The port's own copy of ``fact_clip_tpu/utils/torch_export.py::
 export_fact_state_dict`` (the FACT part) and ``::export_verbnoun_state_dict``
 (numpy only), so that the port imports nothing of the JAX package.  It
 covers what the port builds: MSTCN and MS-TCN++ frame towers (``f: m``,
-``f: m2``), SA and SCA action decoders, the X2Y maps and the TDU blocks'
-BiGRU and dense layers, and FACT_CLIP's frame projection (the ``{"fact",
-"frame_projection"}`` tree, ``export_fact_state_dict``'s CLIP branch);
-transcript mode is not ported and raises.  Tests hold it equal to the JAX
-package's exporter key for key and value for value.
+``f: m2``), SA, SCA and GRU action branches (``a: gru`` / ``gru_om``), the
+X2Y maps and the TDU blocks' BiGRU and dense layers, FACT_CLIP's frame
+projection (the ``{"fact", "frame_projection"}`` tree,
+``export_fact_state_dict``'s CLIP branch) and transcript mode's token
+embeddings (``action_embed``; the verb/noun model's ``verb_embed`` and
+``noun_embed``), found by their keys where the JAX exporter takes
+``trans=``.  Tests hold it equal to the JAX package's exporter key for key
+and value for value.
 
 Layouts (flax -> torch):
 
@@ -141,6 +144,12 @@ def _abranch(out, prefix, node, c):
             _layernorm(out, p + ".norm2", layer["LayerNorm_1"])
             _layernorm(out, p + ".norm3", layer["LayerNorm_2"])
         _layernorm(out, prefix + ".norm", node["LayerNorm_0"])
+    elif c.a in ("gru", "gru_om"):  # ActionUpdateGRU (layers.py:1186)
+        _gru(out, prefix + ".gru", node["BiGRU_0"])
+        _layernorm(out, prefix + ".layernorm", node["LayerNorm_0"])
+        if c.a == "gru_om":
+            _dense(out, prefix + ".out_map", node["TorchDense_0"])
+        return
     else:
         raise ValueError(f"action branch {c.a!r} is not ported")
     _dense(out, prefix + ".out_linear", node["TorchDense_0"])
@@ -169,9 +178,10 @@ def export_fact_state_dict(params, block_cfgs) -> dict:
     state_dict key: float32 numpy array}."""
     params = _as_plain_dict(params)
     fact = params.get("fact", params)
-    if "action_query" not in fact:
-        raise ValueError("transcript mode is not ported")
-    out = {"action_query": _f32(fact["action_query"])[:, None, :]}  # (M, E) -> (M, 1, E)
+    if "action_embed" in fact:  # transcript mode
+        out = {"action_embed.weight": _f32(fact["action_embed"]["embedding"])}
+    else:
+        out = {"action_query": _f32(fact["action_query"])[:, None, :]}  # (M, E) -> (M, 1, E)
     for idx, c in enumerate(block_cfgs):
         if c.f not in _FBRANCH:
             raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
@@ -202,9 +212,10 @@ def export_verbnoun_state_dict(params, block_cfgs) -> dict:
     """The flax VerbNounFACT tree (``models/verbnoun.py``) -> {reference
     ``blocks_SepVerbNoun.py`` state_dict key: float32 numpy array}."""
     params = _as_plain_dict(params)
-    if "action_query" not in params:
-        raise ValueError("transcript mode is not ported")
-    out = {"action_query": _f32(params["action_query"])[:, None, :]}
+    if "verb_embed" in params:  # transcript mode
+        out = {f"{k}.weight": _f32(params[k]["embedding"]) for k in ("verb_embed", "noun_embed")}
+    else:
+        out = {"action_query": _f32(params["action_query"])[:, None, :]}
     for idx, c in enumerate(block_cfgs):
         if c.kind not in ("I", "U"):
             raise ValueError(f"unexpected block kind {c.kind!r} in verbnoun export")

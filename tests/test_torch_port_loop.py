@@ -7,7 +7,8 @@ package's ``make_fixture_dataset``.
   equal to JAX's ``cfg2flatdict``, ``metrics.jsonl``, the weights and
   optimizer sidecars, ``saves/<N>.gz``, ``best_ckpt.gz``, FINISH_PROOF); a
   second call with ``resume: max`` exits without training; without a card
-  and without ``device="cpu"`` it raises; what it has no path for raises.
+  and without ``device="cpu"`` it raises; what it has no path for raises;
+  in transcript mode it trains and logs its losses.
 * Its batches, step by step, are JAX ``run_train``'s (the JAX steps stubbed:
   the batch order does not depend on them), also across a resume, where
   both restart the epoch at the loader's first shuffle.
@@ -321,8 +322,19 @@ def test_run_train_with_use_clip_trains_and_logs_contrastive_loss(recipe, tmp_pa
                for r in recs)
 
 
+def test_run_train_in_transcript_mode_logs_its_losses(recipe, tmp_path):
+    """``FACT.trans`` (ROADMAP M11) trains: the tokens are the transcripts,
+    ``seq`` matching, the transcript decode; 4 steps log finite losses."""
+    _, cfg = _cfgs(recipe, "FACT.trans", "true", "FACT.ntoken", "0", "Loss.match", "seq",
+                   "FACT.mwt", "0.0")
+    step, best = tl.run_train(cfg, device="cpu", base_dir=str(tmp_path))
+    assert step.model.trans and step.optimizer.count == 4 and best is not None
+    with open(os.path.join(_logdir(str(tmp_path), cfg), "metrics.jsonl")) as f:
+        losses = [json.loads(line)["train-loss/loss"] for line in f if "train-loss/loss" in line]
+    assert len(losses) == 2 and all(np.isfinite(v) and v > 0 for v in losses)
+
+
 @pytest.mark.parametrize("sets, match", [
-    (("FACT.trans", "true"), "M11"),
     (("TPU.num_data_shards", "2"), "M13"), (("TPU.num_seq_shards", "2"), "M13"),
     (("TPU.profile_dir", "trace"), "profile_dir"),
     (("TPU.checkpoint_backend", "orbax"), "orbax"),

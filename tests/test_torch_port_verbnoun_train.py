@@ -203,9 +203,14 @@ def test_match_o2m_equals_jax(case):
                    *[torch.from_numpy(batch[k]) for k in keys])
     assert loss_cfg["match"] == "o2m" and got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(ValueError, match="not ported"):
-        tm.match(dict(loss_cfg, match="seq"), torch.from_numpy(cprob), torch.from_numpy(a2f),
-                 *[torch.from_numpy(batch[k]) for k in keys])
+    # seq (transcript mode): the identity, as JAX's
+    seq = dict(loss_cfg, match="seq")
+    ref = jm.match(SimpleNamespace(**seq), *[jnp.asarray(a) for a in (cprob, a2f)],
+                   *[jnp.asarray(batch[k]) for k in keys])
+    got = tm.match(seq, torch.from_numpy(cprob), torch.from_numpy(a2f),
+                   *[torch.from_numpy(batch[k]) for k in keys])
+    assert got.dtype == torch.int64 and got.shape == batch["transcript"].shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_epic_train_cfg_and_batches():
