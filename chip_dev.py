@@ -42,6 +42,14 @@
         The same for K1 (training form with dropout 0.2 and backward, the
         flagship's 8 x 3072 x 256, O=512, 10 layers, no LN).
 
+    python3 chip_dev.py b16-f64
+        The bf16 GEMM of the mixed-precision forms (``csrc/tc_bf16.cu``,
+        epilogue B16_PROJ: an f32 result, no rounding) at the flagship's 8
+        x 3072 rows, N=256, K = 256, 512 and three taps of 256, and
+        PyTorch's f32 product of the same bf16 values, each against the
+        float64 product: the error over the row's sum of |terms| (max, and
+        its coherent part, mean(err * sign(ref))).
+
     python3 chip_dev.py k3-f64 [TREE]
         The same for K3 (forward and backward, no dropout, at Breakfast's and
         the flagship's shapes: the output, dq, dx and the weight and bias
@@ -273,6 +281,39 @@ def k6_f64(seed: int = 0):
                   f"h (last layer) {_stats(fwd[name][3][-1], ref[3][-1], valid)}; dx "
                   f"{_stats(dx, ref_b[0], valid)}; dK1 (layer 0) "
                   f"{_stats(dl[0][0], ref_b[1][0][0], one)}", flush=True)
+    return 0
+
+
+def b16_f64(seed: int = 0):
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    cs.phase_environment(torch)
+    cs.phase_build()
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, T, N = 8, 3072, 256
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    for C, shifts in ((256, [0]), (512, [0]), (256, [-1, 0, 1])):
+        x = torch.randn(B, T, C, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(len(shifts) * C, N, device="cuda", generator=g) / (len(shifts) * C) ** 0.5
+        w16 = w.to(torch.bfloat16)
+        out = torch.empty(B, T, N, device="cuda")
+        segs = len(shifts)
+        dc.b16_gemm(dc.B16_PROJ, x, shifts, dc.b16_pack(w, True, segs=segs), N, lens, out,
+                    kseg=dc.b16_pad(C) if segs > 1 else None)
+        taps = [(dc._shift(x, s), w16[i * C:(i + 1) * C]) for i, s in enumerate(shifts)]
+        ref = sum(a.double() @ b.double() for a, b in taps)
+        mag = sum(a.double().abs() @ b.double().abs() for a, b in taps)
+        f32 = sum(a.float() @ b.float() for a, b in taps)
+        for name, y in (("kernel", out), ("torch f32", f32)):
+            e = (y.double() - ref) / mag
+            print(f"[b16-f64] K={segs * C:<4} {name:<9} error / sum |terms|: max "
+                  f"{float(e.abs().max()):.2e} coherent {float((e * ref.sign()).mean()):+.2e}",
+                  flush=True)
     return 0
 
 
@@ -837,6 +878,8 @@ def main(argv):
         return k6_f64()
     if argv == ["k1-f64"]:
         return k1_f64()
+    if argv == ["b16-f64"]:
+        return b16_f64()
     if argv[:1] == ["k3-f64"] and len(argv) <= 2:
         return k3_f64(*argv[1:])
     if argv[:1] == ["k2-f64"] and len(argv) <= 2:

@@ -470,6 +470,17 @@ PEAK_F32 = 67e12  # FLOP/s: float32 outside the tensor cores (H100 SXM data shee
 PEAK_BYTES = 3.35e12  # bytes/s of HBM3 (H100 SXM data sheet)
 PEAK_INT8 = 1979e12  # int8 tensor-core operations/s, dense (H100 SXM data sheet)
 PEAK_TF32 = 495e12  # TF32 tensor-core FLOP/s, dense (H100 SXM data sheet)
+PEAK_BF16 = 989e12  # bf16 tensor-core FLOP/s, dense (H100 SXM data sheet)
+# the bf16 forms (TPU.compute_dtype: bfloat16) against their plain bf16 versions:
+B16_TOL = 1e-3  # f32 outputs of one launch: max |kernel - plain| / max(1, max |plain|)
+B16_PROB_TOL = 1e-4  # probabilities, absolute
+B16_ULPS = 2  # bf16 outputs of one launch (one rounding), in bf16 ulps of the plain value
+# f32 outputs of a whole form, past an inner rounding to bf16 (K2's keys, K3's k
+# and v, K4's q, k, v and z1): the two sides' f32 sums differ in order, so an
+# inner value may round one bf16 ulp (2^-8) apart, which moves an output by up
+# to about one ulp of its scale
+B16_FORM_TOL = 2.0 ** -8
+B16_TOWER_TOL = 1e-2  # K1's tower of 3-10 layers, two roundings a layer: flips compound
 # expf results/s: the MUFU's ex2, 16 a clock an SM (CUDA programming guide's
 # throughput table, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
 # that PEAK_F32 assumes (132 SMs x 128 lanes x 2 x 1.98 GHz)
@@ -531,14 +542,15 @@ def nbytes(*tensors) -> int:
 
 
 def bound(flops: float, n_bytes: float, int8_ops: float = 0.0, tf32x3_flops: float = 0.0,
-          exps: float = 0.0):
+          exps: float = 0.0, bf16_flops: float = 0.0):
     """(ms, "operations" or "bytes"): the least time the card needs for the
     work, the larger of the operations (f32 at the f32 peak, int8 at the
     int8 tensor-core peak, f32-accurate products by the 3xTF32 split: three
-    TF32 passes at the TF32 tensor-core peak, and expfs at the MUFU rate)
-    and the bytes at the memory rate."""
+    TF32 passes at the TF32 tensor-core peak, expfs at the MUFU rate, and
+    products of bf16 operands at the bf16 tensor-core peak) and the bytes at
+    the memory rate."""
     t_ops = (flops / PEAK_F32 + int8_ops / PEAK_INT8 + 3 * tf32x3_flops / PEAK_TF32
-             + exps / PEAK_EXP) * 1e3
+             + exps / PEAK_EXP + bf16_flops / PEAK_BF16) * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1679,6 +1691,244 @@ def k8d_case(rng, B, M, X, E, Cx, H, x_len, pos):
             lambda: qc.mha_cross_q8_reference(*args, num_heads=H, qweights=qw), work, frames)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 forms of K1-K4 (TPU.compute_dtype: bfloat16, phase 18)
+
+
+def _b16(*tensors):
+    import torch
+
+    out = [t.to(torch.bfloat16) if t is not None else None for t in tensors]
+    return out if len(out) > 1 else out[0]
+
+
+def b16_judge(outs, refs, tol, probs=False):
+    """The bf16 forms against their plain bf16 versions: bf16 results within
+    B16_ULPS bf16 ulps (the ulp of the plain value, or for a value under
+    2^-8 of the tensor's largest, of that floor: such a value is the
+    cancellation of larger terms, whose f32 sums the two sides take in other
+    orders), f32 results within ``tol`` of max(1, max |plain|) (masked -1e9
+    logits equal), and with ``probs`` the second result (the probabilities)
+    within B16_PROB_TOL.  Returns (line, ok, max_abs_err)."""
+    import torch
+
+    ulps, f32_o, f32_r = 0.0, [], []
+    for o, r in zip(outs, refs):
+        if o.dtype == torch.bfloat16:
+            o, r = o.float(), r.float()
+            if not torch.isfinite(o).all():
+                raise AssertionError("non-finite bf16 kernel output")
+            floor = max(float(r.abs().max()) * 2.0 ** -8, 2.0 ** -126)
+            e = torch.floor(torch.log2(r.abs().clamp(min=floor))) - 7
+            ulps = max(ulps, float(((o - r).abs() / torch.exp2(e)).max()))
+        else:
+            f32_o.append(o)
+            f32_r.append(r)
+    err_abs, err_rel = compare("b16", f32_o, f32_r) if f32_o else (0.0, 0.0)
+    ok = ulps <= B16_ULPS and err_rel <= tol
+    text = f"max_abs_err {err_abs:.3e} max_rel_err {err_rel:.3e} (tol {tol:g})"
+    if any(o.dtype == torch.bfloat16 for o in outs):
+        text += f" bf16 ulps {ulps:g} (tol {B16_ULPS})"
+    if probs:
+        p_err = float((outs[1] - refs[1]).abs().max())
+        ok = ok and p_err <= B16_PROB_TOL
+        text += f" probs_abs_err {p_err:.3e} (tol {B16_PROB_TOL:g})"
+    return text, ok, err_abs
+
+
+def k1_16_case(rng, B, T, C, O, dilations, lengths):
+    """K1's bf16 form: the tower on bf16 operands (bf16 GEMM, tc_bf16.cu)
+    and its plain version.  Its products count at the bf16 tensor-core
+    rate."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    (x, lens, layers, dil), kw = k1_case(rng, B, T, C, O, dilations, lengths, False)
+    x = _b16(x)
+    ow, ob = kw["out_w"], kw["out_b"]
+    packed = dc.mstcn_b16_pack(layers, ow)
+    N, L = _valid(lens, T), len(dil)
+    n_out = ow.shape[1]
+    work = (0, nbytes(x, lens, ob, [p for pk in packed[0] for p in pk], packed[1],
+                      [(l[1], l[3]) for l in layers]) + B * T * n_out * 4, 0, 0, 0,
+            L * 8 * N * C * C + 2 * N * C * n_out)
+    return (lambda: dc.mstcn_stack16(x, lens, layers, dil, out_w=ow, out_b=ob, packed=packed),
+            lambda: dc.mstcn_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob), work,
+            None, None, B16_TOWER_TOL if L > 1 else B16_TOL)
+
+
+def k1_launch16_case(rng, mode, B, T, C, O, lengths):
+    """One launch of K1's bf16 form other than the conv: the 1x1 with the
+    bias and residual (B16_RESID: bf16 out, one rounding, judged in ulps) or
+    the logits (B16_LOGITS: f32 out, every frame), against the same sum in
+    f32 on the plain side."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    resid = mode == "resid"
+    N_out = C if resid else O
+    (x, lens, _, _), kw = k1_case(rng, B, T, C, N_out, [1], lengths, False)
+    valid = (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None]
+    h = _b16(torch.relu(x) * valid)  # a conv's output: zero past each video
+    res = _b16(x) * valid
+    w, b = kw["out_w"], kw["out_b"]
+    wp = dc.b16_pack(w, True)
+    out = torch.empty((B, T, N_out), device=x.device,
+                      dtype=torch.bfloat16 if resid else torch.float32)
+
+    def kern():
+        dc.b16_gemm(dc.B16_RESID if resid else dc.B16_LOGITS, h, [0], wp, N_out, lens, out,
+                    bias=b, res=res if resid else None)
+        return out
+
+    def plain():
+        z = h.float() @ w.to(torch.bfloat16).float() + b
+        return ((z + res.float()) * valid).to(torch.bfloat16) if resid else z
+
+    N = _valid(lens, T)
+    work = (0, nbytes(h, wp, b, lens, res if resid else None)
+            + B * T * N_out * (2 if resid else 4), 0, 0, 0, 2 * N * C * N_out)
+    return kern, plain, work, None, None, B16_TOL
+
+
+def k1_conv16_case(rng, B, T, C, d, lengths):
+    """One launch of K1's bf16 form, its conv3 on the bf16 GEMM (epilogue
+    B16_RELU: one rounding to bf16, judged in ulps), against bf16(relu(conv +
+    bd)) in f32 with the rows past each video zero."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    (x, lens, layers, _), _ = k1_case(rng, B, T, C, C, [d], lengths, False)
+    x = _b16(x)
+    wd, bd = layers[0][0], layers[0][1]
+    conv = dc.b16_pack(wd.reshape(3 * C, C), True, segs=3)
+    h = torch.empty_like(x)
+
+    def kern():
+        dc.b16_gemm(dc.B16_RELU, x, [-d, 0, d], conv, C, lens, h, kseg=dc.b16_pad(C), bias=bd)
+        return h
+
+    def plain():
+        valid = (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None]
+        xv = (x * valid).float()
+        taps = wd.to(torch.bfloat16).float()
+        acc = dc._shift(xv, -d) @ taps[0] + xv @ taps[1] + dc._shift(xv, d) @ taps[2]
+        return (torch.relu(acc + bd) * valid).to(torch.bfloat16)
+
+    N = _valid(lens, T)
+    work = (0, nbytes(x, conv, bd, lens) + B * T * C * 2, 0, 0, 0, 6 * N * C * C)
+    return kern, plain, work, None, None, B16_TOL
+
+
+def b16_launch_case(rng, mode, B, T, C, N, lengths):
+    """One launch of the bf16 GEMM's projection epilogues (K2's and K3's
+    bf16 forms) or of ``fk_b16_add_pos`` ("add_pos"), against the same sums
+    in f32 on the plain side, rows past each video zero: B16_PROJ (f32 out),
+    B16_PROJ_RND (bf16(acc) + bias: judged as the bf16 value, in ulps),
+    B16_PROJ16 (bf16 out, in ulps), add_pos (bf16 out, in ulps)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+    from fact_clip_tpu_torch.ops.bf16 import add_pos16
+
+    x = _b16(_rand(rng, (B, T, C)))
+    lens = _lens(lengths)
+    if mode == "add_pos":
+        pos = _b16(_rand(rng, (1, T, C // 2), 0.5))
+        work = (0, nbytes(x, pos) + x.numel() * 2, 0, 0, 0, 0)
+        return (lambda: dc.b16_add_pos(x, pos), lambda: add_pos16(x, pos), work, None, None,
+                B16_TOL)
+    w, b = _uniform(rng, (C, N), C), _uniform(rng, (N,), C)
+    wp = dc.b16_pack(w, True)
+    out = torch.empty((B, T, N), device=x.device,
+                      dtype=torch.bfloat16 if mode == dc.B16_PROJ16 else torch.float32)
+
+    def kern():
+        dc.b16_gemm(mode, x, [0], wp, N, lens, out, bias=b)
+        return out
+
+    def plain():
+        valid = (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None]
+        acc = (x * valid).float() @ w.to(torch.bfloat16).float()
+        if mode == dc.B16_PROJ_RND:
+            return (acc.to(torch.bfloat16).float() + b) * valid
+        return ((acc + b) * valid).to(out.dtype)
+
+    view = (lambda o: [(o - b).to(torch.bfloat16)]) if mode == dc.B16_PROJ_RND else None
+    N_valid = _valid(lens, T)
+    work = (0, nbytes(x, wp, b, lens) + out.numel() * out.element_size(), 0, 0, 0,
+            2 * N_valid * C * N)
+    return kern, plain, work, view, None, B16_TOL
+
+
+def x2y16_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
+    """K2's bf16 forms: y, x and the positional terms bf16, the projections
+    on the bf16 GEMM (the flash form's yq a torch product outside, as in
+    JAX), the attention in f32; the library call SDPA on bf16 operands."""
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    y, yp, x, xp, wk, bk, wv, bv, wq, bq, xl = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos,
+                                                        x_pos)
+    y, yp, x, xp = _b16(y, yp, x, xp)
+    args = (y, yp, x, xp, wk, bk, wv, bv, wq, bq, xl)
+    packed = xa.x2y_b16_pack(wk, wv, wq)
+    Xv = _valid(xl, X)
+    n_bytes = nbytes(y, yp, x, xp, packed, bk, bv, bq, xl) + (B * Y * d + 2 * B * Y * X) * 4
+    if flash:  # the key side on the bf16 cores; yq (outside) and the attention in f32
+        work = (2 * B * Y * Cy * d + 4 * Y * d * Xv, n_bytes, 0, 0, 0, 4 * Cx * d * Xv)
+    else:  # yq and the key side on the bf16 cores, the attention in f32
+        work = (4 * Y * d * Xv, n_bytes, 0, 0, 0, 2 * B * Y * Cy * d + 4 * B * X * Cx * d)
+    library = sdpa_library(y, x, *_b16(wq, wk, wv), xl, 1)
+    return (lambda: xa.x2y_attention16(*args, packed=packed),
+            lambda: xa.x2y_attention16_reference(*args), work, None, library, B16_FORM_TOL)
+
+
+def mha16_case(rng, B, M, X, E, Cx, H, x_len, pos):
+    """K3's bf16 form: q, x and pos bf16, K and V bf16 on the bf16 GEMM, the
+    attention in f32 over bf16 weights; the library call SDPA in bf16."""
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+
+    q, x, p, wk, bk, wv, bv, xl = mha_case(rng, B, M, X, E, Cx, x_len, pos)
+    q, x, p = _b16(q, x, p)
+    packed = ma.k3_b16_pack(wk, wv)
+    Xv = _valid(xl, X)
+    work = (4 * M * E * Xv, nbytes(q, x, p, packed, bk, bv, xl) + B * M * E * 4, 0, 0, 0,
+            4 * Cx * E * Xv)
+    args = (q, x, p, wk, bk, wv, bv, xl)
+    return (lambda: ma.mha_cross16_fwd(*args, num_heads=H, packed=packed),
+            lambda: ma.mha_cross16_reference(*args, num_heads=H), work, None,
+            sdpa_library(q, x, None, *_b16(wk, wv), xl, H), B16_FORM_TOL)
+
+
+def sa16_case(rng, B, M, E, H):
+    """K4's SA bf16 form: q, k, v on bf16 operands (CUDA cores), the
+    attention in f32 over bf16 probabilities, Wo in f32; the library call
+    ``sa_library`` on bf16 tensors."""
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = sa_case(rng, B, M, E)
+    packed = sl.sa_b16_pack(args[2], args[4], args[6])
+    work = (B * (2 * M * E * E + 4 * M * M * E), nbytes(args, packed) + B * M * E * 4, 0, 0, 0,
+            B * 6 * M * E * E)
+    return (lambda: sl.sa_sublayer16_fwd(*args, num_heads=H, packed=packed),
+            lambda: sl.sa_sublayer16_reference(*args, num_heads=H), work, None,
+            sa_library(*_b16(*args), H), B16_FORM_TOL)
+
+
+def ffn16_case(rng, B, M, E, Fd):
+    """K4's FFN bf16 form: x W1 on bf16 operands, z1 rounded, hk W2 in f32;
+    the library call ``ffn_library`` on bf16 tensors."""
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = ffn_case(rng, B, M, E, Fd)
+    w1h = _b16(args[1])
+    work = (B * 2 * M * E * Fd, nbytes(args, w1h) + B * M * E * 4, 0, 0, 0, B * 2 * M * E * Fd)
+    return (lambda: sl.ffn_sublayer16_fwd(*args, packed=w1h),
+            lambda: sl.ffn_sublayer16_reference(*args), work, None,
+            ffn_library(*_b16(*args), None, None), B16_FORM_TOL)
+
+
 def kernel_table():
     """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
     fn, (flops, bytes)))]).  Every case is timed; the first is the flagship's
@@ -2106,6 +2356,48 @@ def kernel_table():
          [(f"d{d}{'_ln' if ln else ''}{'_drop' if rate else ''}",
            lambda r, d=d, ln=ln, rate=rate: dr_layer_case(r, B, T, 256, d, ln, rate))
           for rate in (0.0, 0.2) for ln in (True, False) for d in (1, 512)]),
+        # the bf16 forms (phase 18: havid_tpu_cfg() served): the flagship's
+        # shapes, a ragged case (B=3, lengths ending inside a tile, M=11, a
+        # video with x_len 0) and GTEA's K1 at C=128
+        ("mstcn_stack16", csrc + "tc_bf16.cu", pallas + "dilated_conv.py:311", "b16",
+         [("flagship", lambda r: k1_16_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS)),
+          # each of its three launches alone (bf16 out: one rounding, in ulps)
+          ("conv", lambda r: k1_conv16_case(r, B, T, 256, 64, FLAGSHIP_LENGTHS)),
+          ("resid", lambda r: k1_launch16_case(r, "resid", B, T, 256, D, FLAGSHIP_LENGTHS)),
+          ("logits", lambda r: k1_launch16_case(r, "logits", B, T, 256, D, FLAGSHIP_LENGTHS)),
+          ("ragged", lambda r: k1_16_case(r, 3, 1000, 256, D, [1, 64, 512], [1000, 777, 0])),
+          ("rag_conv", lambda r: k1_conv16_case(r, 3, 1000, 256, 512, [1000, 777, 0])),
+          ("gtea", lambda r: k1_16_case(r, 1, GT, GE, D, tower, [GT])),
+          ("gtea_conv", lambda r: k1_conv16_case(r, 1, GT, GE, 512, [GT]))]),
+        ("x2y_small_x16", csrc + "tc_bf16.cu", pallas + "x2y_attn.py:76", "b16",
+         [("flagship", lambda r: x2y16_case(r, False, B, T, 40, D, D, D, [40] * B,
+                                            _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
+          ("ragged", lambda r: x2y16_case(r, False, 3, 1000, 11, D, D, D, [11, 7, 0],
+                                          _rand(r, (1, 1000, D)), _rand(r, (1, 11, 256)))),
+          ("tdu", lambda r: x2y16_case(r, False, B, 40, 128, D, D, D, [128, 90] * 4,
+                                       _rand(r, (1, 40, 256)), _rand(r, (B, 128, D)))),
+          # its launches alone: y + y_pos, yq (f32), the keys (rounded to bf16)
+          ("add_pos", lambda r: b16_launch_case(r, "add_pos", B, T, D, D, [T] * B)),
+          ("proj_yq", lambda r: b16_launch_case(r, 3, B, T, D, D, [T] * B)),
+          ("proj_rnd", lambda r: b16_launch_case(r, 4, B, 40, D, D, [40, 11] * 4))]),
+        ("x2y_flash16", csrc + "tc_bf16.cu", pallas + "x2y_attn.py:159", "b16",
+         [("flagship", lambda r: x2y16_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
+                                            _rand(r, (1, 40, 256)), zeros(1, T, D))),
+          ("ragged", lambda r: x2y16_case(r, True, 3, 11, 2000, D, D, D, [2000, 1500, 0],
+                                          _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D))))]),
+        ("mha_cross16", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "b16",
+         [("flagship", lambda r: mha16_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                            zeros(1, T, D))),
+          ("ragged", lambda r: mha16_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 0],
+                                          _rand(r, (1, 1100, D)))),
+          # its projection alone: bf16(x Wk + bk), one rounding
+          ("proj16", lambda r: b16_launch_case(r, 5, B, T, D, 256, FLAGSHIP_LENGTHS))]),
+        ("sa_sublayer16", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "b16",
+         [("flagship", lambda r: sa16_case(r, B, 40, 256, 8)),
+          ("ragged", lambda r: sa16_case(r, 3, 11, 256, 8))]),
+        ("ffn_sublayer16", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "b16",
+         [("flagship", lambda r: ffn16_case(r, B, 40, 256, 512)),
+          ("ragged", lambda r: ffn16_case(r, 3, 11, 256, 512))]),
     ]
 
 
@@ -2155,6 +2447,16 @@ def phase_kernels(seed: int = 0):
                     kern, plain, work, judge, *extra = make(rng)
                     library = extra[0] if extra else None
                     text, ok, err_abs = judge(kern(), plain())
+                elif check == "b16":
+                    kern, plain, work, view, library, tol = make(rng)
+                    outs, refs = kern(), plain()
+                    if view is not None:
+                        outs, refs = view(outs), view(refs)
+                    outs, refs = _pairs(name, outs, refs)
+                    torch.cuda.synchronize()
+                    text, ok, err_abs = b16_judge(outs, refs, tol,
+                                                  probs=name.startswith("x2y") and len(outs) == 3)
+                    del outs, refs
                 else:
                     kern, plain, work, *extra = make(rng)
                     view, library, twin = (extra + [None] * 3)[:3]
@@ -2183,6 +2485,7 @@ def phase_kernels(seed: int = 0):
                 bound_ms, bound_by = bound(*work)
                 int8 = f", {work[2]:.4g} int8 ops" if len(work) > 2 and work[2] else ""
                 int8 += f", {work[4]:.4g} expfs" if len(work) > 4 and work[4] else ""
+                int8 += f", {work[5]:.4g} bf16 FLOP" if len(work) > 5 and work[5] else ""
                 tf32 = ""
                 if len(work) > 3 and work[3]:  # beside it, the f32-FMA bound of the same work
                     f32_ms = bound(work[0] + work[3], work[1], work[2])[0]
@@ -2255,7 +2558,9 @@ def k6_repeat_check(seed: int = 0):
     at the flagship's shape (the int8 projection's ring, the flash
     attention's partials and combine); K8d at the flagship's and
     Breakfast's shapes (its projection's ring, K3's attention and
-    combine)."""
+    combine); the six bf16 forms of phase 18 at the flagship's shapes (the
+    bf16 GEMM's ring and epilogues, the attention partials and combines, K4's
+    staging)."""
     import torch
 
     def tensors(out):
@@ -2317,7 +2622,18 @@ def k6_repeat_check(seed: int = 0):
                                           segment=500)),
              ("k7c_epic", lambda: k7c_case(rng, 1, EPIC_T, (98, 301, 3806), [EPIC_T])),
              ("k8a_row", lambda: k8a_case(rng, 8, 3072, 256, 10, FLAGSHIP_LENGTHS, False, "row")),
-             ("k8e_row", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4, "row")))
+             ("k8e_row", lambda: k8e_case(rng, 4, 4096, 512, 10, [4096] * 4, "row")),
+             # the bf16 forms at the flagship's shapes (phase 18)
+             ("k1_16", lambda: k1_16_case(rng, 8, 3072, 256, 512, tower, FLAGSHIP_LENGTHS)),
+             ("k2sx_16", lambda: x2y16_case(rng, False, 8, 3072, 40, 512, 512, 512, [40] * 8,
+                                            _rand(rng, (1, 3072, 512)),
+                                            _rand(rng, (1, 40, 256)))),
+             ("k2f_16", lambda: x2y16_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                           FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)), zeros)),
+             ("k3_16", lambda: mha16_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
+                                          zeros)),
+             ("sa_16", lambda: sa16_case(rng, 8, 40, 256, 8)),
+             ("ffn_16", lambda: ffn16_case(rng, 8, 40, 256, 512)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -2333,8 +2649,8 @@ def k6_repeat_check(seed: int = 0):
         del kern, first
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a-K7c or K8a-K8e gives "
-                             f"different bits on the same inputs: {failed}")
+        raise AssertionError(f"a tower, K2, K3, K4, K5, K7a-K7c, K8a-K8e or a bf16 form "
+                             f"gives different bits on the same inputs: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -4260,9 +4576,9 @@ class _LoopSpies:
                 first = False
                 yield item
 
-        def copy_spy(arrays, device):  # the train step reads the last one
+        def copy_spy(arrays, device, *dtype):  # the train step reads the last one
             t0 = time.perf_counter()
-            out = to_device(arrays, device)
+            out = to_device(arrays, device, *dtype)
             torch.cuda.synchronize()
             spies._copy = (time.perf_counter() - t0) * 1e3
             return out
@@ -4894,6 +5210,223 @@ def _trans_train(tag, cfg, build, C, cweight, batches, gen, want, seeds):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: mixed precision, havid_tpu.yaml served in bf16
+
+HAVID_TPU_YAML = os.path.join("fact_clip_tpu", "configs", "havid_tpu.yaml")
+B16_KERNELS = ("mstcn_stack16", "x2y_small_x16", "x2y_flash16", "mha_cross16", "sa_sublayer16",
+               "ffn_sublayer16")
+B16_OF = {"mstcn_stack16": "mstcn_stack", "x2y_small_x16": "x2y_small_x",
+          "x2y_flash16": "x2y_flash", "mha_cross16": "mha_cross",
+          "sa_sublayer16": "sa_sublayer", "ffn_sublayer16": "ffn_sublayer"}
+B16_MODEL_TOL = 1e-2  # block-0 frame logits, bf16 kernel vs bf16 plain path, of scale
+B16_F32_TOL = 0.05  # the same, bf16 kernel path vs f32 kernel path (JAX's bound)
+B16_LOOP_DATA = dict(LOOP_DATA, n_train=4, n_test=4)
+
+
+def b16_batch_launches(T: int) -> dict:
+    """The bf16 forms' launches of one eval step of havid_tpu_cfg() at a
+    padded length T: four towers, the u block's f2a over the frames (flash
+    past 1,024 keys, else small X) and the four other X2Y maps, the SCA's six
+    cross-attentions (fused from 1,024 frames), nine SA and nine FFN
+    sublayers (six SCA layers, three SA decoders)."""
+    flash = int(T >= 1025)
+    return {"mstcn_stack16": 4, "x2y_flash16": flash, "x2y_small_x16": 6 - flash,
+            "mha_cross16": 6 if T >= 1024 else 0, "sa_sublayer16": 9, "ffn_sublayer16": 9}
+
+
+def guard_b16():
+    """Count the bf16 forms' launches across every reset of the launch
+    counters from here on (the f32 phases must show none): returns a
+    function giving the total."""
+    import fact_clip_tpu_torch as pkg
+
+    seen = [0]
+    reset = pkg.reset_kernel_counters
+
+    def counting_reset():
+        seen[0] += sum(pkg.kernel_counters()[k] for k in B16_KERNELS)
+        reset()
+
+    pkg.reset_kernel_counters = counting_reset
+    return lambda: seen[0] + sum(pkg.kernel_counters()[k] for k in B16_KERNELS)
+
+
+def _b16_step(step, x, mask, lens, n=6):
+    """The warm eval step: (its last output, the median ms of n - 1 warm
+    runs, the peak device memory in MiB of one run)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(x, mask, lens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(x, mask, lens)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return out, sorted(times[1:])[(n - 1) // 2], peak
+
+
+def phase_bf16(smi, seed: int = 0):
+    """havid_tpu_cfg() (TPU.compute_dtype: bfloat16) at the flagship's full
+    widths with seeded weights: phase 4's requests through Predictor (the
+    bf16 forms' launches counted per batch, their f32 twins 0), the eval
+    step at 8 x 3072 and 16 x 3072 against the f32 kernel path on the same
+    weights (median ms, peak memory), the bf16 kernel path against its plain
+    bf16 path and against the f32 path, then fact_clip_tpu_torch.run_eval's
+    entry on havid_tpu.yaml over a HAViD-shaped set, in-process so that its
+    launches are counted.  Returns the eval step's counts at 8 x 3072."""
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, reset_kernel_counters
+    from fact_clip_tpu_torch import run_eval as run_eval_cli
+    from fact_clip_tpu_torch.configs import havid_tpu_cfg
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step
+    from fact_clip_tpu_torch.models.blocks import build_fact
+
+    t_phase = time.perf_counter()
+    D, C, S_CAP = FLAGSHIP_DIMS
+    cfg = havid_tpu_cfg()
+    mwt = cfg["FACT"]["mwt"]
+    dev = torch.device("cuda")
+    model = flagship_model(cfg, seed + 180, dev)
+    if {c.dtype for c in model.block_cfgs} != {"bfloat16"}:
+        raise AssertionError("havid_tpu_cfg() did not resolve to bf16 blocks")
+
+    # (a) phase 4's requests
+    rng = np.random.default_rng(seed)
+    lengths, feats = flagship_requests(rng, D)
+    pred = Predictor(model, mwt, batch_size=8, max_len=3072, device=dev)
+    pred.predict(feats[:1])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    want = {k: 0 for k in counts}
+    groups = {}
+    for n in lengths:
+        groups[pred.bucket_for(n)] = groups.get(pred.bucket_for(n), 0) + 1
+    for bucket, n in groups.items():
+        for k, v in b16_batch_launches(bucket).items():
+            want[k] += v * -(-n // pred.batch_size)
+    _launch_check("bf16 predict", counts, want)
+    for n, o in zip(lengths, outs):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"bf16 predict: bad prediction {o.shape}")
+    log(f"[bf16] havid_tpu_cfg() served: {len(feats)} requests {lengths} in batches of "
+        f"{dict(sorted(groups.items()))} (bucket: requests), {dt:.3f} s; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}, every f32 twin 0")
+
+    # (b) the eval step at 8 x 3072 and 16 x 3072, bf16 against f32 on the same weights
+    cfg32 = havid_tpu_cfg()
+    cfg32["TPU"]["compute_dtype"] = "float32"
+    m32 = build_fact(cfg32, D, C, S_CAP, device=dev)
+    m32.load_state_dict(model.state_dict())
+    step16, step32 = make_eval_step(model, mwt), make_eval_step(m32, mwt)
+    T = 3072
+    per_step = None
+    for B in (8, 16):
+        blen = np.array((FLAGSHIP_LENGTHS * 2)[:B], np.int32)
+        f = np.zeros((B, T, D), np.float32)
+        for i, n in enumerate(blen):
+            f[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
+        x32 = torch.from_numpy(f).to(dev)
+        x16 = torch.from_numpy(f).to(torch.bfloat16).to(dev)
+        mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
+        lens = torch.from_numpy(blen).to(dev)
+        reset_kernel_counters()
+        step16(x16, mask, lens)
+        torch.cuda.synchronize()
+        c16 = kernel_counters()
+        _launch_check(f"bf16 eval step {B} x {T}", c16,
+                      {**{k: 0 for k in c16}, **b16_batch_launches(T)})
+        if B == 8:
+            per_step = c16
+        p16, ms16, mem16 = _b16_step(step16, x16, mask, lens)
+        p32, ms32, mem32 = _b16_step(step32, x32, mask, lens)
+        log(f"[bf16] eval step {B} x {T} (warm, median of 5): bf16 kernels {ms16:.3f} ms, peak "
+            f"{mem16:.0f} MiB; f32 kernels {ms32:.3f} ms, peak {mem32:.0f} MiB on the same "
+            f"weights ({ms16 / ms32:.3f} of f32's time, {mem16 / mem32:.3f} of its memory)")
+        if B == 8:  # the paths against each other
+            with torch.inference_mode():
+                sk, _ = model(x16, mask, lens)
+                model.set_kernels(False)
+                sp, _ = model(x16, mask, lens)
+                pp = step16(x16, mask, lens)
+                model.set_kernels(True)
+                s32, _ = m32(x32, mask, lens)
+            def rels(a_saves, b_saves):  # each block's frame logits, of its scale
+                return [float((a["frame_clogit"] - b["frame_clogit"]).abs()[mask].max())
+                        / float(b["frame_clogit"].abs()[mask].max())
+                        for a, b in zip(a_saves, b_saves)]
+
+            rel_p, rel_32 = rels(sk, sp), rels(sk, s32)
+            agree = float((p16 == pp)[mask].float().mean())
+            agree32 = float((p16 == p32)[mask].float().mean())
+            log(f"[bf16] 8 x {T}: bf16 kernel vs bf16 plain path: block-0 frame logits within "
+                f"{rel_p[0]:.3e} of scale (tol {B16_MODEL_TOL:g}; the blocks' "
+                f"{', '.join(f'{r:.3e}' for r in rel_p)}: every tower of 10 layers compounds "
+                f"one-ulp flips of its stream, tol {B16_F32_TOL:g}), final predictions agree on "
+                f"{agree:.5f} (min {MIN_AGREE}); bf16 vs f32 kernel path: the blocks' "
+                f"{', '.join(f'{r:.3e}' for r in rel_32)} of scale (tol {B16_F32_TOL:g}), "
+                f"predictions agree on {agree32:.5f} (random weights; reported)")
+            if not (rel_p[0] <= B16_MODEL_TOL and max(rel_p) <= B16_F32_TOL
+                    and agree >= MIN_AGREE and max(rel_32) <= B16_F32_TOL):
+                raise AssertionError("bf16: the kernel path disagrees with its plain path or "
+                                     "with the f32 path")
+            del sk, sp, s32, pp
+        del x16, x32, p16, p32
+        torch.cuda.empty_cache()
+    del m32, step32
+    torch.cuda.empty_cache()
+
+    # (c) run_eval's entry on havid_tpu.yaml over a HAViD-shaped set
+    import tempfile
+
+    with _loop_run("chip_smoke_bf16", data=B16_LOOP_DATA, yaml_path=HAVID_TPU_YAML) as \
+            (base, cfg_of):
+        _, sets, _ = cfg_of(1)
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_bf16_ckpt")
+        try:
+            os.makedirs(os.path.join(ckdir, "ckpts"))
+            ckpt = os.path.join(ckdir, "ckpts", "network.iter-1.net")
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+            reset_kernel_counters()
+            t0 = time.perf_counter()
+            result = run_eval_cli.main(["--cfg", os.path.join(REPO, HAVID_TPU_YAML), "--ckpt",
+                                        ckpt, "--set", *sets])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ce = kernel_counters()
+            out = os.path.join(ckdir, "eval_results", "eval_result.gz")
+            if not os.path.exists(out) or any(ce[B16_OF[k]] for k in B16_KERNELS) or \
+                    any(ce[k] <= 0 for k in B16_KERNELS if k != "x2y_flash16"):
+                raise AssertionError(f"bf16 run_eval: results {os.path.exists(out)}, launches "
+                                     f"{dict((k, v) for k, v in ce.items() if v)}")
+            metrics = {k: round(float(v), 3) for k, v in result.metrics.items()}
+            log(f"[bf16] run_eval --cfg {HAVID_TPU_YAML} (in-process, its main()) over "
+                f"{B16_LOOP_DATA['n_test']} test videos of {B16_LOOP_DATA['min_len']}-"
+                f"{B16_LOOP_DATA['max_len']} frames: {dt:.1f} s, launches "
+                f"{dict((k, v) for k, v in ce.items() if v)}, metrics {metrics}")
+        finally:
+            import shutil
+
+            shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[bf16] phase 18 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    del model, pred
+    torch.cuda.empty_cache()
+    return per_step
+
+
 def phase_transcript(smi, seed: int = 0):
     """Transcript mode and GTEA's recipes on the card (module docstring,
     phase 17): (a) ``gtea_transcript_cfg()``, (b) its ``a: gru_om`` input
@@ -5146,6 +5679,10 @@ def main():
     phase_build(verbose="--ptxas" in sys.argv)
     results = phase_kernels()
     k6_repeat_check()
+    from fact_clip_tpu_torch import reset_kernel_counters
+
+    reset_kernel_counters()
+    b16_seen = guard_b16()  # phases 4-17 are f32: the bf16 forms launch 0 times there
     counts = phase_serving()
     train_counts = phase_training()
     bf_counts = {"serve": phase_bf_serving(), "train": phase_bf_training()}
@@ -5164,6 +5701,10 @@ def main():
     phase_loop(smi)
     phase_openvocab(smi)
     trans_counts = phase_transcript(smi)
+    if b16_seen():
+        raise AssertionError(f"the bf16 forms launched {b16_seen()} times on the f32 phases")
+    log("[bf16] phases 4-17 (f32): the bf16 forms launched 0 times")
+    b16_counts = phase_bf16(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":
@@ -5178,6 +5719,8 @@ def main():
         elif name in BF_ROWS:
             path, counter = BF_ROWS[name]
             r["launches"] = bf_counts[path][counter]
+        elif name in B16_KERNELS:  # phase 18's eval step at 8 x 3072
+            r["launches"] = b16_counts[name]
         elif name in EPIC_ROWS:
             r["launches"] = epic_counts[name]
             if name == "factored_argmax":

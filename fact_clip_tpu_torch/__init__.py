@@ -35,7 +35,8 @@ csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 
 The entry points run on the CUDA card and refuse to start without one
 unless given the CPU (``device="cpu"``, ``--device cpu``).  Everything runs
-in float32.  Importing this package imports neither JAX nor the JAX package
+in float32 but FACT's serving path under ``TPU.compute_dtype: bfloat16``
+(JAX's mixed precision: the bf16 forms of K1-K4, ``ops/bf16.py``).  Importing this package imports neither JAX nor the JAX package
 nor PyYAML, and builds nothing.
 """
 
@@ -74,6 +75,12 @@ _KERNELS = {
     "x2y_small_x_q8": quant_conv.x2y_small_x_q8,
     "x2y_flash_q8": quant_conv.x2y_flash_q8,
     "mha_cross_q8": quant_conv.mha_cross_q8,
+    "mstcn_stack16": dilated_conv.mstcn_stack16,
+    "x2y_small_x16": x2y_attn.x2y_small_x16_fwd,
+    "x2y_flash16": x2y_attn.x2y_flash16_fwd,
+    "mha_cross16": mha_attn.mha_cross16_fwd,
+    "sa_sublayer16": sa_layer.sa_sublayer16_fwd,
+    "ffn_sublayer16": sa_layer.ffn_sublayer16_fwd,
 }
 # the plain backward that the K2 dispatch runs on the card (per-batch pos), as JAX does
 _PLAIN = {"x2y_bwd_reference": x2y_attn.x2y_bwd_reference}

@@ -95,6 +95,15 @@ SIGNATURES = {
     "fk_x2y_sx_q8_fwd": [P, P, L, I, P, P, L, I, P, I] + [P] * 7 + [I] * 7 + [F] + [P] * 10
                         + [I, P],
     "fk_x2y_flash_q8_fwd": [P, P, L, I, P, I] + [P] * 6 + [I] * 6 + [F] + [P] * 8 + [I, P],
+    # the mixed-precision (bf16) forms
+    "fk_b16_gemm": [I, P, I, I, P, I, P, I, I, I, I, P, P, I, I, P, P, P],
+    "fk_b16_add_pos": [P, P, L, I, I, I, I, P, P],
+    "fk_x2y_sx_attn": [P, P, P, I, I, I, I, F, P, P, P, I, P],
+    "fk_x2y_flash_attend": [P, P, P, I, I, I, I, F] + [P] * 5 + [I, P],
+    "fk_k3_attn16": [P, P, P] + [I] * 5 + [P] * 4,
+    "fk_sa_qkv16": [P, P, I] + [P] * 7 + [I, I, I, P],
+    "fk_sa_attn_out16": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F, P],
+    "fk_ffn_fwd16": [P] * 9 + [I, I, I, I, F, P],
 }
 
 
@@ -218,20 +227,23 @@ def require_backward(name: str, available: bool) -> None:
         raise NotImplementedError(f"{name}: no backward kernel at this shape")
 
 
-def check_tensors(name: str, tensors, device) -> None:
+def check_tensors(name: str, tensors, device, bf16: bool = False) -> None:
     """Device, dtype and contiguity of every pointer handed to a kernel (one
-    test a tensor where all hold: it runs on every kernel call's host path)."""
+    test a tensor where all hold: it runs on every kernel call's host path).
+    ``bf16``: the entry takes bfloat16 tensors too (the mixed-precision
+    forms); the others take float32, int32 and int8 only."""
     import torch
 
-    kinds = (torch.float32, torch.int32, torch.int8)
+    kinds = (torch.float32, torch.int32, torch.int8) + ((torch.bfloat16,) if bf16 else ())
     for t in tensors:
         if t is None or (t.dtype in kinds and t.device == device and t.is_contiguous()):
             continue
         if t.device != device:
             raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
-        if t.dtype not in (torch.float32, torch.int32, torch.int8):
-            raise ValueError(f"{name}: unsupported dtype {t.dtype} (float32, int32 and int8 "
-                             "kernels)")
+        if t.dtype not in kinds:
+            raise ValueError(f"{name}: unsupported dtype {t.dtype} ("
+                             + ", ".join(str(k).replace("torch.", "") for k in kinds)
+                             + " kernels)")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel inputs must be contiguous")
 

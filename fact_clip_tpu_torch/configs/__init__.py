@@ -25,7 +25,16 @@ recipes' held-out classes; ``gtea_cfg()`` mirrors ``gtea.yaml`` (``iuU``,
 attention at a_dim 128 with 8 heads, towers 128 wide) and
 ``gtea_train_cfg()`` is it as the port trains it; ``gtea_transcript_cfg()``
 mirrors ``gtea_transcript.yaml`` (transcript mode, ``FACT.trans``: the
-tokens are the transcript, ``seq`` matching).
+tokens are the transcript, ``seq`` matching); ``havid_tpu_cfg()`` is
+``havid_tpu.yaml`` as read (the flagship recipe under mixed precision,
+``TPU.compute_dtype: bfloat16``), which the port serves and evaluates.
+
+``dtype`` is ``"bfloat16"`` under ``TPU.compute_dtype: bfloat16`` (JAX's
+mixed-precision policy, ``fact_clip_tpu/models/layers.py:31-35``): heavy
+products and the tower stream on bf16 operands with f32 accumulation,
+softmax, LayerNorm statistics, probabilities and logits in f32.  The port
+has that path for serving FACT with ``f: m`` towers only; ``bf16_refusal``
+names what it refuses, before any launch.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 
 from .default import get_cfg_defaults
 from .node import CfgNode, _to_plain_dict
@@ -321,6 +331,54 @@ def openvocab_train_cfg() -> dict:
     return cfg
 
 
+def havid_tpu_cfg() -> dict:
+    """``fact_clip_tpu/configs/havid_tpu.yaml`` read as it stands (its
+    ``_BASE_: havid.yaml``, through ``setup_cfg`` and ``yaml_lite``): the
+    HAViD flagship recipe (``iuUU``, D=2048, 40 tokens, ``f: m`` towers 256
+    wide with 10 layers, a 6-layer SCA input decoder of 8 heads at a_dim 256)
+    with ``TPU.compute_dtype: bfloat16``, ``pallas``, ``pallas_sa`` and the
+    ``auction`` matcher.  The port serves and evaluates it in bf16
+    (``Predictor``, ``make_eval_step``, ``run_eval``); training it raises."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "fact_clip_tpu", "configs", "havid_tpu.yaml")
+    return _to_plain_dict(setup_cfg([path]))
+
+
+def compute_dtype(cfg: dict) -> str:
+    """``"bfloat16"`` under mixed precision, else ``""`` (float32), as JAX's
+    ``blocks.py::_compute_dtype``; any other value raises."""
+    d = cfg["TPU"].get("compute_dtype", "")
+    if d in ("", "float32", None):
+        return ""
+    if d != "bfloat16":
+        raise ValueError(f"unsupported TPU.compute_dtype {d!r}")
+    return d
+
+
+def bf16_refusal(cfg: dict) -> str | None:
+    """Why the port has no bf16 path for ``cfg`` (None where it has one):
+    this slice serves FACT with ``f: m`` towers without a LayerNorm; the
+    rest is queued in ROADMAP.md's M7 items."""
+    if not compute_dtype(cfg):
+        return None
+    nodes = [cfg["Bi"], cfg["Bu"], cfg["BU"]]
+    if cfg.get("use_clip"):
+        return "FACT_CLIP (use_clip) in bf16 is ROADMAP M7 item 4"
+    if cfg["FACT"].get("trans"):
+        return "transcript mode (FACT.trans) in bf16 is ROADMAP M7 item 4"
+    if "I" in cfg["FACT"]["block"]:
+        return "the verb/noun model in bf16 is ROADMAP M7 item 4"
+    if cfg["TPU"].get("quantize_infer"):
+        return "int8 evaluation (TPU.quantize_infer) under bf16 is ROADMAP M7 item 3"
+    if any(n.get("f") == "m2" for n in nodes):
+        return "the MS-TCN++ tower (f: m2, K6) in bf16 is ROADMAP M7 item 2"
+    if any(n.get("f_ln") for n in nodes):
+        return "the MSTCN tower's LayerNorm (f_ln) in bf16 is ROADMAP M7 item 2"
+    if any((n.get("f_ngp") or 1) > 1 for n in nodes):
+        return "grouped towers (f_ngp > 1) in bf16 are ROADMAP M7 item 2"
+    return None
+
+
 def epic_vocab(n1: int = 98, n2: int = 301, n_act: int = 3806, seed: int = 0) -> tuple:
     """(vids, nids): the repository's epic-scale action vocabulary, ``n_act``
     distinct (verb, noun) pairs drawn from ``default_rng(seed)`` and sorted
@@ -336,22 +394,24 @@ def epic_vocab(n1: int = 98, n2: int = 301, n_act: int = 3806, seed: int = 0) ->
     return np.array([p[0] for p in pairs], np.int32), np.array([p[1] for p in pairs], np.int32)
 
 
-def _block(node: dict, kind: str, tpu: dict, quant: str) -> BlockCfg:
+def _block(node: dict, kind: str, tpu: dict, quant: str, dtype: str) -> BlockCfg:
     return BlockCfg(
         kind=kind, hid_dim=node["hid_dim"], dropout=float(node["dropout"]), a=node["a"],
         a_nhead=node["a_nhead"], a_ffdim=node["a_ffdim"], a_layers=node["a_layers"],
         a_dim=node["a_dim"], f=node["f"], f_layers=node["f_layers"], f_ln=bool(node["f_ln"]),
         f_dim=node["f_dim"], f_ngp=node["f_ngp"], s_layers=node.get("s_layers", 1) or 1,
         pallas=bool(tpu["pallas"]), pallas_attn=bool(tpu["pallas_attn"]),
-        pallas_sa=bool(tpu["pallas_sa"]), quantize=quant,
+        pallas_sa=bool(tpu["pallas_sa"]), quantize=quant, dtype=dtype,
     )
 
 
 def resolve_block_cfgs(cfg: dict) -> tuple:
     """Sequential Bi -> Bu -> BU None-inheritance, one BlockCfg per block."""
     tpu = cfg["TPU"]
-    if tpu.get("compute_dtype", "float32") not in ("", "float32", None):
-        raise ValueError("the port runs float32 only")
+    dtype = compute_dtype(cfg)
+    why = bf16_refusal(cfg)
+    if why is not None:
+        raise NotImplementedError(f"TPU.compute_dtype bfloat16: {why}")
     quant = str(tpu.get("quantize_infer") or "")
     if quant not in ("", "int8"):
         raise ValueError(f"unsupported TPU.quantize_infer {quant!r}")
@@ -373,5 +433,5 @@ def resolve_block_cfgs(cfg: dict) -> tuple:
             raise ValueError(f"unsupported block type {kind!r}")
         if node["a"] in ("gru", "gru_om") and not trans:  # blocks.py:217-218
             raise ValueError("the GRU action branch needs transcript mode (FACT.trans)")
-        out.append(_block(node, kind, tpu, quant))
+        out.append(_block(node, kind, tpu, quant, dtype))
     return tuple(out)

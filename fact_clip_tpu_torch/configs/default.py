@@ -168,8 +168,8 @@ TPU.bucket_multiple = 128  # pad video lengths up to a multiple of this
 TPU.bucket_growth = 1.26  # geometric growth between length buckets
 TPU.max_gt_segs = -1  # cap on ground-truth segments; -1 -> scan dataset
 TPU.max_pred_segs = -1  # cap on TDU predicted segments; -1 -> auto from max_gt_segs
-TPU.compute_dtype = "float32"  # the port runs float32 only
-TPU.feature_dtype = ""
+TPU.compute_dtype = "float32"  # "float32" | "bfloat16" (serving FACT's f: m towers)
+TPU.feature_dtype = ""  # input-feature feed dtype; "" -> follow compute_dtype
 TPU.matcher = "auto"  # the port matches on the host: "auto" | "host"
 # the auction matcher's and the mesh's knobs: read only on paths that
 # raise in the port (matcher "auction", shards > 1)

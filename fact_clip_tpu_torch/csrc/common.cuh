@@ -21,12 +21,27 @@
 // transposed (a weight gradient's A^T, rows = channels, k = time).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace fk {
+
+// bf16 in the mixed-precision forms: values convert by the intrinsics only
+// (the code builds under -D__CUDA_NO_BFLOAT16_CONVERSIONS__ too), and a
+// rounding to bf16 is to nearest, ties to even, as XLA's and PyTorch's
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// an element as f32: __ldg for floats, a plain load and conversion for bf16
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -107,10 +122,66 @@ __device__ __forceinline__ void fetch_w(float (*w)[kBN], const float* __restrict
   }
 }
 
-template <int BM, bool kTransA = false, class AElem>
+// The W chunk [k0, k0 + kBK) x [n0, n0 + kBN) of a bf16 W, held in registers
+// by each thread (8 values a 16-byte load) and converted to f32 as it is
+// stored to shared memory (the mixed-precision forms' weights; the f32 path
+// copies with cp.async instead)
+constexpr int kW16Per = kBK * kBN / 8 / kThreads;  // 16-byte loads per thread and chunk
+
+__device__ __forceinline__ void fetch_w16(uint4 (&wv)[kW16Per], const bf16* __restrict__ W,
+                                          int ldw, int K, int k0, int n0, int N, bool vec) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kW16Per; ++j) {
+    const int f = tid + j * kThreads;
+    const int kk = f / (kBN / 8);
+    const int c = (f - kk * (kBN / 8)) * 8;
+    const int k = k0 + kk;
+    if (vec) {  // N and ldw multiples of 8, W 16-byte aligned
+      wv[j] = k < K && n0 + c < N ? __ldg(reinterpret_cast<const uint4*>(W + (size_t)k * ldw +
+                                                                         n0 + c))
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      uint16_t h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = k < K && n0 + c + e < N
+                   ? reinterpret_cast<const uint16_t*>(W)[(size_t)k * ldw + n0 + c + e]
+                   : (uint16_t)0;
+      wv[j] = make_uint4(h[0] | (uint32_t)h[1] << 16, h[2] | (uint32_t)h[3] << 16,
+                         h[4] | (uint32_t)h[5] << 16, h[6] | (uint32_t)h[7] << 16);
+    }
+  }
+}
+
+// the two bf16 of a 32-bit word (the lower one first) as f32
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
+  return make_float2(__bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu))),
+                     __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16))));
+}
+
+__device__ __forceinline__ void store_w16(float (*w)[kBN], const uint4 (&wv)[kW16Per]) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kW16Per; ++j) {
+    const int f = tid + j * kThreads;
+    const int kk = f / (kBN / 8);
+    const int c = (f - kk * (kBN / 8)) * 8;
+    const float2 a = bf16x2_to_float2(wv[j].x), b = bf16x2_to_float2(wv[j].y);
+    const float2 e = bf16x2_to_float2(wv[j].z), g = bf16x2_to_float2(wv[j].w);
+    *reinterpret_cast<float4*>(&w[kk][c]) = make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(&w[kk][c + 4]) = make_float4(e.x, e.y, g.x, g.y);
+  }
+}
+
+// TW: the element type of W, float (staged by cp.async) or bf16 (staged
+// through registers and converted, fetch_w16); the products are f32 FMAs
+// either way, exact for bf16 operands.
+template <int BM, bool kTransA = false, class AElem, class TW = float>
 __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
-                                          const float* __restrict__ W, int ldw,
+                                          const TW* __restrict__ W, int ldw,
                                           int K, int n0, int N, GemmSmem<BM>& s) {
+  constexpr bool kW16 = std::is_same<TW, bf16>::value;
   constexpr int RM = BM / 8;
   constexpr int kAPer = BM * kBK / kThreads;  // A values each thread stages per chunk
   constexpr int kRowStep = kThreads / kBK;    // rows between them (row-wise staging)
@@ -125,13 +196,15 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
   const int ar = kTransA ? tid % BM : tid / kBK;
   auto a_row = [&](int i) { return kTransA ? ar : ar + kRowStep * i; };
   auto a_k = [&](int i) { return kTransA ? ak + kKStep * i : ak; };
-  const bool vec = (N % 4 == 0) && (ldw % 4 == 0) && ((uintptr_t)W % 16 == 0);
+  const int wvec = kW16 ? 8 : 4;
+  const bool vec = (N % wvec == 0) && (ldw % wvec == 0) && ((uintptr_t)W % 16 == 0);
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   float av[kAPer];
+  uint4 wv[kW16 ? kW16Per : 1];
   auto fetch_a = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < kAPer; ++i) {
@@ -143,18 +216,28 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
 #pragma unroll
     for (int i = 0; i < kAPer; ++i) s.a[buf][a_k(i)][a_row(i)] = av[i];
   };
+  auto fetch_w_any = [&](int buf, int k0) {
+    if constexpr (kW16)
+      fetch_w16(wv, W, ldw, K, k0, n0, N, vec);
+    else
+      fetch_w(s.w[buf], W, ldw, K, k0, n0, N, vec);
+  };
+  auto store_w_any = [&](int buf) {
+    if constexpr (kW16) store_w16(s.w[buf], wv);
+  };
 
   const int n_chunks = (K + kBK - 1) / kBK;
-  fetch_w(s.w[0], W, ldw, K, 0, n0, N, vec);
+  fetch_w_any(0, 0);
   fetch_a(0);
   store_a(0);
+  store_w_any(0);
   cp_async_wait_all();
   __syncthreads();
   for (int c = 0; c < n_chunks; ++c) {
     const int cur = c & 1;
     const bool more = c + 1 < n_chunks;
     if (more) {  // the next chunk's loads are in flight during this multiply
-      fetch_w(s.w[cur ^ 1], W, ldw, K, (c + 1) * kBK, n0, N, vec);
+      fetch_w_any(cur ^ 1, (c + 1) * kBK);
       fetch_a((c + 1) * kBK);
     }
 #pragma unroll
@@ -175,7 +258,10 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[BM / 8][8], AElem a_elem,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    if (more) store_a(cur ^ 1);
+    if (more) {
+      store_a(cur ^ 1);
+      store_w_any(cur ^ 1);
+    }
     cp_async_wait_all();
     __syncthreads();
   }

@@ -316,6 +316,22 @@ extern "C" int fk_x2y_flash_fwd(const float* x, const float* xpos, long long xst
                       rows, s);
 }
 
+// K2's flash attention alone, on projections made elsewhere (the
+// mixed-precision form, ops/x2y_attn.py::x2y_flash16_fwd, makes kv = [xk |
+// xv] (B, X, 2d) f32 on the bf16 GEMM, tc_bf16.cu, and yq outside: JAX's
+// flash kernel keeps xk and xv f32 under mixed precision, so its attention
+// is this f32 one): the partials and the combine -> logits and probs (B, M,
+// X), attn (B, M, d); `rows` query rows a block (a multiple of 4 up to 32).
+extern "C" int fk_x2y_flash_attend(const float* yq, const float* kv, const int* xlen, int B,
+                                   int X, int M, int d, float scale, float* part_acc,
+                                   float* part_ml, float* logits, float* probs, float* attn,
+                                   int rows, void* stream) {
+  if (d % 4 || rows % 4 || rows < 4 || rows > 32 || X < 1 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  return flash_attend(yq, kv, xlen, B, X, M, d, scale, part_acc, part_ml, logits, probs, attn,
+                      rows, (cudaStream_t)stream);
+}
+
 // K8c, one host call (see the top of this file): x (B, X, Cx) with x_pos (1
 // or B, X, Px; null for none) on its leading Px channels, the projected
 // queries yq (B, M, d) -> logits and probs (B, M, X), attn (B, M, d).

@@ -69,11 +69,16 @@ namespace {
 // one head's attention over BK keys of one video: per-tile softmax partials.
 // HD: the head width as a compile-time constant (32 or 64: the loops over it
 // unroll, so their shared-memory loads pipeline), or 0 to read hd_rt.
-template <int BK, int HD>
+// TE: the element type of kv and q, float or bf16 (the mixed-precision form:
+// the queries arrive scaled (scale 1), the logits and the softmax sum are
+// f32 and the weights are rounded to bf16 for the attend sum, as JAX's
+// _mha_kernel casts p before its product with v, mha_attn.py:106).
+template <int BK, int HD, class TE = float>
 __global__ void __launch_bounds__(fk::kThreads)
-    k3_attn_kernel(const float* __restrict__ kv, const float* __restrict__ q,
+    k3_attn_kernel(const TE* __restrict__ kv, const TE* __restrict__ q,
                    const int* __restrict__ xlen, int X, int M, int H, int hd_rt, float scale,
                    float* __restrict__ part_acc, float* __restrict__ part_ml, fk::Dropout drop) {
+  constexpr bool kB16 = std::is_same<TE, fk::bf16>::value;
   constexpr int KPL = BK / 32;  // keys per lane
   const int hd = HD ? HD : hd_rt;
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -102,15 +107,15 @@ __global__ void __launch_bounds__(fk::kThreads)
   float* ps = vs + BK * hd;                         // [warps][2][BK]: two rows' weights
   for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
     const int m = i / hd;
-    qs[i] = __ldg(q + ((size_t)b * M + m) * E + h * hd + (i - m * hd));
+    qs[i] = fk::ldf(q + ((size_t)b * M + m) * E + h * hd + (i - m * hd));
   }
-  const float* kvb = kv + ((size_t)b * X + x0) * 2 * E + h * hd;
+  const TE* kvb = kv + ((size_t)b * X + x0) * 2 * E + h * hd;
   for (int i = threadIdx.x; i < BK * hd; i += fk::kThreads) {
     const int j = i / hd, d = i - j * hd;
     float kk = 0.f, vv = 0.f;
     if (j < rows) {
-      kk = __ldg(kvb + (size_t)j * 2 * E + d);
-      vv = __ldg(kvb + (size_t)j * 2 * E + E + d);
+      kk = fk::ldf(kvb + (size_t)j * 2 * E + d);
+      vv = fk::ldf(kvb + (size_t)j * 2 * E + E + d);
     }
     ks[j * ldk + d] = kk;
     vs[j * hd + d] = vv;
@@ -158,7 +163,7 @@ __global__ void __launch_bounds__(fk::kThreads)
         float pk = p;
         if (drop.seed != nullptr && key < X)
           pk *= drop.keep(((uint32_t)b * (uint32_t)HM + hm) * (uint32_t)X + (uint32_t)key, seed);
-        pw[r * BK + u * 32 + tx] = pk;
+        pw[r * BK + u * 32 + tx] = kB16 ? fk::bf16_round(pk) : pk;
       }
       lt[r] = fk::warp_sum(l);
     }
@@ -349,16 +354,16 @@ cudaError_t launch_bwd_hd(const float* kv, const float* q, const float* g, const
 
 constexpr int kFwdTile = 64;  // keys per block of the forward
 
-template <int HD>
-cudaError_t launch_fwd(const float* kv, const float* q, const int* xlen, int B, int X, int M,
+template <int HD, class TE = float>
+cudaError_t launch_fwd(const TE* kv, const TE* q, const int* xlen, int B, int X, int M,
                        int H, int hd, float scale, float* part_acc, float* part_ml,
                        fk::Dropout drop, cudaStream_t stream) {
   const size_t smem = attn_smem(kFwdTile, M, hd);
-  cudaError_t err = fk::set_smem((const void*)k3_attn_kernel<kFwdTile, HD>, smem);
+  cudaError_t err = fk::set_smem((const void*)k3_attn_kernel<kFwdTile, HD, TE>, smem);
   if (err != cudaSuccess) return err;
-  k3_attn_kernel<kFwdTile, HD><<<dim3((X + kFwdTile - 1) / kFwdTile, H, B), fk::kThreads, smem,
-                                 stream>>>(kv, q, xlen, X, M, H, hd, scale, part_acc, part_ml,
-                                           drop);
+  k3_attn_kernel<kFwdTile, HD, TE><<<dim3((X + kFwdTile - 1) / kFwdTile, H, B), fk::kThreads,
+                                     smem, stream>>>(kv, q, xlen, X, M, H, hd, scale, part_acc,
+                                                     part_ml, drop);
   return cudaGetLastError();
 }
 
@@ -373,13 +378,33 @@ extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int 
                           float* stats, const int* seed, int drop_stream, unsigned thresh,
                           float drop_scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  auto fn = hd == 32 ? launch_fwd<32> : hd == 64 ? launch_fwd<64> : launch_fwd<0>;
+  auto fn = hd == 32 ? launch_fwd<32, float> : hd == 64 ? launch_fwd<64, float>
+                                             : launch_fwd<0, float>;
   cudaError_t err = fn(kv, q, xlen, B, X, M, H, hd, scale, part_acc, part_ml,
                        fk::Dropout{seed, drop_stream, thresh, drop_scale}, st);
   if (err != cudaSuccess) return (int)err;
   const int n_t = (X + kFwdTile - 1) / kFwdTile;
   return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X, stats,
                              st);
+}
+
+// K3's bf16 form's attention (ops/mha_attn.py::mha_cross16_fwd) on kv (B, X,
+// 2E) bf16 (bf16(x + pos) Wk + bk | x Wv + bv, rounded) and q (B, M, E) bf16,
+// already scaled by bf16(1 / sqrt(hd)): the partials as fk_k3_attn's, the
+// weights rounded to bf16 for the attend sum, then the combine into out (B,
+// M, E) f32.  Serving only (no dropout, no stats).
+extern "C" int fk_k3_attn16(const void* kv, const void* q, const int* xlen, int B, int X, int M,
+                            int H, int hd, float* part_acc, float* part_ml, float* out,
+                            void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto fn = hd == 32 ? launch_fwd<32, fk::bf16>
+                     : hd == 64 ? launch_fwd<64, fk::bf16> : launch_fwd<0, fk::bf16>;
+  cudaError_t err = fn((const fk::bf16*)kv, (const fk::bf16*)q, xlen, B, X, M, H, hd, 1.f,
+                       part_acc, part_ml, fk::Dropout{nullptr, 0, 0u, 1.f}, st);
+  if (err != cudaSuccess) return (int)err;
+  const int n_t = (X + kFwdTile - 1) / kFwdTile;
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X,
+                             nullptr, st);
 }
 
 // The backward's attention: dkv (B, X, 2E), part_dq (B, n_slots, M, E) and

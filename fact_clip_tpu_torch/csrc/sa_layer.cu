@@ -106,10 +106,11 @@ namespace {
 
 constexpr int kFwdRows = 32;  // token rows of the SA forward's projection and out-projection blocks
 
-// rows [r0, r0 + TBM) of A @ W (W: K x N, row-major), the columns from n_lo
-// up to n_hi; epi(r, c, acc) takes each finished value of a row r < M
-template <int TBM, class LoadA, class Epi>
-__device__ __forceinline__ void rows_gemm(LoadA load_a, const float* __restrict__ W, int K, int N,
+// rows [r0, r0 + TBM) of A @ W (W: K x N, row-major, f32 or bf16), the
+// columns from n_lo up to n_hi; epi(r, c, acc) takes each finished value of
+// a row r < M
+template <int TBM, class LoadA, class Epi, class TW>
+__device__ __forceinline__ void rows_gemm(LoadA load_a, const TW* __restrict__ W, int K, int N,
                                           int r0, int M, Epi epi, fk::GemmSmem<TBM>& s,
                                           int n_lo = 0, int n_hi = 1 << 30) {
   constexpr int RM = TBM / 8;
@@ -240,9 +241,12 @@ struct FfnSlice {
 
 // per (32-row tile, K slice, 256 columns of N): the slice's partial product
 // A[:, slice] W[slice, :] (A: R x K, W: K x N) into part[slice] (R x N)
-template <int AM>
+// B16 (the mixed-precision forward, ffn_sublayer16): kPanel rounds x to bf16
+// as it stages it and reads a bf16 W1; kHidden stages hk = relu(z1) with z1 =
+// bf16(bf16(x W1's slices) + bf16(b1)) (JAX's bf16=True rounding points)
+template <int AM, class TW = float, bool B16 = false>
 __global__ void __launch_bounds__(fk::kThreads)
-ffn_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restrict__ part, int R,
+ffn_slice_kernel(const FfnSlice a, const TW* __restrict__ W, float* __restrict__ part, int R,
                  int K, int N) {
   extern __shared__ float4 smem_raw[];
   fk::GemmSmem<kFfnRows>& s = *reinterpret_cast<fk::GemmSmem<kFfnRows>*>(smem_raw);
@@ -257,9 +261,12 @@ ffn_slice_kernel(const FfnSlice a, const float* __restrict__ W, float* __restric
         const int row = r0 + r;
         if (row >= R) return 0.f;
         const size_t e = (size_t)row * K + k0 + k, eo = (size_t)row * a.ld + k0 + k;
-        if (AM == kPanel) return a.A[eo];
+        if (AM == kPanel) return B16 ? fk::bf16_round(a.A[eo]) : a.A[eo];
         if (AM == kHidden) {  // z1 = x W1 + b1; hk = relu(z1) * keep_1
-          const float v = slice_sum(a.pa, RK, a.n_pa, e) + __ldg(a.bias + k0 + k);
+          const float v =
+              B16 ? fk::bf16_round(fk::bf16_round(slice_sum(a.pa, RK, a.n_pa, e)) +
+                                   fk::bf16_round(__ldg(a.bias + k0 + k)))
+                  : slice_sum(a.pa, RK, a.n_pa, e) + __ldg(a.bias + k0 + k);
           float h = fmaxf(v, 0.f);
           if (a.keep != nullptr)
             h *= __ldg(a.keep + e);
@@ -554,6 +561,24 @@ __device__ __forceinline__ void stage_head_async(float* dst, const float* src, i
   }
 }
 
+// the same from a bf16 panel, converted to f32 as it is stored (plain loads:
+// cp.async cannot convert); the caller's wait is then a no-op
+__device__ __forceinline__ void stage_head_async(float* dst, const fk::bf16* src, int ld, int r0,
+                                                 int n, int M, int h, int hd) {
+  const int ldh = hd + 1;
+  for (int i = threadIdx.x; i < n * hd; i += fk::kThreads) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    dst[r * ldh + d] = r0 + r < M ? fk::ldf(src + (size_t)(r0 + r) * ld + h * hd + d) : 0.f;
+  }
+}
+
+template <class TE>
+__device__ __forceinline__ void stage_head(float* dst, const TE* src, int ld, int r0, int n, int M,
+                                           int h, int hd) {
+  stage_head_async(dst, src, ld, r0, n, M, h, hd);
+}
+
 // 2 (forward). per (query tile, head, video): each query row's softmax over
 //    the M keys by one warp and its context c_h = (P * keep) v_h, into c (B,
 //    M, E).  q, k and v of video b, token m sit at qkv + b * bstride + m * ld
@@ -562,9 +587,14 @@ __device__ __forceinline__ void stage_head_async(float* dst, const float* src, i
 //    hashed inline (drop: SA stream 0 over (B, H*M, M), the index layout of
 //    ops/sa_layer.py::sa_dropout_masks, so the bits equal the mask
 //    kernel's; the backward's probabilities kernel draws the same).
+//    TE: the element type of q, k and v: float, or bf16 (the mixed-precision
+//    form: the probabilities are rounded to bf16 for the context, as JAX's
+//    _sa_fwd_kernel casts P before its product with v; the softmax is f32).
+template <class TE>
 __global__ void __launch_bounds__(fk::kThreads)
-sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int koff, int voff,
+sa_context_kernel(const TE* __restrict__ qkv, long long bstride, int ld, int koff, int voff,
                   fk::Dropout drop, float* __restrict__ c, int M, int E, int H) {
+  constexpr bool kB16 = std::is_same<TE, fk::bf16>::value;
   extern __shared__ float4 smem_raw[];
   const int hd = E / H;
   const int ldh = hd + 1;
@@ -575,14 +605,14 @@ sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int 
   const int ty = threadIdx.x >> 5;
   const float scale = 1.f / sqrtf((float)hd);
   const size_t ME = (size_t)M * E;
-  const float* qb = qkv + (size_t)b * bstride;
+  const TE* qb = qkv + (size_t)b * bstride;
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + (size_t)M * ldh;
   float* qs = vs + (size_t)M * ldh;
   float* pw = qs + (size_t)2 * QT * ldh + (size_t)ty * M;
-  stage_head_async(ks, qb + koff, ld, 0, M, M, h, hd);
-  stage_head_async(vs, qb + voff, ld, 0, M, M, h, hd);
-  stage_head_async(qs, qb, ld, m0, QT, M, h, hd);
+  stage_head(ks, qb + koff, ld, 0, M, M, h, hd);
+  stage_head(vs, qb + voff, ld, 0, M, M, h, hd);
+  stage_head(qs, qb, ld, m0, QT, M, h, hd);
   const uint32_t seed = drop.load_seed();
   fk::cp_async_wait_all();
   __syncthreads();
@@ -600,7 +630,7 @@ sa_context_kernel(const float* __restrict__ qkv, long long bstride, int ld, int 
     for (int j = tx; j < M; j += 32) {  // each lane rewrites only its own j
       float p = expf(pw[j] - mx) * inv;
       if (drop.seed != nullptr) p *= drop.keep((uint32_t)row * (uint32_t)M + (uint32_t)j, seed);
-      pw[j] = p;
+      pw[j] = kB16 ? fk::bf16_round(p) : p;
     }
     __syncwarp();
     for (int d = tx; d < hd; d += 32) {
@@ -1292,10 +1322,10 @@ extern "C" int fk_sa_attn_out(const float* qkv, long long bstride, int ld, int k
   const size_t rsm = sa_rows_smem_floats(M, E / H) * sizeof(float);
   const size_t osm = sizeof(fk::GemmSmem<kFwdRows>);
   cudaError_t err;
-  if ((err = fk::set_smem((const void*)sa_context_kernel, rsm)) != cudaSuccess ||
+  if ((err = fk::set_smem((const void*)sa_context_kernel<float>, rsm)) != cudaSuccess ||
       (err = fk::set_smem((const void*)sa_out_ln_kernel<kFwdRows>, osm)) != cudaSuccess)
     return (int)err;
-  sa_context_kernel<<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
+  sa_context_kernel<float><<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
       qkv, bstride, ld, koff, voff, fk::Dropout{seed_a, stream_a, thresh_a, scale_a}, c, M, E, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sa_out_ln_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B), fk::kThreads, osm, st>>>(
@@ -1579,4 +1609,112 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
   ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
       sb, res, dx, part, ws + w.dgb, R, E, gr.fs, gr.ln_tiles);
   return (int)cudaGetLastError();  // the first failed launch's error, if any
+}
+
+// ---------------------------------------------------------------------------
+// The mixed-precision forms of both forwards (ops/sa_layer.py::
+// sa_sublayer16_fwd / ffn_sublayer16_fwd; JAX's sa_sublayer / ffn_sublayer
+// with bf16=True, fact_clip_tpu/ops/pallas/sa_layer.py:59-73, :241-244): the
+// f32 forms' kernels with bf16 operands where JAX casts, products of bf16
+// values in f32 FMAs (exact) and rounding to bf16 where JAX rounds.  Serving
+// only (no dropout).  Their bound is the f32 forms': launch latency.
+
+namespace {
+
+// 1 (forward, bf16). q, k = bf16(bf16(bf16(x + pos) W) + bf16(b)) and v =
+//    bf16(bf16(bf16(x) Wv) + bf16(bv)) into qkv (B, 3, M, E) bf16, W (E, E)
+//    bf16: one block per (kFwdRows-row tile, video, projection)
+__global__ void __launch_bounds__(fk::kThreads)
+sa_qkv16_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
+                const fk::bf16* __restrict__ wq, const float* __restrict__ bq,
+                const fk::bf16* __restrict__ wk, const float* __restrict__ bk,
+                const fk::bf16* __restrict__ wv, const float* __restrict__ bv,
+                fk::bf16* __restrict__ qkv, int M, int E) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<kFwdRows>& s = *reinterpret_cast<fk::GemmSmem<kFwdRows>*>(smem_raw);
+  const int r0 = blockIdx.x * kFwdRows;
+  const int b = blockIdx.y;
+  const int which = blockIdx.z;
+  const size_t ME = (size_t)M * E;
+  const fk::bf16* W = which == 0 ? wq : which == 1 ? wk : wv;
+  const float* bias = which == 0 ? bq : which == 1 ? bk : bv;
+  fk::bf16* out = qkv + ((size_t)b * 3 + which) * ME;
+  const Rows rows{x + b * ME, which < 2 ? pos : nullptr, Pp, r0, M, E};
+  rows_gemm<kFwdRows>(
+      [&](int r, int k) { return fk::bf16_round(rows(r, k)); }, W, E, E, r0, M,
+      [&](int r, int c, float v) {
+        out[(size_t)r * E + c] =
+            __float2bfloat16_rn(fk::bf16_round(v) + fk::bf16_round(__ldg(bias + c)));
+      },
+      s);
+}
+
+}  // namespace
+
+// The SA forward's bf16 projections: q, k, v into qkv (B, 3, M, E) bf16 from
+// x and pos (f32) and Wq, Wk, Wv (E, E) bf16, one block per (kFwdRows-row
+// tile, video, projection).
+extern "C" int fk_sa_qkv16(const float* x, const float* pos, int Pp, const void* wq,
+                           const float* bq, const void* wk, const float* bk, const void* wv,
+                           const float* bv, void* qkv, int B, int M, int E, void* stream) {
+  const size_t smem = sizeof(fk::GemmSmem<kFwdRows>);
+  cudaError_t err = fk::set_smem((const void*)sa_qkv16_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  sa_qkv16_kernel<<<dim3((M + kFwdRows - 1) / kFwdRows, B, 3), fk::kThreads, smem,
+                    (cudaStream_t)stream>>>(
+      x, pos, Pp, (const fk::bf16*)wq, bq, (const fk::bf16*)wk, bk, (const fk::bf16*)wv, bv,
+      (fk::bf16*)qkv, M, E);
+  return (int)cudaGetLastError();
+}
+
+// The SA forward's bf16 attention and out projection from bf16 q, k, v (video
+// b, token m at qkv + b * bstride + m * ld; k at + koff, v at + voff): the
+// context c (B, M, E) f32 over the bf16-rounded probabilities, then y =
+// LN(x + c Wo + bo) in f32 (Wo f32, as JAX leaves it).
+extern "C" int fk_sa_attn_out16(const void* qkv, long long bstride, int ld, int koff, int voff,
+                                const float* x, const float* wo, const float* bo,
+                                const float* gamma, const float* beta, float* c, float* y, int B,
+                                int M, int E, int H, float eps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t rsm = sa_rows_smem_floats(M, E / H) * sizeof(float);
+  const size_t osm = sizeof(fk::GemmSmem<kFwdRows>);
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  cudaError_t err;
+  if ((err = fk::set_smem((const void*)sa_context_kernel<fk::bf16>, rsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_out_ln_kernel<kFwdRows>, osm)) != cudaSuccess)
+    return (int)err;
+  sa_context_kernel<fk::bf16><<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
+      (const fk::bf16*)qkv, bstride, ld, koff, voff, none, c, M, E, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sa_out_ln_kernel<kFwdRows><<<dim3((M + kFwdRows - 1) / kFwdRows, B), fk::kThreads, osm, st>>>(
+      x, c, wo, bo, gamma, beta, y, M, E, eps, none);
+  return (int)cudaGetLastError();
+}
+
+// The FFN forward's bf16 form in one call, fk_ffn_fwd's three launches and
+// workspace (fk_ffn_fwd_workspace): x rounded to bf16 as it is staged against
+// W1 (E, F) bf16 into sa's K slices; hk = relu(bf16(bf16(x W1) + bf16(b1)))
+// staged from them against W2 (f32) into sb's; y = LN(x + hk W2 + b2).
+extern "C" int fk_ffn_fwd16(const float* x, const void* w1, const float* b1, const float* w2,
+                            const float* b2, const float* gamma, const float* beta, float* ws,
+                            float* y, int B, int M, int E, int F, float eps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FfnWorkspace w = ffn_workspace(B, M, E, F, false);
+  const FfnGrid gr(B, M, E, F);
+  float *sa = ws + w.sa, *sb = ws + w.sb;
+  const size_t gsm = sizeof(fk::GemmSmem<kFfnRows>);
+  const size_t lsm = (size_t)kLnRows * E * sizeof(float);
+  if (lsm > 48 * 1024) {
+    const cudaError_t err = fk::set_smem((const void*)ffn_fwd_ln_kernel, lsm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  ffn_slice_kernel<kPanel, fk::bf16, true><<<gr.ef, fk::kThreads, gsm, st>>>(
+      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none},
+      (const fk::bf16*)w1, sa, gr.R, E, F);
+  ffn_slice_kernel<kHidden, float, true><<<gr.fe, fk::kThreads, gsm, st>>>(
+      FfnSlice{nullptr, sa, gr.es, b1, nullptr, nullptr, nullptr, F, none}, w2, sb, gr.R, F, E);
+  ffn_fwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, beta, none, y,
+                                                           gr.R, E, gr.fs, eps);
+  return (int)cudaGetLastError();
 }

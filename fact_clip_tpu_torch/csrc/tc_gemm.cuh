@@ -288,7 +288,9 @@ inline EncodeTiledFn encode_fn() {
 }
 
 // A float32 tensor (d2, d1, d0) row-major, boxes of (1, box1, box0);
-// `swizzle` selects the 128-byte swizzle (box0 = 32) over plain rows.
+// `swizzle` selects the 128-byte swizzle (box0 = 32) over plain rows;
+// `bf16`: a bfloat16 tensor instead (2-byte elements, box0 = 64 for the
+// swizzle: tc_bf16.cu).
 // Returns false when cuTensorMapEncodeTiled refuses the map.  The last
 // kMapCache maps are kept by their arguments: an entry encodes the same maps
 // call after call (its buffers come back at the same addresses from
@@ -297,21 +299,21 @@ struct MapKey {
   const void* ptr;
   long long d0, d1, d2;
   int box0, box1;
-  bool swizzle;
+  bool swizzle, bf16;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && box0 == o.box0 &&
-           box1 == o.box1 && swizzle == o.swizzle;
+           box1 == o.box1 && swizzle == o.swizzle && bf16 == o.bf16;
   }
 };
 
 inline bool encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1, long long d2,
-                      int box0, int box1, bool swizzle) {
+                      int box0, int box1, bool swizzle, bool bf16 = false) {
   constexpr int kMapCache = 64;
   static MapKey keys[kMapCache];
   static CUtensorMap maps[kMapCache];
   static int next = 0;
   static std::mutex mu;
-  const MapKey key{ptr, d0, d1, d2, box0, box1, swizzle};
+  const MapKey key{ptr, d0, d1, d2, box0, box1, swizzle, bf16};
   {
     std::lock_guard<std::mutex> lock(mu);
     for (int i = 0; i < kMapCache; ++i)
@@ -323,10 +325,12 @@ inline bool encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 4), (cuuint64_t)(d0 * d1 * 4)};
+  const long long esz = bf16 ? 2 : 4;
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * esz), (cuuint64_t)(d0 * d1 * esz)};
   const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+  if (fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+         const_cast<void*>(ptr), dims, strides, box, estr,
          CU_TENSOR_MAP_INTERLEAVE_NONE,
          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

@@ -185,6 +185,21 @@ extern "C" int fk_x2y_sx_fwd(const float* y, const float* ypos, long long ystrid
   return sx_attn(tile, s, yq, kv, xlen, B, Y, X, d, scale, logits, probs, attn);
 }
 
+// K2's small-X attention alone, on projections made elsewhere (the
+// mixed-precision form, ops/x2y_attn.py::x2y_small_x16_fwd, makes yq (B, Y,
+// d) and kv = [xk | xv] (B, X, 2d) f32 on the bf16 GEMM, tc_bf16.cu: JAX's
+// small-X kernel takes f32 keys and values under mixed precision, so its
+// attention is this f32 one) -> logits and probs (B, Y, X), attn (B, Y, d);
+// `tile` query rows per block (8, 16 or 32).
+extern "C" int fk_x2y_sx_attn(const float* yq, const float* kv, const int* xlen, int B, int Y,
+                              int X, int d, float scale, float* logits, float* probs, float* attn,
+                              int tile, void* stream) {
+  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (tile != 8 && tile != 16 && tile != 32))
+    return (int)cudaErrorInvalidValue;
+  return sx_attn(tile, (cudaStream_t)stream, yq, kv, xlen, B, Y, X, d, scale, logits, probs,
+                 attn);
+}
+
 // K8b, one host call: the key side of sx_attn.cuh (lens, xin = [x + x_pos |
 // x] with x_pos, the packs wkvp and kv in the caller's workspace, fk::SxProj)
 // on the side stream; the query side, qy (B, Y, Cw) int8, sy (B, Y) and yq

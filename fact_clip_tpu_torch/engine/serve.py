@@ -25,7 +25,9 @@ class Predictor:
     over every class's text embedding; ``engine/export.py:139, 159-166`` of
     the JAX package).  A model in transcript mode (``FACT.trans``) needs
     ``seg_cap``, the token count it serves at (the longest transcript it
-    takes), and returns ids out of each request's transcript."""
+    takes), and returns ids out of each request's transcript.  A model in
+    mixed precision (its blocks' ``dtype`` bfloat16) takes its requests in
+    bf16 (cast on the host: half the copy; its in map casts them anyway)."""
 
     def __init__(self, model, mwt: float, batch_size: int = 8, max_len: int = 3072,
                  bucket_multiple: int = 128, bucket_growth: float = 1.26, device=None,
@@ -38,6 +40,8 @@ class Predictor:
         self.buckets = make_bucket_lengths(max_len, bucket_multiple, bucket_growth)
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
+        self.feats_dtype = (torch.bfloat16 if any(c.dtype == "bfloat16" for c in model.block_cfgs)
+                            else torch.float32)
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -66,10 +70,10 @@ class Predictor:
             i += len(idx)
             # pad on the device: each request crosses to it once, unpadded,
             # and the repeats of the last video are copied there
-            feats = torch.zeros((B, bucket, D), dtype=torch.float32, device=self.device)
+            feats = torch.zeros((B, bucket, D), dtype=self.feats_dtype, device=self.device)
             lengths = np.zeros((B,), np.int32)
             for r, j in enumerate(idx):
-                f = torch.from_numpy(np.asarray(feats_list[j], np.float32))
+                f = torch.from_numpy(np.asarray(feats_list[j], np.float32)).to(self.feats_dtype)
                 feats[r, : len(f)].copy_(f)
                 lengths[r] = len(f)
             feats[len(idx):] = feats[len(idx) - 1]

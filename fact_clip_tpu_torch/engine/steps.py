@@ -108,6 +108,9 @@ class TrainStep:
 
     def __init__(self, model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1,
                  clip_bundle=None):
+        if any(c.dtype for c in model.block_cfgs):
+            raise NotImplementedError("TrainStep: training in bf16 (TPU.compute_dtype) is "
+                                      "ROADMAP M7 item 1; the port serves and evaluates it")
         if cfg["TPU"].get("matcher", "auto") not in ("auto", "host"):
             raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
         if bool(cfg["FACT"].get("trans")) != model.trans:

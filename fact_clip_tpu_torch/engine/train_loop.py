@@ -31,6 +31,7 @@ import types
 import numpy as np
 import torch
 
+from ..configs import compute_dtype
 from ..configs.utils import cfg2flatdict
 from ..data.prefetch import prefetch
 from ..utils.results import Checkpoint, save_results
@@ -48,9 +49,21 @@ def _host(a) -> np.ndarray:
     return a if a.flags.writeable else a.copy()
 
 
-def batch_to_device(arrays: dict, device) -> dict:
-    """``Batch.device_arrays`` (numpy) -> the same dict of tensors on ``device``."""
-    return {k: torch.from_numpy(_host(arrays[k])).to(device) for k in BATCH_KEYS}
+def batch_to_device(arrays: dict, device, feats_dtype=torch.float32) -> dict:
+    """``Batch.device_arrays`` (numpy) -> the same dict of tensors on
+    ``device``; the features cross as ``feats_dtype`` (cast on the host)."""
+    out = {k: torch.from_numpy(_host(arrays[k])) for k in BATCH_KEYS}
+    out["feats"] = out["feats"].to(feats_dtype)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def feats_dtype(cfg) -> torch.dtype:
+    """The dtype the features cross to the device as, as JAX's loop feeds
+    them (``engine/train_loop.py:182-185``): ``TPU.feature_dtype``, or where
+    it is "" the compute dtype; bf16 under mixed precision halves the copy
+    (the in map casts them to bf16 in any case, so no number changes)."""
+    fdt = cfg.TPU.feature_dtype or cfg.TPU.compute_dtype
+    return torch.bfloat16 if fdt == "bfloat16" else torch.float32
 
 
 def run_steps(train_step, batches, *, generator: torch.Generator, times=None) -> list:
@@ -184,8 +197,9 @@ def evaluate(global_step, exp: Experiment, eval_step, logger, savedir) -> Checkp
         holdout_classes=test_ds.holdout_classes,
         seen_classes=test_ds.seen_classes,
     )
+    fdt = feats_dtype(cfg)
     for batch in prefetch(exp.test_loader(), cfg.TPU.prefetch):
-        arrays = batch_to_device(batch.device_arrays, device)
+        arrays = batch_to_device(batch.device_arrays, device, fdt)
         # transcript mode decodes with the test videos' transcripts (JAX's eval
         # step takes the whole batch)
         pred = eval_step(arrays["feats"], arrays["mask"], arrays["lengths"],
@@ -213,10 +227,18 @@ def evaluate(global_step, exp: Experiment, eval_step, logger, savedir) -> Checkp
     return ckpt
 
 
-def check_loop_cfg(cfg) -> None:
+def check_loop_cfg(cfg, train: bool = True) -> None:
     """Refuse what the JAX loop does and this one has no path for
-    (``build_experiment`` refuses the models the port has no path for)."""
+    (``build_experiment`` refuses the models the port has no path for):
+    training (``train``) or, for evaluation, what ``evaluate`` and
+    ``run_eval`` cannot take.  Mixed precision evaluates (``havid_tpu.yaml``;
+    its ``matcher: auction`` does not matter there, evaluation matches
+    nothing) and does not train."""
     tpu = cfg.TPU
+    bf16 = compute_dtype(cfg) == "bfloat16"
+    if train and bf16:
+        raise NotImplementedError("TPU.compute_dtype bfloat16: training in bf16 is ROADMAP M7 "
+                                  "item 1 (the port serves and evaluates it)")
     if tpu.num_data_shards > 1 or tpu.num_slice_shards > 1 or tpu.num_seq_shards > 1:
         raise NotImplementedError(
             "TPU.num_data_shards / num_slice_shards / num_seq_shards > 1: the port trains on "
@@ -224,9 +246,10 @@ def check_loop_cfg(cfg) -> None:
     if tpu.profile_dir:
         raise NotImplementedError("TPU.profile_dir: the loop's profiler hook is not ported "
                                   "(ROADMAP Queue 1 item 5); use fact_clip_tpu_torch.profile_eval")
-    if tpu.feature_dtype not in ("", "float32"):
-        raise NotImplementedError(f"TPU.feature_dtype {tpu.feature_dtype!r}: the port runs "
-                                  "float32 only (ROADMAP M7)")
+    if tpu.feature_dtype not in ("", "float32") and not (
+            bf16 and not train and tpu.feature_dtype == "bfloat16"):
+        raise NotImplementedError(f"TPU.feature_dtype {tpu.feature_dtype!r}: the port feeds "
+                                  "bf16 features only to its bf16 evaluation (ROADMAP M7)")
     if tpu.matmul_precision not in ("", "highest"):
         raise NotImplementedError(f"TPU.matmul_precision {tpu.matmul_precision!r}: the port's "
                                   "matmuls are float32")

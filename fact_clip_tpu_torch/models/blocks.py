@@ -12,7 +12,10 @@ blocks.py:475-484) the tokens are the video's transcript, embedded
 (``action_embed``) plus the sinusoid table of the token axis, their
 positions zeros and their mask the transcript's; the GRU action branch
 (``a: gru`` / ``gru_om``) runs only there.  The CLIP head is
-``models/clip_model.py``'s subclass.
+``models/clip_model.py``'s subclass.  Under mixed precision (``BlockCfg.dtype
+== "bfloat16"``) the frame stream between blocks and the segment stream of
+the TDU are bf16 and every saved logit and probability f32, as in JAX
+(blocks.py:150-175, :265, :311, :359, :386, :399).
 """
 
 from __future__ import annotations
@@ -22,15 +25,25 @@ from torch import nn
 
 from ..configs import BlockCfg, resolve_block_cfgs
 from ..ops import masking, segments
+from ..ops.bf16 import BF16
 from . import layers as L
 
 
-def process_feature(feature, nclass: int):
+def process_feature(feature, nclass: int, dtype=None):
     """Split the trailing ``nclass`` dims off as logits and put their softmax
-    back in their place (blocks.py:150-175)."""
-    clogit = feature[..., -nclass:]
-    out = torch.cat([feature[..., :-nclass], torch.softmax(clogit, dim=-1)], dim=-1)
+    back in their place (blocks.py:150-175).  The logits are f32; the stream
+    is cast to ``dtype`` (the block's compute dtype: JAX's frame and segment
+    sites) or, where None, promoted to f32 (the action-token sites)."""
+    clogit = feature[..., -nclass:].float()
+    out_dtype = dtype or torch.promote_types(feature.dtype, torch.float32)
+    out = torch.cat([feature[..., :-nclass].to(out_dtype),
+                     torch.softmax(clogit, dim=-1).to(out_dtype)], dim=-1)
     return out, clogit
+
+
+def _dtype(c: BlockCfg):
+    """The block's compute dtype as a torch dtype (None: float32)."""
+    return BF16 if c.dtype == "bfloat16" else None
 
 
 def make_fbranch(c: BlockCfg, in_dim: int | None):
@@ -41,7 +54,7 @@ def make_fbranch(c: BlockCfg, in_dim: int | None):
     if c.f == "m":
         return L.MSTCN(f_in, c.f_dim, c.hid_dim, c.f_layers, ln=c.f_ln, ngroup=c.f_ngp,
                        in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout,
-                       quantize=c.quantize)
+                       quantize=c.quantize, dtype=_dtype(c))
     if c.f == "m2":
         return L.MSTCN2(f_in, c.f_dim, c.hid_dim, c.f_layers, ngroup=c.f_ngp,
                         in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout,
@@ -57,18 +70,19 @@ def make_abranch(c: BlockCfg):
                                  out_map=c.a == "gru_om")
     if c.a == "sa":
         return L.SADecoder(c.a_dim, c.a_dim, c.hid_dim, c.a_layers, c.a_nhead, c.a_ffdim,
-                           use_kernel=c.pallas and c.pallas_sa, dropout=c.dropout)
+                           use_kernel=c.pallas and c.pallas_sa, dropout=c.dropout,
+                           dtype=_dtype(c))
     if c.a == "sca":
         return L.SCADecoder(c.a_dim, c.a_dim, c.hid_dim, c.hid_dim, c.a_layers, c.a_nhead,
                             c.a_ffdim, use_kernel_sa=c.pallas and c.pallas_sa,
                             use_kernel_attn=c.pallas and c.pallas_attn, dropout=c.dropout,
-                            quantize=c.quantize)
+                            quantize=c.quantize, dtype=_dtype(c))
     raise ValueError(f"action branch {c.a!r} is not ported")
 
 
 def make_x2y(c: BlockCfg, outdim: int):
     return L.X2YMap(c.hid_dim, c.hid_dim, outdim, c.hid_dim, kq_pos=True, use_kernel=c.pallas,
-                    dropout=c.dropout, quantize=c.quantize)
+                    dropout=c.dropout, quantize=c.quantize, dtype=_dtype(c))
 
 
 def _apply_abranch(branch, c, action_feature, action_pos, token_len, generator, memory=None,
@@ -91,7 +105,7 @@ class InputBlock(nn.Module):
     def forward(self, frame_feature, action_feature, frame_pos, action_pos, lengths,
                 token_len, generator=None):
         frame_feature = self.frame_branch(frame_feature, lengths, generator)
-        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass)
+        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass, _dtype(self.c))
         action_feature = _apply_abranch(self.action_branch, self.c, action_feature, action_pos,
                                         token_len, generator, memory=frame_feature,
                                         memory_pos=frame_pos, memory_len=lengths)
@@ -124,7 +138,7 @@ class UpdateBlock(nn.Module):
             action_feature, frame_feature, x_pos=action_pos, y_pos=frame_pos, x_len=token_len,
             generator=generator)
         frame_feature = self.frame_branch(frame_feature, lengths, generator)
-        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass)
+        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass, _dtype(self.c))
         saves = {"frame_clogit": frame_clogit, "action_clogit": action_clogit,
                  "action_feature": action_feature[..., : -(self.nclass + 1)],
                  "f2a_attn": f2a_attn, "f2a_attn_logit": f2a_logit,
@@ -155,9 +169,11 @@ class UpdateBlockTDU(nn.Module):
         seg_id, _ = segments.segment_ids_from_pred(pred, mask, S)
         P = segments.assignment_matrix(seg_id, mask, S)  # (B, T, S)
         seg_len = (segments.segment_lengths(P) > 0).sum(dim=1).to(torch.int32)  # valid prefix
-        seg_feature = segments.pool_mean(P, frame_feature)
+        # a bf16 stream is pooled in f32 (JAX promotes P^T @ frames)
+        seg_feature = segments.pool_mean(P, frame_feature.float())
         seg_feature = torch.relu(self.seg_update(seg_feature, seg_len))
-        seg_feature, seg_clogit = process_feature(self.seg_combine(seg_feature), self.nclass)
+        seg_feature, seg_clogit = process_feature(self.seg_combine(seg_feature), self.nclass,
+                                                  _dtype(self.c))
         seg_pos = frame_pos[segments.segment_centers(P, S)]  # (B, S, P)
 
         action_feature, f2a_attn_seg, f2a_logit = self.f2a_layer(
@@ -171,10 +187,12 @@ class UpdateBlockTDU(nn.Module):
             generator=generator)
 
         # temporal upsample: P rows are one-hot, so the gather is P @ seg_out
-        s2f = P @ seg_out
-        frame_feature = self.sf_merge(torch.cat([s2f, frame_feature], dim=-1))
+        # (exact: a bf16 seg_out comes back bf16, blocks.py:386); the merge
+        # is f32 (JAX's SplitTorchDense has no compute dtype)
+        s2f = (P @ seg_out.float()).to(seg_out.dtype)
+        frame_feature = self.sf_merge(torch.cat([s2f, frame_feature], dim=-1).float())
         frame_feature = self.frame_branch(frame_feature, lengths, generator)
-        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass)
+        frame_feature, frame_clogit = process_feature(frame_feature, self.nclass, _dtype(self.c))
 
         saves = {"frame_clogit": frame_clogit, "seg_clogit": seg_clogit,
                  "action_clogit": action_clogit,
@@ -288,7 +306,8 @@ def token_inputs(model, B: int, transcript, seg_mask, feats):
     if not model.trans:
         if transcript is not None:
             raise ValueError("a transcript was given to a model not in transcript mode")
-        return (feats.new_zeros((B, model.ntoken, a_dim)), model.action_query.transpose(0, 1),
+        return (feats.new_zeros((B, model.ntoken, a_dim), dtype=torch.float32),
+                model.action_query.transpose(0, 1),
                 torch.full((B,), model.ntoken, dtype=torch.int32, device=dev))
     if transcript is None or seg_mask is None:
         raise ValueError("transcript mode: pass transcript= and seg_mask=")
@@ -296,7 +315,7 @@ def token_inputs(model, B: int, transcript, seg_mask, feats):
     M = transcript.shape[1]
     pe = L.positional_encoding_table(M, a_dim, device=dev)
     action_feature = model.embed_transcript(transcript) + pe[None]
-    return (action_feature, feats.new_zeros((1, M, a_dim)),
+    return (action_feature, feats.new_zeros((1, M, a_dim), dtype=torch.float32),
             seg_mask.to(dev).sum(dim=1).to(torch.int32))
 
 

@@ -34,6 +34,19 @@ plain versions (never f32), and the fused SCA branch is still chosen by the
 configured kernel flag.  The towers' ``act_scale`` attribute ("tile", the
 default, or "row") picks the activation scales of JAX's tower kernels; no
 configuration sets it, and each form keeps its own quantized weights.
+
+``dtype=torch.bfloat16`` (``BlockCfg.dtype``, ``TPU.compute_dtype:
+bfloat16``) takes JAX's mixed-precision cast sites, each at the same point
+(``fact_clip_tpu/models/layers.py``): the tower's in map a bf16 dense, its
+stream bf16 and its logits f32 (K1's bf16 form); the X2Y maps' and the
+fused cross-attention's projections on bf16 operands (K2's and K3's bf16
+forms), the out maps' stream bf16; the fused SA / FFN sublayers with bf16
+operands (K4's bf16 form), the unfused attention's q / k / v and the FFN's
+first dense bf16; softmax, LayerNorm, probabilities and logits f32.  The
+bf16 weight layouts sit in the modules' caches.  It serves only: a bf16
+module in train mode raises (ROADMAP M7 item 1).  Under ``set_kernels(False)``
+the bf16 paths run the kernels' plain bf16 versions, the fused branches
+still chosen by the configured kernel flags, as the int8 paths do.
 """
 
 from __future__ import annotations
@@ -44,17 +57,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bf16 import BF16, dense16, mm
 from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_fold, mstcn2_stack,
-                                mstcn2_stack_reference, mstcn_stack, mstcn_stack_reference)
+                                mstcn2_stack_reference, mstcn_b16_pack, mstcn_stack,
+                                mstcn_stack16, mstcn_stack16_reference, mstcn_stack_reference)
 from ..ops.masking import dropout
-from ..ops.mha_attn import k3_pack, mha_cross_attention
+from ..ops.mha_attn import (k3_b16_pack, k3_pack, mha_cross16_fwd, mha_cross16_reference,
+                            mha_cross_attention)
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
                               mstcn2_stack_q8_reference, mstcn_stack_q8,
                               mstcn_stack_q8_reference, quantize_kv, quantize_tower, quantize_tower2,
                               quantize_x2y, x2y_attention_q8, x2y_attention_q8_reference)
-from ..ops.sa_layer import ffn_sublayer, sa_sublayer
-from ..ops.x2y_attn import x2y_attention, x2y_attention_reference
+from ..ops.sa_layer import (ffn_sublayer, ffn_sublayer16_fwd, ffn_sublayer16_reference,
+                            sa_b16_pack, sa_sublayer, sa_sublayer16_fwd, sa_sublayer16_reference)
+from ..ops.x2y_attn import (x2y_attention, x2y_attention16, x2y_attention16_reference,
+                            x2y_attention_reference, x2y_b16_pack)
 
 LN_EPS_ATTN = 1e-6  # flax LayerNorm default: SA/SCA sublayers and decoder norm
 LN_EPS_TOWER = 1e-5  # the MSTCN tower's LayerNorm
@@ -125,6 +143,13 @@ def _drop(module, generator, x, rate: float):
     return dropout(generator, x, rate)
 
 
+def _serving16(module):
+    """A bf16 module serves only: training in bf16 is a later slice."""
+    if module.training:
+        raise NotImplementedError(f"{type(module).__name__}: training in bf16 "
+                                  "(TPU.compute_dtype) is ROADMAP M7 item 1")
+
+
 def _seeds(generator, n: int, device):
     """(n,) int32 seeds of in-kernel dropout, drawn on the device."""
     if generator is None:
@@ -192,10 +217,11 @@ class MSTCN(nn.Module, KernelLayout):
     act_scale = "tile"  # the int8 tower's activation scales (ops/quant_conv.py)
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ln, ngroup=1, in_map=False,
-                 use_kernel=True, dropout=0.0, quantize=""):
+                 use_kernel=True, dropout=0.0, quantize="", dtype=None):
         super().__init__()
         self.dropout = dropout
         self.quantize = quantize
+        self.dtype = dtype
         if in_map:
             self.conv_1x1 = nn.Conv1d(in_dim, hid_dim, 1)
         elif in_dim != hid_dim:
@@ -216,6 +242,8 @@ class MSTCN(nn.Module, KernelLayout):
     def forward(self, x, lengths, generator=None):
         if self.quantize == "int8" and not self.training and self.kernel_allowed:
             return self._forward_q8(x, lengths)
+        if self.dtype == BF16:
+            return self._forward16(x, lengths)
         if self.in_map:
             x = F.linear(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
         ow, ob = self.layout()
@@ -229,6 +257,21 @@ class MSTCN(nn.Module, KernelLayout):
         return fn(x.contiguous(), lengths, [l.layout() for l in self.layers],
                   [l.dilation for l in self.layers], use_ln=self.ln, eps=LN_EPS_TOWER,
                   out_w=ow, out_b=ob, rates=rates, seeds=seeds)
+
+    def _forward16(self, x, lengths):
+        """JAX's mixed-precision path (layers.py:353-421): the in map a bf16
+        dense, the stream bf16, the tower (K1's bf16 form, its out projection
+        inside) giving f32 logits."""
+        _serving16(self)
+        if self.in_map:
+            x = dense16(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
+        layers = [l.kernel_layout() for l in self.layers]
+        ow, ob = self.kernel_layout()
+        args = (x.to(BF16).contiguous(), lengths, layers, [l.dilation for l in self.layers])
+        if not self.use_kernel:
+            return mstcn_stack16_reference(*args, out_w=ow, out_b=ob)
+        packed = self.cached("b16", lambda: mstcn_b16_pack(layers, ow)) if x.is_cuda else None
+        return mstcn_stack16(*args, out_w=ow, out_b=ob, packed=packed)
 
     def _forward_q8(self, x, lengths):
         """JAX's int8 eval path (layers.py:353-385): the in map through
@@ -347,10 +390,11 @@ class MultiheadAttention(nn.Module, KernelLayout):
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: int | None = None,
                  use_kernel: bool = False, kernel_min_keys: int = 1024, dropout: float = 0.0,
-                 quantize: str = ""):
+                 quantize: str = "", dtype=None):
         super().__init__()
         self.dropout = dropout
         self.quantize = quantize
+        self.dtype = dtype
         E = embed_dim
         kdim = kdim or E
         self.embed_dim, self.num_heads, self.kdim = E, num_heads, kdim
@@ -388,7 +432,14 @@ class MultiheadAttention(nn.Module, KernelLayout):
         return (_t(wq, live), bq.contiguous(), _t(wk, live), bk.contiguous(), _t(wv, live),
                 bv.contiguous(), _t(self.out_proj.weight, live), _d(self.out_proj.bias, live))
 
+    def _fuses(self, key, value) -> bool:
+        """JAX's conditions for the fused cross-attention (layers.py:649-655)."""
+        return (key.shape[1] >= self.kernel_min_keys and key is value
+                and self.embed_dim % 128 == 0 and key.shape[-1] % 128 == 0)
+
     def forward(self, query, key, value, key_len=None, key_pos=None, generator=None):
+        if self.dtype == BF16:
+            return self._forward16(query, key, value, key_len, key_pos)
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         wq, wk, wv = self.proj_weights()
@@ -397,8 +448,7 @@ class MultiheadAttention(nn.Module, KernelLayout):
         B, M, _ = q.shape
         Nk = key.shape[1]
         q8 = self.quantize == "int8" and not self.training
-        fuse = ((self.kernel_allowed if q8 else self.use_kernel) and Nk >= self.kernel_min_keys
-                and key is value and E % 128 == 0 and key.shape[-1] % 128 == 0)
+        fuse = (self.kernel_allowed if q8 else self.use_kernel) and self._fuses(key, value)
         if fuse:
             _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.layout()
             if key_len is None:
@@ -428,16 +478,51 @@ class MultiheadAttention(nn.Module, KernelLayout):
         out = torch.einsum("bhmn,bnhd->bmhd", probs, v)
         return self.out_proj(out.reshape(B, M, E))
 
+    def _forward16(self, query, key, value, key_len, key_pos):
+        """JAX's mixed-precision attention (layers.py:627-720): q a bf16
+        dense; fused (K3's bf16 form, or its plain version without kernels)
+        where the configured kernel flag and JAX's conditions hold, else k and
+        v bf16 denses (k of x + pos in f32), the logits, softmax and the
+        attend sum over bf16 probabilities in f32; the out projection f32."""
+        _serving16(self)
+        E, H = self.embed_dim, self.num_heads
+        hd = E // H
+        wq, wk, wv = self.proj_weights()
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        q = dense16(query, wq, bq)
+        B, M, _ = q.shape
+        Nk = key.shape[1]
+        if self.kernel_allowed and self._fuses(key, value):
+            _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.kernel_layout()
+            if key_len is None:
+                key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
+            args = (q, value.to(BF16).contiguous(), None if key_pos is None else key_pos.to(BF16),
+                    wk_t, bk_c, wv_t, bv_c, key_len)
+            if not self.use_kernel:
+                return self.out_proj(mha_cross16_reference(*args, num_heads=H))
+            packed = (self.cached("k3_16", lambda: k3_b16_pack(wk_t, wv_t)) if key.is_cuda
+                      else None)
+            return self.out_proj(mha_cross16_fwd(*args, num_heads=H, packed=packed))
+        k = dense16(add_pos(key.float(), key_pos), wk, bk).float().view(B, Nk, H, hd)
+        v = dense16(value, wv, bv).float().view(B, Nk, H, hd)
+        logits = torch.einsum("bmhd,bnhd->bhmn", q.float().view(B, M, H, hd), k) / math.sqrt(hd)
+        if key_len is not None:
+            valid = torch.arange(Nk, device=key.device)[None, :] < key_len[:, None]
+            logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+        probs = torch.softmax(logits, dim=-1).to(BF16).float()
+        return self.out_proj(torch.einsum("bhmn,bnhd->bmhd", probs, v).reshape(B, M, E))
+
 
 class X2YMap(nn.Module, KernelLayout):
     """Single-head cross-attention: K/V from X, Q from Y, out map of
     concat(Y, attended); returns (y_out, probs, logits), probs/logits (B, Y, X)."""
 
     def __init__(self, x_dim, y_dim, y_outdim, head_dim, kq_pos=False, use_kernel=True,
-                 dropout=0.0, quantize=""):
+                 dropout=0.0, quantize="", dtype=None):
         super().__init__()
         self.dropout = dropout
         self.quantize = quantize
+        self.dtype = dtype
         self.X_K = nn.Linear(x_dim, head_dim)
         self.X_V = nn.Linear(x_dim, head_dim)
         self.Y_Q = nn.Linear(y_dim, head_dim)
@@ -455,6 +540,8 @@ class X2YMap(nn.Module, KernelLayout):
             x_pos = y_pos = None
         if x_len is None:
             x_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+        if self.dtype == BF16:
+            return self._forward16(x, y, x_pos, y_pos, x_len)
         if self.quantize == "int8" and not self.training:
             # K8b / K8c: int8 projection over the frame axis (layers.py:762-765)
             layout = self.layout()
@@ -473,6 +560,25 @@ class X2YMap(nn.Module, KernelLayout):
         y_out = (F.linear(_drop(self, generator, y, self.dropout), W[:, :Cy])
                  + F.linear(_drop(self, generator, attn, self.dropout), W[:, Cy:], self.Y_W.bias))
         return y_out, probs, logits
+
+    def _forward16(self, x, y, x_pos, y_pos, x_len):
+        """JAX's mixed-precision map (layers.py:762-825): K2's bf16 form (or
+        its plain version without kernels) on bf16 x and y, then the split
+        out map on bf16 operands in f32, emitted as the bf16 stream;
+        probabilities and logits f32."""
+        _serving16(self)
+        layout = self.kernel_layout()
+        args = (y.to(BF16).contiguous(), y_pos, x.to(BF16).contiguous(), x_pos, *layout, x_len)
+        if self.use_kernel:
+            packed = (self.cached("b16", lambda: x2y_b16_pack(*layout[0:6:2])) if x.is_cuda
+                      else None)
+            attn, probs, logits = x2y_attention16(*args, packed=packed)
+        else:
+            attn, probs, logits = x2y_attention16_reference(*args)
+        W = self.Y_W.weight
+        Cy = y.shape[-1]
+        y_out = mm(y, W[:, :Cy].t()) + mm(attn, W[:, Cy:].t()) + self.Y_W.bias
+        return y_out.to(BF16), probs, logits
 
 
 def _shared_pos(pos):
@@ -503,8 +609,33 @@ def _fused_sublayers(layer, attn, tgt, pos, norm_sa, norm_ffn, generator, betwee
                         seed=seeds[1:] if seeds is not None else None)
 
 
+def _fused_sublayers16(layer, attn, tgt, pos, norm_sa, norm_ffn, between=None):
+    """K4's bf16 form (or its plain version without kernels): the SA and FFN
+    sublayers on f32 x with bf16 operands inside (JAX's ``bf16=True``,
+    layers.py:894-906)."""
+    _serving16(layer)
+    sa, ffn = layer.kernel_layout()
+    cuda = tgt.is_cuda and layer.use_kernel
+    if layer.use_kernel:
+        packs = layer.cached("b16", lambda: (sa_b16_pack(*sa[0:6:2]), ffn[0].to(BF16))) \
+            if cuda else (None, None)
+        sa_fn = lambda *a, **k: sa_sublayer16_fwd(*a, **k, packed=packs[0])  # noqa: E731
+        ffn_fn = lambda *a, **k: ffn_sublayer16_fwd(*a, **k, packed=packs[1])  # noqa: E731
+    else:
+        sa_fn, ffn_fn = sa_sublayer16_reference, ffn_sublayer16_reference
+    y = sa_fn(tgt.float().contiguous(), pos, *sa, norm_sa.weight, norm_sa.bias,
+              num_heads=attn.num_heads, eps=norm_sa.eps)
+    if between is not None:
+        y = between(y)
+    return ffn_fn(y.contiguous(), *ffn, norm_ffn.weight, norm_ffn.bias, eps=norm_ffn.eps)
+
+
 def _ffn(layer, tgt, norm, generator):
-    """norm(tgt + drop(linear2(drop(relu(linear1(tgt))))))."""
+    """norm(tgt + drop(linear2(drop(relu(linear1(tgt)))))); under bf16 the
+    first dense is a bf16 one and the second f32 (layers.py:916-918)."""
+    if layer.dtype == BF16:
+        ff = torch.relu(dense16(tgt, layer.linear1.weight, layer.linear1.bias)).float()
+        return norm(tgt + layer.linear2(ff))
     ff = _drop(layer, generator, torch.relu(layer.linear1(tgt)), layer.dropout)
     return norm(tgt + _drop(layer, generator, layer.linear2(ff), layer.dropout))
 
@@ -512,10 +643,11 @@ def _ffn(layer, tgt, norm, generator):
 class SALayer(nn.Module, KernelLayout):
     """Post-norm self-attention + FFN over action tokens (K4 when fused)."""
 
-    def __init__(self, dim, nhead, ffdim, use_kernel=True, dropout=0.0):
+    def __init__(self, dim, nhead, ffdim, use_kernel=True, dropout=0.0, dtype=None):
         super().__init__()
         self.dropout = dropout
-        self.multihead_attn = MultiheadAttention(dim, nhead, dropout=dropout)
+        self.dtype = dtype
+        self.multihead_attn = MultiheadAttention(dim, nhead, dropout=dropout, dtype=dtype)
         self.linear1 = nn.Linear(dim, ffdim)
         self.linear2 = nn.Linear(ffdim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS_ATTN)
@@ -528,6 +660,9 @@ class SALayer(nn.Module, KernelLayout):
         return self.multihead_attn._make_kernel_layout(live), _ffn_layout(self, live)
 
     def forward(self, tgt, pos=None, generator=None):
+        if self.dtype == BF16 and self.kernel_allowed and _shared_pos(pos):
+            return _fused_sublayers16(self, self.multihead_attn, tgt, pos, self.norm1,
+                                      self.norm2)
         if self.use_kernel and _shared_pos(pos):
             return _fused_sublayers(self, self.multihead_attn, tgt, pos, self.norm1, self.norm2,
                                     generator)
@@ -541,13 +676,14 @@ class SCALayer(nn.Module, KernelLayout):
     """Token self-attention, cross-attention to the frame memory, FFN."""
 
     def __init__(self, dim, frame_dim, nhead, ffdim, use_kernel_sa=True, use_kernel_attn=True,
-                 dropout=0.0, quantize=""):
+                 dropout=0.0, quantize="", dtype=None):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(dim, nhead, dropout=dropout)
+        self.dtype = dtype
+        self.self_attn = MultiheadAttention(dim, nhead, dropout=dropout, dtype=dtype)
         self.multihead_attn = MultiheadAttention(dim, nhead, kdim=frame_dim,
                                                  use_kernel=use_kernel_attn, dropout=dropout,
-                                                 quantize=quantize)
+                                                 quantize=quantize, dtype=dtype)
         self.linear1 = nn.Linear(dim, ffdim)
         self.linear2 = nn.Linear(ffdim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS_ATTN)
@@ -566,6 +702,9 @@ class SCALayer(nn.Module, KernelLayout):
                                      key_len=memory_len, key_pos=pos, generator=generator)
             return self.norm2(t + _drop(self, generator, t2, self.dropout))
 
+        if self.dtype == BF16 and self.kernel_allowed and _shared_pos(query_pos):
+            return _fused_sublayers16(self, self.self_attn, tgt, query_pos, self.norm1,
+                                      self.norm3, between=cross)
         if self.use_kernel and _shared_pos(query_pos):
             return _fused_sublayers(self, self.self_attn, tgt, query_pos, self.norm1,
                                     self.norm3, generator, between=cross)
@@ -579,11 +718,11 @@ class SADecoder(nn.Module):
     """N self-attention layers + output linear."""
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, nhead, ffdim, use_kernel=True,
-                 dropout=0.0):
+                 dropout=0.0, dtype=None):
         super().__init__()
         if in_dim != hid_dim:
             raise ValueError("SADecoder needs in_dim == hid_dim")
-        self.layers = nn.ModuleList(SALayer(hid_dim, nhead, ffdim, use_kernel, dropout)
+        self.layers = nn.ModuleList(SALayer(hid_dim, nhead, ffdim, use_kernel, dropout, dtype)
                                     for _ in range(num_layers))
         self.out_linear = nn.Linear(hid_dim, out_dim)
 
@@ -597,13 +736,13 @@ class SCADecoder(nn.Module):
     """N SCA layers + final LayerNorm + output linear."""
 
     def __init__(self, in_dim, hid_dim, out_dim, frame_dim, num_layers, nhead, ffdim,
-                 use_kernel_sa=True, use_kernel_attn=True, dropout=0.0, quantize=""):
+                 use_kernel_sa=True, use_kernel_attn=True, dropout=0.0, quantize="", dtype=None):
         super().__init__()
         if in_dim != hid_dim:
             raise ValueError("SCADecoder needs in_dim == hid_dim")
         self.layers = nn.ModuleList(
             SCALayer(hid_dim, frame_dim, nhead, ffdim, use_kernel_sa, use_kernel_attn, dropout,
-                     quantize)
+                     quantize, dtype)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(hid_dim, eps=LN_EPS_ATTN)
         self.out_linear = nn.Linear(hid_dim, out_dim)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..configs import BlockCfg, resolve_block_cfgs
+from ..configs import BlockCfg, compute_dtype, resolve_block_cfgs
 from ..data.io import load_action_mapping
 from ..ops import segments
 from ..ops.verbnoun_compose import composed_argmax
@@ -262,6 +262,9 @@ def build_verbnoun_fact(cfg: dict, in_dim: int, vids, nids, s_pred_cap: int,
     ``build_fact`` builds FACT: on ``device`` (the CUDA card when None;
     ``device="cpu"`` for the plain path on the CPU), initialised from
     ``generator`` (a CPU torch.Generator; seed 0 if None), in eval mode."""
+    if compute_dtype(cfg):
+        raise NotImplementedError("TPU.compute_dtype bfloat16: the verb/noun model in bf16 is "
+                                  "ROADMAP M7 item 4")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("build_verbnoun_fact: no CUDA card is available; pass "

@@ -69,6 +69,7 @@ import torch.nn.functional as F
 from .. import _build
 from . import _grad
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
+from .pos import kernel_pos
 
 
 def mstcn_dropout_mask(seed, layer: int, shape, rate: float):
@@ -1025,3 +1026,154 @@ def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, see
            tuple(_rate(rates, i) for i in range(len(layers))))
     return _MSTCN2Stack.apply(x.contiguous(), lengths, out_w, out_b, seeds, cfg,
                               *[p.contiguous() for p in flat])
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 GEMM (csrc/tc_bf16.cu) and K1's bf16 form
+
+# The bf16 GEMM's epilogues (csrc/tc_bf16.cu::Mode): K1's conv (bf16 out) and
+# 1x1 with the residual (bf16 out), the logits (f32 out, every frame), the
+# projections with an f32 result (K2's flash), with the product rounded to
+# bf16 before the bias (K2's small-X) and with a bf16 result (K3)
+B16_RELU, B16_RESID, B16_LOGITS, B16_PROJ, B16_PROJ_RND, B16_PROJ16 = range(6)
+B16_STEP = 64  # bf16 K values of one GEMM stage (a 128-byte row)
+
+
+def b16_pad(C: int) -> int:
+    """The K values a segment of C channels takes in a packed bf16 weight of
+    several segments: C rounded up to whole 64-value K steps."""
+    return -(-C // B16_STEP) * B16_STEP
+
+
+def b16_pack(w, transpose: bool = False, segs: int = 1):
+    """(N, Kd) bf16: w (N, K), or w^T (N = w's columns), rounded to bf16 and
+    K-major, as the bf16 GEMM reads its weight operand; with ``segs`` > 1, K
+    is that many segments (a conv's taps), each padded with zeros to
+    ``b16_pad`` of its width.  A layout pass of PyTorch ops, made once and
+    kept by the modules (``KernelLayout``)."""
+    wt = w.t() if transpose else w
+    N, K = wt.shape
+    kseg = K // segs
+    kpad = b16_pad(kseg) if segs > 1 else kseg
+    out = torch.zeros((N, segs, kpad), device=w.device, dtype=torch.bfloat16)
+    out[:, :, :kseg] = wt.reshape(N, segs, kseg).to(torch.bfloat16)
+    return out.view(N, segs * kpad)
+
+
+def has_b16_kernels(C: int, N=None) -> bool:
+    """The bf16 GEMM takes this K width (and N): TMA row strides of 16 bytes
+    (C % 8) and column pairs in the epilogue (N % 8)."""
+    return C % 8 == 0 and (N is None or N % 8 == 0)
+
+
+def b16_gemm(mode, a, shifts, wpack, N, lengths, out, *, kseg=None, ldo=None, col_off=0,
+             bias=None, res=None):
+    """One launch of the bf16 GEMM (``csrc/tc_bf16.cu::fk_b16_gemm``): out[b,
+    t, col_off + n] = epilogue(sum over the segments s of A[b, t + shifts[s],
+    :] @ W's rows s * kseg : (s + 1) * kseg), A (B, T, C) bf16, W packed by
+    ``b16_pack`` (kseg: its segment width, all of it by default); rows at or
+    past ``lengths[b]`` read as zeros and are written as zeros (the logits:
+    the bias row); ``res`` (B, T, N) bf16 is the residual of B16_RESID."""
+    B, T, a_ch = a.shape
+    kseg = wpack.shape[-1] // len(shifts) if kseg is None else kseg
+    arr = (ctypes.c_int * len(shifts))(*shifts)
+    err = _build.lib().fk_b16_gemm(
+        mode, a.data_ptr(), a_ch, len(shifts), ctypes.addressof(arr), kseg, wpack.data_ptr(), N,
+        wpack.shape[-1], B, T, lengths.data_ptr(), out.data_ptr(), ldo or N, col_off, _ptr(bias),
+        _ptr(res), _build.stream_ptr(a.device))
+    _build.check("fk_b16_gemm", err)
+
+
+def b16_add_pos(x, pos):
+    """bf16(x + pos) on the leading P channels (``ops/bf16.py::add_pos16``) by
+    the elementwise kernel ``fk_b16_add_pos``: x (B, N, C) bf16, pos (1 or B,
+    N, P) bf16; x itself where pos is None."""
+    if pos is None:
+        return x
+    B, N, C = x.shape
+    pos, pstride, P = kernel_pos(pos, B, N, C)
+    out = torch.empty_like(x)
+    err = _build.lib().fk_b16_add_pos(x.data_ptr(), pos.data_ptr(), pstride, P, B, N, C,
+                                      out.data_ptr(), _build.stream_ptr(x.device))
+    _build.check("fk_b16_add_pos", err)
+    return out
+
+
+def mstcn_b16_pack(layers, out_w):
+    """K1's bf16 form's packed weights: per layer the conv taps (C, 3 Cp) and
+    the 1x1 (C, C), then the out projection (O, C) (``b16_pack``)."""
+    return ([(b16_pack(wd.reshape(-1, wd.shape[-1]), True, segs=3), b16_pack(w1, True))
+             for wd, bd, w1, b1, gamma, beta in layers], b16_pack(out_w, True))
+
+
+def mstcn_stack16_reference(x, lengths, layers, dilations, *, out_w, out_b):
+    """Plain bf16 version of K1's tower (JAX's ``_stack_kernel`` under
+    mixed precision, ``dilated_conv.py:266-308``): x (B, T, C) bf16, the
+    stream bf16 between layers, per layer h = bf16(relu(conv3_d(x) + bd))
+    with the three taps' f32 products added left, centre, right, then
+    bf16(((h W1 + b1) + x) * mask); f32 logits bf16(stream) Wo + bo.  No
+    dropout or LayerNorm (serving; ``configs.bf16_refusal``)."""
+    mask = _frame_mask(x, lengths)
+    h = x * mask
+    for (wd, bd, w1, b1, gamma, beta), d in zip(layers, dilations):
+        hf = h.float()
+        taps = wd.to(torch.bfloat16).float()
+        acc = _shift(hf, -d) @ taps[0] + hf @ taps[1]
+        acc = acc + _shift(hf, d) @ taps[2]
+        a = torch.relu(acc + bd).to(torch.bfloat16)
+        z = a.float() @ w1.to(torch.bfloat16).float() + b1 + hf
+        h = (z * mask.float()).to(torch.bfloat16)
+    return h.float() @ out_w.to(torch.bfloat16).float() + out_b
+
+
+def mstcn_stack16(x, lengths, layers, dilations, *, out_w, out_b, packed=None):
+    """K1's bf16 form (serving): the tower on the card (CUDA tensors) or its
+    plain version (CPU tensors).  x (B, T, C) bf16, lengths (B,) int32, the
+    layers in JAX's layout (f32, cast here: ``packed`` is
+    ``mstcn_b16_pack(layers, out_w)`` where the caller keeps it) -> f32
+    logits (B, T, O)."""
+    flat = [p for layer in layers for p in layer]
+    _build.no_grad_inputs("mstcn_stack16", [x, out_w, out_b, *flat])
+    if x.device.type == "cpu":
+        return mstcn_stack16_reference(x, lengths, layers, dilations, out_w=out_w, out_b=out_b)
+    out = _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed)
+    mstcn_stack16.launches += 1
+    return out
+
+
+mstcn_stack16.launches = 0
+
+
+def _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed=None):
+    """``mstcn_stack16``'s launches: per layer the conv3 (B16_RELU, three
+    segments at shifts -d, 0, d) and the 1x1 with its residual (B16_RESID),
+    then the logits (B16_LOGITS), the stream ping-ponging in bf16 (CPU
+    tensors reach it only in the tests, which stand a model of the kernels'
+    C interface in for the library)."""
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError("mstcn_stack16: x must be bfloat16")
+    if not has_b16_kernels(C, O):
+        raise NotImplementedError(f"mstcn_stack16: no kernel for C={C}, O={O} (C % 8, O % 8)")
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError("mstcn_stack16: lengths must be (B,) int32")
+    for wd, bd, w1, b1, gamma, beta in layers:
+        if wd.shape != (3, C, C) or w1.shape != (C, C):
+            raise ValueError(f"mstcn_stack16: bad layer shapes for C={C} (ungrouped only)")
+    packs, owp = mstcn_b16_pack(layers, out_w) if packed is None else packed
+    _build.check_tensors("mstcn_stack16", [x, lengths, out_w, out_b, owp,
+                                           *[p for layer in layers for p in layer[1::2]],
+                                           *[w for pk in packs for w in pk]], x.device, bf16=True)
+    bufs, h = (torch.empty_like(x), torch.empty_like(x)), torch.empty_like(x)
+    src = x
+    for i, ((wd, bd, w1, b1, gamma, beta), d, (conv, w1p)) in enumerate(
+            zip(layers, dilations, packs)):
+        dst = bufs[i % 2]
+        b16_gemm(B16_RELU, src, [-int(d), 0, int(d)], conv, C, lengths, h, kseg=b16_pad(C),
+                 bias=bd)
+        b16_gemm(B16_RESID, h, [0], w1p, C, lengths, dst, bias=b1, res=src)
+        src = dst
+    logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    b16_gemm(B16_LOGITS, src, [0], owp, O, lengths, logits, bias=out_b)
+    return logits

@@ -51,7 +51,9 @@ import torch
 
 from .. import _build
 from . import _grad
-from .dilated_conv import _MASKED, _ONE, _PROJ, _k6_gemm, _k6_wgrad, k6_pack
+from .bf16 import BF16, add_pos16, mm, rnd
+from .dilated_conv import (_MASKED, _ONE, _PROJ, B16_PROJ16, _k6_gemm, _k6_wgrad, b16_add_pos,
+                           b16_gemm, b16_pack, has_b16_kernels, k6_pack)
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos
 
@@ -102,7 +104,7 @@ def mha_dropout_mask(seed, shape, rate: float):
 mha_dropout_mask.launches = 0
 
 
-def _check(name, q, x_in, wk, bk, wv, bv, x_len, num_heads):
+def _check(name, q, x_in, wk, bk, wv, bv, x_len, num_heads, bf16: bool = False):
     B, X, Cx = x_in.shape
     M, E = q.shape[1], wk.shape[1]
     if (q.shape != (B, M, E) or E % num_heads or wk.shape != (Cx, E) or wv.shape != (Cx, E)
@@ -110,7 +112,7 @@ def _check(name, q, x_in, wk, bk, wv, bv, x_len, num_heads):
         raise ValueError(f"{name}: inconsistent shapes")
     if x_len.dtype != torch.int32 or x_len.shape != (B,):
         raise ValueError(f"{name}: x_len must be (B,) int32")
-    _build.check_tensors(name, [q, x_in, wk, bk, wv, bv, x_len], x_in.device)
+    _build.check_tensors(name, [q, x_in, wk, bk, wv, bv, x_len], x_in.device, bf16=bf16)
 
 
 def _check_strides(name, Cx: int, E: int, P: int):
@@ -410,3 +412,107 @@ def mha_cross_attention(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int
         _build.require_backward("mha_cross_attention", has_backward(q.shape[1], wk.shape[1],
                                                                     num_heads))
     return _MHA.apply(*args, seed, (int(num_heads), float(rate)))
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 form of the forward (serving)
+
+
+def bf16_scale(hd: int) -> float:
+    """JAX folds 1/sqrt(hd) into bf16 queries as a weak-typed scalar, so the
+    scale itself is rounded to bf16 first (``mha_attn.py::_arrange_queries``)."""
+    return float(torch.tensor(1.0 / math.sqrt(hd)).to(BF16))
+
+
+def mha_cross16_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int):
+    """Plain version of JAX's K3 under mixed precision (``mha_attn.py:80-118``):
+    q (B, M, E) and x (B, X, Cx) bf16, x_pos bf16 or None, the weights f32
+    (cast here).  The queries bf16(q * bf16(1/sqrt(hd))); k = bf16((x +
+    pos) Wk + bk) and v = bf16(x Wv + bv) with x + pos rounded to bf16 first;
+    the logits f32; per key tile of FWD_KEY_TILE the weights exp(logit -
+    the tile's max), their f32 sum and the attend sum over the weights
+    rounded to bf16; the tiles merged by their maxima.  Returns (B, M, E) f32.
+    JAX rounds each 512-key tile's weights against the running max; the
+    kernel and this version against each 64-key tile's own max (the same to a
+    bf16 rounding of each weight)."""
+    B, X, _ = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    qs = rnd(q.float() * bf16_scale(hd)).view(B, M, H, hd)
+    k = rnd(mm(add_pos16(x_in, None if x_pos is None else x_pos.to(BF16)), wk) + bk)
+    v = rnd(mm(x_in, wv) + bv)
+    logits = torch.einsum("bmhd,bxhd->bhmx", qs, k.view(B, X, H, hd))
+    valid = torch.arange(X, device=x_in.device)[None, None, None, :] < x_len[:, None, None, None]
+    logits = logits.masked_fill(~valid, _NEG)
+    n_t = -(-X // FWD_KEY_TILE)
+    pad = n_t * FWD_KEY_TILE - X  # keys past X weigh 0
+    lt = torch.nn.functional.pad(logits, (0, pad), value=float("-inf"))
+    lt = lt.view(B, H, M, n_t, FWD_KEY_TILE)
+    m_t = lt.amax(dim=-1, keepdim=True)
+    p = torch.exp(lt - m_t)
+    vt = torch.nn.functional.pad(v.view(B, X, H, hd), (0, 0, 0, 0, 0, pad))
+    acc = torch.einsum("bhmtx,btxhd->bhmtd", rnd(p), vt.view(B, n_t, FWD_KEY_TILE, H, hd))
+    w = torch.exp(m_t - m_t.amax(dim=-2, keepdim=True))  # (B, H, M, n_t, 1)
+    out = (w * acc).sum(dim=-2) / (w[..., 0] * p.sum(dim=-1)).sum(dim=-1, keepdim=True)
+    return out.permute(0, 2, 1, 3).reshape(B, M, E)
+
+
+def k3_b16_pack(wk, wv):
+    """K3's bf16 form's weights: Wk^T and Wv^T (E, Cx) in bf16, K-major
+    (``dilated_conv.b16_pack``)."""
+    return b16_pack(wk, True), b16_pack(wv, True)
+
+
+def mha_cross16_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, packed=None):
+    """K3's bf16 form (serving): the kernels on CUDA tensors, the plain
+    version on CPU tensors; ``packed`` is ``k3_b16_pack(wk, wv)`` where the
+    caller keeps it.  A shape whose block does not fit is refused before any
+    launch."""
+    _build.no_grad_inputs("mha_cross16_fwd", [q, x_in, x_pos, wk, bk, wv, bv])
+    if x_in.device.type == "cpu":
+        return mha_cross16_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads=num_heads)
+    out = _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed)
+    mha_cross16_fwd.launches += 1
+    return out
+
+
+mha_cross16_fwd.launches = 0
+
+
+def _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed=None):
+    """``mha_cross16_fwd``'s launches: bf16(x + pos) (``fk_b16_add_pos``), K
+    and V on the bf16 GEMM into one (B, X, 2E) bf16 buffer (B16_PROJ16, zero
+    past the attended length), then the attention in f32 on the bf16 keys,
+    values and scaled queries, and the fixed-order combine
+    (``fk_k3_attn16``)."""
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    _check("mha_cross16_fwd", q, x_in, wk, bk, wv, bv, x_len, H, bf16=True)
+    if q.dtype != BF16 or x_in.dtype != BF16:
+        raise ValueError("mha_cross16_fwd: q and x must be bfloat16")
+    if not has_b16_kernels(Cx, E):
+        raise NotImplementedError(f"mha_cross16_fwd: no kernel for Cx={Cx}, E={E} (each a "
+                                  "multiple of 8)")
+    if not has_forward(M, E, H):
+        raise NotImplementedError(f"mha_cross16_fwd: no forward kernel for M={M}, E={E}, H={H}")
+    wkp, wvp = k3_b16_pack(wk, wv) if packed is None else packed
+    _build.check_tensors("mha_cross16_fwd", [wkp, wvp], x_in.device, bf16=True)
+    xin = b16_add_pos(x_in, None if x_pos is None else x_pos.to(BF16))
+    lens = attended_lengths(x_len, X)
+    kv = torch.empty((B, X, 2 * E), device=x_in.device, dtype=BF16)
+    b16_gemm(B16_PROJ16, xin, [0], wkp, E, lens, kv, ldo=2 * E, bias=bk)
+    b16_gemm(B16_PROJ16, x_in, [0], wvp, E, lens, kv, ldo=2 * E, col_off=E, bias=bv)
+    qs = (q.float() * bf16_scale(hd)).to(BF16)
+    n_t = -(-X // FWD_KEY_TILE)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    part_acc = torch.empty((B, n_t, H * M, hd), **f32)
+    part_ml = torch.empty((B, n_t, H * M, 2), **f32)
+    out = torch.empty((B, M, E), **f32)
+    err = _build.lib().fk_k3_attn16(kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M, H,
+                                    hd, part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                                    _build.stream_ptr(x_in.device))
+    _build.check("fk_k3_attn16", err)
+    return out

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .bf16 import BF16, mm, rnd
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -579,3 +580,127 @@ def ffn_sublayer(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x, *weights])):
         return ffn_sublayer_fwd(x, *weights, eps=eps, rate=rate, seed=seed)
     return _FFN.apply(x, seed if rate > 0.0 else None, (float(eps), float(rate)), *weights)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 forms of both forwards (serving)
+
+
+def sa_sublayer16_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
+                            num_heads: int, eps: float = LN_EPS):
+    """Plain version of JAX's SA sublayer with ``bf16=True``
+    (``sa_layer.py:59-73``, ``_attn_core``, ``_sa_fwd_kernel``): a = bf16(x +
+    pos); q, k = bf16(bf16(a W) + bf16(b)), v = bf16(bf16(bf16(x) Wv) +
+    bf16(bv)); the logits f32 times 1/sqrt(hd), the softmax f32, the context
+    bf16(P) v in f32; the out projection, residual and LayerNorm in f32 (Wo
+    is not cast).  x, pos and the weights f32."""
+    B, M, E = x.shape
+    H = num_heads
+    hd = E // H
+    a = add_pos(x, pos).to(BF16)
+    q, k = (rnd(rnd(mm(a, w)) + rnd(b)).view(B, M, H, hd) for w, b in ((wq, bq), (wk, bk)))
+    v = rnd(rnd(mm(x, wv)) + rnd(bv)).view(B, M, H, hd)
+    p = torch.softmax(torch.einsum("bmhd,bnhd->bhmn", q, k) * (1.0 / math.sqrt(hd)), dim=-1)
+    o = torch.einsum("bhmn,bnhd->bmhd", rnd(p), v).reshape(B, M, E) @ wo + bo
+    return F.layer_norm(x + o, (E,), ln_scale, ln_bias, eps)
+
+
+def ffn_sublayer16_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS):
+    """Plain version of JAX's FFN sublayer with ``bf16=True``
+    (``_ffn_fwd_kernel``): z1 = bf16(bf16(bf16(x) W1) + bf16(b1)), then
+    relu(z1) W2 + b2, the residual and the LayerNorm in f32 (W2 is not
+    cast)."""
+    E = x.shape[-1]
+    z1 = rnd(rnd(mm(x, w1)) + rnd(b1))
+    return F.layer_norm(x + torch.relu(z1) @ w2 + b2, (E,), ln_scale, ln_bias, eps)
+
+
+def sa_b16_pack(wq, wk, wv):
+    """The SA bf16 form's weights: Wq, Wk, Wv (E, E) rounded to bf16."""
+    return tuple(w.to(BF16).contiguous() for w in (wq, wk, wv))
+
+
+def sa_sublayer16_fwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
+                      num_heads: int, eps: float = LN_EPS, packed=None):
+    """The SA sublayer's bf16 form (serving): the kernels on CUDA tensors,
+    the plain version on CPU tensors; ``packed`` is ``sa_b16_pack(wq, wk,
+    wv)`` where the caller keeps it."""
+    weights = [wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias]
+    _build.no_grad_inputs("sa_sublayer16_fwd", [x, pos, *weights])
+    if x.device.type == "cpu":
+        return sa_sublayer16_reference(x, pos, *weights, num_heads=num_heads, eps=eps)
+    y = _sa16_fwd_card(x, pos, *weights, num_heads, eps, packed)
+    sa_sublayer16_fwd.launches += 1
+    return y
+
+
+sa_sublayer16_fwd.launches = 0
+
+
+def _sa16_fwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, num_heads, eps,
+                   packed=None):
+    """``sa_sublayer16_fwd``'s launches: q | k | v (B, 3, M, E) in bf16 per
+    (32-row tile, video, projection) on the CUDA cores with bf16 weights
+    (``fk_sa_qkv16``), then the attention with the probabilities rounded to
+    bf16 for the context, the f32 out projection, the residual and the
+    LayerNorm (``fk_sa_attn_out16``)."""
+    B, M, E = x.shape
+    w16 = sa_b16_pack(wq, wk, wv) if packed is None else packed
+    pos_t, Pp = _check_sa("sa_sublayer16_fwd", x, pos, wq, bq, wk, bk, wv, bv, wo, bo,
+                          ln_scale, ln_bias, num_heads)
+    _build.check_tensors("sa_sublayer16_fwd", list(w16), x.device, bf16=True)
+    if not has_forward(M, E, num_heads):
+        raise NotImplementedError(f"sa_sublayer16_fwd: no forward kernel for M={M}, E={E}, "
+                                  f"H={num_heads}")
+    qkv = torch.empty((B, 3, M, E), device=x.device, dtype=BF16)
+    st = _build.stream_ptr(x.device)
+    err = _build.lib().fk_sa_qkv16(x.data_ptr(), _ptr(pos_t), Pp, w16[0].data_ptr(),
+                                   bq.data_ptr(), w16[1].data_ptr(), bk.data_ptr(),
+                                   w16[2].data_ptr(), bv.data_ptr(), qkv.data_ptr(), B, M, E, st)
+    _build.check("fk_sa_qkv16", err)
+    c = torch.empty_like(x)
+    y = torch.empty_like(x)
+    err = _build.lib().fk_sa_attn_out16(
+        qkv.data_ptr(), 3 * M * E, E, M * E, 2 * M * E, x.data_ptr(), wo.data_ptr(),
+        bo.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), c.data_ptr(), y.data_ptr(), B, M,
+        E, num_heads, float(eps), st)
+    _build.check("fk_sa_attn_out16", err)
+    return y
+
+
+def ffn_sublayer16_fwd(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
+                       packed=None):
+    """The FFN sublayer's bf16 form (serving): the kernels on CUDA tensors,
+    the plain version on CPU tensors; ``packed`` is W1 in bf16 where the
+    caller keeps it."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    _build.no_grad_inputs("ffn_sublayer16_fwd", [x, *weights])
+    if x.device.type == "cpu":
+        return ffn_sublayer16_reference(x, *weights, eps=eps)
+    y = _ffn16_fwd_card(x, *weights, eps, packed)
+    ffn_sublayer16_fwd.launches += 1
+    return y
+
+
+ffn_sublayer16_fwd.launches = 0
+
+
+def _ffn16_fwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, packed=None):
+    """``ffn_sublayer16_fwd``'s one library call (``fk_ffn_fwd16``): the f32
+    form's three launches with x rounded to bf16 as it is staged, W1 read in
+    bf16 and z1 = bf16(bf16(x W1) + bf16(b1)), then hk W2 in f32, the
+    residual and the LayerNorm, in the f32 form's workspace."""
+    B, M, E = x.shape
+    Fd = w1.shape[1]
+    w1h = w1.to(BF16).contiguous() if packed is None else packed
+    _check_ffn("ffn_sublayer16_fwd", x, w1, b1, w2, b2, ln_scale, ln_bias)
+    _build.check_tensors("ffn_sublayer16_fwd", [w1h], x.device, bf16=True)
+    lib = _build.lib()
+    total, = _build.workspace(lib, "fk_ffn_fwd_workspace", 1, B, M, E, Fd)
+    ws = torch.empty(total, device=x.device, dtype=torch.float32)
+    y = torch.empty_like(x)
+    err = lib.fk_ffn_fwd16(x.data_ptr(), w1h.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                           b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), ws.data_ptr(),
+                           y.data_ptr(), B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+    _build.check("fk_ffn_fwd16", err)
+    return y

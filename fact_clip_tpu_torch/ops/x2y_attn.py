@@ -46,7 +46,9 @@ import torch
 
 from .. import _build
 from . import _grad
-from .dilated_conv import _MASKED, _ONE, K6_CHUNK, _k6_gemm, _k6_wgrad, k6_pack
+from .bf16 import BF16, add_pos16, mm, rnd
+from .dilated_conv import (_MASKED, _ONE, B16_PROJ, B16_PROJ_RND, K6_CHUNK, _k6_gemm, _k6_wgrad,
+                           b16_add_pos, b16_gemm, b16_pack, has_b16_kernels, k6_pack)
 from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -603,3 +605,160 @@ def x2y_attention(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
         _build.require_backward("x2y_attention", takes_grad(y_in.shape[1], x_in.shape[1],
                                                             wq.shape[1]))
     return _X2Y.apply(*args)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 forms of both forwards (serving)
+
+
+def _pos16(pos):
+    return None if pos is None else pos.to(BF16)
+
+
+def x2y_attention16_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len):
+    """Plain version of both of JAX's forms under mixed precision: y and x
+    bf16, the positional terms cast to bf16 (JAX's ``_poslike``) and added
+    with one rounding, the weights f32 (cast here).  Small X
+    (``_small_x_vjp``, ``_small_x_kernel``): xk = bf16((x + x_pos) Wk) + bk
+    and xv = bf16(x Wv) + bv, the bf16 products rounded before the f32 bias
+    (XLA's bf16 einsum outside the kernel), yq = (y + y_pos) Wq + bq in f32.
+    Flash (``_flash_vjp``, ``_flash_kernel``): yq = bf16((y + y_pos) Wq) +
+    bq outside the kernel, xk and xv with f32 results.  Then both in f32:
+    the logits, the softmax and the attend sum.  Returns f32 (attn, probs,
+    logits)."""
+    d = wq.shape[1]
+    yin, xin = add_pos16(y_in, _pos16(y_pos)), add_pos16(x_in, _pos16(x_pos))
+    if x_in.shape[1] >= FLASH_MIN_KEYS:
+        yq, xk, xv = rnd(mm(yin, wq)) + bq, mm(xin, wk) + bk, mm(x_in, wv) + bv
+    else:
+        yq, xk, xv = mm(yin, wq) + bq, rnd(mm(xin, wk)) + bk, rnd(mm(x_in, wv)) + bv
+    logits = (yq @ xk.transpose(1, 2)) * (1.0 / math.sqrt(d))
+    X = x_in.shape[1]
+    valid = torch.arange(X, device=x_in.device)[None, None, :] < x_len[:, None, None]
+    logits = logits.masked_fill(~valid, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    return probs @ xv, probs, logits
+
+
+def x2y_b16_pack(wk, wv, wq):
+    """K2's bf16 forms' weights: Wk^T, Wv^T (d, Cx) and Wq^T (d, Cy) in bf16,
+    K-major (``dilated_conv.b16_pack``)."""
+    return b16_pack(wk, True), b16_pack(wv, True), b16_pack(wq, True)
+
+
+def x2y_attention16(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
+    """K2's bf16 forms (serving), dispatched on the key count as the f32
+    entry: the kernels on CUDA tensors, the plain version on CPU tensors;
+    ``packed`` is ``x2y_b16_pack(wk, wv, wq)`` where the caller keeps it."""
+    _build.no_grad_inputs("x2y_attention16", [y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq])
+    if x_in.device.type == "cpu":
+        return x2y_attention16_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
+    flash = x_in.shape[1] >= FLASH_MIN_KEYS
+    fn = x2y_flash16_fwd if flash else x2y_small_x16_fwd
+    return fn(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed)
+
+
+def x2y_small_x16_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
+    """The small-X bf16 form on the card (``x2y_attention16`` dispatches)."""
+    out = _x2y_small_x16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed)
+    x2y_small_x16_fwd.launches += 1
+    return out
+
+
+x2y_small_x16_fwd.launches = 0
+
+
+def x2y_flash16_fwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
+    """The flash bf16 form on the card (``x2y_attention16`` dispatches)."""
+    out = _x2y_flash16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed)
+    x2y_flash16_fwd.launches += 1
+    return out
+
+
+x2y_flash16_fwd.launches = 0
+
+
+def _check16(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, packed):
+    B, Y, Cy = y_in.shape
+    _, X, Cx = x_in.shape
+    d = wq.shape[1]
+    if (x_in.shape[0] != B or wk.shape != (Cx, d) or wv.shape != (Cx, d) or wq.shape != (Cy, d)
+            or bk.shape != (d,) or bv.shape != (d,) or bq.shape != (d,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if y_in.dtype != BF16 or x_in.dtype != BF16:
+        raise ValueError(f"{name}: y and x must be bfloat16")
+    if x_len.dtype != torch.int32 or x_len.shape != (B,):
+        raise ValueError(f"{name}: x_len must be (B,) int32")
+    if not (has_b16_kernels(Cx, d) and has_b16_kernels(Cy, d)):
+        raise NotImplementedError(f"{name}: no kernel for Cy={Cy}, Cx={Cx}, d={d} (each a "
+                                  "multiple of 8)")
+    packed = x2y_b16_pack(wk, wv, wq) if packed is None else packed
+    _build.check_tensors(name, [y_in, x_in, bk, bv, bq, x_len, *packed], x_in.device, bf16=True)
+    return packed
+
+
+def _x2y_small_x16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
+    """``x2y_small_x16_fwd``'s launches (CPU tensors reach it only in the
+    tests, which stand a model of the kernels' C interface in for the
+    library): y + y_pos and x + x_pos rounded to bf16 (``fk_b16_add_pos``),
+    yq (B16_PROJ, f32) and [xk | xv] (B16_PROJ_RND: the product rounded to
+    bf16, then the f32 bias; zero past the attended length) on the bf16
+    GEMM, then the f32 form's attention (``fk_x2y_sx_attn``): JAX's small-X
+    kernel takes f32 keys and values under mixed precision, so its logits,
+    softmax and attend sum are f32."""
+    B, Y, Cy = y_in.shape
+    X = x_in.shape[1]
+    d = wq.shape[1]
+    wkp, wvp, wqp = _check16("x2y_small_x16_fwd", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
+                             packed)
+    if sx_smem(X, d) > _build.MAX_SMEM:
+        raise NotImplementedError(f"x2y_small_x16_fwd: no kernel for X={X}, d={d}")
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    yin, xin = b16_add_pos(y_in, _pos16(y_pos)), b16_add_pos(x_in, _pos16(x_pos))
+    yq = torch.empty((B, Y, d), **f32)
+    kv = torch.empty((B, X, 2 * d), **f32)
+    lens = attended_lengths(x_len, X)
+    b16_gemm(B16_PROJ, yin, [0], wqp, d, torch.full_like(x_len, Y), yq, bias=bq)
+    b16_gemm(B16_PROJ_RND, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
+    b16_gemm(B16_PROJ_RND, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
+    attn = torch.empty((B, Y, d), **f32)
+    probs = torch.empty((B, Y, X), **f32)
+    logits = torch.empty((B, Y, X), **f32)
+    err = _build.lib().fk_x2y_sx_attn(yq.data_ptr(), kv.data_ptr(), x_len.data_ptr(), B, Y, X,
+                                      d, 1.0 / math.sqrt(d), logits.data_ptr(), probs.data_ptr(),
+                                      attn.data_ptr(), sx_rows(B, Y, X, d),
+                                      _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_attn", err)
+    return attn, probs, logits
+
+
+def _x2y_flash16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
+    """``x2y_flash16_fwd``'s launches: yq = bf16((y + y_pos) Wq) + bq outside
+    the kernels (as JAX's caller computes it), x + x_pos rounded to bf16
+    (``fk_b16_add_pos``), [xk | xv] with f32 results on the bf16 GEMM
+    (B16_PROJ, zero past the attended length), then the f32 form's attention
+    partials and combine (``fk_x2y_flash_attend``): JAX's flash kernel keeps
+    xk and xv f32 under mixed precision, so its attention is f32."""
+    B, M, _ = y_in.shape
+    X = x_in.shape[1]
+    d = wq.shape[1]
+    wkp, wvp, _ = _check16("x2y_flash16_fwd", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, packed)
+    yq = (rnd(mm(add_pos16(y_in, _pos16(y_pos)), wq)) + bq).contiguous()
+    xin = b16_add_pos(x_in, _pos16(x_pos))
+    lens = attended_lengths(x_len, X)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    kv = torch.empty((B, X, 2 * d), **f32)
+    b16_gemm(B16_PROJ, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
+    b16_gemm(B16_PROJ, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
+    n_t = -(-X // FLASH_KEY_TILE)
+    part_acc = torch.empty((B, n_t, M, d), **f32)
+    part_ml = torch.empty((B, n_t, M, 2), **f32)
+    attn = torch.empty((B, M, d), **f32)
+    probs = torch.empty((B, M, X), **f32)
+    logits = torch.empty((B, M, X), **f32)
+    err = _build.lib().fk_x2y_flash_attend(
+        yq.data_ptr(), kv.data_ptr(), x_len.data_ptr(), B, X, M, d, 1.0 / math.sqrt(d),
+        part_acc.data_ptr(), part_ml.data_ptr(), logits.data_ptr(), probs.data_ptr(),
+        attn.data_ptr(), flash_rows(M), _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_flash_attend", err)
+    return attn, probs, logits

@@ -8,7 +8,10 @@ into the config's model, runs the test split and writes
 ``eval_results/eval_result.gz`` beside the checkpoint's directory.  Runs on the
 CUDA card and refuses to start without one unless given ``--device cpu``.  A
 ``use_clip`` recipe reads its text embeddings as the train CLI does and
-decodes FACT_CLIP with them (zero-shot over every class).
+decodes FACT_CLIP with them (zero-shot over every class).  A mixed-precision
+recipe (``TPU.compute_dtype: bfloat16``, e.g. ``fact_clip_tpu/configs/
+havid_tpu.yaml``) evaluates on the bf16 forms of the kernels, its features
+crossing to the card in bf16.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import os
 from .engine import checkpoint as ckpt_io
 from .engine.setup import build_experiment
 from .engine.steps import make_eval_step
-from .engine.train_loop import evaluate
+from .engine.train_loop import check_loop_cfg, evaluate
 from .home import get_project_base
 from .train import clip_text_embeddings, parse_args, start
 
@@ -26,6 +29,7 @@ from .train import clip_text_embeddings, parse_args, start
 def main(argv=None):
     args = parse_args(argv, ckpt=True)
     device, cfg = start(args)
+    check_loop_cfg(cfg, train=False)
     exp = build_experiment(cfg, device,
                            text_embeddings=clip_text_embeddings(cfg, get_project_base()))
     print("Test dataset ", exp.test_dataset)

@@ -89,6 +89,17 @@ lens = torch.tensor([40, 29], dtype=torch.int32)
 with torch.no_grad():
     saves, _ = bf(torch.randn(2, 40, 12), torch.arange(40)[None] < lens[:, None], lens)
 assert len(saves) == 4 and bool(torch.isfinite(saves[-1]["frame_clogit"]).all())
+# mixed precision: the bf16 forms' plain versions and the layers' cast sites
+c16 = small_cfg()
+c16["TPU"]["compute_dtype"] = "bfloat16"
+m16 = build_fact(c16, 12, 5, 24, device="cpu")
+load_jax_params(m16, params)
+with torch.no_grad():
+    s16, tail = m16(torch.randn(2, 40, 12), torch.arange(40)[None] < lens[:, None], lens)
+assert tail.dtype == torch.bfloat16 and bool(torch.isfinite(s16[-1]["frame_clogit"]).all())
+from fact_clip_tpu_torch.configs import havid_tpu_cfg
+assert havid_tpu_cfg()["TPU"]["compute_dtype"] == "bfloat16"
+assert "fact_clip_tpu_torch.ops.bf16" in sys.modules
 # the training loop, its entry points and everything they import
 import fact_clip_tpu_torch.run_eval, fact_clip_tpu_torch.train  # noqa: E401
 import fact_clip_tpu_torch.data.synthetic, fact_clip_tpu_torch.utils.reduce  # noqa: E401
