@@ -481,6 +481,14 @@ B16_ULPS = 2  # bf16 outputs of one launch (one rounding), in bf16 ulps of the p
 # to about one ulp of its scale
 B16_FORM_TOL = 2.0 ** -8
 B16_TOWER_TOL = 1e-2  # K1's tower of 3-10 layers, two roundings a layer: flips compound
+# the bf16 backward forms' cotangents, most of them rounded to bf16 themselves
+# (JAX rounds dx, dy, dq and the weight gradients of bf16 weights): where the
+# two sides' f32 sums straddle a rounding boundary such an output lands one
+# bf16 ulp apart, up to 2^-7 of a value in the top half of its binade
+B16_BWD_TOL = 2.0 ** -7
+# K1's backward through a tower: the stream's cotangent is rounded again at
+# every layer, ten in series, besides each layer's dc
+B16_BWD_TOWER_TOL = 2.0 ** -6
 # expf results/s: the MUFU's ex2, 16 a clock an SM (CUDA programming guide's
 # throughput table, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
 # that PEAK_F32 assumes (132 SMs x 128 lanes x 2 x 1.98 GHz)
@@ -1929,6 +1937,296 @@ def ffn16_case(rng, B, M, E, Fd):
             ffn_library(*_b16(*args), None, None), B16_FORM_TOL)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 backward forms (bf16 training, phase 19)
+
+B16_BWD_KERNELS = ("mstcn_stack16_bwd", "x2y_small_x16_bwd", "x2y_flash16_bwd",
+                   "mha_cross16_bwd", "sa_sublayer16_bwd", "ffn_sublayer16_bwd")
+
+
+def b16_bwd_judge(outs, refs, names, tol, scales=None):
+    """A bf16 backward form against its plain version: each cotangent within
+    ``tol`` of its plain value's largest magnitude (no floor: gradients are
+    small), a cotangent that cancels to about 0 (a key bias's: each row of
+    the softmax gradient sums to 0) of the scale of the one ``scales`` names
+    for it.  Returns (line, ok, max_abs_err)."""
+    import torch
+
+    ref_of = dict(zip(names, refs))
+    worst, worst_name, err_abs = 0.0, "", 0.0
+    for name, o, r in zip(names, outs, refs):
+        o, r = o.float(), r.float()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        ref = ref_of[scales[name]].float() if scales and name in scales else r
+        d = float((o - r).abs().max())
+        e = d / max(float(ref.abs().max()), 1e-30)
+        err_abs = max(err_abs, d)
+        if e >= worst:
+            worst, worst_name = e, name
+    ok = worst <= tol
+    text = (f"max_abs_err {err_abs:.3e} worst {worst_name} {worst:.3e} of its scale "
+            f"(tol {tol:g}; {len(names)} cotangents)")
+    return text, ok, err_abs
+
+
+def k1_library16(x, lens, layers, dil, out_w, out_b, g):
+    """The library yardstick of K1's bf16 backward: the tower in bf16 as
+    ``F.conv1d`` (dilated) and ``torch.matmul`` calls, the frame mask, and
+    its autograd backward to x and every weight for the logits' cotangent
+    ``g`` (bf16 throughout).  Timed here, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    T = x.shape[1]
+    mask = (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None].to(x.dtype)
+    flat = [t.to(torch.bfloat16) for layer in layers for t in layer[:4]]
+
+    def run(x, ow, ob, *flat):
+        h = x * mask
+        for i, d in enumerate(dil):
+            wd, bd, w1, b1 = flat[4 * i:4 * i + 4]
+            a = torch.relu(F.conv1d(h.transpose(1, 2), wd.permute(2, 1, 0), bd, padding=d,
+                                    dilation=d).transpose(1, 2))
+            h = (torch.matmul(a, w1) + b1 + h) * mask
+        return torch.matmul(h, ow) + ob
+
+    return _autograd_library(run, [x, out_w.to(torch.bfloat16), out_b.to(torch.bfloat16),
+                                   *flat], g.to(torch.bfloat16))
+
+
+def k1_bwd16_case(rng, B, T, C, O, dilations, lengths):
+    """K1's bf16 backward from the plain training form's saves (the same
+    streams and ReLU outputs on both sides): per layer the rounding of the
+    stream's cotangent with db1's sums, da = dh W1^T, the gated rounding with
+    dbd's, dx and the weight products on bf16 operands; every product of
+    bf16 operands at the bf16 tensor-core rate."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    (x, lens, layers, dil), kw = k1_case(rng, B, T, C, O, dilations, lengths, False)
+    x = _b16(x)
+    ow, ob = kw["out_w"], kw["out_b"]
+    g = _rand(rng, (B, T, O), 0.01)
+    _, streams, acts = dc.mstcn_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob,
+                                                  save=True)
+    N, L = _valid(lens, T), len(dil)
+    work = (0, nbytes(g, streams, acts, lens, layers, ow, ob) + nbytes(x, layers, ow, ob), 0, 0,
+            0, 16 * L * N * C * C + 4 * N * C * O)
+    names = ["dx"] + [f"{n}{i}" for i in range(L) for n in ("dwd", "dbd", "dw1", "db1")] + \
+        ["dow", "dob"]
+
+    def flat(r):
+        return [r[0], *[t for layer in r[1] for t in layer[:4]], r[2], r[3]]
+
+    return (lambda: flat(dc.mstcn_stack16_bwd(g, streams, acts, lens, layers, dil, out_w=ow,
+                                              out_b=ob)),
+            lambda: flat(dc.mstcn_stack16_bwd_reference(g, streams, acts, lens, layers, dil,
+                                                        out_w=ow, out_b=ob)),
+            work, k1_library16(x, lens, layers, dil, ow, ob, g),
+            B16_BWD_TOWER_TOL if L > 1 else B16_BWD_TOL, names, None)
+
+
+def b16_wgrad_case(rng, B, T, C, d, lengths):
+    """One launch of the bf16 weight products (``fk_b16_wgrad``, three taps
+    at shift d, the fixed-order sum): f32 out, against the same products in
+    f32 on the plain side (exact products of bf16 values, sums in another
+    order)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    lens = _lens(lengths)
+    valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None]
+    a, b = _b16(_rand(rng, (B, T, C)) * valid), _b16(_rand(rng, (B, T, C)) * valid)
+
+    def plain():
+        af, bf = a.float(), b.float()
+        return torch.stack([torch.einsum("btc,bto->co", dc._shift(af, s), bf)
+                            for s in (-d, 0, d)])
+
+    N = _valid(lens, T)
+    work = (0, nbytes(a, b, lens) + 3 * C * C * 4, 0, 0, 0, 6 * N * C * C)
+    return (lambda: dc.b16_wgrad(a, 0, C, b, 0, C, lens, shifts=(-d, 0, d)), plain, work, None,
+            None, B16_TOL)
+
+
+def b16_round_case(rng, B, T, C, lengths):
+    """One launch of ``fk_b16_round`` with the ReLU gate: the bf16 rounding
+    (in ulps: exact) and the column sums of the f32 values (f32 sums in
+    another order)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    lens = _lens(lengths)
+    v, gate = _rand(rng, (B, T, C)), _b16(_rand(rng, (B, T, C)))
+
+    def plain():
+        valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None]
+        w = torch.where(valid & (gate.float() > 0), v, 0.0)
+        return w.to(torch.bfloat16), w.sum(dim=(0, 1))
+
+    work = (B * T * C, nbytes(v, gate, lens) + B * T * C * 2, 0, 0, 0, 0)
+    return (lambda: dc.b16_round(v, lens, gate=gate, sums=True), plain, work, None, None, B16_TOL)
+
+
+def x2y_bwd16_case(rng, flash, B, Y, X, Cy, Cx, d, x_len, y_pos, x_pos):
+    """K2's bf16 backward (both forms, the positional table shared by the
+    batch) from the plain bf16 forward's saves: the projections again on
+    the bf16 GEMM, the f32 attention terms, the bf16 products of the
+    cotangents (flash: dx and the weight products; small X: dy), the X
+    side (small X) and the query side (flash) plain, as JAX's caller; the
+    library call SDPA's autograd backward on bf16 operands."""
+    from fact_clip_tpu_torch.ops import x2y_attn as xa
+
+    y, yp, x, xp, wk, bk, wv, bv, wq, bq, xl = x2y_case(rng, B, Y, X, Cy, Cx, d, x_len, y_pos,
+                                                        x_pos)
+    y, yp, x, xp = _b16(y, yp, x, xp)
+    args = (y, yp, x, xp, wk, bk, wv, bv, wq, bq, xl)
+    attn, probs, logits = xa.x2y_attention16_reference(*args)
+    g_attn = _rand(rng, attn.shape)
+    g_probs, g_logits = _rand(rng, probs.shape, 0.1), _rand(rng, logits.shape, 0.1)
+    Xv = _valid(xl, X)
+    n_bytes = nbytes(args, probs, attn, g_attn, g_probs, g_logits) + nbytes(args[:10])
+    if flash:  # bf16: the projection, dx, dWk and dWv; f32: the attention terms
+        work = (8 * Y * d * Xv + 4 * B * Y * Cy * d, n_bytes, 0, 0, 0, 12 * Cx * d * Xv)
+        kern = lambda: xa.x2y_flash16_bwd(*args, probs, attn, g_attn,  # noqa: E731
+                                          g_probs, g_logits)
+    else:  # bf16: yq, the keys, dy; f32: the terms, dWq, dxk, dxv (3xTF32) and the X side
+        work = (4 * Y * d * Xv + 6 * B * X * Cx * d, n_bytes, 0, 2 * B * Y * Cy * d
+                + 4 * Y * d * Xv, 0, 4 * B * Y * Cy * d + 4 * B * X * Cx * d)
+        kern = lambda: xa.x2y_small_x16_bwd(*args, probs, g_attn, g_probs,  # noqa: E731
+                                            g_logits)
+    names = ["dy", "dyp", "dx", "dxp", "dwk", "dbk", "dwv", "dbv", "dwq", "dbq"]
+
+    def drop_pos(r):  # the positional tables are constants here (no gradient asked)
+        return [t for n, t in zip(names, r) if n not in ("dyp", "dxp")]
+
+    keep = [n for n in names if n not in ("dyp", "dxp")]
+    library = sdpa_library(y, x, *_b16(wq, wk, wv), xl, 1, g=_b16(g_attn))
+    return (lambda: drop_pos(kern()),
+            lambda: drop_pos(xa.x2y16_bwd_reference(*args, probs, attn, g_attn, g_probs,
+                                                    g_logits)),
+            work, library, B16_BWD_TOL, keep, {"dbk": "dbv"})
+
+
+def mha_bwd16_case(rng, B, M, X, E, Cx, H, x_len, pos):
+    """K3's bf16 backward from the plain training form's saves (output and
+    the rows' stats): K and V recomputed on the bf16 GEMM, the attention
+    backward with JAX's roundings, dx and the weight products on bf16
+    operands; the library call SDPA's autograd backward in bf16."""
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+
+    q, x, p, wk, bk, wv, bv, xl = mha_case(rng, B, M, X, E, Cx, x_len, pos)
+    q, x, p = _b16(q, x, p)
+    args = (q, x, p, wk, bk, wv, bv, xl)
+    out, stats = ma.mha_cross16_reference(*args, num_heads=H, with_stats=True)
+    g = _rand(rng, (B, M, E))
+    Xv = _valid(xl, X)
+    work = (10 * M * E * Xv, nbytes(args, stats, out, g) + nbytes(q, x, wk, bk, wv, bv), 0, 0, 0,
+            12 * Cx * E * Xv)
+    names = ["dq", "dx", "dwk", "dbk", "dwv", "dbv"]
+
+    def pick(r):
+        return [r[0], r[1], *r[3:]]
+
+    return (lambda: pick(ma.mha_cross16_bwd(*args, stats, out, g, num_heads=H)),
+            lambda: pick(ma.mha_cross16_bwd_reference(*args, stats, out, g, num_heads=H)),
+            work, sdpa_library(q, x, None, *_b16(wk, wv), xl, H, g=_b16(g)), B16_BWD_TOL,
+            names, {"dbk": "dbv"})
+
+
+def k3_attn_bwd16_case(rng, B, M, X, E, H, x_len):
+    """One launch of K3's bf16 attention backward (``fk_k3_attn_bwd16``):
+    dK and dV rounded to bf16 (one rounding each, in ulps) and dq's tile
+    shares and the bias sums in f32, against the same steps in f32 on the
+    plain side (``mha_cross16_bwd_reference``'s, per key tile)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import mha_attn as ma
+
+    hd = E // H
+    xl = _lens(x_len)
+    kv, q = _b16(_rand(rng, (B, X, 2 * E), 0.5)), _b16(_rand(rng, (B, M, E), 0.2))
+    g = _rand(rng, (B, M, E))
+    valid = torch.arange(X, device="cuda")[None, None, None, :] < xl[:, None, None, None]
+    lg = torch.einsum("bmhd,bxhd->bhmx", q.float().view(B, M, H, hd),
+                      kv[..., :E].float().view(B, X, H, hd)).masked_fill(~valid, -1e9)
+    m = lg.amax(dim=-1, keepdim=True)
+    stats = torch.cat([m, torch.exp(lg - m).sum(dim=-1, keepdim=True)], -1).reshape(B, H * M, 2)
+    D = _rand(rng, (B, H * M), 0.1)
+    tile = ma.bwd_key_tile(M, E, H)
+    n_slots = -(-(-(-X // tile)) // ma.K3_SUM_GROUP) * ma.K3_SUM_GROUP
+    f32 = dict(device="cuda", dtype=torch.float32)
+    dkv = torch.empty((B, X, 2 * E), device="cuda", dtype=torch.bfloat16)
+    part_dq, part_b = torch.zeros((B, n_slots, M * E), **f32), torch.zeros((B, n_slots, 2 * E),
+                                                                           **f32)
+
+    def kern():
+        from fact_clip_tpu_torch import _build
+
+        err = _build.lib().fk_k3_attn_bwd16(
+            kv.data_ptr(), q.data_ptr(), g.data_ptr(), stats.data_ptr(), D.data_ptr(),
+            xl.data_ptr(), B, X, M, H, hd, dkv.data_ptr(), part_dq.data_ptr(), part_b.data_ptr(),
+            n_slots, tile, _build.stream_ptr(torch.device("cuda")))
+        _build.check("fk_k3_attn_bwd16", err)
+        return dkv, part_dq.view(B, n_slots, M, E).sum(dim=1), part_b.sum(dim=(0, 1))
+
+    def plain():
+        rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        st = stats.view(B, H, M, 2)
+        p = torch.exp(lg - st[..., :1]) * (1.0 / st[..., 1:])
+        g16 = rnd(g).view(B, M, H, hd)
+        v = kv[..., E:].float().view(B, X, H, hd)
+        dp = torch.einsum("bmhd,bxhd->bhmx", g16, v)
+        dl = rnd(torch.where(valid, p * (dp - D.view(B, H, M, 1)), 0.0))
+        dq = torch.einsum("bhmx,bxhd->bmhd", dl, kv[..., :E].float().view(B, X, H, hd))
+        dk = torch.einsum("bhmx,bmhd->bxhd", dl, q.float().view(B, M, H, hd)).reshape(B, X, E)
+        dv = torch.einsum("bhmx,bmhd->bxhd", rnd(p), g16).reshape(B, X, E)
+        return (torch.cat([dk, dv], -1).to(torch.bfloat16), dq.reshape(B, M, E),
+                torch.cat([dk.sum(dim=(0, 1)), dv.sum(dim=(0, 1))]))
+
+    Xv = _valid(xl, X)
+    work = (10 * M * E * Xv, nbytes(kv, q, g, stats, D) + B * X * 2 * E * 2, 0, 0, 0, 0)
+    return kern, plain, work, None, None, B16_TOL
+
+
+def sa_bwd16_case(rng, B, M, E, H):
+    """K4's SA bf16 backward: one library call of nine launches on the CUDA
+    cores (the products of bf16 operands exact in f32 FMAs, as the bf16
+    forward's), then the fixed-order sums; the library call ``sa_library``'s
+    autograd backward on bf16 tensors."""
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = sa_case(rng, B, M, E)
+    g = _rand(rng, (B, M, E))
+    packed = sl.sa_b16_pack(args[2], args[4], args[6])
+    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g, packed) + nbytes(args), 0, 0,
+            0, 0)
+    names = ["dx", "dpos", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls", "dlb"]
+    return (lambda: sl.sa_sublayer16_bwd(*args, g, num_heads=H, packed=packed),
+            lambda: sl.sa_sublayer16_bwd_reference(*args, g, num_heads=H), work,
+            sa_library(*_b16(*args), H, 0.0, _b16(g)), B16_BWD_TOL, names, {"dbk": "dbq"})
+
+
+def ffn_bwd16_case(rng, B, M, E, Fd):
+    """K4's FFN bf16 backward: one library call (``fk_ffn_bwd16``, six
+    launches on the CUDA cores), dW1 = bf16(x)^T bf16(dz1) and the other
+    weight products outside, as JAX's wrapper; the library call
+    ``ffn_library``'s autograd backward on bf16 tensors."""
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+
+    args = ffn_case(rng, B, M, E, Fd)
+    g = _rand(rng, (B, M, E))
+    w1h = _b16(args[1])
+    work = (B * 8 * M * E * Fd, nbytes(args, g, w1h) + nbytes(args), 0, B * 4 * M * E * Fd, 0,
+            0)
+    names = ["dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"]
+    return (lambda: sl.ffn_sublayer16_bwd(*args, g, packed=w1h),
+            lambda: sl.ffn_sublayer16_bwd_reference(*args, g), work,
+            ffn_library(*_b16(*args), None, None, g=_b16(g)), B16_BWD_TOL, names, None)
+
+
 def kernel_table():
     """(name, source, replaces, check, [(case, make(rng) -> (kernel fn, plain
     fn, (flops, bytes)))]).  Every case is timed; the first is the flagship's
@@ -2398,6 +2696,42 @@ def kernel_table():
         ("ffn_sublayer16", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "b16",
          [("flagship", lambda r: ffn16_case(r, B, 40, 256, 512)),
           ("ragged", lambda r: ffn16_case(r, 3, 11, 256, 512))]),
+        # the bf16 backward forms (phase 19: havid_tpu_cfg() trained): the
+        # flagship's shapes and a ragged case (B=3, a video of 0 frames or with
+        # x_len 0), the new launches alone
+        ("mstcn_stack16_bwd", csrc + "tc_bf16.cu", pallas + "dilated_conv.py:689", "b16bwd",
+         [("flagship", lambda r: k1_bwd16_case(r, B, T, 256, D, tower, FLAGSHIP_LENGTHS)),
+          ("ragged", lambda r: k1_bwd16_case(r, 3, 1000, 256, D, [1, 64, 512],
+                                             [1000, 777, 0])),
+          ("one", lambda r: k1_bwd16_case(r, 3, 1000, 256, D, [64], [1000, 777, 0])),
+          # its new launches alone: the weight products (three taps), the rounding
+          ("wgrad", lambda r: b16_wgrad_case(r, B, T, 256, 64, FLAGSHIP_LENGTHS)),
+          ("rag_wgrad", lambda r: b16_wgrad_case(r, 3, 1000, 256, 512, [1000, 777, 0])),
+          ("round", lambda r: b16_round_case(r, B, T, 256, FLAGSHIP_LENGTHS)),
+          ("rag_round", lambda r: b16_round_case(r, 3, 1000, 256, [1000, 777, 0]))]),
+        ("x2y_small_x16_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:430", "b16bwd",
+         [("flagship", lambda r: x2y_bwd16_case(r, False, B, T, 40, D, D, D, [40] * B,
+                                                _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
+          ("ragged", lambda r: x2y_bwd16_case(r, False, 3, 1000, 11, D, D, D, [11, 7, 0],
+                                              _rand(r, (1, 1000, D)), _rand(r, (1, 11, 256))))]),
+        ("x2y_flash16_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "b16bwd",
+         [("flagship", lambda r: x2y_bwd16_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
+                                                _rand(r, (1, 40, 256)), zeros(1, T, D))),
+          ("ragged", lambda r: x2y_bwd16_case(r, True, 3, 11, 2000, D, D, D, [2000, 1500, 0],
+                                              _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D))))]),
+        ("mha_cross16_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "b16bwd",
+         [("flagship", lambda r: mha_bwd16_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
+                                                zeros(1, T, D))),
+          ("ragged", lambda r: mha_bwd16_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 0],
+                                              _rand(r, (1, 1100, D)))),
+          # its attention backward alone (dK, dV rounded once: in ulps)
+          ("attn", lambda r: k3_attn_bwd16_case(r, B, 40, T, 256, 8, FLAGSHIP_LENGTHS))]),
+        ("sa_sublayer16_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "b16bwd",
+         [("flagship", lambda r: sa_bwd16_case(r, B, 40, 256, 8)),
+          ("ragged", lambda r: sa_bwd16_case(r, 3, 11, 256, 8))]),
+        ("ffn_sublayer16_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "b16bwd",
+         [("flagship", lambda r: ffn_bwd16_case(r, B, 40, 256, 512)),
+          ("ragged", lambda r: ffn_bwd16_case(r, 3, 11, 256, 512))]),
     ]
 
 
@@ -2447,6 +2781,17 @@ def phase_kernels(seed: int = 0):
                     kern, plain, work, judge, *extra = make(rng)
                     library = extra[0] if extra else None
                     text, ok, err_abs = judge(kern(), plain())
+                elif check == "b16bwd":  # a form (7 items), or one of its launches (6: as b16)
+                    case = make(rng)
+                    if len(case) == 7:
+                        kern, plain, work, library, tol, names, scales = case
+                    else:
+                        kern, plain, work, _, library, tol = case
+                    outs, refs = _pairs(name, kern(), plain())
+                    torch.cuda.synchronize()
+                    text, ok, err_abs = (b16_bwd_judge(outs, refs, names, tol, scales)
+                                         if len(case) == 7 else b16_judge(outs, refs, tol))
+                    del outs, refs
                 elif check == "b16":
                     kern, plain, work, view, library, tol = make(rng)
                     outs, refs = kern(), plain()
@@ -2560,7 +2905,9 @@ def k6_repeat_check(seed: int = 0):
     Breakfast's shapes (its projection's ring, K3's attention and
     combine); the six bf16 forms of phase 18 at the flagship's shapes (the
     bf16 GEMM's ring and epilogues, the attention partials and combines, K4's
-    staging)."""
+    staging) and the six bf16 backward forms of phase 19 there (the bf16
+    weight products' transposing stages, the roundings' column sums, K3's
+    bf16 attention backward, K4's nine-launch SA backward)."""
     import torch
 
     def tensors(out):
@@ -2633,7 +2980,20 @@ def k6_repeat_check(seed: int = 0):
              ("k3_16", lambda: mha16_case(rng, 8, 40, 3072, 256, 512, 8, FLAGSHIP_LENGTHS,
                                           zeros)),
              ("sa_16", lambda: sa16_case(rng, 8, 40, 256, 8)),
-             ("ffn_16", lambda: ffn16_case(rng, 8, 40, 256, 512)))
+             ("ffn_16", lambda: ffn16_case(rng, 8, 40, 256, 512)),
+             # the bf16 backward forms at the flagship's shapes (phase 19)
+             ("k1_bwd16", lambda: k1_bwd16_case(rng, 8, 3072, 256, 512, tower,
+                                                FLAGSHIP_LENGTHS)),
+             ("k2sx_bwd16", lambda: x2y_bwd16_case(rng, False, 8, 3072, 40, 512, 512, 512,
+                                                   [40] * 8, _rand(rng, (1, 3072, 512)),
+                                                   _rand(rng, (1, 40, 256)))),
+             ("k2f_bwd16", lambda: x2y_bwd16_case(rng, True, 8, 40, 3072, 512, 512, 512,
+                                                  FLAGSHIP_LENGTHS, _rand(rng, (1, 40, 256)),
+                                                  zeros)),
+             ("k3_bwd16", lambda: mha_bwd16_case(rng, 8, 40, 3072, 256, 512, 8,
+                                                 FLAGSHIP_LENGTHS, zeros)),
+             ("sa_bwd16", lambda: sa_bwd16_case(rng, 8, 40, 256, 8)),
+             ("ffn_bwd16", lambda: ffn_bwd16_case(rng, 8, 40, 256, 512)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -2818,14 +3178,15 @@ def _median(v):
     return w[len(w) // 2]
 
 
-def _time_steps(step, batches, gen, n):
-    """Warm train steps: (median ms of whole steps, median ms per phase, peak GiB)."""
+def _time_steps(step, batches, gen, n, fdt=None):
+    """Warm train steps: (median ms of whole steps, median ms per phase, peak
+    GiB); the features cross as ``fdt`` (f32 by default)."""
     import torch
 
     from fact_clip_tpu_torch.engine.train_loop import batch_to_device
 
     dev = torch.device("cuda")
-    on_dev = [batch_to_device(b, dev) for b in batches]
+    on_dev = [batch_to_device(b, dev, fdt or torch.float32) for b in batches]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     totals = []
@@ -4519,6 +4880,9 @@ class _LoopSpies:
         self.sync = sync
         self.steps, self.evals, self.metrics, self.loads, self.opt_steps = [], [], [], [], []
         self._wait, self._copy = (None, None), None
+        # the last train step's object; with ``keep`` each step's batch and its
+        # generator's state before the step, to replay it (phase 19)
+        self.last_step, self.keep, self.kept = None, False, []
 
     def __enter__(self):
         import torch
@@ -4542,6 +4906,9 @@ class _LoopSpies:
         spies = self
 
         def step_spy(self, batch, generator=None, times=None):
+            spies.last_step = self
+            if spies.keep:
+                spies.kept.append((batch, generator.get_state().clone()))
             torch.cuda.synchronize()
             reset_kernel_counters()
             t0 = time.perf_counter()
@@ -5236,20 +5603,20 @@ def b16_batch_launches(T: int) -> dict:
 
 
 def guard_b16():
-    """Count the bf16 forms' launches across every reset of the launch
-    counters from here on (the f32 phases must show none): returns a
-    function giving the total."""
+    """Count the bf16 forms' launches, forward and backward, across every
+    reset of the launch counters from here on (the f32 phases must show
+    none): returns a function giving the total."""
     import fact_clip_tpu_torch as pkg
 
     seen = [0]
     reset = pkg.reset_kernel_counters
 
     def counting_reset():
-        seen[0] += sum(pkg.kernel_counters()[k] for k in B16_KERNELS)
+        seen[0] += sum(pkg.kernel_counters()[k] for k in B16_KERNELS + B16_BWD_KERNELS)
         reset()
 
     pkg.reset_kernel_counters = counting_reset
-    return lambda: seen[0] + sum(pkg.kernel_counters()[k] for k in B16_KERNELS)
+    return lambda: seen[0] + sum(pkg.kernel_counters()[k] for k in B16_KERNELS + B16_BWD_KERNELS)
 
 
 def _b16_step(step, x, mask, lens, n=6):
@@ -5423,6 +5790,262 @@ def phase_bf16(smi, seed: int = 0):
             shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[bf16] phase 18 took {time.perf_counter() - t_phase:.1f} s; {smi}")
     del model, pred
+    torch.cuda.empty_cache()
+    return per_step
+
+
+# ---------------------------------------------------------------------------
+# phase 19: bf16 training (havid_tpu.yaml trained on the bf16 backward forms)
+
+B16_PAIRS = (("mstcn_stack16", "mstcn_stack16_bwd"), ("mha_cross16", "mha_cross16_bwd"),
+             ("sa_sublayer16", "sa_sublayer16_bwd"), ("ffn_sublayer16", "ffn_sublayer16_bwd"))
+B16_TRAIN_LOSS_TOL = 1e-3  # the train loss, bf16 kernel path vs bf16 plain path, relative
+# each parameter's gradient, bf16 kernel path vs bf16 plain path on the same
+# weights, batch and matching: its largest element error of the gradient's own
+# scale.  The paths round the same f32 values to bf16 at the same points, but
+# sum them in other orders, so an inner bf16 value (a stream's cotangent, dc,
+# dl, dS) may round one ulp (2^-8) apart; through a 10-layer tower's
+# backward such flips add up like K1's forward tower (B16_TOWER_TOL)
+B16_GRAD_TOL = 2.0 ** -5
+# A gradient whose exact value cancels (each query's softmax gradient summing
+# to 0 over the keys: a key bias's; or over keys whose values are all the same,
+# as the input block's first self-attention over zero tokens) is the
+# roundings' noise on both paths: each parameter's limit is also FLOOR_K x
+# its own floor, the plain path's larger change on the features nudged by one
+# bf16 ulp up or down (train_compare's rule for the f32 paths)
+
+
+def _b16_grads(model, step, batch, seed, kernels, seg2tok=None):
+    """(loss, seg2tok, per-parameter gradients) of one bf16 train-mode
+    forward, match and losses on the current weights, the masks drawn from
+    ``seed``; ``seg2tok`` given: that matching."""
+    import torch
+
+    model.set_kernels(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    per_video, st, saves = step.loss(batch, gen, seg2tok=seg2tok)
+    loss = per_video.mean()
+    grads = torch.autograd.grad(loss, [p for p in model.parameters()], allow_unused=True)
+    model.set_kernels(True)
+    return float(loss.detach()), st, grads, saves
+
+
+def phase_bf16_train(smi, seed: int = 0):
+    """havid_tpu_cfg() (TPU.compute_dtype: bfloat16, matcher: auction) at the
+    flagship's widths trained on the card with seeded weights, batches of 8 x
+    3072: (a) one step's launches (every bf16 backward form, its forward's
+    count, every f32 twin 0, K5's f32 form); (b) the warm step split per
+    phase, peak memory and the auction's iterations, beside the f32 kernel
+    path's step on the same weights; (c) the auction's matching against
+    scipy's Hungarian on the same costs; (d) the bf16 kernel path against
+    the bf16 plain path on the same weights, batch and matching (loss and
+    every gradient); (e) ``fact_clip_tpu_torch.train``'s entry on
+    havid_tpu.yaml over phase 15's HAViD-shaped set, cut and resumed, the
+    resumed run's weights bit-equal to the first run's step continued on the
+    same batches.  Returns one step's launch counts."""
+    import shutil
+
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, plain_counters, reset_kernel_counters
+    from fact_clip_tpu_torch import train as train_cli
+    from fact_clip_tpu_torch.configs import havid_tpu_cfg
+    from fact_clip_tpu_torch.engine.steps import make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import batch_to_device, synthetic_batch
+    from fact_clip_tpu_torch.models import matching
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights
+
+    t_phase = time.perf_counter()
+    D, C, S_CAP = FLAGSHIP_DIMS
+    B, T, S = 8, 3072, 32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 19)
+    lengths = [FLAGSHIP_LENGTHS, sorted(rng.integers(2500, T + 1, B).tolist(), reverse=True)]
+    batches = [synthetic_batch(rng, D, C, S, T, ln) for ln in lengths]
+    cfg = havid_tpu_cfg()
+    avg = float(np.mean([b["seg_mask"].sum(1).mean() for b in batches]))
+    ntoken = cfg["FACT"]["ntoken"]
+    cfg["Loss"]["nullw"] = ntoken / ((ntoken - avg) * C)  # JAX's auto nullw, from the batches
+    if cfg["TPU"]["matcher"] != "auction" or {cfg[k].get("dropout") or 0.0
+                                              for k in ("Bi", "Bu", "BU")} != {0.0}:
+        raise AssertionError("havid_tpu_cfg() is not the auction matcher at dropout 0")
+    model = flagship_model(cfg, seed + 190, dev)
+    cweight = build_class_weights(cfg, C, [])
+    step = make_train_step(model, cfg, C, cweight)
+    on_dev = [batch_to_device(b, dev, torch.bfloat16) for b in batches]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    # (a) one step's launches
+    step(on_dev[0], gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    out = step(on_dev[1], gen)
+    torch.cuda.synchronize()
+    counts, plain = kernel_counters(), plain_counters()
+    iters = [int(v) for v in step.match_stats["iterations"].tolist()]
+    launched = {k: v for k, v in counts.items() if v}
+    twins = [k for k in launched if k in B16_OF.values() or
+             k in ("mstcn_stack_bwd", "x2y_small_x_bwd", "x2y_flash_bwd", "mha_cross_bwd",
+                   "sa_sublayer_bwd", "ffn_sublayer_bwd")]
+    unequal = [f for f, b in B16_PAIRS if counts[f] != counts[b]]
+    x2y_bwd = counts["x2y_small_x16_bwd"] + counts["x2y_flash16_bwd"] + \
+        plain["x2y_bwd_reference"]
+    log(f"[bf16-train] havid_tpu_cfg() ({sum(p.numel() for p in model.parameters())} "
+        f"parameters, matcher {step.matcher}, nullw {cfg['Loss']['nullw']:.6f}) one step at "
+        f"{B} x {T}: loss {float(out['loss']):.5f}, launches {launched}, plain K2 backwards "
+        f"(per-video positional tables, as JAX's dispatch) {plain}; the auction's iterations "
+        f"per video {iters}")
+    if (any(counts[k] <= 0 for k in B16_BWD_KERNELS) or twins or unequal
+            or x2y_bwd != counts["x2y_small_x16"] + counts["x2y_flash16"]
+            or counts["frame_loss_fwd"] <= 0 or counts["frame_loss_bwd"] <= 0
+            or not math.isfinite(float(out["loss"]))):
+        raise AssertionError(f"[bf16-train] a step's launches: bf16 backwards "
+                             f"{[counts[k] for k in B16_BWD_KERNELS]}, f32 twins {twins}, "
+                             f"forward / backward counts unequal {unequal}, K2 backwards "
+                             f"{x2y_bwd}")
+    per_step = dict(counts)
+
+    # (b) the warm step, split, beside the f32 kernel path on the same weights
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    med16, split16, peak16, totals16 = _time_steps(step, batches, gen, 5, torch.bfloat16)
+    log(f"[bf16-train] {smi}: warm train step {B} x {T}, bf16 kernel path: median "
+        f"{med16:.3f} ms (all {', '.join(f'{t:.3f}' for t in totals16)}); split (ms, "
+        f"synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in split16.items())
+        + f"; peak memory {peak16:.2f} GiB; the match's share {split16['match'] / med16:.4f}")
+    cfg32 = havid_tpu_cfg()
+    cfg32["TPU"]["compute_dtype"] = "float32"
+    cfg32["Loss"]["nullw"] = cfg["Loss"]["nullw"]
+    m32 = build_fact(cfg32, D, C, S_CAP, device=dev)
+    m32.load_state_dict(state0)
+    step32 = make_train_step(m32, cfg32, C, cweight)
+    step32(batch_to_device(batches[0], dev), gen)
+    med32, split32, peak32, totals32 = _time_steps(step32, batches, gen, 5)
+    log(f"[bf16-train] {smi}: the f32 kernel path (compute_dtype float32, the same weights "
+        f"and matcher): median {med32:.3f} ms (all {', '.join(f'{t:.3f}' for t in totals32)}); "
+        f"split: " + ", ".join(f"{k} {v:.3f}" for k, v in split32.items())
+        + f"; peak memory {peak32:.2f} GiB; bf16 / f32: step {med16 / med32:.3f}, memory "
+        f"{peak16 / peak32:.3f}")
+    del m32, step32
+    torch.cuda.empty_cache()
+
+    # (c) the auction against scipy on the same costs, (d) the paths against each other
+    model.load_state_dict(state0)
+    lk, st_k, gk, saves = _b16_grads(model, step, on_dev[0], seed + 7, True)
+    with torch.no_grad():
+        last = saves[-1]
+        b0 = on_dev[0]
+        cost = matching.match_cost(torch.softmax(last["action_clogit"], dim=-1),
+                                   last["a2f_attn"], b0["transcript"], b0["seg_label"],
+                                   b0["seg_mask"], b0["mask"], float(cfg["Loss"]["pc"]),
+                                   float(cfg["Loss"]["a2fc"])).float().cpu().numpy()
+    nsegs = b0["seg_mask"].sum(dim=1).cpu().numpy()
+    host = matching.hungarian_host(cost, nsegs)
+    mine = st_k.cpu().numpy()
+    gaps = []
+    for b in range(B):
+        s_ = int(nsegs[b])
+        cb = cost[b][:, :s_]
+        spread = max(float(cost[b].max() - cost[b].min()), 1e-3)  # JAX's, over the matrix
+        got, opt = cb[mine[b, :s_], np.arange(s_)].sum(), cb[host[b, :s_], np.arange(s_)].sum()
+        gaps.append((int((mine[b, :s_] != host[b, :s_]).sum()), float(got - opt),
+                     s_ * 1e-3 * spread))
+    log(f"[bf16-train] the auction on the card against scipy's Hungarian on the same costs "
+        f"(per video: segments that differ, cost gap, bound S * eps): "
+        + ", ".join(f"({n}, {gap:.3e}, {bnd:.3e})" for n, gap, bnd in gaps))
+    if any(n and gap > bnd for n, gap, bnd in gaps):
+        raise AssertionError("[bf16-train] the auction's matching is past JAX's bound")
+    model.load_state_dict(state0)
+    lp, _, gp, _ = _b16_grads(model, step, on_dev[0], seed + 7, False, seg2tok=st_k)
+    f16 = on_dev[0]["feats"]
+    floors = []
+    for step_bits in (1, -1):  # each feature one bf16 ulp up, then down, in magnitude
+        nudged = dict(on_dev[0])
+        nudged["feats"] = torch.where(f16.abs() > 2.0 ** -126,
+                                      (f16.view(torch.int16) + step_bits).view(torch.bfloat16),
+                                      f16)
+        model.load_state_dict(state0)
+        floors.append(_b16_grads(model, step, nudged, seed + 7, False, seg2tok=st_k)[2])
+    names = [n for n, _ in model.named_parameters()]
+    rows = []
+    for n, a, b, f, f2 in zip(names, gk, gp, *floors):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"[bf16-train] {n}: a gradient on one path only")
+            continue
+        scale = float(b.abs().max())
+        if scale == 0.0:
+            if float(a.abs().max()) != 0.0:
+                raise AssertionError(f"[bf16-train] {n}: 0 on the plain path only")
+            continue
+        err = float((a - b).abs().max()) / scale
+        floor = max(float((f - b).abs().max()), float((f2 - b).abs().max())) / scale
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        rows.append((err / max(B16_GRAD_TOL, FLOOR_K * floor), err, floor, cos, n))
+    rows.sort(reverse=True)
+    log(f"[bf16-train] bf16 kernel path vs bf16 plain path (same weights, batch, masks and "
+        f"the kernel path's matching): loss {lk:.6f} vs {lp:.6f} (rel "
+        f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); {len(rows)} gradients, "
+        f"each one's largest element error of its scale against max({B16_GRAD_TOL:g}, "
+        f"{FLOOR_K:g} x its floor), the closest to their limits (error, floor, cosine): "
+        + ", ".join(f"{n} {e:.3e} {fl:.3e} {c:.6f}" for _, e, fl, c, n in rows[:5])
+        + f"; the largest error of a gradient whose floor is under {B16_GRAD_TOL:g}: "
+        + str(max((e for _, e, fl, _, _ in rows if FLOOR_K * fl < B16_GRAD_TOL), default=0.0)))
+    if abs(lk - lp) > B16_TRAIN_LOSS_TOL * abs(lp) or rows[0][0] > 1.0:
+        raise AssertionError("[bf16-train] the kernel path's gradients disagree with the "
+                             "plain path's")
+    del gk, gp, floors, saves
+    torch.cuda.empty_cache()
+
+    # (e) the train CLI's entry on havid_tpu.yaml: a run, its cut and its
+    # resume; the first run's step, never saved or loaded, replays the resumed
+    # run's batches with their generators' states: the uninterrupted run on the
+    # same data (a resumed run starts its epoch at the loader's first shuffle,
+    # as JAX's, so a whole uninterrupted run would take other batches)
+    with _loop_run("chip_smoke_bf16_loop", yaml_path=HAVID_TPU_YAML) as (base, cfg_of), \
+            _LoopSpies() as spies:
+        yaml_path = os.path.join(REPO, HAVID_TPU_YAML)
+        cfg2, sets2, logdir2 = cfg_of(2)
+        cfg3, sets3, logdir3 = cfg_of(3)
+        t0 = time.perf_counter()
+        train_cli.main(["--cfg", yaml_path, "--set", *sets2])
+        first = spies.last_step
+        os.remove(os.path.join(logdir2, "FINISH_PROOF"))  # a cut run
+        os.makedirs(os.path.dirname(logdir3), exist_ok=True)
+        shutil.move(logdir2, logdir3)
+        n1 = len(spies.steps)
+        spies.keep = True
+        train_cli.main(["--cfg", yaml_path, "--set", *sets3])
+        spies.keep = False
+        n2 = len(spies.steps)
+        for batch, state in spies.kept:
+            g = torch.Generator(device=dev)
+            g.set_state(state)
+            first(batch, g)
+        dt = time.perf_counter() - t0
+        a = torch.load(os.path.join(logdir3, "ckpts", "network.iter-6.net"), weights_only=True)
+        b = first.model.state_dict()
+        same = list(a) == list(b) and all(torch.equal(a[k], b[k].cpu()) for k in a)
+        missing = sorted({k for st in spies.steps for k in B16_BWD_KERNELS
+                          if not st["counts"][k]})
+        losses = [st["loss"] for st in spies.steps]
+        log(f"[bf16-train] python3 -m fact_clip_tpu_torch.train's entry on {HAVID_TPU_YAML} "
+            f"(phase 15's set, batch 8): a 2-epoch run ({n1} steps, test passes at 2 and 4), cut "
+            f"and resumed to epoch 3 (weights loaded bit-equal {spies.loads}, optimizer step "
+            f"{spies.opt_steps}, {n2 - n1} steps), the first run's step continued on the resumed "
+            f"run's batches ({len(spies.steps) - n2} steps) in {dt:.1f} s; the resumed run's "
+            f"network.iter-6.net bit-equal to the uninterrupted one: {same}; losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; every step launched every bf16 backward "
+            f"form: {not missing}")
+        if n1 != 4 or n2 - n1 != 2 or len(spies.steps) - n2 != 2 or spies.loads != [True] \
+                or spies.opt_steps != [4] or not same or missing or losses[n1:n2] != losses[n2:] \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[bf16-train] the loop: steps {n1}, {n2 - n1}, "
+                                 f"{len(spies.steps) - n2}, loads {spies.loads}, bit-equal "
+                                 f"{same}, forms not launched {missing}")
+        del first, spies.kept[:]
+    log(f"[bf16-train] phase 19 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    del model, step
     torch.cuda.empty_cache()
     return per_step
 
@@ -5703,8 +6326,9 @@ def main():
     trans_counts = phase_transcript(smi)
     if b16_seen():
         raise AssertionError(f"the bf16 forms launched {b16_seen()} times on the f32 phases")
-    log("[bf16] phases 4-17 (f32): the bf16 forms launched 0 times")
+    log("[bf16] phases 4-17 (f32): the bf16 forms, forward and backward, launched 0 times")
     b16_counts = phase_bf16(smi)
+    b16_train_counts = phase_bf16_train(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
         if name == "mstcn2_stack_q8":
@@ -5721,6 +6345,9 @@ def main():
             r["launches"] = bf_counts[path][counter]
         elif name in B16_KERNELS:  # phase 18's eval step at 8 x 3072
             r["launches"] = b16_counts[name]
+            r["train_launches"] = b16_train_counts[name]  # phase 19's train step
+        elif name in B16_BWD_KERNELS:  # phase 19's train step at 8 x 3072
+            r["launches"] = b16_train_counts[name]
         elif name in EPIC_ROWS:
             r["launches"] = epic_counts[name]
             if name == "factored_argmax":

@@ -15,7 +15,8 @@ data/             the dataset registry, bucketed loaders, the prefetcher, the
                   text-embedding cache
 models/           layers, blocks (FACT), FACT_CLIP (FACTCLIP), the verb/noun
                   model (VerbNounFACT), the two-branch and CLIP decodes,
-                  matching (o2o, o2m), losses (FACT's, the verb/noun model's
+                  matching (o2o, o2m; scipy on the host, or the auction on
+                  the device), losses (FACT's, the verb/noun model's
                   and FACT_CLIP's contrastive ones)
 ops/              the hand-written CUDA kernels (K1-K6, forwards with dropout
                   and backwards, and the single-layer K1; the shared dropout
@@ -35,8 +36,9 @@ csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 
 The entry points run on the CUDA card and refuse to start without one
 unless given the CPU (``device="cpu"``, ``--device cpu``).  Everything runs
-in float32 but FACT's serving path under ``TPU.compute_dtype: bfloat16``
-(JAX's mixed precision: the bf16 forms of K1-K4, ``ops/bf16.py``).  Importing this package imports neither JAX nor the JAX package
+in float32 but FACT under ``TPU.compute_dtype: bfloat16`` (JAX's mixed
+precision: the bf16 forms of K1-K4, forward and backward, ``ops/bf16.py``),
+served, evaluated and trained at dropout 0.  Importing this package imports neither JAX nor the JAX package
 nor PyYAML, and builds nothing.
 """
 
@@ -81,6 +83,13 @@ _KERNELS = {
     "mha_cross16": mha_attn.mha_cross16_fwd,
     "sa_sublayer16": sa_layer.sa_sublayer16_fwd,
     "ffn_sublayer16": sa_layer.ffn_sublayer16_fwd,
+    # the bf16 backward forms (training under mixed precision)
+    "mstcn_stack16_bwd": dilated_conv.mstcn_stack16_bwd,
+    "x2y_small_x16_bwd": x2y_attn.x2y_small_x16_bwd,
+    "x2y_flash16_bwd": x2y_attn.x2y_flash16_bwd,
+    "mha_cross16_bwd": mha_attn.mha_cross16_bwd,
+    "sa_sublayer16_bwd": sa_layer.sa_sublayer16_bwd,
+    "ffn_sublayer16_bwd": sa_layer.ffn_sublayer16_bwd,
 }
 # the plain backward that the K2 dispatch runs on the card (per-batch pos), as JAX does
 _PLAIN = {"x2y_bwd_reference": x2y_attn.x2y_bwd_reference}

@@ -27,7 +27,7 @@ attention at a_dim 128 with 8 heads, towers 128 wide) and
 mirrors ``gtea_transcript.yaml`` (transcript mode, ``FACT.trans``: the
 tokens are the transcript, ``seq`` matching); ``havid_tpu_cfg()`` is
 ``havid_tpu.yaml`` as read (the flagship recipe under mixed precision,
-``TPU.compute_dtype: bfloat16``), which the port serves and evaluates.
+``TPU.compute_dtype: bfloat16``), which the port serves, evaluates and trains.
 
 ``dtype`` is ``"bfloat16"`` under ``TPU.compute_dtype: bfloat16`` (JAX's
 mixed-precision policy, ``fact_clip_tpu/models/layers.py:31-35``): heavy
@@ -337,8 +337,9 @@ def havid_tpu_cfg() -> dict:
     HAViD flagship recipe (``iuUU``, D=2048, 40 tokens, ``f: m`` towers 256
     wide with 10 layers, a 6-layer SCA input decoder of 8 heads at a_dim 256)
     with ``TPU.compute_dtype: bfloat16``, ``pallas``, ``pallas_sa`` and the
-    ``auction`` matcher.  The port serves and evaluates it in bf16
-    (``Predictor``, ``make_eval_step``, ``run_eval``); training it raises."""
+    ``auction`` matcher.  The port serves, evaluates and trains it in bf16
+    (``Predictor``, ``make_eval_step``, ``run_eval``, ``TrainStep``,
+    ``run_train``), its matching on the device (``ops/assignment.py``)."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "fact_clip_tpu", "configs", "havid_tpu.yaml")
     return _to_plain_dict(setup_cfg([path]))

@@ -168,12 +168,11 @@ TPU.bucket_multiple = 128  # pad video lengths up to a multiple of this
 TPU.bucket_growth = 1.26  # geometric growth between length buckets
 TPU.max_gt_segs = -1  # cap on ground-truth segments; -1 -> scan dataset
 TPU.max_pred_segs = -1  # cap on TDU predicted segments; -1 -> auto from max_gt_segs
-TPU.compute_dtype = "float32"  # "float32" | "bfloat16" (serving FACT's f: m towers)
+TPU.compute_dtype = "float32"  # "float32" | "bfloat16" (FACT's f: m towers, dropout 0 to train)
 TPU.feature_dtype = ""  # input-feature feed dtype; "" -> follow compute_dtype
-TPU.matcher = "auto"  # the port matches on the host: "auto" | "host"
-# the auction matcher's and the mesh's knobs: read only on paths that
-# raise in the port (matcher "auction", shards > 1)
-TPU.auction_phases = 1
+TPU.matcher = "auto"  # "auto" = "host" (scipy) | "auction" (on the device, ops/assignment.py)
+TPU.auction_phases = 1  # >1: the auction's epsilon scaling
+# the mesh's knobs: read only on paths that raise in the port (shards > 1)
 TPU.data_axis = "data"
 TPU.seq_axis = "seq"
 TPU.num_data_shards = -1  # -1 -> all visible devices; the port trains on one

@@ -66,6 +66,15 @@
 
 namespace {
 
+// a value stored as the element type: f32 as it is, bf16 rounded to nearest even
+template <class TE>
+__device__ __forceinline__ TE to_te(float v) {
+  if constexpr (std::is_same<TE, fk::bf16>::value)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
 // one head's attention over BK keys of one video: per-tile softmax partials.
 // HD: the head width as a compile-time constant (32 or 64: the loops over it
 // unroll, so their shared-memory loads pipeline), or 0 to read hd_rt.
@@ -188,15 +197,21 @@ __global__ void __launch_bounds__(fk::kThreads)
   }
 }
 
-// one head's attention backward over BK keys of one video (HD as above)
-template <int BK, int HD>
+// one head's attention backward over BK keys of one video (HD as above).
+// TE: the element type of kv, q and dkv, float or bf16 (the mixed-precision
+// form, JAX's _mha_bwd_kernel under bf16, mha_attn.py:386-420: the queries
+// arrive scaled (scale 1), g is rounded to bf16 for its products, dl and the
+// weights p are rounded to bf16 before theirs, dK and dV are rounded to bf16
+// as they are written; their column sums, the bias gradients, stay f32)
+template <int BK, int HD, class TE = float>
 __global__ void __launch_bounds__(fk::kThreads)
-    k3_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ q,
+    k3_attn_bwd_kernel(const TE* __restrict__ kv, const TE* __restrict__ q,
                        const float* __restrict__ g, const float* __restrict__ stats,
                        const float* __restrict__ Dr, const float* __restrict__ keep,
                        const int* __restrict__ xlen, int X, int M, int H, int hd_rt,
-                       float scale, float* __restrict__ dkv, float* __restrict__ part_dq,
+                       float scale, TE* __restrict__ dkv, float* __restrict__ part_dq,
                        float* __restrict__ part_b, int n_slots, fk::Dropout drop) {
+  constexpr bool kB16 = std::is_same<TE, fk::bf16>::value;
   constexpr int KPL = BK / 32;
   const int hd = HD ? HD : hd_rt;
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -208,13 +223,13 @@ __global__ void __launch_bounds__(fk::kThreads)
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   float* dq = part_dq + ((size_t)b * n_slots + tile) * M * E + h * hd;  // row m at + m * E
   float* pb = part_b + ((size_t)b * n_slots + tile) * 2 * E + h * hd;   // dV's sums at + E
-  float* dkvb = dkv + ((size_t)b * X + x0) * 2 * E + h * hd;        // key j at + j * 2E
+  TE* dkvb = dkv + ((size_t)b * X + x0) * 2 * E + h * hd;           // key j at + j * 2E
   if (xl > 0 && x0 >= xl) {  // every key masked: p = 0, so dl, p * keep and all of this are zero
     for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) dq[(size_t)(i / hd) * E + i % hd] = 0.f;
     for (int i = threadIdx.x; i < rows * hd; i += fk::kThreads) {
       const size_t o = (size_t)(i / hd) * 2 * E + i % hd;
-      dkvb[o] = 0.f;
-      dkvb[o + E] = 0.f;
+      dkvb[o] = to_te<TE>(0.f);
+      dkvb[o + E] = to_te<TE>(0.f);
     }
     for (int c = threadIdx.x; c < hd; c += fk::kThreads) pb[c] = pb[E + c] = 0.f;
     return;
@@ -229,16 +244,16 @@ __global__ void __launch_bounds__(fk::kThreads)
   for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
     const int m = i / hd;
     const size_t e = ((size_t)b * M + m) * E + h * hd + (i - m * hd);
-    qs[i] = __ldg(q + e);
-    gs[i] = __ldg(g + e);
+    qs[i] = fk::ldf(q + e);
+    gs[i] = kB16 ? fk::bf16_round(__ldg(g + e)) : __ldg(g + e);
   }
-  const float* kvb = kv + ((size_t)b * X + x0) * 2 * E + h * hd;
+  const TE* kvb = kv + ((size_t)b * X + x0) * 2 * E + h * hd;
   for (int i = threadIdx.x; i < BK * hd; i += fk::kThreads) {
     const int j = i / hd, d = i - j * hd;
     float kk = 0.f, vv = 0.f;
     if (j < rows) {
-      kk = __ldg(kvb + (size_t)j * 2 * E + d);
-      vv = __ldg(kvb + (size_t)j * 2 * E + E + d);
+      kk = fk::ldf(kvb + (size_t)j * 2 * E + d);
+      vv = fk::ldf(kvb + (size_t)j * 2 * E + E + d);
     }
     ks[j * ldk + d] = kk;
     vs[j * ldk + d] = vv;
@@ -277,8 +292,8 @@ __global__ void __launch_bounds__(fk::kThreads)
         if (key < xl) dl = p * (dp * kp - Dv) * scale;
         pk = p * kp;
       }
-      DL[m * BK + j] = dl;
-      PK[m * BK + j] = pk;
+      DL[m * BK + j] = kB16 ? fk::bf16_round(dl) : dl;
+      PK[m * BK + j] = kB16 ? fk::bf16_round(pk) : pk;
     }
   }
   __syncthreads();
@@ -308,8 +323,8 @@ __global__ void __launch_bounds__(fk::kThreads)
   // 4. the tile's rows of dKV and their column sums (row order)
   for (int i = threadIdx.x; i < rows * hd; i += fk::kThreads) {
     const int j = i / hd, d = i - j * hd;
-    dkvb[(size_t)j * 2 * E + d] = ks[j * ldk + d];
-    dkvb[(size_t)j * 2 * E + E + d] = vs[j * ldk + d];
+    dkvb[(size_t)j * 2 * E + d] = to_te<TE>(ks[j * ldk + d]);
+    dkvb[(size_t)j * 2 * E + E + d] = to_te<TE>(vs[j * ldk + d]);
   }
   for (int c = threadIdx.x; c < 2 * hd; c += fk::kThreads) {
     const float* col = c < hd ? ks + c : vs + (c - hd);
@@ -329,25 +344,26 @@ size_t attn_bwd_smem(int BK, int M, int hd) {
   return ((size_t)2 * M * hd + (size_t)2 * BK * (hd + 1) + (size_t)2 * M * BK) * sizeof(float);
 }
 
-template <int BK, int HD>
-cudaError_t launch_bwd(const float* kv, const float* q, const float* g, const float* stats,
+template <int BK, int HD, class TE = float>
+cudaError_t launch_bwd(const TE* kv, const TE* q, const float* g, const float* stats,
                        const float* Dr, const float* keep, const int* xlen, int B, int X, int M,
-                       int H, int hd, float scale, float* dkv, float* part_dq, float* part_b,
+                       int H, int hd, float scale, TE* dkv, float* part_dq, float* part_b,
                        int n_slots, fk::Dropout drop, cudaStream_t stream) {
   const size_t smem = attn_bwd_smem(BK, M, hd);
-  cudaError_t err = fk::set_smem((const void*)k3_attn_bwd_kernel<BK, HD>, smem);
+  cudaError_t err = fk::set_smem((const void*)k3_attn_bwd_kernel<BK, HD, TE>, smem);
   if (err != cudaSuccess) return err;
-  k3_attn_bwd_kernel<BK, HD><<<dim3((X + BK - 1) / BK, H, B), fk::kThreads, smem, stream>>>(
+  k3_attn_bwd_kernel<BK, HD, TE><<<dim3((X + BK - 1) / BK, H, B), fk::kThreads, smem, stream>>>(
       kv, q, g, stats, Dr, keep, xlen, X, M, H, hd, scale, dkv, part_dq, part_b, n_slots, drop);
   return cudaGetLastError();
 }
 
-template <int BK>
-cudaError_t launch_bwd_hd(const float* kv, const float* q, const float* g, const float* stats,
+template <int BK, class TE = float>
+cudaError_t launch_bwd_hd(const TE* kv, const TE* q, const float* g, const float* stats,
                           const float* Dr, const float* keep, const int* xlen, int B, int X,
-                          int M, int H, int hd, float scale, float* dkv, float* part_dq,
+                          int M, int H, int hd, float scale, TE* dkv, float* part_dq,
                           float* part_b, int n_slots, fk::Dropout drop, cudaStream_t stream) {
-  auto fn = hd == 32 ? launch_bwd<BK, 32> : hd == 64 ? launch_bwd<BK, 64> : launch_bwd<BK, 0>;
+  auto fn = hd == 32 ? launch_bwd<BK, 32, TE> : hd == 64 ? launch_bwd<BK, 64, TE>
+                                                         : launch_bwd<BK, 0, TE>;
   return fn(kv, q, g, stats, Dr, keep, xlen, B, X, M, H, hd, scale, dkv, part_dq, part_b, n_slots,
             drop, stream);
 }
@@ -424,4 +440,38 @@ extern "C" int fk_k3_attn_bwd(const float* kv, const float* q, const float* g, c
   return (int)fn(kv, q, g, stats, Dr, keep, xlen, B, X, M, H, hd, scale, dkv, part_dq, part_b,
                  n_slots, fk::Dropout{seed, drop_stream, thresh, drop_scale},
                  (cudaStream_t)stream);
+}
+
+// K3's bf16 form's training forward (ops/mha_attn.py::mha_cross16): the
+// attention of fk_k3_attn16, the combine also writing the rows' softmax
+// stats (B, H*M, 2), which the backward reads.
+extern "C" int fk_k3_attn16s(const void* kv, const void* q, const int* xlen, int B, int X, int M,
+                             int H, int hd, float* part_acc, float* part_ml, float* out,
+                             float* stats, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto fn = hd == 32 ? launch_fwd<32, fk::bf16>
+                     : hd == 64 ? launch_fwd<64, fk::bf16> : launch_fwd<0, fk::bf16>;
+  cudaError_t err = fn((const fk::bf16*)kv, (const fk::bf16*)q, xlen, B, X, M, H, hd, 1.f,
+                       part_acc, part_ml, fk::Dropout{nullptr, 0, 0u, 1.f}, st);
+  if (err != cudaSuccess) return (int)err;
+  const int n_t = (X + kFwdTile - 1) / kFwdTile;
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X, stats,
+                             st);
+}
+
+// K3's bf16 form's attention backward (ops/mha_attn.py::mha_cross16_bwd):
+// kv (B, X, 2E) bf16 as the forward projected it, q (B, M, E) bf16 scaled by
+// bf16(1 / sqrt(hd)), g (B, M, E) f32, the forward's stats and the row term D
+// -> dkv (B, X, 2E) bf16 (dK, dV rounded), part_dq (B, n_slots, M, E) f32 and
+// part_b (B, n_slots, 2E) f32 as fk_k3_attn_bwd's (no dropout).
+extern "C" int fk_k3_attn_bwd16(const void* kv, const void* q, const float* g, const float* stats,
+                                const float* Dr, const int* xlen, int B, int X, int M, int H,
+                                int hd, void* dkv, float* part_dq, float* part_b, int n_slots,
+                                int key_tile, void* stream) {
+  if ((key_tile != 64 && key_tile != 32) || n_slots < (X + key_tile - 1) / key_tile)
+    return (int)cudaErrorInvalidValue;
+  auto fn = key_tile == 64 ? launch_bwd_hd<64, fk::bf16> : launch_bwd_hd<32, fk::bf16>;
+  return (int)fn((const fk::bf16*)kv, (const fk::bf16*)q, g, stats, Dr, nullptr, xlen, B, X, M,
+                 H, hd, 1.f, (fk::bf16*)dkv, part_dq, part_b, n_slots,
+                 fk::Dropout{nullptr, 0, 0u, 1.f}, (cudaStream_t)stream);
 }

@@ -241,9 +241,11 @@ struct FfnSlice {
 
 // per (32-row tile, K slice, 256 columns of N): the slice's partial product
 // A[:, slice] W[slice, :] (A: R x K, W: K x N) into part[slice] (R x N)
-// B16 (the mixed-precision forward, ffn_sublayer16): kPanel rounds x to bf16
+// B16 (the mixed-precision forms, ffn_sublayer16): kPanel rounds x to bf16
 // as it stages it and reads a bf16 W1; kHidden stages hk = relu(z1) with z1 =
-// bf16(bf16(x W1's slices) + bf16(b1)) (JAX's bf16=True rounding points)
+// bf16(bf16(x W1's slices) + bf16(b1)) (JAX's bf16=True rounding points);
+// kDz1 writes dz1 as it is and multiplies bf16(dz1) (_ffn_bwd_kernel's
+// _cast(dz1, bf16) before its product with W1^T)
 template <int AM, class TW = float, bool B16 = false>
 __global__ void __launch_bounds__(fk::kThreads)
 ffn_slice_kernel(const FfnSlice a, const TW* __restrict__ W, float* __restrict__ part, int R,
@@ -286,7 +288,7 @@ ffn_slice_kernel(const FfnSlice a, const TW* __restrict__ W, float* __restrict__
           v *= a.drop.keep((uint32_t)e, seed);
         const float d = __ldg(a.z1 + e) > 0.f ? v : 0.f;
         if (write) a.out[eo] = d;
-        return d;
+        return B16 ? fk::bf16_round(d) : d;
       },
       W + (size_t)k0 * N, ks, N, r0, R,
       [&](int r, int c, float v) { out[(size_t)r * N + c] = v; }, s, n0, n0 + fk::kBN);
@@ -1558,19 +1560,17 @@ extern "C" int fk_ffn_bwd_workspace(int B, int M, int E, int F, long long* out) 
   return 0;
 }
 
-// The FFN backward in one call over the B * M token rows into ws
-// (fk_ffn_bwd_workspace's floats): W1^T and W2^T, x and the ones columns
-// into the weight products' operands, then the steps above.  The keep
-// values come from keep_1 / keep_2 where given, else are hashed from the
-// forward's seeds as fk_ffn_fwd draws them (a null seed: no dropout), so
-// that the training path makes no mask.
-extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-                          const float* b2, const float* gamma, const float* keep_1,
-                          const float* keep_2, const float* g, float* ws, int B, int M, int E,
-                          int F, float eps, const int* seed_1, int stream_1, unsigned thresh_1,
-                          float scale_1, const int* seed_2, int stream_2, unsigned thresh_2,
-                          float scale_2, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+// fk_ffn_bwd's launches (and fk_ffn_bwd16's, B16: x W1 on a bf16 W1 (w1) with
+// x rounded as it is staged, z1 rounded as JAX's bf16 forward rounds it,
+// bf16(dz1) multiplied by W1^T, which w1t_src (W1 rounded to bf16, in f32)
+// gives the transpose; no dropout there)
+template <bool B16>
+int ffn_bwd_launches(const float* x, const void* w1, const float* w1t_src, const float* b1,
+                     const float* w2, const float* b2, const float* gamma, const float* keep_1,
+                     const float* keep_2, const float* g, float* ws, int B, int M, int E, int F,
+                     float eps, fk::Dropout drop_1, fk::Dropout drop_2, cudaStream_t st) {
   const FfnWorkspace w = ffn_workspace(B, M, E, F, true);
   const FfnGrid gr(B, M, E, F);
   float *wt = ws + w.wt, *res = ws + w.res, *dx = ws + w.dx, *z1 = ws + w.z1;
@@ -1588,27 +1588,50 @@ extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, cons
     if (err != cudaSuccess) return (int)err;
   }
   const fk::Dropout none{nullptr, 0, 0u, 1.f};
-  const fk::Dropout drop_1{seed_1, stream_1, thresh_1, scale_1};
   ffn_transpose_kernel<<<dim3((big + 31) / 32, (big + 31) / 32, 3), fk::kThreads, 0, st>>>(
-      w1, w2, wt, x, lhs, w.ldl, rhs, w.ldr, R, E, F);
+      w1t_src, w2, wt, x, lhs, w.ldl, rhs, w.ldr, R, E, F);
   // x W1 -> sa; hk W2 -> sb (z1 and hk from sa as they are staged); the
   // LayerNorm step; dt2 W2^T -> sa; dz1 W1^T -> sb (dz1 from sa); dx and the
   // LN sums
-  ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
-      FfnSlice{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none}, w1, sa, R, E, F);
-  ffn_slice_kernel<kHidden><<<gr.fe, fk::kThreads, gsm, st>>>(
+  const FfnSlice panel{x, nullptr, 0, nullptr, nullptr, nullptr, nullptr, E, none};
+  if constexpr (B16)
+    ffn_slice_kernel<kPanel, fk::bf16, true><<<gr.ef, fk::kThreads, gsm, st>>>(
+        panel, static_cast<const fk::bf16*>(w1), sa, R, E, F);
+  else
+    ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
+        panel, static_cast<const float*>(w1), sa, R, E, F);
+  ffn_slice_kernel<kHidden, float, B16><<<gr.fe, fk::kThreads, gsm, st>>>(
       FfnSlice{nullptr, sa, gr.es, b1, keep_1, z1, hk, w.ldl, drop_1}, w2, sb, R, F, E);
   ffn_bwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(
-      x, sb, b2, gamma, keep_2, fk::Dropout{seed_2, stream_2, thresh_2, scale_2}, g, res, dt2,
-      w.ldr, part, R, E, gr.fs, eps);
+      x, sb, b2, gamma, keep_2, drop_2, g, res, dt2, w.ldr, part, R, E, gr.fs, eps);
   ffn_slice_kernel<kPanel><<<gr.ef, fk::kThreads, gsm, st>>>(
       FfnSlice{dt2, nullptr, 0, nullptr, nullptr, nullptr, nullptr, w.ldr, none},
       wt + (size_t)E * F, sa, R, E, F);
-  ffn_slice_kernel<kDz1><<<gr.fe, fk::kThreads, gsm, st>>>(
+  ffn_slice_kernel<kDz1, float, B16><<<gr.fe, fk::kThreads, gsm, st>>>(
       FfnSlice{nullptr, sa, gr.es, nullptr, keep_1, z1, dz1, w.ldl, drop_1}, wt, sb, R, F, E);
   ffn_finish_kernel<<<re + (2 * E + fk::kThreads - 1) / fk::kThreads, fk::kThreads, 0, st>>>(
       sb, res, dx, part, ws + w.dgb, R, E, gr.fs, gr.ln_tiles);
   return (int)cudaGetLastError();  // the first failed launch's error, if any
+}
+
+}  // namespace
+
+// The FFN backward in one call over the B * M token rows into ws
+// (fk_ffn_bwd_workspace's floats): W1^T and W2^T, x and the ones columns
+// into the weight products' operands, then the steps above.  The keep
+// values come from keep_1 / keep_2 where given, else are hashed from the
+// forward's seeds as fk_ffn_fwd draws them (a null seed: no dropout), so
+// that the training path makes no mask.
+extern "C" int fk_ffn_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+                          const float* b2, const float* gamma, const float* keep_1,
+                          const float* keep_2, const float* g, float* ws, int B, int M, int E,
+                          int F, float eps, const int* seed_1, int stream_1, unsigned thresh_1,
+                          float scale_1, const int* seed_2, int stream_2, unsigned thresh_2,
+                          float scale_2, void* stream) {
+  return ffn_bwd_launches<false>(x, w1, w1, b1, w2, b2, gamma, keep_1, keep_2, g, ws, B, M, E, F,
+                                 eps, fk::Dropout{seed_1, stream_1, thresh_1, scale_1},
+                                 fk::Dropout{seed_2, stream_2, thresh_2, scale_2},
+                                 (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1716,5 +1739,244 @@ extern "C" int fk_ffn_fwd16(const float* x, const void* w1, const float* b1, con
       FfnSlice{nullptr, sa, gr.es, b1, nullptr, nullptr, nullptr, F, none}, w2, sb, gr.R, F, E);
   ffn_fwd_ln_kernel<<<gr.ln_tiles, fk::kThreads, lsm, st>>>(x, sb, b2, gamma, beta, none, y,
                                                            gr.R, E, gr.fs, eps);
+  return (int)cudaGetLastError();
+}
+
+// The FFN backward's bf16 form in one call (ops/sa_layer.py::
+// ffn_sublayer16_bwd; JAX's _ffn_bwd_kernel with bf16=True,
+// fact_clip_tpu/ops/pallas/sa_layer.py:254-299): fk_ffn_bwd's six launches
+// and workspace (fk_ffn_bwd_workspace) without dropout, x rounded to bf16 as
+// it is staged against W1 (E, F) bf16 and z1 = bf16(bf16(x W1) + bf16(b1)),
+// as the bf16 forward forms them; dz1 rounded to bf16 for its product with
+// W1^T, which w1r (W1 rounded to bf16, held in f32) gives the transpose; the
+// rest f32.  dz1 itself (for db1) and the panels land where fk_ffn_bwd puts
+// them.
+extern "C" int fk_ffn_bwd16(const float* x, const void* w1, const float* w1r, const float* b1,
+                            const float* w2, const float* b2, const float* gamma,
+                            const float* g, float* ws, int B, int M, int E, int F, float eps,
+                            void* stream) {
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  return ffn_bwd_launches<true>(x, w1, w1r, b1, w2, b2, gamma, nullptr, nullptr, g, ws, B, M, E,
+                                F, eps, none, none, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The SA backward's bf16 form (ops/sa_layer.py::sa_sublayer16_bwd; JAX's
+// _sa_bwd_kernel with bf16=True, fact_clip_tpu/ops/pallas/sa_layer.py:159-226,
+// without dropout), over the batch's R = B * M token rows: q | k | v
+// recomputed by the bf16 forward's projection kernel, the context over the
+// bf16-rounded probabilities by its attention kernel, t = c Wo (f32), the
+// LayerNorm backward (the FFN backward's LN kernel: dres, dgamma | dbeta's
+// tile partials), dO = dres Wo^T (f32), then per (head, video) the
+// attention's cotangents with JAX's roundings: P recomputed (the softmax
+// f32), dV = bf16(P)^T dO, dP = dO v^T, dS = P (dP - rowsum(P dP)) /
+// sqrt(hd) rounded to bf16, dq = dS k, dk = dS^T q; then dxa = bf16([dq |
+// dk]) [Wq | Wk]^T, dx = dres + dxa + bf16(dv) Wv^T (bf16 weights), and the
+// weight products bf16(x + pos)^T bf16([dq | dk]), bf16(x)^T bf16(dv) and
+// c^T dres over the R rows in one fixed order.  Products of bf16 operands are
+// f32 FMAs, exact, as in the forward form; the caller adds the bias and
+// LayerNorm sums (grad.cu's fixed-order reduce).
+
+namespace {
+
+// out[r * N + n] = add0[r * N + n] + add1[r * N + n] (each where given) +
+// sum_k A[r * lda + k] W[k * N + n], A f32 rounded to bf16 as it is staged
+// where RA, W (K, N) f32 or bf16; one block per (32-row tile, 256 columns)
+template <class TW, bool RA>
+__global__ void __launch_bounds__(fk::kThreads)
+rows_mm_kernel(const float* __restrict__ a, int lda, const TW* __restrict__ W, int K, int N,
+               int R, const float* __restrict__ add0, const float* __restrict__ add1,
+               float* __restrict__ out) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<kFwdRows>& s = *reinterpret_cast<fk::GemmSmem<kFwdRows>*>(smem_raw);
+  const int r0 = blockIdx.x * kFwdRows, n0 = blockIdx.y * fk::kBN;
+  rows_gemm<kFwdRows>(
+      [&](int r, int k) {
+        const int row = r0 + r;
+        if (row >= R) return 0.f;
+        const float v = a[(size_t)row * lda + k];
+        return RA ? fk::bf16_round(v) : v;
+      },
+      W, K, N, r0, R,
+      [&](int r, int c, float v) {
+        const size_t e = (size_t)r * N + c;
+        float base = 0.f;
+        if (add0 != nullptr) base = add0[e];
+        if (add1 != nullptr) base += add1[e];
+        out[e] = base + v;
+      },
+      s, n0, n0 + fk::kBN);
+}
+
+// per (head, video): P, dP, dS and the head's dq, dk, dv, into grads (R, 3E)
+// = [dq | dk | dv] f32 and grads_r, the same rounded to bf16 (held in f32)
+__global__ void __launch_bounds__(fk::kThreads)
+sa_attn_bwd16_kernel(const fk::bf16* __restrict__ qkv, const float* __restrict__ dO,
+                     float* __restrict__ grads, float* __restrict__ grads_r, int M, int E, int H) {
+  extern __shared__ float4 smem_raw[];
+  const int hd = E / H, ldh = hd + 1;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const float scale = 1.f / sqrtf((float)hd);
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [M][hd + 1] each
+  float* ks = qs + (size_t)M * ldh;
+  float* vs = ks + (size_t)M * ldh;
+  float* os = vs + (size_t)M * ldh;  // dO's head rows
+  float* P = os + (size_t)M * ldh;   // [M][M]: P, then bf16(P)
+  float* dS = P + (size_t)M * M;     // [M][M]: dP, then bf16(dS)
+  const size_t ME = (size_t)M * E;
+  const fk::bf16* qb = qkv + (size_t)b * 3 * ME;
+  for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    const size_t e = (size_t)r * E + h * hd + d;
+    qs[r * ldh + d] = __bfloat162float(qb[e]);
+    ks[r * ldh + d] = __bfloat162float(qb[ME + e]);
+    vs[r * ldh + d] = __bfloat162float(qb[2 * ME + e]);
+    os[r * ldh + d] = __ldg(dO + (size_t)b * ME + e);
+  }
+  __syncthreads();
+  for (int i = ty; i < M; i += fk::kWarps) {  // a warp a query row
+    float* pr = P + (size_t)i * M;
+    float* dr = dS + (size_t)i * M;
+    float mx = -INFINITY;
+    for (int j = lane; j < M; j += 32) {
+      const float v = dot_h(qs + i * ldh, ks + j * ldh, hd) * scale;
+      pr[j] = v;
+      dr[j] = dot_h(os + i * ldh, vs + j * ldh, hd);
+      mx = fmaxf(mx, v);
+    }
+    mx = fk::warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < M; j += 32) {
+      const float e = expf(pr[j] - mx);
+      pr[j] = e;
+      sum += e;
+    }
+    sum = fk::warp_sum(sum);
+    float rs = 0.f;
+    for (int j = lane; j < M; j += 32) {
+      const float pv = pr[j] / sum;
+      pr[j] = pv;
+      rs += pv * dr[j];
+    }
+    rs = fk::warp_sum(rs);
+    for (int j = lane; j < M; j += 32) {
+      const float pv = pr[j];
+      dr[j] = fk::bf16_round(pv * (dr[j] - rs) * scale);
+      pr[j] = fk::bf16_round(pv);
+    }
+  }
+  __syncthreads();
+  const size_t E3 = 3 * (size_t)E;
+  for (int i = threadIdx.x; i < M * hd; i += fk::kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    float aq = 0.f, ak = 0.f, av = 0.f;
+    for (int j = 0; j < M; ++j) {
+      aq = fmaf(dS[(size_t)r * M + j], ks[j * ldh + d], aq);  // dq[r] = sum_j dS[r][j] k[j]
+      ak = fmaf(dS[(size_t)j * M + r], qs[j * ldh + d], ak);  // dk[r] = sum_j dS[j][r] q[j]
+      av = fmaf(P[(size_t)j * M + r], os[j * ldh + d], av);   // dv[r] = sum_j P[j][r] dO[j]
+    }
+    const size_t o = ((size_t)b * M + r) * E3 + h * hd + d;
+    grads[o] = aq;
+    grads[o + E] = ak;
+    grads[o + 2 * E] = av;
+    grads_r[o] = fk::bf16_round(aq);
+    grads_r[o + E] = fk::bf16_round(ak);
+    grads_r[o + 2 * E] = fk::bf16_round(av);
+  }
+}
+
+// the weight products over the R rows, blockIdx.z the product: 0 dWqk (E,
+// 2E) = bf16(x + pos)^T grads_r[:, :2E], 1 dWv (E, E) = bf16(x)^T grads_r[:,
+// 2E:], 2 dWo (E, E) = c^T dres; a block a (32-row, 256-column) tile of one
+__global__ void __launch_bounds__(fk::kThreads)
+sa_wgrad16_kernel(const float* __restrict__ x, const float* __restrict__ pos, int Pp,
+                  const float* __restrict__ c, const float* __restrict__ grads_r,
+                  const float* __restrict__ dres, float* __restrict__ dw, int R, int M, int E) {
+  extern __shared__ float4 smem_raw[];
+  fk::GemmSmem<kFwdRows>& s = *reinterpret_cast<fk::GemmSmem<kFwdRows>*>(smem_raw);
+  const int z = blockIdx.z;
+  const int N = z == 0 ? 2 * E : E;
+  const int m0 = blockIdx.x * kFwdRows, n0 = blockIdx.y * fk::kBN;
+  if (n0 >= N) return;
+  const float* W = z == 0 ? grads_r : z == 1 ? grads_r + 2 * E : dres;
+  const int ldw = z == 2 ? E : 3 * E;
+  float* out = dw + (z == 0 ? 0 : z == 1 ? (size_t)2 * E * E : (size_t)3 * E * E);
+  constexpr int RM = kFwdRows / 8;
+  float acc[RM][8];
+  fk::gemm_pass<kFwdRows, true>(
+      acc,
+      [&](int m, int r) {  // A^T's element (m, r): row r of the product's left operand
+        const int col = m0 + m;
+        if (col >= E) return 0.f;
+        const size_t e = (size_t)r * E + col;
+        if (z == 2) return __ldg(c + e);
+        float v = __ldg(x + e);
+        if (z == 0 && pos != nullptr && col < Pp) v += __ldg(pos + (size_t)(r % M) * Pp + col);
+        return fk::bf16_round(v);
+      },
+      W, ldw, R, n0, N, s);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = m0 + fk::pass_row<kFwdRows>(i);
+    if (m >= E) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + fk::pass_col(j);
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// The SA backward's bf16 form, one call of nine launches (see above): x, pos
+// (M, Pp) or null, Wq, Wk, Wv (E, E) bf16 with bq, bk, bv; Wo (E, E), bo,
+// gamma f32; woT = Wo^T (E, E) f32, wqkT = [Wq | Wk]^T (2E, E) and wvT =
+// Wv^T (E, E) bf16; g (B, M, E) -> dx (R, E), dres (R, E), grads (R, 3E) =
+// [dq | dk | dv], dxa (R, E), part (ceil(R / 16), 2, E) the LayerNorm tiles'
+// dgamma | dbeta, dw = [dWqk (E, 2E) | dWv (E, E) | dWo (E, E)]; qkv (B, 3,
+// M, E) bf16, c, t, dout, dO (R, E) and grads_r (R, 3E) scratch.
+extern "C" int fk_sa_bwd16(const float* x, const float* pos, int Pp, const void* wq,
+                           const float* bq, const void* wk, const float* bk, const void* wv,
+                           const float* bv, const float* wo, const float* bo, const float* gamma,
+                           const float* woT, const void* wqkT, const void* wvT, const float* g,
+                           void* qkv, float* c, float* t, float* dres, float* dout, float* dO,
+                           float* grads, float* grads_r, float* dxa, float* part, float* dx,
+                           float* dw, int B, int M, int E, int H, float eps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int R = B * M, hd = E / H;
+  const fk::Dropout none{nullptr, 0, 0u, 1.f};
+  const size_t gsm = sizeof(fk::GemmSmem<kFwdRows>);
+  const size_t rsm = sa_rows_smem_floats(M, hd) * sizeof(float);
+  const size_t asm_ = ((size_t)4 * M * (hd + 1) + (size_t)2 * M * M) * sizeof(float);
+  const size_t lsm = (size_t)2 * kLnRows * E * sizeof(float);
+  const int ln_tiles = (R + kLnRows - 1) / kLnRows;
+  const dim3 rows_e((R + kFwdRows - 1) / kFwdRows, (E + fk::kBN - 1) / fk::kBN);
+  cudaError_t err;
+  if ((err = fk::set_smem((const void*)sa_qkv16_kernel, gsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_context_kernel<fk::bf16>, rsm)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)sa_attn_bwd16_kernel, asm_)) != cudaSuccess ||
+      (err = fk::set_smem((const void*)ffn_bwd_ln_kernel, lsm)) != cudaSuccess)
+    return (int)err;
+  sa_qkv16_kernel<<<dim3((M + kFwdRows - 1) / kFwdRows, B, 3), fk::kThreads, gsm, st>>>(
+      x, pos, Pp, (const fk::bf16*)wq, bq, (const fk::bf16*)wk, bk, (const fk::bf16*)wv, bv,
+      (fk::bf16*)qkv, M, E);
+  sa_context_kernel<fk::bf16><<<dim3((M + QT - 1) / QT, H, B), fk::kThreads, rsm, st>>>(
+      (const fk::bf16*)qkv, 3 * (long long)M * E, E, M * E, 2 * M * E, none, c, M, E, H);
+  rows_mm_kernel<float, false><<<rows_e, fk::kThreads, gsm, st>>>(c, E, wo, E, E, R, nullptr,
+                                                                   nullptr, t);
+  ffn_bwd_ln_kernel<<<ln_tiles, fk::kThreads, lsm, st>>>(x, t, bo, gamma, nullptr, none, g, dres,
+                                                         dout, E, part, R, E, 1, eps);
+  rows_mm_kernel<float, false><<<rows_e, fk::kThreads, gsm, st>>>(dres, E, woT, E, E, R, nullptr,
+                                                                   nullptr, dO);
+  sa_attn_bwd16_kernel<<<dim3(H, B), fk::kThreads, asm_, st>>>((const fk::bf16*)qkv, dO, grads,
+                                                               grads_r, M, E, H);
+  rows_mm_kernel<fk::bf16, true><<<rows_e, fk::kThreads, gsm, st>>>(
+      grads, 3 * E, (const fk::bf16*)wqkT, 2 * E, E, R, nullptr, nullptr, dxa);
+  rows_mm_kernel<fk::bf16, true><<<rows_e, fk::kThreads, gsm, st>>>(
+      grads + 2 * E, 3 * E, (const fk::bf16*)wvT, E, E, R, dres, dxa, dx);
+  sa_wgrad16_kernel<<<dim3((E + kFwdRows - 1) / kFwdRows, (2 * E + fk::kBN - 1) / fk::kBN, 3),
+                      fk::kThreads, gsm, st>>>(x, pos, Pp, c, grads_r, dres, dw, R, M, E);
   return (int)cudaGetLastError();
 }

@@ -245,7 +245,222 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the weight products of the bf16 backward forms
+//
+// dW[tap][m][n] partial = sum over the chunk's frames t of A[b, t + shift,
+// a_c0 + m] * Bm[b, t, b_c0 + n], A's rows outside [0, len) and Bm's at or
+// past len zero.  Both operands arrive time-major (a frame's channels
+// contiguous) by TMA, 64 frames x 128 channels a stage, and every thread
+// transposes its share into the K-major 128-byte-swizzled tiles that the
+// wgmma above reads (8 frames of one channel a 16-byte store), into two sets
+// of tiles that alternate so that the next stage's transposition overlaps
+// this stage's products (mstcn2.cu's k6_wgrad_kernel does the same for the
+// TF32 towers).  Each 64-deep stage's product is added into an f32 sum of
+// the thread's own, as the GEMM above does.
+constexpr int WG_BK = 64;                          // frames a stage
+constexpr int WG_STAGES = 3;
+constexpr int WG_RAW = 128 * WG_BK * 2;            // one operand's raw stage (16 KB)
+constexpr int WG_TILE = 128 * WG_BK * 2;           // one K-major tile (16 KB)
+constexpr size_t WG_SMEM = (size_t)WG_STAGES * 2 * WG_RAW + 4 * WG_TILE + 64 + 1024;
+
+struct WgradArgs {
+  CUtensorMap amap;  // A (a_ch, T, B), 128 x 64 boxes, no swizzle
+  CUtensorMap bmap;  // Bm (b_ch, T, B)
+  int a_c0, Ca, b_c0, Cb;
+  int T, Kc, per, n_chunks, shift0, shift_step;
+  const int* lengths;
+  float* part;
+};
+
+__global__ void __launch_bounds__(256, 1) b16_wgrad_kernel(const __grid_constant__ WgradArgs p) {
+  extern __shared__ float4 smem_raw[];
+  uint8_t* sm = tc::align1024<uint8_t>(smem_raw);
+  uint8_t* split = sm + WG_STAGES * 2 * WG_RAW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(split + 4 * WG_TILE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int tn = (p.Cb + 127) / 128;
+  const int n0 = (blockIdx.x % tn) * 128, m0 = (blockIdx.x / tn) * 128;
+  const int tap = blockIdx.z / p.n_chunks;
+  const int chunk = blockIdx.z - tap * p.n_chunks;
+  const int b = chunk / p.per;
+  const int tc0 = (chunk - b * p.per) * p.Kc;
+  const int T = p.T;
+  const int L = min(p.lengths[b], T);
+  const int shift = p.shift0 + tap * p.shift_step;
+  // frames t whose product counts: t in [tc0, tc0 + Kc), t < len, 0 <= t + shift < len
+  const int lo_t = max(tc0, -shift);
+  const int hi_t = min(min(tc0 + p.Kc, L), L - shift);
+  const int kstart = hi_t > lo_t ? tc0 + (lo_t - tc0) / WG_BK * WG_BK : tc0;
+  const int nk = hi_t > lo_t ? (hi_t - kstart + WG_BK - 1) / WG_BK : 0;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) tc::mbar_init(&full[s], 1);
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int kc) {
+    const int s = kc % WG_STAGES;
+    uint8_t* st = sm + s * 2 * WG_RAW;
+    const int t = kstart + kc * WG_BK;
+    tc::mbar_expect_tx(&full[s], 2 * WG_RAW);
+    tc::tma_load_3d(st, &p.amap, &full[s], p.a_c0 + m0, t + shift, b);
+    tc::tma_load_3d(st + WG_RAW, &p.bmap, &full[s], p.b_c0 + n0, t, b);
+  };
+  // item (r, q): frames 8q .. 8q + 7 of channel r, one 16-byte store into
+  // the swizzled row r (chunk q), for A and for B
+  auto split_step = [&](int kc) {
+    const fk::bf16* st = reinterpret_cast<const fk::bf16*>(sm + (kc % WG_STAGES) * 2 * WG_RAW);
+    uint8_t* set = split + (kc & 1) * 2 * WG_TILE;
+    tc::mbar_wait(&full[kc % WG_STAGES], (kc / WG_STAGES) & 1);
+    const int tb = kstart + kc * WG_BK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int item = tid + i * 256;
+      const int r = item & 127;
+      const int q = item >> 7;
+      uint32_t av[4], bv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        uint32_t pa = 0u, pb = 0u;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 8 * q + 2 * u + e;
+          const int t = tb + k;
+          const bool ok = t >= lo_t && t < hi_t;
+          const uint32_t xa = ok ? reinterpret_cast<const uint16_t*>(st)[k * 128 + r] : 0u;
+          const uint32_t xb =
+              ok ? reinterpret_cast<const uint16_t*>(st + 128 * WG_BK)[k * 128 + r] : 0u;
+          pa |= xa << (16 * e);
+          pb |= xb << (16 * e);
+        }
+        av[u] = pa;
+        bv[u] = pb;
+      }
+      const int o = tc::sw128(r, 4 * q) * 4;  // bytes
+      *reinterpret_cast<uint4*>(set + o) = make_uint4(av[0], av[1], av[2], av[3]);
+      *reinterpret_cast<uint4*>(set + WG_TILE + o) = make_uint4(bv[0], bv[1], bv[2], bv[3]);
+    }
+    tc::fence_proxy_async();
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  if (tid == 0)
+    for (int kc = 0; kc < min(WG_STAGES, nk); ++kc) issue(kc);
+  if (nk > 0) split_step(0);
+  __syncthreads();
+  if (tid == 0 && WG_STAGES < nk) issue(WG_STAGES);  // raw stage 0 is free
+  for (int kc = 0; kc < nk; ++kc) {
+    uint8_t* set = split + (kc & 1) * 2 * WG_TILE;
+    const uint64_t da = tc::desc_sw128(set + wg * (WG_TILE / 2)), db = tc::desc_sw128(set + WG_TILE);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < WG_BK / 16; ++k) wgmma_bf16_n128(part, da + 2 * k, db + 2 * k, k > 0);
+    tc::wgmma_commit();
+    if (kc + 1 < nk) split_step(kc + 1);
+    tc::wgmma_wait_all();
+    tc::fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    __syncthreads();  // split set kc % 2 and raw stage (kc + 1) % STAGES are free
+    if (tid == 0 && kc + 1 + WG_STAGES < nk) issue(kc + 1 + WG_STAGES);
+  }
+
+  float* out = p.part + ((size_t)tap * p.n_chunks + chunk) * p.Ca * p.Cb;
+  const int rw = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + cq;
+    if (n >= p.Cb) continue;  // Cb even: n + 1 < Cb too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = rw + 8 * h;
+      if (m >= p.Ca) continue;
+      *reinterpret_cast<float2*>(out + (size_t)m * p.Cb + n) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// out[b, t, c] = bf16(v) and part[blk][c] = the sum over the block's rows, in
+// row order, of v = in[b, t, c] (f32, or bf16 where in16) * (gate[b, t, c] >
+// 0 where a gate is given), 0 at t >= len[b]; a block is R frames of one
+// video (blk = b * ceil(T / R) + t / R), a thread a column at a time
+__global__ void __launch_bounds__(256)
+    b16_round_kernel(const void* __restrict__ in, int in16, const fk::bf16* __restrict__ gate,
+                     const int* __restrict__ lengths, int T, int C, int R,
+                     fk::bf16* __restrict__ out, float* __restrict__ part) {
+  const int b = blockIdx.y, t0 = blockIdx.x * R;
+  const int L = min(lengths[b], T);
+  const int rows = min(R, T - t0);
+  const size_t base = ((size_t)b * T + t0) * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const size_t e = base + (size_t)r * C + c;
+      float v = 0.f;
+      if (t0 + r < L) {
+        v = in16 ? __bfloat162float(static_cast<const fk::bf16*>(in)[e])
+                 : static_cast<const float*>(in)[e];
+        if (gate != nullptr && !(__bfloat162float(gate[e]) > 0.f)) v = 0.f;
+      }
+      s += v;
+      if (out != nullptr) out[e] = __float2bfloat16_rn(v);
+    }
+    if (part != nullptr) part[((size_t)b * gridDim.x + blockIdx.x) * C + c] = s;
+  }
+}
+
 }  // namespace
+
+// part (n_taps, B * ceil(T / Kc), Ca, Cb): per tap and chunk of Kc frames of
+// one video, sum over the chunk's frames t of A[b, t + shift0 + tap *
+// shift_step, a_c0 + m] * Bm[b, t, b_c0 + n], rows outside [0, lengths[b])
+// zero; A (B, T, a_ch) and Bm (B, T, b_ch) bf16 (fk_k6_wgrad's interface)
+extern "C" int fk_b16_wgrad(const void* A, int a_ch, int a_c0, int Ca, const void* Bm, int b_ch,
+                            int b_c0, int Cb, const int* lengths, int shift0, int shift_step,
+                            int n_taps, float* part, int B, int T, int Kc, void* stream) {
+  if (a_ch % 8 || b_ch % 8 || Kc % WG_BK || Kc < WG_BK || Cb % 2 || n_taps < 1 || Ca < 1 ||
+      Cb < 1)
+    return (int)cudaErrorInvalidValue;
+  WgradArgs w{};
+  if (!tc::encode_3d(&w.amap, A, a_ch, T, B, 128, WG_BK, false, true) ||
+      !tc::encode_3d(&w.bmap, Bm, b_ch, T, B, 128, WG_BK, false, true))
+    return (int)cudaErrorInvalidValue;
+  w.a_c0 = a_c0;
+  w.Ca = Ca;
+  w.b_c0 = b_c0;
+  w.Cb = Cb;
+  w.T = T;
+  w.Kc = Kc;
+  w.per = (T + Kc - 1) / Kc;
+  w.n_chunks = B * w.per;
+  w.shift0 = shift0;
+  w.shift_step = shift_step;
+  w.lengths = lengths;
+  w.part = part;
+  cudaError_t err = fk::set_smem((const void*)b16_wgrad_kernel, WG_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((Ca + 127) / 128) * ((Cb + 127) / 128), 1, w.n_chunks * n_taps);
+  b16_wgrad_kernel<<<grid, 256, WG_SMEM, (cudaStream_t)stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
+// out (B, T, C) bf16 (or null) = bf16(in * (gate > 0)) with 0 at t >= len[b],
+// and part (B * ceil(T / R), C) f32 (or null) the column sums of those f32
+// values over each block of R frames (b16_round_kernel); in f32 or, where
+// in16, bf16; gate (B, T, C) bf16 or null
+extern "C" int fk_b16_round(const void* in, int in16, const void* gate, const int* lengths,
+                            int B, int T, int C, int R, void* out, float* part, void* stream) {
+  if (R < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1) return 0;
+  b16_round_kernel<<<dim3((T + R - 1) / R, B), 256, 0, (cudaStream_t)stream>>>(
+      in, in16, static_cast<const fk::bf16*>(gate), lengths, T, C, R,
+      static_cast<fk::bf16*>(out), part);
+  return (int)cudaGetLastError();
+}
 
 // One launch of the bf16 GEMM (see the top of this file): A (B, T, a_ch)
 // bf16 with nseg segments at time shifts `shifts` (a host array), W (N, Kd)

@@ -487,6 +487,40 @@ extern "C" int fk_x2y_sx_bwd(const float* y, const float* ypos, long long ystrid
                     nullptr, nullptr, nullptr, 0, 0u, 1.f, s);
 }
 
+// The small-X form's attention terms alone, on a projection the caller made
+// (the bf16 form, ops/x2y_attn.py::x2y_small_x16_bwd: yq (B, Y, d) and kv =
+// [xk | xv] (B, X, 2d) f32 from the bf16 GEMM, as JAX's kernel takes them
+// under mixed precision): dlog (B, Y, sx_pad(X)), dyq (B, Y, d) and the
+// tiles' dbq shares part_bq (n_slots >= B * ceil(Y / tile) rows, the rest
+// zeroed), as fk_x2y_sx_bwd computes them.
+extern "C" int fk_x2y_sx_attn_bwd(const float* kv, const float* probs, const float* gprobs,
+                                  const float* glogits, const float* gattn, const int* xlen,
+                                  int B, int Y, int X, int d, float scale, float* dlog,
+                                  float* dyq, float* part_bq, int n_slots, int tile,
+                                  void* stream) {
+  const int n_blk = B * ((Y + tile - 1) / tile);
+  if (d % 4 || X < 1 || X > fk::kSxMaxKeys || (tile != 8 && tile != 16 && tile != 32) ||
+      n_slots < n_blk)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = fk::sx_smem_floats(tile, X, d) * sizeof(float);
+  const dim3 grid((Y + tile - 1) / tile, B);
+  int err = (int)(tile == 32   ? launch_sx_attn_bwd<8>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                         gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                         part_bq)
+                  : tile == 16 ? launch_sx_attn_bwd<4>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                         gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                         part_bq)
+                               : launch_sx_attn_bwd<2>(smem, grid, s, kv, probs, gprobs, glogits,
+                                                         gattn, xlen, Y, X, d, scale, dlog, dyq,
+                                                         part_bq));
+  if (err) return err;
+  if (n_slots > n_blk)
+    return (int)cudaMemsetAsync(part_bq + (size_t)n_blk * d, 0,
+                                (size_t)(n_slots - n_blk) * d * sizeof(float), s);
+  return 0;
+}
+
 // The flash form's attention backward on the recomputed projection kv (B, X,
 // 2d): dkv (B, X, 2d), part_dyq (B, n_slots, M, d) and part_b (B, n_slots,
 // 2d), the 64-key tiles' shares in slots t < ceil(X / 64) <= n_slots of each

@@ -108,11 +108,14 @@ class TrainStep:
 
     def __init__(self, model, cfg: dict, nclasses: int, cweight, steps_per_epoch: int = 1,
                  clip_bundle=None):
-        if any(c.dtype for c in model.block_cfgs):
-            raise NotImplementedError("TrainStep: training in bf16 (TPU.compute_dtype) is "
-                                      "ROADMAP M7 item 1; the port serves and evaluates it")
-        if cfg["TPU"].get("matcher", "auto") not in ("auto", "host"):
-            raise ValueError("the port matches on the host (scipy): matcher 'auto' or 'host'")
+        if any(c.dtype for c in model.block_cfgs) and any(
+                c.dropout > 0 for c in model.block_cfgs):
+            raise NotImplementedError("TrainStep: training in bf16 (TPU.compute_dtype) with "
+                                      "dropout > 0 is ROADMAP M7 item 5")
+        self.nclasses = nclasses
+        self.matcher = matching.resolve_matcher(cfg["TPU"].get("matcher", "auto"))
+        self.auction_phases = int(cfg["TPU"].get("auction_phases", 1) or 1)
+        self.match_stats = {}  # the last step's auction iterations (matcher: auction)
         if bool(cfg["FACT"].get("trans")) != model.trans:
             raise ValueError("FACT.trans differs between the config and the model")
         self.verbnoun = isinstance(model, VerbNounFACT)
@@ -156,7 +159,9 @@ class TrainStep:
                      else torch.softmax(last["action_clogit"], dim=-1))
             seg2tok = matching.match(self.cfg["Loss"], cprob, last["a2f_attn"],
                                      batch["transcript"], batch["seg_label"], batch["seg_mask"],
-                                     batch["mask"])
+                                     batch["mask"], matcher=self.matcher,
+                                     nclasses=self.nclasses, phases=self.auction_phases,
+                                     stats=self.match_stats)
         t0 = self._mark(times, "match", t0)
         if self.verbnoun:
             per_video = losses.verbnoun_fact_loss(saves, batch, seg2tok, self.cweight, self.sw,

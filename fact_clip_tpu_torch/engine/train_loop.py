@@ -231,14 +231,14 @@ def check_loop_cfg(cfg, train: bool = True) -> None:
     """Refuse what the JAX loop does and this one has no path for
     (``build_experiment`` refuses the models the port has no path for):
     training (``train``) or, for evaluation, what ``evaluate`` and
-    ``run_eval`` cannot take.  Mixed precision evaluates (``havid_tpu.yaml``;
-    its ``matcher: auction`` does not matter there, evaluation matches
-    nothing) and does not train."""
+    ``run_eval`` cannot take.  Mixed precision evaluates and trains
+    (``havid_tpu.yaml``, its ``matcher: auction`` on the device) at dropout
+    0; bf16 training with dropout raises (ROADMAP M7 item 5)."""
     tpu = cfg.TPU
     bf16 = compute_dtype(cfg) == "bfloat16"
-    if train and bf16:
-        raise NotImplementedError("TPU.compute_dtype bfloat16: training in bf16 is ROADMAP M7 "
-                                  "item 1 (the port serves and evaluates it)")
+    if train and bf16 and any((cfg[k].dropout or 0.0) > 0 for k in ("Bi", "Bu", "BU")):
+        raise NotImplementedError("TPU.compute_dtype bfloat16: training in bf16 with dropout > 0 "
+                                  "is ROADMAP M7 item 5")
     if tpu.num_data_shards > 1 or tpu.num_slice_shards > 1 or tpu.num_seq_shards > 1:
         raise NotImplementedError(
             "TPU.num_data_shards / num_slice_shards / num_seq_shards > 1: the port trains on "
@@ -247,9 +247,9 @@ def check_loop_cfg(cfg, train: bool = True) -> None:
         raise NotImplementedError("TPU.profile_dir: the loop's profiler hook is not ported "
                                   "(ROADMAP Queue 1 item 5); use fact_clip_tpu_torch.profile_eval")
     if tpu.feature_dtype not in ("", "float32") and not (
-            bf16 and not train and tpu.feature_dtype == "bfloat16"):
+            bf16 and tpu.feature_dtype == "bfloat16"):
         raise NotImplementedError(f"TPU.feature_dtype {tpu.feature_dtype!r}: the port feeds "
-                                  "bf16 features only to its bf16 evaluation (ROADMAP M7)")
+                                  "bf16 features only to its bf16 models (ROADMAP M7)")
     if tpu.matmul_precision not in ("", "highest"):
         raise NotImplementedError(f"TPU.matmul_precision {tpu.matmul_precision!r}: the port's "
                                   "matmuls are float32")
@@ -316,7 +316,7 @@ def run_train(cfg, device=None, base_dir=None, text_embeddings=None):
 
     for _ in range(start_epoch, cfg.epoch):
         for batch in prefetch(trainloader, cfg.TPU.prefetch):
-            out = step(batch_to_device(batch.device_arrays, device),
+            out = step(batch_to_device(batch.device_arrays, device, feats_dtype(cfg)),
                        step_generator(cfg.aux.seed, global_step, device))
             save_results(train_ckpt, batch.vnames, batch.eval_labels,
                          _collect_video_saves(batch, out["pred"], out))

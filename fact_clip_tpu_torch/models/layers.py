@@ -43,10 +43,14 @@ fused cross-attention's projections on bf16 operands (K2's and K3's bf16
 forms), the out maps' stream bf16; the fused SA / FFN sublayers with bf16
 operands (K4's bf16 form), the unfused attention's q / k / v and the FFN's
 first dense bf16; softmax, LayerNorm, probabilities and logits f32.  The
-bf16 weight layouts sit in the modules' caches.  It serves only: a bf16
-module in train mode raises (ROADMAP M7 item 1).  Under ``set_kernels(False)``
-the bf16 paths run the kernels' plain bf16 versions, the fused branches
-still chosen by the configured kernel flags, as the int8 paths do.
+bf16 weight layouts sit in the modules' caches.  Where a gradient is
+wanted the kernels' bf16 training forms run (each a ``torch.autograd.
+Function`` with its bf16 backward); the bf16 denses, the BiGRU and the TDU
+go through PyTorch's autograd, whose cotangents of bf16 tensors are bf16,
+as JAX's.  A bf16 module in train mode with dropout above 0 raises (ROADMAP
+M7 item 5).  Under ``set_kernels(False)`` the bf16 paths run the kernels'
+plain bf16 versions (forward and backward), the fused branches still
+chosen by the configured kernel flags, as the int8 paths do.
 """
 
 from __future__ import annotations
@@ -60,19 +64,21 @@ from torch import nn
 from ..ops.bf16 import BF16, dense16, mm
 from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_fold, mstcn2_stack,
                                 mstcn2_stack_reference, mstcn_b16_pack, mstcn_stack,
-                                mstcn_stack16, mstcn_stack16_reference, mstcn_stack_reference)
+                                mstcn_stack16, mstcn_stack16_reference, mstcn_stack16_train,
+                                mstcn_stack_reference)
 from ..ops.masking import dropout
 from ..ops.mha_attn import (k3_b16_pack, k3_pack, mha_cross16_fwd, mha_cross16_reference,
-                            mha_cross_attention)
+                            mha_cross16_train, mha_cross_attention)
 from ..ops.pos import add_pos, positional_encoding_table  # noqa: F401  (re-exported)
 from ..ops.quant_conv import (dense_q8, mha_cross_q8, mha_cross_q8_reference, mstcn2_stack_q8,
                               mstcn2_stack_q8_reference, mstcn_stack_q8,
                               mstcn_stack_q8_reference, quantize_kv, quantize_tower, quantize_tower2,
                               quantize_x2y, x2y_attention_q8, x2y_attention_q8_reference)
 from ..ops.sa_layer import (ffn_sublayer, ffn_sublayer16_fwd, ffn_sublayer16_reference,
-                            sa_b16_pack, sa_sublayer, sa_sublayer16_fwd, sa_sublayer16_reference)
+                            ffn_sublayer16_train, sa_b16_pack, sa_sublayer, sa_sublayer16_fwd,
+                            sa_sublayer16_reference, sa_sublayer16_train)
 from ..ops.x2y_attn import (x2y_attention, x2y_attention16, x2y_attention16_reference,
-                            x2y_attention_reference, x2y_b16_pack)
+                            x2y_attention16_train, x2y_attention_reference, x2y_b16_pack)
 
 LN_EPS_ATTN = 1e-6  # flax LayerNorm default: SA/SCA sublayers and decoder norm
 LN_EPS_TOWER = 1e-5  # the MSTCN tower's LayerNorm
@@ -143,11 +149,20 @@ def _drop(module, generator, x, rate: float):
     return dropout(generator, x, rate)
 
 
-def _serving16(module):
-    """A bf16 module serves only: training in bf16 is a later slice."""
-    if module.training:
-        raise NotImplementedError(f"{type(module).__name__}: training in bf16 "
-                                  "(TPU.compute_dtype) is ROADMAP M7 item 1")
+def _check16(module, *rates):
+    """A bf16 module trains at rate 0 only: in train mode with dropout above
+    0 it raises before any launch (ROADMAP M7 item 5)."""
+    if module.training and any(r > 0.0 for r in (module.dropout, *rates)):
+        raise NotImplementedError(f"{type(module).__name__}: training in bf16 (TPU.compute_dtype) "
+                                  "with dropout > 0 is ROADMAP M7 item 5")
+
+
+def _wants_grad(module, *tensors) -> bool:
+    """A gradient must reach the module's parameters or these inputs: the
+    bf16 forms' training entries run (their serving forms record nothing)."""
+    return torch.is_grad_enabled() and (
+        any(t is not None and t.requires_grad for t in tensors)
+        or any(p.requires_grad for p in module.parameters()))
 
 
 def _seeds(generator, n: int, device):
@@ -262,15 +277,20 @@ class MSTCN(nn.Module, KernelLayout):
         """JAX's mixed-precision path (layers.py:353-421): the in map a bf16
         dense, the stream bf16, the tower (K1's bf16 form, its out projection
         inside) giving f32 logits."""
-        _serving16(self)
+        _check16(self)
         if self.in_map:
             x = dense16(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
-        layers = [l.kernel_layout() for l in self.layers]
-        ow, ob = self.kernel_layout()
+        train = _wants_grad(self, x)
+        layers = [l.layout() if train else l.kernel_layout() for l in self.layers]
+        ow, ob = self.layout() if train else self.kernel_layout()
         args = (x.to(BF16).contiguous(), lengths, layers, [l.dilation for l in self.layers])
+        packed = (self.cached("b16", lambda: mstcn_b16_pack(layers, ow))
+                  if x.is_cuda and self.use_kernel else None)
+        if train:  # the training form (K1's bf16 backward, or its plain version)
+            return mstcn_stack16_train(*args, out_w=ow, out_b=ob, plain=not self.use_kernel,
+                                       packed=packed)
         if not self.use_kernel:
             return mstcn_stack16_reference(*args, out_w=ow, out_b=ob)
-        packed = self.cached("b16", lambda: mstcn_b16_pack(layers, ow)) if x.is_cuda else None
         return mstcn_stack16(*args, out_w=ow, out_b=ob, packed=packed)
 
     def _forward_q8(self, x, lengths):
@@ -484,7 +504,7 @@ class MultiheadAttention(nn.Module, KernelLayout):
         where the configured kernel flag and JAX's conditions hold, else k and
         v bf16 denses (k of x + pos in f32), the logits, softmax and the
         attend sum over bf16 probabilities in f32; the out projection f32."""
-        _serving16(self)
+        _check16(self)
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         wq, wk, wv = self.proj_weights()
@@ -493,15 +513,19 @@ class MultiheadAttention(nn.Module, KernelLayout):
         B, M, _ = q.shape
         Nk = key.shape[1]
         if self.kernel_allowed and self._fuses(key, value):
-            _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.kernel_layout()
+            train = _wants_grad(self, q, value)
+            _, _, wk_t, bk_c, wv_t, bv_c, _, _ = self.layout() if train else self.kernel_layout()
             if key_len is None:
                 key_len = torch.full((B,), Nk, dtype=torch.int32, device=key.device)
             args = (q, value.to(BF16).contiguous(), None if key_pos is None else key_pos.to(BF16),
                     wk_t, bk_c, wv_t, bv_c, key_len)
+            packed = (self.cached("k3_16", lambda: k3_b16_pack(wk_t, wv_t))
+                      if key.is_cuda and self.use_kernel else None)
+            if train:  # the training form (K3's bf16 backward, or its plain version)
+                return self.out_proj(mha_cross16_train(*args, num_heads=H,
+                                                       plain=not self.use_kernel, packed=packed))
             if not self.use_kernel:
                 return self.out_proj(mha_cross16_reference(*args, num_heads=H))
-            packed = (self.cached("k3_16", lambda: k3_b16_pack(wk_t, wv_t)) if key.is_cuda
-                      else None)
             return self.out_proj(mha_cross16_fwd(*args, num_heads=H, packed=packed))
         k = dense16(add_pos(key.float(), key_pos), wk, bk).float().view(B, Nk, H, hd)
         v = dense16(value, wv, bv).float().view(B, Nk, H, hd)
@@ -566,12 +590,16 @@ class X2YMap(nn.Module, KernelLayout):
         its plain version without kernels) on bf16 x and y, then the split
         out map on bf16 operands in f32, emitted as the bf16 stream;
         probabilities and logits f32."""
-        _serving16(self)
-        layout = self.kernel_layout()
+        _check16(self)
+        train = _wants_grad(self, x, y)
+        layout = self.layout() if train else self.kernel_layout()
         args = (y.to(BF16).contiguous(), y_pos, x.to(BF16).contiguous(), x_pos, *layout, x_len)
-        if self.use_kernel:
-            packed = (self.cached("b16", lambda: x2y_b16_pack(*layout[0:6:2])) if x.is_cuda
-                      else None)
+        packed = (self.cached("b16", lambda: x2y_b16_pack(*layout[0:6:2]))
+                  if x.is_cuda and self.use_kernel else None)
+        if train:  # the training form (K2's bf16 backwards, or their plain version)
+            attn, probs, logits = x2y_attention16_train(*args, plain=not self.use_kernel,
+                                                        packed=packed)
+        elif self.use_kernel:
             attn, probs, logits = x2y_attention16(*args, packed=packed)
         else:
             attn, probs, logits = x2y_attention16_reference(*args)
@@ -613,12 +641,19 @@ def _fused_sublayers16(layer, attn, tgt, pos, norm_sa, norm_ffn, between=None):
     """K4's bf16 form (or its plain version without kernels): the SA and FFN
     sublayers on f32 x with bf16 operands inside (JAX's ``bf16=True``,
     layers.py:894-906)."""
-    _serving16(layer)
-    sa, ffn = layer.kernel_layout()
+    _check16(layer, attn.dropout)
+    train = _wants_grad(layer, tgt)
+    sa, ffn = layer.layout() if train else layer.kernel_layout()
     cuda = tgt.is_cuda and layer.use_kernel
-    if layer.use_kernel:
-        packs = layer.cached("b16", lambda: (sa_b16_pack(*sa[0:6:2]), ffn[0].to(BF16))) \
-            if cuda else (None, None)
+    packs = layer.cached("b16", lambda: (sa_b16_pack(*sa[0:6:2]), ffn[0].to(BF16))) \
+        if cuda else (None, None)
+    if train:  # the training forms (K4's bf16 backwards, or their plain versions)
+        plain = not layer.use_kernel
+        sa_fn = lambda *a, **k: sa_sublayer16_train(  # noqa: E731
+            *a, **k, plain=plain, packed=packs[0])
+        ffn_fn = lambda *a, **k: ffn_sublayer16_train(  # noqa: E731
+            *a, **k, plain=plain, packed=packs[1])
+    elif layer.use_kernel:
         sa_fn = lambda *a, **k: sa_sublayer16_fwd(*a, **k, packed=packs[0])  # noqa: E731
         ffn_fn = lambda *a, **k: ffn_sublayer16_fwd(*a, **k, packed=packs[1])  # noqa: E731
     else:

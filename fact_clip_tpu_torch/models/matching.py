@@ -12,8 +12,12 @@ on the device without gradient and crosses to the host, where
 * ``seq`` (transcript mode, where the tokens are the transcript): token k
   is segment k, with no cost computed.
 
+With ``matcher: auction`` both modes run on the device instead, through
+the port's Bertsekas auction (``ops/assignment.py``), with JAX's
+rarely-taken sequential fallback (``run_match``).  ``auto`` is ``host``.
+
 The result is ``seg2tok (B, S)``, the token index of each ground-truth
-segment.  The on-device auction (a TPU workaround) is not ported.
+segment.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
+
+from ..ops import assignment
 
 
 def soft_iou(a2f_attn, seg_label, seg_mask, frame_mask):
@@ -98,10 +104,56 @@ def o2m_host(cost: np.ndarray, transcript: np.ndarray, nsegs: np.ndarray) -> np.
     return out
 
 
+def resolve_matcher(matcher: str = "auto") -> str:
+    """``auto`` is the host's scipy in the port; ``auction`` the device's."""
+    matcher = matcher or "auto"
+    if matcher not in ("auto", "host", "auction"):
+        raise ValueError(f"unknown matcher {matcher!r} (auto, host or auction)")
+    return "host" if matcher == "auto" else matcher
+
+
+def run_match_auction(cost, transcript, seg_mask, mode: str, nclasses: int = None,
+                      phases: int = 1, stats=None):
+    """The device matching of JAX's ``run_match`` (matching.py:134-170) on a
+    batch: the auction of every video, then JAX's sequential fallback where
+    any video of the batch left a segment unassigned (else the picks with
+    -1 clamped to 0).  o2m: the auction over the classes present, then each
+    segment's cheapest token of its class.  seg2tok (B, S) int32; ``stats``,
+    a dict, receives the auction's per-video iterations."""
+    seg_mask = seg_mask.bool()
+    if mode == "o2o":
+        st, info = assignment.auction_assign(cost, seg_mask, safety_net=False, phases=phases,
+                                             with_stats=True)
+        if bool(((st < 0) & seg_mask).any()):
+            st = assignment.fallback_place(cost, seg_mask, st)
+        else:
+            st = torch.clamp(st, min=0)
+    elif mode == "o2m":
+        if nclasses is None:
+            raise ValueError("o2m on the device needs the class count")
+        t32 = transcript.to(torch.int32)
+        class_cost, present = assignment.o2m_class_cost(cost, t32, seg_mask, nclasses)
+        tfc, info = assignment.auction_assign(class_cost, present, safety_net=False,
+                                              phases=phases, with_stats=True)
+        if bool(((tfc < 0) & present).any()):
+            tfc = assignment.fallback_place(class_cost, present, tfc)
+        else:
+            tfc = torch.clamp(tfc, min=0)
+        st = assignment.o2m_stage2(cost, t32, seg_mask, tfc, present, nclasses,
+                                   class_cost=class_cost)
+    else:
+        raise ValueError(f"unknown match mode {mode!r}")
+    if stats is not None:
+        stats["iterations"] = info["iterations"]
+    return st
+
+
 def match(loss_cfg: dict, action_cprob, a2f_attn, transcript, seg_label, seg_mask,
-          frame_mask):
-    """Cost on the device, ``loss_cfg["match"]`` (o2o or o2m) on the host:
-    seg2tok (B, S) int64 on the inputs' device; ``seq`` is the identity
+          frame_mask, matcher: str = "auto", nclasses: int = None, phases: int = 1,
+          stats=None):
+    """The cost on the device, then ``loss_cfg["match"]`` (o2o or o2m) on the
+    host (``matcher`` host or auto) or on the device (auction): seg2tok (B,
+    S) int64 on the inputs' device; ``seq`` is the identity
     (matching.py:186-189)."""
     mode = loss_cfg["match"]
     if mode == "seq":
@@ -111,6 +163,11 @@ def match(loss_cfg: dict, action_cprob, a2f_attn, transcript, seg_label, seg_mas
         raise ValueError(f"unknown match mode {mode!r} (o2o, o2m or seq)")
     cost = match_cost(action_cprob, a2f_attn, transcript, seg_label, seg_mask, frame_mask,
                       float(loss_cfg["pc"]), float(loss_cfg["a2fc"]))
+    if resolve_matcher(matcher) == "auction":
+        with torch.no_grad():
+            st = run_match_auction(cost.float(), transcript, seg_mask, mode, nclasses, phases,
+                                   stats)
+        return st.to(torch.int64)
     cost = cost.float().cpu().numpy()
     nsegs = seg_mask.sum(dim=1).cpu().numpy()
     if mode == "o2o":

@@ -1106,15 +1106,19 @@ def mstcn_b16_pack(layers, out_w):
              for wd, bd, w1, b1, gamma, beta in layers], b16_pack(out_w, True))
 
 
-def mstcn_stack16_reference(x, lengths, layers, dilations, *, out_w, out_b):
+def mstcn_stack16_reference(x, lengths, layers, dilations, *, out_w, out_b, save=False):
     """Plain bf16 version of K1's tower (JAX's ``_stack_kernel`` under
     mixed precision, ``dilated_conv.py:266-308``): x (B, T, C) bf16, the
     stream bf16 between layers, per layer h = bf16(relu(conv3_d(x) + bd))
     with the three taps' f32 products added left, centre, right, then
     bf16(((h W1 + b1) + x) * mask); f32 logits bf16(stream) Wo + bo.  No
-    dropout or LayerNorm (serving; ``configs.bf16_refusal``)."""
+    dropout or LayerNorm (``configs.bf16_refusal``).  With ``save`` (the
+    training form) also the streams, the masked input and every layer's
+    output (L + 1, bf16), and each layer's bf16 ReLU output, as JAX's
+    ``_stack_proj_fwd`` keeps them."""
     mask = _frame_mask(x, lengths)
     h = x * mask
+    streams, acts = [h], []
     for (wd, bd, w1, b1, gamma, beta), d in zip(layers, dilations):
         hf = h.float()
         taps = wd.to(torch.bfloat16).float()
@@ -1123,20 +1127,68 @@ def mstcn_stack16_reference(x, lengths, layers, dilations, *, out_w, out_b):
         a = torch.relu(acc + bd).to(torch.bfloat16)
         z = a.float() @ w1.to(torch.bfloat16).float() + b1 + hf
         h = (z * mask.float()).to(torch.bfloat16)
-    return h.float() @ out_w.to(torch.bfloat16).float() + out_b
+        streams.append(h)
+        acts.append(a)
+    logits = h.float() @ out_w.to(torch.bfloat16).float() + out_b
+    return (logits, streams, acts) if save else logits
 
 
-def mstcn_stack16(x, lengths, layers, dilations, *, out_w, out_b, packed=None):
-    """K1's bf16 form (serving): the tower on the card (CUDA tensors) or its
-    plain version (CPU tensors).  x (B, T, C) bf16, lengths (B,) int32, the
-    layers in JAX's layout (f32, cast here: ``packed`` is
-    ``mstcn_b16_pack(layers, out_w)`` where the caller keeps it) -> f32
-    logits (B, T, O)."""
+def mstcn_stack16_bwd_reference(g, streams, acts, lengths, layers, dilations, *, out_w, out_b):
+    """Plain version of K1's bf16 backward (JAX's ``_stack_proj_bwd`` and
+    ``_stack_bwd_layer`` on bf16 streams, ``dilated_conv.py:540-845``), from
+    the training form's saves: g (B, T, O) the logits' cotangent, rounded to
+    bf16 as JAX's caller rounds it; the last layer's stream cotangent dz = (g
+    Wo^T) * mask in f32 (its sum db1, rounded to bf16 for the products);
+    every layer dc = (dh W1^T) * (a > 0) (its f32 sum dbd, bf16 for the
+    products), dx = bf16((sum_k dc[t + (1 - k) d] Wd[k]^T + dz) * mask), the
+    next layer's cotangent; the weight products of bf16 operands in f32,
+    rounded to bf16 (the weights were cast to bf16 before JAX's call), the
+    biases f32.  Returns (dx bf16, [(dwd, dbd, dw1, db1, dgamma, dbeta)],
+    dow, dob), every weight gradient f32 holding its bf16 value."""
+    rnd = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
+    x0 = streams[0]
+    valid = _frame_mask(x0, lengths).float()
+    n = len(layers)
+    glg = rnd(g)
+    y = streams[n].float()
+    dow = rnd(torch.einsum("btc,bto->co", y, glg))
+    dob = glg.sum(dim=(0, 1))
+    dz = (glg @ rnd(out_w).t()) * valid
+    dh, db1, gsrc = rnd(dz), dz.sum(dim=(0, 1)), rnd(dz)
+    dlayers = [None] * n
+    for i in reversed(range(n)):
+        wd, bd, w1, b1, gamma, beta = layers[i]
+        d = int(dilations[i])
+        if i < n - 1:
+            dh = gsrc = g_in.float() * valid
+            db1 = dh.sum(dim=(0, 1))
+        a = acts[i].float()
+        dc = (dh @ rnd(w1).t()) * (a > 0)
+        dc16 = rnd(dc)
+        taps = rnd(wd)
+        dx = sum(_shift(dc16, (1 - k) * d) @ taps[k].t() for k in range(3)) + gsrc
+        g_in = (dx * valid).to(torch.bfloat16)
+        xi = streams[i].float() * valid
+        dwd = torch.stack([torch.einsum("btc,bto->co", _shift(xi, (k - 1) * d), dc16)
+                           for k in range(3)])
+        dlayers[i] = (rnd(dwd), dc.sum(dim=(0, 1)), rnd(torch.einsum("btc,bto->co", a, dh)), db1,
+                      torch.zeros_like(gamma), torch.zeros_like(beta))
+    return g_in, dlayers, dow, dob
+
+
+def mstcn_stack16(x, lengths, layers, dilations, *, out_w, out_b, packed=None, save=False):
+    """K1's bf16 form: the tower on the card (CUDA tensors) or its plain
+    version (CPU tensors).  x (B, T, C) bf16, lengths (B,) int32, the layers
+    in JAX's layout (f32, cast here: ``packed`` is ``mstcn_b16_pack(layers,
+    out_w)`` where the caller keeps it) -> f32 logits (B, T, O); with
+    ``save`` (the training form) also the streams and ReLU outputs that the
+    backward reads (``mstcn_stack16_reference``'s)."""
     flat = [p for layer in layers for p in layer]
     _build.no_grad_inputs("mstcn_stack16", [x, out_w, out_b, *flat])
     if x.device.type == "cpu":
-        return mstcn_stack16_reference(x, lengths, layers, dilations, out_w=out_w, out_b=out_b)
-    out = _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed)
+        return mstcn_stack16_reference(x, lengths, layers, dilations, out_w=out_w, out_b=out_b,
+                                       save=save)
+    out = _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed, save)
     mstcn_stack16.launches += 1
     return out
 
@@ -1144,7 +1196,7 @@ def mstcn_stack16(x, lengths, layers, dilations, *, out_w, out_b, packed=None):
 mstcn_stack16.launches = 0
 
 
-def _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed=None):
+def _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed=None, save=False):
     """``mstcn_stack16``'s launches: per layer the conv3 (B16_RELU, three
     segments at shifts -d, 0, d) and the 1x1 with its residual (B16_RESID),
     then the logits (B16_LOGITS), the stream ping-ponging in bf16 (CPU
@@ -1167,13 +1219,173 @@ def _mstcn16_fwd_card(x, lengths, layers, dilations, out_w, out_b, packed=None):
                                            *[w for pk in packs for w in pk]], x.device, bf16=True)
     bufs, h = (torch.empty_like(x), torch.empty_like(x)), torch.empty_like(x)
     src = x
+    streams, acts = [], []
+    if save:  # the backward's first stream is the masked input, as JAX's (b16_round masks)
+        src = b16_round(x, lengths)[0]
+        streams.append(src)
     for i, ((wd, bd, w1, b1, gamma, beta), d, (conv, w1p)) in enumerate(
             zip(layers, dilations, packs)):
-        dst = bufs[i % 2]
+        if save:
+            dst, h = torch.empty_like(x), torch.empty_like(x)
+        else:
+            dst = bufs[i % 2]
         b16_gemm(B16_RELU, src, [-int(d), 0, int(d)], conv, C, lengths, h, kseg=b16_pad(C),
                  bias=bd)
         b16_gemm(B16_RESID, h, [0], w1p, C, lengths, dst, bias=b1, res=src)
+        if save:
+            streams.append(dst)
+            acts.append(h)
         src = dst
     logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     b16_gemm(B16_LOGITS, src, [0], owp, O, lengths, logits, bias=out_b)
-    return logits
+    return (logits, streams, acts) if save else logits
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward forms' shared launches (csrc/tc_bf16.cu)
+
+B16_ROUND_ROWS = 16  # frames a block of fk_b16_round (its column sums' blocks)
+
+
+def b16_round(src, lengths, *, gate=None, out: bool = True, sums: bool = False):
+    """One launch of ``fk_b16_round``: (bf16(src * (gate > 0)) with zeros at
+    frames at or past ``lengths`` (B, T, C), or None without ``out``; the
+    column sums (C,) of those f32 values, before the rounding, in a fixed
+    order (``_sums``), or None without ``sums``).  src (B, T, C) f32 or
+    bf16, gate (B, T, C) bf16 or None."""
+    B, T, C = src.shape
+    o = torch.empty(src.shape, device=src.device, dtype=torch.bfloat16) if out else None
+    part = _part(B * (-(-T // B16_ROUND_ROWS)), 1, C, src.device) if sums else None
+    _build.check_tensors("b16_round", [src, gate, lengths], src.device, bf16=True)
+    err = _build.lib().fk_b16_round(src.data_ptr(), int(src.dtype == torch.bfloat16), _ptr(gate),
+                                    lengths.data_ptr(), B, T, C, B16_ROUND_ROWS, _ptr(o),
+                                    _ptr(part), _build.stream_ptr(src.device))
+    _build.check("fk_b16_round", err)
+    return o, (_sums(part)[0] if sums else None)
+
+
+def b16_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
+    """``_k6_wgrad`` on bf16 operands (``fk_b16_wgrad``): sum_t A[b, t + s,
+    a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per shift s, rows
+    outside [0, lengths[b]) zero -> (len(shifts), Ca, Cb) f32, the partials
+    of K6_CHUNK frames of one video each summed in a fixed order."""
+    B, T, a_ch = A.shape
+    n_taps = len(shifts)
+    step = shifts[1] - shifts[0] if n_taps > 1 else 0
+    n_chunks = B * (-(-T // K6_CHUNK))
+    part = torch.empty((n_taps, n_chunks, Ca, Cb), device=A.device, dtype=torch.float32)
+    _build.check_tensors("b16_wgrad", [A, Bm, lengths], A.device, bf16=True)
+    err = _build.lib().fk_b16_wgrad(A.data_ptr(), a_ch, a_c0, Ca, Bm.data_ptr(), Bm.shape[2],
+                                    b_c0, Cb, lengths.data_ptr(), shifts[0], step, n_taps,
+                                    part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
+    _build.check("fk_b16_wgrad", err)
+    n = Ca * Cb
+    return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
+                        rstride=0, cols=n).view(n_taps, Ca, Cb)
+
+
+def _r16(w):
+    """A weight gradient rounded to bf16 (the dtype of the weight JAX's call
+    took), held in f32 as the parameter's gradient."""
+    return w.to(torch.bfloat16).float()
+
+
+def mstcn_stack16_bwd(g, streams, acts, lengths, layers, dilations, *, out_w, out_b):
+    """K1's bf16 backward on the card, from the training form's saves (the
+    plain version is ``mstcn_stack16_bwd_reference``)."""
+    out = _mstcn16_bwd_card(g, streams, acts, lengths, layers, dilations, out_w, out_b)
+    mstcn_stack16_bwd.launches += 1
+    return out
+
+
+mstcn_stack16_bwd.launches = 0
+
+
+def _mstcn16_bwd_card(g, streams, acts, lengths, layers, dilations, out_w, out_b):
+    """``mstcn_stack16_bwd``'s launches: the logits' cotangent rounded to
+    bf16, dz = g Wo^T on the bf16 GEMM (B16_PROJ, f32, zero past each video),
+    then per layer from the last: dz or the incoming cotangent rounded with
+    its f32 column sums (db1, ``fk_b16_round``), da = dh W1^T (B16_PROJ), dc
+    = bf16(da * (a > 0)) with dbd's sums (``fk_b16_round`` gated), dx =
+    bf16(sum of dc's three shifted taps Wd^T + dz) (B16_RESID, the weights
+    packed untransposed), the weight products dWd (three taps), dW1 and dWo
+    on ``fk_b16_wgrad`` (CPU tensors reach it only in the tests)."""
+    x = streams[0]
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    if x.dtype != torch.bfloat16 or not has_b16_kernels(C, O):
+        raise NotImplementedError(f"mstcn_stack16_bwd: no kernel for C={C}, O={O}")
+    _build.check_tensors("mstcn_stack16_bwd", [g, *streams, *acts, lengths], x.device, bf16=True)
+    n = len(layers)
+    glg = g.to(torch.bfloat16).contiguous()  # JAX's caller: g.astype(x.dtype)
+    full = torch.full_like(lengths, T)  # dob sums every frame's row, as JAX's kernel
+    _, dob = b16_round(glg, full, out=False, sums=True)
+    dow = _r16(b16_wgrad(streams[n], 0, C, glg, 0, O, lengths)[0])
+    dy = torch.empty((B, T, C), device=x.device, dtype=torch.float32)
+    b16_gemm(B16_PROJ, glg, [0], b16_pack(out_w), C, lengths, dy)
+    dh, db1 = b16_round(dy, lengths, sums=True)
+    gsrc = dh
+    dlayers = [None] * n
+    for i in reversed(range(n)):
+        wd, bd, w1, b1, gamma, beta = layers[i]
+        d = int(dilations[i])
+        if i < n - 1:
+            dh = gsrc = g_in
+            _, db1 = b16_round(g_in, lengths, out=False, sums=True)
+        da = torch.empty((B, T, C), device=x.device, dtype=torch.float32)
+        b16_gemm(B16_PROJ, dh, [0], b16_pack(w1), C, lengths, da)
+        dc, dbd = b16_round(da, lengths, gate=acts[i], sums=True)
+        del da
+        g_in = torch.empty_like(x)
+        # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s + (1-k)d]
+        b16_gemm(B16_RESID, dc, [d, 0, -d], b16_pack(torch.cat([wd[0], wd[1], wd[2]], dim=1),
+                                                     segs=3),
+                 C, lengths, g_in, kseg=b16_pad(C), res=gsrc)
+        dwd = _r16(b16_wgrad(streams[i], 0, C, dc, 0, C, lengths, shifts=(-d, 0, d)))
+        dw1 = _r16(b16_wgrad(acts[i], 0, C, dh, 0, C, lengths)[0])
+        dlayers[i] = (dwd, dbd, dw1, db1, torch.zeros_like(gamma), torch.zeros_like(beta))
+    return g_in, dlayers, dow, dob
+
+
+class _MSTCNStack16(torch.autograd.Function):
+    """K1's bf16 form for training: the training forward (its saves) and the
+    backward, the kernels' on CUDA tensors, the plain versions on CPU ones or
+    where ``plain`` (the card's plain path)."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, out_w, out_b, cfg, *flat):
+        dilations, plain, packed = cfg
+        layers = [tuple(flat[6 * i:6 * i + 6]) for i in range(len(dilations))]
+        if plain or x.device.type == "cpu":
+            out = mstcn_stack16_reference(x, lengths, layers, dilations, out_w=out_w,
+                                          out_b=out_b, save=True)
+        else:
+            out = mstcn_stack16(x, lengths, layers, dilations, out_w=out_w, out_b=out_b,
+                                packed=packed, save=True)
+        logits, streams, acts = out
+        ctx.cfg = (dilations, plain)
+        ctx.save_for_backward(lengths, out_w, out_b, *flat, *streams, *acts)
+        return logits
+
+    @staticmethod
+    def backward(ctx, g):
+        dilations, plain = ctx.cfg
+        L = len(dilations)
+        lengths, out_w, out_b, *rest = ctx.saved_tensors
+        flat, streams, acts = rest[:6 * L], rest[6 * L:7 * L + 1], rest[7 * L + 1:]
+        layers = [tuple(flat[6 * i:6 * i + 6]) for i in range(L)]
+        bwd = (mstcn_stack16_bwd_reference if plain or g.device.type == "cpu"
+               else mstcn_stack16_bwd)
+        dx, dlayers, dow, dob = bwd(g.contiguous(), list(streams), list(acts), lengths, layers,
+                                    dilations, out_w=out_w, out_b=out_b)
+        return (dx, None, dow, dob, None, *[t for layer in dlayers for t in layer])
+
+
+def mstcn_stack16_train(x, lengths, layers, dilations, *, out_w, out_b, plain=False,
+                        packed=None):
+    """The differentiable bf16 tower (rate 0): the kernels on CUDA tensors,
+    the plain versions on CPU ones or where ``plain``."""
+    flat = [p for layer in layers for p in layer]
+    cfg = (tuple(int(d) for d in dilations), bool(plain), packed)
+    return _MSTCNStack16.apply(x.contiguous(), lengths, out_w, out_b, cfg,
+                               *[p.contiguous() for p in flat])

@@ -53,7 +53,7 @@ from .. import _build
 from . import _grad
 from .bf16 import BF16, add_pos16, mm, rnd
 from .dilated_conv import (_MASKED, _ONE, _PROJ, B16_PROJ16, _k6_gemm, _k6_wgrad, b16_add_pos,
-                           b16_gemm, b16_pack, has_b16_kernels, k6_pack)
+                           b16_gemm, b16_pack, b16_wgrad, has_b16_kernels, k6_pack)
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos
 
@@ -424,7 +424,8 @@ def bf16_scale(hd: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(hd)).to(BF16))
 
 
-def mha_cross16_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int):
+def mha_cross16_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int,
+                          with_stats: bool = False):
     """Plain version of JAX's K3 under mixed precision (``mha_attn.py:80-118``):
     q (B, M, E) and x (B, X, Cx) bf16, x_pos bf16 or None, the weights f32
     (cast here).  The queries bf16(q * bf16(1/sqrt(hd))); k = bf16((x +
@@ -453,9 +454,13 @@ def mha_cross16_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: i
     p = torch.exp(lt - m_t)
     vt = torch.nn.functional.pad(v.view(B, X, H, hd), (0, 0, 0, 0, 0, pad))
     acc = torch.einsum("bhmtx,btxhd->bhmtd", rnd(p), vt.view(B, n_t, FWD_KEY_TILE, H, hd))
-    w = torch.exp(m_t - m_t.amax(dim=-2, keepdim=True))  # (B, H, M, n_t, 1)
-    out = (w * acc).sum(dim=-2) / (w[..., 0] * p.sum(dim=-1)).sum(dim=-1, keepdim=True)
-    return out.permute(0, 2, 1, 3).reshape(B, M, E)
+    m_g = m_t.amax(dim=-2, keepdim=True)
+    w = torch.exp(m_t - m_g)  # (B, H, M, n_t, 1)
+    l_g = (w[..., 0] * p.sum(dim=-1)).sum(dim=-1, keepdim=True)
+    out = ((w * acc).sum(dim=-2) / l_g).permute(0, 2, 1, 3).reshape(B, M, E)
+    if with_stats:  # the rows' softmax stats (B, H*M, 2): the max logit and the weights' sum
+        return out, torch.cat([m_g[..., 0, 0, None], l_g], dim=-1).reshape(B, H * M, 2)
+    return out
 
 
 def k3_b16_pack(wk, wv):
@@ -480,7 +485,22 @@ def mha_cross16_fwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, pa
 mha_cross16_fwd.launches = 0
 
 
-def _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed=None):
+def _project16(x_in, x_pos, bk, bv, x_len, wkp, wvp):
+    """K3's bf16 K and V, both directions': bf16(x + pos) (``fk_b16_add_pos``),
+    then one (B, X, 2E) bf16 buffer on the bf16 GEMM (B16_PROJ16, zero past
+    the attended length).  Returns (bf16(x + pos), kv, the attended lengths)."""
+    B, X, _ = x_in.shape
+    E = wkp.shape[0]
+    xin = b16_add_pos(x_in, None if x_pos is None else x_pos.to(BF16))
+    lens = attended_lengths(x_len, X)
+    kv = torch.empty((B, X, 2 * E), device=x_in.device, dtype=BF16)
+    b16_gemm(B16_PROJ16, xin, [0], wkp, E, lens, kv, ldo=2 * E, bias=bk)
+    b16_gemm(B16_PROJ16, x_in, [0], wvp, E, lens, kv, ldo=2 * E, col_off=E, bias=bv)
+    return xin, kv, lens
+
+
+def _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed=None,
+                    with_stats: bool = False):
     """``mha_cross16_fwd``'s launches: bf16(x + pos) (``fk_b16_add_pos``), K
     and V on the bf16 GEMM into one (B, X, 2E) bf16 buffer (B16_PROJ16, zero
     past the attended length), then the attention in f32 on the bf16 keys,
@@ -500,19 +520,168 @@ def _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed=Non
         raise NotImplementedError(f"mha_cross16_fwd: no forward kernel for M={M}, E={E}, H={H}")
     wkp, wvp = k3_b16_pack(wk, wv) if packed is None else packed
     _build.check_tensors("mha_cross16_fwd", [wkp, wvp], x_in.device, bf16=True)
-    xin = b16_add_pos(x_in, None if x_pos is None else x_pos.to(BF16))
-    lens = attended_lengths(x_len, X)
-    kv = torch.empty((B, X, 2 * E), device=x_in.device, dtype=BF16)
-    b16_gemm(B16_PROJ16, xin, [0], wkp, E, lens, kv, ldo=2 * E, bias=bk)
-    b16_gemm(B16_PROJ16, x_in, [0], wvp, E, lens, kv, ldo=2 * E, col_off=E, bias=bv)
+    _, kv, _ = _project16(x_in, x_pos, bk, bv, x_len, wkp, wvp)
     qs = (q.float() * bf16_scale(hd)).to(BF16)
     n_t = -(-X // FWD_KEY_TILE)
     f32 = dict(device=x_in.device, dtype=torch.float32)
     part_acc = torch.empty((B, n_t, H * M, hd), **f32)
     part_ml = torch.empty((B, n_t, H * M, 2), **f32)
     out = torch.empty((B, M, E), **f32)
+    if with_stats:  # the training form: the combine also writes the rows' stats
+        stats = torch.empty((B, H * M, 2), **f32)
+        err = _build.lib().fk_k3_attn16s(kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M,
+                                         H, hd, part_acc.data_ptr(), part_ml.data_ptr(),
+                                         out.data_ptr(), stats.data_ptr(),
+                                         _build.stream_ptr(x_in.device))
+        _build.check("fk_k3_attn16s", err)
+        return out, stats
     err = _build.lib().fk_k3_attn16(kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M, H,
                                     hd, part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
                                     _build.stream_ptr(x_in.device))
     _build.check("fk_k3_attn16", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 backward form (training)
+
+
+def mha_cross16_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *,
+                              num_heads: int):
+    """Plain version of K3's bf16 backward (JAX's ``_mha_bwd`` on bf16
+    operands, mha_attn.py:386-525), from the training form's saves (the rows'
+    stats and the f32 output): the queries bf16(q * bf16(1/sqrt(hd))), k and
+    v recomputed as the forward's; p from the stats in f32; g rounded to
+    bf16 for its products; D = rowsum(g * out) in f32; dl = p (dp - D) (0 at
+    keys at or past x_len) rounded to bf16, as p is for dV; dq = bf16((dl k)
+    / sqrt(hd)) with the f32 scale; dK and dV rounded to bf16, their sums (the
+    bias gradients) f32; dx = bf16(dK Wk^T + dV Wv^T) and dWk = bf16(x +
+    pos)^T dK, dWv = x^T dV rounded to bf16.  Returns the cotangents of (q,
+    x_in, x_pos, wk, bk, wv, bv), None for the constant x_pos."""
+    B, X, _ = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    qs = rnd(q.float() * bf16_scale(hd)).view(B, M, H, hd)
+    xin = add_pos16(x_in, None if x_pos is None else x_pos.to(BF16)).float()
+    wk16, wv16 = rnd(wk), rnd(wv)
+    k = rnd(xin @ wk16 + bk).view(B, X, H, hd)
+    v = rnd(x_in.float() @ wv16 + bv).view(B, X, H, hd)
+    valid = torch.arange(X, device=x_in.device)[None, None, None, :] < x_len[:, None, None, None]
+    logits = torch.einsum("bmhd,bxhd->bhmx", qs, k).masked_fill(~valid, _NEG)
+    st = stats.view(B, H, M, 2)
+    p = torch.exp(logits - st[..., :1]) * (1.0 / st[..., 1:].clamp_min(1e-30))
+    g16 = rnd(g).view(B, M, H, hd)
+    dp = torch.einsum("bmhd,bxhd->bhmx", g16, v)
+    D = _row_term(g, out, H).view(B, H, M, 1)
+    dl = rnd(torch.where(valid, p * (dp - D), 0.0))
+    dq = rnd(torch.einsum("bhmx,bxhd->bmhd", dl, k).reshape(B, M, E) * (1.0 / math.sqrt(hd)))
+    dk = torch.einsum("bhmx,bmhd->bxhd", dl, qs).reshape(B, X, E)
+    dv = torch.einsum("bhmx,bmhd->bxhd", rnd(p), g16).reshape(B, X, E)
+    dk16, dv16 = rnd(dk), rnd(dv)
+    dx = (dk16 @ wk16.t() + dv16 @ wv16.t()).to(BF16)
+    return (dq.to(BF16), dx, None, rnd(torch.einsum("bxc,bxe->ce", xin, dk16)),
+            dk.sum(dim=(0, 1)), rnd(torch.einsum("bxc,bxe->ce", x_in.float(), dv16)),
+            dv.sum(dim=(0, 1)))
+
+
+def mha_cross16_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, *, num_heads: int,
+                    packed=None):
+    """K3's bf16 backward on the card (the plain version is
+    ``mha_cross16_bwd_reference``)."""
+    grads = _mha16_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads,
+                            packed)
+    mha_cross16_bwd.launches += 1
+    return grads
+
+
+mha_cross16_bwd.launches = 0
+
+
+def _mha16_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_heads,
+                    packed=None):
+    """``mha_cross16_bwd``'s launches: bf16(x + pos), K and V recomputed on
+    the bf16 GEMM (B16_PROJ16, as the forward), the attention backward
+    (``fk_k3_attn_bwd16``: K3's kernel on bf16 keys, values and scaled
+    queries, with JAX's roundings, writing dKV in bf16), dx = bf16(dKV [Wk |
+    Wv]^T) on the bf16 GEMM (B16_PROJ16, the weights packed untransposed),
+    dWk and dWv on ``fk_b16_wgrad``, dq's tile shares and the bias sums in a
+    fixed order."""
+    B, X, Cx = x_in.shape
+    M, E = q.shape[1], wk.shape[1]
+    H = num_heads
+    hd = E // H
+    _check("mha_cross16_bwd", q, x_in, wk, bk, wv, bv, x_len, H, bf16=True)
+    if not has_b16_kernels(Cx, E):
+        raise NotImplementedError(f"mha_cross16_bwd: no kernel for Cx={Cx}, E={E}")
+    tile = bwd_key_tile(M, E, H)
+    if tile is None:
+        raise NotImplementedError(f"mha_cross16_bwd: no backward kernel for M={M}, E={E}, H={H}")
+    wkp, wvp = k3_b16_pack(wk, wv) if packed is None else packed
+    g = g.contiguous()
+    _build.check_tensors("mha_cross16_bwd", [stats, out, g, wkp, wvp], x_in.device, bf16=True)
+    D = _row_term(g, out, H).contiguous()
+    xin, kv, lens = _project16(x_in, x_pos, bk, bv, x_len, wkp, wvp)
+    qs = (q.float() * bf16_scale(hd)).to(BF16)
+    n_slots = -(-(-(-X // tile)) // K3_SUM_GROUP) * K3_SUM_GROUP
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    dkv = torch.empty((B, X, 2 * E), device=x_in.device, dtype=BF16)
+    part_dq = torch.zeros((B, n_slots, M * E), **f32)
+    part_b = torch.zeros((B, n_slots, 2 * E), **f32)
+    err = _build.lib().fk_k3_attn_bwd16(
+        kv.data_ptr(), qs.data_ptr(), g.data_ptr(), stats.data_ptr(), D.data_ptr(),
+        x_len.data_ptr(), B, X, M, H, hd, dkv.data_ptr(), part_dq.data_ptr(), part_b.data_ptr(),
+        n_slots, tile, _build.stream_ptr(x_in.device))
+    _build.check("fk_k3_attn_bwd16", err)
+    del kv
+    dx = torch.empty_like(x_in)
+    b16_gemm(B16_PROJ16, dkv, [0], b16_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
+    d_wk = rnd(b16_wgrad(xin, 0, Cx, dkv, 0, E, lens)[0])
+    d_wv = rnd(b16_wgrad(x_in, 0, Cx, dkv, E, E, lens)[0])
+    dq = (_grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
+          * (1.0 / math.sqrt(hd))).to(BF16)
+    d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]
+    return dq, dx, None, d_wk, d_b[:E], d_wv, d_b[E:]
+
+
+class _MHA16(torch.autograd.Function):
+    """K3's bf16 form for training (rate 0): the forward saves its output and
+    the rows' softmax stats; the kernels on CUDA tensors, the plain versions
+    on CPU ones or where ``plain``."""
+
+    @staticmethod
+    def forward(ctx, q, x_in, x_pos, wk, bk, wv, bv, x_len, cfg):
+        num_heads, plain, packed = cfg
+        args = (q, x_in, x_pos, wk, bk, wv, bv, x_len)
+        if plain or x_in.device.type == "cpu":
+            out, stats = mha_cross16_reference(*args, num_heads=num_heads, with_stats=True)
+        else:
+            out, stats = _mha16_fwd_card(*args, num_heads, packed, with_stats=True)
+            mha_cross16_fwd.launches += 1
+        ctx.cfg = cfg
+        ctx.save_for_backward(*args, stats, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, plain, packed = ctx.cfg
+        q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out = ctx.saved_tensors
+        if plain or g.device.type == "cpu":
+            grads = mha_cross16_bwd_reference(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out,
+                                              g.contiguous(), num_heads=num_heads)
+        else:
+            grads = mha_cross16_bwd(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out,
+                                    g.contiguous(), num_heads=num_heads, packed=packed)
+        return (*grads, None, None)
+
+
+def mha_cross16_train(q, x_in, x_pos, wk, bk, wv, bv, x_len, *, num_heads: int, plain=False,
+                      packed=None):
+    """The differentiable bf16 K3 (rate 0): q, x bf16, the key positional
+    term a constant (JAX's pos_grad=False)."""
+    if x_pos is not None and x_pos.requires_grad:
+        raise NotImplementedError("mha_cross16_train: the key positional term is a constant")
+    if x_in.device.type != "cpu" and not plain:
+        _build.require_backward("mha_cross16", has_backward(q.shape[1], wk.shape[1], num_heads))
+    return _MHA16.apply(q.contiguous(), x_in.contiguous(), x_pos, wk, bk, wv, bv, x_len,
+                        (int(num_heads), bool(plain), packed))

@@ -30,12 +30,14 @@ the kernels' wrappers beside their plain versions.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import _grad
 from .bf16 import BF16, mm, rnd
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos, pos_grad
@@ -704,3 +706,249 @@ def _ffn16_fwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, packed=None):
                            y.data_ptr(), B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
     _build.check("fk_ffn_fwd16", err)
     return y
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 backward forms (training, rate 0)
+
+
+def sa_sublayer16_bwd_reference(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
+                                num_heads: int, eps: float = LN_EPS):
+    """Plain version of JAX's SA backward with ``bf16=True`` (``_sa_bwd_kernel``,
+    sa_layer.py:159-226, no dropout): the forward recomputed as
+    ``sa_sublayer16_reference`` (a = bf16(x + pos), bf16 q, k, v, the f32
+    softmax P, the context bf16(P) v), the out projection, residual and
+    LayerNorm backward in f32; dO = dres Wo^T; dV = bf16(P)^T dO, dP = dO
+    v^T, dS = P (dP - rowsum(P dP)) / sqrt(hd) rounded to bf16, dq = dS k, dk
+    = dS^T q; dqk = [dq | dk] and dv rounded to bf16 for their products: dx =
+    dres + bf16(dqk) [Wq | Wk]^T + bf16(dv) Wv^T (bf16 weights), dWqk = a^T
+    bf16(dqk), dWv = bf16(x)^T bf16(dv); the bias sums of the unrounded
+    cotangents.  Every gradient f32 (JAX's kernel accumulates them so): the
+    cotangents of (x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale,
+    ln_bias)."""
+    B, M, E = x.shape
+    H = num_heads
+    hd = E // H
+    scale = 1.0 / math.sqrt(hd)
+    a = rnd(add_pos(x, pos))
+    wq16, wk16, wv16 = rnd(wq), rnd(wk), rnd(wv)
+    q = rnd(rnd(a @ wq16) + rnd(bq)).view(B, M, H, hd)
+    k = rnd(rnd(a @ wk16) + rnd(bk)).view(B, M, H, hd)
+    v = rnd(rnd(rnd(x) @ wv16) + rnd(bv)).view(B, M, H, hd)
+    s = torch.einsum("bmhd,bnhd->bhmn", q, k) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    p16 = rnd(p)
+    c = torch.einsum("bhmn,bnhd->bmhd", p16, v).reshape(B, M, E)
+    res = x + (c @ wo + bo)
+    dres, dgamma, dbeta = _ln_backward(res, g, ln_scale, eps)
+    dO = (dres @ wo.t()).view(B, M, H, hd)
+    dv = torch.einsum("bhmn,bmhd->bnhd", p16, dO).reshape(B, M, E)
+    dp = torch.einsum("bmhd,bnhd->bhmn", dO, v)
+    ds = rnd(p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale)
+    dq = torch.einsum("bhmn,bnhd->bmhd", ds, k).reshape(B, M, E)
+    dk = torch.einsum("bhmn,bmhd->bnhd", ds, q).reshape(B, M, E)
+    dq16, dk16, dv16 = rnd(dq), rnd(dk), rnd(dv)
+    dxa = dq16 @ wq16.t() + dk16 @ wk16.t()
+    wgrad = lambda A, Bm: torch.einsum("bmc,bme->ce", A, Bm)  # noqa: E731
+    return (dres + dxa + dv16 @ wv16.t(), pos_grad(dxa, pos), wgrad(a, dq16), dq.sum(dim=(0, 1)),
+            wgrad(a, dk16), dk.sum(dim=(0, 1)), wgrad(rnd(x), dv16), dv.sum(dim=(0, 1)),
+            wgrad(c, dres), dres.sum(dim=(0, 1)), dgamma, dbeta)
+
+
+def sa_sublayer16_bwd(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, *,
+                      num_heads: int, eps: float = LN_EPS, packed=None):
+    """The SA sublayer's bf16 backward on the card (the plain version is
+    ``sa_sublayer16_bwd_reference``)."""
+    grads = _sa16_bwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g,
+                           num_heads, eps, packed)
+    sa_sublayer16_bwd.launches += 1
+    return grads
+
+
+sa_sublayer16_bwd.launches = 0
+
+
+def _sa16_bwd_card(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, g, num_heads,
+                   eps, packed=None):
+    """``sa_sublayer16_bwd``'s one library call (``csrc/sa_layer.cu::
+    fk_sa_bwd16``, nine launches: q | k | v and the context as the bf16
+    forward's, c Wo, the LayerNorm backward, dres Wo^T, the attention's
+    cotangents per (head, video), dxa and dx, the weight products), then
+    the bias, LayerNorm and positional sums in a fixed order (``fk_reduce``)."""
+    B, M, E = x.shape
+    H = num_heads
+    w16 = sa_b16_pack(wq, wk, wv) if packed is None else packed
+    pos_t, Pp = _check_sa("sa_sublayer16_bwd", x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale,
+                          ln_bias, num_heads)
+    if not has_forward(M, E, H) or 4 * (4 * M * (E // H + 1) + 2 * M * M) > _build.MAX_SMEM:
+        raise NotImplementedError(f"sa_sublayer16_bwd: no kernel for M={M}, E={E}, H={H}")
+    x, g = _aligned(x), _aligned(g)
+    woT = wo.t().contiguous()
+    wqkT = torch.cat([wq, wk], dim=1).t().to(BF16).contiguous()
+    wvT = wv.t().to(BF16).contiguous()
+    _build.check_tensors("sa_sublayer16_bwd", [g, woT, wqkT, wvT, *w16], x.device, bf16=True)
+    R = B * M
+    f32 = dict(device=x.device, dtype=torch.float32)
+    qkv = torch.empty((B, 3, M, E), device=x.device, dtype=BF16)
+    c, t, dres, dout, dO, dxa, dx = (torch.empty((R, E), **f32) for _ in range(7))
+    grads, grads_r = torch.empty((R, 3 * E), **f32), torch.empty((R, 3 * E), **f32)
+    tiles = -(-R // 16)
+    part = torch.empty((tiles, 2, E), **f32)
+    dw = torch.empty(4 * E * E, **f32)
+    err = _build.lib().fk_sa_bwd16(
+        x.data_ptr(), _ptr(pos_t), Pp, w16[0].data_ptr(), bq.data_ptr(), w16[1].data_ptr(),
+        bk.data_ptr(), w16[2].data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        ln_scale.data_ptr(), woT.data_ptr(), wqkT.data_ptr(), wvT.data_ptr(), g.data_ptr(),
+        qkv.data_ptr(), c.data_ptr(), t.data_ptr(), dres.data_ptr(), dout.data_ptr(),
+        dO.data_ptr(), grads.data_ptr(), grads_r.data_ptr(), dxa.data_ptr(), part.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), B, M, E, H, float(eps), _build.stream_ptr(x.device))
+    _build.check("fk_sa_bwd16", err)
+    sums = _grad.reduce(grads, G=1, P=R, pstride=3 * E, gstride=0, rows=1, rstride=0,
+                        cols=3 * E)[0, 0]
+    dbo = _grad.reduce(dres, G=1, P=R, pstride=E, gstride=0, rows=1, rstride=0, cols=E)[0, 0]
+    ln = _grad.reduce(part, G=1, P=tiles, pstride=2 * E, gstride=0, rows=2, rstride=E,
+                      cols=E)[0]
+    dpos = None
+    if pos is not None:
+        dpos = pos_grad(_grad.batch_sum(dxa.view(B, M, E), Pp), pos)
+    dwqk = dw[:2 * E * E].view(E, 2 * E)
+    return (dx.view(B, M, E), dpos, dwqk[:, :E], sums[:E], dwqk[:, E:], sums[E:2 * E],
+            dw[2 * E * E:3 * E * E].view(E, E), sums[2 * E:], dw[3 * E * E:].view(E, E), dbo,
+            ln[0], ln[1])
+
+
+def ffn_sublayer16_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *,
+                                 eps: float = LN_EPS):
+    """Plain version of JAX's FFN backward with ``bf16=True``
+    (``_ffn_bwd_kernel`` and ``_ffn_bwd``, sa_layer.py:254-299, :449-495, no
+    dropout): z1 = bf16(bf16(bf16(x) W1) + bf16(b1)) as the forward's, the
+    rest of the forward and the LayerNorm backward in f32; dz1 = (dt2 W2^T) *
+    (z1 > 0) in f32, dx = dres + bf16(dz1) bf16(W1)^T; dW1 = bf16(x)^T
+    bf16(dz1) and dW2 = relu(z1)^T dt2 in f32, the bias sums of the unrounded
+    cotangents: the cotangents of (x, w1, b1, w2, b2, ln_scale, ln_bias)."""
+    E = x.shape[-1]
+    Fd = w1.shape[1]
+    w1r = rnd(w1)
+    z1 = rnd(rnd(rnd(x) @ w1r) + rnd(b1))
+    h = torch.relu(z1)
+    res = x + (h @ w2 + b2)
+    dres, dgamma, dbeta = _ln_backward(res, g, ln_scale, eps)
+    dz1 = torch.where(z1 > 0, dres @ w2.t(), 0.0)
+    dx = dres + rnd(dz1) @ w1r.t()
+    return (dx, rnd(x).reshape(-1, E).t() @ rnd(dz1).reshape(-1, Fd), dz1.sum(dim=(0, 1)),
+            h.reshape(-1, Fd).t() @ dres.reshape(-1, E), dres.sum(dim=(0, 1)), dgamma, dbeta)
+
+
+def ffn_sublayer16_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, g, *, eps: float = LN_EPS,
+                       packed=None):
+    """The FFN sublayer's bf16 backward on the card (the plain version is
+    ``ffn_sublayer16_bwd_reference``)."""
+    grads = _ffn16_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, packed)
+    ffn_sublayer16_bwd.launches += 1
+    return grads
+
+
+ffn_sublayer16_bwd.launches = 0
+
+
+def _ffn16_bwd_card(x, w1, b1, w2, b2, ln_scale, ln_bias, g, eps, packed=None):
+    """``ffn_sublayer16_bwd``'s one library call (``fk_ffn_bwd16``: the f32
+    form's six launches with the bf16 roundings), read back as
+    ``_ffn_bwd_card`` reads its workspace; dW1 = bf16(x)^T bf16(dz1) and the
+    other weight products outside the kernels, as JAX's wrapper computes
+    them (sa_layer.py:478-495)."""
+    weights = [w1, b1, w2, b2, ln_scale, ln_bias]
+    B, M, E = x.shape
+    Fd = w1.shape[1]
+    _check_ffn("ffn_sublayer16_bwd", x, *weights)
+    w1h = w1.to(BF16).contiguous() if packed is None else packed
+    w1r = w1h.float()
+    x, g = _aligned(x), _aligned(g)
+    _build.check_tensors("ffn_sublayer16_bwd", [g, w1h, w1r], x.device, bf16=True)
+    R, E1, F1 = B * M, E + 1, Fd + 1
+    lib = _build.lib()
+    total, o_dx, o_lhs, ldl, o_rhs, ldr, o_dgb = _build.workspace(
+        lib, "fk_ffn_bwd_workspace", 7, B, M, E, Fd)
+    ws = torch.empty(total, device=x.device, dtype=torch.float32)
+    err = lib.fk_ffn_bwd16(x.data_ptr(), w1h.data_ptr(), w1r.data_ptr(), b1.data_ptr(),
+                           w2.data_ptr(), b2.data_ptr(), ln_scale.data_ptr(), g.data_ptr(),
+                           ws.data_ptr(), B, M, E, Fd, float(eps), _build.stream_ptr(x.device))
+    _build.check("fk_ffn_bwd16", err)
+    dw = torch.bmm(ws.as_strided((2, F1, R), (R * ldl, 1, ldl), o_lhs),
+                   ws.as_strided((2, R, E1), (R * ldr, ldr, 1), o_rhs))
+    dz1 = ws.as_strided((R, Fd), (ldl, 1), o_lhs)
+    dw1 = rnd(x.view(R, E)).t() @ rnd(dz1)
+    return (ws.as_strided((B, M, E), (M * E, E, 1), o_dx), dw1,
+            dw.as_strided((Fd,), (E1,), E), dw.as_strided((Fd, E), (E1, 1), F1 * E1),
+            dw.as_strided((E,), (1,), F1 * E1 + Fd * E1),
+            *ws.as_strided((2, E), (E, 1), o_dgb).unbind(0))
+
+
+class _SA16(torch.autograd.Function):
+    """The SA sublayer's bf16 form for training (rate 0): the kernels on
+    CUDA tensors, the plain versions on CPU ones or where ``plain``."""
+
+    @staticmethod
+    def forward(ctx, x, pos, cfg, *weights):
+        num_heads, eps, plain, packed = cfg
+        if plain or x.device.type == "cpu":
+            y = sa_sublayer16_reference(x, pos, *weights, num_heads=num_heads, eps=eps)
+        else:
+            y = sa_sublayer16_fwd(x, pos, *weights, num_heads=num_heads, eps=eps, packed=packed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, pos, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps, plain, packed = ctx.cfg
+        x, pos, *weights = ctx.saved_tensors
+        if plain or g.device.type == "cpu":
+            dx, dpos, *dw = sa_sublayer16_bwd_reference(x, pos, *weights, g.contiguous(),
+                                                        num_heads=num_heads, eps=eps)
+        else:
+            dx, dpos, *dw = sa_sublayer16_bwd(x, pos, *weights, g.contiguous(),
+                                              num_heads=num_heads, eps=eps, packed=packed)
+        return (dx, dpos, None, *dw)
+
+
+class _FFN16(torch.autograd.Function):
+    """The FFN sublayer's bf16 form for training (rate 0), as ``_SA16``."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, *weights):
+        eps, plain, packed = cfg
+        if plain or x.device.type == "cpu":
+            y = ffn_sublayer16_reference(x, *weights, eps=eps)
+        else:
+            y = ffn_sublayer16_fwd(x, *weights, eps=eps, packed=packed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, plain, packed = ctx.cfg
+        x, *weights = ctx.saved_tensors
+        fn = (ffn_sublayer16_bwd_reference if plain or g.device.type == "cpu"
+              else functools.partial(ffn_sublayer16_bwd, packed=packed))
+        grads = fn(x, *weights, g.contiguous(), eps=eps)
+        return (grads[0], None, *grads[1:])
+
+
+def sa_sublayer16_train(x, pos, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, *,
+                        num_heads: int, eps: float = LN_EPS, plain=False, packed=None):
+    """The differentiable bf16 SA sublayer (rate 0)."""
+    if x.device.type != "cpu" and not plain:
+        _build.require_backward("sa_sublayer16", has_forward(x.shape[1], x.shape[2], num_heads))
+    cfg = (int(num_heads), float(eps), bool(plain), packed)
+    return _SA16.apply(x.contiguous(), pos, cfg, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale,
+                       ln_bias)
+
+
+def ffn_sublayer16_train(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps: float = LN_EPS,
+                         plain=False, packed=None):
+    """The differentiable bf16 FFN sublayer (rate 0)."""
+    return _FFN16.apply(x.contiguous(), (float(eps), bool(plain), packed), w1, b1, w2, b2,
+                        ln_scale, ln_bias)

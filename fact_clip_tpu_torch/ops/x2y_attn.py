@@ -47,8 +47,9 @@ import torch
 from .. import _build
 from . import _grad
 from .bf16 import BF16, add_pos16, mm, rnd
-from .dilated_conv import (_MASKED, _ONE, B16_PROJ, B16_PROJ_RND, K6_CHUNK, _k6_gemm, _k6_wgrad,
-                           b16_add_pos, b16_gemm, b16_pack, has_b16_kernels, k6_pack)
+from .dilated_conv import (_MASKED, _ONE, B16_PROJ, B16_PROJ16, B16_PROJ_RND, K6_CHUNK, _k6_gemm,
+                           _k6_wgrad, b16_add_pos, b16_gemm, b16_pack, b16_round, b16_wgrad,
+                           has_b16_kernels, k6_pack)
 from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -697,6 +698,41 @@ def _check16(name, y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, packed):
     return packed
 
 
+def _sx16_project(y_in, y_pos, x_in, x_pos, bk, bv, bq, x_len, wkp, wvp, wqp):
+    """The small-X bf16 form's projections, both directions': y + y_pos and
+    x + x_pos rounded to bf16 (``fk_b16_add_pos``), yq (B16_PROJ, f32) and
+    [xk | xv] (B16_PROJ_RND: the product rounded to bf16, then the f32
+    bias; zero past the attended length) on the bf16 GEMM.  Returns (bf16(y
+    + y_pos), bf16(x + x_pos), yq, kv, the attended lengths)."""
+    B, Y, _ = y_in.shape
+    X = x_in.shape[1]
+    d = wqp.shape[0]
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    yin, xin = b16_add_pos(y_in, _pos16(y_pos)), b16_add_pos(x_in, _pos16(x_pos))
+    yq = torch.empty((B, Y, d), **f32)
+    kv = torch.empty((B, X, 2 * d), **f32)
+    lens = attended_lengths(x_len, X)
+    b16_gemm(B16_PROJ, yin, [0], wqp, d, torch.full_like(x_len, Y), yq, bias=bq)
+    b16_gemm(B16_PROJ_RND, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
+    b16_gemm(B16_PROJ_RND, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
+    return yin, xin, yq, kv, lens
+
+
+def _flash16_project(x_in, x_pos, bk, bv, x_len, wkp, wvp):
+    """The flash bf16 form's [xk | xv], both directions': x + x_pos rounded
+    to bf16 (``fk_b16_add_pos``), then f32 results on the bf16 GEMM
+    (B16_PROJ, zero past the attended length).  Returns (bf16(x + x_pos),
+    kv, the attended lengths)."""
+    B, X, _ = x_in.shape
+    d = wkp.shape[0]
+    xin = b16_add_pos(x_in, _pos16(x_pos))
+    lens = attended_lengths(x_len, X)
+    kv = torch.empty((B, X, 2 * d), device=x_in.device, dtype=torch.float32)
+    b16_gemm(B16_PROJ, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
+    b16_gemm(B16_PROJ, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
+    return xin, kv, lens
+
+
 def _x2y_small_x16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, packed=None):
     """``x2y_small_x16_fwd``'s launches (CPU tensors reach it only in the
     tests, which stand a model of the kernels' C interface in for the
@@ -714,13 +750,7 @@ def _x2y_small_x16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
     if sx_smem(X, d) > _build.MAX_SMEM:
         raise NotImplementedError(f"x2y_small_x16_fwd: no kernel for X={X}, d={d}")
     f32 = dict(device=x_in.device, dtype=torch.float32)
-    yin, xin = b16_add_pos(y_in, _pos16(y_pos)), b16_add_pos(x_in, _pos16(x_pos))
-    yq = torch.empty((B, Y, d), **f32)
-    kv = torch.empty((B, X, 2 * d), **f32)
-    lens = attended_lengths(x_len, X)
-    b16_gemm(B16_PROJ, yin, [0], wqp, d, torch.full_like(x_len, Y), yq, bias=bq)
-    b16_gemm(B16_PROJ_RND, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
-    b16_gemm(B16_PROJ_RND, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
+    _, _, yq, kv, _ = _sx16_project(y_in, y_pos, x_in, x_pos, bk, bv, bq, x_len, wkp, wvp, wqp)
     attn = torch.empty((B, Y, d), **f32)
     probs = torch.empty((B, Y, X), **f32)
     logits = torch.empty((B, Y, X), **f32)
@@ -744,12 +774,8 @@ def _x2y_flash16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, p
     d = wq.shape[1]
     wkp, wvp, _ = _check16("x2y_flash16_fwd", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, packed)
     yq = (rnd(mm(add_pos16(y_in, _pos16(y_pos)), wq)) + bq).contiguous()
-    xin = b16_add_pos(x_in, _pos16(x_pos))
-    lens = attended_lengths(x_len, X)
+    _, kv, _ = _flash16_project(x_in, x_pos, bk, bv, x_len, wkp, wvp)
     f32 = dict(device=x_in.device, dtype=torch.float32)
-    kv = torch.empty((B, X, 2 * d), **f32)
-    b16_gemm(B16_PROJ, xin, [0], wkp, d, lens, kv, ldo=2 * d, bias=bk)
-    b16_gemm(B16_PROJ, x_in, [0], wvp, d, lens, kv, ldo=2 * d, col_off=d, bias=bv)
     n_t = -(-X // FLASH_KEY_TILE)
     part_acc = torch.empty((B, n_t, M, d), **f32)
     part_ml = torch.empty((B, n_t, M, 2), **f32)
@@ -762,3 +788,293 @@ def _x2y_flash16_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, p
         attn.data_ptr(), flash_rows(M), _build.stream_ptr(x_in.device))
     _build.check("fk_x2y_flash_attend", err)
     return attn, probs, logits
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the bf16 backward forms (training)
+
+
+def _softmax_bwd(probs, d_probs):
+    return probs * (d_probs - (d_probs * probs).sum(dim=-1, keepdim=True))
+
+
+def x2y16_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn,
+                        g_attn, g_probs=None, g_logits=None):
+    """Plain version of K2's backward under mixed precision, each branch of
+    JAX's dispatch with its own rounding points (y and x bf16, the
+    positional terms rounded to bf16 as the forward takes them, the weights
+    cast here).  Small X with y_pos shared (``_small_x_bwd``'s kernel branch,
+    x2y_attn.py:512-543 and ``_small_x_bwd_kernel``): yq = bf16(y + y_pos)
+    Wq + bq in f32, the keys and values as the forward's; d_y =
+    bf16(bf16(d_yq) Wq^T), dWq = (y + y_pos in f32)^T d_yq; the X side in f32
+    products (d_xk Wk^T, bf16(x + x_pos)^T d_xk).  Flash with x_pos shared
+    (``_flash_bwd`` and ``_flash_bwd_kernel``): yq = bf16(bf16(y + y_pos) Wq) +
+    bq, the keys and values f32 from bf16(x + x_pos in f32) and x; dx =
+    bf16(bf16(dxk) Wk^T + bf16(dxv) Wv^T), dWk = bf16(x + x_pos)^T bf16(dxk),
+    dWv = x^T bf16(dxv), d_xpos from the unrounded dxk Wk^T; the query side in
+    f32 products.  Otherwise (a per-video table: ``_small_x_bwd_xla`` /
+    ``_flash_bwd_xla``): every projection rounded to bf16 before its bias,
+    the products of the cotangents in f32.  Returns the cotangents of (y_in,
+    y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq): y and x bf16, the weights f32
+    holding their bf16 values, the biases and positional terms f32."""
+    d = wq.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    flash = x_in.shape[1] >= FLASH_MIN_KEYS
+    kernel = _shared(x_pos) if flash else _shared(y_pos)
+    yp, xp = _pos16(y_pos), _pos16(x_pos)
+    wq16, wk16, wv16 = rnd(wq), rnd(wk), rnd(wv)
+    yin, xin = add_pos16(y_in, yp).float(), add_pos16(x_in, xp).float()
+    x = x_in.float()
+    xk_in = xin
+    if not kernel:
+        yq, xk, xv = rnd(yin @ wq16) + bq, rnd(xin @ wk16) + bk, rnd(x @ wv16) + bv
+    elif flash:
+        xk_in = add_pos(x, None if xp is None else xp.float())
+        yq, xk, xv = rnd(yin @ wq16) + bq, rnd(xk_in) @ wk16 + bk, x @ wv16 + bv
+    else:
+        yq, xk, xv = yin @ wq16 + bq, rnd(xin @ wk16) + bk, rnd(x @ wv16) + bv
+    d_xv = torch.einsum("byx,byd->bxd", probs, g_attn)
+    d_probs = g_attn @ xv.transpose(1, 2)
+    if g_probs is not None:
+        d_probs = d_probs + g_probs
+    d_logits = _softmax_bwd(probs, d_probs)
+    if g_logits is not None:
+        d_logits = d_logits + g_logits
+    X = x_in.shape[1]
+    valid = torch.arange(X, device=x_in.device)[None, None, :] < x_len[:, None, None]
+    d_logits = torch.where(valid, d_logits, 0.0) * scale
+    d_yq = d_logits @ xk
+    d_xk = d_logits.transpose(1, 2) @ yq
+    if kernel and flash:
+        dk16, dv16 = rnd(d_xk), rnd(d_xv)
+        d_xk_in = dk16 @ wk16.t()
+        dx = d_xk_in + dv16 @ wv16.t()
+        d_wk = torch.einsum("bxc,bxd->cd", rnd(xk_in), dk16)
+        d_wv = torch.einsum("bxc,bxd->cd", x, dv16)
+        d_yq_in = d_yq @ wq16.t()
+        d_wq = torch.einsum("byc,byd->cd", yin, d_yq)
+    else:
+        d_xk_in = d_xk @ wk16.t()
+        dx = d_xk_in + d_xv @ wv16.t()
+        d_wk = torch.einsum("bxc,bxd->cd", xin, d_xk)
+        d_wv = torch.einsum("bxc,bxd->cd", x, d_xv)
+        if kernel:  # small X
+            d_yq_in = rnd(d_yq) @ wq16.t()
+            yq_in = add_pos(y_in.float(), None if yp is None else yp.float())
+            d_wq = torch.einsum("byc,byd->cd", yq_in, d_yq)
+        else:
+            d_yq_in = d_yq @ wq16.t()
+            d_wq = torch.einsum("byc,byd->cd", yin, d_yq)
+    return (d_yq_in.to(BF16), pos_grad(d_yq_in, y_pos), dx.to(BF16), pos_grad(d_xk_in, x_pos),
+            rnd(d_wk), d_xk.sum(dim=(0, 1)), rnd(d_wv), d_xv.sum(dim=(0, 1)), rnd(d_wq),
+            d_yq.sum(dim=(0, 1)))
+
+
+def _wgrad_per_video(A, a_ch, Ca, Bm, Cb, lens, Kc):
+    """sum_t A[b, t, :Ca]^T Bm[b, t, :Cb] per video (f32, ``fk_k6_wgrad``'s
+    chunk partials of Kc rows, added per video in order): (B, Ca, Cb)."""
+    B, T = A.shape[0], A.shape[1]
+    per = -(-T // Kc)
+    part = torch.empty((1, B * per, Ca, Cb), device=A.device, dtype=torch.float32)
+    err = _build.lib().fk_k6_wgrad(A.data_ptr(), a_ch, 0, Ca, Bm.data_ptr(), Bm.shape[2], 0, Cb,
+                                   lens.data_ptr(), 0, 0, 1, part.data_ptr(), B, T, Kc,
+                                   _build.stream_ptr(A.device))
+    _build.check("fk_k6_wgrad", err)
+    n = Ca * Cb
+    return _grad.reduce(part, G=B, P=per, pstride=n, gstride=per * n, rows=1, rstride=0,
+                        cols=n).view(B, Ca, Cb)
+
+
+def x2y_small_x16_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
+                      g_probs=None, g_logits=None, packed=None):
+    """The small-X bf16 backward on the card (y_pos shared by the batch)."""
+    out = _x2y_small_x16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
+                                  g_attn, g_probs, g_logits, packed)
+    x2y_small_x16_bwd.launches += 1
+    return out
+
+
+x2y_small_x16_bwd.launches = 0
+
+
+def _x2y_small_x16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
+                            g_attn, g_probs, g_logits, packed=None):
+    """``x2y_small_x16_bwd``'s launches: the bf16 forward's projections
+    again (yq f32, [xk | xv] with the products rounded), the f32 form's
+    attention terms (``fk_x2y_sx_attn_bwd``: JAX's kernel computes them in
+    f32), d_yq rounded to bf16 and d_y = bf16(d_yq Wq^T) on the bf16 GEMM,
+    dWq = (y + y_pos)^T d_yq and per video dxk = dlogits^T yq, dxv = probs^T
+    g_attn in f32 (``fk_k6_wgrad``), the bias sums in a fixed order; the X
+    side is plain products, as JAX's caller computes it."""
+    B, Y, Cy = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    wkp, wvp, wqp = _check16("x2y_small_x16_bwd", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len,
+                             packed)
+    if not _shared(y_pos) or sx_smem(X, d) > _build.MAX_SMEM:
+        raise ValueError("x2y_small_x16_bwd: needs a shared y_pos and a (16, d) tile that fits")
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    g_attn = g_attn.contiguous()
+    g_probs = g_probs.contiguous() if g_probs is not None else None
+    g_logits = g_logits.contiguous() if g_logits is not None else None
+    _build.check_tensors("x2y_small_x16_bwd", [probs, g_attn, g_probs, g_logits], x_in.device)
+    yp = _pos16(y_pos)
+    full = torch.full_like(x_len, Y)
+    _, xin, yq, kv, _ = _sx16_project(y_in, y_pos, x_in, x_pos, bk, bv, bq, x_len, wkp, wvp, wqp)
+    rows = sx_rows(B, Y, X, d)
+    n_slots = -(-B * -(-Y // rows) // SX_SUM_GROUP) * SX_SUM_GROUP
+    xpad = -(-X // 4) * 4
+    dlog = torch.empty((B, Y, xpad), **f32)
+    dyq = torch.empty((B, Y, d), **f32)
+    part_bq = torch.empty((n_slots, d), **f32)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = _build.lib().fk_x2y_sx_attn_bwd(
+        kv.data_ptr(), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(),
+        x_len.data_ptr(), B, Y, X, d, 1.0 / math.sqrt(d), dlog.data_ptr(), dyq.data_ptr(),
+        part_bq.data_ptr(), n_slots, rows, _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_sx_attn_bwd", err)
+    dyq16, _ = b16_round(dyq, full)
+    want_ypos = y_pos is not None and y_pos.requires_grad
+    dy32 = torch.empty((B, Y, Cy), **f32) if want_ypos else None
+    dy = torch.empty_like(y_in)
+    b16_gemm(B16_PROJ if want_ypos else B16_PROJ16, dyq16, [0], b16_pack(wq), Cy, full,
+             dy32 if want_ypos else dy)
+    if want_ypos:
+        dy = dy32.to(BF16)
+    yq_in = add_pos(y_in.float(), None if yp is None else yp.float()).contiguous()
+    d_wq = rnd(_k6_wgrad(yq_in, 0, Cy, dyq, 0, d, full)[0])
+    d_bq = _grad.sum_groups(part_bq[None], SX_SUM_GROUP)[0]
+    Kc = sx_chunk(B, Y)
+    probs_p = probs if xpad == X else torch.nn.functional.pad(probs, (0, xpad - X)).contiguous()
+    dxk = _wgrad_per_video(dlog, xpad, X, yq, d, full, Kc)
+    dxv = _wgrad_per_video(probs_p, xpad, X, g_attn, d, full, Kc)
+    # the X side: plain products, as JAX's caller (x2y_attn.py:528-535)
+    d_xk_in = dxk @ rnd(wk).t()
+    dx = (d_xk_in + dxv @ rnd(wv).t()).to(BF16)
+    d_wk = rnd(torch.einsum("bxc,bxd->cd", xin.float(), dxk))
+    d_wv = rnd(torch.einsum("bxc,bxd->cd", x_in.float(), dxv))
+    return (dy, pos_grad(dy32, y_pos) if want_ypos else None, dx, pos_grad(d_xk_in, x_pos),
+            d_wk, dxk.sum(dim=(0, 1)), d_wv, dxv.sum(dim=(0, 1)), d_wq, d_bq)
+
+
+def x2y_flash16_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn,
+                    g_attn, g_probs=None, g_logits=None, packed=None):
+    """The flash bf16 backward on the card (x_pos shared by the batch)."""
+    out = _x2y_flash16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs,
+                                attn, g_attn, g_probs, g_logits, packed)
+    x2y_flash16_bwd.launches += 1
+    return out
+
+
+x2y_flash16_bwd.launches = 0
+
+
+def _x2y_flash16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, attn,
+                          g_attn, g_probs, g_logits, packed=None):
+    """``x2y_flash16_bwd``'s launches: yq = bf16(bf16(y + y_pos) Wq) + bq
+    outside the kernels (as JAX's caller), [xk | xv] from bf16(x + x_pos)
+    and x on the bf16 GEMM with f32 results (B16_PROJ, as the forward), the
+    f32 form's attention terms (``fk_x2y_flash_attn_bwd``: JAX's kernel
+    attends in f32), [dxk | dxv] rounded to bf16, dx = bf16([dxk | dxv] [Wk |
+    Wv]^T) on the bf16 GEMM (B16_PROJ16, the weights packed untransposed),
+    dWk, dWv on ``fk_b16_wgrad``, the bias sums and d_yq in a fixed order;
+    the query side's products stay plain, as in JAX's caller."""
+    B, M, _ = y_in.shape
+    X, Cx = x_in.shape[1], x_in.shape[2]
+    d = wq.shape[1]
+    wkp, wvp, _ = _check16("x2y_flash16_bwd", y_in, x_in, wk, bk, wv, bv, wq, bq, x_len, packed)
+    if not _shared(x_pos) or not has_backward(M, X, d):
+        raise ValueError("x2y_flash16_bwd: needs a shared x_pos and M <= 64")
+    g_attn = g_attn.contiguous()
+    g_probs = g_probs.contiguous() if g_probs is not None else None
+    g_logits = g_logits.contiguous() if g_logits is not None else None
+    _build.check_tensors("x2y_flash16_bwd", [probs, attn, g_attn, g_probs, g_logits],
+                         x_in.device)
+    yin16 = add_pos16(y_in, _pos16(y_pos))
+    yq = (rnd(mm(yin16, wq)) + bq).contiguous()
+    D = (g_attn * attn).sum(dim=-1)
+    if g_probs is not None:
+        D = D + (probs * g_probs).sum(dim=-1)
+    D = D.contiguous()
+    xin, kv, lens = _flash16_project(x_in, x_pos, bk, bv, x_len, wkp, wvp)
+    f32 = dict(device=x_in.device, dtype=torch.float32)
+    n_t = -(-X // FLASH_KEY_TILE)
+    n_slots = -(-n_t // FLASH_SUM_GROUP) * FLASH_SUM_GROUP
+    dkv = torch.empty((B, X, 2 * d), **f32)
+    part_dyq = torch.zeros((B, n_slots, M * d), **f32)
+    part_b = torch.zeros((B, n_slots, 2 * d), **f32)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = _build.lib().fk_x2y_flash_attn_bwd(
+        kv.data_ptr(), probs.data_ptr(), ptr(g_probs), ptr(g_logits), g_attn.data_ptr(),
+        yq.data_ptr(), D.data_ptr(), x_len.data_ptr(), B, X, M, d, 1.0 / math.sqrt(d),
+        dkv.data_ptr(), part_dyq.data_ptr(), part_b.data_ptr(), n_slots,
+        _build.stream_ptr(x_in.device))
+    _build.check("fk_x2y_flash_attn_bwd", err)
+    del kv
+    dkv16, _ = b16_round(dkv, lens)
+    dx = torch.empty_like(x_in)
+    b16_gemm(B16_PROJ16, dkv16, [0], b16_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
+    d_wk = rnd(b16_wgrad(xin, 0, Cx, dkv16, 0, d, lens)[0])
+    d_wv = rnd(b16_wgrad(x_in, 0, Cx, dkv16, d, d, lens)[0])
+    d_xpos = None
+    if x_pos is not None and x_pos.requires_grad:  # sum_b dxk_in, from the unrounded sums
+        dk_sum = _grad.batch_sum(dkv16.float().contiguous(), d)
+        Px = x_pos.shape[-1]
+        d_xpos = _pos_like((dk_sum @ rnd(wk).t())[..., :Px], x_pos)
+    d_yq = _grad.sum_groups(part_dyq, FLASH_SUM_GROUP).view(B, M, d)
+    d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * d), FLASH_SUM_GROUP)[0]
+    d_yq_in = d_yq @ rnd(wq).t()
+    return (d_yq_in.to(BF16), pos_grad(d_yq_in, y_pos), dx, d_xpos, d_wk, d_b[:d], d_wv,
+            d_b[d:], rnd(torch.einsum("bmc,bmd->cd", yin16.float(), d_yq)),
+            d_yq.sum(dim=(0, 1)))
+
+
+class _X2Y16(torch.autograd.Function):
+    """K2's bf16 forms for training: the forward saves probs and attn, the
+    backward dispatches as JAX's (the kernels with the shared table, else
+    the plain backward, counted apart on the card), the plain versions on CPU
+    tensors or where ``plain``."""
+
+    @staticmethod
+    def forward(ctx, y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, cfg):
+        plain, packed = cfg
+        ctx.set_materialize_grads(False)
+        args = (y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len)
+        if plain or x_in.device.type == "cpu":
+            attn, probs, logits = x2y_attention16_reference(*args)
+        else:
+            fn = x2y_flash16_fwd if x_in.shape[1] >= FLASH_MIN_KEYS else x2y_small_x16_fwd
+            attn, probs, logits = fn(*args, packed)
+        ctx.plain, ctx.packed = plain, packed
+        ctx.save_for_backward(*args, probs, attn)
+        return attn, probs, logits
+
+    @staticmethod
+    def backward(ctx, g_attn, g_probs, g_logits):
+        *args, probs, attn = ctx.saved_tensors
+        y_pos, x_in, x_pos = args[1], args[2], args[3]
+        if g_attn is None:
+            g_attn = torch.zeros_like(attn)
+        flash = x_in.shape[1] >= FLASH_MIN_KEYS
+        if ctx.plain or x_in.device.type == "cpu":
+            grads = x2y16_bwd_reference(*args, probs, attn, g_attn, g_probs, g_logits)
+        elif flash and _shared(x_pos):
+            grads = x2y_flash16_bwd(*args, probs, attn, g_attn, g_probs, g_logits, ctx.packed)
+        elif not flash and _shared(y_pos):
+            grads = x2y_small_x16_bwd(*args, probs, g_attn, g_probs, g_logits, ctx.packed)
+        else:  # a per-video positional table: JAX's own plain backward (_*_bwd_xla)
+            grads = x2y16_bwd_reference(*args, probs, attn, g_attn, g_probs, g_logits)
+            x2y_bwd_reference.launches += 1
+        return (*grads, None, None)
+
+
+def x2y_attention16_train(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, plain=False,
+                          packed=None):
+    """The differentiable bf16 X2Y entry (both forms, chosen at JAX's
+    threshold): the kernels on CUDA tensors, the plain versions on CPU ones
+    or where ``plain``."""
+    if x_in.device.type != "cpu" and not plain:
+        _build.require_backward("x2y_attention16", has_backward(y_in.shape[1], x_in.shape[1],
+                                                                wq.shape[1]))
+    return _X2Y16.apply(y_in.contiguous(), y_pos, x_in.contiguous(), x_pos, wk, bk, wv, bv, wq,
+                        bq, x_len, (bool(plain), packed))

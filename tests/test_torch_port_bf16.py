@@ -442,12 +442,19 @@ def test_bf16_refuses_what_it_has_no_path_for(case):
 
 
 def test_bf16_training_is_refused(jax_run):
-    """The train step and a train-mode forward refuse bf16 before any
-    launch (training in bf16 is ROADMAP M7 item 1)."""
+    """What stays refused of bf16 training: dropout above 0 (small_cfg()'s
+    0.1).  The train step, a train-mode forward and the loop's check refuse
+    it before any launch (ROADMAP M7 item 5); bf16 trains at rate 0
+    (``tests/test_torch_port_bf16_train.py``)."""
     model = _port(jax_run)
     cfg = _bf16_cfg()
-    with pytest.raises(NotImplementedError, match="M7 item 1"):
+    assert cfg["Bi"]["dropout"] > 0
+    with pytest.raises(NotImplementedError, match="M7 item 5"):
         make_train_step(model, cfg, C, np.ones(C + 1, np.float32))
     x = _inputs(jax_run)
-    with pytest.raises(NotImplementedError, match="M7 item 1"):
+    before = kernel_counters()
+    with pytest.raises(NotImplementedError, match="M7 item 5"):
         model(*x, train=True, generator=torch.Generator().manual_seed(0))
+    assert kernel_counters() == before
+    with pytest.raises(NotImplementedError, match="M7 item 5"):
+        tl.check_loop_cfg(setup_cfg([], ["TPU.compute_dtype", "bfloat16", "Bi.dropout", "0.1"]))
