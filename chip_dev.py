@@ -93,6 +93,15 @@
         CUDA-event time a call, and the device busy time a call from
         ``torch.profiler`` with its kernels.
 
+    python3 chip_dev.py ffn16-ties [SEEDS]
+        K4's FFN bf16 backward (``ffn_sublayer16_bwd``) at the flagship's
+        B=8, M=40, E=256, F=512 on SEEDS (default 12) draws of phase 3's
+        inputs without ``away_from_zero``: per draw the ReLU units whose gate
+        differs between the kernel (dz1 != 0 in its workspace) and the plain
+        version (bf16 z1 > 0), the worst cotangent's error of its scale
+        against the plain backward, and against the plain backward with the
+        kernel's gate on those units (``chip_smoke._ffn16_forced``).
+
     python3 chip_dev.py k8-host [TREE]
         The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
         case), K8b (the flagship's a2f and epic's f2a and a2f), K8c and K8d
@@ -660,6 +669,58 @@ def ffn_host(tree: str = REPO, seed: int = 0):
         "k5 flagship": lambda: cs.frame_loss_case(rng, False, 8, 3072, 75, cs.FLAGSHIP_LENGTHS)})
 
 
+def ffn16_ties(n_seeds: int = 12):
+    """Whether phase 3's FFN bf16 backward misses on ReLU ties: per draw the
+    gate mismatches and the worst error before and after the kernel's gate
+    is given to the plain backward."""
+    import torch
+
+    cs = _chip_smoke(REPO)
+    from fact_clip_tpu_torch import _build
+    from fact_clip_tpu_torch.ops import sa_layer as sl
+    from fact_clip_tpu_torch.ops.bf16 import rnd
+
+    B, M, E, Fd = 8, 40, 256, 512
+    names = ["dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"]
+    for seed in range(n_seeds):
+        rng = np.random.default_rng(seed)
+        args = cs.ffn_case(rng, B, M, E, Fd)
+        g = cs._rand(rng, (B, M, E))
+        x, w1, b1, w2, b2, ls, lb = args
+        kern = sl.ffn_sublayer16_bwd(*args, g)
+        plain = sl.ffn_sublayer16_bwd_reference(*args, g)
+        # the kernel's gate: its dz1 panel in the backward's workspace (as
+        # ``_ffn16_bwd_card`` lays it out)
+        lib = _build.lib()
+        total, _, o_lhs, ldl, _, _, _ = _build.workspace(lib, "fk_ffn_bwd_workspace", 7, B, M, E,
+                                                         Fd)
+        ws = torch.empty(total, device="cuda", dtype=torch.float32)
+        w1h = w1.to(torch.bfloat16).contiguous()
+        _build.check("fk_ffn_bwd16", lib.fk_ffn_bwd16(
+            x.data_ptr(), w1h.data_ptr(), w1h.float().data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), ls.data_ptr(), g.data_ptr(), ws.data_ptr(), B, M, E, Fd, 1e-6,
+            _build.stream_ptr(x.device)))
+        torch.cuda.synchronize()
+        gate_k = ws.as_strided((B * M, Fd), (ldl, 1), o_lhs).view(B, M, Fd) != 0
+        gate_p = rnd(rnd(rnd(x) @ rnd(w1)) + rnd(b1)) > 0
+        differ = gate_k != gate_p
+        xr = x.detach().clone().requires_grad_(True)
+        ws_ = [t.detach().clone().requires_grad_(True) for t in args[1:]]
+        y = cs._ffn16_forced(xr, differ, gate_k, 1e-6, *ws_)
+        forced = torch.autograd.grad(y, [xr, *ws_], g)
+
+        def worst(got, ref):
+            errs = [(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), n)
+                    for n, a, b in zip(names, got, ref)]
+            return max(errs)
+
+        (e0, n0), (e1, n1) = worst(kern, plain), worst(kern, forced)
+        print(f"[ffn16-ties] seed {seed}: gate differs on {int(differ.sum())} of "
+              f"{differ.numel()} units; kernel vs plain: worst {n0} {e0:.3e} of its scale; vs "
+              f"plain given the kernel's gate: worst {n1} {e1:.3e}", flush=True)
+    return 0
+
+
 def k8_host(tree: str = REPO, seed: int = 0):
     """The same for K8a (the flagship's 8 x 3072 x 256 and the LayerNorm
     case), K8b (the flagship's a2f, epic's f2a and a2f), K8c (the flagship's
@@ -888,6 +949,8 @@ def main(argv):
         return ffn_f64(*argv[1:])
     if argv[:1] == ["ffn-host"] and len(argv) <= 2:
         return ffn_host(*argv[1:])
+    if argv[:1] == ["ffn16-ties"] and len(argv) <= 2:
+        return ffn16_ties(*[int(a) for a in argv[1:]])
     if argv[:1] == ["k8-host"] and len(argv) <= 2:
         return k8_host(*argv[1:])
     if argv[:1] == ["sa-host"] and len(argv) <= 2:

@@ -339,7 +339,21 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    eval step launches EPIC_PER_BATCH without K7b (the transcript decode is
    the attention's argmax), kernel against plain path, every prediction
    an action of the transcript; ``train_compare`` seed 1.
-18. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+18. mixed precision serving (``phase_bf16``): ``havid_tpu_cfg()``
+   (``compute_dtype: bfloat16``) at full width serves phase 4's requests
+   through ``Predictor`` with exact bf16 launches per batch; its eval step
+   at 8 and 16 x 3072 beside the f32 kernel path; ``run_eval`` on
+   havid_tpu.yaml.  ``guard_b16`` holds the bf16 forms at 0 launches on
+   phases 4-17.
+19. bf16 training (``phase_bf16_train``): ``havid_tpu_cfg()`` with the
+   auction matcher at 8 x 3072: one step's launches (every bf16 backward
+   form), the warm step split beside the f32 kernel path, a host trace of
+   the bf16 weight packs, the auction against scipy's Hungarian, the kernel
+   path against the plain path replayed with its FFN ReLU ties on the
+   kernel side (``FfnRelus16``; loss 1e-3, each gradient 8 bf16 ulps or
+   2^-5 of its scale, or its floor's limit), and the train CLI on
+   havid_tpu.yaml cut, resumed and compared bit for bit.
+20. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
    from phase 11b's predicts (0 on every other path), the single-layer K1's
    and K1's mask kernel's from phase 12 (the tower re-hashes its masks
@@ -1901,8 +1915,10 @@ def mha16_case(rng, B, M, X, E, Cx, H, x_len, pos):
     q, x, p = _b16(q, x, p)
     packed = ma.k3_b16_pack(wk, wv)
     Xv = _valid(xl, X)
-    work = (4 * M * E * Xv, nbytes(q, x, p, packed, bk, bv, xl) + B * M * E * 4, 0, 0, 0,
-            4 * Cx * E * Xv)
+    # every product on bf16 operands (_mha_kernel: q, k, v and p bf16): the
+    # projections, the logits and the attend
+    work = (0, nbytes(q, x, p, packed, bk, bv, xl) + B * M * E * 4, 0, 0, 0,
+            4 * Cx * E * Xv + 4 * M * E * Xv)
     args = (q, x, p, wk, bk, wv, bv, xl)
     return (lambda: ma.mha_cross16_fwd(*args, num_heads=H, packed=packed),
             lambda: ma.mha_cross16_reference(*args, num_heads=H), work, None,
@@ -1917,8 +1933,10 @@ def sa16_case(rng, B, M, E, H):
 
     args = sa_case(rng, B, M, E)
     packed = sl.sa_b16_pack(args[2], args[4], args[6])
-    work = (B * (2 * M * E * E + 4 * M * M * E), nbytes(args, packed) + B * M * E * 4, 0, 0, 0,
-            B * 6 * M * E * E)
+    # bf16 operands: q / k / v, the logits and P v (_attn_core, _sa_fwd_kernel);
+    # f32: the out projection (Wo is not cast)
+    work = (B * 2 * M * E * E, nbytes(args, packed) + B * M * E * 4, 0, 0, 0,
+            B * (6 * M * E * E + 4 * M * M * E))
     return (lambda: sl.sa_sublayer16_fwd(*args, num_heads=H, packed=packed),
             lambda: sl.sa_sublayer16_reference(*args, num_heads=H), work, None,
             sa_library(*_b16(*args), H), B16_FORM_TOL)
@@ -2046,7 +2064,7 @@ def b16_wgrad_case(rng, B, T, C, d, lengths):
 
     N = _valid(lens, T)
     work = (0, nbytes(a, b, lens) + 3 * C * C * 4, 0, 0, 0, 6 * N * C * C)
-    return (lambda: dc.b16_wgrad(a, 0, C, b, 0, C, lens, shifts=(-d, 0, d)), plain, work, None,
+    return (lambda: dc.wgrad(a, 0, C, b, 0, C, lens, shifts=(-d, 0, d)), plain, work, None,
             None, B16_TOL)
 
 
@@ -2123,8 +2141,10 @@ def mha_bwd16_case(rng, B, M, X, E, Cx, H, x_len, pos):
     out, stats = ma.mha_cross16_reference(*args, num_heads=H, with_stats=True)
     g = _rand(rng, (B, M, E))
     Xv = _valid(xl, X)
-    work = (10 * M * E * Xv, nbytes(args, stats, out, g) + nbytes(q, x, wk, bk, wv, bv), 0, 0, 0,
-            12 * Cx * E * Xv)
+    # every product on bf16 operands (_mha_bwd_kernel: q, g, dl and p cast to
+    # bf16): the five attention products and K, V, dx, dWk, dWv
+    work = (0, nbytes(args, stats, out, g) + nbytes(q, x, wk, bk, wv, bv), 0, 0, 0,
+            10 * M * E * Xv + 12 * Cx * E * Xv)
     names = ["dq", "dx", "dwk", "dbk", "dwv", "dbv"]
 
     def pick(r):
@@ -2187,7 +2207,7 @@ def k3_attn_bwd16_case(rng, B, M, X, E, H, x_len):
                 torch.cat([dk.sum(dim=(0, 1)), dv.sum(dim=(0, 1))]))
 
     Xv = _valid(xl, X)
-    work = (10 * M * E * Xv, nbytes(kv, q, g, stats, D) + B * X * 2 * E * 2, 0, 0, 0, 0)
+    work = (0, nbytes(kv, q, g, stats, D) + B * X * 2 * E * 2, 0, 0, 0, 10 * M * E * Xv)
     return kern, plain, work, None, None, B16_TOL
 
 
@@ -2201,8 +2221,11 @@ def sa_bwd16_case(rng, B, M, E, H):
     args = sa_case(rng, B, M, E)
     g = _rand(rng, (B, M, E))
     packed = sl.sa_b16_pack(args[2], args[4], args[6])
-    work = (B * (24 * M * E * E + 12 * M * M * E), nbytes(args, g, packed) + nbytes(args), 0, 0,
-            0, 0)
+    # _sa_bwd_kernel's products of bf16 operands: q/k/v, dWqk, dxa, dWv, dxv
+    # (18 MEE), the logits, P v, dS k, dS^T q (8 MME); in f32: o Wo, dWo,
+    # dout Wo^T (6 MEE), dv and dP (4 MME)
+    work = (B * (6 * M * E * E + 4 * M * M * E), nbytes(args, g, packed) + nbytes(args), 0, 0,
+            0, B * (18 * M * E * E + 8 * M * M * E))
     names = ["dx", "dpos", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls", "dlb"]
     return (lambda: sl.sa_sublayer16_bwd(*args, g, num_heads=H, packed=packed),
             lambda: sl.sa_sublayer16_bwd_reference(*args, g, num_heads=H), work,
@@ -2213,14 +2236,19 @@ def ffn_bwd16_case(rng, B, M, E, Fd):
     """K4's FFN bf16 backward: one library call (``fk_ffn_bwd16``, six
     launches on the CUDA cores), dW1 = bf16(x)^T bf16(dz1) and the other
     weight products outside, as JAX's wrapper; the library call
-    ``ffn_library``'s autograd backward on bf16 tensors."""
+    ``ffn_library``'s autograd backward on bf16 tensors.  Its inputs keep
+    the hidden pre-activations away from 0, as the f32 form's: a bf16 z1
+    that lands on 0 in one sum order and not in the other flips a ReLU and
+    moves a column of dW1 by far more than rounding (``chip_dev.py
+    ffn16-ties``); phase 19 replays such ties (``FfnRelus16``)."""
     from fact_clip_tpu_torch.ops import sa_layer as sl
 
-    args = ffn_case(rng, B, M, E, Fd)
+    args = ffn_case(rng, B, M, E, Fd, away_from_zero=True)
     g = _rand(rng, (B, M, E))
     w1h = _b16(args[1])
-    work = (B * 8 * M * E * Fd, nbytes(args, g, w1h) + nbytes(args), 0, B * 4 * M * E * Fd, 0,
-            0)
+    # bf16 operands: z1, dx, dW1; f32: t2 and dh in the kernel, dW2 (3xTF32)
+    work = (B * 4 * M * E * Fd, nbytes(args, g, w1h) + nbytes(args), 0, B * 2 * M * E * Fd, 0,
+            B * 6 * M * E * Fd)
     names = ["dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"]
     return (lambda: sl.ffn_sublayer16_bwd(*args, g, packed=w1h),
             lambda: sl.ffn_sublayer16_bwd_reference(*args, g), work,
@@ -5801,18 +5829,258 @@ B16_PAIRS = (("mstcn_stack16", "mstcn_stack16_bwd"), ("mha_cross16", "mha_cross1
              ("sa_sublayer16", "sa_sublayer16_bwd"), ("ffn_sublayer16", "ffn_sublayer16_bwd"))
 B16_TRAIN_LOSS_TOL = 1e-3  # the train loss, bf16 kernel path vs bf16 plain path, relative
 # each parameter's gradient, bf16 kernel path vs bf16 plain path on the same
-# weights, batch and matching: its largest element error of the gradient's own
-# scale.  The paths round the same f32 values to bf16 at the same points, but
-# sum them in other orders, so an inner bf16 value (a stream's cotangent, dc,
-# dl, dS) may round one ulp (2^-8) apart; through a 10-layer tower's
-# backward such flips add up like K1's forward tower (B16_TOWER_TOL)
+# weights, batch and matching (the plain path with the FFN ReLU ties replayed
+# on the kernel path's side, FfnRelus16): its largest element error.  The
+# paths round the same f32 values to bf16 at the same points, but sum them in
+# other orders, so an inner bf16 value (a stream's cotangent, dc, dl, dS) may
+# round one ulp (2^-8) apart; through a 10-layer tower's backward such flips
+# add up like K1's forward tower (B16_TOWER_TOL).  A gradient that JAX rounds
+# to bf16 (every value of it on both paths a bf16 value) is held to
+# B16_GRAD_ULPS bf16 ulps at its largest magnitude (2^-5 to 2^-4 of it), an
+# f32 gradient to B16_GRAD_TOL of its largest magnitude
+B16_GRAD_ULPS = 8
 B16_GRAD_TOL = 2.0 ** -5
-# A gradient whose exact value cancels (each query's softmax gradient summing
-# to 0 over the keys: a key bias's; or over keys whose values are all the same,
-# as the input block's first self-attention over zero tokens) is the
-# roundings' noise on both paths: each parameter's limit is also FLOOR_K x
-# its own floor, the plain path's larger change on the features nudged by one
-# bf16 ulp up or down (train_compare's rule for the f32 paths)
+# A gradient whose exact value cancels is the roundings' noise on both paths:
+# a key bias's (each query's softmax gradient sums to 0 over the keys) and the
+# input block's first self-attention's projections (over zero tokens, whose
+# keys and values are all the same).  Their limit is also FLOOR_K x their own
+# floor, the plain path's larger change on the features nudged by one bf16
+# ulp up or down (train_compare's rule for the f32 paths); any other
+# gradient's floor-based limit is capped at B16_FLOOR_CAP of its scale
+B16_CANCELS = (r"\.X_K\.bias$", r"\.in_proj_bias$",
+               r"^block_list\.0\.action_branch\.layers\.0\.self_attn\.in_proj_")
+B16_FLOOR_CAP = 0.25
+# a ReLU flip between the bf16 paths is a proven tie when on both paths the
+# unit's z1 lies within this share of the bf16 operands' |x| |W1| + |b1| of 0
+# (four bf16 ulps: the paths' FFN inputs differ by upstream bf16 roundings)
+RELU_TIE16 = 2.0 ** -6
+
+
+def _ffn16_forced(x, mask, side, eps, w1, b1, w2, b2, ln_scale, ln_bias):
+    """The plain bf16 FFN sublayer (``ffn_sublayer16_reference`` and its
+    backward ``ffn_sublayer16_bwd_reference``, the same roundings) with each
+    ReLU unit in ``mask`` gated by ``side`` instead of z1 > 0."""
+    import torch
+
+    from fact_clip_tpu_torch.ops.bf16 import mm, rnd
+    from fact_clip_tpu_torch.ops.sa_layer import _ln_backward
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w1, b1, w2, b2, ln_scale, ln_bias):
+            z1 = rnd(rnd(mm(x, w1)) + rnd(b1))
+            gate = torch.where(mask, side, z1 > 0)
+            ctx.save_for_backward(x, gate, w1, b1, w2, b2, ln_scale)
+            return torch.nn.functional.layer_norm(x + (z1 * gate) @ w2 + b2, (x.shape[-1],),
+                                                  ln_scale, ln_bias, eps)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, gate, w1, b1, w2, b2, ln_scale = ctx.saved_tensors
+            E, Fd = w1.shape
+            w1r = rnd(w1)
+            h = rnd(rnd(rnd(x) @ w1r) + rnd(b1)) * gate
+            dres, dgamma, dbeta = _ln_backward(x + (h @ w2 + b2), g, ln_scale, eps)
+            dz1 = torch.where(gate, dres @ w2.t(), 0.0)
+            return (dres + rnd(dz1) @ w1r.t(),
+                    rnd(x).reshape(-1, E).t() @ rnd(dz1).reshape(-1, Fd),
+                    dz1.sum(dim=(0, 1)), h.reshape(-1, Fd).t() @ dres.reshape(-1, E),
+                    dres.sum(dim=(0, 1)), dgamma, dbeta)
+
+    return Fn.apply(x, w1, b1, w2, b2, ln_scale, ln_bias)
+
+
+class FfnRelus16:
+    """``FfnRelus`` for the bf16 paths: the inputs of K4's bf16 FFN sublayers
+    (``models.layers.ffn_sublayer16_train``, every FFN of havid_tpu_cfg()) in
+    call order, and a replay of the plain path that puts each proven ReLU
+    tie on the kernel path's side.  A flip is a unit whose z1 = bf16(bf16(
+    bf16(x) bf16(W1)) + bf16(b1)), recomputed from each path's own input, is
+    positive on one path only; a proven tie lies within RELU_TIE16 of the
+    float64 |bf16(x)| |bf16(W1)| + |bf16(b1)| on both paths."""
+
+    def __init__(self):
+        self.runs = {}
+
+    def record(self, path):
+        from fact_clip_tpu_torch.models import layers
+
+        @contextlib.contextmanager
+        def patched():
+            orig = layers.ffn_sublayer16_train
+            calls = self.runs[path] = []
+
+            def ffn(x, w1, b1, *args, **kw):
+                calls.append((x.detach().clone(), w1.detach(), b1.detach()))
+                return orig(x, w1, b1, *args, **kw)
+
+            layers.ffn_sublayer16_train = ffn
+            try:
+                yield
+            finally:
+                layers.ffn_sublayer16_train = orig
+
+        return patched()
+
+    def ties(self):
+        """({call: (tie mask, kernel side)}, flips, proven ties, the flips'
+        largest |z1| share of the magnitude sum, FFN calls); flips -1 where
+        the two runs' calls do not pair up."""
+        import torch
+
+        from fact_clip_tpu_torch.ops.bf16 import mm, rnd
+
+        pp, pk = self.runs.get("plain", []), self.runs.get("kernels", [])
+        if len(pp) != len(pk) or any(a[0].shape != b[0].shape for a, b in zip(pp, pk)):
+            return {}, -1, 0, 0.0, len(pk)
+        forced, flips, proven, worst = {}, 0, 0, 0.0
+        for i, ((xp, w1, b1), (xk, _, _)) in enumerate(zip(pp, pk)):
+            w, b = rnd(w1).double().abs(), rnd(b1).double().abs()
+            zs = [rnd(rnd(mm(x, w1)) + rnd(b1)) for x in (xp, xk)]
+            share = [z.double().abs() / (rnd(x).double().abs() @ w + b).clamp(min=1e-300)
+                     for z, x in zip(zs, (xp, xk))]
+            flip = (zs[0] > 0) != (zs[1] > 0)
+            if not bool(flip.any()):
+                continue
+            rel = torch.maximum(*share)
+            tie = flip & (rel <= RELU_TIE16)
+            flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
+            worst = max(worst, float(rel[flip].max()))
+            forced[i] = (tie, zs[1] > 0)
+        return forced, flips, proven, worst, len(pk)
+
+    def settle(self, rerun):
+        """Replays of the plain run, after both runs are recorded: each
+        round forces every proven tie found so far on the kernel path's
+        side, runs ``rerun()`` (the plain path: (loss, gradients)) under the
+        replay and records it.  A replayed call moves the inputs of the FFN
+        calls after it, which may flip other units there, so the rounds go
+        on until no unit is added (at most one round per FFN call).  Returns
+        (forced, rounds, settled, (flips, largest share) of the first
+        comparison, flips of the last, the last replay's result or None);
+        a flip that is not a proven tie raises."""
+        import torch
+
+        forced, rounds, first, result = {}, 0, None, None
+        while True:
+            new, flips, proven, worst, n_ffn = self.ties()
+            first = first or (flips, worst)
+            if flips < 0 or flips != proven:
+                raise AssertionError(f"FFN ReLU flips {flips}, proven ties {proven} (largest "
+                                     f"|z1| share {worst:.3e}, tie {RELU_TIE16:g}), replay "
+                                     f"round {rounds}")
+            grew = False
+            for i, (mask, side) in new.items():
+                m0, s0 = forced.get(i, (torch.zeros_like(mask), side))
+                grew = grew or bool((mask & ~m0).any())
+                forced[i] = (m0 | mask, torch.where(mask, side, s0))
+            if not grew or rounds == n_ffn:
+                return forced, rounds, not grew, first, flips, result
+            rounds += 1
+            with self.replay(forced), self.record("plain"):
+                result = rerun()
+
+    @staticmethod
+    def replay(forced):
+        """The plain FFN sublayers with each unit in ``forced[call]``'s mask
+        gated to the given side (``_ffn16_forced``)."""
+        import itertools
+
+        from fact_clip_tpu_torch.models import layers
+
+        @contextlib.contextmanager
+        def patched():
+            orig = layers.ffn_sublayer16_train
+            count = itertools.count()
+
+            def ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, *, eps, **kw):
+                force = forced.get(next(count))
+                if force is None:
+                    return orig(x, w1, b1, w2, b2, ln_scale, ln_bias, eps=eps, **kw)
+                return _ffn16_forced(x.contiguous(), *force, float(eps), w1, b1, w2, b2,
+                                     ln_scale, ln_bias)
+
+            layers.ffn_sublayer16_train = ffn
+            try:
+                yield
+            finally:
+                layers.ffn_sublayer16_train = orig
+
+        return patched()
+
+
+def _b16_leaf_limits(names, gk, gp, floors):
+    """Per gradient (limit ratio, error, limit, floor, unit, name), each as a
+    share of the plain gradient's largest magnitude, the unit "ulp" (a bf16
+    gradient) or "f32": error / limit > 1 fails.  Parameters without a
+    gradient on both paths are skipped; one on one path only fails."""
+    import re
+
+    cancels = [re.compile(p) for p in B16_CANCELS]
+    rows = []
+    for n, a, b, f, f2 in zip(names, gk, gp, *floors):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"[bf16-train] {n}: a gradient on one path only")
+            continue
+        scale = float(b.abs().max())
+        if scale == 0.0:
+            if float(a.abs().max()) != 0.0:
+                raise AssertionError(f"[bf16-train] {n}: 0 on the plain path only")
+            continue
+        b16 = all(bool((t == t.bfloat16().float()).all()) for t in (a, b))
+        base = (B16_GRAD_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7) / scale if b16
+                else B16_GRAD_TOL)
+        err = float((a - b).abs().max()) / scale
+        floor = max(float((f - b).abs().max()), float((f2 - b).abs().max())) / scale
+        by_floor = FLOOR_K * floor
+        if not any(c.search(n) for c in cancels):
+            by_floor = min(B16_FLOOR_CAP, by_floor)
+        limit = max(base, by_floor)
+        rows.append((err / limit, err, limit, base, floor, "ulp" if b16 else "f32", n))
+    return sorted(rows, reverse=True)
+
+
+def _b16_pack_trace(step, batch, gen):
+    """(host ms inside the bf16 weight packs, their calls, the step's host
+    ms) of one warm bf16 train step traced on the host (``torch.profiler``,
+    CPU activity): every ``b16_pack`` (K1's, K2's and K3's packs, the
+    forward's cached ones, rebuilt as the weights change every step, and the
+    backward's) and ``sa_b16_pack``, each call under a ``record_function``
+    range.  The SA backward's two transposed casts are inline and not
+    counted; the FFN's W1 cast is counted only where the forward caches
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fact_clip_tpu_torch.models import layers
+    from fact_clip_tpu_torch.ops import dilated_conv, mha_attn, sa_layer, x2y_attn
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function("chip_smoke.b16_pack"):
+                return fn(*a, **kw)
+        return call
+
+    sites = [(m, "b16_pack") for m in (dilated_conv, x2y_attn, mha_attn)] + \
+        [(m, "sa_b16_pack") for m in (sa_layer, layers)]
+    saved = [getattr(m, n) for m, n in sites]
+    for m, n in sites:
+        setattr(m, n, ranged(getattr(m, n)))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            step(batch, gen)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, n), fn in zip(sites, saved):
+            setattr(m, n, fn)
+    row = [e for e in prof.key_averages() if e.key == "chip_smoke.b16_pack"]
+    if not row:
+        return 0.0, 0, step_ms
+    return row[0].cpu_time_total / 1e3, row[0].count, step_ms
 
 
 def _b16_grads(model, step, batch, seed, kernels, seg2tok=None):
@@ -5839,7 +6107,8 @@ def phase_bf16_train(smi, seed: int = 0):
     path's step on the same weights; (c) the auction's matching against
     scipy's Hungarian on the same costs; (d) the bf16 kernel path against
     the bf16 plain path on the same weights, batch and matching (loss and
-    every gradient); (e) ``fact_clip_tpu_torch.train``'s entry on
+    every gradient, the plain path replayed with its FFN ReLU ties on the
+    kernel path's side, ``FfnRelus16``); (e) ``fact_clip_tpu_torch.train``'s entry on
     havid_tpu.yaml over phase 15's HAViD-shaped set, cut and resumed, the
     resumed run's weights bit-equal to the first run's step continued on the
     same batches.  Returns one step's launch counts."""
@@ -5928,10 +6197,17 @@ def phase_bf16_train(smi, seed: int = 0):
         f"{peak16 / peak32:.3f}")
     del m32, step32
     torch.cuda.empty_cache()
+    model.load_state_dict(state0)
+    pack_ms, n_packs, traced_ms = _b16_pack_trace(step, on_dev[0], gen)
+    log(f"[bf16-train] {smi}: the bf16 weight packs of one warm step (host trace, "
+        f"torch.profiler): {n_packs} calls, {pack_ms:.3f} ms of the traced step's "
+        f"{traced_ms:.3f} ms ({pack_ms / traced_ms:.4f})")
 
     # (c) the auction against scipy on the same costs, (d) the paths against each other
     model.load_state_dict(state0)
-    lk, st_k, gk, saves = _b16_grads(model, step, on_dev[0], seed + 7, True)
+    relus = FfnRelus16()
+    with relus.record("kernels"):
+        lk, st_k, gk, saves = _b16_grads(model, step, on_dev[0], seed + 7, True)
     with torch.no_grad():
         last = saves[-1]
         b0 = on_dev[0]
@@ -5956,7 +6232,8 @@ def phase_bf16_train(smi, seed: int = 0):
     if any(n and gap > bnd for n, gap, bnd in gaps):
         raise AssertionError("[bf16-train] the auction's matching is past JAX's bound")
     model.load_state_dict(state0)
-    lp, _, gp, _ = _b16_grads(model, step, on_dev[0], seed + 7, False, seg2tok=st_k)
+    with relus.record("plain"):
+        lp, _, gp, _ = _b16_grads(model, step, on_dev[0], seed + 7, False, seg2tok=st_k)
     f16 = on_dev[0]["feats"]
     floors = []
     for step_bits in (1, -1):  # each feature one bf16 ulp up, then down, in magnitude
@@ -5966,35 +6243,38 @@ def phase_bf16_train(smi, seed: int = 0):
                                       f16)
         model.load_state_dict(state0)
         floors.append(_b16_grads(model, step, nudged, seed + 7, False, seg2tok=st_k)[2])
+    # the plain path again with the FFN ReLU flips that are proven ties on the
+    # kernel path's side (a flip that is not a proven tie fails the phase)
+
+    def replayed():
+        model.load_state_dict(state0)
+        return _b16_grads(model, step, on_dev[0], seed + 7, False, seg2tok=st_k)[::2]
+
+    forced, rounds, settled, first, flips, replay = relus.settle(replayed)
+    lr, gr = replay or (lp, gp)
+    n_forced = sum(int(m.sum()) for m, _ in forced.values())
+    n_ffn = len(relus.runs["kernels"])
     names = [n for n, _ in model.named_parameters()]
-    rows = []
-    for n, a, b, f, f2 in zip(names, gk, gp, *floors):
-        if a is None or b is None:
-            if (a is None) != (b is None):
-                raise AssertionError(f"[bf16-train] {n}: a gradient on one path only")
-            continue
-        scale = float(b.abs().max())
-        if scale == 0.0:
-            if float(a.abs().max()) != 0.0:
-                raise AssertionError(f"[bf16-train] {n}: 0 on the plain path only")
-            continue
-        err = float((a - b).abs().max()) / scale
-        floor = max(float((f - b).abs().max()), float((f2 - b).abs().max())) / scale
-        cos = float((a * b).sum() / (a.norm() * b.norm()))
-        rows.append((err / max(B16_GRAD_TOL, FLOOR_K * floor), err, floor, cos, n))
-    rows.sort(reverse=True)
+    rows = _b16_leaf_limits(names, gk, gr, floors)
+    loose = sorted((r for r in rows if r[2] > r[3]), key=lambda r: r[6])
     log(f"[bf16-train] bf16 kernel path vs bf16 plain path (same weights, batch, masks and "
         f"the kernel path's matching): loss {lk:.6f} vs {lp:.6f} (rel "
-        f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); {len(rows)} gradients, "
-        f"each one's largest element error of its scale against max({B16_GRAD_TOL:g}, "
-        f"{FLOOR_K:g} x its floor), the closest to their limits (error, floor, cosine): "
-        + ", ".join(f"{n} {e:.3e} {fl:.3e} {c:.6f}" for _, e, fl, c, n in rows[:5])
-        + f"; the largest error of a gradient whose floor is under {B16_GRAD_TOL:g}: "
-        + str(max((e for _, e, fl, _, _ in rows if FLOOR_K * fl < B16_GRAD_TOL), default=0.0)))
+        f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); {n_ffn} FFN calls, ReLU "
+        f"flips {first[0]}, all proven ties (largest |z1| share {first[1]:.3e}, tie "
+        f"{RELU_TIE16:g}), replayed on the kernel side in {rounds} rounds ({n_forced} units "
+        f"forced, settled: {settled}, flips left {flips}): plain loss {lr:.6f}; {len(rows)} "
+        f"gradients against it ({sum(r[5] == 'ulp' for r in rows)} bf16, held to "
+        f"{B16_GRAD_ULPS} bf16 ulps at their largest magnitude; the rest f32, to "
+        f"{B16_GRAD_TOL:g} of it; a floor-based limit FLOOR_K x the floor capped at "
+        f"{B16_FLOOR_CAP:g} but for the cancelling gradients), the closest to their limits "
+        f"(error, limit, floor, of the scale): "
+        + ", ".join(f"{n} {e:.3e} {lim:.3e} {fl:.3e}" for _, e, lim, _, fl, _, n in rows[:5])
+        + f"; every gradient whose limit is its floor's ({len(loose)}): "
+        + ", ".join(f"{n} {e:.3e} {lim:.3e} {fl:.3e}" for _, e, lim, _, fl, _, n in loose))
     if abs(lk - lp) > B16_TRAIN_LOSS_TOL * abs(lp) or rows[0][0] > 1.0:
         raise AssertionError("[bf16-train] the kernel path's gradients disagree with the "
                              "plain path's")
-    del gk, gp, floors, saves
+    del gk, gp, gr, floors, saves
     torch.cuda.empty_cache()
 
     # (e) the train CLI's entry on havid_tpu.yaml: a run, its cut and its

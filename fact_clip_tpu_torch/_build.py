@@ -100,14 +100,13 @@ SIGNATURES = {
     "fk_b16_add_pos": [P, P, L, I, I, I, I, P, P],
     "fk_x2y_sx_attn": [P, P, P, I, I, I, I, F, P, P, P, I, P],
     "fk_x2y_flash_attend": [P, P, P, I, I, I, I, F] + [P] * 5 + [I, P],
-    "fk_k3_attn16": [P, P, P] + [I] * 5 + [P] * 4,
+    "fk_k3_attn16": [P, P, P] + [I] * 5 + [P] * 5,
     "fk_sa_qkv16": [P, P, I] + [P] * 7 + [I, I, I, P],
     "fk_sa_attn_out16": [P, L, I, I, I] + [P] * 7 + [I, I, I, I, F, P],
     "fk_ffn_fwd16": [P] * 9 + [I, I, I, I, F, P],
     # the bf16 backward forms (training under mixed precision)
     "fk_b16_wgrad": [P, I, I, I, P, I, I, I, P, I, I, I, P, I, I, I, P],
     "fk_b16_round": [P, I, P, P, I, I, I, I, P, P, P],
-    "fk_k3_attn16s": [P, P, P] + [I] * 5 + [P] * 5,
     "fk_k3_attn_bwd16": [P] * 6 + [I] * 5 + [P] * 3 + [I, I, P],
     "fk_x2y_sx_attn_bwd": [P] * 6 + [I] * 4 + [F] + [P] * 3 + [I, I, P],
     "fk_ffn_bwd16": [P] * 9 + [I] * 4 + [F, P],

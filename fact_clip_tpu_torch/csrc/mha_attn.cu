@@ -408,10 +408,11 @@ extern "C" int fk_k3_attn(const float* kv, const float* q, const int* xlen, int 
 // 2E) bf16 (bf16(x + pos) Wk + bk | x Wv + bv, rounded) and q (B, M, E) bf16,
 // already scaled by bf16(1 / sqrt(hd)): the partials as fk_k3_attn's, the
 // weights rounded to bf16 for the attend sum, then the combine into out (B,
-// M, E) f32.  Serving only (no dropout, no stats).
+// M, E) f32, and, where stats is not null (the training form), the rows'
+// softmax stats (B, H*M, 2), which the backward reads.  No dropout.
 extern "C" int fk_k3_attn16(const void* kv, const void* q, const int* xlen, int B, int X, int M,
                             int H, int hd, float* part_acc, float* part_ml, float* out,
-                            void* stream) {
+                            float* stats, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   auto fn = hd == 32 ? launch_fwd<32, fk::bf16>
                      : hd == 64 ? launch_fwd<64, fk::bf16> : launch_fwd<0, fk::bf16>;
@@ -419,8 +420,8 @@ extern "C" int fk_k3_attn16(const void* kv, const void* q, const int* xlen, int 
                        part_acc, part_ml, fk::Dropout{nullptr, 0, 0u, 1.f}, st);
   if (err != cudaSuccess) return (int)err;
   const int n_t = (X + kFwdTile - 1) / kFwdTile;
-  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X,
-                             nullptr, st);
+  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X, stats,
+                             st);
 }
 
 // The backward's attention: dkv (B, X, 2E), part_dq (B, n_slots, M, E) and
@@ -440,23 +441,6 @@ extern "C" int fk_k3_attn_bwd(const float* kv, const float* q, const float* g, c
   return (int)fn(kv, q, g, stats, Dr, keep, xlen, B, X, M, H, hd, scale, dkv, part_dq, part_b,
                  n_slots, fk::Dropout{seed, drop_stream, thresh, drop_scale},
                  (cudaStream_t)stream);
-}
-
-// K3's bf16 form's training forward (ops/mha_attn.py::mha_cross16): the
-// attention of fk_k3_attn16, the combine also writing the rows' softmax
-// stats (B, H*M, 2), which the backward reads.
-extern "C" int fk_k3_attn16s(const void* kv, const void* q, const int* xlen, int B, int X, int M,
-                             int H, int hd, float* part_acc, float* part_ml, float* out,
-                             float* stats, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  auto fn = hd == 32 ? launch_fwd<32, fk::bf16>
-                     : hd == 64 ? launch_fwd<64, fk::bf16> : launch_fwd<0, fk::bf16>;
-  cudaError_t err = fn((const fk::bf16*)kv, (const fk::bf16*)q, xlen, B, X, M, H, hd, 1.f,
-                       part_acc, part_ml, fk::Dropout{nullptr, 0, 0u, 1.f}, st);
-  if (err != cudaSuccess) return (int)err;
-  const int n_t = (X + kFwdTile - 1) / kFwdTile;
-  return (int)launch_combine(part_acc, part_ml, B, n_t, M, H, hd, out, nullptr, nullptr, X, stats,
-                             st);
 }
 
 // K3's bf16 form's attention backward (ops/mha_attn.py::mha_cross16_bwd):

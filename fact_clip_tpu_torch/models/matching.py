@@ -115,32 +115,18 @@ def resolve_matcher(matcher: str = "auto") -> str:
 def run_match_auction(cost, transcript, seg_mask, mode: str, nclasses: int = None,
                       phases: int = 1, stats=None):
     """The device matching of JAX's ``run_match`` (matching.py:134-170) on a
-    batch: the auction of every video, then JAX's sequential fallback where
-    any video of the batch left a segment unassigned (else the picks with
-    -1 clamped to 0).  o2m: the auction over the classes present, then each
-    segment's cheapest token of its class.  seg2tok (B, S) int32; ``stats``,
-    a dict, receives the auction's per-video iterations."""
+    batch: ``auction_assign`` (o2o) or ``o2m_assign`` (o2m), each running
+    JAX's sequential fallback only where a video of the batch left a
+    segment unassigned.  seg2tok (B, S) int32; ``stats``, a dict, receives
+    the auction's per-video iterations."""
     seg_mask = seg_mask.bool()
     if mode == "o2o":
-        st, info = assignment.auction_assign(cost, seg_mask, safety_net=False, phases=phases,
-                                             with_stats=True)
-        if bool(((st < 0) & seg_mask).any()):
-            st = assignment.fallback_place(cost, seg_mask, st)
-        else:
-            st = torch.clamp(st, min=0)
+        st, info = assignment.auction_assign(cost, seg_mask, phases=phases, with_stats=True)
     elif mode == "o2m":
         if nclasses is None:
             raise ValueError("o2m on the device needs the class count")
-        t32 = transcript.to(torch.int32)
-        class_cost, present = assignment.o2m_class_cost(cost, t32, seg_mask, nclasses)
-        tfc, info = assignment.auction_assign(class_cost, present, safety_net=False,
-                                              phases=phases, with_stats=True)
-        if bool(((tfc < 0) & present).any()):
-            tfc = assignment.fallback_place(class_cost, present, tfc)
-        else:
-            tfc = torch.clamp(tfc, min=0)
-        st = assignment.o2m_stage2(cost, t32, seg_mask, tfc, present, nclasses,
-                                   class_cost=class_cost)
+        st, info = assignment.o2m_assign(cost, transcript.to(torch.int32), seg_mask, nclasses,
+                                         phases=phases, with_stats=True)
     else:
         raise ValueError(f"unknown match mode {mode!r}")
     if stats is not None:

@@ -66,11 +66,12 @@ def _auction_phase(value, col_valid, price, eps, max_iters: int):
 
 
 def auction_assign(cost, col_valid, eps_rel: float = 1e-3, max_iters: int = 50000,
-                   with_stats: bool = False, safety_net: bool = True, phases: int = 1):
+                   with_stats: bool = False, phases: int = 1):
     """Minimize the assignment cost of each video: cost (B, M, S), col_valid
     (B, S) bool -> seg_tok (B, S) int32, a distinct token per valid segment
-    (0 for invalid segments; with ``safety_net=False`` a segment the auction
-    left unassigned stays -1 and the caller runs ``fallback_place``).
+    (0 for invalid segments); a segment the auction left unassigned is
+    placed by ``fallback_place``, which runs only where a video of the batch
+    needs it (JAX's ``run_match`` gating, matching.py:143-148).
     ``phases`` > 1: JAX's epsilon scaling on the symmetric padding
     (assignment.py:136-147).  ``with_stats`` also returns {"iterations",
     "fallback_segments", "eps_bound"} per video."""
@@ -96,8 +97,10 @@ def auction_assign(cost, col_valid, eps_rel: float = 1e-3, max_iters: int = 5000
         seg_tok = torch.where(col_valid, seg_tok_pad[:, :S], torch.full_like(seg_tok_pad[:, :S], -1))
         eps_bound = eps_ladder[-1] * M
     fallback_segs = ((seg_tok < 0) & col_valid).sum(dim=1)
-    if safety_net:
+    if bool((fallback_segs > 0).any()):
         seg_tok = fallback_place(cost, col_valid, seg_tok)
+    else:
+        seg_tok = torch.clamp(seg_tok, min=0)
     if with_stats:
         return seg_tok, {"iterations": total_iters, "fallback_segments": fallback_segs,
                          "eps_bound": eps_bound}
@@ -159,9 +162,15 @@ def o2m_stage2(cost, transcript, col_valid, tok_for_class, class_present, nclass
     return torch.where(col_valid, seg_tok, torch.zeros_like(seg_tok))
 
 
-def o2m_assign(cost, transcript, col_valid, nclasses: int):
-    """The device one-to-many matching (JAX's ``o2m_assign``)."""
+def o2m_assign(cost, transcript, col_valid, nclasses: int, phases: int = 1,
+               with_stats: bool = False):
+    """The device one-to-many matching (JAX's ``o2m_assign``): the auction
+    between tokens and the classes present, then each segment's cheapest
+    token of its class.  ``with_stats`` also returns the stage-1 auction's
+    stats (``auction_assign``'s)."""
     class_cost, class_present = o2m_class_cost(cost, transcript, col_valid, nclasses)
-    tok_for_class = auction_assign(class_cost, class_present)
-    return o2m_stage2(cost, transcript, col_valid, tok_for_class, class_present, nclasses,
-                      class_cost=class_cost)
+    tok_for_class, info = auction_assign(class_cost, class_present, phases=phases,
+                                         with_stats=True)
+    seg_tok = o2m_stage2(cost, transcript, col_valid, tok_for_class, class_present, nclasses,
+                         class_cost=class_cost)
+    return (seg_tok, info) if with_stats else seg_tok

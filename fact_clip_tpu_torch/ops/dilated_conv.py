@@ -377,14 +377,14 @@ def _mstcn_bwd_card(g, streams, acts, lengths, layers, dilations, use_ln, eps, o
         # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
         _k6_gemm(_DX, dc, [[((1 - k) * d, 0) for k in range(3)]], taps, C, lengths, dx,
                  res=dz if use_ln else g_in)
-        dwd = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d, 0, d))
-        dw1 = _k6_wgrad(h_i, 0, C, dh, 0, C, lengths)[0]
+        dwd = wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d, 0, d))
+        dw1 = wgrad(h_i, 0, C, dh, 0, C, lengths)[0]
         sums = _sums(part)
         dgamma, dbeta = (sums[1], sums[2]) if use_ln else (torch.zeros_like(gamma),
                                                            torch.zeros_like(beta))
         if last:
             y = y_ln if use_ln else z  # the out projection's input
-            dow = _k6_wgrad(y, 0, C, g, 0, O, lengths)[0]
+            dow = wgrad(y, 0, C, g, 0, O, lengths)[0]
             dob = _sums(part_o)[0]
         dlayers[i] = (dwd, _grad.block_sums(part_c, 1, C)[0], dw1, sums[0], dgamma, dbeta)
         g_stream = dx
@@ -768,23 +768,30 @@ def _k6_gemm(mode, a, segs, wpack, N, lengths, out, *, ldo=None, col_step=0,
     _build.check("fk_k6_gemm", err)
 
 
-def _k6_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
+def wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,), *, per_video=False, chunk=K6_CHUNK):
     """sum_t A[b, t + s, a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per
-    shift s (rows outside [0, lengths[b]) zero): (len(shifts), Ca, Cb), the
-    partials of ``fk_k6_wgrad`` over K6_CHUNK frames of one video each,
-    summed in a fixed order."""
+    shift s (rows outside [0, lengths[b]) zero), f32: the partials over
+    ``chunk`` frames of one video each (``fk_k6_wgrad`` on f32 operands,
+    ``fk_b16_wgrad`` on bf16 ones) summed in a fixed order, over the batch
+    -> (len(shifts), Ca, Cb), or with ``per_video`` per video -> (len(shifts),
+    B, Ca, Cb)."""
     B, T, a_ch = A.shape
     n_taps = len(shifts)
     step = shifts[1] - shifts[0] if n_taps > 1 else 0
-    n_chunks = B * (-(-T // K6_CHUNK))
-    part = torch.empty((n_taps, n_chunks, Ca, Cb), device=A.device, dtype=torch.float32)
-    err = _build.lib().fk_k6_wgrad(A.data_ptr(), a_ch, a_c0, Ca, Bm.data_ptr(), Bm.shape[2],
-                                   b_c0, Cb, lengths.data_ptr(), shifts[0], step, n_taps,
-                                   part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
-    _build.check("fk_k6_wgrad", err)
+    per = -(-T // chunk)
+    if Bm.dtype != A.dtype:
+        raise ValueError(f"wgrad: operands of two dtypes ({A.dtype}, {Bm.dtype})")
+    entry = "fk_b16_wgrad" if A.dtype == torch.bfloat16 else "fk_k6_wgrad"
+    _build.check_tensors(entry, [A, Bm, lengths], A.device, bf16=A.dtype == torch.bfloat16)
+    part = torch.empty((n_taps, B * per, Ca, Cb), device=A.device, dtype=torch.float32)
+    err = getattr(_build.lib(), entry)(A.data_ptr(), a_ch, a_c0, Ca, Bm.data_ptr(), Bm.shape[2],
+                                       b_c0, Cb, lengths.data_ptr(), shifts[0], step, n_taps,
+                                       part.data_ptr(), B, T, chunk, _build.stream_ptr(A.device))
+    _build.check(entry, err)
     n = Ca * Cb
-    return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
-                        rstride=0, cols=n).view(n_taps, Ca, Cb)
+    G, P = (n_taps * B, per) if per_video else (n_taps, B * per)
+    out = _grad.reduce(part, G=G, P=P, pstride=n, gstride=P * n, rows=1, rstride=0, cols=n)
+    return out.view(n_taps, B, Ca, Cb) if per_video else out.view(n_taps, Ca, Cb)
 
 
 def _check_layers2(name, x, lengths, layers, out_w, out_b, seeds, rates):
@@ -967,13 +974,13 @@ def _mstcn2_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_
         # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s - (k-1)d]
         segs = [[((1 - k) * d, c0) for d, c0 in ((d1, 0), (d2, C)) for k in range(3)]]
         _k6_gemm(_DX, dc, segs, dxw, C, lengths, dx, res=g_in)
-        dk1 = _k6_wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d1, 0, d1))
-        dk2 = _k6_wgrad(x_i, 0, C, dc, C, C, lengths, shifts=(-d2, 0, d2))
-        dwf = _k6_wgrad(cs[i], 0, 2 * C, ds, 0, C, lengths)[0]
+        dk1 = wgrad(x_i, 0, C, dc, 0, C, lengths, shifts=(-d1, 0, d1))
+        dk2 = wgrad(x_i, 0, C, dc, C, C, lengths, shifts=(-d2, 0, d2))
+        dwf = wgrad(cs[i], 0, 2 * C, ds, 0, C, lengths)[0]
         dbf = _grad.block_sums(part_f, 1, C)[0]
         db = _grad.block_sums(part_c, 1, 2 * C)[0]
         if last:
-            dow = _k6_wgrad(y_out, 0, C, g, 0, O, lengths)[0]
+            dow = wgrad(y_out, 0, C, g, 0, O, lengths)[0]
             dob = _grad.block_sums(part_o, 1, O)[0]
         dlayers[i] = (dk1, db[:C], dk2, db[C:], dwf[:C], dwf[C:], dbf)
         g_stream = dx
@@ -1264,26 +1271,6 @@ def b16_round(src, lengths, *, gate=None, out: bool = True, sums: bool = False):
     return o, (_sums(part)[0] if sums else None)
 
 
-def b16_wgrad(A, a_c0, Ca, Bm, b_c0, Cb, lengths, shifts=(0,)):
-    """``_k6_wgrad`` on bf16 operands (``fk_b16_wgrad``): sum_t A[b, t + s,
-    a_c0 : a_c0 + Ca]^T Bm[b, t, b_c0 : b_c0 + Cb] per shift s, rows
-    outside [0, lengths[b]) zero -> (len(shifts), Ca, Cb) f32, the partials
-    of K6_CHUNK frames of one video each summed in a fixed order."""
-    B, T, a_ch = A.shape
-    n_taps = len(shifts)
-    step = shifts[1] - shifts[0] if n_taps > 1 else 0
-    n_chunks = B * (-(-T // K6_CHUNK))
-    part = torch.empty((n_taps, n_chunks, Ca, Cb), device=A.device, dtype=torch.float32)
-    _build.check_tensors("b16_wgrad", [A, Bm, lengths], A.device, bf16=True)
-    err = _build.lib().fk_b16_wgrad(A.data_ptr(), a_ch, a_c0, Ca, Bm.data_ptr(), Bm.shape[2],
-                                    b_c0, Cb, lengths.data_ptr(), shifts[0], step, n_taps,
-                                    part.data_ptr(), B, T, K6_CHUNK, _build.stream_ptr(A.device))
-    _build.check("fk_b16_wgrad", err)
-    n = Ca * Cb
-    return _grad.reduce(part, G=n_taps, P=n_chunks, pstride=n, gstride=n_chunks * n, rows=1,
-                        rstride=0, cols=n).view(n_taps, Ca, Cb)
-
-
 def _r16(w):
     """A weight gradient rounded to bf16 (the dtype of the weight JAX's call
     took), held in f32 as the parameter's gradient."""
@@ -1320,7 +1307,7 @@ def _mstcn16_bwd_card(g, streams, acts, lengths, layers, dilations, out_w, out_b
     glg = g.to(torch.bfloat16).contiguous()  # JAX's caller: g.astype(x.dtype)
     full = torch.full_like(lengths, T)  # dob sums every frame's row, as JAX's kernel
     _, dob = b16_round(glg, full, out=False, sums=True)
-    dow = _r16(b16_wgrad(streams[n], 0, C, glg, 0, O, lengths)[0])
+    dow = _r16(wgrad(streams[n], 0, C, glg, 0, O, lengths)[0])
     dy = torch.empty((B, T, C), device=x.device, dtype=torch.float32)
     b16_gemm(B16_PROJ, glg, [0], b16_pack(out_w), C, lengths, dy)
     dh, db1 = b16_round(dy, lengths, sums=True)
@@ -1341,8 +1328,8 @@ def _mstcn16_bwd_card(g, streams, acts, lengths, layers, dilations, out_w, out_b
         b16_gemm(B16_RESID, dc, [d, 0, -d], b16_pack(torch.cat([wd[0], wd[1], wd[2]], dim=1),
                                                      segs=3),
                  C, lengths, g_in, kseg=b16_pad(C), res=gsrc)
-        dwd = _r16(b16_wgrad(streams[i], 0, C, dc, 0, C, lengths, shifts=(-d, 0, d)))
-        dw1 = _r16(b16_wgrad(acts[i], 0, C, dh, 0, C, lengths)[0])
+        dwd = _r16(wgrad(streams[i], 0, C, dc, 0, C, lengths, shifts=(-d, 0, d)))
+        dw1 = _r16(wgrad(acts[i], 0, C, dh, 0, C, lengths)[0])
         dlayers[i] = (dwd, dbd, dw1, db1, torch.zeros_like(gamma), torch.zeros_like(beta))
     return g_in, dlayers, dow, dob
 

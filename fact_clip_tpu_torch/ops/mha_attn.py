@@ -52,8 +52,8 @@ import torch
 from .. import _build
 from . import _grad
 from .bf16 import BF16, add_pos16, mm, rnd
-from .dilated_conv import (_MASKED, _ONE, _PROJ, B16_PROJ16, _k6_gemm, _k6_wgrad, b16_add_pos,
-                           b16_gemm, b16_pack, b16_wgrad, has_b16_kernels, k6_pack)
+from .dilated_conv import (_MASKED, _ONE, _PROJ, B16_PROJ16, _k6_gemm, b16_add_pos, b16_gemm,
+                           b16_pack, has_b16_kernels, k6_pack, wgrad)
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import add_pos, kernel_pos
 
@@ -355,7 +355,7 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
     del kv
     dx = torch.empty_like(x_in)
     _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
-    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * E, lens)[0]  # [x^T dK | x^T dV]
+    dw = wgrad(x_in, 0, Cx, dkv, 0, 2 * E, lens)[0]  # [x^T dK | x^T dV]
     d_wk, d_wv = dw[:, :E], dw[:, E:]
     if pos is not None:  # dWk += pos^T dK, the batch's dK summed first where pos is shared
         if pos.shape[0] == 1:
@@ -364,7 +364,7 @@ def _mha_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_head
         else:
             dk_p, pos_lens = dkv, lens
         d_wk = d_wk.clone()
-        d_wk[:P] += _k6_wgrad(pos, 0, P, dk_p, 0, E, pos_lens)[0]
+        d_wk[:P] += wgrad(pos, 0, P, dk_p, 0, E, pos_lens)[0]
     dq = _grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
     d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]
     return dq, dx, None, d_wk, d_b[:E], d_wv, d_b[E:]
@@ -527,19 +527,13 @@ def _mha16_fwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, num_heads, packed=Non
     part_acc = torch.empty((B, n_t, H * M, hd), **f32)
     part_ml = torch.empty((B, n_t, H * M, 2), **f32)
     out = torch.empty((B, M, E), **f32)
-    if with_stats:  # the training form: the combine also writes the rows' stats
-        stats = torch.empty((B, H * M, 2), **f32)
-        err = _build.lib().fk_k3_attn16s(kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M,
-                                         H, hd, part_acc.data_ptr(), part_ml.data_ptr(),
-                                         out.data_ptr(), stats.data_ptr(),
-                                         _build.stream_ptr(x_in.device))
-        _build.check("fk_k3_attn16s", err)
-        return out, stats
+    stats = torch.empty((B, H * M, 2), **f32) if with_stats else None
     err = _build.lib().fk_k3_attn16(kv.data_ptr(), qs.data_ptr(), x_len.data_ptr(), B, X, M, H,
                                     hd, part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                                    stats.data_ptr() if stats is not None else None,
                                     _build.stream_ptr(x_in.device))
     _build.check("fk_k3_attn16", err)
-    return out
+    return (out, stats) if with_stats else out
 
 
 # ---------------------------------------------------------------------------
@@ -636,8 +630,8 @@ def _mha16_bwd_card(q, x_in, x_pos, wk, bk, wv, bv, x_len, stats, out, g, num_he
     del kv
     dx = torch.empty_like(x_in)
     b16_gemm(B16_PROJ16, dkv, [0], b16_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
-    d_wk = rnd(b16_wgrad(xin, 0, Cx, dkv, 0, E, lens)[0])
-    d_wv = rnd(b16_wgrad(x_in, 0, Cx, dkv, E, E, lens)[0])
+    d_wk = rnd(wgrad(xin, 0, Cx, dkv, 0, E, lens)[0])
+    d_wv = rnd(wgrad(x_in, 0, Cx, dkv, E, E, lens)[0])
     dq = (_grad.sum_groups(part_dq, K3_SUM_GROUP).view(B, M, E)
           * (1.0 / math.sqrt(hd))).to(BF16)
     d_b = _grad.sum_groups(part_b.view(1, B * n_slots, 2 * E), K3_SUM_GROUP)[0]

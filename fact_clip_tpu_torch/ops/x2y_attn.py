@@ -48,8 +48,8 @@ from .. import _build
 from . import _grad
 from .bf16 import BF16, add_pos16, mm, rnd
 from .dilated_conv import (_MASKED, _ONE, B16_PROJ, B16_PROJ16, B16_PROJ_RND, K6_CHUNK, _k6_gemm,
-                           _k6_wgrad, b16_add_pos, b16_gemm, b16_pack, b16_round, b16_wgrad,
-                           has_b16_kernels, k6_pack)
+                           b16_add_pos, b16_gemm, b16_pack, b16_round, has_b16_kernels, k6_pack,
+                           wgrad)
 from .mha_attn import _check_strides, _project, attended_lengths, k3_pack
 from .pos import add_pos, kernel_pos, pos_grad
 
@@ -543,14 +543,14 @@ def _x2y_flash_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
     del kv
     dx = torch.empty_like(x_in)
     _k6_gemm(_MASKED, dkv, _ONE, k6_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
-    dw = _k6_wgrad(x_in, 0, Cx, dkv, 0, 2 * d, lens)[0]  # [x^T dxk | x^T dxv]
+    dw = wgrad(x_in, 0, Cx, dkv, 0, 2 * d, lens)[0]  # [x^T dxk | x^T dxv]
     d_wk, d_wv = dw[:, :d], dw[:, d:]
     d_xpos = None
     if xpos is not None:  # shared by the batch: dWk += x_pos^T (sum_b dxk)
         dk_sum = _grad.batch_sum(dkv, d)
         full = torch.full((1,), X, dtype=torch.int32, device=x_in.device)
         d_wk = d_wk.clone()
-        d_wk[:Px] += _k6_wgrad(xpos, 0, Px, dk_sum, 0, d, full)[0]
+        d_wk[:Px] += wgrad(xpos, 0, Px, dk_sum, 0, d, full)[0]
         if need_xpos_grad:
             # sum_b dxk_in[b] = (sum_b dxk[b]) @ Wk^T: one product of the batch sum
             d_xpos = _pos_like((dk_sum @ wk.t())[..., :Px], x_pos)
@@ -870,21 +870,6 @@ def x2y16_bwd_reference(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len,
             d_yq.sum(dim=(0, 1)))
 
 
-def _wgrad_per_video(A, a_ch, Ca, Bm, Cb, lens, Kc):
-    """sum_t A[b, t, :Ca]^T Bm[b, t, :Cb] per video (f32, ``fk_k6_wgrad``'s
-    chunk partials of Kc rows, added per video in order): (B, Ca, Cb)."""
-    B, T = A.shape[0], A.shape[1]
-    per = -(-T // Kc)
-    part = torch.empty((1, B * per, Ca, Cb), device=A.device, dtype=torch.float32)
-    err = _build.lib().fk_k6_wgrad(A.data_ptr(), a_ch, 0, Ca, Bm.data_ptr(), Bm.shape[2], 0, Cb,
-                                   lens.data_ptr(), 0, 0, 1, part.data_ptr(), B, T, Kc,
-                                   _build.stream_ptr(A.device))
-    _build.check("fk_k6_wgrad", err)
-    n = Ca * Cb
-    return _grad.reduce(part, G=B, P=per, pstride=n, gstride=per * n, rows=1, rstride=0,
-                        cols=n).view(B, Ca, Cb)
-
-
 def x2y_small_x16_bwd(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_len, probs, g_attn,
                       g_probs=None, g_logits=None, packed=None):
     """The small-X bf16 backward on the card (y_pos shared by the batch)."""
@@ -942,12 +927,12 @@ def _x2y_small_x16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_
     if want_ypos:
         dy = dy32.to(BF16)
     yq_in = add_pos(y_in.float(), None if yp is None else yp.float()).contiguous()
-    d_wq = rnd(_k6_wgrad(yq_in, 0, Cy, dyq, 0, d, full)[0])
+    d_wq = rnd(wgrad(yq_in, 0, Cy, dyq, 0, d, full)[0])
     d_bq = _grad.sum_groups(part_bq[None], SX_SUM_GROUP)[0]
     Kc = sx_chunk(B, Y)
     probs_p = probs if xpad == X else torch.nn.functional.pad(probs, (0, xpad - X)).contiguous()
-    dxk = _wgrad_per_video(dlog, xpad, X, yq, d, full, Kc)
-    dxv = _wgrad_per_video(probs_p, xpad, X, g_attn, d, full, Kc)
+    dxk = wgrad(dlog, 0, X, yq, 0, d, full, per_video=True, chunk=Kc)[0]
+    dxv = wgrad(probs_p, 0, X, g_attn, 0, d, full, per_video=True, chunk=Kc)[0]
     # the X side: plain products, as JAX's caller (x2y_attn.py:528-535)
     d_xk_in = dxk @ rnd(wk).t()
     dx = (d_xk_in + dxv @ rnd(wv).t()).to(BF16)
@@ -1014,8 +999,8 @@ def _x2y_flash16_bwd_card(y_in, y_pos, x_in, x_pos, wk, bk, wv, bv, wq, bq, x_le
     dkv16, _ = b16_round(dkv, lens)
     dx = torch.empty_like(x_in)
     b16_gemm(B16_PROJ16, dkv16, [0], b16_pack(torch.cat([wk, wv], dim=1)), Cx, lens, dx)
-    d_wk = rnd(b16_wgrad(xin, 0, Cx, dkv16, 0, d, lens)[0])
-    d_wv = rnd(b16_wgrad(x_in, 0, Cx, dkv16, d, d, lens)[0])
+    d_wk = rnd(wgrad(xin, 0, Cx, dkv16, 0, d, lens)[0])
+    d_wv = rnd(wgrad(x_in, 0, Cx, dkv16, d, d, lens)[0])
     d_xpos = None
     if x_pos is not None and x_pos.requires_grad:  # sum_b dxk_in, from the unrounded sums
         dk_sum = _grad.batch_sum(dkv16.float().contiguous(), d)

@@ -8,9 +8,8 @@ weight products, the fixed-order reduce, K2's flash attention backward) and
 a model of each new entry on the raw memory of CPU tensors:
 ``fk_b16_wgrad`` (per tap and chunk of one video's frames, products of bf16
 values summed in f32), ``fk_b16_round`` (the frame mask, the ReLU gate, the
-rounding, per-block column sums), ``fk_k3_attn16s`` (the bf16 attention
-with the rows' stats), ``fk_k3_attn_bwd16`` (per key tile, JAX's roundings
-of g, dl, p and dK / dV), ``fk_x2y_sx_attn_bwd`` (the small-X attention
+rounding, per-block column sums), ``fk_k3_attn_bwd16`` (per key tile,
+JAX's roundings of g, dl, p and dK / dV), ``fk_x2y_sx_attn_bwd`` (the small-X attention
 terms), ``fk_ffn_bwd16`` (``fk_ffn_bwd``'s steps with z1 and bf16(dz1)
 rounded) and ``fk_sa_bwd16`` (the SA backward's nine launches).  The port's
 launch sequences (``_mstcn16_fwd_card(save=True)``, ``_mstcn16_bwd_card``,
@@ -87,21 +86,6 @@ class FakeB16BwdLib(FakeB16Lib, FakeK2Lib):
             P = _view(part, B * nb * C).view(B, nb, C)
             for i in range(nb):
                 P[:, i] = v[:, i * R:(i + 1) * R].sum(dim=1)
-        return 0
-
-    def fk_k3_attn16s(self, kv, q, xlen, B, X, M, H, hd, part_acc, part_ml, out, stats, stream):
-        self.fk_k3_attn16(kv, q, xlen, B, X, M, H, hd, part_acc, part_ml, out, stream)
-        self.calls[-1] = ("k3_attn16s",)
-        E = H * hd
-        K = _v16(kv, B * X * 2 * E).view(B, X, 2, H, hd)[:, :, 0].float()
-        Q = _v16(q, B * M * E).view(B, M, H, hd).float()
-        xl = _ints(xlen, B).clamp(max=X)
-        lg = torch.einsum("bmhd,bxhd->bhmx", Q, K)
-        lg = lg.masked_fill(~(torch.arange(X)[None, None, None, :] < xl[:, None, None, None]),
-                            -1e9)
-        m = lg.amax(dim=-1, keepdim=True)
-        l_ = torch.exp(lg - m).sum(dim=-1, keepdim=True)
-        _view(stats, B * H * M * 2).view(B, H, M, 2)[:] = torch.cat([m, l_], -1)
         return 0
 
     def fk_k3_attn_bwd16(self, kv, q, g, stats, Dr, xlen, B, X, M, H, hd, dkv, part_dq, part_b,
@@ -404,7 +388,7 @@ def test_emulated_k3_bwd16(fake, M, X, hd):
     out_k, st_k = ma._mha16_fwd_card(q, x, pos, wk, bk, wv, bv, xl, H, with_stats=True)
     out, st = ma.mha_cross16_reference(q, x, pos, wk, bk, wv, bv, xl, num_heads=H,
                                        with_stats=True)
-    assert ("k3_attn16s",) in fake.calls
+    assert ("k3_attn16",) in fake.calls
     assert (st_k - st).abs().max() <= 1e-5 * st.abs().max()
     g = _f(rng, (B, M, E))
     got = ma._mha16_bwd_card(q, x, pos, wk, bk, wv, bv, xl, st, out, g, H)

@@ -124,10 +124,11 @@ class FakeB16Lib(FakeFFNFwdLib):
             _view(ptr, math.prod(shape)).view(shape)[:] = v
         return 0
 
-    def fk_k3_attn16(self, kv, q, xlen, B, X, M, H, hd, part_acc, part_ml, out, stream):
+    def fk_k3_attn16(self, kv, q, xlen, B, X, M, H, hd, part_acc, part_ml, out, stats, stream):
         """Per 64-key tile: m_t the tile's max, p = exp(logit - m_t), l_t its
         sum, acc_t = bf16(p) v; a tile wholly past x_len (> 0) m = -1e9, l =
-        its keys, acc = 0; then the combine."""
+        its keys, acc = 0; then the combine, and where stats is given the
+        rows' max logit and weights' sum over the whole row."""
         self.calls.append(("k3_attn16",))
         E = H * hd
         KV = _v16(kv, B * X * 2 * E).view(B, X, 2, H, hd).float()
@@ -150,6 +151,10 @@ class FakeB16Lib(FakeFFNFwdLib):
         w = [torch.exp(m - m_all) for m in ms]
         o = sum(wi * a for wi, a in zip(w, accs)) / sum(wi * li for wi, li in zip(w, ls))
         _view(out, B * M * E).view(B, M, H, hd)[:] = o.permute(0, 2, 1, 3)
+        if stats:
+            m = logits.amax(dim=-1, keepdim=True)
+            l_ = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+            _view(stats, B * H * M * 2).view(B, H, M, 2)[:] = torch.cat([m, l_], -1)
         return 0
 
     def fk_sa_qkv16(self, x, pos, Pp, wq, bq, wk, bk, wv, bv, qkv, B, M, E, stream):

@@ -391,6 +391,23 @@ def test_fallback_place_equals_jaxs():
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("seed", [8, 9])
+def test_o2m_assign_equals_jaxs(seed):
+    """The device one-to-many matching on a batch, against JAX's
+    ``o2m_assign`` run per video: equal seg2tok."""
+    rng = np.random.default_rng(seed)
+    B, M, S, C = 3, 12, 10, 5
+    cost = rng.normal(size=(B, M, S)).astype(np.float32)
+    valid = np.arange(S)[None] < np.array([10, 6, 1])[:, None]
+    transcript = rng.integers(0, C, size=(B, S)).astype(np.int32)
+    got = passign.o2m_assign(torch.from_numpy(cost), torch.from_numpy(transcript),
+                             torch.from_numpy(valid), C)
+    for b in range(B):
+        ref = jassign.o2m_assign(jnp.asarray(cost[b]), jnp.asarray(transcript[b]),
+                                 jnp.asarray(valid[b]), C)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("mode", ["o2o", "o2m"])
 def test_run_match_auction_equals_jaxs(mode):
     """``match`` with ``matcher: auction`` against JAX's ``run_match`` on a
