@@ -353,13 +353,31 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    kernel side (``FfnRelus16``; loss 1e-3, each gradient 8 bf16 ulps or
    2^-5 of its scale, or its floor's limit), and the train CLI on
    havid_tpu.yaml cut, resumed and compared bit for bit.
-20. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
+20. Breakfast under mixed precision (``phase_bf16_m2``):
+   ``breakfast_bf16_cfg()`` at full width, K6's bf16 form in every tower:
+   phase 6's 10 requests through ``Predictor`` (the bf16 forms' launches per
+   batch exact, K6's 4, every f32 twin 0), the eval step at 8 x 4096 beside
+   the f32 kernel path and against its plain bf16 path, one train step at 4
+   x 4096 (every bf16 backward form, K6's 4) and its split beside f32's, the
+   kernel path against the plain path for train_compare's seeds (phase 19's
+   limits, the FFN and K6 ReLU ties replayed on the kernel side,
+   ``TowerRelus16``), the train CLI on breakfast.yaml --set
+   TPU.compute_dtype bfloat16 cut, resumed and compared bit for bit, then
+   ``run_eval``; ``egoprocel_cfg()`` in bf16 serving phase 13's requests
+   (K3's bf16 form at M = 200).  Phase 3 holds K6's two bf16 forms
+   (``mstcn2_stack16``, ``mstcn2_stack16_bwd``: Breakfast's 4 x 4,096 x 512,
+   a ragged 3 x 600 with a video of 0 frames, epic's 1 x 24,576 x 256, one
+   layer, each new launch alone) and K2-K4's bf16 forms at Breakfast's
+   widths (``breakfast`` cases: E = 512, hd = 64, M = 60, X = 4,096).
+21. the JSON line of kernel results (K7's launches from phase 8, K8a-K8d's
    from phase 10, K8e's from phase 11's Breakfast requests, the row forms'
    from phase 11b's predicts (0 on every other path), the single-layer K1's
    and K1's mask kernel's from phase 12 (the tower re-hashes its masks
    inside its kernels); the factored argmax, a verification oracle, launches
    0; each kernel of phase 17 (a)'s transcript path also its launches there,
-   ``transcript_launches``: the 6 requests and the 3 steps), the nvidia-smi
+   ``transcript_launches``: the 6 requests and the 3 steps; K6's bf16 forms
+   their launches in phase 20, K1-K4's bf16 forms also theirs there,
+   ``breakfast_launches``), the nvidia-smi
    line, and last the contract line {"ok": true,
    "device": {...}}.
 
@@ -1761,7 +1779,7 @@ def b16_judge(outs, refs, tol, probs=False):
 def k1_16_case(rng, B, T, C, O, dilations, lengths):
     """K1's bf16 form: the tower on bf16 operands (bf16 GEMM, tc_bf16.cu)
     and its plain version.  Its products count at the bf16 tensor-core
-    rate."""
+    rate; the library yardstick ``k1_library16``'s forward."""
     from fact_clip_tpu_torch.ops import dilated_conv as dc
 
     (x, lens, layers, dil), kw = k1_case(rng, B, T, C, O, dilations, lengths, False)
@@ -1775,7 +1793,8 @@ def k1_16_case(rng, B, T, C, O, dilations, lengths):
             L * 8 * N * C * C + 2 * N * C * n_out)
     return (lambda: dc.mstcn_stack16(x, lens, layers, dil, out_w=ow, out_b=ob, packed=packed),
             lambda: dc.mstcn_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob), work,
-            None, None, B16_TOWER_TOL if L > 1 else B16_TOL)
+            None, k1_library16(x, lens, layers, dil, ow, ob, None),
+            B16_TOWER_TOL if L > 1 else B16_TOL)
 
 
 def k1_launch16_case(rng, mode, B, T, C, O, lengths):
@@ -1989,10 +2008,11 @@ def b16_bwd_judge(outs, refs, names, tol, scales=None):
 
 
 def k1_library16(x, lens, layers, dil, out_w, out_b, g):
-    """The library yardstick of K1's bf16 backward: the tower in bf16 as
-    ``F.conv1d`` (dilated) and ``torch.matmul`` calls, the frame mask, and
-    its autograd backward to x and every weight for the logits' cotangent
-    ``g`` (bf16 throughout).  Timed here, used nowhere in the port."""
+    """The library yardstick of K1's bf16 form: the tower in bf16 as
+    ``F.conv1d`` (dilated) and ``torch.matmul`` calls and the frame mask;
+    with ``g`` (not None) its autograd backward to x and every weight for the
+    logits' cotangent (bf16 throughout).  Timed here, used nowhere in the
+    port."""
     import torch
     import torch.nn.functional as F
 
@@ -2010,7 +2030,7 @@ def k1_library16(x, lens, layers, dil, out_w, out_b, g):
         return torch.matmul(h, ow) + ob
 
     return _autograd_library(run, [x, out_w.to(torch.bfloat16), out_b.to(torch.bfloat16),
-                                   *flat], g.to(torch.bfloat16))
+                                   *flat], None if g is None else g.to(torch.bfloat16))
 
 
 def k1_bwd16_case(rng, B, T, C, O, dilations, lengths):
@@ -2253,6 +2273,162 @@ def ffn_bwd16_case(rng, B, M, E, Fd):
     return (lambda: sl.ffn_sublayer16_bwd(*args, g, packed=w1h),
             lambda: sl.ffn_sublayer16_bwd_reference(*args, g), work,
             ffn_library(*_b16(*args), None, None, g=_b16(g)), B16_BWD_TOL, names, None)
+
+
+# ---------------------------------------------------------------------------
+# K6's bf16 form (phase 20: breakfast_bf16_cfg() served and trained)
+
+
+def k6_library16(x, lens, layers, dil_pairs, out_w, out_b, g=None):
+    """The library yardstick of K6's bf16 form: the tower in bf16 as two
+    dilated ``F.conv1d`` calls, ``torch.cat`` and one ``torch.matmul`` of
+    the fuse a layer, the ReLU, the residual and the frame mask, then the
+    out projection; with ``g`` its autograd backward to x and every weight
+    for the logits' cotangent (bf16 throughout).  Timed here, used nowhere
+    in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    T = x.shape[1]
+    mask = (torch.arange(T, device=x.device)[None, :] < lens[:, None])[..., None].to(x.dtype)
+    flat = [t.to(torch.bfloat16) for layer in layers for t in layer]
+
+    def run(x, ow, ob, *flat):
+        h = x * mask
+        for i, (d1, d2) in enumerate(dil_pairs):
+            k1, b1, k2, b2, wt, wb, bf = flat[7 * i:7 * i + 7]
+            ht = h.transpose(1, 2)
+            c = torch.cat([F.conv1d(ht, k1.permute(2, 1, 0), b1, padding=d1, dilation=d1),
+                           F.conv1d(ht, k2.permute(2, 1, 0), b2, padding=d2, dilation=d2)], 1)
+            s = torch.matmul(c.transpose(1, 2), torch.cat([wt, wb])) + bf
+            h = (torch.relu(s) + h) * mask
+        return torch.matmul(h, ow) + ob
+
+    return _autograd_library(run, [x, out_w.to(torch.bfloat16), out_b.to(torch.bfloat16),
+                                   *flat], None if g is None else g.to(torch.bfloat16))
+
+
+def k6_16_case(rng, B, T, C, O, L, lengths):
+    """K6's bf16 form: the MS-TCN++ tower on bf16 operands (tc_bf16.cu's GEMM:
+    c1 and c2 rounded, the fuse with its ReLU and residual, the logits) and
+    its plain version.  Its products count at the bf16 tensor-core rate;
+    the library yardstick ``k6_library16``."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    x, lens, layers, dil, kw = k6_case(rng, B, T, C, O, L, lengths, 0.0)
+    x = _b16(x)
+    ow, ob = kw["out_w"], kw["out_b"]
+    packed = dc.mstcn2_b16_pack(layers, ow)
+    N = _valid(lens, T)
+    work = (0, nbytes(x, lens, ob, packed, [(l[1], l[3], l[6]) for l in layers]) + B * T * O * 4,
+            0, 0, 0, L * 16 * N * C * C + 2 * N * C * O)
+    return (lambda: dc.mstcn2_stack16(x, lens, layers, dil, out_w=ow, out_b=ob, packed=packed),
+            lambda: dc.mstcn2_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob), work,
+            None, k6_library16(x, lens, layers, dil, ow, ob), B16_TOWER_TOL if L > 1 else B16_TOL)
+
+
+def k6_launch16_case(rng, mode, B, T, C, d, lengths):
+    """One launch of K6's bf16 form alone, its bf16 outputs one rounding each
+    (judged in ulps) against the same sums in f32 on the plain side, rows
+    past each video zero: "conv" (c2 = bf16(conv3_d(x) + b2), B16_PROJ16 over
+    three segments into the right half of [c1 | c2]), "fuse" (bf16(relu([c1 |
+    c2] [Wt ; Wb] + bf) + x) and its saved ReLU output, B16_FUSE) or "dx" (the
+    backward's bf16(six taps of [dc1 | dc2] + g), B16_RESID over six segments
+    at their shifts and first channels)."""
+    import torch
+
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    lens = _lens(lengths)
+    valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[..., None]
+    x = _b16(_rand(rng, (B, T, C)))
+    N = _valid(lens, T)
+    if mode == "conv":
+        k, b = _uniform(rng, (3, C, C), 3 * C), _uniform(rng, (C,), 3 * C)
+        wp = dc.b16_pack(k.reshape(3 * C, C), True, segs=3)
+        out = torch.zeros((B, T, 2 * C), device="cuda", dtype=torch.bfloat16)
+
+        def kern():
+            dc.b16_gemm(dc.B16_PROJ16, x, [-d, 0, d], wp, C, lens, out, kseg=dc.b16_pad(C),
+                        ldo=2 * C, col_off=C, bias=b)
+            return out[..., C:]
+
+        def plain():
+            xv = (x * valid).float()
+            taps = k.to(torch.bfloat16).float()
+            acc = dc._shift(xv, -d) @ taps[0] + xv @ taps[1] + dc._shift(xv, d) @ taps[2]
+            return ((acc + b) * valid).to(torch.bfloat16)
+
+        work = (0, nbytes(x, wp, b, lens) + B * T * C * 2, 0, 0, 0, 6 * N * C * C)
+    elif mode == "fuse":
+        c = _b16(_rand(rng, (B, T, 2 * C)) * valid)
+        wf, bf = _uniform(rng, (2 * C, C), 2 * C), _uniform(rng, (C,), 2 * C)
+        wp = dc.b16_pack(wf, True)
+        out, h = torch.empty_like(x), torch.empty_like(x)
+
+        def kern():
+            dc.b16_gemm(dc.B16_FUSE, c, [0], wp, C, lens, out, bias=bf, res=x, out2=h)
+            return out, h
+
+        def plain():
+            r = torch.relu(c.float() @ wf.to(torch.bfloat16).float() + bf) * valid
+            return ((r + x.float()) * valid).to(torch.bfloat16), r.to(torch.bfloat16)
+
+        work = (0, nbytes(c, x, wp, bf, lens) + 2 * B * T * C * 2, 0, 0, 0, 4 * N * C * C)
+    else:
+        d1, d2 = d, 1
+        dcb = _b16(_rand(rng, (B, T, 2 * C)) * valid)
+        taps = [_uniform(rng, (3, C, C), 3 * C) for _ in range(2)]
+        wp = dc.b16_pack(torch.cat([t[j] for t in taps for j in range(3)], dim=1), segs=6)
+        out = torch.empty_like(x)
+
+        def kern():
+            dc.b16_gemm(dc.B16_RESID, dcb, [d1, 0, -d1, d2, 0, -d2], wp, C, lens, out,
+                        kseg=dc.b16_pad(C), res=x, c0s=[0, 0, 0, C, C, C])
+            return out
+
+        def plain():
+            acc = x.float()
+            for half, t, dd in ((dcb[..., :C], taps[0], d1), (dcb[..., C:], taps[1], d2)):
+                hv, tw = half.float(), t.to(torch.bfloat16).float()
+                acc = acc + dc._shift(hv, dd) @ tw[0].t() + hv @ tw[1].t() \
+                    + dc._shift(hv, -dd) @ tw[2].t()
+            return (acc * valid).to(torch.bfloat16)
+
+        work = (0, nbytes(dcb, x, wp, lens) + B * T * C * 2, 0, 0, 0, 12 * N * C * C)
+    return kern, plain, work, None, None, B16_TOL
+
+
+def k6_bwd16_case(rng, B, T, C, O, L, lengths):
+    """K6's bf16 backward from the plain training form's saves (the same
+    streams, [c1 | c2] and ReLU outputs on both sides): dy and its
+    roundings, per layer [dc1 | dc2] in one product rounded with db1's and
+    db2's sums, dx over the six taps, the weight products on bf16 operands;
+    every product at the bf16 tensor-core rate; the library yardstick
+    ``k6_library16``'s autograd backward."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+    x, lens, layers, dil, kw = k6_case(rng, B, T, C, O, L, lengths, 0.0)
+    x = _b16(x)
+    ow, ob = kw["out_w"], kw["out_b"]
+    g = _rand(rng, (B, T, O), 0.01)
+    _, streams, cs, hs = dc.mstcn2_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob,
+                                                     save=True)
+    N = _valid(lens, T)
+    work = (0, nbytes(g, streams, cs, hs, lens, layers, ow, ob) + nbytes(x, layers, ow, ob), 0,
+            0, 0, 32 * L * N * C * C + 4 * N * C * O)
+    names = ["dx"] + [f"{n}{i}" for i in range(L)
+                      for n in ("dk1", "db1", "dk2", "db2", "dwt", "dwb", "dbf")] + ["dow", "dob"]
+
+    def flat(r):
+        return [r[0], *[t for layer in r[1] for t in layer], r[2], r[3]]
+
+    return (lambda: flat(dc.mstcn2_stack16_bwd(g, streams, cs, hs, lens, layers, dil, out_w=ow,
+                                               out_b=ob)),
+            lambda: flat(dc.mstcn2_stack16_bwd_reference(g, streams, cs, hs, lens, layers, dil,
+                                                         out_w=ow, out_b=ob)),
+            work, k6_library16(x, lens, layers, dil, ow, ob, g),
+            B16_BWD_TOWER_TOL if L > 1 else B16_BWD_TOL, names, None)
 
 
 def kernel_table():
@@ -2705,25 +2881,49 @@ def kernel_table():
           # its launches alone: y + y_pos, yq (f32), the keys (rounded to bf16)
           ("add_pos", lambda r: b16_launch_case(r, "add_pos", B, T, D, D, [T] * B)),
           ("proj_yq", lambda r: b16_launch_case(r, 3, B, T, D, D, [T] * B)),
-          ("proj_rnd", lambda r: b16_launch_case(r, 4, B, 40, D, D, [40, 11] * 4))]),
+          ("proj_rnd", lambda r: b16_launch_case(r, 4, B, 40, D, D, [40, 11] * 4)),
+          # Breakfast's a2f (phase 20): 4 x 4096 frames over 60 tokens, d = 512
+          ("breakfast", lambda r: x2y16_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
+                                             _rand(r, (1, 4096, D)), _rand(r, (1, 60, D))))]),
         ("x2y_flash16", csrc + "tc_bf16.cu", pallas + "x2y_attn.py:159", "b16",
          [("flagship", lambda r: x2y16_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                             _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y16_case(r, True, 3, 11, 2000, D, D, D, [2000, 1500, 0],
-                                          _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D))))]),
+                                          _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D)))),
+          # Breakfast's u-block X2Y (phase 20): 60 tokens over 4 x 4096 frames, d = 512
+          ("breakfast", lambda r: x2y16_case(r, True, 4, 60, 4096, D, D, D, bf_len,
+                                             _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
         ("mha_cross16", csrc + "mha_attn.cu", pallas + "mha_attn.py:235", "b16",
          [("flagship", lambda r: mha16_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                             zeros(1, T, D))),
           ("ragged", lambda r: mha16_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 0],
                                           _rand(r, (1, 1100, D)))),
           # its projection alone: bf16(x Wk + bk), one rounding
-          ("proj16", lambda r: b16_launch_case(r, 5, B, T, D, 256, FLAGSHIP_LENGTHS))]),
+          ("proj16", lambda r: b16_launch_case(r, 5, B, T, D, 256, FLAGSHIP_LENGTHS)),
+          # Breakfast's SCA (phase 20): E = 512, H = 8 (hd = 64), M = 60; EgoProceL's M = 200
+          ("breakfast", lambda r: mha16_case(r, 4, 60, 4096, D, D, 8, bf_len,
+                                             zeros(1, 4096, D))),
+          ("ego_m200", lambda r: mha16_case(r, 2, 200, 4096, 256, D, 8, [4096, 2048],
+                                            zeros(1, 4096, D)))]),
         ("sa_sublayer16", csrc + "sa_layer.cu", pallas + "sa_layer.py:336", "b16",
          [("flagship", lambda r: sa16_case(r, B, 40, 256, 8)),
-          ("ragged", lambda r: sa16_case(r, 3, 11, 256, 8))]),
+          ("ragged", lambda r: sa16_case(r, 3, 11, 256, 8)),
+          ("breakfast", lambda r: sa16_case(r, 8, 60, D, 8))]),
         ("ffn_sublayer16", csrc + "sa_layer.cu", pallas + "sa_layer.py:422", "b16",
          [("flagship", lambda r: ffn16_case(r, B, 40, 256, 512)),
-          ("ragged", lambda r: ffn16_case(r, 3, 11, 256, 512))]),
+          ("ragged", lambda r: ffn16_case(r, 3, 11, 256, 512)),
+          ("breakfast", lambda r: ffn16_case(r, 8, 60, D, 512))]),
+        # K6's bf16 form (phase 20: breakfast_bf16_cfg() served): Breakfast's
+        # 4 x 4096 x 512, a ragged 3 x 600 with a video of 0 frames (d = 512
+        # taps outside the short videos), epic's 1 x 24,576 x 256, its launches
+        ("mstcn2_stack16", csrc + "tc_bf16.cu", pallas + "dilated_conv.py:976", "b16",
+         [("breakfast", lambda r: k6_16_case(r, 4, 4096, D, D, 10, bf_len)),
+          ("ragged", lambda r: k6_16_case(r, 3, 600, D, D, 10, [600, 517, 0])),
+          ("epic", lambda r: k6_16_case(r, 1, ET, 256, D, 10, [ET])),
+          ("one", lambda r: k6_16_case(r, 3, 600, D, D, 1, [600, 517, 0])),
+          ("conv", lambda r: k6_launch16_case(r, "conv", 4, 4096, D, 64, bf_len)),
+          ("rag_conv", lambda r: k6_launch16_case(r, "conv", 3, 600, D, 512, [600, 517, 0])),
+          ("fuse", lambda r: k6_launch16_case(r, "fuse", 4, 4096, D, 0, bf_len))]),
         # the bf16 backward forms (phase 19: havid_tpu_cfg() trained): the
         # flagship's shapes and a ragged case (B=3, a video of 0 frames or with
         # x_len 0), the new launches alone
@@ -2741,25 +2941,42 @@ def kernel_table():
          [("flagship", lambda r: x2y_bwd16_case(r, False, B, T, 40, D, D, D, [40] * B,
                                                 _rand(r, (1, T, D)), _rand(r, (1, 40, 256)))),
           ("ragged", lambda r: x2y_bwd16_case(r, False, 3, 1000, 11, D, D, D, [11, 7, 0],
-                                              _rand(r, (1, 1000, D)), _rand(r, (1, 11, 256))))]),
+                                              _rand(r, (1, 1000, D)), _rand(r, (1, 11, 256)))),
+          ("breakfast", lambda r: x2y_bwd16_case(r, False, 4, 4096, 60, D, D, D, [60] * 4,
+                                                 zeros(1, 4096, D), _rand(r, (1, 60, D))))]),
         ("x2y_flash16_bwd", csrc + "x2y_bwd.cu", pallas + "x2y_attn.py:282", "b16bwd",
          [("flagship", lambda r: x2y_bwd16_case(r, True, B, 40, T, D, D, D, FLAGSHIP_LENGTHS,
                                                 _rand(r, (1, 40, 256)), zeros(1, T, D))),
           ("ragged", lambda r: x2y_bwd16_case(r, True, 3, 11, 2000, D, D, D, [2000, 1500, 0],
-                                              _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D))))]),
+                                              _rand(r, (1, 11, 256)), _rand(r, (1, 2000, D)))),
+          ("breakfast", lambda r: x2y_bwd16_case(r, True, 4, 60, 4096, D, D, D, bf_len,
+                                                 _rand(r, (1, 60, D)), zeros(1, 4096, D)))]),
         ("mha_cross16_bwd", csrc + "mha_attn.cu", pallas + "mha_attn.py:444", "b16bwd",
          [("flagship", lambda r: mha_bwd16_case(r, B, 40, T, 256, D, 8, FLAGSHIP_LENGTHS,
                                                 zeros(1, T, D))),
           ("ragged", lambda r: mha_bwd16_case(r, 3, 11, 1100, 256, D, 8, [1100, 901, 0],
                                               _rand(r, (1, 1100, D)))),
           # its attention backward alone (dK, dV rounded once: in ulps)
-          ("attn", lambda r: k3_attn_bwd16_case(r, B, 40, T, 256, 8, FLAGSHIP_LENGTHS))]),
+          ("attn", lambda r: k3_attn_bwd16_case(r, B, 40, T, 256, 8, FLAGSHIP_LENGTHS)),
+          ("breakfast", lambda r: mha_bwd16_case(r, 4, 60, 4096, D, D, 8, bf_len,
+                                                 zeros(1, 4096, D))),
+          ("bf_attn", lambda r: k3_attn_bwd16_case(r, 4, 60, 4096, D, 8, bf_len))]),
         ("sa_sublayer16_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:369", "b16bwd",
          [("flagship", lambda r: sa_bwd16_case(r, B, 40, 256, 8)),
-          ("ragged", lambda r: sa_bwd16_case(r, 3, 11, 256, 8))]),
+          ("ragged", lambda r: sa_bwd16_case(r, 3, 11, 256, 8)),
+          ("breakfast", lambda r: sa_bwd16_case(r, 4, 60, D, 8))]),
         ("ffn_sublayer16_bwd", csrc + "sa_layer.cu", pallas + "sa_layer.py:449", "b16bwd",
          [("flagship", lambda r: ffn_bwd16_case(r, B, 40, 256, 512)),
-          ("ragged", lambda r: ffn_bwd16_case(r, 3, 11, 256, 512))]),
+          ("ragged", lambda r: ffn_bwd16_case(r, 3, 11, 256, 512)),
+          ("breakfast", lambda r: ffn_bwd16_case(r, 4, 60, D, 512))]),
+        # K6's bf16 backward (phase 20: breakfast_bf16_cfg() trained)
+        ("mstcn2_stack16_bwd", csrc + "tc_bf16.cu", pallas + "dilated_conv.py:1268", "b16bwd",
+         [("breakfast", lambda r: k6_bwd16_case(r, 4, 4096, D, D, 10, bf_len)),
+          ("ragged", lambda r: k6_bwd16_case(r, 3, 600, D, D, 10, [600, 517, 0])),
+          ("epic", lambda r: k6_bwd16_case(r, 1, ET, 256, D, 10, [ET])),
+          ("one", lambda r: k6_bwd16_case(r, 3, 600, D, D, 1, [600, 517, 0])),
+          # its dx alone: six segments at their shifts and first channels
+          ("dx", lambda r: k6_launch16_case(r, "dx", 4, 4096, D, 512, bf_len))]),
     ]
 
 
@@ -2935,7 +3152,9 @@ def k6_repeat_check(seed: int = 0):
     bf16 GEMM's ring and epilogues, the attention partials and combines, K4's
     staging) and the six bf16 backward forms of phase 19 there (the bf16
     weight products' transposing stages, the roundings' column sums, K3's
-    bf16 attention backward, K4's nine-launch SA backward)."""
+    bf16 attention backward, K4's nine-launch SA backward); K6's bf16 form
+    and backward at Breakfast's 4 x 4096 x 512 (phase 20: the bf16 GEMM's
+    fuse epilogue and six-segment dx, the weight products' sums)."""
     import torch
 
     def tensors(out):
@@ -3021,7 +3240,11 @@ def k6_repeat_check(seed: int = 0):
              ("k3_bwd16", lambda: mha_bwd16_case(rng, 8, 40, 3072, 256, 512, 8,
                                                  FLAGSHIP_LENGTHS, zeros)),
              ("sa_bwd16", lambda: sa_bwd16_case(rng, 8, 40, 256, 8)),
-             ("ffn_bwd16", lambda: ffn_bwd16_case(rng, 8, 40, 256, 512)))
+             ("ffn_bwd16", lambda: ffn_bwd16_case(rng, 8, 40, 256, 512)),
+             # K6's bf16 forms at Breakfast's shape (phase 20)
+             ("k6_16", lambda: k6_16_case(rng, 4, 4096, 512, 512, 10, BF_TRAIN_LENGTHS)),
+             ("k6_bwd16", lambda: k6_bwd16_case(rng, 4, 4096, 512, 512, 10,
+                                                BF_TRAIN_LENGTHS)))
     failed = []
     for name, make in cases:
         with torch.no_grad():
@@ -5639,12 +5862,14 @@ def guard_b16():
     seen = [0]
     reset = pkg.reset_kernel_counters
 
+    forms = B16_KERNELS + B16_BWD_KERNELS + B16_M2
+
     def counting_reset():
-        seen[0] += sum(pkg.kernel_counters()[k] for k in B16_KERNELS + B16_BWD_KERNELS)
+        seen[0] += sum(pkg.kernel_counters()[k] for k in forms)
         reset()
 
     pkg.reset_kernel_counters = counting_reset
-    return lambda: seen[0] + sum(pkg.kernel_counters()[k] for k in B16_KERNELS + B16_BWD_KERNELS)
+    return lambda: seen[0] + sum(pkg.kernel_counters()[k] for k in forms)
 
 
 def _b16_step(step, x, mask, lens, n=6):
@@ -6330,6 +6555,533 @@ def phase_bf16_train(smi, seed: int = 0):
     return per_step
 
 
+# ---------------------------------------------------------------------------
+# phase 20: Breakfast under mixed precision (K6's bf16 form, forward and backward)
+
+B16_M2 = ("mstcn2_stack16", "mstcn2_stack16_bwd")
+BF_YAML = os.path.join("fact_clip_tpu", "configs", "breakfast.yaml")
+# a Breakfast-shaped set for the train CLI: I3D widths, 48 classes, up to 4,096 frames
+BF16_LOOP_DATA = dict(name="breakfast", n_classes=48, n_train=8, n_test=4, feat_dim=2048,
+                      min_len=1500, max_len=4096, min_segs=5, max_segs=20, seed=0)
+BF16_LOOP_SETS = ["bg_class", "0", "batch_size", "4", "aux.eval_every", "2", "aux.print_every",
+                  "1", "TPU.save_opt_state", "true", "TPU.compute_dtype", "bfloat16"]
+
+
+def bf16_m2_launches(T: int) -> dict:
+    """The bf16 forms' launches of one eval step of breakfast_bf16_cfg() at a
+    padded length T: ``b16_batch_launches``'s (the same blocks, ``iuUU``, a
+    6-layer SCA, three 1-layer SA decoders) with K6's bf16 form in the four
+    towers."""
+    out = b16_batch_launches(T)
+    out["mstcn2_stack16"] = out.pop("mstcn_stack16")
+    return out
+
+
+class TowerRelus16:
+    """The K6 bf16 towers' ReLU gates of a run, in call order: each layer's
+    [c1 | c2] and saved ReLU output, recorded by patching
+    ``ops.dilated_conv._mstcn2_16_fwd_card`` (K6's bf16 training form on the
+    card) and ``ops.dilated_conv.mstcn2_stack16_reference`` (its plain
+    version, which the training Function calls); and a replay of the plain
+    path that puts each proven tie on the kernel path's side.  A flip is a
+    valid unit whose saved ReLU output is positive on one path only (the
+    gate each backward reads); a proven tie lies within RELU_TIE16 of
+    |c1| |Wt| + |c2| |Wb| + |bf| of 0 on both paths (float64, each path's
+    own bf16 [c1 | c2], the weights rounded to bf16)."""
+
+    def __init__(self):
+        self.runs = {}
+
+    def record(self, path):
+        from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+        @contextlib.contextmanager
+        def patched():
+            orig_k, orig_p = dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference
+            calls = self.runs[path] = []
+
+            def kern(x, lengths, layers, dil_pairs, out_w, out_b, packed=None, save=False):
+                out = orig_k(x, lengths, layers, dil_pairs, out_w, out_b, packed, save)
+                if save:
+                    calls.append((lengths, layers, [c.detach().clone() for c in out[2]],
+                                  [h.detach().clone() for h in out[3]]))
+                return out
+
+            def plain(x, lengths, layers, dil_pairs, *, out_w, out_b, save=False):
+                out = orig_p(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b, save=save)
+                if save:
+                    calls.append((lengths, layers, [c.detach().clone() for c in out[2]],
+                                  [h.detach().clone() for h in out[3]]))
+                return out
+
+            dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference = kern, plain
+            try:
+                yield
+            finally:
+                dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference = orig_k, orig_p
+
+        return patched()
+
+    def ties(self):
+        """({(call, layer): (tie mask, kernel side)}, flips, proven ties, the
+        flips' largest share of the magnitude sum, tower calls); flips -1
+        where the runs' calls do not pair up."""
+        import torch
+
+        pp, pk = self.runs.get("plain", []), self.runs.get("kernels", [])
+        if len(pp) != len(pk) or any(len(a[2]) != len(b[2]) for a, b in zip(pp, pk)):
+            return {}, -1, 0, 0.0, len(pk)
+        forced, flips, proven, worst = {}, 0, 0, 0.0
+        for call, ((lengths, layers, csp, hsp), (_, _, csk, hsk)) in enumerate(zip(pp, pk)):
+            for i, (cp, ck, hp, hk) in enumerate(zip(csp, csk, hsp, hsk)):
+                T = cp.shape[1]
+                valid = (torch.arange(T, device=cp.device)[None, :]
+                         < lengths.to(cp.device)[:, None])[..., None]
+                flip = ((hp.float() > 0) != (hk.float() > 0)) & valid
+                if not bool(flip.any()):
+                    continue
+                wt, wb, bf = layers[i][4:7]
+                w = torch.cat([wt, wb]).detach().to(torch.bfloat16).double()
+                b = bf.detach().double()
+                share = [(c.double() @ w + b).abs()
+                         / (c.double().abs() @ w.abs() + b.abs()).clamp(min=1e-300)
+                         for c in (cp, ck)]
+                rel = torch.maximum(*share)
+                tie = flip & (rel <= RELU_TIE16)
+                flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
+                worst = max(worst, float(rel[flip].max()))
+                forced[(call, i)] = (tie, hk.float() > 0)
+        return forced, flips, proven, worst, len(pk)
+
+    @staticmethod
+    def replay(forced):
+        """The plain tower with each unit in ``forced[(call, layer)]``'s mask
+        gated to the given side: its forward passes s (on) or 0 (off), its
+        saved ReLU output carries that gate to the backward."""
+        import itertools
+
+        import torch
+
+        from fact_clip_tpu_torch.ops import dilated_conv as dc
+
+        @contextlib.contextmanager
+        def patched():
+            orig = dc.mstcn2_stack16_reference
+            count = itertools.count()
+
+            def plain(x, lengths, layers, dil_pairs, *, out_w, out_b, save=False):
+                call = next(count) if save else None
+                if call is None or not any(k[0] == call for k in forced):
+                    return orig(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                save=save)
+                bf16 = torch.bfloat16
+                mask = dc._frame_mask(x, lengths)
+                maskf = mask.float()
+                h = x * mask
+                streams, cs, hs = [h], [], []
+                for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(
+                        zip(layers, dil_pairs)):
+                    hf = h.float()
+
+                    def conv(k, b, d):
+                        taps = k.to(bf16).float()
+                        acc = dc._shift(hf, -d) @ taps[0] + hf @ taps[1]
+                        return ((acc + dc._shift(hf, d) @ taps[2]) + b).to(bf16)
+
+                    c1, c2 = conv(k1, b1, int(d1)), conv(k2, b2, int(d2))
+                    s = c1.float() @ wt.to(bf16).float() + c2.float() @ wb.to(bf16).float() + bf
+                    r, gate = torch.relu(s), s > 0
+                    force = forced.get((call, i))
+                    if force is not None:
+                        r = torch.where(force[0], s * force[1], r)
+                        gate = torch.where(force[0], force[1], gate)
+                    h = ((r + hf) * maskf).to(bf16)
+                    streams.append(h)
+                    cs.append(torch.cat([c1, c2], dim=-1) * mask)
+                    # the backward reads the gate only: a forced-on unit of s <= 0 saves 1
+                    hs.append((torch.where(gate, torch.where(r > 0, r, 1.0), 0.0)
+                               * maskf).to(bf16))
+                logits = h.float() @ out_w.to(bf16).float() + out_b
+                return (logits, streams, cs, hs) if save else logits
+
+            dc.mstcn2_stack16_reference = plain
+            try:
+                yield
+            finally:
+                dc.mstcn2_stack16_reference = orig
+
+        return patched()
+
+
+def _settle16(ffn, tower, rerun):
+    """``FfnRelus16.settle`` over the FFN and the K6 tower ReLUs together:
+    each round forces every proven tie found so far (both kinds) on the
+    kernel path's side and reruns the plain path (``rerun()``: (loss,
+    gradients)) under the replay, until no unit is added.  Returns (FFN
+    forced, tower forced, rounds, settled, the first comparison's (FFN
+    flips, tower flips, their largest shares), the last replay or None); a
+    flip that is not a proven tie raises."""
+    import torch
+
+    forced = ({}, {})
+    rounds, first, result = 0, None, None
+    while True:
+        fn, ff, fp, fw, n_ffn = ffn.ties()
+        tn, tf, tp, tw, n_tower = tower.ties()
+        first = first or (ff, tf, fw, tw)
+        if ff < 0 or tf < 0 or ff != fp or tf != tp:
+            raise AssertionError(f"[bf16-m2] ReLU flips: FFN {ff} ({fp} proven, largest share "
+                                 f"{fw:.3e}), K6 {tf} ({tp} proven, largest share {tw:.3e}); "
+                                 f"tie {RELU_TIE16:g}, replay round {rounds}")
+        grew = False
+        for acc, new in zip(forced, (fn, tn)):
+            for key, (mask, side) in new.items():
+                m0, s0 = acc.get(key, (torch.zeros_like(mask), side))
+                grew = grew or bool((mask & ~m0).any())
+                acc[key] = (m0 | mask, torch.where(mask, side, s0))
+        if not grew or rounds == n_ffn + n_tower:
+            return forced[0], forced[1], rounds, not grew, first, result
+        rounds += 1
+        with ffn.replay(forced[0]), tower.replay(forced[1]), ffn.record("plain"), \
+                tower.record("plain"):
+            result = rerun()
+
+
+def phase_bf16_m2(smi, seed: int = 0):
+    """Breakfast under mixed precision (``breakfast_bf16_cfg()``: breakfast.yaml
+    with ``TPU.compute_dtype: bfloat16``, the host matcher) at full width with
+    seeded weights, K6's bf16 form in every tower: (a) phase 6's requests
+    through Predictor, the bf16 forms' launches per batch exact (K6's 4,
+    every f32 twin and K1's bf16 form 0), and the eval step at 8 x
+    BF_EVAL_LENGTHS against the f32 kernel path (breakfast_cfg()) on the same
+    weights (median ms, peak memory) and against its plain bf16 path; (b)
+    one train step at 4 x 4096 with every bf16 backward form's launches
+    (K6's 4), the warm step split beside the f32 path's; (c) the bf16 kernel
+    path against the bf16 plain path for train_compare's weight seeds (loss
+    and every gradient on the kernel path's matching, phase 19's limits, the
+    plain path replayed with its FFN and K6 ReLU ties on the kernel path's
+    side); (d) the train CLI on breakfast.yaml --set TPU.compute_dtype
+    bfloat16 over a Breakfast-shaped set, cut, resumed and compared bit for
+    bit, then ``run_eval`` on its checkpoint; (e) ``egoprocel_cfg()`` in bf16
+    serving phase 13's requests at batch 2 (K3's bf16 form at M = 200).
+    Returns (the eval step's counts at 8 x 4096, one train step's)."""
+    import shutil
+
+    import torch
+
+    from fact_clip_tpu_torch import kernel_counters, plain_counters, reset_kernel_counters
+    from fact_clip_tpu_torch import run_eval as run_eval_cli
+    from fact_clip_tpu_torch import train as train_cli
+    from fact_clip_tpu_torch.configs import (breakfast_bf16_cfg, breakfast_cfg,
+                                             breakfast_train_cfg, egoprocel_cfg)
+    from fact_clip_tpu_torch.engine.serve import Predictor
+    from fact_clip_tpu_torch.engine.steps import make_eval_step, make_train_step
+    from fact_clip_tpu_torch.engine.train_loop import (batch_to_device, synthetic_batch,
+                                                       synthetic_set_stats)
+    from fact_clip_tpu_torch.models.blocks import build_fact
+    from fact_clip_tpu_torch.models.losses import build_class_weights, compute_null_weight
+
+    t_phase = time.perf_counter()
+    D, C, S_CAP = BF_DIMS
+    dev = torch.device("cuda")
+    cfg = breakfast_bf16_cfg()
+    mwt = cfg["FACT"]["mwt"]
+
+    def seeded(c, s):
+        return build_fact(c, D, C, S_CAP, device=dev,
+                          generator=torch.Generator(device="cpu").manual_seed(s))
+
+    model = seeded(cfg, seed + 200)
+    if {c.dtype for c in model.block_cfgs} != {"bfloat16"} or \
+            {c.f for c in model.block_cfgs} != {"m2"}:
+        raise AssertionError("breakfast_bf16_cfg() did not resolve to bf16 m2 blocks")
+
+    # (a) phase 6's requests, then the eval step at 8 x 4096
+    rng = np.random.default_rng(seed)
+    feats = [rng.standard_normal((n, D)).astype(np.float32) for n in BF_SERVE_LENGTHS]
+    pred = Predictor(model, mwt, batch_size=8, max_len=10240, device=dev)
+    pred.predict(feats[-1:])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    outs = pred.predict(feats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counters()
+    groups = {}
+    for n in BF_SERVE_LENGTHS:
+        groups[pred.bucket_for(n)] = groups.get(pred.bucket_for(n), 0) + 1
+    want = {k: 0 for k in counts}
+    for bucket, n in groups.items():
+        for k, v in bf16_m2_launches(bucket).items():
+            want[k] += v * -(-n // pred.batch_size)
+    _launch_check("[bf16-m2] predict", counts, want)
+    for n, o in zip(BF_SERVE_LENGTHS, outs):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= C:
+            raise AssertionError(f"[bf16-m2] predict: bad prediction {o.shape}")
+    log(f"[bf16-m2] breakfast_bf16_cfg() ({sum(p.numel() for p in model.parameters())} "
+        f"parameters) served: {len(feats)} requests {BF_SERVE_LENGTHS} in batches of "
+        f"{dict(sorted(groups.items()))} (bucket: requests), {dt:.3f} s; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}, every f32 twin and K1's bf16 form 0")
+
+    cfg32 = breakfast_cfg()
+    m32 = build_fact(cfg32, D, C, S_CAP, device=dev)
+    m32.load_state_dict(model.state_dict())
+    step16, step32 = make_eval_step(model, mwt), make_eval_step(m32, mwt)
+    T, B = 4096, 8
+    blen = np.array(BF_EVAL_LENGTHS, np.int32)
+    f = np.zeros((B, T, D), np.float32)
+    for i, n in enumerate(blen):
+        f[i, :n] = rng.standard_normal((n, D)).astype(np.float32)
+    x32 = torch.from_numpy(f).to(dev)
+    x16 = torch.from_numpy(f).to(torch.bfloat16).to(dev)
+    mask = torch.from_numpy(np.arange(T)[None, :] < blen[:, None]).to(dev)
+    lens = torch.from_numpy(blen).to(dev)
+    reset_kernel_counters()
+    step16(x16, mask, lens)
+    torch.cuda.synchronize()
+    serve_counts = kernel_counters()
+    _launch_check(f"[bf16-m2] eval step {B} x {T}", serve_counts,
+                  {**{k: 0 for k in serve_counts}, **bf16_m2_launches(T)})
+    p16, ms16, mem16 = _b16_step(step16, x16, mask, lens)
+    p32, ms32, mem32 = _b16_step(step32, x32, mask, lens)
+    log(f"[bf16-m2] {smi}: eval step {B} x {T} (warm, median of 5): bf16 kernels {ms16:.3f} ms, "
+        f"peak {mem16:.0f} MiB; f32 kernels {ms32:.3f} ms, peak {mem32:.0f} MiB on the same "
+        f"weights ({ms16 / ms32:.3f} of f32's time, {mem16 / mem32:.3f} of its memory)")
+    with torch.inference_mode():
+        sk, _ = model(x16, mask, lens)
+        model.set_kernels(False)
+        sp, _ = model(x16, mask, lens)
+        pp = step16(x16, mask, lens)
+        model.set_kernels(True)
+        s32, _ = m32(x32, mask, lens)
+
+    def rels(a_saves, b_saves):  # each block's frame logits, of its scale
+        return [float((a["frame_clogit"] - b["frame_clogit"]).abs()[mask].max())
+                / float(b["frame_clogit"].abs()[mask].max()) for a, b in zip(a_saves, b_saves)]
+
+    rel_p, rel_32 = rels(sk, sp), rels(sk, s32)
+    agree = float((p16 == pp)[mask].float().mean())
+    agree32 = float((p16 == p32)[mask].float().mean())
+    log(f"[bf16-m2] {B} x {T}: bf16 kernel vs bf16 plain path: block-0 frame logits within "
+        f"{rel_p[0]:.3e} of scale (tol {B16_MODEL_TOL:g}; the blocks' "
+        f"{', '.join(f'{r:.3e}' for r in rel_p)}, tol {B16_F32_TOL:g}), final predictions agree "
+        f"on {agree:.5f} (min {MIN_AGREE}); bf16 vs f32 kernel path: the blocks' "
+        f"{', '.join(f'{r:.3e}' for r in rel_32)} of scale (tol {B16_F32_TOL:g}), predictions "
+        f"agree on {agree32:.5f} (random weights; reported)")
+    if not (rel_p[0] <= B16_MODEL_TOL and max(rel_p) <= B16_F32_TOL and agree >= MIN_AGREE
+            and max(rel_32) <= B16_F32_TOL):
+        raise AssertionError("[bf16-m2] the kernel path disagrees with its plain path or with "
+                             "the f32 path")
+    del sk, sp, s32, pp, p16, p32, x16, x32, m32, step32, pred, model
+    torch.cuda.empty_cache()
+
+    # (b) one train step at 4 x 4096 and the warm split beside f32
+    T, S = 4096, 32
+    trng = np.random.default_rng(seed + 20)
+    lengths = [BF_TRAIN_LENGTHS] + [sorted(trng.integers(1000, T + 1, 4).tolist(), reverse=True)
+                                    for _ in range(2)]
+    batches = [synthetic_batch(trng, D, C, S, T, ln) for ln in lengths]
+    cfg = compute_null_weight(breakfast_bf16_cfg(), synthetic_set_stats(batches, C))
+    cweight = build_class_weights(cfg, C, [])
+    model = seeded(cfg, seed + 201)
+    step = make_train_step(model, cfg, C, cweight)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    on_dev = [batch_to_device(b, dev, torch.bfloat16) for b in batches]
+    step(on_dev[1], gen)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    out = step(on_dev[0], gen)
+    torch.cuda.synchronize()
+    train_counts, plain = kernel_counters(), plain_counters()
+    launched = {k: v for k, v in train_counts.items() if v}
+    twins = [k for k in launched if k in B16_OF.values() or k in ("mstcn2_stack", "mstcn2_stack_bwd")
+             or k in ("mstcn_stack_bwd", "x2y_small_x_bwd", "x2y_flash_bwd", "mha_cross_bwd",
+                      "sa_sublayer_bwd", "ffn_sublayer_bwd", "mstcn_stack16", "mstcn_stack16_bwd")]
+    pairs = (("mstcn2_stack16", "mstcn2_stack16_bwd"),) + B16_PAIRS[1:]
+    unequal = [a for a, b in pairs if train_counts[a] != train_counts[b]]
+    x2y_bwd = train_counts["x2y_small_x16_bwd"] + train_counts["x2y_flash16_bwd"] + \
+        plain["x2y_bwd_reference"]
+    log(f"[bf16-m2] breakfast_bf16_cfg() (nullw {cfg['Loss']['nullw']:.6f}, matcher "
+        f"{step.matcher}) one step at 4 x {T}: loss {float(out['loss']):.5f}, launches {launched}, "
+        f"plain K2 backwards {plain}")
+    if (train_counts["mstcn2_stack16"] != 4 or train_counts["mstcn2_stack16_bwd"] != 4 or twins
+            or unequal or any(train_counts[k] <= 0 for k in B16_BWD_KERNELS[1:])
+            or x2y_bwd != train_counts["x2y_small_x16"] + train_counts["x2y_flash16"]
+            or not math.isfinite(float(out["loss"]))):
+        raise AssertionError(f"[bf16-m2] a step's launches: {launched}, f32 twins {twins}, "
+                             f"unequal {unequal}, K2 backwards {x2y_bwd}")
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    med16, split16, peak16, tot16 = _time_steps(step, batches, gen, 5, torch.bfloat16)
+    cfg32 = compute_null_weight(breakfast_train_cfg(), synthetic_set_stats(batches, C))
+    m32 = build_fact(cfg32, D, C, S_CAP, device=dev)
+    m32.load_state_dict(state0)
+    step32 = make_train_step(m32, cfg32, C, cweight)
+    step32(batch_to_device(batches[1], dev), gen)
+    med32, split32, peak32, tot32 = _time_steps(step32, batches, gen, 5)
+    log(f"[bf16-m2] {smi}: warm train step 4 x {T}: bf16 kernel path median {med16:.3f} ms (all "
+        f"{', '.join(f'{t:.3f}' for t in tot16)}), split (ms, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split16.items())
+        + f", peak {peak16:.2f} GiB; f32 kernel path (breakfast_train_cfg(), the same weights) "
+        f"median {med32:.3f} ms (all {', '.join(f'{t:.3f}' for t in tot32)}), split: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split32.items())
+        + f", peak {peak32:.2f} GiB; bf16 / f32: step {med16 / med32:.3f}, memory "
+        f"{peak16 / peak32:.3f}")
+    del m32, step32, model, step
+    torch.cuda.empty_cache()
+
+    # (c) the bf16 kernel path against its plain path, train_compare's seeds
+    names = None
+    for s in COMPARE_SEEDS:
+        model = seeded(cfg, s)
+        step = make_train_step(model, cfg, C, cweight)
+        st0 = {k: v.clone() for k, v in model.state_dict().items()}
+        ffn, tower = FfnRelus16(), TowerRelus16()
+        with ffn.record("kernels"), tower.record("kernels"):
+            lk, st_k, gk, _ = _b16_grads(model, step, on_dev[0], s + 7, True)
+        model.load_state_dict(st0)
+        with ffn.record("plain"), tower.record("plain"):
+            lp, _, gp, _ = _b16_grads(model, step, on_dev[0], s + 7, False, seg2tok=st_k)
+        f16 = on_dev[0]["feats"]
+        floors = []
+        for bits in (1, -1):  # each feature one bf16 ulp up, then down, in magnitude
+            nudged = dict(on_dev[0])
+            nudged["feats"] = torch.where(f16.abs() > 2.0 ** -126,
+                                          (f16.view(torch.int16) + bits).view(torch.bfloat16),
+                                          f16)
+            model.load_state_dict(st0)
+            floors.append(_b16_grads(model, step, nudged, s + 7, False, seg2tok=st_k)[2])
+
+        def replayed():
+            model.load_state_dict(st0)
+            return _b16_grads(model, step, on_dev[0], s + 7, False, seg2tok=st_k)[::2]
+
+        ff, tf, rounds, settled, first, replay = _settle16(ffn, tower, replayed)
+        lr, gr = replay or (lp, gp)
+        names = [n for n, _ in model.named_parameters()]
+        rows = _b16_leaf_limits(names, gk, gr, floors)
+        n_ff = sum(int(m.sum()) for m, _ in ff.values())
+        n_tf = sum(int(m.sum()) for m, _ in tf.values())
+        tower_rows = [r for r in rows if ".frame_branch." in r[6]]
+        log(f"[bf16-m2] seed {s}: bf16 kernel vs bf16 plain path (same weights, batch 4 x "
+            f"{T} and the kernel path's matching): loss {lk:.6f} vs {lp:.6f} (rel "
+            f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); ReLU flips FFN "
+            f"{first[0]}, K6 {first[1]}, all proven ties (largest shares {first[2]:.3e}, "
+            f"{first[3]:.3e}, tie {RELU_TIE16:g}), replayed on the kernel side in {rounds} "
+            f"rounds ({n_ff} FFN and {n_tf} K6 units forced, settled: {settled}): plain loss "
+            f"{lr:.6f}; {len(rows)} gradients ({sum(r[5] == 'ulp' for r in rows)} bf16, held to "
+            f"{B16_GRAD_ULPS} ulps; the rest f32, to {B16_GRAD_TOL:g}), the closest to their "
+            f"limits (error, limit, floor, of the scale): "
+            + ", ".join(f"{n} {e:.3e} {lim:.3e} {fl:.3e}" for _, e, lim, _, fl, _, n in rows[:4])
+            + "; the towers' closest: "
+            + ", ".join(f"{n} {e:.3e} {lim:.3e}" for _, e, lim, _, _, _, n in tower_rows[:3]))
+        if abs(lk - lp) > B16_TRAIN_LOSS_TOL * abs(lp) or rows[0][0] > 1.0:
+            raise AssertionError(f"[bf16-m2] seed {s}: the kernel path's gradients disagree "
+                                 "with the plain path's")
+        del gk, gp, gr, floors, model, step, ffn, tower
+        torch.cuda.empty_cache()
+    del on_dev
+
+    # (d) the train CLI on breakfast.yaml in bf16: a run, its cut and resume,
+    # the uninterrupted step on the same batches, then run_eval's entry
+    with _loop_run("chip_smoke_bf16_m2", data=BF16_LOOP_DATA, yaml_path=BF_YAML,
+                   loop_sets=BF16_LOOP_SETS) as (base, cfg_of), _LoopSpies() as spies:
+        yaml_path = os.path.join(REPO, BF_YAML)
+        cfg2, sets2, logdir2 = cfg_of(2)
+        cfg3, sets3, logdir3 = cfg_of(3)
+        if cfg3.TPU.compute_dtype != "bfloat16" or cfg3.Bi.f != "m2":
+            raise AssertionError("[bf16-m2] the CLI's config is not Breakfast in bf16")
+        t0 = time.perf_counter()
+        train_cli.main(["--cfg", yaml_path, "--set", *sets2])
+        first = spies.last_step
+        os.remove(os.path.join(logdir2, "FINISH_PROOF"))  # a cut run
+        os.makedirs(os.path.dirname(logdir3), exist_ok=True)
+        shutil.move(logdir2, logdir3)
+        n1 = len(spies.steps)
+        spies.keep = True
+        train_cli.main(["--cfg", yaml_path, "--set", *sets3])
+        spies.keep = False
+        n2 = len(spies.steps)
+        for batch, state in spies.kept:
+            g = torch.Generator(device=dev)
+            g.set_state(state)
+            first(batch, g)
+        dt = time.perf_counter() - t0
+        ckpt = os.path.join(logdir3, "ckpts", "network.iter-6.net")
+        a = torch.load(ckpt, weights_only=True)
+        b = first.model.state_dict()
+        same = list(a) == list(b) and all(torch.equal(a[k], b[k].cpu()) for k in a)
+        missing = sorted({k for st in spies.steps for k in B16_M2 if st["counts"][k] != 4})
+        losses = [st["loss"] for st in spies.steps]
+        log(f"[bf16-m2] python3 -m fact_clip_tpu_torch.train's entry on {BF_YAML} --set "
+            f"TPU.compute_dtype bfloat16 ({BF16_LOOP_DATA['n_train']} videos of "
+            f"{BF16_LOOP_DATA['min_len']}-{BF16_LOOP_DATA['max_len']} frames, batch 4): a "
+            f"2-epoch run ({n1} steps), cut and resumed to epoch 3 (weights loaded bit-equal "
+            f"{spies.loads}, optimizer step {spies.opt_steps}, {n2 - n1} steps), the first run's "
+            f"step continued on the resumed run's batches ({len(spies.steps) - n2} steps) in "
+            f"{dt:.1f} s; network.iter-6.net bit-equal to the uninterrupted one: {same}; losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; K6's bf16 forms 4 a step: {not missing}")
+        if n1 != 4 or n2 - n1 != 2 or len(spies.steps) - n2 != 2 or spies.loads != [True] \
+                or spies.opt_steps != [4] or not same or missing or losses[n1:n2] != losses[n2:] \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[bf16-m2] the loop: steps {n1}, {n2 - n1}, "
+                                 f"{len(spies.steps) - n2}, loads {spies.loads}, bit-equal "
+                                 f"{same}, K6 bf16 launches off {missing}")
+        del first, spies.kept[:]
+        reset_kernel_counters()
+        t0 = time.perf_counter()
+        result = run_eval_cli.main(["--cfg", yaml_path, "--ckpt", ckpt, "--set", *sets3])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ce = kernel_counters()
+        res = os.path.join(logdir3, "eval_results", "eval_result.gz")
+        if not os.path.exists(res) or ce["mstcn2_stack16"] <= 0 or ce["mstcn2_stack"] \
+                or ce["mstcn_stack16"]:
+            raise AssertionError(f"[bf16-m2] run_eval: results {os.path.exists(res)}, launches "
+                                 f"{dict((k, v) for k, v in ce.items() if v)}")
+        log(f"[bf16-m2] run_eval --cfg {BF_YAML} --ckpt network.iter-6.net (in-process) over "
+            f"{BF16_LOOP_DATA['n_test']} test videos: {dt:.1f} s, launches "
+            f"{dict((k, v) for k, v in ce.items() if v)}, metrics "
+            f"{ {k: round(float(v), 3) for k, v in result.metrics.items()} }")
+
+    # (e) EgoProceL in bf16: phase 13's requests at batch 2 (K3's bf16 form at M = 200)
+    ecfg = egoprocel_cfg()
+    ecfg["TPU"]["compute_dtype"] = "bfloat16"
+    ED, EC, ES = EGO_DIMS
+    emodel = build_fact(ecfg, ED, EC, ES, device=dev,
+                        generator=torch.Generator(device="cpu").manual_seed(seed + 130))
+    erng = np.random.default_rng(seed + 13)
+    efeats = [erng.standard_normal((n, ED)).astype(np.float32) for n in EGO_SERVE_LENGTHS]
+    epred = Predictor(emodel, ecfg["FACT"]["mwt"], batch_size=2, max_len=6144, device=dev)
+    epred.predict(efeats[-1:])
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    eouts = epred.predict(efeats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ec = kernel_counters()
+    per_bucket = {}
+    for n in EGO_SERVE_LENGTHS:
+        per_bucket[epred.bucket_for(n)] = per_bucket.get(epred.bucket_for(n), 0) + 1
+    n_batches = sum(-(-k // 2) for k in per_bucket.values())
+    _launch_check("[bf16-m2] egoprocel predict", ec,
+                  {"mha_cross16": 6 * n_batches, "mstcn2_stack16": 4 * n_batches,
+                   "mstcn2_stack": 0, "mha_cross": 0, "mstcn_stack16": 0, "sa_sublayer": 0,
+                   "ffn_sublayer": 0})
+    for n, o in zip(EGO_SERVE_LENGTHS, eouts):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= EC:
+            raise AssertionError(f"[bf16-m2] egoprocel: bad prediction {o.shape}")
+    log(f"[bf16-m2] egoprocel_cfg() in bf16 served: {len(efeats)} requests "
+        f"{EGO_SERVE_LENGTHS}, {n_batches} batches of 2, {dt:.3f} s; launches "
+        f"{dict((k, v) for k, v in ec.items() if v)} (K3's bf16 form at M = "
+        f"{ecfg['FACT']['ntoken']})")
+    del emodel, epred
+    torch.cuda.empty_cache()
+    log(f"[bf16-m2] phase 20 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return serve_counts, train_counts
+
+
 def phase_transcript(smi, seed: int = 0):
     """Transcript mode and GTEA's recipes on the card (module docstring,
     phase 17): (a) ``gtea_transcript_cfg()``, (b) its ``a: gru_om`` input
@@ -6609,9 +7361,14 @@ def main():
     log("[bf16] phases 4-17 (f32): the bf16 forms, forward and backward, launched 0 times")
     b16_counts = phase_bf16(smi)
     b16_train_counts = phase_bf16_train(smi)
+    m2_serve, m2_train = phase_bf16_m2(smi)
     for name, r in results.items():
         # each row's launches on the path that runs it
-        if name == "mstcn2_stack_q8":
+        if name in B16_M2:  # phase 20's eval step at 8 x 4096 and train step at 4 x 4096
+            r["launches"] = (m2_serve if name == "mstcn2_stack16" else m2_train)[name]
+            if name == "mstcn2_stack16":
+                r["train_launches"] = m2_train[name]
+        elif name == "mstcn2_stack_q8":
             r["launches"] = m2_int8_counts["bf"][name]
         elif name in row_counts:  # 0 on every default path: phase 11b's predicts
             r["launches"] = row_counts[name]
@@ -6626,8 +7383,11 @@ def main():
         elif name in B16_KERNELS:  # phase 18's eval step at 8 x 3072
             r["launches"] = b16_counts[name]
             r["train_launches"] = b16_train_counts[name]  # phase 19's train step
+            r["breakfast_launches"] = m2_serve[name]  # phase 20's (Breakfast in bf16)
+            r["breakfast_train_launches"] = m2_train[name]
         elif name in B16_BWD_KERNELS:  # phase 19's train step at 8 x 3072
             r["launches"] = b16_train_counts[name]
+            r["breakfast_launches"] = m2_train[name]
         elif name in EPIC_ROWS:
             r["launches"] = epic_counts[name]
             if name == "factored_argmax":

@@ -4,7 +4,8 @@ The JAX package ``fact_clip_tpu`` is the reference; this package mirrors its
 layout where that helps find a module's counterpart:
 
 configs/          BlockCfg, resolve_block_cfgs, flagship_cfg, train_cfg,
-                  breakfast_cfg, breakfast_train_cfg, epic_cfg, epic_train_cfg,
+                  breakfast_cfg, breakfast_train_cfg, breakfast_bf16_cfg, epic_cfg,
+                  epic_train_cfg,
                   epic_vocab, flagship_int8_cfg, breakfast_int8_cfg,
                   epic_int8_cfg, egoprocel_cfg, egoprocel_train_cfg,
                   openvocab_cfg, openvocab_train_cfg; the
@@ -37,7 +38,7 @@ csrc/             CUDA C++ sources for sm_90a, built by _build.py on first use
 The entry points run on the CUDA card and refuse to start without one
 unless given the CPU (``device="cpu"``, ``--device cpu``).  Everything runs
 in float32 but FACT under ``TPU.compute_dtype: bfloat16`` (JAX's mixed
-precision: the bf16 forms of K1-K4, forward and backward, ``ops/bf16.py``),
+precision: the bf16 forms of K1-K4 and K6, forward and backward, ``ops/bf16.py``),
 served, evaluated and trained at dropout 0.  Importing this package imports neither JAX nor the JAX package
 nor PyYAML, and builds nothing.
 """
@@ -83,8 +84,10 @@ _KERNELS = {
     "mha_cross16": mha_attn.mha_cross16_fwd,
     "sa_sublayer16": sa_layer.sa_sublayer16_fwd,
     "ffn_sublayer16": sa_layer.ffn_sublayer16_fwd,
+    "mstcn2_stack16": dilated_conv.mstcn2_stack16,
     # the bf16 backward forms (training under mixed precision)
     "mstcn_stack16_bwd": dilated_conv.mstcn_stack16_bwd,
+    "mstcn2_stack16_bwd": dilated_conv.mstcn2_stack16_bwd,
     "x2y_small_x16_bwd": x2y_attn.x2y_small_x16_bwd,
     "x2y_flash16_bwd": x2y_attn.x2y_flash16_bwd,
     "mha_cross16_bwd": mha_attn.mha_cross16_bwd,

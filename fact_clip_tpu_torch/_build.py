@@ -96,7 +96,7 @@ SIGNATURES = {
                         + [I, P],
     "fk_x2y_flash_q8_fwd": [P, P, L, I, P, I] + [P] * 6 + [I] * 6 + [F] + [P] * 8 + [I, P],
     # the mixed-precision (bf16) forms
-    "fk_b16_gemm": [I, P, I, I, P, I, P, I, I, I, I, P, P, I, I, P, P, P],
+    "fk_b16_gemm": [I, P, I, I, P, P, I, P, I, I, I, I, P, P, I, I, P, P, P, P],
     "fk_b16_add_pos": [P, P, L, I, I, I, I, P, P],
     "fk_x2y_sx_attn": [P, P, P, I, I, I, I, F, P, P, P, I, P],
     "fk_x2y_flash_attend": [P, P, P, I, I, I, I, F] + [P] * 5 + [I, P],

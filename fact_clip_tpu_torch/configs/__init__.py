@@ -27,14 +27,16 @@ attention at a_dim 128 with 8 heads, towers 128 wide) and
 mirrors ``gtea_transcript.yaml`` (transcript mode, ``FACT.trans``: the
 tokens are the transcript, ``seq`` matching); ``havid_tpu_cfg()`` is
 ``havid_tpu.yaml`` as read (the flagship recipe under mixed precision,
-``TPU.compute_dtype: bfloat16``), which the port serves, evaluates and trains.
+``TPU.compute_dtype: bfloat16``), which the port serves, evaluates and trains,
+and ``breakfast_bf16_cfg()`` is Breakfast under mixed precision.
 
 ``dtype`` is ``"bfloat16"`` under ``TPU.compute_dtype: bfloat16`` (JAX's
 mixed-precision policy, ``fact_clip_tpu/models/layers.py:31-35``): heavy
 products and the tower stream on bf16 operands with f32 accumulation,
 softmax, LayerNorm statistics, probabilities and logits in f32.  The port
-has that path for serving FACT with ``f: m`` towers only; ``bf16_refusal``
-names what it refuses, before any launch.
+has that path for serving and training FACT with ``f: m`` and ``f: m2``
+towers without a LayerNorm; ``bf16_refusal`` names what it refuses, before
+any launch.
 
 ``BlockCfg`` keeps the JAX field names.  ``pallas`` / ``pallas_attn`` /
 ``pallas_sa`` select the hand-written CUDA kernels here, as they select the
@@ -162,6 +164,16 @@ def breakfast_int8_cfg() -> dict:
     in map (``dense_q8``), the X2Y projections over the frame axis (K8b /
     K8c) and the SCA key / value projections (K8d) run on int8 operands."""
     return _int8(breakfast_cfg())
+
+
+def breakfast_bf16_cfg() -> dict:
+    """``breakfast_cfg()`` under mixed precision (``TPU.compute_dtype:
+    bfloat16``, as ``breakfast.yaml --set TPU.compute_dtype bfloat16``) with
+    the host Hungarian matcher: K6's bf16 form in every tower, K2-K4's at
+    Breakfast's widths, served, evaluated and trained at its dropout 0."""
+    cfg = breakfast_train_cfg()
+    cfg["TPU"]["compute_dtype"] = "bfloat16"
+    return cfg
 
 
 def breakfast_train_cfg() -> dict:
@@ -357,9 +369,10 @@ def compute_dtype(cfg: dict) -> str:
 
 
 def bf16_refusal(cfg: dict) -> str | None:
-    """Why the port has no bf16 path for ``cfg`` (None where it has one):
-    this slice serves FACT with ``f: m`` towers without a LayerNorm; the
-    rest is queued in ROADMAP.md's M7 items."""
+    """Why the port has no bf16 path for ``cfg`` (None where it has one): the
+    port serves and trains FACT with ``f: m`` and ``f: m2`` towers (grouped
+    ones too) without a LayerNorm; the rest is queued in ROADMAP.md's M7
+    items."""
     if not compute_dtype(cfg):
         return None
     nodes = [cfg["Bi"], cfg["Bu"], cfg["BU"]]
@@ -371,12 +384,8 @@ def bf16_refusal(cfg: dict) -> str | None:
         return "the verb/noun model in bf16 is ROADMAP M7 item 4"
     if cfg["TPU"].get("quantize_infer"):
         return "int8 evaluation (TPU.quantize_infer) under bf16 is ROADMAP M7 item 3"
-    if any(n.get("f") == "m2" for n in nodes):
-        return "the MS-TCN++ tower (f: m2, K6) in bf16 is ROADMAP M7 item 2"
     if any(n.get("f_ln") for n in nodes):
         return "the MSTCN tower's LayerNorm (f_ln) in bf16 is ROADMAP M7 item 2"
-    if any((n.get("f_ngp") or 1) > 1 for n in nodes):
-        return "grouped towers (f_ngp > 1) in bf16 are ROADMAP M7 item 2"
     return None
 
 

@@ -2,12 +2,16 @@
 // ops/bf16.py): K1's bf16 tower (ops/dilated_conv.py::mstcn_stack16, which
 // replaces fact_clip_tpu/ops/pallas/dilated_conv.py::_stack_layer under
 // mixed precision: its conv3, its 1x1 with the residual and write mask, and
-// the out projection of the last layer), and the key / value / query
-// projections of K2's and K3's bf16 forms (x2y_attn.py::_x2y_small_x_fwd_impl
-// and _x2y_flash_fwd_impl's projections, mha_attn.py::_mha_fwd_impl's).
+// the out projection of the last layer), K6's bf16 tower
+// (mstcn2_stack16, which replaces _stack2_layer: the two dilated conv3s
+// into the halves of one [c1 | c2] buffer, the fuse with its ReLU, residual
+// and write mask, the logits; and the dx product of its backward, the six
+// taps of [dc1 | dc2]), and the key / value / query projections of K2's and
+// K3's bf16 forms (x2y_attn.py::_x2y_small_x_fwd_impl and
+// _x2y_flash_fwd_impl's projections, mha_attn.py::_mha_fwd_impl's).
 //
 //   out[b, t, col_off + n] = epilogue(sum over segments s, channels c < kseg
-//       of A[b, t + shift[s], c] * W[n][s*kseg + c])
+//       of A[b, t + shift[s], c0[s] + c] * W[n][s*kseg + c])
 //
 // A (B, T, C) and W (N, Kd) are bf16; the products are exact in the f32
 // accumulators of `wgmma.mma_async ... m64n128k16.f32.bf16.bf16`, one pass
@@ -21,7 +25,10 @@
 //   kProj    acc + bias, f32                    K2 flash's [xk | xv]
 //   kProjRnd f32(bf16(acc)) + bias, f32         K2 small-X's yq-side keys: XLA's
 //                                               bf16 product outside the kernel
-//   kProj16  bf16(acc + bias)                   K3's k and v
+//   kProj16  bf16(acc + bias)                   K3's k and v, K6's c1 and c2
+//   kFuse    bf16((relu(acc + bias) + res)),    K6's fuse (the residual res bf16;
+//            out2 bf16(relu(acc + bias)))       out2, where given, the training
+//                                               form's saved ReLU output)
 // with 0 at frames at or past len[b] (kLogits: the bias row there).  Rows
 // of A outside [0, len[b]) read as zeros: TMA fills zeros outside [0, T),
 // and a consumer warpgroup zeroes its rows in [len, T) in shared memory
@@ -35,7 +42,10 @@
 // and two consumer warpgroups of 64 rows.  Bound on the H100: at the
 // flagship's K1 (B=8, T=3072, C=256) a layer's two GEMMs are 2.6 GFLOP of
 // bf16 (2.6 us at 989 TFLOP/s) against 25 MB of stream traffic (7.5 us at
-// 3.35 TB/s): bytes.  A simple form: no persistence, no cluster, no
+// 3.35 TB/s): bytes.  At Breakfast's K6 (B=4, T=4096, C=512) a layer's
+// three GEMMs are 16 C^2 FLOP a frame, 69 GFLOP (69 us at 989 TFLOP/s),
+// against 7 KB a frame of stream, [c1 | c2] and output traffic, 117 MB
+// (35 us): operations.  A simple form: no persistence, no cluster, no
 // multicast; making it fast is later work.
 #include <cuda.h>
 
@@ -51,21 +61,23 @@ constexpr int STAGES = 4;
 constexpr int TILE_BYTES = BM * BK * 2;       // one 128 x 64 bf16 tile (16 KB)
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // A, W
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 64 + 1024;
-constexpr int MAX_SEG = 3;
+constexpr int MAX_SEG = 6;  // K6's dx: three taps of dc1, three of dc2
 constexpr int THREADS = 384;  // a producer warpgroup, two consumer warpgroups
 
-enum Mode { kRelu = 0, kResid = 1, kLogits = 2, kProj = 3, kProjRnd = 4, kProj16 = 5 };
+enum Mode { kRelu = 0, kResid = 1, kLogits = 2, kProj = 3, kProjRnd = 4, kProj16 = 5, kFuse = 6 };
 
 struct Args {
   CUtensorMap amap;  // A (C, T, B), 64 x 128 boxes, 128-byte swizzle
   CUtensorMap bmap;  // W (Kd, N, 1), 64 x 128 boxes, 128-byte swizzle
   int shift[MAX_SEG];
+  int c0[MAX_SEG];       // each segment's first channel of A
   int nseg, kseg, N, T;
   const int* lengths;
   void* out;
   int ldo, col_off;
   const float* bias;     // (N,) or null
-  const fk::bf16* res;   // kResid: (B, T, N)
+  const fk::bf16* res;   // kResid, kFuse: (B, T, N)
+  fk::bf16* out2;        // kFuse: (B, T, N) or null
 };
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major bf16 in shared memory
@@ -136,7 +148,7 @@ __global__ void __launch_bounds__(THREADS, 1) b16_gemm_kernel(const __grid_const
         const int c = (kc - seg * cps) * BK;
         uint8_t* st = sm + s * STAGE_BYTES;
         tc::mbar_expect_tx(&full[s], STAGE_BYTES);
-        tc::tma_load_3d(st, &p.amap, &full[s], c, t0 + p.shift[seg], b);
+        tc::tma_load_3d(st, &p.amap, &full[s], p.c0[seg] + c, t0 + p.shift[seg], b);
         tc::tma_load_3d(st + TILE_BYTES, &p.bmap, &full[s], seg * p.kseg + c, n0, 0);
       }
     return;
@@ -186,7 +198,18 @@ __global__ void __launch_bounds__(THREADS, 1) b16_gemm_kernel(const __grid_const
       const bool valid = t < L;
       const size_t row = (size_t)b * T + t;
       const float v0 = acc[4 * j + 2 * h] + bv.x, v1 = acc[4 * j + 2 * h + 1] + bv.y;
-      if (MODE == kRelu || MODE == kResid || MODE == kProj16) {
+      if (MODE == kFuse) {
+        float h0 = 0.f, h1 = 0.f, y0 = 0.f, y1 = 0.f;
+        if (valid) {
+          h0 = fmaxf(v0, 0.f);
+          h1 = fmaxf(v1, 0.f);
+          const float2 r = load_bf16x2(p.res + row * N + n);
+          y0 = h0 + r.x;
+          y1 = h1 + r.y;
+        }
+        store_bf16x2(static_cast<fk::bf16*>(p.out) + row * p.ldo + p.col_off + n, y0, y1);
+        if (p.out2 != nullptr) store_bf16x2(p.out2 + row * N + n, h0, h1);
+      } else if (MODE == kRelu || MODE == kResid || MODE == kProj16) {
         float y0 = 0.f, y1 = 0.f;
         if (valid) {
           if (MODE == kRelu) {
@@ -463,24 +486,31 @@ extern "C" int fk_b16_round(const void* in, int in16, const void* gate, const in
 }
 
 // One launch of the bf16 GEMM (see the top of this file): A (B, T, a_ch)
-// bf16 with nseg segments at time shifts `shifts` (a host array), W (N, Kd)
-// bf16 K-major, each segment kseg wide (a multiple of 64 where there are
+// bf16 with nseg segments at time shifts `shifts` and first channels `c0s`
+// (host arrays; c0s null: every segment from channel 0), W (N, Kd) bf16
+// K-major, each segment kseg wide (a multiple of 64 where there are
 // several), out at out + (b * T + t) * ldo + col_off + n (bf16 for kRelu,
-// kResid and kProj16, f32 otherwise), bias (N,) f32 or null, res (B, T, N)
-// bf16 (kResid).
+// kResid, kProj16 and kFuse, f32 otherwise), bias (N,) f32 or null, res (B,
+// T, N) bf16 (kResid, kFuse), out2 (B, T, N) bf16 or null (kFuse).
 extern "C" int fk_b16_gemm(int mode, const void* a, int a_ch, int nseg, const int* shifts,
-                           int kseg, const void* w, int N, int Kd, int B, int T,
+                           const int* c0s, int kseg, const void* w, int N, int Kd, int B, int T,
                            const int* lengths, void* out, int ldo, int col_off,
-                           const float* bias, const void* res, void* stream) {
+                           const float* bias, const void* res, void* out2, void* stream) {
   if (nseg < 1 || nseg > MAX_SEG || a_ch % 8 || Kd % 8 || N % 8 || kseg < 1 ||
-      nseg * kseg > Kd || (nseg > 1 && kseg % BK) || (mode == kResid && res == nullptr) ||
-      mode < kRelu || mode > kProj16)
+      nseg * kseg > Kd || (nseg > 1 && kseg % BK) ||
+      ((mode == kResid || mode == kFuse) && res == nullptr) || mode < kRelu || mode > kFuse)
     return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < nseg; ++s)
+    if (c0s != nullptr && (c0s[s] < 0 || c0s[s] % 8 || c0s[s] >= a_ch))
+      return (int)cudaErrorInvalidValue;
   Args g{};
   if (!tc::encode_3d(&g.amap, a, a_ch, T, B, BK, BM, true, true) ||
       !tc::encode_3d(&g.bmap, w, Kd, N, 1, BK, BN, true, true))
     return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < nseg; ++s) g.shift[s] = shifts[s];
+  for (int s = 0; s < nseg; ++s) {
+    g.shift[s] = shifts[s];
+    g.c0[s] = c0s != nullptr ? c0s[s] : 0;
+  }
   g.nseg = nseg;
   g.kseg = kseg;
   g.N = N;
@@ -491,6 +521,7 @@ extern "C" int fk_b16_gemm(int mode, const void* a, int a_ch, int nseg, const in
   g.col_off = col_off;
   g.bias = bias;
   g.res = static_cast<const fk::bf16*>(res);
+  g.out2 = static_cast<fk::bf16*>(out2);
   const dim3 grid((N + BN - 1) / BN, (T + BM - 1) / BM, B);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
@@ -499,7 +530,8 @@ extern "C" int fk_b16_gemm(int mode, const void* a, int a_ch, int nseg, const in
     case kLogits: return (int)launch<kLogits>(g, grid, st);
     case kProj: return (int)launch<kProj>(g, grid, st);
     case kProjRnd: return (int)launch<kProjRnd>(g, grid, st);
-    default: return (int)launch<kProj16>(g, grid, st);
+    case kProj16: return (int)launch<kProj16>(g, grid, st);
+    default: return (int)launch<kFuse>(g, grid, st);
   }
 }
 

@@ -58,7 +58,7 @@ def make_fbranch(c: BlockCfg, in_dim: int | None):
     if c.f == "m2":
         return L.MSTCN2(f_in, c.f_dim, c.hid_dim, c.f_layers, ngroup=c.f_ngp,
                         in_map=in_dim is not None, use_kernel=c.pallas, dropout=c.dropout,
-                        quantize=c.quantize)
+                        quantize=c.quantize, dtype=_dtype(c))
     raise ValueError(f"frame branch {c.f!r} is not ported (only 'm' and 'm2')")
 
 

@@ -38,7 +38,8 @@ configuration sets it, and each form keeps its own quantized weights.
 ``dtype=torch.bfloat16`` (``BlockCfg.dtype``, ``TPU.compute_dtype:
 bfloat16``) takes JAX's mixed-precision cast sites, each at the same point
 (``fact_clip_tpu/models/layers.py``): the tower's in map a bf16 dense, its
-stream bf16 and its logits f32 (K1's bf16 form); the X2Y maps' and the
+stream bf16 and its logits f32 (K1's and K6's bf16 forms; a grouped tower
+JAX's computation outside the kernels); the X2Y maps' and the
 fused cross-attention's projections on bf16 operands (K2's and K3's bf16
 forms), the out maps' stream bf16; the fused SA / FFN sublayers with bf16
 operands (K4's bf16 form), the unfused attention's q / k / v and the FFN's
@@ -62,10 +63,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bf16 import BF16, dense16, mm
-from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_fold, mstcn2_stack,
-                                mstcn2_stack_reference, mstcn_b16_pack, mstcn_stack,
-                                mstcn_stack16, mstcn_stack16_reference, mstcn_stack16_train,
-                                mstcn_stack_reference)
+from ..ops.dilated_conv import (dilated_residual_layer, mstcn2_b16_pack, mstcn2_fold,
+                                mstcn2_grouped16, mstcn2_stack, mstcn2_stack16,
+                                mstcn2_stack16_reference, mstcn2_stack16_train,
+                                mstcn2_stack_reference, mstcn_b16_pack, mstcn_grouped16,
+                                mstcn_stack, mstcn_stack16, mstcn_stack16_reference,
+                                mstcn_stack16_train, mstcn_stack_reference)
 from ..ops.masking import dropout
 from ..ops.mha_attn import (k3_b16_pack, k3_pack, mha_cross16_fwd, mha_cross16_reference,
                             mha_cross16_train, mha_cross_attention)
@@ -280,10 +283,15 @@ class MSTCN(nn.Module, KernelLayout):
         _check16(self)
         if self.in_map:
             x = dense16(x, self.conv_1x1.weight[:, :, 0], self.conv_1x1.bias)
+        dil = [l.dilation for l in self.layers]
+        if not self.kernel_allowed:  # grouped: JAX's unfused layers (layers.py:290-331)
+            ow, ob = self.layout()
+            return mstcn_grouped16(x.to(BF16).contiguous(), lengths,
+                                   [l.layout() for l in self.layers], dil, out_w=ow, out_b=ob)
         train = _wants_grad(self, x)
         layers = [l.layout() if train else l.kernel_layout() for l in self.layers]
         ow, ob = self.layout() if train else self.kernel_layout()
-        args = (x.to(BF16).contiguous(), lengths, layers, [l.dilation for l in self.layers])
+        args = (x.to(BF16).contiguous(), lengths, layers, dil)
         packed = (self.cached("b16", lambda: mstcn_b16_pack(layers, ow))
                   if x.is_cuda and self.use_kernel else None)
         if train:  # the training form (K1's bf16 backward, or its plain version)
@@ -314,18 +322,19 @@ class MSTCN2(nn.Module, KernelLayout):
     input block's), then per layer two dilated conv3s of the masked stream
     (d1 = 2^(L-1-i), d2 = 2^i), a 1x1 fuse of their concatenation, ReLU,
     dropout (all but the last layer) and the residual, then the 1x1 out map
-    (f32 logits).  The in map is a plain ``F.linear``: JAX computes it
-    outside any kernel.  Module paths are the reference's torch keys
+    (f32 logits).  The in map is a plain ``F.linear`` (a bf16 dense under
+    mixed precision): JAX computes it outside any kernel.  Module paths are the reference's torch keys
     (``conv_1x1_in``, ``conv_dilated_1.{i}``, ``conv_dilated_2.{i}``,
     ``conv_fusion.{i}``, ``conv_out``)."""
 
     act_scale = "tile"  # the int8 tower's activation scales (ops/quant_conv.py)
 
     def __init__(self, in_dim, hid_dim, out_dim, num_layers, ngroup=1, in_map=True,
-                 use_kernel=True, dropout=0.0, quantize=""):
+                 use_kernel=True, dropout=0.0, quantize="", dtype=None):
         super().__init__()
         self.dropout = dropout
         self.quantize = quantize
+        self.dtype = dtype
         if in_map:
             self.conv_1x1_in = nn.Conv1d(in_dim, hid_dim, 1)
         elif in_dim != hid_dim:
@@ -360,7 +369,7 @@ class MSTCN2(nn.Module, KernelLayout):
         serving form when the tower serves on the card (None otherwise: the
         forward then folds them per call if it needs them)."""
         layers = self._layers(live)
-        folded = (mstcn2_fold(layers) if not live and self.use_kernel
+        folded = (mstcn2_fold(layers) if not live and self.use_kernel and self.dtype != BF16
                   and self.conv_out.weight.is_cuda else None)
         return (layers, _t(self.conv_out.weight[:, :, 0], live), _d(self.conv_out.bias, live),
                 folded)
@@ -368,6 +377,8 @@ class MSTCN2(nn.Module, KernelLayout):
     def forward(self, x, lengths, generator=None):
         if self.quantize == "int8" and not self.training and self.kernel_allowed:
             return self._forward_q8(x, lengths)
+        if self.dtype == BF16:
+            return self._forward16(x, lengths)
         if self.in_map:
             x = F.linear(x, self.conv_1x1_in.weight[:, :, 0], self.conv_1x1_in.bias)
         layers, ow, ob, folded = self.layout()
@@ -383,6 +394,29 @@ class MSTCN2(nn.Module, KernelLayout):
                                           out_w=ow, out_b=ob, rates=rates, seeds=seeds)
         return mstcn2_stack(x.contiguous(), lengths, layers, self.dil_pairs, out_w=ow, out_b=ob,
                             rates=rates, seeds=seeds, folded=folded)
+
+    def _forward16(self, x, lengths):
+        """JAX's mixed-precision path (layers.py:442-513): the in map a bf16
+        dense, the stream bf16, the tower (K6's bf16 form, its out projection
+        inside; a grouped tower JAX's computation outside the kernel) giving
+        f32 logits."""
+        _check16(self)
+        if self.in_map:
+            x = dense16(x, self.conv_1x1_in.weight[:, :, 0], self.conv_1x1_in.bias)
+        x = x.to(BF16).contiguous()
+        train = _wants_grad(self, x)
+        layers, ow, ob, _ = self.layout() if train else self.kernel_layout()
+        if not self.kernel_allowed:  # grouped (layers.py:494-513)
+            return mstcn2_grouped16(x, lengths, layers, self.dil_pairs, out_w=ow, out_b=ob)
+        args = (x, lengths, layers, self.dil_pairs)
+        packed = (self.cached("b16", lambda: mstcn2_b16_pack(layers, ow))
+                  if x.is_cuda and self.use_kernel else None)
+        if train:  # the training form (K6's bf16 backward, or its plain version)
+            return mstcn2_stack16_train(*args, out_w=ow, out_b=ob, plain=not self.use_kernel,
+                                        packed=packed)
+        if not self.use_kernel:
+            return mstcn2_stack16_reference(*args, out_w=ow, out_b=ob)
+        return mstcn2_stack16(*args, out_w=ow, out_b=ob, packed=packed)
 
     def _forward_q8(self, x, lengths):
         """JAX's int8 eval path (layers.py:441-476): the in map through

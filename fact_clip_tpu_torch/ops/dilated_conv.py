@@ -57,17 +57,26 @@ Per layer y = (drop(relu(c1 @ wt + c2 @ wb + bf)) + x) * mask with c1, c2
 the two dilated conv3s of the masked input; its dropout is K1's mask (stream
 = layer) and the caller runs the last layer at rate 0.  ``mstcn2_stack`` is
 the differentiable entry.
+
+Under mixed precision (``TPU.compute_dtype: bfloat16``) K1's and K6's bf16
+forms run on the bf16 GEMM of ``csrc/tc_bf16.cu`` (``mstcn_stack16``,
+``mstcn2_stack16``, with their backwards and training entries); K6's is not
+folded, since JAX rounds c1 and c2 to bf16 before the fuse.  Grouped towers
+under bf16 take JAX's computation outside the kernels (``mstcn_grouped16``,
+``mstcn2_grouped16``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from . import _grad
+from .bf16 import rnd
 from .dropout import check_seed, dropout_args, dropout_mask_reference, launch_mask
 from .pos import kernel_pos
 
@@ -1041,8 +1050,9 @@ def mstcn2_stack(x, lengths, layers, dil_pairs, *, out_w, out_b, rates=None, see
 # The bf16 GEMM's epilogues (csrc/tc_bf16.cu::Mode): K1's conv (bf16 out) and
 # 1x1 with the residual (bf16 out), the logits (f32 out, every frame), the
 # projections with an f32 result (K2's flash), with the product rounded to
-# bf16 before the bias (K2's small-X) and with a bf16 result (K3)
-B16_RELU, B16_RESID, B16_LOGITS, B16_PROJ, B16_PROJ_RND, B16_PROJ16 = range(6)
+# bf16 before the bias (K2's small-X) and with a bf16 result (K3, K6's
+# convs), and K6's fuse (ReLU, then the residual; bf16 out)
+B16_RELU, B16_RESID, B16_LOGITS, B16_PROJ, B16_PROJ_RND, B16_PROJ16, B16_FUSE = range(7)
 B16_STEP = 64  # bf16 K values of one GEMM stage (a 128-byte row)
 
 
@@ -1074,20 +1084,24 @@ def has_b16_kernels(C: int, N=None) -> bool:
 
 
 def b16_gemm(mode, a, shifts, wpack, N, lengths, out, *, kseg=None, ldo=None, col_off=0,
-             bias=None, res=None):
+             bias=None, res=None, c0s=None, out2=None):
     """One launch of the bf16 GEMM (``csrc/tc_bf16.cu::fk_b16_gemm``): out[b,
     t, col_off + n] = epilogue(sum over the segments s of A[b, t + shifts[s],
-    :] @ W's rows s * kseg : (s + 1) * kseg), A (B, T, C) bf16, W packed by
-    ``b16_pack`` (kseg: its segment width, all of it by default); rows at or
-    past ``lengths[b]`` read as zeros and are written as zeros (the logits:
-    the bias row); ``res`` (B, T, N) bf16 is the residual of B16_RESID."""
+    c0s[s]:] @ W's rows s * kseg : (s + 1) * kseg), A (B, T, C) bf16, W
+    packed by ``b16_pack`` (kseg: its segment width, all of it by default;
+    c0s: each segment's first channel of A, 0 by default); rows at or past
+    ``lengths[b]`` read as zeros and are written as zeros (the logits: the
+    bias row); ``res`` (B, T, N) bf16 is the residual of B16_RESID and
+    B16_FUSE, ``out2`` (B, T, N) bf16 B16_FUSE's ReLU output (or None)."""
     B, T, a_ch = a.shape
     kseg = wpack.shape[-1] // len(shifts) if kseg is None else kseg
     arr = (ctypes.c_int * len(shifts))(*shifts)
+    c0 = (ctypes.c_int * len(shifts))(*c0s) if c0s is not None else None
     err = _build.lib().fk_b16_gemm(
-        mode, a.data_ptr(), a_ch, len(shifts), ctypes.addressof(arr), kseg, wpack.data_ptr(), N,
+        mode, a.data_ptr(), a_ch, len(shifts), ctypes.addressof(arr),
+        ctypes.addressof(c0) if c0 is not None else None, kseg, wpack.data_ptr(), N,
         wpack.shape[-1], B, T, lengths.data_ptr(), out.data_ptr(), ldo or N, col_off, _ptr(bias),
-        _ptr(res), _build.stream_ptr(a.device))
+        _ptr(res), _ptr(out2), _build.stream_ptr(a.device))
     _build.check("fk_b16_gemm", err)
 
 
@@ -1152,7 +1166,6 @@ def mstcn_stack16_bwd_reference(g, streams, acts, lengths, layers, dilations, *,
     rounded to bf16 (the weights were cast to bf16 before JAX's call), the
     biases f32.  Returns (dx bf16, [(dwd, dbd, dw1, db1, dgamma, dbeta)],
     dow, dob), every weight gradient f32 holding its bf16 value."""
-    rnd = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
     x0 = streams[0]
     valid = _frame_mask(x0, lengths).float()
     n = len(layers)
@@ -1376,3 +1389,329 @@ def mstcn_stack16_train(x, lengths, layers, dilations, *, out_w, out_b, plain=Fa
     cfg = (tuple(int(d) for d in dilations), bool(plain), packed)
     return _MSTCNStack16.apply(x.contiguous(), lengths, out_w, out_b, cfg,
                                *[p.contiguous() for p in flat])
+
+
+# ---------------------------------------------------------------------------
+# K6's bf16 form: the MS-TCN++ tower under mixed precision (csrc/tc_bf16.cu)
+
+
+def mstcn2_b16_pack(layers, out_w):
+    """K6's bf16 form's packed weights (``b16_pack``): per layer the two
+    convs' taps (C, 3 Cp) each (Cp = ``b16_pad(C)``) and the fuse [Wt ; Wb]
+    (C, 2C), then the out projection (O, C).  Nothing is folded: JAX rounds
+    c1 and c2 to bf16 before the fuse."""
+    return ([(b16_pack(k1.reshape(-1, k1.shape[-1]), True, segs=3),
+              b16_pack(k2.reshape(-1, k2.shape[-1]), True, segs=3),
+              b16_pack(torch.cat([wt, wb]), True))
+             for k1, b1, k2, b2, wt, wb, bf in layers], b16_pack(out_w, True))
+
+
+def mstcn2_stack16_reference(x, lengths, layers, dil_pairs, *, out_w, out_b, save=False):
+    """Plain bf16 version of K6's tower (JAX's ``_stack2_kernel`` under mixed
+    precision, ``dilated_conv.py:930-973``): x (B, T, C) bf16, masked; per
+    layer c1 and c2 the two dilated conv3s of the bf16 stream (each tap's f32
+    products added left, centre, right, then the f32 bias), each rounded to
+    bf16; s = c1 Wt + c2 Wb + bf in f32 (Wt, Wb rounded to bf16); the stream
+    bf16((relu(s) + x) * mask); f32 logits bf16(stream) Wo + bo.  Rate 0:
+    bf16 trains without dropout (``configs.bf16_refusal``, ROADMAP M7 item
+    5).  With ``save`` (the training form) also the streams (the masked
+    input and every layer's output, L + 1), [c1 | c2] and bf16(relu(s)), all
+    bf16 and zero past each video, the values that JAX's backward recomputes
+    (``_stack2_bwd_dc_kernel``)."""
+    mask = _frame_mask(x, lengths)
+    maskf = mask.float()
+    h = x * mask
+    streams, cs, hs = [h], [], []
+    for (k1, b1, k2, b2, wt, wb, bf), (d1, d2) in zip(layers, dil_pairs):
+        hf = h.float()
+
+        def conv(k, b, d):
+            taps = k.to(torch.bfloat16).float()
+            acc = _shift(hf, -d) @ taps[0] + hf @ taps[1]
+            return ((acc + _shift(hf, d) @ taps[2]) + b).to(torch.bfloat16)
+
+        c1, c2 = conv(k1, b1, int(d1)), conv(k2, b2, int(d2))
+        s = c1.float() @ wt.to(torch.bfloat16).float() + c2.float() @ wb.to(torch.bfloat16).float()
+        r = torch.relu(s + bf)
+        h = ((r + hf) * maskf).to(torch.bfloat16)
+        streams.append(h)
+        cs.append(torch.cat([c1, c2], dim=-1) * mask)
+        hs.append((r * maskf).to(torch.bfloat16))
+    logits = h.float() @ out_w.to(torch.bfloat16).float() + out_b
+    return (logits, streams, cs, hs) if save else logits
+
+
+def mstcn2_stack16_bwd_reference(g, streams, cs, hs, lengths, layers, dil_pairs, *, out_w,
+                                 out_b):
+    """Plain version of K6's bf16 backward (JAX's ``_stack2_proj_bwd`` with
+    ``_stack2_bwd_dc_kernel`` and ``_stack2_bwd_dx_kernel`` on bf16 streams,
+    ``dilated_conv.py:1118-1265``, 1405-1455), from the training form's
+    saves: g (B, T, O) the logits' cotangent rounded to bf16 (JAX's caller);
+    the last layer's dy = (g Wo^T) * mask in f32, its rounding the residual's
+    cotangent; per layer ds = g * (s > 0) (f32 on the last layer, its
+    rounding for the products; the bf16 stream cotangent on the others), dbf
+    its f32 sum; [dc1 | dc2] = ds [Wt ; Wb]^T in f32 (db1, db2 its f32
+    sums), rounded; dx = bf16((g + the six taps of [dc1 | dc2]) * mask) (each
+    conv's taps added right, centre, left), the next layer's cotangent; the
+    weight products of bf16 operands in f32, rounded to bf16 (JAX's call took
+    the weights in bf16), the biases f32.  Returns (dx bf16, [(dk1, db1, dk2,
+    db2, dwt, dwb, dbf)], dow, dob), every weight gradient f32 holding its
+    bf16 value."""
+    B, T, C = streams[0].shape
+    valid = _frame_mask(streams[0], lengths).float()
+    n = len(layers)
+    glg = rnd(g)
+    dow = rnd(torch.einsum("btc,bto->co", streams[n].float(), glg))
+    dob = glg.sum(dim=(0, 1))
+    dy = (glg @ rnd(out_w).t()) * valid
+    dlayers = [None] * n
+    for i in reversed(range(n)):
+        k1, b1, k2, b2, wt, wb, bf = layers[i]
+        d1, d2 = (int(d) for d in dil_pairs[i])
+        gate = hs[i].float() > 0
+        if i == n - 1:
+            gsrc, ds = rnd(dy), dy * gate
+        else:
+            gsrc = g_in.float() * valid
+            ds = gsrc * gate
+        dbf, ds16 = ds.sum(dim=(0, 1)), rnd(ds)
+        dc = ds16 @ rnd(torch.cat([wt, wb])).t()
+        dc16 = rnd(dc)
+        dx = gsrc
+        for dci, k, d in ((dc16[..., :C], rnd(k1), d1), (dc16[..., C:], rnd(k2), d2)):
+            dx = dx + _shift(dci, d) @ k[0].t()
+            dx = dx + dci @ k[1].t()
+            dx = dx + _shift(dci, -d) @ k[2].t()
+        g_in = (dx * valid).to(torch.bfloat16)
+        xi = streams[i].float() * valid
+        dk1, dk2 = (rnd(torch.stack([torch.einsum("btc,bto->co", _shift(xi, (k - 1) * d), dci)
+                                     for k in range(3)]))
+                    for dci, d in ((dc16[..., :C], d1), (dc16[..., C:], d2)))
+        c = cs[i].float()
+        dlayers[i] = (dk1, dc[..., :C].sum(dim=(0, 1)), dk2, dc[..., C:].sum(dim=(0, 1)),
+                      rnd(torch.einsum("btc,bto->co", c[..., :C], ds16)),
+                      rnd(torch.einsum("btc,bto->co", c[..., C:], ds16)), dbf)
+    return g_in, dlayers, dow, dob
+
+
+def mstcn2_stack16(x, lengths, layers, dil_pairs, *, out_w, out_b, packed=None, save=False):
+    """K6's bf16 form: the MS-TCN++ tower on the card (CUDA tensors) or its
+    plain version (CPU tensors).  x (B, T, C) bf16, lengths (B,) int32, the
+    layers in JAX's layout (f32, cast here: ``packed`` is
+    ``mstcn2_b16_pack(layers, out_w)`` where the caller keeps it) -> f32
+    logits (B, T, O); with ``save`` (the training form) also the streams,
+    [c1 | c2] and ReLU outputs that the backward reads
+    (``mstcn2_stack16_reference``'s)."""
+    flat = [p for layer in layers for p in layer]
+    _build.no_grad_inputs("mstcn2_stack16", [x, out_w, out_b, *flat])
+    if x.device.type == "cpu":
+        return mstcn2_stack16_reference(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                        save=save)
+    out = _mstcn2_16_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, packed, save)
+    mstcn2_stack16.launches += 1
+    return out
+
+
+mstcn2_stack16.launches = 0
+
+
+def _mstcn2_16_fwd_card(x, lengths, layers, dil_pairs, out_w, out_b, packed=None, save=False):
+    """``mstcn2_stack16``'s launches: per layer c1 and c2 (B16_PROJ16, three
+    segments at shifts -d, 0, d each, into the halves of one (B, T, 2C) bf16
+    buffer), the fuse with its ReLU, residual and write mask (B16_FUSE, the
+    ReLU output saved where ``save``), then the logits (B16_LOGITS), the
+    stream ping-ponging in bf16 (CPU tensors reach it only in the tests,
+    which stand a model of the kernels' C interface in for the library)."""
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError("mstcn2_stack16: x must be bfloat16")
+    if not has_b16_kernels(C, O):
+        raise NotImplementedError(f"mstcn2_stack16: no kernel for C={C}, O={O} (C % 8, O % 8)")
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise ValueError("mstcn2_stack16: lengths must be (B,) int32")
+    for k1, b1, k2, b2, wt, wb, bf in layers:
+        if (k1.shape != (3, C, C) or k2.shape != (3, C, C) or wt.shape != (C, C)
+                or wb.shape != (C, C)):
+            raise ValueError(f"mstcn2_stack16: bad layer shapes for C={C} (ungrouped only)")
+    packs, owp = mstcn2_b16_pack(layers, out_w) if packed is None else packed
+    _build.check_tensors("mstcn2_stack16", [x, lengths, out_w, out_b, owp,
+                                            *[p for layer in layers for p in layer[1::2]],
+                                            *[w for pk in packs for w in pk]], x.device, bf16=True)
+    kseg = b16_pad(C)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    c = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.bfloat16)
+    src, h = x, None
+    streams, cs, hs = [], [], []
+    if save:  # the backward's first stream is the masked input, as JAX's (b16_round masks)
+        src = b16_round(x, lengths)[0]
+        streams.append(src)
+    for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2), (w1p, w2p, wfp)) in enumerate(
+            zip(layers, dil_pairs, packs)):
+        d1, d2 = int(d1), int(d2)
+        if save:
+            dst, h = torch.empty_like(x), torch.empty_like(x)
+            c = torch.empty((B, T, 2 * C), device=x.device, dtype=torch.bfloat16)
+        else:
+            dst = bufs[i % 2]
+        b16_gemm(B16_PROJ16, src, [-d1, 0, d1], w1p, C, lengths, c, kseg=kseg, ldo=2 * C,
+                 bias=b1)
+        b16_gemm(B16_PROJ16, src, [-d2, 0, d2], w2p, C, lengths, c, kseg=kseg, ldo=2 * C,
+                 col_off=C, bias=b2)
+        b16_gemm(B16_FUSE, c, [0], wfp, C, lengths, dst, bias=bf, res=src, out2=h)
+        if save:
+            streams.append(dst)
+            cs.append(c)
+            hs.append(h)
+        src = dst
+    logits = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    b16_gemm(B16_LOGITS, src, [0], owp, O, lengths, logits, bias=out_b)
+    return (logits, streams, cs, hs) if save else logits
+
+
+def mstcn2_stack16_bwd(g, streams, cs, hs, lengths, layers, dil_pairs, *, out_w, out_b):
+    """K6's bf16 backward on the card, from the training form's saves (the
+    plain version is ``mstcn2_stack16_bwd_reference``)."""
+    out = _mstcn2_16_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_b)
+    mstcn2_stack16_bwd.launches += 1
+    return out
+
+
+mstcn2_stack16_bwd.launches = 0
+
+
+def _mstcn2_16_bwd_card(g, streams, cs, hs, lengths, layers, dil_pairs, out_w, out_b):
+    """``mstcn2_stack16_bwd``'s launches: the logits' cotangent rounded to
+    bf16 (dob's sums over every frame), dWo on ``fk_b16_wgrad``, dy = g Wo^T
+    (B16_PROJ, f32, zero past each video) rounded to the residual's
+    cotangent; then per layer from the last: ds = dy or the incoming
+    cotangent gated by the saved ReLU output and rounded, with dbf's f32
+    sums (``fk_b16_round``), [dc1 | dc2] = ds [Wt ; Wb]^T (B16_PROJ, one
+    launch of N = 2C) rounded with db1's and db2's sums, dx = bf16(the six
+    taps of [dc1 | dc2] + the residual's cotangent) (B16_RESID, six segments
+    at their shifts and first channels), the weight products dk1, dk2 (three
+    taps each) and [dWt ; dWb] on ``fk_b16_wgrad`` (CPU tensors reach it
+    only in the tests)."""
+    x = streams[0]
+    B, T, C = x.shape
+    O = out_w.shape[1]
+    if x.dtype != torch.bfloat16 or not has_b16_kernels(C, O):
+        raise NotImplementedError(f"mstcn2_stack16_bwd: no kernel for C={C}, O={O}")
+    _build.check_tensors("mstcn2_stack16_bwd", [g, *streams, *cs, *hs, lengths], x.device,
+                         bf16=True)
+    n = len(layers)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    glg = g.to(torch.bfloat16).contiguous()  # JAX's caller: g.astype(x.dtype)
+    full = torch.full_like(lengths, T)  # dob sums every frame's row, as JAX's kernel
+    _, dob = b16_round(glg, full, out=False, sums=True)
+    dow = _r16(wgrad(streams[n], 0, C, glg, 0, O, lengths)[0])
+    dy = torch.empty((B, T, C), **f32)
+    b16_gemm(B16_PROJ, glg, [0], b16_pack(out_w), C, lengths, dy)
+    gsrc = b16_round(dy, lengths)[0]  # the last layer's residual: bf16(dy) (JAX's dz)
+    ds, dbf = b16_round(dy, lengths, gate=hs[n - 1], sums=True)
+    del dy
+    kseg = b16_pad(C)
+    dlayers = [None] * n
+    for i in reversed(range(n)):
+        k1, b1, k2, b2, wt, wb, bf = layers[i]
+        d1, d2 = (int(d) for d in dil_pairs[i])
+        if i < n - 1:
+            gsrc = g_in
+            ds, dbf = b16_round(g_in, lengths, gate=hs[i], sums=True)
+        dc32 = torch.empty((B, T, 2 * C), **f32)
+        b16_gemm(B16_PROJ, ds, [0], b16_pack(torch.cat([wt, wb])), 2 * C, lengths, dc32)
+        dc, db = b16_round(dc32, lengths, sums=True)
+        del dc32
+        g_in = torch.empty_like(x)
+        # tap k of the forward read x[t + (k-1)d], so its transpose reads dc[s + (1-k)d]
+        taps = b16_pack(torch.cat([k1[0], k1[1], k1[2], k2[0], k2[1], k2[2]], dim=1), segs=6)
+        b16_gemm(B16_RESID, dc, [d1, 0, -d1, d2, 0, -d2], taps, C, lengths, g_in, kseg=kseg,
+                 res=gsrc, c0s=[0, 0, 0, C, C, C])
+        dk1 = _r16(wgrad(streams[i], 0, C, dc, 0, C, lengths, shifts=(-d1, 0, d1)))
+        dk2 = _r16(wgrad(streams[i], 0, C, dc, C, C, lengths, shifts=(-d2, 0, d2)))
+        dwf = _r16(wgrad(cs[i], 0, 2 * C, ds, 0, C, lengths)[0])
+        dlayers[i] = (dk1, db[:C], dk2, db[C:], dwf[:C], dwf[C:], dbf)
+    return g_in, dlayers, dow, dob
+
+
+class _MSTCN2Stack16(torch.autograd.Function):
+    """K6's bf16 form for training: the training forward (its saves) and the
+    backward, the kernels' on CUDA tensors, the plain versions on CPU ones or
+    where ``plain`` (the card's plain path)."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, out_w, out_b, cfg, *flat):
+        dil_pairs, plain, packed = cfg
+        layers = [tuple(flat[7 * i:7 * i + 7]) for i in range(len(dil_pairs))]
+        fwd = (mstcn2_stack16_reference if plain or x.device.type == "cpu"
+               else functools.partial(mstcn2_stack16, packed=packed))
+        logits, streams, cs, hs = fwd(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
+                                      save=True)
+        ctx.cfg = (dil_pairs, plain)
+        ctx.save_for_backward(lengths, out_w, out_b, *flat, *streams, *cs, *hs)
+        return logits
+
+    @staticmethod
+    def backward(ctx, g):
+        dil_pairs, plain = ctx.cfg
+        L = len(dil_pairs)
+        lengths, out_w, out_b, *rest = ctx.saved_tensors
+        flat, saves = rest[:7 * L], rest[7 * L:]
+        layers = [tuple(flat[7 * i:7 * i + 7]) for i in range(L)]
+        streams, cs, hs = saves[:L + 1], saves[L + 1:2 * L + 1], saves[2 * L + 1:]
+        bwd = (mstcn2_stack16_bwd_reference if plain or g.device.type == "cpu"
+               else mstcn2_stack16_bwd)
+        dx, dlayers, dow, dob = bwd(g.contiguous(), list(streams), list(cs), list(hs), lengths,
+                                    layers, dil_pairs, out_w=out_w, out_b=out_b)
+        return (dx, None, dow, dob, None, *[t for layer in dlayers for t in layer])
+
+
+def mstcn2_stack16_train(x, lengths, layers, dil_pairs, *, out_w, out_b, plain=False,
+                         packed=None):
+    """The differentiable bf16 MS-TCN++ tower (rate 0): the kernels on CUDA
+    tensors, the plain versions on CPU ones or where ``plain``."""
+    flat = [p for layer in layers for p in layer]
+    cfg = (tuple((int(a), int(b)) for a, b in dil_pairs), bool(plain), packed)
+    return _MSTCN2Stack16.apply(x.contiguous(), lengths, out_w, out_b, cfg,
+                                *[p.contiguous() for p in flat])
+
+
+# ---------------------------------------------------------------------------
+# grouped towers under mixed precision: JAX computes them outside any kernel
+
+
+def mstcn_grouped16(x, lengths, layers, dilations, *, out_w, out_b):
+    """JAX's MSTCN tower of unfused layers under mixed precision (the
+    grouped towers, ``layers.py:290-331`` and 413-421; no LayerNorm:
+    ``configs.bf16_refusal``): per layer xm = x * mask (bf16), a =
+    relu(bf16(conv3_d(xm)) + bd) (XLA's bf16 convolution, rounded, then the
+    f32 bias), z = bf16(bf16(a) W1) + b1, x = bf16(xm + z); f32 logits
+    bf16(x) Wo + bo.  Differentiable PyTorch operations: autograd rounds the
+    cotangents of the bf16 tensors, as JAX's."""
+    mask = _frame_mask(x, lengths)
+    h = x
+    for (wd, bd, w1, b1, gamma, beta), d in zip(layers, dilations):
+        xm = h * mask
+        a = torch.relu(rnd(_conv3(xm.float(), rnd(wd), None, int(d))) + bd)
+        z = rnd(rnd(a) @ rnd(w1)) + b1
+        h = (xm.float() + z).to(torch.bfloat16)
+    return h.float() @ rnd(out_w) + out_b
+
+
+def mstcn2_grouped16(x, lengths, layers, dil_pairs, *, out_w, out_b):
+    """JAX's MS-TCN++ tower outside the kernel under mixed precision (the
+    grouped towers, ``layers.py:494-513``): per layer fm = f * mask (bf16),
+    c = bf16([bf16(conv3_d1(fm)) + b1 | bf16(conv3_d2(fm)) + b2]) (XLA's
+    bf16 convolutions, rounded before the f32 biases), h = relu(bf16(c Wf) +
+    bf), f = bf16(bf16(h) + f) (no write mask); f32 logits f Wo + bo, Wo
+    rounded to bf16.  Differentiable PyTorch operations, as
+    ``mstcn_grouped16``."""
+    mask = _frame_mask(x, lengths)
+    f = x
+    for (k1, b1, k2, b2, wt, wb, bf), (d1, d2) in zip(layers, dil_pairs):
+        fm = (f * mask).float()
+        c = torch.cat([rnd(_conv3(fm, rnd(k1), None, int(d1))) + b1,
+                       rnd(_conv3(fm, rnd(k2), None, int(d2))) + b2], dim=-1)
+        h = torch.relu(rnd(rnd(c) @ rnd(torch.cat([wt, wb]))) + bf)
+        f = (rnd(h) + f.float()).to(torch.bfloat16)
+    return f.float() @ rnd(out_w) + out_b

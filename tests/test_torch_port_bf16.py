@@ -411,13 +411,35 @@ def _refused(cfg, match):
 
 @pytest.mark.parametrize("case", ["m2", "int8", "clip", "trans", "verbnoun", "f_ln", "groups"])
 def test_bf16_refuses_what_it_has_no_path_for(case):
-    """Each config this slice has no bf16 path for raises at build time, on
-    either device, naming its ROADMAP item (no kernel can launch)."""
+    """Each config the port has no bf16 path for raises at build time, on
+    either device, naming its ROADMAP item (no kernel can launch).  The
+    MS-TCN++ tower (``m2``, K6's bf16 form) and grouped towers (``groups``,
+    JAX's computation outside the kernels) have one: they resolve, build and
+    run in bf16, giving finite f32 logits (``tests/test_torch_port_bf16_m2.py``
+    holds them against JAX)."""
     cfg = _bf16_cfg()
     match = "M7 item"
-    if case == "m2":
-        cfg["Bi"]["f"] = "m2"
-    elif case == "int8":
+    if case in ("m2", "groups"):
+        if case == "m2":
+            cfg["Bi"]["f"] = "m2"
+        else:
+            cfg["Bi"]["f_ngp"] = 2
+        cfg["Bi"]["dropout"] = 0.0
+        assert bf16_refusal(cfg) is None
+        blocks = resolve_block_cfgs(cfg)
+        assert {b.dtype for b in blocks} == {"bfloat16"}
+        model = build_fact(cfg, D, C, S_CAP, device="cpu")
+        rng = np.random.default_rng(1)
+        lengths = np.array([T, 61], np.int32)
+        feats = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32))
+        mask = torch.from_numpy(np.arange(T)[None] < lengths[:, None])
+        with torch.no_grad():
+            saves, _ = model(feats.to(torch.bfloat16), mask, torch.from_numpy(lengths))
+        for sv in saves:
+            assert sv["frame_clogit"].dtype == torch.float32
+            assert torch.isfinite(sv["frame_clogit"]).all()
+        return
+    if case == "int8":
         cfg["TPU"]["quantize_infer"] = "int8"
     elif case == "clip":
         cfg = openvocab_cfg()
@@ -425,10 +447,8 @@ def test_bf16_refuses_what_it_has_no_path_for(case):
         cfg["FACT"].update(trans=True, ntoken=0)
     elif case == "verbnoun":
         cfg = epic_cfg()
-    elif case == "f_ln":
-        cfg["Bi"]["f_ln"] = True
     else:
-        cfg["Bi"]["f_ngp"] = 2
+        cfg["Bi"]["f_ln"] = True
     cfg["TPU"]["compute_dtype"] = "bfloat16"
     _refused(cfg, match)
     if case == "verbnoun":

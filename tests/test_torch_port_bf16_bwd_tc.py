@@ -13,6 +13,7 @@ JAX's roundings of g, dl, p and dK / dV), ``fk_x2y_sx_attn_bwd`` (the small-X at
 terms), ``fk_ffn_bwd16`` (``fk_ffn_bwd``'s steps with z1 and bf16(dz1)
 rounded) and ``fk_sa_bwd16`` (the SA backward's nine launches).  The port's
 launch sequences (``_mstcn16_fwd_card(save=True)``, ``_mstcn16_bwd_card``,
+K6's ``_mstcn2_16_fwd_card(save=True)`` and ``_mstcn2_16_bwd_card``,
 ``_x2y_small_x16_bwd_card``, ``_x2y_flash16_bwd_card``, ``_mha16_bwd_card``,
 ``_sa16_bwd_card``, ``_ffn16_bwd_card``) run on it and are held against the
 plain versions: each cotangent within 2^-7 of its scale (the same roundings
@@ -327,6 +328,49 @@ def test_emulated_k1_bwd16(fake, C, L):
     wgrads = [c for c in fake.calls if c[0] == "b16_wgrad"]
     assert wgrads == [("b16_wgrad", 1)] + [("b16_wgrad", 3), ("b16_wgrad", 1)] * L
     assert ("b16_round", True) in fake.calls
+
+
+@pytest.mark.parametrize("C,L", [(32, 3), (64, 1), (24, 2)])
+def test_emulated_k6_bwd16(fake, C, L):
+    """K6's training form (the masked input, every layer's stream, [c1 | c2]
+    and ReLU output saved) and its backward's launches (dy, its rounding and
+    the gated one with dbf's sums, [dc1 | dc2] in one product of N = 2C and
+    its rounding with db1's and db2's sums, dx over the six taps at their
+    shifts and first channels, the weight products) against the plain
+    versions, lengths ragged with 0."""
+    rng = np.random.default_rng(C + L)
+    B, T, O = 3, 200, 16
+    x = _bf(rng, (B, T, C))
+    lens = torch.tensor([T, 133, 0], dtype=torch.int32)
+    layers = [(_f(rng, (3, C, C), (3 * C) ** -0.5), _f(rng, (C,), 0.1),
+               _f(rng, (3, C, C), (3 * C) ** -0.5), _f(rng, (C,), 0.1),
+               _f(rng, (C, C), (2 * C) ** -0.5), _f(rng, (C, C), (2 * C) ** -0.5),
+               _f(rng, (C,), 0.1)) for _ in range(L)]
+    ow, ob = _f(rng, (C, O), C ** -0.5), _f(rng, (O,), 0.1)
+    dil = [(2 ** (L - 1 - i), 2 ** i) for i in range(L)]
+    _, sk, ck, hk = dc._mstcn2_16_fwd_card(x, lens, layers, dil, ow, ob, save=True)
+    _, sp, cp, hp = dc.mstcn2_stack16_reference(x, lens, layers, dil, out_w=ow, out_b=ob,
+                                                save=True)
+    assert fake.calls[0] == ("b16_round", False) and len(sk) == L + 1
+    assert ("b16_gemm", dc.B16_FUSE) in fake.calls
+    for a, p in zip(sk + ck + hk, sp + cp + hp):  # the card's saves: the plain ones, zero
+        assert a.dtype == BF and a.shape == p.shape  # past each video
+        assert (a.float() - p.float()).abs().max() <= TOL * p.float().abs().max()
+    g = _f(rng, (B, T, O))
+    fake.calls.clear()
+    got = dc._mstcn2_16_bwd_card(g, sp, cp, hp, lens, layers, dil, ow, ob)
+    ref = dc.mstcn2_stack16_bwd_reference(g, sp, cp, hp, lens, layers, dil, out_w=ow, out_b=ob)
+    valid = torch.arange(T)[None, :] < lens[:, None]
+    assert got[0].dtype == BF and not got[0].float()[~valid].any()
+    _check(["dx", "dow", "dob"], [got[0], got[2], got[3]], [ref[0], ref[2], ref[3]])
+    for i in range(L):
+        _check(["dk1", "db1", "dk2", "db2", "dwt", "dwb", "dbf"], got[1][i], ref[1][i])
+    wgrads = [c for c in fake.calls if c[0] == "b16_wgrad"]
+    assert wgrads == [("b16_wgrad", 1)] + [("b16_wgrad", 3), ("b16_wgrad", 3),
+                                           ("b16_wgrad", 1)] * L
+    assert [c for c in fake.calls if c[0] == "b16_gemm"] == \
+        [("b16_gemm", dc.B16_PROJ)] + [("b16_gemm", dc.B16_PROJ), ("b16_gemm", dc.B16_RESID)] * L
+    assert fake.calls.count(("b16_round", True)) == L
 
 
 @pytest.mark.parametrize("X,Y", [(40, 96), (11, 130)])

@@ -4,8 +4,8 @@ bfloat16``) on a model of their C entries, on the CPU.
 The kernels run only on the card.  ``FakeB16Lib`` models each new entry on the
 raw memory of CPU tensors, as the other fake libraries do: the bf16 GEMM
 (``csrc/tc_bf16.cu::fk_b16_gemm``: bf16 operands, exact products summed in
-f32 segment by segment, the rows of A outside [0, len) zero, each epilogue's
-rounding), ``fk_b16_add_pos``, the f32 attention stages that K2's bf16 forms
+f32 segment by segment, each segment from its own time shift and first
+channel, the rows of A outside [0, len) zero, each epilogue's rounding), ``fk_b16_add_pos``, the f32 attention stages that K2's bf16 forms
 reuse (``fk_x2y_sx_attn``, ``fk_x2y_flash_attend``), K3's bf16 attention
 (``fk_k3_attn16``: per 64-key tile the weights against the tile's max,
 rounded to bf16 for the attend sum, then the combine), and K4's bf16 entries
@@ -53,20 +53,23 @@ class FakeB16Lib(FakeFFNFwdLib):
     """The bf16 forms' entries (and the FFN forward's workspace entry,
     inherited), on the memory behind the pointers; ``calls`` lists them."""
 
-    def fk_b16_gemm(self, mode, a, a_ch, nseg, shifts, kseg, w, N, Kd, B, T, lengths, out, ldo,
-                    col_off, bias, res, stream):
+    def fk_b16_gemm(self, mode, a, a_ch, nseg, shifts, c0s, kseg, w, N, Kd, B, T, lengths, out,
+                    ldo, col_off, bias, res, out2, stream):
         self.calls.append(("b16_gemm", mode))
         assert nseg * kseg <= Kd and (nseg == 1 or kseg % 64 == 0) and a_ch % 8 == 0
+        assert 1 <= nseg <= 6 and (res is not None or mode not in (dc.B16_RESID, dc.B16_FUSE))
         A = _v16(a, B * T * a_ch).view(B, T, a_ch).float()
         lens = _ints(lengths, B).clone().clamp(max=T)
         valid = (torch.arange(T)[None, :] < lens[:, None])[..., None]
         # rows outside [0, len) and channels past a_ch (TMA's fill) read as zeros
-        A = torch.nn.functional.pad(A * valid, (0, max(0, kseg - a_ch)))[..., :kseg]
+        A = torch.nn.functional.pad(A * valid, (0, kseg))
         W = _v16(w, N * Kd).view(N, Kd).float()
         sh = _ints(shifts, nseg).tolist()
+        c0 = _ints(c0s, nseg).tolist() if c0s is not None else [0] * nseg
         acc = None
-        for s, d in enumerate(sh):  # the segments in order, each an exact-product f32 sum
-            term = dc._shift(A, d) @ W[:, s * kseg:(s + 1) * kseg].t()
+        for s, (d, c) in enumerate(zip(sh, c0)):  # the segments in order, exact-product f32 sums
+            assert c % 8 == 0 and 0 <= c < a_ch
+            term = dc._shift(A[..., c:c + kseg], d) @ W[:, s * kseg:(s + 1) * kseg].t()
             acc = term if acc is None else acc + term
         b = _view(bias, N) if bias is not None else torch.zeros(N)
         v = acc + b
@@ -74,13 +77,17 @@ class FakeB16Lib(FakeFFNFwdLib):
             y = torch.relu(v)
         elif mode == dc.B16_RESID:
             y = v + _v16(res, B * T * N).view(B, T, N).float()
+        elif mode == dc.B16_FUSE:
+            y = torch.relu(v) + _v16(res, B * T * N).view(B, T, N).float()
+            if out2 is not None:
+                _v16(out2, B * T * N).view(B, T, N)[:] = (torch.relu(v) * valid).to(BF)
         elif mode == dc.B16_PROJ_RND:
             y = _rnd(acc) + b
         else:
             y = v
         if mode != dc.B16_LOGITS:
             y = y * valid
-        if mode in (dc.B16_RELU, dc.B16_RESID, dc.B16_PROJ16):
+        if mode in (dc.B16_RELU, dc.B16_RESID, dc.B16_PROJ16, dc.B16_FUSE):
             o = _v16(out, B * T * ldo).view(B, T, ldo)
         else:
             o = _view(out, B * T * ldo).view(B, T, ldo)
@@ -273,6 +280,37 @@ def test_emulated_k1_tower16(fake, C, L, ragged):
     one = dc._mstcn16_fwd_card(x, lengths, layers[:1], dil[:1], torch.eye(C), torch.zeros(C))
     ref1 = dc.mstcn_stack16_reference(x, lengths, layers[:1], dil[:1], out_w=torch.eye(C),
                                       out_b=torch.zeros(C))
+    assert _ulps(one, ref1) <= 2
+
+
+@pytest.mark.parametrize("C,L,ragged", [(32, 1, False), (24, 3, True), (64, 10, True)])
+def test_emulated_k6_tower16(fake, C, L, ragged):
+    """K6's bf16 launches (per layer c1 and c2 into the halves of one
+    [c1 | c2] buffer, the fuse with its ReLU and residual, then the logits)
+    against the plain bf16 tower: one layer's logits within 1e-4 of scale
+    (its bf16 stream through an identity within 2 ulps), L layers' within
+    1e-2; padded frames' logits the bias row."""
+    rng = np.random.default_rng(C + L)
+    B, T, O = 3, 200, 16
+    x = _bf(rng, (B, T, C))
+    lengths = torch.tensor([T, 133, 0] if ragged else [T] * B, dtype=torch.int32)
+    layers = [(_f(rng, (3, C, C), (3 * C) ** -0.5), _f(rng, (C,), 0.1),
+               _f(rng, (3, C, C), (3 * C) ** -0.5), _f(rng, (C,), 0.1),
+               _f(rng, (C, C), (2 * C) ** -0.5), _f(rng, (C, C), (2 * C) ** -0.5),
+               _f(rng, (C,), 0.1)) for _ in range(L)]
+    ow, ob = _f(rng, (C, O), C ** -0.5), _f(rng, (O,), 0.1)
+    dil = [(2 ** (L - 1 - i), 2 ** i) for i in range(L)]
+    got = dc._mstcn2_16_fwd_card(x, lengths, layers, dil, ow, ob)
+    ref = dc.mstcn2_stack16_reference(x, lengths, layers, dil, out_w=ow, out_b=ob)
+    assert fake.calls == ([("b16_gemm", dc.B16_PROJ16)] * 2 + [("b16_gemm", dc.B16_FUSE)]) * L \
+        + [("b16_gemm", dc.B16_LOGITS)]
+    assert _rel(got, ref) <= (F32_TOL if L == 1 else TOWER_TOL), _rel(got, ref)
+    if ragged:
+        assert torch.equal(got[2], ob.expand(T, O))
+    # one layer's bf16 stream through an identity out projection (exact)
+    one = dc._mstcn2_16_fwd_card(x, lengths, layers[:1], dil[:1], torch.eye(C), torch.zeros(C))
+    ref1 = dc.mstcn2_stack16_reference(x, lengths, layers[:1], dil[:1], out_w=torch.eye(C),
+                                       out_b=torch.zeros(C))
     assert _ulps(one, ref1) <= 2
 
 
