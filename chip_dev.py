@@ -142,6 +142,13 @@
         table's prologue and one tile), over 13 / 29 / 97 at 24,576 frames,
         and K7a at epic's shape beside it.
 
+    python3 chip_dev.py k6b16-host [TREE]
+        The same for K6's bf16 forms (``mstcn2_stack16`` and
+        ``mstcn2_stack16_bwd``, 10 layers, O = 512) at phase 3's Breakfast 4 x
+        4096 x 512 and ragged 3 x 600 (a video of 0 frames) cases: whether
+        the host (the weight packs each call builds, the launches) or the
+        card sets a call's time.
+
     python3 chip_dev.py sa-f64 [TREE]
         K4's SA backward (dropout 0.2, hashed) of the package in TREE and
         its f32 plain version against the plain version in float64 at the
@@ -847,6 +854,21 @@ def k8row_host(tree: str = REPO, seed: int = 0):
     return _per_call(cs, "k8row-host", cases)
 
 
+def k6b16_host(tree: str = REPO, seed: int = 0):
+    """The same for K6's bf16 forward and backward at phase 3's Breakfast and
+    ragged cases."""
+    cs = _chip_smoke(tree)
+    rng = np.random.default_rng(seed)
+    D = 512
+    shapes = {"breakfast": (4, 4096, cs.BF_TRAIN_LENGTHS), "ragged": (3, 600, [600, 517, 0])}
+    cases = {}
+    for name, (B, T, lens) in shapes.items():
+        cases[f"fwd {name}"] = lambda s=(B, T, lens): cs.k6_16_case(rng, s[0], s[1], D, D, 10, s[2])
+        cases[f"bwd {name}"] = lambda s=(B, T, lens): cs.k6_bwd16_case(rng, s[0], s[1], D, D, 10,
+                                                                        s[2])
+    return _per_call(cs, "k6b16-host", cases)
+
+
 def k7c_host(tree: str = REPO, seed: int = 0):
     """The same for K7c at epic's shape, at one tile a block, over a small
     vocabulary, and K7a at epic's shape."""
@@ -961,6 +983,8 @@ def main(argv):
         return k7k3_host(*argv[1:])
     if argv[:1] == ["k8row-host"] and len(argv) <= 2:
         return k8row_host(*argv[1:])
+    if argv[:1] == ["k6b16-host"] and len(argv) <= 2:
+        return k6b16_host(*argv[1:])
     if argv[:1] == ["k7c-host"] and len(argv) <= 2:
         return k7c_host(*argv[1:])
     if argv[:1] == ["sa-f64"] and len(argv) <= 2:

@@ -358,10 +358,12 @@ Phases, one line or more each; any failure ends the run with a non-zero exit:
    phase 6's 10 requests through ``Predictor`` (the bf16 forms' launches per
    batch exact, K6's 4, every f32 twin 0), the eval step at 8 x 4096 beside
    the f32 kernel path and against its plain bf16 path, one train step at 4
-   x 4096 (every bf16 backward form, K6's 4) and its split beside f32's, the
-   kernel path against the plain path for train_compare's seeds (phase 19's
-   limits, the FFN and K6 ReLU ties replayed on the kernel side,
-   ``TowerRelus16``), the train CLI on breakfast.yaml --set
+   x 4096 (every bf16 backward form, K6's 4) and its split beside f32's, for
+   train_compare's seeds the kernel path's loss against the plain path's
+   and its gradients against itself with K6's backward, then every bf16
+   backward, on the plain versions over its own saves
+   (``_b16_plain_backwards``: no ReLU gate differs; phase 19's limits), the
+   train CLI on breakfast.yaml --set
    TPU.compute_dtype bfloat16 cut, resumed and compared bit for bit, then
    ``run_eval``; ``egoprocel_cfg()`` in bf16 serving phase 13's requests
    (K3's bf16 form at M = 200).  Phase 3 holds K6's two bf16 forms
@@ -6269,7 +6271,7 @@ def _b16_leaf_limits(names, gk, gp, floors):
 def _b16_pack_trace(step, batch, gen):
     """(host ms inside the bf16 weight packs, their calls, the step's host
     ms) of one warm bf16 train step traced on the host (``torch.profiler``,
-    CPU activity): every ``b16_pack`` (K1's, K2's and K3's packs, the
+    CPU activity): every ``b16_pack`` (K1's or K6's, K2's and K3's packs, the
     forward's cached ones, rebuilt as the weights change every step, and the
     backward's) and ``sa_b16_pack``, each call under a ``record_function``
     range.  The SA backward's two transposed casts are inline and not
@@ -6577,174 +6579,84 @@ def bf16_m2_launches(T: int) -> dict:
     return out
 
 
-class TowerRelus16:
-    """The K6 bf16 towers' ReLU gates of a run, in call order: each layer's
-    [c1 | c2] and saved ReLU output, recorded by patching
-    ``ops.dilated_conv._mstcn2_16_fwd_card`` (K6's bf16 training form on the
-    card) and ``ops.dilated_conv.mstcn2_stack16_reference`` (its plain
-    version, which the training Function calls); and a replay of the plain
-    path that puts each proven tie on the kernel path's side.  A flip is a
-    valid unit whose saved ReLU output is positive on one path only (the
-    gate each backward reads); a proven tie lies within RELU_TIE16 of
-    |c1| |Wt| + |c2| |Wb| + |bf| of 0 on both paths (float64, each path's
-    own bf16 [c1 | c2], the weights rounded to bf16)."""
+@contextlib.contextmanager
+def _b16_plain_backwards(k6_only):
+    """The bf16 training forms' backwards on their plain versions, over the
+    saves of their forwards on the kernels: K6's alone (``k6_only``) or every
+    bf16 form's (K2's two, K3's, K4's two).  The card entries that the
+    autograd Functions call are swapped for the plain versions of the same
+    cotangents (the plain K2 backward ignores the attention output that the
+    small-X form does not save)."""
+    from fact_clip_tpu_torch.ops import dilated_conv as dc
+    from fact_clip_tpu_torch.ops import mha_attn, sa_layer, x2y_attn
 
-    def __init__(self):
-        self.runs = {}
+    def k6(*a, **kw):
+        return dc.mstcn2_stack16_bwd_reference(*a, **kw)
 
-    def record(self, path):
-        from fact_clip_tpu_torch.ops import dilated_conv as dc
+    def k3(*a, num_heads, packed=None):
+        return mha_attn.mha_cross16_bwd_reference(*a, num_heads=num_heads)
 
-        @contextlib.contextmanager
-        def patched():
-            orig_k, orig_p = dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference
-            calls = self.runs[path] = []
+    def sa(*a, num_heads, eps, packed=None):
+        return sa_layer.sa_sublayer16_bwd_reference(*a, num_heads=num_heads, eps=eps)
 
-            def kern(x, lengths, layers, dil_pairs, out_w, out_b, packed=None, save=False):
-                out = orig_k(x, lengths, layers, dil_pairs, out_w, out_b, packed, save)
-                if save:
-                    calls.append((lengths, layers, [c.detach().clone() for c in out[2]],
-                                  [h.detach().clone() for h in out[3]]))
-                return out
+    def ffn(*a, eps, packed=None):
+        return sa_layer.ffn_sublayer16_bwd_reference(*a, eps=eps)
 
-            def plain(x, lengths, layers, dil_pairs, *, out_w, out_b, save=False):
-                out = orig_p(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b, save=save)
-                if save:
-                    calls.append((lengths, layers, [c.detach().clone() for c in out[2]],
-                                  [h.detach().clone() for h in out[3]]))
-                return out
+    def flash(*a):  # (the 11 inputs, probs, attn, g_attn, g_probs, g_logits, packed)
+        return x2y_attn.x2y16_bwd_reference(*a[:16])
 
-            dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference = kern, plain
-            try:
-                yield
-            finally:
-                dc._mstcn2_16_fwd_card, dc.mstcn2_stack16_reference = orig_k, orig_p
+    def small_x(*a):  # (the 11 inputs, probs, g_attn, g_probs, g_logits, packed)
+        return x2y_attn.x2y16_bwd_reference(*a[:12], None, *a[12:15])
 
-        return patched()
-
-    def ties(self):
-        """({(call, layer): (tie mask, kernel side)}, flips, proven ties, the
-        flips' largest share of the magnitude sum, tower calls); flips -1
-        where the runs' calls do not pair up."""
-        import torch
-
-        pp, pk = self.runs.get("plain", []), self.runs.get("kernels", [])
-        if len(pp) != len(pk) or any(len(a[2]) != len(b[2]) for a, b in zip(pp, pk)):
-            return {}, -1, 0, 0.0, len(pk)
-        forced, flips, proven, worst = {}, 0, 0, 0.0
-        for call, ((lengths, layers, csp, hsp), (_, _, csk, hsk)) in enumerate(zip(pp, pk)):
-            for i, (cp, ck, hp, hk) in enumerate(zip(csp, csk, hsp, hsk)):
-                T = cp.shape[1]
-                valid = (torch.arange(T, device=cp.device)[None, :]
-                         < lengths.to(cp.device)[:, None])[..., None]
-                flip = ((hp.float() > 0) != (hk.float() > 0)) & valid
-                if not bool(flip.any()):
-                    continue
-                wt, wb, bf = layers[i][4:7]
-                w = torch.cat([wt, wb]).detach().to(torch.bfloat16).double()
-                b = bf.detach().double()
-                share = [(c.double() @ w + b).abs()
-                         / (c.double().abs() @ w.abs() + b.abs()).clamp(min=1e-300)
-                         for c in (cp, ck)]
-                rel = torch.maximum(*share)
-                tie = flip & (rel <= RELU_TIE16)
-                flips, proven = flips + int(flip.sum()), proven + int(tie.sum())
-                worst = max(worst, float(rel[flip].max()))
-                forced[(call, i)] = (tie, hk.float() > 0)
-        return forced, flips, proven, worst, len(pk)
-
-    @staticmethod
-    def replay(forced):
-        """The plain tower with each unit in ``forced[(call, layer)]``'s mask
-        gated to the given side: its forward passes s (on) or 0 (off), its
-        saved ReLU output carries that gate to the backward."""
-        import itertools
-
-        import torch
-
-        from fact_clip_tpu_torch.ops import dilated_conv as dc
-
-        @contextlib.contextmanager
-        def patched():
-            orig = dc.mstcn2_stack16_reference
-            count = itertools.count()
-
-            def plain(x, lengths, layers, dil_pairs, *, out_w, out_b, save=False):
-                call = next(count) if save else None
-                if call is None or not any(k[0] == call for k in forced):
-                    return orig(x, lengths, layers, dil_pairs, out_w=out_w, out_b=out_b,
-                                save=save)
-                bf16 = torch.bfloat16
-                mask = dc._frame_mask(x, lengths)
-                maskf = mask.float()
-                h = x * mask
-                streams, cs, hs = [h], [], []
-                for i, ((k1, b1, k2, b2, wt, wb, bf), (d1, d2)) in enumerate(
-                        zip(layers, dil_pairs)):
-                    hf = h.float()
-
-                    def conv(k, b, d):
-                        taps = k.to(bf16).float()
-                        acc = dc._shift(hf, -d) @ taps[0] + hf @ taps[1]
-                        return ((acc + dc._shift(hf, d) @ taps[2]) + b).to(bf16)
-
-                    c1, c2 = conv(k1, b1, int(d1)), conv(k2, b2, int(d2))
-                    s = c1.float() @ wt.to(bf16).float() + c2.float() @ wb.to(bf16).float() + bf
-                    r, gate = torch.relu(s), s > 0
-                    force = forced.get((call, i))
-                    if force is not None:
-                        r = torch.where(force[0], s * force[1], r)
-                        gate = torch.where(force[0], force[1], gate)
-                    h = ((r + hf) * maskf).to(bf16)
-                    streams.append(h)
-                    cs.append(torch.cat([c1, c2], dim=-1) * mask)
-                    # the backward reads the gate only: a forced-on unit of s <= 0 saves 1
-                    hs.append((torch.where(gate, torch.where(r > 0, r, 1.0), 0.0)
-                               * maskf).to(bf16))
-                logits = h.float() @ out_w.to(bf16).float() + out_b
-                return (logits, streams, cs, hs) if save else logits
-
-            dc.mstcn2_stack16_reference = plain
-            try:
-                yield
-            finally:
-                dc.mstcn2_stack16_reference = orig
-
-        return patched()
+    sites = [(dc, "mstcn2_stack16_bwd", k6)]
+    if not k6_only:
+        sites += [(mha_attn, "mha_cross16_bwd", k3), (sa_layer, "sa_sublayer16_bwd", sa),
+                  (sa_layer, "ffn_sublayer16_bwd", ffn), (x2y_attn, "x2y_flash16_bwd", flash),
+                  (x2y_attn, "x2y_small_x16_bwd", small_x)]
+    saved = [getattr(m, n) for m, n, _ in sites]
+    for m, n, fn in sites:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(sites, saved):
+            setattr(m, n, fn)
 
 
-def _settle16(ffn, tower, rerun):
-    """``FfnRelus16.settle`` over the FFN and the K6 tower ReLUs together:
-    each round forces every proven tie found so far (both kinds) on the
-    kernel path's side and reruns the plain path (``rerun()``: (loss,
-    gradients)) under the replay, until no unit is added.  Returns (FFN
-    forced, tower forced, rounds, settled, the first comparison's (FFN
-    flips, tower flips, their largest shares), the last replay or None); a
-    flip that is not a proven tie raises."""
-    import torch
+def _b16_forced_limits(names, gk, gt):
+    """Per gradient (limit ratio, error, limit, unit, name) of the kernel
+    path against itself with some backwards on their plain versions
+    (``_b16_plain_backwards``): both runs share the forward, so every ReLU
+    gate and every save, and differ only by the backwards' sums.  Phase 19's
+    base limits: B16_GRAD_ULPS bf16 ulps at the largest magnitude where the
+    gradient is bf16-valued on both runs, B16_GRAD_TOL of it where f32; a
+    gradient that cancels to about 0 (B16_CANCELS) is read against its
+    module's largest gradient.  Parameters without a gradient on both runs
+    are skipped; one on one run only fails."""
+    import re
 
-    forced = ({}, {})
-    rounds, first, result = 0, None, None
-    while True:
-        fn, ff, fp, fw, n_ffn = ffn.ties()
-        tn, tf, tp, tw, n_tower = tower.ties()
-        first = first or (ff, tf, fw, tw)
-        if ff < 0 or tf < 0 or ff != fp or tf != tp:
-            raise AssertionError(f"[bf16-m2] ReLU flips: FFN {ff} ({fp} proven, largest share "
-                                 f"{fw:.3e}), K6 {tf} ({tp} proven, largest share {tw:.3e}); "
-                                 f"tie {RELU_TIE16:g}, replay round {rounds}")
-        grew = False
-        for acc, new in zip(forced, (fn, tn)):
-            for key, (mask, side) in new.items():
-                m0, s0 = acc.get(key, (torch.zeros_like(mask), side))
-                grew = grew or bool((mask & ~m0).any())
-                acc[key] = (m0 | mask, torch.where(mask, side, s0))
-        if not grew or rounds == n_ffn + n_tower:
-            return forced[0], forced[1], rounds, not grew, first, result
-        rounds += 1
-        with ffn.replay(forced[0]), tower.replay(forced[1]), ffn.record("plain"), \
-                tower.record("plain"):
-            result = rerun()
+    cancels = [re.compile(p) for p in B16_CANCELS]
+    mags = {n: float(b.abs().max()) for n, b in zip(names, gt) if b is not None}
+    rows = []
+    for n, a, b in zip(names, gk, gt):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"[bf16-m2] {n}: a gradient on one run only")
+            continue
+        scale = mags[n]
+        if any(c.search(n) for c in cancels):
+            module = n.rsplit(".", 1)[0] + "."
+            scale = max(v for k, v in mags.items() if k.startswith(module))
+        if scale == 0.0:
+            if float(a.abs().max()) != 0.0:
+                raise AssertionError(f"[bf16-m2] {n}: 0 on the plain backwards' run only")
+            continue
+        b16 = all(bool((t == t.bfloat16().float()).all()) for t in (a, b))
+        limit = (B16_GRAD_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7) / scale if b16
+                 else B16_GRAD_TOL)
+        err = float((a - b).abs().max()) / scale
+        rows.append((err / limit, err, limit, "ulp" if b16 else "f32", n))
+    return sorted(rows, reverse=True)
 
 
 def phase_bf16_m2(smi, seed: int = 0):
@@ -6756,12 +6668,15 @@ def phase_bf16_m2(smi, seed: int = 0):
     BF_EVAL_LENGTHS against the f32 kernel path (breakfast_cfg()) on the same
     weights (median ms, peak memory) and against its plain bf16 path; (b)
     one train step at 4 x 4096 with every bf16 backward form's launches
-    (K6's 4), the warm step split beside the f32 path's; (c) the bf16 kernel
-    path against the bf16 plain path for train_compare's weight seeds (loss
-    and every gradient on the kernel path's matching, phase 19's limits, the
-    plain path replayed with its FFN and K6 ReLU ties on the kernel path's
-    side); (d) the train CLI on breakfast.yaml --set TPU.compute_dtype
-    bfloat16 over a Breakfast-shaped set, cut, resumed and compared bit for
+    (K6's 4), the warm step split beside the f32 path's; (c) for
+    train_compare's weight seeds, on the kernel path's matching: its loss
+    against the bf16 plain path's, and every gradient against the kernel
+    path's own with K6's backward, then every bf16 backward, on the plain
+    versions over the kernel forward's saves (``_b16_plain_backwards``: the
+    forward is the same bit for bit, so no ReLU gate differs; phase 19's
+    base limits, ``_b16_forced_limits``); (d) the train CLI on
+    breakfast.yaml --set TPU.compute_dtype bfloat16 over a
+    Breakfast-shaped set, cut, resumed and compared bit for
     bit, then ``run_eval`` on its checkpoint; (e) ``egoprocel_cfg()`` in bf16
     serving phase 13's requests at batch 2 (K3's bf16 form at M = 200).
     Returns (the eval step's counts at 8 x 4096, one train step's)."""
@@ -6927,58 +6842,58 @@ def phase_bf16_m2(smi, seed: int = 0):
         + ", ".join(f"{k} {v:.3f}" for k, v in split32.items())
         + f", peak {peak32:.2f} GiB; bf16 / f32: step {med16 / med32:.3f}, memory "
         f"{peak16 / peak32:.3f}")
-    del m32, step32, model, step
+    del m32, step32
+    torch.cuda.empty_cache()
+    pack_ms, n_packs, traced_ms = _b16_pack_trace(step, on_dev[0], gen)
+    log(f"[bf16-m2] {smi}: the bf16 weight packs of one warm step (host trace, "
+        f"torch.profiler; K6's forward packs, rebuilt as the weights change every step, and "
+        f"its backward's): {n_packs} calls, {pack_ms:.3f} ms of the traced step's "
+        f"{traced_ms:.3f} ms ({pack_ms / traced_ms:.4f})")
+    del model, step
     torch.cuda.empty_cache()
 
-    # (c) the bf16 kernel path against its plain path, train_compare's seeds
-    names = None
+    # (c) the kernel path against its plain path (the loss) and against itself
+    # with the backwards on their plain versions over its own saves, K6's
+    # alone and then every bf16 form's (every gradient), train_compare's seeds
     for s in COMPARE_SEEDS:
         model = seeded(cfg, s)
         step = make_train_step(model, cfg, C, cweight)
         st0 = {k: v.clone() for k, v in model.state_dict().items()}
-        ffn, tower = FfnRelus16(), TowerRelus16()
-        with ffn.record("kernels"), tower.record("kernels"):
-            lk, st_k, gk, _ = _b16_grads(model, step, on_dev[0], s + 7, True)
+        lk, st_k, gk, _ = _b16_grads(model, step, on_dev[0], s + 7, True)
         model.load_state_dict(st0)
-        with ffn.record("plain"), tower.record("plain"):
-            lp, _, gp, _ = _b16_grads(model, step, on_dev[0], s + 7, False, seg2tok=st_k)
-        f16 = on_dev[0]["feats"]
-        floors = []
-        for bits in (1, -1):  # each feature one bf16 ulp up, then down, in magnitude
-            nudged = dict(on_dev[0])
-            nudged["feats"] = torch.where(f16.abs() > 2.0 ** -126,
-                                          (f16.view(torch.int16) + bits).view(torch.bfloat16),
-                                          f16)
-            model.load_state_dict(st0)
-            floors.append(_b16_grads(model, step, nudged, s + 7, False, seg2tok=st_k)[2])
-
-        def replayed():
-            model.load_state_dict(st0)
-            return _b16_grads(model, step, on_dev[0], s + 7, False, seg2tok=st_k)[::2]
-
-        ff, tf, rounds, settled, first, replay = _settle16(ffn, tower, replayed)
-        lr, gr = replay or (lp, gp)
+        lp = _b16_grads(model, step, on_dev[0], s + 7, False, seg2tok=st_k)[0]
         names = [n for n, _ in model.named_parameters()]
-        rows = _b16_leaf_limits(names, gk, gr, floors)
-        n_ff = sum(int(m.sum()) for m, _ in ff.values())
-        n_tf = sum(int(m.sum()) for m, _ in tf.values())
-        tower_rows = [r for r in rows if ".frame_branch." in r[6]]
+        forced = {}
+        for what, k6_only in (("K6's backward", True), ("every bf16 backward", False)):
+            model.load_state_dict(st0)
+            reset_kernel_counters()
+            with _b16_plain_backwards(k6_only):
+                lt, _, gt, _ = _b16_grads(model, step, on_dev[0], s + 7, True, seg2tok=st_k)
+            counts = kernel_counters()
+            bwds = ("mstcn2_stack16_bwd",) + B16_BWD_KERNELS[1:]
+            left = [k for k in (bwds[:1] if k6_only else bwds) if counts[k]]
+            if lt != lk or counts["mstcn2_stack16"] != 4 or left:
+                raise AssertionError(f"[bf16-m2] seed {s}, {what} plain: loss {lt} vs the "
+                                     f"kernel path's {lk}, launches {counts}, backwards still "
+                                     f"on the card {left}")
+            forced[what] = _b16_forced_limits(names, gk, gt)
+            del gt
         log(f"[bf16-m2] seed {s}: bf16 kernel vs bf16 plain path (same weights, batch 4 x "
             f"{T} and the kernel path's matching): loss {lk:.6f} vs {lp:.6f} (rel "
-            f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); ReLU flips FFN "
-            f"{first[0]}, K6 {first[1]}, all proven ties (largest shares {first[2]:.3e}, "
-            f"{first[3]:.3e}, tie {RELU_TIE16:g}), replayed on the kernel side in {rounds} "
-            f"rounds ({n_ff} FFN and {n_tf} K6 units forced, settled: {settled}): plain loss "
-            f"{lr:.6f}; {len(rows)} gradients ({sum(r[5] == 'ulp' for r in rows)} bf16, held to "
-            f"{B16_GRAD_ULPS} ulps; the rest f32, to {B16_GRAD_TOL:g}), the closest to their "
-            f"limits (error, limit, floor, of the scale): "
-            + ", ".join(f"{n} {e:.3e} {lim:.3e} {fl:.3e}" for _, e, lim, _, fl, _, n in rows[:4])
-            + "; the towers' closest: "
-            + ", ".join(f"{n} {e:.3e} {lim:.3e}" for _, e, lim, _, _, _, n in tower_rows[:3]))
-        if abs(lk - lp) > B16_TRAIN_LOSS_TOL * abs(lp) or rows[0][0] > 1.0:
-            raise AssertionError(f"[bf16-m2] seed {s}: the kernel path's gradients disagree "
-                                 "with the plain path's")
-        del gk, gp, gr, floors, model, step, ffn, tower
+            f"{abs(lk - lp) / abs(lp):.3e}, tol {B16_TRAIN_LOSS_TOL:g}); the kernel path against "
+            f"itself with the backwards on their plain versions over its own saves (the same "
+            f"forward bit for bit, so no ReLU gate differs), {len(names)} gradients each held "
+            f"to {B16_GRAD_ULPS} bf16 ulps or {B16_GRAD_TOL:g} of its scale (f32), the closest "
+            f"to their limits (error, limit, of the scale): "
+            + "; ".join(f"{what}: " + ", ".join(f"{n} {e:.3e} {lim:.3e}"
+                                                  for _, e, lim, _, n in rows[:4])
+                        for what, rows in forced.items()))
+        worst = max(rows[0][0] for rows in forced.values())
+        if abs(lk - lp) > B16_TRAIN_LOSS_TOL * abs(lp) or worst > 1.0:
+            raise AssertionError(f"[bf16-m2] seed {s}: the kernel path's loss or gradients "
+                                 f"disagree with the plain versions' (worst {worst:.3f} of its "
+                                 f"limit)")
+        del gk, model, step
         torch.cuda.empty_cache()
     del on_dev
 

@@ -337,7 +337,9 @@ def test_emulated_k6_bwd16(fake, C, L):
     the gated one with dbf's sums, [dc1 | dc2] in one product of N = 2C and
     its rounding with db1's and db2's sums, dx over the six taps at their
     shifts and first channels, the weight products) against the plain
-    versions, lengths ragged with 0."""
+    versions, lengths ragged with 0: the saves and dx bit for bit (the model
+    of the C entries sums in the plain versions' order), the weight and bias
+    sums, which the card forms in its own fixed chunks, within K1's limits."""
     rng = np.random.default_rng(C + L)
     B, T, O = 3, 200, 16
     x = _bf(rng, (B, T, C))
@@ -353,16 +355,16 @@ def test_emulated_k6_bwd16(fake, C, L):
                                                 save=True)
     assert fake.calls[0] == ("b16_round", False) and len(sk) == L + 1
     assert ("b16_gemm", dc.B16_FUSE) in fake.calls
-    for a, p in zip(sk + ck + hk, sp + cp + hp):  # the card's saves: the plain ones, zero
-        assert a.dtype == BF and a.shape == p.shape  # past each video
-        assert (a.float() - p.float()).abs().max() <= TOL * p.float().abs().max()
+    for a, p in zip(sk + ck + hk, sp + cp + hp):  # the card's saves: the plain ones
+        assert a.dtype == BF and torch.equal(a, p)
     g = _f(rng, (B, T, O))
     fake.calls.clear()
     got = dc._mstcn2_16_bwd_card(g, sp, cp, hp, lens, layers, dil, ow, ob)
     ref = dc.mstcn2_stack16_bwd_reference(g, sp, cp, hp, lens, layers, dil, out_w=ow, out_b=ob)
     valid = torch.arange(T)[None, :] < lens[:, None]
     assert got[0].dtype == BF and not got[0].float()[~valid].any()
-    _check(["dx", "dow", "dob"], [got[0], got[2], got[3]], [ref[0], ref[2], ref[3]])
+    assert torch.equal(got[0], ref[0])
+    _check(["dow", "dob"], [got[2], got[3]], [ref[2], ref[3]])
     for i in range(L):
         _check(["dk1", "db1", "dk2", "db2", "dwt", "dwb", "dbf"], got[1][i], ref[1][i])
     wgrads = [c for c in fake.calls if c[0] == "b16_wgrad"]

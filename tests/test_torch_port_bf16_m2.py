@@ -298,13 +298,38 @@ def test_k6_bf16_forms_refuse_before_any_launch(monkeypatch):
 # grouped towers (f_ngp > 1) against JAX's flax modules (outside any kernel)
 
 
+def _gates_apart(params, kind, rng):
+    """``params`` with every tower ReLU's input kept at |z| >= ~0.5: the
+    gate's bias (the fuse's for MS-TCN++, the dilated conv's for MSTCN) of
+    magnitude 1 to 1.5 and a random sign, the weights feeding it scaled by
+    0.3 (``chip_smoke.ffn_case(away_from_zero=True)``'s rule).  Both sides
+    then agree on every gate, so no ReLU flips between them."""
+    p = jax.tree_util.tree_map(np.array, params)
+    if kind == "m2":
+        gates = [(p, k, k.replace("_bias", "_kernel")) for k in list(p)
+                 if k.startswith("fuse_") and k.endswith("_bias")]
+    else:
+        gates = [(node, "conv_dilated_bias", "conv_dilated_kernel") for k, node in p.items()
+                 if k.startswith("DilatedResidualLayer_")]
+    for node, bias, kernel in gates:
+        n = node[bias].shape[0]
+        node[bias] = (np.sign(rng.standard_normal(n)) * rng.uniform(1.0, 1.5, n)).astype(np.float32)
+        node[kernel] = node[kernel] * np.float32(0.3)
+    return p
+
+
 @pytest.mark.parametrize("kind", ["m2", "m"])
 def test_grouped_tower16_matches_flax(kind):
-    """A grouped tower (ngroup 2) under bf16 against JAX's flax module with
-    ``dtype=bfloat16`` (its XLA path: ``layers.py:494-508`` for MS-TCN++,
-    the unfused layers ``:290-331`` for MSTCN), through the port's exporter:
-    the f32 logits on valid frames within 1e-2 of scale; gradients reach
-    every parameter, finite."""
+    """A grouped tower (ngroup 2, 4 layers) under bf16 against JAX's flax
+    module with ``dtype=bfloat16`` (its XLA path: ``layers.py:494-508`` for
+    MS-TCN++, the unfused layers ``:290-331`` for MSTCN), through the port's
+    exporter: the f32 logits on valid frames within 1e-2 of scale; then,
+    with the ReLU gates kept apart (``_gates_apart``), every parameter's
+    gradient of the valid frames' squared logits against ``jax.grad`` of the
+    same: within 2e-2 of its scale and a cosine of at least 0.9999 (the
+    narrow train step's limits).  At random weights a one-ulp difference of
+    a rounded ReLU input near 0 flips its gate on one side only, which moves
+    a whole unit's cotangent; the forward does not see it."""
     rng = np.random.default_rng(7)
     Bm, Tm, D, H, Om, Lm = 2, 50, 12, 16, 20, 4
     x = rng.standard_normal((Bm, Tm, D)).astype(np.float32)
@@ -313,29 +338,48 @@ def test_grouped_tower16_matches_flax(kind):
     if kind == "m2":
         jm = JL.MSTCN2(in_dim=D, hid_dim=H, out_dim=Om, num_layers=Lm, dropout=0.0,
                        in_map=True, ngroup=2, dtype=BF)
+        pm = layers.MSTCN2(D, H, Om, Lm, ngroup=2, in_map=True, dtype=torch.bfloat16)
     else:
         jm = JL.MSTCN(in_dim=D, hid_dim=H, out_dim=Om, num_layers=Lm, dropout=0.0, ln=False,
                       in_map=True, ngroup=2, dtype=BF)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(mask), True)
-
-    ref = np.asarray(jax.jit(lambda p, a, m: jm.apply(p, a, m, True))(
-        params, jnp.asarray(x), jnp.asarray(mask)))
-    assert ref.dtype == np.float32
-    sd = {}
-    export = ptx._mstcn2 if kind == "m2" else ptx._mstcn
-    export(sd, "m", jax.tree_util.tree_map(np.asarray, params["params"]), True)
-    if kind == "m2":
-        pm = layers.MSTCN2(D, H, Om, Lm, ngroup=2, in_map=True, dtype=torch.bfloat16)
-    else:
         pm = layers.MSTCN(D, H, Om, Lm, ln=False, ngroup=2, in_map=True, dtype=torch.bfloat16)
-    pm.load_state_dict({k[2:]: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
+    export = ptx._mstcn2 if kind == "m2" else ptx._mstcn
+    xj, mj = jnp.asarray(x), jnp.asarray(mask)
+    xt, lt, mt = torch.from_numpy(x), torch.from_numpy(lengths), torch.from_numpy(mask)
+
+    def load(tree):  # a flax tree (parameters or gradients) -> the port's names, numpy
+        sd = {}
+        export(sd, "m", jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree), True)
+        return {k[2:]: v for k, v in sd.items()}
+
+    params = jm.init(jax.random.PRNGKey(0), xj, mj, True)
+    ref = np.asarray(jax.jit(lambda p, a, m: jm.apply(p, a, m, True))(params, xj, mj))
+    assert ref.dtype == np.float32
+    pm.load_state_dict({k: torch.from_numpy(v) for k, v in load(params["params"]).items()},
+                       strict=True)
     with torch.no_grad():
-        got = pm(torch.from_numpy(x), torch.from_numpy(lengths))
+        got = pm(xt, lt)
     assert got.dtype == torch.float32
     assert _rel(got.numpy()[mask], ref[mask]) <= TOWER_TOL, _rel(got.numpy()[mask], ref[mask])
-    out = pm(torch.from_numpy(x), torch.from_numpy(lengths))
-    grads = torch.autograd.grad(out[torch.from_numpy(mask)].square().sum(), list(pm.parameters()))
-    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
+
+    apart = {"params": _gates_apart(params["params"], kind, rng)}
+
+    def loss(p):
+        out = jm.apply(p, xj, mj, True)
+        return jnp.sum(jnp.where(mj[..., None], out, 0.0) ** 2)
+
+    want = load(jax.jit(jax.grad(loss))(apart)["params"])
+    pm.load_state_dict({k: torch.from_numpy(v) for k, v in load(apart["params"]).items()},
+                       strict=True)
+    names = [n for n, _ in pm.named_parameters()]
+    grads = torch.autograd.grad(pm(xt, lt)[mt].square().sum(), list(pm.parameters()))
+    assert set(names) == set(want)
+    for n, g in zip(names, grads):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), n
+        g, r = g.numpy(), want[n]
+        err = float(np.abs(g - r).max() / np.abs(r).max())
+        cos = float((g * r).sum() / (np.linalg.norm(g) * np.linalg.norm(r)))
+        assert err <= GRAD_TOL and cos >= GRAD_COS, (n, err, cos)
 
 
 # ---------------------------------------------------------------------------
