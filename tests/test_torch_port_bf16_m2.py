@@ -9,7 +9,7 @@ which rounds elsewhere), with and without ``out_params``, at T not a
 multiple of the tile and with a video of 0 frames; the backward against
 ``jax.vjp`` of the same, its cotangents in the primals' dtypes.  The
 grouped towers (``f_ngp > 1``) against JAX's flax modules, which compute
-them outside any kernel.  Then a narrow Breakfast-shaped ``iuUU`` with
+them outside any kernel, forward and gradients.  Then a narrow Breakfast-shaped ``iuUU`` with
 ``f: m2`` in bf16 against JAX's model block by block, as an eval step and
 as a train step (JAX's ``make_step_fns`` with its kernels in interpret mode
 and the host matcher); ``breakfast_bf16_cfg()`` against ``breakfast.yaml``
@@ -24,6 +24,8 @@ Tolerances (``tests/test_torch_port_bf16.py``'s and
   their scale (one-ulp flips of the stream compound over the layers);
 * cotangents: 2^-7 of the reference's scale for one layer, 2^-6 through a
   3-layer tower; a weight gradient JAX rounds to bf16 holds a bf16 value;
+* a grouped tower's gradients (its ReLU gates kept away from 0): within
+  2e-2 of each one's scale and a cosine of at least 0.9999;
 * the narrow model: f32 logits within 2e-2 of scale and at least 95 % of
   the frame predictions equal; the train step's matching equal, its loss
   within 1e-4 relative, every gradient within 2e-2 of its scale with a
@@ -355,7 +357,7 @@ def test_grouped_tower16_matches_flax(kind):
     params = jm.init(jax.random.PRNGKey(0), xj, mj, True)
     ref = np.asarray(jax.jit(lambda p, a, m: jm.apply(p, a, m, True))(params, xj, mj))
     assert ref.dtype == np.float32
-    pm.load_state_dict({k: torch.from_numpy(v) for k, v in load(params["params"]).items()},
+    pm.load_state_dict({k: torch.tensor(v) for k, v in load(params["params"]).items()},
                        strict=True)
     with torch.no_grad():
         got = pm(xt, lt)
@@ -369,7 +371,7 @@ def test_grouped_tower16_matches_flax(kind):
         return jnp.sum(jnp.where(mj[..., None], out, 0.0) ** 2)
 
     want = load(jax.jit(jax.grad(loss))(apart)["params"])
-    pm.load_state_dict({k: torch.from_numpy(v) for k, v in load(apart["params"]).items()},
+    pm.load_state_dict({k: torch.tensor(v) for k, v in load(apart["params"]).items()},
                        strict=True)
     names = [n for n, _ in pm.named_parameters()]
     grads = torch.autograd.grad(pm(xt, lt)[mt].square().sum(), list(pm.parameters()))
